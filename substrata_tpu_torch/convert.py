@@ -1,0 +1,79 @@
+"""Converters between numpy arrays and the port's tensor dataclasses.
+
+The reference package's state converts field by field: the caller turns
+each of its arrays into numpy (``np.asarray``) and passes a mapping of
+field name -> array; the port never sees an array of the reference's
+framework.  ``to_numpy`` goes the other way, for comparisons.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from substrata_tpu_torch.physics.broadphase import PairCache
+from substrata_tpu_torch.physics.solver import SolverCache
+from substrata_tpu_torch.physics.state import (BODY_FIELDS, SIM_PARAM_FIELDS,
+                                               BodyState, Heightfield, SimParams,
+                                               StaticWorld)
+
+Arrays = Mapping[str, np.ndarray]
+
+
+def _t(x, device):
+    return torch.as_tensor(np.array(x, copy=True), device=device)
+
+
+def body_state_from_numpy(arrays: Arrays, device="cpu") -> BodyState:
+    """``arrays`` holds the 23 BodyState fields by name."""
+    return BodyState(**{f: _t(arrays[f], device) for f in BODY_FIELDS})
+
+
+def static_world_from_numpy(arrays: Arrays, device="cpu") -> StaticWorld:
+    """Keys: heights, origin, cell_w, is_flat, has_heightfield, water_z and
+    n_tris (the reference trimesh's triangle count; only an empty trimesh
+    converts in this slice)."""
+    if int(arrays.get("n_tris", 0)) > 0:
+        raise NotImplementedError(
+            "static trimesh geometry is not ported yet (ROADMAP.md queue 1, "
+            "slice 3: the other shapes)")
+    hf = Heightfield(heights=_t(np.asarray(arrays["heights"], np.float32), device),
+                     origin=_t(np.asarray(arrays["origin"], np.float32), device),
+                     cell_w=_t(np.asarray(arrays["cell_w"], np.float32), device),
+                     is_flat=bool(arrays["is_flat"]))
+    return StaticWorld(heightfield=hf,
+                       has_heightfield=_t(np.asarray(arrays["has_heightfield"], bool), device),
+                       water_z=_t(np.asarray(arrays["water_z"], np.float32), device))
+
+
+def sim_params_from_numpy(arrays: Arrays, device="cpu") -> SimParams:
+    return SimParams(**{f: _t(np.asarray(arrays[f], np.float32), device)
+                        for f in SIM_PARAM_FIELDS})
+
+
+def solver_cache_from_numpy(data: np.ndarray, device="cpu") -> SolverCache:
+    """``data``: the reference cache's [H, 5] f32 rows."""
+    return SolverCache(data=_t(np.asarray(data, np.float32), device))
+
+
+def pair_cache_from_numpy(arrays: Arrays, device="cpu") -> PairCache:
+    return PairCache(**{f.name: _t(arrays[f.name], device)
+                        for f in dataclasses.fields(PairCache)})
+
+
+def to_numpy(obj) -> dict:
+    """Dataclass of tensors -> {field: numpy array} (nested dataclasses
+    flatten with a ``parent.child`` key)."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out.update({f"{f.name}.{k}": x for k, x in to_numpy(v).items()})
+        elif isinstance(v, torch.Tensor):
+            out[f.name] = v.detach().cpu().numpy()
+        else:
+            out[f.name] = np.asarray(v)
+    return out

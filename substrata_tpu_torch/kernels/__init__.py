@@ -1,0 +1,33 @@
+"""Hand-written Hopper kernels of the physics tick and their wrappers.
+
+Each wrapper module holds the kernel's plain PyTorch twin beside it.  A
+wrapper runs the twin for tensors on the CPU; for CUDA tensors it launches
+the kernel or raises — it never falls back.  Each keeps a plain integer
+count of its launches (``launch_counts``), so a run can show that the main
+path went through the kernels.
+
+  KA  box_box.py            csrc/box_box.cu          box-box manifolds
+  KB  static_contacts.py    csrc/static_contacts.cu  ground contacts
+  KC  solve.py              csrc/solve_contacts.cu   contact-solve iteration
+  KD  integrate_triton.py   (Triton)                 forces, integration
+"""
+
+from substrata_tpu_torch.kernels import box_box, integrate_triton, solve, static_contacts
+
+
+def launch_counts() -> dict:
+    return {
+        "box_box_rows": box_box.launches,
+        "static_contacts": static_contacts.launches,
+        "solve_iteration": solve.launches,
+        "apply_forces": integrate_triton.launches["apply_forces"],
+        "integrate_positions": integrate_triton.launches["integrate_positions"],
+    }
+
+
+def reset_launch_counts():
+    box_box.launches = 0
+    static_contacts.launches = 0
+    solve.launches = 0
+    for k in integrate_triton.launches:
+        integrate_triton.launches[k] = 0

@@ -1,0 +1,157 @@
+"""Build and bind the CUDA kernels under ``csrc/``.
+
+All ``csrc/*.cu`` files compile with nvcc into ONE shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds), which
+is loaded with ctypes.  The build runs at first use, into
+``substrata_tpu_torch/_build/`` (listed in .gitignore), under a name that
+carries a hash of the sources and flags, so an edit rebuilds.
+
+Every exported function takes raw device pointers and the CUDA stream as
+``c_void_p``, launches on that stream, allocates nothing, and returns
+``cudaGetLastError()``; ``launch`` raises if that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # No fused multiply-add contraction: each kernel repeats its plain
+    # twin's operations in the same order, and separate rounding keeps the
+    # two bit-comparable.
+    "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+
+# name -> argtypes (all return int = cudaError_t).
+SIGNATURES = {
+    # pair_a, pair_b, pair_valid, pos, quat, params, fric, rest, sensor,
+    # P, out a, b, point, normal, pen, valid, fric, rest, key, touch, stream
+    "box_box_rows": [P] * 9 + [I] + [P] * 10 + [P],
+    # pos, quat, shape_type, shape_params, alive, layer, motion, sensor,
+    # awake, fric, rest, heights, hf_origin, hf_cell_w, has_hf, N, HX, HY,
+    # flags (bit 0 = flat, bits 1-4 = present shape types), K, out a, b,
+    # point, normal, pen, valid, fric, rest, key, stream
+    "static_contacts": [P] * 15 + [I] * 5 + [P] * 9 + [P],
+    # static rows (dir, ang, r, k, target, fric, valid, y, l), pair rows
+    # (dir, ang_a, ang_b, ra, rb, k, target, fric, valid, ab, y, l),
+    # linvel, angvel, out (s_y, s_l, p_y, p_l, dlin_s, dang_s, block),
+    # N, K, Q, WM, beta, warm, stream
+    "solve_rows": [P] * 9 + [P] * 12 + [P] * 2 + [P] * 7 + [I] * 4 + [F, I] + [P],
+    # tbl, w, im, block, dlin_s, dang_s, linvel, angvel, out linvel,
+    # angvel, N, CPB, stream
+    "solve_bodies": [P] * 8 + [P] * 2 + [I] * 2 + [P],
+}
+
+_lib = None
+build_seconds = None
+
+
+def _sources():
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc():
+    path = shutil.which("nvcc")
+    if path is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        cand = os.path.join(home, "bin", "nvcc")
+        path = cand if os.path.exists(cand) else None
+    if path is None:
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin): cannot build the CUDA kernels")
+    return path
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libsubstrata_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile csrc/*.cu if the library for these sources is missing;
+    returns its path.  ``verbose`` adds ``-Xptxas -v`` and prints nvcc's
+    report (registers, shared memory, spills per kernel)."""
+    global build_seconds
+    out = library_path()
+    if os.path.exists(out) and not verbose:
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = [s for s in _sources() if s.endswith(".cu")]
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) \
+        + ["-o", tmp] + cu
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                           f"{res.stdout}\n{res.stderr}")
+    if verbose:
+        print(res.stdout + res.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _arg(x):
+    if isinstance(x, torch.Tensor):
+        return ctypes.c_void_p(x.data_ptr())
+    return x
+
+
+def launch(name: str, *args):
+    """Call kernel launcher ``name`` on the current stream; tensors pass as
+    device pointers.  Raises if the launch reported an error."""
+    lib = library()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    rc = getattr(lib, name)(*[_arg(a) for a in args], stream)
+    if rc != 0:
+        raise RuntimeError(f"kernel {name} failed to launch: "
+                           f"{lib.kernel_error_string(rc).decode()} ({rc})")
+
+
+def check(t: torch.Tensor, name: str, dtype, shape, device):
+    """Wrapper-side argument validation before a pointer reaches a kernel."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")

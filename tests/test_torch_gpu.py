@@ -1,0 +1,115 @@
+"""Kernels KA-KD on the card against their plain PyTorch twins.
+
+These need a CUDA device and skip without one (the decision is made inside
+the fixture, never at import).  The file imports torch, numpy and the port
+only, so it also runs on a machine without JAX:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+
+Tolerances are chip_smoke.py's: 1e-5 for KA/KB rows, 1e-4 for KC
+velocities after warm start + 7 iterations, 1e-6 for KD; each kernel
+repeats its twin's operations in the same order."""
+
+import numpy as np
+import pytest
+import torch
+
+from substrata_tpu_torch import MotionType, PhysicsObject, PhysicsWorld
+from substrata_tpu_torch.kernels import box_box as ka
+from substrata_tpu_torch.kernels import integrate_triton as kd
+from substrata_tpu_torch.kernels import solve as kc
+from substrata_tpu_torch.kernels import static_contacts as kb
+from substrata_tpu_torch.physics import narrowphase, shapes, solver
+from substrata_tpu_torch.physics.state import SimConfig
+
+pytestmark = pytest.mark.gpu
+
+DT = 1.0 / 60.0
+
+
+@pytest.fixture(scope="module")
+def world():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = SimConfig(capacity=512, max_pairs=2048, grid_dim=32, cell_size=1.4,
+                    cell_capacity=6, solver_iters=7, pairs_per_body=10,
+                    pair_rebuild_interval=6, contacts_per_body=8)
+    w = PhysicsWorld(cfg, device="cuda")
+    w.set_ground_plane(0.0)
+    rng = np.random.default_rng(0)
+    for i in range(400):
+        ix, iy, iz = i % 12, (i // 12) % 12, i // 144
+        pos = np.array([ix * 1.7 + rng.uniform(-0.15, 0.15),
+                        iy * 1.7 + rng.uniform(-0.15, 0.15), 0.45 + iz * 0.85], np.float32)
+        w.add_object(PhysicsObject(shape=shapes.make_box([0.4, 0.4, 0.4]), pos=pos,
+                                   motion_type=int(MotionType.DYNAMIC)))
+    for _ in range(20):
+        w.think(DT)
+    return w
+
+
+def test_box_box_kernel_matches_plain(world):
+    s, pc = world.state, world.pair_cache
+    args = (s.pos, s.quat, s.shape_params, s.friction, s.restitution, s.is_sensor,
+            pc.pair_a, pc.pair_b, pc.pair_valid)
+    rk, rp = ka.box_box_rows(*args), ka.box_box_rows_plain(*args)
+    torch.cuda.synchronize()
+    for i in (0, 1, 5, 6, 7, 8, 9):
+        assert torch.equal(rk[i], rp[i]), i
+    for i in (2, 3, 4):
+        assert float((rk[i] - rp[i]).abs()[rp[5]].max()) <= 1e-5
+    assert int(rp[5].sum()) > 100
+
+
+def test_static_contacts_kernel_matches_plain(world):
+    s, sw, cfg = world.state, world.static_world, world.config
+    for k in (4, 8):
+        rk = kb.static_contacts(s, sw.heightfield, sw.has_heightfield, k,
+                                cfg.present_shape_types)
+        rp = kb.static_contacts_plain(s, sw.heightfield, sw.has_heightfield, k,
+                                      cfg.present_shape_types)
+        for i in (0, 1, 5, 8):
+            assert torch.equal(rk[i], rp[i]), (k, i)
+        for i in (2, 3, 4, 6, 7):
+            assert float((rk[i] - rp[i]).abs().max()) <= 1e-5, (k, i)
+
+
+def test_solve_iterations_kernel_matches_plain(world):
+    s, pc, cfg = world.state, world.pair_cache, world.config
+    wm = narrowphase.blocked_manifold_width(cfg, s.capacity)
+    pair_cts, _, _ = narrowphase.pair_contacts(s, pc.pair_a, pc.pair_b, pc.pair_valid,
+                                               cfg, blocked_wm=wm)
+    static_cts = narrowphase.static_contacts(s, world.static_world, cfg)
+    setup = solver.prepare_solve(s, static_cts, pair_cts, DT, world.params, cfg,
+                                 world.solver_cache, wm=wm, table=pc.inc_table,
+                                 sign=pc.inc_sign)
+    stk, lk, ak = solver.iterate(setup, s.linvel, s.angvel, 7, step=kc.solve_iteration)
+    stp, lp, ap = solver.iterate(setup, s.linvel, s.angvel, 7,
+                                 step=kc.solve_iteration_plain)
+    assert float((lk - lp).abs().max()) <= 1e-4
+    assert float((ak - ap).abs().max()) <= 1e-4
+    assert float((stk.p_l - stp.p_l).abs().max()) <= 1e-4 * max(float(stp.p_l.abs().max()), 1.0)
+
+
+def test_integrate_kernels_match_plain(world):
+    s = world.state.replace(
+        linvel=world.state.linvel + 0.3,
+        underwater=torch.zeros_like(world.state.underwater))
+    params = world.params.replace(water_z=torch.tensor(0.6, device="cuda"))
+    lk, ak, wk = kd.apply_forces(s, DT, params)
+    lp, ap, wp = kd.apply_forces_plain(s, DT, params)
+    assert torch.equal(wk, wp) and bool(wp.any())          # some bodies in water
+    assert float((lk - lp).abs().max()) <= 1e-6
+    assert float((ak - ap).abs().max()) <= 1e-6
+    pk, qk = kd.integrate_positions(s, lp, ap, DT)
+    pp, qp = kd.integrate_positions_plain(s, lp, ap, DT)
+    assert float((pk - pp).abs().max()) <= 1e-6
+    assert float((qk - qp).abs().max()) <= 1e-6
+
+
+def test_wrappers_refuse_mismatched_devices(world):
+    s, pc = world.state, world.pair_cache
+    with pytest.raises(ValueError):
+        ka.box_box_rows(s.pos, s.quat, s.shape_params, s.friction, s.restitution,
+                        s.is_sensor, pc.pair_a.cpu(), pc.pair_b, pc.pair_valid)

@@ -1,0 +1,197 @@
+"""substrata_tpu_torch.PhysicsWorld: the golden box scenes of
+test_jolt_fidelity.py with the same fixtures and the same tolerances, slot
+reuse, SimConfig parity with the reference, and the import boundary
+(the port never loads jax)."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from substrata_tpu.physics import state as jstate
+from substrata_tpu_torch import MotionType, PhysicsObject, PhysicsWorld
+from substrata_tpu_torch.physics import shapes
+from substrata_tpu_torch.physics.state import SimConfig
+
+torch.set_num_threads(2)
+
+FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load_golden(name):
+    d = np.load(os.path.join(FIXTURES, f"golden_{name}.npz"))
+    return d["pos"], d["quat"]
+
+
+def make_world(**kw):
+    cfg = SimConfig(capacity=32, max_pairs=256, grid_dim=16, cell_size=2.0,
+                    solver_iters=10, **kw)
+    w = PhysicsWorld(cfg)
+    w.set_ground_plane(0.0)
+    return w
+
+
+def run_engine(w, obs, steps):
+    pos = np.zeros((steps, len(obs), 3))
+    for t in range(steps):
+        w.think(1 / 60)
+        w.sync_transforms()
+        for i, ob in enumerate(obs):
+            pos[t, i] = ob.pos
+    return pos
+
+
+def test_five_box_stack_rests_exactly():
+    """Same scene and bounds as test_jolt_fidelity.py:135."""
+    w = make_world()
+    obs = [w.add_object(PhysicsObject(
+        shape=shapes.make_box([0.4, 0.4, 0.4]),
+        pos=np.array([0, 0, 0.4 + 0.82 * i], np.float32),
+        motion_type=int(MotionType.DYNAMIC))) for i in range(5)]
+    run_engine(w, obs, 300)
+    for i, ob in enumerate(obs):
+        assert abs(ob.pos[2] - (0.4 + 0.8 * i)) < 0.05, (i, ob.pos)
+        assert np.linalg.norm(ob.pos[:2]) < 0.1, (i, ob.pos)
+        q = np.asarray(ob.rot)
+        assert abs(abs(q[3]) - 1.0) < 0.01, (i, q)
+
+
+def test_rotated_box_stack_matches_golden():
+    """Same scene, fixture and bounds as test_jolt_fidelity.py:229."""
+    gpos, _ = load_golden("rotated_box_stack")
+    w = make_world()
+    s, c = np.sin(np.pi / 8), np.cos(np.pi / 8)
+    lo = w.add_object(PhysicsObject(
+        shape=shapes.make_box([0.5, 0.5, 0.3]),
+        pos=np.array([0, 0, 0.3], np.float32),
+        motion_type=int(MotionType.DYNAMIC)))
+    hi = w.add_object(PhysicsObject(
+        shape=shapes.make_box([0.3, 0.3, 0.3]),
+        pos=np.array([0, 0, 1.3], np.float32),
+        rot=np.array([0.0, 0.0, s, c], np.float32),
+        motion_type=int(MotionType.DYNAMIC)))
+    pos = run_engine(w, [lo, hi], len(gpos))
+    assert abs(pos[-1, 0, 2] - gpos[-1, 0, 2]) < 0.03, (pos[-1, 0, 2], gpos[-1, 0, 2])
+    assert abs(pos[-1, 1, 2] - gpos[-1, 1, 2]) < 0.06, (pos[-1, 1, 2], gpos[-1, 1, 2])
+    assert np.linalg.norm(pos[-1, 1, :2]) < 0.15, pos[-1, 1]
+
+
+def test_remove_and_readd_in_one_tick_reuses_slot_cleanly():
+    """Slot reuse: a body removed and a new one added before the next tick
+    takes the freed slot; the new body starts from its own state (no
+    inherited velocity or warm-start impulses) and rests on the ground."""
+    w = make_world()
+    a = w.add_object(PhysicsObject(shape=shapes.make_box([0.4, 0.4, 0.4]),
+                                   pos=np.array([0, 0, 0.4], np.float32),
+                                   motion_type=int(MotionType.DYNAMIC)))
+    b = w.add_object(PhysicsObject(shape=shapes.make_box([0.4, 0.4, 0.4]),
+                                   pos=np.array([0, 0, 1.2], np.float32),
+                                   motion_type=int(MotionType.DYNAMIC)))
+    run_engine(w, [a, b], 30)
+    slot = b.slot
+    w.remove_object(b)
+    c = w.add_object(PhysicsObject(shape=shapes.make_box([0.3, 0.3, 0.3]),
+                                   pos=np.array([3.0, 0, 0.3], np.float32),
+                                   motion_type=int(MotionType.DYNAMIC)))
+    assert c.slot == slot and b.slot == -1
+    pos = run_engine(w, [a, c], 120)
+    assert abs(pos[-1, 1, 2] - 0.3) < 0.02 and abs(pos[-1, 1, 0] - 3.0) < 0.02
+    assert abs(pos[-1, 0, 2] - 0.4) < 0.02
+    assert w.state.shape_params[slot, 0].item() == pytest.approx(0.3)
+    assert set(w.objects) == {a.slot, c.slot}
+
+
+def test_simconfig_matches_reference():
+    """Same field set and defaults, same validation and auto value."""
+    assert vars(SimConfig()) == vars(jstate.SimConfig())
+    kw = dict(capacity=10_240, max_pairs=16_384, grid_dim=128, cell_size=1.4,
+              cell_capacity=6, solver_iters=7, pairs_per_body=10,
+              pair_rebuild_interval=6, contacts_per_body=8)
+    assert vars(SimConfig(**kw)) == vars(jstate.SimConfig(**kw))
+    assert SimConfig(**kw) == SimConfig(**kw)
+    assert hash(SimConfig(**kw)) == hash(SimConfig(**kw))
+    with pytest.raises(ValueError):
+        SimConfig(capacity=70_000)
+    with pytest.raises(ValueError):
+        SimConfig(capacity=65_536, max_active_contacts=1 << 20)
+
+
+def test_unported_entry_points_raise():
+    w = make_world()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        w.think_with_player(1 / 60, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        w.trace_ray([0, 0, 5], [0, 0, -1], 10.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        shapes.make_convex_hull(np.eye(3))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        w.set_static_trimesh(np.zeros((3, 3)), np.zeros((1, 3), np.int32))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        w.set_pipelined(2)
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, substrata_tpu_torch, substrata_tpu_torch.convert, "
+            "substrata_tpu_torch.kernels; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'substrata_tpu')]; "
+            "assert not bad, bad; print('ok')")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def _scripted_world(pkg_world, pkg_object, pkg_shapes, motion_dynamic):
+    """One host script through either package's facade: a bilinear
+    heightfield, water buoyancy, 12 separated boxes; after 20 thinks a
+    teleport, a velocity write, a removal and an add; 25 more thinks."""
+    rng = np.random.default_rng(3)
+    w = pkg_world(SimConfig(capacity=32, max_pairs=256, grid_dim=16, cell_size=2.0,
+                            solver_iters=7) if pkg_world is PhysicsWorld else
+                  jstate.SimConfig(capacity=32, max_pairs=256, grid_dim=16,
+                                   cell_size=2.0, solver_iters=7))
+    w.set_heightfield(rng.uniform(-0.2, 0.2, (17, 17)).astype(np.float32),
+                      origin=[-10.0, -10.0], cell_w=1.25)
+    w.set_water_buoyancy_enabled(True)
+    w.water_z = 0.3
+    obs = []
+    for i in range(12):
+        pos = np.array([(i % 4) * 2.5 - 4.0, (i // 4) * 2.5 - 3.0,
+                        rng.uniform(0.8, 2.5)], np.float32)
+        obs.append(w.add_object(pkg_object(shape=pkg_shapes.make_box([0.3, 0.3, 0.3]),
+                                           pos=pos, motion_type=motion_dynamic)))
+    trace = []
+    for t in range(45):
+        if t == 20:
+            w.set_new_ob_to_world_transform(obs[0], [4.0, 4.0, 2.0],
+                                            [0.0, 0.0, 0.38268343, 0.9238795])
+            w.set_linear_and_angular_vel(obs[1], [2.0, 0.0, 3.0], [0.0, 1.0, 0.0])
+            w.remove_object(obs[2])
+            obs[2] = w.add_object(pkg_object(shape=pkg_shapes.make_box([0.25, 0.25, 0.25]),
+                                             pos=np.array([0.0, 5.0, 1.5], np.float32),
+                                             motion_type=motion_dynamic))
+        w.think(1 / 60)
+        w.sync_transforms()
+        d = w.last_diags
+        trace.append((np.stack([np.asarray(ob.pos) for ob in obs]),
+                      (int(d.num_contacts), int(d.num_awake))))
+    return trace
+
+
+def test_facade_script_tracks_reference():
+    """The port's PhysicsWorld against the reference's on the same host
+    script.  Positions within 1e-3 m at every tick (the slice-1 bound of
+    test_torch_step.py); contact and awake counts equal."""
+    from substrata_tpu.physics import shapes as jshapes
+    from substrata_tpu.physics.world import PhysicsObject as JObject
+    from substrata_tpu.physics.world import PhysicsWorld as JWorld
+    ref = _scripted_world(JWorld, JObject, jshapes, int(jstate.MotionType.DYNAMIC))
+    port = _scripted_world(PhysicsWorld, PhysicsObject, shapes, int(MotionType.DYNAMIC))
+    for t, ((jp, jcounts), (tp, tcounts)) in enumerate(zip(ref, port)):
+        np.testing.assert_allclose(tp, jp, atol=1e-3, err_msg=f"tick {t}")
+        assert tcounts == jcounts, t
+    assert np.abs(port[-1][0] - port[19][0]).max() > 1.0      # the writes moved bodies
