@@ -14,17 +14,35 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 4. small worlds: the five-box stack rests at its analytic heights on the
    card, and a 200-box world steps on the card as the CPU path does
    (the CPU path is the one the tests hold against the JAX reference);
-5. main path: the bench world through PhysicsWorld(cfg, device="cuda"),
-   180 think(1/60) calls with a seeded velocity kick (bench.py's churn)
-   before ticks 31, 61, 91, 121 and 151; the invariants hold, every
-   kernel's launch counter grew, and six more thinks make one
-   synchronizing call each (the digest read).
+5. main path: the bench world through PhysicsWorld(cfg) (on the card by
+   default), 180 think(1/60) calls with a seeded velocity kick (bench.py's
+   churn) before ticks 31, 61, 91, 121 and 151; the invariants hold, every
+   physics kernel's launch counter grew, and six more thinks make one
+   synchronizing call each (the digest read);
+6. audio kernels: bench.py's 256-source scene (HRIR on, room on, 800-frame
+   blocks) with the sources on the bench world's bodies, after 30 mixed
+   blocks: KE fetch, KF spatialise and KG downmix + reverb each against its
+   plain twin on the same inputs, with the tolerance stated beside it, all
+   timed as in phase 3, and the whole mix_block, kernel route vs plain;
+7. physics + audio: bench.py's window 2 on the port, 180 physics_audio_tick
+   calls (think, sources follow bodies, mix one tick) with phase 5's kick;
+   the output is finite, within [-1, 1], not silent and not mono, the
+   physics kernels and KE/KF/KG launched (the audio ones once per tick),
+   six more ticks make one synchronizing call each (the digest: the mix
+   adds none), and a 200-box, 16-source coupled world steps on the card as
+   the CPU path does.
+
+Every kernel also gets its bound: the least time the card could take for
+the same work, the larger of its bytes (each input read once, each output
+written once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s
+(the H100 SXM's published peaks at 700 W), from this run's inputs.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  TF32 stays off for matmuls and cuDNN
 (the solver's small products must run in full float32).
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -41,6 +59,8 @@ TICKS = 180
 KICK_EVERY = 30
 REPS = 20
 SYNC_TICKS = 6
+PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 
 
 def log(*a):
@@ -79,6 +99,36 @@ def check(ok, msg):
         raise AssertionError(msg)
 
 
+def _tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))
+    elif isinstance(obj, (tuple, list)):
+        for x in obj:
+            yield from _tensors(x)
+
+
+def nbytes(*objs):
+    """Bytes of every distinct tensor in ``objs`` (tensors, tuples, lists,
+    dataclasses), each counted once."""
+    seen = {}
+    for t in _tensors(objs):
+        seen[(t.data_ptr(), t.numel(), t.dtype)] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def bound(bytes_moved, flops):
+    """The least time (ms) the card could take: the larger of the bytes
+    over the memory rate and the float32 operations over their peak."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=int(bytes_moved), flops=int(flops))
+
+
 def nvidia_smi_line():
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -107,16 +157,24 @@ def kernel_phase(w):
     err = max(max_err(lin_k, lin_p), max_err(ang_k, ang_p))
     check(torch.equal(wat_k, wat_p), "KD apply_forces: in_water differs")
     check(err <= 1e-6, f"KD apply_forces: max abs err {err} > 1e-6")
+    n = body.capacity
+    forces_in = [getattr(body, k) for k in (
+        "pos", "quat", "linvel", "angvel", "inv_mass", "inv_inertia", "gravity_factor",
+        "linear_damping", "angular_damping", "bound_radius", "volume", "motion_type",
+        "awake", "alive", "use_zero_linear_drag")] + [w.params.gravity, w.params.water_z]
     results["apply_forces"] = dict(
         max_abs_err=err, tol=1e-6,
+        **bound(nbytes(forces_in, lin_k, ang_k, wat_k), FLOPS["apply_forces"] * n),
         ms=median_ms(lambda: kd.apply_forces(body, DT, w.params)),
         plain_ms=median_ms(lambda: kd.apply_forces_plain(body, DT, w.params)))
     pos_k, q_k = kd.integrate_positions(body, lin_p, ang_p, DT)
     pos_p, q_p = kd.integrate_positions_plain(body, lin_p, ang_p, DT)
     err = max(max_err(pos_k, pos_p), max_err(q_k, q_p))
     check(err <= 1e-6, f"KD integrate_positions: max abs err {err} > 1e-6")
+    integ_in = [body.pos, body.quat, lin_p, ang_p, body.motion_type, body.awake, body.alive]
     results["integrate_positions"] = dict(
         max_abs_err=err, tol=1e-6,
+        **bound(nbytes(integ_in, pos_k, q_k), FLOPS["integrate_positions"] * n),
         ms=median_ms(lambda: kd.integrate_positions(body, lin_p, ang_p, DT)),
         plain_ms=median_ms(lambda: kd.integrate_positions_plain(body, lin_p, ang_p, DT)))
     body = body.replace(linvel=lin_p, angvel=ang_p)
@@ -147,6 +205,7 @@ def kernel_phase(w):
     check(torch.equal(rk[6], rp[6]) and torch.equal(rk[7], rp[7]), "KA: fric/rest differ")
     results["box_box_rows"] = dict(
         max_abs_err=err, tol=1e-5, valid_pairs=int(pc.pair_valid.sum()),
+        **bound(nbytes(args, rk), FLOPS["box_box_rows"] * int(pc.pair_valid.sum())),
         valid_rows=int(rp[5].sum()), near_threshold_pairs=int(near.sum()),
         ms=median_ms(lambda: ka.box_box_rows(*args)),
         plain_ms=median_ms(lambda: ka.box_box_rows_plain(*args)))
@@ -160,7 +219,6 @@ def kernel_phase(w):
     present = cfg.present_shape_types
     sk = kb.static_contacts(body, hf, has_hf, k, present)
     sp = kb.static_contacts_plain(body, hf, has_hf, k, present)
-    n = body.capacity
     check(torch.equal(sk[0], sp[0]) and torch.equal(sk[1], sp[1]), "KB: a/b differ")
     pts, rad, slot_ok = kb.shape_sample_points(body, present)
     h, hn = hf.sample_with_normal(pts.reshape(-1, 3)[:, :2])
@@ -181,8 +239,13 @@ def kernel_phase(w):
               max_err(sk[3][idx_k], sp[3][idx_p], both),
               max_err(sk[4][idx_k], sp[4][idx_p], both))
     check(err <= 1e-5, f"KB: max abs err {err} > 1e-5")
+    kb_in = [getattr(body, k) for k in ("pos", "quat", "shape_type", "shape_params", "alive",
+                                        "layer", "motion_type", "is_sensor", "awake",
+                                        "friction", "restitution")]
     results["static_contacts"] = dict(
         max_abs_err=err, tol=1e-5, valid_rows=int(sp[5].sum()),
+        **bound(nbytes(kb_in, hf.heights, hf.origin, hf.cell_w, has_hf, sk),
+                FLOPS["static_contacts"] * n),
         near_threshold_bodies=int(near_b.sum()),
         ms=median_ms(lambda: kb.static_contacts(body, hf, has_hf, k, present)),
         plain_ms=median_ms(lambda: kb.static_contacts_plain(body, hf, has_hf, k, present)))
@@ -204,9 +267,14 @@ def kernel_phase(w):
     err = max(max_err(lk, lp), max_err(ak, ap))
     check(err <= 1e-4, f"KC: max abs err {err} > 1e-4")
     st0 = setup.state0
+    one = kc.solve_iteration(setup.rows, st0, body.linvel, body.angvel, 0.5)
+    rows = int(setup.rows.s_valid.sum()) + int(setup.rows.p_valid.sum())
     results["solve_iteration"] = dict(
         max_abs_err=err, tol=1e-4, static_rows=int(setup.rows.s_valid.sum()),
         pair_rows=int(setup.rows.p_valid.sum()),
+        **bound(nbytes(setup.rows, st0, body.linvel, body.angvel, one),
+                FLOPS["solve_iteration"] * rows
+                + FLOPS["solve_bodies"] * n * setup.rows.tbl.shape[1]),
         ms=median_ms(lambda: kc.solve_iteration(setup.rows, st0, body.linvel,
                                                 body.angvel, 0.5)),
         plain_ms=median_ms(lambda: kc.solve_iteration_plain(setup.rows, st0, body.linvel,
@@ -301,8 +369,8 @@ def main_path_phase(device="cuda", n_bodies=10_000, cfg=None, sync=torch.cuda.sy
     d = w.last_diags
     pairs, contacts = int(d.num_pairs), int(d.num_contacts)
     check(pairs > 0 and contacts > 0, f"pairs {pairs}, contacts {contacts}")
-    for name, c in counts.items():
-        check(c > 0, f"kernel {name} never launched on the main path")
+    for name in PHYSICS_KERNELS:
+        check(counts[name] > 0, f"kernel {name} never launched on the main path")
     ev = w.last_events
     return dict(
         ms_per_think_median=float(np.median(times[30:])),
@@ -313,6 +381,222 @@ def main_path_phase(device="cuda", n_bodies=10_000, cfg=None, sync=torch.cuda.sy
         bodies=len(w.objects), launches=counts,
         syncs_per_think=len(syncs) / SYNC_TICKS)
 
+
+# ---------------------------------------------------------------------------
+# Phase 6: the audio kernels against their plain twins.
+# ---------------------------------------------------------------------------
+
+class plain_mix:
+    """Within the block, mix_block runs the kernels' plain twins on CUDA
+    tensors (for the kernel-route vs plain-route timing)."""
+
+    NAMES = ("audio_fetch", "audio_spatialise", "audio_downmix_reverb")
+
+    def __enter__(self):
+        from substrata_tpu_torch.kernels import audio_mix as ka
+        self.saved = {n: getattr(ka, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(ka, n, getattr(ka, n + "_plain"))
+
+    def __exit__(self, *exc):
+        from substrata_tpu_torch.kernels import audio_mix as ka
+        for n, fn in self.saved.items():
+            setattr(ka, n, fn)
+
+
+def audio_kernel_phase(w, device="cuda", blocks=30, plain_reps=5):
+    from substrata_tpu_torch.audio import mix
+    from substrata_tpu_torch.audio.hrtf import hrir_bank_tensor
+    from substrata_tpu_torch.benchworld import TICK_FRAMES, bench_audio
+    from substrata_tpu_torch.kernels import audio_mix as ka
+
+    b = TICK_FRAMES
+    src, pool, lis, room = bench_audio(device)
+    idx = torch.arange(src.capacity, device=device)
+    src = src.replace(pos=w.state.pos[idx], vel=w.state.linvel[idx])
+    for _ in range(blocks):
+        src, _, room = mix.mix_block(src, pool, lis, room=room, use_hrtf=True, block=b)
+    st = mix.prepare(src, lis, b, b / mix.ENGINE_RATE, True)
+    results = {}
+
+    # KE.  Tolerance 1e-6 absolute: the same float32 operations in the
+    # same order; the lerp weights are exact, so only the interpolated
+    # products round.
+    nw = mix.window_rows(b)
+    fargs = (pool, src.buf_offset, src.buf_len, src.playhead, st.eff_delta, src.mix_factor,
+             src.looping, src.stream_mode, src.stream_write_head, st.active, b, nw)
+    sk, hk = ka.audio_fetch(*fargs)
+    sp, hp = ka.audio_fetch_plain(*fargs)
+    err = max(max_err(sk, sp), max_err(hk, hp))
+    check(err <= 1e-6, f"KE audio_fetch: max abs err {err} > 1e-6")
+    used = (src.buf_len > 0)
+    span = torch.floor(st.eff_delta * (b - 1)) + 2.0        # pool samples a layer reads
+    pool_bytes = int((span * used).sum()) * 4
+    results["audio_fetch"] = dict(
+        max_abs_err=err, tol=1e-6,
+        **bound(pool_bytes + nbytes(fargs[1:10], sk, hk), 30 * b * int(used.sum())),
+        ms=median_ms(lambda: ka.audio_fetch(*fargs)),
+        plain_ms=median_ms(lambda: ka.audio_fetch_plain(*fargs), reps=plain_reps))
+
+    # KF.  Tolerance 1e-5 absolute: the same operations in the same order
+    # (the low-pass frame by frame, the FIR tap by tap).
+    bank = hrir_bank_tensor(device)
+    ramp = mix.gain_ramp(b, device)
+    sargs = (sp, src.lp_state, st.alpha, st.use_lp, src.spatial, src.hrir_hist, bank,
+             st.dir_idx, src.prev_gain_l, src.prev_gain_r, st.gl, st.gr, ramp, st.gain,
+             st.send_gain, True)
+    fk = ka.audio_spatialise(*sargs)
+    fp = ka.audio_spatialise_plain(*sargs)
+    err = max(max_err(x, y) for x, y in zip(fk, fp))
+    check(err <= 1e-5, f"KF audio_spatialise: max abs err {err} > 1e-5")
+    rows = bank.reshape(-1, 2 * bank.shape[-1])[torch.unique(st.dir_idx).long()]
+    taps = bank.shape[-1]
+    n_spatial = int(src.spatial.sum())
+    # No one library call does all of KF (low-pass, FIR, ramps); the FIR,
+    # most of its work, is one grouped conv1d (cross-correlation, so the
+    # taps are flipped).  Timed for reference, and checked against the
+    # plain twin's FIR on the same signal.
+    x_ext = torch.cat([src.hrir_hist, sp], dim=1)[None]                 # [1, S, B+T-1]
+    h = bank.reshape(-1, 2, taps)[st.dir_idx.long()].flip(-1).reshape(-1, 1, taps)
+    def fir():
+        return torch.nn.functional.conv1d(x_ext, h, groups=src.capacity)
+    one = torch.ones_like(st.gl)
+    ref = ka.audio_spatialise_plain(sp, src.lp_state, st.alpha, torch.zeros_like(st.use_lp),
+                                    torch.ones_like(src.spatial), src.hrir_hist, bank,
+                                    st.dir_idx, one, one, one, one, ramp, st.gain, None, True)
+    conv = fir()[0].reshape(src.capacity, 2, b)
+    fir_err = max(max_err(conv[:, 0], ref[0]), max_err(conv[:, 1], ref[1]))
+    check(fir_err <= 1e-5, f"conv1d FIR vs the plain FIR: {fir_err} > 1e-5")
+    results["audio_spatialise"] = dict(
+        max_abs_err=err, tol=1e-5, hrir_rows=int(rows.shape[0]),
+        **bound(nbytes(sargs[:6], sargs[7:15], rows, fk),
+                b * (n_spatial * 4 * taps + src.capacity * 12)),
+        ms=median_ms(lambda: ka.audio_spatialise(*sargs)),
+        plain_ms=median_ms(lambda: ka.audio_spatialise_plain(*sargs), reps=plain_reps),
+        fir_conv1d_ms=median_ms(fir), fir_conv1d_max_abs_err=fir_err)
+
+    # KG.  Tolerance 1e-5 absolute on out and the delay lines: the column
+    # sums run in source order in both.
+    gargs = (fp[0], fp[1], fp[2], lis.master_volume, room.delay_lines, room.write_idx,
+             room.delays, room.feedback, room.wet)
+    gk = ka.audio_downmix_reverb(*gargs)
+    gp = ka.audio_downmix_reverb_plain(*gargs)
+    err = max(max_err(gk[0], gp[0]), max_err(gk[1], gp[1]))
+    check(err <= 1e-5, f"KG audio_downmix_reverb: max abs err {err} > 1e-5")
+    check(torch.equal(gk[2], gp[2]), "KG: write index differs")
+    results["audio_downmix_reverb"] = dict(
+        max_abs_err=err, tol=1e-5,
+        **bound(nbytes(gargs, gk), b * (3 * src.capacity + 40)),
+        ms=median_ms(lambda: ka.audio_downmix_reverb(*gargs)),
+        plain_ms=median_ms(lambda: ka.audio_downmix_reverb_plain(*gargs), reps=plain_reps))
+
+    # The whole mix_block: kernel route, then the plain route, same inputs.
+    def run():
+        return mix.mix_block(src, pool, lis, room=room, use_hrtf=True, block=b)
+    kernel_ms = median_ms(run)
+    with plain_mix():
+        plain_ms = median_ms(run, reps=plain_reps)
+        _, out_p, _ = run()
+    _, out_k, _ = run()
+    err = max_err(out_k, out_p)
+    check(err <= 1e-5, f"mix_block: kernel route vs plain route {err} > 1e-5")
+    results["mix_block"] = dict(ms=kernel_ms, plain_ms=plain_ms, max_abs_err=err,
+                                sources=src.capacity, frames=b)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: physics + audio, bench.py's window 2.
+# ---------------------------------------------------------------------------
+
+def out_checks(out):
+    out = out.float()
+    check(bool(torch.isfinite(out).all()), "non-finite audio")
+    check(float(out.abs().max()) <= 1.0, "audio outside [-1, 1]")
+    rms = float(out.pow(2).mean().sqrt())
+    check(rms > 0.0, "silent audio")
+    lr = float((out[:, 0] - out[:, 1]).abs().max())
+    check(lr > 0.0, "left and right channels are equal")
+    return rms, lr
+
+
+def physics_audio_phase(device="cuda", n_bodies=10_000, cfg=None, sync=torch.cuda.synchronize):
+    from substrata_tpu_torch import kernels
+    from substrata_tpu_torch.benchworld import (bench_audio, bench_world, kick,
+                                                physics_audio_tick)
+    w = bench_world(device, n_bodies=n_bodies, cfg=cfg)
+    src, pool, lis, room = bench_audio(device)
+    src_idx = torch.arange(src.capacity, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    sync()
+    kernels.reset_launch_counts()
+    times = []
+    for t in range(TICKS):
+        if t > 0 and t % KICK_EVERY == 0:
+            w.set_state(kick(w.state, gen))
+        sync()
+        t0 = time.perf_counter()
+        src, out, room = physics_audio_tick(w, src, pool, lis, room, src_idx)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launch_counts()
+    rms, lr = out_checks(out)
+    for name in PHYSICS_KERNELS:
+        check(counts[name] > 0, f"kernel {name} never launched on the physics+audio path")
+    for name in AUDIO_KERNELS:
+        check(counts[name] == TICKS, f"kernel {name}: {counts[name]} launches in {TICKS} ticks")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        for _ in range(SYNC_TICKS):
+            src, out, room = physics_audio_tick(w, src, pool, lis, room, src_idx)
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(c.message).splitlines()[0] for c in caught
+             if str(c.message).startswith("called a synchronizing CUDA operation")]
+    check(len(syncs) == SYNC_TICKS,
+          f"{len(syncs)} synchronizing calls in {SYNC_TICKS} physics+audio ticks, "
+          "expected one each (the digest)")
+    return dict(
+        ms_per_tick_median=float(np.median(times[30:])),
+        ms_per_tick_p90=float(np.percentile(times[30:], 90)),
+        first_tick_ms=times[0], out_rms=rms, out_max_lr_diff=lr, launches=counts,
+        syncs_per_tick=len(syncs) / SYNC_TICKS, sources=src.capacity,
+        frames_per_tick=int(out.shape[0]))
+
+
+def small_coupled_phase(device="cuda"):
+    """200 boxes and 16 sources, 10 coupled ticks on the card and on the
+    CPU path; out within 1e-4 (the bodies agree to ~1e-7 m after 10 ticks,
+    phase 4)."""
+    from substrata_tpu_torch.benchworld import bench_audio, bench_world, physics_audio_tick
+    from substrata_tpu_torch.physics.state import SimConfig
+    cfg = SimConfig(capacity=256, max_pairs=1024, grid_dim=32, cell_size=1.4,
+                    cell_capacity=6, solver_iters=7, pairs_per_body=10,
+                    pair_rebuild_interval=6, contacts_per_body=8)
+    outs = {}
+    for dev in (device, "cpu"):
+        w = bench_world(dev, n_bodies=200, cfg=cfg)
+        src, pool, lis, room = bench_audio(dev, n_sources=16)
+        idx = torch.arange(16, device=dev)
+        outs[dev] = []
+        for _ in range(10):
+            src, out, room = physics_audio_tick(w, src, pool, lis, room, idx)
+            outs[dev].append(out.cpu())
+    err = max(max_err(a, b) for a, b in zip(outs[device], outs["cpu"]))
+    check(err <= 1e-4, f"coupled 200-box, 16-source world: card vs CPU path {err} > 1e-4")
+    out_checks(outs[device][-1])
+    return {"cuda_vs_cpu_200_boxes_16_sources_max_out_err": err}
+
+
+PHYSICS_KERNELS = ("box_box_rows", "static_contacts", "solve_iteration", "apply_forces",
+                   "integrate_positions")
+AUDIO_KERNELS = ("audio_fetch", "audio_spatialise", "audio_downmix_reverb")
+# Float32 operations per item, counted from the kernels' sources (rounded
+# up): per valid pair slot (KA), per body (KB, KD), per contact row and per
+# body table slot (KC).
+FLOPS = {"box_box_rows": 1000, "static_contacts": 600, "solve_iteration": 60,
+         "solve_bodies": 18, "apply_forces": 100, "integrate_positions": 60}
 
 KERNELS = [
     ("box_box_rows", "cuda", "substrata_tpu_torch/csrc/box_box.cu",
@@ -325,6 +609,12 @@ KERNELS = [
      "substrata_tpu/physics/integrate.py:38"),
     ("integrate_positions", "triton", "substrata_tpu_torch/kernels/integrate_triton.py",
      "substrata_tpu/physics/integrate.py:93"),
+    ("audio_fetch", "cuda", "substrata_tpu_torch/csrc/audio_mix.cu",
+     "substrata_tpu/audio/mix.py:201"),
+    ("audio_spatialise", "cuda", "substrata_tpu_torch/csrc/audio_mix.cu",
+     "substrata_tpu/audio/mix.py:350"),
+    ("audio_downmix_reverb", "cuda", "substrata_tpu_torch/csrc/audio_mix.cu",
+     "substrata_tpu/audio/mix.py:404"),
 ]
 
 
@@ -369,15 +659,34 @@ def main():
     log(f"# ms per think (median, ticks 31-{TICKS}, 10,000 boxes): "
         f"{main_res['ms_per_think_median']:.3f} | {smi}")
 
+    w = bench_world("cuda")
+    for _ in range(30):
+        w.think(DT)
+    ares = audio_kernel_phase(w)
+    del w
+    for name, r in ares.items():
+        log(f"# audio {name}: {json.dumps(r)} | {smi}")
+    kres.update({k: v for k, v in ares.items() if k in AUDIO_KERNELS})
+
+    pa_res = physics_audio_phase()
+    pa_res.update(small_coupled_phase())
+    log(f"# physics+audio: {json.dumps(pa_res)} | {smi}")
+    log(f"# ms per physics+audio tick (median, ticks 31-{TICKS}, 10,000 boxes, 256 sources): "
+        f"{pa_res['ms_per_tick_median']:.3f} (p90 {pa_res['ms_per_tick_p90']:.3f}); "
+        f"ms per think alone (phase 5): {main_res['ms_per_think_median']:.3f} | {smi}")
+
     out = {"kernels": [
         dict(name=name, route=route, source=src, replaces=rep,
-             launches=main_res["launches"][name], max_abs_err=kres[name]["max_abs_err"],
-             ms=kres[name]["ms"], plain_ms=kres[name]["plain_ms"])
+             launches=pa_res["launches"][name], max_abs_err=kres[name]["max_abs_err"],
+             ms=kres[name]["ms"], plain_ms=kres[name]["plain_ms"],
+             bound_ms=kres[name]["bound_ms"], bound_by=kres[name]["bound_by"],
+             library_ms=None)
         for name, route, src, rep in KERNELS]}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(nvidia_smi=smi, torch=torch.__version__, kernels=kres,
-                       small_worlds=small, main_path=main_res), f, indent=1)
+                       small_worlds=small, main_path=main_res, audio=ares,
+                       physics_audio=pa_res), f, indent=1)
     log(json.dumps(out))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

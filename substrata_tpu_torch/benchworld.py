@@ -1,17 +1,24 @@
-"""The 10,000-box bench world (bench.py:105-154) and its churn kick
-(bench.py:212-221), rebuilt on the port for chip_smoke.py and
-profile_tick.py."""
+"""The 10,000-box bench world (bench.py:105-154), its churn kick
+(bench.py:212-221) and the 256-source audio scene of bench.py:83-102,
+rebuilt on the port for chip_smoke.py and profile_tick.py, and the coupled
+physics + audio tick of bench.py's window 2 (bench.py:337-341)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from substrata_tpu_torch.audio.mix import (default_listener, mix_block, room_from_aabb,
+                                           zero_sources)
 from substrata_tpu_torch.physics import shapes
 from substrata_tpu_torch.physics.state import MotionType, SimConfig
 from substrata_tpu_torch.physics.world import PhysicsObject, PhysicsWorld
 
 N_BODIES = 10_000
+N_SOURCES = 256
+DT = 1.0 / 60.0
+TICK_FRAMES = 800     # 48 kHz / 60 Hz: one tick of audio per step
+POOL_SAMPLES = 1 << 20
 
 
 def bench_config() -> SimConfig:
@@ -53,3 +60,38 @@ def kick(state, gen: torch.Generator):
     return state.replace(linvel=torch.where(dyn[:, None], state.linvel + k, state.linvel),
                          awake=state.awake | dyn,
                          sleep_timer=torch.where(dyn, 0.0, state.sleep_timer))
+
+
+def bench_audio(device, n_sources: int = N_SOURCES):
+    """256 looping spatial sources on the full-quality path (HRIR + room
+    reverb): a sin(0.03 i) pool of 2^20 samples, offsets and rates in
+    [0.8, 1.25] from seed 1, 20% of the sources occluded, and the room of
+    a 120 x 120 x 10 m box.  Returns (sources, pool, listener, room)."""
+    rng = np.random.default_rng(1)
+    src = zero_sources(n_sources, device=device)
+    pool = torch.as_tensor(np.sin(np.arange(POOL_SAMPLES) * 0.03).astype(np.float32),
+                           device=device)
+    offsets = rng.integers(0, POOL_SAMPLES - 48000, n_sources)
+    buf_offset, buf_len, delta = src.buf_offset.clone(), src.buf_len.clone(), src.delta.clone()
+    buf_offset[:, 0] = torch.as_tensor(offsets.astype(np.int32), device=device)
+    buf_len[:, 0] = 48000
+    delta[:, 0] = torch.as_tensor(rng.uniform(0.8, 1.25, n_sources).astype(np.float32),
+                                  device=device)
+    occ = (rng.random(n_sources) < 0.2).astype(np.float32)
+    src = src.replace(alive=torch.ones_like(src.alive), looping=torch.ones_like(src.looping),
+                      buf_offset=buf_offset, buf_len=buf_len, delta=delta,
+                      num_occlusions=torch.as_tensor(occ, device=device))
+    room = room_from_aabb([-60, -60, 0], [60, 60, 10], 0.6, device=device)
+    return src, pool, default_listener(device=device), room
+
+
+def physics_audio_tick(world, src, pool, listener, room, src_idx):
+    """One tick of bench.py's window 2: ``think``, then the sources follow
+    bodies ``src_idx`` (position and velocity, gathered on the device) and
+    one tick of audio (800 frames, HRIR on, room on) is mixed.  Returns
+    (sources, out [800, 2], room); the digest read of ``think`` is the
+    tick's only device -> host copy."""
+    world.think(DT)
+    st = world.state
+    src = src.replace(pos=st.pos[src_idx], vel=st.linvel[src_idx])
+    return mix_block(src, pool, listener, room=room, use_hrtf=True, block=TICK_FRAMES)

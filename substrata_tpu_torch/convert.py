@@ -14,6 +14,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from substrata_tpu_torch.audio.mix import (LISTENER_FIELDS, ROOM_FIELDS, SOURCE_FIELDS,
+                                           Listener, RoomState, SourceState)
 from substrata_tpu_torch.physics.broadphase import PairCache
 from substrata_tpu_torch.physics.solver import SolverCache
 from substrata_tpu_torch.physics.state import (BODY_FIELDS, SIM_PARAM_FIELDS,
@@ -27,12 +29,12 @@ def _t(x, device):
     return torch.as_tensor(np.array(x, copy=True), device=device)
 
 
-def body_state_from_numpy(arrays: Arrays, device="cpu") -> BodyState:
+def body_state_from_numpy(arrays: Arrays, *, device) -> BodyState:
     """``arrays`` holds the 23 BodyState fields by name."""
     return BodyState(**{f: _t(arrays[f], device) for f in BODY_FIELDS})
 
 
-def static_world_from_numpy(arrays: Arrays, device="cpu") -> StaticWorld:
+def static_world_from_numpy(arrays: Arrays, *, device) -> StaticWorld:
     """Keys: heights, origin, cell_w, is_flat, has_heightfield, water_z and
     n_tris (the reference trimesh's triangle count; only an empty trimesh
     converts in this slice)."""
@@ -49,19 +51,33 @@ def static_world_from_numpy(arrays: Arrays, device="cpu") -> StaticWorld:
                        water_z=_t(np.asarray(arrays["water_z"], np.float32), device))
 
 
-def sim_params_from_numpy(arrays: Arrays, device="cpu") -> SimParams:
+def sim_params_from_numpy(arrays: Arrays, *, device) -> SimParams:
     return SimParams(**{f: _t(np.asarray(arrays[f], np.float32), device)
                         for f in SIM_PARAM_FIELDS})
 
 
-def solver_cache_from_numpy(data: np.ndarray, device="cpu") -> SolverCache:
+def solver_cache_from_numpy(data: np.ndarray, *, device) -> SolverCache:
     """``data``: the reference cache's [H, 5] f32 rows."""
     return SolverCache(data=_t(np.asarray(data, np.float32), device))
 
 
-def pair_cache_from_numpy(arrays: Arrays, device="cpu") -> PairCache:
+def pair_cache_from_numpy(arrays: Arrays, *, device) -> PairCache:
     return PairCache(**{f.name: _t(arrays[f.name], device)
                         for f in dataclasses.fields(PairCache)})
+
+
+def sources_from_numpy(arrays: Arrays, *, device) -> SourceState:
+    """``arrays`` holds the 26 SourceState fields by name."""
+    return SourceState(**{f: _t(arrays[f], device) for f in SOURCE_FIELDS})
+
+
+def listener_from_numpy(arrays: Arrays, *, device) -> Listener:
+    return Listener(**{f: _t(np.asarray(arrays[f], np.float32), device)
+                       for f in LISTENER_FIELDS})
+
+
+def room_from_numpy(arrays: Arrays, *, device) -> RoomState:
+    return RoomState(**{f: _t(arrays[f], device) for f in ROOM_FIELDS})
 
 
 def to_numpy(obj) -> dict:

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the physics tick and their wrappers.
+"""Hand-written Hopper kernels of the physics tick and the audio mix, and
+their wrappers.
 
 Each wrapper module holds the kernel's plain PyTorch twin beside it.  A
 wrapper runs the twin for tensors on the CPU; for CUDA tensors it launches
@@ -10,9 +11,13 @@ path went through the kernels.
   KB  static_contacts.py    csrc/static_contacts.cu  ground contacts
   KC  solve.py              csrc/solve_contacts.cu   contact-solve iteration
   KD  integrate_triton.py   (Triton)                 forces, integration
+  KE  audio_mix.py          csrc/audio_mix.cu        audio fetch + resample
+  KF  audio_mix.py          csrc/audio_mix.cu        low-pass, HRIR, gain ramps
+  KG  audio_mix.py          csrc/audio_mix.cu        downmix + reverb
 """
 
-from substrata_tpu_torch.kernels import box_box, integrate_triton, solve, static_contacts
+from substrata_tpu_torch.kernels import (audio_mix, box_box, integrate_triton, solve,
+                                         static_contacts)
 
 
 def launch_counts() -> dict:
@@ -22,6 +27,7 @@ def launch_counts() -> dict:
         "solve_iteration": solve.launches,
         "apply_forces": integrate_triton.launches["apply_forces"],
         "integrate_positions": integrate_triton.launches["integrate_positions"],
+        **audio_mix.launches,
     }
 
 
@@ -29,5 +35,6 @@ def reset_launch_counts():
     box_box.launches = 0
     static_contacts.launches = 0
     solve.launches = 0
-    for k in integrate_triton.launches:
-        integrate_triton.launches[k] = 0
+    for counts in (integrate_triton.launches, audio_mix.launches):
+        for k in counts:
+            counts[k] = 0

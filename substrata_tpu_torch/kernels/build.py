@@ -2,7 +2,9 @@
 
 All ``csrc/*.cu`` files compile with nvcc into ONE shared library with a
 plain C interface (no PyTorch headers, so the build takes seconds), which
-is loaded with ctypes.  The build runs at first use, into
+is loaded with ctypes.  Each source compiles in its own nvcc process, all
+started together, and one more nvcc links them.  The build runs at first
+use, into
 ``substrata_tpu_torch/_build/`` (listed in .gitignore), under a name that
 carries a hash of the sources and flags, so an edit rebuilds.
 
@@ -30,9 +32,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # No fused multiply-add contraction: each kernel repeats its plain
     # twin's operations in the same order, and separate rounding keeps the
-    # two bit-comparable.
+    # two bit-comparable (a kernel that fuses says so with __fmaf_rn).
     "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 P = ctypes.c_void_p
@@ -57,6 +59,17 @@ SIGNATURES = {
     # tbl, w, im, block, dlin_s, dang_s, linvel, angvel, out linvel,
     # angvel, N, CPB, stream
     "solve_bodies": [P] * 8 + [P] * 2 + [I] * 2 + [P],
+    # pool, buf_offset, buf_len, playhead, eff_delta, mix_factor, looping,
+    # stream_mode, stream_write_head, active, out samples, new_playhead,
+    # S, L, B, nw, n_rows, li_max, stream
+    "audio_fetch": [P] * 10 + [P] * 2 + [I] * 5 + [F] + [P],
+    # samples, lp_state, alpha, use_lp, spatial, hist, bank, dir_idx,
+    # prev_gl, prev_gr, gl, gr, ramp, gain, send_gain, out wl, wr, ws,
+    # lp_out, new_hist, level, S, B, T, use_hrtf, stream
+    "audio_spatialise": [P] * 15 + [P] * 6 + [I] * 4 + [P],
+    # wl, wr, ws, master_volume, lines, write_idx, delays, feedback, wet,
+    # out, lines_out, write_idx_out, S, B, D, has_room, stream
+    "audio_downmix_reverb": [P] * 9 + [P] * 3 + [I] * 4 + [P],
 }
 
 _lib = None
@@ -97,18 +110,41 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(out) and not verbose:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     cu = [s for s in _sources() if s.endswith(".cu")]
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-o", tmp] + cu
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cu]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src, obj in zip(cu, objs):
+        cmd = [nvcc] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) \
+            + ["-c", "-o", obj, src]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True)))
+    report = []
+    try:
+        for cmd, proc in jobs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                                   f"{stdout}\n{stderr}")
+            report.append(stdout + stderr)
+        cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", tmp] + objs
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                               f"{res.stdout}\n{res.stderr}")
+    finally:
+        for _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     build_seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
     if verbose:
-        print(res.stdout + res.stderr)
+        print("".join(report))
     os.replace(tmp, out)
     return out
 

@@ -246,7 +246,7 @@ class PairCache(_Replace):
     inc_sign: torch.Tensor    # [N, CPB] f32
 
 
-def empty_pair_cache(config: SimConfig, device="cpu") -> PairCache:
+def empty_pair_cache(config: SimConfig, *, device) -> PairCache:
     p = config.max_pairs
     i32 = dict(dtype=torch.int32, device=device)
     return PairCache(

@@ -42,7 +42,7 @@ class SolverCache(_Replace):
         return self.data.shape[0]
 
 
-def empty_solver_cache(size: int = 1 << 17, device="cpu") -> SolverCache:
+def empty_solver_cache(size: int = 1 << 17, *, device) -> SolverCache:
     keys = torch.zeros((size, 2), dtype=torch.int32, device=device)
     keys[:, 0] = -1
     return SolverCache(data=torch.cat(

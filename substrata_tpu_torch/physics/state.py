@@ -101,7 +101,7 @@ class BodyState(_Replace):
 BODY_FIELDS = tuple(f.name for f in dataclasses.fields(BodyState))
 
 
-def zero_body_state(capacity: int, device="cpu") -> BodyState:
+def zero_body_state(capacity: int, *, device) -> BodyState:
     n = capacity
     f = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
@@ -174,8 +174,8 @@ class Heightfield(_Replace):
         return h, n
 
 
-def flat_heightfield(extent: float = 1000.0, z: float = 0.0, res: int = 8,
-                     device="cpu") -> Heightfield:
+def flat_heightfield(extent: float = 1000.0, z: float = 0.0, res: int = 8, *,
+                     device) -> Heightfield:
     return Heightfield(
         heights=torch.full((res, res), z, dtype=torch.float32, device=device),
         origin=torch.tensor([-extent / 2, -extent / 2], dtype=torch.float32,
@@ -202,8 +202,8 @@ class StaticWorld(_Replace):
     n_hulls: int = 0
 
 
-def default_static_world(ground_z: float = 0.0, water_z: float = -1e10,
-                         device="cpu") -> StaticWorld:
+def default_static_world(ground_z: float = 0.0, water_z: float = -1e10, *,
+                         device) -> StaticWorld:
     return StaticWorld(
         heightfield=flat_heightfield(z=ground_z, device=device),
         has_heightfield=torch.tensor(True, device=device),
@@ -228,7 +228,7 @@ class SimParams(_Replace):
 SIM_PARAM_FIELDS = tuple(f.name for f in dataclasses.fields(SimParams))
 
 
-def default_sim_params(device="cpu") -> SimParams:
+def default_sim_params(*, device) -> SimParams:
     def s(x):
         return torch.tensor(x, dtype=torch.float32, device=device)
     return SimParams(

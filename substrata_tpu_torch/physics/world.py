@@ -27,6 +27,7 @@ from substrata_tpu_torch.physics.state import (
     SimParams, default_sim_params, default_static_world, flat_heightfield,
     zero_body_state,
 )
+from substrata_tpu_torch.device import resolve_device
 from substrata_tpu_torch.physics.step import StepEvents, physics_step
 
 USERDATA_WORLD_OBJECT = 0
@@ -188,8 +189,8 @@ class PhysicsWorld:
     def __init__(self, config: SimConfig | None = None,
                  params: SimParams | None = None,
                  auto_tier: bool | None = None,
-                 pin_all_shape_types: bool = False, device="cpu"):
-        self.device = torch.device(device)
+                 pin_all_shape_types: bool = False, device="cuda"):
+        self.device = resolve_device(device)
         self.config = copy.copy(config) if config is not None else SimConfig()
         self._base_config = copy.copy(self.config)
         if auto_tier is None:
@@ -200,11 +201,11 @@ class PhysicsWorld:
         self.config.present_shape_types = ((True, True, True, True)
                                            if pin_all_shape_types
                                            else (False, False, False, False))
-        self.params = params or default_sim_params(self.device)
-        self.state = zero_body_state(self.config.capacity, self.device)
+        self.params = params or default_sim_params(device=self.device)
+        self.state = zero_body_state(self.config.capacity, device=self.device)
         self.solver_cache = solver.empty_solver_cache(
-            solver.cache_size_for(self.config), self.device)
-        self.pair_cache = broadphase.empty_pair_cache(self.config, self.device)
+            solver.cache_size_for(self.config), device=self.device)
+        self.pair_cache = broadphase.empty_pair_cache(self.config, device=self.device)
         self._cache_stale = False
         self._force_pair_rebuild = True
         self._host_steps_left = 0
@@ -373,7 +374,7 @@ class PhysicsWorld:
         """Upload pending host mutations as batched scatters."""
         if self._cache_stale:
             self.solver_cache = solver.empty_solver_cache(
-                solver.cache_size_for(self.config), self.device)
+                solver.cache_size_for(self.config), device=self.device)
             self._cache_stale = False
         if self._dirty:
             items = list(self._dirty.items())
@@ -480,8 +481,8 @@ class PhysicsWorld:
         self._calm_steps = 0
         self.config = self._tier_config(tier)
         self.solver_cache = solver.empty_solver_cache(
-            solver.cache_size_for(self.config), self.device)
-        self.pair_cache = broadphase.empty_pair_cache(self.config, self.device)
+            solver.cache_size_for(self.config), device=self.device)
+        self.pair_cache = broadphase.empty_pair_cache(self.config, device=self.device)
         self._force_pair_rebuild = True
 
     def think(self, dt: float):

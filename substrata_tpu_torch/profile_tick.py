@@ -1,15 +1,22 @@
-"""Where the time of one think() goes, on the card.
+"""Where the time of one think() and of one physics + audio tick goes, on
+the card.
 
     python3 -m substrata_tpu_torch.profile_tick
 
 On the 10,000-box bench world (kicked once, after 30 ticks):
-1. host-clock ms per think, rebuild and reuse ticks apart;
+1. host-clock ms per think, rebuild and reuse ticks apart, and ms per
+   physics + audio tick and per mix_block with bench.py's 256 sources on
+   the world's bodies;
 2. one torch.profiler pass: device busy time per tick (sum of kernel
    times), kernel launches per tick, the top kernels;
 3. a stage pass: each stage of physics_step wrapped with a synchronize on
    both sides, so its host time (launching + waiting) and device time
    (CUDA events) are its own.  The syncs remove overlap, so these are for
-   attribution, not for the tick total.
+   attribution, not for the tick total;
+4. the audio stage: profiler passes over the physics + audio tick and
+   over mix_block alone (device busy ms and device ops per tick, each
+   audio kernel's device time), and a stage pass over the mix's setup and
+   its three kernels.
 Prints one JSON object and writes the trace to chiprun_out/tick_trace.json.
 """
 
@@ -24,7 +31,10 @@ import time
 import numpy as np
 import torch
 
-from substrata_tpu_torch.benchworld import bench_world, kick
+from substrata_tpu_torch.audio import mix
+from substrata_tpu_torch.benchworld import (N_SOURCES, TICK_FRAMES, bench_audio, bench_world,
+                                            kick, physics_audio_tick)
+from substrata_tpu_torch.kernels import audio_mix
 from substrata_tpu_torch.physics import broadphase, integrate, narrowphase, solver
 from substrata_tpu_torch.physics import world as world_mod
 
@@ -36,7 +46,10 @@ STAGES = [(integrate, "apply_forces"), (broadphase, "find_pairs_cached"),
           (integrate, "update_sleeping"), (world_mod, "_event_digest")]
 # Device-side names of the hand-written kernels (KA, KB, KC x2, KD x2).
 PORT_KERNELS = ("box_box_rows_kernel", "static_contacts_kernel", "solve_rows_kernel",
-                "solve_bodies_kernel", "apply_forces_kernel", "integrate_kernel")
+                "solve_bodies_kernel", "apply_forces_kernel", "integrate_kernel",
+                "audio_fetch_kernel", "audio_spatialise_kernel", "audio_downmix_kernel")
+AUDIO_STAGES = [(mix, "prepare"), (audio_mix, "audio_fetch"), (audio_mix, "audio_spatialise"),
+                (audio_mix, "audio_downmix_reverb")]
 
 
 def _timed(fn, name, acc):
@@ -57,6 +70,83 @@ def _timed(fn, name, acc):
     return run
 
 
+def _device_summary(prof, ticks):
+    """Device busy ms, device ops and port-kernel times per tick from a
+    profiler pass over ``ticks`` ticks.  Device-side events (kernels,
+    copies, fills) run one at a time on the stream, so their durations sum
+    to the busy time."""
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            rec = by_name.setdefault(e.name, [0.0, 0])
+            rec[0] += e.time_range.elapsed_us()
+            rec[1] += 1
+    busy_us = sum(us for us, _ in by_name.values())
+    ops = sum(n for _, n in by_name.values())
+    ours = {name[:60]: dict(ms_per_tick=us / 1e3 / ticks, us_per_launch=us / n,
+                            calls_per_tick=n / ticks)
+            for name, (us, n) in by_name.items() if any(p in name for p in PORT_KERNELS)}
+    return busy_us / 1e3 / ticks, ops / ticks, by_name, ours
+
+
+def _profiled(run, ticks):
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            run()
+        torch.cuda.synchronize()
+    return prof
+
+
+def _staged(stages, run, ticks):
+    """Host and device ms per tick of each stage, synchronised around it."""
+    acc: dict = {}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in stages]
+    for mod, name, fn in saved:
+        setattr(mod, name, _timed(fn, name, acc))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            run()
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return total_ms, {name: dict(host_ms_per_tick=v[0] / ticks, device_ms_per_tick=v[1] / ticks,
+                                 calls_per_tick=v[2] / ticks) for name, v in acc.items()}
+
+
+def _host_ms(run, ticks):
+    """Host-clock ms of each of ``ticks`` calls, synchronised around each."""
+    times = []
+    for _ in range(ticks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def audio_scene(w):
+    """bench.py's 256 sources on the world's bodies: (one physics + audio
+    tick, one mix_block alone), each advancing the shared state."""
+    src, pool, lis, room = bench_audio("cuda")
+    idx = torch.arange(src.capacity, device="cuda")
+    state = dict(src=src, room=room)
+
+    def coupled():
+        state["src"], _, state["room"] = physics_audio_tick(w, state["src"], pool, lis,
+                                                            state["room"], idx)
+
+    def mix_only():
+        state["src"], _, state["room"] = mix.mix_block(state["src"], pool, lis,
+                                                       room=state["room"], block=TICK_FRAMES)
+    return coupled, mix_only
+
+
 def main(ticks: int = 24):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -73,58 +163,42 @@ def main(ticks: int = 24):
     rebuild, reuse = [], []
     for _ in range(2 * ticks):
         is_rebuild = w._force_pair_rebuild or w._host_steps_left <= 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        w.think(DT)
-        torch.cuda.synchronize()
-        (rebuild if is_rebuild else reuse).append((time.perf_counter() - t0) * 1e3)
+        (rebuild if is_rebuild else reuse).append(_host_ms(lambda: w.think(DT), 1)[0])
+    # Host-clock passes run first: ticks timed after the profiler and stage
+    # passes took about twice the host time (PERF.md, section 6).
+    coupled, mix_only = audio_scene(w)
+    for _ in range(30):
+        coupled()
+    coupled_ms, mix_ms = _host_ms(coupled, ticks), _host_ms(mix_only, ticks)
 
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(ticks):
-            w.think(DT)
-        torch.cuda.synchronize()
-    # Device-side events (kernels, copies, fills) run one at a time on the
-    # stream, so their durations sum to the busy time.
-    dev_evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in dev_evs)
-    by_name: dict = {}
-    for e in dev_evs:
-        rec = by_name.setdefault(e.name, [0.0, 0])
-        rec[0] += e.time_range.elapsed_us()
-        rec[1] += 1
+    prof = _profiled(lambda: w.think(DT), ticks)
+    busy_ms, ops, by_name, ours = _device_summary(prof, ticks)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    ours = {k: v for k, v in by_name.items() if any(p in k for p in PORT_KERNELS)}
     os.makedirs("chiprun_out", exist_ok=True)
     prof.export_chrome_trace(os.path.join("chiprun_out", "tick_trace.json"))
+    staged_ms, stages = _staged(STAGES, lambda: w.think(DT), ticks)
 
-    acc: dict = {}
-    saved = [(mod, name, getattr(mod, name)) for mod, name in STAGES]
-    for mod, name, fn in saved:
-        setattr(mod, name, _timed(fn, name, acc))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(ticks):
-        w.think(DT)
-    torch.cuda.synchronize()
-    staged_ms = (time.perf_counter() - t0) * 1e3 / ticks
-    for mod, name, fn in saved:
-        setattr(mod, name, fn)
+    c_busy, c_ops, _, _ = _device_summary(_profiled(coupled, ticks), ticks)
+    m_busy, m_ops, _, m_ours = _device_summary(_profiled(mix_only, ticks), ticks)
+    staged_mix_ms, mix_stages = _staged(AUDIO_STAGES, mix_only, ticks)
+    audio = dict(
+        sources=N_SOURCES, frames_per_tick=TICK_FRAMES,
+        ms_per_physics_audio_tick=float(np.median(coupled_ms)),
+        physics_audio_device_busy_ms=c_busy, physics_audio_device_ops=c_ops,
+        ms_per_mix_block=float(np.median(mix_ms)),
+        mix_device_busy_ms=m_busy, mix_device_ops=m_ops,
+        audio_kernels={k: v for k, v in m_ours.items() if "audio" in k},
+        staged_ms_per_mix=staged_mix_ms, stages=mix_stages)
 
     out = dict(
         card=smi, bodies=len(w.objects),
         ms_per_think_rebuild=float(np.median(rebuild)), rebuild_ticks=len(rebuild),
         ms_per_think_reuse=float(np.median(reuse)), reuse_ticks=len(reuse),
-        device_busy_ms_per_tick=busy_us / 1e3 / ticks,
-        device_ops_per_tick=len(dev_evs) / ticks,
+        device_busy_ms_per_tick=busy_ms, device_ops_per_tick=ops,
         top_kernels=[dict(name=name[:90], ms_per_tick=us / 1e3 / ticks,
                           calls_per_tick=n / ticks) for name, (us, n) in top],
-        port_kernels={name[:60]: dict(ms_per_tick=us / 1e3 / ticks, us_per_launch=us / n,
-                                      calls_per_tick=n / ticks)
-                      for name, (us, n) in ours.items()},
-        staged_ms_per_think=staged_ms,
-        stages={name: dict(host_ms_per_tick=v[0] / ticks, device_ms_per_tick=v[1] / ticks,
-                           calls_per_tick=v[2] / ticks) for name, v in acc.items()})
+        port_kernels=ours,
+        staged_ms_per_think=staged_ms, stages=stages, audio=audio)
     print(json.dumps(out, indent=1))
     return out
 

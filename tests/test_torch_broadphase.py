@@ -33,7 +33,7 @@ _jcached = jax.jit(jbp.find_pairs_cached,
 def _scene(seed, speed=0.0):
     arrays = box_world_arrays(CAP, 200, seed, z0=0.39, dz=0.79, speed=speed)
     kw = box_config_kwargs(CAP)
-    return (jax_body(arrays), convert.body_state_from_numpy(arrays),
+    return (jax_body(arrays), convert.body_state_from_numpy(arrays, device="cpu"),
             jstate.SimConfig(**kw), tstate.SimConfig(**kw))
 
 
@@ -93,7 +93,7 @@ def test_rebuild_margins_and_window():
 def test_pair_cache_reuse_returns_cached_list():
     jb, tb, jcfg, tcfg = _scene(5)
     dt = 1.0 / 60.0
-    cache = tbp.empty_pair_cache(tcfg)
+    cache = tbp.empty_pair_cache(tcfg, device="cpu")
     pa, pb, pv, num, ov, cache = tbp.find_pairs_cached(tb, cache, dt, tcfg, rebuild=True)
     left = int(cache.steps_left)
     moved = tb.replace(pos=tb.pos + 0.3)     # reuse must not look at positions

@@ -1,4 +1,5 @@
-"""Kernels KA-KD on the card against their plain PyTorch twins.
+"""Kernels KA-KG on the card against their plain PyTorch twins, and the
+entry points' default device.
 
 These need a CUDA device and skip without one (the decision is made inside
 the fixture, never at import).  The file imports torch, numpy and the port
@@ -7,14 +8,19 @@ only, so it also runs on a machine without JAX:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
 Tolerances are chip_smoke.py's: 1e-5 for KA/KB rows, 1e-4 for KC
-velocities after warm start + 7 iterations, 1e-6 for KD; each kernel
-repeats its twin's operations in the same order."""
+velocities after warm start + 7 iterations, 1e-6 for KD and KE, 1e-5 for
+KF and KG; each kernel repeats its twin's operations in the same order."""
 
 import numpy as np
 import pytest
 import torch
 
 from substrata_tpu_torch import MotionType, PhysicsObject, PhysicsWorld
+from substrata_tpu_torch.audio import mix
+from substrata_tpu_torch.audio.engine import AudioEngine
+from substrata_tpu_torch.audio.hrtf import hrir_bank_tensor
+from substrata_tpu_torch.benchworld import TICK_FRAMES, bench_audio
+from substrata_tpu_torch.kernels import audio_mix as kaudio
 from substrata_tpu_torch.kernels import box_box as ka
 from substrata_tpu_torch.kernels import integrate_triton as kd
 from substrata_tpu_torch.kernels import solve as kc
@@ -113,3 +119,52 @@ def test_wrappers_refuse_mismatched_devices(world):
     with pytest.raises(ValueError):
         ka.box_box_rows(s.pos, s.quat, s.shape_params, s.friction, s.restitution,
                         s.is_sensor, pc.pair_a.cpu(), pc.pair_b, pc.pair_valid)
+
+
+@pytest.fixture(scope="module")
+def audio(world):
+    """bench.py's 256-source scene on the world's bodies, after 10 blocks."""
+    src, pool, lis, room = bench_audio("cuda")
+    idx = torch.arange(src.capacity, device="cuda") % world.state.capacity
+    src = src.replace(pos=world.state.pos[idx], vel=world.state.linvel[idx])
+    for _ in range(10):
+        src, _, room = mix.mix_block(src, pool, lis, room=room, block=TICK_FRAMES)
+    st = mix.prepare(src, lis, TICK_FRAMES, TICK_FRAMES / mix.ENGINE_RATE, True)
+    return src, pool, lis, room, st
+
+
+def test_audio_kernels_match_plain(audio):
+    src, pool, lis, room, st = audio
+    b = TICK_FRAMES
+    fargs = (pool, src.buf_offset, src.buf_len, src.playhead, st.eff_delta, src.mix_factor,
+             src.looping, src.stream_mode, src.stream_write_head, st.active, b,
+             mix.window_rows(b))
+    sk, hk = kaudio.audio_fetch(*fargs)
+    sp, hp = kaudio.audio_fetch_plain(*fargs)
+    assert float((sk - sp).abs().max()) <= 1e-6 and float((hk - hp).abs().max()) <= 1e-6
+    assert float(sp.abs().max()) > 0.1
+    for use_hrtf in (True, False):
+        sargs = (sp, src.lp_state, st.alpha, st.use_lp, src.spatial, src.hrir_hist,
+                 hrir_bank_tensor("cuda"), st.dir_idx, src.prev_gain_l, src.prev_gain_r,
+                 st.gl, st.gr, mix.gain_ramp(b, "cuda"), st.gain, st.send_gain, use_hrtf)
+        fk = kaudio.audio_spatialise(*sargs)
+        fp = kaudio.audio_spatialise_plain(*sargs)
+        for x, y in zip(fk, fp):
+            assert float((x - y).abs().max()) <= 1e-5, use_hrtf
+    gargs = (fp[0], fp[1], fp[2], lis.master_volume, room.delay_lines, room.write_idx,
+             room.delays, room.feedback, room.wet)
+    gk = kaudio.audio_downmix_reverb(*gargs)
+    gp = kaudio.audio_downmix_reverb_plain(*gargs)
+    assert float((gk[0] - gp[0]).abs().max()) <= 1e-5
+    assert float((gk[1] - gp[1]).abs().max()) <= 1e-5 and torch.equal(gk[2], gp[2])
+    ok, _, _ = kaudio.audio_downmix_reverb(fp[0], fp[1], None, lis.master_volume)
+    op, _, _ = kaudio.audio_downmix_reverb_plain(fp[0], fp[1], None, lis.master_volume)
+    assert float((ok - op).abs().max()) <= 1e-5
+
+
+def test_entry_points_default_to_the_card(world):
+    w = PhysicsWorld(SimConfig(capacity=32, max_pairs=256, grid_dim=16))
+    assert w.device.type == "cuda" and w.state.pos.device.type == "cuda"
+    eng = AudioEngine(max_sources=4, pool_size=1 << 16)
+    assert eng.device.type == "cuda" and eng.pool.device.type == "cuda"
+    assert eng.sources.playhead.device.type == "cuda"

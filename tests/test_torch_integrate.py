@@ -56,8 +56,8 @@ def _arrays(seed):
 def _both(seed):
     arrays = _arrays(seed)
     jp = jstate.default_sim_params().replace(water_z=jnp.float32(WATER_Z))
-    return (jax_body(arrays), jp, convert.body_state_from_numpy(arrays),
-            convert.sim_params_from_numpy(params_np(jp)))
+    return (jax_body(arrays), jp, convert.body_state_from_numpy(arrays, device="cpu"),
+            convert.sim_params_from_numpy(params_np(jp), device="cpu"))
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -143,9 +143,9 @@ def test_pair_contacts_blocked_rows_equal():
         jax_body(arrays), jnp.asarray(pa), jnp.asarray(pb), jnp.asarray(pv),
         config=jstate.SimConfig(**kw), blocked_wm=4)
     tc, ttouch, tov = tnp_phase.pair_contacts(
-        convert.body_state_from_numpy(arrays), torch.tensor(pa), torch.tensor(pb),
+        convert.body_state_from_numpy(arrays, device="cpu"), torch.tensor(pa), torch.tensor(pb),
         torch.tensor(pv), tstate.SimConfig(**kw), blocked_wm=4)
-    body = convert.body_state_from_numpy(arrays)
+    body = convert.body_state_from_numpy(arrays, device="cpu")
     a = torch.clamp(torch.tensor(pa), min=0).long()
     b = torch.clamp(torch.tensor(pb), min=0).long()
     gap = ka.box_box(body.pos[a], body.quat[a], body.shape_params[a, :3],
@@ -197,7 +197,7 @@ def _heightfield_worlds(flat):
         jw = jstate.default_static_world().replace(heightfield=jstate.Heightfield(
             heights=jnp.asarray(h), origin=jnp.array([-40.0, -40.0], jnp.float32),
             cell_w=jnp.float32(2.5), is_flat=False))
-    return jw, convert.static_world_from_numpy(static_world_np(jw))
+    return jw, convert.static_world_from_numpy(static_world_np(jw), device="cpu")
 
 
 @pytest.mark.parametrize("k", [4, 8])
@@ -209,7 +209,7 @@ def test_static_contacts_equal(flat, k):
               present_shape_types=(True, True, True, False))
     jc = _jstatic_contacts(jax_body(arrays), jw, jnp.zeros((64, 8, 3)),
                            config=jstate.SimConfig(**kw))
-    tc = tnp_phase.static_contacts(convert.body_state_from_numpy(arrays), tw,
+    tc = tnp_phase.static_contacts(convert.body_state_from_numpy(arrays, device="cpu"), tw,
                                    tstate.SimConfig(**kw))
     for f in ("a", "b", "key", "valid"):
         np.testing.assert_array_equal(getattr(tc, f).numpy(), np.asarray(getattr(jc, f)),
@@ -224,7 +224,7 @@ def test_shape_sample_points_equal():
     arrays = _ground_bodies(5)
     present = (True, True, True, False)
     jpts, jrad, jok = jnp_phase.shape_sample_points(jax_body(arrays), None, present)
-    tpts, trad, tok = tnp_phase.shape_sample_points(convert.body_state_from_numpy(arrays),
+    tpts, trad, tok = tnp_phase.shape_sample_points(convert.body_state_from_numpy(arrays, device="cpu"),
                                                     present)
     np.testing.assert_allclose(tpts.numpy(), np.asarray(jpts), atol=ATOL, rtol=0)
     np.testing.assert_array_equal(trad.numpy(), np.asarray(jrad))

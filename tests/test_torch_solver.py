@@ -80,13 +80,13 @@ def scene():
     warm = _solve_contacts(jb, static_cts, pair_cts, jnp.float32(DT), jp, config=jcfg,
                            cache=cache0, wm=WM, table=table, sign=sign)[6]
     tb = convert.body_state_from_numpy({k: np.asarray(getattr(jb, k))
-                                        for k in tstate.BODY_FIELDS})
+                                        for k in tstate.BODY_FIELDS}, device="cpu")
     return dict(jb=jb, tb=tb, jcfg=jcfg, tcfg=tcfg, jp=jp,
-                tp=convert.sim_params_from_numpy(params_np(jp)),
+                tp=convert.sim_params_from_numpy(params_np(jp), device="cpu"),
                 jpair=pair_cts, jstatic=static_cts,
                 tpair=_t_contacts(pair_cts), tstatic=_t_contacts(static_cts),
                 e=(e_a, e_b), inc=(table, sign, counts), jwarm=warm,
-                twarm=convert.solver_cache_from_numpy(np.asarray(warm.data)))
+                twarm=convert.solver_cache_from_numpy(np.asarray(warm.data), device="cpu"))
 
 
 def test_build_incidence_equal(scene):

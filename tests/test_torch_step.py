@@ -44,12 +44,12 @@ def _setup(seed=0):
     jpc = jbp.empty_pair_cache(jcfg)
     j = dict(body=jax_body(arrays), world=jw, params=jp, config=jcfg,
              sc=jsc, pc=jpc)
-    t = dict(body=convert.body_state_from_numpy(arrays),
-             world=convert.static_world_from_numpy(static_world_np(jw)),
-             params=convert.sim_params_from_numpy(params_np(jp)), config=tcfg,
-             sc=convert.solver_cache_from_numpy(np.asarray(jsc.data)),
+    t = dict(body=convert.body_state_from_numpy(arrays, device="cpu"),
+             world=convert.static_world_from_numpy(static_world_np(jw), device="cpu"),
+             params=convert.sim_params_from_numpy(params_np(jp), device="cpu"), config=tcfg,
+             sc=convert.solver_cache_from_numpy(np.asarray(jsc.data), device="cpu"),
              pc=convert.pair_cache_from_numpy(
-                 {f: np.asarray(getattr(jpc, f)) for f in vars(jpc)}))
+                 {f: np.asarray(getattr(jpc, f)) for f in vars(jpc)}, device="cpu"))
     return j, t
 
 

@@ -30,7 +30,7 @@ def load_golden(name):
 def make_world(**kw):
     cfg = SimConfig(capacity=32, max_pairs=256, grid_dim=16, cell_size=2.0,
                     solver_iters=10, **kw)
-    w = PhysicsWorld(cfg)
+    w = PhysicsWorld(cfg, device="cpu")
     w.set_ground_plane(0.0)
     return w
 
@@ -136,7 +136,8 @@ def test_unported_entry_points_raise():
 
 def test_import_leaves_jax_out():
     code = ("import sys, substrata_tpu_torch, substrata_tpu_torch.convert, "
-            "substrata_tpu_torch.kernels; "
+            "substrata_tpu_torch.kernels, substrata_tpu_torch.audio, "
+            "substrata_tpu_torch.audio.mix, substrata_tpu_torch.benchworld; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'substrata_tpu')]; "
             "assert not bad, bad; print('ok')")
@@ -145,15 +146,28 @@ def test_import_leaves_jax_out():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
+def test_world_defaults_to_the_card():
+    """The entry point runs on the card unless asked for the CPU, and
+    never falls back to it."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: tests/test_torch_gpu.py checks the default")
+    with pytest.raises(RuntimeError, match="cuda"):
+        PhysicsWorld(SimConfig(capacity=32, max_pairs=256, grid_dim=16))
+    with pytest.raises(RuntimeError, match="cuda"):
+        PhysicsWorld(SimConfig(capacity=32, max_pairs=256, grid_dim=16), device="cuda")
+
+
 def _scripted_world(pkg_world, pkg_object, pkg_shapes, motion_dynamic):
     """One host script through either package's facade: a bilinear
     heightfield, water buoyancy, 12 separated boxes; after 20 thinks a
     teleport, a velocity write, a removal and an add; 25 more thinks."""
     rng = np.random.default_rng(3)
-    w = pkg_world(SimConfig(capacity=32, max_pairs=256, grid_dim=16, cell_size=2.0,
-                            solver_iters=7) if pkg_world is PhysicsWorld else
-                  jstate.SimConfig(capacity=32, max_pairs=256, grid_dim=16,
-                                   cell_size=2.0, solver_iters=7))
+    if pkg_world is PhysicsWorld:
+        w = PhysicsWorld(SimConfig(capacity=32, max_pairs=256, grid_dim=16, cell_size=2.0,
+                                   solver_iters=7), device="cpu")
+    else:
+        w = pkg_world(jstate.SimConfig(capacity=32, max_pairs=256, grid_dim=16,
+                                       cell_size=2.0, solver_iters=7))
     w.set_heightfield(rng.uniform(-0.2, 0.2, (17, 17)).astype(np.float32),
                       origin=[-10.0, -10.0], cell_w=1.25)
     w.set_water_buoyancy_enabled(True)
