@@ -30,15 +30,29 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    physics kernels and KE/KF/KG launched (the audio ones once per tick),
    six more ticks make one synchronizing call each (the digest: the mix
    adds none), and a 200-box, 16-source coupled world steps on the card as
-   the CPU path does.
+   the CPU path does;
+8. ray, particle and vehicle kernels: bench.py's full-tick scene (the bench
+   world, 256 sources, 2,048 particles, 8 vehicles) after 30 full ticks:
+   KH ray trace at the particles' shape and at the wheels' shape, KI
+   particle update and KJ vehicle forces, each against its plain twin on
+   the same inputs with the tolerance stated beside it, timed as in phase
+   3; no single PyTorch call computes any of the three functions;
+9. the full tick: bench.py's window 3 without the character and Winter,
+   180 benchworld.full_tick calls (one cell table, vehicles, think,
+   particles, sources follow bodies, the mix) with phase 5's kick;
+   particles and vehicles finite, no body below z = -0.5, phase 7's audio
+   checks, every kernel launched (KH, KI and KJ at least once per tick),
+   six more ticks make one synchronizing call each, and a 200-box,
+   16-source, 256-particle, 4-vehicle full tick on the card matches the
+   CPU path.
 
 Every kernel also gets its bound: the least time the card could take for
 the same work, the larger of its bytes (each input read once, each output
 written once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s
 (the H100 SXM's published peaks at 700 W), from this run's inputs.
 
-The last lines are the kernels JSON, the card's name and power limit, and
-{"ok": true, "device": {...}}.  TF32 stays off for matmuls and cuDNN
+The last lines are the kernels JSON (launches from phase 9's full ticks),
+the card's name and power limit, and {"ok": true, "device": {...}}.  TF32 stays off for matmuls and cuDNN
 (the solver's small products must run in full float32).
 """
 
@@ -589,14 +603,235 @@ def small_coupled_phase(device="cuda"):
     return {"cuda_vs_cpu_200_boxes_16_sources_max_out_err": err}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the ray, particle and vehicle kernels against their plain twins.
+# ---------------------------------------------------------------------------
+
+def ray_bound(args, kw, outs):
+    """KH's bound from this run's data: the rays in and out, the table rows
+    they read, the stage-1 fields of the distinct bodies they meet and the
+    shape fields of the distinct survivors, and the heightfield."""
+    from substrata_tpu_torch.kernels import ray_trace as kh
+    o, d, mt, body, table, os_idx, hf, has_hf, ex = args
+    buckets, cand, slotk, okk = kh.survivors(o, d, mt, body, table, os_idx,
+                                             kw["cell_size"], kw["grid_dim"],
+                                             kw["body_steps"], ex, kw["collidable_only"],
+                                             kw["k"], kw["dedup"])
+    rows = int(torch.unique(buckets).numel())
+    bodies = int(torch.unique(cand[cand >= 0]).numel())
+    surv = int(torch.unique(slotk[okk]).numel())
+    hf_bytes = 4 if hf.is_flat else nbytes(hf.heights)
+    moved = (nbytes(o, d, mt, ex, os_idx, has_hf, outs) + rows * table.shape[1] * 4
+             + bodies * (12 + 4 + 1 + 4) + surv * (12 + 16 + 16 + 4) + hf_bytes)
+    hf_ops = FLOPS["ray_hf_flat"] if hf.is_flat else FLOPS["ray_hf_step"] * (kw["n_steps"] + 10)
+    ops = (int((cand >= 0).sum()) * FLOPS["ray_candidate"] + int(okk.sum()) * FLOPS["ray_shape"]
+           + o.shape[0] * hf_ops)
+    return bound(moved, ops), dict(rays=int(o.shape[0]), table_rows=rows,
+                                   candidate_bodies=bodies, survivors=int(okk.sum()),
+                                   hits=int(outs[3].sum()))
+
+
+def fulltick_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, warm=30, plain_reps=5):
+    from substrata_tpu_torch.benchworld import bench_audio, bench_fulltick, bench_world, full_tick
+    from substrata_tpu_torch.kernels import particles_triton as ki
+    from substrata_tpu_torch.kernels import ray_trace as kh
+    from substrata_tpu_torch.kernels import vehicles as kj
+    from substrata_tpu_torch.physics import broadphase, queries
+    from substrata_tpu_torch.physics.particles import motion_rays
+    from substrata_tpu_torch.physics.vehicles.manager import chassis_and_wheel_rays
+
+    w = bench_world(device, n_bodies=n_bodies, cfg=cfg)
+    veh, vin, ps = bench_fulltick(w, device)
+    src, pool, lis, room = bench_audio(device)
+    idx = torch.arange(src.capacity, device=device)
+    for _ in range(warm):
+        veh, ps, src, _, room = full_tick(w, veh, vin, ps, src, pool, lis, room, idx)
+    body, cfg, sw = w.state, w.config, w.static_world
+    table = broadphase.build_cell_table(body, cfg)[0]
+    os_idx = queries.oversize_slots(body, cfg)
+    hf, has_hf = sw.heightfield, sw.has_heightfield
+    results = {}
+
+    # KH at both call shapes.  hit and body exact; t and normal within 1e-6
+    # (the same float32 operations in the same order).
+    dirs, max_ts = motion_rays(ps, DT)
+    none = torch.full((ps.capacity,), -1, dtype=torch.int32, device=device)
+    (c_pos, c_quat, c_lin, c_ang, c_mass, c_iw), wheel = chassis_and_wheel_rays(veh, body)
+    shapes = {
+        "particles": ((ps.pos, dirs, max_ts, body, table, os_idx, hf, has_hf, none),
+                      dict(n_steps=4, body_steps=1, dedup=False)),
+        "wheels": ((*wheel[:3], body, table, os_idx, hf, has_hf, wheel[3]),
+                   dict(n_steps=4, body_steps=4, dedup=True)),
+    }
+    hits = {}
+    for shape, (args, kw) in shapes.items():
+        kw = dict(kw, cell_size=cfg.cell_size, grid_dim=cfg.grid_dim, collidable_only=True,
+                  k=16)
+        rk = kh.ray_trace(*args, **kw)
+        rp = kh.ray_trace_plain(*args, **kw)
+        check(torch.equal(rk[3], rp[3]), f"KH {shape}: hit differs")
+        check(torch.equal(rk[2], rp[2]), f"KH {shape}: body differs")
+        err = max(max_err(rk[0], rp[0]), max_err(rk[1], rp[1]))
+        check(err <= 1e-6, f"KH {shape}: max abs err {err} > 1e-6")
+        b, counts = ray_bound(args, kw, rk)
+        results[f"ray_trace_{shape}"] = dict(
+            max_abs_err=err, tol=1e-6, **b, **counts,
+            ms=median_ms(lambda: kh.ray_trace(*args, **kw)),
+            plain_ms=median_ms(lambda: kh.ray_trace_plain(*args, **kw), reps=plain_reps))
+        hits[shape] = rp
+
+    # KI.  Tolerance 1e-6: the same operations, correctly rounded division
+    # and square root, no fusion.
+    t, n, _, hit = hits["particles"]
+    iargs = (ps, t, n, hit, DT, w.params.water_z)
+    ik, ip = ki.particles_update(*iargs), ki.particles_update_plain(*iargs)
+    err = max(max_err(x, y) for x, y in zip(ik[:4], ip[:4]))
+    check(err <= 1e-6, f"KI: max abs err {err} > 1e-6")
+    check(torch.equal(ik[4], ip[4]) and torch.equal(ik[5], ip[5]), "KI: alive or foam differ")
+    ki_in = [getattr(ps, f) for f in ("pos", "vel", "area", "mass", "restitution", "width",
+                                      "dwidth_dt", "opacity", "dopacity_dt", "die_on_hit",
+                                      "alive")]
+    results["particles_update"] = dict(
+        max_abs_err=err, tol=1e-6,
+        **bound(nbytes(ki_in, t, n, hit, w.params.water_z, ik),
+                FLOPS["particles_update"] * ps.capacity),
+        ms=median_ms(lambda: ki.particles_update(*iargs)),
+        plain_ms=median_ms(lambda: ki.particles_update_plain(*iargs), reps=plain_reps))
+
+    # KJ.  Tolerance 1e-5 of each output's largest magnitude (at least 1):
+    # the same operations, CUDA's atan2/tan/cos/sin in both; gear and
+    # contact exact.
+    wt, wn, _, whit = hits["wheels"]
+    nv = veh.vtype.shape[0]
+    jargs = (veh, vin, c_pos, c_quat, c_lin, c_ang, c_mass, c_iw, wt.reshape(nv, 4),
+             wn.reshape(nv, 4, 3), whit.reshape(nv, 4) & (veh.body_slot >= 0)[:, None],
+             w.params.water_z, DT)
+    jk, jp = kj.vehicle_forces(*jargs), kj.vehicle_forces_plain(*jargs)
+    err, rel = 0.0, 0.0
+    for i, (x, y) in enumerate(zip(jk, jp)):
+        if y.dtype in (torch.bool, torch.int32):
+            check(torch.equal(x, y), f"KJ: output {i} differs")
+            continue
+        e = max_err(x, y)
+        err, rel = max(err, e), max(rel, e / max(1.0, float(y.abs().max())))
+    check(rel <= 1e-5, f"KJ: max err {rel} of the output's scale > 1e-5")
+    kj_in = [getattr(veh, f) for f in kj.KERNEL_FIELDS] + list(vars(vin).values())
+    results["vehicle_forces"] = dict(
+        max_abs_err=err, max_err_of_scale=rel, tol=1e-5, vehicles=nv,
+        contacts=int(jp[7].sum()),
+        **bound(nbytes(kj_in, jargs[2:12], jk), FLOPS["vehicle_forces"] * nv),
+        ms=median_ms(lambda: kj.vehicle_forces(*jargs)),
+        plain_ms=median_ms(lambda: kj.vehicle_forces_plain(*jargs), reps=plain_reps))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the full tick, bench.py's window 3 without the character and Winter.
+# ---------------------------------------------------------------------------
+
+def full_tick_phase(device="cuda", n_bodies=10_000, cfg=None, sync=torch.cuda.synchronize):
+    from substrata_tpu_torch import kernels
+    from substrata_tpu_torch.benchworld import (bench_audio, bench_fulltick, bench_world,
+                                                full_tick, kick)
+    w = bench_world(device, n_bodies=n_bodies, cfg=cfg)
+    veh, vin, ps = bench_fulltick(w, device)
+    src, pool, lis, room = bench_audio(device)
+    idx = torch.arange(src.capacity, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    sync()
+    kernels.reset_launch_counts()
+    times = []
+    for t in range(TICKS):
+        if t > 0 and t % KICK_EVERY == 0:
+            w.set_state(kick(w.state, gen))
+        sync()
+        t0 = time.perf_counter()
+        veh, ps, src, out, room = full_tick(w, veh, vin, ps, src, pool, lis, room, idx)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launch_counts()
+    rms, lr = out_checks(out)
+    for name in PHYSICS_KERNELS:
+        check(counts[name] > 0, f"kernel {name} never launched on the full tick")
+    for name in AUDIO_KERNELS:
+        check(counts[name] == TICKS, f"kernel {name}: {counts[name]} launches in {TICKS} ticks")
+    for name in FULLTICK_KERNELS:
+        check(counts[name] >= TICKS, f"kernel {name}: {counts[name]} launches in {TICKS} ticks")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        for _ in range(SYNC_TICKS):
+            veh, ps, src, out, room = full_tick(w, veh, vin, ps, src, pool, lis, room, idx)
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(c.message).splitlines()[0] for c in caught
+             if str(c.message).startswith("called a synchronizing CUDA operation")]
+    check(len(syncs) == SYNC_TICKS,
+          f"{len(syncs)} synchronizing calls in {SYNC_TICKS} full ticks, expected one each")
+    st = w.state
+    alive = st.alive
+    check(bool(torch.isfinite(st.pos[alive]).all()), "non-finite positions")
+    min_z = float(st.pos[alive][:, 2].min())
+    check(min_z >= -0.5, f"a body fell through the ground: z = {min_z}")
+    live = ps.alive
+    check(bool(torch.isfinite(ps.pos[live]).all() and torch.isfinite(ps.vel[live]).all()),
+          "non-finite particles")
+    vstate = torch.cat([veh.steering[:, None], veh.prev_sus_len, veh.wheel_omega, veh.wheel_rot,
+                        veh.unflip_time[:, None], veh.shift_timer[:, None],
+                        veh.engine_rpm[:, None]], dim=1)
+    check(bool(torch.isfinite(vstate).all()), "non-finite vehicle state")
+    return dict(
+        ms_per_tick_median=float(np.median(times[30:])),
+        ms_per_tick_p90=float(np.percentile(times[30:], 90)),
+        first_tick_ms=times[0], out_rms=rms, out_max_lr_diff=lr, launches=counts,
+        syncs_per_tick=len(syncs) / SYNC_TICKS, particles=ps.capacity,
+        particles_alive=int(live.sum()), particle_min_z=float(ps.pos[live][:, 2].min()),
+        vehicles=int(veh.vtype.shape[0]), wheel_contacts=int(veh.wheel_contact.sum()),
+        vehicle_rpm=[float(x) for x in veh.engine_rpm.cpu()],
+        vehicle_gear=[int(x) for x in veh.gear.cpu()], min_z=min_z)
+
+
+def small_fulltick_phase(device="cuda"):
+    """200 boxes, 16 sources, 256 particles and 4 vehicles: 10 full ticks on
+    the card and on the CPU path; bodies, particles and audio within 1e-4."""
+    from substrata_tpu_torch.benchworld import bench_audio, bench_fulltick, bench_world, full_tick
+    from substrata_tpu_torch.physics.state import SimConfig
+    cfg = SimConfig(capacity=256, max_pairs=1024, grid_dim=32, cell_size=1.4,
+                    cell_capacity=6, solver_iters=7, pairs_per_body=10,
+                    pair_rebuild_interval=6, contacts_per_body=8)
+    runs = {}
+    for dev in (device, "cpu"):
+        w = bench_world(dev, n_bodies=200, cfg=cfg)
+        veh, vin, ps = bench_fulltick(w, dev, n_particles=256, n_vehicles=4)
+        src, pool, lis, room = bench_audio(dev, n_sources=16)
+        idx = torch.arange(16, device=dev)
+        outs = []
+        for _ in range(10):
+            veh, ps, src, out, room = full_tick(w, veh, vin, ps, src, pool, lis, room, idx)
+            outs.append(out.cpu())
+        runs[dev] = (w.state.pos.cpu(), ps.pos.cpu(), torch.stack(outs), veh.gear.cpu())
+    (bk, pk, ok, gk), (bp, pp, op, gp) = runs[device], runs["cpu"]
+    errs = dict(bodies=max_err(bk, bp), particles=max_err(pk, pp), out=max_err(ok, op))
+    for what, e in errs.items():
+        check(e <= 1e-4, f"small full tick: {what} card vs CPU path {e} > 1e-4")
+    check(torch.equal(gk, gp), "small full tick: vehicle gears differ")
+    return {f"cuda_vs_cpu_small_full_tick_max_{k}_err": v for k, v in errs.items()}
+
+
 PHYSICS_KERNELS = ("box_box_rows", "static_contacts", "solve_iteration", "apply_forces",
                    "integrate_positions")
 AUDIO_KERNELS = ("audio_fetch", "audio_spatialise", "audio_downmix_reverb")
+FULLTICK_KERNELS = ("ray_trace", "particles_update", "vehicle_forces")
 # Float32 operations per item, counted from the kernels' sources (rounded
 # up): per valid pair slot (KA), per body (KB, KD), per contact row and per
 # body table slot (KC).
 FLOPS = {"box_box_rows": 1000, "static_contacts": 600, "solve_iteration": 60,
-         "solve_bodies": 18, "apply_forces": 100, "integrate_positions": 60}
+         "solve_bodies": 18, "apply_forces": 100, "integrate_positions": 60,
+         # KH per gathered candidate, per survivor's shape test, per ray on
+         # flat ground, per march or bisection step on a heightfield; KI per
+         # particle; KJ per vehicle.
+         "ray_candidate": 25, "ray_shape": 150, "ray_hf_flat": 10, "ray_hf_step": 40,
+         "particles_update": 90, "vehicle_forces": 3000}
 
 KERNELS = [
     ("box_box_rows", "cuda", "substrata_tpu_torch/csrc/box_box.cu",
@@ -615,6 +850,12 @@ KERNELS = [
      "substrata_tpu/audio/mix.py:350"),
     ("audio_downmix_reverb", "cuda", "substrata_tpu_torch/csrc/audio_mix.cu",
      "substrata_tpu/audio/mix.py:404"),
+    ("ray_trace", "cuda", "substrata_tpu_torch/csrc/ray_trace.cu",
+     "substrata_tpu/physics/queries.py:243"),
+    ("particles_update", "triton", "substrata_tpu_torch/kernels/particles_triton.py",
+     "substrata_tpu/physics/particles.py:80"),
+    ("vehicle_forces", "cuda", "substrata_tpu_torch/csrc/vehicles.cu",
+     "substrata_tpu/physics/vehicles/manager.py:298"),
 ]
 
 
@@ -675,9 +916,27 @@ def main():
         f"{pa_res['ms_per_tick_median']:.3f} (p90 {pa_res['ms_per_tick_p90']:.3f}); "
         f"ms per think alone (phase 5): {main_res['ms_per_think_median']:.3f} | {smi}")
 
+    fres = fulltick_kernel_phase()
+    for name, r in fres.items():
+        log(f"# kernel {name}: {json.dumps(r)} | {smi}")
+    # KH's line carries the particles' shape (2,048 of its rays per tick;
+    # the wheels' 32 are in chip_smoke.json); no single PyTorch call
+    # computes KH, KI or KJ, so library_ms is null.
+    kres["ray_trace"] = dict(fres["ray_trace_particles"], max_abs_err=max(
+        fres["ray_trace_particles"]["max_abs_err"], fres["ray_trace_wheels"]["max_abs_err"]))
+    kres.update({k: v for k, v in fres.items() if k in FULLTICK_KERNELS})
+
+    ft_res = full_tick_phase()
+    ft_res.update(small_fulltick_phase())
+    log(f"# full tick: {json.dumps(ft_res)} | {smi}")
+    log(f"# ms per full tick (median, ticks 31-{TICKS}, 10,000 boxes, 256 sources, "
+        f"2,048 particles, 8 vehicles): {ft_res['ms_per_tick_median']:.3f} "
+        f"(p90 {ft_res['ms_per_tick_p90']:.3f}); physics + audio tick (phase 7): "
+        f"{pa_res['ms_per_tick_median']:.3f} | {smi}")
+
     out = {"kernels": [
         dict(name=name, route=route, source=src, replaces=rep,
-             launches=pa_res["launches"][name], max_abs_err=kres[name]["max_abs_err"],
+             launches=ft_res["launches"][name], max_abs_err=kres[name]["max_abs_err"],
              ms=kres[name]["ms"], plain_ms=kres[name]["plain_ms"],
              bound_ms=kres[name]["bound_ms"], bound_by=kres[name]["bound_by"],
              library_ms=None)
@@ -686,7 +945,8 @@ def main():
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(nvidia_smi=smi, torch=torch.__version__, kernels=kres,
                        small_worlds=small, main_path=main_res, audio=ares,
-                       physics_audio=pa_res), f, indent=1)
+                       physics_audio=pa_res, fulltick_kernels=fres, full_tick=ft_res),
+                  f, indent=1)
     log(json.dumps(out))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

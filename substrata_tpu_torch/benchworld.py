@@ -1,7 +1,9 @@
 """The 10,000-box bench world (bench.py:105-154), its churn kick
-(bench.py:212-221) and the 256-source audio scene of bench.py:83-102,
-rebuilt on the port for chip_smoke.py and profile_tick.py, and the coupled
-physics + audio tick of bench.py's window 2 (bench.py:337-341)."""
+(bench.py:212-221), the 256-source audio scene of bench.py:83-102 and the
+vehicles and particles of bench.py:157-209, rebuilt on the port for
+chip_smoke.py and profile_tick.py; the coupled physics + audio tick of
+bench.py's window 2 (bench.py:337-341) and the full tick of its window 3
+(bench.py:311-342) without the character and Winter."""
 
 from __future__ import annotations
 
@@ -10,12 +12,18 @@ import torch
 
 from substrata_tpu_torch.audio.mix import (default_listener, mix_block, room_from_aabb,
                                            zero_sources)
-from substrata_tpu_torch.physics import shapes
+from substrata_tpu_torch.physics import broadphase, shapes
+from substrata_tpu_torch.physics.particles import particles_step, zero_particles
 from substrata_tpu_torch.physics.state import MotionType, SimConfig
+from substrata_tpu_torch.physics.vehicles.manager import (
+    BikePhysics, BoatPhysics, CarPhysics, HoverCarPhysics, VehicleInputs, VehicleManager,
+    _apply_vehicle_deltas, vehicles_update)
 from substrata_tpu_torch.physics.world import PhysicsObject, PhysicsWorld
 
 N_BODIES = 10_000
 N_SOURCES = 256
+N_PARTICLES = 2048    # the reference's own cap (ParticleManager.cpp:88)
+N_VEHICLES = 8        # two each of car, bike, boat, hovercar
 DT = 1.0 / 60.0
 TICK_FRAMES = 800     # 48 kHz / 60 Hz: one tick of audio per step
 POOL_SAMPLES = 1 << 20
@@ -95,3 +103,56 @@ def physics_audio_tick(world, src, pool, listener, room, src_idx):
     st = world.state
     src = src.replace(pos=st.pos[src_idx], vel=st.linvel[src_idx])
     return mix_block(src, pool, listener, room=room, use_hrtf=True, block=TICK_FRAMES)
+
+
+def bench_fulltick(world, device, n_particles: int = N_PARTICLES,
+                   n_vehicles: int = N_VEHICLES):
+    """bench.py:157-209 without the character and Winter: vehicles of the
+    four types in turn on the first ``n_vehicles`` bodies, all driven with
+    forward 0.6 and right 0.15 (inputs built once, on the device), and
+    ``n_particles`` bouncing particles from seed 3 in a 70 x 70 x 7 m box.
+    Returns (vehicle arrays, vehicle inputs, particles)."""
+    vm = VehicleManager(world, capacity=n_vehicles)
+    classes = [CarPhysics, BikePhysics, BoatPhysics, HoverCarPhysics]
+    first = [world.objects[s] for s in sorted(world.objects)[:n_vehicles]]
+    for i in range(n_vehicles):
+        classes[i % 4](vm, first[i])
+        vm.set_active(i, True)
+    f = dict(dtype=torch.float32, device=device)
+    vinputs = VehicleInputs(
+        forward=torch.full((n_vehicles,), 0.6, **f), right=torch.full((n_vehicles,), 0.15, **f),
+        up=torch.zeros((n_vehicles,), **f),
+        brake=torch.zeros((n_vehicles,), dtype=torch.bool, device=device),
+        handbrake=torch.zeros((n_vehicles,), dtype=torch.bool, device=device))
+    rng = np.random.default_rng(3)
+    ps = zero_particles(n_particles, device=device)
+    ps = ps.replace(
+        pos=torch.as_tensor(rng.uniform([-35, -35, 1], [35, 35, 8], (n_particles, 3))
+                            .astype(np.float32), device=device),
+        vel=torch.as_tensor(rng.normal(0, 2, (n_particles, 3)).astype(np.float32),
+                            device=device),
+        opacity=torch.ones_like(ps.opacity),
+        alive=torch.ones_like(ps.alive))   # die_on_hit False: they bounce forever
+    return vm.veh, vinputs, ps
+
+
+def full_tick(world, veh, vinputs, ps, src, pool, listener, room, src_idx):
+    """One tick of bench.py's window 3 (bench.py:311-342) without the
+    character and Winter: one cell table shared by the wheel rays and the
+    particle rays, the vehicles and their velocity deltas, ``think``, the
+    particles, the sources following bodies ``src_idx``, and one tick of
+    audio.  Returns (veh, particles, sources, out [800, 2], room); the
+    digest read of ``think`` is the tick's only device -> host copy."""
+    world._flush()
+    cfg = world.config
+    table, _, _ = broadphase.build_cell_table(world.state, cfg)
+    veh, dv, dw, slots = vehicles_update(veh, vinputs, world.state, world.static_world, DT,
+                                         world.params, cfg, table=table)
+    world.state = _apply_vehicle_deltas(world.state, slots, dv, dw)
+    world._world_asleep = False       # driven chassis must step
+    world.think(DT)
+    st = world.state
+    ps, _foam = particles_step(ps, st, world.static_world, DT, world.params, cfg, table=table)
+    src = src.replace(pos=st.pos[src_idx], vel=st.linvel[src_idx])
+    src, out, room = mix_block(src, pool, listener, room=room, use_hrtf=True, block=TICK_FRAMES)
+    return veh, ps, src, out, room

@@ -17,10 +17,13 @@ import torch
 from substrata_tpu_torch.audio.mix import (LISTENER_FIELDS, ROOM_FIELDS, SOURCE_FIELDS,
                                            Listener, RoomState, SourceState)
 from substrata_tpu_torch.physics.broadphase import PairCache
+from substrata_tpu_torch.physics.particles import PARTICLE_FIELDS, ParticleState
 from substrata_tpu_torch.physics.solver import SolverCache
 from substrata_tpu_torch.physics.state import (BODY_FIELDS, SIM_PARAM_FIELDS,
                                                BodyState, Heightfield, SimParams,
                                                StaticWorld)
+from substrata_tpu_torch.physics.vehicles.manager import (INPUT_FIELDS, VEHICLE_FIELDS,
+                                                          VehicleArrays, VehicleInputs)
 
 Arrays = Mapping[str, np.ndarray]
 
@@ -78,6 +81,21 @@ def listener_from_numpy(arrays: Arrays, *, device) -> Listener:
 
 def room_from_numpy(arrays: Arrays, *, device) -> RoomState:
     return RoomState(**{f: _t(arrays[f], device) for f in ROOM_FIELDS})
+
+
+def particles_from_numpy(arrays: Arrays, *, device) -> ParticleState:
+    """``arrays`` holds the 13 ParticleState fields by name."""
+    return ParticleState(**{f: _t(arrays[f], device) for f in PARTICLE_FIELDS})
+
+
+def vehicles_from_numpy(arrays: Arrays, *, device) -> VehicleArrays:
+    """``arrays`` holds the 36 VehicleArrays fields by name."""
+    return VehicleArrays(**{f: _t(arrays[f], device) for f in VEHICLE_FIELDS})
+
+
+def vehicle_inputs_from_numpy(arrays: Arrays, *, device) -> VehicleInputs:
+    """``arrays`` holds forward, right, up, brake and handbrake."""
+    return VehicleInputs(**{f: _t(arrays[f], device) for f in INPUT_FIELDS})
 
 
 def to_numpy(obj) -> dict:

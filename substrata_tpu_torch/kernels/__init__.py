@@ -1,5 +1,5 @@
-"""Hand-written Hopper kernels of the physics tick and the audio mix, and
-their wrappers.
+"""Hand-written Hopper kernels of the physics tick, the audio mix, the ray
+queries, the particles and the vehicles, and their wrappers.
 
 Each wrapper module holds the kernel's plain PyTorch twin beside it.  A
 wrapper runs the twin for tensors on the CPU; for CUDA tensors it launches
@@ -14,10 +14,14 @@ path went through the kernels.
   KE  audio_mix.py          csrc/audio_mix.cu        audio fetch + resample
   KF  audio_mix.py          csrc/audio_mix.cu        low-pass, HRIR, gain ramps
   KG  audio_mix.py          csrc/audio_mix.cu        downmix + reverb
+  KH  ray_trace.py          csrc/ray_trace.cu        ray trace (bodies, heightfield)
+  KI  particles_triton.py   (Triton)                 particle update after the ray
+  KJ  vehicles.py           csrc/vehicles.cu         vehicle force models
 """
 
-from substrata_tpu_torch.kernels import (audio_mix, box_box, integrate_triton, solve,
-                                         static_contacts)
+from substrata_tpu_torch.kernels import (audio_mix, box_box, integrate_triton,
+                                         particles_triton, ray_trace, solve,
+                                         static_contacts, vehicles)
 
 
 def launch_counts() -> dict:
@@ -28,6 +32,9 @@ def launch_counts() -> dict:
         "apply_forces": integrate_triton.launches["apply_forces"],
         "integrate_positions": integrate_triton.launches["integrate_positions"],
         **audio_mix.launches,
+        "ray_trace": ray_trace.launches,
+        "particles_update": particles_triton.launches,
+        "vehicle_forces": vehicles.launches,
     }
 
 
@@ -35,6 +42,9 @@ def reset_launch_counts():
     box_box.launches = 0
     static_contacts.launches = 0
     solve.launches = 0
+    ray_trace.launches = 0
+    particles_triton.launches = 0
+    vehicles.launches = 0
     for counts in (integrate_triton.launches, audio_mix.launches):
         for k in counts:
             counts[k] = 0

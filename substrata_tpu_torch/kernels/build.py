@@ -70,6 +70,16 @@ SIGNATURES = {
     # wl, wr, ws, master_volume, lines, write_idx, delays, feedback, wet,
     # out, lines_out, write_idx_out, S, B, D, has_room, stream
     "audio_downmix_reverb": [P] * 9 + [P] * 3 + [I] * 4 + [P],
+    # origins, dirs, max_ts, exclude, pos, quat, bound_radius, shape_type,
+    # shape_params, alive, layer, table, os_idx, heights, hf_origin,
+    # hf_cell_w, has_hf, R, num_buckets, cap, n_os, HX, HY, n_steps,
+    # body_steps, K, flags, cell_size, out t, normal, body, hit, stream
+    "ray_trace": [P] * 17 + [I] * 10 + [F] + [P] * 4 + [P],
+    # 33 vehicle rows (kernels/vehicles.py:KERNEL_FIELDS), 5 inputs,
+    # body_pos, body_quat, body_lin, body_ang, mass, iw, hit_t, hit_n,
+    # hit_ok, water_z, V, dt, out dv, dw, steering, sus_len, omega, rot,
+    # unflip, contact, gear, shift_timer, rpm, stream
+    "vehicle_forces": [P] * 33 + [P] * 5 + [P] * 10 + [I, F] + [P] * 11 + [P],
 }
 
 _lib = None

@@ -18,6 +18,14 @@ def identity(batch_shape=(), dtype=torch.float32, device=None):
     return q
 
 
+def basis(batch_shape, k: int, device=None):
+    """The unit vector e_k, [*batch_shape, 3], built on the device (no
+    host -> device copy)."""
+    e = torch.zeros(tuple(batch_shape) + (3,), dtype=torch.float32, device=device)
+    e[..., k] = 1.0
+    return e
+
+
 def cross(a, b):
     """Cross product over the trailing axis, written out."""
     ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
@@ -65,6 +73,24 @@ def rotate_vec(q, v):
 
 def inverse_rotate_vec(q, v):
     return rotate_vec(conjugate(q), v)
+
+
+def from_axis_angle(axis, angle):
+    """axis [..., 3] (unit), angle [...] -> (axis sin(angle/2), cos(angle/2))."""
+    half = 0.5 * angle
+    return torch.cat([axis * torch.sin(half)[..., None], torch.cos(half)[..., None]], dim=-1)
+
+
+def to_axis_angle(q):
+    """(axis [..., 3], angle [...]) of a unit quaternion, angle in [0, pi];
+    the axis is (1, 0, 0) where the rotation is the identity."""
+    q = torch.where(q[..., 3:4] < 0, -q, q)
+    sin_half = torch.sqrt(dot3(q[..., :3], q[..., :3]))
+    angle = 2.0 * torch.atan2(sin_half, q[..., 3])
+    safe = torch.clamp(sin_half, min=1e-12)[..., None]
+    axis = torch.where(sin_half[..., None] < 1e-8, basis(q.shape[:-1], 0, q.device),
+                       q[..., :3] / safe)
+    return axis, angle
 
 
 def to_matrix(q):

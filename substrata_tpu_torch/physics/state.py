@@ -143,14 +143,9 @@ class Heightfield(_Replace):
     cell_w: torch.Tensor   # [] spacing in x and y
     is_flat: bool = False
 
-    def sample_with_normal(self, xy):
-        """(height, unit normal) at world xy [..., 2]: the bilinear patch and
-        the analytic gradient of it; clamps at the borders."""
-        if self.is_flat:
-            h = self.heights[0, 0].expand(xy.shape[:-1])
-            n = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32,
-                             device=xy.device).expand(xy.shape[:-1] + (3,))
-            return h, n
+    def _patch(self, xy):
+        """Bilinear patch at world xy [..., 2]: (fu, fv, h00, h10, h01, h11)
+        with the reference's clamp at the borders."""
         hx, hy = self.heights.shape
         u = (xy[..., 0] - self.origin[0]) / self.cell_w
         v = (xy[..., 1] - self.origin[1]) / self.cell_w
@@ -161,10 +156,30 @@ class Heightfield(_Replace):
         fu = u - i0.to(torch.float32)
         fv = v - j0.to(torch.float32)
         hh = self.heights
-        h00 = hh[i0, j0]
-        h10 = hh[i0 + 1, j0]
-        h01 = hh[i0, j0 + 1]
-        h11 = hh[i0 + 1, j0 + 1]
+        return fu, fv, hh[i0, j0], hh[i0 + 1, j0], hh[i0, j0 + 1], hh[i0 + 1, j0 + 1]
+
+    def sample(self, xy):
+        """Bilinear height at world xy [..., 2] (the height of
+        ``sample_with_normal``)."""
+        if self.is_flat:
+            return self.heights[0, 0].expand(xy.shape[:-1])
+        fu, fv, h00, h10, h01, h11 = self._patch(xy)
+        return (h00 * (1 - fu) * (1 - fv) + h10 * fu * (1 - fv)
+                + h01 * (1 - fu) * fv + h11 * fu * fv)
+
+    def normal(self, xy):
+        """Unit surface normal at world xy [..., 2]."""
+        return self.sample_with_normal(xy)[1]
+
+    def sample_with_normal(self, xy):
+        """(height, unit normal) at world xy [..., 2]: the bilinear patch and
+        the analytic gradient of it; clamps at the borders."""
+        if self.is_flat:
+            h = self.heights[0, 0].expand(xy.shape[:-1])
+            n = torch.zeros(xy.shape[:-1] + (3,), dtype=torch.float32, device=xy.device)
+            n[..., 2] = 1.0
+            return h, n
+        fu, fv, h00, h10, h01, h11 = self._patch(xy)
         h = (h00 * (1 - fu) * (1 - fv) + h10 * fu * (1 - fv)
              + h01 * (1 - fu) * fv + h11 * fu * fv)
         dzdx = ((h10 - h00) * (1 - fv) + (h11 - h01) * fv) / self.cell_w

@@ -7,9 +7,10 @@ queued and flushed as batched scatters at the next ``think``, and each
 ``think`` reads back exactly one small packed array (the event digest).
 
 Not in this slice (ROADMAP.md queue 1): the fused serving tick
-(``think_with_player``), pipelined readback, batched snapshot transforms,
-virtual anchors, static mesh instances and trimeshes, hulls, ray queries
-and snapshots.  Each raises NotImplementedError naming its item.
+(``think_with_player``, which needs the character and its capsule combos),
+pipelined readback, batched snapshot transforms, virtual anchors, static
+mesh instances and trimeshes, hulls and snapshots.  Each raises
+NotImplementedError naming its item.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from substrata_tpu_torch.physics import broadphase, shapes as shape_factories, solver
+from substrata_tpu_torch.physics import broadphase, queries, shapes as shape_factories, solver
 from substrata_tpu_torch.physics.state import (
     BodyState, Heightfield, Layer, MotionType, ShapeType, SimConfig,
     SimParams, default_sim_params, default_static_world, flat_heightfield,
@@ -37,7 +38,8 @@ USERDATA_AVATAR = 3
 
 _SLICE2 = "ROADMAP.md queue 1, slice 2: facade completion"
 _SLICE3 = "ROADMAP.md queue 1, slice 3: the other shapes"
-_LATER = "ROADMAP.md queue 1, item 7: queries, particles, character, vehicles"
+_LATER = ("ROADMAP.md queue 1, slice 5b: the character with its capsule combos, "
+          "and the serving tick")
 
 
 def _not_ported(what: str, item: str):
@@ -526,7 +528,7 @@ class PhysicsWorld:
             self._update_tier_from_digest(digest)
 
     def think_with_player(self, dt: float, player, cur_time: float = 0.0):
-        _not_ported("the fused serving tick (think_with_player)", _SLICE2)
+        _not_ported("the fused serving tick (think_with_player)", _LATER)
 
     def set_pipelined(self, depth: int):
         if depth > 0:
@@ -624,17 +626,35 @@ class PhysicsWorld:
                 ob.underwater = bool(block[slot, 13] > 0)
 
     # ------------------------------------------------------------------
-    # Not in this slice
+    # Ray queries (kernel KH)
     # ------------------------------------------------------------------
     def trace_ray(self, origin, direction, max_t: float, n_steps: int = 16):
-        _not_ported("ray queries", _LATER)
+        """Single-ray traceRay; returns (hit, t, normal, ob, material)."""
+        self._flush()
+        hits = queries.trace_rays(
+            self._dev(np.asarray(origin, np.float32)[None]),
+            self._dev(np.asarray(direction, np.float32)[None]),
+            self._dev(np.array([max_t], np.float32)),
+            self.state, self.static_world, self.config, n_steps=n_steps)
+        hit, t, n, body, mat = (x.cpu().numpy() for x in (
+            hits.hit, hits.t, hits.normal, hits.body, hits.material))
+        return (bool(hit[0]), float(t[0]), n[0], self.objects.get(int(body[0])),
+                int(mat[0]))
 
     def trace_rays_batched(self, origins, dirs, max_ts, n_steps: int = 16):
-        _not_ported("ray queries", _LATER)
+        self._flush()
+        return queries.trace_rays(
+            self._dev(np.asarray(origins, np.float32)), self._dev(np.asarray(dirs, np.float32)),
+            self._dev(np.asarray(max_ts, np.float32)), self.state, self.static_world,
+            self.config, n_steps=n_steps)
 
     def does_ray_hit_anything(self, origin, direction, max_t: float) -> bool:
-        _not_ported("ray queries", _LATER)
+        hit, *_ = self.trace_ray(origin, direction, max_t)
+        return hit
 
+    # ------------------------------------------------------------------
+    # Not in this slice
+    # ------------------------------------------------------------------
     def save_snapshot(self, path: str):
         _not_ported("snapshots", _SLICE2)
 

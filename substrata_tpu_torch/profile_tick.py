@@ -1,5 +1,5 @@
-"""Where the time of one think() and of one physics + audio tick goes, on
-the card.
+"""Where the time of one think(), of one physics + audio tick and of one
+full tick goes, on the card.
 
     python3 -m substrata_tpu_torch.profile_tick
 
@@ -16,7 +16,12 @@ On the 10,000-box bench world (kicked once, after 30 ticks):
 4. the audio stage: profiler passes over the physics + audio tick and
    over mix_block alone (device busy ms and device ops per tick, each
    audio kernel's device time), and a stage pass over the mix's setup and
-   its three kernels.
+   its three kernels;
+5. the full-tick stage: bench.py's vehicles and particles on the same
+   world (benchworld.full_tick: vehicles, think, particles, the mix),
+   host-clock ms per full tick, a profiler pass (device busy ms, device
+   ops, the ray, particle and vehicle kernels' device times) and a stage
+   pass over its parts.
 Prints one JSON object and writes the trace to chiprun_out/tick_trace.json.
 """
 
@@ -31,11 +36,14 @@ import time
 import numpy as np
 import torch
 
+from substrata_tpu_torch import benchworld
 from substrata_tpu_torch.audio import mix
-from substrata_tpu_torch.benchworld import (N_SOURCES, TICK_FRAMES, bench_audio, bench_world,
-                                            kick, physics_audio_tick)
+from substrata_tpu_torch.benchworld import (N_SOURCES, TICK_FRAMES, bench_audio, bench_fulltick,
+                                            bench_world, full_tick, kick, physics_audio_tick)
 from substrata_tpu_torch.kernels import audio_mix
-from substrata_tpu_torch.physics import broadphase, integrate, narrowphase, solver
+from substrata_tpu_torch.kernels import particles_triton as kpart
+from substrata_tpu_torch.kernels import vehicles as kveh
+from substrata_tpu_torch.physics import broadphase, integrate, narrowphase, queries, solver
 from substrata_tpu_torch.physics import world as world_mod
 
 DT = 1.0 / 60.0
@@ -47,9 +55,15 @@ STAGES = [(integrate, "apply_forces"), (broadphase, "find_pairs_cached"),
 # Device-side names of the hand-written kernels (KA, KB, KC x2, KD x2).
 PORT_KERNELS = ("box_box_rows_kernel", "static_contacts_kernel", "solve_rows_kernel",
                 "solve_bodies_kernel", "apply_forces_kernel", "integrate_kernel",
-                "audio_fetch_kernel", "audio_spatialise_kernel", "audio_downmix_kernel")
+                "audio_fetch_kernel", "audio_spatialise_kernel", "audio_downmix_kernel",
+                "ray_trace_kernel", "particles_kernel", "vehicle_forces_kernel")
 AUDIO_STAGES = [(mix, "prepare"), (audio_mix, "audio_fetch"), (audio_mix, "audio_spatialise"),
                 (audio_mix, "audio_downmix_reverb")]
+FULL_STAGES = [(broadphase, "build_cell_table"), (benchworld, "vehicles_update"),
+               (queries, "trace_rays"), (kveh, "vehicle_forces"),
+               (benchworld, "_apply_vehicle_deltas"), (world_mod.PhysicsWorld, "think"),
+               (benchworld, "particles_step"), (kpart, "particles_update"),
+               (benchworld, "mix_block")]
 
 
 def _timed(fn, name, acc):
@@ -147,6 +161,20 @@ def audio_scene(w):
     return coupled, mix_only
 
 
+def full_scene(w):
+    """bench.py's vehicles and particles and its 256 sources on the world:
+    one full tick per call, advancing the shared state."""
+    veh, vin, ps = bench_fulltick(w, "cuda")
+    src, pool, lis, room = bench_audio("cuda")
+    idx = torch.arange(src.capacity, device="cuda")
+    state = dict(veh=veh, ps=ps, src=src, room=room)
+
+    def full():
+        state["veh"], state["ps"], state["src"], _, state["room"] = full_tick(
+            w, state["veh"], vin, state["ps"], state["src"], pool, lis, state["room"], idx)
+    return full
+
+
 def main(ticks: int = 24):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -170,6 +198,10 @@ def main(ticks: int = 24):
     for _ in range(30):
         coupled()
     coupled_ms, mix_ms = _host_ms(coupled, ticks), _host_ms(mix_only, ticks)
+    full = full_scene(w)
+    for _ in range(30):
+        full()
+    full_ms = _host_ms(full, ticks)
 
     prof = _profiled(lambda: w.think(DT), ticks)
     busy_ms, ops, by_name, ours = _device_summary(prof, ticks)
@@ -190,6 +222,12 @@ def main(ticks: int = 24):
         audio_kernels={k: v for k, v in m_ours.items() if "audio" in k},
         staged_ms_per_mix=staged_mix_ms, stages=mix_stages)
 
+    f_busy, f_ops, _, f_ours = _device_summary(_profiled(full, ticks), ticks)
+    staged_full_ms, full_stages = _staged(FULL_STAGES, full, ticks)
+    full_tick_out = dict(
+        ms_per_full_tick=float(np.median(full_ms)), device_busy_ms=f_busy, device_ops=f_ops,
+        port_kernels=f_ours, staged_ms_per_tick=staged_full_ms, stages=full_stages)
+
     out = dict(
         card=smi, bodies=len(w.objects),
         ms_per_think_rebuild=float(np.median(rebuild)), rebuild_ticks=len(rebuild),
@@ -198,7 +236,7 @@ def main(ticks: int = 24):
         top_kernels=[dict(name=name[:90], ms_per_tick=us / 1e3 / ticks,
                           calls_per_tick=n / ticks) for name, (us, n) in top],
         port_kernels=ours,
-        staged_ms_per_think=staged_ms, stages=stages, audio=audio)
+        staged_ms_per_think=staged_ms, stages=stages, audio=audio, full_tick=full_tick_out)
     print(json.dumps(out, indent=1))
     return out
 

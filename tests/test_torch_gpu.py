@@ -1,4 +1,4 @@
-"""Kernels KA-KG on the card against their plain PyTorch twins, and the
+"""Kernels KA-KJ on the card against their plain PyTorch twins, and the
 entry points' default device.
 
 These need a CUDA device and skip without one (the decision is made inside
@@ -9,23 +9,30 @@ only, so it also runs on a machine without JAX:
 
 Tolerances are chip_smoke.py's: 1e-5 for KA/KB rows, 1e-4 for KC
 velocities after warm start + 7 iterations, 1e-6 for KD and KE, 1e-5 for
-KF and KG; each kernel repeats its twin's operations in the same order."""
+KF and KG, 1e-6 for KH (hit and body exact) and KI, 1e-5 of each output's
+scale for KJ; each kernel repeats its twin's operations in the same
+order."""
 
 import numpy as np
 import pytest
 import torch
 
-from substrata_tpu_torch import MotionType, PhysicsObject, PhysicsWorld
+from substrata_tpu_torch import MotionType, PhysicsObject, PhysicsWorld, benchworld
 from substrata_tpu_torch.audio import mix
 from substrata_tpu_torch.audio.engine import AudioEngine
 from substrata_tpu_torch.audio.hrtf import hrir_bank_tensor
 from substrata_tpu_torch.benchworld import TICK_FRAMES, bench_audio
 from substrata_tpu_torch.kernels import audio_mix as kaudio
 from substrata_tpu_torch.kernels import box_box as ka
+from substrata_tpu_torch.kernels import particles_triton as kpart
+from substrata_tpu_torch.kernels import ray_trace as kray
+from substrata_tpu_torch.kernels import vehicles as kveh
 from substrata_tpu_torch.kernels import integrate_triton as kd
 from substrata_tpu_torch.kernels import solve as kc
 from substrata_tpu_torch.kernels import static_contacts as kb
-from substrata_tpu_torch.physics import narrowphase, shapes, solver
+from substrata_tpu_torch.physics import broadphase, narrowphase, queries, shapes, solver
+from substrata_tpu_torch.physics.particles import motion_rays
+from substrata_tpu_torch.physics.vehicles.manager import chassis_and_wheel_rays
 from substrata_tpu_torch.physics.state import SimConfig
 
 pytestmark = pytest.mark.gpu
@@ -168,3 +175,121 @@ def test_entry_points_default_to_the_card(world):
     eng = AudioEngine(max_sources=4, pool_size=1 << 16)
     assert eng.device.type == "cuda" and eng.pool.device.type == "cuda"
     assert eng.sources.playhead.device.type == "cuda"
+
+
+@pytest.fixture(scope="module")
+def fulltick():
+    """A 400-box full-tick scene (vehicles, particles, 16 sources) after
+    10 full ticks on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = SimConfig(capacity=512, max_pairs=2048, grid_dim=32, cell_size=1.4,
+                    cell_capacity=6, solver_iters=7, pairs_per_body=10,
+                    pair_rebuild_interval=6, contacts_per_body=8)
+    w = benchworld.bench_world("cuda", n_bodies=400, cfg=cfg)
+    veh, vin, ps = benchworld.bench_fulltick(w, "cuda", n_particles=512, n_vehicles=8)
+    src, pool, lis, room = bench_audio("cuda", n_sources=16)
+    idx = torch.arange(16, device="cuda")
+    for _ in range(10):
+        veh, ps, src, _, room = benchworld.full_tick(w, veh, vin, ps, src, pool, lis, room, idx)
+    return w, veh, vin, ps
+
+
+def _ray_args(w, o, d, mt, ex):
+    body, cfg = w.state, w.config
+    table = broadphase.build_cell_table(body, cfg)[0]
+    return (o, d, mt, body, table, queries.oversize_slots(body, cfg), w.static_world.heightfield,
+            w.static_world.has_heightfield, ex)
+
+
+def _check_rays(args, **kw):
+    rk, rp = kray.ray_trace(*args, **kw), kray.ray_trace_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(rk[3], rp[3]) and torch.equal(rk[2], rp[2])
+    assert float((rk[0] - rp[0]).abs().max()) <= 1e-6
+    assert float((rk[1] - rp[1]).abs().max()) <= 1e-6
+    return rp
+
+
+def test_ray_trace_kernel_matches_plain(fulltick):
+    w, veh, vin, ps = fulltick
+    cfg = w.config
+    kw = dict(cell_size=cfg.cell_size, grid_dim=cfg.grid_dim, collidable_only=True, k=16)
+    dirs, mt = motion_rays(ps, DT)
+    none = torch.full((ps.capacity,), -1, dtype=torch.int32, device="cuda")
+    _check_rays(_ray_args(w, ps.pos, dirs, mt, none), n_steps=4, body_steps=1, dedup=False, **kw)
+    _, wheel = chassis_and_wheel_rays(veh, w.state)
+    rp = _check_rays(_ray_args(w, *wheel), n_steps=4, body_steps=4, dedup=True, **kw)
+    assert bool(rp[3].any())
+    # The facade's default march (16 steps, 928 candidates a ray), long
+    # random rays, over a bilinear heightfield.
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    o = torch.rand((256, 3), generator=g, device="cuda") * 30.0 - 15.0
+    o[:, 2] = o[:, 2].abs() * 0.2
+    d = torch.randn((256, 3), generator=g, device="cuda")
+    d = d / d.norm(dim=1, keepdim=True)
+    mt = torch.rand(256, generator=g, device="cuda") * 10.0 + 1.0
+    none = torch.full((256,), -1, dtype=torch.int32, device="cuda")
+    hw = PhysicsWorld(cfg, device="cuda")
+    hw.state = w.state
+    hw.set_heightfield(np.random.default_rng(1).uniform(-0.3, 0.5, (33, 33)), [-20, -20], 1.25)
+    for dedup in (True, False):
+        rp = _check_rays(_ray_args(hw, o, d, mt, none), n_steps=16, body_steps=16, dedup=dedup,
+                         **kw)
+    assert int((rp[2] >= 0).sum()) > 5 and int((rp[3] & (rp[2] < 0)).sum()) > 5
+
+
+def test_particles_kernel_matches_plain(fulltick):
+    w, veh, vin, ps = fulltick
+    dirs, mt = motion_rays(ps, DT)
+    hits = queries.trace_rays(ps.pos, dirs, mt, w.state, w.static_world, w.config, n_steps=4,
+                              body_steps=1, dedup=False)
+    water = torch.tensor(0.8, device="cuda")       # some particles under water
+    die = ps.replace(die_on_hit=torch.arange(ps.capacity, device="cuda") % 3 == 0)
+    for state in (ps, die):
+        ik = kpart.particles_update(state, hits.t, hits.normal, hits.hit, DT, water)
+        ip = kpart.particles_update_plain(state, hits.t, hits.normal, hits.hit, DT, water)
+        for x, y in zip(ik[:4], ip[:4]):
+            assert float((x - y).abs().max()) <= 1e-6
+        assert torch.equal(ik[4], ip[4]) and torch.equal(ik[5], ip[5])
+    assert bool(ip[5].any())
+
+
+def test_vehicle_kernel_matches_plain(fulltick):
+    w, veh, vin, ps = fulltick
+    chassis, wheel = chassis_and_wheel_rays(veh, w.state)
+    hits = queries.trace_rays(*wheel[:3], w.state, w.static_world, w.config, n_steps=4,
+                              exclude=wheel[3])
+    nv = veh.vtype.shape[0]
+    for inp in (vin, vin.replace(forward=-vin.forward, brake=torch.ones_like(vin.brake),
+                                 up=torch.ones_like(vin.up))):
+        args = (veh.replace(righting_active=torch.ones_like(veh.righting_active)), inp,
+                *chassis, hits.t.reshape(nv, 4), hits.normal.reshape(nv, 4, 3),
+                hits.hit.reshape(nv, 4), torch.tensor(0.3, device="cuda"), DT)
+        jk, jp = kveh.vehicle_forces(*args), kveh.vehicle_forces_plain(*args)
+        for x, y in zip(jk, jp):
+            if y.dtype in (torch.bool, torch.int32):
+                assert torch.equal(x, y)
+            else:
+                assert float((x - y).abs().max()) <= 1e-5 * max(1.0, float(y.abs().max()))
+
+
+def test_full_tick_on_card_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = SimConfig(capacity=256, max_pairs=1024, grid_dim=32, cell_size=1.4,
+                    cell_capacity=6, solver_iters=7, pairs_per_body=10,
+                    pair_rebuild_interval=6, contacts_per_body=8)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        w = benchworld.bench_world(dev, n_bodies=200, cfg=cfg)
+        veh, vin, ps = benchworld.bench_fulltick(w, dev, n_particles=256, n_vehicles=4)
+        src, pool, lis, room = bench_audio(dev, n_sources=16)
+        idx = torch.arange(16, device=dev)
+        for _ in range(5):
+            veh, ps, src, out, room = benchworld.full_tick(w, veh, vin, ps, src, pool, lis,
+                                                           room, idx)
+        runs[dev] = (w.state.pos.cpu(), ps.pos.cpu(), out.cpu())
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-4

@@ -124,6 +124,7 @@ def test_unported_entry_points_raise():
     w = make_world()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         w.think_with_player(1 / 60, None)
+    w.static_world = w.static_world.replace(n_tris=1)   # rays: no trimesh yet
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         w.trace_ray([0, 0, 5], [0, 0, -1], 10.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -137,7 +138,11 @@ def test_unported_entry_points_raise():
 def test_import_leaves_jax_out():
     code = ("import sys, substrata_tpu_torch, substrata_tpu_torch.convert, "
             "substrata_tpu_torch.kernels, substrata_tpu_torch.audio, "
-            "substrata_tpu_torch.audio.mix, substrata_tpu_torch.benchworld; "
+            "substrata_tpu_torch.audio.mix, substrata_tpu_torch.benchworld, "
+            "substrata_tpu_torch.physics.queries, substrata_tpu_torch.physics.particles, "
+            "substrata_tpu_torch.physics.vehicles, substrata_tpu_torch.kernels.ray_trace, "
+            "substrata_tpu_torch.kernels.particles_triton, "
+            "substrata_tpu_torch.kernels.vehicles, substrata_tpu_torch.profile_tick; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'substrata_tpu')]; "
             "assert not bad, bad; print('ok')")
