@@ -37,21 +37,41 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    particle update and KJ vehicle forces, each against its plain twin on
    the same inputs with the tolerance stated beside it, timed as in phase
    3; no single PyTorch call computes any of the three functions;
-9. the full tick: bench.py's window 3 without the character and Winter,
-   180 benchworld.full_tick calls (one cell table, vehicles, think,
-   particles, sources follow bodies, the mix) with phase 5's kick;
-   particles and vehicles finite, no body below z = -0.5, phase 7's audio
-   checks, every kernel launched (KH, KI and KJ at least once per tick),
-   six more ticks make one synchronizing call each, and a 200-box,
-   16-source, 256-particle, 4-vehicle full tick on the card matches the
-   CPU path.
+9. the full tick: bench.py's window 3 without Winter, 180
+   benchworld.full_tick calls (one cell table, vehicles, the character
+   walking as bench.py's does, think, particles, sources follow bodies,
+   the mix) with phase 5's kick; particles, vehicles and the character
+   finite, no body below z = -0.5, phase 7's audio checks, every kernel
+   launched (KH, KI, KJ and KL at least once per tick), six more ticks
+   make one synchronizing call each, and a 200-box, 16-source,
+   256-particle, 4-vehicle full tick with the character on the card
+   matches the CPU path;
+10. the character and serving-tick kernels: KK (sphere/box/capsule
+   contacts) on 4,096 seeded random pairs of each of its eight combo codes
+   and on the serving world's real buckets, KL (the character update) on
+   the serving world at t = 0, 1, 2 s of the walk and on a step and a
+   ledge that take its stair and stick branches, KM (the tick input) with
+   128 writes and 64 regions on 10,240 bodies, KN (digest and transform
+   block) on a real step's events, each against its plain twin with the
+   tolerance stated beside it, timed as in phase 3;
+11. the serving tick: benchworld.serving_world (the bench world and one
+   PlayerPhysics at eye height), 180 think_with_player ticks of the
+   walking player with phase 5's kick and one teleport (5 m up) every 30
+   ticks; the invariants of phase 5, the character finite and on the
+   ground (see char_ok), KK, KL, KM and KN launched every tick, six more
+   ticks make one synchronizing call each and (where the profiler sees
+   the card) one host->device and one device->host copy each, and a
+   200-box serving world whose player pushes a small box (capsule-box
+   contacts), with transform writes and a teleport, on the card matches
+   the CPU path over 40 ticks.
 
 Every kernel also gets its bound: the least time the card could take for
 the same work, the larger of its bytes (each input read once, each output
 written once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s
 (the H100 SXM's published peaks at 700 W), from this run's inputs.
 
-The last lines are the kernels JSON (launches from phase 9's full ticks),
+The last lines are the kernels JSON (launches from phase 9's full ticks,
+and from phase 11's serving ticks for KK-KN),
 the card's name and power limit, and {"ok": true, "device": {...}}.  TF32 stays off for matmuls and cuDNN
 (the solver's small products must run in full float32).
 """
@@ -99,6 +119,22 @@ def median_ms(fn, reps=REPS, rounds=5):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return float(np.median(times))
+
+
+def device_us(fn, kernel, reps=REPS):
+    """Device time (µs) per launch of the kernels whose names hold
+    ``kernel``, over ``reps`` calls of ``fn`` under torch.profiler; None
+    where the profiler records no device work."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    return sum(us) / len(us) if us else None
 
 
 def max_err(x, y, mask=None):
@@ -641,11 +677,12 @@ def fulltick_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, warm=30, pla
     from substrata_tpu_torch.physics.vehicles.manager import chassis_and_wheel_rays
 
     w = bench_world(device, n_bodies=n_bodies, cfg=cfg)
-    veh, vin, ps = bench_fulltick(w, device)
+    veh, vin, ps, char = bench_fulltick(w, device)
     src, pool, lis, room = bench_audio(device)
     idx = torch.arange(src.capacity, device=device)
-    for _ in range(warm):
-        veh, ps, src, _, room = full_tick(w, veh, vin, ps, src, pool, lis, room, idx)
+    for t in range(warm):
+        veh, ps, src, _, room, char = full_tick(w, veh, vin, ps, src, pool, lis, room, idx, char,
+                                                t * DT)
     body, cfg, sw = w.state, w.config, w.static_world
     table = broadphase.build_cell_table(body, cfg)[0]
     os_idx = queries.oversize_slots(body, cfg)
@@ -734,7 +771,7 @@ def full_tick_phase(device="cuda", n_bodies=10_000, cfg=None, sync=torch.cuda.sy
     from substrata_tpu_torch.benchworld import (bench_audio, bench_fulltick, bench_world,
                                                 full_tick, kick)
     w = bench_world(device, n_bodies=n_bodies, cfg=cfg)
-    veh, vin, ps = bench_fulltick(w, device)
+    veh, vin, ps, char = bench_fulltick(w, device)
     src, pool, lis, room = bench_audio(device)
     idx = torch.arange(src.capacity, device=device)
     gen = torch.Generator(device=device)
@@ -747,7 +784,8 @@ def full_tick_phase(device="cuda", n_bodies=10_000, cfg=None, sync=torch.cuda.sy
             w.set_state(kick(w.state, gen))
         sync()
         t0 = time.perf_counter()
-        veh, ps, src, out, room = full_tick(w, veh, vin, ps, src, pool, lis, room, idx)
+        veh, ps, src, out, room, char = full_tick(w, veh, vin, ps, src, pool, lis, room, idx,
+                                                  char, t * DT)
         sync()
         times.append((time.perf_counter() - t0) * 1e3)
     counts = kernels.launch_counts()
@@ -756,13 +794,14 @@ def full_tick_phase(device="cuda", n_bodies=10_000, cfg=None, sync=torch.cuda.sy
         check(counts[name] > 0, f"kernel {name} never launched on the full tick")
     for name in AUDIO_KERNELS:
         check(counts[name] == TICKS, f"kernel {name}: {counts[name]} launches in {TICKS} ticks")
-    for name in FULLTICK_KERNELS:
+    for name in FULLTICK_KERNELS + ("character_update",):
         check(counts[name] >= TICKS, f"kernel {name}: {counts[name]} launches in {TICKS} ticks")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
-        for _ in range(SYNC_TICKS):
-            veh, ps, src, out, room = full_tick(w, veh, vin, ps, src, pool, lis, room, idx)
+        for t in range(TICKS, TICKS + SYNC_TICKS):
+            veh, ps, src, out, room, char = full_tick(w, veh, vin, ps, src, pool, lis, room, idx,
+                                                      char, t * DT)
         torch.cuda.set_sync_debug_mode("default")
     syncs = [str(c.message).splitlines()[0] for c in caught
              if str(c.message).startswith("called a synchronizing CUDA operation")]
@@ -780,7 +819,8 @@ def full_tick_phase(device="cuda", n_bodies=10_000, cfg=None, sync=torch.cuda.sy
                         veh.unflip_time[:, None], veh.shift_timer[:, None],
                         veh.engine_rpm[:, None]], dim=1)
     check(bool(torch.isfinite(vstate).all()), "non-finite vehicle state")
-    return dict(
+    seen = char_ok(char, w, -1)
+    return dict(**seen,
         ms_per_tick_median=float(np.median(times[30:])),
         ms_per_tick_p90=float(np.percentile(times[30:], 90)),
         first_tick_ms=times[0], out_rms=rms, out_max_lr_diff=lr, launches=counts,
@@ -788,12 +828,14 @@ def full_tick_phase(device="cuda", n_bodies=10_000, cfg=None, sync=torch.cuda.sy
         particles_alive=int(live.sum()), particle_min_z=float(ps.pos[live][:, 2].min()),
         vehicles=int(veh.vtype.shape[0]), wheel_contacts=int(veh.wheel_contact.sum()),
         vehicle_rpm=[float(x) for x in veh.engine_rpm.cpu()],
-        vehicle_gear=[int(x) for x in veh.gear.cpu()], min_z=min_z)
+        vehicle_gear=[int(x) for x in veh.gear.cpu()], min_z=min_z,
+        character_foot=[float(x) for x in char.pos.cpu()])
 
 
 def small_fulltick_phase(device="cuda"):
-    """200 boxes, 16 sources, 256 particles and 4 vehicles: 10 full ticks on
-    the card and on the CPU path; bodies, particles and audio within 1e-4."""
+    """200 boxes, 16 sources, 256 particles, 4 vehicles and the character:
+    10 full ticks on the card and on the CPU path; bodies, particles, audio
+    and the character within 1e-4."""
     from substrata_tpu_torch.benchworld import bench_audio, bench_fulltick, bench_world, full_tick
     from substrata_tpu_torch.physics.state import SimConfig
     cfg = SimConfig(capacity=256, max_pairs=1024, grid_dim=32, cell_size=1.4,
@@ -802,26 +844,461 @@ def small_fulltick_phase(device="cuda"):
     runs = {}
     for dev in (device, "cpu"):
         w = bench_world(dev, n_bodies=200, cfg=cfg)
-        veh, vin, ps = bench_fulltick(w, dev, n_particles=256, n_vehicles=4)
+        veh, vin, ps, char = bench_fulltick(w, dev, n_particles=256, n_vehicles=4)
         src, pool, lis, room = bench_audio(dev, n_sources=16)
         idx = torch.arange(16, device=dev)
         outs = []
-        for _ in range(10):
-            veh, ps, src, out, room = full_tick(w, veh, vin, ps, src, pool, lis, room, idx)
+        for t in range(10):
+            veh, ps, src, out, room, char = full_tick(w, veh, vin, ps, src, pool, lis, room, idx,
+                                                      char, t * DT)
             outs.append(out.cpu())
-        runs[dev] = (w.state.pos.cpu(), ps.pos.cpu(), torch.stack(outs), veh.gear.cpu())
-    (bk, pk, ok, gk), (bp, pp, op, gp) = runs[device], runs["cpu"]
-    errs = dict(bodies=max_err(bk, bp), particles=max_err(pk, pp), out=max_err(ok, op))
+        runs[dev] = (w.state.pos.cpu(), ps.pos.cpu(), torch.stack(outs), veh.gear.cpu(),
+                     char.pos.cpu())
+    (bk, pk, ok, gk, ck), (bp, pp, op, gp, cp) = runs[device], runs["cpu"]
+    errs = dict(bodies=max_err(bk, bp), particles=max_err(pk, pp), out=max_err(ok, op),
+                character=max_err(ck, cp))
     for what, e in errs.items():
         check(e <= 1e-4, f"small full tick: {what} card vs CPU path {e} > 1e-4")
     check(torch.equal(gk, gp), "small full tick: vehicle gears differ")
     return {f"cuda_vs_cpu_small_full_tick_max_{k}_err": v for k, v in errs.items()}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the closed-form, character and serving-tick kernels.
+# ---------------------------------------------------------------------------
+
+def char_ok(char, world, exclude):
+    """The character's state is finite and it stands on the ground: its
+    foot is above z = -0.01 (the slide's touching depth), or a body
+    touches its capsule and holds it lower.  The collide-and-slide pushes
+    out of the deepest contact, three times a tick, so a body pressing
+    on the capsule leaves the foot in the ground by up to that body's
+    overlap, in the reference as here
+    (tests/test_torch_character.py::test_pressed_character_sinks_like_the_reference).
+    The lower sphere's centre stays above the ground (foot > -0.3) in
+    every case.  Contacts are probed on the world's current state, one
+    step after the character's update: a body within 5 cm counts (a few
+    ticks of motion at the bench's speeds).  Returns what it saw."""
+    from substrata_tpu_torch.kernels import character as kl
+    from substrata_tpu_torch.physics import broadphase, queries
+    st = torch.cat([char.pos, char.vel, char.ground_normal, char.ground_vel,
+                    char.campos_z_delta[None]])
+    check(bool(torch.isfinite(st).all()), "non-finite character state")
+    body, cfg, sw = world.state, world.config, world.static_world
+    cyl_h = torch.where(char.sitting, kl.SITTING_HEIGHT, kl.CYLINDER_HEIGHT)
+    cands = kl.gather_candidates(char.pos, char.pos, cyl_h, body,
+                                 broadphase.build_cell_table(body, cfg)[0],
+                                 queries.oversize_slots(body, cfg), cfg.cell_size, cfg.grid_dim,
+                                 exclude)
+    _, pen, _, bid, _, ok = kl.capsule_probe(char.pos[None], cyl_h, cands, sw.heightfield,
+                                             sw.has_heightfield)
+    near = ok[0] & (bid >= 0) & (pen[0] > -0.05)
+    foot_z = float(char.pos[2])
+    held = sorted({int(b) for b in bid[near].cpu()})
+    deepest = float(pen[0][near].max()) if held else None
+    check(foot_z > -0.3, f"the character fell through the ground: {char.pos}")
+    check(foot_z > -0.01 or held,
+          f"the character's foot is at z = {foot_z} with no body on its capsule")
+    return dict(character_foot_z=foot_z, bodies_on_capsule=len(held),
+                deepest_body_penetration=deepest)
+
+
+def _random_pair_rows(gen, code, n, device):
+    """Two sides of ``n`` bodies of the code's shape types at random poses
+    within touching range: (pos, quat, params, friction, restitution,
+    sensor) for 2n bodies, side a first."""
+    cols = []
+    for st in (code // 4, code % 4):
+        q = torch.randn((n, 4), generator=gen, device=device)
+        u = torch.rand((n, 4), generator=gen, device=device)
+        prm = torch.zeros((n, 4), device=device)
+        if st == 0:
+            prm[:, 0] = 0.2 + 0.4 * u[:, 0]
+        elif st == 1:
+            prm[:, :3] = 0.2 + 0.5 * u[:, :3]
+        else:
+            prm[:, 0] = 0.15 + 0.25 * u[:, 0]
+            prm[:, 1] = 0.2 + 0.4 * u[:, 1]
+        cols.append((torch.rand((n, 3), generator=gen, device=device) * 1.2 - 0.6,
+                     q / q.norm(dim=1, keepdim=True), prm))
+    pos, quat, prm = (torch.cat([a, b]) for a, b in zip(*cols))
+    fr = torch.rand(2 * n, generator=gen, device=device)
+    re = torch.rand(2 * n, generator=gen, device=device)
+    return pos, quat, prm, fr, re, torch.rand(2 * n, generator=gen, device=device) < 0.05
+
+
+def _kk_compare(args):
+    from substrata_tpu_torch.kernels import closed_forms as kk
+    rk, rp = kk.closed_form_rows(*args), kk.closed_form_rows_plain(*args)
+    for i, name in ((0, "a"), (1, "b"), (5, "valid"), (6, "friction"), (7, "restitution"),
+                    (8, "key"), (9, "touching")):
+        check(torch.equal(rk[i], rp[i]), f"KK code {args[0]}: {name} differs")
+    return max(max_err(rk[i], rp[i], rp[5]) for i in (2, 3, 4)), rk, rp
+
+
+def _kk_bytes(calls):
+    """The bytes KK must move over ``calls`` [(args, rows)]: each bucket's
+    slot arrays and its output rows, and the body fields (pose, shape,
+    materials, sensor flag) of each distinct body that a valid slot names —
+    the kernel reads no other body."""
+    if not calls:
+        return 0
+    moved, bodies = 0, []
+    for args, rows in calls:
+        ba, bb, bvalid = args[9:12]
+        moved += nbytes(ba, bb, bvalid, rows)
+        bodies += [ba[bvalid], bb[bvalid]]
+    per_body = sum(t[0].numel() * t.element_size() for t in args[3:9])
+    return moved + per_body * int(torch.unique(torch.cat(bodies)).numel())
+
+
+def _char_args(world, char, move, exclude, device):
+    from substrata_tpu_torch.physics import broadphase, queries
+    from substrata_tpu_torch.physics import character as tchar
+    body, cfg, sw = world.state, world.config, world.static_world
+    scal = torch.as_tensor(tchar.tick_scalars(DT, move, False, False, False, exclude),
+                           device=device)
+    args = ({f: getattr(char, f) for f in tchar.CHARACTER_FIELDS}, body, sw.heightfield,
+            sw.has_heightfield, world.params.water_z, broadphase.build_cell_table(body, cfg)[0],
+            queries.oversize_slots(body, cfg), scal)
+    return args, dict(cell_size=cfg.cell_size, grid_dim=cfg.grid_dim)
+
+
+def _kl_compare(args, kw):
+    """KL against its twin: packed vector and state within 1e-6 of the
+    packed vector's scale, flags and the touched list exact.  Returns (the
+    error of scale, the twin's new state)."""
+    from substrata_tpu_torch.kernels import character as kl
+    nk, pk = kl.character_packed(*args, **kw)
+    npl, pp = kl.character_packed_plain(*args, **kw)
+    check(torch.equal(pk[15:], pp[15:]), "KL: touched bodies differ")
+    check(torch.equal(pk[4:6], pp[4:6]), "KL: jumped / on_ground differ")
+    for f in ("on_ground", "gravity_enabled", "fly_mode", "sitting"):
+        check(bool(nk[f]) == bool(npl[f]), f"KL: {f} differs")
+    scale = max(1.0, float(pp.abs().max()))
+    err = max(max_err(pk, pp), *(max_err(nk[f], npl[f]) for f in ("pos", "vel",
+                                                                  "ground_normal",
+                                                                  "ground_vel",
+                                                                  "campos_z_delta")))
+    check(err <= 1e-6 * scale, f"KL: max abs err {err} > 1e-6 of scale {scale}")
+    return err / scale, npl
+
+
+def _kl_work(args, kw):
+    """KL's operations on these inputs, counted on the twin's run: the
+    probes' rows and the closed forms they evaluated."""
+    from substrata_tpu_torch.kernels import character as kl
+    seen = dict(rows=0, box=0, other=0)
+    probe, contacts = kl.capsule_probe, kl._contacts
+
+    def count_probe(feet, cyl_h, c, *a):
+        seen["rows"] += feet.shape[0] * (c.idx.shape[0] + kl.N_STATIC)
+        return probe(feet, cyl_h, c, *a)
+
+    def count_contacts(center, half_h, c, rows):
+        boxy = (c.shape_type[rows] == 1) | (c.shape_type[rows] == 3)
+        seen["box"] += int(boxy.sum())
+        seen["other"] += int((~boxy).sum())
+        return contacts(center, half_h, c, rows)
+    kl.capsule_probe, kl._contacts = count_probe, count_contacts
+    try:
+        kl.character_packed_plain(*args, **kw)
+    finally:
+        kl.capsule_probe, kl._contacts = probe, contacts
+    return (seen["rows"] * FLOPS["char_row"] + seen["box"] * FLOPS["capsule_box"]
+            + seen["other"] * FLOPS["point_contact"]), seen
+
+
+def serving_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, plain_reps=5):
+    from substrata_tpu_torch import MotionType, PhysicsObject, PhysicsWorld
+    from substrata_tpu_torch.benchworld import serving_tick, serving_world, walk_input
+    from substrata_tpu_torch.kernels import character as kl
+    from substrata_tpu_torch.kernels import closed_forms as kk
+    from substrata_tpu_torch.kernels import serving_io as km
+    from substrata_tpu_torch.physics import broadphase, narrowphase, shapes
+    from substrata_tpu_torch.physics import character as tchar
+    from substrata_tpu_torch.physics.state import SimConfig
+
+    results = {}
+    # KK on 4,096 seeded random pairs of each code, both layouts.  Points,
+    # normals and depths within 1e-5; masks, keys and touching exact.
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    n = 4096
+    ba = torch.arange(n, dtype=torch.int32, device=device)
+    random_err, random_bounds = 0.0, {}
+    for code in kk.CODES:
+        pos, quat, prm, fr, re, sens = _random_pair_rows(gen, code, n, device)
+        bv = torch.rand(n, generator=gen, device=device) < 0.9
+        for wm, blocked in ((4, True), (narrowphase._MANIFOLD_WIDTH[code], False)):
+            args = (code, wm, blocked, pos, quat, prm, fr, re, sens, ba, ba + n, bv)
+            err, rk, _ = _kk_compare(args)
+            check(err <= 1e-5, f"KK code {code}: max abs err {err} > 1e-5")
+            random_err = max(random_err, err)
+        ops = int(bv.sum()) * (FLOPS["capsule_box"] if code in (6, 9) else FLOPS["point_contact"])
+        random_bounds[code] = bound(_kk_bytes([(args, rk)]), ops)["bound_ms"]
+
+    # The serving world after 30 ticks: KK on its real buckets, KL at
+    # t = 0, 1, 2 s of the walk, KM and KN.
+    w, p = serving_world(device, n_bodies=n_bodies, cfg=cfg)
+    w._flush()
+    kl_cases, kl_errs = [], []
+    for t in range(121):
+        if t in (0, 60, 120):
+            kl_cases.append(_char_args(w, p.state, walk_input(t * DT), p.proxy.slot, device))
+            kl_errs.append(_kl_compare(*kl_cases[-1])[0])
+        serving_tick(w, p, t * DT)
+    body, pc, cfg = w.state, w.pair_cache, w.config
+    bucket_list, _ = narrowphase.buckets(body, pc.pair_a, pc.pair_b, pc.pair_valid, cfg)
+    kk_calls, valid_slots, kk_ops, real_err = [], {}, 0, 0.0
+    for code, _, bba, bbb, bvalid in bucket_list:
+        if code not in kk.CODES:
+            continue
+        args = (code, narrowphase._MANIFOLD_WIDTH[code], False, body.pos, body.quat,
+                body.shape_params, body.friction, body.restitution, body.is_sensor, bba, bbb,
+                bvalid)
+        err, rk, _ = _kk_compare(args)
+        real_err = max(real_err, err)
+        kk_calls.append((args, rk))
+        valid_slots[code] = int(bvalid.sum())
+        kk_ops += valid_slots[code] * (FLOPS["capsule_box"] if code in (6, 9)
+                                       else FLOPS["point_contact"])
+    kk_args = [a for a, _ in kk_calls]
+    results["closed_form_rows"] = dict(
+        max_abs_err=max(random_err, real_err), tol=1e-5, random_pairs_per_code=n,
+        bucket_slots={c: int(a[9].shape[0]) for c, a in zip(valid_slots, kk_args)},
+        valid_slots=valid_slots, random_pairs_bound_ms=random_bounds,
+        **bound(_kk_bytes(kk_calls), kk_ops),
+        ms=median_ms(lambda: [kk.closed_form_rows(*a) for a in kk_args]),
+        device_us_per_launch=device_us(lambda: [kk.closed_form_rows(*a) for a in kk_args],
+                                       "closed_form_rows"),
+        plain_ms=median_ms(lambda: [kk.closed_form_rows_plain(*a) for a in kk_args],
+                           reps=plain_reps))
+
+    # KL on a 0.35 m step (the stair branch) and off a 0.4 m ledge (the
+    # stick branch), three chained updates each.
+    for he, pos, eye in (([1.0, 1.0, 0.175], [1.35, 0, 0.175], (0.0, 0, 1.67)),
+                         ([1.0, 2.0, 0.2], [-0.7, 0, 0.2], (0.40, 0, 2.07))):
+        sw = PhysicsWorld(SimConfig(capacity=64, max_pairs=256, grid_dim=16, cell_size=1.4,
+                                    cell_capacity=6), device=device)
+        sw.set_ground_plane(0.0)
+        sw.add_object(PhysicsObject(shape=shapes.make_box(he), pos=np.array(pos, np.float32),
+                                    motion_type=int(MotionType.STATIC)))
+        sw._flush()
+        st = tchar.init_character_state(eye, device=device).replace(
+            gravity_enabled=torch.ones((), dtype=torch.bool, device=device))
+        for _ in range(3):
+            a, kw = _char_args(sw, st, np.array([3.0, 0, 0], np.float32), -1, device)
+            e, new = _kl_compare(a, kw)
+            kl_errs.append(e)
+            st = tchar.CharacterState(**new)
+    args, kw = kl_cases[-1]
+    ops, seen = _kl_work(args, kw)
+    cand = args[5].shape[1] * kl.n_centers(kw["cell_size"]) * 27 + args[6].shape[0]
+    moved = cand * (4 + 82) + args[6].shape[0] * 4 + nbytes(args[0], args[7]) \
+        + (15 + cand + kl.N_STATIC) * 4
+    results["character_update"] = dict(
+        max_abs_err=max(kl_errs), max_err_of_scale=max(kl_errs), tol=1e-6,
+        rows=cand + kl.N_STATIC, probe_rows=seen["rows"], contacts_evaluated=seen,
+        **bound(moved, ops),
+        ms=median_ms(lambda: kl.character_packed(*args, **kw)),
+        device_us_per_launch=device_us(lambda: kl.character_packed(*args, **kw),
+                                       "character_kernel"),
+        plain_ms=median_ms(lambda: kl.character_packed_plain(*args, **kw), reps=plain_reps))
+
+    # KM: 128 writes and 64 regions on the bench world's 10,240 bodies.
+    rng = np.random.default_rng(2)
+    nb = body.capacity
+    buf = km.empty_tick_in(nb)
+    buf[km.O_IDX:km.O_POS].view(np.int32)[:] = rng.permutation(nb)[:km.TIN_K]
+    buf[km.O_POS:km.O_VOK] = rng.normal(size=km.O_VOK - km.O_POS)
+    buf[km.O_VOK:km.O_CTR] = rng.integers(0, 2, km.TIN_K)
+    buf[km.O_CTR:km.O_RAD] = rng.uniform(-35, 35, 3 * km.TIN_R)
+    buf[km.O_RAD:] = rng.uniform(0.2, 2.0, km.TIN_R)
+    tin = torch.as_tensor(buf, device=device)
+    got, ref = km.apply_tick_in(body, tin), km.apply_tick_in_plain(body, tin)
+    for f, x in zip(km.STATE_OUT, ref):
+        check(torch.equal(getattr(got, f), x), f"KM: {f} differs")
+    woke = int((got.awake & ~body.awake).sum())
+    results["apply_tick_in"] = dict(
+        max_abs_err=0.0, tol=0.0, bodies=nb, writes=km.TIN_K, regions=km.TIN_R,
+        newly_awake=woke,
+        **bound(nbytes([getattr(body, f) for f in km.STATE_IN], tin, ref),
+                nb * (km.TIN_R * FLOPS["region_test"] + km.TIN_K)),
+        ms=median_ms(lambda: km.apply_tick_in(body, tin)),
+        device_us_per_launch=device_us(lambda: km.apply_tick_in(body, tin), "apply_tick_in"),
+        plain_ms=median_ms(lambda: km.apply_tick_in_plain(body, tin), reps=plain_reps))
+
+    # KN on the last serving step's events.
+    ev, dg, sl = w.last_events, w.last_diags, w.pair_cache.steps_left
+    dk, bk = km.digest_tblock(ev, dg.num_contacts, dg.num_awake, sl, body)
+    dp, bp = km.digest_tblock_plain(ev, dg.num_contacts, dg.num_awake, sl, body)
+    check(torch.equal(dk, dp), "KN: digest differs")
+    check(torch.equal(bk, bp), "KN: transform block differs")
+    kn_in = [ev.newly_awake, ev.newly_asleep, ev.entered_water, ev.contact_touching,
+             ev.contact_pair_a, ev.contact_pair_b, body.pos, body.quat, body.linvel,
+             body.angvel, body.underwater]
+    results["digest_tblock"] = dict(
+        max_abs_err=0.0, tol=0.0, bodies=nb, pairs=int(ev.contact_touching.shape[0]),
+        touching=int(ev.contact_touching.sum()), newly_awake=int(ev.newly_awake.sum()),
+        **bound(nbytes(kn_in, dp, bp), 0),
+        ms=median_ms(lambda: km.digest_tblock(ev, dg.num_contacts, dg.num_awake, sl, body)),
+        device_us_per_launch=device_us(
+            lambda: km.digest_tblock(ev, dg.num_contacts, dg.num_awake, sl, body),
+            "digest_tblock"),
+        plain_ms=median_ms(lambda: km.digest_tblock_plain(ev, dg.num_contacts, dg.num_awake,
+                                                          sl, body), reps=plain_reps))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the serving tick.
+# ---------------------------------------------------------------------------
+
+def _copies(run, ticks):
+    """Host->device and device->host copies the profiler sees over ``ticks``
+    calls, and the kernels it sees (0 means it recorded no device work).
+    A fill runs first in the session: a profiler session after an earlier
+    one misses its first device event, and the fill is not a copy."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda")
+        for _ in range(ticks):
+            run()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(n.startswith("Memcpy HtoD") for n in names),
+            sum(n.startswith("Memcpy DtoH") for n in names), len(names))
+
+
+def serving_phase(device="cuda", n_bodies=10_000, cfg=None, sync=torch.cuda.synchronize):
+    from substrata_tpu_torch import kernels
+    from substrata_tpu_torch.benchworld import kick, serving_tick, serving_world
+    w, p = serving_world(device, n_bodies=n_bodies, cfg=cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    sync()
+    kernels.reset_launch_counts()
+    times = []
+    for t in range(TICKS):
+        if t > 0 and t % KICK_EVERY == 0:     # the churn kick, and one teleport
+            w.set_state(kick(w.state, gen))
+            ob = w.objects[(t // KICK_EVERY) * 1000]
+            w.set_new_ob_to_world_transform(ob, np.asarray(ob.pos) + [0.0, 0.0, 5.0], ob.rot)
+        sync()
+        t0 = time.perf_counter()
+        serving_tick(w, p, t * DT)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launch_counts()
+    for name in PHYSICS_KERNELS:
+        check(counts[name] > 0, f"kernel {name} never launched on the serving tick")
+    for name in SERVING_KERNELS:
+        check(counts[name] >= TICKS, f"kernel {name}: {counts[name]} launches in {TICKS} ticks")
+    state = dict(t=TICKS)
+
+    def tick():
+        serving_tick(w, p, state["t"] * DT)
+        state["t"] += 1
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        for _ in range(SYNC_TICKS):
+            tick()
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(c.message).splitlines()[0] for c in caught
+             if str(c.message).startswith("called a synchronizing CUDA operation")]
+    check(len(syncs) == SYNC_TICKS,
+          f"{len(syncs)} synchronizing calls in {SYNC_TICKS} serving ticks, expected one each")
+    h2d, d2h, device_ops = _copies(tick, SYNC_TICKS)
+    if device_ops:
+        check(h2d == SYNC_TICKS and d2h == SYNC_TICKS,
+              f"{h2d} host->device and {d2h} device->host copies in {SYNC_TICKS} serving "
+              "ticks, expected one each")
+    st = w.state
+    alive = st.alive
+    check(bool(torch.isfinite(st.pos[alive]).all()), "non-finite positions")
+    check(bool(torch.isfinite(st.quat[alive]).all()), "non-finite quaternions")
+    min_z = float(st.pos[alive][:, 2].min())
+    check(min_z >= -0.5, f"a body fell through the ground: z = {min_z}")
+    seen = char_ok(p.state, w, p.proxy.slot)
+    d = w.last_diags
+    return dict(**seen,
+        ms_per_serving_tick_median=float(np.median(times[30:])),
+        ms_per_serving_tick_p90=float(np.percentile(times[30:], 90)),
+        first_tick_ms=times[0], launches=counts, syncs_per_tick=len(syncs) / SYNC_TICKS,
+        h2d_copies_per_tick=h2d / SYNC_TICKS if device_ops else "not measured",
+        d2h_copies_per_tick=d2h / SYNC_TICKS if device_ops else "not measured",
+        pairs=int(d.num_pairs), contacts=int(d.num_contacts), awake=int(d.num_awake),
+        max_penetration=float(d.max_penetration), min_z=min_z,
+        player_eye=[float(x) for x in p.get_eye_position()], player_on_ground=p.on_ground,
+        bodies=len(w.objects))
+
+
+def push_world(device):
+    """The small serving world: 199 boxes resting apart, one 0.2 m box in
+    the path of a player at eye (0, 0, 1.67), which its capsule proxy
+    pushes (capsule-box contacts; the box stays below the capsule's
+    segment, see tests/test_torch_serving.py).  Returns (world, boxes,
+    player)."""
+    from substrata_tpu_torch import MotionType, PhysicsObject, PhysicsWorld
+    from substrata_tpu_torch.physics import shapes
+    from substrata_tpu_torch.physics.character import PlayerPhysics
+    from substrata_tpu_torch.physics.state import SimConfig
+    w = PhysicsWorld(SimConfig(capacity=256, max_pairs=1024, grid_dim=32, cell_size=1.4,
+                               cell_capacity=6, solver_iters=7, pairs_per_body=10,
+                               pair_rebuild_interval=6, contacts_per_body=8), device=device)
+    w.set_ground_plane(0.0)
+    rng = np.random.default_rng(0)
+    pos = [[1.0, 0.0, 0.099]] + [[-3.0 - (n % 14) * 1.7 + rng.uniform(-0.1, 0.1),
+                                  (n // 14 - 7) * 1.7 + rng.uniform(-0.1, 0.1), 0.399]
+                                 for n in range(199)]
+    obs = [w.add_object(PhysicsObject(shape=shapes.make_box([he] * 3),
+                                      pos=np.array(x, np.float32),
+                                      motion_type=int(MotionType.DYNAMIC)))
+           for he, x in zip([0.1] + [0.4] * 199, pos)]
+    return w, obs, PlayerPhysics(w, eye_pos=(0.0, 0.0, 1.67))
+
+
+def small_serving_phase(device="cuda"):
+    """The small serving world on the card and on the CPU path, 40 ticks:
+    the player walks as the bench's does, three boxes are moved 2 mm a
+    tick and one is teleported 14 m at tick 15 (a wake region); bodies and
+    the character within 1e-4, and the proxy pushes the box."""
+    from substrata_tpu_torch.benchworld import walk_dir
+    runs = {}
+    for dev in (device, "cpu"):
+        w, obs, p = push_world(dev)
+        pushed = 0
+        for t in range(40):
+            p.process_move(walk_dir(t * DT))
+            for k in (10, 20, 30):
+                w.set_new_ob_to_world_transform(obs[k], np.asarray(obs[k].pos) + [0.002, 0, 0],
+                                                obs[k].rot)
+            if t == 15:
+                w.set_new_ob_to_world_transform(obs[40], np.asarray(obs[40].pos) + [0, 14.0, 0],
+                                                obs[40].rot, linvel=[0, 0, 0], angvel=[0, 0, 0])
+            w.think_with_player(DT, p, cur_time=t * DT)
+            pushed += any(b.slot == obs[0].slot for b in p.contacted_bodies)
+        runs[dev] = (w.state.pos.cpu(), w.state.linvel.cpu(), p.state.pos.cpu(), pushed)
+    errs = dict(bodies=max_err(runs[device][0], runs["cpu"][0]),
+                velocities=max_err(runs[device][1], runs["cpu"][1]),
+                character=max_err(runs[device][2], runs["cpu"][2]))
+    for what, e in errs.items():
+        check(e <= 1e-4, f"small serving world: {what} card vs CPU path {e} > 1e-4")
+    check(runs[device][3] > 0, "small serving world: the player never touched the box")
+    out = {f"cuda_vs_cpu_small_serving_max_{k}_err": v for k, v in errs.items()}
+    out["small_serving_ticks_touching_the_box"] = runs[device][3]
+    return out
+
+
 PHYSICS_KERNELS = ("box_box_rows", "static_contacts", "solve_iteration", "apply_forces",
                    "integrate_positions")
 AUDIO_KERNELS = ("audio_fetch", "audio_spatialise", "audio_downmix_reverb")
 FULLTICK_KERNELS = ("ray_trace", "particles_update", "vehicle_forces")
+SERVING_KERNELS = ("closed_form_rows", "character_update", "apply_tick_in", "digest_tblock")
 # Float32 operations per item, counted from the kernels' sources (rounded
 # up): per valid pair slot (KA), per body (KB, KD), per contact row and per
 # body table slot (KC).
@@ -831,7 +1308,11 @@ FLOPS = {"box_box_rows": 1000, "static_contacts": 600, "solve_iteration": 60,
          # flat ground, per march or bisection step on a heightfield; KI per
          # particle; KJ per vehicle.
          "ray_candidate": 25, "ray_shape": 150, "ray_hf_flat": 10, "ray_hf_step": 40,
-         "particles_update": 90, "vehicle_forces": 3000}
+         "particles_update": 90, "vehicle_forces": 3000,
+         # KK and KL per closed form evaluated (capsule-box: the 14-step
+         # ternary search; the point contacts), KL per probe row (the
+         # sphere test, the reductions), KM per region test.
+         "capsule_box": 1700, "point_contact": 120, "char_row": 30, "region_test": 12}
 
 KERNELS = [
     ("box_box_rows", "cuda", "substrata_tpu_torch/csrc/box_box.cu",
@@ -856,6 +1337,14 @@ KERNELS = [
      "substrata_tpu/physics/particles.py:80"),
     ("vehicle_forces", "cuda", "substrata_tpu_torch/csrc/vehicles.cu",
      "substrata_tpu/physics/vehicles/manager.py:298"),
+    ("closed_form_rows", "cuda", "substrata_tpu_torch/csrc/closed_forms.cu",
+     "substrata_tpu/physics/narrowphase.py:564"),
+    ("character_update", "cuda", "substrata_tpu_torch/csrc/character.cu",
+     "substrata_tpu/physics/character.py:264"),
+    ("apply_tick_in", "cuda", "substrata_tpu_torch/csrc/serving_io.cu",
+     "substrata_tpu/physics/world.py:305"),
+    ("digest_tblock", "cuda", "substrata_tpu_torch/csrc/serving_io.cu",
+     "substrata_tpu/physics/world.py:258"),
 ]
 
 
@@ -934,9 +1423,26 @@ def main():
         f"(p90 {ft_res['ms_per_tick_p90']:.3f}); physics + audio tick (phase 7): "
         f"{pa_res['ms_per_tick_median']:.3f} | {smi}")
 
+    sres = serving_kernel_phase()
+    for name, r in sres.items():
+        log(f"# kernel {name}: {json.dumps(r)} | {smi}")
+    kres.update(sres)
+
+    sv_res = serving_phase()
+    sv_res.update(small_serving_phase())
+    log(f"# serving tick: {json.dumps(sv_res)} | {smi}")
+    log(f"# ms per serving tick (median, ticks 31-{TICKS}, 10,000 boxes + the walking player): "
+        f"{sv_res['ms_per_serving_tick_median']:.3f} (p90 {sv_res['ms_per_serving_tick_p90']:.3f});"
+        f" full tick with the character (phase 9): {ft_res['ms_per_tick_median']:.3f}; think "
+        f"(phase 5): {main_res['ms_per_think_median']:.3f} | {smi}")
+
+    # Launches: each kernel's count on its main path (phase 9's full ticks;
+    # phase 11's serving ticks for the serving-tick kernels).
+    launches = {name: (sv_res if name in SERVING_KERNELS else ft_res)["launches"][name]
+                for name, *_ in KERNELS}
     out = {"kernels": [
         dict(name=name, route=route, source=src, replaces=rep,
-             launches=ft_res["launches"][name], max_abs_err=kres[name]["max_abs_err"],
+             launches=launches[name], max_abs_err=kres[name]["max_abs_err"],
              ms=kres[name]["ms"], plain_ms=kres[name]["plain_ms"],
              bound_ms=kres[name]["bound_ms"], bound_by=kres[name]["bound_by"],
              library_ms=None)
@@ -945,7 +1451,8 @@ def main():
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(nvidia_smi=smi, torch=torch.__version__, kernels=kres,
                        small_worlds=small, main_path=main_res, audio=ares,
-                       physics_audio=pa_res, fulltick_kernels=fres, full_tick=ft_res),
+                       physics_audio=pa_res, fulltick_kernels=fres, full_tick=ft_res,
+                       serving_kernels=sres, serving_tick=sv_res),
                   f, indent=1)
     log(json.dumps(out))
     log(smi)

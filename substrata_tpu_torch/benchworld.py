@@ -1,9 +1,10 @@
 """The 10,000-box bench world (bench.py:105-154), its churn kick
 (bench.py:212-221), the 256-source audio scene of bench.py:83-102 and the
-vehicles and particles of bench.py:157-209, rebuilt on the port for
-chip_smoke.py and profile_tick.py; the coupled physics + audio tick of
-bench.py's window 2 (bench.py:337-341) and the full tick of its window 3
-(bench.py:311-342) without the character and Winter."""
+character, vehicles and particles of bench.py:157-209, rebuilt on the port
+for chip_smoke.py and profile_tick.py; the coupled physics + audio tick of
+bench.py's window 2 (bench.py:337-341), the full tick of its window 3
+(bench.py:311-342) without Winter, and the serving world: the bench world
+with a walking player through ``PhysicsWorld.think_with_player``."""
 
 from __future__ import annotations
 
@@ -12,7 +13,9 @@ import torch
 
 from substrata_tpu_torch.audio.mix import (default_listener, mix_block, room_from_aabb,
                                            zero_sources)
-from substrata_tpu_torch.physics import broadphase, shapes
+from substrata_tpu_torch.physics import broadphase, queries, shapes
+from substrata_tpu_torch.physics.character import (PlayerPhysics, init_character_state,
+                                                   player_update_packed, tick_scalars)
 from substrata_tpu_torch.physics.particles import particles_step, zero_particles
 from substrata_tpu_torch.physics.state import MotionType, SimConfig
 from substrata_tpu_torch.physics.vehicles.manager import (
@@ -107,11 +110,12 @@ def physics_audio_tick(world, src, pool, listener, room, src_idx):
 
 def bench_fulltick(world, device, n_particles: int = N_PARTICLES,
                    n_vehicles: int = N_VEHICLES):
-    """bench.py:157-209 without the character and Winter: vehicles of the
-    four types in turn on the first ``n_vehicles`` bodies, all driven with
-    forward 0.6 and right 0.15 (inputs built once, on the device), and
-    ``n_particles`` bouncing particles from seed 3 in a 70 x 70 x 7 m box.
-    Returns (vehicle arrays, vehicle inputs, particles)."""
+    """bench.py:157-209 without Winter: vehicles of the four types in turn
+    on the first ``n_vehicles`` bodies, all driven with forward 0.6 and
+    right 0.15 (inputs built once, on the device), ``n_particles``
+    bouncing particles from seed 3 in a 70 x 70 x 7 m box, and the
+    character at eye (0, 0, 3) (bench.py:168; no proxy body, as there).
+    Returns (vehicle arrays, vehicle inputs, particles, character)."""
     vm = VehicleManager(world, capacity=n_vehicles)
     classes = [CarPhysics, BikePhysics, BoatPhysics, HoverCarPhysics]
     first = [world.objects[s] for s in sorted(world.objects)[:n_vehicles]]
@@ -133,26 +137,63 @@ def bench_fulltick(world, device, n_particles: int = N_PARTICLES,
                             device=device),
         opacity=torch.ones_like(ps.opacity),
         alive=torch.ones_like(ps.alive))   # die_on_hit False: they bounce forever
-    return vm.veh, vinputs, ps
+    return vm.veh, vinputs, ps, init_character_state([0.0, 0.0, 3.0], device=device)
 
 
-def full_tick(world, veh, vinputs, ps, src, pool, listener, room, src_idx):
-    """One tick of bench.py's window 3 (bench.py:311-342) without the
-    character and Winter: one cell table shared by the wheel rays and the
-    particle rays, the vehicles and their velocity deltas, ``think``, the
+def walk_dir(t: float) -> np.ndarray:
+    """The bench's walking direction at time t, (cos 0.3t, sin 0.3t, 0),
+    in float32 as bench.py:322-323 computes it."""
+    a = np.float32(0.3) * np.float32(t)
+    return np.array([np.cos(a), np.sin(a), 0.0], np.float32)
+
+
+def walk_input(t: float) -> np.ndarray:
+    """The bench's walking player: full speed (3 m/s) along walk_dir(t)."""
+    return np.float32(3.0) * walk_dir(t)
+
+
+def full_tick(world, veh, vinputs, ps, src, pool, listener, room, src_idx, char, t: float):
+    """One tick of bench.py's window 3 (bench.py:311-342) without Winter:
+    one cell table shared by the wheel rays, the character and the particle
+    rays, the vehicles and their velocity deltas, the character walking at
+    time ``t`` (no jump, fly or sit, no excluded body), ``think``, the
     particles, the sources following bodies ``src_idx``, and one tick of
-    audio.  Returns (veh, particles, sources, out [800, 2], room); the
-    digest read of ``think`` is the tick's only device -> host copy."""
+    audio.  Returns (veh, particles, sources, out [800, 2], room,
+    character); the character's 8 scalars go up with a non-blocking copy,
+    and the digest read of ``think`` is the tick's only device -> host
+    copy.  ``char=None`` leaves the character out."""
     world._flush()
     cfg = world.config
     table, _, _ = broadphase.build_cell_table(world.state, cfg)
     veh, dv, dw, slots = vehicles_update(veh, vinputs, world.state, world.static_world, DT,
                                          world.params, cfg, table=table)
     world.state = _apply_vehicle_deltas(world.state, slots, dv, dw)
+    if char is not None:
+        scal = world._upload(tick_scalars(DT, walk_input(t), False, False, False, -1))
+        char, _packed = player_update_packed(char, world.state, world.static_world, scal,
+                                             world.params, cfg, table=table,
+                                             os_idx=queries.oversize_slots(world.state, cfg))
     world._world_asleep = False       # driven chassis must step
     world.think(DT)
     st = world.state
     ps, _foam = particles_step(ps, st, world.static_world, DT, world.params, cfg, table=table)
     src = src.replace(pos=st.pos[src_idx], vel=st.linvel[src_idx])
     src, out, room = mix_block(src, pool, listener, room=room, use_hrtf=True, block=TICK_FRAMES)
-    return veh, ps, src, out, room
+    return veh, ps, src, out, room, char
+
+
+def serving_world(device, n_bodies: int = N_BODIES, cfg: SimConfig | None = None,
+                  eye_pos=(0.0, 0.0, 1.67)):
+    """The bench world and one PlayerPhysics at ``eye_pos`` (eye height at
+    the origin, inside the pile, by default), whose kinematic capsule proxy
+    makes the world mixed (box-box, box-capsule, capsule-capsule combos:
+    the compacted contact layout).  Returns (world, player)."""
+    w = bench_world(device, n_bodies=n_bodies, cfg=cfg)
+    return w, PlayerPhysics(w, eye_pos=eye_pos)
+
+
+def serving_tick(world, player, t: float):
+    """One serving tick: the player walks as the bench's character does
+    (bench.py:322-323) and ``think_with_player`` runs the fused tick."""
+    player.process_move(walk_dir(t))
+    return world.think_with_player(DT, player, cur_time=t)

@@ -17,6 +17,7 @@ import torch
 from substrata_tpu_torch.audio.mix import (LISTENER_FIELDS, ROOM_FIELDS, SOURCE_FIELDS,
                                            Listener, RoomState, SourceState)
 from substrata_tpu_torch.physics.broadphase import PairCache
+from substrata_tpu_torch.physics.character import CHARACTER_FIELDS, CharacterState
 from substrata_tpu_torch.physics.particles import PARTICLE_FIELDS, ParticleState
 from substrata_tpu_torch.physics.solver import SolverCache
 from substrata_tpu_torch.physics.state import (BODY_FIELDS, SIM_PARAM_FIELDS,
@@ -52,6 +53,11 @@ def static_world_from_numpy(arrays: Arrays, *, device) -> StaticWorld:
     return StaticWorld(heightfield=hf,
                        has_heightfield=_t(np.asarray(arrays["has_heightfield"], bool), device),
                        water_z=_t(np.asarray(arrays["water_z"], np.float32), device))
+
+
+def character_from_numpy(arrays: Arrays, *, device) -> CharacterState:
+    """``arrays`` holds the 9 CharacterState fields by name."""
+    return CharacterState(**{f: _t(arrays[f], device) for f in CHARACTER_FIELDS})
 
 
 def sim_params_from_numpy(arrays: Arrays, *, device) -> SimParams:

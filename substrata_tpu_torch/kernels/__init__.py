@@ -1,5 +1,6 @@
 """Hand-written Hopper kernels of the physics tick, the audio mix, the ray
-queries, the particles and the vehicles, and their wrappers.
+queries, the particles, the vehicles, the character and the serving tick,
+and their wrappers.
 
 Each wrapper module holds the kernel's plain PyTorch twin beside it.  A
 wrapper runs the twin for tensors on the CPU; for CUDA tensors it launches
@@ -17,11 +18,15 @@ path went through the kernels.
   KH  ray_trace.py          csrc/ray_trace.cu        ray trace (bodies, heightfield)
   KI  particles_triton.py   (Triton)                 particle update after the ray
   KJ  vehicles.py           csrc/vehicles.cu         vehicle force models
+  KK  closed_forms.py       csrc/closed_forms.cu     sphere/box/capsule contacts
+  KL  character.py          csrc/character.cu        the character update
+  KM  serving_io.py         csrc/serving_io.cu       serving-tick input apply
+  KN  serving_io.py         csrc/serving_io.cu       event digest + transform block
 """
 
-from substrata_tpu_torch.kernels import (audio_mix, box_box, integrate_triton,
-                                         particles_triton, ray_trace, solve,
-                                         static_contacts, vehicles)
+from substrata_tpu_torch.kernels import (audio_mix, box_box, character, closed_forms,
+                                         integrate_triton, particles_triton, ray_trace,
+                                         serving_io, solve, static_contacts, vehicles)
 
 
 def launch_counts() -> dict:
@@ -35,6 +40,9 @@ def launch_counts() -> dict:
         "ray_trace": ray_trace.launches,
         "particles_update": particles_triton.launches,
         "vehicle_forces": vehicles.launches,
+        "closed_form_rows": closed_forms.launches,
+        "character_update": character.launches,
+        **serving_io.launches,
     }
 
 
@@ -45,6 +53,8 @@ def reset_launch_counts():
     ray_trace.launches = 0
     particles_triton.launches = 0
     vehicles.launches = 0
-    for counts in (integrate_triton.launches, audio_mix.launches):
+    closed_forms.launches = 0
+    character.launches = 0
+    for counts in (integrate_triton.launches, audio_mix.launches, serving_io.launches):
         for k in counts:
             counts[k] = 0

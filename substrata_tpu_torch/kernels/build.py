@@ -80,6 +80,23 @@ SIGNATURES = {
     # hit_ok, water_z, V, dt, out dv, dw, steering, sus_len, omega, rot,
     # unflip, contact, gear, shift_timer, rpm, stream
     "vehicle_forces": [P] * 33 + [P] * 5 + [P] * 10 + [I, F] + [P] * 11 + [P],
+    # ba, bb, bvalid, pos, quat, params, fric, rest, sensor, cap, code, wm,
+    # blocked, out a, b, point, normal, pen, valid, fric, rest, key, touch,
+    # stream
+    "closed_form_rows": [P] * 9 + [I] * 4 + [P] * 10 + [P],
+    # 9 character fields, pos, quat, linvel, angvel, shape_type, params,
+    # bound_radius, alive, layer, sensor, table, os_idx, heights, hf_origin,
+    # hf_cell_w, has_hf, water_z, scal, num_buckets, cap, n_os, n_centers,
+    # HX, HY, flat, cell_size, out 9 character fields, packed, stream
+    "character_update": [P] * 9 + [P] * 18 + [I] * 7 + [F] + [P] * 10 + [P],
+    # pos, quat, linvel, angvel, awake, sleep_timer, alive, motion_type,
+    # bound_radius, tick_in, N, out pos, quat, linvel, angvel, awake,
+    # sleep_timer, stream
+    "apply_tick_in": [P] * 10 + [I] + [P] * 6 + [P],
+    # newly_awake, newly_asleep, entered_water, touching, pair_a, pair_b,
+    # num_pairs, overflow, num_contacts, num_awake, steps_left, pos, quat,
+    # linvel, angvel, underwater, N, P, out digest, block, stream
+    "digest_tblock": [P] * 16 + [I] * 2 + [P] * 2 + [P],
 }
 
 _lib = None

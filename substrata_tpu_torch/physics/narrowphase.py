@@ -1,15 +1,15 @@
-"""Contact generation for the box world.
+"""Contact generation for worlds of spheres, boxes and capsules.
 
-Counterpart of ``substrata_tpu/physics/narrowphase.py``, the part the box
-world runs: the single-combo box-box branch of ``pair_contacts`` (kernel KA,
-``kernels/box_box.py``) with the pair-blocked emission, and the
-heightfield branch of ``static_contacts`` (kernel KB,
-``kernels/static_contacts.py``).  ``compact_contacts`` serves a world with
-no shape combo yet (an empty world).
+Counterpart of ``substrata_tpu/physics/narrowphase.py``: ``pair_contacts``
+with the box-box manifold (kernel KA, ``kernels/box_box.py``) and the
+sphere/box/capsule closed forms (kernel KK, ``kernels/closed_forms.py``),
+bucketed by combo code in mixed worlds, in the pair-blocked or the
+compacted layout; the heightfield branch of ``static_contacts`` (kernel
+KB, ``kernels/static_contacts.py``); ``compact_contacts``.
 
-Not in this slice (ROADMAP.md queue 1, slice 3): sphere and capsule
-closed forms, convex hulls, mixed-shape bucketing and static trimeshes;
-``pair_contacts`` raises NotImplementedError for them.
+Not in this slice (ROADMAP.md queue 1, slice 3): convex hulls and static
+trimeshes; ``pair_contacts`` and ``static_contacts`` raise
+NotImplementedError for them.
 
 Contact convention: ``normal`` points from body B (or the static world)
 toward body A; positive ``penetration`` = overlapping.
@@ -22,6 +22,7 @@ import dataclasses
 import torch
 
 from substrata_tpu_torch.kernels import box_box as _ka
+from substrata_tpu_torch.kernels import closed_forms as _kk
 from substrata_tpu_torch.kernels import static_contacts as _kb
 from substrata_tpu_torch.kernels.box_box import (  # noqa: F401
     CONTACT_MARGIN, box_box as _box_box, combine_friction, combine_restitution,
@@ -90,9 +91,70 @@ def blocked_manifold_width(config: SimConfig, capacity: int) -> int:
     return wm
 
 
+def _bucket_rows(code: int, wm: int, blocked: bool, body: BodyState, ba, bb, bvalid):
+    """One bucket's rows through KA (box-box) or KK (the closed forms)."""
+    if code == _BOX_BOX:
+        rows = _ka.box_box_rows(body.pos, body.quat, body.shape_params, body.friction,
+                                body.restitution, body.is_sensor, ba, bb, bvalid)
+        if not blocked:
+            # Compacted layout keeps raw ids on empty slots.
+            rows = (ba.repeat_interleave(_ka.WM),) + tuple(rows[1:])
+        return rows
+    return _kk.closed_form_rows(code, wm, blocked, body.pos, body.quat, body.shape_params,
+                                body.friction, body.restitution, body.is_sensor, ba, bb,
+                                bvalid)
+
+
+def buckets(body: BodyState, pair_a, pair_b, pair_valid, config: SimConfig):
+    """The pair list grouped by combo code (narrowphase.py:663-720).
+
+    Returns ([(code, src, ba, bb, bvalid)] for each present code, overflow
+    []): ``src`` is each bucket slot's pair index (-1 empty; None in a
+    single-combo world, where the bucket is the pair list in place), ``ba``
+    and ``bb`` the slots' bodies, ``bvalid`` their occupancy."""
+    p = pair_a.shape[0]
+    dev = body.device
+    active = _active_codes(config)
+    a = torch.clamp(pair_a, min=0)
+    b = torch.clamp(pair_b, min=0)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    if len(active) == 1:
+        return [(active[0], None, a, b, pair_valid)], overflow
+    codes = torch.clamp(body.shape_type[a.long()] * 4 + body.shape_type[b.long()],
+                        0, _NUM_CODES - 1)
+    sort_codes = torch.where(pair_valid, codes, _NUM_CODES)
+    order = torch.argsort(sort_codes, stable=True)
+    sorted_codes = sort_codes[order]
+    # starts[c] = number of codes below c (the run boundaries).
+    starts = torch.searchsorted(sorted_codes, torch.arange(
+        _NUM_CODES + 1, dtype=sorted_codes.dtype, device=dev))
+    out = []
+    for code in range(_NUM_CODES):
+        if code not in active:
+            overflow = overflow + (starts[code + 1] - starts[code])
+            continue
+        cap = min(config.max_pairs if code in _SAME_TYPE_CODES
+                  else max(64, config.max_pairs // _MIXED_FRACTION), p)
+        start = torch.minimum(starts[code], torch.full_like(starts[code], p - cap))
+        idx = start + torch.arange(cap, device=dev)
+        # Mask slots outside this code's run (the slice may span neighbours).
+        src = torch.where(sorted_codes[idx] == code, order[idx], -1)
+        overflow = overflow + torch.clamp(starts[code + 1] - starts[code] - cap, min=0)
+        srcs = torch.clamp(src, min=0)
+        out.append((code, src, a[srcs], b[srcs], src >= 0))
+    return out, overflow
+
+
 def pair_contacts(body: BodyState, pair_a, pair_b, pair_valid,
                   config: SimConfig, blocked_wm: int = 0):
     """Manifolds for the broadphase pair list.
+
+    A world with one shape combo runs its kernel on the pair list in
+    place; a mixed world groups the pairs by combo code with one stable
+    sort and runs each present code's kernel on its bucket, a slice of the
+    sorted order (``max_pairs`` slots for same-type codes, ``max(64,
+    max_pairs // 4)`` for the others; a run longer than its bucket counts
+    as overflow).  Nothing reads back to the host.
 
     Returns (Contacts, pair_touching [P], bucket overflow [])."""
     p = pair_a.shape[0]
@@ -111,20 +173,28 @@ def pair_contacts(body: BodyState, pair_a, pair_b, pair_valid,
                          key=torch.zeros((1,), dtype=torch.int32, device=dev)),
                 torch.zeros((p,), dtype=torch.bool, device=dev),
                 torch.zeros((), dtype=torch.int32, device=dev))
-    if active != [_BOX_BOX] or blocked_wm not in (0, _ka.WM):
+    hull = [c for c in active if c not in _kk.CODES and c != _BOX_BOX]
+    if hull:
         raise NotImplementedError(
-            f"shape combos {active} are not ported yet: this slice runs "
-            "box-only worlds (ROADMAP.md queue 1, slice 3: the other shapes)")
-    (a, b, point, normal, pen, valid, fric, rest, key,
-     touching) = _ka.box_box_rows(body.pos, body.quat, body.shape_params,
-                                  body.friction, body.restitution,
-                                  body.is_sensor, pair_a, pair_b, pair_valid)
-    if not blocked_wm:
-        # Compacted layout keeps raw ids on empty slots.
-        a = torch.clamp(pair_a, min=0).repeat_interleave(_ka.WM)
-    return (Contacts(a=a, b=b, point=point, normal=normal, penetration=pen,
-                     valid=valid, friction=fric, restitution=rest, key=key),
-            touching, torch.zeros((), dtype=torch.int32, device=dev))
+            f"shape combos {hull} (convex hulls) are not ported yet "
+            "(ROADMAP.md queue 1, slice 3: the other shapes)")
+    single = len(active) == 1
+    bucket_list, overflow = buckets(body, pair_a, pair_b, pair_valid, config)
+    batches, touch_src = [], []
+    for code, src, ba, bb, bvalid in bucket_list:
+        rows = _bucket_rows(code, blocked_wm or _MANIFOLD_WIDTH[code], bool(blocked_wm), body,
+                            ba, bb, bvalid)
+        batches.append(rows[:9])
+        touch_src.append((src, rows[9]))
+    contacts = Contacts(*(torch.cat([bt[i] for bt in batches]) for i in range(9)))
+    if single:
+        return contacts, touch_src[0][1] & pair_valid, overflow.to(torch.int32)
+    # Per-pair touching for contact events: each bucket scattered back.
+    touching = torch.zeros((p + 1,), dtype=torch.bool, device=dev)
+    for src, btouch in touch_src:
+        dst = torch.where(src >= 0, src, p)
+        touching.index_put_((dst,), btouch | touching[dst])
+    return contacts, touching[:p], overflow.to(torch.int32)
 
 
 def static_contacts(body: BodyState, world: StaticWorld, config: SimConfig) -> Contacts:

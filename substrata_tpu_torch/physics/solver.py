@@ -286,6 +286,13 @@ def solve_contacts(body: BodyState, static_cts: Contacts, pair_cts: Contacts,
         lam_all = torch.cat([(lam_s * rows.s_valid[..., None]).reshape(-1, 3),
                              (lam_p * rows.p_valid[..., None]).reshape(-1, 3)])
         dst = torch.where(valid_all, h, cache.size)
+        # Colliding hash slots keep their last writer, as a sequential
+        # scatter does (the reference's, and torch's on the CPU); torch on
+        # the card leaves the winner of duplicate indices unspecified.
+        order = torch.arange(dst.shape[0], device=body.device)
+        last = torch.full((cache.size + 1,), -1, dtype=order.dtype,
+                          device=body.device).scatter_reduce_(0, dst, order, reduce="amax")
+        dst = torch.where(last[dst] == order, dst, cache.size)
         new_keys = torch.stack([torch.where(valid_all, a_all, -1),
                                 torch.where(valid_all, key_all, 0)], dim=1).to(torch.int32)
         new_row = torch.cat([new_keys.view(torch.float32), lam_all], dim=1)

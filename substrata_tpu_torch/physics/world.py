@@ -1,35 +1,41 @@
 """Host-side PhysicsWorld facade.
 
 Counterpart of ``substrata_tpu/physics/world.py``: the same
-``PhysicsWorld`` / ``PhysicsObject`` surface for the synchronous tick.
-The body state lives on ``device`` as a ``BodyState``; host mutations are
-queued and flushed as batched scatters at the next ``think``, and each
-``think`` reads back exactly one small packed array (the event digest).
+``PhysicsWorld`` / ``PhysicsObject`` surface for the synchronous tick and
+the fused serving tick.  The body state lives on ``device`` as a
+``BodyState``; host mutations are queued and flushed as batched scatters
+at the next tick (transform writes and wake regions through kernel KM),
+and each tick reads back exactly one small packed array: ``think`` the
+event digest (kernel KN), ``think_with_player`` the digest and the
+character's packed vector in one buffer.
 
-Not in this slice (ROADMAP.md queue 1): the fused serving tick
-(``think_with_player``, which needs the character and its capsule combos),
-pipelined readback, batched snapshot transforms, virtual anchors, static
-mesh instances and trimeshes, hulls and snapshots.  Each raises
-NotImplementedError naming its item.
+Not in this slice (ROADMAP.md queue 1): pipelined readback, batched
+snapshot transforms, virtual anchors, static mesh instances and
+trimeshes, hulls and snapshots.  Each raises NotImplementedError naming
+its item.
 """
 
 from __future__ import annotations
 
 import copy
+import math
 from dataclasses import dataclass, field as dfield
 from typing import Any
 
 import numpy as np
 import torch
 
+from substrata_tpu_torch.kernels import character as _kl
+from substrata_tpu_torch.kernels import serving_io
 from substrata_tpu_torch.physics import broadphase, queries, shapes as shape_factories, solver
+from substrata_tpu_torch.physics.character import player_update_packed
 from substrata_tpu_torch.physics.state import (
     BodyState, Heightfield, Layer, MotionType, ShapeType, SimConfig,
     SimParams, default_sim_params, default_static_world, flat_heightfield,
     zero_body_state,
 )
 from substrata_tpu_torch.device import resolve_device
-from substrata_tpu_torch.physics.step import StepEvents, physics_step
+from substrata_tpu_torch.physics.step import physics_step
 
 USERDATA_WORLD_OBJECT = 0
 USERDATA_PARCEL = 1
@@ -38,8 +44,6 @@ USERDATA_AVATAR = 3
 
 _SLICE2 = "ROADMAP.md queue 1, slice 2: facade completion"
 _SLICE3 = "ROADMAP.md queue 1, slice 3: the other shapes"
-_LATER = ("ROADMAP.md queue 1, slice 5b: the character with its capsule combos, "
-          "and the serving tick")
 
 
 def _not_ported(what: str, item: str):
@@ -96,89 +100,27 @@ def _scatter_velocities(state: BodyState, idx, linvel, angvel) -> BodyState:
                          sleep_timer=state.sleep_timer.index_fill(0, idx, 0.0))
 
 
-def _wake_in_regions(state: BodyState, centers, radii) -> BodyState:
-    """Wake every dynamic body whose bound sphere overlaps a (centre,
-    radius) region, +0.3 m slack for host-mirror staleness."""
-    d2 = torch.sum((state.pos[:, None, :] - centers[None]) ** 2, -1)
-    r = radii[None] + state.bound_radius[:, None] + 0.3
-    hit = torch.any(d2 <= r * r, dim=1) & state.alive & state.dynamic
-    return state.replace(awake=state.awake | hit,
-                         sleep_timer=torch.where(hit, 0.0, state.sleep_timer))
-
-
-def _apply_transforms_wake(state: BodyState, idx, pos, rot, vidx, linvel, angvel,
-                           centers, radii) -> BodyState:
-    """Transform-only host writes, velocities only for the slots ``vidx``
-    that provided them, then the region wake."""
-    p, q = state.pos.clone(), state.quat.clone()
-    lv, av = state.linvel.clone(), state.angvel.clone()
-    p[idx] = pos
-    q[idx] = rot
-    lv[vidx] = linvel
-    av[vidx] = angvel
-    new = state.replace(pos=p, quat=q, linvel=lv, angvel=av,
-                        awake=state.awake.index_fill(0, idx, True),
-                        sleep_timer=state.sleep_timer.index_fill(0, idx, 0.0))
-    return _wake_in_regions(new, centers, radii)
-
-
-def _transform_block(state: BodyState):
-    """[N, 14] f32 readback block: pos3 | quat4 | linvel3 | angvel3 | underwater."""
-    return torch.cat([state.pos, state.quat, state.linvel, state.angvel,
-                      state.underwater.to(torch.float32)[:, None]], dim=1)
-
-
-_EVK = 64      # event-digest slots per class (wakes / sleeps / water)
-_EVT = 128     # touching-pair slots in the digest
-_DIGEST_HEAD = 200 + 2 * _EVT + 1
-
-
-def _pack_bits(mask):
-    """Bool [N] -> int32 words [ceil(N/32)], bit j of word w = mask[32w+j]."""
-    n = mask.shape[0]
-    words = (n + 31) // 32
-    m = torch.zeros(words * 32, dtype=torch.int64, device=mask.device)
-    m[:n] = mask.to(torch.int64)
-    v = (m.reshape(words, 32) << torch.arange(32, device=mask.device)).sum(dim=1)
-    return torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
-
-
-def _unpack_bits(words: np.ndarray, n: int) -> np.ndarray:
-    bits = (words.astype(np.uint32)[:, None] >> np.arange(32, dtype=np.uint32)) & 1
-    return bits.reshape(-1)[:n].astype(bool)
-
-
-def _event_digest(events: StepEvents, num_contacts, num_awake, steps_left):
-    """Everything the host reads per tick, as ONE int32 array.
-
-    Layout (the reference's, world.py:235-277):
-      [0:64] newly-awake slots (-1 pad), [64:128] newly-asleep,
-      [128:192] entered-water, [192:196] counts (awake, asleep, water,
-      touching events), [196:200] num_pairs, broadphase_overflow,
-      num_contacts, num_awake, [200:456] touching pairs (a, b), [456]
-      pair-cache steps_left;
-    then the newly-awake, newly-asleep and entered-water masks bit-packed,
-    which the host reads only when a class overflows its 64 slots — so
-    the tick still needs no second transfer.  Built with cumsum ranks, no
-    host sync."""
-    up = broadphase._compact(events.newly_awake, _EVK)
-    down = broadphase._compact(events.newly_asleep, _EVK)
-    wet = broadphase._compact(events.entered_water, _EVK)
-    touch = broadphase._compact(events.contact_touching, _EVT)
-    tsafe = torch.clamp(touch, min=0)
-    ta = torch.where(touch >= 0, events.contact_pair_a[tsafe].long(), -1)
-    tb = torch.where(touch >= 0, events.contact_pair_b[tsafe].long(), -1)
-    dev = up.device
-    counts = torch.stack([
-        events.newly_awake.sum(), events.newly_asleep.sum(),
-        events.entered_water.sum(), events.contact_touching.sum(),
-        events.num_pairs.to(torch.int64), events.broadphase_overflow.to(torch.int64),
-        torch.as_tensor(num_contacts, device=dev).to(torch.int64),
-        torch.as_tensor(num_awake, device=dev).to(torch.int64)])
-    head = torch.cat([up, down, wet, counts, torch.stack([ta, tb], dim=1).reshape(-1),
-                      torch.as_tensor(steps_left, device=dev).to(torch.int64).reshape(1)])
-    return torch.cat([head.to(torch.int32), _pack_bits(events.newly_awake),
-                      _pack_bits(events.newly_asleep), _pack_bits(events.entered_water)])
+def _serving_tick(body, static_world, params, config, solver_cache, pair_cache, char,
+                  tick_in, dt: float, readback, rebuild_pairs: bool, has_oversize: bool):
+    """The whole serving substep, as the reference fuses it into one device
+    program (world.py:161-199): the host's transform writes and wake
+    regions (KM), the character update (KL) on the written state, the
+    world step, then the event digest and the transform block (KN).  The
+    digest and the character's packed vector land in ``readback`` (int32:
+    the digest, then the packed floats' bits), so the host reads both
+    with one copy."""
+    body = serving_io.apply_tick_in(body, tick_in)
+    table = broadphase.build_cell_table(body, config)[0]
+    d = serving_io.digest_len(body.capacity)
+    char2, packed = player_update_packed(
+        char, body, static_world, tick_in[:serving_io.TIN_SCAL], params, config, table=table,
+        os_idx=queries.oversize_slots(body, config), out=readback[d:].view(torch.float32))
+    body2, sc, pc, events, diags = physics_step(
+        body, static_world, dt, params, config, solver_cache, pair_cache,
+        rebuild_pairs=rebuild_pairs, has_oversize=has_oversize)
+    digest, tblock = serving_io.digest_tblock(events, diags.num_contacts, diags.num_awake,
+                                              pc.steps_left, body2, out=readback[:d])
+    return body2, sc, pc, events, diags, char2, packed, digest, tblock
 
 
 class PhysicsWorld:
@@ -234,6 +176,10 @@ class PhysicsWorld:
         self._nonstatic_objs = None
         self._prev_sync_block = None
         self._structural_dirty = False
+        # The last serving tick's transform block (KN) and the state it
+        # describes: sync_transforms reads it while the state is still that one.
+        self._pending_tblock = None
+        self._tblock_state = None
 
     # ------------------------------------------------------------------
     # Water
@@ -366,14 +312,67 @@ class PhysicsWorld:
         self._structural_dirty = True
         self._vel_dirty[ob.slot] = ob
 
+    def note_motion_type_changed(self, ob: PhysicsObject):
+        """Callers that flip ob.motion_type directly must drop the cached
+        list of non-static objects."""
+        self._nonstatic_objs = None
+
+    def move_kinematic_object(self, ob: PhysicsObject, pos, rot, dt):
+        """MoveKinematic parity: velocities such that the body arrives at
+        (pos, rot) after dt, so contacts feel the motion.  Host numpy only;
+        the write goes out with the next tick's transform writes."""
+        pos = np.asarray(pos, np.float32)
+        rot = np.asarray(rot, np.float32)
+        # A jump beyond the per-step margin budget, or a material speed-up,
+        # invalidates the cached pairs (their margins were built slower).
+        prev_speed = float(np.linalg.norm(ob.linvel))
+        delta = float(np.linalg.norm(pos - ob.pos))
+        ob.linvel = (pos - ob.pos) / max(dt, 1e-9)
+        if (delta > prev_speed * dt + 0.08
+                or float(np.linalg.norm(ob.linvel)) > prev_speed + 0.25):
+            self._structural_dirty = True
+        # Angular velocity from the delta quaternion rot * conj(ob.rot).
+        r, c = rot, ob.rot
+        cx, cy, cz, cw = -c[0], -c[1], -c[2], c[3]
+        dq = np.array([
+            r[3] * cx + r[0] * cw + r[1] * cz - r[2] * cy,
+            r[3] * cy - r[0] * cz + r[1] * cw + r[2] * cx,
+            r[3] * cz + r[0] * cy - r[1] * cx + r[2] * cw,
+            r[3] * cw - r[0] * cx - r[1] * cy - r[2] * cz], np.float32)
+        if dq[3] < 0.0:
+            dq = -dq
+        sin_half = float(np.linalg.norm(dq[:3]))
+        angle = 2.0 * math.atan2(sin_half, float(dq[3]))
+        axis = np.array([1.0, 0.0, 0.0], np.float32) if sin_half < 1e-8 else dq[:3] / sin_half
+        ob.angvel = axis * np.float32(angle / max(dt, 1e-9))
+        ob.pos = pos
+        ob.rot = rot
+        self._xform_dirty[ob.slot] = (ob, True)
+
+    def activate_object(self, ob: PhysicsObject):
+        self._vel_dirty[ob.slot] = ob
+
     # ------------------------------------------------------------------
     # Flush / think
     # ------------------------------------------------------------------
     def _dev(self, x, dtype=None):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
 
-    def _flush(self):
-        """Upload pending host mutations as batched scatters."""
+    def _upload(self, buf: np.ndarray):
+        """A host float32 buffer on the device: on the card through pinned
+        memory with a non-blocking copy (no synchronisation; the caching
+        host allocator keeps the block until the copy has run)."""
+        t = torch.from_numpy(buf)
+        if self.device.type == "cpu":
+            return t.clone()
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _flush(self, defer_xforms: bool = False):
+        """Upload pending host mutations as batched scatters.  With
+        ``defer_xforms`` the transform writes and wake regions are returned
+        as (items, regions) instead, when they fit one serving-tick input
+        (128 writes, 64 regions)."""
+        deferred = None
         if self._cache_stale:
             self.solver_cache = solver.empty_solver_cache(
                 solver.cache_size_for(self.config), device=self.device)
@@ -430,22 +429,17 @@ class PhysicsWorld:
             self._xform_dirty.clear()
             regs = self._wake_regions
             self._wake_regions = []
-            centers = np.array([c for c, _ in regs], np.float32).reshape(-1, 3)
-            radii = np.array([r for _, r in regs], np.float32)
-            if items:
-                vel = [(s, o) for s, o, hv in items if hv]
-                f32 = np.float32
-                self.state = _apply_transforms_wake(
-                    self.state, self._dev(np.array([s for s, _, _ in items], np.int64)),
-                    self._dev(np.stack([o.pos for _, o, _ in items]).astype(f32)),
-                    self._dev(np.stack([o.rot for _, o, _ in items]).astype(f32)),
-                    self._dev(np.array([s for s, _ in vel], np.int64)),
-                    self._dev(np.array([o.linvel for _, o in vel], f32).reshape(-1, 3)),
-                    self._dev(np.array([o.angvel for _, o in vel], f32).reshape(-1, 3)),
-                    self._dev(centers), self._dev(radii))
-            elif regs:
-                self.state = _wake_in_regions(self.state, self._dev(centers),
-                                              self._dev(radii))
+            if defer_xforms and len(items) <= serving_io.TIN_K and len(regs) <= serving_io.TIN_R:
+                deferred = (items, regs)
+            else:
+                # As the reference's chunks: 128 writes and 64 regions each,
+                # the rest padded (a padded region wakes every dynamic body).
+                k, rk = serving_io.TIN_K, serving_io.TIN_R
+                for c in range(max(-(-len(items) // k), -(-len(regs) // rk), 1)):
+                    buf = serving_io.empty_tick_in(self.config.capacity)
+                    serving_io.pack_writes(buf, items[c * k:(c + 1) * k],
+                                           regs[c * rk:(c + 1) * rk])
+                    self.state = serving_io.apply_tick_in(self.state, self._upload(buf))
         if self._vel_dirty:
             items = list(self._vel_dirty.items())
             self._vel_dirty.clear()
@@ -453,6 +447,7 @@ class PhysicsWorld:
                 self.state, self._dev(np.array([s for s, _ in items], np.int64)),
                 self._dev(np.stack([o.linvel for _, o in items]).astype(np.float32)),
                 self._dev(np.stack([o.angvel for _, o in items]).astype(np.float32)))
+        return deferred
 
     def set_state(self, state: BodyState):
         """Replace the device body state wholesale (for tools that write it
@@ -513,22 +508,65 @@ class PhysicsWorld:
         self.last_events = events
         self.last_diags = diags
         self._steps += 1
-        self._dispatch_digest(events, diags)
+        digest, _ = serving_io.digest_tblock(
+            events, diags.num_contacts, diags.num_awake, self.pair_cache.steps_left,
+            self.state, with_block=False)
+        self._read_digest(events, digest.cpu().numpy())   # the tick's one copy back
         return events
 
-    def _dispatch_digest(self, events, diags):
-        """Read the digest (the tick's one device -> host copy) and update
-        the host bookkeeping from it."""
-        digest = _event_digest(events, diags.num_contacts, diags.num_awake,
-                               self.pair_cache.steps_left).cpu().numpy()
-        self._host_steps_left = int(digest[_DIGEST_HEAD - 1])
+    def _read_digest(self, events, digest):
+        """Update the host bookkeeping from the tick's digest."""
+        self._host_steps_left = int(digest[serving_io.DIGEST_HEAD - 1])
         self._world_asleep = int(digest[199]) == 0
         self._refresh_activation_sets(events, digest)
         if self.auto_tier:
             self._update_tier_from_digest(digest)
 
     def think_with_player(self, dt: float, player, cur_time: float = 0.0):
-        _not_ported("the fused serving tick (think_with_player)", _LATER)
+        """``think`` with the player character: the pending transform writes
+        and wake regions, the character update, the world step, the event
+        digest and the transform block as one serving tick (the order of
+        GUIClient.cpp:6418-6432).  The host makes one copy to the device
+        (the packed tick input, from pinned memory) and one back (the digest
+        and the character's packed vector in one buffer); ``player`` is a
+        physics.character.PlayerPhysics."""
+        had_mutations = bool(self._dirty or self._vel_dirty
+                             or self._xform_dirty or self._wake_regions)
+        # No fully-asleep skip: the player updates every tick.
+        deferred = self._flush(defer_xforms=True)
+        if had_mutations:
+            if self._structural_dirty:
+                self.invalidate_pairs()
+                self._structural_dirty = False
+            self._world_asleep = False
+        rebuild = self._force_pair_rebuild or self._host_steps_left <= 0
+        self._force_pair_rebuild = False
+        cap = self.config.capacity
+        buf = serving_io.empty_tick_in(cap)
+        buf[:serving_io.TIN_SCAL] = player.tick_scalars(dt, cur_time)
+        if deferred is not None:
+            serving_io.pack_writes(buf, *deferred)
+        d = serving_io.digest_len(cap)
+        k = _kl.n_rows(self.config.cell_size, self.config.cell_capacity,
+                       broadphase.MAX_OVERSIZE)
+        readback = torch.empty(d + _kl.N_PACKED_HEAD + k, dtype=torch.int32,
+                               device=self.device)
+        (self.state, self.solver_cache, self.pair_cache, events, diags, player.state,
+         _packed, _digest, self._pending_tblock) = _serving_tick(
+            self.state, self.static_world, self.params, self.config, self.solver_cache,
+            self.pair_cache, player.state, self._upload(buf), float(dt), readback, rebuild,
+            bool(self._oversize_slots))
+        self._tblock_state = self.state
+        self.last_events = events
+        self.last_diags = diags
+        self._steps += 1
+        host = readback.cpu().numpy()                     # the tick's one copy back
+        self._read_digest(events, host[:d])
+        player._consume_packed(host[d:].view(np.float32))
+        player.zero_move_desired_vel()
+        # The kinematic proxy follows the foot every tick.
+        self.move_kinematic_object(player.proxy, player._capsule_center(), player.proxy.rot, dt)
+        return events
 
     def set_pipelined(self, depth: int):
         if depth > 0:
@@ -539,11 +577,12 @@ class PhysicsWorld:
                                         int(digest[194]), int(digest[195]))
         cap = self.config.capacity
         words = (cap + 31) // 32
-        masks = digest[_DIGEST_HEAD:]
-        up = (np.nonzero(_unpack_bits(masks[:words], cap))[0] if n_up > _EVK
-              else digest[0:_EVK][:n_up])
-        down = (np.nonzero(_unpack_bits(masks[words:2 * words], cap))[0]
-                if n_down > _EVK else digest[_EVK:2 * _EVK][:n_down])
+        masks = digest[serving_io.DIGEST_HEAD:]
+        evk, evt = serving_io.EVK, serving_io.EVT
+        up = (np.nonzero(serving_io.unpack_bits(masks[:words], cap))[0] if n_up > evk
+              else digest[0:evk][:n_up])
+        down = (np.nonzero(serving_io.unpack_bits(masks[words:2 * words], cap))[0]
+                if n_down > evk else digest[evk:2 * evk][:n_down])
         self.newly_activated_obs = set()
         for slot in up:
             ob = self.objects.get(int(slot))
@@ -555,15 +594,15 @@ class PhysicsWorld:
             if ob is not None:
                 self.activated_obs.discard(ob)
         if self.event_listener is not None:
-            wet = (np.nonzero(_unpack_bits(masks[2 * words:3 * words], cap))[0]
-                   if n_wet > _EVK else digest[2 * _EVK:3 * _EVK][:n_wet])
+            wet = (np.nonzero(serving_io.unpack_bits(masks[2 * words:3 * words], cap))[0]
+                   if n_wet > evk else digest[2 * evk:3 * evk][:n_wet])
             for slot in wet:
                 ob = self.objects.get(int(slot))
                 if ob is not None and hasattr(self.event_listener,
                                               "physics_object_entered_water"):
                     self.event_listener.physics_object_entered_water(ob)
             if n_touch > 0 and hasattr(self.event_listener, "contact_added"):
-                if n_touch > _EVT:
+                if n_touch > evt:
                     # More touching pairs than digest slots: a listener
                     # that wants them all costs a second readback.
                     touching = events.contact_touching.cpu().numpy()
@@ -571,7 +610,7 @@ class PhysicsWorld:
                     pb = events.contact_pair_b.cpu().numpy()
                     pairs = [(int(pa[i]), int(pb[i])) for i in np.nonzero(touching)[0]]
                 else:
-                    tp = digest[200:200 + 2 * _EVT].reshape(_EVT, 2)[:n_touch]
+                    tp = digest[200:200 + 2 * evt].reshape(evt, 2)[:n_touch]
                     pairs = [(int(a), int(b)) for a, b in tp]
                 for sa, sb in pairs:
                     oa = self.objects.get(sa)
@@ -605,8 +644,13 @@ class PhysicsWorld:
     # ------------------------------------------------------------------
     def sync_transforms(self):
         """Pull pos/rot/vel of all bodies into the host mirrors with one
-        packed readback; rows unchanged since the last sync are skipped."""
-        block = _transform_block(self.state).cpu().numpy()
+        packed readback (the last serving tick's transform block while the
+        state is still that tick's, else one packed now); rows unchanged
+        since the last sync are skipped."""
+        block_dev = (self._pending_tblock if self._tblock_state is self.state
+                     else serving_io.transform_block(self.state))
+        self._pending_tblock = self._tblock_state = None
+        block = block_dev.cpu().numpy()
         if self._nonstatic_objs is None:
             static = int(MotionType.STATIC)
             self._nonstatic_objs = [(slot, ob) for slot, ob in self.objects.items()
@@ -624,6 +668,13 @@ class PhysicsWorld:
                 ob.linvel = block[slot, 7:10]
                 ob.angvel = block[slot, 10:13]
                 ob.underwater = bool(block[slot, 13] > 0)
+
+    def read_object_state(self, ob: PhysicsObject):
+        """Synchronous live read of one body's (pos, rot, linvel, angvel),
+        for rare mid-tick consumers."""
+        self._flush()
+        blk = serving_io.transform_block(self.state)[ob.slot].cpu().numpy()
+        return blk[0:3], blk[3:7], blk[7:10], blk[10:13]
 
     # ------------------------------------------------------------------
     # Ray queries (kernel KH)

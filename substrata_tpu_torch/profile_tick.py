@@ -1,5 +1,5 @@
-"""Where the time of one think(), of one physics + audio tick and of one
-full tick goes, on the card.
+"""Where the time of one think(), of one physics + audio tick, of one full
+tick and of one serving tick goes, on the card.
 
     python3 -m substrata_tpu_torch.profile_tick
 
@@ -17,11 +17,17 @@ On the 10,000-box bench world (kicked once, after 30 ticks):
    over mix_block alone (device busy ms and device ops per tick, each
    audio kernel's device time), and a stage pass over the mix's setup and
    its three kernels;
-5. the full-tick stage: bench.py's vehicles and particles on the same
-   world (benchworld.full_tick: vehicles, think, particles, the mix),
-   host-clock ms per full tick, a profiler pass (device busy ms, device
-   ops, the ray, particle and vehicle kernels' device times) and a stage
-   pass over its parts.
+5. the full-tick stage: bench.py's vehicles, character and particles on
+   the same world (benchworld.full_tick: vehicles, the character, think,
+   particles, the mix), host-clock ms per full tick with and without the
+   character (in turns), a profiler pass
+   (device busy ms, device ops, the ray, character, particle and vehicle
+   kernels' device times) and a stage pass over its parts;
+6. the serving stage: a second bench world with a walking player
+   (benchworld.serving_world, 30 ticks in), host-clock ms per
+   think_with_player, a profiler pass and a stage pass over the tick's
+   parts (tick input, character, step, its compaction and incidence
+   table, digest).
 Prints one JSON object and writes the trace to chiprun_out/tick_trace.json.
 """
 
@@ -40,7 +46,7 @@ from substrata_tpu_torch import benchworld
 from substrata_tpu_torch.audio import mix
 from substrata_tpu_torch.benchworld import (N_SOURCES, TICK_FRAMES, bench_audio, bench_fulltick,
                                             bench_world, full_tick, kick, physics_audio_tick)
-from substrata_tpu_torch.kernels import audio_mix
+from substrata_tpu_torch.kernels import audio_mix, serving_io
 from substrata_tpu_torch.kernels import particles_triton as kpart
 from substrata_tpu_torch.kernels import vehicles as kveh
 from substrata_tpu_torch.physics import broadphase, integrate, narrowphase, queries, solver
@@ -51,19 +57,25 @@ STAGES = [(integrate, "apply_forces"), (broadphase, "find_pairs_cached"),
           (narrowphase, "pair_contacts"), (narrowphase, "static_contacts"),
           (solver, "build_incidence"), (solver, "prepare_solve"), (solver, "iterate"),
           (integrate, "integrate_positions"), (solver, "solve_positions"),
-          (integrate, "update_sleeping"), (world_mod, "_event_digest")]
+          (integrate, "update_sleeping"), (serving_io, "digest_tblock")]
 # Device-side names of the hand-written kernels (KA, KB, KC x2, KD x2).
 PORT_KERNELS = ("box_box_rows_kernel", "static_contacts_kernel", "solve_rows_kernel",
                 "solve_bodies_kernel", "apply_forces_kernel", "integrate_kernel",
                 "audio_fetch_kernel", "audio_spatialise_kernel", "audio_downmix_kernel",
-                "ray_trace_kernel", "particles_kernel", "vehicle_forces_kernel")
+                "ray_trace_kernel", "particles_kernel", "vehicle_forces_kernel",
+                "closed_form_rows_kernel", "character_kernel", "apply_tick_in_kernel",
+                "digest_tblock_kernel")
 AUDIO_STAGES = [(mix, "prepare"), (audio_mix, "audio_fetch"), (audio_mix, "audio_spatialise"),
                 (audio_mix, "audio_downmix_reverb")]
 FULL_STAGES = [(broadphase, "build_cell_table"), (benchworld, "vehicles_update"),
                (queries, "trace_rays"), (kveh, "vehicle_forces"),
                (benchworld, "_apply_vehicle_deltas"), (world_mod.PhysicsWorld, "think"),
-               (benchworld, "particles_step"), (kpart, "particles_update"),
-               (benchworld, "mix_block")]
+               (benchworld, "player_update_packed"), (benchworld, "particles_step"),
+               (kpart, "particles_update"), (benchworld, "mix_block")]
+SERVING_STAGES = [(serving_io, "apply_tick_in"), (world_mod, "player_update_packed"),
+                  (world_mod, "physics_step"), (narrowphase, "pair_contacts"),
+                  (narrowphase, "compact_contacts"), (solver, "build_incidence"),
+                  (solver, "prepare_solve"), (solver, "iterate"), (serving_io, "digest_tblock")]
 
 
 def _timed(fn, name, acc):
@@ -162,17 +174,34 @@ def audio_scene(w):
 
 
 def full_scene(w):
-    """bench.py's vehicles and particles and its 256 sources on the world:
-    one full tick per call, advancing the shared state."""
-    veh, vin, ps = bench_fulltick(w, "cuda")
+    """bench.py's vehicles, character and particles and its 256 sources on
+    the world: (one full tick, one full tick without the character) per
+    call, advancing the shared state."""
+    veh, vin, ps, char = bench_fulltick(w, "cuda")
     src, pool, lis, room = bench_audio("cuda")
     idx = torch.arange(src.capacity, device="cuda")
-    state = dict(veh=veh, ps=ps, src=src, room=room)
+    state = dict(veh=veh, ps=ps, src=src, room=room, char=char, t=0)
 
-    def full():
-        state["veh"], state["ps"], state["src"], _, state["room"] = full_tick(
-            w, state["veh"], vin, state["ps"], state["src"], pool, lis, state["room"], idx)
-    return full
+    def tick(with_char):
+        (state["veh"], state["ps"], state["src"], _, state["room"], char) = full_tick(
+            w, state["veh"], vin, state["ps"], state["src"], pool, lis, state["room"], idx,
+            state["char"] if with_char else None, state["t"] * DT)
+        if with_char:
+            state["char"] = char
+        state["t"] += 1
+    return functools.partial(tick, True), functools.partial(tick, False)
+
+
+def serving_scene():
+    """A second bench world with a walking player: one serving tick per
+    call."""
+    w, player = benchworld.serving_world("cuda")
+    state = dict(t=0)
+
+    def serve():
+        benchworld.serving_tick(w, player, state["t"] * DT)
+        state["t"] += 1
+    return serve
 
 
 def main(ticks: int = 24):
@@ -198,10 +227,17 @@ def main(ticks: int = 24):
     for _ in range(30):
         coupled()
     coupled_ms, mix_ms = _host_ms(coupled, ticks), _host_ms(mix_only, ticks)
-    full = full_scene(w)
+    full, full_no_char = full_scene(w)
     for _ in range(30):
         full()
-    full_ms = _host_ms(full, ticks)
+    # With and without the character in turns (without, with, with,
+    # without): the host's speed drifts within a call.
+    full_ms, no_char_ms = [], []
+    for _ in range(ticks // 2):
+        no_char_ms += _host_ms(full_no_char, 1)
+        full_ms += _host_ms(full, 2)
+        no_char_ms += _host_ms(full_no_char, 1)
+    n_bodies = len(w.objects)
 
     prof = _profiled(lambda: w.think(DT), ticks)
     busy_ms, ops, by_name, ours = _device_summary(prof, ticks)
@@ -225,18 +261,31 @@ def main(ticks: int = 24):
     f_busy, f_ops, _, f_ours = _device_summary(_profiled(full, ticks), ticks)
     staged_full_ms, full_stages = _staged(FULL_STAGES, full, ticks)
     full_tick_out = dict(
-        ms_per_full_tick=float(np.median(full_ms)), device_busy_ms=f_busy, device_ops=f_ops,
+        ms_per_full_tick=float(np.median(full_ms)),
+        ms_per_full_tick_without_character=float(np.median(no_char_ms)),
+        device_busy_ms=f_busy, device_ops=f_ops,
         port_kernels=f_ours, staged_ms_per_tick=staged_full_ms, stages=full_stages)
 
+    serve = serving_scene()
+    for _ in range(30):
+        serve()
+    serve_ms = _host_ms(serve, ticks)
+    s_busy, s_ops, _, s_ours = _device_summary(_profiled(serve, ticks), ticks)
+    staged_serve_ms, serve_stages = _staged(SERVING_STAGES, serve, ticks)
+    serving = dict(
+        ms_per_serving_tick=float(np.median(serve_ms)), device_busy_ms=s_busy, device_ops=s_ops,
+        port_kernels=s_ours, staged_ms_per_tick=staged_serve_ms, stages=serve_stages)
+
     out = dict(
-        card=smi, bodies=len(w.objects),
+        card=smi, bodies=n_bodies,
         ms_per_think_rebuild=float(np.median(rebuild)), rebuild_ticks=len(rebuild),
         ms_per_think_reuse=float(np.median(reuse)), reuse_ticks=len(reuse),
         device_busy_ms_per_tick=busy_ms, device_ops_per_tick=ops,
         top_kernels=[dict(name=name[:90], ms_per_tick=us / 1e3 / ticks,
                           calls_per_tick=n / ticks) for name, (us, n) in top],
         port_kernels=ours,
-        staged_ms_per_think=staged_ms, stages=stages, audio=audio, full_tick=full_tick_out)
+        staged_ms_per_think=staged_ms, stages=stages, audio=audio, full_tick=full_tick_out,
+        serving_tick=serving)
     print(json.dumps(out, indent=1))
     return out
 

@@ -1,4 +1,4 @@
-"""Kernels KA-KJ on the card against their plain PyTorch twins, and the
+"""Kernels KA-KN on the card against their plain PyTorch twins, and the
 entry points' default device.
 
 These need a CUDA device and skip without one (the decision is made inside
@@ -10,8 +10,9 @@ only, so it also runs on a machine without JAX:
 Tolerances are chip_smoke.py's: 1e-5 for KA/KB rows, 1e-4 for KC
 velocities after warm start + 7 iterations, 1e-6 for KD and KE, 1e-5 for
 KF and KG, 1e-6 for KH (hit and body exact) and KI, 1e-5 of each output's
-scale for KJ; each kernel repeats its twin's operations in the same
-order."""
+scale for KJ, 1e-5 for KK's rows (masks, keys and touching exact), 1e-6 of
+scale for KL (flags and the touched list exact), KM and KN exact; each
+kernel repeats its twin's operations in the same order."""
 
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ from substrata_tpu_torch.kernels import integrate_triton as kd
 from substrata_tpu_torch.kernels import solve as kc
 from substrata_tpu_torch.kernels import static_contacts as kb
 from substrata_tpu_torch.physics import broadphase, narrowphase, queries, shapes, solver
+from substrata_tpu_torch.physics.character import PlayerPhysics
 from substrata_tpu_torch.physics.particles import motion_rays
 from substrata_tpu_torch.physics.vehicles.manager import chassis_and_wheel_rays
 from substrata_tpu_torch.physics.state import SimConfig
@@ -187,11 +189,12 @@ def fulltick():
                     cell_capacity=6, solver_iters=7, pairs_per_body=10,
                     pair_rebuild_interval=6, contacts_per_body=8)
     w = benchworld.bench_world("cuda", n_bodies=400, cfg=cfg)
-    veh, vin, ps = benchworld.bench_fulltick(w, "cuda", n_particles=512, n_vehicles=8)
+    veh, vin, ps, char = benchworld.bench_fulltick(w, "cuda", n_particles=512, n_vehicles=8)
     src, pool, lis, room = bench_audio("cuda", n_sources=16)
     idx = torch.arange(16, device="cuda")
-    for _ in range(10):
-        veh, ps, src, _, room = benchworld.full_tick(w, veh, vin, ps, src, pool, lis, room, idx)
+    for t in range(10):
+        veh, ps, src, _, room, char = benchworld.full_tick(w, veh, vin, ps, src, pool, lis,
+                                                           room, idx, char, t * DT)
     return w, veh, vin, ps
 
 
@@ -284,12 +287,186 @@ def test_full_tick_on_card_matches_cpu():
     runs = {}
     for dev in ("cuda", "cpu"):
         w = benchworld.bench_world(dev, n_bodies=200, cfg=cfg)
-        veh, vin, ps = benchworld.bench_fulltick(w, dev, n_particles=256, n_vehicles=4)
+        veh, vin, ps, char = benchworld.bench_fulltick(w, dev, n_particles=256, n_vehicles=4)
         src, pool, lis, room = bench_audio(dev, n_sources=16)
         idx = torch.arange(16, device=dev)
-        for _ in range(5):
-            veh, ps, src, out, room = benchworld.full_tick(w, veh, vin, ps, src, pool, lis,
-                                                           room, idx)
-        runs[dev] = (w.state.pos.cpu(), ps.pos.cpu(), out.cpu())
+        for t in range(5):
+            veh, ps, src, out, room, char = benchworld.full_tick(w, veh, vin, ps, src, pool, lis,
+                                                                 room, idx, char, t * DT)
+        runs[dev] = (w.state.pos.cpu(), ps.pos.cpu(), out.cpu(), char.pos.cpu())
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# KK, KL, KM, KN
+# ---------------------------------------------------------------------------
+
+def _random_rows(gen, code, n):
+    """Per-side (pos, quat, params) at random poses within touching range."""
+    out = []
+    for st in (code // 4, code % 4):
+        q = torch.randn((n, 4), generator=gen, device="cuda")
+        q = q / q.norm(dim=1, keepdim=True)
+        u = torch.rand((n, 4), generator=gen, device="cuda")
+        prm = torch.zeros((n, 4), device="cuda")
+        if st == 0:
+            prm[:, 0] = 0.2 + 0.4 * u[:, 0]
+        elif st == 1:
+            prm[:, :3] = 0.2 + 0.5 * u[:, :3]
+        else:
+            prm[:, 0] = 0.15 + 0.25 * u[:, 0]
+            prm[:, 1] = 0.2 + 0.4 * u[:, 1]
+        p = torch.rand((n, 3), generator=gen, device="cuda") * 1.2 - 0.6
+        out.append((p, q, prm, st))
+    return out
+
+
+def test_closed_form_kernel_matches_plain():
+    """KK on 4,096 random pairs of each closed-form code, in both layouts."""
+    from substrata_tpu_torch.kernels import closed_forms as kk
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    n = 4096
+    for code in kk.CODES:
+        (pa, qa, ra, sa), (pb, qb, rb, sb) = _random_rows(gen, code, n)
+        pos = torch.cat([pa, pb])
+        quat = torch.cat([qa, qb])
+        prm = torch.cat([ra, rb])
+        fr = torch.rand(2 * n, generator=gen, device="cuda")
+        re = torch.rand(2 * n, generator=gen, device="cuda")
+        sens = torch.rand(2 * n, generator=gen, device="cuda") < 0.05
+        ba = torch.arange(n, dtype=torch.int32, device="cuda")
+        bb = ba + n
+        bv = torch.rand(n, generator=gen, device="cuda") < 0.9
+        for wm, blocked in ((4, True), (2, False), (1, False)):
+            args = (code, wm, blocked, pos, quat, prm, fr, re, sens, ba, bb, bv)
+            rk, rp = kk.closed_form_rows(*args), kk.closed_form_rows_plain(*args)
+            torch.cuda.synchronize()
+            for i in (0, 1, 5, 6, 7, 8, 9):
+                assert torch.equal(rk[i], rp[i]), (code, wm, i)
+            for i in (2, 3, 4):
+                assert float((rk[i] - rp[i]).abs()[rp[5]].max()) <= 1e-5, (code, wm, i)
+        assert int(rp[9].sum()) > n // 10
+
+
+def _serving(device, n_bodies=200, eye_pos=(0.0, 0.0, 1.67)):
+    cfg = SimConfig(capacity=256, max_pairs=1024, grid_dim=32, cell_size=1.4,
+                    cell_capacity=6, solver_iters=7, pairs_per_body=10,
+                    pair_rebuild_interval=6, contacts_per_body=8)
+    return benchworld.serving_world(device, n_bodies=n_bodies, cfg=cfg, eye_pos=eye_pos)
+
+
+def test_character_kernel_matches_plain():
+    """KL against its twin on a serving world's state after 20 ticks, and
+    on a 0.35 m step that takes the stair branch and a ledge that takes the
+    stick branch."""
+    from substrata_tpu_torch.kernels import character as kl
+    from substrata_tpu_torch.physics import character as tchar
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    w, p = _serving("cuda")
+    for t in range(20):
+        benchworld.serving_tick(w, p, t * DT)
+    cases = [(w, p.state, benchworld.walk_input(20 * DT), p.proxy.slot)]
+    for he, pos, eye in (([1.0, 1.0, 0.175], [1.35, 0, 0.175], (0.0, 0, 1.67)),
+                         ([1.0, 2.0, 0.2], [-0.7, 0, 0.2], (0.40, 0, 2.07))):
+        sw = PhysicsWorld(SimConfig(capacity=64, max_pairs=256, grid_dim=16, cell_size=1.4,
+                                    cell_capacity=6), device="cuda")
+        sw.set_ground_plane(0.0)
+        sw.add_object(PhysicsObject(shape=shapes.make_box(he), pos=np.array(pos, np.float32),
+                                    motion_type=int(MotionType.STATIC)))
+        sw._flush()
+        st = tchar.init_character_state(eye, device="cuda").replace(
+            gravity_enabled=torch.ones((), dtype=torch.bool, device="cuda"))
+        cases.append((sw, st, np.array([3.0, 0, 0], np.float32), -1))
+    for world, st, move, ex in cases:
+        body, cfg, stw = world.state, world.config, world.static_world
+        table = broadphase.build_cell_table(body, cfg)[0]
+        os_idx = queries.oversize_slots(body, cfg)
+        for _ in range(3):
+            scal = torch.as_tensor(tchar.tick_scalars(DT, move, False, False, False, ex),
+                                   device="cuda")
+            args = ({f: getattr(st, f) for f in tchar.CHARACTER_FIELDS}, body, stw.heightfield,
+                    stw.has_heightfield, world.params.water_z, table, os_idx, scal)
+            kw = dict(cell_size=cfg.cell_size, grid_dim=cfg.grid_dim)
+            nk, pk = kl.character_packed(*args, **kw)
+            npl, pp = kl.character_packed_plain(*args, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(pk[15:], pp[15:]) and torch.equal(pk[4:6], pp[4:6])
+            assert float((pk - pp).abs().max()) <= 1e-6 * max(1.0, float(pp.abs().max()))
+            for f in ("on_ground", "gravity_enabled", "fly_mode", "sitting"):
+                assert bool(nk[f]) == bool(npl[f]), f
+            st = tchar.CharacterState(**npl)
+
+
+def test_serving_io_kernels_match_plain():
+    """KM with 128 writes and 64 regions, padded and not; KN on a real
+    step's events: both exact."""
+    from substrata_tpu_torch.kernels import serving_io as km
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    w, p = _serving("cuda")
+    for t in range(15):
+        benchworld.serving_tick(w, p, t * DT)
+    n = w.state.capacity
+    rng = np.random.default_rng(2)
+    for padded in (True, False):
+        buf = km.empty_tick_in(n)
+        buf[km.O_IDX:km.O_POS].view(np.int32)[:] = rng.permutation(n)[:km.TIN_K]
+        buf[km.O_POS:km.O_VOK] = rng.normal(size=km.O_VOK - km.O_POS)
+        buf[km.O_VOK:km.O_CTR] = rng.integers(0, 2, km.TIN_K)
+        buf[km.O_CTR:km.O_RAD] = rng.uniform(-8, 8, 3 * km.TIN_R)
+        buf[km.O_RAD:] = rng.uniform(0.1, 1.0, km.TIN_R)
+        if padded:
+            buf[km.O_RAD + 10:] = -1e9
+        tin = torch.as_tensor(buf, device="cuda")
+        got = km.apply_tick_in(w.state, tin)
+        ref = km.apply_tick_in_plain(w.state, tin)
+        for f, x in zip(km.STATE_OUT, ref):
+            assert torch.equal(getattr(got, f), x), f
+    ev, dg = w.last_events, w.last_diags
+    dk, bk = km.digest_tblock(ev, dg.num_contacts, dg.num_awake, w.pair_cache.steps_left,
+                              w.state)
+    dp, bp = km.digest_tblock_plain(ev, dg.num_contacts, dg.num_awake,
+                                    w.pair_cache.steps_left, w.state)
+    assert torch.equal(dk, dp) and torch.equal(bk, bp)
+    dn, bn = km.digest_tblock(ev, dg.num_contacts, dg.num_awake, w.pair_cache.steps_left,
+                              w.state, with_block=False)
+    assert torch.equal(dn, dp) and bn is None
+
+
+def _push_world(device):
+    """199 boxes resting apart and one 0.2 m box in the path of a player
+    at eye (0, 0, 1.67), whose capsule proxy pushes it (the world of
+    tests/test_torch_serving.py's push comparison)."""
+    w = PhysicsWorld(SimConfig(capacity=256, max_pairs=1024, grid_dim=32, cell_size=1.4,
+                               cell_capacity=6, solver_iters=7, pairs_per_body=10,
+                               pair_rebuild_interval=6, contacts_per_body=8), device=device)
+    w.set_ground_plane(0.0)
+    rng = np.random.default_rng(0)
+    pos = [[1.0, 0.0, 0.099]] + [[-3.0 - (n % 14) * 1.7 + rng.uniform(-0.1, 0.1),
+                                  (n // 14 - 7) * 1.7 + rng.uniform(-0.1, 0.1), 0.399]
+                                 for n in range(199)]
+    for he, x in zip([0.1] + [0.4] * 199, pos):
+        w.add_object(PhysicsObject(shape=shapes.make_box([he] * 3), pos=np.array(x, np.float32),
+                                   motion_type=int(MotionType.DYNAMIC)))
+    return w, PlayerPhysics(w, eye_pos=(0.0, 0.0, 1.67))
+
+
+def test_serving_tick_on_card_matches_cpu():
+    """40 serving ticks of a 200-box world whose player pushes a small box
+    (capsule-box contacts), on the card and on the CPU path: bodies and
+    the character within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        w, p = _push_world(dev)
+        for t in range(40):
+            benchworld.serving_tick(w, p, t * DT)
+        runs[dev] = (w.state.pos.cpu(), w.state.linvel.cpu(), p.state.pos.cpu())
     for a, b in zip(runs["cuda"], runs["cpu"]):
         assert float((a - b).abs().max()) <= 1e-4

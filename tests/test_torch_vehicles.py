@@ -25,6 +25,7 @@ import jax
 import jax.numpy as jnp
 from substrata_tpu.audio import mix as jmix
 from substrata_tpu.physics import broadphase as jbp
+from substrata_tpu.physics import character as jchar
 from substrata_tpu.physics import particles as jpart
 from substrata_tpu.physics import shapes as jshapes
 from substrata_tpu.physics import state as jstate
@@ -335,18 +336,25 @@ def test_full_tick_small_matches_reference():
     tw = benchworld.bench_world("cpu", n_bodies=SMALL["n_bodies"],
                                 cfg=tstate.SimConfig(**{k: x for k, x in box_config_kwargs(256)
                                                         .items() if k != "present_shape_types"}))
-    tveh_, tvin, tps = benchworld.bench_fulltick(tw, "cpu", n_particles=SMALL["n_particles"],
-                                                 n_vehicles=SMALL["n_vehicles"])
+    tveh_, tvin, tps, tchar = benchworld.bench_fulltick(
+        tw, "cpu", n_particles=SMALL["n_particles"], n_vehicles=SMALL["n_vehicles"])
+    jc = jchar.init_character_state([0.0, 0.0, 3.0])
     tsrc, tpool, tlis, troom = benchworld.bench_audio("cpu", n_sources=SMALL["n_sources"])
     idx = jnp.arange(SMALL["n_sources"])
     tidx = torch.arange(SMALL["n_sources"])
     cfg = w.config
+    tt = np.float32(0.0)
     for t in range(10):
         w._flush()
         table = jbp.build_cell_table(w.state, cfg)[0]
         veh, dv, dw, slots = _jupdate(veh, vin, w.state, w.static_world, jnp.float32(DT),
                                       w.params, cfg, table=table)
         w.state = jveh._apply_vehicle_deltas(w.state, slots, dv, dw)
+        jt = jnp.float32(tt)
+        move = 3.0 * jnp.array([jnp.cos(0.3 * jt), jnp.sin(0.3 * jt), 0.0])
+        jc, _, _, _ = jchar.character_update(jc, w.state, w.static_world, move, False, False,
+                                             False, jnp.float32(DT), w.params, cfg,
+                                             exclude_body=jnp.int32(-1), table=table)
         w._world_asleep = False
         w.think(DT)
         ps, _ = jpart.particles_step(ps, w.state, w.static_world, jnp.float32(DT), w.params,
@@ -354,8 +362,9 @@ def test_full_tick_small_matches_reference():
         src = src.replace(pos=w.state.pos[idx], vel=w.state.linvel[idx])
         src, out, room = jmix.mix_block(src, pool, lis, room=room, use_hrtf=True, block=800)
 
-        tveh_, tps, tsrc, tout, troom = benchworld.full_tick(
-            tw, tveh_, tvin, tps, tsrc, tpool, tlis, troom, tidx)
+        tveh_, tps, tsrc, tout, troom, tchar = benchworld.full_tick(
+            tw, tveh_, tvin, tps, tsrc, tpool, tlis, troom, tidx, tchar, float(tt))
+        tt = tt + np.float32(DT)
         what = f"tick {t}"
         np.testing.assert_allclose(tw.state.pos.numpy(), np.asarray(w.state.pos), atol=1e-3,
                                    err_msg=what)
@@ -366,4 +375,7 @@ def test_full_tick_small_matches_reference():
         np.testing.assert_allclose(tveh_.engine_rpm.numpy(), np.asarray(veh.engine_rpm),
                                    rtol=1e-4, err_msg=what)
         np.testing.assert_allclose(tout.numpy(), np.asarray(out), atol=1e-4, err_msg=what)
+        # The character reads the stepped pile: the step's bound again.
+        np.testing.assert_allclose(tchar.pos.numpy(), np.asarray(jc.pos), atol=1e-3, err_msg=what)
+        assert bool(tchar.on_ground) == bool(jc.on_ground), what
     assert np.asarray(veh.wheel_contact).any()

@@ -80,6 +80,113 @@ def test_rotated_box_stack_matches_golden():
     assert np.linalg.norm(pos[-1, 1, :2]) < 0.15, pos[-1, 1]
 
 
+def _golden_sphere_bounce():
+    gpos, _ = load_golden("sphere_bounce")
+    w = make_world()
+    s = w.add_object(PhysicsObject(shape=shapes.make_sphere(0.3),
+                                   pos=np.array([0, 0, 2.0], np.float32),
+                                   motion_type=int(MotionType.DYNAMIC)))
+    s.restitution = 0.6
+    w._dirty[s.slot] = (s, True)
+    ez, gz = run_engine(w, [s], len(gpos))[:, 0, 2], gpos[:, 0, 2]
+    assert abs(ez[-1] - gz[-1]) < 0.02, (ez[-1], gz[-1])
+
+    def first_apex(z):
+        imp = int(np.argmax(z < 0.35))
+        k = imp + int(np.argmax(np.diff(z[imp:]) < 0))
+        return k, z[k]
+    (kt_g, apex_g), (kt_e, apex_e) = first_apex(gz), first_apex(ez)
+    assert abs(apex_e - apex_g) < 0.08 and abs(kt_e - kt_g) <= 4, (apex_e, apex_g)
+    assert float(np.mean(np.abs(ez - gz))) < 0.12
+
+
+def _golden_two_spheres():
+    gpos, _ = load_golden("two_spheres")
+    w = make_world()
+    a = w.add_object(PhysicsObject(shape=shapes.make_sphere(0.3),
+                                   pos=np.array([-1.5, 0, 0.3], np.float32),
+                                   motion_type=int(MotionType.DYNAMIC)))
+    b = w.add_object(PhysicsObject(shape=shapes.make_sphere(0.3),
+                                   pos=np.array([1.5, 0, 0.3], np.float32),
+                                   motion_type=int(MotionType.DYNAMIC)))
+    a.restitution = b.restitution = 0.3
+    w._dirty[a.slot] = (a, True)
+    w._dirty[b.slot] = (b, True)
+    w.set_linear_and_angular_vel(a, np.array([3.0, 0, 0], np.float32), np.zeros(3, np.float32))
+    pos = run_engine(w, [a, b], len(gpos))
+    err = np.abs(pos[:, :, 0] - gpos[:, :, 0])
+    assert float(err.mean()) < 0.08 and float(err.max()) < 0.3, (err.mean(), err.max())
+    assert np.all(pos[:, 0, 0] <= pos[:, 1, 0] + 1e-3)
+
+
+def _golden_capsule_drop():
+    gpos, _ = load_golden("capsule_drop")
+    w = make_world()
+    rot = np.array([0.0, np.sin(np.pi / 4), 0.0, np.cos(np.pi / 4)], np.float32)
+    c = w.add_object(PhysicsObject(shape=shapes.make_capsule(0.25, 0.4),
+                                   pos=np.array([0, 0, 1.5], np.float32), rot=rot,
+                                   motion_type=int(MotionType.DYNAMIC)))
+    pos = run_engine(w, [c], len(gpos))
+    assert abs(pos[-1, 0, 2] - gpos[-1, 0, 2]) < 0.02, (pos[-1, 0, 2], gpos[-1, 0, 2])
+    assert np.linalg.norm(pos[-1, 0, :2] - gpos[-1, 0, :2]) < 0.2
+
+
+def _golden_capsule_on_capsule():
+    gpos, _ = load_golden("capsule_on_capsule")
+    w = make_world()
+    qy = np.array([0.0, np.sin(np.pi / 4), 0.0, np.cos(np.pi / 4)], np.float32)
+    qx = np.array([np.sin(np.pi / 4), 0.0, 0.0, np.cos(np.pi / 4)], np.float32)
+    lo = w.add_object(PhysicsObject(shape=shapes.make_capsule(0.25, 0.4),
+                                    pos=np.array([0, 0, 0.25], np.float32), rot=qy,
+                                    motion_type=int(MotionType.DYNAMIC)))
+    hi = w.add_object(PhysicsObject(shape=shapes.make_capsule(0.25, 0.4),
+                                    pos=np.array([0, 0, 1.4], np.float32), rot=qx,
+                                    motion_type=int(MotionType.DYNAMIC)))
+    pos = run_engine(w, [lo, hi], len(gpos))
+    assert abs(pos[-1, 0, 2] - gpos[-1, 0, 2]) < 0.04, (pos[-1, 0, 2], gpos[-1, 0, 2])
+    assert abs(pos[-1, 1, 2] - gpos[-1, 1, 2]) < 0.08, (pos[-1, 1, 2], gpos[-1, 1, 2])
+    assert pos[-1, 1, 2] > pos[-1, 0, 2] + 0.3
+
+
+GOLDEN_CURVED = {"sphere_bounce": _golden_sphere_bounce, "two_spheres": _golden_two_spheres,
+                 "capsule_drop": _golden_capsule_drop,
+                 "capsule_on_capsule": _golden_capsule_on_capsule}
+
+
+@pytest.mark.parametrize("scene", list(GOLDEN_CURVED))
+def test_curved_golden_scenes(scene):
+    """The sphere and capsule scenes of test_jolt_fidelity.py, with the
+    same fixtures and the same bounds (sphere worlds are single-combo code
+    0; capsule worlds code 10)."""
+    GOLDEN_CURVED[scene]()
+
+
+def test_sphere_rolls_down_slope_analytic():
+    """A solid sphere rolling without slipping down a 15-degree heightfield
+    slope accelerates at 5/7 g sin(theta) (rel 0.15, the bound of
+    test_jolt_fidelity.py:153)."""
+    theta = np.deg2rad(15.0)
+    xs = np.linspace(-60, 60, 31)
+    hgrid = np.broadcast_to(-np.tan(theta) * xs[:, None], (31, 31)).astype(np.float32)
+    w = PhysicsWorld(SimConfig(capacity=16, max_pairs=64, grid_dim=16, cell_size=4.0,
+                               solver_iters=10), device="cpu")
+    w.set_heightfield(hgrid, origin=[-60, -60], cell_w=4.0)
+    r = 0.3
+    s = w.add_object(PhysicsObject(shape=shapes.make_sphere(r), friction=0.8,
+                                   pos=np.array([0, 0, r / np.cos(theta)], np.float32),
+                                   motion_type=int(MotionType.DYNAMIC)))
+    for _ in range(30):
+        w.think(1 / 60)
+    w.sync_transforms()
+    v0 = float(s.linvel[0])
+    for _ in range(60):
+        w.think(1 / 60)
+    w.sync_transforms()
+    a_meas = (float(s.linvel[0]) - v0) / 1.0 / np.cos(theta)
+    a_true = 5.0 / 7.0 * 9.81 * np.sin(theta)
+    assert a_meas == pytest.approx(a_true, rel=0.15), (a_meas, a_true)
+
+
 def test_remove_and_readd_in_one_tick_reuses_slot_cleanly():
     """Slot reuse: a body removed and a new one added before the next tick
     takes the freed slot; the new body starts from its own state (no
@@ -122,8 +229,6 @@ def test_simconfig_matches_reference():
 
 def test_unported_entry_points_raise():
     w = make_world()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        w.think_with_player(1 / 60, None)
     w.static_world = w.static_world.replace(n_tris=1)   # rays: no trimesh yet
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         w.trace_ray([0, 0, 5], [0, 0, -1], 10.0)
@@ -142,7 +247,9 @@ def test_import_leaves_jax_out():
             "substrata_tpu_torch.physics.queries, substrata_tpu_torch.physics.particles, "
             "substrata_tpu_torch.physics.vehicles, substrata_tpu_torch.kernels.ray_trace, "
             "substrata_tpu_torch.kernels.particles_triton, "
-            "substrata_tpu_torch.kernels.vehicles, substrata_tpu_torch.profile_tick; "
+            "substrata_tpu_torch.kernels.vehicles, substrata_tpu_torch.profile_tick, "
+            "substrata_tpu_torch.physics.character, substrata_tpu_torch.kernels.character, "
+            "substrata_tpu_torch.kernels.closed_forms, substrata_tpu_torch.kernels.serving_io; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'substrata_tpu')]; "
             "assert not bad, bad; print('ok')")

@@ -50,6 +50,45 @@ def box_world_arrays(capacity: int, n_boxes: int, seed: int, layers: int = 3,
     return {k: np.ascontiguousarray(v) for k, v in a.items()}
 
 
+def mixed_world_arrays(capacity: int, n_bodies: int, seed: int, types=(0, 1, 2),
+                       spacing: float = 0.85):
+    """Numpy BodyState fields of a pile of spheres, boxes and capsules:
+    ``n_bodies`` dynamic bodies of random type (from ``types``), size and
+    orientation on a jittered 4 x 4 lattice of layers, close enough that
+    neighbours touch.  Slots past n_bodies are dead."""
+    rng = np.random.default_rng(seed)
+    a = {k: np.array(np.asarray(v)) for k, v in vars(jstate.zero_body_state(capacity)).items()}
+    for i in range(n_bodies):
+        st = int(types[rng.integers(len(types))])
+        prm = np.zeros(4, np.float32)
+        if st == 0:
+            prm[0] = rng.uniform(0.3, 0.45)
+        elif st == 1:
+            prm[:3] = rng.uniform(0.25, 0.4, 3)
+        else:
+            prm[0], prm[1] = rng.uniform(0.2, 0.3), rng.uniform(0.15, 0.3)
+        _, inv_mass, inv_inertia, vol, bound = jstate.compute_shape_mass_props(st, prm)
+        q = rng.normal(size=4)
+        a["pos"][i] = [(i % 4 - 1.5) * spacing + rng.uniform(-0.1, 0.1),
+                       (i // 4 % 4 - 1.5) * spacing + rng.uniform(-0.1, 0.1),
+                       0.5 + (i // 16) * spacing + rng.uniform(-0.1, 0.1)]
+        a["quat"][i] = q / np.linalg.norm(q)
+        a["linvel"][i] = rng.uniform(-0.5, 0.5, 3)
+        a["inv_mass"][i] = inv_mass
+        a["inv_inertia"][i] = inv_inertia
+        a["motion_type"][i] = int(jstate.MotionType.DYNAMIC)
+        a["layer"][i] = int(jstate.Layer.MOVING)
+        a["shape_type"][i] = st
+        a["shape_params"][i] = prm
+        a["alive"][i] = True
+        a["awake"][i] = True
+        a["friction"][i] = rng.uniform(0.3, 0.8)
+        a["restitution"][i] = rng.uniform(0.0, 0.4)
+        a["bound_radius"][i] = bound
+        a["volume"][i] = vol
+    return {k: np.ascontiguousarray(v) for k, v in a.items()}
+
+
 def jax_body(arrays):
     import jax.numpy as jnp
     return jstate.BodyState(**{k: jnp.asarray(arrays[k]) for k in FIELDS})
