@@ -63,7 +63,24 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    the card) one host->device and one device->host copy each, and a
    200-box serving world whose player pushes a small box (capsule-box
    contacts), with transform writes and a teleport, on the card matches
-   the CPU path over 40 ticks.
+   the CPU path over 40 ticks;
+12. the hull and trimesh kernels: KO (convex SAT contacts) on 4,096 seeded
+   random pairs of each hull code and on the mesh world's real buckets,
+   KB with hull samples and the static trimesh, KH on the client's
+   occlusion rays and 2,048 seeded rays into the field, KL at t = 0, 1,
+   2 s of the walk on the mesh world and on a trimesh step, each against
+   its plain twin with the tolerance stated beside it, timed as in phase
+   3 (the mesh world: tools/bench_networked.py's 12,000 unit cubes, 512
+   dynamic hulls over 137,856 static triangles on virtual anchors);
+13. the mesh world's client frames: 180 benchworld.mesh_tick calls
+   (think_with_player of the walking player, then one occlusion ray per
+   dynamic hull); the state finite, contacts > 0, KO, KB, KH, KL, KM and
+   KN launched every frame, two synchronizing calls and (where the
+   profiler sees the card) one host->device and two device->host copies a
+   frame, ms per frame; the hulls' heights and the character's foot
+   reported (see mesh_phase); and a 1,200-object mesh world on the card
+   matches the CPU path (the hulls until the first trimesh kick, the
+   character and the occlusion hits over 40 frames; see small_mesh_phase).
 
 Every kernel also gets its bound: the least time the card could take for
 the same work, the larger of its bytes (each input read once, each output
@@ -71,7 +88,8 @@ written once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s
 (the H100 SXM's published peaks at 700 W), from this run's inputs.
 
 The last lines are the kernels JSON (launches from phase 9's full ticks,
-and from phase 11's serving ticks for KK-KN),
+from phase 11's serving ticks for KK-KN and from phase 13's mesh frames
+for KO),
 the card's name and power limit, and {"ok": true, "device": {...}}.  TF32 stays off for matmuls and cuDNN
 (the solver's small products must run in full float32).
 """
@@ -93,6 +111,7 @@ TICKS = 180
 KICK_EVERY = 30
 REPS = 20
 SYNC_TICKS = 6
+N_DYNAMIC_RAYS = 512         # one occlusion ray per dynamic hull of the mesh world
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 
@@ -264,13 +283,15 @@ def kernel_phase(w):
     # top-K order of equal depths is the kernel's own tie rule, checked in
     # the CPU tests); bodies with a sample within 1e-5 of the margin or of
     # the K-th/(K+1)-th cut are exempt from mask equality (reported).
-    hf, has_hf = w.static_world.heightfield, w.static_world.has_heightfield
+    sw = w.static_world
+    hf, has_hf = sw.heightfield, sw.has_heightfield
     k = min(cfg.static_contacts_per_body, 8)
     present = cfg.present_shape_types
-    sk = kb.static_contacts(body, hf, has_hf, k, present)
-    sp = kb.static_contacts_plain(body, hf, has_hf, k, present)
+    kb_args = (body, hf, has_hf, k, present, sw.hulls, sw.trimesh)
+    sk = kb.static_contacts(*kb_args)
+    sp = kb.static_contacts_plain(*kb_args)
     check(torch.equal(sk[0], sp[0]) and torch.equal(sk[1], sp[1]), "KB: a/b differ")
-    pts, rad, slot_ok = kb.shape_sample_points(body, present)
+    pts, rad, slot_ok = kb.shape_sample_points(body, present, sw.hulls)
     h, hn = hf.sample_with_normal(pts.reshape(-1, 3)[:, :2])
     pen8 = ((h - (pts.reshape(-1, 3)[:, 2] - rad.repeat_interleave(8))) * hn[:, 2]).reshape(n, 8)
     srt = torch.sort(torch.clamp(pen8, max=0.5), dim=1, descending=True).values
@@ -297,8 +318,8 @@ def kernel_phase(w):
         **bound(nbytes(kb_in, hf.heights, hf.origin, hf.cell_w, has_hf, sk),
                 FLOPS["static_contacts"] * n),
         near_threshold_bodies=int(near_b.sum()),
-        ms=median_ms(lambda: kb.static_contacts(body, hf, has_hf, k, present)),
-        plain_ms=median_ms(lambda: kb.static_contacts_plain(body, hf, has_hf, k, present)))
+        ms=median_ms(lambda: kb.static_contacts(*kb_args)),
+        plain_ms=median_ms(lambda: kb.static_contacts_plain(*kb_args)))
 
     # KC: warm-start pre-apply + 7 iterations from the same setup.
     # Tolerance 1e-4 absolute on linvel/angvel: both round the pair
@@ -648,7 +669,7 @@ def ray_bound(args, kw, outs):
     they read, the stage-1 fields of the distinct bodies they meet and the
     shape fields of the distinct survivors, and the heightfield."""
     from substrata_tpu_torch.kernels import ray_trace as kh
-    o, d, mt, body, table, os_idx, hf, has_hf, ex = args
+    o, d, mt, body, table, os_idx, hf, has_hf, ex = args[:9]
     buckets, cand, slotk, okk = kh.survivors(o, d, mt, body, table, os_idx,
                                              kw["cell_size"], kw["grid_dim"],
                                              kw["body_steps"], ex, kw["collidable_only"],
@@ -695,10 +716,10 @@ def fulltick_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, warm=30, pla
     none = torch.full((ps.capacity,), -1, dtype=torch.int32, device=device)
     (c_pos, c_quat, c_lin, c_ang, c_mass, c_iw), wheel = chassis_and_wheel_rays(veh, body)
     shapes = {
-        "particles": ((ps.pos, dirs, max_ts, body, table, os_idx, hf, has_hf, none),
-                      dict(n_steps=4, body_steps=1, dedup=False)),
-        "wheels": ((*wheel[:3], body, table, os_idx, hf, has_hf, wheel[3]),
-                   dict(n_steps=4, body_steps=4, dedup=True)),
+        "particles": ((ps.pos, dirs, max_ts, body, table, os_idx, hf, has_hf, none, sw.hulls,
+                       sw.trimesh), dict(n_steps=4, body_steps=1, dedup=False)),
+        "wheels": ((*wheel[:3], body, table, os_idx, hf, has_hf, wheel[3], sw.hulls,
+                    sw.trimesh), dict(n_steps=4, body_steps=4, dedup=True)),
     }
     hits = {}
     for shape, (args, kw) in shapes.items():
@@ -719,7 +740,7 @@ def fulltick_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, warm=30, pla
 
     # KI.  Tolerance 1e-6: the same operations, correctly rounded division
     # and square root, no fusion.
-    t, n, _, hit = hits["particles"]
+    t, n, _, hit, _ = hits["particles"]
     iargs = (ps, t, n, hit, DT, w.params.water_z)
     ik, ip = ki.particles_update(*iargs), ki.particles_update_plain(*iargs)
     err = max(max_err(x, y) for x, y in zip(ik[:4], ip[:4]))
@@ -738,7 +759,7 @@ def fulltick_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, warm=30, pla
     # KJ.  Tolerance 1e-5 of each output's largest magnitude (at least 1):
     # the same operations, CUDA's atan2/tan/cos/sin in both; gear and
     # contact exact.
-    wt, wn, _, whit = hits["wheels"]
+    wt, wn, _, whit, _ = hits["wheels"]
     nv = veh.vtype.shape[0]
     jargs = (veh, vin, c_pos, c_quat, c_lin, c_ang, c_mass, c_iw, wt.reshape(nv, 4),
              wn.reshape(nv, 4, 3), whit.reshape(nv, 4) & (veh.body_slot >= 0)[:, None],
@@ -891,7 +912,7 @@ def char_ok(char, world, exclude):
                                  queries.oversize_slots(body, cfg), cfg.cell_size, cfg.grid_dim,
                                  exclude)
     _, pen, _, bid, _, ok = kl.capsule_probe(char.pos[None], cyl_h, cands, sw.heightfield,
-                                             sw.has_heightfield)
+                                             sw.has_heightfield, sw.trimesh)
     near = ok[0] & (bid >= 0) & (pen[0] > -0.05)
     foot_z = float(char.pos[2])
     held = sorted({int(b) for b in bid[near].cpu()})
@@ -961,7 +982,7 @@ def _char_args(world, char, move, exclude, device):
     args = ({f: getattr(char, f) for f in tchar.CHARACTER_FIELDS}, body, sw.heightfield,
             sw.has_heightfield, world.params.water_z, broadphase.build_cell_table(body, cfg)[0],
             queries.oversize_slots(body, cfg), scal)
-    return args, dict(cell_size=cfg.cell_size, grid_dim=cfg.grid_dim)
+    return args, dict(cell_size=cfg.cell_size, grid_dim=cfg.grid_dim, trimesh=sw.trimesh)
 
 
 def _kl_compare(args, kw):
@@ -1158,17 +1179,24 @@ def serving_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, plain_reps=5)
 def _copies(run, ticks):
     """Host->device and device->host copies the profiler sees over ``ticks``
     calls, and the kernels it sees (0 means it recorded no device work).
-    A fill runs first in the session: a profiler session after an earlier
-    one misses its first device event, and the fill is not a copy."""
+    A profiler session after earlier ones can miss its first device events,
+    so the session opens with a fill and one call that are not counted; the
+    count takes the device events that start inside a range opened after
+    that call has finished."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.ones(1, device="cuda")
-        for _ in range(ticks):
-            run()
+        run()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+        with torch.profiler.record_function("counted_calls"):
+            for _ in range(ticks):
+                run()
+            torch.cuda.synchronize()
+    events = prof.events()
+    start = min(e.time_range.start for e in events if e.name == "counted_calls")
+    names = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.time_range.start >= start]
     return (sum(n.startswith("Memcpy HtoD") for n in names),
             sum(n.startswith("Memcpy DtoH") for n in names), len(names))
 
@@ -1294,11 +1322,460 @@ def small_serving_phase(device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: KO and the hull and trimesh branches of KB, KH and KL.
+# ---------------------------------------------------------------------------
+
+def hull_library(device):
+    """Four hulls interned as a world interns them: a cube, an octahedron,
+    a 60-point cloud (seed 9) and a tetrahedron."""
+    from substrata_tpu_torch import PhysicsWorld
+    from substrata_tpu_torch.physics import shapes
+    from substrata_tpu_torch.physics.state import SimConfig
+    w = PhysicsWorld(SimConfig(capacity=8, max_pairs=32, grid_dim=8), device=device)
+    cube = np.array([[x, y, z] for x in (-.5, .5) for y in (-.5, .5) for z in (-.5, .5)])
+    octa = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]]) * 0.6
+    tet = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]]) * 0.8
+    for v in (cube, octa, np.random.default_rng(9).normal(size=(60, 3)) * 0.4, tet):
+        w._intern_hull(shapes.make_convex_hull(v))
+    w._flush()
+    return w.static_world.hulls
+
+
+def _ko_compare(args):
+    """KO against its twin: masks, ids, keys and touching exact; the error
+    on the valid rows' points, normals and depths."""
+    from substrata_tpu_torch.kernels import convex as ko
+    rk, rp = ko.convex_rows(*args), ko.convex_rows_plain(*args)
+    for i, name in ((0, "a"), (1, "b"), (5, "valid"), (6, "friction"), (7, "restitution"),
+                    (8, "key"), (9, "touching")):
+        check(torch.equal(rk[i], rp[i]), f"KO code {args[0]}: {name} differs")
+    return max(max_err(rk[i], rp[i], rp[5]) for i in (2, 3, 4)), rk
+
+
+def _side_sizes(stype, prm, hulls):
+    """(vertices, faces) of each body of shape class ``stype`` as KO sees it."""
+    if stype == 0:
+        return torch.ones_like(prm[:, 0]), torch.zeros_like(prm[:, 0])
+    if stype == 2:
+        return torch.full_like(prm[:, 0], 2.0), torch.zeros_like(prm[:, 0])
+    if stype == 1:
+        return torch.full_like(prm[:, 0], 8.0), torch.full_like(prm[:, 0], 6.0)
+    hid = torch.clamp(prm[:, 0].to(torch.int64), 0, hulls.capacity - 1)
+    return hulls.n_verts[hid].float(), hulls.n_faces[hid].float()
+
+
+def _ko_work(calls, hulls):
+    """KO's bytes and operations over ``calls`` [(args, rows)]: each bucket's
+    slot arrays and rows, the body rows (pose, shape, materials, sensor) of
+    the distinct bodies that valid slots name, and the library rows of the
+    distinct hulls among them; per valid slot, the SAT's dot products over
+    the two sides' vertices and faces, the [Va, Vb] distances, the two
+    auxiliary axes and the manifold."""
+    moved, ops, bodies, hull_ids = 0, 0, [], []
+    for args, rows in calls:
+        code, prm, ba, bb, bv = args[0], args[5], args[9], args[10], args[11]
+        moved += nbytes(ba, bb, bv, rows)
+        sides = []
+        for ids, st in ((ba[bv].long(), code // 4), (bb[bv].long(), code % 4)):
+            bodies.append(ids)
+            if st == 3:
+                hull_ids.append(torch.clamp(prm[ids, 0].to(torch.int64), 0, hulls.capacity - 1))
+            sides.append(_side_sizes(st, prm[ids], hulls))
+        (va, fa), (vb, fb) = sides
+        per = (20 * (va + vb) + 25 * (fa + fb) + 5 * (fa * vb + fb * va) + 8 * va * vb
+               + 10 * (va + vb) + 6 * torch.maximum(va, vb) + 150)
+        ops += int(per.sum())
+    if bodies:
+        moved += int(torch.unique(torch.cat(bodies)).numel()) * (12 + 16 + 16 + 4 + 4 + 1)
+    if hull_ids:
+        hid = torch.unique(torch.cat(hull_ids))
+        moved += int((hulls.n_verts[hid] * 12 + hulls.n_faces[hid] * 16 + 8).sum())
+    return bound(moved, ops)
+
+
+def _kb_work(args, rows):
+    """KB's bytes and operations on these inputs: the body fields, the rows
+    out, the hull rows its hull bodies read, the cell entries its eligible
+    bodies' samples read and the distinct triangles they test (48 bytes
+    each), 600 operations a body and 150 a triangle test."""
+    from substrata_tpu_torch.kernels import static_contacts as kb
+    body, hf, has_hf, k, present, hulls, tm, kc = args
+    n = body.capacity
+    moved = nbytes([getattr(body, f) for f in (
+        "pos", "quat", "shape_type", "shape_params", "alive", "layer", "motion_type",
+        "is_sensor", "awake", "friction", "restitution")], hf.origin, hf.cell_w, has_hf, rows)
+    moved += 4 if hf.is_flat else nbytes(hf.heights)
+    hull_b = body.alive & (body.shape_type == 3)
+    hid = torch.unique(torch.clamp(body.shape_params[hull_b, 0].to(torch.int64), 0,
+                                   hulls.capacity - 1))
+    moved += int((hulls.n_verts[hid] * 12).sum())
+    tests = 0
+    if tm.tris.shape[0] > 1:
+        pts, _, slot_ok = kb.shape_sample_points(body, present, hulls)
+        elig = (body.alive & body.collidable & body.dynamic & ~body.is_sensor & body.awake)
+        sel = (slot_ok & elig[:, None]).reshape(-1)
+        ci, cj = kb.trimesh_cells(tm, pts.reshape(-1, 3)[sel][:, :2])
+        cand = tm.cell_tris[ci, cj][:, :min(tm.cell_tris.shape[2], kc)]
+        tests = int((cand >= 0).sum())
+        moved += int(cand.numel()) * 4 + int(torch.unique(cand[cand >= 0]).numel()) * 48
+    return bound(moved, FLOPS["static_contacts"] * n + FLOPS["tri_test"] * tests), tests
+
+
+def mesh_ray_bound(args, kw, outs):
+    """KH's bound with the hull and trimesh branches: ray_bound's bytes and
+    operations, plus the face planes of the hull survivors (16 bytes and 20
+    operations a face), and the triangles the march reads (its cell
+    entries, and 48 bytes per distinct triangle, 40 operations a test)."""
+    from substrata_tpu_torch.kernels import ray_trace as kh
+    from substrata_tpu_torch.kernels import static_contacts as kb
+    b, counts = ray_bound(args, kw, outs)
+    o, d, mt, body, table, os_idx, hf, has_hf, ex, hulls, tm = args
+    _, _, slotk, okk = kh.survivors(o, d, mt, body, table, os_idx, kw["cell_size"],
+                                    kw["grid_dim"], kw["body_steps"], ex, kw["collidable_only"],
+                                    kw["k"], kw["dedup"])
+    sk = slotk[okk].long()
+    hs = sk[body.shape_type[sk] == 3]
+    nf = hulls.n_faces[torch.clamp(body.shape_params[hs, 0].to(torch.int64), 0,
+                                   hulls.capacity - 1)]
+    moved, ops = b["bytes"] + int(nf.sum()) * 16, b["flops"] + int(nf.sum()) * 20
+    tests = 0
+    if tm.count:
+        ts = kh.march_fractions(kw["n_steps"], o.device)[None, :] * mt[:, None]
+        ps = o[:, None, :] + d[:, None, :] * ts[..., None]
+        ci, cj = kb.trimesh_cells(tm, ps[..., :2])
+        cand = tm.cell_tris[ci, cj][..., :min(tm.cell_tris.shape[2], kh.TRI_CAP)]
+        tests = int((cand >= 0).sum())
+        moved += int(cand.numel()) * 4 + int(torch.unique(cand[cand >= 0]).numel()) * 48
+        ops += tests * FLOPS["ray_triangle"]
+    counts.update(hull_faces=int(nf.sum()), triangle_tests=tests)
+    return bound(moved, ops), counts
+
+
+def _kl_mesh_work(args, kw):
+    """KL's operations and bytes on the mesh world: _kl_work's, plus the
+    trimesh rows' triangle tests (150 operations each) and the distinct
+    triangles they read (48 bytes each)."""
+    from substrata_tpu_torch.kernels import character as kl
+    from substrata_tpu_torch.kernels import static_contacts as kb
+    seen = dict(tests=0, tris=[])
+    rows = kl.trimesh_sphere_rows
+
+    def count(tm, pts, rad, k):
+        out = rows(tm, pts, rad, k)
+        ci, cj = kb.trimesh_cells(tm, pts[:, :2])
+        cand = tm.cell_tris[ci, cj][:, :k]
+        seen["tests"] += int((cand >= 0).sum())
+        seen["tris"].append(cand[cand >= 0])
+        return out
+    kl.trimesh_sphere_rows = count
+    try:
+        ops, probe = _kl_work(args, kw)
+    finally:
+        kl.trimesh_sphere_rows = rows
+    tris = int(torch.unique(torch.cat(seen["tris"])).numel()) if seen["tris"] else 0
+    return ops + seen["tests"] * FLOPS["tri_test"], tris * 48, dict(probe, triangle_tests=seen["tests"])
+
+
+def mesh_kernel_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None, plain_reps=5):
+    from substrata_tpu_torch import PhysicsWorld
+    from substrata_tpu_torch.benchworld import mesh_tick, mesh_world, occlusion_rays, walk_input
+    from substrata_tpu_torch.kernels import character as kl
+    from substrata_tpu_torch.kernels import convex as ko
+    from substrata_tpu_torch.kernels import ray_trace as kh
+    from substrata_tpu_torch.kernels import static_contacts as kb
+    from substrata_tpu_torch.physics import broadphase, narrowphase, queries
+    from substrata_tpu_torch.physics import character as tchar
+    from substrata_tpu_torch.physics.character import EYE_HEIGHT
+    from substrata_tpu_torch.physics.state import SimConfig
+
+    results = {}
+    # KO on 4,096 seeded random pairs of each hull code, both layouts.
+    hulls = hull_library(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(12)
+    n = 4096
+    ba = torch.arange(n, dtype=torch.int32, device=device)
+    random_err, random_bounds = 0.0, {}
+    for code in ko.CODES:
+        pos, quat, prm, fr, re, sens = _random_pair_rows(gen, code, n, device)
+        for side, st in enumerate((code // 4, code % 4)):
+            if st == 3:
+                prm[side * n:(side + 1) * n, 0] = torch.randint(
+                    0, 4, (n,), generator=gen, device=device).float()
+        bv = torch.rand(n, generator=gen, device=device) < 0.9
+        for wm, blocked in ((4, True), (narrowphase._MANIFOLD_WIDTH[code], False)):
+            args = (code, wm, blocked, pos, quat, prm, fr, re, sens, ba, ba + n, bv, hulls)
+            err, rk = _ko_compare(args)
+            check(err <= 1e-5, f"KO code {code}: max abs err {err} > 1e-5")
+            random_err = max(random_err, err)
+        random_bounds[code] = _ko_work([(args, rk)], hulls)["bound_ms"]
+
+    # The mesh world: KL at t = 0, 1, 2 s of the walk, then KO on its real
+    # buckets, KB, KH on the occlusion rays and on 2,048 seeded rays.
+    w, p, src = mesh_world(device, n_objects=n_objects, n_dynamic=n_dynamic, cfg=cfg)
+    kl_cases, kl_errs = [], []
+    for t in range(121):
+        if t in (0, 60, 120):
+            w._flush()
+            kl_cases.append(_char_args(w, p.state, walk_input(t * DT), p.proxy.slot, device))
+            kl_errs.append(_kl_compare(*kl_cases[-1])[0])
+        mesh_tick(w, p, t * DT, src)
+    body, pc, cfg, sw = w.state, w.pair_cache, w.config, w.static_world
+    bucket_list, _ = narrowphase.buckets(body, pc.pair_a, pc.pair_b, pc.pair_valid, cfg)
+    calls, real_err, valid_slots = [], 0.0, {}
+    for code, _, bba, bbb, bvalid in bucket_list:
+        if code not in ko.CODES:
+            continue
+        args = (code, narrowphase._MANIFOLD_WIDTH[code], False, body.pos, body.quat,
+                body.shape_params, body.friction, body.restitution, body.is_sensor, bba, bbb,
+                bvalid, sw.hulls)
+        err, rk = _ko_compare(args)
+        real_err = max(real_err, err)
+        calls.append((args, rk))
+        valid_slots[code] = int(bvalid.sum())
+    ko_args = [a for a, _ in calls]
+    results["convex_rows"] = dict(
+        max_abs_err=max(random_err, real_err), tol=1e-5, random_pairs_per_code=n,
+        random_pairs_bound_ms=random_bounds, valid_slots=valid_slots,
+        bucket_slots={a[0]: int(a[9].shape[0]) for a in ko_args},
+        **_ko_work(calls, sw.hulls),
+        ms=median_ms(lambda: [ko.convex_rows(*a) for a in ko_args]),
+        device_us_per_launch=device_us(lambda: [ko.convex_rows(*a) for a in ko_args],
+                                       "convex_rows"),
+        plain_ms=median_ms(lambda: [ko.convex_rows_plain(*a) for a in ko_args],
+                           reps=plain_reps))
+
+    # KB with hull samples and the trimesh.  Masks, ids and keys exact;
+    # points, normals and depths within 1e-5 on the valid rows.
+    kb_args = (body, sw.heightfield, sw.has_heightfield, min(cfg.static_contacts_per_body, 8),
+               cfg.present_shape_types, sw.hulls, sw.trimesh, cfg.max_tri_candidates)
+    sk, sp = kb.static_contacts(*kb_args), kb.static_contacts_plain(*kb_args)
+    for i, name in ((0, "a"), (1, "b"), (5, "valid"), (8, "key")):
+        check(torch.equal(sk[i], sp[i]), f"KB (mesh world): {name} differs")
+    err = max(max_err(sk[i], sp[i], sp[5]) for i in (2, 3, 4))
+    check(err <= 1e-5, f"KB (mesh world): max abs err {err} > 1e-5")
+    b, tests = _kb_work(kb_args, sk)
+    results["static_contacts_mesh"] = dict(
+        max_abs_err=err, tol=1e-5, valid_rows=int(sp[5].sum()),
+        trimesh_rows=int((sp[5] & (sp[3][:, 2].abs() < 0.999)).sum()), triangle_tests=tests, **b,
+        ms=median_ms(lambda: kb.static_contacts(*kb_args)),
+        device_us_per_launch=device_us(lambda: kb.static_contacts(*kb_args), "static_contacts"),
+        plain_ms=median_ms(lambda: kb.static_contacts_plain(*kb_args), reps=plain_reps))
+
+    # KH on the occlusion rays and on 2,048 seeded rays into the field:
+    # hit, body (owner) and material exact, t and normal within 1e-6.
+    ch = p.state
+    cam = torch.cat([ch.pos[:2], (ch.pos[2:] + EYE_HEIGHT) - ch.campos_z_delta[None]])
+    o, d, mt, keep = occlusion_rays(cam, body.pos[src])
+    g = torch.Generator(device=device)
+    g.manual_seed(21)
+    ro = (torch.rand((2048, 3), generator=g, device=device)
+          * torch.tensor([360.0, 360.0, 8.0], device=device)
+          - torch.tensor([180.0, 180.0, -0.2], device=device))
+    rd = torch.randn((2048, 3), generator=g, device=device)
+    rd[:1024, 2] = -rd[:1024, 2].abs() - 0.5
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    rt = torch.rand(2048, generator=g, device=device) * 60.0
+    table = broadphase.build_cell_table(body, cfg)[0]
+    os_idx = queries.oversize_slots(body, cfg)
+    kw = dict(cell_size=cfg.cell_size, grid_dim=cfg.grid_dim, n_steps=16, body_steps=16,
+              collidable_only=True, k=16, dedup=True)
+    for name, (ro_, rd_, rt_) in (("occlusion", (o, d, mt)), ("field", (ro, rd, rt))):
+        ex = torch.full((ro_.shape[0],), -1, dtype=torch.int32, device=device)
+        args = (ro_, rd_, rt_, body, table, os_idx, sw.heightfield, sw.has_heightfield, ex,
+                sw.hulls, sw.trimesh)
+        rk, rp = kh.ray_trace(*args, **kw), kh.ray_trace_plain(*args, **kw)
+        for i, what in ((2, "body"), (3, "hit"), (4, "material")):
+            check(torch.equal(rk[i], rp[i]), f"KH ({name}): {what} differs")
+        err = max(max_err(rk[0], rp[0]), max_err(rk[1], rp[1]))
+        check(err <= 1e-6, f"KH ({name}): max abs err {err} > 1e-6")
+        b, counts = mesh_ray_bound(args, kw, rk)
+        results[f"ray_trace_{name}"] = dict(
+            max_abs_err=err, tol=1e-6, **b, **counts,
+            trimesh_hits=int((rp[3] & (rp[2] >= cfg.capacity)).sum()),
+            body_hits=int((rp[3] & (rp[2] >= 0) & (rp[2] < cfg.capacity)).sum()),
+            kept=int(keep.sum()) if name == "occlusion" else int(rt_.shape[0]),
+            ms=median_ms(lambda: kh.ray_trace(*args, **kw)),
+            device_us_per_launch=device_us(lambda: kh.ray_trace(*args, **kw), "ray_trace"),
+            plain_ms=median_ms(lambda: kh.ray_trace_plain(*args, **kw), reps=plain_reps))
+
+    # KL on a trimesh step (0.3 m, the stair branch), three chained updates.
+    sw_ = PhysicsWorld(SimConfig(capacity=64, max_pairs=256, grid_dim=16, cell_size=1.4,
+                                 cell_capacity=6), device=device)
+    sw_.set_ground_plane(0.0)
+    sw_.set_static_trimesh(np.array([[1.0, -3, 0.3], [5, -3, 0.3], [5, 3, 0.3], [1.0, 3, 0.3],
+                                     [1.0, -3, 0.0], [1.0, 3, 0.0]], np.float32),
+                           np.array([[0, 1, 2], [0, 2, 3], [4, 0, 3], [4, 3, 5]], np.int32))
+    sw_._flush()
+    st = tchar.init_character_state((0.6, 0, 1.67), device=device).replace(
+        gravity_enabled=torch.ones((), dtype=torch.bool, device=device))
+    for _ in range(3):
+        a, kw_ = _char_args(sw_, st, np.array([3.0, 0, 0], np.float32), -1, device)
+        e, new = _kl_compare(a, kw_)
+        kl_errs.append(e)
+        st = tchar.CharacterState(**new)
+    args, kw_ = kl_cases[-1]
+    ops, tri_bytes, seen = _kl_mesh_work(args, kw_)
+    cand = args[5].shape[1] * kl.n_centers(kw_["cell_size"]) * 27 + args[6].shape[0]
+    moved = cand * (4 + 82) + args[6].shape[0] * 4 + nbytes(args[0], args[7]) \
+        + (15 + cand + kl.N_STATIC) * 4 + tri_bytes
+    results["character_update_mesh"] = dict(
+        max_abs_err=max(kl_errs), max_err_of_scale=max(kl_errs), tol=1e-6,
+        rows=cand + kl.N_STATIC, contacts_evaluated=seen, **bound(moved, ops),
+        ms=median_ms(lambda: kl.character_packed(*args, **kw_)),
+        device_us_per_launch=device_us(lambda: kl.character_packed(*args, **kw_),
+                                       "character_kernel"),
+        plain_ms=median_ms(lambda: kl.character_packed_plain(*args, **kw_), reps=plain_reps))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the mesh world's client frames.
+# ---------------------------------------------------------------------------
+
+def mesh_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None,
+               sync=torch.cuda.synchronize):
+    """180 client frames (``mesh_tick``) of the mesh world.  Checks:
+    contacts > 0, KO, KB, KH, KL, KM and KN launched every frame, two
+    synchronising calls and (where the profiler sees the card) one
+    host->device and two device->host copies a frame, the character's
+    state finite, and every hull whose state is not finite at the end was
+    thrown (above 50 m or below -0.5 m) in an earlier frame.  The
+    reference's trimesh rule (ROADMAP.md queue 3) throws hulls that rest on
+    or beside static cubes, up or down, some of them ever faster, and can
+    drag the character below the ground: the hulls' heights, the thrown
+    and non-finite counts and the character's foot are reported, not
+    bounded."""
+    from substrata_tpu_torch import kernels
+    from substrata_tpu_torch.benchworld import mesh_tick, mesh_world
+    t0 = time.perf_counter()
+    w, p, src = mesh_world(device, n_objects=n_objects, n_dynamic=n_dynamic, cfg=cfg)
+    w._flush()
+    build_s = time.perf_counter() - t0
+    ct = w.static_world.trimesh.cell_tris
+    placed = int(torch.unique(ct[ct >= 0]).numel())
+    sync()
+    kernels.reset_launch_counts()
+    times, hits, heights = [], [], []
+    for t in range(TICKS):
+        sync()
+        t1 = time.perf_counter()
+        _, hit = mesh_tick(w, p, t * DT, src)
+        sync()
+        times.append((time.perf_counter() - t1) * 1e3)
+        hits.append(int(hit.sum()))
+        heights.append(w.state.pos[src, 2].clone())
+    counts = kernels.launch_counts()
+    for name in MESH_KERNELS:
+        check(counts[name] >= TICKS, f"kernel {name}: {counts[name]} launches in {TICKS} frames")
+    state = dict(t=TICKS)
+
+    def tick():
+        mesh_tick(w, p, state["t"] * DT, src)
+        state["t"] += 1
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        for _ in range(SYNC_TICKS):
+            tick()
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [c for c in caught
+             if str(c.message).startswith("called a synchronizing CUDA operation")]
+    check(len(syncs) == 2 * SYNC_TICKS,
+          f"{len(syncs)} synchronizing calls in {SYNC_TICKS} frames, expected two each")
+    h2d, d2h, device_ops = _copies(tick, SYNC_TICKS)
+    if device_ops:
+        check(h2d == SYNC_TICKS and d2h == 2 * SYNC_TICKS,
+              f"{h2d} host->device and {d2h} device->host copies in {SYNC_TICKS} frames, "
+              "expected one and two each")
+    st = w.state
+    alive = st.alive
+    zs = torch.stack(heights)                                   # [frames, hulls]
+    thrown = ((zs > 50.0) | (zs < -0.5)).any(dim=0)
+    finite = (torch.isfinite(st.pos[src]).all(dim=1) & torch.isfinite(st.quat[src]).all(dim=1)
+              & torch.isfinite(st.linvel[src]).all(dim=1))
+    check(bool((finite | thrown).all()),
+          "a hull that was never thrown has a non-finite state")
+    check(bool(torch.isfinite(st.pos[alive & ~torch.isin(
+        torch.arange(st.capacity, device=st.pos.device), src)]).all()),
+          "the character's proxy has a non-finite state")
+    ch = torch.cat([p.state.pos, p.state.vel, p.state.ground_normal, p.state.ground_vel])
+    check(bool(torch.isfinite(ch).all()), "non-finite character state")
+    d = w.last_diags
+    check(int(d.num_contacts) > 0, "no contacts in the mesh world")
+    z = torch.where(finite, st.pos[src][:, 2], torch.nan)
+    ok_z = zs[:, ~thrown] if bool((~thrown).any()) else zs[:, :1]
+    return dict(
+        ms_per_mesh_tick_median=float(np.median(times[30:])),
+        ms_per_mesh_tick_p90=float(np.percentile(times[30:], 90)), first_tick_ms=times[0],
+        build_s=build_s, launches=counts, syncs_per_tick=len(syncs) / SYNC_TICKS,
+        h2d_copies_per_tick=h2d / SYNC_TICKS if device_ops else "not measured",
+        d2h_copies_per_tick=d2h / SYNC_TICKS if device_ops else "not measured",
+        objects=len(w.objects), bodies=int(alive.sum()), triangles=w.static_world.n_tris,
+        triangles_in_no_cell=w.static_world.n_tris - placed,
+        full_cells=int((ct >= 0).all(dim=2).sum()), hull_library_rows=int(
+            (w.static_world.hulls.n_verts > 0).sum()),
+        pairs=int(d.num_pairs), contacts=int(d.num_contacts), awake=int(d.num_awake),
+        max_penetration=float(d.max_penetration),
+        hull_z_min=float(z.nanquantile(0.0)), hull_z_median=float(z.nanmedian()),
+        hull_z_max=float(z.nanquantile(1.0)),
+        hulls_below_minus_0_5=int((z < -0.5).sum()), hulls_above_50=int((z > 50).sum()),
+        hulls_thrown=int(thrown.sum()), hulls_not_finite=int((~finite).sum()),
+        first_frame_thrown=int(((zs > 50.0) | (zs < -0.5)).any(dim=1).nonzero()[0])
+        if bool(thrown.any()) else None,
+        unthrown_hull_z_range=[float(ok_z.min()), float(ok_z.max())],
+        occlusion_hits_per_frame_median=float(np.median(hits)),
+        character_foot=[float(x) for x in p.state.pos], player_on_ground=p.on_ground)
+
+
+AGREE_FRAMES = 9   # frames 0-8: before the small mesh world's first trimesh kick
+
+
+def small_mesh_phase(device="cuda"):
+    """A 1,200-object mesh world (96 hulls) on the card and on the CPU path,
+    40 client frames: the hulls within 1e-5 m over frames 0-8, the
+    character within 1e-5 m and the occlusion hit masks equal over all 40.
+    At frame 9 the reference's trimesh rule throws a hull up at ~270 m/s
+    (body 84; ROADMAP.md queue 3), and from there that hull carries the
+    two paths' last-bit difference (the contact solve's summation order,
+    KC within 1e-4 of its twin) scaled by its speed: the first frame past
+    1e-4 and the final gap are reported, not bounded."""
+    from substrata_tpu_torch.benchworld import mesh_tick, mesh_world
+    from substrata_tpu_torch.physics.state import SimConfig
+    runs = {}
+    for dev in (device, "cpu"):
+        w, p, src = mesh_world(dev, n_objects=1200, n_dynamic=96, cfg=SimConfig(
+            capacity=256, max_pairs=1024, grid_dim=32, cell_size=4.0, solver_iters=7,
+            pair_rebuild_interval=6))
+        frames = []
+        for t in range(40):
+            _, hit = mesh_tick(w, p, t * DT, src)
+            frames.append((w.state.pos[src].cpu(), p.state.pos.cpu(), hit))
+        runs[dev] = frames
+    body_err = [max_err(a[0], b[0]) for a, b in zip(runs[device], runs["cpu"])]
+    char_err = max(max_err(a[1], b[1]) for a, b in zip(runs[device], runs["cpu"]))
+    early = max(body_err[:AGREE_FRAMES])
+    check(early <= 1e-5, f"small mesh world: hulls card vs CPU path {early} > 1e-5 "
+                         f"in frames 0-{AGREE_FRAMES - 1}")
+    check(char_err <= 1e-5, f"small mesh world: character card vs CPU path {char_err} > 1e-5")
+    check(all(np.array_equal(a[2], b[2]) for a, b in zip(runs[device], runs["cpu"])),
+          "small mesh world: occlusion hit masks differ")
+    past = [t for t, e in enumerate(body_err) if e > 1e-4]
+    return dict(cuda_vs_cpu_small_mesh_hulls_err_frames_0_8=early,
+                cuda_vs_cpu_small_mesh_character_err=char_err,
+                small_mesh_first_frame_past_1e_4=past[0] if past else None,
+                small_mesh_hulls_err_frame_39=body_err[-1],
+                small_mesh_occlusion_hits=int(sum(int(f[2].sum()) for f in runs["cpu"])))
+
+
 PHYSICS_KERNELS = ("box_box_rows", "static_contacts", "solve_iteration", "apply_forces",
                    "integrate_positions")
 AUDIO_KERNELS = ("audio_fetch", "audio_spatialise", "audio_downmix_reverb")
 FULLTICK_KERNELS = ("ray_trace", "particles_update", "vehicle_forces")
 SERVING_KERNELS = ("closed_form_rows", "character_update", "apply_tick_in", "digest_tblock")
+MESH_KERNELS = ("convex_rows", "static_contacts", "ray_trace", "character_update",
+                "apply_tick_in", "digest_tblock")
 # Float32 operations per item, counted from the kernels' sources (rounded
 # up): per valid pair slot (KA), per body (KB, KD), per contact row and per
 # body table slot (KC).
@@ -1312,7 +1789,10 @@ FLOPS = {"box_box_rows": 1000, "static_contacts": 600, "solve_iteration": 60,
          # KK and KL per closed form evaluated (capsule-box: the 14-step
          # ternary search; the point contacts), KL per probe row (the
          # sphere test, the reductions), KM per region test.
-         "capsule_box": 1700, "point_contact": 120, "char_row": 30, "region_test": 12}
+         "capsule_box": 1700, "point_contact": 120, "char_row": 30, "region_test": 12,
+         # KB and KL per sphere-triangle test (closest point, sign, normal),
+         # KH per ray-triangle test (Moller-Trumbore).
+         "tri_test": 150, "ray_triangle": 40}
 
 KERNELS = [
     ("box_box_rows", "cuda", "substrata_tpu_torch/csrc/box_box.cu",
@@ -1345,6 +1825,8 @@ KERNELS = [
      "substrata_tpu/physics/world.py:305"),
     ("digest_tblock", "cuda", "substrata_tpu_torch/csrc/serving_io.cu",
      "substrata_tpu/physics/world.py:258"),
+    ("convex_rows", "cuda", "substrata_tpu_torch/csrc/convex.cu",
+     "substrata_tpu/physics/narrowphase.py:404"),
 ]
 
 
@@ -1436,9 +1918,25 @@ def main():
         f" full tick with the character (phase 9): {ft_res['ms_per_tick_median']:.3f}; think "
         f"(phase 5): {main_res['ms_per_think_median']:.3f} | {smi}")
 
+    mk_res = mesh_kernel_phase()
+    for name, r in mk_res.items():
+        log(f"# kernel {name}: {json.dumps(r)} | {smi}")
+    kres["convex_rows"] = mk_res["convex_rows"]
+
+    me_res = mesh_phase()
+    me_res.update(small_mesh_phase())
+    log(f"# mesh world: {json.dumps(me_res)} | {smi}")
+    log(f"# ms per mesh-world client frame (median, ticks 31-{TICKS}, 12,000 objects: 512 hulls "
+        f"over {me_res['triangles']} static triangles, think_with_player + "
+        f"{N_DYNAMIC_RAYS} occlusion rays): {me_res['ms_per_mesh_tick_median']:.3f} "
+        f"(p90 {me_res['ms_per_mesh_tick_p90']:.3f}); serving tick (phase 11): "
+        f"{sv_res['ms_per_serving_tick_median']:.3f} | {smi}")
+
     # Launches: each kernel's count on its main path (phase 9's full ticks;
-    # phase 11's serving ticks for the serving-tick kernels).
-    launches = {name: (sv_res if name in SERVING_KERNELS else ft_res)["launches"][name]
+    # phase 11's serving ticks for the serving-tick kernels; phase 13's
+    # mesh frames for KO).
+    launches = {name: (me_res if name == "convex_rows" else sv_res if name in SERVING_KERNELS
+                       else ft_res)["launches"][name]
                 for name, *_ in KERNELS}
     out = {"kernels": [
         dict(name=name, route=route, source=src, replaces=rep,
@@ -1452,7 +1950,8 @@ def main():
         json.dump(dict(nvidia_smi=smi, torch=torch.__version__, kernels=kres,
                        small_worlds=small, main_path=main_res, audio=ares,
                        physics_audio=pa_res, fulltick_kernels=fres, full_tick=ft_res,
-                       serving_kernels=sres, serving_tick=sv_res),
+                       serving_kernels=sres, serving_tick=sv_res, mesh_kernels=mk_res,
+                       mesh_world=me_res),
                   f, indent=1)
     log(json.dumps(out))
     log(smi)

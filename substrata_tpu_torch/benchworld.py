@@ -3,8 +3,11 @@
 character, vehicles and particles of bench.py:157-209, rebuilt on the port
 for chip_smoke.py and profile_tick.py; the coupled physics + audio tick of
 bench.py's window 2 (bench.py:337-341), the full tick of its window 3
-(bench.py:311-342) without Winter, and the serving world: the bench world
-with a walking player through ``PhysicsWorld.think_with_player``."""
+(bench.py:311-342) without Winter, the serving world: the bench world
+with a walking player through ``PhysicsWorld.think_with_player``, and the
+12,000-object mesh world of tools/bench_networked.py (BASELINE.json
+config 5) with the client's frame: ``think_with_player`` and the audio
+occlusion rays (substrata_tpu/client_app.py:916-945)."""
 
 from __future__ import annotations
 
@@ -14,8 +17,9 @@ import torch
 from substrata_tpu_torch.audio.mix import (default_listener, mix_block, room_from_aabb,
                                            zero_sources)
 from substrata_tpu_torch.physics import broadphase, queries, shapes
-from substrata_tpu_torch.physics.character import (PlayerPhysics, init_character_state,
-                                                   player_update_packed, tick_scalars)
+from substrata_tpu_torch.physics.character import (EYE_HEIGHT, PlayerPhysics,
+                                                   init_character_state, player_update_packed,
+                                                   tick_scalars)
 from substrata_tpu_torch.physics.particles import particles_step, zero_particles
 from substrata_tpu_torch.physics.state import MotionType, SimConfig
 from substrata_tpu_torch.physics.vehicles.manager import (
@@ -27,6 +31,16 @@ N_BODIES = 10_000
 N_SOURCES = 256
 N_PARTICLES = 2048    # the reference's own cap (ParticleManager.cpp:88)
 N_VEHICLES = 8        # two each of car, bike, boat, hovercar
+N_OBJECTS = 12_000    # tools/bench_networked.py:37-38
+N_DYNAMIC = 512
+AUDIBLE_DIST = 100.0             # client_app.py:66-67
+AUDIO_OCCLUSION_MAX_DIST = 60.0
+# The unit cube of tools/bench_networked.py:93-97 (its "cube.bmesh").
+CUBE_VERTS = np.array([[x, y, z] for x in (-.5, .5) for y in (-.5, .5) for z in (-.5, .5)],
+                      np.float32)
+CUBE_TRIS = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
+                      [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]],
+                     np.int32)
 DT = 1.0 / 60.0
 TICK_FRAMES = 800     # 48 kHz / 60 Hz: one tick of audio per step
 POOL_SAMPLES = 1 << 20
@@ -197,3 +211,94 @@ def serving_tick(world, player, t: float):
     (bench.py:322-323) and ``think_with_player`` runs the fused tick."""
     player.process_move(walk_dir(t))
     return world.think_with_player(DT, player, cur_time=t)
+
+
+def mesh_config() -> SimConfig:
+    """tools/bench_networked.py:79-80."""
+    return SimConfig(capacity=4_096, max_pairs=8_192, grid_dim=64, cell_size=4.0,
+                     solver_iters=7, pair_rebuild_interval=6)
+
+
+def mesh_layout(n_objects: int = N_OBJECTS, n_dynamic: int = N_DYNAMIC) -> np.ndarray:
+    """The objects' positions [n_objects, 3] (float64) in the reference's
+    rng call order (tools/bench_networked.py:57-64): x, y, then z U(2, 6)
+    for a dynamic object; a static one draws no third number."""
+    rng = np.random.default_rng(0)
+    return np.array([[rng.uniform(-180, 180), rng.uniform(-180, 180),
+                      0.4 if i >= n_dynamic else rng.uniform(2, 6)]
+                     for i in range(n_objects)])
+
+
+def mesh_triangles(n_objects: int = N_OBJECTS, n_dynamic: int = N_DYNAMIC):
+    """The static cubes' world-space triangles as the world merges them:
+    (verts [8 S, 3] f32, tris [12 S, 3] i32)."""
+    pos = mesh_layout(n_objects, n_dynamic)[n_dynamic:].astype(np.float32)
+    verts = (CUBE_VERTS[None] + pos[:, None]).reshape(-1, 3)
+    tris = (CUBE_TRIS[None] + 8 * np.arange(len(pos), dtype=np.int32)[:, None, None])
+    return verts, tris.reshape(-1, 3)
+
+
+def mesh_world(device, n_objects: int = N_OBJECTS, n_dynamic: int = N_DYNAMIC,
+               cfg: SimConfig | None = None):
+    """The mesh world of tools/bench_networked.py:57-64 and :93-98, loaded as
+    ClientApp._load_physics_for_object loads it (client_app.py:241-297):
+    ``n_objects`` unit cubes at xy U(±180) from seed 0, the first
+    ``n_dynamic`` at z U(2, 6) as convex hulls of the cube (mass 50, the
+    WorldObject default; friction 0.5, restitution 0.2), the rest at z = 0.4
+    as world-space triangles of the static trimesh, each owned by a virtual
+    anchor; the ground plane at z = 0 (client_app.py:111) and one
+    PlayerPhysics at eye (0, 0, 1.67).  Returns (world, player, the
+    dynamic bodies' slots on the device: the occlusion rays' sources)."""
+    w = PhysicsWorld(cfg or mesh_config(), device=device)
+    w.set_ground_plane(0.0)
+    hull = shapes.make_convex_hull(CUBE_VERTS, mass=50.0)
+    anchor_shape = shapes.make_box([0.05, 0.05, 0.05])
+    ident = np.array([0.0, 0.0, 0.0, 1.0], np.float32)
+    mats = np.zeros((len(CUBE_TRIS),), np.int32)
+    slots = []
+    for i, pos in enumerate(mesh_layout(n_objects, n_dynamic)):
+        dyn = i < n_dynamic
+        shape = hull if dyn else anchor_shape
+        body_pos, body_rot = shape.body_pose_from_mesh(pos, ident)
+        ob = PhysicsObject(shape=shape, pos=body_pos, rot=body_rot,
+                           motion_type=int(MotionType.DYNAMIC if dyn else MotionType.STATIC),
+                           friction=0.5, restitution=0.2, collidable=dyn)
+        if dyn:
+            slots.append(w.add_object(ob).slot)
+        else:
+            anchor = w.add_virtual_anchor(ob)
+            w.add_static_mesh_instance(CUBE_VERTS + np.asarray(pos, np.float32), CUBE_TRIS,
+                                       mats, owner_slot=anchor.slot)
+    player = PlayerPhysics(w, eye_pos=(0.0, 0.0, EYE_HEIGHT))
+    return w, player, torch.as_tensor(np.array(slots, np.int64), device=device)
+
+
+def occlusion_rays(cam, src_pos):
+    """The client's audio-occlusion rays (client_app.py:924-936), one per
+    source, built on the device: from the camera ``cam`` [3] toward each
+    source, ``max_t = min(max(d - 1, 0), 60)``; a source beyond 100 m or
+    nearer than 1e-3 m gets ``max_t = 0`` and ``keep`` False.  Returns
+    (origins, dirs, max_ts, keep)."""
+    to = src_pos - cam[None, :]
+    d = torch.sqrt(to[:, 0] * to[:, 0] + to[:, 1] * to[:, 1] + to[:, 2] * to[:, 2])
+    keep = (d <= AUDIBLE_DIST) & (d >= 1e-3)
+    dirs = to / torch.clamp(d, min=1e-3)[:, None]
+    max_ts = torch.where(keep, torch.clamp(torch.clamp(d - 1.0, min=0.0),
+                                           max=AUDIO_OCCLUSION_MAX_DIST), 0.0)
+    return cam[None, :].expand_as(to).contiguous(), dirs.contiguous(), max_ts, keep
+
+
+def mesh_tick(world, player, t: float, sources):
+    """The client's frame on the mesh world: the player walks as the
+    bench's does (``serving_tick``), then the audio-occlusion pass traces
+    one ray (``n_steps=16``) from the camera (the character's eye, on the
+    device) to each source body ``sources`` and reads the masked hit mask
+    back once, as client_app.py:940 does.  Returns (events, hit [S] numpy
+    bool)."""
+    events = serving_tick(world, player, t)
+    ch = player.state
+    cam = torch.cat([ch.pos[:2], (ch.pos[2:] + EYE_HEIGHT) - ch.campos_z_delta[None]])
+    o, d, mt, keep = occlusion_rays(cam, world.state.pos[sources])
+    hits = queries.trace_rays(o, d, mt, world.state, world.static_world, world.config,
+                              n_steps=16)
+    return events, (hits.hit & keep).cpu().numpy()

@@ -21,8 +21,9 @@ from substrata_tpu_torch.physics.character import CHARACTER_FIELDS, CharacterSta
 from substrata_tpu_torch.physics.particles import PARTICLE_FIELDS, ParticleState
 from substrata_tpu_torch.physics.solver import SolverCache
 from substrata_tpu_torch.physics.state import (BODY_FIELDS, SIM_PARAM_FIELDS,
-                                               BodyState, Heightfield, SimParams,
-                                               StaticWorld)
+                                               BodyState, Heightfield, HullLibrary,
+                                               SimParams, StaticWorld, TriMesh,
+                                               empty_hull_library, empty_trimesh)
 from substrata_tpu_torch.physics.vehicles.manager import (INPUT_FIELDS, VEHICLE_FIELDS,
                                                           VehicleArrays, VehicleInputs)
 
@@ -38,20 +39,39 @@ def body_state_from_numpy(arrays: Arrays, *, device) -> BodyState:
     return BodyState(**{f: _t(arrays[f], device) for f in BODY_FIELDS})
 
 
+def hull_library_from_numpy(arrays: Arrays, *, device) -> HullLibrary:
+    """Keys: verts, n_verts, planes, n_faces."""
+    return HullLibrary(verts=_t(np.asarray(arrays["verts"], np.float32), device),
+                       n_verts=_t(np.asarray(arrays["n_verts"], np.int32), device),
+                       planes=_t(np.asarray(arrays["planes"], np.float32), device),
+                       n_faces=_t(np.asarray(arrays["n_faces"], np.int32), device))
+
+
+def trimesh_from_numpy(arrays: Arrays, *, device) -> TriMesh:
+    """Keys: the TriMesh fields verts, tris, tri_mats, tri_owner, cell_tris,
+    origin, cell_w and n_tris (the reference's own grid, converted as is)."""
+    f32 = ("verts", "origin", "cell_w")
+    fields = {f: _t(np.asarray(arrays[f], np.float32 if f in f32 else np.int32), device)
+              for f in ("verts", "tris", "tri_mats", "tri_owner", "cell_tris", "origin",
+                        "cell_w", "n_tris")}
+    return TriMesh(**fields, count=int(np.asarray(arrays["n_tris"])))
+
+
 def static_world_from_numpy(arrays: Arrays, *, device) -> StaticWorld:
-    """Keys: heights, origin, cell_w, is_flat, has_heightfield, water_z and
-    n_tris (the reference trimesh's triangle count; only an empty trimesh
-    converts in this slice)."""
-    if int(arrays.get("n_tris", 0)) > 0:
-        raise NotImplementedError(
-            "static trimesh geometry is not ported yet (ROADMAP.md queue 1, "
-            "slice 3: the other shapes)")
+    """Keys: heights, origin, cell_w, is_flat, has_heightfield, water_z, and
+    optionally trimesh and hulls (mappings for ``trimesh_from_numpy`` and
+    ``hull_library_from_numpy``; absent = empty)."""
     hf = Heightfield(heights=_t(np.asarray(arrays["heights"], np.float32), device),
                      origin=_t(np.asarray(arrays["origin"], np.float32), device),
                      cell_w=_t(np.asarray(arrays["cell_w"], np.float32), device),
                      is_flat=bool(arrays["is_flat"]))
+    tm = (trimesh_from_numpy(arrays["trimesh"], device=device) if "trimesh" in arrays
+          else empty_trimesh(device=device))
+    hulls = (hull_library_from_numpy(arrays["hulls"], device=device) if "hulls" in arrays
+             else empty_hull_library(device=device))
     return StaticWorld(heightfield=hf,
                        has_heightfield=_t(np.asarray(arrays["has_heightfield"], bool), device),
+                       trimesh=tm, hulls=hulls,
                        water_z=_t(np.asarray(arrays["water_z"], np.float32), device))
 
 

@@ -6,7 +6,10 @@
 // (:504-523); plain twin:
 // substrata_tpu_torch/kernels/character.py:character_packed_plain.
 //
-// One block of 256 threads, one launch per tick.  The block gathers the
+// One block of 256 threads, one launch per tick.  The static rows are the
+// capsule segment's three sample spheres on the heightfield (threads 0-2)
+// and on the static trimesh (threads 3-5: every triangle of the sample's
+// grid cell, trimesh.cuh, the deepest first on ties).  The block gathers the
 // candidate rows (the 27-cell neighbourhoods of two or three capsule centres
 // in the cell table, then the oversize slots: 550 rows at the bench) and
 // their bodies' fields into shared memory once; every probe (5 to 28 a tick)
@@ -22,7 +25,7 @@
 // block-wide steps (probe, sync, reduction) of a few hundred operations per
 // row; the bytes (the candidate rows, ~25 KB) and operations (~1 M) are
 // small.
-#include "closed_forms.cuh"
+#include "trimesh.cuh"
 
 namespace {
 
@@ -51,6 +54,8 @@ struct Ctx {
   float ox, oy, cw, umax, vmax;
   int hy;
   bool flat, has_hf;
+  // static trimesh (tm.cap == 0: none)
+  sbt::TriMeshView tm;
 };
 
 // physics/state.py:Heightfield.sample_with_normal
@@ -147,15 +152,28 @@ __device__ void probe(const Ctx& c, const float foot[3], float cyl_h) {
     c.p_pen[t] = pen;
     c.p_ok[t] = c.has_hf && pen > -0.05f;
   } else if (t < kStatic) {
-    // The static trimesh (slice 3) is empty: three invalid rows.
+    // The same sample against every triangle of its trimesh cell
+    // (kernels/character.py:_trimesh_rows); no triangle: an invalid row.
+    const int si = t - 3;
+    const float dz = si == 0 ? -half_h : (si == 2 ? half_h : 0.0f);
+    const float s[3] = {si == 1 ? center[0] : center[0] + 0.0f,
+                        si == 1 ? center[1] : center[1] + 0.0f,
+                        si == 1 ? center[2] : center[2] + dz};
+    float pen = -1e9f, pt[3] = {0.0f, 0.0f, 0.0f}, n[3] = {0.0f, 0.0f, 1.0f};
+    if (c.tm.cap > 0 && !sbt::sphere_vs_cell(c.tm, s, kR, c.tm.cap, pen, pt, n)) {
+      pen = -1e9f;
+      pt[0] = pt[1] = pt[2] = 0.0f;
+      n[0] = n[1] = 0.0f;
+      n[2] = 1.0f;
+    }
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      c.p_n[3 * t + k] = k == 2 ? 1.0f : 0.0f;
-      c.p_pt[3 * t + k] = 0.0f;
+      c.p_n[3 * t + k] = n[k];
+      c.p_pt[3 * t + k] = pt[k];
       c.p_vel[3 * t + k] = 0.0f;
     }
-    c.p_pen[t] = -1e9f;
-    c.p_ok[t] = 0;
+    c.p_pen[t] = pen;
+    c.p_ok[t] = pen > -0.05f;
   }
   const float up_q[4] = {0.0f, 0.0f, 0.0f, 1.0f};
   for (int j = t; j < c.Kc; j += blockDim.x) {
@@ -284,8 +302,11 @@ __global__ void __launch_bounds__(kThreads) character_kernel(
     const int* __restrict__ os_idx, const float* __restrict__ heights,
     const float* __restrict__ hf_origin, const float* __restrict__ hf_cell_w,
     const bool* __restrict__ has_hf, const float* __restrict__ water_z,
-    const float* __restrict__ scal, int num_buckets, int cap, int n_os, int n_centers, int hx,
-    int hy, int flat, float cell_size, float* __restrict__ o_pos, float* __restrict__ o_vel,
+    const float* __restrict__ scal, const float* __restrict__ tri_verts,
+    const int* __restrict__ tris, const int* __restrict__ cell_tris,
+    const float* __restrict__ tri_origin, const float* __restrict__ tri_cell_w, int num_buckets,
+    int cap, int n_os, int n_centers, int hx, int hy, int flat, int gx, int gy, int tcap,
+    float cell_size, float* __restrict__ o_pos, float* __restrict__ o_vel,
     bool* __restrict__ o_on_ground, float* __restrict__ o_gn, float* __restrict__ o_gv,
     float* __restrict__ o_cz, bool* __restrict__ o_grav, bool* __restrict__ o_fly,
     bool* __restrict__ o_sit, float* __restrict__ packed) {
@@ -339,6 +360,9 @@ __global__ void __launch_bounds__(kThreads) character_kernel(
   c.hy = hy;
   c.flat = flat != 0;
   c.has_hf = *has_hf;
+  c.tm = sbt::TriMeshView{tri_verts, tris, cell_tris,
+                          tcap > 0 ? tri_origin[0] : 0.0f, tcap > 0 ? tri_origin[1] : 0.0f,
+                          tcap > 0 ? *tri_cell_w : 1.0f, gx, gy, tcap};
   const float ez[3] = {0.0f, 0.0f, 1.0f};
 
   // ---- The tick's scalars and the velocity update (character.py:274-343).
@@ -630,8 +654,10 @@ extern "C" int character_update(
     const float* angvel, const int* shape_type, const float* params, const float* bound_radius,
     const bool* alive, const int* layer, const bool* sensor, const int* table,
     const int* os_idx, const float* heights, const float* hf_origin, const float* hf_cell_w,
-    const bool* has_hf, const float* water_z, const float* scal, int num_buckets, int cap,
-    int n_os, int n_centers, int hx, int hy, int flat, float cell_size, float* o_pos,
+    const bool* has_hf, const float* water_z, const float* scal, const float* tri_verts,
+    const int* tris, const int* cell_tris, const float* tri_origin, const float* tri_cell_w,
+    int num_buckets, int cap, int n_os, int n_centers, int hx, int hy, int flat, int gx, int gy,
+    int tcap, float cell_size, float* o_pos,
     float* o_vel, bool* o_on_ground, float* o_gn, float* o_gv, float* o_cz, bool* o_grav,
     bool* o_fly, bool* o_sit, float* packed, void* stream) {
   if (n_centers < 2 || n_centers > 3) return static_cast<int>(cudaErrorInvalidValue);
@@ -646,8 +672,8 @@ extern "C" int character_update(
   character_kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       ch_pos, ch_vel, ch_on_ground, ch_gn, ch_gv, ch_cz, ch_grav, ch_fly, ch_sit, pos, quat,
       linvel, angvel, shape_type, params, bound_radius, alive, layer, sensor, table, os_idx,
-      heights, hf_origin, hf_cell_w, has_hf, water_z, scal, num_buckets, cap, n_os, n_centers,
-      hx, hy, flat, cell_size, o_pos, o_vel, o_on_ground, o_gn, o_gv, o_cz, o_grav, o_fly,
-      o_sit, packed);
+      heights, hf_origin, hf_cell_w, has_hf, water_z, scal, tri_verts, tris, cell_tris,
+      tri_origin, tri_cell_w, num_buckets, cap, n_os, n_centers, hx, hy, flat, gx, gy, tcap,
+      cell_size, o_pos, o_vel, o_on_ground, o_gn, o_gv, o_cz, o_grav, o_fly, o_sit, packed);
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,47 +46,8 @@ __global__ void closed_form_rows_kernel(
   }
   sbt::Manifold m;
   sbt::closed_form(code, pa, qa, pra, pb, qb, prb, m);
-
-  // Speculative one-point prune (narrowphase.py:739-742).
-  bool near = false;
-  int deepest = 0;
-  float best = -INFINITY;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    m.valid[k] = m.valid[k] && pv;
-    near = near || (m.valid[k] && m.pens[k] > -0.01f);
-    const float v = m.valid[k] ? m.pens[k] : -1e9f;
-    if (k == 0 || v > best) {
-      best = v;
-      deepest = k;
-    }
-  }
-  bool touch = false;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    m.valid[k] = m.valid[k] && (near || k == deepest);
-    touch = touch || m.valid[k];
-  }
-  o_touch[p] = touch;
-  const bool sens = sensor[a] || sensor[b];
-  const float fr = sqrtf(fmaxf(fric[a] * fric[b], 0.0f));
-  const float re = fmaxf(rest[a], rest[b]);
-  for (int k = 0; k < wm; ++k) {
-    const int r = p * wm + k;
-    o_a[r] = (blocked && !pv) ? -1 : a;
-    o_b[r] = b;
-    o_point[r * 3 + 0] = m.pts[k][0];
-    o_point[r * 3 + 1] = m.pts[k][1];
-    o_point[r * 3 + 2] = m.pts[k][2];
-    o_normal[r * 3 + 0] = m.n[0];
-    o_normal[r * 3 + 1] = m.n[1];
-    o_normal[r * 3 + 2] = m.n[2];
-    o_pen[r] = m.pens[k];
-    o_valid[r] = m.valid[k] && !sens;
-    o_fric[r] = fr;
-    o_rest[r] = re;
-    o_key[r] = b * 4 + k + 9;
-  }
+  sbt::write_rows(m, p, pv, a, b, wm, blocked, fric, rest, sensor, o_a, o_b, o_point, o_normal,
+                  o_pen, o_valid, o_fric, o_rest, o_key, o_touch);
 }
 
 }  // namespace

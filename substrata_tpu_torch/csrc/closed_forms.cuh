@@ -220,6 +220,60 @@ __device__ inline void capsule_box(const float pc[3], const float qc[4], float r
   m.valid[1] = val1 && !dup;
 }
 
+// The per-bucket epilogue of pair_contacts (narrowphase.py:729-775) for one
+// bucket slot p, shared by KK and KO (twin: closed_forms.py:bucket_rows_plain):
+// the speculative one-point prune (:739-742), sensor, friction and
+// restitution, `wm` rows (key b*4 + slot + 9) and the touching flag.
+__device__ inline void write_rows(Manifold& m, int p, bool pv, int a, int b, int wm, int blocked,
+                                  const float* __restrict__ fric,
+                                  const float* __restrict__ rest,
+                                  const bool* __restrict__ sensor, int* __restrict__ o_a,
+                                  int* __restrict__ o_b, float* __restrict__ o_point,
+                                  float* __restrict__ o_normal, float* __restrict__ o_pen,
+                                  bool* __restrict__ o_valid, float* __restrict__ o_fric,
+                                  float* __restrict__ o_rest, int* __restrict__ o_key,
+                                  bool* __restrict__ o_touch) {
+  bool near = false;
+  int deepest = 0;
+  float best = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    m.valid[k] = m.valid[k] && pv;
+    near = near || (m.valid[k] && m.pens[k] > -0.01f);
+    const float v = m.valid[k] ? m.pens[k] : -1e9f;
+    if (k == 0 || v > best) {
+      best = v;
+      deepest = k;
+    }
+  }
+  bool touch = false;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    m.valid[k] = m.valid[k] && (near || k == deepest);
+    touch = touch || m.valid[k];
+  }
+  o_touch[p] = touch;
+  const bool sens = sensor[a] || sensor[b];
+  const float fr = sqrtf(fmaxf(fric[a] * fric[b], 0.0f));
+  const float re = fmaxf(rest[a], rest[b]);
+  for (int k = 0; k < wm; ++k) {
+    const int r = p * wm + k;
+    o_a[r] = (blocked && !pv) ? -1 : a;
+    o_b[r] = b;
+    o_point[r * 3 + 0] = m.pts[k][0];
+    o_point[r * 3 + 1] = m.pts[k][1];
+    o_point[r * 3 + 2] = m.pts[k][2];
+    o_normal[r * 3 + 0] = m.n[0];
+    o_normal[r * 3 + 1] = m.n[1];
+    o_normal[r * 3 + 2] = m.n[2];
+    o_pen[r] = m.pens[k];
+    o_valid[r] = m.valid[k] && !sens;
+    o_fric[r] = fr;
+    o_rest[r] = re;
+    o_key[r] = b * 4 + k + 9;
+  }
+}
+
 // closed_forms.py:closed_form on per-side rows (pos, quat, params).
 __device__ inline void closed_form(int code, const float pa[3], const float qa[4],
                                    const float pra[4], const float pb[3], const float qb[4],

@@ -1,8 +1,11 @@
-// KH: the first hit of each ray among the dynamic bodies and the heightfield.
+// KH: the first hit of each ray among the bodies, the heightfield and the
+// static trimesh.
 //
-// Replaces substrata_tpu/physics/queries.py:_ray_bodies (:243-390) and
-// _ray_heightfield_single (:180-220) as trace_rays (:395) combines them; plain
-// twin: substrata_tpu_torch/kernels/ray_trace.py:ray_trace_plain.
+// Replaces substrata_tpu/physics/queries.py:_ray_bodies (:243-390) with the
+// hull-plane clip _ray_hull_planes (:134-158), _ray_heightfield_single
+// (:180-220) and _ray_trimesh_single (:223-240) with _ray_triangle (:161), as
+// trace_rays (:395-440) combines them; plain twin:
+// substrata_tpu_torch/kernels/ray_trace.py:ray_trace_plain.
 //
 // One thread per ray.  Stage 1 walks the candidates in the reference's gather
 // order (9 xy-neighbour cells x body_steps march points x cell capacity, then
@@ -12,21 +15,27 @@
 // skipped: all its copies share one key), as lax.top_k picks them from the
 // reference's (slot-sorted) candidate row.  When no key is finite, survivor 0
 // is the first candidate (the lowest slot with dedup) and only its normal is
-// reported.  Stage 2 runs the exact sphere, box or capsule test on each
-// survivor and takes the first minimum; the heightfield (flat: the analytic
-// plane hit; else the march and 10 bisection steps) is the other operand.
-// What bounds it on the card: latency — every candidate is a dependent
-// random gather (table entry, then the body's position and radius), about
-// 120 per particle ray and 280 per wheel ray; the bytes that must move are
-// small (the rays, the table rows and the bodies they touch).  The design
-// keeps all candidates and survivors in registers and local memory: no
-// [rays x candidates] intermediate ever reaches device memory.
-#include "common.cuh"
+// reported.  Stage 2 runs the exact sphere, box, capsule or hull test on each
+// survivor (a hull: the ray in hull-local space clipped by its library
+// planes, the entering face's normal, the first on ties) and takes the first
+// minimum.  The heightfield (flat: the analytic plane hit; else the march and
+// 10 bisection steps) and the trimesh (the first 8 triangles of the grid cell
+// at each of n_steps march points, Moller-Trumbore, the first minimum; a
+// cell's empty slots are a suffix, so its scan stops at the first) are the
+// other operands; the trimesh wins only strictly and reports its triangle's
+// owner and material.  What bounds it on the card: latency -- every candidate
+// is a dependent random gather (table entry, then the body's position and
+// radius), about 120 per particle ray and 280 per wheel ray, and an occlusion
+// ray adds up to 16 x 8 triangle gathers (48 bytes each); the bytes that must
+// move are small.  The design keeps all candidates and survivors in registers
+// and local memory: no [rays x candidates] intermediate reaches device memory.
+#include "trimesh.cuh"
 
 namespace {
 
 constexpr float kBig = 1e9f;
 constexpr int kMaxK = 16;
+constexpr int kTriCap = 8;   // triangles read per grid cell of the march
 constexpr int kSphere = 0, kBox = 1, kCapsule = 2;
 
 __device__ __forceinline__ unsigned hash_cell(int cx, int cy, int cz, unsigned nb) {
@@ -152,12 +161,54 @@ __device__ float ray_capsule(const float o[3], const float d[3], const float pc[
   return t;
 }
 
-// The exact test against body `slot`'s own shape; hulls (none without a
-// hull library) miss with a zero normal.
+// kernels/ray_trace.py:_ray_hull_planes: the ray clipped by the hull's face
+// planes `pl` [MF, 4] (the first nf valid).
+__device__ float ray_hull(const float o[3], const float d[3], const float pb[3],
+                          const float qb[4], const float* __restrict__ pl, int nf, int MF,
+                          float n[3]) {
+  const float rel[3] = {o[0] - pb[0], o[1] - pb[1], o[2] - pb[2]};
+  float ol[3], dl[3];
+  inv_rotate(qb, rel, ol);
+  inv_rotate(qb, d, dl);
+  const float eps = 1e-9f;
+  // Faces past nf enter the reference's max as 0 and its argmax as -BIG.
+  float t_enter = nf < MF ? 0.0f : -INFINITY;
+  float t_exit = kBig;
+  float score = -kBig;
+  int j = 0;
+  bool par_out = false;
+  for (int f = 0; f < nf; ++f) {
+    const float* row = pl + 4 * f;
+    const float denom = row[0] * dl[0] + row[1] * dl[1] + row[2] * dl[2];
+    const float dist = row[3] - (row[0] * ol[0] + row[1] * ol[1] + row[2] * ol[2]);
+    const float t_pl = dist / (fabsf(denom) > eps ? denom : eps);
+    const bool entering = denom < -eps, exiting = denom > eps;
+    par_out = par_out || (fabsf(denom) <= eps && dist < 0.0f);
+    t_enter = fmaxf(t_enter, entering ? t_pl : 0.0f);
+    if (exiting) t_exit = fminf(t_exit, t_pl);
+    const float sc = entering ? t_pl : -kBig;
+    if (sc > score) {
+      score = sc;
+      j = f;
+    }
+  }
+  const bool ok = t_enter <= t_exit && !par_out && nf > 0 && t_enter > 0.0f;
+  const float nl[3] = {pl[4 * j], pl[4 * j + 1], pl[4 * j + 2]};
+  sbt::rotate_vec(qb, nl, n);
+  return ok ? t_enter : kBig;
+}
+
+struct Hulls {
+  const float* planes;   // [H, MF, 4]
+  const int* n_faces;    // [H]
+  int H, MF;
+};
+
+// The exact test against body `slot`'s own shape.
 __device__ float ray_shape(const float o[3], const float d[3], int slot,
                            const float* __restrict__ pos, const float* __restrict__ quat,
                            const int* __restrict__ shape_type,
-                           const float* __restrict__ params, float n[3]) {
+                           const float* __restrict__ params, const Hulls& hl, float n[3]) {
   const int st = shape_type[slot];
   const float p[3] = {pos[slot * 3 + 0], pos[slot * 3 + 1], pos[slot * 3 + 2]};
   const float q[4] = {quat[slot * 4 + 0], quat[slot * 4 + 1], quat[slot * 4 + 2],
@@ -166,8 +217,50 @@ __device__ float ray_shape(const float o[3], const float d[3], int slot,
   if (st == kSphere) return ray_sphere(o, d, p, prm[0], n);
   if (st == kBox) return ray_box(o, d, p, q, prm, n);
   if (st == kCapsule) return ray_capsule(o, d, p, q, prm[0], prm[1], n);
-  n[0] = n[1] = n[2] = 0.0f;
-  return kBig;
+  const int hid = min(max(static_cast<int>(prm[0]), 0), hl.H - 1);
+  return ray_hull(o, d, p, q, hl.planes + static_cast<size_t>(hid) * hl.MF * 4,
+                  hl.n_faces[hid], hl.MF, n);
+}
+
+// kernels/ray_trace.py:_ray_triangle, the t only (BIG on a miss).
+__device__ __forceinline__ float ray_triangle_t(const float o[3], const float d[3],
+                                                const float v0[3], const float v1[3],
+                                                const float v2[3]) {
+  float e1[3], e2[3], s[3], p[3], q[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    e1[k] = v1[k] - v0[k];
+    e2[k] = v2[k] - v0[k];
+    s[k] = o[k] - v0[k];
+  }
+  sbt::cross3(d, e2, p);
+  const float det = sbt::dot3(e1, p);
+  const float inv_det = 1.0f / (fabsf(det) > 1e-12f ? det : 1e-12f);
+  const float u = sbt::dot3(s, p) * inv_det;
+  sbt::cross3(s, e1, q);
+  const float v = sbt::dot3(d, q) * inv_det;
+  const float t = sbt::dot3(e2, q) * inv_det;
+  const bool ok = fabsf(det) > 1e-12f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= 0.0f;
+  return ok ? t : kBig;
+}
+
+// Its normal: the unit triangle normal facing the ray.
+__device__ void ray_triangle_n(const float d[3], const float v0[3], const float v1[3],
+                               const float v2[3], float n[3]) {
+  float e1[3], e2[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    e1[k] = v1[k] - v0[k];
+    e2[k] = v2[k] - v0[k];
+  }
+  sbt::cross3(e1, e2, n);
+  const float nn = fmaxf(sqrtf(sbt::dot3(n, n)), 1e-12f);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) n[k] = n[k] / nn;
+  if (sbt::dot3(n, d) > 0.0f) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) n[k] = -n[k];
+  }
 }
 
 struct Heightfield {
@@ -228,13 +321,20 @@ __global__ void ray_trace_kernel(
     const int* __restrict__ layer, const int* __restrict__ table,
     const int* __restrict__ os_idx, const float* __restrict__ heights,
     const float* __restrict__ hf_origin, const float* __restrict__ hf_cell_w,
-    const bool* __restrict__ has_hf, int R, int num_buckets, int cap, int n_os, int hx,
-    int hy, int n_steps, int body_steps, int K, int flags, float cell_size,
+    const bool* __restrict__ has_hf, const float* __restrict__ hull_planes,
+    const int* __restrict__ hull_n_faces, const float* __restrict__ tri_verts,
+    const int* __restrict__ tris, const int* __restrict__ tri_mats,
+    const int* __restrict__ tri_owner, const int* __restrict__ cell_tris,
+    const float* __restrict__ tri_origin, const float* __restrict__ tri_cell_w, int R,
+    int num_buckets, int cap, int n_os, int hx, int hy, int n_steps, int body_steps, int K,
+    int flags, int H, int MF, int gx, int gy, int tcap, float cell_size,
     float* __restrict__ o_t, float* __restrict__ o_n, int* __restrict__ o_body,
-    bool* __restrict__ o_hit) {
+    bool* __restrict__ o_hit, int* __restrict__ o_mat) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
   const bool is_flat = flags & 1, collidable_only = flags & 2, dedup = flags & 4;
+  const bool use_tm = flags & 8;
+  const Hulls hl{hull_planes, hull_n_faces, H, MF};
   const float o[3] = {origins[i * 3 + 0], origins[i * 3 + 1], origins[i * 3 + 2]};
   const float d[3] = {dirs[i * 3 + 0], dirs[i * 3 + 1], dirs[i * 3 + 2]};
   const float mt = max_ts[i];
@@ -303,12 +403,12 @@ __global__ void ray_trace_kernel(
   int bi = -1;
   if (cnt == 0) {
     const int s0 = dedup ? min_cand : first_cand;   // survivor 0 of an all-BIG row
-    ray_shape(o, d, max(s0, 0), pos, quat, shape_type, params, nb);
+    ray_shape(o, d, max(s0, 0), pos, quat, shape_type, params, hl, nb);
   } else {
     int best_slot = -1;
     for (int j = 0; j < cnt; ++j) {
       float n[3];
-      const float t = ray_shape(o, d, ls[j], pos, quat, shape_type, params, n);
+      const float t = ray_shape(o, d, ls[j], pos, quat, shape_type, params, hl, n);
       if (j == 0 || t < tb) {
         tb = t;
         best_slot = ls[j];
@@ -360,14 +460,52 @@ __global__ void ray_trace_kernel(
   }
   if (!*has_hf) th = kBig;
 
-  const bool body_wins = tb <= th;
-  const float t = fminf(tb, th);
+  // ---- The trimesh ----
+  float tt = kBig, nt[3] = {0.0f, 0.0f, 0.0f};
+  int mat = 0, owner = 0;
+  if (use_tm) {
+    const sbt::TriMeshView tm{tri_verts, tris, cell_tris, tri_origin[0], tri_origin[1],
+                              *tri_cell_w, gx, gy, tcap};
+    const int kt = min(tcap, kTriCap);
+    int best = -1;
+    for (int s = 0; s < n_steps; ++s) {
+      const float ts = march_fraction(s, n_steps) * mt;
+      const int base = sbt::tri_cell(tm, o[0] + d[0] * ts, o[1] + d[1] * ts);
+      for (int c = 0; c < kt; ++c) {
+        const int tri = cell_tris[base + c];
+        if (tri < 0) break;
+        float v0[3], v1[3], v2[3];
+        sbt::load_vert(tm, tris[3 * tri], v0);
+        sbt::load_vert(tm, tris[3 * tri + 1], v1);
+        sbt::load_vert(tm, tris[3 * tri + 2], v2);
+        const float t = ray_triangle_t(o, d, v0, v1, v2);
+        if (t < tt) {
+          tt = t;
+          best = tri;
+        }
+      }
+    }
+    if (best >= 0) {
+      float v0[3], v1[3], v2[3];
+      sbt::load_vert(tm, tris[3 * best], v0);
+      sbt::load_vert(tm, tris[3 * best + 1], v1);
+      sbt::load_vert(tm, tris[3 * best + 2], v2);
+      ray_triangle_n(d, v0, v1, v2, nt);
+      mat = tri_mats[best];
+      owner = tri_owner[best];
+    }
+  }
+
+  const bool body_first = tb <= th && tb <= tt;
+  const bool tri_wins = tt < th && tt < tb;
+  const float t = fminf(fminf(tb, th), tt);
   const bool hit = t <= mt;
   o_t[i] = hit ? t : kBig;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) o_n[i * 3 + k] = body_wins ? nb[k] : nh[k];
-  o_body[i] = body_wins ? bi : -1;
+  for (int k = 0; k < 3; ++k) o_n[i * 3 + k] = body_first ? nb[k] : (th <= tt ? nh[k] : nt[k]);
+  o_body[i] = body_first ? bi : (tri_wins ? owner : -1);
   o_hit[i] = hit;
+  o_mat[i] = tri_wins ? mat : 0;
 }
 
 }  // namespace
@@ -377,17 +515,24 @@ extern "C" int ray_trace(const float* origins, const float* dirs, const float* m
                          const float* bound_radius, const int* shape_type, const float* params,
                          const bool* alive, const int* layer, const int* table,
                          const int* os_idx, const float* heights, const float* hf_origin,
-                         const float* hf_cell_w, const bool* has_hf, int R, int num_buckets, int cap, int n_os, int hx, int hy, int n_steps,
-                         int body_steps, int K, int flags, float cell_size, float* o_t,
-                         float* o_n, int* o_body, bool* o_hit, void* stream) {
-  if (K > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+                         const float* hf_cell_w, const bool* has_hf, const float* hull_planes,
+                         const int* hull_n_faces, const float* tri_verts, const int* tris,
+                         const int* tri_mats, const int* tri_owner, const int* cell_tris,
+                         const float* tri_origin, const float* tri_cell_w, int R,
+                         int num_buckets, int cap, int n_os, int hx, int hy, int n_steps,
+                         int body_steps, int K, int flags, int H, int MF, int gx, int gy,
+                         int tcap, float cell_size, float* o_t, float* o_n, int* o_body,
+                         bool* o_hit, int* o_mat, void* stream) {
+  if (K > kMaxK || H < 1 || MF > 32) return static_cast<int>(cudaErrorInvalidValue);
   if (R > 0) {
     const int threads = 128;
     const int blocks = (R + threads - 1) / threads;
     ray_trace_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         origins, dirs, max_ts, exclude, pos, quat, bound_radius, shape_type, params, alive,
-        layer, table, os_idx, heights, hf_origin, hf_cell_w, has_hf, R, num_buckets, cap, n_os,
-        hx, hy, n_steps, body_steps, K, flags, cell_size, o_t, o_n, o_body, o_hit);
+        layer, table, os_idx, heights, hf_origin, hf_cell_w, has_hf, hull_planes, hull_n_faces,
+        tri_verts, tris, tri_mats, tri_owner, cell_tris, tri_origin, tri_cell_w, R, num_buckets,
+        cap, n_os, hx, hy, n_steps, body_steps, K, flags, H, MF, gx, gy, tcap, cell_size, o_t,
+        o_n, o_body, o_hit, o_mat);
   }
   return static_cast<int>(cudaGetLastError());
 }

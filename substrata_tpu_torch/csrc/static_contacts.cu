@@ -1,25 +1,40 @@
-// KB: ground contacts of every body's sample points against the heightfield.
+// KB: static contacts of every body's sample points against the heightfield
+// and the static trimesh.
 //
-// Replaces substrata_tpu/physics/narrowphase.py:static_contacts (:911-1045,
-// heightfield branch), shape_sample_points (:804-867) and
+// Replaces substrata_tpu/physics/narrowphase.py:static_contacts (:911-1045),
+// shape_sample_points (:804-867), _closest_point_triangle (:870) and
 // state.py:Heightfield.sample_with_normal (:208-247); plain twin:
 // substrata_tpu_torch/kernels/static_contacts.py:static_contacts_plain.
 //
-// One thread per body.  It builds its 8 sample points, samples the
-// heightfield (the flat fast path, or one bilinear patch and its analytic
-// normal per point), and keeps the K deepest eligible samples with the
-// lower sample index first on ties, as lax.top_k does: K passes of a
-// strict '>' scan.  The selected sample index is the warm-start key.
-// What bounds it on the card: memory — it reads 80 bytes of body state and
-// writes K x 49 bytes of rows per body (10,240 bodies: ~2.8 MB), with ~300
-// flops per body; the patch reads are 4 cached loads per sample.  The
-// design keeps the 8 candidates in registers and writes each output row
-// once, so there is no [N*8] intermediate in device memory at all.
-#include "common.cuh"
+// One thread per body.  It builds its 8 sample points (a hull's: the
+// vertices furthest along world-down and a 30-degree ring of 8 directions in
+// its local frame, the first vertex on ties), samples the heightfield (the
+// flat fast path, or one bilinear patch and its analytic normal per point),
+// and, when the world has a trimesh, tests each sample against the first
+// min(cap, max_tri_candidates) triangles of its grid cell (trimesh.cuh) and
+// keeps the deeper of the two.  Then it keeps the K deepest eligible
+// samples with the lower sample index first on ties, as lax.top_k does: K
+// passes of a strict '>' scan.  The selected sample index is the warm-start
+// key.  Only eligible bodies (alive, awake, dynamic, collidable) sample the
+// trimesh: the others' rows are invalid whatever it holds.  What bounds it
+// on the card: memory on the heightfield path — 80 bytes of body state in,
+// K x 49 bytes of rows out per body, ~300 flops; with the trimesh, latency
+// and operations — up to 8 x 16 dependent triangle gathers (36 + 12 bytes,
+// cached across neighbouring samples) and ~150 flops each.  The design keeps
+// the 8 candidates in registers and writes each output row once: no [N*8]
+// intermediate reaches device memory.
+#include "trimesh.cuh"
 
 namespace {
 
 constexpr int kSphere = 0, kBox = 1, kCapsule = 2, kHull = 3;
+
+// cos and sin of the ring's 8 angles as the reference rounds them
+// (kernels/static_contacts.py:RING_COS, RING_SIN).
+__constant__ float kRingCos[8] = {0x1p+0f, 0x1.6a09e6p-1f, -0x1.777a5cp-25f, -0x1.6a09e6p-1f,
+                                  -0x1p+0f, -0x1.6a09e2p-1f, 0x1.99bc5cp-27f, 0x1.6a09eep-1f};
+__constant__ float kRingSin[8] = {0x0p+0f, 0x1.6a09e6p-1f, 0x1p+0f, 0x1.6a09e6p-1f,
+                                  -0x1.777a5cp-24f, -0x1.6a09eap-1f, -0x1p+0f, -0x1.6a09dep-1f};
 
 __global__ void static_contacts_kernel(
     const float* __restrict__ pos, const float* __restrict__ quat,
@@ -29,24 +44,31 @@ __global__ void static_contacts_kernel(
     const bool* __restrict__ awake, const float* __restrict__ fric,
     const float* __restrict__ rest, const float* __restrict__ heights,
     const float* __restrict__ hf_origin, const float* __restrict__ hf_cell_w,
-    const bool* __restrict__ has_hf, int n, int hx, int hy, int flags, int K,
+    const bool* __restrict__ has_hf, const float* __restrict__ hull_verts,
+    const int* __restrict__ hull_n_verts, const float* __restrict__ tri_verts,
+    const int* __restrict__ tris, const int* __restrict__ cell_tris,
+    const float* __restrict__ tri_origin, const float* __restrict__ tri_cell_w, int n, int hx,
+    int hy, int flags, int K, int H, int MV, int gx, int gy, int tcap, int kc,
     int* __restrict__ o_a, int* __restrict__ o_b, float* __restrict__ o_point,
     float* __restrict__ o_normal, float* __restrict__ o_pen, bool* __restrict__ o_valid,
     float* __restrict__ o_fric, float* __restrict__ o_rest, int* __restrict__ o_key) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const bool is_flat = flags & 1;
-  const int present = flags >> 1;
+  const int present = (flags >> 1) & 15;
+  const bool use_tm = (flags >> 5) & 1;
   const int st = shape_type[i];
   const float p0 = params[i * 4 + 0], p1 = params[i * 4 + 1], p2 = params[i * 4 + 2];
   const float q[4] = {quat[i * 4 + 0], quat[i * 4 + 1], quat[i * 4 + 2], quat[i * 4 + 3]};
   const float c[3] = {pos[i * 3 + 0], pos[i * 3 + 1], pos[i * 3 + 2]};
 
   // Local sample set: the candidates of the present shape types in the
-  // order box, capsule, sphere; the last one is every other body's default.
-  int cands[3], nc = 0;
+  // order box, capsule, hull, sphere; the last one is every other body's
+  // default.
+  int cands[4], nc = 0;
   if (present & (1 << kBox)) cands[nc++] = kBox;
   if (present & (1 << kCapsule)) cands[nc++] = kCapsule;
+  if (present & (1 << kHull)) cands[nc++] = kHull;
   if ((present & (1 << kSphere)) || nc == 0) cands[nc++] = kSphere;
   int local_type = cands[nc - 1];
   for (int k = 0; k < nc - 1; ++k)
@@ -60,6 +82,29 @@ __global__ void static_contacts_kernel(
   const bool elig = alive[i] && (layer[i] == 0 || layer[i] == 1) && motion[i] == 2 &&
                     !sensor[i] && awake[i];
 
+  // A hull's ring directions (kernels/static_contacts.py:hull_sample_local).
+  const float* hv = nullptr;
+  int hnv = 0;
+  float down_l[3], u1[3], u2[3];
+  if (local_type == kHull) {
+    const int hid = min(max(static_cast<int>(p0), 0), H - 1);
+    hv = hull_verts + static_cast<size_t>(hid) * MV * 3;
+    hnv = max(min(hull_n_verts[hid], MV), 1);   // padded rows repeat vertex 0
+    const float down[3] = {0.0f, 0.0f, -1.0f};
+    const float qc[4] = {-q[0], -q[1], -q[2], q[3]};
+    sbt::rotate_vec(qc, down, down_l);
+    const float ax[3] = {fabsf(down_l[0]) < 0.9f ? 1.0f : 0.0f,
+                         fabsf(down_l[0]) < 0.9f ? 0.0f : 1.0f, 0.0f};
+    sbt::cross3(ax, down_l, u1);
+    const float un = fmaxf(sbt::norm3f(u1), 1e-9f);
+    u1[0] = u1[0] / un;
+    u1[1] = u1[1] / un;
+    u1[2] = u1[2] / un;
+    sbt::cross3(down_l, u1, u2);
+  }
+  const sbt::TriMeshView tm{tri_verts, tris, cell_tris, tri_origin[0], tri_origin[1],
+                            *tri_cell_w, gx, gy, tcap};
+
   float pts[8][3], nrm[8][3], pen[8], val[8];
   bool ok[8];
 #pragma unroll
@@ -72,6 +117,23 @@ __global__ void static_contacts_kernel(
     } else if (local_type == kCapsule) {
       if (s == 0) local[2] = p1;
       if (s == 1) local[2] = -p1;
+    } else if (local_type == kHull) {
+      float dir[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        dir[k] = down_l[k] * 0.866f + (u1[k] * kRingCos[s] + u2[k] * kRingSin[s]) * 0.5f;
+      int best = 0;
+      float bs = -INFINITY;
+      for (int v = 0; v < hnv; ++v) {
+        const float sc = hv[3 * v] * dir[0] + hv[3 * v + 1] * dir[1] + hv[3 * v + 2] * dir[2];
+        if (v == 0 || sc > bs) {
+          bs = sc;
+          best = v;
+        }
+      }
+      local[0] = hv[3 * best];
+      local[1] = hv[3 * best + 1];
+      local[2] = hv[3 * best + 2];
     }
     float rv[3], w[3];
     sbt::rotate_vec(q, local, rv);
@@ -120,8 +182,23 @@ __global__ void static_contacts_kernel(
     nrm[s][0] = nx;
     nrm[s][1] = ny;
     nrm[s][2] = nz;
-    ok[s] = hf_on && pe > -sbt::kContactMargin && s < n_samples && elig;
-    pen[s] = fminf(fmaxf(pe, -1e9f), 0.5f);
+    bool hit = hf_on && pe > -sbt::kContactMargin;
+    float pe_s = pe;
+    if (use_tm && elig) {
+      float tpen, tpt[3], tn[3];
+      if (sbt::sphere_vs_cell(tm, w, rad, kc, tpen, tpt, tn) && tpen > -sbt::kContactMargin &&
+          tpen < 1e8f && (!hit || tpen > pe)) {
+        hit = true;
+        pe_s = tpen;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          pts[s][k] = tpt[k];
+          nrm[s][k] = tn[k];
+        }
+      }
+    }
+    ok[s] = hit && s < n_samples && elig;
+    pen[s] = fminf(fmaxf(pe_s, -1e9f), 0.5f);
     val[s] = ok[s] ? pen[s] : -1e9f;
   }
 
@@ -161,17 +238,23 @@ extern "C" int static_contacts(const float* pos, const float* quat, const int* s
                                const int* motion, const bool* sensor, const bool* awake,
                                const float* fric, const float* rest, const float* heights,
                                const float* hf_origin, const float* hf_cell_w,
-                               const bool* has_hf, int n, int hx, int hy, int flags, int K,
-                               int* o_a, int* o_b, float* o_point, float* o_normal,
-                               float* o_pen, bool* o_valid, float* o_fric, float* o_rest,
-                               int* o_key, void* stream) {
+                               const bool* has_hf, const float* hull_verts,
+                               const int* hull_n_verts, const float* tri_verts, const int* tris,
+                               const int* cell_tris, const float* tri_origin,
+                               const float* tri_cell_w, int n, int hx, int hy, int flags, int K,
+                               int H, int MV, int gx, int gy, int tcap, int kc, int* o_a,
+                               int* o_b, float* o_point, float* o_normal, float* o_pen,
+                               bool* o_valid, float* o_fric, float* o_rest, int* o_key,
+                               void* stream) {
+  if (H < 1 || kc > tcap) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     const int threads = 128;
     const int blocks = (n + threads - 1) / threads;
     static_contacts_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         pos, quat, shape_type, params, alive, layer, motion, sensor, awake, fric, rest,
-        heights, hf_origin, hf_cell_w, has_hf, n, hx, hy, flags, K, o_a, o_b, o_point,
-        o_normal, o_pen, o_valid, o_fric, o_rest, o_key);
+        heights, hf_origin, hf_cell_w, has_hf, hull_verts, hull_n_verts, tri_verts, tris,
+        cell_tris, tri_origin, tri_cell_w, n, hx, hy, flags, K, H, MV, gx, gy, tcap, kc, o_a,
+        o_b, o_point, o_normal, o_pen, o_valid, o_fric, o_rest, o_key);
   }
   return static_cast<int>(cudaGetLastError());
 }

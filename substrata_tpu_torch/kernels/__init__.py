@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the physics tick, the audio mix, the ray
-queries, the particles, the vehicles, the character and the serving tick,
-and their wrappers.
+queries, the particles, the vehicles, the character, the serving tick and
+the hull contacts, and their wrappers.
 
 Each wrapper module holds the kernel's plain PyTorch twin beside it.  A
 wrapper runs the twin for tensors on the CPU; for CUDA tensors it launches
@@ -9,22 +9,24 @@ count of its launches (``launch_counts``), so a run can show that the main
 path went through the kernels.
 
   KA  box_box.py            csrc/box_box.cu          box-box manifolds
-  KB  static_contacts.py    csrc/static_contacts.cu  ground contacts
+  KB  static_contacts.py    csrc/static_contacts.cu  heightfield + trimesh contacts
   KC  solve.py              csrc/solve_contacts.cu   contact-solve iteration
   KD  integrate_triton.py   (Triton)                 forces, integration
   KE  audio_mix.py          csrc/audio_mix.cu        audio fetch + resample
   KF  audio_mix.py          csrc/audio_mix.cu        low-pass, HRIR, gain ramps
   KG  audio_mix.py          csrc/audio_mix.cu        downmix + reverb
-  KH  ray_trace.py          csrc/ray_trace.cu        ray trace (bodies, heightfield)
+  KH  ray_trace.py          csrc/ray_trace.cu        ray trace (bodies, hulls, heightfield,
+                                                     trimesh)
   KI  particles_triton.py   (Triton)                 particle update after the ray
   KJ  vehicles.py           csrc/vehicles.cu         vehicle force models
   KK  closed_forms.py       csrc/closed_forms.cu     sphere/box/capsule contacts
   KL  character.py          csrc/character.cu        the character update
   KM  serving_io.py         csrc/serving_io.cu       serving-tick input apply
   KN  serving_io.py         csrc/serving_io.cu       event digest + transform block
+  KO  convex.py             csrc/convex.cu           hull (convex SAT) contacts
 """
 
-from substrata_tpu_torch.kernels import (audio_mix, box_box, character, closed_forms,
+from substrata_tpu_torch.kernels import (audio_mix, box_box, character, closed_forms, convex,
                                          integrate_triton, particles_triton, ray_trace,
                                          serving_io, solve, static_contacts, vehicles)
 
@@ -43,6 +45,7 @@ def launch_counts() -> dict:
         "closed_form_rows": closed_forms.launches,
         "character_update": character.launches,
         **serving_io.launches,
+        "convex_rows": convex.launches,
     }
 
 
@@ -55,6 +58,7 @@ def reset_launch_counts():
     vehicles.launches = 0
     closed_forms.launches = 0
     character.launches = 0
+    convex.launches = 0
     for counts in (integrate_triton.launches, audio_mix.launches, serving_io.launches):
         for k in counts:
             counts[k] = 0

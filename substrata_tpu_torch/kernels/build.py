@@ -47,10 +47,12 @@ SIGNATURES = {
     # P, out a, b, point, normal, pen, valid, fric, rest, key, touch, stream
     "box_box_rows": [P] * 9 + [I] + [P] * 10 + [P],
     # pos, quat, shape_type, shape_params, alive, layer, motion, sensor,
-    # awake, fric, rest, heights, hf_origin, hf_cell_w, has_hf, N, HX, HY,
-    # flags (bit 0 = flat, bits 1-4 = present shape types), K, out a, b,
-    # point, normal, pen, valid, fric, rest, key, stream
-    "static_contacts": [P] * 15 + [I] * 5 + [P] * 9 + [P],
+    # awake, fric, rest, heights, hf_origin, hf_cell_w, has_hf, hull verts,
+    # hull n_verts, tri verts, tris, cell_tris, tri origin, tri cell_w, N,
+    # HX, HY, flags (bit 0 = flat, bits 1-4 = present shape types, bit 5 =
+    # trimesh), K, H, max hull verts, GX, GY, cell cap, candidates, out a,
+    # b, point, normal, pen, valid, fric, rest, key, stream
+    "static_contacts": [P] * 22 + [I] * 11 + [P] * 9 + [P],
     # static rows (dir, ang, r, k, target, fric, valid, y, l), pair rows
     # (dir, ang_a, ang_b, ra, rb, k, target, fric, valid, ab, y, l),
     # linvel, angvel, out (s_y, s_l, p_y, p_l, dlin_s, dang_s, block),
@@ -72,9 +74,12 @@ SIGNATURES = {
     "audio_downmix_reverb": [P] * 9 + [P] * 3 + [I] * 4 + [P],
     # origins, dirs, max_ts, exclude, pos, quat, bound_radius, shape_type,
     # shape_params, alive, layer, table, os_idx, heights, hf_origin,
-    # hf_cell_w, has_hf, R, num_buckets, cap, n_os, HX, HY, n_steps,
-    # body_steps, K, flags, cell_size, out t, normal, body, hit, stream
-    "ray_trace": [P] * 17 + [I] * 10 + [F] + [P] * 4 + [P],
+    # hf_cell_w, has_hf, hull planes, hull n_faces, tri verts, tris,
+    # tri_mats, tri_owner, cell_tris, tri origin, tri cell_w, R,
+    # num_buckets, cap, n_os, HX, HY, n_steps, body_steps, K, flags (bit 3
+    # = trimesh), H, max hull faces, GX, GY, cell cap, cell_size, out t,
+    # normal, body, hit, material, stream
+    "ray_trace": [P] * 26 + [I] * 15 + [F] + [P] * 5 + [P],
     # 33 vehicle rows (kernels/vehicles.py:KERNEL_FIELDS), 5 inputs,
     # body_pos, body_quat, body_lin, body_ang, mass, iw, hit_t, hit_n,
     # hit_ok, water_z, V, dt, out dv, dw, steering, sus_len, omega, rot,
@@ -84,11 +89,18 @@ SIGNATURES = {
     # blocked, out a, b, point, normal, pen, valid, fric, rest, key, touch,
     # stream
     "closed_form_rows": [P] * 9 + [I] * 4 + [P] * 10 + [P],
+    # ba, bb, bvalid, pos, quat, params, fric, rest, sensor, hull verts,
+    # n_verts, planes, n_faces, cap, code, wm, blocked, H, max verts, max
+    # faces, out a, b, point, normal, pen, valid, fric, rest, key, touch,
+    # stream
+    "convex_rows": [P] * 13 + [I] * 7 + [P] * 10 + [P],
     # 9 character fields, pos, quat, linvel, angvel, shape_type, params,
     # bound_radius, alive, layer, sensor, table, os_idx, heights, hf_origin,
-    # hf_cell_w, has_hf, water_z, scal, num_buckets, cap, n_os, n_centers,
-    # HX, HY, flat, cell_size, out 9 character fields, packed, stream
-    "character_update": [P] * 9 + [P] * 18 + [I] * 7 + [F] + [P] * 10 + [P],
+    # hf_cell_w, has_hf, water_z, scal, tri verts, tris, cell_tris, tri
+    # origin, tri cell_w, num_buckets, cap, n_os, n_centers, HX, HY, flat,
+    # GX, GY, cell cap (0 = no trimesh), cell_size, out 9 character fields,
+    # packed, stream
+    "character_update": [P] * 9 + [P] * 18 + [P] * 5 + [I] * 10 + [F] + [P] * 10 + [P],
     # pos, quat, linvel, angvel, awake, sleep_timer, alive, motion_type,
     # bound_radius, tick_in, N, out pos, quat, linvel, angvel, awake,
     # sleep_timer, stream

@@ -13,7 +13,10 @@ of the tick's scalars:
 
 returning the new character fields and the packed vector
 ``[campos (4), jumped, on_ground, pos (3), vel (3), ground_vel (3),
-touched (K)]``, K = 6 static rows + the candidate rows.
+touched (K)]``, K = 6 static rows + the candidate rows.  The static rows
+are the capsule segment's three sample spheres against the heightfield,
+then the same three against every triangle of their trimesh grid cells
+(the deepest, the first on ties; invalid when the world has no trimesh).
 
 The candidate rows are, in the reference's order: the 27-cell
 neighbourhoods (``_NEIGHBOR_OFFSETS`` order, ``cell_capacity`` slots each)
@@ -39,9 +42,10 @@ import torch
 
 from substrata_tpu_torch.kernels import build
 from substrata_tpu_torch.kernels import closed_forms as cf
+from substrata_tpu_torch.kernels.static_contacts import trimesh_sphere_rows
 from substrata_tpu_torch.maths import quat as quatm
 from substrata_tpu_torch.physics import broadphase
-from substrata_tpu_torch.physics.state import BodyState, Heightfield, ShapeType
+from substrata_tpu_torch.physics.state import BodyState, Heightfield, ShapeType, TriMesh
 
 # PlayerPhysics.cpp:24-33 (substrata_tpu/physics/character.py:40-51)
 RUN_FACTOR = 5.0
@@ -57,7 +61,7 @@ STICK_TO_FLOOR_STEP = 0.5
 STAIR_STEP_UP = 0.4
 MAX_SLOPE_COS = 0.6428  # cos(50 deg), Jolt CharacterVirtual default
 MAX_PROBE_CONTACTS = 40
-N_STATIC = 6             # 3 heightfield rows, then 3 (empty) trimesh rows
+N_STATIC = 6             # 3 heightfield rows, then 3 trimesh rows
 N_PACKED_HEAD = 15
 
 # Fields of the character state, in the order the kernel takes them.
@@ -174,7 +178,31 @@ def _contacts(center, half_h, c: Candidates, rows):
     return nrm, pen, pt, cvel, ok
 
 
-def capsule_probe(feet, cyl_h, c: Candidates, hf: Heightfield, has_hf):
+def _trimesh_rows(samples, tm: TriMesh | None):
+    """The three trimesh rows of each probe (character.py:204-227): each
+    sample sphere against all ``cap`` triangles of its grid cell -> (normal,
+    pen, point, ok) [M, 3, ...]; a sample whose cell holds no triangle (or
+    a world without a trimesh) gives the invalid row (0, 0, 1), -1e9, 0."""
+    m, dev = samples.shape[0], samples.device
+    n = quatm.basis((m, 3), 2, dev)
+    pen = torch.full((m, 3), -1e9, device=dev)
+    pt = torch.zeros((m, 3, 3), device=dev)
+    if tm is None or tm.count == 0:
+        return n, pen, pt, torch.zeros((m, 3), dtype=torch.bool, device=dev)
+    flat = samples.reshape(m * 3, 3)
+    tpen, tcp, tcn, tok = trimesh_sphere_rows(
+        tm, flat, torch.full((m * 3,), SPHERE_RAD, device=dev), tm.cell_tris.shape[2])
+    best = torch.argmax(tpen, dim=1)
+    r = torch.arange(m * 3, device=dev)
+    anyc = tok.any(dim=1)
+    pen = torch.where(anyc, tpen[r, best], -1e9).reshape(m, 3)
+    pt = torch.where(anyc[:, None], tcp[r, best], 0.0).reshape(m, 3, 3)
+    n = torch.where(anyc[:, None], tcn[r, best], n.reshape(m * 3, 3)).reshape(m, 3, 3)
+    return n, pen, pt, pen > -0.05
+
+
+def capsule_probe(feet, cyl_h, c: Candidates, hf: Heightfield, has_hf,
+                  trimesh: TriMesh | None = None):
     """All contacts of the character capsule at each foot position
     (character.py:147-242) for feet [M, 3].
 
@@ -198,7 +226,8 @@ def capsule_probe(feet, cyl_h, c: Candidates, hf: Heightfield, has_hf):
         n_b[mi, ri], pen_b[mi, ri], pt_b[mi, ri], vel_b[mi, ri], ok_b[mi, ri] = _contacts(
             center[mi], half_h, c, ri)
 
-    # Static world: 3 sample spheres along the segment on the heightfield.
+    # Static world: 3 sample spheres along the segment, on the heightfield
+    # and on the trimesh.
     z0 = torch.zeros_like(half_h)
     samples = torch.stack([center + torch.stack([z0, z0, -half_h]), center,
                            center + torch.stack([z0, z0, half_h])], dim=1)   # [M, 3, 3]
@@ -206,13 +235,12 @@ def capsule_probe(feet, cyl_h, c: Candidates, hf: Heightfield, has_hf):
     hf_pen = (h - (samples[..., 2] - SPHERE_RAD)) * hfn[..., 2]
     hf_pt = torch.cat([samples[..., :2], h[..., None]], dim=-1)
     hf_ok = has_hf & (hf_pen > -0.05)
-    # The static trimesh (slice 3) is empty: its three rows are invalid.
-    tm_n = quatm.basis((m, 3), 2, dev)
+    tm_n, tm_pen, tm_pt, tm_ok = _trimesh_rows(samples, trimesh)
     n_all = torch.cat([hfn, tm_n, n_b], dim=1)
-    pen_all = torch.cat([hf_pen, torch.full((m, 3), -1e9, device=dev), pen_b], dim=1)
-    pt_all = torch.cat([hf_pt, torch.zeros((m, 3, 3), device=dev), pt_b], dim=1)
+    pen_all = torch.cat([hf_pen, tm_pen, pen_b], dim=1)
+    pt_all = torch.cat([hf_pt, tm_pt, pt_b], dim=1)
     vel_all = torch.cat([torch.zeros((m, 6, 3), device=dev), vel_b], dim=1)
-    ok_all = torch.cat([hf_ok, torch.zeros((m, 3), dtype=torch.bool, device=dev), ok_b], dim=1)
+    ok_all = torch.cat([hf_ok, tm_ok, ok_b], dim=1)
     id_all = torch.cat([torch.full((N_STATIC,), -1, dtype=c.idx.dtype, device=dev), c.idx])
     return n_all, pen_all, pt_all, id_all, vel_all, ok_all
 
@@ -238,7 +266,8 @@ def _max_ok_pen(pen, ok):
 
 
 def character_packed_plain(char: dict, body: BodyState, hf: Heightfield, has_hf, water_z,
-                           table, os_idx, scal, *, cell_size: float, grid_dim: int):
+                           table, os_idx, scal, *, cell_size: float, grid_dim: int,
+                           trimesh: TriMesh | None = None):
     """One substep of PlayerPhysics::update (character.py:264-523).
     Returns (new character fields, packed [15 + K])."""
     dev = body.device
@@ -257,7 +286,7 @@ def character_packed_plain(char: dict, body: BodyState, hf: Heightfield, has_hf,
                           exclude)
 
     def probe(feet):
-        return capsule_probe(feet, cyl_h, c, hf, has_hf)
+        return capsule_probe(feet, cyl_h, c, hf, has_hf, trimesh)
 
     def probe1(f):
         n, pen, pt, bid, cv, ok = probe(f[None])
@@ -388,7 +417,8 @@ def character_packed_plain(char: dict, body: BodyState, hf: Heightfield, has_hf,
 
 
 def character_packed(char: dict, body: BodyState, hf: Heightfield, has_hf, water_z, table,
-                     os_idx, scal, *, cell_size: float, grid_dim: int, out=None):
+                     os_idx, scal, *, cell_size: float, grid_dim: int,
+                     trimesh: TriMesh | None = None, out=None):
     """KL: ``character_packed_plain`` for CPU tensors, ``csrc/character.cu``
     (one block, one launch) for CUDA tensors.  ``out``, when given, is the
     [15 + K] float32 tensor the packed vector goes to (a view into the
@@ -396,7 +426,8 @@ def character_packed(char: dict, body: BodyState, hf: Heightfield, has_hf, water
     global launches
     if body.pos.device.type == "cpu":
         new, packed = character_packed_plain(char, body, hf, has_hf, water_z, table, os_idx,
-                                             scal, cell_size=cell_size, grid_dim=grid_dim)
+                                             scal, cell_size=cell_size, grid_dim=grid_dim,
+                                             trimesh=trimesh)
         if out is not None:
             out.copy_(packed)
             packed = out
@@ -425,6 +456,19 @@ def character_packed(char: dict, body: BodyState, hf: Heightfield, has_hf, water
             (hf.cell_w, "hf_cell_w", f32, ()), (has_hf, "has_heightfield", bl, ()),
             (water_z, "water_z", f32, ()), (scal, "scal", f32, (8,))):
         build.check(t, name, dt, shp, dev)
+    use_tm = trimesh is not None and trimesh.count > 0
+    if use_tm:
+        for t, name, dt, shp in (
+                (trimesh.verts, "tri_verts", f32, (trimesh.verts.shape[0], 3)),
+                (trimesh.tris, "tris", i32, (trimesh.tris.shape[0], 3)),
+                (trimesh.cell_tris, "cell_tris", i32, tuple(trimesh.cell_tris.shape)),
+                (trimesh.origin, "tri_origin", f32, (2,)),
+                (trimesh.cell_w, "tri_cell_w", f32, ())):
+            build.check(t, name, dt, shp, dev)
+        tm_args = (trimesh.verts, trimesh.tris, trimesh.cell_tris, trimesh.origin,
+                   trimesh.cell_w, *trimesh.cell_tris.shape)
+    else:
+        tm_args = (None,) * 5 + (0, 0, 0)
     new = {name: torch.empty(shp, dtype=char[name].dtype, device=dev)
            for name, shp in shapes.items()}
     if out is None:
@@ -434,8 +478,8 @@ def character_packed(char: dict, body: BodyState, hf: Heightfield, has_hf, water
                  body.linvel, body.angvel, body.shape_type, body.shape_params,
                  body.bound_radius, body.alive, body.layer, body.is_sensor, table, os_idx,
                  hf.heights, hf.origin, hf.cell_w, has_hf, water_z, scal,
-                 grid_dim * grid_dim, cap, os_idx.shape[0], n_centers(cell_size), hx, hy,
-                 1 if hf.is_flat else 0, float(cell_size), *(new[f] for f in STATE_FIELDS),
-                 out)
+                 *tm_args[:5], grid_dim * grid_dim, cap, os_idx.shape[0], n_centers(cell_size),
+                 hx, hy, 1 if hf.is_flat else 0, *tm_args[5:], float(cell_size),
+                 *(new[f] for f in STATE_FIELDS), out)
     launches += 1
     return new, out

@@ -230,10 +230,22 @@ def closed_form_rows_plain(code: int, wm: int, blocked: bool, pos, quat, shape_p
     Returns (a, b, point, normal, pen, valid, friction, restitution, key,
     touching [cap]); ``a`` is -1 on empty slots in the blocked layout and
     the raw id in the compacted one, as the reference emits them."""
+    a, b = ba.long(), bb.long()
+    manifold = closed_form(code, pos[a], quat[a], shape_params[a], pos[b], quat[b],
+                           shape_params[b])
+    return bucket_rows_plain(wm, blocked, manifold, friction, restitution, is_sensor, ba, bb,
+                             bvalid)
+
+
+def bucket_rows_plain(wm: int, blocked: bool, manifold, friction, restitution, is_sensor,
+                      ba, bb, bvalid):
+    """The per-bucket epilogue of pair_contacts (narrowphase.py:729-775) on
+    a bucket's 4-slot manifolds: the speculative prune, sensor, friction
+    and restitution, ``wm`` rows per slot, ``key = b*4 + slot + 9`` and
+    the touching flag (KK's and KO's, ``csrc/closed_forms.cuh:write_rows``)."""
+    pts, pens, normal, valid = manifold
     cap = ba.shape[0]
     a, b = ba.long(), bb.long()
-    pts, pens, normal, valid = closed_form(code, pos[a], quat[a], shape_params[a],
-                                           pos[b], quat[b], shape_params[b])
     valid = prune_speculative(pens, valid & bvalid[:, None])
     touching = torch.any(valid, dim=-1)
     sensor = is_sensor[a] | is_sensor[b]
@@ -241,7 +253,7 @@ def closed_form_rows_plain(code: int, wm: int, blocked: bool, pos, quat, shape_p
     re = combine_restitution(restitution[a], restitution[b])
     a32 = (torch.where(bvalid, a, -1) if blocked else a).to(torch.int32)
     b32 = b.to(torch.int32)
-    slot = torch.arange(wm, dtype=torch.int32, device=pos.device)
+    slot = torch.arange(wm, dtype=torch.int32, device=pts.device)
     return (a32.repeat_interleave(wm), b32.repeat_interleave(wm),
             pts[:, :wm].reshape(cap * wm, 3), normal.repeat_interleave(wm, dim=0),
             pens[:, :wm].reshape(cap * wm),

@@ -1,8 +1,10 @@
-"""Batched ray trace against dynamic bodies and the heightfield (kernel KH).
+"""Batched ray trace against the bodies, the heightfield and the static
+trimesh (kernel KH).
 
-Replaces ``substrata_tpu/physics/queries.py:_ray_bodies`` (:243) and
-``_ray_heightfield_single`` (:180) as ``trace_rays`` (:395) combines them
-(the trimesh and the hull-plane clip are not in the port yet).
+Replaces ``substrata_tpu/physics/queries.py:_ray_bodies`` (:243) with the
+hull-plane clip ``_ray_hull_planes`` (:134), ``_ray_heightfield_single``
+(:180) and ``_ray_trimesh_single`` (:223) with ``_ray_triangle`` (:161), as
+``trace_rays`` (:395-440) combines them.
 
 Stage 1 marches ``body_steps`` sample points per ray, gathers the cell
 table rows of the 9 xy-neighbour cells at each point (the int32-wrapping
@@ -11,9 +13,14 @@ and keys every candidate by its bounding-sphere entry distance.  With
 ``dedup`` a body that appears several times keeps its key once.  The ``k``
 smallest keys survive, ties going to the lower slot (``dedup``) or to the
 earlier candidate (no ``dedup``), as ``lax.top_k`` picks them.  Stage 2
-runs the exact sphere, box and capsule tests on the survivors and takes
-the first minimum; the heightfield (the flat analytic hit, or the march
-with 10 bisection steps) is the other operand of the final min.
+runs the exact sphere, box, capsule or hull test on the survivors (a hull:
+the ray in hull-local space clipped by the library's face planes, the
+entering face's normal, the first on ties) and takes the first minimum.
+The heightfield (the flat analytic hit, or the march with 10 bisection
+steps) and the trimesh (the first 8 triangles of the grid cell at each of
+the ``n_steps`` march points, Möller-Trumbore, the first minimum) are the
+other operands of the final min; the trimesh wins only strictly, and then
+reports its triangle's owner as the hit body and its material.
 
 ``ray_trace`` launches ``csrc/ray_trace.cu`` for CUDA tensors and runs
 ``ray_trace_plain`` for CPU tensors.  The plain twin is written out
@@ -27,13 +34,16 @@ import numpy as np
 import torch
 
 from substrata_tpu_torch.kernels import build
+from substrata_tpu_torch.kernels.static_contacts import trimesh_cells
 from substrata_tpu_torch.maths import quat as quatm
 from substrata_tpu_torch.physics import broadphase
-from substrata_tpu_torch.physics.state import BodyState, Heightfield, ShapeType
+from substrata_tpu_torch.physics.state import (BodyState, Heightfield, HullLibrary, ShapeType,
+                                               TriMesh)
 
 BIG = 1e9
 MAX_K = 16          # survivors per ray the kernel keeps (queries.py: k_cand)
 BISECT_STEPS = 10
+TRI_CAP = 8         # triangles read per grid cell of the march (queries.py:425)
 
 launches = 0
 
@@ -116,20 +126,85 @@ def _ray_capsule(o, d, pc, qc, r, hh):
     return t, n
 
 
-def _ray_shapes(o, d, st, prm, pos, q):
-    """Exact test against each candidate's own shape -> (t, n).  Hull
-    bodies (none can exist without a hull library) miss with a zero
-    normal, as the reference's test against an empty library does."""
+def _ray_hull_planes(o, d, pos, q, pl, nf):
+    """queries.py:_ray_hull_planes: the ray in hull-local space, clipped by
+    the face planes ``pl`` [..., F, 4] (the first ``nf`` valid) -> (t,
+    normal of the entering face that set t, the first on ties)."""
+    ol = quatm.inverse_rotate_vec(q, o - pos)
+    dl = quatm.inverse_rotate_vec(q, d)
+    n = pl[..., :3]
+    denom = quatm.dot3(n, dl[..., None, :])
+    dist = pl[..., 3] - quatm.dot3(n, ol[..., None, :])
+    eps = 1e-9
+    t_pl = dist / torch.where(torch.abs(denom) > eps, denom, eps)
+    fmask = torch.arange(pl.shape[-2], device=pl.device) < nf[..., None]
+    entering = fmask & (denom < -eps)
+    exiting = fmask & (denom > eps)
+    parallel_out = fmask & (torch.abs(denom) <= eps) & (dist < 0.0)
+    t_enter = torch.where(entering, t_pl, 0.0).max(dim=-1).values
+    t_exit = torch.where(exiting, t_pl, BIG).min(dim=-1).values
+    ok = (t_enter <= t_exit) & ~parallel_out.any(dim=-1) & (nf > 0) & (t_enter > 0.0)
+    j = torch.argmax(torch.where(entering, t_pl, -BIG), dim=-1, keepdim=True)
+    nj = torch.gather(n, -2, j[..., None].expand(j.shape + (3,)))[..., 0, :]
+    return torch.where(ok, t_enter, BIG), quatm.rotate_vec(q, nj)
+
+
+def _ray_shapes(o, d, st, prm, pos, q, hulls: HullLibrary):
+    """Exact test against each candidate's own shape -> (t, n); a hull
+    body takes its library row ``params[0]``."""
     t_s, n_s = _ray_sphere(o, d, pos, prm[..., 0])
     t_b, n_b = _ray_box(o, d, pos, q, prm[..., :3])
     t_c, n_c = _ray_capsule(o, d, pos, q, prm[..., 0], prm[..., 1])
-    t_h, n_h = torch.full_like(t_s, BIG), torch.zeros_like(n_s)
+    hid = torch.clamp(prm[..., 0].to(torch.int32), 0, hulls.capacity - 1).long()
+    t_h, n_h = _ray_hull_planes(o, d, pos, q, hulls.planes[hid], hulls.n_faces[hid])
     sph, box, cap = (st == int(ShapeType.SPHERE), st == int(ShapeType.BOX),
                      st == int(ShapeType.CAPSULE))
     t = torch.where(sph, t_s, torch.where(box, t_b, torch.where(cap, t_c, t_h)))
     n = torch.where(sph[..., None], n_s, torch.where(
         box[..., None], n_b, torch.where(cap[..., None], n_c, n_h)))
     return t, n
+
+
+def _ray_triangle(o, d, v0, v1, v2):
+    """queries.py:_ray_triangle (Moller-Trumbore) -> (t, BIG on a miss;
+    unit normal facing the ray)."""
+    e1, e2 = v1 - v0, v2 - v0
+    p = quatm.cross(d, e2)
+    det = quatm.dot3(e1, p)
+    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-12, det, 1e-12)
+    s = o - v0
+    u = quatm.dot3(s, p) * inv_det
+    qv = quatm.cross(s, e1)
+    v = quatm.dot3(d, qv) * inv_det
+    t = quatm.dot3(e2, qv) * inv_det
+    ok = (torch.abs(det) > 1e-12) & (u >= 0) & (v >= 0) & (u + v <= 1) & (t >= 0)
+    n = quatm.cross(e1, e2)
+    n = n / torch.clamp(torch.sqrt(quatm.dot3(n, n)), min=1e-12)[..., None]
+    n = torch.where((quatm.dot3(n, d) > 0)[..., None], -n, n)
+    return torch.where(ok, t, BIG), n
+
+
+def _ray_trimesh(origins, dirs, max_ts, tm: TriMesh, n_steps: int):
+    """queries.py:_ray_trimesh_single over all rays -> (t, normal,
+    material, owner) of the first nearest triangle among the first 8 of
+    the cell at each march point."""
+    r = origins.shape[0]
+    k = min(tm.cell_tris.shape[2], TRI_CAP)
+    ts = march_fractions(n_steps, origins.device)[None, :] * max_ts[:, None]
+    ps = origins[:, None, :] + dirs[:, None, :] * ts[..., None]
+    ci, cj = trimesh_cells(tm, ps[..., :2])
+    cand = tm.cell_tris[ci, cj][..., :k].reshape(r, n_steps * k)
+    tri = tm.tris[torch.clamp(cand, min=0).long()].long()
+    o = origins[:, None, :].expand(r, n_steps * k, 3)
+    d = dirs[:, None, :].expand(r, n_steps * k, 3)
+    t, n = _ray_triangle(o, d, tm.verts[tri[..., 0]], tm.verts[tri[..., 1]],
+                         tm.verts[tri[..., 2]])
+    t = torch.where(cand >= 0, t, BIG)
+    best = torch.argmin(t, dim=1, keepdim=True)
+    tri_best = torch.clamp(torch.gather(cand, 1, best)[:, 0], min=0).long()
+    return (torch.gather(t, 1, best)[:, 0],
+            torch.gather(n, 1, best[..., None].expand(r, 1, 3))[:, 0],
+            tm.tri_mats[tri_best], tm.tri_owner[tri_best])
 
 
 def survivors(origins, dirs, max_ts, body: BodyState, table, os_idx, cell_size: float,
@@ -188,9 +263,9 @@ def survivors(origins, dirs, max_ts, body: BodyState, table, os_idx, cell_size: 
     return torch.cat(buckets, dim=1), cand, torch.gather(slot_s, 1, ti), key_k < BIG
 
 
-def _ray_bodies(origins, dirs, max_ts, body: BodyState, table, os_idx, cell_size: float,
-                grid_dim: int, n_steps: int, exclude, collidable_only: bool, k: int,
-                dedup: bool):
+def _ray_bodies(origins, dirs, max_ts, body: BodyState, table, os_idx, hulls: HullLibrary,
+                cell_size: float, grid_dim: int, n_steps: int, exclude, collidable_only: bool,
+                k: int, dedup: bool):
     """queries.py:_ray_bodies -> (t [R], normal [R, 3], slot [R], -1 = none)."""
     r = origins.shape[0]
     _, _, slotk, okk = survivors(origins, dirs, max_ts, body, table, os_idx, cell_size,
@@ -202,7 +277,7 @@ def _ray_bodies(origins, dirs, max_ts, body: BodyState, table, os_idx, cell_size
     o = origins[:, None, :].expand(r, k, 3)
     d = dirs[:, None, :].expand(r, k, 3)
     t, n = _ray_shapes(o, d, body.shape_type[sk], body.shape_params[sk], body.pos[sk],
-                       body.quat[sk])
+                       body.quat[sk], hulls)
     t_all = torch.where(okk, t, BIG)
     best = torch.argmin(t_all, dim=1, keepdim=True)
     t_best = torch.gather(t_all, 1, best)[:, 0]
@@ -245,25 +320,35 @@ def _ray_heightfield(origins, dirs, max_ts, hf: Heightfield, n_steps: int):
 
 
 def ray_trace_plain(origins, dirs, max_ts, body: BodyState, table, os_idx, hf: Heightfield,
-                    has_heightfield, exclude, *, cell_size: float, grid_dim: int,
-                    n_steps: int, body_steps: int, collidable_only: bool, k: int,
-                    dedup: bool):
-    """First hit among the bodies and the heightfield ->
-    (t [R], normal [R, 3], body [R] i32, hit [R] bool)."""
-    tb, nb, bi = _ray_bodies(origins, dirs, max_ts, body, table, os_idx, cell_size,
+                    has_heightfield, exclude, hulls: HullLibrary, trimesh: TriMesh, *,
+                    cell_size: float, grid_dim: int, n_steps: int, body_steps: int,
+                    collidable_only: bool, k: int, dedup: bool):
+    """First hit among the bodies, the heightfield and the trimesh ->
+    (t [R], normal [R, 3], body [R] i32, hit [R] bool, material [R] i32).
+    A trimesh with no triangles is skipped (its grid holds none)."""
+    tb, nb, bi = _ray_bodies(origins, dirs, max_ts, body, table, os_idx, hulls, cell_size,
                              grid_dim, body_steps, exclude, collidable_only, k, dedup)
     th, nh = _ray_heightfield(origins, dirs, max_ts, hf, n_steps)
     th = torch.where(has_heightfield, th, BIG)
-    body_wins = tb <= th
-    t = torch.minimum(tb, th)
+    if trimesh.count > 0:
+        tm, nm, mat, owner = _ray_trimesh(origins, dirs, max_ts, trimesh, n_steps)
+    else:
+        tm, nm = torch.full_like(tb, BIG), torch.zeros_like(nb)
+        mat = owner = torch.zeros_like(bi)
+    body_first = (tb <= th) & (tb <= tm)
+    tri_wins = (tm < th) & (tm < tb)
+    t = torch.minimum(torch.minimum(tb, th), tm)
     hit = t <= max_ts
-    return (torch.where(hit, t, BIG), torch.where(body_wins[:, None], nb, nh),
-            torch.where(body_wins, bi, -1), hit)
+    n = torch.where(body_first[:, None], nb, torch.where((th <= tm)[:, None], nh, nm))
+    bodyi = torch.where(body_first, bi, torch.where(tri_wins, owner, -1))
+    return (torch.where(hit, t, BIG), n, bodyi.to(torch.int32), hit,
+            torch.where(tri_wins, mat, 0).to(torch.int32))
 
 
 def ray_trace(origins, dirs, max_ts, body: BodyState, table, os_idx, hf: Heightfield,
-              has_heightfield, exclude, *, cell_size: float, grid_dim: int, n_steps: int,
-              body_steps: int, collidable_only: bool, k: int, dedup: bool):
+              has_heightfield, exclude, hulls: HullLibrary, trimesh: TriMesh, *,
+              cell_size: float, grid_dim: int, n_steps: int, body_steps: int,
+              collidable_only: bool, k: int, dedup: bool):
     """KH: ``ray_trace_plain`` for CPU tensors, ``csrc/ray_trace.cu`` (one
     thread per ray) for CUDA tensors."""
     global launches
@@ -271,7 +356,7 @@ def ray_trace(origins, dirs, max_ts, body: BodyState, table, os_idx, hf: Heightf
               body_steps=body_steps, collidable_only=collidable_only, k=k, dedup=dedup)
     if origins.device.type == "cpu":
         return ray_trace_plain(origins, dirs, max_ts, body, table, os_idx, hf,
-                               has_heightfield, exclude, **kw)
+                               has_heightfield, exclude, hulls, trimesh, **kw)
     if k > MAX_K:
         raise ValueError(f"ray_trace: k={k} survivors, the kernel keeps at most {MAX_K}")
     dev = origins.device
@@ -289,17 +374,31 @@ def ray_trace(origins, dirs, max_ts, body: BodyState, table, os_idx, hf: Heightf
             (table, "table", i32, (grid_dim * grid_dim + 1, table.shape[1])),
             (os_idx, "os_idx", i32, (os_idx.shape[0],)),
             (hf.heights, "heights", f32, (hx, hy)), (hf.origin, "hf_origin", f32, (2,)),
-            (hf.cell_w, "hf_cell_w", f32, ()), (has_heightfield, "has_heightfield", bl, ())):
+            (hf.cell_w, "hf_cell_w", f32, ()), (has_heightfield, "has_heightfield", bl, ()),
+            (hulls.planes, "hull_planes", f32, (hulls.capacity, hulls.max_faces, 4)),
+            (hulls.n_faces, "hull_n_faces", i32, (hulls.capacity,)),
+            (trimesh.verts, "tri_verts", f32, (trimesh.verts.shape[0], 3)),
+            (trimesh.tris, "tris", i32, (trimesh.tris.shape[0], 3)),
+            (trimesh.tri_mats, "tri_mats", i32, (trimesh.tris.shape[0],)),
+            (trimesh.tri_owner, "tri_owner", i32, (trimesh.tris.shape[0],)),
+            (trimesh.cell_tris, "cell_tris", i32, tuple(trimesh.cell_tris.shape)),
+            (trimesh.origin, "tri_origin", f32, (2,)), (trimesh.cell_w, "tri_cell_w", f32, ())):
         build.check(t, name, dt, shp, dev)
+    if hulls.max_faces > 32:
+        raise ValueError("ray_trace: the kernel clips at most 32 hull faces")
     out = (torch.empty(r, dtype=f32, device=dev), torch.empty((r, 3), dtype=f32, device=dev),
-           torch.empty(r, dtype=i32, device=dev), torch.empty(r, dtype=bl, device=dev))
+           torch.empty(r, dtype=i32, device=dev), torch.empty(r, dtype=bl, device=dev),
+           torch.empty(r, dtype=i32, device=dev))
     flags = ((1 if hf.is_flat else 0) | (2 if collidable_only else 0)
-             | (4 if dedup else 0))
+             | (4 if dedup else 0) | (8 if trimesh.count > 0 else 0))
+    gx, gy, tcap = trimesh.cell_tris.shape
     build.launch("ray_trace", origins, dirs, max_ts, exclude, body.pos, body.quat,
                  body.bound_radius, body.shape_type, body.shape_params, body.alive,
                  body.layer, table, os_idx, hf.heights, hf.origin, hf.cell_w,
-                 has_heightfield, r, grid_dim * grid_dim, table.shape[1],
-                 os_idx.shape[0], hx, hy, n_steps, body_steps, k, flags,
-                 float(cell_size), *out)
+                 has_heightfield, hulls.planes, hulls.n_faces, trimesh.verts, trimesh.tris,
+                 trimesh.tri_mats, trimesh.tri_owner, trimesh.cell_tris, trimesh.origin,
+                 trimesh.cell_w, r, grid_dim * grid_dim, table.shape[1],
+                 os_idx.shape[0], hx, hy, n_steps, body_steps, k, flags, hulls.capacity,
+                 hulls.max_faces, gx, gy, tcap, float(cell_size), *out)
     launches += 1
     return out

@@ -12,9 +12,7 @@ also owns the kinematic capsule proxy body that lets the solver push
 dynamic bodies.
 
 Not in this slice: pipelined readback (``set_pipelined`` with a depth
-raises, ROADMAP.md queue 1, slice 2) and probes against a static trimesh
-(slice 3: the probe's three trimesh rows stay empty, and a world with
-triangles raises).
+raises, ROADMAP.md queue 1, slice 2).
 """
 
 from __future__ import annotations
@@ -88,17 +86,14 @@ def player_update_packed(char: CharacterState, body: BodyState, world: StaticWor
     scalars ``scal`` [8] (see ``tick_scalars``).  ``table``: a cell table
     shared with the tick's other queries; ``out``: where the packed vector
     goes.  Returns (new state, packed [15 + K])."""
-    if world.n_tris:
-        raise NotImplementedError(
-            "character probes against a static trimesh are not ported yet (ROADMAP.md "
-            "queue 1, slice 3: the other shapes)")
     if table is None:
         table = broadphase.build_cell_table(body, config)[0]
     if os_idx is None:
         os_idx = queries.oversize_slots(body, config)
     new, packed = _kl.character_packed(
         _fields(char), body, world.heightfield, world.has_heightfield, params.water_z, table,
-        os_idx, scal, cell_size=config.cell_size, grid_dim=config.grid_dim, out=out)
+        os_idx, scal, cell_size=config.cell_size, grid_dim=config.grid_dim,
+        trimesh=world.trimesh, out=out)
     return CharacterState(**new), packed
 
 

@@ -1,15 +1,13 @@
-"""Contact generation for worlds of spheres, boxes and capsules.
+"""Contact generation.
 
 Counterpart of ``substrata_tpu/physics/narrowphase.py``: ``pair_contacts``
-with the box-box manifold (kernel KA, ``kernels/box_box.py``) and the
-sphere/box/capsule closed forms (kernel KK, ``kernels/closed_forms.py``),
-bucketed by combo code in mixed worlds, in the pair-blocked or the
-compacted layout; the heightfield branch of ``static_contacts`` (kernel
-KB, ``kernels/static_contacts.py``); ``compact_contacts``.
-
-Not in this slice (ROADMAP.md queue 1, slice 3): convex hulls and static
-trimeshes; ``pair_contacts`` and ``static_contacts`` raise
-NotImplementedError for them.
+with the box-box manifold (kernel KA, ``kernels/box_box.py``), the
+sphere/box/capsule closed forms (kernel KK, ``kernels/closed_forms.py``)
+and the generic convex SAT of the hull combos (kernel KO,
+``kernels/convex.py``), bucketed by combo code in mixed worlds, in the
+pair-blocked or the compacted layout; ``static_contacts`` against the
+heightfield and the static trimesh (kernel KB,
+``kernels/static_contacts.py``); ``compact_contacts``.
 
 Contact convention: ``normal`` points from body B (or the static world)
 toward body A; positive ``penetration`` = overlapping.
@@ -23,14 +21,15 @@ import torch
 
 from substrata_tpu_torch.kernels import box_box as _ka
 from substrata_tpu_torch.kernels import closed_forms as _kk
+from substrata_tpu_torch.kernels import convex as _ko
 from substrata_tpu_torch.kernels import static_contacts as _kb
 from substrata_tpu_torch.kernels.box_box import (  # noqa: F401
     CONTACT_MARGIN, box_box as _box_box, combine_friction, combine_restitution,
     prune_speculative,
 )
 from substrata_tpu_torch.kernels.static_contacts import shape_sample_points  # noqa: F401
-from substrata_tpu_torch.physics.state import (BodyState, ShapeType, SimConfig,
-                                               StaticWorld, _Replace)
+from substrata_tpu_torch.physics.state import (BodyState, HullLibrary, ShapeType, SimConfig,
+                                               StaticWorld, _Replace, empty_hull_library)
 
 
 @dataclasses.dataclass
@@ -91,8 +90,9 @@ def blocked_manifold_width(config: SimConfig, capacity: int) -> int:
     return wm
 
 
-def _bucket_rows(code: int, wm: int, blocked: bool, body: BodyState, ba, bb, bvalid):
-    """One bucket's rows through KA (box-box) or KK (the closed forms)."""
+def _bucket_rows(code: int, wm: int, blocked: bool, body: BodyState, ba, bb, bvalid, hulls):
+    """One bucket's rows through KA (box-box), KK (the closed forms) or KO
+    (the hull codes)."""
     if code == _BOX_BOX:
         rows = _ka.box_box_rows(body.pos, body.quat, body.shape_params, body.friction,
                                 body.restitution, body.is_sensor, ba, bb, bvalid)
@@ -100,6 +100,10 @@ def _bucket_rows(code: int, wm: int, blocked: bool, body: BodyState, ba, bb, bva
             # Compacted layout keeps raw ids on empty slots.
             rows = (ba.repeat_interleave(_ka.WM),) + tuple(rows[1:])
         return rows
+    if code in _ko.CODES:
+        return _ko.convex_rows(code, wm, blocked, body.pos, body.quat, body.shape_params,
+                               body.friction, body.restitution, body.is_sensor, ba, bb, bvalid,
+                               hulls)
     return _kk.closed_form_rows(code, wm, blocked, body.pos, body.quat, body.shape_params,
                                 body.friction, body.restitution, body.is_sensor, ba, bb,
                                 bvalid)
@@ -146,7 +150,7 @@ def buckets(body: BodyState, pair_a, pair_b, pair_valid, config: SimConfig):
 
 
 def pair_contacts(body: BodyState, pair_a, pair_b, pair_valid,
-                  config: SimConfig, blocked_wm: int = 0):
+                  config: SimConfig, hulls: HullLibrary | None = None, blocked_wm: int = 0):
     """Manifolds for the broadphase pair list.
 
     A world with one shape combo runs its kernel on the pair list in
@@ -154,7 +158,9 @@ def pair_contacts(body: BodyState, pair_a, pair_b, pair_valid,
     sort and runs each present code's kernel on its bucket, a slice of the
     sorted order (``max_pairs`` slots for same-type codes, ``max(64,
     max_pairs // 4)`` for the others; a run longer than its bucket counts
-    as overflow).  Nothing reads back to the host.
+    as overflow).  ``hulls`` (the static world's library) feeds the hull
+    codes; None stands for a one-row empty library, as in the reference.
+    Nothing reads back to the host.
 
     Returns (Contacts, pair_touching [P], bucket overflow [])."""
     p = pair_a.shape[0]
@@ -173,17 +179,14 @@ def pair_contacts(body: BodyState, pair_a, pair_b, pair_valid,
                          key=torch.zeros((1,), dtype=torch.int32, device=dev)),
                 torch.zeros((p,), dtype=torch.bool, device=dev),
                 torch.zeros((), dtype=torch.int32, device=dev))
-    hull = [c for c in active if c not in _kk.CODES and c != _BOX_BOX]
-    if hull:
-        raise NotImplementedError(
-            f"shape combos {hull} (convex hulls) are not ported yet "
-            "(ROADMAP.md queue 1, slice 3: the other shapes)")
+    if hulls is None:
+        hulls = empty_hull_library(capacity=1, device=dev)
     single = len(active) == 1
     bucket_list, overflow = buckets(body, pair_a, pair_b, pair_valid, config)
     batches, touch_src = [], []
     for code, src, ba, bb, bvalid in bucket_list:
         rows = _bucket_rows(code, blocked_wm or _MANIFOLD_WIDTH[code], bool(blocked_wm), body,
-                            ba, bb, bvalid)
+                            ba, bb, bvalid, hulls)
         batches.append(rows[:9])
         touch_src.append((src, rows[9]))
     contacts = Contacts(*(torch.cat([bt[i] for bt in batches]) for i in range(9)))
@@ -198,14 +201,14 @@ def pair_contacts(body: BodyState, pair_a, pair_b, pair_valid,
 
 
 def static_contacts(body: BodyState, world: StaticWorld, config: SimConfig) -> Contacts:
-    """Ground contacts of every body's sample points, body-blocked [N*K]."""
-    if world.n_tris:
-        raise NotImplementedError(
-            "static trimesh contacts are not ported yet (ROADMAP.md queue 1, "
-            "slice 3: the other shapes)")
+    """Static contacts (heightfield and trimesh) of every body's sample
+    points, body-blocked [N*K].  The hull samples come from the world's
+    hull library; the reference's ``hull_contact_verts`` argument (step.py:
+    132) is never read there, so the port does not take it."""
     k = min(config.static_contacts_per_body, 8)
     rows = _kb.static_contacts(body, world.heightfield, world.has_heightfield,
-                               k, config.present_shape_types)
+                               k, config.present_shape_types, world.hulls, world.trimesh,
+                               config.max_tri_candidates)
     return Contacts(*rows)
 
 

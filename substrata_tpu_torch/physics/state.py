@@ -3,10 +3,9 @@
 Counterpart of ``substrata_tpu/physics/state.py``: the same fields, dtypes
 and shapes, as dataclasses of tensors.  Everything is fixed-capacity: dead
 slots are masked out with ``alive`` and recycled by the host-side free
-list in ``physics.world.PhysicsWorld``.
-
-Not in this slice: static triangle meshes and the convex-hull library
-(``StaticWorld`` carries empty placeholders for both).
+list in ``physics.world.PhysicsWorld``.  The static world holds the
+heightfield, the merged static trimesh with its xy grid of triangle ids
+(``build_trimesh``, host numpy) and the convex-hull library.
 """
 
 from __future__ import annotations
@@ -134,6 +133,139 @@ def zero_body_state(capacity: int, *, device) -> BodyState:
 
 
 @dataclasses.dataclass
+class HullLibrary(_Replace):
+    """Padded convex-hull table: vertices in each hull's principal frame
+    (COM at the origin), padded with repeats of the first vertex, and unit
+    outward face planes (n, d: n·x <= d), padded with zeros."""
+
+    verts: torch.Tensor    # [H, MAX_HULL_VERTS, 3] f32
+    n_verts: torch.Tensor  # [H] i32
+    planes: torch.Tensor   # [H, MAX_HULL_FACES, 4] f32
+    n_faces: torch.Tensor  # [H] i32
+
+    @property
+    def capacity(self) -> int:
+        return self.verts.shape[0]
+
+    @property
+    def max_verts(self) -> int:
+        return self.verts.shape[1]
+
+    @property
+    def max_faces(self) -> int:
+        return self.planes.shape[1]
+
+
+def empty_hull_library(capacity: int = 64, max_verts: int = 32, max_faces: int = 32, *,
+                       device) -> HullLibrary:
+    return HullLibrary(
+        verts=torch.zeros((capacity, max_verts, 3), dtype=torch.float32, device=device),
+        n_verts=torch.zeros((capacity,), dtype=torch.int32, device=device),
+        planes=torch.zeros((capacity, max_faces, 4), dtype=torch.float32, device=device),
+        n_faces=torch.zeros((capacity,), dtype=torch.int32, device=device),
+    )
+
+
+@dataclasses.dataclass
+class TriMesh(_Replace):
+    """Static triangle soup with a uniform xy grid of triangle ids
+    (``cell_tris``, -1 padded).  ``count`` is the host's copy of the
+    triangle count (the empty mesh keeps a one-triangle placeholder and 0)."""
+
+    verts: torch.Tensor      # [V, 3] f32
+    tris: torch.Tensor       # [T, 3] i32
+    tri_mats: torch.Tensor   # [T] i32 material index of each triangle
+    tri_owner: torch.Tensor  # [T] i32 owning object id (-1 = world geometry)
+    cell_tris: torch.Tensor  # [GX, GY, CAP] i32 triangle ids, -1 padded
+    origin: torch.Tensor     # [2] grid origin xy
+    cell_w: torch.Tensor     # [] cell width
+    n_tris: torch.Tensor     # [] i32
+    count: int = 0
+
+
+def empty_trimesh(grid=(4, 4), cap=4, *, device) -> TriMesh:
+    i32 = dict(dtype=torch.int32, device=device)
+    return TriMesh(
+        verts=torch.zeros((3, 3), dtype=torch.float32, device=device),
+        tris=torch.zeros((1, 3), **i32),
+        tri_mats=torch.zeros((1,), **i32),
+        tri_owner=torch.full((1,), -1, **i32),
+        cell_tris=torch.full(tuple(grid) + (cap,), -1, **i32),
+        origin=torch.tensor([-1e3, -1e3], dtype=torch.float32, device=device),
+        cell_w=torch.tensor(1e3, dtype=torch.float32, device=device),
+        n_tris=torch.zeros((), **i32),
+    )
+
+
+def trimesh_grid(verts: np.ndarray, tris: np.ndarray, grid_dim: int = 64,
+                 cell_cap: int = 32):
+    """The reference's host build of the triangle grid (state.py:299-345):
+    every triangle goes into each cell its xy bounding box covers, filled in
+    triangle order (a stable argsort per covered cell offset); a cell keeps
+    its first ``cell_cap`` and drops the rest.  Returns (cell_tris [GX, GY,
+    cap] i32, origin [2] f32, cell_w)."""
+    verts = np.asarray(verts, np.float32)
+    tris = np.asarray(tris, np.int32)
+    nt = len(tris)
+    tv = verts[tris]
+    lo = tv.min(axis=1)[:, :2]
+    hi = tv.max(axis=1)[:, :2]
+    gmin = verts[:, :2].min(axis=0) - 1e-3
+    gmax = verts[:, :2].max(axis=0) + 1e-3
+    cell_w = float(max((gmax - gmin).max() / grid_dim, 1e-3))
+    gx = max(1, min(grid_dim, int(np.ceil((gmax[0] - gmin[0]) / cell_w))))
+    gy = max(1, min(grid_dim, int(np.ceil((gmax[1] - gmin[1]) / cell_w))))
+    cell_tris = np.full((gx, gy, cell_cap), -1, np.int32)
+    counts = np.zeros((gx, gy), np.int32)
+    ilo = np.clip(((lo - gmin) / cell_w).astype(np.int32), 0, [gx - 1, gy - 1])
+    ihi = np.clip(((hi - gmin) / cell_w).astype(np.int32), 0, [gx - 1, gy - 1])
+    span = ihi - ilo
+    tids = np.arange(nt, dtype=np.int32)
+    max_di = int(span[:, 0].max()) if nt else 0
+    max_dj = int(span[:, 1].max()) if nt else 0
+    for di in range(max_di + 1):
+        for dj in range(max_dj + 1):
+            m = (span[:, 0] >= di) & (span[:, 1] >= dj)
+            ti = tids[m]
+            ci = ilo[m, 0] + di
+            cj = ilo[m, 1] + dj
+            flat = ci.astype(np.int64) * gy + cj
+            order = np.argsort(flat, kind="stable")
+            fs = flat[order]
+            run_start = np.concatenate([[0], np.flatnonzero(fs[1:] != fs[:-1]) + 1])
+            rank = np.arange(len(fs)) - np.repeat(run_start, np.diff(
+                np.concatenate([run_start, [len(fs)]])))
+            slot = counts[ci[order], cj[order]] + rank
+            ok = slot < cell_cap
+            cell_tris[ci[order][ok], cj[order][ok], slot[ok]] = ti[order][ok]
+            np.add.at(counts, (ci, cj), 1)
+            np.clip(counts, 0, cell_cap, out=counts)
+    return cell_tris, gmin.astype(np.float32), cell_w
+
+
+def build_trimesh(verts: np.ndarray, tris: np.ndarray, tri_mats: np.ndarray | None = None,
+                  grid_dim: int = 64, cell_cap: int = 32,
+                  tri_owner: np.ndarray | None = None, *, device) -> TriMesh:
+    """Host-side build (``trimesh_grid``), uploaded to ``device``."""
+    verts = np.asarray(verts, np.float32)
+    tris = np.asarray(tris, np.int32)
+    nt = len(tris)
+    if tri_mats is None:
+        tri_mats = np.zeros((nt,), np.int32)
+    if tri_owner is None:
+        tri_owner = np.full((nt,), -1, np.int32)
+    cell_tris, origin, cell_w = trimesh_grid(verts, tris, grid_dim, cell_cap)
+
+    def t(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x, dtype), device=device)
+    return TriMesh(verts=t(verts, np.float32), tris=t(tris, np.int32),
+                   tri_mats=t(tri_mats, np.int32), tri_owner=t(tri_owner, np.int32),
+                   cell_tris=t(cell_tris, np.int32), origin=t(origin, np.float32),
+                   cell_w=torch.tensor(cell_w, dtype=torch.float32, device=device),
+                   n_tris=torch.tensor(nt, dtype=torch.int32, device=device), count=nt)
+
+
+@dataclasses.dataclass
 class Heightfield(_Replace):
     """Regular-grid heightfield, z-up.  ``is_flat`` selects the ground-plane
     fast path: samples collapse to heights[0, 0] and normal (0, 0, 1)."""
@@ -203,18 +335,19 @@ def flat_heightfield(extent: float = 1000.0, z: float = 0.0, res: int = 8, *,
 
 @dataclasses.dataclass
 class StaticWorld(_Replace):
-    """Static environment: heightfield terrain and the water plane.
-
-    ``n_tris`` and ``n_hulls`` stand for the static trimesh and the hull
-    library, which arrive in a later slice; both are 0 here, and
-    PhysicsWorld raises NotImplementedError on any call that would add one.
-    """
+    """Static environment: heightfield terrain, the static trimesh, the
+    hull library and the water plane."""
 
     heightfield: Heightfield
     has_heightfield: torch.Tensor  # [] bool
+    trimesh: TriMesh
+    hulls: HullLibrary
     water_z: torch.Tensor          # [] f32; -1e10 = no water
-    n_tris: int = 0
-    n_hulls: int = 0
+
+    @property
+    def n_tris(self) -> int:
+        """Triangles in the static trimesh (host count; 0 = none)."""
+        return self.trimesh.count
 
 
 def default_static_world(ground_z: float = 0.0, water_z: float = -1e10, *,
@@ -222,6 +355,8 @@ def default_static_world(ground_z: float = 0.0, water_z: float = -1e10, *,
     return StaticWorld(
         heightfield=flat_heightfield(z=ground_z, device=device),
         has_heightfield=torch.tensor(True, device=device),
+        trimesh=empty_trimesh(device=device),
+        hulls=empty_hull_library(device=device),
         water_z=torch.tensor(water_z, dtype=torch.float32, device=device),
     )
 

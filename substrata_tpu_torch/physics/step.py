@@ -76,7 +76,7 @@ def physics_step(body: BodyState, world: StaticWorld, dt: float, params: SimPara
     # (or the compacted buffer when the world has no shape combo).
     wm = narrowphase.blocked_manifold_width(config, n)
     pair_cts, pair_touching, bucket_overflow = narrowphase.pair_contacts(
-        body, pair_a, pair_b, pair_valid, config, blocked_wm=wm)
+        body, pair_a, pair_b, pair_valid, config, hulls=world.hulls, blocked_wm=wm)
     static_cts = narrowphase.static_contacts(body, world, config)
     if wm:
         contacts_p = pair_cts

@@ -9,15 +9,22 @@ and each tick reads back exactly one small packed array: ``think`` the
 event digest (kernel KN), ``think_with_player`` the digest and the
 character's packed vector in one buffer.
 
-Not in this slice (ROADMAP.md queue 1): pipelined readback, batched
-snapshot transforms, virtual anchors, static mesh instances and
-trimeshes, hulls and snapshots.  Each raises NotImplementedError naming
-its item.
+Static geometry: a base static trimesh and per-object static mesh
+instances merge into one device trimesh, rebuilt at the next flush; a
+static mesh object's identity lives on a virtual anchor (an id at or above
+``capacity`` that owns triangles and resolves ray hits, with no device
+slot).  Convex hulls are interned, by content, into the world's hull
+library (64 hulls of 32 vertices and 32 faces), uploaded at the flush.
+
+Not in this slice (ROADMAP.md queue 1, slice 2): pipelined readback,
+batched snapshot transforms and snapshots.  Each raises
+NotImplementedError naming its item.
 """
 
 from __future__ import annotations
 
 import copy
+import hashlib
 import math
 from dataclasses import dataclass, field as dfield
 from typing import Any
@@ -30,9 +37,9 @@ from substrata_tpu_torch.kernels import serving_io
 from substrata_tpu_torch.physics import broadphase, queries, shapes as shape_factories, solver
 from substrata_tpu_torch.physics.character import player_update_packed
 from substrata_tpu_torch.physics.state import (
-    BodyState, Heightfield, Layer, MotionType, ShapeType, SimConfig,
-    SimParams, default_sim_params, default_static_world, flat_heightfield,
-    zero_body_state,
+    BodyState, Heightfield, HullLibrary, Layer, MotionType, ShapeType, SimConfig,
+    SimParams, build_trimesh, default_sim_params, default_static_world, empty_trimesh,
+    flat_heightfield, zero_body_state,
 )
 from substrata_tpu_torch.device import resolve_device
 from substrata_tpu_torch.physics.step import physics_step
@@ -43,7 +50,6 @@ USERDATA_INSTANCE = 2
 USERDATA_AVATAR = 3
 
 _SLICE2 = "ROADMAP.md queue 1, slice 2: facade completion"
-_SLICE3 = "ROADMAP.md queue 1, slice 3: the other shapes"
 
 
 def _not_ported(what: str, item: str):
@@ -160,6 +166,23 @@ class PhysicsWorld:
         self.water_buoyancy_enabled = False
         self._water_z = -1e10
 
+        # Static geometry: the base trimesh and the mesh instances, merged
+        # into static_world.trimesh at the next flush.
+        self._base_trimesh = None
+        self._mesh_instances: dict[int, tuple] = {}
+        self._next_mesh_instance = 1
+        self._static_trimesh_dirty = False
+        # The hull library (host-built, uploaded at the next flush) and the
+        # content key of each interned hull.
+        self._hull_host = dict(verts=np.zeros((64, 32, 3), np.float32),
+                               n_verts=np.zeros((64,), np.int32),
+                               planes=np.zeros((64, 32, 4), np.float32),
+                               n_faces=np.zeros((64,), np.int32))
+        self._hull_ids: dict = {}
+        self._num_hulls = 0
+        self._hulls_dirty = False
+        self._next_virtual = self.config.capacity   # virtual anchor ids
+
         self.objects: dict[int, PhysicsObject] = {}
         self._free = list(range(self.config.capacity - 1, -1, -1))
         self._dirty: dict[int, tuple] = {}
@@ -219,13 +242,62 @@ class PhysicsWorld:
             has_heightfield=torch.tensor(True, device=self.device))
 
     def set_static_trimesh(self, verts, tris, tri_mats=None):
-        _not_ported("static trimesh geometry", _SLICE3)
+        """The base (world) static trimesh, kept apart from the mesh
+        instances; the merged trimesh is rebuilt now."""
+        self._base_trimesh = (np.asarray(verts, np.float32), np.asarray(tris, np.int32),
+                              None if tri_mats is None else np.asarray(tri_mats, np.int32))
+        self._rebuild_static_trimesh()
 
-    def add_static_mesh_instance(self, verts, tris, tri_mats=None, owner_slot: int = -1):
-        _not_ported("static mesh instances", _SLICE3)
+    def add_static_mesh_instance(self, verts, tris, tri_mats=None,
+                                 owner_slot: int = -1) -> int:
+        """One static mesh object's world-space triangles, owned by
+        ``owner_slot`` (a ray hit on them resolves to that object).  All
+        instances merge into one device trimesh at the next flush.
+        Returns an instance id for ``remove_static_mesh_instance``."""
+        inst_id = self._next_mesh_instance
+        self._next_mesh_instance += 1
+        nt = len(tris)
+        self._mesh_instances[inst_id] = (
+            np.asarray(verts, np.float32), np.asarray(tris, np.int32),
+            np.zeros((nt,), np.int32) if tri_mats is None else np.asarray(tri_mats, np.int32),
+            int(owner_slot))
+        self._static_trimesh_dirty = True
+        return inst_id
 
     def remove_static_mesh_instance(self, inst_id: int):
-        _not_ported("static mesh instances", _SLICE3)
+        """Drop an instance; bodies resting on its triangles wake (a wake
+        region over its bounding sphere)."""
+        inst = self._mesh_instances.pop(inst_id, None)
+        if inst is not None:
+            self._static_trimesh_dirty = True
+            v = inst[0]
+            if len(v):
+                center = 0.5 * (v.min(axis=0) + v.max(axis=0))
+                radius = float(np.linalg.norm(v.max(axis=0) - center))
+                self._wake_regions.append((center, radius))
+
+    def _rebuild_static_trimesh(self):
+        self._static_trimesh_dirty = False
+        parts = []
+        if self._base_trimesh is not None:
+            bv, bt, bm = self._base_trimesh
+            parts.append((bv, bt, np.zeros((len(bt),), np.int32) if bm is None else bm, -1))
+        parts.extend(self._mesh_instances.values())
+        if not parts:
+            self.static_world = self.static_world.replace(
+                trimesh=empty_trimesh(device=self.device))
+            return
+        verts, tris, mats, owners = [], [], [], []
+        off = 0
+        for v, t, m, owner in parts:
+            verts.append(v)
+            tris.append(t + off)
+            mats.append(m)
+            owners.append(np.full((len(t),), owner, np.int32))
+            off += len(v)
+        self.static_world = self.static_world.replace(trimesh=build_trimesh(
+            np.concatenate(verts), np.concatenate(tris), np.concatenate(mats),
+            tri_owner=np.concatenate(owners), device=self.device))
 
     # ------------------------------------------------------------------
     # Object management
@@ -233,10 +305,10 @@ class PhysicsWorld:
     def add_object(self, ob: PhysicsObject) -> PhysicsObject:
         if not self._free:
             raise RuntimeError(f"PhysicsWorld at capacity {self.config.capacity}")
-        if ob.shape.shape_type == int(ShapeType.HULL):
-            _not_ported("convex hull bodies (hull interning)", _SLICE3)
         if not np.allclose(ob.scale, 1.0):
             ob.shape = shape_factories.scaled(ob.shape, ob.scale)
+        if ob.shape.shape_type == int(ShapeType.HULL) and ob.shape.hull_verts is not None:
+            ob.shape.params[0] = self._intern_hull(ob.shape)
         slot = self._free.pop()
         ob.slot = slot
         self.objects[slot] = ob
@@ -252,10 +324,21 @@ class PhysicsWorld:
         return ob
 
     def add_virtual_anchor(self, ob: PhysicsObject) -> PhysicsObject:
-        _not_ported("virtual anchors", _SLICE2)
+        """An identity-only object: an id in the virtual space (>= capacity)
+        that owns static-trimesh triangles and resolves ray hits through
+        ``self.objects``, with no device body slot."""
+        vid = self._next_virtual
+        self._next_virtual += 1
+        ob.slot = vid
+        self.objects[vid] = ob
+        return ob
 
     def remove_object(self, ob: PhysicsObject):
         if ob.slot < 0:
+            return
+        if ob.slot >= self.config.capacity:      # virtual anchor
+            self.objects.pop(ob.slot, None)
+            ob.slot = -1
             return
         slot = ob.slot
         self.objects.pop(slot, None)
@@ -274,11 +357,47 @@ class PhysicsWorld:
         self._wake_regions.append((np.asarray(ob.pos, np.float32),
                                    float(ob.shape.bound_radius)))
 
+    def _intern_hull(self, shape) -> int:
+        """The hull's library slot, by content (sha1 of its vertices and
+        planes: objects instancing one model share one hull).  Vertices pad
+        with the first vertex, planes with zeros."""
+        key = hashlib.sha1(
+            np.ascontiguousarray(shape.hull_verts).tobytes()
+            + (np.ascontiguousarray(shape.hull_planes).tobytes()
+               if shape.hull_planes is not None else b"")).digest()
+        cached = self._hull_ids.get(key)
+        if cached is not None:
+            return cached
+        lib = self._hull_host
+        cap, mv, mf = lib["verts"].shape[0], lib["verts"].shape[1], lib["planes"].shape[1]
+        if self._num_hulls >= cap:
+            raise RuntimeError("hull library full")
+        h = self._num_hulls
+        self._hull_ids[key] = h
+        v = shape.hull_verts[:mv]
+        lib["verts"][h] = 0.0
+        lib["verts"][h, :len(v)] = v
+        if len(v) < mv:
+            lib["verts"][h, len(v):] = v[0]
+        lib["n_verts"][h] = len(v)
+        pl = (shape.hull_planes[:mf] if shape.hull_planes is not None
+              else np.zeros((0, 4), np.float32))
+        lib["planes"][h] = 0.0
+        lib["planes"][h, :len(pl)] = pl
+        lib["n_faces"][h] = len(pl)
+        self._hulls_dirty = True
+        self._num_hulls += 1
+        return h
+
     # ------------------------------------------------------------------
     # Transform / velocity setters
     # ------------------------------------------------------------------
     def set_new_ob_to_world_transform(self, ob: PhysicsObject, pos, rot,
                                       linvel=None, angvel=None, scale=None):
+        if ob.slot >= self.config.capacity:      # virtual anchor: mirror only
+            ob.pos = np.asarray(pos, np.float32)
+            ob.rot = np.asarray(rot, np.float32)
+            return
         old_pos = ob.pos
         old_vel = ob.linvel
         ob.pos = np.asarray(pos, np.float32)
@@ -298,6 +417,8 @@ class PhysicsWorld:
         if scale is not None and not np.allclose(scale, ob.scale):
             ob.scale = np.asarray(scale, np.float32)
             ob.shape = shape_factories.scaled(ob.shape, ob.scale)
+            if ob.shape.shape_type == int(ShapeType.HULL) and ob.shape.hull_verts is not None:
+                ob.shape.params[0] = self._intern_hull(ob.shape)
             self._dirty[ob.slot] = (ob, True)
         else:
             self._xform_dirty[ob.slot] = (ob, linvel is not None or angvel is not None)
@@ -373,6 +494,16 @@ class PhysicsWorld:
         as (items, regions) instead, when they fit one serving-tick input
         (128 writes, 64 regions)."""
         deferred = None
+        if self._static_trimesh_dirty:
+            self._rebuild_static_trimesh()
+            # New static geometry can sit under sleeping bodies; a rebuild
+            # is rare (stream-in, removal), so a full wake is fine.
+            self.invalidate_pairs()
+        if self._hulls_dirty:
+            self.static_world = self.static_world.replace(hulls=HullLibrary(
+                **{k: torch.as_tensor(v.copy(), device=self.device)
+                   for k, v in self._hull_host.items()}))
+            self._hulls_dirty = False
         if self._cache_stale:
             self.solver_cache = solver.empty_solver_cache(
                 solver.cache_size_for(self.config), device=self.device)

@@ -27,7 +27,14 @@ On the 10,000-box bench world (kicked once, after 30 ticks):
    (benchworld.serving_world, 30 ticks in), host-clock ms per
    think_with_player, a profiler pass and a stage pass over the tick's
    parts (tick input, character, step, its compaction and incidence
-   table, digest).
+   table, digest);
+7. the mesh stage: tools/bench_networked.py's 12,000-object mesh world
+   (benchworld.mesh_world: 512 hulls over the merged static trimesh, a
+   walking player, 30 frames in), host-clock ms per client frame
+   (benchworld.mesh_tick: think_with_player and the occlusion rays), a
+   profiler pass (device busy ms, device ops, the port kernels' device
+   times) and a stage pass over the frame's parts (tick input, character,
+   step, its pair and static contacts, KO, the occlusion rays).
 Prints one JSON object and writes the trace to chiprun_out/tick_trace.json.
 """
 
@@ -46,7 +53,7 @@ from substrata_tpu_torch import benchworld
 from substrata_tpu_torch.audio import mix
 from substrata_tpu_torch.benchworld import (N_SOURCES, TICK_FRAMES, bench_audio, bench_fulltick,
                                             bench_world, full_tick, kick, physics_audio_tick)
-from substrata_tpu_torch.kernels import audio_mix, serving_io
+from substrata_tpu_torch.kernels import audio_mix, convex, serving_io
 from substrata_tpu_torch.kernels import particles_triton as kpart
 from substrata_tpu_torch.kernels import vehicles as kveh
 from substrata_tpu_torch.physics import broadphase, integrate, narrowphase, queries, solver
@@ -64,7 +71,7 @@ PORT_KERNELS = ("box_box_rows_kernel", "static_contacts_kernel", "solve_rows_ker
                 "audio_fetch_kernel", "audio_spatialise_kernel", "audio_downmix_kernel",
                 "ray_trace_kernel", "particles_kernel", "vehicle_forces_kernel",
                 "closed_form_rows_kernel", "character_kernel", "apply_tick_in_kernel",
-                "digest_tblock_kernel")
+                "digest_tblock_kernel", "convex_rows_kernel")
 AUDIO_STAGES = [(mix, "prepare"), (audio_mix, "audio_fetch"), (audio_mix, "audio_spatialise"),
                 (audio_mix, "audio_downmix_reverb")]
 FULL_STAGES = [(broadphase, "build_cell_table"), (benchworld, "vehicles_update"),
@@ -76,6 +83,12 @@ SERVING_STAGES = [(serving_io, "apply_tick_in"), (world_mod, "player_update_pack
                   (world_mod, "physics_step"), (narrowphase, "pair_contacts"),
                   (narrowphase, "compact_contacts"), (solver, "build_incidence"),
                   (solver, "prepare_solve"), (solver, "iterate"), (serving_io, "digest_tblock")]
+MESH_STAGES = [(serving_io, "apply_tick_in"), (world_mod, "player_update_packed"),
+               (world_mod, "physics_step"), (narrowphase, "pair_contacts"),
+               (convex, "convex_rows"), (narrowphase, "static_contacts"),
+               (narrowphase, "compact_contacts"), (solver, "build_incidence"),
+               (solver, "prepare_solve"), (solver, "iterate"), (serving_io, "digest_tblock"),
+               (benchworld.queries, "trace_rays")]
 
 
 def _timed(fn, name, acc):
@@ -204,6 +217,18 @@ def serving_scene():
     return serve
 
 
+def mesh_scene():
+    """The 12,000-object mesh world with its walking player: one client
+    frame per call."""
+    w, player, src = benchworld.mesh_world("cuda")
+    state = dict(t=0)
+
+    def frame():
+        benchworld.mesh_tick(w, player, state["t"] * DT, src)
+        state["t"] += 1
+    return frame
+
+
 def main(ticks: int = 24):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -276,6 +301,16 @@ def main(ticks: int = 24):
         ms_per_serving_tick=float(np.median(serve_ms)), device_busy_ms=s_busy, device_ops=s_ops,
         port_kernels=s_ours, staged_ms_per_tick=staged_serve_ms, stages=serve_stages)
 
+    frame = mesh_scene()
+    for _ in range(30):
+        frame()
+    frame_ms = _host_ms(frame, ticks)
+    g_busy, g_ops, _, g_ours = _device_summary(_profiled(frame, ticks), ticks)
+    staged_frame_ms, frame_stages = _staged(MESH_STAGES, frame, ticks)
+    mesh = dict(
+        ms_per_mesh_frame=float(np.median(frame_ms)), device_busy_ms=g_busy, device_ops=g_ops,
+        port_kernels=g_ours, staged_ms_per_frame=staged_frame_ms, stages=frame_stages)
+
     out = dict(
         card=smi, bodies=n_bodies,
         ms_per_think_rebuild=float(np.median(rebuild)), rebuild_ticks=len(rebuild),
@@ -285,7 +320,7 @@ def main(ticks: int = 24):
                           calls_per_tick=n / ticks) for name, (us, n) in top],
         port_kernels=ours,
         staged_ms_per_think=staged_ms, stages=stages, audio=audio, full_tick=full_tick_out,
-        serving_tick=serving)
+        serving_tick=serving, mesh_frame=mesh)
     print(json.dumps(out, indent=1))
     return out
 

@@ -1,4 +1,4 @@
-"""Kernels KA-KN on the card against their plain PyTorch twins, and the
+"""Kernels KA-KO on the card against their plain PyTorch twins, and the
 entry points' default device.
 
 These need a CUDA device and skip without one (the decision is made inside
@@ -11,8 +11,9 @@ Tolerances are chip_smoke.py's: 1e-5 for KA/KB rows, 1e-4 for KC
 velocities after warm start + 7 iterations, 1e-6 for KD and KE, 1e-5 for
 KF and KG, 1e-6 for KH (hit and body exact) and KI, 1e-5 of each output's
 scale for KJ, 1e-5 for KK's rows (masks, keys and touching exact), 1e-6 of
-scale for KL (flags and the touched list exact), KM and KN exact; each
-kernel repeats its twin's operations in the same order."""
+scale for KL (flags and the touched list exact), KM and KN exact, 1e-5
+for KO's rows (masks, keys and touching exact); each kernel repeats its
+twin's operations in the same order."""
 
 import numpy as np
 import pytest
@@ -80,10 +81,10 @@ def test_box_box_kernel_matches_plain(world):
 def test_static_contacts_kernel_matches_plain(world):
     s, sw, cfg = world.state, world.static_world, world.config
     for k in (4, 8):
-        rk = kb.static_contacts(s, sw.heightfield, sw.has_heightfield, k,
-                                cfg.present_shape_types)
-        rp = kb.static_contacts_plain(s, sw.heightfield, sw.has_heightfield, k,
-                                      cfg.present_shape_types)
+        args = (s, sw.heightfield, sw.has_heightfield, k, cfg.present_shape_types, sw.hulls,
+                sw.trimesh)
+        rk = kb.static_contacts(*args)
+        rp = kb.static_contacts_plain(*args)
         for i in (0, 1, 5, 8):
             assert torch.equal(rk[i], rp[i]), (k, i)
         for i in (2, 3, 4, 6, 7):
@@ -201,8 +202,9 @@ def fulltick():
 def _ray_args(w, o, d, mt, ex):
     body, cfg = w.state, w.config
     table = broadphase.build_cell_table(body, cfg)[0]
-    return (o, d, mt, body, table, queries.oversize_slots(body, cfg), w.static_world.heightfield,
-            w.static_world.has_heightfield, ex)
+    sw = w.static_world
+    return (o, d, mt, body, table, queries.oversize_slots(body, cfg), sw.heightfield,
+            sw.has_heightfield, ex, sw.hulls, sw.trimesh)
 
 
 def _check_rays(args, **kw):
@@ -470,3 +472,140 @@ def test_serving_tick_on_card_matches_cpu():
         runs[dev] = (w.state.pos.cpu(), w.state.linvel.cpu(), p.state.pos.cpu())
     for a, b in zip(runs["cuda"], runs["cpu"]):
         assert float((a - b).abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# KO and the hull and trimesh branches of KB, KH and KL
+# ---------------------------------------------------------------------------
+
+def _hull_library(device):
+    """A library of four interned hulls (cube, octahedron, a 60-point
+    cloud, a tetrahedron), built as a world interns them."""
+    w = PhysicsWorld(SimConfig(capacity=8, max_pairs=32, grid_dim=8), device=device)
+    cube = np.array([[x, y, z] for x in (-.5, .5) for y in (-.5, .5) for z in (-.5, .5)])
+    octa = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]]) * 0.6
+    tet = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]]) * 0.8
+    for v in (cube, octa, np.random.default_rng(9).normal(size=(60, 3)) * 0.4, tet):
+        w._intern_hull(shapes.make_convex_hull(v))
+    w._flush()
+    return w.static_world.hulls
+
+
+def _random_hull_rows(gen, code, n):
+    out = _random_rows(gen, code, n)
+    for side, st in enumerate((code // 4, code % 4)):
+        if st == 3:
+            out[side][2][:, 0] = torch.randint(0, 4, (n,), generator=gen, device="cuda").float()
+    return out
+
+
+def test_convex_kernel_matches_plain():
+    """KO on 4,096 random pairs of each hull code, in both layouts: masks,
+    keys and touching exact, rows within 1e-5 on valid rows."""
+    from substrata_tpu_torch.kernels import convex as ko
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    hulls = _hull_library("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    n = 4096
+    for code in ko.CODES:
+        (pa, qa, ra, _), (pb, qb, rb, _) = _random_hull_rows(gen, code, n)
+        pos, quat, prm = torch.cat([pa, pb]), torch.cat([qa, qb]), torch.cat([ra, rb])
+        fr = torch.rand(2 * n, generator=gen, device="cuda")
+        re = torch.rand(2 * n, generator=gen, device="cuda")
+        sens = torch.rand(2 * n, generator=gen, device="cuda") < 0.05
+        ba = torch.arange(n, dtype=torch.int32, device="cuda")
+        bv = torch.rand(n, generator=gen, device="cuda") < 0.9
+        for wm, blocked in ((4, True), (narrowphase._MANIFOLD_WIDTH[code], False)):
+            args = (code, wm, blocked, pos, quat, prm, fr, re, sens, ba, ba + n, bv, hulls)
+            rk, rp = ko.convex_rows(*args), ko.convex_rows_plain(*args)
+            torch.cuda.synchronize()
+            for i in (0, 1, 5, 6, 7, 8, 9):
+                assert torch.equal(rk[i], rp[i]), (code, wm, i)
+            for i in (2, 3, 4):
+                assert float((rk[i] - rp[i]).abs()[rp[5]].max()) <= 1e-5, (code, wm, i)
+        assert int(rp[9].sum()) > n // 3
+
+
+def _mesh(device):
+    cfg = SimConfig(capacity=256, max_pairs=1024, grid_dim=32, cell_size=4.0, solver_iters=7,
+                    pair_rebuild_interval=6)
+    return benchworld.mesh_world(device, n_objects=1200, n_dynamic=96, cfg=cfg)
+
+
+def test_mesh_kernels_match_plain():
+    """KB, KH and KL with their hull and trimesh branches on a 1,200-object
+    mesh world after 40 client frames: KB's rows, KH on the occlusion rays
+    and 1,024 seeded rays into the field, KL on the player; masks, ids,
+    owners and materials exact, floats within 1e-5 (KB), 1e-6 (KH) and
+    1e-6 of scale (KL)."""
+    from substrata_tpu_torch.kernels import character as kl
+    from substrata_tpu_torch.physics import character as tchar
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    w, p, src = _mesh("cuda")
+    for t in range(40):
+        benchworld.mesh_tick(w, p, t * DT, src)
+    s, sw, cfg = w.state, w.static_world, w.config
+    assert sw.n_tris > 10_000
+    args = (s, sw.heightfield, sw.has_heightfield, 4, cfg.present_shape_types, sw.hulls,
+            sw.trimesh, cfg.max_tri_candidates)
+    rk, rp = kb.static_contacts(*args), kb.static_contacts_plain(*args)
+    torch.cuda.synchronize()
+    for i in (0, 1, 5, 8):
+        assert torch.equal(rk[i], rp[i]), i
+    for i in (2, 3, 4):
+        assert float((rk[i] - rp[i]).abs()[rp[5]].max()) <= 1e-5, i
+    ch = p.state
+    cam = torch.cat([ch.pos[:2], (ch.pos[2:] + 1.67) - ch.campos_z_delta[None]])
+    o, d, mt, _ = benchworld.occlusion_rays(cam, s.pos[src])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    ro = torch.rand((1024, 3), generator=gen, device="cuda") * torch.tensor(
+        [120.0, 120.0, 6.0], device="cuda") - torch.tensor([60.0, 60.0, -0.5], device="cuda")
+    rd = torch.randn((1024, 3), generator=gen, device="cuda")
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    rt = torch.rand(1024, generator=gen, device="cuda") * 40.0
+    none = torch.full((1024,), -1, dtype=torch.int32, device="cuda")
+    for rays in ((o, d, mt, torch.full_like(src, -1, dtype=torch.int32)), (ro, rd, rt, none)):
+        a = _ray_args(w, *rays)
+        rk = _check_rays(a, cell_size=cfg.cell_size, grid_dim=cfg.grid_dim, n_steps=16,
+                         body_steps=16, collidable_only=True, k=16, dedup=True)
+        kr = kray.ray_trace(*a, cell_size=cfg.cell_size, grid_dim=cfg.grid_dim, n_steps=16,
+                            body_steps=16, collidable_only=True, k=16, dedup=True)
+        assert torch.equal(kr[4], rk[4])
+    assert int((rk[2] >= cfg.capacity).sum()) > 10          # trimesh owners (anchors)
+    table = broadphase.build_cell_table(s, cfg)[0]
+    scal = torch.as_tensor(tchar.tick_scalars(DT, benchworld.walk_input(40 * DT), False, False,
+                                              False, p.proxy.slot), device="cuda")
+    kargs = ({f: getattr(ch, f) for f in tchar.CHARACTER_FIELDS}, s, sw.heightfield,
+             sw.has_heightfield, w.params.water_z, table, queries.oversize_slots(s, cfg), scal)
+    kw = dict(cell_size=cfg.cell_size, grid_dim=cfg.grid_dim, trimesh=sw.trimesh)
+    nk, pk = kl.character_packed(*kargs, **kw)
+    npl, pp = kl.character_packed_plain(*kargs, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(pk[15:], pp[15:]) and torch.equal(pk[4:6], pp[4:6])
+    assert float((pk - pp).abs().max()) <= 1e-6 * max(1.0, float(pp.abs().max()))
+
+
+def test_mesh_world_on_card_matches_cpu():
+    """40 client frames of a 1,200-object mesh world on the card and on the
+    CPU path: the hulls within 1e-5 over frames 0-8, before the first
+    trimesh kick (chip_smoke.py:small_mesh_phase says why not after), the
+    character within 1e-5 and the hit masks equal over all 40."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        w, p, src = _mesh(dev)
+        frames = []
+        for t in range(40):
+            hit = benchworld.mesh_tick(w, p, t * DT, src)[1]
+            frames.append((w.state.pos[src].cpu(), p.state.pos.cpu(), hit))
+        runs[dev] = frames
+    for t, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        if t < 9:
+            assert float((a[0] - b[0]).abs().max()) <= 1e-5, t
+        assert float((a[1] - b[1]).abs().max()) <= 1e-5, t
+        assert np.array_equal(a[2], b[2]), t

@@ -246,8 +246,33 @@ def test_random_rays_over_box_world(call, flat):
 
 
 def test_trimesh_and_hulls_raise():
-    tw = PhysicsWorld(tstate.SimConfig(capacity=32, max_pairs=256, grid_dim=16),
-                      device="cpu")
-    tw.static_world = tw.static_world.replace(n_tris=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tw.trace_ray([0, 0, 5], [0, 0, -1], 10.0)
+    """Rays against a static trimesh and hull bodies no longer raise: the
+    facade's trace_ray resolves a trimesh hit to the owning virtual anchor
+    with its material, a hull hit to its body, both as the reference's
+    trace_ray does on the same world."""
+    def build(world_cls, obj_cls, shp, **kw):
+        w = world_cls(tstate.SimConfig(capacity=32, max_pairs=256, grid_dim=16)
+                      if world_cls is PhysicsWorld else jstate.SimConfig(
+                          capacity=32, max_pairs=256, grid_dim=16), **kw)
+        w.set_ground_plane(0.0)
+        anchor = w.add_virtual_anchor(obj_cls(shape=shp.make_box([0.05] * 3)))
+        w.add_static_mesh_instance(np.array([[-2, -2, 0.5], [2, -2, 0.5], [2, 2, 0.5]],
+                                            np.float32), np.array([[0, 1, 2]], np.int32),
+                                   np.array([5], np.int32), owner_slot=anchor.slot)
+        hull = w.add_object(obj_cls(shape=shp.make_convex_hull(
+            np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]],
+                     np.float32) * 0.5), pos=np.array([-1.0, 1.0, 2.0], np.float32),
+            motion_type=0))
+        return w, anchor, hull
+    tw, tanchor, thull = build(PhysicsWorld, PhysicsObject, tshapes, device="cpu")
+    jw, janchor, jhull = build(JWorld, JObject, jshapes)
+    for o, want in (([1.5, -1.0, 5.0], "anchor"), ([-1.0, 1.0, 5.0], "hull"),
+                    ([-1.5, 1.8, 5.0], None)):
+        th, tt, tn, tob, tmat = tw.trace_ray(o, [0, 0, -1], 10.0)
+        jh, jt, jn_, job, jmat = jw.trace_ray(o, [0, 0, -1], 10.0)
+        assert th and jh and tmat == jmat
+        assert tt == pytest.approx(jt, abs=1e-5)
+        np.testing.assert_allclose(tn, np.asarray(jn_), atol=1e-5)
+        assert tob is {"anchor": tanchor, "hull": thull, None: None}[want]
+        assert job is {"anchor": janchor, "hull": jhull, None: None}[want]
+    assert tmat == 0 and tw.trace_ray([1.5, -1.0, 5.0], [0, 0, -1], 10.0)[4] == 5

@@ -228,16 +228,25 @@ def test_simconfig_matches_reference():
 
 
 def test_unported_entry_points_raise():
+    """Pipelined readback, batched snapshot transforms and snapshots still
+    raise; hulls, static trimeshes and rays against them no longer do."""
     w = make_world()
-    w.static_world = w.static_world.replace(n_tris=1)   # rays: no trimesh yet
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        w.trace_ray([0, 0, 5], [0, 0, -1], 10.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shapes.make_convex_hull(np.eye(3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        w.set_static_trimesh(np.zeros((3, 3)), np.zeros((1, 3), np.int32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         w.set_pipelined(2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        w.save_snapshot("unused.npz")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        w.load_snapshot("unused.npz")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        w.set_new_ob_transforms_batch([], np.zeros((0, 3)), np.zeros((0, 4)),
+                                      np.zeros((0, 3)), np.zeros((0, 3)))
+    hull = shapes.make_convex_hull(np.eye(3))              # a degenerate (planar) cloud
+    assert hull.shape_type == 3 and len(hull.hull_verts) == 3
+    w.set_static_trimesh(np.array([[-5, -5, 0.2], [5, -5, 0.2], [0, 5, 0.2]], np.float32),
+                         np.array([[0, 1, 2]], np.int32))
+    assert w.static_world.n_tris == 1
+    hit, t, n, ob, mat = w.trace_ray([0, 0, 5], [0, 0, -1], 10.0)
+    assert hit and t == pytest.approx(4.8, abs=1e-5) and ob is None and mat == 0
 
 
 def test_import_leaves_jax_out():
@@ -249,7 +258,10 @@ def test_import_leaves_jax_out():
             "substrata_tpu_torch.kernels.particles_triton, "
             "substrata_tpu_torch.kernels.vehicles, substrata_tpu_torch.profile_tick, "
             "substrata_tpu_torch.physics.character, substrata_tpu_torch.kernels.character, "
-            "substrata_tpu_torch.kernels.closed_forms, substrata_tpu_torch.kernels.serving_io; "
+            "substrata_tpu_torch.kernels.closed_forms, substrata_tpu_torch.kernels.serving_io, "
+            "substrata_tpu_torch.kernels.convex, substrata_tpu_torch.kernels.static_contacts, "
+            "substrata_tpu_torch.physics.shapes, substrata_tpu_torch.physics.world, "
+            "scipy.spatial; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'substrata_tpu')]; "
             "assert not bad, bad; print('ok')")

@@ -100,13 +100,19 @@ def body_np(state):
 
 
 def static_world_np(sw):
-    """The reference StaticWorld -> the converter's arrays."""
+    """The reference StaticWorld -> the converter's arrays (heightfield,
+    water, the trimesh and the hull library)."""
     hf = sw.heightfield
+    tm, hl = sw.trimesh, sw.hulls
     return {"heights": np.asarray(hf.heights), "origin": np.asarray(hf.origin),
             "cell_w": np.asarray(hf.cell_w), "is_flat": hf.is_flat,
             "has_heightfield": np.asarray(sw.has_heightfield),
             "water_z": np.asarray(sw.water_z),
-            "n_tris": int(np.asarray(sw.trimesh.n_tris))}
+            "trimesh": {f: np.asarray(getattr(tm, f)) for f in (
+                "verts", "tris", "tri_mats", "tri_owner", "cell_tris", "origin", "cell_w",
+                "n_tris")},
+            "hulls": {f: np.asarray(getattr(hl, f)) for f in (
+                "verts", "n_verts", "planes", "n_faces")}}
 
 
 def params_np(p):
