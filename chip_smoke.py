@@ -37,15 +37,16 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    particle update and KJ vehicle forces, each against its plain twin on
    the same inputs with the tolerance stated beside it, timed as in phase
    3; no single PyTorch call computes any of the three functions;
-9. the full tick: bench.py's window 3 without Winter, 180
-   benchworld.full_tick calls (one cell table, vehicles, the character
-   walking as bench.py's does, think, particles, sources follow bodies,
-   the mix) with phase 5's kick; particles, vehicles and the character
-   finite, no body below z = -0.5, phase 7's audio checks, every kernel
-   launched (KH, KI, KJ and KL at least once per tick), six more ticks
-   make one synchronizing call each, and a 200-box, 16-source,
-   256-particle, 4-vehicle full tick with the character on the card
-   matches the CPU path;
+9. the full tick: bench.py's window 3, 180 benchworld.full_tick calls
+   (one cell table, vehicles, the character walking as bench.py's does,
+   think, particles, the two Winter scripts over 512 instances, sources
+   follow bodies, the mix) with phase 5's kick; particles, vehicles and
+   the character finite, no body below z = -0.5, phase 7's audio checks,
+   every kernel launched (KH, KI, KJ, KL, KP, KQ at least once per tick,
+   KR once), six more ticks make one synchronizing call each, the last
+   script results finite and equal to KR's twin at the same time, and a
+   200-box, 16-source, 256-particle, 4-vehicle full tick with the
+   character and the scripts on the card matches the CPU path;
 10. the character and serving-tick kernels: KK (sphere/box/capsule
    contacts) on 4,096 seeded random pairs of each of its eight combo codes
    and on the serving world's real buckets, KL (the character update) on
@@ -80,7 +81,17 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    frame, ms per frame; the hulls' heights and the character's foot
    reported (see mesh_phase); and a 1,200-object mesh world on the card
    matches the CPU path (the hulls until the first trimesh kick, the
-   character and the occlusion hits over 40 frames; see small_mesh_phase).
+   character and the occlusion hits over 40 frames; see small_mesh_phase);
+14. the cell table, the solve setup and the scripts: KP on the bench world
+   after 30 ticks and on its bodies moved onto a 1.4 m lattice (k * 1.4
+   and one ulp either side), both modes, exact; KQ's setup and refresh on
+   the bench world (pair-blocked rows) and on the serving and mesh worlds
+   (the compacted layout), within 1e-6 of each output's scale with masks,
+   slots and the refreshed cache exact; KR on bench.py's two scripts and
+   on a corpus of one script per builtin and per operator and a
+   let/struct/user-function program, 4,096 instances each, in one launch,
+   exact on arithmetic and within 1e-6 of scale on transcendentals; each
+   timed as in phase 3.
 
 Every kernel also gets its bound: the least time the card could take for
 the same work, the larger of its bytes (each input read once, each output
@@ -89,7 +100,7 @@ written once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s
 
 The last lines are the kernels JSON (launches from phase 9's full ticks,
 from phase 11's serving ticks for KK-KN and from phase 13's mesh frames
-for KO),
+for KO; KQ's two launches are two entries),
 the card's name and power limit, and {"ok": true, "device": {...}}.  TF32 stays off for matmuls and cuDNN
 (the solver's small products must run in full float32).
 """
@@ -97,6 +108,7 @@ the card's name and power limit, and {"ok": true, "device": {...}}.  TF32 stays 
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -698,12 +710,12 @@ def fulltick_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, warm=30, pla
     from substrata_tpu_torch.physics.vehicles.manager import chassis_and_wheel_rays
 
     w = bench_world(device, n_bodies=n_bodies, cfg=cfg)
-    veh, vin, ps, char = bench_fulltick(w, device)
+    veh, vin, ps, char, scripts = bench_fulltick(w, device)
     src, pool, lis, room = bench_audio(device)
     idx = torch.arange(src.capacity, device=device)
     for t in range(warm):
         veh, ps, src, _, room, char = full_tick(w, veh, vin, ps, src, pool, lis, room, idx, char,
-                                                t * DT)
+                                                t * DT, scripts)
     body, cfg, sw = w.state, w.config, w.static_world
     table = broadphase.build_cell_table(body, cfg)[0]
     os_idx = queries.oversize_slots(body, cfg)
@@ -784,15 +796,16 @@ def fulltick_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, warm=30, pla
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: the full tick, bench.py's window 3 without the character and Winter.
+# Phase 9: the full tick, bench.py's window 3.
 # ---------------------------------------------------------------------------
 
 def full_tick_phase(device="cuda", n_bodies=10_000, cfg=None, sync=torch.cuda.synchronize):
     from substrata_tpu_torch import kernels
     from substrata_tpu_torch.benchworld import (bench_audio, bench_fulltick, bench_world,
                                                 full_tick, kick)
+    from substrata_tpu_torch.kernels import winter as kr
     w = bench_world(device, n_bodies=n_bodies, cfg=cfg)
-    veh, vin, ps, char = bench_fulltick(w, device)
+    veh, vin, ps, char, scripts = bench_fulltick(w, device)
     src, pool, lis, room = bench_audio(device)
     idx = torch.arange(src.capacity, device=device)
     gen = torch.Generator(device=device)
@@ -806,24 +819,36 @@ def full_tick_phase(device="cuda", n_bodies=10_000, cfg=None, sync=torch.cuda.sy
         sync()
         t0 = time.perf_counter()
         veh, ps, src, out, room, char = full_tick(w, veh, vin, ps, src, pool, lis, room, idx,
-                                                  char, t * DT)
+                                                  char, t * DT, scripts)
         sync()
         times.append((time.perf_counter() - t0) * 1e3)
     counts = kernels.launch_counts()
     rms, lr = out_checks(out)
     for name in PHYSICS_KERNELS:
         check(counts[name] > 0, f"kernel {name} never launched on the full tick")
-    for name in AUDIO_KERNELS:
+    for name in AUDIO_KERNELS + ("winter_eval",):
         check(counts[name] == TICKS, f"kernel {name}: {counts[name]} launches in {TICKS} ticks")
-    for name in FULLTICK_KERNELS + ("character_update",):
+    for name in FULLTICK_KERNELS + ("character_update", "cell_table", "solve_setup",
+                                    "cache_refresh"):
         check(counts[name] >= TICKS, f"kernel {name}: {counts[name]} launches in {TICKS} ticks")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         for t in range(TICKS, TICKS + SYNC_TICKS):
             veh, ps, src, out, room, char = full_tick(w, veh, vin, ps, src, pool, lis, room, idx,
-                                                      char, t * DT)
+                                                      char, t * DT, scripts)
         torch.cuda.set_sync_debug_mode("default")
+    # The scripts' last result against KR's twin at the same time: the
+    # rotation exact, the translation (sin, cos) within 1e-6 of its scale.
+    t_last = (TICKS + SYNC_TICKS - 1) * DT
+    want = kr.winter_eval_plain(scripts.batch, scripts.time(t_last), scripts.idx,
+                                scripts.n_inst)
+    got = scripts.out
+    check(bool(torch.isfinite(got).all()), "non-finite script results")
+    check(torch.equal(got[:, :3], want[:, :3]), "script rotations differ from KR's twin")
+    winter_err = max_err(got[:, 3:], want[:, 3:])
+    check(winter_err <= 1e-6 * max(1.0, float(want.abs().max())),
+          f"script translations: max abs err {winter_err} vs KR's twin")
     syncs = [str(c.message).splitlines()[0] for c in caught
              if str(c.message).startswith("called a synchronizing CUDA operation")]
     check(len(syncs) == SYNC_TICKS,
@@ -841,7 +866,8 @@ def full_tick_phase(device="cuda", n_bodies=10_000, cfg=None, sync=torch.cuda.sy
                         veh.engine_rpm[:, None]], dim=1)
     check(bool(torch.isfinite(vstate).all()), "non-finite vehicle state")
     seen = char_ok(char, w, -1)
-    return dict(**seen,
+    return dict(**seen, winter_vs_twin_max_abs_err=winter_err,
+        winter_rotation_z_max=float(got[:, 2].max()),
         ms_per_tick_median=float(np.median(times[30:])),
         ms_per_tick_p90=float(np.percentile(times[30:], 90)),
         first_tick_ms=times[0], out_rms=rms, out_max_lr_diff=lr, launches=counts,
@@ -854,9 +880,9 @@ def full_tick_phase(device="cuda", n_bodies=10_000, cfg=None, sync=torch.cuda.sy
 
 
 def small_fulltick_phase(device="cuda"):
-    """200 boxes, 16 sources, 256 particles, 4 vehicles and the character:
-    10 full ticks on the card and on the CPU path; bodies, particles, audio
-    and the character within 1e-4."""
+    """200 boxes, 16 sources, 256 particles, 4 vehicles, the character and
+    the scripts: 10 full ticks on the card and on the CPU path; bodies,
+    particles, audio, the character and the script results within 1e-4."""
     from substrata_tpu_torch.benchworld import bench_audio, bench_fulltick, bench_world, full_tick
     from substrata_tpu_torch.physics.state import SimConfig
     cfg = SimConfig(capacity=256, max_pairs=1024, grid_dim=32, cell_size=1.4,
@@ -865,19 +891,19 @@ def small_fulltick_phase(device="cuda"):
     runs = {}
     for dev in (device, "cpu"):
         w = bench_world(dev, n_bodies=200, cfg=cfg)
-        veh, vin, ps, char = bench_fulltick(w, dev, n_particles=256, n_vehicles=4)
+        veh, vin, ps, char, scripts = bench_fulltick(w, dev, n_particles=256, n_vehicles=4)
         src, pool, lis, room = bench_audio(dev, n_sources=16)
         idx = torch.arange(16, device=dev)
         outs = []
         for t in range(10):
             veh, ps, src, out, room, char = full_tick(w, veh, vin, ps, src, pool, lis, room, idx,
-                                                      char, t * DT)
+                                                      char, t * DT, scripts)
             outs.append(out.cpu())
         runs[dev] = (w.state.pos.cpu(), ps.pos.cpu(), torch.stack(outs), veh.gear.cpu(),
-                     char.pos.cpu())
-    (bk, pk, ok, gk, ck), (bp, pp, op, gp, cp) = runs[device], runs["cpu"]
+                     char.pos.cpu(), scripts.out.cpu())
+    (bk, pk, ok, gk, ck, sk), (bp, pp, op, gp, cp, sp) = runs[device], runs["cpu"]
     errs = dict(bodies=max_err(bk, bp), particles=max_err(pk, pp), out=max_err(ok, op),
-                character=max_err(ck, cp))
+                character=max_err(ck, cp), scripts=max_err(sk, sp))
     for what, e in errs.items():
         check(e <= 1e-4, f"small full tick: {what} card vs CPU path {e} > 1e-4")
     check(torch.equal(gk, gp), "small full tick: vehicle gears differ")
@@ -1769,13 +1795,310 @@ def small_mesh_phase(device="cuda"):
                 small_mesh_occlusion_hits=int(sum(int(f[2].sum()) for f in runs["cpu"])))
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the cell table (KP), the solve setup and refresh (KQ) and the
+# Winter scripts (KR).
+# ---------------------------------------------------------------------------
+
+# One script per builtin and per operator (the translation hook reads
+# env, the rotation hook time), and a let / struct / user-function script.
+WINTER_CORPUS = [
+    "time + 1.5", "time - 2.25", "time * 0.3", "time / 1.4", "time % 3.0",
+    "toFloat(env.instance_index % 7)", "toFloat(env.instance_index / env.num_instances)",
+    "if(time == 1.0, 1.0, 0.0) + if(time != 2.0, 1.0, 0.0)",
+    "if(time < 0.0, 1.0, 0.0) + if(time <= 1.0, 1.0, 0.0) + if(time > 2.0, 1.0, 0.0)"
+    " + if(time >= 3.0, 1.0, 0.0)",
+    "if(time > 0.0 && env.instance_index > 3 || !(time < -50.0), 1.0, -1.0)", "-time",
+    "sin(time)", "cos(time)", "tan(time * 0.01)", "asin(time * 0.009)", "acos(time * 0.009)",
+    "atan(time)", "atan2(time, 3.0)", "sqrt(abs(time))", "abs(time)", "exp(time * 0.01)",
+    "log(abs(time) + 1.0)", "floor(time)", "ceil(time)", "pow(abs(time), 1.5)",
+    "pow(time, 3)", "mod(time, -2.5)", "min(time, 3.0)", "max(time, -2.0)", "fract(time)",
+    "clamp(time, -1.0, 1.0)", "lerp(1.0, 5.0, time * 0.01)", "step(0.0, time)",
+    "smoothstep(-50.0, 50.0, time)", "smootherstep(-50.0, 50.0, time)",
+    "pulse(-10.0, 10.0, time)", "toFloat(env.instance_index)", "real(env.num_instances)",
+    "toFloat(toInt(time * 3.0))", "toFloat(truncateToInt(time))", "toFloat(floorToInt(time))",
+    "toFloat(ceilToInt(time))", "neg(time)", "recip(time)", "pi() * time",
+    "if(time > 0.0, time * 2.0, 0.0 - 1.0)", "x(vec2(time, 1.0)) + y(vec2(1.0, time))",
+    "z(vec3(time)) + w(vec4(1.0, 2.0, 3.0, time))",
+    "e0(vec3(time, 1.0, 2.0)) + e1(vec3(1.0, time, 2.0)) + e2(vec3(1.0, 2.0, time))"
+    " + e3(vec4(time))",
+    "doti(vec3(time, 1.0, 2.0)) + dotj(vec3(1.0, time, 2.0)) + dotk(vec3(1.0, 2.0, time))",
+    "dot(vec3(time, 1.0, 2.0), vec3(0.3, time, 0.7))",
+    "x(cross(vec3(time, 1.0, 2.0), vec3(0.3, time, 0.7)))", "length(vec3(time, 1.0, 2.0))",
+    "length2(vec3(time, 1.0, 2.0))", "dist(vec3(time, 0.0, 0.0), vec3(1.0, 2.0, 3.0))",
+    "z(normalise(vec3(time, 1.0, 2.0)))", "y(normalize(vec3(1.0, time, 2.0)))",
+    "toFloat(and(time > 0.0, env.instance_index > 3))",
+    "toFloat(or(time > 0.0, env.instance_index > 3))", "toFloat(not(time > 0.0))",
+    "toFloat(xor(time > 0.0, env.instance_index > 3))", "noise(time)", "noise01(time * 0.1)",
+    "fbm(time * 0.1, 3)", "vec3(time, 4.0, 5.0)[1] + vec3(time, 4.0, 5.0)[-1]",
+    "add(time, 1.0) * sub(time, 2.0) + div(time, 3.0) + mul(time, 0.25)",
+    "toFloat(lt(time, 1.0)) + toFloat(lte(time, 1.0)) + toFloat(gt(time, 2.0))"
+    " + toFloat(gte(time, 2.0)) + toFloat(eq(time, 1.0)) + toFloat(neq(time, 1.0))",
+    "[time, time * 2.0, 3.0]v", "vec2(time, 2.0) * 2.0 + vec2(1.0) - vec2(time)",
+]
+WINTER_PROGRAMS = [
+    "struct P { real amp, real freq }\n"
+    "def wave(float x, P p) float : sin(x * p.freq) * p.amp\n"
+    "def evalRotation(float time, WinterEnv env) vec3 :\n"
+    "    let p = P(2.0, 3.0) i = toFloat(env.instance_index) in\n"
+    "        vec3(wave(time, p), i * 0.1 + time, wave(time + i, P(0.5, 1.0)))\n"
+    "def evalTranslation(float time, WinterEnv env) vec3 :\n"
+    "    let a = time * 0.3 b = a + 1.0 in vec3(a * b, b / a, if(a > b, a, b))",
+]
+_TRANSCENDENTAL = re.compile(r"\b(sin|cos|tan|asin|acos|atan|atan2|exp|log|pow|sqrt|length"
+                             r"|dist|normalise|normalize|noise|noise01|fbm)\(")
+
+
+def _winter_sources():
+    """(source, uses a transcendental) for the corpus and the programs."""
+    out = []
+    for e in WINTER_CORPUS:
+        vec = e if e.startswith(("[", "vec")) else f"vec3({e}, 0.0, 0.0)"
+        env = e.replace("time", "toFloat(env.instance_index) * 0.37")
+        venv = env if env.startswith(("[", "vec")) else f"vec3(0.0, {env}, 0.0)"
+        out.append(("def evalRotation(float time, WinterEnv env) vec3 : " + vec + "\n"
+                    "def evalTranslation(float time, WinterEnv env) vec3 : " + venv,
+                    bool(_TRANSCENDENTAL.search(e))))
+    return out + [(p, True) for p in WINTER_PROGRAMS]
+
+
+def _rows_compare(rk, rp, what):
+    """KQ's rows and warm impulses against the twin's: masks, slots and
+    keys exact, floats within 1e-6 of each output's scale."""
+    worst = 0.0
+    for f in dataclasses.fields(rk):
+        a, b = getattr(rk, f.name), getattr(rp, f.name)
+        if not a.dtype.is_floating_point:
+            check(torch.equal(a, b), f"KQ {what}: {f.name} differs")
+            continue
+        fin = torch.isfinite(b)
+        check(torch.equal(torch.isfinite(a), fin), f"KQ {what}: {f.name} finite mask differs")
+        scale = max(1.0, float(b[fin].abs().max())) if bool(fin.any()) else 1.0
+        err = max_err(a, b, fin) / scale
+        check(err <= 1e-6, f"KQ {what}: {f.name} err {err} of its scale > 1e-6")
+        worst = max(worst, err)
+    return worst
+
+
+def _solve_inputs(w):
+    """The solve's inputs at the world's state, as physics_step forms them,
+    with every dynamic body awake (as a kick, or the serving tick's wake
+    regions, leave them): (body after forces, static rows, pair rows,
+    table, sign, wm)."""
+    from substrata_tpu_torch.physics import integrate, narrowphase, solver
+    body, cfg, pc = w.state, w.config, w.pair_cache
+    body = body.replace(awake=body.awake | (body.alive & body.dynamic))
+    lin, ang, _ = integrate.apply_forces(body, DT, w.params)
+    body = body.replace(linvel=lin, angvel=ang)
+    n = body.capacity
+    wm = narrowphase.blocked_manifold_width(cfg, n)
+    pair_cts, _, _ = narrowphase.pair_contacts(body, pc.pair_a, pc.pair_b, pc.pair_valid, cfg,
+                                               hulls=w.static_world.hulls, blocked_wm=wm)
+    static_cts = narrowphase.static_contacts(body, w.static_world, cfg)
+    if wm:
+        return body, static_cts, pair_cts, pc.inc_table, pc.inc_sign, wm
+    pair_cts, _ = narrowphase.compact_contacts(pair_cts, cfg.max_active_contacts)
+    table, sign, _ = solver.build_incidence(pair_cts.a, pair_cts.b,
+                                            pair_cts.valid & (pair_cts.a >= 0), n,
+                                            cfg.contacts_per_body)
+    return body, static_cts, pair_cts, table, sign, 1
+
+
+def _kq_compare(w, what, timed=False):
+    """Both launches of KQ against the twin on one world's solve inputs."""
+    from substrata_tpu_torch.kernels import solve as kc
+    from substrata_tpu_torch.kernels import solve_setup as kq
+    from substrata_tpu_torch.physics import solver
+    body, static_cts, pair_cts, table, sign, wm = _solve_inputs(w)
+    cache = w.solver_cache.data
+    p = w.params
+    dt_t = torch.full((), DT, dtype=torch.float32, device=body.device)
+    args = (body, static_cts, pair_cts, table, sign)
+    rk, ysk, ypk, (hk, vk) = kq.solve_setup(*args, p, DT, cache, wm)
+    rp, ysp, ypp, (hp, vp) = kq.solve_setup_plain(*args, p.baumgarte, p.restitution_threshold,
+                                                  dt_t, cache, wm)
+    err = _rows_compare(rk, rp, what)
+    for a, b, name in ((ysk, ysp, "y_s"), (ypk, ypp, "y_p")):
+        e = max_err(a, b) / max(1.0, float(b.abs().max()))
+        check(e <= 1e-6, f"KQ {what}: {name} err {e} of its scale > 1e-6")
+        err = max(err, e)
+    check(torch.equal(hk, hp) and torch.equal(vk, vp), f"KQ {what}: cache slots differ")
+    setup = solver.SolveSetup(rp, kc.SolveState(ysp, ysp, ypp, ypp), True, table, sign,
+                              (hp, vp))
+    st, _, _ = solver.iterate(setup, body.linvel, body.angvel, w.config.solver_iters)
+    rargs = (cache, hp, vp, static_cts, pair_cts, st.s_l, rp.s_valid, st.p_l, rp.p_valid)
+    ck, cp = kq.cache_refresh(*rargs), kq.cache_refresh_plain(*rargs)
+    check(torch.equal(ck.view(torch.int32), cp.view(torch.int32)),
+          f"KQ {what}: refreshed cache differs")
+    res = dict(max_abs_err=err, tol=1e-6, static_rows=int(rp.s_valid.sum()),
+               pair_rows=int(rp.p_valid.sum()), wm=wm,
+               cache_rows_written=int(vp.sum()))
+    if timed:
+        rows = static_cts.capacity + pair_cts.capacity
+        # What the setup reads: the body fields, the contact fields it takes
+        # (not b, but the pair b of each entry's first row), the incidence
+        # table, and the cache probe of valid rows only (8 B of keys, 12 B
+        # more per hit); then what it writes.
+        setup_in = [getattr(body, k) for k in ("pos", "quat", "linvel", "angvel", "inv_mass",
+                                               "inv_inertia", "awake")]
+        setup_in += [getattr(c, k) for c in (static_cts, pair_cts)
+                     for k in ("a", "point", "normal", "penetration", "valid", "friction",
+                               "restitution", "key")]
+        a_all = torch.cat([static_cts.a, pair_cts.a])
+        key_all = torch.cat([static_cts.key, pair_cts.key])
+        kk = cache[hp.long()][:, 0:2].contiguous().view(torch.int32)
+        hits = int((vp & (kk[:, 0] == a_all) & (kk[:, 1] == key_all)).sum())
+        probe = int(vp.sum()) * 8 + hits * 12 + (pair_cts.capacity // wm) * 4
+        res["setup"] = dict(
+            **bound(nbytes(setup_in, table, sign, rk, ysk, ypk, hk, vk) + probe,
+                    FLOPS["solve_setup"] * rows),
+            cache_hits=hits,
+            ms=median_ms(lambda: kq.solve_setup(*args, p, DT, cache, wm)),
+            plain_ms=median_ms(lambda: kq.solve_setup_plain(
+                *args, p.baumgarte, p.restitution_threshold, dt_t, cache, wm), reps=3),
+            device_us=device_us(lambda: kq.solve_setup(*args, p, DT, cache, wm),
+                                "solve_setup_kernel"))
+        written = int(vp.sum())
+        res["refresh"] = dict(
+            **bound(nbytes(cache, ck, hp, vp) + written * 20, 0),
+            ms=median_ms(lambda: kq.cache_refresh(*rargs)),
+            plain_ms=median_ms(lambda: kq.cache_refresh_plain(*rargs), reps=3),
+            device_us=device_us(lambda: kq.cache_refresh(*rargs), "refresh_"))
+    return res
+
+
+def _lattice(rng, n, k_lo, k_hi):
+    """float32 k * 1.4 and one ulp either side (k != 0: no denormals)."""
+    k = rng.integers(k_lo, k_hi - 1, n)
+    base = np.where(k >= 0, k + 1, k).astype(np.float32) * np.float32(1.4)
+    step = rng.integers(-1, 2, n)
+    return np.where(step < 0, np.nextafter(base, np.float32(-np.inf)),
+                    np.where(step > 0, np.nextafter(base, np.float32(np.inf)), base))
+
+
+def kpqr_phase(device="cuda", n_bodies=10_000, cfg=None, corpus_n=4096, plain_reps=5,
+               mesh_objects=12_000, mesh_dynamic=512):
+    from substrata_tpu_torch.benchworld import (BenchScripts, WINTER_SOURCES, bench_world,
+                                                mesh_tick, mesh_world, serving_tick,
+                                                serving_world)
+    from substrata_tpu_torch.kernels import cell_table as kp
+    from substrata_tpu_torch.kernels import winter as kr
+    from substrata_tpu_torch.physics import broadphase
+    from substrata_tpu_torch.scripting import WinterScriptEvaluator
+    results = {}
+
+    # KP: the bench world after 30 ticks, both modes; then the same bodies
+    # moved onto the 1.4 m lattice, k * 1.4 and one ulp either side.
+    # Table, cells and overflow exact.
+    w = bench_world(device, n_bodies=n_bodies, cfg=cfg)
+    for _ in range(30):
+        w.think(DT)
+    body, cfg = w.state, w.config
+    rng = np.random.default_rng(14)
+    n = body.capacity
+    lat = np.stack([_lattice(rng, n, -50, 50), _lattice(rng, n, -50, 50),
+                    _lattice(rng, n, 0, 6)], axis=1)
+    on_lattice = body.replace(pos=torch.as_tensor(lat, device=body.device))
+    splits = int((np.floor(lat / np.float32(1.4))
+                  != np.floor(lat * (np.float32(1) / np.float32(1.4)))).sum())
+    kw = dict(num_buckets=cfg.grid_dim * cfg.grid_dim, cap=cfg.cell_capacity,
+              rcp_cell=broadphase.recip(cfg.cell_size), cell_size=cfg.cell_size)
+    overflow = {}
+    for name, b in (("bench", body), ("lattice", on_lattice)):
+        a = (b.pos, b.alive, b.collidable, b.awake, b.motion_type, b.bound_radius)
+        for flags in (False, True):
+            tk = kp.cell_table(*a, with_flags=flags, **kw)
+            tp = kp.cell_table_plain(*a, with_flags=flags, **kw)
+            check(torch.equal(tk[0], tp[0]), f"KP {name} (flags {flags}): table differs")
+            check(torch.equal(tk[1], tp[1]), f"KP {name} (flags {flags}): cells differ")
+            check(int(tk[2]) == int(tp[2]), f"KP {name} (flags {flags}): overflow differs")
+            overflow[f"{name}_flags_{int(flags)}"] = int(tp[2])
+    a = (body.pos, body.alive, body.collidable, body.awake, body.motion_type, body.bound_radius)
+    tk = kp.cell_table(*a, with_flags=True, **kw)
+    results["cell_table"] = dict(
+        max_abs_err=0.0, tol=0.0, overflow=overflow, lattice_true_division_splits=splits,
+        **bound(nbytes(a, tk), FLOPS["cell_table"] * n),
+        ms=median_ms(lambda: kp.cell_table(*a, with_flags=True, **kw)),
+        plain_ms=median_ms(lambda: kp.cell_table_plain(*a, with_flags=True, **kw),
+                           reps=plain_reps),
+        device_us=device_us(lambda: kp.cell_table(*a, with_flags=True, **kw), "cell_"))
+
+    # KQ: the bench world (pair-blocked rows), then the serving and mesh
+    # worlds (mixed combos: the compacted layout).
+    kq_bench = _kq_compare(w, "bench", timed=True)
+    del w
+    sw, player = serving_world(device, n_bodies=n_bodies)
+    for t in range(60):                  # the pile has landed by then
+        serving_tick(sw, player, t * DT)
+    kq_serving = _kq_compare(sw, "serving")
+    del sw, player
+    mw, mplayer, sources = mesh_world(device, n_objects=mesh_objects, n_dynamic=mesh_dynamic)
+    for t in range(60):
+        mesh_tick(mw, mplayer, t * DT, sources)
+    kq_mesh = _kq_compare(mw, "mesh")
+    del mw, mplayer
+    err = max(kq_bench["max_abs_err"], kq_serving["max_abs_err"], kq_mesh["max_abs_err"])
+    results["solve_setup"] = dict(max_abs_err=err, tol=1e-6, bench=kq_bench,
+                                  serving=kq_serving, mesh=kq_mesh, **kq_bench["setup"])
+    results["cache_refresh"] = dict(max_abs_err=0.0, tol=0.0, **kq_bench["refresh"])
+
+    # KR: bench.py's two scripts at its shape (512 instances), then the
+    # corpus, each script over corpus_n seeded instances, all in one
+    # launch.  Arithmetic exact; transcendentals within 1e-6 of scale.
+    scripts = BenchScripts(device)
+    tt = scripts.time(3.1)
+    got = kr.winter_eval(scripts.batch, tt, scripts.idx, scripts.n_inst)
+    want = kr.winter_eval_plain(scripts.batch, tt, scripts.idx, scripts.n_inst)
+    check(torch.equal(got[:, :3], want[:, :3]), "KR bench: rotations differ")
+    bench_err = max_err(got, want)
+    check(bench_err <= 1e-6 * max(1.0, float(want.abs().max())), f"KR bench: err {bench_err}")
+    srcs = _winter_sources()
+    evs = [WinterScriptEvaluator(s, device=device) for s, _ in srcs]
+    codes = [ev.code() for ev in evs]
+    batch = kr.Batch([c for c, _ in codes], [r for _, r in codes],
+                     [(k * corpus_n, corpus_n) for k in range(len(srcs))], device)
+    b = batch.size
+    time_in = torch.as_tensor(rng.uniform(-100, 100, b).astype(np.float32), device=device)
+    idx_in = torch.as_tensor(rng.integers(0, 512, b).astype(np.int32), device=device)
+    n_in = torch.full((b,), 512, dtype=torch.int32, device=device)
+    got = kr.winter_eval(batch, time_in, idx_in, n_in)
+    want = kr.winter_eval_plain(batch, time_in, idx_in, n_in)
+    corpus_err, exact_scripts = 0.0, 0
+    for k, (src, transcendental) in enumerate(srcs):
+        s = slice(k * corpus_n, (k + 1) * corpus_n)
+        g, wnt = got[s], want[s]
+        check(torch.equal(torch.isnan(g), torch.isnan(wnt)), f"KR corpus {k}: NaN mask differs")
+        fin = ~torch.isnan(wnt)
+        if not transcendental:
+            check(torch.equal(g[fin], wnt[fin]), f"KR corpus {k}: differs: {src!r}")
+            exact_scripts += 1
+            continue
+        e = max_err(g, wnt, fin) / max(1.0, float(wnt[fin].abs().max()))
+        check(e <= 1e-6, f"KR corpus {k}: err {e} of scale > 1e-6: {src!r}")
+        corpus_err = max(corpus_err, e)
+    bt = scripts.batch
+    n_instr = sum(len(c) for c in bt.codes)
+    results["winter_eval"] = dict(
+        max_abs_err=max(bench_err, corpus_err), tol=1e-6, corpus_scripts=len(srcs),
+        corpus_instances=b, corpus_exact_scripts=exact_scripts,
+        bench_sources=list(WINTER_SOURCES),
+        **bound(nbytes(bt.table, tt, scripts.idx, scripts.n_inst, got[:bt.size]),
+                n_instr * (bt.size // len(bt.codes))),
+        ms=median_ms(lambda: kr.winter_eval(bt, tt, scripts.idx, scripts.n_inst)),
+        plain_ms=median_ms(lambda: kr.winter_eval_plain(bt, tt, scripts.idx, scripts.n_inst),
+                           reps=plain_reps),
+        device_us=device_us(lambda: kr.winter_eval(bt, tt, scripts.idx, scripts.n_inst),
+                            "winter_kernel"))
+    return results
+
+
 PHYSICS_KERNELS = ("box_box_rows", "static_contacts", "solve_iteration", "apply_forces",
-                   "integrate_positions")
+                   "integrate_positions", "cell_table", "solve_setup", "cache_refresh")
 AUDIO_KERNELS = ("audio_fetch", "audio_spatialise", "audio_downmix_reverb")
 FULLTICK_KERNELS = ("ray_trace", "particles_update", "vehicle_forces")
 SERVING_KERNELS = ("closed_form_rows", "character_update", "apply_tick_in", "digest_tblock")
 MESH_KERNELS = ("convex_rows", "static_contacts", "ray_trace", "character_update",
-                "apply_tick_in", "digest_tblock")
+                "apply_tick_in", "digest_tblock", "cell_table", "solve_setup", "cache_refresh")
 # Float32 operations per item, counted from the kernels' sources (rounded
 # up): per valid pair slot (KA), per body (KB, KD), per contact row and per
 # body table slot (KC).
@@ -1792,7 +2115,11 @@ FLOPS = {"box_box_rows": 1000, "static_contacts": 600, "solve_iteration": 60,
          "capsule_box": 1700, "point_contact": 120, "char_row": 30, "region_test": 12,
          # KB and KL per sphere-triangle test (closest point, sign, normal),
          # KH per ray-triangle test (Moller-Trumbore).
-         "tri_test": 150, "ray_triangle": 40}
+         "tri_test": 150, "ray_triangle": 40,
+         # KP per body (the cell, the hash, the flags); KQ per contact row
+         # (tangent basis, three directions' r x d, Iw (r x d) and masses,
+         # the target, the warm probe).
+         "cell_table": 20, "solve_setup": 400}
 
 KERNELS = [
     ("box_box_rows", "cuda", "substrata_tpu_torch/csrc/box_box.cu",
@@ -1827,6 +2154,14 @@ KERNELS = [
      "substrata_tpu/physics/world.py:258"),
     ("convex_rows", "cuda", "substrata_tpu_torch/csrc/convex.cu",
      "substrata_tpu/physics/narrowphase.py:404"),
+    ("cell_table", "cuda", "substrata_tpu_torch/csrc/cell_table.cu",
+     "substrata_tpu/physics/broadphase.py:70"),
+    ("solve_setup", "cuda", "substrata_tpu_torch/csrc/solve_setup.cu",
+     "substrata_tpu/physics/solver.py:156"),
+    ("cache_refresh", "cuda", "substrata_tpu_torch/csrc/solve_setup.cu",
+     "substrata_tpu/physics/solver.py:471"),
+    ("winter_eval", "cuda", "substrata_tpu_torch/csrc/winter.cu",
+     "substrata_tpu/scripting/winter.py:820"),
 ]
 
 
@@ -1932,6 +2267,11 @@ def main():
         f"(p90 {me_res['ms_per_mesh_tick_p90']:.3f}); serving tick (phase 11): "
         f"{sv_res['ms_per_serving_tick_median']:.3f} | {smi}")
 
+    kpqr = kpqr_phase()
+    for name, r in kpqr.items():
+        log(f"# kernel {name}: {json.dumps(r)} | {smi}")
+    kres.update(kpqr)
+
     # Launches: each kernel's count on its main path (phase 9's full ticks;
     # phase 11's serving ticks for the serving-tick kernels; phase 13's
     # mesh frames for KO).
@@ -1951,7 +2291,7 @@ def main():
                        small_worlds=small, main_path=main_res, audio=ares,
                        physics_audio=pa_res, fulltick_kernels=fres, full_tick=ft_res,
                        serving_kernels=sres, serving_tick=sv_res, mesh_kernels=mk_res,
-                       mesh_world=me_res),
+                       mesh_world=me_res, kpqr_kernels=kpqr),
                   f, indent=1)
     log(json.dumps(out))
     log(smi)

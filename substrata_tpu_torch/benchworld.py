@@ -1,9 +1,9 @@
 """The 10,000-box bench world (bench.py:105-154), its churn kick
 (bench.py:212-221), the 256-source audio scene of bench.py:83-102 and the
-character, vehicles and particles of bench.py:157-209, rebuilt on the port
-for chip_smoke.py and profile_tick.py; the coupled physics + audio tick of
-bench.py's window 2 (bench.py:337-341), the full tick of its window 3
-(bench.py:311-342) without Winter, the serving world: the bench world
+character, vehicles, particles and Winter scripts of bench.py:157-209,
+rebuilt on the port for chip_smoke.py and profile_tick.py; the coupled
+physics + audio tick of bench.py's window 2 (bench.py:337-341), the full
+tick of its window 3 (bench.py:311-342), the serving world: the bench world
 with a walking player through ``PhysicsWorld.think_with_player``, and the
 12,000-object mesh world of tools/bench_networked.py (BASELINE.json
 config 5) with the client's frame: ``think_with_player`` and the audio
@@ -16,6 +16,7 @@ import torch
 
 from substrata_tpu_torch.audio.mix import (default_listener, mix_block, room_from_aabb,
                                            zero_sources)
+from substrata_tpu_torch.kernels import winter as kwinter
 from substrata_tpu_torch.physics import broadphase, queries, shapes
 from substrata_tpu_torch.physics.character import (EYE_HEIGHT, PlayerPhysics,
                                                    init_character_state, player_update_packed,
@@ -26,11 +27,18 @@ from substrata_tpu_torch.physics.vehicles.manager import (
     BikePhysics, BoatPhysics, CarPhysics, HoverCarPhysics, VehicleInputs, VehicleManager,
     _apply_vehicle_deltas, vehicles_update)
 from substrata_tpu_torch.physics.world import PhysicsObject, PhysicsWorld
+from substrata_tpu_torch.scripting import WinterScriptEvaluator
 
 N_BODIES = 10_000
 N_SOURCES = 256
 N_PARTICLES = 2048    # the reference's own cap (ParticleManager.cpp:88)
 N_VEHICLES = 8        # two each of car, bike, boat, hovercar
+N_WINTER = 512        # bench.py:69: 256 instances of each of 2 sources
+WINTER_SOURCES = (    # bench.py:192-198
+    "def evalRotation(float time, WinterEnv env) vec3 : "
+    "vec3(0.0, 0.0, time * 0.5 + env.instance_index)",
+    "def evalTranslation(float time, WinterEnv env) vec3 : "
+    "vec3(sin(time) * 2.0, cos(time * 0.7) * 2.0, 0.0)")
 N_OBJECTS = 12_000    # tools/bench_networked.py:37-38
 N_DYNAMIC = 512
 AUDIBLE_DIST = 100.0             # client_app.py:66-67
@@ -122,14 +130,42 @@ def physics_audio_tick(world, src, pool, listener, room, src_idx):
     return mix_block(src, pool, listener, room=room, use_hrtf=True, block=TICK_FRAMES)
 
 
+class BenchScripts:
+    """bench.py:192-207's Winter batch: both sources over the 256 float32
+    instance indices ``widx`` (as int32, as the reference takes them) with
+    ``num_instances`` 512, in ONE ``kernels.winter.Batch`` (uploaded
+    once), so a tick's evaluation is one KR launch and adds no copy."""
+
+    def __init__(self, device, n_winter: int = N_WINTER):
+        half = n_winter // 2
+        codes = [WinterScriptEvaluator(src, device=device).code() for src in WINTER_SOURCES]
+        self.batch = kwinter.Batch([c for c, _ in codes], [r for _, r in codes],
+                                   [(0, half), (half, half)], device)
+        widx = kwinter.to_int32(torch.arange(half, dtype=torch.float32, device=device))
+        self.idx = torch.cat([widx, widx])
+        self.n_inst = torch.full((n_winter,), n_winter, dtype=torch.int32, device=device)
+        self.out = None
+
+    def time(self, t: float) -> torch.Tensor:
+        return torch.full((self.batch.size,), float(np.float32(t)), dtype=torch.float32,
+                          device=self.idx.device)
+
+    def evaluate(self, t: float) -> torch.Tensor:
+        """[512, 6]: each instance's axis-angle rotation and translation
+        at time t (a source without a hook gives zeros there)."""
+        self.out = kwinter.winter_eval(self.batch, self.time(t), self.idx, self.n_inst)
+        return self.out
+
+
 def bench_fulltick(world, device, n_particles: int = N_PARTICLES,
                    n_vehicles: int = N_VEHICLES):
-    """bench.py:157-209 without Winter: vehicles of the four types in turn
-    on the first ``n_vehicles`` bodies, all driven with forward 0.6 and
-    right 0.15 (inputs built once, on the device), ``n_particles``
-    bouncing particles from seed 3 in a 70 x 70 x 7 m box, and the
-    character at eye (0, 0, 3) (bench.py:168; no proxy body, as there).
-    Returns (vehicle arrays, vehicle inputs, particles, character)."""
+    """bench.py:157-209: vehicles of the four types in turn on the first
+    ``n_vehicles`` bodies, all driven with forward 0.6 and right 0.15
+    (inputs built once, on the device), ``n_particles`` bouncing particles
+    from seed 3 in a 70 x 70 x 7 m box, the character at eye (0, 0, 3)
+    (bench.py:168; no proxy body, as there) and the Winter batch.
+    Returns (vehicle arrays, vehicle inputs, particles, character,
+    BenchScripts)."""
     vm = VehicleManager(world, capacity=n_vehicles)
     classes = [CarPhysics, BikePhysics, BoatPhysics, HoverCarPhysics]
     first = [world.objects[s] for s in sorted(world.objects)[:n_vehicles]]
@@ -151,7 +187,8 @@ def bench_fulltick(world, device, n_particles: int = N_PARTICLES,
                             device=device),
         opacity=torch.ones_like(ps.opacity),
         alive=torch.ones_like(ps.alive))   # die_on_hit False: they bounce forever
-    return vm.veh, vinputs, ps, init_character_state([0.0, 0.0, 3.0], device=device)
+    return (vm.veh, vinputs, ps, init_character_state([0.0, 0.0, 3.0], device=device),
+            BenchScripts(device))
 
 
 def walk_dir(t: float) -> np.ndarray:
@@ -166,16 +203,19 @@ def walk_input(t: float) -> np.ndarray:
     return np.float32(3.0) * walk_dir(t)
 
 
-def full_tick(world, veh, vinputs, ps, src, pool, listener, room, src_idx, char, t: float):
-    """One tick of bench.py's window 3 (bench.py:311-342) without Winter:
-    one cell table shared by the wheel rays, the character and the particle
-    rays, the vehicles and their velocity deltas, the character walking at
-    time ``t`` (no jump, fly or sit, no excluded body), ``think``, the
-    particles, the sources following bodies ``src_idx``, and one tick of
-    audio.  Returns (veh, particles, sources, out [800, 2], room,
-    character); the character's 8 scalars go up with a non-blocking copy,
-    and the digest read of ``think`` is the tick's only device -> host
-    copy.  ``char=None`` leaves the character out."""
+def full_tick(world, veh, vinputs, ps, src, pool, listener, room, src_idx, char, t: float,
+              scripts: BenchScripts):
+    """One tick of bench.py's window 3 (bench.py:311-342): one cell table
+    shared by the wheel rays, the character and the particle rays, the
+    vehicles and their velocity deltas, the character walking at time
+    ``t`` (no jump, fly or sit, no excluded body), ``think``, the
+    particles, the Winter batch at time ``t`` (its [512, 6] result stays
+    on the device, in ``scripts.out``), the sources following bodies
+    ``src_idx``, and one tick of audio.  Returns (veh, particles,
+    sources, out [800, 2], room, character); the character's 8 scalars go
+    up with a non-blocking copy, and the digest read of ``think`` is the
+    tick's only device -> host copy.  ``char=None`` leaves the character
+    out."""
     world._flush()
     cfg = world.config
     table, _, _ = broadphase.build_cell_table(world.state, cfg)
@@ -191,6 +231,7 @@ def full_tick(world, veh, vinputs, ps, src, pool, listener, room, src_idx, char,
     world.think(DT)
     st = world.state
     ps, _foam = particles_step(ps, st, world.static_world, DT, world.params, cfg, table=table)
+    scripts.evaluate(t)
     src = src.replace(pos=st.pos[src_idx], vel=st.linvel[src_idx])
     src, out, room = mix_block(src, pool, listener, room=room, use_hrtf=True, block=TICK_FRAMES)
     return veh, ps, src, out, room, char

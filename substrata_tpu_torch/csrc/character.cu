@@ -306,7 +306,7 @@ __global__ void __launch_bounds__(kThreads) character_kernel(
     const int* __restrict__ tris, const int* __restrict__ cell_tris,
     const float* __restrict__ tri_origin, const float* __restrict__ tri_cell_w, int num_buckets,
     int cap, int n_os, int n_centers, int hx, int hy, int flat, int gx, int gy, int tcap,
-    float cell_size, float* __restrict__ o_pos, float* __restrict__ o_vel,
+    float rcp_cell, float* __restrict__ o_pos, float* __restrict__ o_vel,
     bool* __restrict__ o_on_ground, float* __restrict__ o_gn, float* __restrict__ o_gv,
     float* __restrict__ o_cz, bool* __restrict__ o_grav, bool* __restrict__ o_fly,
     bool* __restrict__ o_sit, float* __restrict__ packed) {
@@ -392,7 +392,7 @@ __global__ void __launch_bounds__(kThreads) character_kernel(
         fb[k] = ci == 0 ? foot[k] : (ci == 1 ? foot_next[k] : foot_next[k] - (k == 2 ? 0.5f : 0.0f));
 #pragma unroll
       for (int k = 0; k < 3; ++k)
-        cells[ci][k] = static_cast<int>(floorf(((fb[k] + up_r[k]) + ez[k] * half_h) / cell_size));
+        cells[ci][k] = static_cast<int>(floorf(((fb[k] + up_r[k]) + ez[k] * half_h) * rcp_cell));
     }
     const int per_center = 27 * cap;
     for (int j = threadIdx.x; j < Kc; j += blockDim.x) {
@@ -657,7 +657,7 @@ extern "C" int character_update(
     const bool* has_hf, const float* water_z, const float* scal, const float* tri_verts,
     const int* tris, const int* cell_tris, const float* tri_origin, const float* tri_cell_w,
     int num_buckets, int cap, int n_os, int n_centers, int hx, int hy, int flat, int gx, int gy,
-    int tcap, float cell_size, float* o_pos,
+    int tcap, float rcp_cell, float* o_pos,
     float* o_vel, bool* o_on_ground, float* o_gn, float* o_gv, float* o_cz, bool* o_grav,
     bool* o_fly, bool* o_sit, float* packed, void* stream) {
   if (n_centers < 2 || n_centers > 3) return static_cast<int>(cudaErrorInvalidValue);
@@ -674,6 +674,6 @@ extern "C" int character_update(
       linvel, angvel, shape_type, params, bound_radius, alive, layer, sensor, table, os_idx,
       heights, hf_origin, hf_cell_w, has_hf, water_z, scal, tri_verts, tris, cell_tris,
       tri_origin, tri_cell_w, num_buckets, cap, n_os, n_centers, hx, hy, flat, gx, gy, tcap,
-      cell_size, o_pos, o_vel, o_on_ground, o_gn, o_gv, o_cz, o_grav, o_fly, o_sit, packed);
+      rcp_cell, o_pos, o_vel, o_on_ground, o_gn, o_gv, o_cz, o_grav, o_fly, o_sit, packed);
   return static_cast<int>(cudaGetLastError());
 }

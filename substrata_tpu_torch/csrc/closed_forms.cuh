@@ -185,8 +185,10 @@ __device__ inline void capsule_box(const float pc[3], const float qc[4], float r
   capsule_axis(qc, hc, z);
   float lo = -1.0f, hi = 1.0f;
   for (int it = 0; it < 14; ++it) {
-    const float m1 = lo + (hi - lo) / 3.0f;
-    const float m2 = hi - (hi - lo) / 3.0f;
+    // XLA runs the reference's static division by 3 as a multiply-add by
+    // the float32 reciprocal (kernels/closed_forms.py).
+    const float m1 = __fmaf_rn(hi - lo, 1.0f / 3.0f, lo);
+    const float m2 = __fmaf_rn(hi - lo, -(1.0f / 3.0f), hi);
     const bool closer = seg_box_dist(pc, z, m1, pb, qb, he) < seg_box_dist(pc, z, m2, pb, qb, he);
     const float nlo = closer ? lo : m1;
     hi = closer ? m2 : hi;

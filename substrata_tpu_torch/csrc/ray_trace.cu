@@ -327,7 +327,7 @@ __global__ void ray_trace_kernel(
     const int* __restrict__ tri_owner, const int* __restrict__ cell_tris,
     const float* __restrict__ tri_origin, const float* __restrict__ tri_cell_w, int R,
     int num_buckets, int cap, int n_os, int hx, int hy, int n_steps, int body_steps, int K,
-    int flags, int H, int MF, int gx, int gy, int tcap, float cell_size,
+    int flags, int H, int MF, int gx, int gy, int tcap, float rcp_cell,
     float* __restrict__ o_t, float* __restrict__ o_n, int* __restrict__ o_body,
     bool* __restrict__ o_hit, int* __restrict__ o_mat) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -355,7 +355,7 @@ __global__ void ray_trace_kernel(
       const float ts = body_steps == 1 ? 0.5f * mt : march_fraction(s, body_steps) * mt;
       int cell[3];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) cell[k] = static_cast<int>(floorf((o[k] + d[k] * ts) / cell_size));
+      for (int k = 0; k < 3; ++k) cell[k] = static_cast<int>(floorf(__fmaf_rn(d[k], ts, o[k]) * rcp_cell));
       const unsigned hb = hash_cell(cell[0] + off / 3 - 1, cell[1] + off % 3 - 1, cell[2],
                                     static_cast<unsigned>(num_buckets));
       base = static_cast<int>(hb) * cap;
@@ -521,7 +521,7 @@ extern "C" int ray_trace(const float* origins, const float* dirs, const float* m
                          const float* tri_origin, const float* tri_cell_w, int R,
                          int num_buckets, int cap, int n_os, int hx, int hy, int n_steps,
                          int body_steps, int K, int flags, int H, int MF, int gx, int gy,
-                         int tcap, float cell_size, float* o_t, float* o_n, int* o_body,
+                         int tcap, float rcp_cell, float* o_t, float* o_n, int* o_body,
                          bool* o_hit, int* o_mat, void* stream) {
   if (K > kMaxK || H < 1 || MF > 32) return static_cast<int>(cudaErrorInvalidValue);
   if (R > 0) {
@@ -531,7 +531,7 @@ extern "C" int ray_trace(const float* origins, const float* dirs, const float* m
         origins, dirs, max_ts, exclude, pos, quat, bound_radius, shape_type, params, alive,
         layer, table, os_idx, heights, hf_origin, hf_cell_w, has_hf, hull_planes, hull_n_faces,
         tri_verts, tris, tri_mats, tri_owner, cell_tris, tri_origin, tri_cell_w, R, num_buckets,
-        cap, n_os, hx, hy, n_steps, body_steps, K, flags, H, MF, gx, gy, tcap, cell_size, o_t,
+        cap, n_os, hx, hy, n_steps, body_steps, K, flags, H, MF, gx, gy, tcap, rcp_cell, o_t,
         o_n, o_body, o_hit, o_mat);
   }
   return static_cast<int>(cudaGetLastError());

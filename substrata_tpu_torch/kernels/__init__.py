@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the physics tick, the audio mix, the ray
-queries, the particles, the vehicles, the character, the serving tick and
-the hull contacts, and their wrappers.
+queries, the particles, the vehicles, the character, the serving tick,
+the hull contacts, the cell table, the solve setup and Winter scripts,
+and their wrappers.
 
 Each wrapper module holds the kernel's plain PyTorch twin beside it.  A
 wrapper runs the twin for tensors on the CPU; for CUDA tensors it launches
@@ -24,11 +25,15 @@ path went through the kernels.
   KM  serving_io.py         csrc/serving_io.cu       serving-tick input apply
   KN  serving_io.py         csrc/serving_io.cu       event digest + transform block
   KO  convex.py             csrc/convex.cu           hull (convex SAT) contacts
+  KP  cell_table.py         csrc/cell_table.cu       broadphase cell table
+  KQ  solve_setup.py        csrc/solve_setup.cu      contact-solve setup + cache refresh
+  KR  winter.py             csrc/winter.cu           Winter script evaluation
 """
 
-from substrata_tpu_torch.kernels import (audio_mix, box_box, character, closed_forms, convex,
-                                         integrate_triton, particles_triton, ray_trace,
-                                         serving_io, solve, static_contacts, vehicles)
+from substrata_tpu_torch.kernels import (audio_mix, box_box, cell_table, character,
+                                         closed_forms, convex, integrate_triton,
+                                         particles_triton, ray_trace, serving_io, solve,
+                                         solve_setup, static_contacts, vehicles, winter)
 
 
 def launch_counts() -> dict:
@@ -46,6 +51,9 @@ def launch_counts() -> dict:
         "character_update": character.launches,
         **serving_io.launches,
         "convex_rows": convex.launches,
+        "cell_table": cell_table.launches,
+        **solve_setup.launches,
+        "winter_eval": winter.launches,
     }
 
 
@@ -59,6 +67,9 @@ def reset_launch_counts():
     closed_forms.launches = 0
     character.launches = 0
     convex.launches = 0
-    for counts in (integrate_triton.launches, audio_mix.launches, serving_io.launches):
+    cell_table.launches = 0
+    winter.launches = 0
+    for counts in (integrate_triton.launches, audio_mix.launches, serving_io.launches,
+                   solve_setup.launches):
         for k in counts:
             counts[k] = 0

@@ -77,7 +77,7 @@ SIGNATURES = {
     # hf_cell_w, has_hf, hull planes, hull n_faces, tri verts, tris,
     # tri_mats, tri_owner, cell_tris, tri origin, tri cell_w, R,
     # num_buckets, cap, n_os, HX, HY, n_steps, body_steps, K, flags (bit 3
-    # = trimesh), H, max hull faces, GX, GY, cell cap, cell_size, out t,
+    # = trimesh), H, max hull faces, GX, GY, cell cap, 1 / cell_size, out t,
     # normal, body, hit, material, stream
     "ray_trace": [P] * 26 + [I] * 15 + [F] + [P] * 5 + [P],
     # 33 vehicle rows (kernels/vehicles.py:KERNEL_FIELDS), 5 inputs,
@@ -98,7 +98,7 @@ SIGNATURES = {
     # bound_radius, alive, layer, sensor, table, os_idx, heights, hf_origin,
     # hf_cell_w, has_hf, water_z, scal, tri verts, tris, cell_tris, tri
     # origin, tri cell_w, num_buckets, cap, n_os, n_centers, HX, HY, flat,
-    # GX, GY, cell cap (0 = no trimesh), cell_size, out 9 character fields,
+    # GX, GY, cell cap (0 = no trimesh), 1 / cell_size, out 9 character fields,
     # packed, stream
     "character_update": [P] * 9 + [P] * 18 + [P] * 5 + [I] * 10 + [F] + [P] * 10 + [P],
     # pos, quat, linvel, angvel, awake, sleep_timer, alive, motion_type,
@@ -109,6 +109,24 @@ SIGNATURES = {
     # num_pairs, overflow, num_contacts, num_awake, steps_left, pos, quat,
     # linvel, angvel, underwater, N, P, out digest, block, stream
     "digest_tblock": [P] * 16 + [I] * 2 + [P] * 2 + [P],
+    # pos, alive, collidable, awake, motion_type, bound_radius, N, buckets,
+    # cap, 1 / cell_size, cell_size, with_flags, out cells, scratch, table,
+    # overflow, stream
+    "cell_table": [P] * 6 + [I] * 3 + [F, F, I] + [P] * 4 + [P],
+    # body pos, quat, linvel, angvel, inv_mass, inv_inertia, awake, table,
+    # sign; static a, point, normal, pen, valid, fric, rest, key; pair a,
+    # b, point, normal, pen, valid, fric, rest, key; baumgarte,
+    # restitution_threshold, cache (or null); N, K, Q, wm, CPB, H; dt; out
+    # s_dir, s_ang, s_r, s_k, s_target, s_valid, p_dir, p_ang_a, p_ang_b,
+    # p_ra, p_rb, p_k, p_target, p_valid, p_ab, tbl, w, im, y_s, y_p, hash
+    # slot, valid; stream
+    "solve_setup": [P] * 29 + [I] * 6 + [F] + [P] * 22 + [P],
+    # cache, slot, valid, static a, key, pair a, key, lam_s, s_valid, lam_p,
+    # p_valid, S, P, H, scratch last, out, stream
+    "cache_refresh": [P] * 11 + [I] * 3 + [P] * 2 + [P],
+    # code, segments, blocks, n_blocks, time, idx, n_inst, scratch [R, B],
+    # B, out [B, 6], stream
+    "winter_eval": [P] * 3 + [I] + [P] * 4 + [I] + [P] + [P],
 }
 
 _lib = None

@@ -40,7 +40,7 @@ import dataclasses
 
 import torch
 
-from substrata_tpu_torch.kernels import build
+from substrata_tpu_torch.kernels import build, cell_table
 from substrata_tpu_torch.kernels import closed_forms as cf
 from substrata_tpu_torch.kernels.static_contacts import trimesh_sphere_rows
 from substrata_tpu_torch.maths import quat as quatm
@@ -119,8 +119,8 @@ def gather_candidates(foot_a, foot_b, cyl_h, body: BodyState, table, os_idx,
     cands = []
     for foot in centers:
         center = foot + up_r + _ez(dev) * half_h
-        cell = torch.floor(center / torch.full_like(center, cell_size)).to(torch.int32)
-        hb = broadphase._hash_cells(cell[None, :] + offs, grid_dim * grid_dim)
+        cell = torch.floor(center * broadphase.recip(cell_size)).to(torch.int32)
+        hb = cell_table.hash_cells(cell[None, :] + offs, grid_dim * grid_dim)
         cands.append(table[hb].reshape(-1))
     cand = torch.cat(cands + [os_idx.to(table.dtype)])
     ci = torch.clamp(cand, min=0).long()
@@ -479,7 +479,7 @@ def character_packed(char: dict, body: BodyState, hf: Heightfield, has_hf, water
                  body.bound_radius, body.alive, body.layer, body.is_sensor, table, os_idx,
                  hf.heights, hf.origin, hf.cell_w, has_hf, water_z, scal,
                  *tm_args[:5], grid_dim * grid_dim, cap, os_idx.shape[0], n_centers(cell_size),
-                 hx, hy, 1 if hf.is_flat else 0, *tm_args[5:], float(cell_size),
+                 hx, hy, 1 if hf.is_flat else 0, *tm_args[5:], broadphase.recip(cell_size),
                  *(new[f] for f in STATE_FIELDS), out)
     launches += 1
     return new, out

@@ -24,14 +24,17 @@ and runs ``closed_form_rows_plain`` for CPU tensors.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from substrata_tpu_torch.kernels import build
 from substrata_tpu_torch.kernels.box_box import (CONTACT_MARGIN, _norm3,
                                                  combine_friction, combine_restitution,
                                                  prune_speculative, segment_closest)
+from substrata_tpu_torch.maths import fp
 from substrata_tpu_torch.maths import quat as quatm
 
+_THIRD = float(np.float32(1.0) / np.float32(3.0))
 CODES = (0, 1, 2, 4, 6, 8, 9, 10)   # the closed-form combo codes (5 is KA)
 
 launches = 0
@@ -126,12 +129,11 @@ def capsule_box(pc, qc, rc, hc, pb, qb, he, with_gap: bool = False):
     lo = torch.full(rc.shape, -1.0, dtype=rc.dtype, device=rc.device)
     hi = torch.full(rc.shape, 1.0, dtype=rc.dtype, device=rc.device)
     gap = torch.full(rc.shape, float("inf"), dtype=rc.dtype, device=rc.device)
-    # A tensor divisor: on the card torch divides by a Python number as a
-    # multiply by its reciprocal, which rounds differently.
-    three = torch.full_like(lo, 3.0)
+    # The reference's static division by 3 runs, under XLA, as one
+    # multiply-add by the float32 reciprocal: fma(hi - lo, +-fl(1/3), lo | hi).
     for _ in range(14):
-        m1 = lo + (hi - lo) / three
-        m2 = hi - (hi - lo) / three
+        m1 = fp.fma(hi - lo, _THIRD, lo)
+        m2 = fp.fma(hi - lo, -_THIRD, hi)
         f1, f2 = dist(m1), dist(m2)
         closer = f1 < f2
         if with_gap:

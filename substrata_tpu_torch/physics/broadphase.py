@@ -1,8 +1,9 @@
 """Uniform-grid (spatial hash) broadphase with temporal pair reuse.
 
 Counterpart of ``substrata_tpu/physics/broadphase.py`` (programs K1 and K2
-of ROADMAP.md queue 2, plain torch in this slice): hash every body's cell
-into a bucket table, gather candidates from the 14-bucket half stencil,
+of ROADMAP.md queue 2): hash every body's cell into a bucket table (kernel
+KP, ``kernels/cell_table.py``), then, in plain torch (K2), gather
+candidates from the 14-bucket half stencil,
 keep each body's ``pairs_per_body`` closest, compact into ``max_pairs``
 packed keys and dedup by sort.
 
@@ -17,19 +18,15 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from substrata_tpu_torch.kernels import cell_table
 from substrata_tpu_torch.physics.state import (BodyState, MotionType,
                                                ShapeType, SimConfig, _Replace)
 
 MAX_OVERSIZE = 64
-_P1, _P2, _P3 = 73856093, 19349663, 83492791
-_MASK32 = 0xFFFFFFFF
-
 _TBL_IDX_MASK = 0xFFFF
-_TBL_MOVING = 1 << 16
-_TBL_STATIC = 1 << 17
-_TBL_SMALL = 1 << 18
 _PAIR_EMPTY = 0xFFFFFFFF
 
 
@@ -41,60 +38,22 @@ def _half_offsets(device):
     return torch.stack([o % 3 - 1, (o // 3) % 3 - 1, o // 9 - 1], dim=1)
 
 
-def _wrap_i32(x):
-    """int64 -> the int32 value with the same low 32 bits."""
-    x = x & _MASK32
-    return torch.where(x >= (1 << 31), x - (1 << 32), x)
-
-
-def _hash_cells(cells, num_buckets: int):
-    """int32-wrapping hash of int cells [..., 3] -> bucket [...] (int64)."""
-    c = cells.to(torch.int64)
-    h = (_wrap_i32(c[..., 0] * _P1) ^ _wrap_i32(c[..., 1] * _P2)
-         ^ _wrap_i32(c[..., 2] * _P3))
-    return (h & _MASK32) % num_buckets
-
-
-def _run_rank(sorted_keys):
-    """Rank of each element within its run of equal sorted keys."""
-    n = sorted_keys.shape[0]
-    idx = torch.arange(n, device=sorted_keys.device)
-    start = torch.ones(n, dtype=torch.bool, device=sorted_keys.device)
-    start[1:] = sorted_keys[1:] != sorted_keys[:-1]
-    run_start = torch.cummax(torch.where(start, idx, 0), dim=0).values
-    return idx - run_start
+def recip(c: float) -> float:
+    """float32 ``1 / c``: the reference divides by a static config value
+    (``cell_size``), which XLA folds into a multiply by this reciprocal."""
+    return float(np.float32(1.0) / np.float32(c))
 
 
 def build_cell_table(body: BodyState, config: SimConfig, with_flags: bool = False):
-    """Bucket -> body-slot table.
+    """Bucket -> body-slot table (kernel KP on the card, its twin on the CPU).
 
     Returns (table [num_buckets+1, cap] i32 with -1 padding, cells [N, 3]
-    i32, overflow [] i64 — bodies dropped because their bucket was full)."""
-    n = body.capacity
-    dev = body.device
-    cap = config.cell_capacity
-    num_buckets = config.grid_dim * config.grid_dim
-    cells = torch.floor(body.pos / config.cell_size).to(torch.int32)
-    h = _hash_cells(cells, num_buckets)
-    h = torch.where(body.alive & body.collidable, h, num_buckets)
-    h_sorted, order = torch.sort(h, stable=True)
-    rank = _run_rank(h_sorted)
-    entry = order
-    if with_flags:
-        moving = body.awake & (body.motion_type != int(MotionType.STATIC))
-        is_static = body.motion_type == int(MotionType.STATIC)
-        small = 2.0 * body.bound_radius <= config.cell_size
-        bits = (moving.long() * _TBL_MOVING + is_static.long() * _TBL_STATIC
-                + small.long() * _TBL_SMALL)
-        entry = entry | bits[order]
-    table = torch.full(((num_buckets + 1) * cap,), -1, dtype=torch.int64, device=dev)
-    in_cap = rank < cap
-    slot = torch.where(in_cap, h_sorted * cap + rank, (num_buckets + 1) * cap - 1)
-    table.index_put_((slot,), torch.where(in_cap, entry, -1))
-    table = table.reshape(num_buckets + 1, cap)
-    table[num_buckets] = -1
-    overflow = torch.sum((~in_cap) & (h_sorted < num_buckets))
-    return table.to(torch.int32), cells, overflow
+    i32, overflow [] i32 — bodies dropped because their bucket was full)."""
+    return cell_table.cell_table(
+        body.pos, body.alive, body.collidable, body.awake, body.motion_type,
+        body.bound_radius, num_buckets=config.grid_dim * config.grid_dim,
+        cap=config.cell_capacity, rcp_cell=recip(config.cell_size),
+        cell_size=config.cell_size, with_flags=with_flags)
 
 
 def _compact(mask, size: int, fill: int = -1):
@@ -136,15 +95,15 @@ def find_pairs(body: BodyState, config: SimConfig, margin=0.08,
                     0.5 * body.bound_radius, sp[:, 0]))
 
     # --- Regular pass: half-stencil neighbourhood search.
-    hb = _hash_cells(cells[:, None, :] + _half_offsets(dev)[None, :, :],
-                     num_buckets)                                      # [N, 14]
+    hb = cell_table.hash_cells(cells[:, None, :] + _half_offsets(dev)[None, :, :],
+                               num_buckets)                            # [N, 14]
     noff = hb.shape[1]
     cand = table[hb.reshape(-1)].reshape(n, noff * cap)
     k = cand.shape[1]
     jj = torch.where(cand >= 0, cand & _TBL_IDX_MASK, -1).long()
-    j_moving = (cand & _TBL_MOVING) > 0
-    j_static = (cand & _TBL_STATIC) > 0
-    j_small = (cand & _TBL_SMALL) > 0
+    j_moving = (cand & cell_table.TBL_MOVING) > 0
+    j_static = (cand & cell_table.TBL_STATIC) > 0
+    j_small = (cand & cell_table.TBL_SMALL) > 0
     ii = torch.arange(n, device=dev)[:, None]
     jj_safe = torch.clamp(jj, min=0)
     own_col = torch.arange(k, device=dev) < cap

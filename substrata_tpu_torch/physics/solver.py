@@ -1,10 +1,11 @@
 """Mass-splitting Jacobi contact solver with warm starting.
 
 Counterpart of ``substrata_tpu/physics/solver.py``.  The per-step setup
-(effective masses, targets, warm-start lookup, cache refresh), the
-incidence table (K5) and the position solve (K7) are plain torch; every
-iteration and the warm-start pre-apply go through kernel KC
-(``kernels/solve.py``, two launches each on the card).
+(effective masses, targets, warm-start lookup) and the cache refresh go
+through kernel KQ (``kernels/solve_setup.py``), every iteration and the
+warm-start pre-apply through kernel KC (``kernels/solve.py``, two
+launches each on the card); the incidence table (K5) and the position
+solve (K7) are plain torch.
 
 Static (ground) rows are body-blocked [N, K]; pair rows are [Q entries, wm
 rows] addressed through the per-body entry table.  Pair velocities and
@@ -18,15 +19,11 @@ import dataclasses
 
 import torch
 
-from substrata_tpu_torch.kernels.solve import (ContactRows, SolveState,
-                                               solve_iteration)
-from substrata_tpu_torch.maths import quat as quatm
-from substrata_tpu_torch.maths import transform as tmath
+from substrata_tpu_torch.kernels.solve import ContactRows, SolveState, solve_iteration
+from substrata_tpu_torch.kernels.solve_setup import cache_refresh, solve_setup
 from substrata_tpu_torch.physics.narrowphase import Contacts
 from substrata_tpu_torch.physics.state import (BodyState, SimConfig, SimParams,
                                                _Replace)
-
-_MASK32 = 0xFFFFFFFF
 
 
 @dataclasses.dataclass
@@ -58,22 +55,6 @@ def cache_size_for(config: SimConfig) -> int:
         size <<= 1
     return size
 
-
-def _cache_hash(a, k, size: int):
-    """uint32 (a * 2654435761) ^ (k * 40503), masked to the table size."""
-    a = a.to(torch.int64) & _MASK32
-    k = k.to(torch.int64) & _MASK32
-    h = ((a * 2654435761) & _MASK32) ^ ((k * 40503) & _MASK32)
-    return h & (size - 1)
-
-
-def _tangent_basis(n):
-    """Orthonormal (t1, t2) perpendicular to n [..., 3]."""
-    c = (torch.abs(n[..., 0:1]) < 0.9).to(n.dtype)    # x axis, else y axis
-    ax = torch.cat([c, 1.0 - c, torch.zeros_like(c)], dim=-1)
-    t1 = quatm.cross(ax, n)
-    t1 = t1 / torch.clamp(torch.sqrt(quatm.dot3(t1, t1)), min=1e-9)[..., None]
-    return t1, quatm.cross(n, t1)
 
 
 def build_incidence(entry_a, entry_b, entry_occ, n_bodies: int, cpb: int):
@@ -109,12 +90,6 @@ def build_incidence(entry_a, entry_b, entry_occ, n_bodies: int, cpb: int):
     return table, sign, counts
 
 
-def _mat_vec_rows(iw, v):
-    """iw [M, 3, 3] applied to v [M, ..., 3]."""
-    shape = (iw.shape[0],) + (1,) * (v.dim() - 2) + (3, 3)
-    return tmath.mat_vec(iw.reshape(shape), v)
-
-
 @dataclasses.dataclass
 class SolveSetup:
     """Everything the iterations need, built once per step."""
@@ -124,7 +99,7 @@ class SolveSetup:
     warm: bool                # pre-apply state0 before iterating
     table: torch.Tensor
     sign: torch.Tensor
-    lookup: tuple | None      # (hash slot, a, key, valid) of every row
+    lookup: tuple | None      # (hash slot i32, valid) of every row, with a cache
 
 
 def prepare_solve(body: BodyState, static_cts: Contacts, pair_cts: Contacts,
@@ -132,125 +107,20 @@ def prepare_solve(body: BodyState, static_cts: Contacts, pair_cts: Contacts,
                   cache: SolverCache | None = None, *,
                   wm: int = 1, table=None, sign=None) -> SolveSetup:
     """Effective masses, targets, side weights and the warm-start lookup
-    (plain torch)."""
+    (kernel KQ on the card, its twin on the CPU); the incidence table (K5)
+    is built here in plain torch when the caller has none."""
     n = body.capacity
-    dev = body.device
-    cpb = config.contacts_per_body
-    K = static_cts.capacity // n
-    Q = pair_cts.capacity // wm
-    a_rows = pair_cts.a
-    a_e = a_rows.reshape(Q, wm)[:, 0]
-    b_e = pair_cts.b.reshape(Q, wm)[:, 0]
-    a_eg = torch.clamp(a_e, min=0).long()
-    b_eg = torch.clamp(b_e, min=0).long()
-    valid_p = pair_cts.valid.reshape(Q, wm)
-    validf_p = valid_p.to(torch.float32)
-    validf_s = static_cts.valid.reshape(n, K).to(torch.float32)
-
     if table is None:
-        entry_occ = (a_e >= 0) if wm > 1 else (valid_p[:, 0] & (a_e >= 0))
-        table, sign, _ = build_incidence(a_e, b_e, entry_occ, n, cpb)
-    counts = (table >= 0).sum(dim=1).to(torch.float32) * wm + validf_s.sum(dim=1)
-    # Sleeping bodies are immovable inside the solve.
-    awakef = body.awake.to(torch.float32)
-    inv_mass = body.inv_mass * awakef
-    iw = tmath.world_inv_inertia(body.quat, body.inv_inertia * awakef[:, None])
-    c_body = torch.clamp(counts, min=1.0)
-
-    # Static class: dense [N, K].
-    nrm_s = static_cts.normal.reshape(n, K, 3)
-    pen_s = static_cts.penetration.reshape(n, K)
-    fric_s = static_cts.friction.reshape(n, K)
-    rest_s = static_cts.restitution.reshape(n, K)
-    t1_s, t2_s = _tangent_basis(nrm_s)
-    r_s = static_cts.point.reshape(n, K, 3) - body.pos[:, None, :]
-    d_s = torch.stack([nrm_s, t1_s, t2_s], dim=2)             # [N, K, 3, 3]
-    rx_s = quatm.cross(r_s[:, :, None, :], d_s)
-    term_s = _mat_vec_rows(iw, rx_s)                          # Iw (r x d)
-    k_s = torch.clamp((inv_mass * c_body)[:, None, None]
-                      + torch.sum(rx_s * term_s, -1) * c_body[:, None, None], min=1e-9)
-
-    # Pair class: [Q entries, wm rows].
-    bview = torch.cat([body.pos, inv_mass[:, None], c_body[:, None],
-                       iw.reshape(n, 9)], dim=1)
-    va, vb = bview[a_eg], bview[b_eg]
-    point_p = pair_cts.point.reshape(Q, wm, 3)
-    r_a = point_p - va[:, None, :3]
-    r_b = point_p - vb[:, None, :3]
-    nrm_p = pair_cts.normal.reshape(Q, wm, 3)
-    t1_p, t2_p = _tangent_basis(nrm_p)
-    d_p = torch.stack([nrm_p, t1_p, t2_p], dim=2)             # [Q, wm, 3, 3]
-    ra_x = quatm.cross(r_a[:, :, None, :], d_p)
-    rb_x = quatm.cross(r_b[:, :, None, :], d_p)
-    term_a = _mat_vec_rows(va[:, 5:14].reshape(Q, 3, 3), ra_x)
-    term_b = _mat_vec_rows(vb[:, 5:14].reshape(Q, 3, 3), rb_x)
-    c_a, c_b = va[:, 4], vb[:, 4]
-    k_p = torch.clamp((va[:, 3] * c_a + vb[:, 3] * c_b)[:, None, None]
-                      + torch.sum(ra_x * term_a, -1) * c_a[:, None, None]
-                      + torch.sum(rb_x * term_b, -1) * c_b[:, None, None], min=1e-9)
-
-    # Targets from the pre-solve relative velocities (pairs via bf16).
-    v0_s = body.linvel[:, None, :] + quatm.cross(body.angvel[:, None, :], r_s)
-    vv = torch.cat([body.linvel, body.angvel], dim=1).to(torch.bfloat16).to(torch.float32)
-    wa, wb = vv[a_eg][:, None, :], vv[b_eg][:, None, :]
-    v0_p = ((wa[..., :3] + quatm.cross(wa[..., 3:], r_a))
-            - (wb[..., :3] + quatm.cross(wb[..., 3:], r_b)))
-    deep = 0.04  # m; the position solve handles anything shallower
-
-    def vn_target(pen, rest, vn0):
-        rt = torch.where(vn0 < -params.restitution_threshold, -rest * vn0, -torch.inf)
-        bias = torch.where(pen > 0.0,
-                           torch.clamp((params.baumgarte / dt)
-                                       * torch.clamp(pen - deep, min=0.0), max=3.0),
-                           pen / dt)
-        return torch.maximum(bias, rt)
-
-    target_s = vn_target(pen_s, rest_s, torch.sum(v0_s * nrm_s, -1))
-    target_p = vn_target(pair_cts.penetration.reshape(Q, wm),
-                         pair_cts.restitution.reshape(Q, wm), torch.sum(v0_p * nrm_p, -1))
-
-    signv = sign * (table >= 0)
-    rows = ContactRows(
-        s_dir=d_s.contiguous(), s_ang=term_s.contiguous(), s_r=r_s.contiguous(),
-        s_k=k_s.contiguous(), s_target=target_s.contiguous(),
-        s_fric=fric_s.contiguous(), s_valid=validf_s.contiguous(),
-        p_dir=d_p.contiguous(), p_ang_a=term_a.contiguous(),
-        p_ang_b=term_b.contiguous(), p_ra=r_a.contiguous(), p_rb=r_b.contiguous(),
-        p_k=k_p.contiguous(), p_target=target_p.contiguous(),
-        p_fric=pair_cts.friction.reshape(Q, wm).contiguous(),
-        p_valid=validf_p.contiguous(),
-        p_ab=torch.cat([a_eg, b_eg]).to(torch.int32),
-        tbl=torch.clamp(table, min=0).to(torch.int32).contiguous(),
-        w=torch.stack([signv, torch.clamp(signv, min=0.0), torch.clamp(signv, max=0.0)],
-                      dim=2).contiguous(),
-        im=inv_mass.contiguous())
-
-    if cache is None:
-        z_s = torch.zeros((n, K, 3), dtype=torch.float32, device=dev)
-        z_p = torch.zeros((Q, wm, 3), dtype=torch.float32, device=dev)
-        return SolveSetup(rows, SolveState(z_s, z_s, z_p, z_p), False, table, sign, None)
-
-    # Warm start: last step's impulses by contact identity.
-    a_all = torch.cat([static_cts.a, a_rows])
-    key_all = torch.cat([static_cts.key, pair_cts.key])
-    valid_all = torch.cat([static_cts.valid, pair_cts.valid]) & (a_all >= 0)
-    h = _cache_hash(torch.clamp(a_all, min=0), key_all, cache.size)
-    row = cache.data[h]
-    kk = row[:, 0:2].contiguous().view(torch.int32)
-    hit = valid_all & (kk[:, 0] == a_all) & (kk[:, 1] == key_all)
-    warm = torch.where(hit[:, None], row[:, 2:5], 0.0)
-
-    def clamp_warm(w, fric, validf):
-        ln0 = torch.clamp(w[..., 0], min=0.0) * validf
-        mf0 = fric * ln0
-        lt1 = torch.minimum(torch.maximum(w[..., 1], -mf0), mf0) * validf
-        lt2 = torch.minimum(torch.maximum(w[..., 2], -mf0), mf0) * validf
-        return torch.stack([ln0, lt1, lt2], dim=-1)
-
-    y_s = clamp_warm(warm[:n * K].reshape(n, K, 3), fric_s, validf_s)
-    y_p = clamp_warm(warm[n * K:].reshape(Q, wm, 3), rows.p_fric, validf_p)
-    return SolveSetup(rows, SolveState(y_s, y_s, y_p, y_p), True, table, sign,
-                      (h, a_all, key_all, valid_all))
+        Q = pair_cts.capacity // wm
+        a_e = pair_cts.a.reshape(Q, wm)[:, 0]
+        b_e = pair_cts.b.reshape(Q, wm)[:, 0]
+        valid0 = pair_cts.valid.reshape(Q, wm)[:, 0]
+        entry_occ = (a_e >= 0) if wm > 1 else (valid0 & (a_e >= 0))
+        table, sign, _ = build_incidence(a_e, b_e, entry_occ, n, config.contacts_per_body)
+    rows, y_s, y_p, lookup = solve_setup(body, static_cts, pair_cts, table, sign, params, dt,
+                                         None if cache is None else cache.data, wm)
+    return SolveSetup(rows, SolveState(y_s, y_s, y_p, y_p), cache is not None, table, sign,
+                      lookup)
 
 
 def iterate(setup: SolveSetup, linvel, angvel, iters: int, step=solve_iteration):
@@ -281,24 +151,10 @@ def solve_contacts(body: BodyState, static_cts: Contacts, pair_cts: Contacts,
 
     new_cache = None
     if cache is not None:
-        h, a_all, key_all, valid_all = setup.lookup
-        rows = setup.rows
-        lam_all = torch.cat([(lam_s * rows.s_valid[..., None]).reshape(-1, 3),
-                             (lam_p * rows.p_valid[..., None]).reshape(-1, 3)])
-        dst = torch.where(valid_all, h, cache.size)
-        # Colliding hash slots keep their last writer, as a sequential
-        # scatter does (the reference's, and torch's on the CPU); torch on
-        # the card leaves the winner of duplicate indices unspecified.
-        order = torch.arange(dst.shape[0], device=body.device)
-        last = torch.full((cache.size + 1,), -1, dtype=order.dtype,
-                          device=body.device).scatter_reduce_(0, dst, order, reduce="amax")
-        dst = torch.where(last[dst] == order, dst, cache.size)
-        new_keys = torch.stack([torch.where(valid_all, a_all, -1),
-                                torch.where(valid_all, key_all, 0)], dim=1).to(torch.int32)
-        new_row = torch.cat([new_keys.view(torch.float32), lam_all], dim=1)
-        data = torch.cat([cache.data, torch.zeros((1, 5), device=body.device)])
-        data.index_put_((dst,), new_row)
-        new_cache = SolverCache(data=data[:cache.size])
+        h, valid_all = setup.lookup
+        new_cache = SolverCache(data=cache_refresh(
+            cache.data, h, valid_all, static_cts, pair_cts, lam_s, setup.rows.s_valid, lam_p,
+            setup.rows.p_valid))
     return (linvel, angvel, lam_p[..., 0], setup.table, setup.sign, lam_s[..., 0],
             new_cache)
 

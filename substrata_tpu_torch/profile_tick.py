@@ -17,12 +17,13 @@ On the 10,000-box bench world (kicked once, after 30 ticks):
    over mix_block alone (device busy ms and device ops per tick, each
    audio kernel's device time), and a stage pass over the mix's setup and
    its three kernels;
-5. the full-tick stage: bench.py's vehicles, character and particles on
-   the same world (benchworld.full_tick: vehicles, the character, think,
-   particles, the mix), host-clock ms per full tick with and without the
-   character (in turns), a profiler pass
-   (device busy ms, device ops, the ray, character, particle and vehicle
-   kernels' device times) and a stage pass over its parts;
+5. the full-tick stage: bench.py's vehicles, character, particles and
+   Winter scripts on the same world (benchworld.full_tick: the cell
+   table, vehicles, the character, think, particles, the scripts, the
+   mix), host-clock ms per full tick with and without the character (in
+   turns), a profiler pass (device busy ms, device ops, the cell-table,
+   ray, character, particle, vehicle and script kernels' device times)
+   and a stage pass over its parts;
 6. the serving stage: a second bench world with a walking player
    (benchworld.serving_world, 30 ticks in), host-clock ms per
    think_with_player, a profiler pass and a stage pass over the tick's
@@ -63,7 +64,8 @@ DT = 1.0 / 60.0
 STAGES = [(integrate, "apply_forces"), (broadphase, "find_pairs_cached"),
           (narrowphase, "pair_contacts"), (narrowphase, "static_contacts"),
           (solver, "build_incidence"), (solver, "prepare_solve"), (solver, "iterate"),
-          (integrate, "integrate_positions"), (solver, "solve_positions"),
+          (solver, "cache_refresh"), (integrate, "integrate_positions"),
+          (solver, "solve_positions"),
           (integrate, "update_sleeping"), (serving_io, "digest_tblock")]
 # Device-side names of the hand-written kernels (KA, KB, KC x2, KD x2).
 PORT_KERNELS = ("box_box_rows_kernel", "static_contacts_kernel", "solve_rows_kernel",
@@ -71,24 +73,28 @@ PORT_KERNELS = ("box_box_rows_kernel", "static_contacts_kernel", "solve_rows_ker
                 "audio_fetch_kernel", "audio_spatialise_kernel", "audio_downmix_kernel",
                 "ray_trace_kernel", "particles_kernel", "vehicle_forces_kernel",
                 "closed_form_rows_kernel", "character_kernel", "apply_tick_in_kernel",
-                "digest_tblock_kernel", "convex_rows_kernel")
+                "digest_tblock_kernel", "convex_rows_kernel", "cell_hash_kernel",
+                "cell_rank_kernel", "solve_setup_kernel", "refresh_copy_kernel",
+                "refresh_claim_kernel", "refresh_write_kernel", "winter_kernel")
 AUDIO_STAGES = [(mix, "prepare"), (audio_mix, "audio_fetch"), (audio_mix, "audio_spatialise"),
                 (audio_mix, "audio_downmix_reverb")]
 FULL_STAGES = [(broadphase, "build_cell_table"), (benchworld, "vehicles_update"),
                (queries, "trace_rays"), (kveh, "vehicle_forces"),
                (benchworld, "_apply_vehicle_deltas"), (world_mod.PhysicsWorld, "think"),
                (benchworld, "player_update_packed"), (benchworld, "particles_step"),
-               (kpart, "particles_update"), (benchworld, "mix_block")]
+               (kpart, "particles_update"), (benchworld.BenchScripts, "evaluate"),
+               (benchworld, "mix_block")]
 SERVING_STAGES = [(serving_io, "apply_tick_in"), (world_mod, "player_update_packed"),
                   (world_mod, "physics_step"), (narrowphase, "pair_contacts"),
                   (narrowphase, "compact_contacts"), (solver, "build_incidence"),
-                  (solver, "prepare_solve"), (solver, "iterate"), (serving_io, "digest_tblock")]
+                  (solver, "prepare_solve"), (solver, "iterate"), (solver, "cache_refresh"),
+                  (serving_io, "digest_tblock")]
 MESH_STAGES = [(serving_io, "apply_tick_in"), (world_mod, "player_update_packed"),
                (world_mod, "physics_step"), (narrowphase, "pair_contacts"),
                (convex, "convex_rows"), (narrowphase, "static_contacts"),
                (narrowphase, "compact_contacts"), (solver, "build_incidence"),
-               (solver, "prepare_solve"), (solver, "iterate"), (serving_io, "digest_tblock"),
-               (benchworld.queries, "trace_rays")]
+               (solver, "prepare_solve"), (solver, "iterate"), (solver, "cache_refresh"),
+               (serving_io, "digest_tblock"), (benchworld.queries, "trace_rays")]
 
 
 def _timed(fn, name, acc):
@@ -187,10 +193,10 @@ def audio_scene(w):
 
 
 def full_scene(w):
-    """bench.py's vehicles, character and particles and its 256 sources on
-    the world: (one full tick, one full tick without the character) per
-    call, advancing the shared state."""
-    veh, vin, ps, char = bench_fulltick(w, "cuda")
+    """bench.py's vehicles, character, particles and Winter scripts and its
+    256 sources on the world: (one full tick, one full tick without the
+    character) per call, advancing the shared state."""
+    veh, vin, ps, char, scripts = bench_fulltick(w, "cuda")
     src, pool, lis, room = bench_audio("cuda")
     idx = torch.arange(src.capacity, device="cuda")
     state = dict(veh=veh, ps=ps, src=src, room=room, char=char, t=0)
@@ -198,7 +204,7 @@ def full_scene(w):
     def tick(with_char):
         (state["veh"], state["ps"], state["src"], _, state["room"], char) = full_tick(
             w, state["veh"], vin, state["ps"], state["src"], pool, lis, state["room"], idx,
-            state["char"] if with_char else None, state["t"] * DT)
+            state["char"] if with_char else None, state["t"] * DT, scripts)
         if with_char:
             state["char"] = char
         state["t"] += 1

@@ -1,4 +1,4 @@
-"""Kernels KA-KO on the card against their plain PyTorch twins, and the
+"""Kernels KA-KR on the card against their plain PyTorch twins, and the
 entry points' default device.
 
 These need a CUDA device and skip without one (the decision is made inside
@@ -12,8 +12,10 @@ velocities after warm start + 7 iterations, 1e-6 for KD and KE, 1e-5 for
 KF and KG, 1e-6 for KH (hit and body exact) and KI, 1e-5 of each output's
 scale for KJ, 1e-5 for KK's rows (masks, keys and touching exact), 1e-6 of
 scale for KL (flags and the touched list exact), KM and KN exact, 1e-5
-for KO's rows (masks, keys and touching exact); each kernel repeats its
-twin's operations in the same order."""
+for KO's rows (masks, keys and touching exact), KP exact, 1e-6 of each
+output's scale for KQ's setup (masks, slots and table entries exact) and
+its refreshed cache exact, KR within 1e-6 of scale (the bench rotations
+exact); each kernel repeats its twin's operations in the same order."""
 
 import numpy as np
 import pytest
@@ -190,12 +192,13 @@ def fulltick():
                     cell_capacity=6, solver_iters=7, pairs_per_body=10,
                     pair_rebuild_interval=6, contacts_per_body=8)
     w = benchworld.bench_world("cuda", n_bodies=400, cfg=cfg)
-    veh, vin, ps, char = benchworld.bench_fulltick(w, "cuda", n_particles=512, n_vehicles=8)
+    veh, vin, ps, char, scripts = benchworld.bench_fulltick(w, "cuda", n_particles=512,
+                                                            n_vehicles=8)
     src, pool, lis, room = bench_audio("cuda", n_sources=16)
     idx = torch.arange(16, device="cuda")
     for t in range(10):
         veh, ps, src, _, room, char = benchworld.full_tick(w, veh, vin, ps, src, pool, lis,
-                                                           room, idx, char, t * DT)
+                                                           room, idx, char, t * DT, scripts)
     return w, veh, vin, ps
 
 
@@ -289,13 +292,16 @@ def test_full_tick_on_card_matches_cpu():
     runs = {}
     for dev in ("cuda", "cpu"):
         w = benchworld.bench_world(dev, n_bodies=200, cfg=cfg)
-        veh, vin, ps, char = benchworld.bench_fulltick(w, dev, n_particles=256, n_vehicles=4)
+        veh, vin, ps, char, scripts = benchworld.bench_fulltick(w, dev, n_particles=256,
+                                                                n_vehicles=4)
         src, pool, lis, room = bench_audio(dev, n_sources=16)
         idx = torch.arange(16, device=dev)
         for t in range(5):
             veh, ps, src, out, room, char = benchworld.full_tick(w, veh, vin, ps, src, pool, lis,
-                                                                 room, idx, char, t * DT)
-        runs[dev] = (w.state.pos.cpu(), ps.pos.cpu(), out.cpu(), char.pos.cpu())
+                                                                 room, idx, char, t * DT,
+                                                                 scripts)
+        runs[dev] = (w.state.pos.cpu(), ps.pos.cpu(), out.cpu(), char.pos.cpu(),
+                     scripts.out.cpu())
     for a, b in zip(runs["cuda"], runs["cpu"]):
         assert float((a - b).abs().max()) <= 1e-4
 
@@ -609,3 +615,85 @@ def test_mesh_world_on_card_matches_cpu():
             assert float((a[0] - b[0]).abs().max()) <= 1e-5, t
         assert float((a[1] - b[1]).abs().max()) <= 1e-5, t
         assert np.array_equal(a[2], b[2]), t
+
+
+def test_cell_table_kernel_matches_plain(world):
+    """KP: table, cells and overflow exact in both modes, on the world and
+    on the same bodies moved onto the 1.4 m lattice (k * 1.4 and one ulp
+    either side); with the world's buckets (counters in shared memory) and
+    with grid_dim 256's 65,536 (counters in global memory)."""
+    from substrata_tpu_torch.kernels import cell_table as kp
+    s, cfg = world.state, world.config
+    rng = np.random.default_rng(5)
+    base = rng.integers(1, 40, (s.capacity, 3)).astype(np.float32) * np.float32(1.4)
+    lat = np.where(rng.random(base.shape) < 0.5, np.nextafter(base, np.float32(0)), base)
+    for nb in (cfg.grid_dim ** 2, 256 ** 2):
+        kw = dict(num_buckets=nb, cap=cfg.cell_capacity,
+                  rcp_cell=broadphase.recip(cfg.cell_size), cell_size=cfg.cell_size)
+        for b in (s, s.replace(pos=torch.as_tensor(lat, device="cuda"))):
+            args = (b.pos, b.alive, b.collidable, b.awake, b.motion_type, b.bound_radius)
+            for flags in (False, True):
+                tk = kp.cell_table(*args, with_flags=flags, **kw)
+                tp = kp.cell_table_plain(*args, with_flags=flags, **kw)
+                for x, y in zip(tk, tp):
+                    assert torch.equal(x, y), (nb, flags)
+
+
+def test_solve_setup_kernel_matches_plain(world):
+    """KQ: every setup output within 1e-6 of its scale (masks, slots and
+    table entries exact), then the refreshed cache exactly."""
+    from substrata_tpu_torch.kernels import solve_setup as kq
+    s, pc, cfg, p = world.state, world.pair_cache, world.config, world.params
+    wm = narrowphase.blocked_manifold_width(cfg, s.capacity)
+    pair_cts, _, _ = narrowphase.pair_contacts(s, pc.pair_a, pc.pair_b, pc.pair_valid,
+                                               cfg, blocked_wm=wm)
+    static_cts = narrowphase.static_contacts(s, world.static_world, cfg)
+    cache = world.solver_cache.data
+    args = (s, static_cts, pair_cts, pc.inc_table, pc.inc_sign)
+    rk, ysk, ypk, (hk, vk) = kq.solve_setup(*args, p, DT, cache, wm)
+    rp, ysp, ypp, (hp, vp) = kq.solve_setup_plain(
+        *args, p.baumgarte, p.restitution_threshold, torch.full((), DT, device="cuda"), cache,
+        wm)
+    for f in ("s_dir", "s_ang", "s_r", "s_k", "s_target", "p_dir", "p_ang_a", "p_ang_b",
+              "p_ra", "p_rb", "p_k", "p_target", "w", "im"):
+        a, b = getattr(rk, f), getattr(rp, f)
+        assert float((a - b).abs().max()) <= 1e-6 * max(1.0, float(b.abs().max())), f
+    for f in ("s_valid", "p_valid", "p_ab", "tbl"):
+        assert torch.equal(getattr(rk, f), getattr(rp, f)), f
+    assert torch.equal(hk, hp) and torch.equal(vk, vp)
+    for a, b in ((ysk, ysp), (ypk, ypp)):
+        assert float((a - b).abs().max()) <= 1e-6 * max(1.0, float(b.abs().max()))
+    lam_s = torch.rand_like(ysp)
+    lam_p = torch.rand_like(ypp)
+    rargs = (cache, hp, vp, static_cts, pair_cts, lam_s, rp.s_valid, lam_p, rp.p_valid)
+    ck, cp = kq.cache_refresh(*rargs), kq.cache_refresh_plain(*rargs)
+    assert torch.equal(ck.view(torch.int32), cp.view(torch.int32))
+
+
+def test_winter_kernel_matches_plain():
+    """KR: bench.py's two scripts and a vector / struct / user-function
+    script over 4,096 instances in one launch; rotations of the bench
+    scripts exact, everything within 1e-6 of its scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from substrata_tpu_torch.kernels import winter as kr
+    from substrata_tpu_torch.scripting import WinterScriptEvaluator
+    srcs = list(benchworld.WINTER_SOURCES) + [
+        "struct P { real a, real f }\n"
+        "def g(float x, P p) float : sin(x * p.f) * p.a\n"
+        "def evalRotation(float time, WinterEnv env) vec3 :\n"
+        "    let p = P(2.0, 3.0) v = vec3(time, 1.0, toFloat(env.instance_index)) in\n"
+        "        normalise(v) * g(time, p) + cross(v, vec3(0.3, time, 0.7)) / 3.0\n"
+        "def evalTranslation(float time, WinterEnv env) vec3 :\n"
+        "    vec3(time % 3.0, if(time > 0.0, time * 0.3 + 1.0, 0.0 - 1.0), fbm(time * 0.1, 3))"]
+    codes = [WinterScriptEvaluator(src, device="cuda").code() for src in srcs]
+    n = 4096
+    batch = kr.Batch([c for c, _ in codes], [r for _, r in codes],
+                     [(k * n, n) for k in range(len(srcs))], "cuda")
+    rng = np.random.default_rng(8)
+    t = torch.as_tensor(rng.uniform(-100, 100, batch.size).astype(np.float32), device="cuda")
+    i = torch.as_tensor(rng.integers(0, 512, batch.size).astype(np.int32), device="cuda")
+    m = torch.full((batch.size,), 512, dtype=torch.int32, device="cuda")
+    got, want = kr.winter_eval(batch, t, i, m), kr.winter_eval_plain(batch, t, i, m)
+    assert torch.equal(got[:n, :3], want[:n, :3])
+    assert float((got - want).abs().max()) <= 1e-6 * max(1.0, float(want.abs().max()))

@@ -22,6 +22,7 @@ from substrata_tpu.physics import narrowphase as jnp_phase
 from substrata_tpu.physics import solver as jsolver
 from substrata_tpu.physics import state as jstate
 from substrata_tpu_torch import convert
+from substrata_tpu_torch.kernels import solve_setup
 from substrata_tpu_torch.physics import narrowphase as tnp_phase
 from substrata_tpu_torch.physics import solver as tsolver
 from substrata_tpu_torch.physics import state as tstate
@@ -103,7 +104,7 @@ def test_cache_hash_equal():
     k = rng.integers(0, 65536 * 4 + 9, 4000).astype(np.int32)
     for size in (1 << 10, 1 << 18):
         np.testing.assert_array_equal(
-            tsolver._cache_hash(torch.tensor(a), torch.tensor(k), size).numpy(),
+            solve_setup.cache_hash(torch.tensor(a), torch.tensor(k), size).numpy(),
             np.asarray(jsolver._cache_hash(jnp.asarray(a), jnp.asarray(k), size)))
 
 
@@ -150,3 +151,33 @@ def test_solve_positions_matches_reference(scene):
                                    wm=WM)
     np.testing.assert_allclose(tpos.numpy(), np.asarray(jpos), atol=1e-5, rtol=0)
     assert float(np.abs(np.asarray(jpos) - np.asarray(pos)).max()) > 1e-4
+
+
+def test_targets_divide_by_traced_dt(scene):
+    """The reference's dt is traced (physics/step.py:53 leaves it out of the
+    static names), so its solve targets divide by it; 1/60 has an inexact
+    float32 reciprocal, and a multiply by it would round differently.  With
+    the bodies at rest no restitution target competes, so the targets are
+    the bias formula of solver.py:323-328, jitted with dt traced."""
+    s = scene
+    tb = s["tb"].replace(linvel=torch.zeros_like(s["tb"].linvel),
+                         angvel=torch.zeros_like(s["tb"].angvel))
+    rng = np.random.default_rng(1)
+    pens = [rng.uniform(-0.05, 0.1, c.penetration.shape).astype(np.float32)
+            for c in (s["tstatic"], s["tpair"])]
+    tstatic, tpair = (c.replace(penetration=torch.as_tensor(p))
+                      for c, p in zip((s["tstatic"], s["tpair"]), pens))
+    table, sign, _ = s["inc"]
+    setup = tsolver.prepare_solve(tb, tstatic, tpair, DT, s["tp"], s["tcfg"],
+                                  wm=WM, table=torch.tensor(np.asarray(table)),
+                                  sign=torch.tensor(np.asarray(sign)))
+
+    @jax.jit
+    def bias(pen, baumgarte, dt):
+        return jnp.where(pen > 0.0, jnp.minimum((baumgarte / dt) * jnp.maximum(pen - 0.04, 0.0),
+                                                3.0), pen / dt)
+
+    for pen, got in zip(pens, (setup.rows.s_target, setup.rows.p_target)):
+        want = np.asarray(bias(jnp.asarray(pen), s["jp"].baumgarte, jnp.float32(DT)))
+        np.testing.assert_array_equal(got.numpy(), want.reshape(got.shape))
+        assert (pen * (np.float32(1) / np.float32(DT)) != pen / np.float32(DT)).sum() > 100

@@ -13,9 +13,10 @@ from the CPU libm in the last bits.
 Then short (90 to 120 ticks) ``VehicleManager`` + ``think`` runs of the
 car, hovercar, boat and bike scenarios of tests/test_vehicles.py through
 both packages, compared by chassis trajectory, and the tick of bench.py's
-window 3 without the character and Winter (``benchworld.full_tick``) at a
-small size, chained 10 ticks against the same composition of reference
-functions."""
+window 3 (``benchworld.full_tick``: the character and the Winter batch
+too) at a small size, chained 10 ticks against the same composition of
+reference functions; the Winter results match the jitted reference's
+(rotations exactly, sin and cos within 1 ulp)."""
 
 import numpy as np
 import pytest
@@ -32,6 +33,7 @@ from substrata_tpu.physics import state as jstate
 from substrata_tpu.physics.vehicles import manager as jveh
 from substrata_tpu.physics.world import PhysicsObject as JObject
 from substrata_tpu.physics.world import PhysicsWorld as JWorld
+from substrata_tpu.scripting.winter import WinterScriptEvaluator as JScript
 from substrata_tpu_torch import MotionType, PhysicsObject, PhysicsWorld, benchworld, convert
 from substrata_tpu_torch.physics import shapes as tshapes
 from substrata_tpu_torch.physics import state as tstate
@@ -336,8 +338,15 @@ def test_full_tick_small_matches_reference():
     tw = benchworld.bench_world("cpu", n_bodies=SMALL["n_bodies"],
                                 cfg=tstate.SimConfig(**{k: x for k, x in box_config_kwargs(256)
                                                         .items() if k != "present_shape_types"}))
-    tveh_, tvin, tps, tchar = benchworld.bench_fulltick(
+    tveh_, tvin, tps, tchar, tscripts = benchworld.bench_fulltick(
         tw, "cpu", n_particles=SMALL["n_particles"], n_vehicles=SMALL["n_vehicles"])
+    # bench.py:192-207's Winter batch, jitted as bench.py runs it.
+    jevs = [JScript(s) for s in benchworld.WINTER_SOURCES]
+    widx = jnp.arange(benchworld.N_WINTER // 2, dtype=jnp.float32)
+    jwinter = jax.jit(lambda t: jnp.concatenate([jnp.concatenate(
+        [ev.eval_rotation(jnp.broadcast_to(t, widx.shape), widx, benchworld.N_WINTER),
+         ev.eval_translation(jnp.broadcast_to(t, widx.shape), widx, benchworld.N_WINTER)],
+        axis=1) for ev in jevs]))
     jc = jchar.init_character_state([0.0, 0.0, 3.0])
     tsrc, tpool, tlis, troom = benchworld.bench_audio("cpu", n_sources=SMALL["n_sources"])
     idx = jnp.arange(SMALL["n_sources"])
@@ -363,7 +372,11 @@ def test_full_tick_small_matches_reference():
         src, out, room = jmix.mix_block(src, pool, lis, room=room, use_hrtf=True, block=800)
 
         tveh_, tps, tsrc, tout, troom, tchar = benchworld.full_tick(
-            tw, tveh_, tvin, tps, tsrc, tpool, tlis, troom, tidx, tchar, float(tt))
+            tw, tveh_, tvin, tps, tsrc, tpool, tlis, troom, tidx, tchar, float(tt), tscripts)
+        # Rotation exact; translation's sin and cos within 1 ulp of XLA's.
+        got, want = tscripts.out.numpy(), np.asarray(jwinter(jt))
+        np.testing.assert_array_equal(got[:, :3], want[:, :3])
+        np.testing.assert_array_max_ulp(got[:, 3:], want[:, 3:], maxulp=1)
         tt = tt + np.float32(DT)
         what = f"tick {t}"
         np.testing.assert_allclose(tw.state.pos.numpy(), np.asarray(w.state.pos), atol=1e-3,

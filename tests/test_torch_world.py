@@ -261,6 +261,7 @@ def test_import_leaves_jax_out():
             "substrata_tpu_torch.kernels.closed_forms, substrata_tpu_torch.kernels.serving_io, "
             "substrata_tpu_torch.kernels.convex, substrata_tpu_torch.kernels.static_contacts, "
             "substrata_tpu_torch.physics.shapes, substrata_tpu_torch.physics.world, "
+            "substrata_tpu_torch.scripting, substrata_tpu_torch.kernels.winter, "
             "scipy.spatial; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'substrata_tpu')]; "
