@@ -91,7 +91,17 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    on a corpus of one script per builtin and per operator and a
    let/struct/user-function program, 4,096 instances each, in one launch,
    exact on arithmetic and within 1e-6 of scale on transcendentals; each
-   timed as in phase 3.
+   timed as in phase 3;
+15. the physics step's last stages: KS (pair finding with the rebuild's
+   margins) at a rebuild of the bench world after 30 ticks; KT's grouping,
+   touching, compaction and incidence table on the serving world (timed)
+   and the mesh world; KU (position solve) and KV (strike wake, sleep
+   pass) on the bench, serving and mesh worlds; each against its twin:
+   KU within 1e-6 of the positions' scale, everything else exact (pairs,
+   margins, counters, buckets, compacted rows, tables, flags, timers).
+   Then torch.profiler over think rebuild ticks and serving ticks: no
+   aten sort, argsort, cumsum, cummax or searchsorted runs inside a
+   ``physics_step`` range.
 
 Every kernel also gets its bound: the least time the card could take for
 the same work, the larger of its bytes (each input read once, each output
@@ -99,8 +109,10 @@ written once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s
 (the H100 SXM's published peaks at 700 W), from this run's inputs.
 
 The last lines are the kernels JSON (launches from phase 9's full ticks,
-from phase 11's serving ticks for KK-KN and from phase 13's mesh frames
-for KO; KQ's two launches are two entries),
+from phase 11's serving ticks for KK-KN and KT, from phase 5's thinks for
+KS, KU and KV, and from phase 13's mesh frames for KO; KQ's two launches,
+KT's four entry points and KV's two are separate entries; the grouping's
+library_ms is torch.argsort(stable=True) on its codes),
 the card's name and power limit, and {"ok": true, "device": {...}}.  TF32 stays off for matmuls and cuDNN
 (the solver's small products must run in full float32).
 """
@@ -1096,7 +1108,7 @@ def serving_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, plain_reps=5)
             kl_errs.append(_kl_compare(*kl_cases[-1])[0])
         serving_tick(w, p, t * DT)
     body, pc, cfg = w.state, w.pair_cache, w.config
-    bucket_list, _ = narrowphase.buckets(body, pc.pair_a, pc.pair_b, pc.pair_valid, cfg)
+    bucket_list = narrowphase.buckets(body, pc.pair_a, pc.pair_b, pc.pair_valid, cfg)[0]
     kk_calls, valid_slots, kk_ops, real_err = [], {}, 0, 0.0
     for code, _, bba, bbb, bvalid in bucket_list:
         if code not in kk.CODES:
@@ -1548,7 +1560,7 @@ def mesh_kernel_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None, 
             kl_errs.append(_kl_compare(*kl_cases[-1])[0])
         mesh_tick(w, p, t * DT, src)
     body, pc, cfg, sw = w.state, w.pair_cache, w.config, w.static_world
-    bucket_list, _ = narrowphase.buckets(body, pc.pair_a, pc.pair_b, pc.pair_valid, cfg)
+    bucket_list = narrowphase.buckets(body, pc.pair_a, pc.pair_b, pc.pair_valid, cfg)[0]
     calls, real_err, valid_slots = [], 0.0, {}
     for code, _, bba, bbb, bvalid in bucket_list:
         if code not in ko.CODES:
@@ -1983,7 +1995,7 @@ def kpqr_phase(device="cuda", n_bodies=10_000, cfg=None, corpus_n=4096, plain_re
                                                 serving_world)
     from substrata_tpu_torch.kernels import cell_table as kp
     from substrata_tpu_torch.kernels import winter as kr
-    from substrata_tpu_torch.physics import broadphase
+    from substrata_tpu_torch.maths import fp
     from substrata_tpu_torch.scripting import WinterScriptEvaluator
     results = {}
 
@@ -2002,7 +2014,7 @@ def kpqr_phase(device="cuda", n_bodies=10_000, cfg=None, corpus_n=4096, plain_re
     splits = int((np.floor(lat / np.float32(1.4))
                   != np.floor(lat * (np.float32(1) / np.float32(1.4)))).sum())
     kw = dict(num_buckets=cfg.grid_dim * cfg.grid_dim, cap=cfg.cell_capacity,
-              rcp_cell=broadphase.recip(cfg.cell_size), cell_size=cfg.cell_size)
+              rcp_cell=fp.recip(cfg.cell_size), cell_size=cfg.cell_size)
     overflow = {}
     for name, b in (("bench", body), ("lattice", on_lattice)):
         a = (b.pos, b.alive, b.collidable, b.awake, b.motion_type, b.bound_radius)
@@ -2092,13 +2104,334 @@ def kpqr_phase(device="cuda", n_bodies=10_000, cfg=None, corpus_n=4096, plain_re
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the pair finder (KS), the compacted layout's chain (KT), the
+# position solve (KU) and sleeping (KV) against their twins, and the
+# step's sort-free check.
+# ---------------------------------------------------------------------------
+
+def device_us_call(fn, prefix, reps=REPS):
+    """Device time (µs) per call of ``fn``, summed over the kernels whose
+    names hold ``prefix`` (for wrappers that launch several); None where
+    the profiler records no device work."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and prefix in e.name]
+    return sum(us) / reps if us else None
+
+
+def _timed(fn, plain, prefix, bytes_moved, flops, plain_reps):
+    return dict(**bound(bytes_moved, flops), ms=median_ms(fn),
+                plain_ms=median_ms(plain, reps=plain_reps),
+                device_us=device_us_call(fn, prefix))
+
+
+def _forced(w):
+    """The step's body after the forces, as the broadphase sees it."""
+    from substrata_tpu_torch.physics import integrate
+    lin, ang, _ = integrate.apply_forces(w.state, DT, w.params)
+    return w.state.replace(linvel=lin, angvel=ang)
+
+
+def _ks_compare(w, what, timed=False, plain_reps=5):
+    """KS at a rebuild against its twin: pairs, counters, the reuse window
+    and the margins exact."""
+    from substrata_tpu_torch.kernels import pairs as ks
+    body, cfg = _forced(w), w.config
+    has_os = bool(w._oversize_slots)
+    got = ks.pairs_rebuild(body, DT, cfg, has_os)
+    want = ks.pairs_rebuild_plain(body, DT, cfg, has_os)
+    names = ("pair_a", "pair_b", "pair_valid", "num_pairs", "overflow", "steps_left", "margins")
+    for a, b, name in zip(got, want, names):
+        check(a.dtype == b.dtype and torch.equal(a, b), f"KS {what}: {name} differs")
+    n_os = int((body.alive & (2.0 * body.bound_radius > cfg.cell_size)).sum())
+    res = dict(max_abs_err=0.0, tol=0.0, num_pairs=int(want[3]), overflow=int(want[4]),
+               steps_left=int(want[5]), oversize_bodies=n_os, has_oversize=has_os)
+    if timed:
+        fields = [getattr(body, k) for k in ("pos", "linvel", "alive", "awake", "collidable",
+                                             "motion_type", "bound_radius", "shape_type",
+                                             "shape_params")]
+        alive = int(body.alive.sum())
+        ops = (alive * 14 * cfg.cell_capacity * FLOPS["pair_candidate"]
+               + (min(n_os, 64) * body.capacity * FLOPS["pair_candidate"] if has_os else 0))
+        res.update(_timed(lambda: ks.pairs_rebuild(body, DT, cfg, has_os),
+                          lambda: ks.pairs_rebuild_plain(body, DT, cfg, has_os), "pairs_",
+                          nbytes(fields, got[:6]), ops, plain_reps))
+    return res
+
+
+def _kt_compare(w, what, timed=False, plain_reps=5):
+    """KT's four entry points against their twins on one mixed world's
+    pair list: buckets, touching, the compacted rows and the incidence
+    table, all exact."""
+    from substrata_tpu_torch.kernels import layout as kt
+    from substrata_tpu_torch.physics import narrowphase
+    body, cfg, pc = _forced(w), w.config, w.pair_cache
+    n, p = body.capacity, pc.pair_a.shape[0]
+    active = narrowphase._active_codes(cfg)
+    check(len(active) > 1, f"KT {what}: a single-combo world")
+    gargs = (body.shape_type, pc.pair_a, pc.pair_b, pc.pair_valid, active, cfg.max_pairs)
+    gk, ovk, slot = kt.group(*gargs)
+    gp, ovp, _ = kt.group_plain(*gargs)
+    for (ck, *tk), (cp, *tp) in zip(gk, gp):
+        for x, y, name in zip(tk, tp, ("src", "ba", "bb", "bvalid")):
+            check(ck == cp and torch.equal(x, y), f"KT {what}: code {cp} {name} differs")
+    check(int(ovk) == int(ovp), f"KT {what}: bucket overflow {int(ovk)} != {int(ovp)}")
+    srcs, touches, rows = [], [], []
+    for code, src, ba, bb, bv in gp:
+        r = narrowphase._bucket_rows(code, narrowphase._MANIFOLD_WIDTH[code], False, body, ba,
+                                     bb, bv, w.static_world.hulls)
+        srcs.append(src)
+        touches.append(r[9])
+        rows.append(r[:9])
+    tk = kt.touching(srcs, touches, p, slot)
+    tp = kt.touching_plain(srcs, touches, p)
+    check(torch.equal(tk, tp), f"KT {what}: touching differs")
+    contacts = tuple(torch.cat([r[i] for r in rows]) for i in range(9))
+    m = cfg.max_active_contacts
+    ck, cov_k = kt.compact(contacts, m)
+    cp, cov_p = kt.compact_plain(contacts, m)
+    for x, y, name in zip(ck, cp, narrowphase.CONTACT_FIELDS):
+        check(torch.equal(x, y), f"KT {what}: compacted {name} differs")
+    check(int(cov_k) == int(cov_p), f"KT {what}: contact overflow differs")
+    occ = cp[5] & (cp[0] >= 0)
+    cpb = cfg.contacts_per_body
+    ik = kt.incidence(cp[0], cp[1], occ, n, cpb)
+    ip = kt.incidence_plain(cp[0], cp[1], occ, n, cpb)
+    for x, y, name in zip(ik, ip, ("table", "sign", "counts")):
+        check(torch.equal(x, y), f"KT {what}: incidence {name} differs")
+    per_body = torch.bincount(torch.cat([cp[0][occ].long(), cp[1][occ & (cp[1] >= 0)].long()]),
+                              minlength=n)
+    valid = contacts[5]
+    res = dict(max_abs_err=0.0, tol=0.0, codes=active, bucket_slots=int(sum(len(g[1]) for g in gp)),
+               pairs_bucketed=int(sum(int(g[4].sum()) for g in gp)), bucket_overflow=int(ovp),
+               touching=int(tp.sum()), rows=int(valid.shape[0]), valid_rows=int(valid.sum()),
+               touching_rows=int((valid & (contacts[4] > 0)).sum()),
+               compacted=int(cp[5].sum()), contact_overflow=int(cov_p),
+               bodies_over_cpb=int((per_body > cpb).sum()), cpb=cpb)
+    if timed:
+        pa, pb, pv = pc.pair_a, pc.pair_b, pc.pair_valid
+        g_out = [t for _, *ts in gk for t in ts] + [slot, ovk]
+        st_a = body.shape_type[torch.clamp(pa, min=0).long()]
+        st_b = body.shape_type[torch.clamp(pb, min=0).long()]
+        sort_codes = torch.where(pv, torch.clamp(st_a * 4 + st_b, 0, 15), 16)
+        res["group"] = dict(
+            **_timed(lambda: kt.group(*gargs), lambda: kt.group_plain(*gargs), "layout_group",
+                     nbytes(pa, pb, pv, body.shape_type, g_out), 0, plain_reps),
+            library_ms=median_ms(lambda: torch.argsort(sort_codes, stable=True)))
+        res["touching"] = _timed(lambda: kt.touching(srcs, touches, p, slot),
+                                 lambda: kt.touching_plain(srcs, touches, p), "layout_touching",
+                                 nbytes(slot, touches, tk), 0, plain_reps)
+        res["compact"] = _timed(lambda: kt.compact(contacts, m),
+                                lambda: kt.compact_plain(contacts, m), "layout_compact",
+                                nbytes(contacts, ck, cov_k), 0, plain_reps)
+        ia = (cp[0], cp[1], occ, n, cpb)
+        res["incidence"] = _timed(lambda: kt.incidence(*ia), lambda: kt.incidence_plain(*ia),
+                                  "layout_inc", nbytes(cp[0], cp[1], occ, ik), 0, plain_reps)
+    return res
+
+
+def _kuv_compare(w, what, timed=False, plain_reps=5):
+    """KU and KV against their twins on one world's step inputs: the
+    positions within 1e-6 of the largest push the twin gives (below an ulp
+    of the positions, so exact in practice); flags, timers, velocities and
+    steps_left exact."""
+    from substrata_tpu_torch.kernels import positions as ku
+    from substrata_tpu_torch.kernels import sleep as kv
+    from substrata_tpu_torch.physics import integrate, solver
+    body, static_cts, pair_cts, table, sign, wm = _solve_inputs(w)
+    cfg, prm, st, pc = w.config, w.params, w.state, w.pair_cache
+    lin, ang, lam_p, *_ = solver.solve_contacts(body, static_cts, pair_cts, DT, prm, cfg,
+                                                w.solver_cache, wm=wm, table=table, sign=sign)
+    pos, _ = integrate.integrate_positions(body, lin, ang, DT)
+    srows = (static_cts.valid, static_cts.normal, static_cts.penetration)
+    prows = (pair_cts.a, pair_cts.b, pair_cts.valid, pair_cts.normal, pair_cts.penetration)
+    uargs = (pos, body.inv_mass, body.awake, srows, prows, table, sign, prm.contact_slop)
+    pk = ku.solve_positions(*uargs, iters=2, beta=0.25, wm=wm)
+    pp = ku.solve_positions_plain(*uargs, 2, 0.25, wm)
+    err, moved = max_err(pk, pp), float((pp - pos).abs().max())
+    check(err <= 1e-6 * moved, f"KU {what}: err {err} > 1e-6 x the largest push {moved}")
+    sargs = (st.awake, body.linvel, st.alive, st.motion_type, pc.pair_a, pc.pair_b,
+             pc.pair_valid)
+    sk, sp = kv.strike_wake(*sargs), kv.strike_wake_plain(*sargs)
+    check(torch.equal(sk, sp), f"KV {what}: strike wake differs")
+    vargs = (body, st.awake, lin, ang, (static_cts.valid, static_cts.penetration),
+             (pair_cts.a, pair_cts.b, pair_cts.valid, pair_cts.penetration), lam_p, table, sign,
+             wm, DT, prm, pc.steps_left)
+    vk, vp = kv.sleep_pass(*vargs), kv.sleep_pass_plain(*vargs)
+    for f in dataclasses.fields(vp):
+        a, b = getattr(vk, f.name), getattr(vp, f.name)
+        check(a.dtype == b.dtype and torch.equal(a, b), f"KV {what}: {f.name} differs")
+    # Again with half the bodies asleep and every timer near its limit, so
+    # that strikes, wakes, sleeps and the velocity zeroing all happen.
+    gen = torch.Generator(device=body.device)
+    gen.manual_seed(15)
+    drowsy = st.awake & (torch.rand(st.awake.shape, generator=gen, device=body.device) < 0.5)
+    sargs2 = (drowsy,) + sargs[1:]
+    sk2, sp2 = kv.strike_wake(*sargs2), kv.strike_wake_plain(*sargs2)
+    check(torch.equal(sk2, sp2), f"KV {what}: strike wake (half asleep) differs")
+    body2 = body.replace(awake=sp2, sleep_timer=torch.full_like(body.sleep_timer, 0.49))
+    vargs2 = (body2, drowsy) + vargs[2:]
+    vk2, vp2 = kv.sleep_pass(*vargs2), kv.sleep_pass_plain(*vargs2)
+    for f in dataclasses.fields(vp2):
+        a, b = getattr(vk2, f.name), getattr(vp2, f.name)
+        check(a.dtype == b.dtype and torch.equal(a, b), f"KV {what}: {f.name} (drowsy) differs")
+    res = dict(max_abs_err=err, tol=1e-6 * moved, moved_max=moved,
+               struck=int((sp2 & ~drowsy).sum()), newly_awake=int(vp2.newly_awake.sum()),
+               newly_asleep=int(vp2.newly_asleep.sum()),
+               steps_left=(int(pc.steps_left), int(vp2.steps_left)), wm=wm)
+    if timed:
+        n, cpb = body.capacity, table.shape[1]
+        rows_s, rows_p = static_cts.capacity, pair_cts.capacity
+        u_in = [pos, body.inv_mass, body.awake, srows, prows, table, sign]
+        res["positions"] = _timed(lambda: ku.solve_positions(*uargs, iters=2, beta=0.25, wm=wm),
+                                  lambda: ku.solve_positions_plain(*uargs, 2, 0.25, wm),
+                                  "positions_", nbytes(u_in, pk),
+                                  2 * FLOPS["position_row"] * (rows_s + rows_p)
+                                  + 2 * FLOPS["position_slot"] * n * cpb, plain_reps)
+        res["strike"] = _timed(lambda: kv.strike_wake(*sargs),
+                               lambda: kv.strike_wake_plain(*sargs), "sleep_strike",
+                               nbytes(sargs, sk), 6 * pc.pair_a.shape[0], plain_reps)
+        v_in = [body.awake, st.awake, body.sleep_timer, body.alive, body.motion_type, lin, ang,
+                vargs[4], vargs[5], lam_p, table, sign, pc.steps_left]
+        v_out = [getattr(vk, f.name) for f in dataclasses.fields(vk)]
+        res["sleep"] = _timed(lambda: kv.sleep_pass(*vargs), lambda: kv.sleep_pass_plain(*vargs),
+                              "sleep_", nbytes(v_in, v_out), FLOPS["sleep_body"] * n,
+                              plain_reps)
+    return res
+
+
+STEP_FORBIDDEN = ("aten::sort", "aten::argsort", "aten::cumsum", "aten::cummax",
+                  "aten::_cummax_helper", "aten::searchsorted")
+
+
+# aten ops that launch no device work of their own (allocation, views,
+# metadata); every other aten op that calls none of those that do is one
+# plain torch launch.
+NO_LAUNCH = frozenset("aten::" + n for n in (
+    "empty", "empty_strided", "empty_like", "view", "reshape", "_reshape_alias", "select",
+    "slice", "as_strided", "expand", "expand_as", "unsqueeze", "squeeze", "t", "transpose",
+    "permute", "detach", "alias", "resolve_conj", "resolve_neg", "lift_fresh", "unbind",
+    "split", "narrow", "result_type", "contiguous", "to", "_to_copy", "clone", "zeros",
+    "zeros_like", "full", "full_like", "ones", "ones_like", "zero_", "new_zeros", "new_empty",
+    "new_full", "flatten", "unflatten", "chunk", "view_as", "diagonal", "split_with_sizes",
+    "as_strided_", "resize_", "_unsafe_view", "numpy_T", "detach_"))
+
+
+def _sort_free(run, ticks):
+    """(physics_step ranges, aten ops inside them, plain torch launches
+    inside them by op name, per step) over ``ticks`` calls of ``run``, from the CPU
+    events of torch.profiler.  An op counts as a launch when it is not in
+    NO_LAUNCH and none of its own aten children is outside it; the
+    composite ops in NO_LAUNCH (``zeros``, ``to``, ``clone``) count through
+    the ``fill_`` or ``copy_`` they call."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(ticks):
+            run()
+        torch.cuda.synchronize()
+    events = prof.events()
+    ranges = [(e.time_range.start, e.time_range.end) for e in events if e.name == "physics_step"]
+    inside = [e for e in events if e.name.startswith("aten::")
+              and any(a <= e.time_range.start < b for a, b in ranges)]
+    plain = {}
+    for e in inside:
+        if e.name in NO_LAUNCH or any(c.name.startswith("aten::") and c.name not in NO_LAUNCH
+                                      for c in e.cpu_children):
+            continue
+        plain[e.name] = plain.get(e.name, 0) + 1
+    steps = max(len(ranges), 1)
+    plain = {k: v / steps for k, v in sorted(plain.items(), key=lambda kv: -kv[1])}
+    return len(ranges), [e.name for e in inside], plain
+
+
+def layout_phase(device="cuda", n_bodies=10_000, cfg=None, plain_reps=5, mesh_objects=12_000,
+                 mesh_dynamic=512, ticks=6):
+    from substrata_tpu_torch.benchworld import (bench_world, mesh_tick, mesh_world,
+                                                serving_tick, serving_world)
+    from substrata_tpu_torch.kernels import pairs as ks
+    results = {}
+    w = bench_world(device, n_bodies=n_bodies, cfg=cfg)
+    for _ in range(30):
+        w.think(DT)
+    results["find_pairs"] = _ks_compare(w, "bench", timed=True, plain_reps=plain_reps)
+    kuv_bench = _kuv_compare(w, "bench", timed=True, plain_reps=plain_reps)
+    # The step launches no sort, argsort, cumsum, cummax or searchsorted:
+    # think's rebuild ticks (pairs invalidated before each), then serving
+    # ticks below.
+    before = ks.launches
+
+    def rebuild_tick():
+        w.invalidate_pairs()
+        w.think(DT)
+    steps, inside, plain = _sort_free(rebuild_tick, ticks)
+    check(steps == ticks and ks.launches - before >= ticks,
+          f"{steps} physics_step ranges, {ks.launches - before} KS calls in {ticks} rebuild ticks")
+    bad = sorted({name for name in inside if name in STEP_FORBIDDEN})
+    check(not bad, f"think rebuild ticks: {bad} inside physics_step")
+    sort_free = dict(think_rebuild_steps=steps, think_aten_ops_per_step=len(inside) / steps,
+                     think_plain_launches=plain)
+    del w
+
+    sw, player = serving_world(device, n_bodies=n_bodies)
+    for t in range(60):
+        serving_tick(sw, player, t * DT)
+    kt_serving = _kt_compare(sw, "serving", timed=True, plain_reps=plain_reps)
+    kuv_serving = _kuv_compare(sw, "serving")
+    state = dict(t=60)
+
+    def tick():
+        serving_tick(sw, player, state["t"] * DT)
+        state["t"] += 1
+    steps, inside, plain = _sort_free(tick, ticks)
+    bad = sorted({name for name in inside if name in STEP_FORBIDDEN})
+    check(steps == ticks and not bad, f"serving ticks: {steps} steps, {bad} inside physics_step")
+    sort_free.update(serving_steps=steps, serving_aten_ops_per_step=len(inside) / steps,
+                     serving_plain_launches=plain)
+    del sw, player
+
+    mw, mplayer, sources = mesh_world(device, n_objects=mesh_objects, n_dynamic=mesh_dynamic)
+    for t in range(60):
+        mesh_tick(mw, mplayer, t * DT, sources)
+    kt_mesh = _kt_compare(mw, "mesh")
+    kuv_mesh = _kuv_compare(mw, "mesh")
+    del mw, mplayer
+
+    kt = dict(serving=kt_serving, mesh=kt_mesh)
+    for name in ("group", "touching", "compact", "incidence"):
+        results[f"layout_{name}"] = dict(max_abs_err=0.0, tol=0.0, **kt_serving.pop(name))
+    results["layout_group"]["worlds"] = kt
+    kuv = dict(bench=kuv_bench, serving=kuv_serving, mesh=kuv_mesh)
+    err = max(r["max_abs_err"] for r in kuv.values())
+    tol = min(r["tol"] for r in kuv.values())
+    results["solve_positions"] = dict(max_abs_err=err, tol=tol, **kuv_bench.pop("positions"),
+                                      worlds=kuv)
+    results["strike_wake"] = dict(max_abs_err=0.0, tol=0.0, **kuv_bench.pop("strike"))
+    results["sleep_pass"] = dict(max_abs_err=0.0, tol=0.0, **kuv_bench.pop("sleep"))
+    results["sort_free"] = sort_free
+    return results
+
+
 PHYSICS_KERNELS = ("box_box_rows", "static_contacts", "solve_iteration", "apply_forces",
-                   "integrate_positions", "cell_table", "solve_setup", "cache_refresh")
+                   "integrate_positions", "cell_table", "solve_setup", "cache_refresh",
+                   "find_pairs", "layout_incidence", "solve_positions", "strike_wake",
+                   "sleep_pass")
 AUDIO_KERNELS = ("audio_fetch", "audio_spatialise", "audio_downmix_reverb")
 FULLTICK_KERNELS = ("ray_trace", "particles_update", "vehicle_forces")
-SERVING_KERNELS = ("closed_form_rows", "character_update", "apply_tick_in", "digest_tblock")
+# Launched on every serving tick and every mesh frame (the compacted layout).
+LAYOUT_KERNELS = ("layout_group", "layout_touching", "layout_compact", "layout_incidence",
+                  "solve_positions", "strike_wake", "sleep_pass")
+SERVING_KERNELS = ("closed_form_rows", "character_update", "apply_tick_in",
+                   "digest_tblock") + LAYOUT_KERNELS
 MESH_KERNELS = ("convex_rows", "static_contacts", "ray_trace", "character_update",
-                "apply_tick_in", "digest_tblock", "cell_table", "solve_setup", "cache_refresh")
+                "apply_tick_in", "digest_tblock", "cell_table", "solve_setup",
+                "cache_refresh") + LAYOUT_KERNELS
 # Float32 operations per item, counted from the kernels' sources (rounded
 # up): per valid pair slot (KA), per body (KB, KD), per contact row and per
 # body table slot (KC).
@@ -2119,7 +2452,11 @@ FLOPS = {"box_box_rows": 1000, "static_contacts": 600, "solve_iteration": 60,
          # KP per body (the cell, the hash, the flags); KQ per contact row
          # (tangent basis, three directions' r x d, Iw (r x d) and masses,
          # the target, the warm probe).
-         "cell_table": 20, "solve_setup": 400}
+         "cell_table": 20, "solve_setup": 400,
+         # KS per stencil candidate (distance, radii, tests, score) and per
+         # oversize row; KU per contact row and per table slot, each of its
+         # two iterations; KV per body (speeds, its table slots' tests).
+         "pair_candidate": 20, "position_row": 12, "position_slot": 6, "sleep_body": 100}
 
 KERNELS = [
     ("box_box_rows", "cuda", "substrata_tpu_torch/csrc/box_box.cu",
@@ -2162,7 +2499,30 @@ KERNELS = [
      "substrata_tpu/physics/solver.py:471"),
     ("winter_eval", "cuda", "substrata_tpu_torch/csrc/winter.cu",
      "substrata_tpu/scripting/winter.py:820"),
+    ("find_pairs", "cuda", "substrata_tpu_torch/csrc/pairs.cu",
+     "substrata_tpu/physics/broadphase.py:115"),
+    ("layout_group", "cuda", "substrata_tpu_torch/csrc/layout.cu",
+     "substrata_tpu/physics/narrowphase.py:683"),
+    ("layout_touching", "cuda", "substrata_tpu_torch/csrc/layout.cu",
+     "substrata_tpu/physics/narrowphase.py:793"),
+    ("layout_compact", "cuda", "substrata_tpu_torch/csrc/layout.cu",
+     "substrata_tpu/physics/narrowphase.py:1054"),
+    ("layout_incidence", "cuda", "substrata_tpu_torch/csrc/layout.cu",
+     "substrata_tpu/physics/solver.py:96"),
+    ("solve_positions", "cuda", "substrata_tpu_torch/csrc/positions.cu",
+     "substrata_tpu/physics/solver.py:477"),
+    ("strike_wake", "cuda", "substrata_tpu_torch/csrc/sleep.cu",
+     "substrata_tpu/physics/step.py:103"),
+    ("sleep_pass", "cuda", "substrata_tpu_torch/csrc/sleep.cu",
+     "substrata_tpu/physics/integrate.py:103"),
 ]
+# The run whose launches each kernel line reports: phase 9's full ticks,
+# unless named here (phase 5's thinks, 11's serving ticks, 13's frames).
+LAUNCHES_FROM = {"closed_form_rows": "serving", "character_update": "serving",
+                 "apply_tick_in": "serving", "digest_tblock": "serving", "convex_rows": "mesh",
+                 "find_pairs": "think", "solve_positions": "think", "strike_wake": "think",
+                 "sleep_pass": "think", "layout_group": "serving", "layout_touching": "serving",
+                 "layout_compact": "serving", "layout_incidence": "serving"}
 
 
 def main():
@@ -2272,18 +2632,24 @@ def main():
         log(f"# kernel {name}: {json.dumps(r)} | {smi}")
     kres.update(kpqr)
 
-    # Launches: each kernel's count on its main path (phase 9's full ticks;
-    # phase 11's serving ticks for the serving-tick kernels; phase 13's
-    # mesh frames for KO).
-    launches = {name: (me_res if name == "convex_rows" else sv_res if name in SERVING_KERNELS
-                       else ft_res)["launches"][name]
+    lay = layout_phase()
+    for name, r in lay.items():
+        log(f"# phase 15 {name}: {json.dumps(r)} | {smi}")
+    kres.update({k: v for k, v in lay.items() if k != "sort_free"})
+
+    # Launches: each kernel's count on its main path (LAUNCHES_FROM).
+    runs = dict(think=main_res, full=ft_res, serving=sv_res, mesh=me_res)
+    launches = {name: runs[LAUNCHES_FROM.get(name, "full")]["launches"][name]
                 for name, *_ in KERNELS}
+    for name in ("find_pairs", "solve_positions", "strike_wake", "sleep_pass"):
+        for run in ("think", "serving", "mesh"):
+            check(runs[run]["launches"][name] > 0, f"kernel {name} never launched ({run})")
     out = {"kernels": [
         dict(name=name, route=route, source=src, replaces=rep,
              launches=launches[name], max_abs_err=kres[name]["max_abs_err"],
              ms=kres[name]["ms"], plain_ms=kres[name]["plain_ms"],
              bound_ms=kres[name]["bound_ms"], bound_by=kres[name]["bound_by"],
-             library_ms=None)
+             library_ms=kres[name].get("library_ms"))
         for name, route, src, rep in KERNELS]}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -2291,7 +2657,7 @@ def main():
                        small_worlds=small, main_path=main_res, audio=ares,
                        physics_audio=pa_res, fulltick_kernels=fres, full_tick=ft_res,
                        serving_kernels=sres, serving_tick=sv_res, mesh_kernels=mk_res,
-                       mesh_world=me_res, kpqr_kernels=kpqr),
+                       mesh_world=me_res, kpqr_kernels=kpqr, layout_kernels=lay),
                   f, indent=1)
     log(json.dumps(out))
     log(smi)

@@ -23,7 +23,6 @@
 
 namespace {
 
-constexpr uint32_t kP1 = 73856093u, kP2 = 19349663u, kP3 = 83492791u;
 constexpr int kTblMoving = 1 << 16, kTblStatic = 1 << 17, kTblSmall = 1 << 18;
 constexpr int kStatic = 0;
 constexpr int kThreads = 256;
@@ -47,10 +46,7 @@ __global__ void cell_hash_kernel(const float* __restrict__ pos, const bool* __re
     c[k] = static_cast<int>(floorf(pos[tid * 3 + k] * rcp_cell));
     cells[tid * 3 + k] = c[k];
   }
-  const uint32_t h = (static_cast<uint32_t>(c[0]) * kP1) ^ (static_cast<uint32_t>(c[1]) * kP2) ^
-                     (static_cast<uint32_t>(c[2]) * kP3);
-  bucket[tid] = (alive[tid] && collidable[tid]) ? static_cast<int>(h % static_cast<uint32_t>(nb))
-                                                : nb;
+  bucket[tid] = (alive[tid] && collidable[tid]) ? sbt::cell_hash(c[0], c[1], c[2], nb) : nb;
   int e = tid;
   if (with_flags) {
     const bool is_static = motion[tid] == kStatic;

@@ -60,6 +60,56 @@ __device__ __forceinline__ void rotate_vec(const float q[4], const float v[3], f
   for (int k = 0; k < 3; ++k) o[k] = v[k] + 2.0f * (q[3] * uv[k] + uuv[k]);
 }
 
+// The broadphase cell hash (kernels/cell_table.py:hash_cells): int32
+// products that wrap, xor, and the modulo taken as uint32.  KP builds the
+// table with it and KS reads the table's stencil with it.
+__device__ __forceinline__ int cell_hash(int c0, int c1, int c2, int nb) {
+  const uint32_t h = (static_cast<uint32_t>(c0) * 73856093u) ^
+                     (static_cast<uint32_t>(c1) * 19349663u) ^
+                     (static_cast<uint32_t>(c2) * 83492791u);
+  return static_cast<int>(h % static_cast<uint32_t>(nb));
+}
+
+// Exclusive prefix sum over a block of up to 1024 threads (blockDim.x a
+// multiple of 32); ``warp_tot`` is 32 ints of shared memory.  Returns the
+// sum of the values of the lower threads; *total gets the block's sum.
+template <typename T>
+__device__ __forceinline__ T block_exclusive_scan(T v, T* warp_tot, T* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  T x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const T y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  __syncthreads();
+  if (lane == 31) warp_tot[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    T w = lane < n_warps ? warp_tot[lane] : T(0);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const T y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < n_warps) warp_tot[lane] = w;
+  }
+  __syncthreads();
+  const T before = (warp > 0 ? warp_tot[warp - 1] : T(0)) + x - v;
+  *total = warp_tot[n_warps - 1];
+  __syncthreads();
+  return before;
+}
+
+// Sum over a block (every thread gets it); ``warp_tot`` as above.
+template <typename T>
+__device__ __forceinline__ T block_sum(T v, T* warp_tot) {
+  T total;
+  block_exclusive_scan(v, warp_tot, &total);
+  return total;
+}
+
 // Round to bfloat16 (nearest even) and back, as tensor.to(torch.bfloat16).
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the physics tick, the audio mix, the ray
 queries, the particles, the vehicles, the character, the serving tick,
-the hull contacts, the cell table, the solve setup and Winter scripts,
-and their wrappers.
+the hull contacts, the cell table, the solve setup, Winter scripts, the
+pair finder, the compacted layout, the position solve and sleeping, and
+their wrappers.
 
 Each wrapper module holds the kernel's plain PyTorch twin beside it.  A
 wrapper runs the twin for tensors on the CPU; for CUDA tensors it launches
@@ -28,12 +29,18 @@ path went through the kernels.
   KP  cell_table.py         csrc/cell_table.cu       broadphase cell table
   KQ  solve_setup.py        csrc/solve_setup.cu      contact-solve setup + cache refresh
   KR  winter.py             csrc/winter.cu           Winter script evaluation
+  KS  pairs.py              csrc/pairs.cu            broadphase pair finding (+ margins)
+  KT  layout.py             csrc/layout.cu           combo grouping, touching, contact
+                                                     compaction, incidence table
+  KU  positions.py          csrc/positions.cu        position solve
+  KV  sleep.py              csrc/sleep.cu            strike wake, sleep pass
 """
 
 from substrata_tpu_torch.kernels import (audio_mix, box_box, cell_table, character,
-                                         closed_forms, convex, integrate_triton,
-                                         particles_triton, ray_trace, serving_io, solve,
-                                         solve_setup, static_contacts, vehicles, winter)
+                                         closed_forms, convex, integrate_triton, layout,
+                                         pairs, particles_triton, positions, ray_trace,
+                                         serving_io, sleep, solve, solve_setup,
+                                         static_contacts, vehicles, winter)
 
 
 def launch_counts() -> dict:
@@ -54,6 +61,10 @@ def launch_counts() -> dict:
         "cell_table": cell_table.launches,
         **solve_setup.launches,
         "winter_eval": winter.launches,
+        "find_pairs": pairs.launches,
+        **layout.launches,
+        "solve_positions": positions.launches,
+        **sleep.launches,
     }
 
 
@@ -69,7 +80,9 @@ def reset_launch_counts():
     convex.launches = 0
     cell_table.launches = 0
     winter.launches = 0
+    pairs.launches = 0
+    positions.launches = 0
     for counts in (integrate_triton.launches, audio_mix.launches, serving_io.launches,
-                   solve_setup.launches):
+                   solve_setup.launches, layout.launches, sleep.launches):
         for k in counts:
             counts[k] = 0

@@ -127,6 +127,36 @@ SIGNATURES = {
     # code, segments, blocks, n_blocks, time, idx, n_inst, scratch [R, B],
     # B, out [B, 6], stream
     "winter_eval": [P] * 3 + [I] + [P] * 4 + [I] + [P] + [P],
+    # pair a, b, valid, shape_type, P, max_pairs, active code mask, out
+    # order, src, ba, bb, bvalid, slot_of_pair, overflow, stream
+    "layout_group": [P] * 4 + [I] * 3 + [P] * 7 + [P],
+    # slot_of_pair, host array of bucket flag pointers, host array of slot
+    # offsets, n buckets, P, out, stream
+    "layout_touching": [P] * 3 + [I] * 2 + [P] + [P],
+    # 9 contact fields, C, max_active, tile scratch, 9 outputs, overflow,
+    # stream
+    "layout_compact": [P] * 9 + [I] * 2 + [P] + [P] * 9 + [P] + [P],
+    # entry a, b, their stride, occupancy, C, N, CPB, scratch, out table,
+    # sign, counts, stream
+    "layout_incidence": [P, P, I, P, I, I, I, P, P, P, P, P],
+    # pos0, inv_mass, awake, static valid, normal, pen, pair a, b, valid,
+    # normal, pen, table, sign, slop; beta; N, K, Q, WM, CPB, iters; impulse
+    # and position scratch, out, stream
+    "solve_positions": [P] * 14 + [F] + [I] * 6 + [P] * 3 + [P],
+    # awake, linvel, alive, motion_type, pair a, b, valid, N, P, out, stream
+    "strike_wake": [P] * 7 + [I] * 2 + [P] + [P],
+    # awake, prev_awake, sleep_timer, alive, motion_type, linvel, angvel,
+    # contact a, b, valid, pen, lambda; lambda stride; static valid, pen,
+    # table, sign, sleep_lin_vel, sleep_ang_vel, sleep_time, steps_left;
+    # dt; N, wm, K, CPB; flag scratch, out awake, timer, linvel, angvel,
+    # newly_awake, newly_asleep, steps_left; stream
+    "sleep_pass": [P] * 12 + [I] + [P] * 8 + [F] + [I] * 4 + [P] * 8 + [P],
+    # pos, linvel, alive, awake, collidable, motion_type, bound_radius,
+    # shape_type, shape_params; its row stride, N; KP's table, cells,
+    # overflow; buckets, cell cap, ppb, max_pairs, has_oversize, rebuild;
+    # margin, dt, margin cap; interval; cell_size; out margins, scratch,
+    # pair a, b, valid, num_pairs, overflow, steps_left; stream
+    "find_pairs": [P] * 9 + [I] * 2 + [P] * 3 + [I] * 6 + [F] * 3 + [I] + [F] + [P] * 8 + [P],
 }
 
 _lib = None

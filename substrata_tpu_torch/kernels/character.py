@@ -21,7 +21,7 @@ then the same three against every triangle of their trimesh grid cells
 The candidate rows are, in the reference's order: the 27-cell
 neighbourhoods (``_NEIGHBOR_OFFSETS`` order, ``cell_capacity`` slots each)
 of two capsule centres — three when ``cell_size`` < 2.9 m, the stick-down
-extreme — and then the oversize slots from ``broadphase._compact``.  Every
+extreme — and then the oversize slots from ``kernels.pairs._compact``.  Every
 ``argmax`` takes the first maximum, so this order fixes the result.
 
 ``character_packed_plain`` evaluates a probe's contact only on rows that
@@ -43,8 +43,8 @@ import torch
 from substrata_tpu_torch.kernels import build, cell_table
 from substrata_tpu_torch.kernels import closed_forms as cf
 from substrata_tpu_torch.kernels.static_contacts import trimesh_sphere_rows
+from substrata_tpu_torch.maths import fp
 from substrata_tpu_torch.maths import quat as quatm
-from substrata_tpu_torch.physics import broadphase
 from substrata_tpu_torch.physics.state import BodyState, Heightfield, ShapeType, TriMesh
 
 # PlayerPhysics.cpp:24-33 (substrata_tpu/physics/character.py:40-51)
@@ -119,7 +119,7 @@ def gather_candidates(foot_a, foot_b, cyl_h, body: BodyState, table, os_idx,
     cands = []
     for foot in centers:
         center = foot + up_r + _ez(dev) * half_h
-        cell = torch.floor(center * broadphase.recip(cell_size)).to(torch.int32)
+        cell = torch.floor(center * fp.recip(cell_size)).to(torch.int32)
         hb = cell_table.hash_cells(cell[None, :] + offs, grid_dim * grid_dim)
         cands.append(table[hb].reshape(-1))
     cand = torch.cat(cands + [os_idx.to(table.dtype)])
@@ -479,7 +479,7 @@ def character_packed(char: dict, body: BodyState, hf: Heightfield, has_hf, water
                  body.bound_radius, body.alive, body.layer, body.is_sensor, table, os_idx,
                  hf.heights, hf.origin, hf.cell_w, has_hf, water_z, scal,
                  *tm_args[:5], grid_dim * grid_dim, cap, os_idx.shape[0], n_centers(cell_size),
-                 hx, hy, 1 if hf.is_flat else 0, *tm_args[5:], broadphase.recip(cell_size),
+                 hx, hy, 1 if hf.is_flat else 0, *tm_args[5:], fp.recip(cell_size),
                  *(new[f] for f in STATE_FIELDS), out)
     launches += 1
     return new, out

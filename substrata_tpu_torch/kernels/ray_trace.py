@@ -37,7 +37,6 @@ from substrata_tpu_torch.kernels import build, cell_table
 from substrata_tpu_torch.kernels.static_contacts import trimesh_cells
 from substrata_tpu_torch.maths import fp
 from substrata_tpu_torch.maths import quat as quatm
-from substrata_tpu_torch.physics import broadphase
 from substrata_tpu_torch.physics.state import (BodyState, Heightfield, HullLibrary, ShapeType,
                                                TriMesh)
 
@@ -224,7 +223,7 @@ def survivors(origins, dirs, max_ts, body: BodyState, table, os_idx, cell_size: 
     # XLA fuses the march point into one multiply-add and folds the static
     # division into a multiply by the reciprocal.
     ps = fp.fma(dirs[:, None, :], ts[..., None], origins[:, None, :])    # [R, S, 3]
-    cells = torch.floor(ps * broadphase.recip(cell_size)).to(torch.int32)
+    cells = torch.floor(ps * fp.recip(cell_size)).to(torch.int32)
     cand_list, buckets = [], []
     for ox in (-1, 0, 1):
         for oy in (-1, 0, 1):
@@ -402,6 +401,6 @@ def ray_trace(origins, dirs, max_ts, body: BodyState, table, os_idx, hf: Heightf
                  trimesh.tri_mats, trimesh.tri_owner, trimesh.cell_tris, trimesh.origin,
                  trimesh.cell_w, r, grid_dim * grid_dim, table.shape[1],
                  os_idx.shape[0], hx, hy, n_steps, body_steps, k, flags, hulls.capacity,
-                 hulls.max_faces, gx, gy, tcap, broadphase.recip(cell_size), *out)
+                 hulls.max_faces, gx, gy, tcap, fp.recip(cell_size), *out)
     launches += 1
     return out

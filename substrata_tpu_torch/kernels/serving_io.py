@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from substrata_tpu_torch.kernels import build
-from substrata_tpu_torch.physics.broadphase import _compact as compact
+from substrata_tpu_torch.kernels.pairs import _compact as compact
 
 TIN_K = 128          # transform-write rows per tick
 TIN_R = 64           # wake regions per tick

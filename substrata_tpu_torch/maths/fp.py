@@ -26,6 +26,20 @@ def fma(a, b, c):
     return (_f32(a) * _f32(b) + _f32(c)).to(torch.float32)
 
 
+def recip(c: float) -> float:
+    """float32 ``1 / c``: XLA folds a division by a static config value
+    into a multiply by this reciprocal."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def sqrt(x):
+    """Correctly rounded float32 square root, as XLA and CUDA's sqrtf give
+    it (torch's float32 sqrt on the CPU can be one ulp off); the float64
+    root of a float32 rounds to the float32 one without double-rounding
+    error."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def dot3(a, b):
     """fma(a2, b2, fma(a1, b1, a0 b0)) over the trailing axis: a sum of
     products as XLA reduces it."""

@@ -4,10 +4,11 @@ Counterpart of ``substrata_tpu/physics/narrowphase.py``: ``pair_contacts``
 with the box-box manifold (kernel KA, ``kernels/box_box.py``), the
 sphere/box/capsule closed forms (kernel KK, ``kernels/closed_forms.py``)
 and the generic convex SAT of the hull combos (kernel KO,
-``kernels/convex.py``), bucketed by combo code in mixed worlds, in the
-pair-blocked or the compacted layout; ``static_contacts`` against the
-heightfield and the static trimesh (kernel KB,
-``kernels/static_contacts.py``); ``compact_contacts``.
+``kernels/convex.py``), bucketed by combo code in mixed worlds (kernel
+KT's grouping, ``kernels/layout.py``), in the pair-blocked or the
+compacted layout; ``static_contacts`` against the heightfield and the
+static trimesh (kernel KB, ``kernels/static_contacts.py``);
+``compact_contacts`` (kernel KT).
 
 Contact convention: ``normal`` points from body B (or the static world)
 toward body A; positive ``penetration`` = overlapping.
@@ -22,6 +23,7 @@ import torch
 from substrata_tpu_torch.kernels import box_box as _ka
 from substrata_tpu_torch.kernels import closed_forms as _kk
 from substrata_tpu_torch.kernels import convex as _ko
+from substrata_tpu_torch.kernels import layout as _kt
 from substrata_tpu_torch.kernels import static_contacts as _kb
 from substrata_tpu_torch.kernels.box_box import (  # noqa: F401
     CONTACT_MARGIN, box_box as _box_box, combine_friction, combine_restitution,
@@ -56,9 +58,6 @@ class Contacts(_Replace):
 CONTACT_FIELDS = tuple(f.name for f in dataclasses.fields(Contacts))
 
 
-_NUM_CODES = 16
-_SAME_TYPE_CODES = (0, 5, 10, 15)
-_MIXED_FRACTION = 4
 _MANIFOLD_WIDTH = [1, 1, 1, 1,
                    1, 4, 2, 4,
                    1, 2, 1, 2,
@@ -68,7 +67,7 @@ _BOX_BOX = int(ShapeType.BOX) * 4 + int(ShapeType.BOX)
 
 def _active_codes(config: SimConfig):
     present = list(config.present_shape_types)
-    return [c for c in range(_NUM_CODES) if present[c // 4] and present[c % 4]]
+    return [c for c in range(_kt.NUM_CODES) if present[c // 4] and present[c % 4]]
 
 
 def blocked_manifold_width(config: SimConfig, capacity: int) -> int:
@@ -80,9 +79,7 @@ def blocked_manifold_width(config: SimConfig, capacity: int) -> int:
     wm = max(_MANIFOLD_WIDTH[c] for c in active)
     entries = 0
     for c in active:
-        cap = (config.max_pairs if c in _SAME_TYPE_CODES
-               else max(64, config.max_pairs // _MIXED_FRACTION))
-        entries += min(cap, config.max_pairs)
+        entries += _kt.bucket_cap(c, config.max_pairs, config.max_pairs)
     if entries * wm > 8 * config.max_pairs:
         return 0
     if max(capacity.bit_length(), 1) + max(entries.bit_length(), 1) + 1 > 32:
@@ -110,43 +107,22 @@ def _bucket_rows(code: int, wm: int, blocked: bool, body: BodyState, ba, bb, bva
 
 
 def buckets(body: BodyState, pair_a, pair_b, pair_valid, config: SimConfig):
-    """The pair list grouped by combo code (narrowphase.py:663-720).
+    """The pair list grouped by combo code (narrowphase.py:663-720; kernel
+    KT's grouping in a mixed world).
 
     Returns ([(code, src, ba, bb, bvalid)] for each present code, overflow
-    []): ``src`` is each bucket slot's pair index (-1 empty; None in a
-    single-combo world, where the bucket is the pair list in place), ``ba``
-    and ``bb`` the slots' bodies, ``bvalid`` their occupancy."""
-    p = pair_a.shape[0]
-    dev = body.device
+    [] i32, slot_of_pair): ``src`` is each bucket slot's pair index (-1
+    empty; None in a single-combo world, where the bucket is the pair list
+    in place), ``ba`` and ``bb`` the slots' bodies, ``bvalid`` their
+    occupancy; ``slot_of_pair`` (the card only) each pair's slot in the
+    concatenated buckets."""
     active = _active_codes(config)
-    a = torch.clamp(pair_a, min=0)
-    b = torch.clamp(pair_b, min=0)
-    overflow = torch.zeros((), dtype=torch.int64, device=dev)
     if len(active) == 1:
-        return [(active[0], None, a, b, pair_valid)], overflow
-    codes = torch.clamp(body.shape_type[a.long()] * 4 + body.shape_type[b.long()],
-                        0, _NUM_CODES - 1)
-    sort_codes = torch.where(pair_valid, codes, _NUM_CODES)
-    order = torch.argsort(sort_codes, stable=True)
-    sorted_codes = sort_codes[order]
-    # starts[c] = number of codes below c (the run boundaries).
-    starts = torch.searchsorted(sorted_codes, torch.arange(
-        _NUM_CODES + 1, dtype=sorted_codes.dtype, device=dev))
-    out = []
-    for code in range(_NUM_CODES):
-        if code not in active:
-            overflow = overflow + (starts[code + 1] - starts[code])
-            continue
-        cap = min(config.max_pairs if code in _SAME_TYPE_CODES
-                  else max(64, config.max_pairs // _MIXED_FRACTION), p)
-        start = torch.minimum(starts[code], torch.full_like(starts[code], p - cap))
-        idx = start + torch.arange(cap, device=dev)
-        # Mask slots outside this code's run (the slice may span neighbours).
-        src = torch.where(sorted_codes[idx] == code, order[idx], -1)
-        overflow = overflow + torch.clamp(starts[code + 1] - starts[code] - cap, min=0)
-        srcs = torch.clamp(src, min=0)
-        out.append((code, src, a[srcs], b[srcs], src >= 0))
-    return out, overflow
+        a = torch.clamp(pair_a, min=0)
+        b = torch.clamp(pair_b, min=0)
+        return ([(active[0], None, a, b, pair_valid)],
+                torch.zeros((), dtype=torch.int32, device=body.device), None)
+    return _kt.group(body.shape_type, pair_a, pair_b, pair_valid, active, config.max_pairs)
 
 
 def pair_contacts(body: BodyState, pair_a, pair_b, pair_valid,
@@ -181,23 +157,19 @@ def pair_contacts(body: BodyState, pair_a, pair_b, pair_valid,
                 torch.zeros((), dtype=torch.int32, device=dev))
     if hulls is None:
         hulls = empty_hull_library(capacity=1, device=dev)
-    single = len(active) == 1
-    bucket_list, overflow = buckets(body, pair_a, pair_b, pair_valid, config)
-    batches, touch_src = [], []
+    bucket_list, overflow, slot_of_pair = buckets(body, pair_a, pair_b, pair_valid, config)
+    batches, srcs, touches = [], [], []
     for code, src, ba, bb, bvalid in bucket_list:
         rows = _bucket_rows(code, blocked_wm or _MANIFOLD_WIDTH[code], bool(blocked_wm), body,
                             ba, bb, bvalid, hulls)
         batches.append(rows[:9])
-        touch_src.append((src, rows[9]))
+        srcs.append(src)
+        touches.append(rows[9])
+    if len(active) == 1:
+        return Contacts(*batches[0]), touches[0] & pair_valid, overflow
     contacts = Contacts(*(torch.cat([bt[i] for bt in batches]) for i in range(9)))
-    if single:
-        return contacts, touch_src[0][1] & pair_valid, overflow.to(torch.int32)
-    # Per-pair touching for contact events: each bucket scattered back.
-    touching = torch.zeros((p + 1,), dtype=torch.bool, device=dev)
-    for src, btouch in touch_src:
-        dst = torch.where(src >= 0, src, p)
-        touching.index_put_((dst,), btouch | touching[dst])
-    return contacts, touching[:p], overflow.to(torch.int32)
+    # Per-pair touching for contact events: each bucket's flags to its pairs.
+    return contacts, _kt.touching(srcs, touches, p, slot_of_pair), overflow
 
 
 def static_contacts(body: BodyState, world: StaticWorld, config: SimConfig) -> Contacts:
@@ -213,32 +185,8 @@ def static_contacts(body: BodyState, world: StaticWorld, config: SimConfig) -> C
 
 
 def compact_contacts(contacts: Contacts, max_active: int):
-    """Stream-compact valid contacts (touching first) into a fixed buffer.
-    Returns (Contacts of size max_active, overflow)."""
-    dev = contacts.a.device
-    valid = contacts.valid
-    touching = valid & (contacts.penetration > 0.0)
-    spec = valid & ~touching
-    n_touch = touching.sum()
-    idx_t = torch.cumsum(touching.long(), 0) - 1
-    idx_s = n_touch + torch.cumsum(spec.long(), 0) - 1
-    out_idx = torch.where(touching, idx_t, idx_s)
-    keep = valid & (out_idx < max_active)
-    dst = torch.where(keep, out_idx, max_active)
-
-    def put(x, fill):
-        buf = torch.full((max_active + 1,) + tuple(x.shape[1:]), fill,
-                         dtype=x.dtype, device=dev)
-        buf.index_put_((dst,), x)
-        return buf[:max_active]
-
-    ia = put(contacts.a, -1)
-    cvalid = ia >= 0
-    return Contacts(
-        a=torch.where(cvalid, ia, 0), b=torch.where(cvalid, put(contacts.b, -1), -1),
-        point=put(contacts.point, 0.0), normal=put(contacts.normal, 0.0),
-        penetration=put(contacts.penetration, 0.0), valid=cvalid,
-        friction=put(contacts.friction, 0.0),
-        restitution=put(contacts.restitution, 0.0),
-        key=torch.where(cvalid, put(contacts.key, -1), 0),
-    ), torch.clamp(n_touch - max_active, min=0)
+    """Stream-compact valid contacts (touching first) into a fixed buffer
+    (kernel KT).  Returns (Contacts of size max_active, overflow [] i32)."""
+    rows, overflow = _kt.compact(tuple(getattr(contacts, f) for f in CONTACT_FIELDS),
+                                 max_active)
+    return Contacts(*rows), overflow

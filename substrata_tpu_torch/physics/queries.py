@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from substrata_tpu_torch.kernels import pairs
 from substrata_tpu_torch.kernels import ray_trace as kray
 from substrata_tpu_torch.kernels.ray_trace import (  # noqa: F401
     BIG, _ray_box, _ray_capsule, _ray_hull_planes, _ray_sphere, _ray_triangle)
@@ -37,7 +38,7 @@ def oversize_slots(body: BodyState, config: SimConfig):
     """The first MAX_OVERSIZE alive bodies wider than a cell, -1 padded
     (int32, no host sync)."""
     oversize = body.alive & (2.0 * body.bound_radius > config.cell_size)
-    return broadphase._compact(oversize, broadphase.MAX_OVERSIZE).to(torch.int32)
+    return pairs._compact(oversize, pairs.MAX_OVERSIZE).to(torch.int32)
 
 
 def trace_rays(origins, dirs, max_ts, body: BodyState, world: StaticWorld,

@@ -3,7 +3,12 @@ integrate -> position solve -> sleeping.
 
 Counterpart of ``substrata_tpu/physics/step.py:physics_step``.  The
 broadphase rebuild/reuse choice is a plain Python ``if`` on the host's
-``rebuild_pairs``; nothing in the step reads a device value back.
+``rebuild_pairs``; nothing in the step reads a device value back.  On the
+card each stage is a hand-written kernel: KD, KP + KS, KV's strike wake,
+KA/KK/KO (grouped by KT) and KB, KT's compaction and incidence, KQ, KC,
+KU and KV's sleep pass.  Between them a few plain torch ops remain: the
+concatenation of a mixed world's bucket rows, the blocked layout's entry
+ids, and the events' and diagnostics' reductions below.
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ import dataclasses
 
 import torch
 
+from substrata_tpu_torch.kernels import sleep
 from substrata_tpu_torch.physics import broadphase, integrate, narrowphase, solver
 from substrata_tpu_torch.physics.state import (BodyState, SimConfig, SimParams,
                                                StaticWorld, _Replace)
@@ -46,7 +52,16 @@ def physics_step(body: BodyState, world: StaticWorld, dt: float, params: SimPara
     """Advance the world one fixed substep, as ``PhysicsWorld.think`` runs
     it (warm-started solve, cached pair list).
 
-    Returns (new_body, new_solver_cache, new_pair_cache, events, diagnostics)."""
+    Returns (new_body, new_solver_cache, new_pair_cache, events, diagnostics).
+    The step runs inside a ``physics_step`` profiler range, so a trace can
+    attribute its device work."""
+    with torch.profiler.record_function("physics_step"):
+        return _physics_step(body, world, dt, params, config, solver_cache, pair_cache,
+                             rebuild_pairs, has_oversize)
+
+
+def _physics_step(body, world, dt, params, config, solver_cache, pair_cache, rebuild_pairs,
+                  has_oversize):
     dt = float(dt)
     prev_awake = body.awake
 
@@ -63,14 +78,8 @@ def physics_step(body: BodyState, world: StaticWorld, dt: float, params: SimPara
     # 2b. Pre-solve strike wake: a sleeper paired with a fast awake body
     # joins this step's solve.
     n = body.capacity
-    striker = body.awake & (torch.sum(body.linvel * body.linvel, -1) > 0.25)
-    pa_s = torch.clamp(pair_a, min=0).long()
-    pb_s = torch.clamp(pair_b, min=0).long()
-    dst_a = torch.where(pair_valid & striker[pb_s], pa_s, n)
-    dst_b = torch.where(pair_valid & striker[pa_s], pb_s, n)
-    struck = torch.zeros((n + 1,), dtype=torch.bool, device=body.device)
-    struck.index_fill_(0, dst_a, True).index_fill_(0, dst_b, True)
-    body = body.replace(awake=body.awake | (struck[:n] & body.alive & body.dynamic))
+    body = body.replace(awake=sleep.strike_wake(body.awake, body.linvel, body.alive,
+                                                body.motion_type, pair_a, pair_b, pair_valid))
 
     # 3. Narrowphase: body-blocked static rows; pair-blocked pair rows
     # (or the compacted buffer when the world has no shape combo).
@@ -107,21 +116,15 @@ def physics_step(body: BodyState, world: StaticWorld, dt: float, params: SimPara
     pos = solver.solve_positions(pos, body, static_cts, contacts_p,
                                  inc_table, inc_sign, params, config, wm=wm)
 
-    # 6. Sleeping (pair-driven wake; deep static penetration keeps awake).
-    k_s = static_cts.capacity // n
-    deep_static = torch.any(
-        (static_cts.valid & (static_cts.penetration > 0.1)).reshape(n, k_s), dim=1)
-    n_e = contacts_p.capacity // wm
-    row_valid = contacts_p.valid.reshape(n_e, wm)
-    e_a = contacts_p.a.reshape(n_e, wm)[:, 0]
-    e_b = contacts_p.b.reshape(n_e, wm)[:, 0]
-    e_valid = torch.any(row_valid, dim=1)
-    e_imp = torch.where(row_valid, lambda_p, 0.0).max(dim=1).values
-    e_pen = torch.where(row_valid, contacts_p.penetration.reshape(n_e, wm),
-                        -1e9).max(dim=1).values
-    awake, sleep_timer, linvel, angvel = integrate.update_sleeping(
-        body, linvel, angvel, e_a, e_b, e_imp, e_valid, inc_table, inc_sign,
-        dt, params, contact_pen=e_pen, extra_deep=deep_static)
+    # 6. Sleeping (pair-driven wake; deep static penetration keeps awake),
+    # and the fast-wake rebuild: only FAST wakes force a pair rebuild (slow
+    # ones stay inside the rebuild's 8 cm base margin for the rest of the
+    # window).
+    slept = sleep.sleep_pass(
+        body, prev_awake, linvel, angvel, (static_cts.valid, static_cts.penetration),
+        (contacts_p.a, contacts_p.b, contacts_p.valid, contacts_p.penetration), lambda_p,
+        inc_table, inc_sign, wm, dt, params, new_pair_cache.steps_left)
+    awake, sleep_timer, linvel, angvel = slept.awake, slept.sleep_timer, slept.linvel, slept.angvel
 
     new_body = body.replace(pos=pos, quat=quat, linvel=linvel, angvel=angvel,
                             awake=awake, sleep_timer=sleep_timer,
@@ -129,7 +132,7 @@ def physics_step(body: BodyState, world: StaticWorld, dt: float, params: SimPara
     events = StepEvents(
         contact_pair_a=pair_a, contact_pair_b=pair_b,
         contact_touching=pair_touching,
-        newly_awake=awake & ~prev_awake, newly_asleep=prev_awake & ~awake,
+        newly_awake=slept.newly_awake, newly_asleep=slept.newly_asleep,
         entered_water=in_water & ~body.underwater, num_pairs=num_pairs,
         broadphase_overflow=(overflow + bucket_overflow + contact_overflow).to(torch.int32),
     )
@@ -141,12 +144,6 @@ def physics_step(body: BodyState, world: StaticWorld, dt: float, params: SimPara
             torch.where(contacts_p.valid, contacts_p.penetration, 0.0).max(),
             torch.where(static_cts.valid, static_cts.penetration, 0.0).max()),
     )
-    # Only FAST wakes force a pair rebuild (slow ones stay inside the
-    # rebuild's 8 cm base margin for the rest of the window).
-    woke_speed = torch.where(events.newly_awake,
-                             torch.sqrt(torch.sum(linvel * linvel, -1)), 0.0)
-    fast_wake = woke_speed.max() > 1.0
-    new_pair_cache = new_pair_cache.replace(
-        steps_left=torch.where(fast_wake, 0, new_pair_cache.steps_left).to(torch.int32),
-        inc_table=inc_table, inc_sign=inc_sign)
+    new_pair_cache = new_pair_cache.replace(steps_left=slept.steps_left,
+                                            inc_table=inc_table, inc_sign=inc_sign)
     return new_body, new_cache, new_pair_cache, events, diags

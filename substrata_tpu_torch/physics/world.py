@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from substrata_tpu_torch.kernels import character as _kl
+from substrata_tpu_torch.kernels import pairs
 from substrata_tpu_torch.kernels import serving_io
 from substrata_tpu_torch.physics import broadphase, queries, shapes as shape_factories, solver
 from substrata_tpu_torch.physics.character import player_update_packed
@@ -679,7 +680,7 @@ class PhysicsWorld:
             serving_io.pack_writes(buf, *deferred)
         d = serving_io.digest_len(cap)
         k = _kl.n_rows(self.config.cell_size, self.config.cell_capacity,
-                       broadphase.MAX_OVERSIZE)
+                       pairs.MAX_OVERSIZE)
         readback = torch.empty(d + _kl.N_PACKED_HEAD + k, dtype=torch.int32,
                                device=self.device)
         (self.state, self.solver_cache, self.pair_cache, events, diags, player.state,

@@ -27,15 +27,14 @@ On the 10,000-box bench world (kicked once, after 30 ticks):
 6. the serving stage: a second bench world with a walking player
    (benchworld.serving_world, 30 ticks in), host-clock ms per
    think_with_player, a profiler pass and a stage pass over the tick's
-   parts (tick input, character, step, its compaction and incidence
-   table, digest);
+   parts (tick input, character, step, each of its stages, digest);
 7. the mesh stage: tools/bench_networked.py's 12,000-object mesh world
    (benchworld.mesh_world: 512 hulls over the merged static trimesh, a
    walking player, 30 frames in), host-clock ms per client frame
    (benchworld.mesh_tick: think_with_player and the occlusion rays), a
    profiler pass (device busy ms, device ops, the port kernels' device
    times) and a stage pass over the frame's parts (tick input, character,
-   step, its pair and static contacts, KO, the occlusion rays).
+   step, each of its stages, KO, the occlusion rays).
 Prints one JSON object and writes the trace to chiprun_out/tick_trace.json.
 """
 
@@ -54,20 +53,28 @@ from substrata_tpu_torch import benchworld
 from substrata_tpu_torch.audio import mix
 from substrata_tpu_torch.benchworld import (N_SOURCES, TICK_FRAMES, bench_audio, bench_fulltick,
                                             bench_world, full_tick, kick, physics_audio_tick)
-from substrata_tpu_torch.kernels import audio_mix, convex, serving_io
+from substrata_tpu_torch.kernels import (audio_mix, convex, layout, pairs, positions, serving_io,
+                                         sleep)
 from substrata_tpu_torch.kernels import particles_triton as kpart
 from substrata_tpu_torch.kernels import vehicles as kveh
 from substrata_tpu_torch.physics import broadphase, integrate, narrowphase, queries, solver
 from substrata_tpu_torch.physics import world as world_mod
 
 DT = 1.0 / 60.0
-STAGES = [(integrate, "apply_forces"), (broadphase, "find_pairs_cached"),
-          (narrowphase, "pair_contacts"), (narrowphase, "static_contacts"),
-          (solver, "build_incidence"), (solver, "prepare_solve"), (solver, "iterate"),
-          (solver, "cache_refresh"), (integrate, "integrate_positions"),
-          (solver, "solve_positions"),
-          (integrate, "update_sleeping"), (serving_io, "digest_tblock")]
-# Device-side names of the hand-written kernels (KA, KB, KC x2, KD x2).
+RANGES = ("physics_step",)       # record_function ranges (step.py)
+# The step's stages; KS-KV's wrappers (pairs at a rebuild, the strike wake,
+# KT's grouping, touching, compaction and incidence, the position solve and
+# the sleep pass) each alone.
+STEP_STAGES = [(integrate, "apply_forces"), (broadphase, "find_pairs_cached"),
+               (pairs, "pairs_rebuild"), (sleep, "strike_wake"), (narrowphase, "pair_contacts"),
+               (layout, "group"), (layout, "touching"), (narrowphase, "static_contacts"),
+               (layout, "compact"), (layout, "incidence"), (solver, "prepare_solve"),
+               (solver, "iterate"), (solver, "cache_refresh"),
+               (integrate, "integrate_positions"), (positions, "solve_positions"),
+               (sleep, "sleep_pass")]
+STAGES = STEP_STAGES + [(serving_io, "digest_tblock")]
+# Device-side names of the hand-written kernels (KA, KB, KC x2, KD x2, ...;
+# KS-KV by prefix).
 PORT_KERNELS = ("box_box_rows_kernel", "static_contacts_kernel", "solve_rows_kernel",
                 "solve_bodies_kernel", "apply_forces_kernel", "integrate_kernel",
                 "audio_fetch_kernel", "audio_spatialise_kernel", "audio_downmix_kernel",
@@ -75,7 +82,8 @@ PORT_KERNELS = ("box_box_rows_kernel", "static_contacts_kernel", "solve_rows_ker
                 "closed_form_rows_kernel", "character_kernel", "apply_tick_in_kernel",
                 "digest_tblock_kernel", "convex_rows_kernel", "cell_hash_kernel",
                 "cell_rank_kernel", "solve_setup_kernel", "refresh_copy_kernel",
-                "refresh_claim_kernel", "refresh_write_kernel", "winter_kernel")
+                "refresh_claim_kernel", "refresh_write_kernel", "winter_kernel", "pairs_",
+                "layout_", "positions_", "sleep_")
 AUDIO_STAGES = [(mix, "prepare"), (audio_mix, "audio_fetch"), (audio_mix, "audio_spatialise"),
                 (audio_mix, "audio_downmix_reverb")]
 FULL_STAGES = [(broadphase, "build_cell_table"), (benchworld, "vehicles_update"),
@@ -85,17 +93,8 @@ FULL_STAGES = [(broadphase, "build_cell_table"), (benchworld, "vehicles_update")
                (kpart, "particles_update"), (benchworld.BenchScripts, "evaluate"),
                (benchworld, "mix_block")]
 SERVING_STAGES = [(serving_io, "apply_tick_in"), (world_mod, "player_update_packed"),
-                  (world_mod, "physics_step"), (narrowphase, "pair_contacts"),
-                  (narrowphase, "compact_contacts"), (solver, "build_incidence"),
-                  (solver, "prepare_solve"), (solver, "iterate"), (solver, "cache_refresh"),
-                  (serving_io, "digest_tblock")]
-MESH_STAGES = [(serving_io, "apply_tick_in"), (world_mod, "player_update_packed"),
-               (world_mod, "physics_step"), (narrowphase, "pair_contacts"),
-               (convex, "convex_rows"), (narrowphase, "static_contacts"),
-               (narrowphase, "compact_contacts"), (solver, "build_incidence"),
-               (solver, "prepare_solve"), (solver, "iterate"), (solver, "cache_refresh"),
-               (serving_io, "digest_tblock"), (benchworld.queries, "trace_rays")]
-
+                  (world_mod, "physics_step")] + STEP_STAGES[1:] + [(serving_io, "digest_tblock")]
+MESH_STAGES = SERVING_STAGES + [(convex, "convex_rows"), (benchworld.queries, "trace_rays")]
 
 def _timed(fn, name, acc):
     @functools.wraps(fn)
@@ -122,7 +121,9 @@ def _device_summary(prof, ticks):
     to the busy time."""
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # The step's record_function range also shows on the device's
+        # timeline; it is not device work.
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in RANGES:
             rec = by_name.setdefault(e.name, [0.0, 0])
             rec[0] += e.time_range.elapsed_us()
             rec[1] += 1

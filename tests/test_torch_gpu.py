@@ -1,4 +1,4 @@
-"""Kernels KA-KR on the card against their plain PyTorch twins, and the
+"""Kernels KA-KV on the card against their plain PyTorch twins, and the
 entry points' default device.
 
 These need a CUDA device and skip without one (the decision is made inside
@@ -15,7 +15,9 @@ scale for KL (flags and the touched list exact), KM and KN exact, 1e-5
 for KO's rows (masks, keys and touching exact), KP exact, 1e-6 of each
 output's scale for KQ's setup (masks, slots and table entries exact) and
 its refreshed cache exact, KR within 1e-6 of scale (the bench rotations
-exact); each kernel repeats its twin's operations in the same order."""
+exact), KS, KT and KV exact (pairs, margins, counters, buckets, compacted
+rows, tables, flags, timers), KU within 1e-6 of the positions' scale;
+each kernel repeats its twin's operations in the same order."""
 
 import numpy as np
 import pytest
@@ -34,6 +36,7 @@ from substrata_tpu_torch.kernels import vehicles as kveh
 from substrata_tpu_torch.kernels import integrate_triton as kd
 from substrata_tpu_torch.kernels import solve as kc
 from substrata_tpu_torch.kernels import static_contacts as kb
+from substrata_tpu_torch.maths import fp
 from substrata_tpu_torch.physics import broadphase, narrowphase, queries, shapes, solver
 from substrata_tpu_torch.physics.character import PlayerPhysics
 from substrata_tpu_torch.physics.particles import motion_rays
@@ -629,7 +632,7 @@ def test_cell_table_kernel_matches_plain(world):
     lat = np.where(rng.random(base.shape) < 0.5, np.nextafter(base, np.float32(0)), base)
     for nb in (cfg.grid_dim ** 2, 256 ** 2):
         kw = dict(num_buckets=nb, cap=cfg.cell_capacity,
-                  rcp_cell=broadphase.recip(cfg.cell_size), cell_size=cfg.cell_size)
+                  rcp_cell=fp.recip(cfg.cell_size), cell_size=cfg.cell_size)
         for b in (s, s.replace(pos=torch.as_tensor(lat, device="cuda"))):
             args = (b.pos, b.alive, b.collidable, b.awake, b.motion_type, b.bound_radius)
             for flags in (False, True):
@@ -697,3 +700,240 @@ def test_winter_kernel_matches_plain():
     got, want = kr.winter_eval(batch, t, i, m), kr.winter_eval_plain(batch, t, i, m)
     assert torch.equal(got[:n, :3], want[:n, :3])
     assert float((got - want).abs().max()) <= 1e-6 * max(1.0, float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# KS-KV: the pair finder, the compacted layout's chain, the position solve
+# and sleeping.
+# ---------------------------------------------------------------------------
+
+def _forced(w):
+    from substrata_tpu_torch.physics import integrate
+    lin, ang, _ = integrate.apply_forces(w.state, DT, w.params)
+    return w.state.replace(linvel=lin, angvel=ang)
+
+
+def _ks_check(body, cfg, has_oversize):
+    """KS against its twin, at a rebuild (margins from the speeds) and with
+    one margin: every output exact.  Returns the twin's rebuild outputs."""
+    from substrata_tpu_torch.kernels import pairs as ks
+    got = ks.pairs_rebuild(body, DT, cfg, has_oversize)
+    want = ks.pairs_rebuild_plain(body, DT, cfg, has_oversize)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for a, b in zip(ks.find_pairs(body, cfg, 0.08, has_oversize),
+                    ks.find_pairs_plain(body, cfg, 0.08, has_oversize)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    return want
+
+
+def test_pair_finder_kernel_matches_plain(world):
+    want = _ks_check(_forced(world), world.config, False)
+    assert int(want[2].sum()) > 200
+
+
+def _edge_world(max_pairs, big=()):
+    """300 boxes on a 1.1 m lattice, some turned into 1 m spheres (wider
+    than a 1.4 m cell: the oversize pass), on the card."""
+    cfg = SimConfig(capacity=512, max_pairs=max_pairs, grid_dim=32, cell_size=1.4,
+                    cell_capacity=6, solver_iters=7, pairs_per_body=10,
+                    pair_rebuild_interval=6, contacts_per_body=8)
+    w = PhysicsWorld(cfg, device="cuda")
+    w.set_ground_plane(0.0)
+    rng = np.random.default_rng(3)
+    for i in range(300):
+        ix, iy, iz = i % 10, (i // 10) % 10, i // 100
+        pos = np.array([ix * 1.1 + rng.uniform(-0.1, 0.1),
+                        iy * 1.1 + rng.uniform(-0.1, 0.1), 0.45 + iz * 0.85], np.float32)
+        shape = shapes.make_sphere(1.0) if i in big else shapes.make_box([0.4, 0.4, 0.4])
+        w.add_object(PhysicsObject(shape=shape, pos=pos, motion_type=int(MotionType.DYNAMIC)))
+    w.think(DT)
+    return w
+
+
+@pytest.mark.parametrize("case", ["oversize", "truncated", "max_pairs_65536"])
+def test_pair_finder_edge_cases(case):
+    """KS's oversize pass (4 oversize bodies), its truncation to max_pairs
+    and counters (256 slots for ~1,000 pairs), and max_pairs 65,536."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    big = (5, 77, 150, 233) if case == "oversize" else ()
+    mp = {"oversize": 2048, "truncated": 256, "max_pairs_65536": 65_536}[case]
+    w = _edge_world(mp, big)
+    body = _forced(w)
+    want = _ks_check(body, w.config, bool(big))
+    pa, pb, pv, num, ov = want[:5]
+    if case == "oversize":
+        assert any(int(x) in big or int(y) in big for x, y in zip(pa[pv], pb[pv]))
+    if case == "truncated":
+        assert int(num) > mp and int(ov) > 0 and bool(pv.all())
+    if case == "max_pairs_65536":
+        assert 500 < int(pv.sum()) <= int(num) < mp
+
+
+def _kt_check(w):
+    """KT's four entry points against their twins on a mixed world's pair
+    list, all exact."""
+    from substrata_tpu_torch.kernels import layout as kt
+    body, cfg, pc = _forced(w), w.config, w.pair_cache
+    active = narrowphase._active_codes(cfg)
+    assert len(active) > 1
+    n, p = body.capacity, pc.pair_a.shape[0]
+    gargs = (body.shape_type, pc.pair_a, pc.pair_b, pc.pair_valid, active, cfg.max_pairs)
+    gk, ovk, slot = kt.group(*gargs)
+    gp, ovp, _ = kt.group_plain(*gargs)
+    for (ck, *tk), (cp, *tp) in zip(gk, gp):
+        assert ck == cp and all(torch.equal(x, y) for x, y in zip(tk, tp)), cp
+    assert int(ovk) == int(ovp)
+    srcs, touches, rows = [], [], []
+    for code, src, ba, bb, bv in gp:
+        r = narrowphase._bucket_rows(code, narrowphase._MANIFOLD_WIDTH[code], False, body, ba,
+                                     bb, bv, w.static_world.hulls)
+        srcs.append(src)
+        touches.append(r[9])
+        rows.append(r[:9])
+    assert torch.equal(kt.touching(srcs, touches, p, slot), kt.touching_plain(srcs, touches, p))
+    contacts = tuple(torch.cat([r[i] for r in rows]) for i in range(9))
+    n_valid = int(contacts[5].sum())
+    for m in (cfg.max_active_contacts, max(n_valid // 3, 1)):     # room, then overflow
+        (ck, ok), (cp, op) = kt.compact(contacts, m), kt.compact_plain(contacts, m)
+        assert all(torch.equal(x, y) for x, y in zip(ck, cp)) and int(ok) == int(op)
+    cp, _ = kt.compact_plain(contacts, cfg.max_active_contacts)
+    occ = cp[5] & (cp[0] >= 0)
+    for cpb in (cfg.contacts_per_body, 2):
+        ik = kt.incidence(cp[0], cp[1], occ, n, cpb)
+        ip = kt.incidence_plain(cp[0], cp[1], occ, n, cpb)
+        assert all(torch.equal(x, y) for x, y in zip(ik, ip)), cpb
+    return n_valid
+
+
+def test_layout_kernels_match_plain_serving():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    w, p = _serving("cuda")
+    for t in range(30):
+        benchworld.serving_tick(w, p, t * DT)
+    assert _kt_check(w) > 50
+
+
+def test_layout_kernels_match_plain_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    w, p, src = _mesh("cuda")
+    for t in range(30):
+        benchworld.mesh_tick(w, p, t * DT, src)
+    _kt_check(w)
+
+
+def test_incidence_kernel_crowded_bodies():
+    """KT's incidence with bodies in more than cpb entries (the kept set is
+    the cpb lowest) and one in more than its 64 list slots (the ordered
+    scan), at a pair-blocked stride of 4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from substrata_tpu_torch.kernels import layout as kt
+    rng = np.random.default_rng(9)
+    n, c, wm = 300, 4096, 4
+    a = rng.integers(0, n, c).astype(np.int32)
+    b = rng.integers(-1, n, c).astype(np.int32)
+    a[rng.choice(c, 100, replace=False)] = 7          # 100 entries: past the list
+    b[rng.choice(c, 20, replace=False)] = 9
+    rows_a = np.repeat(a, wm)
+    rows_b = np.repeat(b, wm)
+    ta = torch.as_tensor(rows_a, device="cuda").reshape(c, wm)[:, 0]
+    tb = torch.as_tensor(rows_b, device="cuda").reshape(c, wm)[:, 0]
+    occ = torch.as_tensor(rng.random(c) < 0.9, device="cuda") & (ta >= 0)
+    for cpb in (8, 16):
+        ik = kt.incidence(ta, tb, occ, n, cpb)
+        ip = kt.incidence_plain(ta.contiguous(), tb.contiguous(), occ, n, cpb)
+        assert all(torch.equal(x, y) for x, y in zip(ik, ip)), cpb
+        assert float(ip[2][7]) == cpb and float(ip[2][9]) == cpb
+
+
+def _step_inputs(w):
+    """The velocity solve's outputs at the world's state, every dynamic
+    body awake: (body, static rows, pair rows, table, sign, wm, linvel,
+    angvel, lambda_p, integrated positions)."""
+    from substrata_tpu_torch.physics import integrate
+    body, cfg, pc = _forced(w), w.config, w.pair_cache
+    body = body.replace(awake=body.awake | (body.alive & body.dynamic))
+    n = body.capacity
+    wm = narrowphase.blocked_manifold_width(cfg, n)
+    pair_cts, _, _ = narrowphase.pair_contacts(body, pc.pair_a, pc.pair_b, pc.pair_valid, cfg,
+                                               hulls=w.static_world.hulls, blocked_wm=wm)
+    static_cts = narrowphase.static_contacts(body, w.static_world, cfg)
+    if wm:
+        table, sign = pc.inc_table, pc.inc_sign
+    else:
+        wm = 1
+        pair_cts, _ = narrowphase.compact_contacts(pair_cts, cfg.max_active_contacts)
+        table, sign, _ = solver.build_incidence(pair_cts.a, pair_cts.b,
+                                                pair_cts.valid & (pair_cts.a >= 0), n,
+                                                cfg.contacts_per_body)
+    lin, ang, lam_p, *_ = solver.solve_contacts(body, static_cts, pair_cts, DT, w.params, cfg,
+                                                w.solver_cache, wm=wm, table=table, sign=sign)
+    pos, _ = integrate.integrate_positions(body, lin, ang, DT)
+    return body, static_cts, pair_cts, table, sign, wm, lin, ang, lam_p, pos
+
+
+def _kuv_check(w):
+    """KU within 1e-6 of the largest push its twin gives; KV's strike wake and sleep
+    pass exact, as the world is and with half its bodies asleep and every
+    timer near its limit.  Returns how many flags the sleep passes
+    changed."""
+    from substrata_tpu_torch.kernels import positions as ku
+    from substrata_tpu_torch.kernels import sleep as kv
+    body, static_cts, pair_cts, table, sign, wm, lin, ang, lam_p, pos = _step_inputs(w)
+    st, pc, prm = w.state, w.pair_cache, w.params
+    uargs = (pos, body.inv_mass, body.awake,
+             (static_cts.valid, static_cts.normal, static_cts.penetration),
+             (pair_cts.a, pair_cts.b, pair_cts.valid, pair_cts.normal, pair_cts.penetration),
+             table, sign, prm.contact_slop)
+    pk = ku.solve_positions(*uargs, iters=2, beta=0.25, wm=wm)
+    pp = ku.solve_positions_plain(*uargs, 2, 0.25, wm)
+    moved = float((pp - pos).abs().max())
+    assert moved > 1e-5                                     # the solve moved something
+    assert float((pk - pp).abs().max()) <= 1e-6 * moved
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    drowsy = st.awake & (torch.rand(st.awake.shape, generator=gen, device="cuda") < 0.5)
+    changed = 0
+    for awake, timer in ((st.awake, body.sleep_timer),
+                         (drowsy, torch.full_like(body.sleep_timer, 0.49))):
+        sargs = (awake, body.linvel, st.alive, st.motion_type, pc.pair_a, pc.pair_b,
+                 pc.pair_valid)
+        sk, sp = kv.strike_wake(*sargs), kv.strike_wake_plain(*sargs)
+        assert torch.equal(sk, sp)
+        vargs = (body.replace(awake=sp, sleep_timer=timer), awake, lin, ang,
+                 (static_cts.valid, static_cts.penetration),
+                 (pair_cts.a, pair_cts.b, pair_cts.valid, pair_cts.penetration), lam_p, table,
+                 sign, wm, DT, prm, pc.steps_left)
+        vk, vp = kv.sleep_pass(*vargs), kv.sleep_pass_plain(*vargs)
+        for f in ("awake", "sleep_timer", "linvel", "angvel", "newly_awake", "newly_asleep",
+                  "steps_left"):
+            a, b = getattr(vk, f), getattr(vp, f)
+            assert a.dtype == b.dtype and torch.equal(a, b), f
+        changed += int(vp.newly_awake.sum()) + int(vp.newly_asleep.sum())
+    return changed
+
+
+def test_position_and_sleep_kernels_match_plain_bench(world):
+    assert _kuv_check(world) > 0
+
+
+def test_position_and_sleep_kernels_match_plain_serving():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    w, p = _serving("cuda")
+    for t in range(30):
+        benchworld.serving_tick(w, p, t * DT)
+    assert _kuv_check(w) > 0
+
+
+def test_position_and_sleep_kernels_match_plain_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    w, p, src = _mesh("cuda")
+    for t in range(30):
+        benchworld.mesh_tick(w, p, t * DT, src)
+    _kuv_check(w)

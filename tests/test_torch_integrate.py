@@ -22,6 +22,7 @@ from substrata_tpu.physics import integrate as jint
 from substrata_tpu.physics import solver as jsolver
 from substrata_tpu.physics import state as jstate
 from substrata_tpu_torch import convert
+from substrata_tpu_torch.kernels import sleep as ksleep
 from substrata_tpu_torch.physics import integrate as tint
 
 from torch_port_helpers import body_np, box_world_arrays, jax_body, params_np
@@ -99,7 +100,7 @@ def test_update_sleeping_matches_reference(seed):
         jnp.asarray(imp), jnp.asarray(valid), jnp.asarray(table), jnp.asarray(sign),
         jnp.float32(DT), jp, contact_pen=jnp.asarray(pen), extra_deep=jnp.asarray(deep))
     t = torch.from_numpy
-    tres = tint.update_sleeping(
+    tres = ksleep.update_sleeping_plain(
         tb, t(lin), t(ang), t(ca), t(cb), t(imp), t(valid), t(table), t(sign), DT, tp,
         contact_pen=t(pen), extra_deep=t(deep))
     for name, jx, tx in zip(("awake", "sleep_timer", "linvel", "angvel"), jres, tres):

@@ -3,7 +3,7 @@
 XLA's CPU compiler folds ``x / c`` for a compile-time constant ``c`` (a
 static config field or a literal) into ``x * fl(1/c)``, and fuses a
 multiply that an add follows into one rounding.  The port repeats both:
-``broadphase.recip`` for the cell indices of the cell table, the rays and
+``maths.fp.recip`` for the cell indices of the cell table, the rays and
 the character, one multiply-add for a ray's march point.  With the
 bench's 1.4 m cells the reciprocal is inexact, so positions at k * 1.4
 and one ulp either side are where a true division would pick another
