@@ -2418,6 +2418,377 @@ def layout_phase(device="cuda", n_bodies=10_000, cfg=None, plain_reps=5, mesh_ob
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: KW (terrain heights and chunks), KX (scatter points), KY (spawn
+# scatter) and KZ (pose) against their twins at BASELINE config 4's widths.
+# ---------------------------------------------------------------------------
+
+def _exact(got, want, what):
+    check(got.dtype == want.dtype and torch.equal(got, want), f"{what}: differs from its twin")
+
+
+def _scaled_err(got, want):
+    """max |got - want| over the largest |want| (at least 1)."""
+    return max_err(got, want) / max(float(want.abs().max()), 1.0)
+
+
+def _kw_leaves(ts, cam):
+    """The leaves a camera at ``cam`` refines the quadtree into, as the
+    chunk call takes them (origins [L, 2], widths [L])."""
+    ts._refine(ts.root, np.asarray(cam, np.float64))
+    leaves = ts._unbuilt_leaves(ts.root, [])
+    dev = ts.device
+    return (torch.as_tensor(np.array([n.origin for n in leaves], np.float32), device=dev),
+            torch.as_tensor(np.array([n.width for n in leaves], np.float32), device=dev))
+
+
+def _random_pose_arrays(a, seed, n_clips):
+    """Every option set: random clips, frames (some negative, some past a
+    clip's end), blends, overrides and post rotations on ~half the slots,
+    grabs (some 0 or under the 1e-3 threshold) and rigid roots."""
+    from substrata_tpu_torch.anim import pose as apose
+    from substrata_tpu_torch.anim.skeleton import trs_to_mat4_np
+    rng = np.random.default_rng(seed)
+    arr = apose.zero_pose_arrays(a)
+    s = apose.NUM_SLOTS
+    arr["clip_a"][:] = rng.integers(0, n_clips, a)
+    arr["clip_b"][:] = rng.integers(0, n_clips, a)
+    arr["frame_a"][:] = rng.uniform(-5.0, 400.0, a)
+    arr["frame_b"][:] = rng.uniform(-5.0, 400.0, a)
+    arr["blend"][:] = rng.uniform(0.0, 1.0, a)
+    for k in ("override_rot", "post_rot"):
+        q = rng.normal(size=(a, s, 4))
+        arr[k][:] = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    arr["override_mask"][:] = rng.random((a, s)) < 0.4
+    arr["post_mask"][:] = rng.random((a, s)) < 0.5
+    for k in ("grab_l", "grab_r"):
+        g = rng.uniform(0.0, 1.0, a)
+        g[::5], g[1::7] = 0.0, 5e-4
+        arr[k][:] = g
+    for i in range(a):
+        q = rng.normal(size=4)
+        arr["root"][i] = trs_to_mat4_np(rng.uniform(-50, 50, 3), q / np.linalg.norm(q),
+                                        np.ones(3)).astype(np.float32)
+    return arr
+
+
+def _fk_library(local, rig, root):
+    """The FK as one batched torch.matmul per level, then the root and the
+    inverse bind: KZ's library yardstick (the sampling and the local
+    matrices left out)."""
+    world = local.clone()
+    for idx, par in rig.levels:
+        world[:, idx] = torch.matmul(world[:, par], local[:, idx])
+    return world, torch.matmul(root[:, None], world), torch.matmul(world, rig.inverse_bind)
+
+
+def terrain_kernel_phase(device="cuda", res=None, n_points=65_536, n_avatars=64, plain_reps=5):
+    from substrata_tpu_torch import benchworld as bw
+    from substrata_tpu_torch.anim import pose as apose
+    from substrata_tpu_torch.kernels import pose as kz
+    from substrata_tpu_torch.kernels import spawn as ky
+    from substrata_tpu_torch.kernels import terrain as kt
+    from substrata_tpu_torch.physics.particles import zero_particles
+    from substrata_tpu_torch.physics.terrain import TerrainSystem
+    res = res or bw.TERRAIN_RES
+    h, cw, origin = bw.terrain_heightmap(res)
+    ts = TerrainSystem(device=device)
+    ts.set_heightmap(h, origin, cw)
+    hf = ts.heightfield
+    field = (hf.heights, hf.origin, hf.cell_w)
+    hscale = float(np.abs(h).max())
+    rng = np.random.default_rng(16)
+    out = {}
+
+    # KW (a): heights and normals at 65,536 points over the map and past it.
+    xy = torch.as_tensor(rng.uniform(-530, 530, (n_points, 2)).astype(np.float32),
+                         device=device)
+    errs = {}
+    for normals in (False, True):
+        got = kt.terrain_heights(*field, xy, normals)
+        want = kt.terrain_heights_plain(*field, xy, normals)
+        errs[normals] = (max_err(got[:, 0], want[:, 0]) / hscale,
+                         max_err(got[:, 1:], want[:, 1:]) if normals else 0.0)
+    kw_err = max(max(e) for e in errs.values())
+    check(kw_err <= 1e-6, f"KW heights: {kw_err} of scale > 1e-6")
+    gs_grid = ((xy - hf.origin) / hf.cell_w / (torch.tensor(h.shape, device=device) - 1)
+               * 2 - 1).flip(-1).view(1, 1, -1, 2)
+    hmap = hf.heights.view(1, 1, *h.shape)
+    pts_bytes = n_points * (8 + 16 + 16)
+    out["terrain_heights"] = dict(
+        max_abs_err=kw_err, tol=1e-6, points=n_points, heights_err=errs[False][0],
+        normals_err=errs[True][1],
+        **bound(pts_bytes, kt.heights_flops(n_points, True)),
+        ms=median_ms(lambda: kt.terrain_heights(*field, xy, True)),
+        plain_ms=median_ms(lambda: kt.terrain_heights_plain(*field, xy, True),
+                           reps=plain_reps),
+        device_us=device_us(lambda: kt.terrain_heights(*field, xy, True), "heights_kernel"),
+        library_ms=median_ms(lambda: torch.nn.functional.grid_sample(
+            hmap, gs_grid, mode="bilinear", align_corners=True)),
+        library_call="torch.nn.functional.grid_sample (bilinear heights, no normals)")
+    one = xy[:1].contiguous()
+    out["terrain_heights"]["clamp_query"] = dict(
+        ms=median_ms(lambda: kt.terrain_heights(*field, one)),
+        device_us=device_us(lambda: kt.terrain_heights(*field, one), "heights_kernel"),
+        **bound(40, kt.heights_flops(1, False)))
+
+    # KW (b): every leaf a camera at the origin builds.
+    lo, lw = _kw_leaves(ts, [0.0, 0.0])
+    n_leaf, cf, nv8 = lo.shape[0], kt.chunk_floats(16), 17 * 17 * 8
+    got = kt.terrain_chunks(*field, lo, lw, 16)
+    want = kt.terrain_chunks_plain(*field, lo, lw, 16)
+    _exact(got[:, nv8:].contiguous().view(torch.int32), want[:, nv8:].contiguous().view(
+        torch.int32), "KW chunk triangles")
+    ch_err = _scaled_err(got[:, :nv8], want[:, :nv8])
+    check(ch_err <= 1e-6, f"KW chunks: {ch_err} of scale > 1e-6")
+    out["terrain_chunks"] = dict(
+        max_abs_err=ch_err, tol=1e-6, leaves=n_leaf,
+        **bound(n_leaf * (12 + cf * 4) + n_leaf * 289 * 16, n_leaf * 289 * 60),
+        ms=median_ms(lambda: kt.terrain_chunks(*field, lo, lw, 16)),
+        plain_ms=median_ms(lambda: kt.terrain_chunks_plain(*field, lo, lw, 16),
+                           reps=plain_reps),
+        device_us=device_us(lambda: kt.terrain_chunks(*field, lo, lw, 16), "chunks_kernel"),
+        library_ms=None)
+
+    # KX: the 81 cells around the origin, then one 9-cell column.
+    def cells(xs, ys):
+        return torch.as_tensor(np.array([[kx * 32.0, ky * 32.0] for kx in xs for ky in ys],
+                                        np.float32), device=device)
+    kx_res = {}
+    for what, c in (("start_81", cells(range(-4, 5), range(-4, 5))),
+                    ("move_9", cells([5], range(-4, 5)))):
+        got = kt.terrain_scatter(*field, c, 32.0, 1234, 64)
+        want = kt.terrain_scatter_plain(*field, c, 32.0, 1234, 64)
+        _exact(got, want, f"KX {what}")
+        kx_res[what] = dict(cells=c.shape[0], valid=int((got[..., 5] > 0.5).sum()))
+    c81 = cells(range(-4, 5), range(-4, 5))
+    out["terrain_scatter"] = dict(
+        max_abs_err=0.0, tol=0.0, **kx_res,
+        **bound(81 * 8 + 81 * 64 * (24 + 16), kt.scatter_flops(81, 64)),
+        ms=median_ms(lambda: kt.terrain_scatter(*field, c81, 32.0, 1234, 64)),
+        plain_ms=median_ms(lambda: kt.terrain_scatter_plain(*field, c81, 32.0, 1234, 64),
+                           reps=plain_reps),
+        device_us=device_us(lambda: kt.terrain_scatter(*field, c81, 32.0, 1234, 64),
+                            "scatter_kernel"),
+        library_ms=None)
+
+    # KY: the 10,000-row burst into an empty ring, a 20,000-row flush that
+    # wraps it from slot 10,000.
+    def flush_rows(n, seed):
+        g = np.random.default_rng(seed)
+        rows = [dict(pos=g.uniform(-50, 50, 3), vel=g.uniform(-5, 5, 3), area=1e-4, mass=1e-6,
+                     restitution=0.5, width=0.1, dwidth_dt=0.0, opacity=1.0,
+                     dopacity_dt=float(-1.0 / g.uniform(0.01, 2.0)), theta=0.0,
+                     sprite_type=int(g.integers(0, 2)), die_on_hit=bool(g.random() < 0.3))
+                for _ in range(n)]
+        return torch.as_tensor(ky.pack_rows(rows), device=device)
+    burst = flush_rows(10_000, 1)
+    for what, rows, cursor in (("burst_10000", burst, 0),
+                               ("wrap_20000", flush_rows(20_000, 2), 10_000)):
+        a = ky.spawn_rows(zero_particles(16_384, device=device), rows, cursor)
+        b = ky.spawn_rows_plain(zero_particles(16_384, device=device), rows, cursor)
+        for f in ky.STATE_FIELDS:
+            _exact(getattr(a, f), getattr(b, f), f"KY {what} {f}")
+    ring = zero_particles(16_384, device=device)
+    out["spawn_rows"] = dict(
+        max_abs_err=0.0, tol=0.0, rows=10_000,
+        **bound(10_000 * (64 + 62), 0),
+        ms=median_ms(lambda: ky.spawn_rows(ring, burst, 0)),
+        plain_ms=median_ms(lambda: ky.spawn_rows_plain(ring, burst, 0), reps=plain_reps),
+        device_us=device_us(lambda: ky.spawn_rows(ring, burst, 0), "spawn_kernel"),
+        library_ms=None)
+
+    # KZ: the 64 avatars at three moments of their walk (frames 0, 60,
+    # 120), every option at random, and 37 avatars padded to 64.
+    sc = bw.terrain_world(device, res=129, n_burst=0, n_stream=0, n_avatars=n_avatars)
+    g = sc.graphics
+    _, _, kern = g._rig()
+    bank, rig = kern.bank, kern.rig
+    moments = {}
+    for frame in range(121):
+        bw.move_avatars(sc, frame * DT)
+        for av in sc.avatars:
+            g.update_avatar(av, DT)
+        if frame % 60 == 0:
+            moments[f"walk_frame_{frame}"] = g.pack_all()[2]
+    moments["all_options_64"] = _random_pose_arrays(64, 3, len(bank.names))
+    pad = apose.zero_pose_arrays(64)
+    part = _random_pose_arrays(37, 4, len(bank.names))
+    for k in pad:
+        pad[k][:37] = part[k]
+    moments["padded_37"] = pad
+    for what, arr in moments.items():
+        p = apose.pose_params_from_arrays(arr, device=device)
+        _exact(kz.pose(bank, rig, p), kz.pose_plain(bank, rig, p), f"KZ {what}")
+    p = apose.pose_params_from_arrays(moments["walk_frame_60"], device=device)
+    local = kz.pose_plain(bank, rig, p)[0]     # any [A, J, 4, 4] of the right shape
+    a, nj = p.count, rig.parent.shape[0]
+    out["pose_avatars"] = dict(
+        max_abs_err=0.0, tol=0.0, avatars=a, joints=nj, moments=list(moments),
+        **bound(a * nj * 4 * 28 + a * 500 + nj * 100 + 3 * a * nj * 64, a * nj * 600),
+        ms=median_ms(lambda: kz.pose(bank, rig, p)),
+        plain_ms=median_ms(lambda: kz.pose_plain(bank, rig, p), reps=plain_reps),
+        device_us=device_us(lambda: kz.pose(bank, rig, p), "pose_kernel"),
+        library_ms=median_ms(lambda: _fk_library(local, rig, p.root)),
+        library_call="the FK as torch.matmul per level (11), then root and inverse bind")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: BASELINE config 4 + 64 avatars, 180 client frames.
+# ---------------------------------------------------------------------------
+
+TERRAIN_KERNELS = ("terrain_heights", "spawn_rows", "pose_avatars", "ray_trace",
+                   "particles_update", "character_update", "apply_tick_in", "digest_tblock")
+
+
+def _tree_ids(sc):
+    return {id(o) for obs in sc.scattering.tree_physics_obs.values() for o in obs}
+
+
+def _counted(run, frames):
+    """Synchronizing calls (sync debug mode) and the profiler's copies over
+    ``frames`` calls of ``run``."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        for _ in range(frames):
+            run()
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sum(str(c.message).startswith("called a synchronizing CUDA operation")
+                for c in caught)
+    h2d, d2h, ops = _copies(run, frames)
+    per = lambda x: x / frames if ops else "not measured"
+    return dict(syncs_per_frame=syncs / frames, h2d_per_frame=per(h2d), d2h_per_frame=per(d2h),
+                device_ops_per_frame=ops / frames)
+
+
+def terrain_phase(device="cuda", sync=torch.cuda.synchronize, **size):
+    from substrata_tpu_torch import benchworld as bw
+    from substrata_tpu_torch import kernels
+    from substrata_tpu_torch.physics.character import EYE_HEIGHT
+    sc = bw.terrain_world(device, **size)
+    hf = sc.terrain.heightfield
+    sync()
+    kernels.reset_launch_counts()
+    times, alive_every_30, moves = [], {}, []
+    min_alive = None
+    for f in range(TICKS):
+        before = _tree_ids(sc) if f > 0 and f % bw.MOVE_EVERY == 0 else None
+        sync()
+        t0 = time.perf_counter()
+        bw.terrain_tick(sc, f)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        alive = sc.particles.num_alive
+        if f >= 1:
+            min_alive = alive if min_alive is None else min(min_alive, alive)
+        if f % 30 == 0:
+            alive_every_30[f] = alive
+        if before is not None:
+            after = _tree_ids(sc)
+            moves.append(dict(frame=f, trees_evicted=len(before - after),
+                              trees_added=len(after - before), trees=len(after)))
+            check(before - after and after - before, f"frame {f}: the move left the trees as "
+                  "they were")
+    counts = kernels.launch_counts()
+    for name in TERRAIN_KERNELS:
+        check(counts[name] >= TICKS, f"kernel {name}: {counts[name]} launches in {TICKS} "
+              "terrain frames")
+    for name in ("terrain_chunks", "terrain_scatter"):
+        check(counts[name] > 0, f"kernel {name} never launched in the terrain frames")
+    n_burst = size.get("n_burst", bw.N_BURST)
+    floor = 0.8 * n_burst
+    check(min_alive > floor, f"alive particles fell to {min_alive} (<= {floor})")
+    # The state.
+    st, ps = sc.world.state, sc.particles.state
+    check(bool(torch.isfinite(st.pos[st.alive]).all()), "non-finite body positions")
+    live = ps.alive
+    check(bool(torch.isfinite(ps.pos[live]).all()), "non-finite particle positions")
+    ground = hf.heights_at(ps.pos[:, :2].contiguous())[:, 0]
+    below = int((live & (ps.pos[:, 2] < ground - 0.05)).sum())
+    for g in sc.graphics.by_uid.values():
+        check(np.isfinite(g.joints_world).all() and np.isfinite(g.skin_matrices).all(),
+              "non-finite joints")
+    eye = sc.player.get_eye_position()
+    foot_ground = sc.terrain.eval_terrain_height(float(eye[0]), float(eye[1]))
+    foot_gap = float(eye[2] - EYE_HEIGHT - foot_ground)
+    check(foot_gap > -0.3, f"the character's foot {foot_gap} m below the terrain")
+    worst = 0.0
+    for _, _, (verts, _, _, _) in sc.terrain.visible_chunks():
+        z = sc.terrain.eval_terrain_heights(verts[:, :2])
+        worst = max(worst, float(np.abs(verts[:, 2] - z).max()))
+    check(worst <= 1e-5, f"a chunk vertex lies {worst} m off the terrain")
+    # Syncs and copies: frames without a move, then move frames.
+    state = dict(f=TICKS)
+
+    def plain_frame():
+        state["f"] += 1 if (state["f"] + 1) % bw.MOVE_EVERY else 2
+        bw.terrain_tick(sc, state["f"])
+
+    def move_frame():
+        state["f"] = (state["f"] // bw.MOVE_EVERY + 1) * bw.MOVE_EVERY
+        bw.terrain_tick(sc, state["f"])
+    counted = dict(no_move=_counted(plain_frame, SYNC_TICKS), move=_counted(move_frame, 3))
+    return dict(
+        ms_per_terrain_tick_median=float(np.median(times[30:])),
+        ms_per_terrain_tick_p90=float(np.percentile(times[30:], 90)),
+        first_tick_ms=times[0], move_tick_ms=[times[m["frame"]] for m in moves],
+        launches=counts, alive_every_30=alive_every_30, min_alive_from_frame_1=min_alive,
+        moves=moves, particles_below_terrain=below, foot_above_terrain=foot_gap,
+        chunk_vertex_max_off_terrain=worst, chunks=len(sc.terrain.visible_chunks()),
+        chunks_built=sc.terrain.num_chunks_built, scatter_cells=len(sc.scattering.chunks),
+        scatter_instances=sc.scattering.num_instances(), bodies=len(sc.world.objects),
+        player_eye=[float(x) for x in eye], **counted)
+
+
+def small_terrain_phase(device="cuda", frames=40):
+    """The small terrain world (a 129 x 129 map, 512 burst particles then 8
+    a frame, 8 avatars) on the card and on the CPU path for 40 frames:
+    live particles within 1e-4 m (alive masks equal), the joints within
+    1e-5 of each matrix's scale, the character within 1e-4 m, the chunks
+    and the scatter points equal."""
+    from substrata_tpu_torch import benchworld as bw
+    from substrata_tpu_torch.physics.state import SimConfig
+    cfg = SimConfig(capacity=2048, max_pairs=4096, grid_dim=32, cell_size=4.0)
+    runs = {}
+    for dev in (device, "cpu"):
+        sc = bw.terrain_world(dev, res=129, n_burst=512, n_stream=8, n_avatars=8, cfg=cfg)
+        for f in range(frames):
+            bw.terrain_tick(sc, f)
+        ps = sc.particles.state
+        runs[dev] = dict(
+            alive=ps.alive.cpu(), pos=ps.pos.cpu(), eye=sc.player.get_eye_position(),
+            joints=[np.stack([g.joints_obj, g.joints_world, g.skin_matrices])
+                    for g in sc.graphics.by_uid.values()],
+            chunks=[(o, w, c) for o, w, c in sc.terrain.visible_chunks()],
+            scatter={k: np.array([[*i.pos, i.scale, i.rot] for i in v])
+                     for k, v in sc.scattering.chunks.items()})
+    a, b = runs[device], runs["cpu"]
+    check(torch.equal(a["alive"], b["alive"]), "small terrain world: alive masks differ")
+    p_err = max_err(a["pos"], b["pos"], b["alive"])
+    check(p_err <= 1e-4, f"small terrain world: particles card vs CPU path {p_err} > 1e-4")
+    e_err = float(np.abs(a["eye"] - b["eye"]).max())
+    check(e_err <= 1e-4, f"small terrain world: character {e_err} > 1e-4")
+    j_err = 0.0
+    for x, y in zip(a["joints"], b["joints"]):
+        scale = np.maximum(np.abs(y).max(axis=(-1, -2), keepdims=True), 1.0)
+        j_err = max(j_err, float((np.abs(x - y) / scale).max()))
+    check(j_err <= 1e-5, f"small terrain world: joints {j_err} of scale > 1e-5")
+    check(len(a["chunks"]) == len(b["chunks"]), "small terrain world: chunk counts differ")
+    for (oa, wa, ca), (ob, wb, cb) in zip(a["chunks"], b["chunks"]):
+        check(np.array_equal(oa, ob) and wa == wb and all(np.array_equal(x, y)
+                                                          for x, y in zip(ca, cb)),
+              "small terrain world: a chunk differs")
+    check(list(a["scatter"]) == list(b["scatter"]) and all(
+        np.array_equal(a["scatter"][k], b["scatter"][k]) for k in a["scatter"]),
+        "small terrain world: scatter points differ")
+    return dict(cuda_vs_cpu_small_terrain_particle_err=p_err,
+                cuda_vs_cpu_small_terrain_character_err=e_err,
+                cuda_vs_cpu_small_terrain_joint_err=j_err,
+                small_terrain_alive=int(a["alive"].sum()), small_terrain_chunks=len(a["chunks"]))
+
+
 PHYSICS_KERNELS = ("box_box_rows", "static_contacts", "solve_iteration", "apply_forces",
                    "integrate_positions", "cell_table", "solve_setup", "cache_refresh",
                    "find_pairs", "layout_incidence", "solve_positions", "strike_wake",
@@ -2515,14 +2886,28 @@ KERNELS = [
      "substrata_tpu/physics/step.py:103"),
     ("sleep_pass", "cuda", "substrata_tpu_torch/csrc/sleep.cu",
      "substrata_tpu/physics/integrate.py:103"),
+    ("terrain_heights", "cuda", "substrata_tpu_torch/csrc/terrain.cu",
+     "substrata_tpu/physics/terrain.py:40"),
+    ("terrain_chunks", "cuda", "substrata_tpu_torch/csrc/terrain.cu",
+     "substrata_tpu/physics/terrain.py:54"),
+    ("terrain_scatter", "cuda", "substrata_tpu_torch/csrc/terrain.cu",
+     "substrata_tpu/physics/terrain.py:215"),
+    ("spawn_rows", "cuda", "substrata_tpu_torch/csrc/particles_spawn.cu",
+     "substrata_tpu/physics/particles.py:140"),
+    ("pose_avatars", "cuda", "substrata_tpu_torch/csrc/pose.cu",
+     "substrata_tpu/anim/pose.py:182"),
 ]
 # The run whose launches each kernel line reports: phase 9's full ticks,
-# unless named here (phase 5's thinks, 11's serving ticks, 13's frames).
+# unless named here (phase 5's thinks, 11's serving ticks, 13's mesh
+# frames, 17's terrain frames).
 LAUNCHES_FROM = {"closed_form_rows": "serving", "character_update": "serving",
                  "apply_tick_in": "serving", "digest_tblock": "serving", "convex_rows": "mesh",
                  "find_pairs": "think", "solve_positions": "think", "strike_wake": "think",
                  "sleep_pass": "think", "layout_group": "serving", "layout_touching": "serving",
-                 "layout_compact": "serving", "layout_incidence": "serving"}
+                 "layout_compact": "serving", "layout_incidence": "serving",
+                 "terrain_heights": "terrain", "terrain_chunks": "terrain",
+                 "terrain_scatter": "terrain", "spawn_rows": "terrain",
+                 "pose_avatars": "terrain"}
 
 
 def main():
@@ -2637,8 +3022,21 @@ def main():
         log(f"# phase 15 {name}: {json.dumps(r)} | {smi}")
     kres.update({k: v for k, v in lay.items() if k != "sort_free"})
 
+    tk = terrain_kernel_phase()
+    for name, r in tk.items():
+        log(f"# phase 16 {name}: {json.dumps(r)} | {smi}")
+    kres.update(tk)
+
+    te_res = terrain_phase()
+    te_res.update(small_terrain_phase())
+    log(f"# terrain world: {json.dumps(te_res)} | {smi}")
+    log(f"# ms per terrain client frame (median, ticks 31-{TICKS}, BASELINE config 4: a "
+        f"1025^2 heightmap, ~10,000 particles, {te_res['bodies'] - 1} trees, 64 posed "
+        f"avatars): {te_res['ms_per_terrain_tick_median']:.3f} "
+        f"(p90 {te_res['ms_per_terrain_tick_p90']:.3f}) | {smi}")
+
     # Launches: each kernel's count on its main path (LAUNCHES_FROM).
-    runs = dict(think=main_res, full=ft_res, serving=sv_res, mesh=me_res)
+    runs = dict(think=main_res, full=ft_res, serving=sv_res, mesh=me_res, terrain=te_res)
     launches = {name: runs[LAUNCHES_FROM.get(name, "full")]["launches"][name]
                 for name, *_ in KERNELS}
     for name in ("find_pairs", "solve_positions", "strike_wake", "sleep_pass"):
@@ -2657,7 +3055,8 @@ def main():
                        small_worlds=small, main_path=main_res, audio=ares,
                        physics_audio=pa_res, fulltick_kernels=fres, full_tick=ft_res,
                        serving_kernels=sres, serving_tick=sv_res, mesh_kernels=mk_res,
-                       mesh_world=me_res, kpqr_kernels=kpqr, layout_kernels=lay),
+                       mesh_world=me_res, kpqr_kernels=kpqr, layout_kernels=lay,
+                       terrain_kernels=tk, terrain_world=te_res),
                   f, indent=1)
     log(json.dumps(out))
     log(smi)

@@ -7,13 +7,20 @@ tick of its window 3 (bench.py:311-342), the serving world: the bench world
 with a walking player through ``PhysicsWorld.think_with_player``, and the
 12,000-object mesh world of tools/bench_networked.py (BASELINE.json
 config 5) with the client's frame: ``think_with_player`` and the audio
-occlusion rays (substrata_tpu/client_app.py:916-945)."""
+occlusion rays (substrata_tpu/client_app.py:916-945); and BASELINE.json's
+config 4, 10,000 particles over heightfield terrain with TerrainSystem LOD
+and TerrainScattering, plus 64 posed avatars, through the client frame's
+terrain, avatar and particle steps (``terrain_world``, ``terrain_tick``)."""
 
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import numpy as np
 import torch
 
+from substrata_tpu_torch.avatar_graphics import AvatarGraphicsManager
 from substrata_tpu_torch.audio.mix import (default_listener, mix_block, room_from_aabb,
                                            zero_sources)
 from substrata_tpu_torch.kernels import winter as kwinter
@@ -21,13 +28,15 @@ from substrata_tpu_torch.physics import broadphase, queries, shapes
 from substrata_tpu_torch.physics.character import (EYE_HEIGHT, PlayerPhysics,
                                                    init_character_state, player_update_packed,
                                                    tick_scalars)
-from substrata_tpu_torch.physics.particles import particles_step, zero_particles
+from substrata_tpu_torch.physics.particles import ParticleManager, particles_step, zero_particles
 from substrata_tpu_torch.physics.state import MotionType, SimConfig
+from substrata_tpu_torch.physics.terrain import TerrainScattering, TerrainSystem
 from substrata_tpu_torch.physics.vehicles.manager import (
     BikePhysics, BoatPhysics, CarPhysics, HoverCarPhysics, VehicleInputs, VehicleManager,
     _apply_vehicle_deltas, vehicles_update)
 from substrata_tpu_torch.physics.world import PhysicsObject, PhysicsWorld
 from substrata_tpu_torch.scripting import WinterScriptEvaluator
+from substrata_tpu_torch.shared.avatar import Avatar
 
 N_BODIES = 10_000
 N_SOURCES = 256
@@ -343,3 +352,210 @@ def mesh_tick(world, player, t: float, sources):
     hits = queries.trace_rays(o, d, mt, world.state, world.static_world, world.config,
                               n_steps=16)
     return events, (hits.hit & keep).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# BASELINE.json config 4: particles over heightfield terrain, plus avatars.
+# ---------------------------------------------------------------------------
+
+TERRAIN_RES = 1025        # 1 m cells over TerrainSystem's default 1024 m
+TERRAIN_EXTENT = 1024.0
+N_BURST = 10_000          # BASELINE config 4's 10k particles
+N_STREAM = 84             # a frame's new particles from frame 1 (2 s lives)
+N_AVATARS = 64
+MOVE_EVERY = 30           # the camera jumps 40 m along +x every 30 frames
+MOVE_DIST = 40.0
+BURST_RADIUS = 50.0
+
+
+def terrain_config() -> SimConfig:
+    """ClientApp's world (substrata_tpu/client_app.py:105-107)."""
+    return SimConfig(capacity=16_384 // 2, max_pairs=16_384, grid_dim=96, cell_size=4.0)
+
+
+def terrain_heightmap(res: int = TERRAIN_RES, extent: float = TERRAIN_EXTENT, seed: int = 0):
+    """tests/test_terrain.py's hills over ``extent`` at ``res``^2 samples
+    plus seeded noise (sigma 5 cm).  Returns (heights [res, res] f32,
+    cell_w, origin [2] f32)."""
+    xs = np.linspace(-extent / 2, extent / 2, res)
+    h = np.sin(xs[:, None] * 0.05) * np.cos(xs[None, :] * 0.03) * 8.0
+    h = h + np.random.default_rng(seed).normal(0.0, 0.05, (res, res))
+    return (h.astype(np.float32), float(extent / (res - 1)),
+            np.array([-extent / 2, -extent / 2], np.float32))
+
+
+def host_height(heights, origin, cell_w, x, y):
+    """The bilinear height at world (x, y) on the host, in float64: where
+    the scene's host code (the emitter, the avatars' feed, the camera
+    jumps) puts things on the ground without a device read."""
+    hx, hy = heights.shape
+    u = np.clip((np.asarray(x, np.float64) - origin[0]) / cell_w, 0.0, hx - 1.001)
+    v = np.clip((np.asarray(y, np.float64) - origin[1]) / cell_w, 0.0, hy - 1.001)
+    i0, j0 = np.floor(u).astype(np.int64), np.floor(v).astype(np.int64)
+    fu, fv = u - i0, v - j0
+    h00, h10 = heights[i0, j0].astype(np.float64), heights[i0 + 1, j0].astype(np.float64)
+    h01, h11 = heights[i0, j0 + 1].astype(np.float64), heights[i0 + 1, j0 + 1].astype(np.float64)
+    return (h00 * (1 - fu) * (1 - fv) + h10 * fu * (1 - fv)
+            + h01 * (1 - fu) * fv + h11 * fu * fv)
+
+
+@dataclasses.dataclass
+class TerrainScene:
+    """The client frame's objects for BASELINE config 4 (the fields a
+    ``ClientApp`` holds: client_app.py:108-121), the avatars and their
+    scripted motion, and the particle emitter's generator."""
+
+    world: object
+    player: object
+    terrain: object
+    scattering: object
+    particles: object
+    graphics: object
+    avatars: list
+    motion: np.ndarray        # [A, 3]: speed (m/s), heading at t = 0, turn rate (rad/s)
+    heights: np.ndarray
+    origin: np.ndarray
+    cell_w: float
+    rng: np.random.Generator
+    n_burst: int
+    n_stream: int
+
+
+def terrain_world(device, res: int = TERRAIN_RES, n_burst: int = N_BURST,
+                  n_stream: int = N_STREAM, n_avatars: int = N_AVATARS,
+                  cfg: SimConfig | None = None, seed: int = 0) -> TerrainScene:
+    """BASELINE config 4 at full width, built as ClientApp builds its
+    client (client_app.py:105-121): the world with ClientApp's SimConfig
+    and ground plane, TerrainSystem (chunk_res 16, MAX_DEPTH 6),
+    TerrainScattering (32 m cells, radius 4, 64 points, seed 1234) whose
+    trees are static capsules (at most 16 per cell, tests/test_terrain.py:
+    112-116), ParticleManager (16,384 slots), the player at the origin and
+    AvatarGraphicsManager; then ``populate_terrain_scene``: a ``res``^2
+    heightmap at 1 m cells (at the default size), the walking player on
+    it, ``n_avatars`` avatars around it."""
+    w = PhysicsWorld(cfg or terrain_config(), device=device)
+    w.set_ground_plane(0.0)
+    terrain = TerrainSystem(w)
+    scattering = TerrainScattering(terrain)
+    particles = ParticleManager(w)
+    player = PlayerPhysics(w, eye_pos=(0.0, 0.0, EYE_HEIGHT))
+    graphics = AvatarGraphicsManager(device=device)
+
+    def make_tree(pos, scale):
+        return w.add_object(PhysicsObject(
+            shape=shapes.make_capsule(0.2 * scale, 1.5 * scale),
+            pos=np.asarray(pos, np.float32) + np.array([0, 0, 1.7], np.float32),
+            motion_type=int(MotionType.STATIC)))
+
+    scattering.make_tree_physics = make_tree
+    return populate_terrain_scene(w, player, terrain, scattering, particles, graphics, Avatar,
+                                  res=res, n_burst=n_burst, n_stream=n_stream,
+                                  n_avatars=n_avatars, seed=seed)
+
+
+def populate_terrain_scene(world, player, terrain, scattering, particles, graphics,
+                           avatar_cls, res: int = TERRAIN_RES, n_burst: int = N_BURST,
+                           n_stream: int = N_STREAM, n_avatars: int = N_AVATARS,
+                           seed: int = 0) -> TerrainScene:
+    """Load the heightmap of ``terrain_heightmap(res, seed=seed)`` (1,024 m
+    wide: 1 m cells at res 1025, 8 m at 129), stand the player on it and place the
+    avatars, through the facades' public methods only (the tests hand the
+    reference package's objects to it too).  Avatar i sits on a ring 5-30
+    m around the player: every fourth idles, the others walk (1.2-2 m/s)
+    or run (7 m/s) along slowly turning headings; avatar 0 sits on a seat
+    (a sitting constraint) and avatar 1 waves."""
+    h, cw, origin = terrain_heightmap(res, seed=seed)
+    terrain.set_heightmap(h, origin, cw)
+    z0 = float(host_height(h, origin, cw, 0.0, 0.0))
+    player.set_position([0.0, 0.0, z0 + 0.05 + EYE_HEIGHT])
+    rng = np.random.default_rng(seed + 1)
+    motion = np.zeros((n_avatars, 3))
+    avatars = []
+    for i in range(n_avatars):
+        r, a = rng.uniform(5.0, 30.0), rng.uniform(0.0, 2 * np.pi)
+        kind = i % 4
+        speed = 0.0 if kind == 0 else (7.0 if kind == 2 else rng.uniform(1.2, 2.0))
+        motion[i] = (speed, rng.uniform(0.0, 2 * np.pi), rng.uniform(-0.3, 0.3))
+        av = avatar_cls(uid=i + 1, name=f"avatar{i}")
+        x, y = r * math.cos(a), r * math.sin(a)
+        av.pos = np.array([x, y, float(host_height(h, origin, cw, x, y)) + EYE_HEIGHT])
+        av.rotation = np.array([0.0, 0.0, motion[i, 1]])
+        av.anim_state = 0
+        av.entered_vehicle_uid = 1 if i == 0 else 0
+        avatars.append(av)
+        graphics.update_avatar(av, 0.0)
+    seated = graphics.by_uid[1]
+    pc = seated.pose_constraint
+    seat = np.eye(4, dtype=np.float32)
+    seat[:3, 3] = avatars[0].pos - np.array([0.0, 0.0, EYE_HEIGHT - 0.45])
+    pc.seat_to_world = seat
+    pc.upper_body_rot_angle, pc.upper_leg_rot_angle, pc.lower_leg_rot_angle = 0.1, 1.3, -0.5
+    if n_avatars > 1:
+        graphics.by_uid[2].perform_gesture("Wave")
+    return TerrainScene(world=world, player=player, terrain=terrain, scattering=scattering,
+                        particles=particles, graphics=graphics, avatars=avatars, motion=motion,
+                        heights=h, origin=origin, cell_w=cw,
+                        rng=np.random.default_rng(seed + 2), n_burst=n_burst,
+                        n_stream=n_stream)
+
+
+def emit_particles(scene: TerrainScene, frame: int, centre):
+    """The frame's spawns: ``n_burst`` at frame 0, ``n_stream`` after, in a
+    50 m disc around ``centre``, 2-20 m above the terrain, velocities
+    within +-5 m/s; a burst particle lives U(0, 2) s, a stream one 2 s
+    (opacity 1 fading at -1 / life)."""
+    n = scene.n_burst if frame == 0 else scene.n_stream
+    rng = scene.rng
+    r = BURST_RADIUS * np.sqrt(rng.random(n))
+    a = rng.uniform(0.0, 2 * np.pi, n)
+    x, y = centre[0] + r * np.cos(a), centre[1] + r * np.sin(a)
+    z = host_height(scene.heights, scene.origin, scene.cell_w, x, y) + rng.uniform(2.0, 20.0, n)
+    vel = rng.uniform(-5.0, 5.0, (n, 3))
+    life = np.maximum(rng.uniform(0.0, 2.0, n), 1e-3) if frame == 0 else np.full(n, 2.0)
+    for i in range(n):
+        scene.particles.add_particle(pos=[x[i], y[i], z[i]], vel=vel[i], opacity=1.0,
+                                     dopacity_dt=-1.0 / life[i])
+
+
+def move_avatars(scene: TerrainScene, t: float):
+    """Each avatar along its heading at time ``t`` (heading0 + rate t), on
+    the terrain (the feed a client receives from the server)."""
+    for av, (speed, h0, rate) in zip(scene.avatars, scene.motion):
+        heading = h0 + rate * t
+        x = av.pos[0] + speed * DT * math.cos(heading)
+        y = av.pos[1] + speed * DT * math.sin(heading)
+        z = float(host_height(scene.heights, scene.origin, scene.cell_w, x, y)) + EYE_HEIGHT
+        av.pos = np.array([x, y, z])
+        av.rotation = np.array([0.0, 0.0, heading])
+
+
+def terrain_tick(scene: TerrainScene, frame: int):
+    """One client frame of BASELINE config 4 in ``ClientApp.timer_event``'s
+    order (client_app.py:548-660): the player walks as the bench's does
+    (its camera jumps 40 m along +x every 30 frames), ``think_with_player``;
+    the terrain clamp (one height read, :575-580); every avatar's state
+    machine, then ONE ``pose_all`` (:596-601, :947-980); the frame's
+    particle spawns and ``particles.think`` (:640-642); terrain LOD and
+    scattering around the camera (:656-660).  Returns the camera [4]."""
+    p, t = scene.player, frame * DT
+    if frame > 0 and frame % MOVE_EVERY == 0:
+        eye = p.get_eye_position()
+        x, y = float(eye[0]) + MOVE_DIST, float(eye[1])
+        z = float(host_height(scene.heights, scene.origin, scene.cell_w, x, y))
+        p.set_position([x, y, z + 0.05 + EYE_HEIGHT])
+    p.process_move(walk_dir(t))
+    scene.world.think_with_player(DT, p, cur_time=t)
+    cam = p._last_campos.copy()
+    eye = p.get_eye_position()
+    ground = scene.terrain.eval_terrain_height(float(eye[0]), float(eye[1]))
+    if eye[2] - EYE_HEIGHT < ground - 0.5:
+        p.set_position([eye[0], eye[1], ground + 0.3 + EYE_HEIGHT])
+    move_avatars(scene, t)
+    for av in scene.avatars:
+        scene.graphics.update_avatar(av, DT)
+    scene.graphics.pose_all()
+    emit_particles(scene, frame, cam)
+    scene.particles.think(DT)
+    scene.terrain.update_campos(cam)
+    scene.scattering.update_campos(cam)
+    return cam

@@ -14,12 +14,15 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from substrata_tpu_torch.anim.clips import CLIP_RATE, ClipBank
+from substrata_tpu_torch.anim.pose import PoseParams, pose_params_from_arrays
 from substrata_tpu_torch.audio.mix import (LISTENER_FIELDS, ROOM_FIELDS, SOURCE_FIELDS,
                                            Listener, RoomState, SourceState)
 from substrata_tpu_torch.physics.broadphase import PairCache
 from substrata_tpu_torch.physics.character import CHARACTER_FIELDS, CharacterState
 from substrata_tpu_torch.physics.particles import PARTICLE_FIELDS, ParticleState
 from substrata_tpu_torch.physics.solver import SolverCache
+from substrata_tpu_torch.physics.terrain import TerrainField
 from substrata_tpu_torch.physics.state import (BODY_FIELDS, SIM_PARAM_FIELDS,
                                                BodyState, Heightfield, HullLibrary,
                                                SimParams, StaticWorld, TriMesh,
@@ -122,6 +125,38 @@ def vehicles_from_numpy(arrays: Arrays, *, device) -> VehicleArrays:
 def vehicle_inputs_from_numpy(arrays: Arrays, *, device) -> VehicleInputs:
     """``arrays`` holds forward, right, up, brake and handbrake."""
     return VehicleInputs(**{f: _t(arrays[f], device) for f in INPUT_FIELDS})
+
+
+def clip_bank_from_numpy(skeleton, arrays: Arrays, names, *, device) -> ClipBank:
+    """A ClipBank from the reference bank's packed arrays: ``arrays`` holds
+    rot [C * F, J * 4], trans [C * F, J * 3], n_frames [C] and looping [C];
+    ``names`` the clip names in bank order."""
+    bank = ClipBank.__new__(ClipBank)
+    bank.skeleton = skeleton
+    bank.names = list(names)
+    bank.index = {n: i for i, n in enumerate(bank.names)}
+    bank.n_frames_host = np.asarray(arrays["n_frames"], np.float32).copy()
+    bank.f_cap = np.asarray(arrays["rot"]).shape[0] // len(bank.names)
+    bank.rot = _t(np.asarray(arrays["rot"], np.float32), device)
+    bank.trans = _t(np.asarray(arrays["trans"], np.float32), device)
+    bank.n_frames = _t(bank.n_frames_host, device)
+    bank.looping = _t(np.asarray(arrays["looping"], bool), device)
+    bank.durations = {n: float(f) / CLIP_RATE for n, f in zip(bank.names, bank.n_frames_host)}
+    return bank
+
+
+def pose_params_from_numpy(arrays: Arrays, *, device) -> PoseParams:
+    """``arrays`` holds the 12 PoseParams fields by name (one copy)."""
+    return pose_params_from_arrays({k: np.asarray(v) for k, v in arrays.items()},
+                                   device=device)
+
+
+def terrain_field_from_numpy(heights, origin, cell_w, *, device) -> TerrainField:
+    """The terrain's heightfield (the reference TerrainSystem's Heightfield
+    fields heights, origin, cell_w)."""
+    return TerrainField(heights=_t(np.asarray(heights, np.float32), device),
+                        origin=_t(np.asarray(origin, np.float32), device),
+                        cell_w=_t(np.float32(cell_w), device))
 
 
 def to_numpy(obj) -> dict:

@@ -1,8 +1,8 @@
 """Hand-written Hopper kernels of the physics tick, the audio mix, the ray
 queries, the particles, the vehicles, the character, the serving tick,
 the hull contacts, the cell table, the solve setup, Winter scripts, the
-pair finder, the compacted layout, the position solve and sleeping, and
-their wrappers.
+pair finder, the compacted layout, the position solve and sleeping, the
+terrain, the particle spawns and the avatars' pose, and their wrappers.
 
 Each wrapper module holds the kernel's plain PyTorch twin beside it.  A
 wrapper runs the twin for tensors on the CPU; for CUDA tensors it launches
@@ -34,13 +34,17 @@ path went through the kernels.
                                                      compaction, incidence table
   KU  positions.py          csrc/positions.cu        position solve
   KV  sleep.py              csrc/sleep.cu            strike wake, sleep pass
+  KW  terrain.py            csrc/terrain.cu          terrain heights, chunk meshes
+  KX  terrain.py            csrc/terrain.cu          vegetation scatter points
+  KY  spawn.py              csrc/particles_spawn.cu  particle spawn scatter
+  KZ  pose.py               csrc/pose.cu             skeletal pose of every avatar
 """
 
 from substrata_tpu_torch.kernels import (audio_mix, box_box, cell_table, character,
                                          closed_forms, convex, integrate_triton, layout,
-                                         pairs, particles_triton, positions, ray_trace,
-                                         serving_io, sleep, solve, solve_setup,
-                                         static_contacts, vehicles, winter)
+                                         pairs, particles_triton, pose, positions, ray_trace,
+                                         serving_io, sleep, solve, solve_setup, spawn,
+                                         static_contacts, terrain, vehicles, winter)
 
 
 def launch_counts() -> dict:
@@ -65,6 +69,9 @@ def launch_counts() -> dict:
         **layout.launches,
         "solve_positions": positions.launches,
         **sleep.launches,
+        **terrain.launches,
+        "spawn_rows": spawn.launches,
+        "pose_avatars": pose.launches,
     }
 
 
@@ -82,7 +89,9 @@ def reset_launch_counts():
     winter.launches = 0
     pairs.launches = 0
     positions.launches = 0
+    spawn.launches = 0
+    pose.launches = 0
     for counts in (integrate_triton.launches, audio_mix.launches, serving_io.launches,
-                   solve_setup.launches, layout.launches, sleep.launches):
+                   solve_setup.launches, layout.launches, sleep.launches, terrain.launches):
         for k in counts:
             counts[k] = 0

@@ -39,6 +39,7 @@ NVCC_FLAGS = [
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint
 F = ctypes.c_float
 
 # name -> argtypes (all return int = cudaError_t).
@@ -157,6 +158,22 @@ SIGNATURES = {
     # margin, dt, margin cap; interval; cell_size; out margins, scratch,
     # pair a, b, valid, num_pairs, overflow, steps_left; stream
     "find_pairs": [P] * 9 + [I] * 2 + [P] * 3 + [I] * 6 + [F] * 3 + [I] + [F] + [P] * 8 + [P],
+    # bank rot, trans, n_frames, looping, f_cap; clip_a, clip_b, frame_a,
+    # frame_b, blend, grab_l, grab_r, root, override_rot, post_rot,
+    # override_mask, post_mask; parent, depth, joint_slot, joint_finger,
+    # grab_quats, n_half; rest_scale, inverse_bind; A, J, S, n_levels; out,
+    # stream
+    # heights, origin, cell_w, xy, HX, HY, P, with_normals, out, stream
+    "terrain_heights": [P] * 4 + [I] * 4 + [P] + [P],
+    # heights, origin, cell_w, leaf_origin, leaf_width, HX, HY, L, res,
+    # 1 / res, out, stream
+    "terrain_chunks": [P] * 5 + [I] * 4 + [F] + [P] + [P],
+    # heights, origin, cell_w, cells, HX, HY, C, K, key (2 x uint32),
+    # scatter cell width, max slope cos, out, stream
+    "terrain_scatter": [P] * 4 + [I] * 4 + [U] * 2 + [F] * 2 + [P] + [P],
+    # 13 particle fields (pos ... alive), rows, cursor, n, cap, stream
+    "spawn_rows": [P] * 13 + [P] + [I] * 3 + [P],
+    "pose_avatars": [P] * 4 + [I] + [P] * 12 + [P] * 5 + [I] + [P] * 2 + [I] * 4 + [P] + [P],
 }
 
 _lib = None

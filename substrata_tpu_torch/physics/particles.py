@@ -7,8 +7,8 @@ its restitution, and it continues for the rest of the tick; particles that
 die on a surface or in the water raise a foam event; the rest is gravity,
 quadratic air drag and the opacity and width fades (kernel KI).
 
-State is fixed-capacity SoA; spawns scatter into a host-managed ring
-cursor, padding rows landing in an explicit trash row.
+State is fixed-capacity SoA; a flush of spawns scatters into a
+host-managed ring cursor with one launch (kernel KY, ``kernels/spawn.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from substrata_tpu_torch.kernels import particles_triton as kpart
+from substrata_tpu_torch.kernels import spawn as kspawn
 from substrata_tpu_torch.physics import queries
 from substrata_tpu_torch.physics.state import (BodyState, SimConfig, SimParams, StaticWorld,
                                                _Replace)
@@ -96,25 +97,11 @@ def particles_step(ps: ParticleState, body: BodyState, world: StaticWorld, dt,
     return ps.replace(pos=pos, vel=vel, opacity=opacity, width=width, alive=alive), foam
 
 
-def _scatter_spawn(ps: ParticleState, idx, **rows) -> ParticleState:
-    """Write spawn rows at ``idx``; an index equal to the capacity (the
-    padding of a spawn chunk) lands in a trash row that is cut off."""
-    cap = ps.capacity
-    new = {}
-    for name, val in rows.items():
-        cur = getattr(ps, name)
-        buf = torch.cat([cur, cur[:1]])
-        buf[idx] = val
-        new[name] = buf[:cap]
-    return ps.replace(**new)
-
-
 class ParticleManager:
     """Host facade (ParticleManager.h API shape): add_particle / think /
     render data.  Spawns are queued and scattered in one batched update; a
     ring cursor recycles the oldest slots when full."""
 
-    SPAWN_CHUNK = 256
 
     def __init__(self, physics_world, capacity: int = 16_384):
         self.world = physics_world
@@ -136,35 +123,15 @@ class ParticleManager:
             theta=theta, sprite_type=sprite_type, die_on_hit=die_when_hit_surface))
 
     def _flush_spawns(self):
-        if self._pending:
-            self._maybe_alive = True
-        dev = self.world.device
-        while self._pending:
-            chunk = self._pending[:self.SPAWN_CHUNK]
-            del self._pending[:self.SPAWN_CHUNK]
-            k = self.SPAWN_CHUNK
-            pad = k - len(chunk)
-            cap = self.state.capacity
-            idx = np.array([(self._cursor + i) % cap for i in range(len(chunk))]
-                           + [cap] * pad, np.int64)
-            self._cursor = (self._cursor + len(chunk)) % cap
-
-            def col(name, shape=(), dtype=np.float32):
-                out = np.zeros((k,) + shape, dtype)
-                for j, c in enumerate(chunk):
-                    out[j] = c[name]
-                return torch.as_tensor(out, device=dev)
-
-            self.state = _scatter_spawn(
-                self.state, torch.as_tensor(idx, device=dev),
-                pos=col("pos", (3,)), vel=col("vel", (3,)), area=col("area"),
-                mass=col("mass"), restitution=col("restitution"), width=col("width"),
-                dwidth_dt=col("dwidth_dt"), opacity=col("opacity"),
-                dopacity_dt=col("dopacity_dt"), theta=col("theta"),
-                sprite_type=col("sprite_type", (), np.int32),
-                die_on_hit=col("die_on_hit", (), bool),
-                alive=torch.as_tensor(np.array([True] * len(chunk) + [False] * pad),
-                                      device=dev))
+        """Every pending spawn of this flush in one packed host buffer, one
+        host -> device copy (pinned on the card) and one KY launch."""
+        if not self._pending:
+            return
+        self._maybe_alive = True
+        rows = kspawn.pack_rows(self._pending)
+        self._pending = []
+        self.state = kspawn.spawn_rows(self.state, self.world._upload(rows), self._cursor)
+        self._cursor = (self._cursor + len(rows)) % self.state.capacity
 
     def think(self, dt: float):
         """ParticleManager::think (ParticleManager.cpp:145-271)."""

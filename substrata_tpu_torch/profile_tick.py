@@ -34,7 +34,15 @@ On the 10,000-box bench world (kicked once, after 30 ticks):
    (benchworld.mesh_tick: think_with_player and the occlusion rays), a
    profiler pass (device busy ms, device ops, the port kernels' device
    times) and a stage pass over the frame's parts (tick input, character,
-   step, each of its stages, KO, the occlusion rays).
+   step, each of its stages, KO, the occlusion rays);
+8. the terrain stage: BASELINE config 4 + 64 avatars
+   (benchworld.terrain_world at full width, 30 frames in), host-clock ms
+   per client frame (benchworld.terrain_tick: think_with_player, the
+   terrain clamp, the avatars and one pose_all, the particle spawns and
+   step, terrain LOD and scattering; the frames timed include one camera
+   jump), a profiler pass (device busy ms, device ops, the port kernels'
+   device times, KW-KZ among them) and a stage pass over the frame's
+   parts.
 Prints one JSON object and writes the trace to chiprun_out/tick_trace.json.
 """
 
@@ -51,13 +59,18 @@ import torch
 
 from substrata_tpu_torch import benchworld
 from substrata_tpu_torch.audio import mix
+from substrata_tpu_torch.avatar_graphics import AvatarGraphicsManager
 from substrata_tpu_torch.benchworld import (N_SOURCES, TICK_FRAMES, bench_audio, bench_fulltick,
                                             bench_world, full_tick, kick, physics_audio_tick)
 from substrata_tpu_torch.kernels import (audio_mix, convex, layout, pairs, positions, serving_io,
                                          sleep)
 from substrata_tpu_torch.kernels import particles_triton as kpart
+from substrata_tpu_torch.kernels import spawn as kspawn
+from substrata_tpu_torch.kernels import terrain as kterrain
 from substrata_tpu_torch.kernels import vehicles as kveh
 from substrata_tpu_torch.physics import broadphase, integrate, narrowphase, queries, solver
+from substrata_tpu_torch.physics import particles as particles_mod
+from substrata_tpu_torch.physics import terrain as terrain_mod
 from substrata_tpu_torch.physics import world as world_mod
 
 DT = 1.0 / 60.0
@@ -83,7 +96,8 @@ PORT_KERNELS = ("box_box_rows_kernel", "static_contacts_kernel", "solve_rows_ker
                 "digest_tblock_kernel", "convex_rows_kernel", "cell_hash_kernel",
                 "cell_rank_kernel", "solve_setup_kernel", "refresh_copy_kernel",
                 "refresh_claim_kernel", "refresh_write_kernel", "winter_kernel", "pairs_",
-                "layout_", "positions_", "sleep_")
+                "layout_", "positions_", "sleep_", "heights_kernel", "chunks_kernel",
+                "scatter_kernel", "spawn_kernel", "pose_kernel")
 AUDIO_STAGES = [(mix, "prepare"), (audio_mix, "audio_fetch"), (audio_mix, "audio_spatialise"),
                 (audio_mix, "audio_downmix_reverb")]
 FULL_STAGES = [(broadphase, "build_cell_table"), (benchworld, "vehicles_update"),
@@ -95,6 +109,15 @@ FULL_STAGES = [(broadphase, "build_cell_table"), (benchworld, "vehicles_update")
 SERVING_STAGES = [(serving_io, "apply_tick_in"), (world_mod, "player_update_packed"),
                   (world_mod, "physics_step")] + STEP_STAGES[1:] + [(serving_io, "digest_tblock")]
 MESH_STAGES = SERVING_STAGES + [(convex, "convex_rows"), (benchworld.queries, "trace_rays")]
+TERRAIN_STAGES = [(world_mod.PhysicsWorld, "think_with_player"),
+                  (terrain_mod.TerrainSystem, "eval_terrain_height"),
+                  (benchworld, "move_avatars"), (AvatarGraphicsManager, "update_avatar"),
+                  (AvatarGraphicsManager, "pack_all"), (AvatarGraphicsManager, "pose_all"),
+                  (benchworld, "emit_particles"), (particles_mod.ParticleManager, "_flush_spawns"),
+                  (kspawn, "spawn_rows"), (particles_mod, "particles_step"),
+                  (terrain_mod.TerrainSystem, "update_campos"),
+                  (kterrain, "terrain_chunks"), (terrain_mod.TerrainScattering, "update_campos"),
+                  (kterrain, "terrain_scatter")]
 
 def _timed(fn, name, acc):
     @functools.wraps(fn)
@@ -236,6 +259,18 @@ def mesh_scene():
     return frame
 
 
+def terrain_scene():
+    """BASELINE config 4 + 64 avatars at full width; returns one client
+    frame (each call the next frame, the camera jumping every 30)."""
+    sc = benchworld.terrain_world("cuda")
+    state = dict(f=0)
+
+    def frame():
+        benchworld.terrain_tick(sc, state["f"])
+        state["f"] += 1
+    return frame
+
+
 def main(ticks: int = 24):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -318,6 +353,17 @@ def main(ticks: int = 24):
         ms_per_mesh_frame=float(np.median(frame_ms)), device_busy_ms=g_busy, device_ops=g_ops,
         port_kernels=g_ours, staged_ms_per_frame=staged_frame_ms, stages=frame_stages)
 
+    tframe = terrain_scene()
+    for _ in range(30):
+        tframe()
+    tframe_ms = _host_ms(tframe, ticks)
+    t_busy, t_ops, _, t_ours = _device_summary(_profiled(tframe, ticks), ticks)
+    staged_t_ms, t_stages = _staged(TERRAIN_STAGES, tframe, ticks)
+    terrain = dict(
+        ms_per_terrain_frame=float(np.median(tframe_ms)), device_busy_ms=t_busy,
+        device_ops=t_ops, port_kernels=t_ours, staged_ms_per_frame=staged_t_ms,
+        stages=t_stages)
+
     out = dict(
         card=smi, bodies=n_bodies,
         ms_per_think_rebuild=float(np.median(rebuild)), rebuild_ticks=len(rebuild),
@@ -327,7 +373,7 @@ def main(ticks: int = 24):
                           calls_per_tick=n / ticks) for name, (us, n) in top],
         port_kernels=ours,
         staged_ms_per_think=staged_ms, stages=stages, audio=audio, full_tick=full_tick_out,
-        serving_tick=serving, mesh_frame=mesh)
+        serving_tick=serving, mesh_frame=mesh, terrain_frame=terrain)
     print(json.dumps(out, indent=1))
     return out
 

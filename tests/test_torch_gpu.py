@@ -1,4 +1,4 @@
-"""Kernels KA-KV on the card against their plain PyTorch twins, and the
+"""Kernels KA-KZ on the card against their plain PyTorch twins, and the
 entry points' default device.
 
 These need a CUDA device and skip without one (the decision is made inside
@@ -16,8 +16,12 @@ for KO's rows (masks, keys and touching exact), KP exact, 1e-6 of each
 output's scale for KQ's setup (masks, slots and table entries exact) and
 its refreshed cache exact, KR within 1e-6 of scale (the bench rotations
 exact), KS, KT and KV exact (pairs, margins, counters, buckets, compacted
-rows, tables, flags, timers), KU within 1e-6 of the positions' scale;
-each kernel repeats its twin's operations in the same order."""
+rows, tables, flags, timers), KU within 1e-6 of the positions' scale,
+KW within 1e-6 of scale (its twin's fp.fma rounds twice where the kernel's
+__fmaf_rn rounds once: they part only at an exact tie; the triangles
+exact), KX, KY and KZ exact, and a small terrain frame on the card within
+1e-4 m (particles, the character) and 1e-5 of scale (joints) of the CPU
+path; each kernel repeats its twin's operations in the same order."""
 
 import numpy as np
 import pytest
@@ -937,3 +941,116 @@ def test_position_and_sleep_kernels_match_plain_mesh():
     for t in range(30):
         benchworld.mesh_tick(w, p, t * DT, src)
     _kuv_check(w)
+
+
+# --- KW-KZ: the terrain, the spawn scatter and the pose. ------------------
+
+@pytest.fixture(scope="module")
+def terrain_field():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from substrata_tpu_torch import convert
+    h, cw, origin = benchworld.terrain_heightmap(257)
+    return convert.terrain_field_from_numpy(h, origin, cw, device="cuda")
+
+
+def test_terrain_height_and_chunk_kernels_match_plain(terrain_field):
+    from substrata_tpu_torch.kernels import terrain as kt
+    hf = terrain_field
+    f = (hf.heights, hf.origin, hf.cell_w)
+    xy = torch.as_tensor(np.random.default_rng(0).uniform(-530, 530, (4096, 2))
+                         .astype(np.float32), device="cuda")
+    scale = float(hf.heights.abs().max())
+    for normals in (False, True):
+        got, want = kt.terrain_heights(*f, xy, normals), kt.terrain_heights_plain(*f, xy, normals)
+        assert float((got[:, 0] - want[:, 0]).abs().max()) <= 1e-6 * scale
+        if normals:
+            assert float((got[:, 1:] - want[:, 1:]).abs().max()) <= 1e-6
+    lo = torch.tensor([[-512.0, -512.0], [0.0, 16.0], [-64.0, 32.0]], device="cuda")
+    lw = torch.tensor([512.0, 16.0, 32.0], device="cuda")
+    got, want = kt.terrain_chunks(*f, lo, lw, 16), kt.terrain_chunks_plain(*f, lo, lw, 16)
+    n8 = 17 * 17 * 8
+    assert torch.equal(got[:, n8:].contiguous().view(torch.int32),
+                       want[:, n8:].contiguous().view(torch.int32))
+    assert float((got[:, :n8] - want[:, :n8]).abs().max()) <= 1e-6 * 512.0
+
+
+def test_terrain_scatter_kernel_matches_plain(terrain_field):
+    from substrata_tpu_torch.kernels import terrain as kt
+    hf = terrain_field
+    cells = torch.as_tensor(np.array([[kx * 32.0, ky * 32.0] for kx in range(-4, 5)
+                                      for ky in range(-4, 5)], np.float32), device="cuda")
+    got = kt.terrain_scatter(hf.heights, hf.origin, hf.cell_w, cells, 32.0, 1234, 64)
+    want = kt.terrain_scatter_plain(hf.heights, hf.origin, hf.cell_w, cells, 32.0, 1234, 64)
+    assert torch.equal(got, want)
+
+
+def test_spawn_kernel_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from substrata_tpu_torch.kernels import spawn as ky
+    from substrata_tpu_torch.physics.particles import zero_particles
+    rng = np.random.default_rng(1)
+    pending = [dict(pos=rng.uniform(-5, 5, 3), vel=rng.uniform(-5, 5, 3), area=1e-4, mass=1e-6,
+                    restitution=0.5, width=0.1, dwidth_dt=0.0, opacity=1.0,
+                    dopacity_dt=float(-rng.uniform(0.5, 5)), theta=0.0,
+                    sprite_type=int(rng.integers(0, 2)), die_on_hit=bool(rng.random() < 0.5))
+               for _ in range(5000)]
+    rows = torch.as_tensor(ky.pack_rows(pending), device="cuda")
+    for cursor in (0, 3000):
+        a = ky.spawn_rows(zero_particles(4096, device="cuda"), rows, cursor)
+        b = ky.spawn_rows_plain(zero_particles(4096, device="cuda"), rows, cursor)
+        for f in ky.STATE_FIELDS:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_pose_kernel_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from substrata_tpu_torch.anim import ClipBank, build_default_humanoid
+    from substrata_tpu_torch.anim import pose as apose
+    from substrata_tpu_torch.anim.clips import build_default_clips
+    from substrata_tpu_torch.kernels import pose as kz
+    skel = build_default_humanoid()
+    bank = ClipBank(skel, build_default_clips(skel), device="cuda")
+    rig = apose.build_rig(skel, device="cuda")
+    rng = np.random.default_rng(2)
+    for a in (4, 37, 64):
+        arr = apose.zero_pose_arrays(a)
+        arr["clip_a"][:] = rng.integers(0, 14, a)
+        arr["clip_b"][:] = rng.integers(0, 14, a)
+        arr["frame_a"][:] = rng.uniform(-5, 300, a)
+        arr["frame_b"][:] = rng.uniform(-5, 300, a)
+        arr["blend"][:] = rng.uniform(0, 1, a)
+        q = rng.normal(size=(a, kz.NUM_SLOTS, 4))
+        arr["override_rot"][:] = arr["post_rot"][:] = q / np.linalg.norm(q, axis=-1,
+                                                                         keepdims=True)
+        arr["override_mask"][:] = rng.random((a, kz.NUM_SLOTS)) < 0.4
+        arr["post_mask"][:] = rng.random((a, kz.NUM_SLOTS)) < 0.5
+        arr["grab_l"][:] = rng.uniform(0, 1, a)
+        arr["grab_r"][::2] = 1.0
+        arr["root"][:, :3, 3] = rng.uniform(-50, 50, (a, 3))
+        p = apose.pose_params_from_arrays(arr, device="cuda")
+        assert torch.equal(kz.pose(bank, rig, p), kz.pose_plain(bank, rig, p)), a
+
+
+def test_small_terrain_frame_on_card_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = SimConfig(capacity=2048, max_pairs=4096, grid_dim=32, cell_size=4.0)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        sc = benchworld.terrain_world(dev, res=129, n_burst=256, n_stream=4, n_avatars=8,
+                                      cfg=cfg)
+        for f in range(12):
+            benchworld.terrain_tick(sc, f)
+        ps = sc.particles.state
+        runs[dev] = (ps.alive.cpu(), ps.pos.cpu(), sc.player.get_eye_position(),
+                     np.stack([g.joints_world for g in sc.graphics.by_uid.values()]),
+                     [c[2][0] for c in sc.terrain.visible_chunks()])
+    (ga, gp, ge, gj, gc), (ca, cp, ce, cj, cc) = runs["cuda"], runs["cpu"]
+    assert torch.equal(ga, ca)
+    assert float((gp - cp)[ca].abs().max()) <= 1e-4
+    assert np.abs(ge - ce).max() <= 1e-4
+    assert np.abs(gj - cj).max() <= 1e-5 * max(float(np.abs(cj).max()), 1.0)
+    assert len(gc) == len(cc) and all(np.array_equal(a, b) for a, b in zip(gc, cc))

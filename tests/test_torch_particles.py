@@ -176,3 +176,42 @@ def test_scatter_spawn_wraps_the_ring():
     pm._flush_spawns()
     np.testing.assert_array_equal(pm.state.pos[:, 0].numpy(), [4, 5, 2, 3])
     assert pm.state.alive.all() and pm._cursor == 2
+
+
+# --- Kernel KY's twin: a whole flush in one scatter. ---------------------
+
+def _spawn_both(capacity, n, seed, pre=0):
+    """``n`` seeded spawns flushed through both facades (after ``pre``
+    spawns already flushed, so the cursor starts mid-ring)."""
+    rng = np.random.default_rng(seed)
+    rows = [dict(pos=rng.uniform(-50, 50, 3), vel=rng.uniform(-5, 5, 3),
+                 area=float(rng.uniform(1e-5, 1e-3)), mass=float(rng.uniform(1e-7, 1e-5)),
+                 restitution=float(rng.uniform(0, 1)), width=float(rng.uniform(0.05, 0.3)),
+                 dwidth_dt=float(rng.uniform(0, 0.2)), opacity=1.0,
+                 dopacity_dt=float(-1.0 / rng.uniform(0.1, 2.0)),
+                 theta=float(rng.uniform(0, 6.3)), sprite_type=int(rng.integers(0, 2)),
+                 die_when_hit_surface=bool(rng.random() < 0.3)) for _ in range(pre + n)]
+    out = {}
+    for pkg in ("ref", "port"):
+        w, pm = _make(pkg)
+        if pkg == "ref":
+            pm.state = jpart.zero_particles(capacity)
+        else:
+            pm.state = tpart.zero_particles(capacity, device="cpu")
+        for batch in (rows[:pre], rows[pre:]):
+            for r in batch:
+                pm.add_particle(**r)
+            pm._flush_spawns()
+        out[pkg] = ({f: np.asarray(getattr(pm.state, f)) for f in tpart.PARTICLE_FIELDS},
+                    pm._cursor)
+    return out
+
+
+@pytest.mark.parametrize("capacity,n,pre", [(16_384, 10_000, 0), (16_384, 20_000, 5_000),
+                                            (1_000, 2_600, 300)])
+def test_spawn_flush_matches_reference(capacity, n, pre):
+    out = _spawn_both(capacity, n, seed=capacity + n, pre=pre)
+    (jf, jc), (tf, tc) = out["ref"], out["port"]
+    assert tc == jc
+    for f in tpart.PARTICLE_FIELDS:
+        np.testing.assert_array_equal(tf[f], jf[f], err_msg=f)

@@ -262,6 +262,10 @@ def test_import_leaves_jax_out():
             "substrata_tpu_torch.kernels.convex, substrata_tpu_torch.kernels.static_contacts, "
             "substrata_tpu_torch.physics.shapes, substrata_tpu_torch.physics.world, "
             "substrata_tpu_torch.scripting, substrata_tpu_torch.kernels.winter, "
+            "substrata_tpu_torch.anim, substrata_tpu_torch.anim.pose, "
+            "substrata_tpu_torch.avatar_graphics, substrata_tpu_torch.physics.terrain, "
+            "substrata_tpu_torch.kernels.terrain, substrata_tpu_torch.kernels.spawn, "
+            "substrata_tpu_torch.shared.avatar, substrata_tpu_torch.shared.parcel, "
             "scipy.spatial; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'substrata_tpu')]; "
@@ -280,6 +284,21 @@ def test_world_defaults_to_the_card():
         PhysicsWorld(SimConfig(capacity=32, max_pairs=256, grid_dim=16))
     with pytest.raises(RuntimeError, match="cuda"):
         PhysicsWorld(SimConfig(capacity=32, max_pairs=256, grid_dim=16), device="cuda")
+
+
+def test_client_entry_points_default_to_the_card():
+    """The terrain and the avatars' manager land on the card unless asked
+    for the CPU (or, for the terrain, on its world's device)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from substrata_tpu_torch.avatar_graphics import AvatarGraphicsManager
+    from substrata_tpu_torch.physics.terrain import TerrainSystem
+    for make in (TerrainSystem, AvatarGraphicsManager):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    w = PhysicsWorld(SimConfig(capacity=32, max_pairs=256, grid_dim=16), device="cpu")
+    assert TerrainSystem(w).device.type == "cpu"
+    assert AvatarGraphicsManager(device="cpu").device.type == "cpu"
 
 
 def _scripted_world(pkg_world, pkg_object, pkg_shapes, motion_dynamic):
