@@ -101,7 +101,24 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    margins, counters, buckets, compacted rows, tables, flags, timers).
    Then torch.profiler over think rebuild ticks and serving ticks: no
    aten sort, argsort, cumsum, cummax or searchsorted runs inside a
-   ``physics_step`` range.
+   ``physics_step`` range;
+16. the terrain, spawn and pose kernels: KW, KX, KY and KZ against their
+   twins (see terrain_kernel_phase);
+17. 180 benchworld.terrain_tick frames of BASELINE config 4 (see
+   terrain_phase) and a small terrain world against the CPU path;
+18. KAA (the audio mix's per-source setup and epilogue) on bench.py's
+   256-source scene after 30 blocks, HRTF on (timed) and off, and KAB (the
+   vehicles' pre-ray setup and delta scatter) on the full tick's 8
+   vehicles after 30 ticks and with one vehicle's body gone, each against
+   its twin: exact on masks, bins (but a bin whose pre-round value lies
+   within 1e-5 of a half-integer, counted), arithmetic and the scatter,
+   the pan's cos and sin within 1e-6 of the gains' scale; again on the
+   client world's sources after 30 frames and its vehicles at frame 120;
+19. the client frame: 180 benchworld.client_tick frames of the offline
+   ClientApp over BASELINE config 5's 12,000-object world with 256
+   sources, 8 vehicles, 512 Winter objects, 4 path platforms and 8 Lua
+   objects (see client_phase), and a small client world on the card
+   against the CPU path (see small_client_phase).
 
 Every kernel also gets its bound: the least time the card could take for
 the same work, the larger of its bytes (each input read once, each output
@@ -483,20 +500,24 @@ def main_path_phase(device="cuda", n_bodies=10_000, cfg=None, sync=torch.cuda.sy
 
 class plain_mix:
     """Within the block, mix_block runs the kernels' plain twins on CUDA
-    tensors (for the kernel-route vs plain-route timing)."""
+    tensors (for the kernel-route vs plain-route timing): KAA's and
+    KE-KG's."""
 
-    NAMES = ("audio_fetch", "audio_spatialise", "audio_downmix_reverb")
+    NAMES = {"audio_mix": ("audio_fetch", "audio_spatialise", "audio_downmix_reverb"),
+             "audio_setup": ("audio_setup", "audio_epilogue")}
 
     def __enter__(self):
-        from substrata_tpu_torch.kernels import audio_mix as ka
-        self.saved = {n: getattr(ka, n) for n in self.NAMES}
-        for n in self.NAMES:
-            setattr(ka, n, getattr(ka, n + "_plain"))
+        import importlib
+        self.saved = []
+        for mod, names in self.NAMES.items():
+            m = importlib.import_module(f"substrata_tpu_torch.kernels.{mod}")
+            for n in names:
+                self.saved.append((m, n, getattr(m, n)))
+                setattr(m, n, getattr(m, n + "_plain"))
 
     def __exit__(self, *exc):
-        from substrata_tpu_torch.kernels import audio_mix as ka
-        for n, fn in self.saved.items():
-            setattr(ka, n, fn)
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
 
 
 def audio_kernel_phase(w, device="cuda", blocks=30, plain_reps=5):
@@ -2789,6 +2810,416 @@ def small_terrain_phase(device="cuda", frames=40):
                 small_terrain_alive=int(a["alive"].sum()), small_terrain_chunks=len(a["chunks"]))
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: KAA (the mix's per-source setup and epilogue) and KAB (the
+# vehicles' pre-ray setup and delta scatter) against their twins.
+# ---------------------------------------------------------------------------
+
+HRIR_EDGE = 1e-5   # a bin's pre-round value this close to a half-integer may move
+
+
+def _kaa_args(src, lis, block, use_hrtf):
+    from substrata_tpu_torch.kernels import audio_setup as kaa
+    return (src.alive, src.paused, src.finished, src.spatial, src.pos, src.vel, src.delta,
+            src.doppler_factor, src.mute_factor, src.mute_target, src.mute_rate, src.volume,
+            src.num_occlusions, lis.pos, lis.vel, lis.right, lis.forward, lis.up,
+            kaa.dop_alpha(block), block / kaa.ENGINE_RATE, use_hrtf)
+
+
+def _hrir_edges(src, lis):
+    """Sources whose HRIR bin hangs on atan2's last bit: a pre-round
+    azimuth or elevation value within HRIR_EDGE of a half-integer."""
+    import math
+    from substrata_tpu_torch.audio.hrtf import N_AZ, N_EL
+    from substrata_tpu_torch.maths.fp import dot3, fma, recip, sqrt
+    to = src.pos - lis.pos[None]
+    x, y, z = (dot3(to, v[None]) for v in (lis.right, lis.forward, lis.up))
+    az = torch.atan2(x, y)
+    el = torch.atan2(z, torch.clamp(sqrt(fma(x, x, y * y)), min=1e-6))
+    pa = az * recip(2 * math.pi) * N_AZ
+    pe = (el + math.pi / 4) * recip(math.pi / 2) * (N_EL - 1)
+
+    def near(p):
+        return (p - torch.floor(p) - 0.5).abs() <= HRIR_EDGE
+    return near(pa) | near(pe)
+
+
+def _kaa_compare(src, pool, lis, block, use_hrtf, what, timed=False, plain_reps=5):
+    """KAA's setup and epilogue against their twins on one source state.
+    Exact on masks, bins (but the edge sources, counted) and arithmetic;
+    the pan's cos and sin (HRTF off) within 1e-6 of the gains' scale."""
+    from substrata_tpu_torch.audio import mix
+    from substrata_tpu_torch.kernels import audio_mix as ka
+    from substrata_tpu_torch.kernels import audio_setup as kaa
+    s, nl = src.delta.shape
+    args = _kaa_args(src, lis, block, use_hrtf)
+    bk, bp = kaa.audio_setup(*args), kaa.audio_setup_plain(*args)
+    vk, vp = kaa.setup_views(bk, s, nl), kaa.setup_views(bp, s, nl)
+    for name in ("active", "use_lp", "eff_delta", "dop_smooth", "mute", "gain", "alpha",
+                 "send_gain"):
+        _exact(vk[name], vp[name], f"KAA setup {what}: {name}")
+    edges = _hrir_edges(src, lis) if use_hrtf else torch.zeros_like(src.alive)
+    live = ~edges
+    _exact(vk["dir_idx"][live], vp["dir_idx"][live], f"KAA setup {what}: dir_idx")
+    moved = int((vk["dir_idx"] != vp["dir_idx"]).sum())
+    if use_hrtf:
+        _exact(vk["gl"], vp["gl"], f"KAA setup {what}: gl")
+        _exact(vk["gr"], vp["gr"], f"KAA setup {what}: gr")
+        err = 0.0
+    else:
+        err = max(_scaled_err(vk["gl"], vp["gl"]), _scaled_err(vk["gr"], vp["gr"]))
+        check(err <= 1e-6, f"KAA setup {what}: gains {err} of scale > 1e-6")
+    # The epilogue's inputs from this block's fetch and spatialise.
+    samples, heads = mix.fetch(pool, src, vp["eff_delta"], vp["active"], block)
+    level = ka.audio_spatialise(
+        samples, src.lp_state, vp["alpha"], vp["use_lp"], src.spatial, src.hrir_hist,
+        mix.hrir_bank_tensor(src.device) if use_hrtf else None,
+        vp["dir_idx"] if use_hrtf else None, src.prev_gain_l, src.prev_gain_r, vp["gl"],
+        vp["gr"], mix.gain_ramp(block, src.device), vp["gain"], None, use_hrtf)[5]
+    eargs = (src.finished, src.looping, src.stream_mode, vp["active"], heads, src.buf_len,
+             level, src.smoothed_level, src.alive, src.remove_on_finish)
+    ek, ep = kaa.audio_epilogue(*eargs), kaa.audio_epilogue_plain(*eargs)
+    ek, ep = kaa.epilogue_views(ek, s), kaa.epilogue_views(ep, s)
+    for name in ("smoothed_level", "finished", "alive"):
+        _exact(ek[name], ep[name], f"KAA epilogue {what}: {name}")
+    res = {"audio_setup": dict(max_abs_err=err, tol="exact; gains 1e-6 of scale without HRTF",
+                               sources=s, alive=int(src.alive.sum()), hrir_edge_sources=int(
+                                   edges.sum()), hrir_bins_moved=moved, use_hrtf=use_hrtf),
+           "audio_epilogue": dict(max_abs_err=0.0, tol="exact", sources=s)}
+    if timed:
+        res["audio_setup"].update(
+            **bound(nbytes(args[:18], bk), FLOPS["audio_setup"] * s),
+            ms=median_ms(lambda: kaa.audio_setup(*args)),
+            device_us=device_us(lambda: kaa.audio_setup(*args), "audio_setup_kernel"),
+            plain_ms=median_ms(lambda: kaa.audio_setup_plain(*args), reps=plain_reps))
+        # The epilogue reads layer 0 of the heads and buffer lengths only.
+        res["audio_epilogue"].update(
+            **bound(nbytes(eargs[:4], eargs[6:], ek["smoothed_level"]) + 8 * s + 4 * s,
+                    FLOPS["audio_epilogue"] * s),
+            ms=median_ms(lambda: kaa.audio_epilogue(*eargs)),
+            device_us=device_us(lambda: kaa.audio_epilogue(*eargs), "audio_epilogue_kernel"),
+            plain_ms=median_ms(lambda: kaa.audio_epilogue_plain(*eargs), reps=plain_reps))
+    return res
+
+
+def _kab_compare(veh, state, what, timed=False, plain_reps=5, seed=0):
+    """KAB's setup and scatter against their twins, exact (the setup's
+    buffer word for word; the scatter on copies of the chassis rows, with
+    seeded deltas)."""
+    from substrata_tpu_torch.kernels import vehicle_setup as kab
+    args = (veh.body_slot, veh.y_fwd_quat, veh.wheel_attach, veh.wheel_radius, veh.sus_max,
+            state.pos, state.quat, state.linvel, state.angvel, state.inv_mass,
+            state.inv_inertia)
+    bk, bp = kab.vehicle_setup(*args), kab.vehicle_setup_plain(*args)
+    _exact(bk.view(torch.int32), bp.view(torch.int32), f"KAB setup {what}")
+    v = veh.body_slot.shape[0]
+    gen = torch.Generator(device=state.pos.device).manual_seed(seed)
+    dv = torch.randn((v, 3), generator=gen, device=state.pos.device)
+    dw = torch.randn((v, 3), generator=gen, device=state.pos.device)
+
+    def rows():
+        return [state.linvel.clone(), state.angvel.clone(), state.awake.clone(),
+                state.sleep_timer.clone()]
+    rk, rp = rows(), rows()
+    kab.vehicle_scatter(veh.body_slot, dv, dw, *rk)
+    kab.vehicle_scatter_plain(veh.body_slot, dv, dw, *rp)
+    for x, y, name in zip(rk, rp, ("linvel", "angvel", "awake", "sleep_timer")):
+        _exact(x, y, f"KAB scatter {what}: {name}")
+    n_body = int((veh.body_slot >= 0).sum())
+    res = {"vehicle_setup": dict(max_abs_err=0.0, tol="exact", vehicles=v, with_body=n_body),
+           "vehicle_scatter": dict(max_abs_err=0.0, tol="exact", vehicles=v, with_body=n_body)}
+    if timed:
+        res["vehicle_setup"].update(
+            # Each vehicle reads its own row of the body state (4 + 12 + 16
+            # + 12 + 12 + 4 + 12 bytes) and its settings; the buffer out.
+            **bound(nbytes(args[:5], bk) + v * 72, FLOPS["vehicle_setup"] * v),
+            ms=median_ms(lambda: kab.vehicle_setup(*args)),
+            device_us=device_us(lambda: kab.vehicle_setup(*args), "vehicle_setup_kernel"),
+            plain_ms=median_ms(lambda: kab.vehicle_setup_plain(*args), reps=plain_reps))
+        res["vehicle_scatter"].update(
+            # Slots and deltas in; each body's two velocity rows read and
+            # written, its flag and timer written.
+            **bound(nbytes(veh.body_slot, dv, dw) + n_body * (24 * 2 + 1 + 4),
+                    FLOPS["vehicle_scatter"] * n_body),
+            ms=median_ms(lambda: kab.vehicle_scatter(veh.body_slot, dv, dw, *rk)),
+            device_us=device_us(lambda: kab.vehicle_scatter(veh.body_slot, dv, dw, *rk),
+                                "vehicle_deltas_kernel"),
+            plain_ms=median_ms(lambda: kab.vehicle_scatter_plain(veh.body_slot, dv, dw, *rp),
+                               reps=plain_reps))
+    return res
+
+
+def setup_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, blocks=30, warm=30,
+                       plain_reps=5):
+    """Phase 18's first half: KAA on bench.py's 256-source scene after
+    ``blocks`` mixed blocks (HRTF on, the timed case, and off), KAB on the
+    full tick's 8 vehicles after ``warm`` full ticks (and with one
+    vehicle's body gone, slot -1)."""
+    from substrata_tpu_torch.audio import mix
+    from substrata_tpu_torch.benchworld import (TICK_FRAMES, bench_audio, bench_fulltick,
+                                                bench_world, full_tick)
+    w = bench_world(device, n_bodies=n_bodies, cfg=cfg)
+    b = TICK_FRAMES
+    src, pool, lis, room = bench_audio(device)
+    idx = torch.arange(src.capacity, device=device)
+    src = src.replace(pos=w.state.pos[idx], vel=w.state.linvel[idx])
+    for _ in range(blocks):
+        src, _, room = mix.mix_block(src, pool, lis, room=room, use_hrtf=True, block=b)
+    res = _kaa_compare(src, pool, lis, b, True, "bench HRTF", timed=True, plain_reps=plain_reps)
+    off = _kaa_compare(src, pool, lis, b, False, "bench pan")
+    res["audio_setup"]["max_abs_err"] = max(res["audio_setup"]["max_abs_err"],
+                                            off["audio_setup"]["max_abs_err"])
+    res["audio_setup_pan"] = off["audio_setup"]
+    veh, vin, ps, char, scripts = bench_fulltick(w, device)
+    src, pool, lis, room = bench_audio(device)
+    for t in range(warm):
+        veh, ps, src, _, room, char = full_tick(w, veh, vin, ps, src, pool, lis, room, idx, char,
+                                                t * DT, scripts)
+    res.update(_kab_compare(veh, w.state, "full tick", timed=True, plain_reps=plain_reps))
+    gone = veh.replace(body_slot=torch.where(torch.arange(veh.body_slot.shape[0],
+                                                          device=device) == 5,
+                                             -1, veh.body_slot).to(torch.int32))
+    _kab_compare(gone, w.state, "full tick, vehicle 5 without a body", seed=1)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the client frame, ClientApp.timer_event over BASELINE config 5.
+# ---------------------------------------------------------------------------
+
+CLIENT_FRAMES = TICKS
+CLIENT_KERNELS = ("audio_setup", "audio_epilogue", "vehicle_setup", "vehicle_scatter")
+KICK_SPEED = 20.0     # m/s: past this a body has been thrown (the trimesh sign rule)
+
+
+def _winter_alike(app, t):
+    """The app's Winter batch at time ``t`` through KR and through its twin."""
+    from substrata_tpu_torch.kernels import winter as kr
+    k = app.scripts.evaluate(t)
+    saved = kr.winter_eval
+    kr.winter_eval = kr.winter_eval_plain
+    try:
+        p = app.scripts.evaluate(t)
+    finally:
+        kr.winter_eval = saved
+    return all(np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
+               for a, b in zip(k, p)), len(k)
+
+
+def client_phase(device="cuda", sync=torch.cuda.synchronize, frames=CLIENT_FRAMES, **size):
+    """``frames`` benchworld.client_tick frames of the client world (see
+    ``benchworld.client_world``): the player walks, enters car 0 at frame
+    90 and drives it.  Checks: every body of the world finite except
+    dynamic bodies thrown (above 50 m or below -0.5 m at some frame: the
+    trimesh sign rule, reported as phase 13 reports it), no unthrown
+    dynamic body below z = -0.5, the character finite while walking, car 0
+    moved while driven, the audio finite, within [-1, 1], not silent and
+    not mono, KAA's two entry points launched 3 times a frame and KAB's
+    two once a frame (one vehicle update a frame), KE-KG 3 times, KJ and
+    KR once, KH, KL and the step's kernels as their paths need, the Winter
+    results equal to KR's twin at the last frame, every Lua counter
+    finite.  Reports ms per frame (frames 31-``frames``), phase_ms, the
+    syncs and copies of a driving and of a walking frame, and the build."""
+    import tempfile
+    from substrata_tpu_torch import benchworld as bw
+    from substrata_tpu_torch import kernels
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="client_world_") as sounds:
+        sc = bw.client_world(device, sound_dir=sounds, **size)
+        app = sc.app
+        app.physics_world._flush()
+        sync()
+        build_s = time.perf_counter() - t0
+        pw = app.physics_world
+        car = app.objects[sc.car_uids[0]]
+        sync()
+        kernels.reset_launch_counts()
+        times, phases, outs, zs = [], [], [], []
+        car0 = None
+        compares, extra = {}, {}
+        for f in range(frames):
+            sync()
+            t1 = time.perf_counter()
+            out = bw.client_tick(sc, f)
+            sync()
+            times.append((time.perf_counter() - t1) * 1e3)
+            phases.append(dict(app.phase_ms))
+            outs.append(out)
+            zs.append(pw.state.pos[:, 2].clone())
+            if f < sc.drive_from:
+                check(np.isfinite(app.player.get_eye_position()).all(),
+                      f"frame {f}: the character is not finite")
+            if f == sc.drive_from:
+                car0 = np.array(car.pos, np.float64)
+            # Phase 18 on this world: KAA on its sources after 30 frames,
+            # KAB on its vehicles while car 0 is driven (frame 120).  The
+            # comparisons' own launches are taken out of the counts.
+            if f in (30, 120):
+                c0 = kernels.launch_counts()
+                eng = app.audio
+                if f == 30:
+                    for hrtf in (True, False):
+                        compares[f"client_audio_hrtf_{hrtf}"] = _kaa_compare(
+                            eng.sources, eng.pool, eng.listener, 256, hrtf,
+                            f"client world, HRTF {hrtf}")["audio_setup"]
+                else:
+                    compares.update({f"client_{k}": v for k, v in _kab_compare(
+                        app.vehicles.veh, pw.state, "client world, car 0 driven").items()})
+                for k, v in kernels.launch_counts().items():
+                    extra[k] = extra.get(k, 0) + v - c0[k]
+        counts = {k: v - extra.get(k, 0) for k, v in kernels.launch_counts().items()}
+        driven = frames - sc.drive_from
+        for name, want in (("audio_setup", 3 * frames), ("audio_epilogue", 3 * frames),
+                           ("audio_fetch", 3 * frames), ("audio_spatialise", 3 * frames),
+                           ("audio_downmix_reverb", 3 * frames), ("vehicle_setup", frames),
+                           ("vehicle_scatter", frames), ("vehicle_forces", frames),
+                           ("winter_eval", frames)):
+            check(counts[name] == want, f"kernel {name}: {counts[name]} launches in {frames} "
+                  f"client frames, expected {want}")
+        check(counts["ray_trace"] >= 2 * frames, "KH: fewer than two launches a frame "
+              "(the wheels' rays and the occlusion rays)")
+        check(counts["character_update"] >= sc.drive_from, "KL: not launched every walking frame")
+        for name in CLIENT_STEP_KERNELS:
+            check(counts[name] >= frames, f"kernel {name}: {counts[name]} launches in {frames} "
+                  "client frames")
+        ok, n_scripted = _winter_alike(app, float(np.float32((frames - 1) * DT)))
+        check(ok, "the Winter results differ from KR's twin at the last frame")
+        st = pw.state
+        z_all = torch.stack(zs)
+        dyn = st.alive & (st.motion_type == 2)
+        thrown = ((z_all > 50.0) | (z_all < -0.5)).any(dim=0) & dyn
+        finite = (torch.isfinite(st.pos).all(dim=1) & torch.isfinite(st.quat).all(dim=1)
+                  & torch.isfinite(st.linvel).all(dim=1))
+        check(bool((finite | thrown | ~st.alive).all()), "a body that was never thrown has a "
+              "non-finite state")
+        check(not bool((dyn & ~thrown & (st.pos[:, 2] < -0.5)).any()),
+              "an unthrown dynamic body below z = -0.5")
+        moved = float(np.linalg.norm(np.array(car.pos, np.float64) - car0))
+        check(moved > 2.0, f"car 0 moved {moved} m while driven")
+        rms, lr = out_checks(torch.as_tensor(np.concatenate(outs)))
+        lua = [(float(ev.interp.globals.get("touches")), float(ev.interp.globals.get(
+            "timer_fires"))) for ev in app.script_vm.lua_evaluators]
+        check(len(lua) == len(sc.lua_uids) and all(np.isfinite(x).all() for x in lua),
+              "a Lua counter is not a finite number")
+        median_phase = {k: float(np.median([p.get(k, 0.0) for p in phases[30:]]))
+                        for k in phases[-1]}
+
+        # Syncs and copies: driving frames, then walking frames (the player
+        # leaves the car; the frame numbers run on, the input is the walk).
+        state = dict(f=frames)
+
+        def frame():
+            bw.client_tick(sc, state["f"])
+            state["f"] += 1
+        driving = _counted(frame, SYNC_TICKS)
+        app.exit_vehicle()
+        sc.drive_from = 1 << 30
+        walking = _counted(frame, SYNC_TICKS)
+        d = pw.last_diags
+        zd = torch.where(finite & dyn, st.pos[:, 2], torch.nan)[dyn]
+        res = dict(
+            ms_per_client_frame_median=float(np.median(times[30:])),
+            ms_per_client_frame_p90=float(np.percentile(times[30:], 90)),
+            first_frame_ms=times[0], build_s=build_s, phase_ms_median=median_phase,
+            launches=counts, driving=driving, walking=walking,
+            objects=len(app.objects), bodies=int(st.alive.sum()), triangles=pw.static_world.n_tris,
+            sources=len(sc.source_uids), vehicles=len(app.vehicle_controllers),
+            winter_objects=n_scripted, path_controllers=len(app.path_controllers),
+            lua_objects=len(lua), lua_counters=lua, car0_moved_m=moved,
+            audio_rms=rms, audio_lr_max=lr, pairs=int(d.num_pairs), contacts=int(d.num_contacts),
+            awake=int(d.num_awake), dynamic_thrown=int(thrown.sum()),
+            dynamic_not_finite=int((dyn & ~finite).sum()),
+            first_frame_thrown=int(((z_all > 50.0) | (z_all < -0.5))[:, dyn].any(dim=1)
+                                   .nonzero()[0]) if bool(thrown.any()) else None,
+            dynamic_z_median=float(zd.nanmedian()),
+            player_eye=[float(x) for x in app.player.get_eye_position()],
+            setup_compares=compares)
+    return res
+
+
+def _kicked(frames, statics=None):
+    """Each dynamic object's first frame past KICK_SPEED or, with
+    ``statics``, within 2.5 m (across and up) of a static cube's centre
+    (len(frames) if never)."""
+    hit = []
+    for pos, speed in frames:
+        near = False
+        if statics is not None:
+            d = np.abs(pos[:, None, :] - statics[None])
+            near = ((np.maximum(d[..., 0], d[..., 1]) < 2.5) & (d[..., 2] < 2.5)).any(axis=1)
+        hit.append(near | (speed > KICK_SPEED))
+    hit = np.array(hit)
+    return np.where(hit.any(axis=0), hit.argmax(axis=0), len(frames))
+
+
+def small_client_phase(device="cuda", frames=40):
+    """A small client world (600 cubes of which 32 dynamic, 16 sources, 4
+    vehicles, 16 Winter objects, 1 platform, 2 Lua objects) on the card
+    and on the CPU path over ``frames`` frames, car 0 driven from frame 20:
+    each dynamic object within 1e-4 m until it comes within reach of the
+    static trimesh (2.5 m of a static cube) or past 20 m/s on either path
+    (the trimesh sign rule's kicks), the undriven vehicles over frames
+    0-24 (a bike bounces on its suspension and carries the paths' last-bit
+    differences), the player and car 0 within 1e-4 m over all frames, the
+    Lua counters equal and the audio within 5e-5
+    (tests/test_torch_audio.py's bound) while every source's body is
+    within 1e-3 m on the two paths."""
+    import tempfile
+    from substrata_tpu_torch import benchworld as bw
+    from substrata_tpu_torch.physics.state import SimConfig
+    size = dict(n_objects=600, n_dynamic=32, n_sources=16, n_vehicles=4, n_winter=16,
+                n_platforms=1, n_lua=2)
+    runs = {}
+    for dev in (device, "cpu"):
+        with tempfile.TemporaryDirectory(prefix="client_world_") as sounds:
+            sc = bw.client_world(dev, cfg=SimConfig(
+                capacity=512, max_pairs=2048, grid_dim=32, cell_size=4.0, solver_iters=7,
+                pair_rebuild_interval=6), sound_dir=sounds, **size)
+            sc.drive_from = 20
+            app = sc.app
+            dyn = [u for u, ob in app.objects.items() if ob.is_dynamic()]
+            rec = []
+            for f in range(frames):
+                audio = bw.client_tick(sc, f)
+                rec.append(dict(
+                    pos=np.array([app.objects[u].pos for u in dyn], np.float64),
+                    speed=np.array([np.linalg.norm(app.objects[u].linear_vel) for u in dyn]),
+                    eye=np.array(app.player.get_eye_position(), np.float64),
+                    car=np.array(app.objects[sc.car_uids[0]].pos, np.float64), audio=audio))
+            runs[dev] = dict(rec=rec, undriven=np.array([u in sc.car_uids[1:] for u in dyn]),
+                             source=np.array([app.objects[u].audio_source is not None
+                                              for u in dyn]),
+                             lua=[(ev.interp.globals.get("touches"),
+                                   ev.interp.globals.get("timer_fires"))
+                                  for ev in app.script_vm.lua_evaluators])
+    a, b = runs[device], runs["cpu"]
+    statics = bw.mesh_layout(size["n_objects"], size["n_dynamic"])[size["n_dynamic"]:]
+    k = np.minimum(_kicked([(x["pos"], x["speed"]) for x in a["rec"]], statics),
+                   _kicked([(x["pos"], x["speed"]) for x in b["rec"]], statics))
+    k = np.where(a["undriven"], np.minimum(k, 25), k)
+    pos_err = max(float(np.abs(x["pos"][k > f] - y["pos"][k > f]).max())
+                  for f, (x, y) in enumerate(zip(a["rec"], b["rec"])))
+    check(pos_err <= 1e-4, f"small client world: objects card vs CPU path {pos_err} > 1e-4")
+    char_err = max(float(np.abs(x[key] - y[key]).max()) for x, y in zip(a["rec"], b["rec"])
+                   for key in ("eye", "car"))
+    check(char_err <= 1e-4, f"small client world: player or car 0 {char_err} > 1e-4")
+    check(a["lua"] == b["lua"], "small client world: Lua counters differ")
+    src = a["source"]
+    apart = [float(np.abs(x["pos"][src] - y["pos"][src]).max()) > 1e-3
+             for x, y in zip(a["rec"], b["rec"])]
+    first = apart.index(True) if any(apart) else frames
+    check(first >= min(20, frames), f"small client world: a source's body 1e-3 m apart at "
+          f"frame {first}")
+    audio_err = max([float(np.abs(x["audio"] - y["audio"]).max())
+                     for x, y in zip(a["rec"][:first], b["rec"][:first])] or [0.0])
+    check(audio_err <= 5e-5, f"small client world: audio {audio_err} > 5e-5")
+    return dict(cuda_vs_cpu_small_client_object_err=pos_err,
+                cuda_vs_cpu_small_client_player_car_err=char_err,
+                cuda_vs_cpu_small_client_audio_err=audio_err, small_client_audio_frames=first,
+                small_client_objects_held_all_frames=int((k == frames).sum()),
+                small_client_dynamic=int(len(k)), small_client_lua=a["lua"])
+
+
 PHYSICS_KERNELS = ("box_box_rows", "static_contacts", "solve_iteration", "apply_forces",
                    "integrate_positions", "cell_table", "solve_setup", "cache_refresh",
                    "find_pairs", "layout_incidence", "solve_positions", "strike_wake",
@@ -2800,6 +3231,11 @@ LAYOUT_KERNELS = ("layout_group", "layout_touching", "layout_compact", "layout_i
                   "solve_positions", "strike_wake", "sleep_pass")
 SERVING_KERNELS = ("closed_form_rows", "character_update", "apply_tick_in",
                    "digest_tblock") + LAYOUT_KERNELS
+# Launched on every client frame (phase 19): think over hulls, boxes and the
+# trimesh, the transform writes, the digest.
+CLIENT_STEP_KERNELS = ("convex_rows", "static_contacts", "cell_table", "solve_setup",
+                       "cache_refresh", "solve_positions", "strike_wake", "sleep_pass",
+                       "apply_tick_in", "digest_tblock")
 MESH_KERNELS = ("convex_rows", "static_contacts", "ray_trace", "character_update",
                 "apply_tick_in", "digest_tblock", "cell_table", "solve_setup",
                 "cache_refresh") + LAYOUT_KERNELS
@@ -2827,7 +3263,11 @@ FLOPS = {"box_box_rows": 1000, "static_contacts": 600, "solve_iteration": 60,
          # KS per stencil candidate (distance, radii, tests, score) and per
          # oversize row; KU per contact row and per table slot, each of its
          # two iterations; KV per body (speeds, its table slots' tests).
-         "pair_candidate": 20, "position_row": 12, "position_slot": 6, "sleep_body": 100}
+         "pair_candidate": 20, "position_row": 12, "position_slot": 6, "sleep_body": 100,
+         # KAA per source (distance, Doppler, gains, pan, the HRIR bins'
+         # two atan2; the epilogue's compare and fma), KAB per vehicle (the
+         # matrix, inertia, five rotations) and per body written.
+         "audio_setup": 150, "audio_epilogue": 6, "vehicle_setup": 330, "vehicle_scatter": 6}
 
 KERNELS = [
     ("box_box_rows", "cuda", "substrata_tpu_torch/csrc/box_box.cu",
@@ -2896,10 +3336,18 @@ KERNELS = [
      "substrata_tpu/physics/particles.py:140"),
     ("pose_avatars", "cuda", "substrata_tpu_torch/csrc/pose.cu",
      "substrata_tpu/anim/pose.py:182"),
+    ("audio_setup", "cuda", "substrata_tpu_torch/csrc/audio_setup.cu",
+     "substrata_tpu/audio/mix.py:294"),
+    ("audio_epilogue", "cuda", "substrata_tpu_torch/csrc/audio_setup.cu",
+     "substrata_tpu/audio/mix.py:434"),
+    ("vehicle_setup", "cuda", "substrata_tpu_torch/csrc/vehicle_setup.cu",
+     "substrata_tpu/physics/vehicles/manager.py:609"),
+    ("vehicle_scatter", "cuda", "substrata_tpu_torch/csrc/vehicle_setup.cu",
+     "substrata_tpu/physics/vehicles/manager.py:664"),
 ]
 # The run whose launches each kernel line reports: phase 9's full ticks,
 # unless named here (phase 5's thinks, 11's serving ticks, 13's mesh
-# frames, 17's terrain frames).
+# frames, 17's terrain frames, 19's client frames).
 LAUNCHES_FROM = {"closed_form_rows": "serving", "character_update": "serving",
                  "apply_tick_in": "serving", "digest_tblock": "serving", "convex_rows": "mesh",
                  "find_pairs": "think", "solve_positions": "think", "strike_wake": "think",
@@ -2907,7 +3355,9 @@ LAUNCHES_FROM = {"closed_form_rows": "serving", "character_update": "serving",
                  "layout_compact": "serving", "layout_incidence": "serving",
                  "terrain_heights": "terrain", "terrain_chunks": "terrain",
                  "terrain_scatter": "terrain", "spawn_rows": "terrain",
-                 "pose_avatars": "terrain"}
+                 "pose_avatars": "terrain", "audio_setup": "client",
+                 "audio_epilogue": "client", "vehicle_setup": "client",
+                 "vehicle_scatter": "client"}
 
 
 def main():
@@ -3035,8 +3485,25 @@ def main():
         f"avatars): {te_res['ms_per_terrain_tick_median']:.3f} "
         f"(p90 {te_res['ms_per_terrain_tick_p90']:.3f}) | {smi}")
 
+    su = setup_kernel_phase()
+    for name, r in su.items():
+        log(f"# phase 18 {name}: {json.dumps(r)} | {smi}")
+    kres.update({k: v for k, v in su.items() if k in CLIENT_KERNELS})
+
+    cl_res = client_phase()
+    su["client_world"] = cl_res.pop("setup_compares")
+    log(f"# phase 18 client_world: {json.dumps(su['client_world'])} | {smi}")
+    cl_res.update(small_client_phase())
+    log(f"# client frame: {json.dumps(cl_res)} | {smi}")
+    log(f"# ms per client frame (median, frames 31-{CLIENT_FRAMES}, BASELINE config 5's "
+        f"12,000 objects, {cl_res['sources']} sources, {cl_res['vehicles']} vehicles, "
+        f"{cl_res['winter_objects']} Winter objects, {cl_res['path_controllers']} platforms, "
+        f"{cl_res['lua_objects']} Lua objects): {cl_res['ms_per_client_frame_median']:.3f} "
+        f"(p90 {cl_res['ms_per_client_frame_p90']:.3f}); build {cl_res['build_s']:.1f} s | {smi}")
+
     # Launches: each kernel's count on its main path (LAUNCHES_FROM).
-    runs = dict(think=main_res, full=ft_res, serving=sv_res, mesh=me_res, terrain=te_res)
+    runs = dict(think=main_res, full=ft_res, serving=sv_res, mesh=me_res, terrain=te_res,
+                client=cl_res)
     launches = {name: runs[LAUNCHES_FROM.get(name, "full")]["launches"][name]
                 for name, *_ in KERNELS}
     for name in ("find_pairs", "solve_positions", "strike_wake", "sleep_pass"):
@@ -3056,7 +3523,8 @@ def main():
                        physics_audio=pa_res, fulltick_kernels=fres, full_tick=ft_res,
                        serving_kernels=sres, serving_tick=sv_res, mesh_kernels=mk_res,
                        mesh_world=me_res, kpqr_kernels=kpqr, layout_kernels=lay,
-                       terrain_kernels=tk, terrain_world=te_res),
+                       terrain_kernels=tk, terrain_world=te_res, setup_kernels=su,
+                       client_frame=cl_res),
                   f, indent=1)
     log(json.dumps(out))
     log(smi)

@@ -22,7 +22,7 @@ import os
 import numpy as np
 import torch
 
-from substrata_tpu_torch.maths.fp import float_mod
+from substrata_tpu_torch.maths.fp import float_mod, fma, recip, sqrt
 
 N_AZ = 16
 N_EL = 3
@@ -158,11 +158,15 @@ def quantize_direction(x, y, z, dist=None):
     """Map head-frame direction components to (az_idx, el_idx) int32.
 
     x = right, y = forward, z = up components of the source offset.  The
-    same operations in the same order as the reference (round half to
-    even, atan2, / 2 pi, mod)."""
+    reference's operations as its jitted program rounds them: the
+    horizontal length is ``sqrt(fma(x, x, y * y))`` correctly rounded,
+    the divisions by 2 pi and pi / 2 are multiplies by their float32
+    reciprocals, rounding is half to even and the modulo is jnp.mod's.
+    Only atan2 can part from the reference's in the last bit, which moves
+    a bin only where the pre-round value lies on a half-integer."""
     az = torch.atan2(x, y)                       # 0 front, +right
-    el = torch.atan2(z, torch.clamp(torch.sqrt(x * x + y * y), min=1e-6))
-    ai = float_mod(torch.round(az / (2 * math.pi) * N_AZ), float(N_AZ)).to(torch.int32)
-    ei = torch.clamp(torch.round((el + math.pi / 4) / (math.pi / 2) * (N_EL - 1)),
+    el = torch.atan2(z, torch.clamp(sqrt(fma(x, x, y * y)), min=1e-6))
+    ai = float_mod(torch.round(az * recip(2 * math.pi) * N_AZ), float(N_AZ)).to(torch.int32)
+    ei = torch.clamp(torch.round((el + math.pi / 4) * recip(math.pi / 2) * (N_EL - 1)),
                      0, N_EL - 1).to(torch.int32)
     return ai, ei

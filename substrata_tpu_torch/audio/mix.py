@@ -5,12 +5,13 @@ Counterpart of ``substrata_tpu/audio/mix.py``: for every active source pull
 pitch, streaming ring buffers), resample, spatialise and downmix to stereo,
 with the same state, the same fields and the same return tuple.
 
-``mix_block`` runs the per-source setup (Doppler, fades, distance and
-occlusion gains, pan, HRIR direction) as plain torch on ``[S]`` tensors,
-then three kernels (``kernels/audio_mix.py``): KE fetches and resamples,
-KF low-passes, convolves with the HRIRs and ramps the gains, KG sums the
-sources and runs the reverb.  Nothing in it copies from the device to the
-host.  The reference's one-hot/triangular MXU contraction of the fetch is
+``mix_block`` runs five launches: KAA's setup (``kernels/audio_setup.py``:
+Doppler, fades, distance and occlusion gains, pan, HRIR direction, one
+thread per source, every field in one buffer), then KE fetches and
+resamples, KF low-passes, convolves with the HRIRs and ramps the gains, KG
+sums the sources and runs the reverb (``kernels/audio_mix.py``), and KAA's
+epilogue (the finished flags, the level meter, the alive mask).  Nothing
+in it copies from the device to the host.  The reference's one-hot/triangular MXU contraction of the fetch is
 TPU layout only; the port gathers and lerps directly, with the same
 float32 index arithmetic.
 """
@@ -18,15 +19,14 @@ float32 index arithmetic.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
 
-from substrata_tpu_torch.audio.hrtf import N_EL, TAPS as HRIR_TAPS
-from substrata_tpu_torch.audio.hrtf import hrir_bank_tensor, quantize_direction
+from substrata_tpu_torch.audio.hrtf import TAPS as HRIR_TAPS
+from substrata_tpu_torch.audio.hrtf import hrir_bank_tensor
 from substrata_tpu_torch.kernels import audio_mix as kern
-from substrata_tpu_torch.maths.fp import dot3, fma
+from substrata_tpu_torch.kernels import audio_setup as kset
 from substrata_tpu_torch.physics.state import _Replace
 
 BLOCK = 256            # frames per block
@@ -234,54 +234,19 @@ class MixSetup:
 
 def prepare(src: SourceState, listener: Listener, block: int, dt_block: float,
             use_hrtf: bool) -> MixSetup:
-    """The per-source setup of mix.py:294-359 and :376-392: Doppler and its
-    smoothing, fades, distance and occlusion gains, pan, low-pass
-    coefficient and the HRIR direction, on [S] tensors."""
-    active = src.alive & ~src.paused & ~src.finished
-    to_src = src.pos - listener.pos[None, :]
-    dist = torch.sqrt(dot3(to_src, to_src))
-    dirn = to_src / torch.clamp(dist, min=1e-6)[:, None]
-    v_src = dot3(src.vel, dirn)                 # velocity away from listener
-    v_lis = dot3(listener.vel[None, :], dirn)
-    doppler = torch.clamp((SPEED_OF_SOUND - v_lis)
-                          / torch.clamp(SPEED_OF_SOUND - (-v_src), min=1.0), 0.5, 2.0)
-    doppler = torch.where(src.spatial, doppler, 1.0)
-    dop_alpha = 1.0 - (1.0 - 0.2) ** (block / 256.0)
-    dop_smooth = fma(doppler - src.doppler_factor, dop_alpha, src.doppler_factor)
-    eff_delta = torch.clamp(src.delta * dop_smooth[:, None], 0.0, DELTA_MAX)
-
-    mute = src.mute_factor + torch.clamp(src.mute_target - src.mute_factor,
-                                         -src.mute_rate * dt_block, src.mute_rate * dt_block)
-    dist_gain = torch.clamp(1.0 / torch.clamp(dist, min=1.0), max=1.0)
-    occ_gain = 1.0 / (1.0 + src.num_occlusions)
-    x = dot3(to_src, listener.right[None, :])
-    y = dot3(to_src, listener.forward[None, :])
-    pan = torch.clamp(x / torch.clamp(dist, min=1e-6), -1.0, 1.0)
-    theta = (pan + 1.0) * (math.pi / 4.0)
-    behind = y < 0.0
-    gain = src.volume * mute * torch.where(src.spatial, dist_gain * occ_gain, 1.0)
-    occluded = src.num_occlusions > 0
-    if use_hrtf:
-        # Direction is in the HRIRs; both channels carry the full gain.
-        gl = gain * torch.where(src.spatial, 1.0, 0.70710678) * active
-        gr = gl
-        fc = torch.where(occluded, 800.0, 20000.0)
-        use_lp = occluded
-        zc = dot3(to_src, listener.up[None, :])
-        ai, ei = quantize_direction(x, y, zc, dist)
-        dir_idx = ai * N_EL + ei
-    else:
-        gl = gain * torch.where(src.spatial, torch.cos(theta), 0.70710678) * active
-        gr = gain * torch.where(src.spatial, torch.sin(theta), 0.70710678) * active
-        shadow = behind & src.spatial
-        fc = torch.where(occluded, 800.0, torch.where(shadow, 3000.0, 20000.0))
-        use_lp = occluded | shadow
-        dir_idx = None
-    alpha = torch.clamp(2.0 * math.pi * fc / ENGINE_RATE, 0.0, 1.0)
-    send_gain = gain * active * src.spatial.to(f32)
-    return MixSetup(active=active, eff_delta=eff_delta, dop_smooth=dop_smooth, mute=mute,
-                    gain=gain, gl=gl, gr=gr, alpha=alpha, use_lp=use_lp, dir_idx=dir_idx,
-                    send_gain=send_gain)
+    """The per-source setup of mix.py:294-359 and :376-392 (Doppler and
+    its smoothing, fades, distance and occlusion gains, pan, low-pass
+    coefficient and the HRIR direction) in one launch of KAA; the fields
+    are views of its one output buffer."""
+    buf = kset.audio_setup(
+        src.alive, src.paused, src.finished, src.spatial, src.pos, src.vel, src.delta,
+        src.doppler_factor, src.mute_factor, src.mute_target, src.mute_rate, src.volume,
+        src.num_occlusions, listener.pos, listener.vel, listener.right, listener.forward,
+        listener.up, kset.dop_alpha(block), dt_block, use_hrtf)
+    v = kset.setup_views(buf, src.capacity, src.delta.shape[1])
+    if not use_hrtf:
+        v["dir_idx"] = None
+    return MixSetup(**v)
 
 
 def fetch(pool, src: SourceState, eff_delta, active, block: int):
@@ -310,11 +275,6 @@ def mix_block(src: SourceState, pool: torch.Tensor, listener: Listener,
     st = prepare(src, listener, block, dt_block, use_hrtf)
     samples, new_heads = fetch(pool, src, st.eff_delta, st.active, block)
 
-    # Non-looping sources finish when layer 0 passes the end.
-    finished = src.finished | (
-        (~src.looping) & (~src.stream_mode) & st.active
-        & (new_heads[:, 0] >= src.buf_len[:, 0].to(f32) - 1.0))
-
     wl, wr, ws, lp_out, new_hist, level = kern.audio_spatialise(
         samples, src.lp_state, st.alpha, st.use_lp, src.spatial, src.hrir_hist,
         hrir_bank_tensor(dev) if use_hrtf else None, st.dir_idx,
@@ -327,13 +287,16 @@ def mix_block(src: SourceState, pool: torch.Tensor, listener: Listener,
     else:
         out, _, _ = kern.audio_downmix_reverb(wl, wr, None, listener.master_volume)
 
-    smoothed = fma(level, 0.1, src.smoothed_level * 0.9)
+    # Non-looping sources finish when layer 0 passes the end; the level
+    # meter and the alive mask follow (KAA's epilogue).
+    ep = kset.epilogue_views(kset.audio_epilogue(
+        src.finished, src.looping, src.stream_mode, st.active, new_heads, src.buf_len, level,
+        src.smoothed_level, src.alive, src.remove_on_finish), src.capacity)
     new_src = src.replace(
-        playhead=new_heads, finished=finished, mute_factor=st.mute,
+        playhead=new_heads, finished=ep["finished"], mute_factor=st.mute,
         doppler_factor=st.dop_smooth, lp_state=lp_out,
-        prev_gain_l=st.gl, prev_gain_r=st.gr, smoothed_level=smoothed,
-        hrir_hist=new_hist,
-        alive=src.alive & ~(finished & src.remove_on_finish))
+        prev_gain_l=st.gl, prev_gain_r=st.gr, smoothed_level=ep["smoothed_level"],
+        hrir_hist=new_hist, alive=ep["alive"])
     if room is not None:
         return new_src, out, room.replace(delay_lines=lines, write_idx=widx)
     return new_src, out

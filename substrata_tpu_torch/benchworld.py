@@ -10,12 +10,20 @@ config 5) with the client's frame: ``think_with_player`` and the audio
 occlusion rays (substrata_tpu/client_app.py:916-945); and BASELINE.json's
 config 4, 10,000 particles over heightfield terrain with TerrainSystem LOD
 and TerrainScattering, plus 64 posed avatars, through the client frame's
-terrain, avatar and particle steps (``terrain_world``, ``terrain_tick``)."""
+terrain, avatar and particle steps (``terrain_world``, ``terrain_tick``);
+and the client's own frame, ``ClientApp.timer_event`` with three audio
+blocks, over config 5's world loaded through ``create_object`` with 256
+sources, 8 vehicles, 512 Winter objects, 4 path platforms and 8 Lua
+objects (``client_world``, ``client_tick``)."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import tempfile
+import time
+import wave
 
 import numpy as np
 import torch
@@ -23,6 +31,7 @@ import torch
 from substrata_tpu_torch.avatar_graphics import AvatarGraphicsManager
 from substrata_tpu_torch.audio.mix import (default_listener, mix_block, room_from_aabb,
                                            zero_sources)
+from substrata_tpu_torch.client_app import ClientApp, PlayerInput
 from substrata_tpu_torch.kernels import winter as kwinter
 from substrata_tpu_torch.physics import broadphase, queries, shapes
 from substrata_tpu_torch.physics.character import (EYE_HEIGHT, PlayerPhysics,
@@ -37,6 +46,8 @@ from substrata_tpu_torch.physics.vehicles.manager import (
 from substrata_tpu_torch.physics.world import PhysicsObject, PhysicsWorld
 from substrata_tpu_torch.scripting import WinterScriptEvaluator
 from substrata_tpu_torch.shared.avatar import Avatar
+from substrata_tpu_torch.shared.bmesh import write_bmesh
+from substrata_tpu_torch.shared.world_object import WorldObject
 
 N_BODIES = 10_000
 N_SOURCES = 256
@@ -559,3 +570,210 @@ def terrain_tick(scene: TerrainScene, frame: int):
     scene.terrain.update_campos(cam)
     scene.scattering.update_campos(cam)
     return cam
+
+
+# ---------------------------------------------------------------------------
+# The client's own frame: ClientApp.timer_event over BASELINE config 5's
+# mesh world with the full tick's content.
+# ---------------------------------------------------------------------------
+
+N_CLIENT_SOURCES = 256    # bench.py's headline: 256 sources on 10k-class physics
+N_CLIENT_VEHICLES = 8     # two each of <car/>, <bike/>, <boat/>, <hover_car/>
+N_PLATFORMS = 4           # <follow_path> loops
+N_LUA = 8
+N_SOUNDS = 4              # seeded mono WAVs, 1-2 s at 48 kHz
+DRIVE_FROM = 90           # the player enters car 0 at this frame
+VEHICLE_TAGS = ("car", "bike", "boat", "hover_car")
+LUA_SCRIPT = """--lua
+touches = 0
+timer_fires = 0
+addEventListener("onUserTouchedObject", this_object.uid, function(av, ob)
+  touches = touches + 1
+end)
+createTimer(function() timer_fires = timer_fires + 1 end, 0.5, true)
+"""
+
+
+class FrameClock:
+    """The app's clock: ``client_tick`` sets ``t`` (1/60 s a frame)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+@dataclasses.dataclass
+class ClientScene:
+    """An offline ``ClientApp`` and the uids ``client_tick`` and its checks
+    need."""
+
+    app: object
+    clock: FrameClock
+    sound_dir: str
+    car_uids: list          # every vehicle, two of each tag in VEHICLE_TAGS order
+    lua_uids: list
+    winter_uids: list
+    platform_uids: list
+    source_uids: list
+    build_s: float = 0.0
+    drive_from: int = DRIVE_FROM   # the frame the player enters car 0
+
+
+def write_sounds(path: str, n: int = N_SOUNDS, seed: int = 0) -> list:
+    """``n`` seeded mono 16-bit WAVs of 1-2 s at 48 kHz (a tone, its
+    overtone and noise) under ``path``; returns their paths."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        frames = int(rng.uniform(1.0, 2.0) * 48_000)
+        t = np.arange(frames) / 48_000.0
+        f0 = rng.uniform(110.0, 880.0)
+        x = (0.5 * np.sin(2 * np.pi * f0 * t) + 0.2 * np.sin(4 * np.pi * f0 * t)
+             + 0.05 * rng.standard_normal(frames))
+        name = os.path.join(path, f"sound{k}.wav")
+        with wave.open(name, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(48_000)
+            w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+        out.append(name)
+    return out
+
+
+def _clear_spot(rng, blocked: np.ndarray, lane: tuple, radius: float = 20.0) -> np.ndarray:
+    """A seeded point within ``radius`` m of the origin whose lane
+    (x +- lane[0], y from -lane[1] to +lane[2]) holds none of ``blocked``."""
+    for _ in range(10_000):
+        p = rng.uniform(-radius, radius, 2)
+        if np.hypot(*p) > radius or np.hypot(*p) < 4.0:
+            continue
+        d = blocked[:, :2] - p
+        if not np.any((np.abs(d[:, 0]) < lane[0]) & (d[:, 1] > -lane[1]) & (d[:, 1] < lane[2])):
+            return p
+    raise RuntimeError("no clear spot for a vehicle")
+
+
+def populate_client_world(app, world_object_cls, write_bmesh_fn, sound_dir: str,
+                          n_objects: int = N_OBJECTS, n_dynamic: int = N_DYNAMIC,
+                          n_sources: int = N_CLIENT_SOURCES,
+                          n_vehicles: int = N_CLIENT_VEHICLES, n_winter: int = N_WINTER,
+                          n_platforms: int = N_PLATFORMS, n_lua: int = N_LUA,
+                          seed: int = 0) -> ClientScene:
+    """Load the client world into ``app`` through ``create_object`` alone,
+    as a client loads a world (so the tests hand the reference's ClientApp
+    and WorldObject to it too):
+
+    - ``app.resources["cube.bmesh"]`` first (tools/bench_networked.py:90-98);
+    - ``n_objects`` unit cubes at ``mesh_layout`` (seed 0, +-180 m), the
+      first ``n_dynamic`` dynamic (convex hulls, z 2-6 m), the rest static
+      (their triangles on virtual anchors in the static trimesh);
+    - ``audio_source_url`` on the first ``n_sources`` dynamic cubes, one of
+      ``N_SOUNDS`` seeded WAVs each (the sources follow their bodies);
+    - ``n_vehicles`` XML vehicles, two each of car, bike, boat and
+      hovercar, on dynamic 0.5 m boxes of mass 800 at clear seeded spots
+      within 20 m of the origin (car 0's 8 m lane along +y is clear);
+    - ``n_winter`` Winter objects, bench.py's two scripts on half each:
+      collidable 0.5 m boxes with no model (kinematic once scripted) at
+      4-8 m over +-60 m;
+    - ``n_platforms`` ``<follow_path>`` platforms, 5 m squares (20 m
+      loops) at 2 m around the origin;
+    - ``n_lua`` ``--lua`` objects counting ``onUserTouchedObject`` with a
+      0.5 s repeating timer, in a row 0.8 m to the right of the player's
+      walk, 0.5 m apart from 0.8 m out, where its capsule brushes them."""
+    t0 = time.perf_counter()
+    app.resources["cube.bmesh"] = write_bmesh_fn(CUBE_VERTS, CUBE_TRIS)
+    collide, dynamic = 1, 8          # COLLIDABLE_FLAG, DYNAMIC_FLAG
+    sounds = write_sounds(sound_dir, seed=seed)
+    layout = mesh_layout(n_objects, n_dynamic)
+    source_uids = []
+    for i, pos in enumerate(layout):
+        dyn = i < n_dynamic
+        ob = world_object_cls(model_url="cube.bmesh", pos=np.array(pos),
+                              flags=collide | (dynamic if dyn else 0))
+        if dyn and i < n_sources:
+            ob.audio_source_url = sounds[i % len(sounds)]
+        app.create_object(ob)
+        if ob.audio_source_url:
+            source_uids.append(ob.uid)
+    rng = np.random.default_rng(seed + 7)
+    blocked = layout.copy()
+    car_uids = []
+    for k in range(n_vehicles):
+        lane = (2.0, 2.0, 8.0) if k == 0 else (1.5, 1.5, 1.5)
+        p = _clear_spot(rng, blocked, lane)
+        blocked = np.vstack([blocked, [p[0], p[1], 0.5]])
+        ob = world_object_cls(flags=collide | dynamic, pos=np.array([p[0], p[1], 0.6]),
+                              mass=800.0,
+                              script=f"<script><{VEHICLE_TAGS[(k // 2) % 4]}/></script>")
+        app.create_object(ob)
+        car_uids.append(ob.uid)
+    winter_uids = []
+    for k in range(n_winter):
+        ob = world_object_cls(flags=collide, pos=np.array(
+            [rng.uniform(-60, 60), rng.uniform(-60, 60), rng.uniform(4, 8)]),
+            script=WINTER_SOURCES[k * len(WINTER_SOURCES) // max(n_winter, 1)])
+        app.create_object(ob)
+        winter_uids.append(ob.uid)
+    platform_uids = []
+    for k in range(n_platforms):
+        a = 2 * math.pi * k / max(n_platforms, 1)
+        cx, cy = 12 * math.cos(a), 12 * math.sin(a)
+        corners = [(cx, cy), (cx + 5, cy), (cx + 5, cy + 5), (cx, cy + 5)]
+        wps = "".join(f"<waypoint><pos>{x:.3f} {y:.3f} 2</pos><type>Station</type>"
+                      f"<pause_time>0</pause_time></waypoint>" for x, y in corners)
+        ob = world_object_cls(flags=collide, pos=np.array([cx, cy, 2.0]),
+                              script=f"<script><follow_path><speed>4</speed>{wps}"
+                                     f"</follow_path></script>")
+        app.create_object(ob)
+        platform_uids.append(ob.uid)
+    lua_uids = []
+    walk = np.array([0.2, 1.0]) / np.hypot(0.2, 1.0)
+    side = np.array([walk[1], -walk[0]])
+    for k in range(n_lua):
+        xy = walk * (0.8 + 0.5 * k) + side * 0.8       # the walking capsule brushes them
+        ob = world_object_cls(flags=collide, pos=np.array([xy[0], xy[1], 0.5]),
+                              script=LUA_SCRIPT)
+        app.create_object(ob)
+        lua_uids.append(ob.uid)
+    return ClientScene(app=app, clock=app.clock, sound_dir=sound_dir, car_uids=car_uids,
+                       lua_uids=lua_uids, winter_uids=winter_uids,
+                       platform_uids=platform_uids, source_uids=source_uids,
+                       build_s=time.perf_counter() - t0)
+
+
+def client_world(device, cfg: SimConfig | None = None, sound_dir: str | None = None,
+                 **sizes) -> ClientScene:
+    """The offline client frame's world at full width: a ``ClientApp`` on
+    ``device`` with tools/bench_networked.py's SimConfig (4,096 slots,
+    8,192 pairs, grid 64, 4 m cells, 7 iterations, pair rebuild every 6
+    ticks), ``pipeline_depth=0``, audio on and a ``FrameClock``, loaded by
+    ``populate_client_world`` (12,000 cubes, 256 sources, 8 vehicles, 512
+    Winter objects, 4 platforms, 8 Lua objects; ``sizes`` cut them).  The
+    WAVs go to ``sound_dir`` (a new temporary directory by default)."""
+    app = ClientApp(config=cfg or mesh_config(), clock=FrameClock(), enable_audio=True,
+                    pipeline_depth=0, device=device)
+    return populate_client_world(app, WorldObject, write_bmesh,
+                                 sound_dir or tempfile.mkdtemp(prefix="client_world_"), **sizes)
+
+
+def client_input(frame: int, drive_from: int = DRIVE_FROM):
+    """The player's keys: walk (forward 1, right 0.2) before
+    ``drive_from``, then drive car 0 (forward 0.6, right 0.15)."""
+    if frame < drive_from:
+        return PlayerInput(forward=1.0, right=0.2)
+    return PlayerInput(forward=0.6, right=0.15)
+
+
+def client_tick(scene: ClientScene, frame: int):
+    """One client frame: the clock at frame / 60 s, the player enters car 0
+    at ``scene.drive_from``, ``app.timer_event(1/60, client_input(frame))``,
+    then one 60 Hz tick of audio, ``app.audio.render(3)`` (768 frames).
+    Returns the audio [768, 2] (None without audio)."""
+    app = scene.app
+    scene.clock.t = frame * DT
+    if frame == scene.drive_from and scene.car_uids:
+        app.enter_vehicle(scene.car_uids[0])
+    app.timer_event(DT, client_input(frame, scene.drive_from))
+    return app.audio.render(3) if app.audio is not None else None

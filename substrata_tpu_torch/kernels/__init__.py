@@ -38,13 +38,16 @@ path went through the kernels.
   KX  terrain.py            csrc/terrain.cu          vegetation scatter points
   KY  spawn.py              csrc/particles_spawn.cu  particle spawn scatter
   KZ  pose.py               csrc/pose.cu             skeletal pose of every avatar
+  KAA audio_setup.py        csrc/audio_setup.cu      the mix's per-source setup + epilogue
+  KAB vehicle_setup.py      csrc/vehicle_setup.cu    vehicle pre-ray setup + delta scatter
 """
 
-from substrata_tpu_torch.kernels import (audio_mix, box_box, cell_table, character,
-                                         closed_forms, convex, integrate_triton, layout,
-                                         pairs, particles_triton, pose, positions, ray_trace,
-                                         serving_io, sleep, solve, solve_setup, spawn,
-                                         static_contacts, terrain, vehicles, winter)
+from substrata_tpu_torch.kernels import (audio_mix, audio_setup, box_box, cell_table,
+                                         character, closed_forms, convex, integrate_triton,
+                                         layout, pairs, particles_triton, pose, positions,
+                                         ray_trace, serving_io, sleep, solve, solve_setup, spawn,
+                                         static_contacts, terrain, vehicle_setup, vehicles,
+                                         winter)
 
 
 def launch_counts() -> dict:
@@ -72,6 +75,8 @@ def launch_counts() -> dict:
         **terrain.launches,
         "spawn_rows": spawn.launches,
         "pose_avatars": pose.launches,
+        **audio_setup.launches,
+        **vehicle_setup.launches,
     }
 
 
@@ -92,6 +97,7 @@ def reset_launch_counts():
     spawn.launches = 0
     pose.launches = 0
     for counts in (integrate_triton.launches, audio_mix.launches, serving_io.launches,
-                   solve_setup.launches, layout.launches, sleep.launches, terrain.launches):
+                   solve_setup.launches, layout.launches, sleep.launches, terrain.launches,
+                   audio_setup.launches, vehicle_setup.launches):
         for k in counts:
             counts[k] = 0

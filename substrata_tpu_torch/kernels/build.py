@@ -174,6 +174,19 @@ SIGNATURES = {
     # 13 particle fields (pos ... alive), rows, cursor, n, cap, stream
     "spawn_rows": [P] * 13 + [P] + [I] * 3 + [P],
     "pose_avatars": [P] * 4 + [I] + [P] * 12 + [P] * 5 + [I] + [P] * 2 + [I] * 4 + [P] + [P],
+    # alive, paused, finished, spatial, pos, vel, delta, doppler_factor,
+    # mute_factor, mute_target, mute_rate, volume, num_occlusions; listener
+    # pos, vel, right, forward, up; dop_alpha, dt_block; S, L, use_hrtf;
+    # out, stream
+    "audio_setup": [P] * 13 + [P] * 5 + [F] * 2 + [I] * 3 + [P] + [P],
+    # finished, looping, stream_mode, active, new_heads, buf_len, level,
+    # smoothed_level, alive, remove_on_finish; S, L; out, stream
+    "audio_epilogue": [P] * 10 + [I] * 2 + [P] + [P],
+    # body_slot, y_fwd_quat, wheel_attach, wheel_radius, sus_max; body pos,
+    # quat, linvel, angvel, inv_mass, inv_inertia; V; out, stream
+    "vehicle_setup": [P] * 11 + [I] + [P] + [P],
+    # slots, dv, dw; V, N; linvel, angvel, awake, sleep_timer; stream
+    "vehicle_scatter": [P] * 3 + [I] * 2 + [P] * 4 + [P],
 }
 
 _lib = None

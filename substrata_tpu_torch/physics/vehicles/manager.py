@@ -17,6 +17,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from substrata_tpu_torch.kernels import vehicle_setup as ksetup
 from substrata_tpu_torch.kernels import vehicles as kveh
 from substrata_tpu_torch.kernels.vehicles import (  # noqa: F401
     BIKE_ENGINE_MAX_RPM, BIKE_ENGINE_TORQUE, BIKE_GEAR_RATIOS, BIKE_LAT_CURVE_MU,
@@ -26,7 +27,6 @@ from substrata_tpu_torch.kernels.vehicles import (  # noqa: F401
     MAX_WHEELS, REVERSE_GEAR_RATIO, RPM_PER_RAD_S, SHIFT_DOWN_RPM, SHIFT_SWITCH_TIME,
     SHIFT_UP_RPM, VEHICLE_BIKE, VEHICLE_BOAT, VEHICLE_CAR, VEHICLE_HOVER, WHEEL_INERTIA)
 from substrata_tpu_torch.maths import quat as quatm
-from substrata_tpu_torch.maths import transform as tmath
 from substrata_tpu_torch.physics import queries
 from substrata_tpu_torch.physics.state import (BodyState, SimConfig, SimParams, StaticWorld,
                                                _Replace)
@@ -206,25 +206,16 @@ _righting_torque_dv = kveh.righting_torque_dv
 
 
 def chassis_and_wheel_rays(veh: VehicleArrays, body: BodyState):
-    """The pre-ray setup of vehicles_update: each vehicle's chassis state
-    (pos, quat, linvel, angvel, mass, world inverse inertia) and its wheels'
-    suspension rays (origins [V*4, 3], dirs, max_ts, exclude = the chassis)."""
-    v = veh.vtype.shape[0]
-    slots = torch.clamp(veh.body_slot, min=0).long()
-    pos, quat = body.pos[slots], body.quat[slots]
-    chassis = (pos, quat, body.linvel[slots], body.angvel[slots],
-               1.0 / torch.clamp(body.inv_mass[slots], min=1e-9),
-               tmath.world_inv_inertia(quat, body.inv_inertia[slots]))
-    inv_yq = quatm.conjugate(veh.y_fwd_quat)
-    up_os = quatm.cross(quatm.rotate_vec(inv_yq, quatm.basis((v,), 0, body.device)),
-                        quatm.rotate_vec(inv_yq, quatm.basis((v,), 1, body.device)))
-    up_w = quatm.rotate_vec(quat, up_os)
-    attach_w = pos[:, None, :] + quatm.rotate_vec(quat[:, None, :], veh.wheel_attach)
-    rays = (attach_w.reshape(v * MAX_WHEELS, 3),
-            (-up_w)[:, None, :].expand(v, MAX_WHEELS, 3).reshape(v * MAX_WHEELS, 3),
-            (veh.sus_max + veh.wheel_radius)[:, None].expand(v, MAX_WHEELS)
-            .reshape(v * MAX_WHEELS),
-            slots[:, None].expand(v, MAX_WHEELS).reshape(v * MAX_WHEELS).to(torch.int32))
+    """The pre-ray setup of vehicles_update in one launch of KAB: each
+    vehicle's chassis state (pos, quat, linvel, angvel, mass, world inverse
+    inertia) and its wheels' suspension rays (origins [V*4, 3], dirs,
+    max_ts, exclude = the chassis), all views of its one output buffer."""
+    buf = ksetup.vehicle_setup(veh.body_slot, veh.y_fwd_quat, veh.wheel_attach,
+                               veh.wheel_radius, veh.sus_max, body.pos, body.quat, body.linvel,
+                               body.angvel, body.inv_mass, body.inv_inertia)
+    o = ksetup.setup_views(buf, veh.vtype.shape[0])
+    chassis = tuple(o[k] for k in ("pos", "quat", "linvel", "angvel", "mass", "iw"))
+    rays = tuple(o[k] for k in ("origins", "dirs", "max_ts", "exclude"))
     return chassis, rays
 
 
@@ -256,21 +247,13 @@ def vehicles_update(veh: VehicleArrays, inputs: VehicleInputs, body: BodyState,
 
 
 def _apply_vehicle_deltas(state: BodyState, slots, dv, dw) -> BodyState:
-    """Add the deltas to the chassis velocities and wake them; vehicles
-    without a body write to a trash row past the last slot."""
-    n = state.capacity
-    ok = slots >= 0
-    dst = torch.where(ok, slots, n).long()
-
-    def padded(x, fill):
-        return torch.cat([x, torch.full((1,) + x.shape[1:], fill, dtype=x.dtype,
-                                        device=x.device)])
-    lin = padded(state.linvel, 0.0).index_add_(0, dst, torch.where(ok[:, None], dv, 0.0))
-    ang = padded(state.angvel, 0.0).index_add_(0, dst, torch.where(ok[:, None], dw, 0.0))
-    awake = padded(state.awake, False).index_fill_(0, dst, True)
-    timer = padded(state.sleep_timer, 0.0).index_fill_(0, dst, 0.0)
-    return state.replace(linvel=lin[:n], angvel=ang[:n], awake=awake[:n],
-                         sleep_timer=timer[:n])
+    """Add the deltas to the chassis velocities and wake them, in place
+    (KAB's scatter; a vehicle without a body writes nothing).  Returns a
+    new BodyState over the same tensors, so a transform block computed
+    before the write is not taken for this state's."""
+    ksetup.vehicle_scatter(slots, dv, dw, state.linvel, state.angvel, state.awake,
+                           state.sleep_timer)
+    return state.replace()
 
 
 def _set_row(t, i, value):
@@ -352,13 +335,17 @@ class VehicleManager:
         w = self.world
         w._flush()
         v = self.veh.vtype.shape[0]
-        f, r, u = (np.zeros(v, np.float32) for _ in range(3))
-        br, hb = np.zeros(v, bool), np.zeros(v, bool)
+        # The five input arrays in one host buffer, one upload: float32
+        # forward, right, up, then the brake and handbrake bytes.
+        host = np.zeros((3 * v + (2 * v + 3) // 4,), np.float32)
+        flags = host[3 * v:].view(np.uint8)
         for i, inp in self._inputs.items():
-            f[i], r[i], u[i] = inp.forward, inp.right, inp.up
-            br[i], hb[i] = inp.brake, inp.handbrake
-        dev = w.device
-        inputs = VehicleInputs(*(torch.as_tensor(x, device=dev) for x in (f, r, u, br, hb)))
+            host[i], host[v + i], host[2 * v + i] = inp.forward, inp.right, inp.up
+            flags[i], flags[v + i] = bool(inp.brake), bool(inp.handbrake)
+        dev_buf = w._upload(host)
+        fb = dev_buf[3 * v:].view(torch.uint8)
+        inputs = VehicleInputs(dev_buf[:v], dev_buf[v:2 * v], dev_buf[2 * v:3 * v],
+                               fb[:v].view(torch.bool), fb[v:2 * v].view(torch.bool))
         self.veh, dv, dw, slots = vehicles_update(self.veh, inputs, w.state, w.static_world,
                                                   dt, w.params, w.config)
         w.state = _apply_vehicle_deltas(w.state, slots, dv, dw)

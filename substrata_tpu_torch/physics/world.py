@@ -199,6 +199,7 @@ class PhysicsWorld:
         self._steps = 0
         self._nonstatic_objs = None
         self._prev_sync_block = None
+        self.last_sync_changed = None    # [N] bool; consumers skip unchanged rows
         self._structural_dirty = False
         # The last serving tick's transform block (KN) and the state it
         # describes: sync_transforms reads it while the state is still that one.
@@ -793,6 +794,7 @@ class PhysicsWorld:
         else:
             changed = np.ones((block.shape[0],), bool)
         self._prev_sync_block = block
+        self.last_sync_changed = changed
         for slot, ob in self._nonstatic_objs:
             if changed[slot]:
                 ob.pos = block[slot, 0:3]
@@ -850,7 +852,7 @@ class PhysicsWorld:
     def get_diagnostics(self) -> str:
         d = self.last_diags
         lines = [f"PhysicsWorld: {len(self.objects)}/{self.config.capacity} objects, "
-                 f"steps={self._steps}"]
+                 f"{self._num_hulls} hulls, steps={self._steps}"]
         if d is not None:
             lines.append(
                 f"  pairs={int(d.num_pairs)} contacts={int(d.num_contacts)} "

@@ -42,7 +42,16 @@ On the 10,000-box bench world (kicked once, after 30 ticks):
    step, terrain LOD and scattering; the frames timed include one camera
    jump), a profiler pass (device busy ms, device ops, the port kernels'
    device times, KW-KZ among them) and a stage pass over the frame's
-   parts.
+   parts;
+9. the client stage: the offline ClientApp over BASELINE config 5's
+   12,000-object world with 256 sources, 8 vehicles, 512 Winter objects,
+   4 platforms and 8 Lua objects (benchworld.client_world, 30 frames in;
+   the host-timed and profiled frames walk, the staged ones walk then
+   drive from frame 90), host-clock ms per frame
+   (benchworld.client_tick: timer_event and three audio blocks) with the
+   median of each of timer_event's phase_ms, the device's busy ms and idle
+   share per frame, a profiler pass (the port kernels' device times, KAA
+   and KAB among them) and a stage pass over the frame's parts.
 Prints one JSON object and writes the trace to chiprun_out/tick_trace.json.
 """
 
@@ -58,20 +67,27 @@ import numpy as np
 import torch
 
 from substrata_tpu_torch import benchworld
+from substrata_tpu_torch import client_app as client_app_mod
 from substrata_tpu_torch.audio import mix
+from substrata_tpu_torch.audio.engine import AudioEngine
 from substrata_tpu_torch.avatar_graphics import AvatarGraphicsManager
 from substrata_tpu_torch.benchworld import (N_SOURCES, TICK_FRAMES, bench_audio, bench_fulltick,
                                             bench_world, full_tick, kick, physics_audio_tick)
 from substrata_tpu_torch.kernels import (audio_mix, convex, layout, pairs, positions, serving_io,
                                          sleep)
+from substrata_tpu_torch.kernels import audio_setup as kasetup
 from substrata_tpu_torch.kernels import particles_triton as kpart
 from substrata_tpu_torch.kernels import spawn as kspawn
 from substrata_tpu_torch.kernels import terrain as kterrain
+from substrata_tpu_torch.kernels import vehicle_setup as kvsetup
 from substrata_tpu_torch.kernels import vehicles as kveh
 from substrata_tpu_torch.physics import broadphase, integrate, narrowphase, queries, solver
 from substrata_tpu_torch.physics import particles as particles_mod
 from substrata_tpu_torch.physics import terrain as terrain_mod
+from substrata_tpu_torch.physics import character as character_mod
 from substrata_tpu_torch.physics import world as world_mod
+from substrata_tpu_torch.physics.vehicles import VehicleManager
+from substrata_tpu_torch.scripting import ObjectScriptsEvaluator
 
 DT = 1.0 / 60.0
 RANGES = ("physics_step",)       # record_function ranges (step.py)
@@ -97,7 +113,8 @@ PORT_KERNELS = ("box_box_rows_kernel", "static_contacts_kernel", "solve_rows_ker
                 "cell_rank_kernel", "solve_setup_kernel", "refresh_copy_kernel",
                 "refresh_claim_kernel", "refresh_write_kernel", "winter_kernel", "pairs_",
                 "layout_", "positions_", "sleep_", "heights_kernel", "chunks_kernel",
-                "scatter_kernel", "spawn_kernel", "pose_kernel")
+                "scatter_kernel", "spawn_kernel", "pose_kernel", "audio_setup_kernel",
+                "audio_epilogue_kernel", "vehicle_setup_kernel", "vehicle_deltas_kernel")
 AUDIO_STAGES = [(mix, "prepare"), (audio_mix, "audio_fetch"), (audio_mix, "audio_spatialise"),
                 (audio_mix, "audio_downmix_reverb")]
 FULL_STAGES = [(broadphase, "build_cell_table"), (benchworld, "vehicles_update"),
@@ -118,6 +135,18 @@ TERRAIN_STAGES = [(world_mod.PhysicsWorld, "think_with_player"),
                   (terrain_mod.TerrainSystem, "update_campos"),
                   (kterrain, "terrain_chunks"), (terrain_mod.TerrainScattering, "update_campos"),
                   (kterrain, "terrain_scatter")]
+
+CLIENT_STAGES = [(client_app_mod.ClientApp, "_readback_active_objects"),
+                 (client_app_mod.ClientApp, "_audio_occlusion_pass"),
+                 (world_mod.PhysicsWorld, "think"), (world_mod.PhysicsWorld, "sync_transforms"),
+                 (world_mod.PhysicsWorld, "trace_rays_batched"),
+                 (character_mod.PlayerPhysics, "update"), (VehicleManager, "update"),
+                 (kvsetup, "vehicle_setup"), (kvsetup, "vehicle_scatter"),
+                 (kveh, "vehicle_forces"), (ObjectScriptsEvaluator, "evaluate"),
+                 (AudioEngine, "render_block"), (kasetup, "audio_setup"),
+                 (audio_mix, "audio_fetch"), (audio_mix, "audio_spatialise"),
+                 (audio_mix, "audio_downmix_reverb"), (kasetup, "audio_epilogue")]
+
 
 def _timed(fn, name, acc):
     @functools.wraps(fn)
@@ -171,8 +200,10 @@ def _staged(stages, run, ticks):
     """Host and device ms per tick of each stage, synchronised around it."""
     acc: dict = {}
     saved = [(mod, name, getattr(mod, name)) for mod, name in stages]
+    names = [name for _, name in stages]
     for mod, name, fn in saved:
-        setattr(mod, name, _timed(fn, name, acc))
+        key = name if names.count(name) == 1 else f"{mod.__name__.split('.')[-1]}.{name}"
+        setattr(mod, name, _timed(fn, key, acc))
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -271,6 +302,20 @@ def terrain_scene():
     return frame
 
 
+def client_scene():
+    """The client world at full width: (one client frame per call, the
+    app)."""
+    import tempfile
+    sounds = tempfile.TemporaryDirectory(prefix="client_world_")   # removed with the scene
+    sc = benchworld.client_world("cuda", sound_dir=sounds.name)
+    state = dict(f=0, sounds=sounds)
+
+    def frame():
+        benchworld.client_tick(sc, state["f"])
+        state["f"] += 1
+    return frame, sc.app
+
+
 def main(ticks: int = 24):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -364,6 +409,22 @@ def main(ticks: int = 24):
         device_ops=t_ops, port_kernels=t_ours, staged_ms_per_frame=staged_t_ms,
         stages=t_stages)
 
+    cframe, app = client_scene()
+    for _ in range(30):
+        cframe()
+    cframe_ms, phases = [], []
+    for _ in range(ticks):
+        cframe_ms += _host_ms(cframe, 1)
+        phases.append(dict(app.phase_ms))
+    c_busy, c_ops, _, c_ours = _device_summary(_profiled(cframe, ticks), ticks)
+    staged_c_ms, c_stages = _staged(CLIENT_STAGES, cframe, ticks)
+    c_ms = float(np.median(cframe_ms))
+    client = dict(
+        ms_per_client_frame=c_ms, device_busy_ms=c_busy, device_idle_share=1.0 - c_busy / c_ms,
+        device_ops=c_ops,
+        phase_ms_median={k: float(np.median([p[k] for p in phases])) for k in phases[-1]},
+        port_kernels=c_ours, staged_ms_per_frame=staged_c_ms, stages=c_stages)
+
     out = dict(
         card=smi, bodies=n_bodies,
         ms_per_think_rebuild=float(np.median(rebuild)), rebuild_ticks=len(rebuild),
@@ -373,7 +434,7 @@ def main(ticks: int = 24):
                           calls_per_tick=n / ticks) for name, (us, n) in top],
         port_kernels=ours,
         staged_ms_per_think=staged_ms, stages=stages, audio=audio, full_tick=full_tick_out,
-        serving_tick=serving, mesh_frame=mesh, terrain_frame=terrain)
+        serving_tick=serving, mesh_frame=mesh, terrain_frame=terrain, client_frame=client)
     print(json.dumps(out, indent=1))
     return out
 

@@ -502,3 +502,121 @@ def test_resampler_matches_reference():
         chunks.append(r.resample(chunk, 256))
         assert np.array_equal(chunks[-1], jr.resample(chunk, 256))
     assert zc_freq(np.concatenate(chunks)) == pytest.approx(500, rel=0.05)
+
+
+def _jsetup(src, listener, block, dt_block, use_hrtf):
+    """The reference's per-source setup (mix.py:290-348, :376-392) and its
+    HRIR bins, as the jitted mix_block computes them."""
+    from substrata_tpu.audio.hrtf import N_EL, quantize_direction
+    active = src.alive & ~src.paused & ~src.finished
+    to_src = src.pos - listener.pos[None, :]
+    dist = jnp.linalg.norm(to_src, axis=-1)
+    dirn = to_src / jnp.maximum(dist, 1e-6)[:, None]
+    v_src = jnp.sum(src.vel * dirn, -1)
+    v_lis = jnp.sum(listener.vel[None, :] * dirn, -1)
+    doppler = jnp.clip((jm.SPEED_OF_SOUND - v_lis)
+                       / jnp.maximum(jm.SPEED_OF_SOUND - (-v_src), 1.0), 0.5, 2.0)
+    doppler = jnp.where(src.spatial, doppler, 1.0)
+    dop_alpha = 1.0 - (1.0 - 0.2) ** (block / 256.0)
+    dop_smooth = src.doppler_factor + (doppler - src.doppler_factor) * dop_alpha
+    eff_delta = jnp.clip(src.delta * dop_smooth[:, None], 0.0, jm.DELTA_MAX)
+    mute = src.mute_factor + jnp.clip(src.mute_target - src.mute_factor,
+                                      -src.mute_rate * dt_block, src.mute_rate * dt_block)
+    dist_gain = jnp.minimum(1.0, 1.0 / jnp.maximum(dist, 1.0))
+    occ_gain = 1.0 / (1.0 + src.num_occlusions)
+    x = jnp.sum(to_src * listener.right[None, :], -1)
+    y = jnp.sum(to_src * listener.forward[None, :], -1)
+    pan = jnp.clip(x / jnp.maximum(dist, 1e-6), -1.0, 1.0)
+    theta = (pan + 1.0) * (jnp.pi / 4.0)
+    behind = y < 0.0
+    gain = src.volume * mute * jnp.where(src.spatial, dist_gain * occ_gain, 1.0)
+    occluded = src.num_occlusions > 0
+    if use_hrtf:
+        fc = jnp.where(occluded, 800.0, 20000.0)
+        use_lp = occluded
+        gl = gain * jnp.where(src.spatial, 1.0, 0.70710678) * active
+        gr = gl
+        zc = jnp.sum(to_src * listener.up[None, :], -1)
+        ai, ei = quantize_direction(x, y, zc, dist)
+        dir_idx = ai * N_EL + ei
+    else:
+        fc = jnp.where(occluded, 800.0, jnp.where(behind & src.spatial, 3000.0, 20000.0))
+        use_lp = occluded | (behind & src.spatial)
+        gl = gain * jnp.where(src.spatial, jnp.cos(theta), 0.70710678) * active
+        gr = gain * jnp.where(src.spatial, jnp.sin(theta), 0.70710678) * active
+        dir_idx = jnp.zeros_like(src.buf_len[:, 0])
+    alpha = jnp.clip(2.0 * jnp.pi * fc / jm.ENGINE_RATE, 0.0, 1.0)
+    send_gain = gain * active * src.spatial.astype(jnp.float32)
+    return dict(active=active, eff_delta=eff_delta, dop_smooth=dop_smooth, mute=mute,
+                gain=gain, gl=gl, gr=gr, alpha=alpha, use_lp=use_lp, dir_idx=dir_idx,
+                send_gain=send_gain)
+
+
+def _jepilogue(src, active, new_heads, level):
+    """The reference's finished flags, level meter and alive mask
+    (mix.py:316-319, :433-444)."""
+    finished = src.finished | (
+        (~src.looping) & (~src.stream_mode) & active
+        & (new_heads[:, 0] >= src.buf_len[:, 0].astype(jnp.float32) - 1.0))
+    # mix.py:434 writes ``src.smoothed_level * 0.9 + level * 0.1``; inside
+    # mix_block XLA fuses the level's product into the add (the level comes
+    # out of a fused reduction), which a standalone program does only with
+    # the terms in this order.
+    return dict(finished=finished, smoothed_level=level * 0.1 + src.smoothed_level * 0.9,
+                alive=src.alive & ~(finished & src.remove_on_finish))
+
+
+@pytest.mark.parametrize("use_hrtf", [True, False])
+@pytest.mark.parametrize("block", [256, 800])
+def test_kaa_setup_and_epilogue_match_reference(use_hrtf, block):
+    """KAA's twin (``prepare``'s MixSetup and ``audio_epilogue``'s fields)
+    against the jitted reference's operations on the same seeded
+    SourceState, 40 seeds of 16 sources with random Doppler factors and
+    fades.  Exact on every field, but the pan's cos and sin (HRTF off)
+    within 1e-6 of the gains' scale (the CPU libm's against XLA's); an
+    HRIR bin may differ only where its pre-round value lies within 1e-5 of
+    a half-integer (atan2's last bit), and none does on these inputs."""
+    from substrata_tpu_torch.kernels import audio_setup as kaa
+    jsetup = jax.jit(_jsetup, static_argnums=(2, 3, 4))
+    jep = jax.jit(_jepilogue)
+    moved = 0
+    for seed in range(40):
+        a = sources_np(seed)
+        rng = np.random.default_rng(100 + seed)
+        a["doppler_factor"][:] = rng.uniform(0.6, 1.8, S)
+        a["mute_factor"][:] = rng.uniform(0, 1, S)
+        a["mute_target"][:] = rng.uniform(0, 1, S)
+        a["mute_rate"][:] = rng.uniform(0, 10, S)
+        a["smoothed_level"][:] = rng.uniform(0, 1, S)
+        lis = listener_np()
+        jsrc = jax_sources(a)
+        want = jsetup(jsrc, jm.Listener(**{k: jnp.asarray(x) for k, x in lis.items()}),
+                      block, block / 48000, use_hrtf)
+        tsrc = convert.sources_from_numpy(a, device="cpu")
+        st = tm.prepare(tsrc, convert.listener_from_numpy(lis, device="cpu"), block,
+                        block / 48000, use_hrtf)
+        for name, w in want.items():
+            got = getattr(st, name)
+            w = np.asarray(w)
+            if got is None:
+                assert not use_hrtf and name == "dir_idx"
+                continue
+            got = got.numpy()
+            if name in ("gl", "gr") and not use_hrtf:
+                scale = max(float(np.abs(w).max()), 1.0)
+                np.testing.assert_allclose(got, w, rtol=0, atol=1e-6 * scale, err_msg=name)
+            elif name == "dir_idx":
+                moved += int((got != w).sum())
+            else:
+                np.testing.assert_array_equal(got, w, err_msg=f"seed {seed}: {name}")
+        heads = rng.uniform(0, 25_000, (S, 3)).astype(np.float32)
+        level = rng.uniform(0, 1, S).astype(np.float32)
+        wep = jep(jsrc, jnp.asarray(np.asarray(want["active"])), jnp.asarray(heads),
+                  jnp.asarray(level))
+        tep = kaa.epilogue_views(kaa.audio_epilogue(
+            tsrc.finished, tsrc.looping, tsrc.stream_mode, st.active, torch.as_tensor(heads),
+            tsrc.buf_len, torch.as_tensor(level), tsrc.smoothed_level, tsrc.alive,
+            tsrc.remove_on_finish), S)
+        for name, w in wep.items():
+            np.testing.assert_array_equal(tep[name].numpy(), np.asarray(w), err_msg=name)
+    assert moved == 0

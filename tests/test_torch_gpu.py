@@ -21,7 +21,10 @@ KW within 1e-6 of scale (its twin's fp.fma rounds twice where the kernel's
 __fmaf_rn rounds once: they part only at an exact tie; the triangles
 exact), KX, KY and KZ exact, and a small terrain frame on the card within
 1e-4 m (particles, the character) and 1e-5 of scale (joints) of the CPU
-path; each kernel repeats its twin's operations in the same order."""
+path; KAA exact (HRTF on and off; the pan's cos and sin within 1e-6 of
+the gains' scale, an HRIR bin only where its pre-round value lies within
+1e-5 of a half-integer), KAB exact; ClientApp on the card by default.
+Each kernel repeats its twin's operations in the same order."""
 
 import numpy as np
 import pytest
@@ -1054,3 +1057,104 @@ def test_small_terrain_frame_on_card_matches_cpu():
     assert np.abs(ge - ce).max() <= 1e-4
     assert np.abs(gj - cj).max() <= 1e-5 * max(float(np.abs(cj).max()), 1.0)
     assert len(gc) == len(cc) and all(np.array_equal(a, b) for a, b in zip(gc, cc))
+
+
+def _kaa_fields(buf, s, nl):
+    from substrata_tpu_torch.kernels import audio_setup as kaa
+    return kaa.setup_views(buf, s, nl)
+
+
+@pytest.mark.parametrize("use_hrtf", [True, False])
+def test_audio_setup_kernels_match_plain(audio, use_hrtf):
+    """KAA's setup and epilogue on bench.py's 256 sources after 10 blocks."""
+    import math
+    from substrata_tpu_torch.kernels import audio_setup as kaa
+    src, pool, lis, room, _ = audio
+    b = TICK_FRAMES
+    args = (src.alive, src.paused, src.finished, src.spatial, src.pos, src.vel, src.delta,
+            src.doppler_factor, src.mute_factor, src.mute_target, src.mute_rate, src.volume,
+            src.num_occlusions, lis.pos, lis.vel, lis.right, lis.forward, lis.up,
+            kaa.dop_alpha(b), b / mix.ENGINE_RATE, use_hrtf)
+    s, nl = src.delta.shape
+    k = kaa.setup_views(kaa.audio_setup(*args), s, nl)
+    p = kaa.setup_views(kaa.audio_setup_plain(*args), s, nl)
+    for name in ("active", "use_lp", "eff_delta", "dop_smooth", "mute", "gain", "alpha",
+                 "send_gain"):
+        assert torch.equal(k[name], p[name]), name
+    if use_hrtf:
+        assert torch.equal(k["gl"], p["gl"]) and torch.equal(k["gr"], p["gr"])
+        to = src.pos - lis.pos[None]
+        x, y, z = (fp.dot3(to, v[None]) for v in (lis.right, lis.forward, lis.up))
+        pa = torch.atan2(x, y) * fp.recip(2 * math.pi) * 16
+        pe = (torch.atan2(z, torch.clamp(fp.sqrt(fp.fma(x, x, y * y)), min=1e-6))
+              + math.pi / 4) * fp.recip(math.pi / 2) * 2
+        edge = ((pa - pa.floor() - 0.5).abs() <= 1e-5) | ((pe - pe.floor() - 0.5).abs() <= 1e-5)
+        assert torch.equal(k["dir_idx"][~edge], p["dir_idx"][~edge])
+    else:
+        for name in ("gl", "gr"):
+            assert float((k[name] - p[name]).abs().max()) <= 1e-6 * max(
+                1.0, float(p[name].abs().max())), name
+    samples, heads = mix.fetch(pool, src, p["eff_delta"], p["active"], b)
+    level = samples.abs().max(dim=1).values * p["gain"]
+    eargs = (src.finished, src.looping, src.stream_mode, p["active"], heads, src.buf_len,
+             level, src.smoothed_level, src.alive, src.remove_on_finish)
+    ek = kaa.epilogue_views(kaa.audio_epilogue(*eargs), s)
+    ep = kaa.epilogue_views(kaa.audio_epilogue_plain(*eargs), s)
+    for name in ("smoothed_level", "finished", "alive"):
+        assert torch.equal(ek[name], ep[name]), name
+
+
+def test_vehicle_setup_kernels_match_plain(fulltick):
+    """KAB's setup and scatter on the full tick's 8 vehicles, and with one
+    vehicle's body gone (slot -1)."""
+    from substrata_tpu_torch.kernels import vehicle_setup as kab
+    w, veh, _, _ = fulltick
+    st = w.state
+    nv = veh.body_slot.shape[0]
+    gone = torch.where(torch.arange(nv, device="cuda") == 3, -1, veh.body_slot).to(torch.int32)
+    for slots in (veh.body_slot, gone):
+        args = (slots, veh.y_fwd_quat, veh.wheel_attach, veh.wheel_radius, veh.sus_max, st.pos,
+                st.quat, st.linvel, st.angvel, st.inv_mass, st.inv_inertia)
+        assert torch.equal(kab.vehicle_setup(*args).view(torch.int32),
+                           kab.vehicle_setup_plain(*args).view(torch.int32))
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        dv = torch.randn((nv, 3), generator=gen, device="cuda")
+        dw = torch.randn((nv, 3), generator=gen, device="cuda")
+        rk = [st.linvel.clone(), st.angvel.clone(), st.awake.clone(), st.sleep_timer.clone()]
+        rp = [x.clone() for x in rk]
+        kab.vehicle_scatter(slots, dv, dw, *rk)
+        kab.vehicle_scatter_plain(slots, dv, dw, *rp)
+        for x, y in zip(rk, rp):
+            assert torch.equal(x, y)
+
+
+def test_client_app_defaults_to_the_card(world):
+    from substrata_tpu_torch.client_app import ClientApp
+    app = ClientApp(config=SimConfig(capacity=64, max_pairs=256, grid_dim=16))
+    assert app.device.type == "cuda" and app.physics_world.device.type == "cuda"
+    assert app.audio.device.type == "cuda" and app.scripts.device.type == "cuda"
+    assert app.avatar_graphics.device.type == "cuda"
+
+
+def test_small_client_world_on_card_matches_cpu():
+    """chip_smoke.py's small client world (phase 19) on the card against
+    the CPU path over 20 frames: the player and car 0 within 1e-4 m, the
+    audio within 5e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        sc = benchworld.client_world(dev, cfg=SimConfig(
+            capacity=512, max_pairs=2048, grid_dim=32, cell_size=4.0, solver_iters=7,
+            pair_rebuild_interval=6), n_objects=600, n_dynamic=32, n_sources=16,
+            n_vehicles=4, n_winter=16, n_platforms=1, n_lua=2)
+        sc.drive_from = 10
+        out = []
+        for f in range(20):
+            audio = benchworld.client_tick(sc, f)
+            out.append((sc.app.player.get_eye_position(),
+                        np.array(sc.app.objects[sc.car_uids[0]].pos), audio))
+        runs[dev] = out
+    for (ea, ca, aa), (eb, cb, ab) in zip(runs["cuda"], runs["cpu"]):
+        assert np.abs(ea - eb).max() <= 1e-4 and np.abs(ca - cb).max() <= 1e-4
+        assert np.abs(aa - ab).max() <= 5e-5

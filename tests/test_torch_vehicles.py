@@ -392,3 +392,71 @@ def test_full_tick_small_matches_reference():
         np.testing.assert_allclose(tchar.pos.numpy(), np.asarray(jc.pos), atol=1e-3, err_msg=what)
         assert bool(tchar.on_ground) == bool(jc.on_ground), what
     assert np.asarray(veh.wheel_contact).any()
+
+
+@jax.jit
+def _jsetup(veh, body):
+    """The reference's pre-ray setup (vehicles_update :607-630) as its
+    jitted program computes it."""
+    from substrata_tpu.maths import quat as jquat
+    from substrata_tpu.maths import transform as jtmath
+    v = veh.vtype.shape[0]
+    slots = jnp.maximum(veh.body_slot, 0)
+    pos, quat = body.pos[slots], body.quat[slots]
+    mass = 1.0 / jnp.maximum(body.inv_mass[slots], 1e-9)
+    iw = jtmath.world_inv_inertia(quat, body.inv_inertia[slots])
+    inv_yq = jquat.conjugate(veh.y_fwd_quat)
+    up_os = jnp.cross(jquat.rotate_vec(inv_yq, jnp.array([1.0, 0.0, 0.0])),
+                      jquat.rotate_vec(inv_yq, jnp.array([0.0, 1.0, 0.0])))
+    up_w = jquat.rotate_vec(quat, up_os)
+    attach_w = pos[:, None, :] + jquat.rotate_vec(quat[:, None, :], veh.wheel_attach)
+    return (pos, quat, body.linvel[slots], body.angvel[slots], mass, iw,
+            attach_w.reshape(v * 4, 3),
+            jnp.broadcast_to(-up_w[:, None, :], (v, 4, 3)).reshape(v * 4, 3),
+            jnp.broadcast_to((veh.sus_max + veh.wheel_radius)[:, None], (v, 4)).reshape(v * 4),
+            jnp.broadcast_to(slots[:, None], (v, 4)).reshape(v * 4))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kab_setup_and_scatter_match_reference(seed):
+    """KAB's twin (``chassis_and_wheel_rays``, ``_apply_vehicle_deltas``)
+    against the reference's operations on the same seeded scene: the four
+    vehicle types (a model rotated 90 degrees, a hovercar on its roof),
+    vehicle 6's body gone (slot -1), 8 distinct slots.  Gathers, masks and
+    slots exact; the rotations, inertia and mass within 1e-6 of each
+    output's scale (XLA contracts the rotation's products into fmas, the
+    twin rounds each as the kernel does); the scatter exact: each slot's
+    delta is added once to float32 velocities in both."""
+    arrays, sw, p, kw, v = _scene(seed)
+    v["body_slot"][6] = -1
+    jv = jveh.VehicleArrays(**{k: jnp.asarray(x) for k, x in v.items()})
+    tv = convert.vehicles_from_numpy(v, device="cpu")
+    body = convert.body_state_from_numpy(arrays, device="cpu")
+    want = [np.asarray(x) for x in _jsetup(jv, jax_body(arrays))]
+    chassis, rays = tveh.chassis_and_wheel_rays(tv, body)
+    got = [x.numpy() for x in chassis + rays]
+    names = ("pos", "quat", "linvel", "angvel", "mass", "iw", "origins", "dirs", "max_ts",
+             "exclude")
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape, name
+        if name in ("pos", "quat", "linvel", "angvel", "max_ts", "exclude"):
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            scale = max(float(np.abs(w).max()), 1.0)
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-6 * scale, err_msg=name)
+
+    rng = np.random.default_rng(seed + 10)
+    dv = rng.normal(0, 2, (NV, 3)).astype(np.float32)
+    dw = rng.normal(0, 1, (NV, 3)).astype(np.float32)
+    arrays["awake"][:NV] = False
+    arrays["sleep_timer"][:NV] = 0.7
+    slots = v["body_slot"].astype(np.int32)
+    jstate_out = jveh._apply_vehicle_deltas(jax_body(arrays), jnp.asarray(slots),
+                                            jnp.asarray(dv), jnp.asarray(dw))
+    body = convert.body_state_from_numpy(arrays, device="cpu")
+    tstate_out = tveh._apply_vehicle_deltas(body, torch.as_tensor(slots), torch.as_tensor(dv),
+                                            torch.as_tensor(dw))
+    for f in ("linvel", "angvel", "awake", "sleep_timer"):
+        np.testing.assert_array_equal(getattr(tstate_out, f).numpy(),
+                                      np.asarray(getattr(jstate_out, f)), err_msg=f)
+    assert not bool(tstate_out.awake[6]) and float(tstate_out.sleep_timer[6]) == np.float32(0.7)

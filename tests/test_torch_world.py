@@ -266,6 +266,16 @@ def test_import_leaves_jax_out():
             "substrata_tpu_torch.avatar_graphics, substrata_tpu_torch.physics.terrain, "
             "substrata_tpu_torch.kernels.terrain, substrata_tpu_torch.kernels.spawn, "
             "substrata_tpu_torch.shared.avatar, substrata_tpu_torch.shared.parcel, "
+            "substrata_tpu_torch.client_app, substrata_tpu_torch.loading, "
+            "substrata_tpu_torch.net.snapshots, substrata_tpu_torch.shared.world_object, "
+            "substrata_tpu_torch.shared.voxel, substrata_tpu_torch.shared.bmesh, "
+            "substrata_tpu_torch.shared.gltf, substrata_tpu_torch.shared.model_formats, "
+            "substrata_tpu_torch.shared.sub_url, substrata_tpu_torch.scripting.lua, "
+            "substrata_tpu_torch.scripting.lua_api, substrata_tpu_torch.scripting.events, "
+            "substrata_tpu_torch.scripting.path_controller, "
+            "substrata_tpu_torch.scripting.xml_scripts, "
+            "substrata_tpu_torch.kernels.audio_setup, "
+            "substrata_tpu_torch.kernels.vehicle_setup, "
             "scipy.spatial; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'substrata_tpu')]; "
@@ -353,3 +363,53 @@ def test_facade_script_tracks_reference():
         np.testing.assert_allclose(tp, jp, atol=1e-3, err_msg=f"tick {t}")
         assert tcounts == jcounts, t
     assert np.abs(port[-1][0] - port[19][0]).max() > 1.0      # the writes moved bodies
+
+
+def _sleepy_world(pkg_world, pkg_object, pkg_shapes, motion_dynamic, state_mod):
+    """Eight boxes dropped from 0.1 m (they come to rest and fall asleep)
+    and one sliding across the ground; returns every sync's changed mask."""
+    kw = dict(capacity=32, max_pairs=256, grid_dim=16, cell_size=2.0, solver_iters=7)
+    w = (pkg_world(SimConfig(**kw), device="cpu") if pkg_world is PhysicsWorld
+         else pkg_world(state_mod.SimConfig(**kw)))
+    w.set_ground_plane(0.0)
+    for i in range(8):
+        w.add_object(pkg_object(shape=pkg_shapes.make_box([0.3, 0.3, 0.3]),
+                                pos=np.array([i * 1.5 - 5.0, 2.0, 0.4], np.float32),
+                                motion_type=motion_dynamic))
+    slider = w.add_object(pkg_object(shape=pkg_shapes.make_box([0.3, 0.3, 0.3]),
+                                     pos=np.array([-6.0, -3.0, 0.31], np.float32),
+                                     motion_type=motion_dynamic))
+    masks = []
+    for t in range(150):
+        if t == 100:
+            w.set_linear_and_angular_vel(slider, [4.0, 0.0, 0.0], [0.0, 0.0, 0.0])
+        w.think(1 / 60)
+        w.sync_transforms()
+        masks.append((np.array(w.last_sync_changed), int(w.last_diags.num_awake)))
+    return masks
+
+
+def test_sync_changed_mask_matches_reference():
+    """``PhysicsWorld.last_sync_changed`` (the rows ``sync_transforms``
+    found changed, which ClientApp's readback reads) equals the
+    reference's at every sync after a think in which some bodies sleep
+    (and as many on both sides): only the bodies that moved.  Before the
+    boxes sleep the mask tracks bit-exact stillness, which the two solves
+    reach a tick or two apart (rounding), so those syncs are not held."""
+    from substrata_tpu.physics import shapes as jshapes
+    from substrata_tpu.physics.world import PhysicsObject as JObject
+    from substrata_tpu.physics.world import PhysicsWorld as JWorld
+    assert PhysicsWorld(SimConfig(capacity=8, max_pairs=64, grid_dim=8),
+                        device="cpu").last_sync_changed is None
+    ref = _sleepy_world(JWorld, JObject, jshapes, int(jstate.MotionType.DYNAMIC), jstate)
+    port = _sleepy_world(PhysicsWorld, PhysicsObject, shapes, int(MotionType.DYNAMIC), jstate)
+    compared = 0
+    for t, ((a, na), (b, nb)) in enumerate(zip(ref, port)):
+        assert a.dtype == b.dtype == bool and a.shape == b.shape, t
+        if na == nb < 9:
+            np.testing.assert_array_equal(b, a, err_msg=f"sync {t}")
+            compared += 1
+    assert compared >= 80, compared
+    assert port[0][0].all()
+    asleep = port[99][0]
+    assert not asleep[:9].any() and port[101][0][8], asleep
