@@ -118,7 +118,19 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    ClientApp over BASELINE config 5's 12,000-object world with 256
    sources, 8 vehicles, 512 Winter objects, 4 path platforms and 8 Lua
    objects (see client_phase), and a small client world on the card
-   against the CPU path (see small_client_phase).
+   against the CPU path (see small_client_phase);
+20. KAC (the BC1 encoder) on a seeded 4096^2 photo-like image's full mip
+   chain in one launch (1,398,103 blocks) and on the texture tests'
+   corpus, exact against its twin (see kac_phase);
+21. the server path: (a) a loopback Server with MeshLODGenThread on the
+   card takes a PNG upload of that image and stores its three .ktx2 LODs,
+   byte-equal to the CPU path's, with each LOD's stages timed (see
+   server_texture_phase); (b) tools/bench_networked.py's networked client
+   frame over the port: 12,000 replicated objects, a sender streaming
+   512 dynamic objects' snapshots, the viewer's ClientApp at pipeline
+   depth 3, 150 measured ticks (see networked_phase); (c) a small
+   pipelined ClientApp on the card against the CPU path (see
+   small_pipelined_phase).
 
 Every kernel also gets its bound: the least time the card could take for
 the same work, the larger of its bytes (each input read once, each output
@@ -127,7 +139,9 @@ written once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s
 
 The last lines are the kernels JSON (launches from phase 9's full ticks,
 from phase 11's serving ticks for KK-KN and KT, from phase 5's thinks for
-KS, KU and KV, and from phase 13's mesh frames for KO; KQ's two launches,
+KS, KU and KV, from phase 13's mesh frames for KO, from phases 17 and 19
+for KW-KZ and KAA-KAB, and from phase 21's texture upload for KAC; KQ's
+two launches,
 KT's four entry points and KV's two are separate entries; the grouping's
 library_ms is torch.argsort(stable=True) on its codes),
 the card's name and power limit, and {"ok": true, "device": {...}}.  TF32 stays off for matmuls and cuDNN
@@ -3220,6 +3234,338 @@ def small_client_phase(device="cuda", frames=40):
                 small_client_dynamic=int(len(k)), small_client_lua=a["lua"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: KAC (the BC1 encoder) against its twin.
+# ---------------------------------------------------------------------------
+
+TEXTURE_WH = 4096              # the base level's clamp (texture_compress.py _MAX_WH)
+BC1_FLOPS = 2600               # float32 operations a block (range fit, 2 refinements, pick)
+
+
+def photo_image(wh=TEXTURE_WH, seed=0):
+    """A seeded photo-like RGB image: smooth gradients plus U(-8, 8) noise."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:wh, 0:wh].astype(np.float32)
+    img = np.stack([x * (255.0 / wh), y * (255.0 / wh), (x + y) * (127.5 / wh)], axis=-1)
+    img += rng.uniform(-8, 8, img.shape).astype(np.float32)
+    return np.clip(np.round(img), 0, 255).astype(np.uint8)
+
+
+def bc1_corpus(nb=4096, seed=0):
+    """tests/test_torch_texture.py's kinds of blocks, nb of each."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 1.0, 16)[None, :, None]
+    a = rng.uniform(0, 255, (nb, 1, 3))
+    b = rng.uniform(0, 255, (nb, 1, 3))
+    ties = np.array([0.0, 42.5, 85.0, 127.5, 170.0, 212.5, 255.0])
+    kinds = [rng.uniform(0, 255, (nb, 16, 3)), np.round(rng.uniform(0, 255, (nb, 16, 3))),
+             np.round(a + (b - a) * t), np.repeat(np.round(a), 16, axis=1),
+             np.round(np.where(rng.integers(0, 2, (nb, 16, 1)), a, b)),
+             ties[rng.integers(0, len(ties), (nb, 16, 3))],
+             np.clip(np.round(a + rng.normal(0, 4, (nb, 16, 3))), 0, 255)]
+    return np.concatenate(kinds).astype(np.float32)
+
+
+def kac_phase(device="cuda", wh=TEXTURE_WH, plain_reps=3):
+    """KAC on the full mip chain of a seeded ``wh`` x ``wh`` photo-like
+    image in one launch (1,398,103 blocks at 4096), then on the test
+    corpus, each against the twin on the same tensor: exact words (the
+    tolerance of tests/test_torch_texture.py).  Timed as phase 3 times its
+    kernels; no single PyTorch call computes BC1 (library_ms null)."""
+    from substrata_tpu_torch.kernels import bc1
+    from substrata_tpu_torch.shared import texture_compress as tc
+    img = photo_image(wh)
+    blocks = np.concatenate([tc._to_blocks(m) for m, _, _ in tc.mip_chain(img)])
+    res = {}
+    for what, host in (("chain", blocks), ("corpus", bc1_corpus())):
+        t = torch.as_tensor(host, device=device)
+        k = bc1.bc1_encode(t)
+        p = bc1.bc1_encode_plain(t)
+        diff = int((k != p).any(dim=1).sum())
+        check(diff == 0, f"KAC: {diff} of {len(host)} blocks differ from the twin ({what})")
+        res[f"{what}_blocks"] = len(host)
+        res[f"{what}_blocks_differing"] = diff
+    t = torch.as_tensor(blocks, device=device)
+    ms = median_ms(lambda: bc1.bc1_encode(t))
+    plain_ms = median_ms(lambda: bc1.bc1_encode_plain(t), reps=1, rounds=plain_reps)
+    b = bound(t.numel() * 4 + len(blocks) * 8, len(blocks) * BC1_FLOPS)
+    res.update(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+               dev_us=device_us(lambda: bc1.bc1_encode(t), "bc1"), **b)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the server path.
+# ---------------------------------------------------------------------------
+
+def _tls_context():
+    """The reference's default (TLS with a generated dev certificate) where
+    this machine can make one (``cryptography`` or the openssl CLI), else
+    plaintext; returns (context argument, what)."""
+    import shutil
+    from substrata_tpu_torch.net import tls
+    try:
+        import cryptography  # noqa: F401
+        return tls.DEV_TLS, "TLS (cryptography)"
+    except ImportError:
+        pass
+    if shutil.which("openssl"):
+        return tls.DEV_TLS, "TLS (openssl CLI)"
+    return None, "plaintext (no cryptography, no openssl)"
+
+
+def texture_stages(img, device="cuda", sync=lambda: torch.cuda.synchronize()):
+    """generate_compressed_texture's stages one by one for each LOD level,
+    host-clock ms with a sync after each device stage; checks the bytes
+    equal the entry point's."""
+    from substrata_tpu_torch.kernels import bc1
+    from substrata_tpu_torch.shared import texture_compress as tc
+    out = {}
+    for level in (0, 1, 2):
+        ms = {}
+        t0 = time.perf_counter()
+        src = tc._resize_for_level(img, level, 0)
+        mips = tc.mip_chain(src)
+        blocks = np.concatenate([tc._to_blocks(m) for m, _, _ in mips])
+        t1 = time.perf_counter()
+        ms["resize_mip_chain_ms"] = (t1 - t0) * 1e3
+        dev = torch.from_numpy(blocks)
+        if device != "cpu":
+            dev = dev.pin_memory().to(device, non_blocking=True)
+        sync()
+        t2 = time.perf_counter()
+        ms["upload_ms"] = (t2 - t1) * 1e3
+        words = bc1.bc1_encode(dev)
+        sync()
+        t3 = time.perf_counter()
+        ms["kac_ms"] = (t3 - t2) * 1e3
+        host = words.cpu().numpy().view(np.uint32)
+        t4 = time.perf_counter()
+        ms["read_ms"] = (t4 - t3) * 1e3
+        level_bytes, at = [], 0
+        for m, _, _ in mips:
+            c = ((m.shape[0] + 3) // 4) * ((m.shape[1] + 3) // 4)
+            level_bytes.append(host[at:at + c].astype("<u4").tobytes())
+            at += c
+        data = tc.write_ktx2(level_bytes, mips[0][1], mips[0][2], srgb=True)
+        ms["ktx2_write_ms"] = (time.perf_counter() - t4) * 1e3
+        ms["blocks"] = len(blocks)
+        check(data == tc.generate_compressed_texture(img, lod_level=level, device=device),
+              f"texture stages: level {level} bytes differ from generate_compressed_texture")
+        out[f"lod{level}"] = ms
+    return out
+
+
+def server_texture_phase(device="cuda", wh=TEXTURE_WH, timeout=300.0):
+    """(a) A loopback Server with MeshLODGenThread on the card; a Client
+    uploads a seeded ``wh``^2 photo-like PNG (stdlib writer, Sub filter,
+    zlib level 1) over connection type 501; the three .ktx2 LODs appear,
+    KAC launched 3 times, each byte-equal to the CPU path's
+    (generate_compressed_texture with device="cpu").  Reports the upload
+    and the pipeline's ms, and each LOD's stages."""
+    import tempfile
+    from substrata_tpu_torch import kernels
+    from substrata_tpu_torch.net import client as nclient
+    from substrata_tpu_torch.net import protocol as P
+    from substrata_tpu_torch.net.server import Server
+    from substrata_tpu_torch.server_side.asset_pipeline import MeshLODGenThread, decode_image_bytes
+    from substrata_tpu_torch.shared import png
+    from substrata_tpu_torch.shared import texture_compress as tc
+    img = photo_image(wh)
+    t0 = time.perf_counter()
+    data = png.write_png(img, filter_type=1, level=1)
+    png_ms = (time.perf_counter() - t0) * 1e3
+    check(len(data) < Server.MAX_UPLOAD_BYTES, f"the PNG is {len(data)} bytes")
+    tls_ctx, tls_what = _tls_context()
+    res = dict(png_bytes=len(data), png_write_ms=png_ms, transport=tls_what)
+    with tempfile.TemporaryDirectory(prefix="server_res_") as res_dir:
+        server = Server(port=0, udp_port=0, resource_dir=res_dir, tls_context=tls_ctx)
+        server.lod_gen = MeshLODGenThread(server.resources, device=device)
+        server.lod_gen.start()
+        server.start()
+        try:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            code = nclient.upload_resource("127.0.0.1", server.port, "photo.png", data,
+                                           tls_context=tls_ctx)
+            t1 = time.perf_counter()
+            check(code == P.UPLOAD_ALLOWED, f"upload refused: {code}")
+            gen = server.lod_gen
+            while len(gen.generated) < 3 and not gen.errors and time.perf_counter() - t1 < timeout:
+                time.sleep(0.01)
+            t2 = time.perf_counter()
+            check(not gen.errors, f"texture pipeline: {gen.errors}")
+            check(len(gen.generated) == 3, f"texture pipeline made {gen.generated}")
+            res.update(upload_ms=(t1 - t0) * 1e3, pipeline_ms=(t2 - t1) * 1e3,
+                       launches={"bc1_encode": kernels.launch_counts()["bc1_encode"]})
+            check(res["launches"]["bc1_encode"] == 3, "KAC: not 3 launches for one texture")
+            lods = [server.resources.load_resource(tc.lod_texture_url("photo.png", lvl))
+                    for lvl in (0, 1, 2)]
+        finally:
+            server.stop()
+            server.lod_gen.stop()
+    t0 = time.perf_counter()
+    decoded = decode_image_bytes(data)
+    res["decode_ms"] = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(decoded, img), "the PNG decodes to another image")
+    torch.set_num_threads(max(1, os.cpu_count() or 1))
+    for lvl, got in enumerate(lods):
+        t0 = time.perf_counter()
+        want = tc.generate_compressed_texture(img, lod_level=lvl, device="cpu")
+        res[f"cpu_path_lod{lvl}_ms"] = (time.perf_counter() - t0) * 1e3
+        check(got == want, f"LOD {lvl}: the card's KTX2 differs from the CPU path's")
+        meta, _ = tc.read_ktx2(got)
+        res[f"lod{lvl}_size"] = [meta["width"], meta["height"], meta["levels"], len(got)]
+    res["stages"] = texture_stages(img, device)
+    res["ktx2_equal_to_cpu_path"] = True
+    return res
+
+
+NET_LOAD_TICKS = 10        # tools/bench_networked.py:104
+NET_WARM_TICKS = 120       # :169
+NET_TICKS = 150            # :194
+NET_PROFILE_TICKS = 20
+
+
+def networked_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None,
+                    warm=NET_WARM_TICKS, ticks=NET_TICKS):
+    """(b) tools/bench_networked.py's networked frame over the port:
+    ``benchworld.networked_world`` (12,000 objects, 512 dynamic, the
+    SimConfig of bench_networked, pipeline depth 3, audio off), 10 load
+    ticks, ``prewarm_tiers``, the sender's stream thread, ``warm`` ticks,
+    then ``ticks`` measured (host clock around each timer_event, as the
+    bench times them).  Checks: every object replicated and loaded, every
+    body finite unless thrown (above 50 m or below -0.5 m at some measured
+    tick: the trimesh sign rule, as phases 13 and 19), no unthrown dynamic
+    body below -0.5 m, the digest and transform rings 3 deep (consumed 3
+    ticks late), the step's kernels launched every tick.  Reports ticks/s,
+    ms p50/p90/max, phase_ms, syncs and copies per tick, the ring's waits
+    and the card's busy ms and idle share over a profiled window."""
+    from substrata_tpu_torch import benchworld as bw
+    from substrata_tpu_torch import kernels
+    from substrata_tpu_torch.profile_tick import _device_summary, _profiled
+    tls_ctx, tls_what = _tls_context()
+    t0 = time.perf_counter()
+    sc = bw.networked_world(device, n_objects=n_objects, n_dynamic=n_dynamic, cfg=cfg,
+                            tls_context=tls_ctx)
+    try:
+        app, pw = sc.app, sc.app.physics_world
+        for _ in range(NET_LOAD_TICKS):
+            bw.networked_tick(sc)
+        check(len(app.objects) == n_objects, f"{len(app.objects)} of {n_objects} objects "
+              "loaded after the load ticks")
+        load_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        pw.prewarm_tiers(player=app.player)
+        torch.cuda.synchronize()
+        prewarm_s = time.perf_counter() - t1
+        bw.start_sender_stream(sc)
+        for _ in range(warm):
+            bw.networked_tick(sc)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        waits0 = pw._digest_pipeline.waits + pw._sync_pipeline.waits
+        times, phases, zs = [], [], []
+        t1 = time.perf_counter()
+        for _ in range(ticks):
+            a = time.perf_counter()
+            bw.networked_tick(sc)
+            times.append((time.perf_counter() - a) * 1e3)
+            phases.append(dict(app.phase_ms))
+            zs.append(pw.state.pos[:, 2].clone())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = kernels.launch_counts()
+        waits = pw._digest_pipeline.waits + pw._sync_pipeline.waits - waits0
+        for name in ("apply_tick_in", "digest_tblock", "character_update", "convex_rows",
+                     "static_contacts", "cell_table", "solve_setup", "sleep_pass"):
+            check(counts[name] >= ticks, f"kernel {name}: {counts[name]} launches in {ticks} "
+                  "networked ticks")
+        check(len(pw._digest_pipeline) == bw.NET_PIPELINE_DEPTH
+              and len(pw._sync_pipeline) == bw.NET_PIPELINE_DEPTH,
+              "the readback rings are not 3 deep")
+        check(sc.viewer.world_state.num_objects() == n_objects and len(app.objects) == n_objects,
+              "not every object replicated")
+        st = pw.state
+        z_all = torch.stack(zs)
+        dyn = st.alive & (st.motion_type == 2)
+        thrown = ((z_all > 50.0) | (z_all < -0.5)).any(dim=0) & dyn
+        finite = (torch.isfinite(st.pos).all(dim=1) & torch.isfinite(st.quat).all(dim=1)
+                  & torch.isfinite(st.linvel).all(dim=1))
+        check(bool((finite | thrown | ~st.alive).all()), "a body that was never thrown has a "
+              "non-finite state")
+        check(not bool((dyn & ~thrown & (st.pos[:, 2] < -0.5)).any()),
+              "an unthrown dynamic body below z = -0.5")
+        counted = _counted(lambda: bw.networked_tick(sc), SYNC_TICKS)
+        prof_ms = []
+
+        def timed_tick():
+            a = time.perf_counter()
+            bw.networked_tick(sc)
+            prof_ms.append((time.perf_counter() - a) * 1e3)
+        prof = _profiled(timed_tick, NET_PROFILE_TICKS)
+        busy_ms, ops, _, ours = _device_summary(prof, NET_PROFILE_TICKS)
+        window_ms = float(np.mean(prof_ms))
+        ws = sc.viewer.world_state
+        res = dict(
+            transport=tls_what, replicate_s=sc.replicate_s, load_s=load_s, prewarm_s=prewarm_s,
+            ticks=ticks, ticks_per_s=ticks / wall,
+            ms_per_tick_p50=float(np.percentile(times, 50)),
+            ms_per_tick_p90=float(np.percentile(times, 90)), ms_per_tick_max=float(max(times)),
+            phase_ms_mean={k: float(np.mean([p.get(k, 0.0) for p in phases]))
+                           for k in phases[-1]},
+            launches=counts, ring_waits_per_tick=waits / ticks, counted=counted,
+            profiled_ms_per_tick=window_ms, device_busy_ms_per_tick=busy_ms,
+            device_idle_share=1.0 - busy_ms / window_ms, device_ops_per_tick=ops,
+            port_kernels=ours, objects=len(app.objects), bodies=int(st.alive.sum()),
+            dynamic_thrown=int(thrown.sum()), snapshots_sent=sc.snapshots_sent,
+            snapshots_received=int(ws.snapshots.next_i.sum()), tier=pw._tier,
+            pairs=int(pw.last_diags.num_pairs), contacts=int(pw.last_diags.num_contacts))
+    finally:
+        sc.close()
+    return res
+
+
+def _pipelined_small_app(device, frames):
+    """A small offline ClientApp at pipeline_depth=3 (tests/
+    test_torch_networked.py's world: 8 boxes 3 m apart, a static box, the
+    walking player) on ``device``; the objects' and the eye's positions
+    every frame."""
+    from substrata_tpu_torch import benchworld as bw
+    from substrata_tpu_torch.client_app import ClientApp, PlayerInput
+    from substrata_tpu_torch.physics.state import SimConfig
+    from substrata_tpu_torch.shared.world_object import DYNAMIC_FLAG, WorldObject
+    clock = bw.FrameClock()
+    app = ClientApp(config=SimConfig(capacity=128, max_pairs=512, grid_dim=16, cell_size=4.0,
+                                     solver_iters=6, pair_rebuild_interval=6),
+                    clock=clock, enable_audio=False, pipeline_depth=3, device=device)
+    uids = []
+    for i in range(8):
+        ob = WorldObject(flags=DYNAMIC_FLAG | 1, mass=10.0 + i,
+                         pos=np.array([(-6.0, -3.0, 3.0, 6.0)[i % 4], 4.0 * (i // 4),
+                                       1.0 + 0.6 * i]))
+        app.create_object(ob)
+        uids.append(ob.uid)
+    app.create_object(WorldObject(flags=1, pos=np.array([3.0, 8.0, 0.5])))
+    out = []
+    for f in range(frames):
+        clock.t = f * DT
+        app.timer_event(DT, PlayerInput(forward=1.0, right=0.2 if f > 30 else 0.0))
+        out.append((np.array([app.objects[u].pos for u in uids], np.float64),
+                    np.array(app.player.get_eye_position(), np.float64)))
+    return out
+
+
+def small_pipelined_phase(device="cuda", frames=40):
+    """(c) The small pipelined ClientApp on the card against the CPU path
+    over ``frames`` frames: objects and eye within 1e-4 m (the
+    deterministic check of the pipelined ring on the card)."""
+    a, b = _pipelined_small_app(device, frames), _pipelined_small_app("cpu", frames)
+    err = max(float(np.abs(x - y).max()) for fa, fb in zip(a, b) for x, y in zip(fa, fb))
+    check(err <= 1e-4, f"small pipelined app: card vs CPU path {err} > 1e-4")
+    return dict(cuda_vs_cpu_small_pipelined_err=err, small_pipelined_frames=frames)
+
+
 PHYSICS_KERNELS = ("box_box_rows", "static_contacts", "solve_iteration", "apply_forces",
                    "integrate_positions", "cell_table", "solve_setup", "cache_refresh",
                    "find_pairs", "layout_incidence", "solve_positions", "strike_wake",
@@ -3344,6 +3690,8 @@ KERNELS = [
      "substrata_tpu/physics/vehicles/manager.py:609"),
     ("vehicle_scatter", "cuda", "substrata_tpu_torch/csrc/vehicle_setup.cu",
      "substrata_tpu/physics/vehicles/manager.py:664"),
+    ("bc1_encode", "cuda", "substrata_tpu_torch/csrc/bc1.cu",
+     "substrata_tpu/shared/texture_compress.py:46"),
 ]
 # The run whose launches each kernel line reports: phase 9's full ticks,
 # unless named here (phase 5's thinks, 11's serving ticks, 13's mesh
@@ -3357,7 +3705,7 @@ LAUNCHES_FROM = {"closed_form_rows": "serving", "character_update": "serving",
                  "terrain_scatter": "terrain", "spawn_rows": "terrain",
                  "pose_avatars": "terrain", "audio_setup": "client",
                  "audio_epilogue": "client", "vehicle_setup": "client",
-                 "vehicle_scatter": "client"}
+                 "vehicle_scatter": "client", "bc1_encode": "server"}
 
 
 def main():
@@ -3374,6 +3722,11 @@ def main():
     smi = nvidia_smi_line()
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} triton {triton.__version__} | "
         f"{torch.cuda.get_device_name(0)} | nvidia-smi: {smi}")
+    import importlib.util
+    import shutil
+    log("# installed: " + ", ".join(
+        f"{m} {'yes' if importlib.util.find_spec(m) else 'no'}"
+        for m in ("PIL", "cryptography", "zstandard")) + f", openssl {shutil.which('openssl')}")
 
     t0 = time.perf_counter()
     build.build(verbose=True)
@@ -3501,9 +3854,26 @@ def main():
         f"{cl_res['lua_objects']} Lua objects): {cl_res['ms_per_client_frame_median']:.3f} "
         f"(p90 {cl_res['ms_per_client_frame_p90']:.3f}); build {cl_res['build_s']:.1f} s | {smi}")
 
+    kac = kac_phase()
+    log(f"# phase 20 KAC: {json.dumps(kac)} | {smi}")
+    kres["bc1_encode"] = kac
+
+    tx_res = server_texture_phase()
+    log(f"# phase 21a server texture path: {json.dumps(tx_res)} | {smi}")
+    net_res = networked_phase()
+    log(f"# phase 21b networked frame: {json.dumps(net_res)} | {smi}")
+    net_res.update(small_pipelined_phase())
+    log(f"# phase 21c small pipelined app: cuda vs cpu "
+        f"{net_res['cuda_vs_cpu_small_pipelined_err']} | {smi}")
+    log(f"# networked client frame ({net_res['objects']} objects, pipeline depth 3, "
+        f"{net_res['transport']}): {net_res['ticks_per_s']:.2f} ticks/s, ms p50 "
+        f"{net_res['ms_per_tick_p50']:.3f} p90 {net_res['ms_per_tick_p90']:.3f} max "
+        f"{net_res['ms_per_tick_max']:.3f}, card idle {net_res['device_idle_share']:.3f}; "
+        f"texture upload to 3 LODs {tx_res['pipeline_ms']:.1f} ms | {smi}")
+
     # Launches: each kernel's count on its main path (LAUNCHES_FROM).
     runs = dict(think=main_res, full=ft_res, serving=sv_res, mesh=me_res, terrain=te_res,
-                client=cl_res)
+                client=cl_res, server=tx_res)
     launches = {name: runs[LAUNCHES_FROM.get(name, "full")]["launches"][name]
                 for name, *_ in KERNELS}
     for name in ("find_pairs", "solve_positions", "strike_wake", "sleep_pass"):
@@ -3524,7 +3894,8 @@ def main():
                        serving_kernels=sres, serving_tick=sv_res, mesh_kernels=mk_res,
                        mesh_world=me_res, kpqr_kernels=kpqr, layout_kernels=lay,
                        terrain_kernels=tk, terrain_world=te_res, setup_kernels=su,
-                       client_frame=cl_res),
+                       client_frame=cl_res, kac=kac, server_texture=tx_res,
+                       networked_frame=net_res),
                   f, indent=1)
     log(json.dumps(out))
     log(smi)

@@ -14,7 +14,10 @@ terrain, avatar and particle steps (``terrain_world``, ``terrain_tick``);
 and the client's own frame, ``ClientApp.timer_event`` with three audio
 blocks, over config 5's world loaded through ``create_object`` with 256
 sources, 8 vehicles, 512 Winter objects, 4 path platforms and 8 Lua
-objects (``client_world``, ``client_tick``)."""
+objects (``client_world``, ``client_tick``); and config 5's networked frame:
+a loopback server, a sender client streaming its dynamic objects'
+snapshots and a viewer ``ClientApp`` at pipeline depth 3 over the
+replicated world (``networked_world``, ``networked_tick``)."""
 
 from __future__ import annotations
 
@@ -777,3 +780,121 @@ def client_tick(scene: ClientScene, frame: int):
         app.enter_vehicle(scene.car_uids[0])
     app.timer_event(DT, client_input(frame, scene.drive_from))
     return app.audio.render(3) if app.audio is not None else None
+
+
+# --- The networked client frame (tools/bench_networked.py, config 5) --------
+
+NET_PIPELINE_DEPTH = 3    # tools/bench_networked.py:86-87
+NET_SEND_SLICE = 64       # snapshots a sender tick (:152)
+
+
+@dataclasses.dataclass
+class NetworkedScene:
+    """tools/bench_networked.py:44-112's topology over the port: a loopback
+    ``Server``, a sender ``Client`` that created the world and streams its
+    dynamic objects' snapshots, and a viewer ``ClientApp`` over its own
+    ``Client`` with the whole world replicated."""
+
+    server: object
+    sender: object
+    viewer: object
+    app: object
+    n_objects: int
+    dyn_uids: list
+    replicate_s: float = 0.0
+    stream: object = None          # the sender's thread, once started
+    stop_evt: object = None
+    snapshots_sent: int = 0
+
+    def close(self):
+        if self.stop_evt is not None:
+            self.stop_evt.set()
+            self.stream.join(timeout=2.0)
+        self.viewer.stop()
+        self.sender.stop()
+        self.server.stop()
+
+
+def networked_world(device, n_objects: int = N_OBJECTS, n_dynamic: int = N_DYNAMIC,
+                    cfg: SimConfig | None = None, pipeline_depth: int = NET_PIPELINE_DEPTH,
+                    tls_context=None, timeout: float = 120.0) -> NetworkedScene:
+    """Build bench_networked's world (:44-100): the sender creates
+    ``n_objects`` unit cubes (``cube.bmesh``, the first ``n_dynamic``
+    dynamic, seed 0 positions as ``mesh_layout``), the viewer's ``ClientApp``
+    (``device``, ``pipeline_depth``, audio off, mesh_config's SimConfig)
+    has the cube model before load and waits until every object has
+    replicated.  ``tls_context``: the server's and clients' (None:
+    plaintext; ``net.tls.DEV_TLS``: the reference's default)."""
+    from substrata_tpu_torch.net.client import Client
+    from substrata_tpu_torch.net.server import Server
+    from substrata_tpu_torch.shared.world_object import COLLIDABLE_FLAG, DYNAMIC_FLAG
+
+    server = Server(port=0, udp_port=0, tls_context=tls_context)
+    server.start()
+    sender = Client("127.0.0.1", server.port, tls_context=tls_context)
+    sender.start()
+    for i, pos in enumerate(mesh_layout(n_objects, n_dynamic)):
+        sender.send_create_object(WorldObject(
+            model_url="cube.bmesh", flags=COLLIDABLE_FLAG | (DYNAMIC_FLAG if i < n_dynamic else 0),
+            pos=pos))
+    viewer = Client("127.0.0.1", server.port, tls_context=tls_context)
+    viewer.start()
+    app = ClientApp(client=viewer, config=cfg or mesh_config(), enable_audio=False,
+                    pipeline_depth=pipeline_depth, device=device)
+    app.resources["cube.bmesh"] = write_bmesh(CUBE_VERTS, CUBE_TRIS)
+    t0 = time.perf_counter()
+    while (viewer.world_state.num_objects() < n_objects
+           and time.perf_counter() - t0 < timeout):
+        time.sleep(0.05)
+    if viewer.world_state.num_objects() < n_objects:
+        raise RuntimeError(f"replication stalled at {viewer.world_state.num_objects()}")
+    dyn = [uid for uid, ob in viewer.world_state.objects_snapshot().items()
+           if ob.is_dynamic()][:n_dynamic]
+    return NetworkedScene(server, sender, viewer, app, n_objects, dyn,
+                          replicate_s=time.perf_counter() - t0)
+
+
+def start_sender_stream(scene: NetworkedScene, seed: int = 1):
+    """The sender's stream thread (tools/bench_networked.py:130-166): each
+    dynamic object wanders at 2 m/s, 32 re-steered every 60 ticks, a
+    respawn teleport every 30 ticks; a tick sends the snapshots of every
+    third object (at most 64), at 60 Hz."""
+    import threading
+
+    stop = threading.Event()
+    uids = scene.dyn_uids
+
+    def stream():
+        rng = np.random.default_rng(seed)
+        nd = len(uids)
+        pos = rng.uniform([-180, -180, 1], [180, 180, 4], (nd, 3)).astype(np.float32)
+        vel = rng.normal(0, 2.0, (nd, 3)).astype(np.float32)
+        vel[:, 2] = 0.0
+        tick = 0
+        while not stop.is_set():
+            pos += vel * DT
+            if tick % 60 == 0:
+                steer = rng.integers(0, nd, 32)
+                vel[steer] = rng.normal(0, 2.0, (32, 3)).astype(np.float32)
+                vel[steer, 2] = 0.0
+            idxs = np.arange(nd)[tick % 3::3][:NET_SEND_SLICE]
+            if tick % 30 == 0 and len(idxs):
+                pos[idxs[0]] = rng.uniform([-180, -180, 1], [180, 180, 4])
+            for k in idxs:
+                scene.sender.send_physics_snapshot(uids[int(k)], pos[k],
+                                                   np.array([0, 0, 0, 1], np.float32),
+                                                   vel[k], np.zeros(3, np.float32))
+            scene.snapshots_sent += len(idxs)
+            tick += 1
+            stop.wait(DT)
+
+    scene.stop_evt = stop
+    scene.stream = threading.Thread(target=stream, daemon=True)
+    scene.stream.start()
+
+
+def networked_tick(scene: NetworkedScene):
+    """One viewer frame: ``app.timer_event(1/60)`` with no input, as
+    tools/bench_networked.py ticks it (real time: the snapshots' dejitter
+    runs on the wall clock)."""
+    scene.app.timer_event(DT)

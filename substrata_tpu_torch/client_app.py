@@ -32,15 +32,15 @@ The app runs with or without a server connection (offline worlds).
 A copy of ``substrata_tpu/client_app.py`` over the port's modules.  The
 app and everything it owns run on one device: the card unless
 ``device="cpu"`` is passed.  The networked branches are the reference's,
-behind ``self.client is not None``; the port has no network client yet
-(ROADMAP.md queue 1, item 5, step 3), so the port runs offline worlds.
-``pipeline_depth > 0`` raises NotImplementedError (the pipelined
-readback, ROADMAP.md queue 1, item 3).
+behind ``self.client is not None`` (a ``net.client.Client`` of the port);
+``pipeline_depth > 0`` turns on the world's and the player's pipelined
+readback (``runtime/readback.py``).
 """
 
 from __future__ import annotations
 
 import math
+import struct
 import time
 from dataclasses import dataclass, field
 
@@ -49,6 +49,7 @@ import numpy as np
 from substrata_tpu_torch.audio.engine import AudioEngine, AudioSource
 from substrata_tpu_torch.avatar_graphics import AvatarGraphicsManager, PoseConstraint
 from substrata_tpu_torch.device import resolve_device
+from substrata_tpu_torch.net import protocol
 from substrata_tpu_torch.net.snapshots import (
     OWNERSHIP_PERIOD, SEND_PERIOD, SnapshotRings,
 )
@@ -785,10 +786,8 @@ class ClientApp:
                 avatar_uid = self.client.avatar_uid if self.client else 0
                 self.script_vm.fire_user_touched_object(ob.uid, avatar_uid)
                 if self.client is not None:
-                    import struct as _s
-                    from substrata_tpu_torch.net import protocol as P
-                    self.client.send_message(P.make_message(
-                        P.USER_TOUCHED_OBJECT_MESSAGE, _s.pack("<Q", ob.uid)))
+                    self.client.send_message(protocol.make_message(
+                        protocol.USER_TOUCHED_OBJECT_MESSAGE, struct.pack("<Q", ob.uid)))
 
     def _readback_active_objects(self, global_time):
         """Step 6: push simulated transforms to world objects + audio; stage

@@ -40,9 +40,10 @@ path went through the kernels.
   KZ  pose.py               csrc/pose.cu             skeletal pose of every avatar
   KAA audio_setup.py        csrc/audio_setup.cu      the mix's per-source setup + epilogue
   KAB vehicle_setup.py      csrc/vehicle_setup.cu    vehicle pre-ray setup + delta scatter
+  KAC bc1.py                csrc/bc1.cu              BC1 encoding of a texture's mip chain
 """
 
-from substrata_tpu_torch.kernels import (audio_mix, audio_setup, box_box, cell_table,
+from substrata_tpu_torch.kernels import (audio_mix, audio_setup, bc1, box_box, cell_table,
                                          character, closed_forms, convex, integrate_triton,
                                          layout, pairs, particles_triton, pose, positions,
                                          ray_trace, serving_io, sleep, solve, solve_setup, spawn,
@@ -77,6 +78,7 @@ def launch_counts() -> dict:
         "pose_avatars": pose.launches,
         **audio_setup.launches,
         **vehicle_setup.launches,
+        "bc1_encode": bc1.launches,
     }
 
 
@@ -96,6 +98,7 @@ def reset_launch_counts():
     positions.launches = 0
     spawn.launches = 0
     pose.launches = 0
+    bc1.launches = 0
     for counts in (integrate_triton.launches, audio_mix.launches, serving_io.launches,
                    solve_setup.launches, layout.launches, sleep.launches, terrain.launches,
                    audio_setup.launches, vehicle_setup.launches):

@@ -187,6 +187,8 @@ SIGNATURES = {
     "vehicle_setup": [P] * 11 + [I] + [P] + [P],
     # slots, dv, dw; V, N; linvel, angvel, awake, sleep_timer; stream
     "vehicle_scatter": [P] * 3 + [I] * 2 + [P] * 4 + [P],
+    # blocks [nb, 16, 3], out words [nb, 2], nb, stream
+    "bc1_encode": [P, P, I] + [P],
 }
 
 _lib = None

@@ -11,8 +11,9 @@ reference's entry points and the host wrapper ``PlayerPhysics``, which
 also owns the kinematic capsule proxy body that lets the solver push
 dynamic bodies.
 
-Not in this slice: pipelined readback (``set_pipelined`` with a depth
-raises, ROADMAP.md queue 1, slice 2).
+``PlayerPhysics.set_pipelined(depth)``: ``update`` consumes the packed
+vector dispatched ``depth`` updates ago (``runtime.readback``); inside the
+serving tick the world's ring carries it with the digest.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ from substrata_tpu_torch.kernels.character import (  # noqa: F401
 from substrata_tpu_torch.physics import broadphase, queries
 from substrata_tpu_torch.physics.state import (BodyState, MotionType, SimConfig, SimParams,
                                                StaticWorld, _Replace)
+from substrata_tpu_torch.runtime.readback import PipelinedReadback
 
-_SLICE2 = "ROADMAP.md queue 1, slice 2: facade completion"
 
 
 @dataclasses.dataclass
@@ -127,6 +128,7 @@ class PlayerPhysics:
                                                                     np.float32)
         self._host_on_ground = False
         self._host_vel = np.zeros(3, np.float32)
+        self._pipeline = None           # set_pipelined
         self._last_campos = np.array(list(np.asarray(eye_pos, np.float32)) + [1.0], np.float32)
         self.move_desired_vel = np.zeros(3, np.float32)
         self.last_jump_time = -1.0
@@ -160,8 +162,10 @@ class PlayerPhysics:
         self.move_desired_vel = np.zeros(3, np.float32)
 
     def set_pipelined(self, depth: int):
-        if depth > 0:
-            raise NotImplementedError(f"pipelined readback is not ported yet ({_SLICE2})")
+        """Pipelined host readback for ``update``: it consumes the packed
+        vector dispatched ``depth`` updates ago; the device state chain
+        stays exact."""
+        self._pipeline = PipelinedReadback(depth) if depth > 0 else None
 
     def tick_scalars(self, dt, cur_time):
         """This tick's 8 update scalars (see ``tick_scalars``)."""
@@ -177,7 +181,17 @@ class PlayerPhysics:
         scal = torch.as_tensor(self.tick_scalars(dt, cur_time), device=w.device)
         self.state, packed = player_update_packed(self.state, w.state, w.static_world, scal,
                                                   w.params, w.config)
-        jumped = self._consume_packed(packed.cpu().numpy())
+        if self._pipeline is not None:
+            pk = self._pipeline.push(packed)
+            if pk is None:
+                # Ring filling: the mirrors keep their last values and the
+                # proxy follows the last-known foot.
+                w.move_kinematic_object(self.proxy, self._capsule_center(), self.proxy.rot, dt)
+                self.zero_move_desired_vel()
+                return self._last_campos.copy(), False
+        else:
+            pk = packed.cpu().numpy()            # the update's one copy back
+        jumped = self._consume_packed(pk)
         w.move_kinematic_object(self.proxy, self._capsule_center(), self.proxy.rot, dt)
         self.zero_move_desired_vel()
         return self._last_campos.copy(), jumped

@@ -16,14 +16,17 @@ static mesh object's identity lives on a virtual anchor (an id at or above
 slot).  Convex hulls are interned, by content, into the world's hull
 library (64 hulls of 32 vertices and 32 faces), uploaded at the flush.
 
-Not in this slice (ROADMAP.md queue 1, slice 2): pipelined readback,
-batched snapshot transforms and snapshots.  Each raises
-NotImplementedError naming its item.
+Pipelined mode (``set_pipelined``): the digest, the character's packed
+vector and the transform block go through ``runtime.readback`` rings and
+are consumed ``depth`` ticks late; slots the host wrote since are kept
+from stale blocks.  Not in this slice (ROADMAP.md queue 1, item 3):
+snapshots, which raise NotImplementedError naming the item.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import hashlib
 import math
 from dataclasses import dataclass, field as dfield
@@ -36,7 +39,7 @@ from substrata_tpu_torch.kernels import character as _kl
 from substrata_tpu_torch.kernels import pairs
 from substrata_tpu_torch.kernels import serving_io
 from substrata_tpu_torch.physics import broadphase, queries, shapes as shape_factories, solver
-from substrata_tpu_torch.physics.character import player_update_packed
+from substrata_tpu_torch.physics.character import player_update_packed, tick_scalars
 from substrata_tpu_torch.physics.state import (
     BodyState, Heightfield, HullLibrary, Layer, MotionType, ShapeType, SimConfig,
     SimParams, build_trimesh, default_sim_params, default_static_world, empty_trimesh,
@@ -44,13 +47,14 @@ from substrata_tpu_torch.physics.state import (
 )
 from substrata_tpu_torch.device import resolve_device
 from substrata_tpu_torch.physics.step import physics_step
+from substrata_tpu_torch.runtime.readback import PipelinedReadback
 
 USERDATA_WORLD_OBJECT = 0
 USERDATA_PARCEL = 1
 USERDATA_INSTANCE = 2
 USERDATA_AVATAR = 3
 
-_SLICE2 = "ROADMAP.md queue 1, slice 2: facade completion"
+_SLICE2 = "ROADMAP.md queue 1, item 3: facade completion"
 
 
 def _not_ported(what: str, item: str):
@@ -84,6 +88,13 @@ class PhysicsObject:
     @property
     def mass(self) -> float:
         return self.shape.mass
+
+
+def _clone(tree):
+    """A copy of a dataclass of tensors whose tensors are copies too."""
+    return dataclasses.replace(tree, **{
+        f.name: getattr(tree, f.name).clone() for f in dataclasses.fields(tree)
+        if isinstance(getattr(tree, f.name), torch.Tensor)})
 
 
 # --- Device-side host-write programs (scatters of in-range slots). ---------
@@ -205,6 +216,28 @@ class PhysicsWorld:
         # describes: sync_transforms reads it while the state is still that one.
         self._pending_tblock = None
         self._tblock_state = None
+        # Pipelined readback (set_pipelined): the rings, the events of the
+        # steps whose digests are in flight, and slot -> syncs to skip.
+        self._digest_pipeline = None
+        self._sync_pipeline = None
+        self._pending_events: list = []
+        self._mirror_skip: dict[int, int] = {}
+
+    def set_pipelined(self, depth: int):
+        """Depth-N pipelined readbacks (0 = synchronous).  The host consumes
+        each step's event digest (with the character's packed vector) and
+        transform block ``depth`` steps late; host-side event bookkeeping
+        (wake/sleep sets, listeners, tier switches) lags by as much, and
+        pair rebuilds run on ``config.pair_rebuild_interval`` instead of the
+        window the device reports (mutations still force them)."""
+        if depth > 0:
+            self._digest_pipeline = PipelinedReadback(depth)
+            self._sync_pipeline = PipelinedReadback(depth)
+        else:
+            self._digest_pipeline = None
+            self._sync_pipeline = None
+        self._pending_events = []
+        self._mirror_skip = {}
 
     # ------------------------------------------------------------------
     # Water
@@ -316,6 +349,7 @@ class PhysicsWorld:
         self.objects[slot] = ob
         self._nonstatic_objs = None
         self._structural_dirty = True
+        self._note_host_write(slot)
         self._dirty[slot] = (ob, True)
         st = int(ob.shape.shape_type)
         if not self.config.present_shape_types[st]:
@@ -416,6 +450,7 @@ class PhysicsWorld:
                 or (linvel is not None
                     and np.linalg.norm(ob.linvel) > np.linalg.norm(old_vel) + 0.25)):
             self._structural_dirty = True
+        self._note_host_write(ob.slot)
         if scale is not None and not np.allclose(scale, ob.scale):
             ob.scale = np.asarray(scale, np.float32)
             ob.shape = shape_factories.scaled(ob.shape, ob.scale)
@@ -426,14 +461,60 @@ class PhysicsWorld:
             self._xform_dirty[ob.slot] = (ob, linvel is not None or angvel is not None)
 
     def set_new_ob_transforms_batch(self, obs, pos, rot, linvel, angvel):
-        _not_ported("batched snapshot transforms (serving path)", _SLICE2)
+        """``set_new_ob_to_world_transform`` for K objects at once, for the
+        snapshot playback of remote objects: one vectorised pass makes the
+        teleport-wake and pair-invalidation tests, then a loop writes the
+        mirrors.  No scale or shape changes; velocities always given."""
+        K = len(obs)
+        if K == 0:
+            return
+        pos = np.asarray(pos, np.float32)
+        rot = np.asarray(rot, np.float32)
+        linvel = np.asarray(linvel, np.float32)
+        angvel = np.asarray(angvel, np.float32)
+        old_pos = np.stack([o.pos for o in obs])
+        old_vel = np.stack([o.linvel for o in obs])
+        brad = np.fromiter((o.shape.bound_radius for o in obs), np.float32, K)
+        dist = np.linalg.norm(pos - old_pos, axis=1)
+        teleport = dist > 0.5 * brad + 0.1
+        window_travel = (np.linalg.norm(old_vel, axis=1)
+                         * self.config.pair_rebuild_interval / 60.0)
+        structural = ((dist > 0.08 + window_travel)
+                      | (np.linalg.norm(linvel, axis=1)
+                         > np.linalg.norm(old_vel, axis=1) + 0.25))
+        if structural.any():
+            self._structural_dirty = True
+        for k in np.nonzero(teleport)[0]:
+            self._wake_regions.append((old_pos[k].copy(), float(brad[k])))
+        depth_skip = (self._sync_pipeline.depth + 1
+                      if self._sync_pipeline is not None else None)
+        cap = self.config.capacity
+        for k, ob in enumerate(obs):
+            ob.pos = pos[k]
+            ob.rot = rot[k]
+            ob.linvel = linvel[k]
+            ob.angvel = angvel[k]
+            s = ob.slot
+            if s >= cap:           # virtual anchor: mirror only
+                continue
+            if depth_skip is not None:
+                self._mirror_skip[s] = depth_skip
+            self._xform_dirty[s] = (ob, True)
 
     def set_linear_and_angular_vel(self, ob: PhysicsObject, linvel, angvel,
                                    activate: bool = True):
         ob.linvel = np.asarray(linvel, np.float32)
         ob.angvel = np.asarray(angvel, np.float32)
         self._structural_dirty = True
+        self._note_host_write(ob.slot)
         self._vel_dirty[ob.slot] = ob
+
+    def _note_host_write(self, slot: int):
+        """Pipelined mode: keep a host-written mirror from being regressed
+        by the transform blocks still in flight (see sync_transforms).
+        Virtual anchors have no device row to protect."""
+        if self._sync_pipeline is not None and slot < self.config.capacity:
+            self._mirror_skip[slot] = self._sync_pipeline.depth + 1
 
     def note_motion_type_changed(self, ob: PhysicsObject):
         """Callers that flip ob.motion_type directly must drop the cached
@@ -470,6 +551,7 @@ class PhysicsWorld:
         ob.angvel = axis * np.float32(angle / max(dt, 1e-9))
         ob.pos = pos
         ob.rot = rot
+        self._note_host_write(ob.slot)
         self._xform_dirty[ob.slot] = (ob, True)
 
     def activate_object(self, ob: PhysicsObject):
@@ -644,13 +726,38 @@ class PhysicsWorld:
         digest, _ = serving_io.digest_tblock(
             events, diags.num_contacts, diags.num_awake, self.pair_cache.steps_left,
             self.state, with_block=False)
-        self._read_digest(events, digest.cpu().numpy())   # the tick's one copy back
+        self._dispatch_digest(events, digest, rebuild)
         return events
 
+    def _dispatch_digest(self, events, readback, rebuild, on_extra=None):
+        """The tick's one copy back: ``readback`` holds the digest and, for
+        the serving tick, the character's packed vector (``on_extra`` takes
+        it as float32).  Read now, or, pipelined, push it and consume the
+        one dispatched ``depth`` steps ago; the rebuild cadence then runs
+        on the host from the config's interval."""
+        d = serving_io.digest_len(self.config.capacity)
+        if self._digest_pipeline is not None:
+            self._host_steps_left = (self.config.pair_rebuild_interval - 1 if rebuild
+                                     else self._host_steps_left - 1)
+            self._pending_events.append((events, on_extra))
+            host = self._digest_pipeline.push(readback)
+            if host is None:
+                self.newly_activated_obs = set()
+                return
+            events, on_extra = self._pending_events.pop(0)
+        else:
+            host = readback.cpu().numpy()
+        self._read_digest(events, host[:d])
+        if on_extra is not None:
+            on_extra(host[d:].view(np.float32))
+
     def _read_digest(self, events, digest):
-        """Update the host bookkeeping from the tick's digest."""
-        self._host_steps_left = int(digest[serving_io.DIGEST_HEAD - 1])
-        self._world_asleep = int(digest[199]) == 0
+        """Update the host bookkeeping from a step's digest.  Pipelined, the
+        world counts as fully asleep only once every step in flight has
+        confirmed it."""
+        if self._digest_pipeline is None:
+            self._host_steps_left = int(digest[serving_io.DIGEST_HEAD - 1])
+        self._world_asleep = int(digest[199]) == 0 and not self._pending_events
         self._refresh_activation_sets(events, digest)
         if self.auto_tier:
             self._update_tier_from_digest(digest)
@@ -693,17 +800,41 @@ class PhysicsWorld:
         self.last_events = events
         self.last_diags = diags
         self._steps += 1
-        host = readback.cpu().numpy()                     # the tick's one copy back
-        self._read_digest(events, host[:d])
-        player._consume_packed(host[d:].view(np.float32))
+        self._dispatch_digest(events, readback, rebuild, on_extra=player._consume_packed)
         player.zero_move_desired_vel()
         # The kinematic proxy follows the foot every tick.
         self.move_kinematic_object(player.proxy, player._capsule_center(), player.proxy.rot, dt)
         return events
 
-    def set_pipelined(self, depth: int):
-        if depth > 0:
-            _not_ported("pipelined readback", _SLICE2)
+    def prewarm_tiers(self, player=None, dt: float = 1 / 60.0):
+        """Step every auto tier once, rebuild and reuse, on throwaway copies
+        of the state (the reference compiles its tier ladder this way; the
+        port has nothing to compile, but a tier's first step also sizes the
+        allocator's blocks and Triton's specialisations).  With ``player``
+        the fused serving tick runs, as a serving client ticks.  No live
+        state changes."""
+        if not self.auto_tier:
+            return
+        has_os = bool(self._oversize_slots)
+        for tier in range(len(self.TIER_DIVS)):
+            cfg = self._tier_config(tier)
+            sc0 = solver.empty_solver_cache(solver.cache_size_for(cfg), device=self.device)
+            pc0 = broadphase.empty_pair_cache(cfg, device=self.device)
+            for rebuild in (True, False):
+                if player is None:
+                    physics_step(_clone(self.state), self.static_world, dt, self.params, cfg,
+                                 _clone(sc0), _clone(pc0), rebuild_pairs=rebuild,
+                                 has_oversize=has_os)
+                    continue
+                buf = serving_io.empty_tick_in(cfg.capacity)
+                buf[:serving_io.TIN_SCAL] = tick_scalars(dt, np.zeros(3), False, False, False,
+                                                         player.proxy.slot)
+                k = _kl.n_rows(cfg.cell_size, cfg.cell_capacity, pairs.MAX_OVERSIZE)
+                readback = torch.empty(serving_io.digest_len(cfg.capacity) + _kl.N_PACKED_HEAD
+                                       + k, dtype=torch.int32, device=self.device)
+                _serving_tick(_clone(self.state), self.static_world, self.params, cfg,
+                              _clone(sc0), _clone(pc0), _clone(player.state), self._upload(buf),
+                              float(dt), readback, rebuild, has_os)
 
     def _refresh_activation_sets(self, events, digest):
         n_up, n_down, n_wet, n_touch = (int(digest[192]), int(digest[193]),
@@ -779,11 +910,27 @@ class PhysicsWorld:
         """Pull pos/rot/vel of all bodies into the host mirrors with one
         packed readback (the last serving tick's transform block while the
         state is still that tick's, else one packed now); rows unchanged
-        since the last sync are skipped."""
+        since the last sync are skipped.
+
+        Pipelined, the block consumed is the one dispatched ``depth`` syncs
+        ago; slots the host wrote since (adds, kinematic moves, snapshot
+        inserts) are skipped until the ring has caught up, so a
+        host-authoritative mirror never regresses to a stale device value."""
         block_dev = (self._pending_tblock if self._tblock_state is self.state
                      else serving_io.transform_block(self.state))
         self._pending_tblock = self._tblock_state = None
-        block = block_dev.cpu().numpy()
+        if self._sync_pipeline is not None:
+            block = self._sync_pipeline.push(block_dev)
+            if block is None:
+                return
+            for slot in list(self._mirror_skip):
+                left = self._mirror_skip[slot] - 1
+                if left <= 0:
+                    del self._mirror_skip[slot]
+                else:
+                    self._mirror_skip[slot] = left
+        else:
+            block = block_dev.cpu().numpy()
         if self._nonstatic_objs is None:
             static = int(MotionType.STATIC)
             self._nonstatic_objs = [(slot, ob) for slot, ob in self.objects.items()
@@ -793,10 +940,13 @@ class PhysicsWorld:
             changed = (block != self._prev_sync_block).any(axis=1)
         else:
             changed = np.ones((block.shape[0],), bool)
+        skip = self._mirror_skip
+        for slot in skip:
+            changed[slot] = True
         self._prev_sync_block = block
         self.last_sync_changed = changed
         for slot, ob in self._nonstatic_objs:
-            if changed[slot]:
+            if changed[slot] and slot not in skip:
                 ob.pos = block[slot, 0:3]
                 ob.rot = block[slot, 3:7]
                 ob.linvel = block[slot, 7:10]

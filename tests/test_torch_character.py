@@ -388,8 +388,20 @@ def test_player_physics_scenarios(name):
 
 
 def test_set_pipelined_raises():
-    w = make_world()
+    """set_pipelined no longer raises: at depth 2 update() returns the
+    ring-filling result twice, then the packed vector of two updates ago,
+    which equals the synchronous player's."""
+    w, ws = make_world(), make_world()
     p = PlayerPhysics(w, eye_pos=(0, 0, EYE_HEIGHT))
+    ps = PlayerPhysics(ws, eye_pos=(0, 0, EYE_HEIGHT))
+    p.set_pipelined(2)
+    sync = []
+    for k in range(6):
+        p.process_move([1, 0, 0])
+        ps.process_move([1, 0, 0])
+        got, _ = p.update(DT, cur_time=k * DT)
+        sync.append(ps.update(DT, cur_time=k * DT)[0])
+        if k >= 2:
+            np.testing.assert_array_equal(got, sync[k - 2])
     p.set_pipelined(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p.set_pipelined(2)
+    assert p._pipeline is None

@@ -13,8 +13,8 @@ apps, and holds the port to the reference:
   reference, test_torch_winter.py);
 - ray hits, touch events, URLs and navigation exactly (URL positions
   within 1e-4 m);
-- the pipelined tick (``pipeline_depth=3``) runs on the reference and
-  raises NotImplementedError on the port (ROADMAP.md queue 1, item 3).
+- the pipelined tick (``pipeline_depth=3``) on both apps, the object's
+  path, the camera and the eye within the same 1e-4 m.
 """
 
 import numpy as np
@@ -309,18 +309,27 @@ def test_sub_url_parse_roundtrip():
     assert a == b
 
 
-def test_pipelined_tick_matches_world_state():
-    ref, port = sides()
-    app = ref.make_app(pipeline_depth=3)
-    ob = ref.wo.WorldObject(flags=ref.wo.DYNAMIC_FLAG | 1, pos=np.array([2.0, 0, 3.0]),
-                            mass=20.0)
+def pipelined_tick(s):
+    app = s.make_app(pipeline_depth=3)
+    ob = s.wo.WorldObject(flags=s.wo.DYNAMIC_FLAG | 1, pos=np.array([2.0, 0, 3.0]), mass=20.0)
     app.create_object(ob)
+    path = []
     for _ in range(150):
-        ref.tick(app, ref.m.PlayerInput(forward=1.0))
+        s.tick(app, s.m.PlayerInput(forward=1.0))
+        path.append(np.array(ob.pos, np.float64))
     assert ob.pos[2] < 1.0 and np.isfinite(ob.pos).all()
     assert app.cam_pos[1] > 3.0 and app.player.on_ground
-    with pytest.raises(NotImplementedError, match="pipelined readback"):
-        port.make_app(pipeline_depth=3)
+    return dict(path=np.array(path), cam=np.array(app.cam_pos, np.float64),
+                eye=np.array(app.player.get_eye_position(), np.float64))
+
+
+def test_pipelined_tick_matches_world_state():
+    """pipeline_depth=3 on both apps: the reference's assertions hold on
+    each, and the port's mirrors (3 ticks stale on both sides) follow the
+    reference's within the file's bound every tick."""
+    a, b = both(pipelined_tick)
+    for key in ("path", "cam", "eye"):
+        close(a[key], b[key], what=key)
 
 
 def test_client_app_defaults_to_the_card():

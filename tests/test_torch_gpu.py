@@ -1,4 +1,4 @@
-"""Kernels KA-KZ on the card against their plain PyTorch twins, and the
+"""Kernels KA-KZ, KAA-KAC on the card against their plain PyTorch twins, and the
 entry points' default device.
 
 These need a CUDA device and skip without one (the decision is made inside
@@ -23,7 +23,8 @@ exact), KX, KY and KZ exact, and a small terrain frame on the card within
 1e-4 m (particles, the character) and 1e-5 of scale (joints) of the CPU
 path; KAA exact (HRTF on and off; the pan's cos and sin within 1e-6 of
 the gains' scale, an HRIR bin only where its pre-round value lies within
-1e-5 of a half-integer), KAB exact; ClientApp on the card by default.
+1e-5 of a half-integer), KAB exact; KAC exact (words); ClientApp on the
+card by default; the pipelined readback ring on the card.
 Each kernel repeats its twin's operations in the same order."""
 
 import numpy as np
@@ -1158,3 +1159,41 @@ def test_small_client_world_on_card_matches_cpu():
     for (ea, ca, aa), (eb, cb, ab) in zip(runs["cuda"], runs["cpu"]):
         assert np.abs(ea - eb).max() <= 1e-4 and np.abs(ca - cb).max() <= 1e-4
         assert np.abs(aa - ab).max() <= 5e-5
+
+
+def test_bc1_kernel_matches_plain():
+    """KAC against its twin, exactly: a 512 x 384 photo-like image's mip
+    chain in one launch, and blocks of every kind the CPU tests use."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from substrata_tpu_torch.kernels import bc1
+    from substrata_tpu_torch.shared import texture_compress as tc
+    rng = np.random.default_rng(0)
+    y, x = np.mgrid[0:384, 0:512].astype(np.float32)
+    img = np.stack([x / 2, y / 1.5, (x + y) / 3.5], axis=-1) + rng.uniform(-8, 8, (384, 512, 3))
+    img = np.clip(np.round(img), 0, 255).astype(np.uint8)
+    chain = np.concatenate([tc._to_blocks(m) for m, _, _ in tc.mip_chain(img)])
+    corpus = np.concatenate([rng.uniform(0, 255, (4096, 16, 3)),
+                             np.round(rng.uniform(0, 255, (4096, 16, 3))),
+                             np.repeat(np.round(rng.uniform(0, 255, (64, 1, 3))), 16, axis=1)])
+    for blocks in (chain, corpus.astype(np.float32)):
+        t = torch.as_tensor(blocks, device="cuda")
+        before = bc1.launches
+        got = bc1.bc1_encode(t)
+        assert bc1.launches == before + 1
+        assert torch.equal(got, bc1.bc1_encode_plain(t))
+    assert tc.generate_compressed_texture(img) == tc.generate_compressed_texture(img,
+                                                                                  device="cpu")
+
+
+def test_pipelined_ring_on_card():
+    """The readback ring on the card: the value pushed depth pushes ago."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from substrata_tpu_torch.runtime.readback import PipelinedReadback
+    ring = PipelinedReadback(3)
+    got = [ring.push(torch.full((1000,), float(k), device="cuda")) for k in range(8)]
+    assert got[:3] == [None] * 3
+    for k in range(3, 8):
+        assert (got[k] == k - 3).all()
+    assert len(ring) == 3 and ring.waits <= 5

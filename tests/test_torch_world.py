@@ -228,18 +228,20 @@ def test_simconfig_matches_reference():
 
 
 def test_unported_entry_points_raise():
-    """Pipelined readback, batched snapshot transforms and snapshots still
-    raise; hulls, static trimeshes and rays against them no longer do."""
+    """Snapshots still raise; the pipelined readback and the batched
+    snapshot transforms no longer do, nor hulls, static trimeshes and rays
+    against them."""
     w = make_world()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        w.set_pipelined(2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         w.save_snapshot("unused.npz")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         w.load_snapshot("unused.npz")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        w.set_new_ob_transforms_batch([], np.zeros((0, 3)), np.zeros((0, 4)),
-                                      np.zeros((0, 3)), np.zeros((0, 3)))
+    w.set_pipelined(2)
+    assert w._digest_pipeline.depth == 2 and w._sync_pipeline.depth == 2
+    w.set_pipelined(0)
+    assert w._digest_pipeline is None and w._sync_pipeline is None
+    w.set_new_ob_transforms_batch([], np.zeros((0, 3)), np.zeros((0, 4)),
+                                  np.zeros((0, 3)), np.zeros((0, 3)))
     hull = shapes.make_convex_hull(np.eye(3))              # a degenerate (planar) cloud
     assert hull.shape_type == 3 and len(hull.hull_verts) == 3
     w.set_static_trimesh(np.array([[-5, -5, 0.2], [5, -5, 0.2], [0, 5, 0.2]], np.float32),
@@ -276,6 +278,16 @@ def test_import_leaves_jax_out():
             "substrata_tpu_torch.scripting.xml_scripts, "
             "substrata_tpu_torch.kernels.audio_setup, "
             "substrata_tpu_torch.kernels.vehicle_setup, "
+            "substrata_tpu_torch.kernels.bc1, substrata_tpu_torch.shared.texture_compress, "
+            "substrata_tpu_torch.shared.png, substrata_tpu_torch.shared.resources, "
+            "substrata_tpu_torch.shared.lod, substrata_tpu_torch.shared.records, "
+            "substrata_tpu_torch.shared.guarded, substrata_tpu_torch.net.protocol, "
+            "substrata_tpu_torch.net.tls, substrata_tpu_torch.net.timesync, "
+            "substrata_tpu_torch.net.client, substrata_tpu_torch.net.server, "
+            "substrata_tpu_torch.server_side.accounts, "
+            "substrata_tpu_torch.server_side.site_data, substrata_tpu_torch.server_side.mcp, "
+            "substrata_tpu_torch.server_side.asset_pipeline, "
+            "substrata_tpu_torch.runtime.readback, "
             "scipy.spatial; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'substrata_tpu')]; "
