@@ -130,7 +130,21 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    512 dynamic objects' snapshots, the viewer's ClientApp at pipeline
    depth 3, 150 measured ticks (see networked_phase); (c) a small
    pipelined ClientApp on the card against the CPU path (see
-   small_pipelined_phase).
+   small_pipelined_phase);
+22. KAD (the halo exchange) and KAE (the shard axis's keep and counts, the
+   worlds' awake count, the stereo blocks' clipped sum) against their
+   twins on the bench world after 30 ticks in 4 x-slabs over [-52, 52] m
+   and in 2 x 2 tiles, and on bench.py's 256 sources in 4 shards, every
+   byte exact (see shard_kernel_phase);
+23. the sharded paths (K20) at full width on the card: 4 kicked bench
+   worlds stepped at once, each bit-equal to its own cold step; the 256
+   sources mixed in 4 shards against the CPU port; the bench world in 4
+   slabs and in 2 x 2 tiles for 60 steps, re-partitioned every 30, no
+   halo overflow, within 1e-3 m of the CPU port's sharded run over 10
+   steps (see sharded_phase).
+
+The host's libmpg123 is reported (and one MP3 decoded where it is there)
+before the build; its absence fails nothing.
 
 Every kernel also gets its bound: the least time the card could take for
 the same work, the larger of its bytes (each input read once, each output
@@ -140,7 +154,8 @@ written once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s
 The last lines are the kernels JSON (launches from phase 9's full ticks,
 from phase 11's serving ticks for KK-KN and KT, from phase 5's thinks for
 KS, KU and KV, from phase 13's mesh frames for KO, from phases 17 and 19
-for KW-KZ and KAA-KAB, and from phase 21's texture upload for KAC; KQ's
+for KW-KZ and KAA-KAB, from phase 21's texture upload for KAC, and from
+phase 23's sharded runs for KAD and KAE; KQ's
 two launches,
 KT's four entry points and KV's two are separate entries; the grouping's
 library_ms is torch.argsort(stable=True) on its codes),
@@ -3566,6 +3581,352 @@ def small_pipelined_phase(device="cuda", frames=40):
     return dict(cuda_vs_cpu_small_pipelined_err=err, small_pipelined_frames=frames)
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-23: the sharded paths (K20) on one card.
+# ---------------------------------------------------------------------------
+
+SLABS = 4
+SLAB_X = (-52.0, 52.0)       # the bench world spans ~98 m: x in [-49.3, 47.6]
+SLAB_CAP = 3072
+SLAB_HALO = 512
+TILE_HALO = 768
+HALO_WIDTH = 3.0             # > 2 x a 0.4 m box's diameter
+SHARD_STEPS = 60
+REPARTITION_EVERY = 30
+CPU_STEPS = 10               # the CPU port's sharded run: held for these, drift reported after
+CPU_DRIFT_STEPS = 20
+MIX_BLOCKS = 60
+SHARD_KERNELS = ("halo_exchange", "shard_keep_count", "shard_world_count", "shard_sum_clip")
+COLD_STEP_KERNELS = ("box_box_rows", "static_contacts", "solve_iteration", "apply_forces",
+                     "integrate_positions", "cell_table", "solve_setup", "find_pairs",
+                     "layout_incidence", "solve_positions", "strike_wake", "sleep_pass")
+
+
+def _moved(obj, device):
+    """A copy of ``obj`` (tensors, dataclasses of them) on ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: _moved(getattr(obj, f.name), device)
+                                           for f in dataclasses.fields(obj)})
+    return obj
+
+
+def _bytes_equal(a, b):
+    """Every byte of two tensors equal (floats compared as their bits)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.bool:
+        return torch.equal(a, b)
+    return torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _states_equal(a, b):
+    from substrata_tpu_torch.physics.state import BODY_FIELDS
+    return all(_bytes_equal(getattr(a, f), getattr(b, f)) for f in BODY_FIELDS)
+
+
+def _world_at(states, k):
+    from substrata_tpu_torch.physics.state import BODY_FIELDS, BodyState
+    return BodyState(**{f: getattr(states, f)[k] for f in BODY_FIELDS})
+
+
+def _stacked(bodies):
+    from substrata_tpu_torch.physics.state import BODY_FIELDS, BodyState
+    return BodyState(**{f: torch.stack([getattr(b, f) for b in bodies]) for f in BODY_FIELDS})
+
+
+def _kicked_worlds(w, n_worlds, device):
+    """``n_worlds`` copies of a world's state, each kicked by its own
+    seeded torch.Generator (benchworld.kick)."""
+    from substrata_tpu_torch.benchworld import kick
+    out = []
+    for k in range(n_worlds):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(100 + k)
+        out.append(kick(w.state, gen))
+    return out
+
+
+def shard_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, warm=30, plain_reps=5):
+    """Phase 22: KAD and KAE against their twins on the card, exact (every
+    byte of the combined buffers and the counts): the bench world after
+    ``warm`` ticks in 4 x-slabs over [-52, 52] m (3,072 slots, halo 512,
+    3 m wide), and in 2 x 2 tiles over [-52, 52]^2 (halo 768, both
+    phases); KAE's keep on the slabs' stepped shards, its world count on
+    4 kicked worlds' awake counts, its clipped sum on the 4 shards'
+    blocks of bench.py's 256 sources.  Each timed as phase 3 times its
+    kernels; no single PyTorch call computes any of them (library_ms
+    null)."""
+    from substrata_tpu_torch.benchworld import bench_audio, bench_world
+    from substrata_tpu_torch.kernels import halo, shard_reduce as kae
+    from substrata_tpu_torch.audio import mix as mixmod
+    from substrata_tpu_torch.parallel import spatial
+    from substrata_tpu_torch.physics.step import physics_step
+    w = bench_world(device, n_bodies=n_bodies, cfg=cfg)
+    for _ in range(warm):
+        w.think(DT)
+    res = {}
+    part, _ = spatial.partition_by_slab(w.state, SLABS, SLAB_CAP, *SLAB_X)
+    lo, hi = halo.thresholds(*SLAB_X, SLABS, HALO_WIDTH)
+    args = (part, SLABS, SLAB_HALO, 0, 1, SLABS, lo, hi)
+    got, ov = halo.exchange(*args)
+    want, ov_p = halo.exchange_plain(*args)
+    check(_states_equal(got, want) and torch.equal(ov, ov_p),
+          "KAD: the slabs' combined buffer differs from the twin")
+    tiles, _ = spatial.partition_by_tile(w.state, 2, 2, SLAB_CAP, *SLAB_X, *SLAB_X)
+    tlo, thi = halo.thresholds(*SLAB_X, 2, HALO_WIDTH)
+    gx, ovx = halo.exchange(tiles, 4, TILE_HALO, 0, 2, 2, tlo, thi)
+    wx, ovx_p = halo.exchange_plain(tiles, 4, TILE_HALO, 0, 2, 2, tlo, thi)
+    gy, ovy = halo.exchange(gx, 4, TILE_HALO, 1, 1, 2, tlo, thi)
+    wy, ovy_p = halo.exchange_plain(gx, 4, TILE_HALO, 1, 1, 2, tlo, thi)
+    check(_states_equal(gx, wx) and _states_equal(gy, wy) and torch.equal(ovx, ovx_p)
+          and torch.equal(ovy, ovy_p), "KAD: the tiles' combined buffers differ from the twin")
+    ghosts = int(got.alive.sum() - part.alive.sum())
+    res["halo_exchange"] = dict(
+        max_abs_err=0.0, library_ms=None, slab_ghosts=ghosts, slab_overflow=int(ov.sum()),
+        tile_overflow=int(ovx.sum() + ovy.sum()),
+        **_timed(lambda: halo.exchange(*args), lambda: halo.exchange_plain(*args), "halo",
+                 halo.bytes_moved(part, SLABS, SLAB_HALO), 4 * part.capacity, plain_reps))
+    cfg_h = spatial._halo_config(w.config, SLAB_CAP + 2 * SLAB_HALO)
+    stepped = [physics_step(_world_at(_rows_of(got, SLABS), d), w.static_world, DT, w.params,
+                            cfg_h)[0] for d in range(SLABS)]
+    kg, cg = kae.keep_count(stepped, SLAB_CAP, ov)
+    kw, cw = kae.keep_count_plain(stepped, SLAB_CAP, ov)
+    check(_states_equal(kg, kw) and torch.equal(cg, cw), "KAE keep: differs from the twin")
+    row = halo.bytes_moved(part, SLABS, 0) // (2 * part.capacity)
+    res["shard_keep_count"] = dict(
+        max_abs_err=0.0, library_ms=None, awake=int(cg[0]),
+        **_timed(lambda: kae.keep_count(stepped, SLAB_CAP, ov),
+                 lambda: kae.keep_count_plain(stepped, SLAB_CAP, ov), "keep_kernel",
+                 2 * SLABS * SLAB_CAP * row + ov.numel() * 4, 2 * SLABS * SLAB_CAP, plain_reps))
+    counts = [physics_step(b, w.static_world, DT, w.params, w.config)[2].num_awake
+              for b in _kicked_worlds(w, 4, device)]
+    check(torch.equal(kae.world_count(counts), kae.world_count_plain(counts)),
+          "KAE world count: differs from the twin")
+    res["shard_world_count"] = dict(
+        max_abs_err=0.0, library_ms=None, total=int(kae.world_count(counts)),
+        **_timed(lambda: kae.world_count(counts), lambda: kae.world_count_plain(counts),
+                 "world_count", 4 * len(counts) + 4, len(counts), plain_reps))
+    src, pool, lis, _room = bench_audio(device)
+    k = src.capacity // SLABS
+    fields = [f.name for f in dataclasses.fields(src)]
+    blocks = [mixmod.mix_block(mixmod.SourceState(**{f: getattr(src, f)[d * k:(d + 1) * k]
+                                                     for f in fields}), pool, lis)[1]
+              for d in range(SLABS)]
+    check(torch.equal(kae.sum_clip(blocks), kae.sum_clip_plain(blocks)),
+          "KAE sum-and-clip: differs from the twin")
+    res["shard_sum_clip"] = dict(
+        max_abs_err=0.0, library_ms=None,
+        **_timed(lambda: kae.sum_clip(blocks), lambda: kae.sum_clip_plain(blocks), "sum_clip",
+                 (len(blocks) + 1) * blocks[0].numel() * 4, len(blocks) * blocks[0].numel(),
+                 plain_reps))
+    return res
+
+
+def _rows_of(state, n_shards):
+    """A [S * R] state as a [S, R] one (views)."""
+    from substrata_tpu_torch.physics.state import BODY_FIELDS, BodyState
+    return BodyState(**{f: getattr(state, f).reshape((n_shards, -1) +
+                                                     tuple(getattr(state, f).shape[1:]))
+                        for f in BODY_FIELDS})
+
+
+def _owned_err(a, b):
+    """Largest position difference over the bodies both states own."""
+    alive = a.alive.cpu() & b.alive.cpu()
+    return max_err(a.pos.cpu(), b.pos.cpu(), alive)
+
+
+def _spatial_run(step, part, steps, partition, sync, on_step=None):
+    """``steps`` sharded steps, ``partition`` run again every
+    REPARTITION_EVERY; returns (state, owner map from the first
+    partition's slots to the state's, awake, overflow, ms per step)."""
+    owner = np.arange(part.capacity)
+    times, aw, ov = [], None, None
+    for k in range(steps):
+        if k and k % REPARTITION_EVERY == 0:
+            part, own = partition(part)
+            owner = own[owner]
+        sync()
+        t0 = time.perf_counter()
+        part, aw, ov = step(part)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if on_step is not None:
+            on_step(k, part, owner, aw, ov)
+    return part, owner, aw, ov, times
+
+
+def sharded_phase(device="cuda", n_bodies=10_000, cfg=None, warm=30, sync=torch.cuda.synchronize,
+                  steps=SHARD_STEPS, mix_blocks=MIX_BLOCKS, cpu_steps=CPU_STEPS,
+                  cpu_drift_steps=CPU_DRIFT_STEPS):
+    """Phase 23: the K20 paths at full width on the card, each driven with
+    the launch counts reset just before it and read just after.
+    (a) multi_world_step over 4 bench worlds (10,240 slots each), each
+    kicked by its own generator, ``steps`` steps: each world bit-equal to
+    the port's own cold step of it on the card, total_awake their sum;
+    (b) sharded_mix_block, bench.py's 256 sources in 4 shards, ``mix_blocks``
+    blocks, against the CPU port (tests/test_torch_audio.py's tolerances:
+    the block 5e-5, playheads 0.01 samples, gains 1e-5), and its largest
+    difference from the unsharded mix_block reported;
+    (c) spatial_world_step, the bench world in 4 x-slabs (phase 22's
+    sizes), ``steps`` steps, re-partitioned every 30: no halo overflow,
+    owned bodies within 1e-3 m of the CPU port's sharded run over its first
+    ``cpu_steps`` steps (drift reported to ``cpu_drift_steps``), the
+    difference from the unsharded cold step reported;
+    (d) spatial_world_step_2d, 2 x 2 tiles over [-52, 52]^2, halo 768, the
+    same checks."""
+    from substrata_tpu_torch import kernels
+    from substrata_tpu_torch.audio import mix as mixmod
+    from substrata_tpu_torch.benchworld import bench_audio, bench_world
+    from substrata_tpu_torch.parallel import mesh, spatial
+    from substrata_tpu_torch.physics.step import physics_step
+    w = bench_world(device, n_bodies=n_bodies, cfg=cfg)
+    for _ in range(warm):
+        w.think(DT)
+    sync()
+    world, params, config = w.static_world, w.params, w.config
+    cpu = (_moved(world, "cpu"), _moved(params, "cpu"))
+    res = {}
+
+    # (a) Worlds.
+    m4 = mesh.make_mesh(4, device=device)
+    singles = _kicked_worlds(w, 4, device)
+    states = _stacked(singles)
+    kernels.reset_launch_counts()
+    times, bit_equal, awake_equal = [], True, True
+    for _ in range(steps):
+        sync()
+        t0 = time.perf_counter()
+        states, total = mesh.multi_world_step(states, world, None, DT, params, config, m4)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        outs = [physics_step(b, world, DT, params, config) for b in singles]
+        singles = [o[0] for o in outs]
+        bit_equal &= all(_states_equal(_world_at(states, k), singles[k]) for k in range(4))
+        awake_equal &= int(total) == sum(int(o[2].num_awake) for o in outs)
+    counts_a = kernels.launch_counts()
+    check(bit_equal, "multi_world_step: a world differs from its own cold step")
+    check(awake_equal, "multi_world_step: total_awake differs from the worlds' sum")
+    check(bool(torch.isfinite(states.pos).all()), "multi_world_step: non-finite positions")
+    res["worlds"] = dict(worlds=4, steps=steps, bit_equal=bit_equal, total_awake=int(total),
+                         ms_per_multi_world_step_median=float(np.median(times[5:])),
+                         ms_per_multi_world_step_p90=float(np.percentile(times[5:], 90)),
+                         launches=counts_a)
+
+    # (b) Sources.
+    src, pool, lis, _room = bench_audio(device)
+    src_c, pool_c, lis_c = _moved(src, "cpu"), pool.cpu(), _moved(lis, "cpu")
+    full = src
+    m_cpu = mesh.make_mesh(4, device="cpu")
+    kernels.reset_launch_counts()
+    errs = dict(block=0.0, playhead01=0.0, playhead2=0.0, gains=0.0, unsharded=0.0)
+    for _ in range(mix_blocks):
+        src, block = mesh.sharded_mix_block(src, pool, lis, m4)
+        src_c, block_c = mesh.sharded_mix_block(src_c, pool_c, lis_c, m_cpu)
+        full, block_full = mixmod.mix_block(full, pool, lis)
+        errs["block"] = max(errs["block"], max_err(block.cpu(), block_c))
+        errs["playhead01"] = max(errs["playhead01"], max_err(src.playhead[:, :2].cpu(),
+                                                             src_c.playhead[:, :2]))
+        errs["playhead2"] = max(errs["playhead2"], max_err(src.playhead[:, 2].cpu(),
+                                                           src_c.playhead[:, 2]))
+        for f in ("prev_gain_l", "prev_gain_r", "doppler_factor"):
+            errs["gains"] = max(errs["gains"], max_err(getattr(src, f).cpu(), getattr(src_c, f)))
+        errs["unsharded"] = max(errs["unsharded"], max_err(block, block_full))
+    counts_b = kernels.launch_counts()
+    check(errs["block"] <= 5e-5, f"sharded mix: card vs CPU block {errs['block']} > 5e-5")
+    check(errs["playhead2"] <= 0.01 and errs["gains"] <= 1e-5,
+          f"sharded mix: card vs CPU state {errs}")
+    check(bool(torch.isfinite(block).all()) and float(block.abs().max()) <= 1.0
+          and float(block.abs().max()) > 0.0, "sharded mix: block not finite, clipped and audible")
+    res["sources"] = dict(sources=src.capacity, shards=4, blocks=mix_blocks,
+                          cuda_vs_cpu_block_err=errs["block"],
+                          cuda_vs_cpu_playhead_err=max(errs["playhead01"], errs["playhead2"]),
+                          cuda_vs_cpu_gain_err=errs["gains"],
+                          unsharded_block_diff=errs["unsharded"], launches=counts_b)
+
+    # (c), (d) Space.
+    for name, shape, halo_cap, lay in (("slabs", (SLABS,), SLAB_HALO, "slab"),
+                                       ("tiles", (2, 2), TILE_HALO, "tile")):
+        res[name] = _spatial_case(w, cpu, shape, halo_cap, lay, device, sync, steps,
+                                  cpu_steps, cpu_drift_steps)
+    res["launches"] = {k: res["worlds"]["launches"][k] + res["sources"]["launches"][k]
+                       + res["slabs"]["launches"][k] + res["tiles"]["launches"][k]
+                       for k in counts_a}
+    check(res["worlds"]["launches"]["shard_world_count"] == steps, "KAE world count launches")
+    check(res["sources"]["launches"]["shard_sum_clip"] == mix_blocks, "KAE sum-clip launches")
+    for name in ("slabs", "tiles"):
+        ln = res[name]["launches"]
+        check(ln["shard_keep_count"] == steps, f"{name}: KAE keep launched {ln['shard_keep_count']}")
+        check(ln["halo_exchange"] == steps * (1 if name == "slabs" else 2),
+              f"{name}: KAD launched {ln['halo_exchange']}")
+    for name in COLD_STEP_KERNELS:
+        for run in ("worlds", "slabs", "tiles"):
+            check(res[run]["launches"][name] > 0, f"kernel {name} never launched ({run})")
+    return res
+
+
+def _spatial_case(w, cpu, shape, halo_cap, lay, device, sync, steps, cpu_steps,
+                  cpu_drift_steps):
+    from substrata_tpu_torch import kernels
+    from substrata_tpu_torch.parallel import mesh, spatial
+    from substrata_tpu_torch.physics.step import physics_step
+    world, params, config = w.static_world, w.params, w.config
+    lo, hi = SLAB_X
+
+    def partition(state):
+        if lay == "slab":
+            return spatial.partition_by_slab(state, SLABS, SLAB_CAP, lo, hi)
+        return spatial.partition_by_tile(state, 2, 2, SLAB_CAP, lo, hi, lo, hi)
+
+    def stepper(m, wo, pa):
+        if lay == "slab":
+            return lambda s: spatial.spatial_world_step(s, wo, None, DT, pa, config, m, halo_cap,
+                                                        HALO_WIDTH, lo, hi)
+        return lambda s: spatial.spatial_world_step_2d(s, wo, None, DT, pa, config, m, halo_cap,
+                                                       HALO_WIDTH, lo, hi, lo, hi)
+
+    mk = (lambda d: mesh.Mesh(shape, ("x",) if lay == "slab" else ("sx", "sy"), d))
+    part0, owner0 = partition(w.state)
+    overflow = []
+    kernels.reset_launch_counts()
+    part, owner, aw, ov, times = _spatial_run(
+        stepper(mk(device), world, params), part0, steps, partition, sync,
+        on_step=lambda k, p, o, a, v: overflow.append(int(v)))
+    counts = kernels.launch_counts()
+    check(max(overflow) == 0, f"{lay}: halo overflow {max(overflow)}")
+    check(bool(torch.isfinite(part.pos[part.alive]).all()), f"{lay}: non-finite positions")
+    min_z = float(part.pos[part.alive][:, 2].min())
+    check(min_z >= -0.5, f"{lay}: a body fell through the ground: z = {min_z}")
+    # The CPU port's sharded run from the same partition.
+    card_steps, cpu_err = [], []
+    stepped = part0
+    cpu_part = _moved(part0, "cpu")
+    st_card, st_cpu = stepper(mk(device), world, params), stepper(mk("cpu"), *cpu)
+    for k in range(cpu_drift_steps):
+        stepped = st_card(stepped)[0]
+        cpu_part = st_cpu(cpu_part)[0]
+        cpu_err.append(_owned_err(stepped, cpu_part))
+    check(max(cpu_err[:cpu_steps]) <= 1e-3,
+          f"{lay}: card vs CPU port {max(cpu_err[:cpu_steps])} > 1e-3 m in {cpu_steps} steps")
+    # The unsharded cold step, each body through the owner maps.
+    ref = w.state
+    for _ in range(steps):
+        ref = physics_step(ref, world, DT, params, config)[0]
+    orig = torch.nonzero(w.state.alive).flatten().cpu().numpy()
+    slots = owner[owner0[orig]]
+    unsharded = float((part.pos[torch.as_tensor(slots, device=device)] - ref.pos[
+        torch.as_tensor(orig, device=device)]).abs().max())
+    return dict(shards=int(np.prod(shape)), local_cap=SLAB_CAP, halo_cap=halo_cap,
+                halo_width=HALO_WIDTH, steps=steps, awake=int(aw), halo_overflow_max=max(overflow),
+                ms_per_step_median=float(np.median(times[5:])),
+                ms_per_step_p90=float(np.percentile(times[5:], 90)),
+                cuda_vs_cpu_err_held=max(cpu_err[:cpu_steps]),
+                cuda_vs_cpu_drift=cpu_err, unsharded_pos_diff=unsharded, min_z=min_z,
+                launches=counts)
+
+
 PHYSICS_KERNELS = ("box_box_rows", "static_contacts", "solve_iteration", "apply_forces",
                    "integrate_positions", "cell_table", "solve_setup", "cache_refresh",
                    "find_pairs", "layout_incidence", "solve_positions", "strike_wake",
@@ -3692,6 +4053,14 @@ KERNELS = [
      "substrata_tpu/physics/vehicles/manager.py:664"),
     ("bc1_encode", "cuda", "substrata_tpu_torch/csrc/bc1.cu",
      "substrata_tpu/shared/texture_compress.py:46"),
+    ("halo_exchange", "cuda", "substrata_tpu_torch/csrc/halo.cu",
+     "substrata_tpu/parallel/spatial.py:97"),
+    ("shard_keep_count", "cuda", "substrata_tpu_torch/csrc/shard_reduce.cu",
+     "substrata_tpu/parallel/spatial.py:146"),
+    ("shard_world_count", "cuda", "substrata_tpu_torch/csrc/shard_reduce.cu",
+     "substrata_tpu/parallel/mesh.py:29"),
+    ("shard_sum_clip", "cuda", "substrata_tpu_torch/csrc/shard_reduce.cu",
+     "substrata_tpu/parallel/mesh.py:63"),
 ]
 # The run whose launches each kernel line reports: phase 9's full ticks,
 # unless named here (phase 5's thinks, 11's serving ticks, 13's mesh
@@ -3705,7 +4074,29 @@ LAUNCHES_FROM = {"closed_form_rows": "serving", "character_update": "serving",
                  "terrain_scatter": "terrain", "spawn_rows": "terrain",
                  "pose_avatars": "terrain", "audio_setup": "client",
                  "audio_epilogue": "client", "vehicle_setup": "client",
-                 "vehicle_scatter": "client", "bc1_encode": "server"}
+                 "vehicle_scatter": "client", "bc1_encode": "server",
+                 "halo_exchange": "sharded", "shard_keep_count": "sharded",
+                 "shard_world_count": "sharded", "shard_sum_clip": "sharded"}
+
+
+def mp3_probe():
+    """Whether the card's host has libmpg123 (and libmp3lame), and, where
+    both are there, one MP3 written and decoded by the port's codecs.  A
+    host library, not the card: its absence is reported, not failed."""
+    import tempfile
+
+    from substrata_tpu_torch.audio.readers import read_sound_file
+    from substrata_tpu_torch.runtime import codecs
+    out = dict(libmpg123=codecs.has_mp3(), libmp3lame=codecs.has_mp3_encode())
+    if out["libmpg123"] and out["libmp3lame"]:
+        x = (0.5 * np.sin(np.arange(24_000) * 2 * np.pi * 440 / 48_000)).astype(np.float32)
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "tone.mp3")
+            codecs.encode_mp3(x, 48_000, path)
+            sf = read_sound_file(path, target_rate=48_000)
+        out.update(decoded_frames=int(sf.buf.shape[0]), rate=sf.sample_rate,
+                   peak=float(np.abs(sf.buf).max()))
+    return out
 
 
 def main():
@@ -3727,6 +4118,9 @@ def main():
     log("# installed: " + ", ".join(
         f"{m} {'yes' if importlib.util.find_spec(m) else 'no'}"
         for m in ("PIL", "cryptography", "zstandard")) + f", openssl {shutil.which('openssl')}")
+
+    mp3 = mp3_probe()
+    log(f"# host libmpg123: {json.dumps(mp3)}")
 
     t0 = time.perf_counter()
     build.build(verbose=True)
@@ -3871,9 +4265,25 @@ def main():
         f"{net_res['ms_per_tick_max']:.3f}, card idle {net_res['device_idle_share']:.3f}; "
         f"texture upload to 3 LODs {tx_res['pipeline_ms']:.1f} ms | {smi}")
 
+    shk = shard_kernel_phase()
+    for name, r in shk.items():
+        log(f"# phase 22 {name}: {json.dumps(r)} | {smi}")
+    kres.update(shk)
+    sh_res = sharded_phase()
+    for name in ("worlds", "sources", "slabs", "tiles"):
+        log(f"# phase 23 {name}: "
+            f"{json.dumps({k: v for k, v in sh_res[name].items() if k != 'launches'})} | {smi}")
+    log(f"# ms per multi-world step (4 bench worlds of 10,240 slots, cold steps): "
+        f"{sh_res['worlds']['ms_per_multi_world_step_median']:.3f} (p90 "
+        f"{sh_res['worlds']['ms_per_multi_world_step_p90']:.3f}); ms per spatial step "
+        f"(10,000 boxes, 4 slabs): {sh_res['slabs']['ms_per_step_median']:.3f} (p90 "
+        f"{sh_res['slabs']['ms_per_step_p90']:.3f}), 2 x 2 tiles: "
+        f"{sh_res['tiles']['ms_per_step_median']:.3f} (p90 "
+        f"{sh_res['tiles']['ms_per_step_p90']:.3f}) | {smi}")
+
     # Launches: each kernel's count on its main path (LAUNCHES_FROM).
     runs = dict(think=main_res, full=ft_res, serving=sv_res, mesh=me_res, terrain=te_res,
-                client=cl_res, server=tx_res)
+                client=cl_res, server=tx_res, sharded=sh_res)
     launches = {name: runs[LAUNCHES_FROM.get(name, "full")]["launches"][name]
                 for name, *_ in KERNELS}
     for name in ("find_pairs", "solve_positions", "strike_wake", "sleep_pass"):
@@ -3895,7 +4305,8 @@ def main():
                        mesh_world=me_res, kpqr_kernels=kpqr, layout_kernels=lay,
                        terrain_kernels=tk, terrain_world=te_res, setup_kernels=su,
                        client_frame=cl_res, kac=kac, server_texture=tx_res,
-                       networked_frame=net_res),
+                       networked_frame=net_res, shard_kernels=shk, sharded=sh_res,
+                       mp3=mp3),
                   f, indent=1)
     log(json.dumps(out))
     log(smi)

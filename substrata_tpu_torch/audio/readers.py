@@ -2,7 +2,7 @@
 
 Counterpart of ``substrata_tpu/audio/readers.py`` (numpy only): WAV
 decode (PCM 8/16/24/32 and float32) and load-time resampling to the engine
-rate.  MP3 raises NotImplementedError until the port has its own decoder.
+rate; MP3 through the system libmpg123 (``runtime.codecs``).
 
 Reference: audio/AudioFileReader.* dispatches to WavAudioFileReader
 (stdlib-equivalent RIFF parsing) and MP3AudioFileReader (minimp3).
@@ -115,11 +115,17 @@ def _read_wav_float(raw: bytes) -> SoundFile:
 
 
 def read_mp3(path) -> SoundFile:
-    """MP3 decode needs a minimp3 binding of the port's own, which it does
-    not have yet."""
-    raise NotImplementedError(
-        "MP3 decoding is not ported yet (ROADMAP.md queue 1, item 6: MP3 through "
-        "a port-owned minimp3 binding); convert to WAV")
+    """MP3 decode via the system libmpg123 (``runtime.codecs``) — the
+    reference vendors minimp3 for the same decode
+    (audio/MP3AudioFileReader.cpp)."""
+    from substrata_tpu_torch.runtime import codecs
+    if codecs.has_mp3():
+        arr, rate = codecs.decode_mp3(path)
+        return SoundFile(buf=arr, num_channels=1 if arr.ndim == 1 else arr.shape[1],
+                         sample_rate=rate)
+    raise RuntimeError(
+        "MP3 decoding requires libmpg123 (not found on this system); "
+        "convert to WAV")
 
 
 def read_sound_file(path, target_rate: int | None = None) -> SoundFile:

@@ -77,14 +77,8 @@ __device__ void hf_sample_normal(const Ctx& c, float x, float y, float& h, float
   const float fv = v - static_cast<float>(j0);
   const float h00 = c.heights[i0 * c.hy + j0], h10 = c.heights[(i0 + 1) * c.hy + j0];
   const float h01 = c.heights[i0 * c.hy + j0 + 1], h11 = c.heights[(i0 + 1) * c.hy + j0 + 1];
-  h = h00 * (1.0f - fu) * (1.0f - fv) + h10 * fu * (1.0f - fv) + h01 * (1.0f - fu) * fv +
-      h11 * fu * fv;
-  const float dzdx = ((h10 - h00) * (1.0f - fv) + (h11 - h01) * fv) / c.cw;
-  const float dzdy = ((h01 - h00) * (1.0f - fu) + (h11 - h10) * fu) / c.cw;
-  const float norm = sqrtf(dzdx * dzdx + dzdy * dzdy + 1.0f);
-  n[0] = -dzdx / norm;
-  n[1] = -dzdy / norm;
-  n[2] = 1.0f / norm;
+  h = sbt::hf_bilinear(fu, fv, h00, h10, h01, h11);
+  sbt::hf_patch_normal(fu, fv, h00, h10, h01, h11, c.cw, n[0], n[1], n[2]);
 }
 
 // argmax over v[0:K] (first maximum), the result in every thread.

@@ -60,6 +60,29 @@ __device__ __forceinline__ void rotate_vec(const float q[4], const float v[3], f
   for (int k = 0; k < 3; ++k) o[k] = v[k] + 2.0f * (q[3] * uv[k] + uuv[k]);
 }
 
+// physics/state.py:_bilinear: the heightfield patch's height as the jitted
+// reference rounds it, three fmas (KB, KH and KL; KW repeats the same chain).
+__device__ __forceinline__ float hf_bilinear(float fu, float fv, float h00, float h10,
+                                             float h01, float h11) {
+  const float a = 1.0f - fu, b = 1.0f - fv;
+  return __fmaf_rn(h11 * fu, fv, __fmaf_rn(h01 * a, fv, __fmaf_rn(h00 * a, b, (h10 * fu) * b)));
+}
+
+// physics/state.py:Heightfield.sample_with_normal: the unit normal of the
+// patch's analytic gradient, one fma a gradient, the length as the norm's fma
+// chain, the cell width a true division.
+__device__ __forceinline__ void hf_patch_normal(float fu, float fv, float h00, float h10,
+                                                float h01, float h11, float cw, float& nx,
+                                                float& ny, float& nz) {
+  const float a = 1.0f - fu, b = 1.0f - fv;
+  const float gx = -(__fmaf_rn(h11 - h01, fv, (h10 - h00) * b) / cw);
+  const float gy = -(__fmaf_rn(h11 - h10, fu, (h01 - h00) * a) / cw);
+  const float norm = sqrtf(__fmaf_rn(1.0f, 1.0f, __fmaf_rn(gy, gy, gx * gx)));
+  nx = gx / norm;
+  ny = gy / norm;
+  nz = 1.0f / norm;
+}
+
 // The broadphase cell hash (kernels/cell_table.py:hash_cells): int32
 // products that wrap, xor, and the modulo taken as uint32.  KP builds the
 // table with it and KS reads the table's stencil with it.

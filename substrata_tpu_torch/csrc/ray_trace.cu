@@ -289,19 +289,13 @@ __device__ void hf_patch(const Heightfield& hf, float x, float y, float& fu, flo
 __device__ float hf_sample(const Heightfield& hf, float x, float y) {
   float fu, fv, h00, h10, h01, h11;
   hf_patch(hf, x, y, fu, fv, h00, h10, h01, h11);
-  return h00 * (1.0f - fu) * (1.0f - fv) + h10 * fu * (1.0f - fv) + h01 * (1.0f - fu) * fv +
-         h11 * fu * fv;
+  return sbt::hf_bilinear(fu, fv, h00, h10, h01, h11);
 }
 
 __device__ void hf_normal(const Heightfield& hf, float x, float y, float n[3]) {
   float fu, fv, h00, h10, h01, h11;
   hf_patch(hf, x, y, fu, fv, h00, h10, h01, h11);
-  const float dzdx = ((h10 - h00) * (1.0f - fv) + (h11 - h01) * fv) / hf.cw;
-  const float dzdy = ((h01 - h00) * (1.0f - fu) + (h11 - h10) * fu) / hf.cw;
-  const float norm = sqrtf(dzdx * dzdx + dzdy * dzdy + 1.0f);
-  n[0] = -dzdx / norm;
-  n[1] = -dzdy / norm;
-  n[2] = 1.0f / norm;
+  sbt::hf_patch_normal(fu, fv, h00, h10, h01, h11, hf.cw, n[0], n[1], n[2]);
 }
 
 // jnp.linspace(0, 1, n)[s]: s times the float32 reciprocal of n - 1, the

@@ -160,20 +160,15 @@ __global__ void static_contacts_kernel(
       const float h10 = heights[(i0 + 1) * hy + j0];
       const float h01 = heights[i0 * hy + j0 + 1];
       const float h11 = heights[(i0 + 1) * hy + j0 + 1];
-      h = h00 * (1.0f - fu) * (1.0f - fv) + h10 * fu * (1.0f - fv) +
-          h01 * (1.0f - fu) * fv + h11 * fu * fv;
-      const float dzdx = ((h10 - h00) * (1.0f - fv) + (h11 - h01) * fv) / cw;
-      const float dzdy = ((h01 - h00) * (1.0f - fu) + (h11 - h10) * fu) / cw;
-      const float norm = sqrtf(dzdx * dzdx + dzdy * dzdy + 1.0f);
-      nx = -dzdx / norm;
-      ny = -dzdy / norm;
-      nz = 1.0f / norm;
+      h = sbt::hf_bilinear(fu, fv, h00, h10, h01, h11);
+      sbt::hf_patch_normal(fu, fv, h00, h10, h01, h11, cw, nx, ny, nz);
     }
     const float pe = (h - (w[2] - rad)) * nz;
     if (rad > 0.0f) {
-      pts[s][0] = w[0] - nx * rad;
-      pts[s][1] = w[1] - ny * rad;
-      pts[s][2] = w[2] - nz * rad;
+      // The jitted reference contracts flat - n * rad into fma(-n, rad, flat).
+      pts[s][0] = __fmaf_rn(-nx, rad, w[0]);
+      pts[s][1] = __fmaf_rn(-ny, rad, w[1]);
+      pts[s][2] = __fmaf_rn(-nz, rad, w[2]);
     } else {
       pts[s][0] = w[0];
       pts[s][1] = w[1];

@@ -41,14 +41,16 @@ path went through the kernels.
   KAA audio_setup.py        csrc/audio_setup.cu      the mix's per-source setup + epilogue
   KAB vehicle_setup.py      csrc/vehicle_setup.cu    vehicle pre-ray setup + delta scatter
   KAC bc1.py                csrc/bc1.cu              BC1 encoding of a texture's mip chain
+  KAD halo.py               csrc/halo.cu             halo exchange of the sharded step
+  KAE shard_reduce.py       csrc/shard_reduce.cu     the shard axis's keep, counts, sum + clip
 """
 
 from substrata_tpu_torch.kernels import (audio_mix, audio_setup, bc1, box_box, cell_table,
-                                         character, closed_forms, convex, integrate_triton,
-                                         layout, pairs, particles_triton, pose, positions,
-                                         ray_trace, serving_io, sleep, solve, solve_setup, spawn,
-                                         static_contacts, terrain, vehicle_setup, vehicles,
-                                         winter)
+                                         character, closed_forms, convex, halo,
+                                         integrate_triton, layout, pairs, particles_triton, pose,
+                                         positions, ray_trace, serving_io, shard_reduce, sleep,
+                                         solve, solve_setup, spawn, static_contacts, terrain,
+                                         vehicle_setup, vehicles, winter)
 
 
 def launch_counts() -> dict:
@@ -79,6 +81,8 @@ def launch_counts() -> dict:
         **audio_setup.launches,
         **vehicle_setup.launches,
         "bc1_encode": bc1.launches,
+        "halo_exchange": halo.launches,
+        **shard_reduce.launches,
     }
 
 
@@ -99,8 +103,9 @@ def reset_launch_counts():
     spawn.launches = 0
     pose.launches = 0
     bc1.launches = 0
+    halo.launches = 0
     for counts in (integrate_triton.launches, audio_mix.launches, serving_io.launches,
                    solve_setup.launches, layout.launches, sleep.launches, terrain.launches,
-                   audio_setup.launches, vehicle_setup.launches):
+                   audio_setup.launches, vehicle_setup.launches, shard_reduce.launches):
         for k in counts:
             counts[k] = 0

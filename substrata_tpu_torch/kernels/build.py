@@ -189,6 +189,19 @@ SIGNATURES = {
     "vehicle_scatter": [P] * 3 + [I] * 2 + [P] * 4 + [P],
     # blocks [nb, 16, 3], out words [nb, 2], nb, stream
     "bc1_encode": [P, P, I] + [P],
+    # host arrays of src and dst field pointers and bytes per row, n
+    # fields, pos, alive, alive and awake field indices, host arrays of the
+    # low and high thresholds, S, rows_in, H, axis, stride, n_axis, out
+    # overflow [S, 2], stream
+    "halo_exchange": [P] * 3 + [I] + [P] * 2 + [I] * 2 + [P] * 2 + [I] * 6 + [P] + [P],
+    # host arrays of the shards' src field pointers (shard-major), dst
+    # pointers and bytes per row, n fields, S, L, alive and awake field
+    # indices, overflow, its length, out counts [2], stream
+    "shard_keep_count": [P] * 3 + [I] * 5 + [P, I, P] + [P],
+    # host array of W count pointers, W, out, stream
+    "shard_world_count": [P, I, P] + [P],
+    # host array of n block pointers, n, length, out, stream
+    "shard_sum_clip": [P, I, I, P] + [P],
 }
 
 _lib = None

@@ -31,6 +31,7 @@ import torch
 from substrata_tpu_torch.kernels import build
 from substrata_tpu_torch.kernels.box_box import CONTACT_MARGIN, _norm3, combine_friction
 from substrata_tpu_torch.kernels.closed_forms import closest_point_triangle, safe_normalize
+from substrata_tpu_torch.maths import fp
 from substrata_tpu_torch.maths import quat as quatm
 from substrata_tpu_torch.physics.state import (BodyState, Heightfield, HullLibrary, ShapeType,
                                                TriMesh)
@@ -153,7 +154,7 @@ def static_contacts_plain(body: BodyState, hf: Heightfield, has_heightfield,
     rad = radius.repeat_interleave(8)
     h, hf_n = hf.sample_with_normal(flat[:, :2])
     pen = (h - (flat[:, 2] - rad)) * hf_n[:, 2]
-    point = torch.where((rad > 0)[:, None], flat - hf_n * rad[:, None],
+    point = torch.where((rad > 0)[:, None], fp.fma(-hf_n, rad[:, None], flat),
                         torch.stack([flat[:, 0], flat[:, 1], h], dim=1))
     normal = hf_n.expand(n * 8, 3)
     hf_ok = has_heightfield & (pen > -CONTACT_MARGIN)

@@ -17,6 +17,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from substrata_tpu_torch.maths import fp
 from substrata_tpu_torch.maths import quat as quatm
 
 
@@ -265,6 +266,13 @@ def build_trimesh(verts: np.ndarray, tris: np.ndarray, tri_mats: np.ndarray | No
                    n_tris=torch.tensor(nt, dtype=torch.int32, device=device), count=nt)
 
 
+def _bilinear(fu, fv, h00, h10, h01, h11):
+    """The patch's height as the jitted reference rounds it: three fmas,
+    fma(h11 fu, fv, fma(h01 (1-fu), fv, fma(h00 (1-fu), 1-fv, h10 fu (1-fv))))."""
+    a, b = 1.0 - fu, 1.0 - fv
+    return fp.fma(h11 * fu, fv, fp.fma(h01 * a, fv, fp.fma(h00 * a, b, (h10 * fu) * b)))
+
+
 @dataclasses.dataclass
 class Heightfield(_Replace):
     """Regular-grid heightfield, z-up.  ``is_flat`` selects the ground-plane
@@ -295,9 +303,7 @@ class Heightfield(_Replace):
         ``sample_with_normal``)."""
         if self.is_flat:
             return self.heights[0, 0].expand(xy.shape[:-1])
-        fu, fv, h00, h10, h01, h11 = self._patch(xy)
-        return (h00 * (1 - fu) * (1 - fv) + h10 * fu * (1 - fv)
-                + h01 * (1 - fu) * fv + h11 * fu * fv)
+        return _bilinear(*self._patch(xy))
 
     def normal(self, xy):
         """Unit surface normal at world xy [..., 2]."""
@@ -311,14 +317,12 @@ class Heightfield(_Replace):
             n = torch.zeros(xy.shape[:-1] + (3,), dtype=torch.float32, device=xy.device)
             n[..., 2] = 1.0
             return h, n
-        fu, fv, h00, h10, h01, h11 = self._patch(xy)
-        h = (h00 * (1 - fu) * (1 - fv) + h10 * fu * (1 - fv)
-             + h01 * (1 - fu) * fv + h11 * fu * fv)
-        dzdx = ((h10 - h00) * (1 - fv) + (h11 - h01) * fv) / self.cell_w
-        dzdy = ((h01 - h00) * (1 - fu) + (h11 - h10) * fu) / self.cell_w
-        norm = torch.sqrt(dzdx * dzdx + dzdy * dzdy + 1.0)
-        n = torch.stack([-dzdx / norm, -dzdy / norm, 1.0 / norm], dim=-1)
-        return h, n
+        fu, fv, h00, h10, h01, h11 = patch = self._patch(xy)
+        a, b = 1.0 - fu, 1.0 - fv
+        nx = -(fp.fma(h11 - h01, fv, (h10 - h00) * b) / self.cell_w)
+        ny = -(fp.fma(h11 - h10, fu, (h01 - h00) * a) / self.cell_w)
+        norm = fp.sqrt(fp.fma(1.0, 1.0, fp.fma(ny, ny, nx * nx)))
+        return _bilinear(*patch), torch.stack([nx / norm, ny / norm, 1.0 / norm], dim=-1)
 
 
 def flat_heightfield(extent: float = 1000.0, z: float = 0.0, res: int = 8, *,

@@ -46,15 +46,20 @@ class StepDiagnostics(_Replace):
 
 
 def physics_step(body: BodyState, world: StaticWorld, dt: float, params: SimParams,
-                 config: SimConfig, solver_cache: solver.SolverCache,
-                 pair_cache: broadphase.PairCache, rebuild_pairs: bool = True,
+                 config: SimConfig, solver_cache: solver.SolverCache | None = None,
+                 pair_cache: broadphase.PairCache | None = None, rebuild_pairs: bool = True,
                  has_oversize: bool = True):
-    """Advance the world one fixed substep, as ``PhysicsWorld.think`` runs
-    it (warm-started solve, cached pair list).
+    """Advance the world one fixed substep.
 
-    Returns (new_body, new_solver_cache, new_pair_cache, events, diagnostics).
+    ``PhysicsWorld.think`` passes both caches (warm-started solve, cached
+    pair list) and gets (new_body, new_solver_cache, new_pair_cache,
+    events, diagnostics).  With neither, the cold step of the reference's
+    sharded programs (``parallel``): pairs found afresh every step, no warm
+    start, and (new_body, events, diagnostics).
     The step runs inside a ``physics_step`` profiler range, so a trace can
     attribute its device work."""
+    if (pair_cache is None) != (solver_cache is None):
+        raise ValueError("pass both solver_cache and pair_cache (the warm step) or neither")
     with torch.profiler.record_function("physics_step"):
         return _physics_step(body, world, dt, params, config, solver_cache, pair_cache,
                              rebuild_pairs, has_oversize)
@@ -69,11 +74,19 @@ def _physics_step(body, world, dt, params, config, solver_cache, pair_cache, reb
     linvel, angvel, in_water = integrate.apply_forces(body, dt, params)
     body = body.replace(linvel=linvel, angvel=angvel)
 
-    # 2. Broadphase (rebuild, or reuse the last rebuild's pair list).
-    (pair_a, pair_b, pair_valid, num_pairs, overflow,
-     new_pair_cache) = broadphase.find_pairs_cached(
-        body, pair_cache, dt, config, rebuild=rebuild_pairs,
-        has_oversize=has_oversize)
+    # 2. Broadphase (rebuild, or reuse the last rebuild's pair list; the
+    # cold step finds them afresh).
+    if pair_cache is not None:
+        (pair_a, pair_b, pair_valid, num_pairs, overflow,
+         new_pair_cache) = broadphase.find_pairs_cached(
+            body, pair_cache, dt, config, rebuild=rebuild_pairs,
+            has_oversize=has_oversize)
+        steps_left = new_pair_cache.steps_left
+    else:
+        pair_a, pair_b, pair_valid, num_pairs, overflow = broadphase.find_pairs(
+            body, config, has_oversize=has_oversize)
+        new_pair_cache = None
+        steps_left = torch.zeros((), dtype=torch.int32, device=body.device)
 
     # 2b. Pre-solve strike wake: a sleeper paired with a fast awake body
     # joins this step's solve.
@@ -90,7 +103,7 @@ def _physics_step(body, world, dt, params, config, solver_cache, pair_cache, reb
     if wm:
         contacts_p = pair_cts
         contact_overflow = torch.zeros((), dtype=torch.int32, device=body.device)
-        if not rebuild_pairs:
+        if pair_cache is not None and not rebuild_pairs:
             # Reuse steps keep the rebuild step's entry table.
             inc_table, inc_sign = pair_cache.inc_table, pair_cache.inc_sign
         else:
@@ -123,7 +136,7 @@ def _physics_step(body, world, dt, params, config, solver_cache, pair_cache, reb
     slept = sleep.sleep_pass(
         body, prev_awake, linvel, angvel, (static_cts.valid, static_cts.penetration),
         (contacts_p.a, contacts_p.b, contacts_p.valid, contacts_p.penetration), lambda_p,
-        inc_table, inc_sign, wm, dt, params, new_pair_cache.steps_left)
+        inc_table, inc_sign, wm, dt, params, steps_left)
     awake, sleep_timer, linvel, angvel = slept.awake, slept.sleep_timer, slept.linvel, slept.angvel
 
     new_body = body.replace(pos=pos, quat=quat, linvel=linvel, angvel=angvel,
@@ -144,6 +157,8 @@ def _physics_step(body, world, dt, params, config, solver_cache, pair_cache, reb
             torch.where(contacts_p.valid, contacts_p.penetration, 0.0).max(),
             torch.where(static_cts.valid, static_cts.penetration, 0.0).max()),
     )
-    new_pair_cache = new_pair_cache.replace(steps_left=slept.steps_left,
-                                            inc_table=inc_table, inc_sign=inc_sign)
-    return new_body, new_cache, new_pair_cache, events, diags
+    if new_pair_cache is not None:
+        new_pair_cache = new_pair_cache.replace(steps_left=slept.steps_left,
+                                                inc_table=inc_table, inc_sign=inc_sign)
+        return new_body, new_cache, new_pair_cache, events, diags
+    return new_body, events, diags

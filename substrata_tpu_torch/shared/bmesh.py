@@ -197,9 +197,8 @@ def write_bmesh(verts: np.ndarray, tris: np.ndarray,
     """Write a version-1 .bmesh (float positions, zstd streams, delta
     indices) — the format the server's upload pipeline produces when
     converting models (docs/changelog.txt: 'conversion of meshes to
-    bmesh').  The streams are zstd frames of stored blocks
-    (``shared/zstd.py``): any zstd reader takes them, and the file is no
-    smaller than its arrays."""
+    bmesh').  The streams are zstd frames of the port's own writer
+    (``shared/zstd.py``), which any zstd reader takes."""
     verts = np.asarray(verts, np.float32)
     tris = np.asarray(tris, np.int64)
     n = len(verts)

@@ -5,9 +5,13 @@ which the port does not depend on.  ``decompress`` reads any zstd frame:
 raw, RLE and compressed blocks (Huffman-coded literals, FSE-coded
 sequences, repeat offsets, tables carried from block to block), skippable
 frames, and several frames one after another; it checks no checksum and
-supports no dictionary.  ``compress`` writes one frame of raw (stored)
-blocks with its content size: every zstd decoder reads it, and it is not
-smaller than its input.  Both work on ``bytes`` at Python speed, which
+supports no dictionary.  ``compress`` writes one single-segment frame
+with its content size: an RLE block where a block is one repeated byte,
+else a compressed block where that is smaller than the stored one —
+literals stored raw (or as one repeated byte), sequences from a greedy
+LZ77 match finder (a hash of 4-byte prefixes over the whole frame, no
+repeat offsets) coded with the format's predefined FSE tables — and a
+stored block otherwise.  Both work on ``bytes`` at Python speed, which
 suits meshes of up to a few hundred kilobytes.
 """
 
@@ -24,21 +28,239 @@ class ZstdError(ValueError):
 
 
 def compress(data: bytes) -> bytes:
-    """One frame holding ``data`` in raw blocks, with its content size."""
+    """One frame holding ``data``, with its content size."""
     data = bytes(data)
     n = len(data)
     if n >= 1 << 32:
         raise ZstdError("content of 4 GiB or more")
     out = [struct.pack("<IB", MAGIC, 0xA0), struct.pack("<I", n)]  # single segment, 4-byte size
+    finder = _MatchFinder(data)
     pos = 0
     while True:
         size = min(MAX_BLOCK, n - pos)
-        last = pos + size >= n
-        out.append((int(last) | (size << 3)).to_bytes(3, "little"))
-        out.append(data[pos:pos + size])
+        last = int(pos + size >= n)
+        chunk = data[pos:pos + size]
+        if size and chunk.count(chunk[0]) == size:
+            out.append((last | (1 << 1) | (size << 3)).to_bytes(3, "little") + chunk[:1])
+            finder.skip(pos + size)
+        else:
+            body = _compressed_block(finder.sequences(pos, pos + size), data, pos, pos + size)
+            if len(body) < size:
+                out.append((last | (2 << 1) | (len(body) << 3)).to_bytes(3, "little") + body)
+            else:
+                out.append((last | (size << 3)).to_bytes(3, "little") + chunk)
         pos += size
         if last:
             return b"".join(out)
+
+
+# ---------------------------------------------------------------------------
+# Compressed blocks: greedy LZ77, predefined FSE tables
+# ---------------------------------------------------------------------------
+
+MIN_MATCH = 4
+MAX_OFFSET_CODE = 28        # the predefined offset table's last symbol
+
+
+class _MatchFinder:
+    """Greedy longest-prefix matches against everything before them in the
+    frame, through a table of the last position of each 4-byte prefix."""
+
+    def __init__(self, data: bytes):
+        self.data = data
+        self.table: dict[bytes, int] = {}
+        self.pos = 0
+
+    def skip(self, end: int):
+        """Index positions up to ``end`` without emitting anything."""
+        d, table = self.data, self.table
+        for p in range(self.pos, min(end, len(d) - MIN_MATCH + 1)):
+            table[d[p:p + MIN_MATCH]] = p
+        self.pos = end
+
+    def sequences(self, start: int, end: int):
+        """(literal length, offset, match length) of the block [start, end);
+        the literals after the last match are left for the block."""
+        d, table = self.data, self.table
+        seqs = []
+        anchor = p = start
+        limit = end - MIN_MATCH
+        while p <= limit:
+            key = d[p:p + MIN_MATCH]
+            cand = table.get(key)
+            table[key] = p
+            if cand is None or (p - cand + 3).bit_length() - 1 > MAX_OFFSET_CODE:
+                p += 1
+                continue
+            m = MIN_MATCH
+            while p + m < end and d[cand + m] == d[p + m]:
+                m += 1
+            seqs.append((p - anchor, p - cand, m))
+            for q in range(p + 1, min(p + m, len(d) - MIN_MATCH + 1)):
+                table[d[q:q + MIN_MATCH]] = q
+            p += m
+            anchor = p
+        self.pos = end
+        for q in range(max(p, start), min(end, len(d) - MIN_MATCH + 1)):
+            table[d[q:q + MIN_MATCH]] = q
+        return seqs
+
+
+def _code(value: int, base) -> int:
+    """The length code whose base is the largest not above ``value``."""
+    lo, hi = 0, len(base) - 1
+    while lo < hi:
+        mid = (lo + hi + 1) >> 1
+        if base[mid] <= value:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def _fse_encoder(counts, log):
+    """(state table, per-symbol (delta_nb_bits, delta_find_state)) of the
+    predefined distribution, as zstd's FSE_buildCTable builds them; the
+    symbol spread is ``_fse_table``'s, so the decoder walks the same
+    states."""
+    size = 1 << log
+    sym = [0] * size
+    high = size - 1
+    cumul = [0]
+    for s, c in enumerate(counts):
+        if c == -1:
+            sym[high] = s
+            high -= 1
+        cumul.append(cumul[-1] + (1 if c == -1 else c))
+    step = (size >> 1) + (size >> 3) + 3
+    pos = 0
+    for s, c in enumerate(counts):
+        for _ in range(max(c, 0)):
+            sym[pos] = s
+            pos = (pos + step) & (size - 1)
+            while pos > high:
+                pos = (pos + step) & (size - 1)
+    states = [0] * size
+    nxt = cumul[:-1]
+    for u in range(size):
+        states[nxt[sym[u]]] = size + u
+        nxt[sym[u]] += 1
+    transform = []
+    total = 0
+    for c in counts:
+        if c in (-1, 1):
+            transform.append(((log << 16) - size, total - 1))
+            total += 1
+        elif c == 0:
+            transform.append((((log + 1) << 16) - size, 0))
+        else:
+            max_bits = log - ((c - 1).bit_length() - 1)
+            transform.append(((max_bits << 16) - (c << max_bits), total - c))
+            total += c
+    return states, transform, log
+
+
+_ENCODERS = None
+
+
+def _encoders():
+    global _ENCODERS
+    if _ENCODERS is None:
+        _ENCODERS = tuple(_fse_encoder(*t) for t in (LL_DEFAULT, OF_DEFAULT, ML_DEFAULT))
+    return _ENCODERS
+
+
+class _BitWriter:
+    """A forward bit accumulator; ``close`` adds the end marker."""
+
+    def __init__(self):
+        self.acc = 0
+        self.n = 0
+
+    def add(self, value: int, bits: int):
+        self.acc |= (value & ((1 << bits) - 1)) << self.n
+        self.n += bits
+
+    def close(self) -> bytes:
+        self.add(1, 1)
+        return self.acc.to_bytes((self.n + 7) >> 3, "little")
+
+
+class _FseState:
+    def __init__(self, enc, symbol: int):
+        self.states, self.transform, self.log = enc
+        dnb, dfs = self.transform[symbol]
+        nb = (dnb + (1 << 15)) >> 16
+        self.value = self.states[(((nb << 16) - dnb) >> nb) + dfs]
+
+    def encode(self, bw: _BitWriter, symbol: int):
+        dnb, dfs = self.transform[symbol]
+        nb = (self.value + dnb) >> 16
+        bw.add(self.value, nb)
+        self.value = self.states[(self.value >> nb) + dfs]
+
+    def flush(self, bw: _BitWriter):
+        bw.add(self.value, self.log)
+
+
+def _literals_section(lits: bytes) -> bytes:
+    n = len(lits)
+    kind = 1 if n and lits.count(lits[0]) == n else 0          # RLE or raw
+    if n < 32:
+        head = bytes([kind | (n << 3)])
+    elif n < 4096:
+        head = bytes([kind | (1 << 2) | ((n & 15) << 4), n >> 4])
+    else:
+        head = bytes([kind | (3 << 2) | ((n & 15) << 4), (n >> 4) & 0xFF, n >> 12])
+    return head + (lits[:1] if kind else lits)
+
+
+def _compressed_block(seqs, data: bytes, start: int, end: int) -> bytes:
+    lits = bytearray()
+    p = start
+    for ll, _off, ml in seqs:
+        lits += data[p:p + ll]
+        p += ll + ml
+    lits += data[p:end]
+    out = bytearray(_literals_section(bytes(lits)))
+    n = len(seqs)
+    if n < 128:
+        out.append(n)
+    elif n < 0x7F00:
+        out += bytes([(n >> 8) + 128, n & 0xFF])
+    else:
+        out += bytes([255, (n - 0x7F00) & 0xFF, (n - 0x7F00) >> 8])
+    if n == 0:
+        return bytes(out)
+    out.append(0)                                   # all three tables predefined
+    codes = []
+    for ll, off, ml in seqs:
+        of_value = off + 3
+        codes.append((_code(ll, LL_BASE), of_value.bit_length() - 1, _code(ml, ML_BASE)))
+    ll_enc, of_enc, ml_enc = _encoders()
+    bw = _BitWriter()
+
+    def extras(i):
+        ll, off, ml = seqs[i]
+        llc, ofc, mlc = codes[i]
+        bw.add(ll - LL_BASE[llc], LL_BITS[llc])
+        bw.add(ml - ML_BASE[mlc], ML_BITS[mlc])
+        bw.add(off + 3 - (1 << ofc), ofc)
+
+    llc, ofc, mlc = codes[-1]
+    ml_st, of_st, ll_st = _FseState(ml_enc, mlc), _FseState(of_enc, ofc), _FseState(ll_enc, llc)
+    extras(n - 1)
+    for i in range(n - 2, -1, -1):
+        llc, ofc, mlc = codes[i]
+        of_st.encode(bw, ofc)
+        ml_st.encode(bw, mlc)
+        ll_st.encode(bw, llc)
+        extras(i)
+    ml_st.flush(bw)
+    of_st.flush(bw)
+    ll_st.flush(bw)
+    out += bw.close()
+    return bytes(out)
 
 
 # ---------------------------------------------------------------------------

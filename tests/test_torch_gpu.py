@@ -24,8 +24,10 @@ exact), KX, KY and KZ exact, and a small terrain frame on the card within
 path; KAA exact (HRTF on and off; the pan's cos and sin within 1e-6 of
 the gains' scale, an HRIR bin only where its pre-round value lies within
 1e-5 of a half-integer), KAB exact; KAC exact (words); ClientApp on the
-card by default; the pipelined readback ring on the card.
-Each kernel repeats its twin's operations in the same order."""
+card by default; the pipelined readback ring on the card; KAD (the halo
+exchange) and KAE (the shard axis's keep, counts and clipped sum) exact,
+and the sharded paths on the card within 1e-4 m (the mix 5e-5) of the CPU
+path.  Each kernel repeats its twin's operations in the same order."""
 
 import numpy as np
 import pytest
@@ -1197,3 +1199,101 @@ def test_pipelined_ring_on_card():
     for k in range(3, 8):
         assert (got[k] == k - 3).all()
     assert len(ring) == 3 and ring.waits <= 5
+
+
+def _slab_world(n=2000):
+    """A bench-shaped box world of ``n`` boxes on the card, 10 ticks in."""
+    cfg = SimConfig(capacity=2048, max_pairs=8192, grid_dim=64, cell_size=1.4,
+                    cell_capacity=6, solver_iters=7, pairs_per_body=10,
+                    pair_rebuild_interval=6, contacts_per_body=8)
+    w = benchworld.bench_world("cuda", n_bodies=n, cfg=cfg)
+    for _ in range(10):
+        w.think(DT)
+    return w
+
+
+def _bodies_equal(a, b):
+    from substrata_tpu_torch.physics.state import BODY_FIELDS
+    for f in BODY_FIELDS:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("halo_cap", [192, 8])
+def test_halo_kernel_matches_plain(halo_cap):
+    """KAD against its twin, every byte: 4 x-slabs of a 2,000-box world
+    (and an overflowing halo), then the 2-D tiles' x and y phases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from substrata_tpu_torch.kernels import halo
+    from substrata_tpu_torch.parallel import spatial
+    w = _slab_world()
+    part, _ = spatial.partition_by_slab(w.state, 4, 768, -26.0, 26.0)
+    lo, hi = halo.thresholds(-26.0, 26.0, 4, 3.0)
+    before = halo.launches
+    got, ov = halo.exchange(part, 4, halo_cap, 0, 1, 4, lo, hi)
+    assert halo.launches == before + 1
+    want, ov_p = halo.exchange_plain(part, 4, halo_cap, 0, 1, 4, lo, hi)
+    _bodies_equal(got, want)
+    assert torch.equal(ov, ov_p) and (int(ov.sum()) > 0) == (halo_cap == 8)
+    tiles, _ = spatial.partition_by_tile(w.state, 2, 2, 1024, -26.0, 26.0, -26.0, 26.0)
+    lo, hi = halo.thresholds(-26.0, 26.0, 2, 3.0)
+    got_x, _ = halo.exchange(tiles, 4, halo_cap, 0, 2, 2, lo, hi)
+    _bodies_equal(got_x, halo.exchange_plain(tiles, 4, halo_cap, 0, 2, 2, lo, hi)[0])
+    got_y, ov_y = halo.exchange(got_x, 4, halo_cap, 1, 1, 2, lo, hi)
+    want_y, ov_yp = halo.exchange_plain(got_x, 4, halo_cap, 1, 1, 2, lo, hi)
+    _bodies_equal(got_y, want_y)
+    assert torch.equal(ov_y, ov_yp)
+
+
+def test_shard_reduce_kernels_match_plain():
+    """KAE's three entry points against their twins, exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from substrata_tpu_torch.kernels import shard_reduce as kae
+    from substrata_tpu_torch.physics.state import BODY_FIELDS, BodyState
+    w = _slab_world()
+    st = w.state
+    shards = [BodyState(**{f: getattr(st, f)[k * 512:(k + 1) * 512] for f in BODY_FIELDS})
+              for k in range(4)]
+    ov = torch.tensor([[0, 3], [1, 0], [0, 0], [7, 2]], dtype=torch.int32, device="cuda")
+    got, counts = kae.keep_count(shards, 300, ov)
+    want, counts_p = kae.keep_count_plain(shards, 300, ov)
+    _bodies_equal(got, want)
+    assert torch.equal(counts, counts_p) and int(counts[1]) == 13
+    nums = [torch.tensor(k * 7 + 1, dtype=torch.int32, device="cuda") for k in range(5)]
+    assert int(kae.world_count(nums)) == int(kae.world_count_plain(nums)) == 75
+    g = torch.Generator(device="cuda").manual_seed(0)
+    blocks = [torch.rand((256, 2), generator=g, device="cuda") * 1.2 - 0.6 for _ in range(4)]
+    assert torch.equal(kae.sum_clip(blocks), kae.sum_clip_plain(blocks))
+
+
+def test_sharded_paths_on_card_match_cpu():
+    """The dry run on the card, and a 4-slab step, 4 worlds and the sharded
+    mix on the card against the CPU path: worlds within 1e-4 m, the mix
+    within 5e-5 (tests/test_torch_audio.py's bound)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from substrata_tpu_torch.parallel import dryrun, mesh, spatial
+    assert dryrun.dryrun_multichip(4).startswith("dryrun_multichip OK")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        w = dryrun.dryrun_world(dev)
+        m = mesh.make_mesh(4, device=dev)
+        states = mesh.replicate_states(w.state, 4)
+        states = states.replace(linvel=states.linvel + torch.linspace(
+            -1, 1, 4, device=dev)[:, None, None] * w.state.alive[None, :, None])
+        for _ in range(5):
+            states, awake = mesh.multi_world_step(states, w.static_world, None, DT, w.params,
+                                                  w.config, m)
+        part, _ = spatial.partition_by_slab(w.state, 4, 8, -6.0, 6.0)
+        for _ in range(5):
+            part, aw, ov = spatial.spatial_world_step(part, w.static_world, None, DT, w.params,
+                                                      w.config, m, 4, 2.0, -6.0, 6.0)
+        src, _ = dryrun.dryrun_sources(128, dev)
+        pool = dryrun.dryrun_sources(128, "cpu")[1].to(dev)     # one rounding of sin
+        _, block = mesh.sharded_mix_block(src, pool, mix.default_listener(device=dev), m)
+        out[dev] = (states.pos.cpu(), int(awake), part.pos.cpu(), int(aw), int(ov), block.cpu())
+    a, b = out["cuda"], out["cpu"]
+    assert (a[1], a[3], a[4]) == (b[1], b[3], b[4])
+    assert (a[0] - b[0]).abs().max() <= 1e-4 and (a[2] - b[2]).abs().max() <= 1e-4
+    assert (a[5] - b[5]).abs().max() <= 5e-5

@@ -126,7 +126,8 @@ def test_bmesh_write_load_equal(n_verts, n_tris):
     tris = rng.integers(0, n_verts, (n_tris, 3)).astype(np.int32)
     mats = rng.integers(0, 3, n_tris).astype(np.int32)
     # The reference's writer compresses with the zstandard package, the
-    # port's stores (shared/zstd.py): the files differ, their contents not.
+    # port with its own codec (shared/zstd.py): the files differ, their
+    # contents not.
     for data in (j_bmesh.write_bmesh(verts, tris, mats), t_bmesh.write_bmesh(verts, tris, mats)):
         same(j_bmesh.load_bmesh(data), t_bmesh.load_bmesh(data))
     same(t_bmesh.load_bmesh(t_bmesh.write_bmesh(verts, tris, mats)),
@@ -184,7 +185,7 @@ def test_zstd_decoder_reads_the_reference_codec(level):
     """The port's standard-library zstd decoder on frames of the zstandard
     package (compressed blocks: Huffman literals, FSE sequences, repeat
     offsets; raw and RLE blocks; checksums; two frames back to back), and
-    the zstandard package on the port's stored frames."""
+    the zstandard package on the port's frames."""
     import zstandard
     from substrata_tpu_torch.shared import zstd
     for name, data in _zstd_inputs().items():
@@ -193,6 +194,69 @@ def test_zstd_decoder_reads_the_reference_codec(level):
         assert zstandard.ZstdDecompressor().decompress(zstd.compress(data)) == data, name
     with pytest.raises(zstd.ZstdError):
         zstd.decompress(b"not a frame")
+
+
+def _stored_frame(data: bytes) -> bytes:
+    """``data`` in one frame of stored blocks (what the port wrote before
+    its writer compressed)."""
+    import struct
+
+    from substrata_tpu_torch.shared import zstd
+    out = [struct.pack("<IBI", zstd.MAGIC, 0xA0, len(data))]
+    pos = 0
+    while True:
+        size = min(zstd.MAX_BLOCK, len(data) - pos)
+        last = pos + size >= len(data)
+        out.append((int(last) | (size << 3)).to_bytes(3, "little") + data[pos:pos + size])
+        pos += size
+        if last:
+            return b"".join(out)
+
+
+@pytest.mark.parametrize("name", sorted(_zstd_inputs()) + ["long_runs", "mixed"])
+def test_zstd_writer_frames_decode_everywhere(name):
+    """The port's compressed frames (RLE blocks, raw or RLE literals, LZ77
+    sequences under the predefined FSE tables): the zstandard package and
+    the port's own decoder both give the input back, and compressible
+    inputs come out smaller than their stored frame."""
+    import zstandard
+    from substrata_tpu_torch.shared import zstd
+    rng = np.random.default_rng(11)
+    data = {"long_runs": bytes(300_000) + b"\x07" * 140_000,
+            "mixed": b"".join(rng.choice([b"vertex ", b"normal ", b"0.5 ", b"-1 "], 40_000))
+            + rng.integers(0, 256, 5_000).astype(np.uint8).tobytes()}.get(name)
+    if data is None:
+        data = _zstd_inputs()[name]
+    frame = zstd.compress(data)
+    assert zstandard.ZstdDecompressor().decompress(frame, max_output_size=len(data) + 1) == data
+    assert zstd.decompress(frame) == data
+    assert len(frame) <= len(_stored_frame(data))
+    if name in ("text", "runs", "long_runs", "mixed"):
+        assert len(frame) < len(data) // 2, (len(frame), len(data))
+
+
+def test_bench_meshes_compress():
+    """write_bmesh's streams on the bench meshes: tools/bench_networked.py's
+    cube (every object of the mesh and client worlds) and a 65 x 65 grid of
+    the terrain's kind are smaller than with stored frames, and both
+    packages load them."""
+    from substrata_tpu_torch.benchworld import CUBE_TRIS, CUBE_VERTS
+    from substrata_tpu_torch.shared import zstd
+    ii, jj = np.meshgrid(np.arange(65), np.arange(65), indexing="ij")
+    grid_v = np.stack([ii, jj, np.round(np.sin(ii * 0.2) * 4) * 0.25], -1).reshape(-1, 3)
+    q = (ii[:-1, :-1] * 65 + jj[:-1, :-1]).reshape(-1)
+    grid_t = np.concatenate([np.stack([q, q + 65, q + 1], 1), np.stack([q + 1, q + 65, q + 66], 1)])
+    for verts, tris in ((CUBE_VERTS, CUBE_TRIS), (grid_v.astype(np.float32), grid_t)):
+        data = t_bmesh.write_bmesh(verts, tris)
+        orig = zstd.compress
+        try:
+            zstd.compress = _stored_frame
+            stored = t_bmesh.write_bmesh(verts, tris)
+        finally:
+            zstd.compress = orig
+        assert len(data) < len(stored), (len(data), len(stored))
+        same(j_bmesh.load_bmesh(data), t_bmesh.load_bmesh(stored))
+        same(t_bmesh.load_bmesh(data), j_bmesh.load_bmesh(j_bmesh.write_bmesh(verts, tris)))
 
 
 # ---------------------------------------------------------------------------

@@ -288,6 +288,9 @@ def test_import_leaves_jax_out():
             "substrata_tpu_torch.server_side.site_data, substrata_tpu_torch.server_side.mcp, "
             "substrata_tpu_torch.server_side.asset_pipeline, "
             "substrata_tpu_torch.runtime.readback, "
+            "substrata_tpu_torch.runtime.codecs, substrata_tpu_torch.parallel, "
+            "substrata_tpu_torch.parallel.dryrun, substrata_tpu_torch.kernels.halo, "
+            "substrata_tpu_torch.kernels.shard_reduce, "
             "scipy.spatial; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'substrata_tpu')]; "
