@@ -84,10 +84,15 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    character and the occlusion hits over 40 frames; see small_mesh_phase);
 14. the cell table, the solve setup and the scripts: KP on the bench world
    after 30 ticks and on its bodies moved onto a 1.4 m lattice (k * 1.4
-   and one ulp either side), both modes, exact; KQ's setup and refresh on
-   the bench world (pair-blocked rows) and on the serving and mesh worlds
-   (the compacted layout), within 1e-6 of each output's scale with masks,
-   slots and the refreshed cache exact; KR on bench.py's two scripts and
+   and one ulp either side), both modes, exact, and on kernels/
+   hard_cases.py's inputs (every body in one cell, timed; every bucket at
+   cap + 1; none alive; a heap past the bucket lists; 65,536 bodies over
+   grid 160, timed); each timed entry with the wrapper's host µs per call
+   (perf_counter over 200 calls, and the profiler's CPU time); KQ's setup
+   and refresh on the bench world (pair-blocked rows) and on the serving
+   and mesh worlds (the compacted layout), within 1e-6 of each output's
+   scale with masks, slots and the refreshed cache exact; KR on bench.py's
+   two scripts and
    on a corpus of one script per builtin and per operator and a
    let/struct/user-function program, 4,096 instances each, in one launch,
    exact on arithmetic and within 1e-6 of scale on transcendentals; each
@@ -95,10 +100,13 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 15. the physics step's last stages: KS (pair finding with the rebuild's
    margins) at a rebuild of the bench world after 30 ticks; KT's grouping,
    touching, compaction and incidence table on the serving world (timed)
-   and the mesh world; KU (position solve) and KV (strike wake, sleep
-   pass) on the bench, serving and mesh worlds; each against its twin:
-   KU within 1e-6 of the positions' scale, everything else exact (pairs,
-   margins, counters, buckets, compacted rows, tables, flags, timers).
+   and the mesh world, the grouping also on hard_cases.py's pair lists (a
+   mixed code over its bucket and a clamped slice; every pair invalid) at
+   16,384, 49,152 (timed) and 12,345 pairs; KU (position solve) and KV
+   (strike wake, sleep pass) on the bench, serving and mesh worlds; each
+   against its twin: KU within 1e-6 of the positions' scale, everything
+   else exact (pairs, margins, counters, buckets, compacted rows, tables,
+   flags, timers).
    Then torch.profiler over think rebuild ticks and serving ticks: no
    aten sort, argsort, cumsum, cummax or searchsorted runs inside a
    ``physics_step`` range;
@@ -2038,6 +2046,66 @@ def _lattice(rng, n, k_lo, k_hi):
                     np.where(step > 0, np.nextafter(base, np.float32(np.inf)), base))
 
 
+def host_cost(fn, reps=200):
+    """The host's cost of a call of ``fn``: ``host_us``, time.perf_counter
+    over ``reps`` calls with no synchronise between them (the wrapper's own
+    work: the card runs behind), and ``prof_cpu_us``, the self CPU time per
+    call of the aten ops and CUDA runtime calls torch.profiler records."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+    torch.cuda.synchronize()
+    cpu = sum(e.self_cpu_time_total for e in prof.key_averages() if "ynchronize" not in e.key)
+    return dict(host_us=t / reps * 1e6, prof_cpu_us=cpu / reps)
+
+
+KP_HARD = (("one_cell", 10_239, 128), ("cap_plus_one", 10_239, 128),
+           ("none_alive", 10_239, 128), ("ragged_pile", 10_239, 128), ("lattice", 65_536, 160))
+
+
+def kp_hard_cases(device, cap, plain_reps):
+    """KP against its twin on kernels/hard_cases.py's inputs, both modes,
+    exact: at the bench's 16,384 buckets with 10,239 bodies (every body in
+    one cell, every bucket at cap + 1, none alive, half the bodies heaped in
+    8 cells), and the capacity tier's 65,536 bodies over grid 160; the worst
+    case (one cell) and the capacity tier timed."""
+    from substrata_tpu_torch.kernels import cell_table as kp
+    from substrata_tpu_torch.kernels import hard_cases
+    from substrata_tpu_torch.maths import fp
+    out = {}
+    for case, n, grid in KP_HARD:
+        f = hard_cases.cell_bodies(case, n, grid, cap, seed=1)
+        a = tuple(torch.as_tensor(f[k], device=device) for k in
+                  ("pos", "alive", "collidable", "awake", "motion_type", "bound_radius"))
+        kw = dict(num_buckets=grid * grid, cap=cap, rcp_cell=fp.recip(1.4), cell_size=1.4)
+        for flags in (False, True):
+            tk = kp.cell_table(*a, with_flags=flags, **kw)
+            tp = kp.cell_table_plain(*a, with_flags=flags, **kw)
+            for x, y, name in zip(tk, tp, ("table", "cells", "overflow")):
+                check(x.dtype == y.dtype and torch.equal(x, y),
+                      f"KP {case} ({n} bodies, grid {grid}, flags {flags}): {name} differs")
+        r = dict(bodies=n, buckets=grid * grid, overflow=int(tp[2]),
+                 live=int((a[1] & a[2]).sum()))
+        if case in ("one_cell", "lattice"):
+            def run(a=a, kw=kw):
+                return kp.cell_table(*a, with_flags=True, **kw)
+            r.update(**bound(nbytes(a, tk), FLOPS["cell_table"] * n), ms=median_ms(run),
+                     plain_ms=median_ms(lambda a=a, kw=kw: kp.cell_table_plain(
+                         *a, with_flags=True, **kw), reps=plain_reps),
+                     device_us=device_us_call(run, "cell_"), **host_cost(run),
+                     library_ms=None)
+        out[case] = r
+    return out
+
+
 def kpqr_phase(device="cuda", n_bodies=10_000, cfg=None, corpus_n=4096, plain_reps=5,
                mesh_objects=12_000, mesh_dynamic=512):
     from substrata_tpu_torch.benchworld import (BenchScripts, WINTER_SOURCES, bench_world,
@@ -2083,7 +2151,9 @@ def kpqr_phase(device="cuda", n_bodies=10_000, cfg=None, corpus_n=4096, plain_re
         ms=median_ms(lambda: kp.cell_table(*a, with_flags=True, **kw)),
         plain_ms=median_ms(lambda: kp.cell_table_plain(*a, with_flags=True, **kw),
                            reps=plain_reps),
-        device_us=device_us(lambda: kp.cell_table(*a, with_flags=True, **kw), "cell_"))
+        device_us=device_us_call(lambda: kp.cell_table(*a, with_flags=True, **kw), "cell_"),
+        **host_cost(lambda: kp.cell_table(*a, with_flags=True, **kw)), library_ms=None,
+        hard=kp_hard_cases(device, cfg.cell_capacity, plain_reps))
 
     # KQ: the bench world (pair-blocked rows), then the serving and mesh
     # worlds (mixed combos: the compacted layout).
@@ -2274,7 +2344,8 @@ def _kt_compare(w, what, timed=False, plain_reps=5):
         res["group"] = dict(
             **_timed(lambda: kt.group(*gargs), lambda: kt.group_plain(*gargs), "layout_group",
                      nbytes(pa, pb, pv, body.shape_type, g_out), 0, plain_reps),
-            library_ms=median_ms(lambda: torch.argsort(sort_codes, stable=True)))
+            library_ms=median_ms(lambda: torch.argsort(sort_codes, stable=True)),
+            **host_cost(lambda: kt.group(*gargs)), hard=kt_hard_cases(body.device, plain_reps))
         res["touching"] = _timed(lambda: kt.touching(srcs, touches, p, slot),
                                  lambda: kt.touching_plain(srcs, touches, p), "layout_touching",
                                  nbytes(slot, touches, tk), 0, plain_reps)
@@ -2285,6 +2356,52 @@ def _kt_compare(w, what, timed=False, plain_reps=5):
         res["incidence"] = _timed(lambda: kt.incidence(*ia), lambda: kt.incidence_plain(*ia),
                                   "layout_inc", nbytes(cp[0], cp[1], occ, ik), 0, plain_reps)
     return res
+
+
+KT_HARD = (("over_cap_clamped", 16_384, 16_384), ("all_invalid", 16_384, 16_384),
+           ("over_cap_clamped", 49_152, 49_152), ("over_cap_clamped", 12_345, 16_384))
+
+
+def kt_hard_cases(device, plain_reps):
+    """KT's grouping against its twin on kernels/hard_cases.py's pair lists
+    over 10,240 seeded sphere, box and capsule bodies, exact: a mixed code
+    1.5 times over its bucket and a mixed slice clamped to P - cap across
+    its neighbour's run, every pair invalid; at 16,384 pairs, the capacity
+    tier's 49,152 (timed, with torch.argsort(stable=True) of its codes as
+    library_ms) and 12,345 (not a multiple of the 512-pair tile)."""
+    from substrata_tpu_torch.kernels import hard_cases
+    from substrata_tpu_torch.kernels import layout as kt
+    st = torch.as_tensor(np.random.default_rng(0).integers(0, 3, 10_240).astype(np.int32),
+                         device=device)
+    active = [0, 1, 2, 4, 5, 6, 8, 9, 10]
+    out = {}
+    for case, p, max_pairs in KT_HARD:
+        pa, pb, pv = (torch.as_tensor(x, device=device) for x in
+                      hard_cases.group_pairs(case, st.cpu().numpy(), p, max_pairs, seed=4))
+        gargs = (st, pa, pb, pv, active, max_pairs)
+        gk, ovk, slot = kt.group(*gargs)
+        gp, ovp, _ = kt.group_plain(*gargs)
+        for (ck, *tk), (cp, *tp) in zip(gk, gp):
+            for x, y, name in zip(tk, tp, ("src", "ba", "bb", "bvalid")):
+                check(ck == cp and torch.equal(x, y),
+                      f"KT {case} (P {p}): code {cp} {name} differs")
+        check(int(ovk) == int(ovp), f"KT {case} (P {p}): overflow {int(ovk)} != {int(ovp)}")
+        src = torch.cat([g[1] for g in gp])
+        want = torch.full((p,), -1, dtype=torch.int32, device=device)
+        want[src[src >= 0]] = torch.nonzero(src >= 0).flatten().int()
+        check(torch.equal(slot, want), f"KT {case} (P {p}): slot_of_pair differs")
+        r = dict(pairs=p, max_pairs=max_pairs, overflow=int(ovp),
+                 bucketed=int(sum(int(g[4].sum()) for g in gp)))
+        if p == 49_152:
+            codes = torch.where(pv, torch.clamp(st[torch.clamp(pa, min=0).long()] * 4
+                                                + st[torch.clamp(pb, min=0).long()], 0, 15), 16)
+            g_out = [t for _, *ts in gk for t in ts] + [slot, ovk]
+            r.update(**_timed(lambda g=gargs: kt.group(*g), lambda g=gargs: kt.group_plain(*g),
+                              "layout_group", nbytes(pa, pb, pv, st, g_out), 0, plain_reps),
+                     library_ms=median_ms(lambda c=codes: torch.argsort(c, stable=True)),
+                     **host_cost(lambda g=gargs: kt.group(*g)))
+        out[f"{case}_{p}"] = r
+    return out
 
 
 def _kuv_compare(w, what, timed=False, plain_reps=5):
@@ -2371,7 +2488,7 @@ NO_LAUNCH = frozenset("aten::" + n for n in (
     "split", "narrow", "result_type", "contiguous", "to", "_to_copy", "clone", "zeros",
     "zeros_like", "full", "full_like", "ones", "ones_like", "zero_", "new_zeros", "new_empty",
     "new_full", "flatten", "unflatten", "chunk", "view_as", "diagonal", "split_with_sizes",
-    "as_strided_", "resize_", "_unsafe_view", "numpy_T", "detach_"))
+    "unsafe_split_with_sizes", "as_strided_", "resize_", "_unsafe_view", "numpy_T", "detach_"))
 
 
 def _sort_free(run, ticks):

@@ -6,16 +6,18 @@
 // narrowphase.py:compact_contacts :1054 and solver.py:build_incidence :96;
 // plain twins: substrata_tpu_torch/kernels/layout.py:*_plain.
 //
-// Grouping, one block of 1024 threads: a stable counting sort of the pair
-// list by combo code (16 codes, 16 for an invalid pair).  Thread t owns a
-// contiguous run of pairs and counts its codes into column t of a [17,
-// 1024] shared table; one exclusive scan of that table in code-major order
-// gives every (code, thread) its first place in the sorted order, so a
-// second walk places each pair where torch.argsort(stable=True) puts it.
-// The same block then writes each active code's slice [min(start, P - cap),
-// + cap) of the sorted order (src = -1 outside the code's run, as the
-// reference masks a slice that spans a neighbour's run) with its bodies and
-// occupancy, each pair's slot in the concatenated buckets, and the bucket
+// Grouping: a stable counting sort of the pair list by combo code (16
+// codes, 16 for an invalid pair), two launches over tiles of 512 pairs,
+// one pair a thread with coalesced loads.  The first ranks each pair among
+// its tile's pairs of its code (a warp match and a popcount, a scan of the
+// per-warp counts) and writes the tile's 17 counts; the second reads the
+// [tiles, 17] table in every block, so a pair's place in the sorted order
+// is its code's run start + the code's counts in earlier tiles + its rank,
+// which is where torch.argsort(stable=True) puts it.  A pair inside its
+// code's slice [min(start, P - cap), + cap) writes its slot's source,
+// bodies and occupancy and its slot_of_pair; the first launch pre-fills
+// every slot as empty, so a slice that spans a neighbour's run keeps src =
+// -1 there, as the reference masks it.  Block 0 writes the bucket
 // overflow.  Touching: one thread per pair gathers its slot's flag from the
 // bucket kernels' outputs (KA/KK/KO), so no scatter needs a cleared buffer.
 //
@@ -32,28 +34,30 @@
 // set is always the cpb lowest.
 //
 // What bounds it: latency.  At the serving world's shapes (16,384 pairs,
-// ~100k contact rows, 36,864 compacted rows) each pass moves a few MB; the
-// grouping is one block, the rest are single passes with one atomic per
-// key.
+// ~100k contact rows, 36,864 compacted rows) each pass moves a few MB.  No
+// step runs in one block: the grouping's serial pieces are a tile's 16 warp
+// counts per code and 17 column sums of the tile table (P / 512 rows, 32 a
+// lane), the rest are single passes with one atomic per key.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kCodes = 16;
 constexpr int kSortKeys = kCodes + 1;       // code 16: invalid pairs
-constexpr int kGroupThreads = 1024;
+constexpr int kGroupTile = 512;              // grouping: pairs per block
+constexpr int kGroupWarps = kGroupTile / 32;
 constexpr int kTile = 1024;                 // compaction rows per block
 constexpr int kTileThreads = 256;
 constexpr int kIncList = 64;                // per-body key slots before the slow path
 constexpr int kMaxBuckets = 16;
 
-__device__ __forceinline__ bool same_type(int code) {
+__host__ __device__ __forceinline__ bool same_type(int code) {
   return code == 0 || code == 5 || code == 10 || code == 15;
 }
 
 // narrowphase.py: max_pairs for the same-type codes, max(64, max_pairs / 4)
 // for the others, never more than the pair list.
-__device__ __forceinline__ int bucket_cap(int code, int max_pairs, int p) {
+__host__ __device__ __forceinline__ int bucket_cap(int code, int max_pairs, int p) {
   const int cap = same_type(code) ? max_pairs : max(64, max_pairs / 4);
   return min(cap, p);
 }
@@ -65,86 +69,135 @@ __device__ __forceinline__ int pair_code(const int* pa, const int* pb, const boo
   return min(max(shape_type[a] * 4 + shape_type[b], 0), kCodes - 1);
 }
 
-__global__ void __launch_bounds__(kGroupThreads)
-layout_group_kernel(const int* __restrict__ pa, const int* __restrict__ pb,
-                    const bool* __restrict__ pv,
-                    const int* __restrict__ shape_type, int p, int max_pairs, int active_mask,
-                    int* __restrict__ order, int* __restrict__ src, int* __restrict__ ba,
-                    int* __restrict__ bb, bool* __restrict__ bvalid, int* __restrict__ slot_of_pair,
-                    int* __restrict__ overflow) {
-  extern __shared__ int cnt[];              // [kSortKeys][kGroupThreads]
-  __shared__ int warp_tot[32];
-  __shared__ int starts[kSortKeys + 1];
-  __shared__ int slice_start[kCodes], slice_off[kCodes + 1];
-  const int t = threadIdx.x;
-  const int seg = (p + kGroupThreads - 1) / kGroupThreads;
-  const int lo = min(t * seg, p), hi = min(lo + seg, p);
-  for (int c = 0; c < kSortKeys; ++c) cnt[c * kGroupThreads + t] = 0;
-  for (int i = lo; i < hi; ++i) ++cnt[pair_code(pa, pb, pv, shape_type, i) * kGroupThreads + t];
-  __syncthreads();
-  // Exclusive scan of the flattened [code][thread] table: thread t takes
-  // the kSortKeys consecutive cells [t * kSortKeys, + kSortKeys).
-  int local[kSortKeys];
-  int sum = 0;
-#pragma unroll
-  for (int k = 0; k < kSortKeys; ++k) {
-    local[k] = cnt[t * kSortKeys + k];
-    sum += local[k];
+// Launch 1, one tile of kGroupTile pairs per block, one pair a thread:
+// each pair's code and its stable rank among the tile's pairs of that code
+// (__match_any_sync groups a warp's lanes by code, the popcount of the
+// lower peers ranks them, and an exclusive scan of the per-warp counts over
+// the tile's warps puts the warps in order), packed as rank << 5 | code;
+// the tile's 17 counts; and the slot arrays' pre-fill (the twin's empty
+// slot: src -1, the bodies of pair 0, not valid).
+__global__ void __launch_bounds__(kGroupTile)
+layout_group_count_kernel(const int* __restrict__ pa, const int* __restrict__ pb,
+                          const bool* __restrict__ pv, const int* __restrict__ shape_type, int p,
+                          int total_slots, int* __restrict__ packed, int* __restrict__ tile_cnt,
+                          int* __restrict__ src, int* __restrict__ ba, int* __restrict__ bb,
+                          bool* __restrict__ bvalid) {
+  __shared__ int wcnt[kGroupWarps][kSortKeys];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int stride = gridDim.x * blockDim.x;
+  if (total_slots > 0) {
+    const int a0 = max(pa[0], 0), b0 = max(pb[0], 0);
+    for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < total_slots; k += stride) {
+      src[k] = -1;
+      ba[k] = a0;
+      bb[k] = b0;
+      bvalid[k] = false;
+    }
   }
-  int total;
-  int run = sbt::block_exclusive_scan(sum, warp_tot, &total);
-#pragma unroll
-  for (int k = 0; k < kSortKeys; ++k) {
-    cnt[t * kSortKeys + k] = run;
-    run += local[k];
+  for (int k = threadIdx.x; k < kGroupWarps * kSortKeys; k += blockDim.x) (&wcnt[0][0])[k] = 0;
+  __syncthreads();
+  const int i = blockIdx.x * kGroupTile + threadIdx.x;
+  const int code = i < p ? pair_code(pa, pb, pv, shape_type, i) : kSortKeys;
+  const unsigned peers = __match_any_sync(0xffffffffu, code);
+  const int in_warp = __popc(peers & ((1u << lane) - 1u));
+  if (code < kSortKeys && in_warp == 0) wcnt[warp][code] = __popc(peers);
+  __syncthreads();
+  if (threadIdx.x < kSortKeys) {
+    int run = 0;
+    for (int w = 0; w < kGroupWarps; ++w) {
+      const int x = wcnt[w][threadIdx.x];
+      wcnt[w][threadIdx.x] = run;
+      run += x;
+    }
+    tile_cnt[blockIdx.x * kSortKeys + threadIdx.x] = run;
   }
   __syncthreads();
-  if (t < kSortKeys) starts[t] = cnt[t * kGroupThreads];
-  if (t == 0) {
-    starts[kSortKeys] = p;
-    int off = 0, over = 0;
-    for (int c = 0; c < kCodes; ++c) {
-      slice_off[c] = off;
-      const int n_run = cnt[(c + 1) * kGroupThreads] - cnt[c * kGroupThreads];
-      if ((active_mask >> c) & 1) {
-        const int cap = bucket_cap(c, max_pairs, p);
-        slice_start[c] = min(cnt[c * kGroupThreads], p - cap);
-        off += cap;
-        over += max(n_run - cap, 0);
-      } else {
-        over += n_run;
+  if (i < p) packed[i] = (wcnt[warp][code] + in_warp) << 5 | code;
+}
+
+// Launch 2, the same tiles: every block reads the [tiles, 17] count table
+// (a warp per code sums its column over all tiles and over the tiles
+// before its own), warp 0 scans the 17 totals into the runs' starts, each
+// active code's slice start min(start, P - cap) and offset, and the
+// overflow (block 0 writes it); then each pair's place in the sorted order
+// is its run's start + the counts of its code in earlier tiles + its rank
+// in the tile, and a pair inside its code's slice writes its slot.  Slots
+// of a slice outside its code's run keep the pre-fill, as the reference
+// masks a slice that spans a neighbour's run.
+__global__ void __launch_bounds__(kGroupTile)
+layout_group_place_kernel(const int* __restrict__ pa, const int* __restrict__ pb, int p,
+                          int max_pairs, int active_mask, int n_tiles,
+                          const int* __restrict__ packed, const int* __restrict__ tile_cnt,
+                          int* __restrict__ src, int* __restrict__ ba, int* __restrict__ bb,
+                          bool* __restrict__ bvalid, int* __restrict__ slot_of_pair,
+                          int* __restrict__ overflow) {
+  __shared__ int col_all[kSortKeys], col_before[kSortKeys];
+  __shared__ int base[kSortKeys], slice_start[kCodes], slice_off[kCodes], caps[kCodes];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tile = blockIdx.x;
+  for (int c = warp; c < kSortKeys; c += kGroupWarps) {
+    int all = 0, before = 0;
+    for (int t = lane; t < n_tiles; t += 32) {
+      const int x = tile_cnt[t * kSortKeys + c];
+      all += x;
+      before += t < tile ? x : 0;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      all += __shfl_xor_sync(0xffffffffu, all, o);
+      before += __shfl_xor_sync(0xffffffffu, before, o);
+    }
+    if (lane == 0) {
+      col_all[c] = all;
+      col_before[c] = before;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int c = lane;
+    const int tot = c < kSortKeys ? col_all[c] : 0;
+    const bool act = c < kCodes && ((active_mask >> c) & 1);
+    const int cap = act ? bucket_cap(c, max_pairs, p) : 0;
+    int start = tot, off = cap;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(0xffffffffu, start, o);
+      const int y = __shfl_up_sync(0xffffffffu, off, o);
+      if (lane >= o) {
+        start += x;
+        off += y;
       }
     }
-    slice_off[kCodes] = off;
-    *overflow = over;
+    start -= tot;
+    off -= cap;
+    int over = c < kCodes ? (act ? max(tot - cap, 0) : tot) : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) over += __shfl_xor_sync(0xffffffffu, over, o);
+    if (c < kSortKeys) base[c] = start + col_before[c];
+    if (c < kCodes) {
+      slice_start[c] = min(start, p - cap);
+      slice_off[c] = off;
+      caps[c] = cap;
+    }
+    if (tile == 0 && lane == 0) *overflow = over;
   }
   __syncthreads();
-  for (int i = lo; i < hi; ++i) {
-    const int c = pair_code(pa, pb, pv, shape_type, i);
-    const int dst = cnt[c * kGroupThreads + t]++;
-    order[dst] = i;
-    int slot = -1;
-    if (c < kCodes && ((active_mask >> c) & 1)) {
-      const int j = dst - slice_start[c];
-      if (j < bucket_cap(c, max_pairs, p)) slot = slice_off[c] + j;
-    }
-    slot_of_pair[i] = slot;
-  }
-  __syncthreads();
-  for (int c = 0; c < kCodes; ++c) {
-    if (!((active_mask >> c) & 1)) continue;
-    const int cap = bucket_cap(c, max_pairs, p);
-    for (int j = t; j < cap; j += kGroupThreads) {
-      const int idx = slice_start[c] + j;
-      const int s = (idx >= starts[c] && idx < starts[c + 1]) ? order[idx] : -1;
-      const int ss = max(s, 0);
-      const int o = slice_off[c] + j;
-      src[o] = s;
-      ba[o] = max(pa[ss], 0);
-      bb[o] = max(pb[ss], 0);
-      bvalid[o] = s >= 0;
+  const int i = tile * kGroupTile + threadIdx.x;
+  if (i >= p) return;
+  const int v = packed[i];
+  const int code = v & 31;
+  int slot = -1;
+  if (code < kCodes && ((active_mask >> code) & 1)) {
+    const int j = base[code] + (v >> 5) - slice_start[code];
+    if (j < caps[code]) {
+      slot = slice_off[code] + j;
+      src[slot] = i;
+      ba[slot] = max(pa[i], 0);
+      bb[slot] = max(pb[i], 0);
+      bvalid[slot] = true;
     }
   }
+  slot_of_pair[i] = slot;
 }
 
 struct TouchRows {
@@ -350,29 +403,29 @@ __global__ void layout_inc_select_kernel(const int* __restrict__ ea, const int* 
   counts[i] = static_cast<float>(kept);
 }
 
-int set_smem(const void* fn, size_t bytes, size_t* done) {
-  if (bytes <= *done) return 0;
-  const cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *done = bytes;
-  return 0;
-}
-
 }  // namespace
 
+// scratch (kernels/layout.py:group): packed [p], then the tile counts
+// [max(ceil(p / kGroupTile), 1), 17].
 extern "C" int layout_group(const int* pa, const int* pb, const bool* pv, const int* shape_type,
-                            int p, int max_pairs, int active_mask, int* order, int* src, int* ba,
+                            int p, int max_pairs, int active_mask, int* scratch, int* src, int* ba,
                             int* bb, bool* bvalid, int* slot_of_pair, int* overflow,
                             void* stream) {
-  static size_t smem_set = 48 * 1024;
-  const size_t smem = static_cast<size_t>(kSortKeys) * kGroupThreads * sizeof(int);
-  const int err = set_smem(reinterpret_cast<const void*>(layout_group_kernel), smem, &smem_set);
-  if (err) return err;
-  layout_group_kernel<<<1, kGroupThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      pa, pb, pv, shape_type, p, max_pairs, active_mask, order, src, ba, bb, bvalid,
-      slot_of_pair, overflow);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_tiles = max((p + kGroupTile - 1) / kGroupTile, 1);
+  int total_slots = 0;
+  for (int c = 0; c < kCodes; ++c)
+    if ((active_mask >> c) & 1) total_slots += bucket_cap(c, max_pairs, p);
+  int* packed = scratch;
+  int* tile_cnt = scratch + p;
+  layout_group_count_kernel<<<n_tiles, kGroupTile, 0, s>>>(pa, pb, pv, shape_type, p,
+                                                           total_slots, packed, tile_cnt, src,
+                                                           ba, bb, bvalid);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  layout_group_place_kernel<<<n_tiles, kGroupTile, 0, s>>>(pa, pb, p, max_pairs, active_mask,
+                                                           n_tiles, packed, tile_cnt, src, ba,
+                                                           bb, bvalid, slot_of_pair, overflow);
   return static_cast<int>(cudaGetLastError());
 }
 

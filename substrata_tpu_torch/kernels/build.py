@@ -205,6 +205,7 @@ SIGNATURES = {
 }
 
 _lib = None
+_fns = {}
 build_seconds = None
 
 
@@ -296,30 +297,43 @@ def library():
     return _lib
 
 
-def _arg(x):
-    if isinstance(x, torch.Tensor):
-        return ctypes.c_void_p(x.data_ptr())
-    return x
+def kernel(name: str):
+    """The C launcher ``name`` with its argtypes set: pointers pass as ints
+    (``tensor.data_ptr()``), the stream last (``stream()``); it returns a
+    cudaError_t, which ``raise_if`` turns into an exception."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = _fns[name] = getattr(library(), name)
+    return fn
+
+
+def stream() -> int:
+    """The current CUDA stream of the current device, as a raw pointer."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
+def raise_if(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"kernel {name} failed to launch: "
+                           f"{library().kernel_error_string(rc).decode()} ({rc})")
 
 
 def launch(name: str, *args):
     """Call kernel launcher ``name`` on the current stream; tensors pass as
     device pointers.  Raises if the launch reported an error."""
-    lib = library()
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    rc = getattr(lib, name)(*[_arg(a) for a in args], stream)
-    if rc != 0:
-        raise RuntimeError(f"kernel {name} failed to launch: "
-                           f"{lib.kernel_error_string(rc).decode()} ({rc})")
+    rc = kernel(name)(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
+                      stream())
+    raise_if(rc, name)
 
 
 def check(t: torch.Tensor, name: str, dtype, shape, device):
     """Wrapper-side argument validation before a pointer reaches a kernel."""
+    if t.dtype is dtype and t.device == device and t.shape == shape and t.is_contiguous():
+        return
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
+    raise ValueError(f"{name}: not contiguous")

@@ -9,11 +9,14 @@ table of body slots (with the MOVING/STATIC/SMALL bits when asked),
 each bucket's bodies in index order (``jnp.argsort`` is stable), and the
 count of bodies that found their bucket full.
 
-``cell_table`` runs ``cell_table_plain`` for CPU tensors and the two
-launches of ``csrc/cell_table.cu`` for CUDA tensors.
+``cell_table`` runs ``cell_table_plain`` for CPU tensors and the three
+launches of ``csrc/cell_table.cu`` for CUDA tensors (a body's rank in its
+bucket from the bucket's list of bodies, no walk in index order).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -27,6 +30,7 @@ MASK32 = 0xFFFFFFFF
 TBL_MOVING = 1 << 16
 TBL_STATIC = 1 << 17
 TBL_SMALL = 1 << 18
+KLIST = 32             # csrc/cell_table.cu:kList
 
 
 def wrap_i32(x):
@@ -80,31 +84,47 @@ def cell_table_plain(pos, alive, collidable, awake, motion_type, bound_radius, *
     return table.to(torch.int32), cells, overflow
 
 
+@functools.lru_cache(maxsize=64)
+def _layout(n: int, nb: int, cap: int):
+    """Offsets (int32 words) of one call's buffer: the scratch first (16-byte
+    aligned for the crowded pass's vector loads), then the table, cells and
+    overflow; the total."""
+    scratch = 2 * n + nb + 1 + (n // (KLIST + 1) + 1) + nb * KLIST
+    table = (scratch + 3) // 4 * 4
+    cells = table + (nb + 1) * cap
+    overflow = cells + 3 * n
+    return table, cells, overflow, overflow + 1
+
+
 def cell_table(pos, alive, collidable, awake, motion_type, bound_radius, *, num_buckets: int,
                cap: int, rcp_cell: float, cell_size: float, with_flags: bool):
     """KP: (table [num_buckets + 1, cap] i32, cells [N, 3] i32, overflow []
-    i32).  The twin for CPU tensors, ``csrc/cell_table.cu`` for CUDA ones."""
+    i32).  The twin for CPU tensors, ``csrc/cell_table.cu`` for CUDA ones;
+    the three outputs are views of one buffer, which also holds the
+    kernels' scratch."""
     global launches
-    kw = dict(num_buckets=num_buckets, cap=cap, rcp_cell=rcp_cell, cell_size=cell_size,
-              with_flags=with_flags)
     if pos.device.type == "cpu":
-        return cell_table_plain(pos, alive, collidable, awake, motion_type, bound_radius, **kw)
+        return cell_table_plain(pos, alive, collidable, awake, motion_type, bound_radius,
+                                num_buckets=num_buckets, cap=cap, rcp_cell=rcp_cell,
+                                cell_size=cell_size, with_flags=with_flags)
     dev = pos.device
     n = pos.shape[0]
-    for t, name, dt, shp in ((pos, "pos", torch.float32, (n, 3)),
-                             (alive, "alive", torch.bool, (n,)),
-                             (collidable, "collidable", torch.bool, (n,)),
-                             (awake, "awake", torch.bool, (n,)),
-                             (motion_type, "motion_type", torch.int32, (n,)),
-                             (bound_radius, "bound_radius", torch.float32, (n,))):
-        build.check(t, name, dt, shp, dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    table = torch.empty((num_buckets + 1, cap), **i32)
-    cells = torch.empty((n, 3), **i32)
-    overflow = torch.empty((), **i32)
-    scratch = torch.empty((2 * n + num_buckets,), **i32)
-    build.launch("cell_table", pos, alive, collidable, awake, motion_type, bound_radius, n,
-                 num_buckets, cap, float(rcp_cell), float(cell_size), int(bool(with_flags)),
-                 cells, scratch, table, overflow)
+    check = build.check
+    check(pos, "pos", torch.float32, (n, 3), dev)
+    check(alive, "alive", torch.bool, (n,), dev)
+    check(collidable, "collidable", torch.bool, (n,), dev)
+    check(awake, "awake", torch.bool, (n,), dev)
+    check(motion_type, "motion_type", torch.int32, (n,), dev)
+    check(bound_radius, "bound_radius", torch.float32, (n,), dev)
+    o_table, o_cells, o_over, total = _layout(n, num_buckets, cap)
+    buf = torch.empty((total,), dtype=torch.int32, device=dev)
+    ptr = buf.data_ptr()
+    rc = build.kernel("cell_table")(
+        pos.data_ptr(), alive.data_ptr(), collidable.data_ptr(), awake.data_ptr(),
+        motion_type.data_ptr(), bound_radius.data_ptr(), n, num_buckets, cap, rcp_cell,
+        cell_size, 1 if with_flags else 0, ptr + 4 * o_cells, ptr, ptr + 4 * o_table,
+        ptr + 4 * o_over, build.stream())
+    build.raise_if(rc, "cell_table")
     launches += 1
-    return table, cells, overflow
+    return (buf.as_strided((num_buckets + 1, cap), (cap, 1), o_table),
+            buf.as_strided((n, 3), (3, 1), o_cells), buf.as_strided((), (), o_over))

@@ -18,6 +18,7 @@ friction, restitution, key).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -38,17 +39,6 @@ def bucket_cap(code: int, max_pairs: int, p: int) -> int:
     cap = (max_pairs if code in SAME_TYPE_CODES
            else max(64, max_pairs // MIXED_FRACTION))
     return min(cap, p)
-
-
-def _slices(active, max_pairs: int, p: int):
-    """(code, cap, offset) of each active code's bucket in the
-    concatenated slot space, in code order."""
-    out, off = [], 0
-    for code in active:
-        cap = bucket_cap(code, max_pairs, p)
-        out.append((code, cap, off))
-        off += cap
-    return out, off
 
 
 # ---------------------------------------------------------------------------
@@ -86,40 +76,65 @@ def group_plain(shape_type, pair_a, pair_b, pair_valid, active, max_pairs: int):
     return out, overflow.to(torch.int32), None
 
 
+GROUP_TILE = 512      # csrc/layout.cu:kGroupTile
+
+
+@functools.lru_cache(maxsize=64)
+def _group_layout(active: tuple, max_pairs: int, p: int):
+    """One grouping call's fixed parts: the code mask, the slot count, and
+    the split sizes of its buffer, one bool allocation read as int32 words
+    for src, ba and bb (each in ``active``'s buckets), slot_of_pair, the
+    overflow and the scratch (packed [P], tile counts [tiles, 17]), then
+    as bytes for bvalid."""
+    caps = [bucket_cap(code, max_pairs, p) for code in active]
+    total = sum(caps)
+    tiles = max(-(-p // GROUP_TILE), 1)
+    words = 3 * total + p + 1 + p + (NUM_CODES + 1) * tiles
+    tail = -total % 4
+    return (sum(1 << code for code in active), total, 4 * words + total + tail,
+            caps * 3 + [words - 3 * total + (total + tail) // 4], [4 * words] + caps + [tail])
+
+
 def group(shape_type, pair_a, pair_b, pair_valid, active, max_pairs: int):
     """KT's grouping: the pair list by combo code, as one stable sort.
 
     Returns ([(code, src, ba, bb, bvalid)] for each code of ``active``
     (ascending), overflow [] i32, slot_of_pair): ``src`` is each bucket
-    slot's pair index (-1 empty), ``ba``/``bb`` its bodies (0 on empty
-    slots), ``bvalid`` its occupancy; ``slot_of_pair`` [P] i32 is each
-    pair's slot in the concatenated buckets (-1 none; None from the twin).
+    slot's pair index (-1 empty), ``ba``/``bb`` its bodies (those of pair 0
+    on empty slots), ``bvalid`` its occupancy; ``slot_of_pair`` [P] i32 is
+    each pair's slot in the concatenated buckets (-1 none; None from the
+    twin).  On the card every output is a view of one buffer.
     """
+    global launches
     if pair_a.device.type == "cpu":
         return group_plain(shape_type, pair_a, pair_b, pair_valid, active, max_pairs)
-    global launches
     dev = pair_a.device
     p = pair_a.shape[0]
-    n = shape_type.shape[0]
-    for t, name, dt, shp in ((pair_a, "pair_a", torch.int32, (p,)),
-                             (pair_b, "pair_b", torch.int32, (p,)),
-                             (pair_valid, "pair_valid", torch.bool, (p,)),
-                             (shape_type, "shape_type", torch.int32, (n,))):
-        build.check(t, name, dt, shp, dev)
-    slices, total = _slices(active, max_pairs, p)
-    i32 = dict(dtype=torch.int32, device=dev)
-    ints = torch.empty((2 * p + 3 * total + 1,), **i32)
-    order, slot_of_pair = ints[:p], ints[p:2 * p]
-    src, ba, bb = (ints[2 * p + k * total:2 * p + (k + 1) * total] for k in range(3))
-    overflow = ints[2 * p + 3 * total:]
-    bvalid = torch.empty((total,), dtype=torch.bool, device=dev)
-    mask = sum(1 << code for code in active)
-    build.launch("layout_group", pair_a, pair_b, pair_valid, shape_type, p, max_pairs, mask,
-                 order, src, ba, bb, bvalid, slot_of_pair, overflow)
+    check = build.check
+    check(pair_a, "pair_a", torch.int32, (p,), dev)
+    check(pair_b, "pair_b", torch.int32, (p,), dev)
+    check(pair_valid, "pair_valid", torch.bool, (p,), dev)
+    check(shape_type, "shape_type", torch.int32, (shape_type.shape[0],), dev)
+    active = tuple(active)
+    mask, total, nbytes, word_split, byte_split = _group_layout(active, max_pairs, p)
+    buf = torch.empty((nbytes,), dtype=torch.bool, device=dev)
+    ints = buf.view(torch.int32)
+    ptr = buf.data_ptr()
+    o_slot = ptr + 12 * total
+    rc = build.kernel("layout_group")(
+        pair_a.data_ptr(), pair_b.data_ptr(), pair_valid.data_ptr(), shape_type.data_ptr(), p,
+        max_pairs, mask, o_slot + 4 * p + 4, ptr, ptr + 4 * total, ptr + 8 * total,
+        ptr + byte_split[0], o_slot, o_slot + 4 * p, build.stream())
+    build.raise_if(rc, "layout_group")
     launches["layout_group"] += 1
-    out = [(code, src[off:off + cap], ba[off:off + cap], bb[off:off + cap],
-            bvalid[off:off + cap]) for code, cap, off in slices]
-    return out, overflow.reshape(()), slot_of_pair
+    # The port records no gradients, so the slices need none of split's
+    # autograd view tracking (a third of a view's host cost).
+    k = len(active)
+    words = ints.unsafe_split_with_sizes(word_split)
+    out = list(zip(active, words[:k], words[k:2 * k], words[2 * k:3 * k],
+                   buf.unsafe_split_with_sizes(byte_split)[1:k + 1]))
+    return (out, ints.as_strided((), (), 3 * total + p),
+            ints.as_strided((p,), (1,), 3 * total))
 
 
 def touching_plain(srcs, touches, p: int):

@@ -109,8 +109,8 @@ PORT_KERNELS = ("box_box_rows_kernel", "static_contacts_kernel", "solve_rows_ker
                 "audio_fetch_kernel", "audio_spatialise_kernel", "audio_downmix_kernel",
                 "ray_trace_kernel", "particles_kernel", "vehicle_forces_kernel",
                 "closed_form_rows_kernel", "character_kernel", "apply_tick_in_kernel",
-                "digest_tblock_kernel", "convex_rows_kernel", "cell_hash_kernel",
-                "cell_rank_kernel", "solve_setup_kernel", "refresh_copy_kernel",
+                "digest_tblock_kernel", "convex_rows_kernel", "cell_clear_kernel",
+                "cell_hash_kernel", "cell_rank_kernel", "solve_setup_kernel", "refresh_copy_kernel",
                 "refresh_claim_kernel", "refresh_write_kernel", "winter_kernel", "pairs_",
                 "layout_", "positions_", "sleep_", "heights_kernel", "chunks_kernel",
                 "scatter_kernel", "spawn_kernel", "pose_kernel", "audio_setup_kernel",

@@ -14,7 +14,7 @@ import jax.numpy as jnp
 from substrata_tpu.physics import broadphase as jbp
 from substrata_tpu.physics import state as jstate
 from substrata_tpu_torch import convert
-from substrata_tpu_torch.kernels import cell_table
+from substrata_tpu_torch.kernels import cell_table, hard_cases
 from substrata_tpu_torch.physics import broadphase as tbp
 from substrata_tpu_torch.physics import state as tstate
 
@@ -59,6 +59,37 @@ def test_cell_table_equal(seed):
         np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
         np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
         assert int(to) == int(jo)
+
+
+@pytest.mark.parametrize("case", hard_cases.CELL_CASES)
+def test_cell_table_hard_cases(case):
+    """The stable sort's hard inputs, the kernel's yardstick on the card:
+    every alive body in one cell, every bucket at cap + 1, no body alive,
+    and half the bodies heaped in 8 cells; 250 slots (not a multiple of
+    32) in shuffled order."""
+    n = 250
+    kw = dict(box_config_kwargs(CAP), capacity=n)
+    arrays = box_world_arrays(n, n, 7)
+    fields = hard_cases.cell_bodies(case, n, kw["grid_dim"], kw["cell_capacity"],
+                                    cell_size=kw["cell_size"], seed=11)
+    collidable = fields.pop("collidable")       # a BodyState reads it from the layer
+    arrays.update(fields, layer=np.where(collidable, arrays["layer"],
+                                         int(jstate.Layer.MOVING_NON_COLLIDABLE)).astype(np.int32))
+    jb, tb = jax_body(arrays), convert.body_state_from_numpy(arrays, device="cpu")
+    jcfg, tcfg = jstate.SimConfig(**kw), tstate.SimConfig(**kw)
+    for flags in (False, True):
+        jt, jc, jo = _jcell_table(jb, jcfg, with_flags=flags)
+        tt, tc, to = tbp.build_cell_table(tb, tcfg, with_flags=flags)
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+        assert int(to) == int(jo)
+    live = int((tb.alive & tb.collidable).sum())
+    cap = kw["cell_capacity"]
+    expect = {"one_cell": live - cap, "cap_plus_one": live // (cap + 1), "none_alive": 0}
+    if case in expect:
+        assert int(jo) == expect[case] and (case == "none_alive") == (live == 0)
+    else:
+        assert int(jo) > 0 and (np.asarray(jt)[:-1] >= 0).sum() == live - int(jo)
 
 
 def _pair_set(a, b, v):

@@ -633,8 +633,8 @@ def test_mesh_world_on_card_matches_cpu():
 def test_cell_table_kernel_matches_plain(world):
     """KP: table, cells and overflow exact in both modes, on the world and
     on the same bodies moved onto the 1.4 m lattice (k * 1.4 and one ulp
-    either side); with the world's buckets (counters in shared memory) and
-    with grid_dim 256's 65,536 (counters in global memory)."""
+    either side); with the world's buckets and with grid_dim 256's
+    65,536."""
     from substrata_tpu_torch.kernels import cell_table as kp
     s, cfg = world.state, world.config
     rng = np.random.default_rng(5)
@@ -650,6 +650,62 @@ def test_cell_table_kernel_matches_plain(world):
                 tp = kp.cell_table_plain(*args, with_flags=flags, **kw)
                 for x, y in zip(tk, tp):
                     assert torch.equal(x, y), (nb, flags)
+
+
+KP_HARD = [(case, 10_239, 128) for case in ("one_cell", "cap_plus_one", "none_alive",
+                                             "ragged_pile")] + [("lattice", 65_536, 160)]
+
+
+@pytest.mark.parametrize("case,n,grid", KP_HARD)
+def test_cell_table_kernel_hard_cases(case, n, grid):
+    """KP against its twin, exact in both modes, on the stable sort's hard
+    inputs (kernels/hard_cases.py) at the bench's 16,384 buckets with a
+    ragged body count, and on the capacity tier's 65,536 bodies over grid
+    160."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from substrata_tpu_torch.kernels import cell_table as kp
+    from substrata_tpu_torch.kernels import hard_cases
+    f = hard_cases.cell_bodies(case, n, grid, 6, seed=1)
+    args = tuple(torch.as_tensor(f[k], device="cuda") for k in
+                 ("pos", "alive", "collidable", "awake", "motion_type", "bound_radius"))
+    kw = dict(num_buckets=grid * grid, cap=6, rcp_cell=fp.recip(1.4), cell_size=1.4)
+    for flags in (False, True):
+        tk = kp.cell_table(*args, with_flags=flags, **kw)
+        tp = kp.cell_table_plain(*args, with_flags=flags, **kw)
+        for x, y in zip(tk, tp):
+            assert x.dtype == y.dtype and torch.equal(x, y), (case, flags)
+
+
+KT_HARD = [("over_cap_clamped", 16_384, 16_384), ("all_invalid", 16_384, 16_384),
+           ("over_cap_clamped", 49_152, 49_152), ("over_cap_clamped", 12_345, 16_384)]
+
+
+@pytest.mark.parametrize("case,p,max_pairs", KT_HARD)
+def test_group_kernel_hard_cases(case, p, max_pairs):
+    """KT's grouping against its twin, exact, on the hard pair lists
+    (kernels/hard_cases.py): a mixed code over its bucket and a clamped
+    slice spanning a neighbour's run; every pair invalid; at the serving
+    world's 16,384 pairs, the capacity tier's 49,152 and 12,345 (not a
+    multiple of the 512-pair tile)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from substrata_tpu_torch.kernels import hard_cases
+    from substrata_tpu_torch.kernels import layout as kt
+    st = np.random.default_rng(0).integers(0, 3, 10_240).astype(np.int32)
+    pa, pb, pv = hard_cases.group_pairs(case, st, p, max_pairs, seed=4)
+    args = (torch.as_tensor(st, device="cuda"), torch.as_tensor(pa, device="cuda"),
+            torch.as_tensor(pb, device="cuda"), torch.as_tensor(pv, device="cuda"),
+            [0, 1, 2, 4, 5, 6, 8, 9, 10], max_pairs)
+    gk, ovk, slot = kt.group(*args)
+    gp, ovp, _ = kt.group_plain(*args)
+    for (ck, *tk), (cp, *tp) in zip(gk, gp):
+        assert ck == cp and all(torch.equal(x, y) for x, y in zip(tk, tp)), cp
+    assert int(ovk) == int(ovp)
+    src = torch.cat([g[1] for g in gp])
+    want = torch.full((p,), -1, dtype=torch.int32, device="cuda")
+    want[src[src >= 0]] = torch.nonzero(src >= 0).flatten().int()
+    assert torch.equal(slot, want)
 
 
 def test_solve_setup_kernel_matches_plain(world):

@@ -28,7 +28,7 @@ from substrata_tpu.physics import shapes as jshapes
 from substrata_tpu.physics import solver as jsolver
 from substrata_tpu.physics import state as jstate
 from substrata_tpu_torch import convert
-from substrata_tpu_torch.kernels import layout, pairs
+from substrata_tpu_torch.kernels import hard_cases, layout, pairs
 from substrata_tpu_torch.physics import broadphase as tbp
 from substrata_tpu_torch.physics import narrowphase as tn
 from substrata_tpu_torch.physics import solver as tsolver
@@ -134,6 +134,44 @@ def test_grouping_matches_reference(seed, present):
                                        blocked_wm=blocked_wm)
         np.testing.assert_array_equal(tt.numpy(), np.asarray(touch))
         assert int(tov) == int(jov) and int(tt.sum()) > 10
+
+
+@pytest.mark.parametrize("case", hard_cases.GROUP_CASES)
+def test_grouping_hard_cases(case):
+    """The grouping's hard inputs, the kernel's yardstick on the card, on
+    the reference's own grouping (read back from its pair-blocked
+    contacts, as above): a mixed code 1.5 times over its bucket and a
+    mixed code whose slice starts at P - cap and spans its neighbour's run;
+    every pair invalid."""
+    s = _mixed_scene(17)
+    jlib, _ = _library()
+    a = s["arrays"]
+    p, max_pairs = s["pairs"][0].shape[0], s["tcfg"].max_pairs
+    pa, pb, pv = hard_cases.group_pairs(case, np.where(a["alive"], a["shape_type"], -1), p,
+                                        max_pairs, seed=3)
+    index = {(int(x), int(y)): k for k, (x, y, v) in enumerate(zip(pa, pb, pv)) if v}
+    tpairs = tuple(torch.as_tensor(x) for x in (pa, pb, pv))
+    buckets, overflow, _ = tn.buckets(s["tbody"], *tpairs, s["tcfg"])
+    src = np.concatenate([b[1].numpy() for b in buckets])
+    ba = np.concatenate([b[2].numpy() for b in buckets])
+    bb = np.concatenate([b[3].numpy() for b in buckets])
+    bvalid = np.concatenate([b[4].numpy() for b in buckets])
+    wm = 4
+    jc, _, jov = _pair_contacts(s["jbody"], jnp.asarray(pa), jnp.asarray(pb), jnp.asarray(pv),
+                                config=s["jcfg"], hulls=jlib, blocked_wm=wm)
+    ja, jb_ = np.asarray(jc.a)[::wm], np.asarray(jc.b)[::wm]
+    np.testing.assert_array_equal(src, [index[(x, y)] if x >= 0 else -1 for x, y in zip(ja, jb_)])
+    np.testing.assert_array_equal(bvalid, ja >= 0)
+    np.testing.assert_array_equal(ba[bvalid], ja[bvalid])
+    np.testing.assert_array_equal(bb, jb_)
+    assert int(overflow) == int(jov)
+    cap = layout.bucket_cap(1, max_pairs, p)
+    if case == "all_invalid":
+        assert not bvalid.any() and int(jov) == 0
+        return
+    code6 = next(b[1].numpy() for b in buckets if b[0] == 6)
+    assert int(jov) == cap // 2 and bvalid.sum() == pv.sum() - cap // 2
+    assert code6[0] == -1 and (code6 >= 0).sum() == cap // 4      # clamped, masked
 
 
 def _compacted_inputs(seed):
