@@ -36,7 +36,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    KH ray trace at the particles' shape and at the wheels' shape, KI
    particle update and KJ vehicle forces, each against its plain twin on
    the same inputs with the tolerance stated beside it, timed as in phase
-   3; no single PyTorch call computes any of the three functions;
+   3 (KH also with its device µs per launch and its wrapper's host µs per
+   call); KH also on kernels/hard_cases.py's ray scenes at every call
+   shape; no single PyTorch call computes any of the three functions;
 9. the full tick: bench.py's window 3, 180 benchworld.full_tick calls
    (one cell table, vehicles, the character walking as bench.py's does,
    think, particles, the two Winter scripts over 512 instances, sources
@@ -51,10 +53,14 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    contacts) on 4,096 seeded random pairs of each of its eight combo codes
    and on the serving world's real buckets, KL (the character update) on
    the serving world at t = 0, 1, 2 s of the walk and on a step and a
-   ledge that take its stair and stick branches, KM (the tick input) with
-   128 writes and 64 regions on 10,240 bodies, KN (digest and transform
-   block) on a real step's events, each against its plain twin with the
-   tolerance stated beside it, timed as in phase 3;
+   ledge that take its stair and stick branches, and at every update of
+   kernels/hard_cases.py's character scenes (the stair walk's landing at
+   its first, eighth and ninth depth and at none, the forward column,
+   stick-to-floor at each offset, 4 m cells, a trimesh step; the twin's
+   branch checked), KM (the tick input) with 128 writes and 64 regions on
+   10,240 bodies, KN (digest and transform block) on a real step's events,
+   each against its plain twin with the tolerance stated beside it, timed
+   as in phase 3 (KL also with its wrapper's host µs per call);
 11. the serving tick: benchworld.serving_world (the bench world and one
    PlayerPhysics at eye height), 180 think_with_player ticks of the
    walking player with phase 5's kick and one teleport (5 m up) every 30
@@ -71,7 +77,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    occlusion rays and 2,048 seeded rays into the field, KL at t = 0, 1,
    2 s of the walk on the mesh world and on a trimesh step, each against
    its plain twin with the tolerance stated beside it, timed as in phase
-   3 (the mesh world: tools/bench_networked.py's 12,000 unit cubes, 512
+   3, KH and KL with their wrappers' host µs per call (the mesh world:
+   tools/bench_networked.py's 12,000 unit cubes, 512
    dynamic hulls over 137,856 static triangles on virtual anchors);
 13. the mesh world's client frames: 180 benchworld.mesh_tick calls
    (think_with_player of the walking player, then one occlusion ray per
@@ -111,7 +118,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    aten sort, argsort, cumsum, cummax or searchsorted runs inside a
    ``physics_step`` range;
 16. the terrain, spawn and pose kernels: KW, KX, KY and KZ against their
-   twins (see terrain_kernel_phase);
+   twins (see terrain_kernel_phase); KW's heights-only call timed beside
+   grid_sample's bilinear heights at the same 65,536 points (ms, device µs
+   and host µs of each), heights and normals apart;
 17. 180 benchworld.terrain_tick frames of BASELINE config 4 (see
    terrain_phase) and a small terrain world against the CPU path;
 18. KAA (the audio mix's per-source setup and epilogue) on bench.py's
@@ -770,11 +779,11 @@ def ray_bound(args, kw, outs):
                                    hits=int(outs[3].sum()))
 
 
-def fulltick_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, warm=30, plain_reps=5):
+def fulltick_ray_cases(device="cuda", n_bodies=10_000, cfg=None, warm=30):
+    """KH's two call shapes on bench.py's full-tick scene after ``warm`` full
+    ticks: {"particles": (args, kw), "wheels": (args, kw)}, and the scene
+    (world, vehicles, vehicle inputs, particles, chassis rows)."""
     from substrata_tpu_torch.benchworld import bench_audio, bench_fulltick, bench_world, full_tick
-    from substrata_tpu_torch.kernels import particles_triton as ki
-    from substrata_tpu_torch.kernels import ray_trace as kh
-    from substrata_tpu_torch.kernels import vehicles as kj
     from substrata_tpu_torch.physics import broadphase, queries
     from substrata_tpu_torch.physics.particles import motion_rays
     from substrata_tpu_torch.physics.vehicles.manager import chassis_and_wheel_rays
@@ -790,35 +799,77 @@ def fulltick_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, warm=30, pla
     table = broadphase.build_cell_table(body, cfg)[0]
     os_idx = queries.oversize_slots(body, cfg)
     hf, has_hf = sw.heightfield, sw.has_heightfield
-    results = {}
-
-    # KH at both call shapes.  hit and body exact; t and normal within 1e-6
-    # (the same float32 operations in the same order).
     dirs, max_ts = motion_rays(ps, DT)
     none = torch.full((ps.capacity,), -1, dtype=torch.int32, device=device)
-    (c_pos, c_quat, c_lin, c_ang, c_mass, c_iw), wheel = chassis_and_wheel_rays(veh, body)
-    shapes = {
+    chassis, wheel = chassis_and_wheel_rays(veh, body)
+    base = dict(cell_size=cfg.cell_size, grid_dim=cfg.grid_dim, collidable_only=True, k=16)
+    cases = {
         "particles": ((ps.pos, dirs, max_ts, body, table, os_idx, hf, has_hf, none, sw.hulls,
-                       sw.trimesh), dict(n_steps=4, body_steps=1, dedup=False)),
+                       sw.trimesh), dict(base, n_steps=4, body_steps=1, dedup=False)),
         "wheels": ((*wheel[:3], body, table, os_idx, hf, has_hf, wheel[3], sw.hulls,
-                    sw.trimesh), dict(n_steps=4, body_steps=4, dedup=True)),
+                    sw.trimesh), dict(base, n_steps=4, body_steps=4, dedup=True)),
     }
+    return cases, (w, veh, vin, ps, chassis)
+
+
+def _kh_compare(args, kw, what):
+    """KH against its twin: hit, body and material exact, t and normal
+    within 1e-6 (the same float32 operations in the same order).  Returns
+    (the error, the twin's outputs)."""
+    from substrata_tpu_torch.kernels import ray_trace as kh
+    rk, rp = kh.ray_trace(*args, **kw), kh.ray_trace_plain(*args, **kw)
+    for i, name in ((2, "body"), (3, "hit"), (4, "material")):
+        check(torch.equal(rk[i], rp[i]), f"KH ({what}): {name} differs")
+    err = max(max_err(rk[0], rp[0]), max_err(rk[1], rp[1]))
+    check(err <= 1e-6, f"KH ({what}): max abs err {err} > 1e-6")
+    return err, rp
+
+
+def kh_hard_cases(device="cuda"):
+    """KH against its twin on kernels/hard_cases.py's ray scenes (24 tied
+    zero keys, a hash collision, empty rows, a sparse trimesh), each at the
+    particles', the wheels', the facade's and single-step calls."""
+    from substrata_tpu_torch.kernels import hard_cases
+    out = {}
+    for case in hard_cases.RAY_CASES:
+        scene = hard_cases.ray_scene(case, seed=0)
+        errs = []
+        for call in hard_cases.RAY_CALLS:
+            args, kw = hard_cases.ray_inputs(scene, call, device)
+            errs.append(_kh_compare(args, kw, f"{case}, {call}")[0])
+        out[case] = dict(rays=int(scene.origins.shape[0]), max_abs_err=max(errs))
+    return out
+
+
+def _kh_timing(args, kw, prefix="ray_trace"):
+    """ms per call, device µs per launch, and the wrapper's host µs per
+    call (perf_counter and the profiler's CPU time)."""
+    from substrata_tpu_torch.kernels import ray_trace as kh
+
+    def run():
+        return kh.ray_trace(*args, **kw)
+    return dict(ms=median_ms(run), device_us_per_launch=device_us(run, prefix), **host_cost(run))
+
+
+def fulltick_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, warm=30, plain_reps=5):
+    from substrata_tpu_torch.kernels import particles_triton as ki
+    from substrata_tpu_torch.kernels import ray_trace as kh
+    from substrata_tpu_torch.kernels import vehicles as kj
+
+    cases, (w, veh, vin, ps, chassis) = fulltick_ray_cases(device, n_bodies, cfg, warm)
+    (c_pos, c_quat, c_lin, c_ang, c_mass, c_iw) = chassis
+    results = {}
+
+    # KH at both call shapes, then on the hard cases.
     hits = {}
-    for shape, (args, kw) in shapes.items():
-        kw = dict(kw, cell_size=cfg.cell_size, grid_dim=cfg.grid_dim, collidable_only=True,
-                  k=16)
-        rk = kh.ray_trace(*args, **kw)
-        rp = kh.ray_trace_plain(*args, **kw)
-        check(torch.equal(rk[3], rp[3]), f"KH {shape}: hit differs")
-        check(torch.equal(rk[2], rp[2]), f"KH {shape}: body differs")
-        err = max(max_err(rk[0], rp[0]), max_err(rk[1], rp[1]))
-        check(err <= 1e-6, f"KH {shape}: max abs err {err} > 1e-6")
-        b, counts = ray_bound(args, kw, rk)
+    for shape, (args, kw) in cases.items():
+        err, rp = _kh_compare(args, kw, shape)
+        b, counts = ray_bound(args, kw, rp)
         results[f"ray_trace_{shape}"] = dict(
-            max_abs_err=err, tol=1e-6, **b, **counts,
-            ms=median_ms(lambda: kh.ray_trace(*args, **kw)),
+            max_abs_err=err, tol=1e-6, **b, **counts, **_kh_timing(args, kw),
             plain_ms=median_ms(lambda: kh.ray_trace_plain(*args, **kw), reps=plain_reps))
         hits[shape] = rp
+    results["ray_trace_hard_cases"] = kh_hard_cases(device)
 
     # KI.  Tolerance 1e-6: the same operations, correctly rounded division
     # and square root, no fusion.
@@ -1126,6 +1177,47 @@ def _kl_work(args, kw):
             + seen["other"] * FLOPS["point_contact"]), seen
 
 
+def _kl_timing(args, kw):
+    """ms per call, device µs per launch and the wrapper's host µs per call
+    (perf_counter and the profiler's CPU time)."""
+    from substrata_tpu_torch.kernels import character as kl
+
+    def run():
+        return kl.character_packed(*args, **kw)
+    return dict(ms=median_ms(run), device_us_per_launch=device_us(run, "character_kernel"),
+                **host_cost(run))
+
+
+def kl_hard_cases(device="cuda"):
+    """KL against its twin at every update of kernels/hard_cases.py's
+    character scenes (the stair walk landing at its first, eighth and ninth
+    depth and at none, the forward column, stick-to-floor at each offset,
+    4 m cells, a trimesh step), each update from the twin's state; checks
+    that the twin took the scene's branch at its update.  Returns the
+    largest error of scale per scene."""
+    from substrata_tpu_torch.kernels import character as kl
+    from substrata_tpu_torch.kernels import hard_cases
+    from substrata_tpu_torch.physics import character as tchar
+    out = {}
+    for case in hard_cases.CHARACTER_CASES:
+        scene = hard_cases.character_scene(case)
+        w = hard_cases.character_world(scene, device)
+        st = tchar.init_character_state(scene.eye, device=device).replace(
+            gravity_enabled=torch.ones((), dtype=torch.bool, device=device))
+        errs = []
+        for i in range(scene.updates):
+            a, kw = _char_args(w, st, np.array(scene.move, np.float32), -1, device)
+            (e, new), seen = hard_cases.observe_branches(lambda: _kl_compare(a, kw))
+            errs.append(e)
+            if i == scene.at and scene.branch is not None:
+                key, want = scene.branch
+                check(seen.get(key, "absent") == want,
+                      f"KL hard case {case}: update {i} took {seen}, not {scene.branch}")
+            st = tchar.CharacterState(**new)
+        out[case] = max(errs)
+    return out
+
+
 def serving_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, plain_reps=5):
     from substrata_tpu_torch import MotionType, PhysicsObject, PhysicsWorld
     from substrata_tpu_torch.benchworld import serving_tick, serving_world, walk_input
@@ -1214,13 +1306,12 @@ def serving_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, plain_reps=5)
     cand = args[5].shape[1] * kl.n_centers(kw["cell_size"]) * 27 + args[6].shape[0]
     moved = cand * (4 + 82) + args[6].shape[0] * 4 + nbytes(args[0], args[7]) \
         + (15 + cand + kl.N_STATIC) * 4
+    hard = kl_hard_cases(device)
     results["character_update"] = dict(
-        max_abs_err=max(kl_errs), max_err_of_scale=max(kl_errs), tol=1e-6,
+        max_abs_err=max(kl_errs + list(hard.values())),
+        max_err_of_scale=max(kl_errs + list(hard.values())), tol=1e-6,
         rows=cand + kl.N_STATIC, probe_rows=seen["rows"], contacts_evaluated=seen,
-        **bound(moved, ops),
-        ms=median_ms(lambda: kl.character_packed(*args, **kw)),
-        device_us_per_launch=device_us(lambda: kl.character_packed(*args, **kw),
-                                       "character_kernel"),
+        hard_cases=hard, **bound(moved, ops), **_kl_timing(args, kw),
         plain_ms=median_ms(lambda: kl.character_packed_plain(*args, **kw), reps=plain_reps))
 
     # KM: 128 writes and 64 regions on the bench world's 10,240 bodies.
@@ -1573,16 +1664,49 @@ def _kl_mesh_work(args, kw):
     return ops + seen["tests"] * FLOPS["tri_test"], tris * 48, dict(probe, triangle_tests=seen["tests"])
 
 
+def mesh_ray_cases(w, p, src, device="cuda"):
+    """KH's two shapes on the mesh world: the client's occlusion rays from
+    the player's camera to each dynamic hull, and 2,048 seeded rays into the
+    field (half of them downwards): {"occlusion": (args, kw, rays kept),
+    "field": (args, kw, rays kept)}."""
+    from substrata_tpu_torch.benchworld import occlusion_rays
+    from substrata_tpu_torch.physics import broadphase, queries
+    from substrata_tpu_torch.physics.character import EYE_HEIGHT
+    body, cfg, sw = w.state, w.config, w.static_world
+    ch = p.state
+    cam = torch.cat([ch.pos[:2], (ch.pos[2:] + EYE_HEIGHT) - ch.campos_z_delta[None]])
+    o, d, mt, keep = occlusion_rays(cam, body.pos[src])
+    g = torch.Generator(device=device)
+    g.manual_seed(21)
+    ro = (torch.rand((2048, 3), generator=g, device=device)
+          * torch.tensor([360.0, 360.0, 8.0], device=device)
+          - torch.tensor([180.0, 180.0, -0.2], device=device))
+    rd = torch.randn((2048, 3), generator=g, device=device)
+    rd[:1024, 2] = -rd[:1024, 2].abs() - 0.5
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    rt = torch.rand(2048, generator=g, device=device) * 60.0
+    table = broadphase.build_cell_table(body, cfg)[0]
+    os_idx = queries.oversize_slots(body, cfg)
+    kw = dict(cell_size=cfg.cell_size, grid_dim=cfg.grid_dim, n_steps=16, body_steps=16,
+              collidable_only=True, k=16, dedup=True)
+    out = {}
+    for name, (ro_, rd_, rt_) in (("occlusion", (o, d, mt)), ("field", (ro, rd, rt))):
+        ex = torch.full((ro_.shape[0],), -1, dtype=torch.int32, device=device)
+        out[name] = ((ro_, rd_, rt_, body, table, os_idx, sw.heightfield, sw.has_heightfield, ex,
+                      sw.hulls, sw.trimesh), kw,
+                     int(keep.sum()) if name == "occlusion" else int(rt_.shape[0]))
+    return out
+
+
 def mesh_kernel_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None, plain_reps=5):
     from substrata_tpu_torch import PhysicsWorld
-    from substrata_tpu_torch.benchworld import mesh_tick, mesh_world, occlusion_rays, walk_input
+    from substrata_tpu_torch.benchworld import mesh_tick, mesh_world, walk_input
     from substrata_tpu_torch.kernels import character as kl
     from substrata_tpu_torch.kernels import convex as ko
     from substrata_tpu_torch.kernels import ray_trace as kh
     from substrata_tpu_torch.kernels import static_contacts as kb
-    from substrata_tpu_torch.physics import broadphase, narrowphase, queries
+    from substrata_tpu_torch.physics import narrowphase
     from substrata_tpu_torch.physics import character as tchar
-    from substrata_tpu_torch.physics.character import EYE_HEIGHT
     from substrata_tpu_torch.physics.state import SimConfig
 
     results = {}
@@ -1661,39 +1785,14 @@ def mesh_kernel_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None, 
 
     # KH on the occlusion rays and on 2,048 seeded rays into the field:
     # hit, body (owner) and material exact, t and normal within 1e-6.
-    ch = p.state
-    cam = torch.cat([ch.pos[:2], (ch.pos[2:] + EYE_HEIGHT) - ch.campos_z_delta[None]])
-    o, d, mt, keep = occlusion_rays(cam, body.pos[src])
-    g = torch.Generator(device=device)
-    g.manual_seed(21)
-    ro = (torch.rand((2048, 3), generator=g, device=device)
-          * torch.tensor([360.0, 360.0, 8.0], device=device)
-          - torch.tensor([180.0, 180.0, -0.2], device=device))
-    rd = torch.randn((2048, 3), generator=g, device=device)
-    rd[:1024, 2] = -rd[:1024, 2].abs() - 0.5
-    rd = rd / rd.norm(dim=1, keepdim=True)
-    rt = torch.rand(2048, generator=g, device=device) * 60.0
-    table = broadphase.build_cell_table(body, cfg)[0]
-    os_idx = queries.oversize_slots(body, cfg)
-    kw = dict(cell_size=cfg.cell_size, grid_dim=cfg.grid_dim, n_steps=16, body_steps=16,
-              collidable_only=True, k=16, dedup=True)
-    for name, (ro_, rd_, rt_) in (("occlusion", (o, d, mt)), ("field", (ro, rd, rt))):
-        ex = torch.full((ro_.shape[0],), -1, dtype=torch.int32, device=device)
-        args = (ro_, rd_, rt_, body, table, os_idx, sw.heightfield, sw.has_heightfield, ex,
-                sw.hulls, sw.trimesh)
-        rk, rp = kh.ray_trace(*args, **kw), kh.ray_trace_plain(*args, **kw)
-        for i, what in ((2, "body"), (3, "hit"), (4, "material")):
-            check(torch.equal(rk[i], rp[i]), f"KH ({name}): {what} differs")
-        err = max(max_err(rk[0], rp[0]), max_err(rk[1], rp[1]))
-        check(err <= 1e-6, f"KH ({name}): max abs err {err} > 1e-6")
-        b, counts = mesh_ray_bound(args, kw, rk)
+    for name, (args, kw, kept) in mesh_ray_cases(w, p, src, device).items():
+        err, rp = _kh_compare(args, kw, name)
+        b, counts = mesh_ray_bound(args, kw, rp)
         results[f"ray_trace_{name}"] = dict(
             max_abs_err=err, tol=1e-6, **b, **counts,
             trimesh_hits=int((rp[3] & (rp[2] >= cfg.capacity)).sum()),
             body_hits=int((rp[3] & (rp[2] >= 0) & (rp[2] < cfg.capacity)).sum()),
-            kept=int(keep.sum()) if name == "occlusion" else int(rt_.shape[0]),
-            ms=median_ms(lambda: kh.ray_trace(*args, **kw)),
-            device_us_per_launch=device_us(lambda: kh.ray_trace(*args, **kw), "ray_trace"),
+            kept=kept, **_kh_timing(args, kw),
             plain_ms=median_ms(lambda: kh.ray_trace_plain(*args, **kw), reps=plain_reps))
 
     # KL on a trimesh step (0.3 m, the stair branch), three chained updates.
@@ -1719,9 +1818,7 @@ def mesh_kernel_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None, 
     results["character_update_mesh"] = dict(
         max_abs_err=max(kl_errs), max_err_of_scale=max(kl_errs), tol=1e-6,
         rows=cand + kl.N_STATIC, contacts_evaluated=seen, **bound(moved, ops),
-        ms=median_ms(lambda: kl.character_packed(*args, **kw_)),
-        device_us_per_launch=device_us(lambda: kl.character_packed(*args, **kw_),
-                                       "character_kernel"),
+        **_kl_timing(args, kw_),
         plain_ms=median_ms(lambda: kl.character_packed_plain(*args, **kw_), reps=plain_reps))
     return results
 
@@ -2678,21 +2775,40 @@ def terrain_kernel_phase(device="cuda", res=None, n_points=65_536, n_avatars=64,
                          max_err(got[:, 1:], want[:, 1:]) if normals else 0.0)
     kw_err = max(max(e) for e in errs.values())
     check(kw_err <= 1e-6, f"KW heights: {kw_err} of scale > 1e-6")
+    # Like for like: KW's heights-only call beside grid_sample's bilinear
+    # heights at the same points, clamped at the border as KW clamps (each
+    # with its device time from the profiler, all of the call's kernels,
+    # and its host cost); heights and normals apart.
     gs_grid = ((xy - hf.origin) / hf.cell_w / (torch.tensor(h.shape, device=device) - 1)
                * 2 - 1).flip(-1).view(1, 1, -1, 2)
     hmap = hf.heights.view(1, 1, *h.shape)
-    pts_bytes = n_points * (8 + 16 + 16)
+
+    def heights():
+        return kt.terrain_heights(*field, xy, False)
+
+    def library():
+        return torch.nn.functional.grid_sample(hmap, gs_grid, mode="bilinear",
+                                               padding_mode="border", align_corners=True)
+
+    def with_normals():
+        return kt.terrain_heights(*field, xy, True)
     out["terrain_heights"] = dict(
         max_abs_err=kw_err, tol=1e-6, points=n_points, heights_err=errs[False][0],
         normals_err=errs[True][1],
-        **bound(pts_bytes, kt.heights_flops(n_points, True)),
-        ms=median_ms(lambda: kt.terrain_heights(*field, xy, True)),
-        plain_ms=median_ms(lambda: kt.terrain_heights_plain(*field, xy, True),
+        **bound(n_points * (8 + 16 + 4), kt.heights_flops(n_points, False)),
+        ms=median_ms(heights), device_us=device_us(heights, "heights_kernel"),
+        **host_cost(heights),
+        plain_ms=median_ms(lambda: kt.terrain_heights_plain(*field, xy, False),
                            reps=plain_reps),
-        device_us=device_us(lambda: kt.terrain_heights(*field, xy, True), "heights_kernel"),
-        library_ms=median_ms(lambda: torch.nn.functional.grid_sample(
-            hmap, gs_grid, mode="bilinear", align_corners=True)),
-        library_call="torch.nn.functional.grid_sample (bilinear heights, no normals)")
+        library_ms=median_ms(library), library_device_us=device_us_call(library, ""),
+        library_host=host_cost(library),
+        library_call="torch.nn.functional.grid_sample (bilinear heights, border clamp), the "
+                     "same points",
+        with_normals=dict(
+            **bound(n_points * (8 + 16 + 16), kt.heights_flops(n_points, True)),
+            ms=median_ms(with_normals), device_us=device_us(with_normals, "heights_kernel"),
+            plain_ms=median_ms(lambda: kt.terrain_heights_plain(*field, xy, True),
+                               reps=plain_reps)))
     one = xy[:1].contiguous()
     out["terrain_heights"]["clamp_query"] = dict(
         ms=median_ms(lambda: kt.terrain_heights(*field, one)),
@@ -4288,7 +4404,8 @@ def main():
     # the wheels' 32 are in chip_smoke.json); no single PyTorch call
     # computes KH, KI or KJ, so library_ms is null.
     kres["ray_trace"] = dict(fres["ray_trace_particles"], max_abs_err=max(
-        fres["ray_trace_particles"]["max_abs_err"], fres["ray_trace_wheels"]["max_abs_err"]))
+        fres["ray_trace_particles"]["max_abs_err"], fres["ray_trace_wheels"]["max_abs_err"],
+        *(r["max_abs_err"] for r in fres["ray_trace_hard_cases"].values())))
     kres.update({k: v for k, v in fres.items() if k in FULLTICK_KERNELS})
 
     ft_res = full_tick_phase()

@@ -7,28 +7,42 @@
 // trace_rays (:395-440) combines them; plain twin:
 // substrata_tpu_torch/kernels/ray_trace.py:ray_trace_plain.
 //
-// One thread per ray.  Stage 1 walks the candidates in the reference's gather
-// order (9 xy-neighbour cells x body_steps march points x cell capacity, then
-// the oversize slots), keys each by its bounding-sphere entry distance, and
-// keeps the k smallest keys in a sorted per-thread list: ties go to the
-// earlier candidate, or with dedup to the lower slot (a body met again is
-// skipped: all its copies share one key), as lax.top_k picks them from the
-// reference's (slot-sorted) candidate row.  When no key is finite, survivor 0
-// is the first candidate (the lowest slot with dedup) and only its normal is
-// reported.  Stage 2 runs the exact sphere, box, capsule or hull test on each
-// survivor (a hull: the ray in hull-local space clipped by its library
-// planes, the entering face's normal, the first on ties) and takes the first
-// minimum.  The heightfield (flat: the analytic plane hit; else the march and
-// 10 bisection steps) and the trimesh (the first 8 triangles of the grid cell
-// at each of n_steps march points, Moller-Trumbore, the first minimum; a
-// cell's empty slots are a suffix, so its scan stops at the first) are the
-// other operands; the trimesh wins only strictly and reports its triangle's
-// owner and material.  What bounds it on the card: latency -- every candidate
-// is a dependent random gather (table entry, then the body's position and
-// radius), about 120 per particle ray and 280 per wheel ray, and an occlusion
-// ray adds up to 16 x 8 triangle gathers (48 bytes each); the bytes that must
-// move are small.  The design keeps all candidates and survivors in registers
-// and local memory: no [rays x candidates] intermediate reaches device memory.
+// What bounds it on the card: latency.  Every candidate is a chain of
+// dependent gathers (its table entry, then the body's flags, position and
+// radius), every trimesh test another (the cell entry, the triangle, its
+// vertices), and the bytes and operations are small (bounds of 0.003-0.8
+// us).  A thread per ray walked its 118-1,216 candidates and its 128
+// triangle tests one after another; the design spreads each ray over one
+// warp, four rays a block, so that no thread walks a ray's candidates or
+// triangles alone:
+// - Stage 1: the lanes stride the ray's candidate columns in the
+//   reference's gather order (9 xy-neighbour cells x body_steps march
+//   points x cell capacity, then the oversize slots), four columns a lane a
+//   pass with all their loads issued before any is used, and key each by
+//   its bounding-sphere entry distance.  A ballot names the finite keys
+//   (few: most columns are empty or out of reach); the warp inserts each,
+//   in column order, into the k-entry sorted list that lane j holds entry j
+//   of: a ballot counts the entries before it (ties to the earlier column,
+//   or with dedup to the lower slot; a body met again is skipped, all its
+//   copies sharing one key), as lax.top_k picks them from the reference's
+//   slot-sorted row.  With no finite key, survivor 0 is the first
+//   candidate (the lowest slot with dedup) and only its normal is reported.
+// - Stage 2: lane j runs the exact sphere, box, capsule or hull test on
+//   survivor j (a hull: the ray in hull-local space clipped by its library
+//   planes, the entering face's normal, the first on ties); a warp argmin
+//   keeps the first minimum.
+// - The heightfield: the lanes take the march samples (flat: the analytic
+//   plane hit); a ballot finds the first below the surface; the 10
+//   bisection steps stay serial, warp-uniform, their midpoints rounding as
+//   the twin's.
+// - The trimesh: the lanes take the n_steps x 8 (step, slot) tests (the
+//   first 8 triangles of the grid cell at each march point, Moller-Trumbore;
+//   empty slots are skipped, as the twin masks them); a warp argmin keeps
+//   the first minimum.  It wins the combine only strictly and reports its
+//   triangle's owner and material.
+// No [rays x candidates] intermediate reaches device memory.
+#include <cstring>
+
 #include "trimesh.cuh"
 
 namespace {
@@ -37,13 +51,9 @@ constexpr float kBig = 1e9f;
 constexpr int kMaxK = 16;
 constexpr int kTriCap = 8;   // triangles read per grid cell of the march
 constexpr int kSphere = 0, kBox = 1, kCapsule = 2;
-
-__device__ __forceinline__ unsigned hash_cell(int cx, int cy, int cz, unsigned nb) {
-  const unsigned h = (static_cast<unsigned>(cx) * 73856093u) ^
-                     (static_cast<unsigned>(cy) * 19349663u) ^
-                     (static_cast<unsigned>(cz) * 83492791u);
-  return h % nb;
-}
+constexpr int kWarps = 4;    // rays (warps) per block
+constexpr int kUnroll = 4;   // candidate columns per lane per pass
+constexpr unsigned kFull = 0xffffffffu;
 
 // kernels/ray_trace.py:_ray_sphere
 __device__ float ray_sphere(const float o[3], const float d[3], const float c[3], float r,
@@ -306,7 +316,30 @@ __device__ __forceinline__ float march_fraction(int s, int n) {
   return static_cast<float>(s) * (1.0f / static_cast<float>(n - 1));
 }
 
-__global__ void ray_trace_kernel(
+// The (key, slot) of one candidate column, or key = +inf when the column
+// is empty, excluded or out of the bounding sphere's reach.
+struct Col {
+  int cand;
+  float key;
+};
+
+__device__ __forceinline__ int column_cand(int col, int n_grid, int cap, int body_steps,
+                                           const float o[3], const float d[3], float mt,
+                                           float rcp_cell, int num_buckets,
+                                           const int* __restrict__ table,
+                                           const int* __restrict__ os_idx) {
+  if (col >= n_grid) return os_idx[col - n_grid];
+  const int blk = col / cap, slot = col - blk * cap;   // blk = (offset, step)
+  const int off = blk / body_steps, s = blk - off * body_steps;
+  const float ts = body_steps == 1 ? 0.5f * mt : march_fraction(s, body_steps) * mt;
+  int cell[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) cell[k] = static_cast<int>(floorf(__fmaf_rn(d[k], ts, o[k]) * rcp_cell));
+  return table[sbt::cell_hash(cell[0] + off / 3 - 1, cell[1] + off % 3 - 1, cell[2], num_buckets) *
+                   cap + slot];
+}
+
+__global__ void __launch_bounds__(kWarps * 32) ray_trace_kernel(
     const float* __restrict__ origins, const float* __restrict__ dirs,
     const float* __restrict__ max_ts, const int* __restrict__ exclude,
     const float* __restrict__ pos, const float* __restrict__ quat,
@@ -324,8 +357,9 @@ __global__ void ray_trace_kernel(
     int flags, int H, int MF, int gx, int gy, int tcap, float rcp_cell,
     float* __restrict__ o_t, float* __restrict__ o_n, int* __restrict__ o_body,
     bool* __restrict__ o_hit, int* __restrict__ o_mat) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R) return;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (i >= R) return;   // the whole warp: one ray per warp
   const bool is_flat = flags & 1, collidable_only = flags & 2, dedup = flags & 4;
   const bool use_tm = flags & 8;
   const Hulls hl{hull_planes, hull_n_faces, H, MF};
@@ -334,87 +368,101 @@ __global__ void ray_trace_kernel(
   const float mt = max_ts[i];
   const int ex = exclude[i];
 
-  // ---- Stage 1: the k smallest bounding-sphere keys ----
-  float lk[kMaxK];
-  int ls[kMaxK];
+  // ---- Stage 1: the k smallest bounding-sphere keys, lane j holding entry j ----
+  const int n_grid = 9 * body_steps * cap;
+  const int n_cols = n_grid + n_os;
+  float lk = kBig;   // this lane's list entry: key and slot
+  int ls = -1;
   int cnt = 0;
   int first_cand = 0, min_cand = 0x7fffffff;
-  bool any_cand = false;
-  const int n_blocks = 9 * body_steps + 1;   // (offset, step) rows, then the oversize row
-  for (int blk = 0; blk < n_blocks; ++blk) {
-    const bool os_row = blk == n_blocks - 1;
-    int base = 0, width = n_os;
-    if (!os_row) {
-      const int off = blk / body_steps, s = blk % body_steps;
-      const float ts = body_steps == 1 ? 0.5f * mt : march_fraction(s, body_steps) * mt;
-      int cell[3];
+  for (int base = 0; base < n_cols; base += 32 * kUnroll) {
+    Col c[kUnroll];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) cell[k] = static_cast<int>(floorf(__fmaf_rn(d[k], ts, o[k]) * rcp_cell));
-      const unsigned hb = hash_cell(cell[0] + off / 3 - 1, cell[1] + off % 3 - 1, cell[2],
-                                    static_cast<unsigned>(num_buckets));
-      base = static_cast<int>(hb) * cap;
-      width = cap;
+    for (int u = 0; u < kUnroll; ++u) {
+      const int col = base + u * 32 + lane;
+      c[u].cand = col < n_cols ? column_cand(col, n_grid, cap, body_steps, o, d, mt, rcp_cell,
+                                             num_buckets, table, os_idx)
+                               : 0x7fffffff;
     }
-    for (int c = 0; c < width; ++c) {
-      const int cand = os_row ? os_idx[c] : table[base + c];
-      if (!any_cand) first_cand = cand;
-      any_cand = true;
-      min_cand = min(min_cand, cand);
-      if (cand < 0 || cand == ex) continue;
-      const int lay = layer[cand];
-      if (!alive[cand] || (collidable_only && !(lay == 0 || lay == 1))) continue;
-      const float oc[3] = {o[0] - pos[cand * 3 + 0], o[1] - pos[cand * 3 + 1],
-                           o[2] - pos[cand * 3 + 2]};
-      const float crad = bound_radius[cand];
-      const float b = sbt::dot3(oc, d);
+    if (base == 0) first_cand = __shfl_sync(kFull, c[0].cand, 0);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      min_cand = min(min_cand, c[u].cand);
+      const int cand = c[u].cand;
+      const int b = cand >= 0 && cand != 0x7fffffff ? cand : 0;
+      const int lay = layer[b];
+      const bool live = alive[b];
+      const float oc[3] = {o[0] - pos[b * 3 + 0], o[1] - pos[b * 3 + 1], o[2] - pos[b * 3 + 2]};
+      const float crad = bound_radius[b];
+      const float bb = sbt::dot3(oc, d);
       const float cc = sbt::dot3(oc, oc) - crad * crad;
-      const float disc = b * b - cc;
+      const float disc = bb * bb - cc;
       const float sq = sqrtf(fmaxf(disc, 0.0f));
-      const float t_in = fmaxf(-b - sq, 0.0f);
-      if (!(disc >= 0.0f && -b + sq >= 0.0f && t_in <= mt)) continue;
-      const float key = t_in;
-      if (dedup) {
-        bool seen = false;
-        for (int j = 0; j < cnt; ++j) seen = seen || ls[j] == cand;
-        if (seen) continue;
+      const float t_in = fmaxf(-bb - sq, 0.0f);
+      const bool ok = cand >= 0 && cand != 0x7fffffff && cand != ex && live &&
+                      !(collidable_only && !(lay == 0 || lay == 1)) && disc >= 0.0f &&
+                      -bb + sq >= 0.0f && t_in <= mt;
+      c[u].key = ok ? t_in : INFINITY;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      unsigned found = __ballot_sync(kFull, c[u].key != INFINITY);
+      while (found) {   // warp-uniform: insert the finite keys in column order
+        const int src = __ffs(found) - 1;
+        found &= found - 1;
+        const float kn = __shfl_sync(kFull, c[u].key, src);
+        const int cn = __shfl_sync(kFull, c[u].cand, src);
+        const bool held = lane < cnt;
+        if (dedup && __any_sync(kFull, held && ls == cn)) continue;
+        const bool before = held && (lk < kn || (lk == kn && (!dedup || ls < cn)));
+        const int at = __popc(__ballot_sync(kFull, before));
+        const float up_k = __shfl_up_sync(kFull, lk, 1);
+        const int up_s = __shfl_up_sync(kFull, ls, 1);
+        if (at < K) {
+          if (lane > at) {
+            lk = up_k;
+            ls = up_s;
+          } else if (lane == at) {
+            lk = kn;
+            ls = cn;
+          }
+          cnt = min(cnt + 1, K);
+        }
       }
-      int j = cnt;
-      while (j > 0 && (key < lk[j - 1] || (dedup && key == lk[j - 1] && cand < ls[j - 1]))) --j;
-      if (j >= K) continue;
-      const int last = cnt < K ? cnt : K - 1;
-      for (int m = last; m > j; --m) {
-        lk[m] = lk[m - 1];
-        ls[m] = ls[m - 1];
-      }
-      lk[j] = key;
-      ls[j] = cand;
-      if (cnt < K) ++cnt;
     }
   }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) min_cand = min(min_cand, __shfl_xor_sync(kFull, min_cand, off));
 
-  // ---- Stage 2: exact shape tests on the survivors ----
+  // ---- Stage 2: lane j tests survivor j; the first minimum ----
   float tb = kBig, nb[3] = {0.0f, 0.0f, 0.0f};
   int bi = -1;
   if (cnt == 0) {
     const int s0 = dedup ? min_cand : first_cand;   // survivor 0 of an all-BIG row
     ray_shape(o, d, max(s0, 0), pos, quat, shape_type, params, hl, nb);
   } else {
-    int best_slot = -1;
-    for (int j = 0; j < cnt; ++j) {
-      float n[3];
-      const float t = ray_shape(o, d, ls[j], pos, quat, shape_type, params, hl, n);
-      if (j == 0 || t < tb) {
-        tb = t;
-        best_slot = ls[j];
-        nb[0] = n[0];
-        nb[1] = n[1];
-        nb[2] = n[2];
+    float t = INFINITY, n[3] = {0.0f, 0.0f, 0.0f};
+    if (lane < cnt) t = ray_shape(o, d, ls, pos, quat, shape_type, params, hl, n);
+    float bt = t;
+    int bj = lane < cnt ? lane : 32;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ot = __shfl_xor_sync(kFull, bt, off);
+      const int oj = __shfl_xor_sync(kFull, bj, off);
+      if (ot < bt || (ot == bt && oj < bj)) {
+        bt = ot;
+        bj = oj;
       }
     }
+    // Lanes past cnt hold +inf: a live lane holds the minimum (BIG at most).
+    tb = __shfl_sync(kFull, t, bj);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) nb[k] = __shfl_sync(kFull, n[k], bj);
+    const int best_slot = __shfl_sync(kFull, ls, bj);
     bi = tb < kBig ? best_slot : -1;
   }
 
-  // ---- The heightfield ----
+  // ---- The heightfield: the lanes take the march samples ----
   float th = kBig, nh[3] = {0.0f, 0.0f, 1.0f};
   if (is_flat) {
     const float z0 = heights[0];
@@ -429,12 +477,17 @@ __global__ void ray_trace_kernel(
                          static_cast<float>(hx - 1.001), static_cast<float>(hy - 1.001), hy};
     int first = -1;
     float val0 = 0.0f;
-    for (int s = 0; s < n_steps; ++s) {
-      const float ts = march_fraction(s, n_steps) * mt;
-      const float p[3] = {o[0] + d[0] * ts, o[1] + d[1] * ts, o[2] + d[2] * ts};
-      const float val = p[2] - hf_sample(hf, p[0], p[1]);
-      if (s == 0) val0 = val;
-      if (first < 0 && val < 0.0f) first = s;
+    for (int sb = 0; sb < n_steps; sb += 32) {
+      const int s = sb + lane;
+      float val = 0.0f;
+      if (s < n_steps) {
+        const float ts = march_fraction(s, n_steps) * mt;
+        const float p[3] = {o[0] + d[0] * ts, o[1] + d[1] * ts, o[2] + d[2] * ts};
+        val = p[2] - hf_sample(hf, p[0], p[1]);
+      }
+      if (sb == 0) val0 = __shfl_sync(kFull, val, 0);
+      const unsigned below = __ballot_sync(kFull, s < n_steps && val < 0.0f);
+      if (first < 0 && below) first = sb + __ffs(below) - 1;
     }
     const bool any_below = first >= 0;
     const int f = any_below ? first : 0;
@@ -454,79 +507,95 @@ __global__ void ray_trace_kernel(
   }
   if (!*has_hf) th = kBig;
 
-  // ---- The trimesh ----
+  // ---- The trimesh: the lanes take the (step, slot) tests ----
   float tt = kBig, nt[3] = {0.0f, 0.0f, 0.0f};
   int mat = 0, owner = 0;
   if (use_tm) {
     const sbt::TriMeshView tm{tri_verts, tris, cell_tris, tri_origin[0], tri_origin[1],
                               *tri_cell_w, gx, gy, tcap};
     const int kt = min(tcap, kTriCap);
-    int best = -1;
-    for (int s = 0; s < n_steps; ++s) {
+    const int n_tests = n_steps * kt;
+    float bt = kBig;          // this lane's first minimum below BIG
+    int bidx = 0x7fffffff, btri = -1;
+    for (int tb0 = 0; tb0 < n_tests; tb0 += 32) {
+      const int idx = tb0 + lane;
+      if (idx >= n_tests) continue;
+      const int s = idx / kt, c = idx - s * kt;
       const float ts = march_fraction(s, n_steps) * mt;
-      const int base = sbt::tri_cell(tm, o[0] + d[0] * ts, o[1] + d[1] * ts);
-      for (int c = 0; c < kt; ++c) {
-        const int tri = cell_tris[base + c];
-        if (tri < 0) break;
-        float v0[3], v1[3], v2[3];
-        sbt::load_vert(tm, tris[3 * tri], v0);
-        sbt::load_vert(tm, tris[3 * tri + 1], v1);
-        sbt::load_vert(tm, tris[3 * tri + 2], v2);
-        const float t = ray_triangle_t(o, d, v0, v1, v2);
-        if (t < tt) {
-          tt = t;
-          best = tri;
-        }
+      const int tri = cell_tris[sbt::tri_cell(tm, o[0] + d[0] * ts, o[1] + d[1] * ts) + c];
+      if (tri < 0) continue;
+      float v0[3], v1[3], v2[3];
+      sbt::load_vert(tm, tris[3 * tri], v0);
+      sbt::load_vert(tm, tris[3 * tri + 1], v1);
+      sbt::load_vert(tm, tris[3 * tri + 2], v2);
+      const float t = ray_triangle_t(o, d, v0, v1, v2);
+      if (t < bt) {
+        bt = t;
+        bidx = idx;
+        btri = tri;
       }
     }
-    if (best >= 0) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ot = __shfl_xor_sync(kFull, bt, off);
+      const int oi = __shfl_xor_sync(kFull, bidx, off);
+      const int otri = __shfl_xor_sync(kFull, btri, off);
+      if (ot < bt || (ot == bt && oi < bidx)) {
+        bt = ot;
+        bidx = oi;
+        btri = otri;
+      }
+    }
+    if (btri >= 0) {
+      tt = bt;
       float v0[3], v1[3], v2[3];
-      sbt::load_vert(tm, tris[3 * best], v0);
-      sbt::load_vert(tm, tris[3 * best + 1], v1);
-      sbt::load_vert(tm, tris[3 * best + 2], v2);
+      sbt::load_vert(tm, tris[3 * btri], v0);
+      sbt::load_vert(tm, tris[3 * btri + 1], v1);
+      sbt::load_vert(tm, tris[3 * btri + 2], v2);
       ray_triangle_n(d, v0, v1, v2, nt);
-      mat = tri_mats[best];
-      owner = tri_owner[best];
+      mat = tri_mats[btri];
+      owner = tri_owner[btri];
     }
   }
 
-  const bool body_first = tb <= th && tb <= tt;
-  const bool tri_wins = tt < th && tt < tb;
-  const float t = fminf(fminf(tb, th), tt);
-  const bool hit = t <= mt;
-  o_t[i] = hit ? t : kBig;
+  if (lane == 0) {
+    const bool body_first = tb <= th && tb <= tt;
+    const bool tri_wins = tt < th && tt < tb;
+    const float t = fminf(fminf(tb, th), tt);
+    const bool hit = t <= mt;
+    o_t[i] = hit ? t : kBig;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) o_n[i * 3 + k] = body_first ? nb[k] : (th <= tt ? nh[k] : nt[k]);
-  o_body[i] = body_first ? bi : (tri_wins ? owner : -1);
-  o_hit[i] = hit;
-  o_mat[i] = tri_wins ? mat : 0;
+    for (int k = 0; k < 3; ++k) o_n[i * 3 + k] = body_first ? nb[k] : (th <= tt ? nh[k] : nt[k]);
+    o_body[i] = body_first ? bi : (tri_wins ? owner : -1);
+    o_hit[i] = hit;
+    o_mat[i] = tri_wins ? mat : 0;
+  }
 }
 
 }  // namespace
 
-extern "C" int ray_trace(const float* origins, const float* dirs, const float* max_ts,
-                         const int* exclude, const float* pos, const float* quat,
-                         const float* bound_radius, const int* shape_type, const float* params,
-                         const bool* alive, const int* layer, const int* table,
-                         const int* os_idx, const float* heights, const float* hf_origin,
-                         const float* hf_cell_w, const bool* has_hf, const float* hull_planes,
-                         const int* hull_n_faces, const float* tri_verts, const int* tris,
-                         const int* tri_mats, const int* tri_owner, const int* cell_tris,
-                         const float* tri_origin, const float* tri_cell_w, int R,
-                         int num_buckets, int cap, int n_os, int hx, int hy, int n_steps,
-                         int body_steps, int K, int flags, int H, int MF, int gx, int gy,
-                         int tcap, float rcp_cell, float* o_t, float* o_n, int* o_body,
-                         bool* o_hit, int* o_mat, void* stream) {
-  if (K > kMaxK || H < 1 || MF > 32) return static_cast<int>(cudaErrorInvalidValue);
+// The wrapper's arguments in one host buffer of 8-byte slots
+// (kernels/ray_trace.py:_launch): 26 input pointers, R and 14 sizes, 1 /
+// cell_size as a double, 5 output pointers.
+extern "C" int ray_trace(const long long* a, void* stream) {
+  auto f = [a](int i) { return reinterpret_cast<const float*>(a[i]); };
+  auto n = [a](int i) { return reinterpret_cast<const int*>(a[i]); };
+  auto b = [a](int i) { return reinterpret_cast<const bool*>(a[i]); };
+  auto v = [a](int i) { return static_cast<int>(a[i]); };
+  double rcp;
+  memcpy(&rcp, a + 41, sizeof(double));
+  const int R = v(26), K = v(34), H = v(36), MF = v(37), cap = v(28), body_steps = v(33);
+  if (K < 1 || K > kMaxK || H < 1 || MF > 32 || cap < 1 || body_steps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (R > 0) {
-    const int threads = 128;
-    const int blocks = (R + threads - 1) / threads;
-    ray_trace_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        origins, dirs, max_ts, exclude, pos, quat, bound_radius, shape_type, params, alive,
-        layer, table, os_idx, heights, hf_origin, hf_cell_w, has_hf, hull_planes, hull_n_faces,
-        tri_verts, tris, tri_mats, tri_owner, cell_tris, tri_origin, tri_cell_w, R, num_buckets,
-        cap, n_os, hx, hy, n_steps, body_steps, K, flags, H, MF, gx, gy, tcap, rcp_cell, o_t,
-        o_n, o_body, o_hit, o_mat);
+    const int blocks = (R + kWarps - 1) / kWarps;
+    ray_trace_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        f(0), f(1), f(2), n(3), f(4), f(5), f(6), n(7), f(8), b(9), n(10), n(11), n(12), f(13),
+        f(14), f(15), b(16), f(17), n(18), f(19), n(20), n(21), n(22), n(23), f(24), f(25), R,
+        v(27), cap, v(29), v(30), v(31), v(32), body_steps, K, v(35), H, MF, v(38), v(39), v(40),
+        static_cast<float>(rcp), reinterpret_cast<float*>(a[42]), reinterpret_cast<float*>(a[43]),
+        reinterpret_cast<int*>(a[44]), reinterpret_cast<bool*>(a[45]),
+        reinterpret_cast<int*>(a[46]));
   }
   return static_cast<int>(cudaGetLastError());
 }

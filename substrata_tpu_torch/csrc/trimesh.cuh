@@ -90,11 +90,42 @@ __device__ __forceinline__ void load_vert(const TriMeshView& tm, int v, float o[
   o[2] = tm.verts[3 * v + 2];
 }
 
-// A sphere (centre p, radius rad) against the first k triangles of its cell:
-// the deepest (rad - signed distance) first on ties, its closest point and
-// normal; returns false when the cell has no triangle.  Empty slots (-1)
-// form a suffix of each cell's list (the host build fills slots in order),
-// so the scan stops at the first.
+// A sphere (centre p, radius rad) against triangle t: returns the depth
+// (rad - signed distance) and gives the closest point and the contact normal
+// (the offset's direction outside the face, else the face normal).
+__device__ inline float sphere_vs_tri(const TriMeshView& tm, const float p[3], float rad, int t,
+                                      float pt[3], float n[3]) {
+  float v0[3], v1[3], v2[3], cp[3], e1[3], e2[3], cr[3], tn[3], delta[3], rel[3];
+  load_vert(tm, tm.tris[3 * t], v0);
+  load_vert(tm, tm.tris[3 * t + 1], v1);
+  load_vert(tm, tm.tris[3 * t + 2], v2);
+  closest_point_triangle(p, v0, v1, v2, cp);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    delta[q] = p[q] - cp[q];
+    e1[q] = v1[q] - v0[q];
+    e2[q] = v2[q] - v0[q];
+    rel[q] = p[q] - v0[q];
+  }
+  const float dist = norm3f(delta);
+  cross3(e1, e2, cr);
+  safe_normalize(cr, tn);
+  const float side = dot3(rel, tn);
+  const float sdist = side >= 0.0f ? dist : -dist;
+  const bool out = dist > 1e-6f && side >= 0.0f;
+  const float dd = fmaxf(dist, 1e-6f);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    pt[q] = cp[q];
+    n[q] = out ? delta[q] / dd : tn[q];
+  }
+  return rad - sdist;
+}
+
+// A sphere against the first k triangles of its cell: the deepest first on
+// ties, its closest point and normal; returns false when the cell has no
+// triangle.  Empty slots (-1) form a suffix of each cell's list (the host
+// build fills slots in order), so the scan stops at the first.
 __device__ inline bool sphere_vs_cell(const TriMeshView& tm, const float p[3], float rad, int k,
                                       float& best_pen, float best_pt[3], float best_n[3]) {
   const int base = tri_cell(tm, p[0], p[1]);
@@ -102,33 +133,15 @@ __device__ inline bool sphere_vs_cell(const TriMeshView& tm, const float p[3], f
   for (int c = 0; c < k; ++c) {
     const int t = tm.cell_tris[base + c];
     if (t < 0) break;
-    float v0[3], v1[3], v2[3], cp[3], e1[3], e2[3], cr[3], tn[3], delta[3], rel[3];
-    load_vert(tm, tm.tris[3 * t], v0);
-    load_vert(tm, tm.tris[3 * t + 1], v1);
-    load_vert(tm, tm.tris[3 * t + 2], v2);
-    closest_point_triangle(p, v0, v1, v2, cp);
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      delta[q] = p[q] - cp[q];
-      e1[q] = v1[q] - v0[q];
-      e2[q] = v2[q] - v0[q];
-      rel[q] = p[q] - v0[q];
-    }
-    const float dist = norm3f(delta);
-    cross3(e1, e2, cr);
-    safe_normalize(cr, tn);
-    const float side = dot3(rel, tn);
-    const float sdist = side >= 0.0f ? dist : -dist;
-    const float pen = rad - sdist;
+    float pt[3], n[3];
+    const float pen = sphere_vs_tri(tm, p, rad, t, pt, n);
     if (!any || pen > best_pen) {
       any = true;
       best_pen = pen;
-      const bool out = dist > 1e-6f && side >= 0.0f;
-      const float dd = fmaxf(dist, 1e-6f);
 #pragma unroll
       for (int q = 0; q < 3; ++q) {
-        best_pt[q] = cp[q];
-        best_n[q] = out ? delta[q] / dd : tn[q];
+        best_pt[q] = pt[q];
+        best_n[q] = n[q];
       }
     }
   }

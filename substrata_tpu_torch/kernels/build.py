@@ -73,14 +73,15 @@ SIGNATURES = {
     # wl, wr, ws, master_volume, lines, write_idx, delays, feedback, wet,
     # out, lines_out, write_idx_out, S, B, D, has_room, stream
     "audio_downmix_reverb": [P] * 9 + [P] * 3 + [I] * 4 + [P],
+    # one host buffer of 8-byte slots (kernels/ray_trace.py:_launch:
     # origins, dirs, max_ts, exclude, pos, quat, bound_radius, shape_type,
     # shape_params, alive, layer, table, os_idx, heights, hf_origin,
     # hf_cell_w, has_hf, hull planes, hull n_faces, tri verts, tris,
     # tri_mats, tri_owner, cell_tris, tri origin, tri cell_w, R,
     # num_buckets, cap, n_os, HX, HY, n_steps, body_steps, K, flags (bit 3
-    # = trimesh), H, max hull faces, GX, GY, cell cap, 1 / cell_size, out t,
-    # normal, body, hit, material, stream
-    "ray_trace": [P] * 26 + [I] * 15 + [F] + [P] * 5 + [P],
+    # = trimesh), H, max hull faces, GX, GY, cell cap, 1 / cell_size as a
+    # double, out t, normal, body, hit, material), stream
+    "ray_trace": [P, P],
     # 33 vehicle rows (kernels/vehicles.py:KERNEL_FIELDS), 5 inputs,
     # body_pos, body_quat, body_lin, body_ang, mass, iw, hit_t, hit_n,
     # hit_ok, water_z, V, dt, out dv, dw, steering, sus_len, omega, rot,
@@ -95,13 +96,14 @@ SIGNATURES = {
     # faces, out a, b, point, normal, pen, valid, fric, rest, key, touch,
     # stream
     "convex_rows": [P] * 13 + [I] * 7 + [P] * 10 + [P],
-    # 9 character fields, pos, quat, linvel, angvel, shape_type, params,
+    # one host buffer of 8-byte slots (kernels/character.py:_launch: 9
+    # character fields, pos, quat, linvel, angvel, shape_type, params,
     # bound_radius, alive, layer, sensor, table, os_idx, heights, hf_origin,
     # hf_cell_w, has_hf, water_z, scal, tri verts, tris, cell_tris, tri
     # origin, tri cell_w, num_buckets, cap, n_os, n_centers, HX, HY, flat,
-    # GX, GY, cell cap (0 = no trimesh), 1 / cell_size, out 9 character fields,
-    # packed, stream
-    "character_update": [P] * 9 + [P] * 18 + [P] * 5 + [I] * 10 + [F] + [P] * 10 + [P],
+    # GX, GY, cell cap (0 = no trimesh), 1 / cell_size as a double, out 9
+    # character fields, packed), stream
+    "character_update": [P, P],
     # pos, quat, linvel, angvel, awake, sleep_timer, alive, motion_type,
     # bound_radius, tick_in, N, out pos, quat, linvel, angvel, awake,
     # sleep_timer, stream
@@ -324,6 +326,23 @@ def launch(name: str, *args):
     rc = kernel(name)(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
                       stream())
     raise_if(rc, name)
+
+
+def launch_packed(name: str, args: bytes):
+    """Call launcher ``name`` whose arguments come packed into one host
+    buffer (``struct.pack`` of pointers and sizes, a wrapper keeping a
+    world's constant ones): one ctypes argument instead of dozens."""
+    raise_if(kernel(name)(args, stream()), name)
+
+
+def check_all(device, tensors, names, dtypes, shapes):
+    """``check`` over parallel tuples, one cheap test per tensor on the path
+    where all is well."""
+    for t, dtype, shape in zip(tensors, dtypes, shapes):
+        if not (t.dtype is dtype and t.shape == shape and t.is_contiguous()
+                and t.device == device):
+            for t_, name, dtype_, shape_ in zip(tensors, names, dtypes, shapes):
+                check(t_, name, dtype_, shape_, device)
 
 
 def check(t: torch.Tensor, name: str, dtype, shape, device):

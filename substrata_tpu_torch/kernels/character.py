@@ -37,6 +37,7 @@ and runs the twin for CPU tensors.
 from __future__ import annotations
 
 import dataclasses
+import struct
 
 import torch
 
@@ -416,13 +417,88 @@ def character_packed_plain(char: dict, body: BodyState, hf: Heightfield, has_hf,
     return new, packed
 
 
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+# The call's own tensors, in the launcher's order: the character's fields,
+# the bodies' fields the kernel reads, the cell table, the oversize slots.
+_STATE_DTYPES = (_F32, _F32, _BOOL, _F32, _F32, _F32, _BOOL, _BOOL, _BOOL)
+_STATE_SHAPES = ((3,), (3,), (), (3,), (3,), (), (), (), ())
+_BODY_FIELDS = ("pos", "quat", "linvel", "angvel", "shape_type", "shape_params", "bound_radius",
+                "alive", "layer", "is_sensor")
+_DYN_NAMES = STATE_FIELDS + _BODY_FIELDS + ("table", "os_idx", "scal")
+_DYN_DTYPES = _STATE_DTYPES + (_F32, _F32, _F32, _F32, _I32, _F32, _F32, _BOOL, _I32, _BOOL,
+                               _I32, _I32, _F32)
+_STATIC_NAMES = ("heights", "hf_origin", "hf_cell_w", "has_heightfield", "water_z", "tri_verts",
+                 "tris", "cell_tris", "tri_origin", "tri_cell_w")
+# The launcher's argument buffer: 32 pointers (0: no trimesh), 10 sizes,
+# 1 / cell_size, 10 output pointers (csrc/character.cu:character_update).
+_PACK = struct.Struct("=42qd10q")
+_MAX_PLANS = 8
+_plans: dict = {}
+
+
+class _Plan:
+    """What one world and configuration fix for every call: the static
+    tensors (checked once, held so their ids stay theirs), the launcher's
+    constant pointers and sizes, the shapes of the call's tensors and the
+    output buffer's split."""
+
+    def __init__(self, hf, has_hf, water_z, trimesh, n, table_shape, n_os, cell_size, grid_dim):
+        dev = hf.heights.device
+        hx, hy = hf.heights.shape
+        use_tm = trimesh is not None and trimesh.count > 0
+        static = (hf.heights, hf.origin, hf.cell_w, has_hf, water_z)
+        shapes = ((hx, hy), (2,), (), (), ())
+        dtypes = (_F32, _F32, _F32, _BOOL, _F32)
+        if use_tm:
+            static += (trimesh.verts, trimesh.tris, trimesh.cell_tris, trimesh.origin,
+                       trimesh.cell_w)
+            shapes += ((trimesh.verts.shape[0], 3), (trimesh.tris.shape[0], 3),
+                       tuple(trimesh.cell_tris.shape), (2,), ())
+            dtypes += (_F32, _I32, _I32, _F32, _F32)
+        build.check_all(dev, static, _STATIC_NAMES, dtypes, shapes)
+        if table_shape[0] != grid_dim * grid_dim + 1:
+            raise ValueError(f"table: shape {table_shape}, expected {grid_dim ** 2 + 1} rows")
+        gx, gy, tcap = trimesh.cell_tris.shape if use_tm else (0, 0, 0)
+        self.static = static
+        self.device = dev
+        self.k = n_rows(cell_size, table_shape[1], n_os)
+        self.shapes = _STATE_SHAPES + ((n, 3), (n, 4), (n, 3), (n, 3), (n,), (n, 4), (n,), (n,),
+                                       (n,), (n,), table_shape, (n_os,), (8,))
+        ptrs = [t.data_ptr() for t in static] + [0] * (10 - len(static))
+        self.ptrs = tuple(ptrs)
+        self.sizes = (grid_dim * grid_dim, table_shape[1], n_os, n_centers(cell_size), hx, hy,
+                      1 if hf.is_flat else 0, gx, gy, tcap, fp.recip(cell_size))
+        # The output buffer: pos, vel, ground normal and velocity (3 each),
+        # the camera delta, the four flags' bytes, then the packed vector.
+        self.split = [3, 3, 3, 3, 1, 1, N_PACKED_HEAD + self.k]
+
+
+def _plan(body, hf, has_hf, water_z, table, os_idx, trimesh, cell_size, grid_dim):
+    use_tm = trimesh is not None and trimesh.count > 0
+    static = (hf.heights, hf.origin, hf.cell_w, has_hf, water_z)
+    if use_tm:
+        static += (trimesh.verts, trimesh.tris, trimesh.cell_tris, trimesh.origin,
+                   trimesh.cell_w)
+    key = (tuple(map(id, static)), hf.is_flat, use_tm, body.pos.shape[0], tuple(table.shape),
+           os_idx.shape[0], cell_size, grid_dim)
+    plan = _plans.get(key)
+    if plan is None:
+        if len(_plans) >= _MAX_PLANS:
+            _plans.pop(next(iter(_plans)))
+        plan = _plans[key] = _Plan(hf, has_hf, water_z, trimesh if use_tm else None,
+                                   body.pos.shape[0], tuple(table.shape), os_idx.shape[0],
+                                   cell_size, grid_dim)
+    return plan
+
+
 def character_packed(char: dict, body: BodyState, hf: Heightfield, has_hf, water_z, table,
                      os_idx, scal, *, cell_size: float, grid_dim: int,
                      trimesh: TriMesh | None = None, out=None):
     """KL: ``character_packed_plain`` for CPU tensors, ``csrc/character.cu``
     (one block, one launch) for CUDA tensors.  ``out``, when given, is the
     [15 + K] float32 tensor the packed vector goes to (a view into the
-    tick's readback buffer)."""
+    tick's readback buffer); the new fields (and the packed vector when
+    ``out`` is None) are views of one buffer."""
     global launches
     if body.pos.device.type == "cpu":
         new, packed = character_packed_plain(char, body, hf, has_hf, water_z, table, os_idx,
@@ -432,54 +508,26 @@ def character_packed(char: dict, body: BodyState, hf: Heightfield, has_hf, water
             out.copy_(packed)
             packed = out
         return new, packed
-    dev = body.pos.device
-    n = body.capacity
-    cap = table.shape[1]
-    k = n_rows(cell_size, cap, os_idx.shape[0])
-    f32, i32, bl = torch.float32, torch.int32, torch.bool
-    hx, hy = hf.heights.shape
-    shapes = dict(pos=(3,), vel=(3,), on_ground=(), ground_normal=(3,), ground_vel=(3,),
-                  campos_z_delta=(), gravity_enabled=(), fly_mode=(), sitting=())
-    for name, shp in shapes.items():
-        build.check(char[name], name, bl if shp == () and name != "campos_z_delta" else f32,
-                    shp, dev)
-    for t, name, dt, shp in (
-            (body.pos, "pos", f32, (n, 3)), (body.quat, "quat", f32, (n, 4)),
-            (body.linvel, "linvel", f32, (n, 3)), (body.angvel, "angvel", f32, (n, 3)),
-            (body.shape_type, "shape_type", i32, (n,)),
-            (body.shape_params, "shape_params", f32, (n, 4)),
-            (body.bound_radius, "bound_radius", f32, (n,)), (body.alive, "alive", bl, (n,)),
-            (body.layer, "layer", i32, (n,)), (body.is_sensor, "is_sensor", bl, (n,)),
-            (table, "table", i32, (grid_dim * grid_dim + 1, cap)),
-            (os_idx, "os_idx", i32, (os_idx.shape[0],)),
-            (hf.heights, "heights", f32, (hx, hy)), (hf.origin, "hf_origin", f32, (2,)),
-            (hf.cell_w, "hf_cell_w", f32, ()), (has_hf, "has_heightfield", bl, ()),
-            (water_z, "water_z", f32, ()), (scal, "scal", f32, (8,))):
-        build.check(t, name, dt, shp, dev)
-    use_tm = trimesh is not None and trimesh.count > 0
-    if use_tm:
-        for t, name, dt, shp in (
-                (trimesh.verts, "tri_verts", f32, (trimesh.verts.shape[0], 3)),
-                (trimesh.tris, "tris", i32, (trimesh.tris.shape[0], 3)),
-                (trimesh.cell_tris, "cell_tris", i32, tuple(trimesh.cell_tris.shape)),
-                (trimesh.origin, "tri_origin", f32, (2,)),
-                (trimesh.cell_w, "tri_cell_w", f32, ())):
-            build.check(t, name, dt, shp, dev)
-        tm_args = (trimesh.verts, trimesh.tris, trimesh.cell_tris, trimesh.origin,
-                   trimesh.cell_w, *trimesh.cell_tris.shape)
-    else:
-        tm_args = (None,) * 5 + (0, 0, 0)
-    new = {name: torch.empty(shp, dtype=char[name].dtype, device=dev)
-           for name, shp in shapes.items()}
+    plan = _plan(body, hf, has_hf, water_z, table, os_idx, trimesh, cell_size, grid_dim)
+    dyn = (*(char[f] for f in STATE_FIELDS), body.pos, body.quat, body.linvel, body.angvel,
+           body.shape_type, body.shape_params, body.bound_radius, body.alive, body.layer,
+           body.is_sensor, table, os_idx, scal)
+    build.check_all(plan.device, dyn, _DYN_NAMES, _DYN_DTYPES, plan.shapes)
+    split = plan.split
+    if out is not None:
+        build.check(out, "out", _F32, (split[-1],), plan.device)
+        split = split[:-1]
+    parts = torch.empty(sum(split), dtype=_F32, device=plan.device).split(split)
+    pos, vel, gn, gv, cz, flags = parts[:6]
+    on_ground, grav, fly, sit = flags.view(_BOOL).unbind()
     if out is None:
-        out = torch.empty(N_PACKED_HEAD + k, dtype=f32, device=dev)
-    build.check(out, "out", f32, (N_PACKED_HEAD + k,), dev)
-    build.launch("character_update", *(char[f] for f in STATE_FIELDS), body.pos, body.quat,
-                 body.linvel, body.angvel, body.shape_type, body.shape_params,
-                 body.bound_radius, body.alive, body.layer, body.is_sensor, table, os_idx,
-                 hf.heights, hf.origin, hf.cell_w, has_hf, water_z, scal,
-                 *tm_args[:5], grid_dim * grid_dim, cap, os_idx.shape[0], n_centers(cell_size),
-                 hx, hy, 1 if hf.is_flat else 0, *tm_args[5:], fp.recip(cell_size),
-                 *(new[f] for f in STATE_FIELDS), out)
+        out = parts[6]
+    new = dict(pos=pos, vel=vel, on_ground=on_ground, ground_normal=gn, ground_vel=gv,
+               campos_z_delta=cz.view(()), gravity_enabled=grav, fly_mode=fly, sitting=sit)
+    p = plan.ptrs
+    build.launch_packed("character_update", _PACK.pack(
+        *[x.data_ptr() for x in dyn[:21]], *p[:5], dyn[21].data_ptr(), *p[5:], *plan.sizes,
+        pos.data_ptr(), vel.data_ptr(), on_ground.data_ptr(), gn.data_ptr(), gv.data_ptr(),
+        cz.data_ptr(), grav.data_ptr(), fly.data_ptr(), sit.data_ptr(), out.data_ptr()))
     launches += 1
     return new, out

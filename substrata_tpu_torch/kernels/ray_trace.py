@@ -30,6 +30,8 @@ to rounding.
 
 from __future__ import annotations
 
+import struct
+
 import numpy as np
 import torch
 
@@ -347,60 +349,93 @@ def ray_trace_plain(origins, dirs, max_ts, body: BodyState, table, os_idx, hf: H
             torch.where(tri_wins, mat, 0).to(torch.int32))
 
 
+# The call's own tensors, in the launcher's order: the rays, the bodies'
+# fields the kernel reads, the cell table and the oversize slots.
+_DYN_NAMES = ("origins", "dirs", "max_ts", "exclude", "pos", "quat", "bound_radius",
+              "shape_type", "shape_params", "alive", "layer", "table", "os_idx")
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+_DYN_DTYPES = (_F32, _F32, _F32, _I32, _F32, _F32, _F32, _I32, _F32, _BOOL, _I32, _I32, _I32)
+_STATIC_NAMES = ("heights", "hf_origin", "hf_cell_w", "has_heightfield", "hull_planes",
+                 "hull_n_faces", "tri_verts", "tris", "tri_mats", "tri_owner", "cell_tris",
+                 "tri_origin", "tri_cell_w")
+# The launcher's argument buffer: 26 pointers, R and 14 sizes, 1 /
+# cell_size, 5 output pointers (csrc/ray_trace.cu:ray_trace).
+_PACK = struct.Struct("=41qd5q")
+_MAX_PLANS = 8
+_plans: dict = {}
+
+
+class _Plan:
+    """What one world and configuration fix for every call: the static
+    world's tensors (checked once, held so their ids stay theirs), the
+    launcher's constant pointers and sizes, and the shapes of the call's
+    body and table tensors."""
+
+    def __init__(self, static, hf, hulls, trimesh, n, table_shape, n_os, kw):
+        dev = static[0].device
+        gx, gy, tcap = trimesh.cell_tris.shape
+        hx, hy = hf.heights.shape
+        nt, nv = trimesh.tris.shape[0], trimesh.verts.shape[0]
+        build.check_all(dev, static, _STATIC_NAMES, (
+            _F32, _F32, _F32, _BOOL, _F32, _I32, _F32, _I32, _I32, _I32, _I32, _F32, _F32), (
+            (hx, hy), (2,), (), (), (hulls.capacity, hulls.max_faces, 4), (hulls.capacity,),
+            (nv, 3), (nt, 3), (nt,), (nt,), (gx, gy, tcap), (2,), ()))
+        if table_shape[0] != kw["grid_dim"] * kw["grid_dim"] + 1:
+            raise ValueError(f"table: shape {table_shape}, expected {kw['grid_dim'] ** 2 + 1} rows")
+        if hulls.max_faces > 32:
+            raise ValueError("ray_trace: the kernel clips at most 32 hull faces")
+        if kw["k"] > MAX_K:
+            raise ValueError(f"ray_trace: k={kw['k']} survivors, the kernel keeps at most {MAX_K}")
+        flags = ((1 if hf.is_flat else 0) | (2 if kw["collidable_only"] else 0)
+                 | (4 if kw["dedup"] else 0) | (8 if trimesh.count > 0 else 0))
+        self.static = static
+        self.device = dev
+        self.fixed_shapes = ((n, 3), (n, 4), (n,), (n,), (n, 4), (n,), (n,), table_shape,
+                             (n_os,))
+        self.ptrs = tuple(t.data_ptr() for t in static)
+        self.sizes = (kw["grid_dim"] * kw["grid_dim"], table_shape[1], n_os, hx, hy,
+                      kw["n_steps"], kw["body_steps"], kw["k"], flags, hulls.capacity,
+                      hulls.max_faces, gx, gy, tcap, fp.recip(kw["cell_size"]))
+
+
+def _plan(body, table, os_idx, hf, has_heightfield, hulls, trimesh, kw):
+    static = (hf.heights, hf.origin, hf.cell_w, has_heightfield, hulls.planes, hulls.n_faces,
+              trimesh.verts, trimesh.tris, trimesh.tri_mats, trimesh.tri_owner,
+              trimesh.cell_tris, trimesh.origin, trimesh.cell_w)
+    key = (tuple(map(id, static)), hf.is_flat, trimesh.count, body.pos.shape[0],
+           tuple(table.shape), os_idx.shape[0], *kw.values())
+    plan = _plans.get(key)
+    if plan is None:
+        if len(_plans) >= _MAX_PLANS:
+            _plans.pop(next(iter(_plans)))
+        plan = _plans[key] = _Plan(static, hf, hulls, trimesh, body.pos.shape[0],
+                                   tuple(table.shape), os_idx.shape[0], kw)
+    return plan
+
+
 def ray_trace(origins, dirs, max_ts, body: BodyState, table, os_idx, hf: Heightfield,
               has_heightfield, exclude, hulls: HullLibrary, trimesh: TriMesh, *,
               cell_size: float, grid_dim: int, n_steps: int, body_steps: int,
               collidable_only: bool, k: int, dedup: bool):
     """KH: ``ray_trace_plain`` for CPU tensors, ``csrc/ray_trace.cu`` (one
-    thread per ray) for CUDA tensors."""
+    warp per ray) for CUDA tensors.  The outputs are views of one buffer."""
     global launches
     kw = dict(cell_size=cell_size, grid_dim=grid_dim, n_steps=n_steps,
               body_steps=body_steps, collidable_only=collidable_only, k=k, dedup=dedup)
     if origins.device.type == "cpu":
         return ray_trace_plain(origins, dirs, max_ts, body, table, os_idx, hf,
                                has_heightfield, exclude, hulls, trimesh, **kw)
-    if k > MAX_K:
-        raise ValueError(f"ray_trace: k={k} survivors, the kernel keeps at most {MAX_K}")
-    dev = origins.device
-    r, n = origins.shape[0], body.capacity
-    f32, i32, bl = torch.float32, torch.int32, torch.bool
-    hx, hy = hf.heights.shape
-    for t, name, dt, shp in (
-            (origins, "origins", f32, (r, 3)), (dirs, "dirs", f32, (r, 3)),
-            (max_ts, "max_ts", f32, (r,)), (exclude, "exclude", i32, (r,)),
-            (body.pos, "pos", f32, (n, 3)), (body.quat, "quat", f32, (n, 4)),
-            (body.bound_radius, "bound_radius", f32, (n,)),
-            (body.shape_type, "shape_type", i32, (n,)),
-            (body.shape_params, "shape_params", f32, (n, 4)),
-            (body.alive, "alive", bl, (n,)), (body.layer, "layer", i32, (n,)),
-            (table, "table", i32, (grid_dim * grid_dim + 1, table.shape[1])),
-            (os_idx, "os_idx", i32, (os_idx.shape[0],)),
-            (hf.heights, "heights", f32, (hx, hy)), (hf.origin, "hf_origin", f32, (2,)),
-            (hf.cell_w, "hf_cell_w", f32, ()), (has_heightfield, "has_heightfield", bl, ()),
-            (hulls.planes, "hull_planes", f32, (hulls.capacity, hulls.max_faces, 4)),
-            (hulls.n_faces, "hull_n_faces", i32, (hulls.capacity,)),
-            (trimesh.verts, "tri_verts", f32, (trimesh.verts.shape[0], 3)),
-            (trimesh.tris, "tris", i32, (trimesh.tris.shape[0], 3)),
-            (trimesh.tri_mats, "tri_mats", i32, (trimesh.tris.shape[0],)),
-            (trimesh.tri_owner, "tri_owner", i32, (trimesh.tris.shape[0],)),
-            (trimesh.cell_tris, "cell_tris", i32, tuple(trimesh.cell_tris.shape)),
-            (trimesh.origin, "tri_origin", f32, (2,)), (trimesh.cell_w, "tri_cell_w", f32, ())):
-        build.check(t, name, dt, shp, dev)
-    if hulls.max_faces > 32:
-        raise ValueError("ray_trace: the kernel clips at most 32 hull faces")
-    out = (torch.empty(r, dtype=f32, device=dev), torch.empty((r, 3), dtype=f32, device=dev),
-           torch.empty(r, dtype=i32, device=dev), torch.empty(r, dtype=bl, device=dev),
-           torch.empty(r, dtype=i32, device=dev))
-    flags = ((1 if hf.is_flat else 0) | (2 if collidable_only else 0)
-             | (4 if dedup else 0) | (8 if trimesh.count > 0 else 0))
-    gx, gy, tcap = trimesh.cell_tris.shape
-    build.launch("ray_trace", origins, dirs, max_ts, exclude, body.pos, body.quat,
-                 body.bound_radius, body.shape_type, body.shape_params, body.alive,
-                 body.layer, table, os_idx, hf.heights, hf.origin, hf.cell_w,
-                 has_heightfield, hulls.planes, hulls.n_faces, trimesh.verts, trimesh.tris,
-                 trimesh.tri_mats, trimesh.tri_owner, trimesh.cell_tris, trimesh.origin,
-                 trimesh.cell_w, r, grid_dim * grid_dim, table.shape[1],
-                 os_idx.shape[0], hx, hy, n_steps, body_steps, k, flags, hulls.capacity,
-                 hulls.max_faces, gx, gy, tcap, fp.recip(cell_size), *out)
+    plan = _plan(body, table, os_idx, hf, has_heightfield, hulls, trimesh, kw)
+    r = origins.shape[0]
+    dyn = (origins, dirs, max_ts, exclude, body.pos, body.quat, body.bound_radius,
+           body.shape_type, body.shape_params, body.alive, body.layer, table, os_idx)
+    build.check_all(plan.device, dyn, _DYN_NAMES, _DYN_DTYPES,
+                    ((r, 3), (r, 3), (r,), (r,)) + plan.fixed_shapes)
+    buf = torch.empty(25 * r, dtype=torch.uint8, device=plan.device)
+    t, n, bi, mat, hit = buf.split([4 * r, 12 * r, 4 * r, 4 * r, r])
+    out = (t.view(_F32), n.view(_F32).view(r, 3), bi.view(_I32), hit.view(_BOOL),
+           mat.view(_I32))
+    build.launch_packed("ray_trace", _PACK.pack(*[x.data_ptr() for x in dyn], *plan.ptrs, r,
+                                                *plan.sizes, *[x.data_ptr() for x in out]))
     launches += 1
     return out

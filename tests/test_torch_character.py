@@ -405,3 +405,71 @@ def test_set_pipelined_raises():
             np.testing.assert_array_equal(got, sync[k - 2])
     p.set_pipelined(0)
     assert p._pipeline is None
+
+
+# ---------------------------------------------------------------------------
+# kernels/hard_cases.py's character scenes: the stair walk landing at its
+# first, eighth and ninth depth and at none, the forward test column,
+# stick-to-floor at each of its 3 offsets, 3 gather centres (1.4 m cells)
+# and 2 (4 m).  Their trimesh step is test_torch_trimesh.py's tri_step,
+# held against the reference there.  The worlds take the shapes of this
+# file's scenes, so that the reference compiles nothing new.
+# ---------------------------------------------------------------------------
+
+def _hard_scene_arrays(scene):
+    """The scene's bodies (static boxes, no proxy) and reference static
+    world."""
+    a = {k: np.array(np.asarray(v)) for k, v in vars(jstate.zero_body_state(CAPACITY)).items()}
+    for i, (he, pos) in enumerate(scene.boxes):
+        _body(a, i, BOX, list(he), pos, STATIC)
+    sw = jstate.default_static_world(ground_z=0.0)
+    if scene.ground_z is None:
+        h, origin, cw = scene.heightfield
+        sw = sw.replace(heightfield=jstate.Heightfield(
+            heights=jnp.asarray(h), origin=jnp.asarray(origin, jnp.float32),
+            cell_w=jnp.float32(cw), is_flat=False))
+    return {k: np.ascontiguousarray(v) for k, v in a.items()}, sw
+
+
+@pytest.mark.parametrize("case", ["land_first", "land_last", "land_late", "land_none",
+                                  "forward_column", "stick_0", "stick_1", "stick_2", "cell_4m"])
+def test_hard_character_cases_match_reference(case):
+    """The twin of KL against character_update at every update of each
+    hard scene, both from the twin's state (the chain the kernel is held
+    to on the card; a ridge or a ledge turns the chains' last-bit
+    differences into different paths): within 1e-5, flags and the touched
+    list exact; and the twin takes the scene's branch at its update."""
+    from substrata_tpu_torch.kernels import hard_cases
+    scene = hard_cases.character_scene(case)
+    a, sw = _hard_scene_arrays(scene)
+    cfg = dict(capacity=CAPACITY, max_pairs=256, grid_dim=16, cell_size=scene.cell_size,
+               cell_capacity=6)
+    jcfg, tcfg = jstate.SimConfig(**cfg), SimConfig(**cfg)
+    jbody, body = jax_body(a), convert.body_state_from_numpy(a, device="cpu")
+    tsw = convert.static_world_from_numpy(static_world_np(sw), device="cpu")
+    params = jstate.default_sim_params()
+    tparams = convert.sim_params_from_numpy(params_np(params), device="cpu")
+    j0 = jchar.init_character_state(scene.eye)
+    tc = convert.character_from_numpy({f: np.asarray(getattr(j0, f))
+                                       for f in tchar.CHARACTER_FIELDS}, device="cpu")
+    tc = tc.replace(gravity_enabled=torch.ones((), dtype=torch.bool))
+    move = np.asarray(scene.move, np.float32)
+    for i in range(scene.updates):
+        jin = j0.replace(**{f: jnp.asarray(getattr(tc, f).numpy())
+                            for f in tchar.CHARACTER_FIELDS})
+        jc, jcam, jj, jt = jchar.character_update(jin, jbody, sw, jnp.asarray(move), False, False,
+                                                  False, DT, params, jcfg, -1)
+        (tc, tcam, tj, tt), seen = hard_cases.observe_branches(
+            lambda: tchar.character_update(tc, body, tsw, move, False, False, False, DT,
+                                           tparams, tcfg, -1))
+        msg = f"{case}, update {i}"
+        for f in ("pos", "vel", "ground_normal", "ground_vel", "campos_z_delta"):
+            np.testing.assert_allclose(getattr(tc, f).numpy(), np.asarray(getattr(jc, f)),
+                                       atol=1e-5, err_msg=f"{msg}: {f}")
+        for f in ("on_ground", "gravity_enabled", "fly_mode", "sitting"):
+            assert bool(getattr(tc, f)) == bool(getattr(jc, f)), (msg, f)
+        np.testing.assert_allclose(tcam.numpy(), np.asarray(jcam), atol=1e-5, err_msg=msg)
+        assert bool(tj) == bool(jj), msg
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt), err_msg=msg)
+        if i == scene.at and scene.branch is not None:
+            assert seen.get(scene.branch[0], "absent") == scene.branch[1], (msg, seen)

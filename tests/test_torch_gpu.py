@@ -40,6 +40,7 @@ from substrata_tpu_torch.audio.hrtf import hrir_bank_tensor
 from substrata_tpu_torch.benchworld import TICK_FRAMES, bench_audio
 from substrata_tpu_torch.kernels import audio_mix as kaudio
 from substrata_tpu_torch.kernels import box_box as ka
+from substrata_tpu_torch.kernels import hard_cases
 from substrata_tpu_torch.kernels import particles_triton as kpart
 from substrata_tpu_torch.kernels import ray_trace as kray
 from substrata_tpu_torch.kernels import vehicles as kveh
@@ -261,6 +262,24 @@ def test_ray_trace_kernel_matches_plain(fulltick):
     assert int((rp[2] >= 0).sum()) > 5 and int((rp[3] & (rp[2] < 0)).sum()) > 5
 
 
+@pytest.mark.parametrize("case", hard_cases.RAY_CASES)
+def test_ray_trace_kernel_hard_cases(case):
+    """KH on kernels/hard_cases.py's ray scenes (24 keys tied at 0, a body
+    met twice through a hash collision, rays whose every candidate row is
+    empty, a trimesh of sparse cells) at every call shape of RAY_CALLS,
+    single-step marches included: hit, body and material exact, t and
+    normal within 1e-6; a CPU tensor among CUDA ones raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = hard_cases.ray_scene(case, seed=0)
+    for call in hard_cases.RAY_CALLS:
+        args, kw = hard_cases.ray_inputs(scene, call, "cuda")
+        rp = _check_rays(args, **kw)
+        assert torch.equal(kray.ray_trace(*args, **kw)[4], rp[4]), call
+    with pytest.raises(ValueError):
+        kray.ray_trace(args[0], args[1].cpu(), *args[2:], **kw)
+
+
 def test_particles_kernel_matches_plain(fulltick):
     w, veh, vin, ps = fulltick
     dirs, mt = motion_rays(ps, DT)
@@ -421,6 +440,46 @@ def test_character_kernel_matches_plain():
             for f in ("on_ground", "gravity_enabled", "fly_mode", "sitting"):
                 assert bool(nk[f]) == bool(npl[f]), f
             st = tchar.CharacterState(**npl)
+
+
+@pytest.mark.parametrize("case", hard_cases.CHARACTER_CASES)
+def test_character_kernel_hard_cases(case):
+    """KL against its twin at every update of kernels/hard_cases.py's
+    character scenes (the stair walk landing at its first, eighth and ninth
+    depth and at none, the forward column, stick-to-floor at each offset, 4
+    m cells, a trimesh step), each update from the twin's state: flags and
+    the touched list exact, the rest within 1e-6 of scale; the twin takes
+    the scene's branch at its update; a CPU tensor among CUDA ones raises."""
+    from substrata_tpu_torch.kernels import character as kl
+    from substrata_tpu_torch.physics import character as tchar
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = hard_cases.character_scene(case)
+    world = hard_cases.character_world(scene, "cuda")
+    body, cfg, stw = world.state, world.config, world.static_world
+    table = broadphase.build_cell_table(body, cfg)[0]
+    os_idx = queries.oversize_slots(body, cfg)
+    kw = dict(cell_size=cfg.cell_size, grid_dim=cfg.grid_dim, trimesh=stw.trimesh)
+    st = tchar.init_character_state(scene.eye, device="cuda").replace(
+        gravity_enabled=torch.ones((), dtype=torch.bool, device="cuda"))
+    for i in range(scene.updates):
+        scal = torch.as_tensor(tchar.tick_scalars(DT, np.array(scene.move, np.float32), False,
+                                                  False, False, -1), device="cuda")
+        args = ({f: getattr(st, f) for f in tchar.CHARACTER_FIELDS}, body, stw.heightfield,
+                stw.has_heightfield, world.params.water_z, table, os_idx, scal)
+        nk, pk = kl.character_packed(*args, **kw)
+        (npl, pp), seen = hard_cases.observe_branches(
+            lambda: kl.character_packed_plain(*args, **kw))
+        torch.cuda.synchronize()
+        assert torch.equal(pk[15:], pp[15:]) and torch.equal(pk[4:6], pp[4:6]), i
+        assert float((pk - pp).abs().max()) <= 1e-6 * max(1.0, float(pp.abs().max())), i
+        for f in kl.STATE_FIELDS:
+            assert float((nk[f].float() - npl[f].float()).abs().max()) <= 1e-6, (i, f)
+        if i == scene.at and scene.branch is not None:
+            assert seen.get(scene.branch[0], "absent") == scene.branch[1], (i, seen)
+        st = tchar.CharacterState(**npl)
+    with pytest.raises(ValueError):
+        kl.character_packed(*args[:5], table.cpu(), *args[6:], **kw)
 
 
 def test_serving_io_kernels_match_plain():
