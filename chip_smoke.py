@@ -10,7 +10,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    kernel (KA box-box, KB ground contacts, KC contact solve, KD forces and
    integration) against its plain PyTorch twin on the same inputs, with
    the tolerance stated beside it, and both timed (CUDA events around 20
-   back-to-back calls, median of 5 rounds);
+   back-to-back calls, median of 5 rounds; KB also with its device µs per
+   launch and its wrapper's host µs per call);
 4. small worlds: the five-box stack rests at its analytic heights on the
    card, and a 200-box world steps on the card as the CPU path does
    (the CPU path is the one the tests hold against the JAX reference);
@@ -77,9 +78,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    occlusion rays and 2,048 seeded rays into the field, KL at t = 0, 1,
    2 s of the walk on the mesh world and on a trimesh step, each against
    its plain twin with the tolerance stated beside it, timed as in phase
-   3, KH and KL with their wrappers' host µs per call (the mesh world:
+   3, KB, KH and KL with their wrappers' host µs per call (the mesh world:
    tools/bench_networked.py's 12,000 unit cubes, 512
-   dynamic hulls over 137,856 static triangles on virtual anchors);
+   dynamic hulls over 137,856 static triangles on virtual anchors); KB
+   also on kernels/hard_cases.py's static-contact scenes at K = 1, 4, 8;
 13. the mesh world's client frames: 180 benchworld.mesh_tick calls
    (think_with_player of the walking player, then one occlusion ray per
    dynamic hull); the state finite, contacts > 0, KO, KB, KH, KL, KM and
@@ -120,7 +122,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 16. the terrain, spawn and pose kernels: KW, KX, KY and KZ against their
    twins (see terrain_kernel_phase); KW's heights-only call timed beside
    grid_sample's bilinear heights at the same 65,536 points (ms, device µs
-   and host µs of each), heights and normals apart;
+   and host µs of each, and KW's ms over grid_sample's), heights and
+   normals apart, and the clamp's one point (ms, device and host µs);
 17. 180 benchworld.terrain_tick frames of BASELINE config 4 (see
    terrain_phase) and a small terrain world against the CPU path;
 18. KAA (the audio mix's per-source setup and epilogue) on bench.py's
@@ -400,12 +403,15 @@ def kernel_phase(w):
     kb_in = [getattr(body, k) for k in ("pos", "quat", "shape_type", "shape_params", "alive",
                                         "layer", "motion_type", "is_sensor", "awake",
                                         "friction", "restitution")]
+    def kb_run():
+        return kb.static_contacts(*kb_args)
     results["static_contacts"] = dict(
         max_abs_err=err, tol=1e-5, valid_rows=int(sp[5].sum()),
         **bound(nbytes(kb_in, hf.heights, hf.origin, hf.cell_w, has_hf, sk),
                 FLOPS["static_contacts"] * n),
         near_threshold_bodies=int(near_b.sum()),
-        ms=median_ms(lambda: kb.static_contacts(*kb_args)),
+        ms=median_ms(kb_run), device_us_per_launch=device_us(kb_run, "static_contacts"),
+        **host_cost(kb_run),
         plain_ms=median_ms(lambda: kb.static_contacts_plain(*kb_args)))
 
     # KC: warm-start pre-apply + 7 iterations from the same setup.
@@ -1609,6 +1615,30 @@ def _kb_work(args, rows):
     return bound(moved, FLOPS["static_contacts"] * n + FLOPS["tri_test"] * tests), tests
 
 
+def kb_hard_cases(device="cuda"):
+    """KB against its twin on kernels/hard_cases.py's static-contact scenes
+    at K = 1, 4 and 8: a, b, valid and key exact, points, normals and depths
+    within 1e-5 on the valid rows."""
+    from substrata_tpu_torch.kernels import hard_cases
+    from substrata_tpu_torch.kernels import static_contacts as kb
+    out = {}
+    for case in hard_cases.STATIC_CASES:
+        scene = hard_cases.static_scene(case)
+        errs, valid = [], 0
+        for k in hard_cases.STATIC_KS:
+            args = hard_cases.static_inputs(scene, k, device)
+            sk, sp = kb.static_contacts(*args), kb.static_contacts_plain(*args)
+            for i, name in ((0, "a"), (1, "b"), (5, "valid"), (8, "key")):
+                check(torch.equal(sk[i], sp[i]), f"KB hard case {case} (K = {k}): {name} differs")
+            err = max(max_err(sk[i], sp[i], sp[5]) for i in (2, 3, 4))
+            check(err <= 1e-5, f"KB hard case {case} (K = {k}): max abs err {err} > 1e-5")
+            errs.append(err)
+            valid += int(sp[5].sum())
+        check(valid > 0, f"KB hard case {case}: no valid row")
+        out[case] = dict(max_abs_err=max(errs), valid_rows=valid)
+    return out
+
+
 def mesh_ray_bound(args, kw, outs):
     """KH's bound with the hull and trimesh branches: ray_bound's bytes and
     operations, plus the face planes of the hull survivors (16 bytes and 20
@@ -1776,12 +1806,18 @@ def mesh_kernel_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None, 
     err = max(max_err(sk[i], sp[i], sp[5]) for i in (2, 3, 4))
     check(err <= 1e-5, f"KB (mesh world): max abs err {err} > 1e-5")
     b, tests = _kb_work(kb_args, sk)
+
+    def kb_run():
+        return kb.static_contacts(*kb_args)
     results["static_contacts_mesh"] = dict(
         max_abs_err=err, tol=1e-5, valid_rows=int(sp[5].sum()),
         trimesh_rows=int((sp[5] & (sp[3][:, 2].abs() < 0.999)).sum()), triangle_tests=tests, **b,
-        ms=median_ms(lambda: kb.static_contacts(*kb_args)),
-        device_us_per_launch=device_us(lambda: kb.static_contacts(*kb_args), "static_contacts"),
-        plain_ms=median_ms(lambda: kb.static_contacts_plain(*kb_args), reps=plain_reps))
+        eligible_bodies=int((body.alive & body.collidable & body.dynamic & ~body.is_sensor
+                             & body.awake).sum()),
+        ms=median_ms(kb_run), device_us_per_launch=device_us(kb_run, "static_contacts"),
+        **host_cost(kb_run),
+        plain_ms=median_ms(lambda: kb.static_contacts_plain(*kb_args), reps=plain_reps),
+        hard_cases=kb_hard_cases(device))
 
     # KH on the occlusion rays and on 2,048 seeded rays into the field:
     # hit, body (owner) and material exact, t and normal within 1e-6.
@@ -2809,10 +2845,14 @@ def terrain_kernel_phase(device="cuda", res=None, n_points=65_536, n_avatars=64,
             ms=median_ms(with_normals), device_us=device_us(with_normals, "heights_kernel"),
             plain_ms=median_ms(lambda: kt.terrain_heights_plain(*field, xy, True),
                                reps=plain_reps)))
+    kw_h = out["terrain_heights"]
+    kw_h["ms_over_library_ms"] = kw_h["ms"] / kw_h["library_ms"]
     one = xy[:1].contiguous()
+
+    def clamp():
+        return kt.terrain_heights(*field, one)
     out["terrain_heights"]["clamp_query"] = dict(
-        ms=median_ms(lambda: kt.terrain_heights(*field, one)),
-        device_us=device_us(lambda: kt.terrain_heights(*field, one), "heights_kernel"),
+        ms=median_ms(clamp), device_us=device_us(clamp, "heights_kernel"), **host_cost(clamp),
         **bound(40, kt.heights_flops(1, False)))
 
     # KW (b): every leaf a camera at the origin builds.
@@ -4433,6 +4473,12 @@ def main():
     for name, r in mk_res.items():
         log(f"# kernel {name}: {json.dumps(r)} | {smi}")
     kres["convex_rows"] = mk_res["convex_rows"]
+    # KB's line carries the bench world's shape (phase 3); its error is the
+    # largest of the bench world's, the mesh world's and the hard cases'.
+    kb_mesh = mk_res["static_contacts_mesh"]
+    kres["static_contacts"]["max_abs_err"] = max(
+        kres["static_contacts"]["max_abs_err"], kb_mesh["max_abs_err"],
+        *(r["max_abs_err"] for r in kb_mesh["hard_cases"].values()))
 
     me_res = mesh_phase()
     me_res.update(small_mesh_phase())

@@ -19,7 +19,10 @@
 //
 // What bounds them: latency at these sizes (a clamp query is one point; a
 // camera move builds a few dozen chunks of 289 vertices; a move's scatter
-// is 9 x 64 points, the start's 81 x 64).
+// is 9 x 64 points, the start's 81 x 64).  A heights call's time is its
+// wrapper's host work more than its device time, so the heights launcher
+// takes its arguments packed into one host buffer, the field's part fixed
+// once per field (kernels/terrain.py:_FieldPlan).
 #include "common.cuh"
 
 namespace {
@@ -205,13 +208,18 @@ __global__ void scatter_kernel(FieldArgs fa, const float* __restrict__ cells, in
 
 }  // namespace
 
-extern "C" int terrain_heights(const float* heights, const float* origin, const float* cell_w,
-                               const float* xy, int hx, int hy, int p, int with_normals,
-                               float* out, void* stream) {
+// ``a``: 9 slots of 8 bytes (kernels/terrain.py:_FIELD_PACK, _CALL_PACK) —
+// heights, origin, cell_w, HX, HY, then xy, P, with_normals, out.
+extern "C" int terrain_heights(const long long* a, void* stream) {
+  const int p = static_cast<int>(a[6]);
   if (p == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   heights_kernel<<<(p + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      FieldArgs{heights, origin, cell_w, hx, hy}, xy, p, with_normals, out);
+      FieldArgs{reinterpret_cast<const float*>(a[0]), reinterpret_cast<const float*>(a[1]),
+                reinterpret_cast<const float*>(a[2]), static_cast<int>(a[3]),
+                static_cast<int>(a[4])},
+      reinterpret_cast<const float*>(a[5]), p, static_cast<int>(a[7]),
+      reinterpret_cast<float*>(a[8]));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,8 +3,8 @@
 //
 // Each routine repeats, operation for operation, its plain twin:
 // closest_point_triangle is kernels/closed_forms.py:closest_point_triangle
-// (the reference: substrata_tpu/physics/narrowphase.py:870), sphere_vs_cell is
-// one sample of kernels/static_contacts.py:trimesh_sphere_rows
+// (the reference: substrata_tpu/physics/narrowphase.py:870), sphere_vs_tri
+// is one candidate of kernels/static_contacts.py:trimesh_sphere_rows
 // (narrowphase.py:944-976, character.py:204-227).
 #pragma once
 
@@ -24,7 +24,8 @@ __device__ __forceinline__ float safe_denom(float x) { return fabsf(x) > 1e-12f 
 
 __device__ __forceinline__ float clamp01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
 
-// Ericson 5.1.5, branch-free, in the twin's order of selections.
+// Ericson 5.1.5, branch-free, in the twin's order of selections, with the
+// jitted reference's contractions (the twin's fp.fma calls).
 __device__ inline void closest_point_triangle(const float p[3], const float v0[3],
                                               const float v1[3], const float v2[3],
                                               float res[3]) {
@@ -40,14 +41,14 @@ __device__ inline void closest_point_triangle(const float p[3], const float v0[3
   const float d1 = dot3(ab, ap), d2 = dot3(ac, ap);
   const float d3 = dot3(ab, bp), d4 = dot3(ac, bp);
   const float d5 = dot3(ab, cp), d6 = dot3(ac, cp);
-  const float va = d3 * d6 - d5 * d4;
-  const float vb = d5 * d2 - d1 * d6;
-  const float vc = d1 * d4 - d3 * d2;
+  const float va = __fmaf_rn(d3, d6, -(d5 * d4));
+  const float vb = __fmaf_rn(d5, d2, -(d1 * d6));
+  const float vc = __fmaf_rn(d1, d4, -(d3 * d2));
   const float denom = va + vb + vc;
   const float v = vb / safe_denom(denom);
   const float w = vc / safe_denom(denom);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) res[k] = v0[k] + ab[k] * v + ac[k] * w;
+  for (int k = 0; k < 3; ++k) res[k] = __fmaf_rn(ac[k], w, __fmaf_rn(ab[k], v, v0[k]));
   if (d1 <= 0.0f && d2 <= 0.0f) {
 #pragma unroll
     for (int k = 0; k < 3; ++k) res[k] = v0[k];
@@ -63,17 +64,17 @@ __device__ inline void closest_point_triangle(const float p[3], const float v0[3
   const float t_ab = clamp01(d1 / safe_denom(d1 - d3));
   if (vc <= 0.0f && d1 >= 0.0f && d3 <= 0.0f) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) res[k] = v0[k] + t_ab * ab[k];
+    for (int k = 0; k < 3; ++k) res[k] = __fmaf_rn(t_ab, ab[k], v0[k]);
   }
   const float t_ac = clamp01(d2 / safe_denom(d2 - d6));
   if (vb <= 0.0f && d2 >= 0.0f && d6 <= 0.0f) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) res[k] = v0[k] + t_ac * ac[k];
+    for (int k = 0; k < 3; ++k) res[k] = __fmaf_rn(t_ac, ac[k], v0[k]);
   }
   const float t_bc = clamp01((d4 - d3) / safe_denom((d4 - d3) + (d5 - d6)));
   if (va <= 0.0f && d4 - d3 >= 0.0f && d5 - d6 >= 0.0f) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) res[k] = v1[k] + t_bc * (v2[k] - v1[k]);
+    for (int k = 0; k < 3; ++k) res[k] = __fmaf_rn(t_bc, v2[k] - v1[k], v1[k]);
   }
 }
 
@@ -90,15 +91,14 @@ __device__ __forceinline__ void load_vert(const TriMeshView& tm, int v, float o[
   o[2] = tm.verts[3 * v + 2];
 }
 
-// A sphere (centre p, radius rad) against triangle t: returns the depth
-// (rad - signed distance) and gives the closest point and the contact normal
-// (the offset's direction outside the face, else the face normal).
-__device__ inline float sphere_vs_tri(const TriMeshView& tm, const float p[3], float rad, int t,
-                                      float pt[3], float n[3]) {
-  float v0[3], v1[3], v2[3], cp[3], e1[3], e2[3], cr[3], tn[3], delta[3], rel[3];
-  load_vert(tm, tm.tris[3 * t], v0);
-  load_vert(tm, tm.tris[3 * t + 1], v1);
-  load_vert(tm, tm.tris[3 * t + 2], v2);
+// A sphere (centre p, radius rad) against the triangle (v0, v1, v2):
+// returns the depth (rad - signed distance) and gives the closest point and
+// the contact normal (the offset's direction outside the face, else the face
+// normal).
+__device__ inline float sphere_vs_tri_verts(const float p[3], float rad, const float v0[3],
+                                            const float v1[3], const float v2[3], float pt[3],
+                                            float n[3]) {
+  float cp[3], e1[3], e2[3], cr[3], tn[3], delta[3], rel[3];
   closest_point_triangle(p, v0, v1, v2, cp);
 #pragma unroll
   for (int q = 0; q < 3; ++q) {
@@ -122,30 +122,14 @@ __device__ inline float sphere_vs_tri(const TriMeshView& tm, const float p[3], f
   return rad - sdist;
 }
 
-// A sphere against the first k triangles of its cell: the deepest first on
-// ties, its closest point and normal; returns false when the cell has no
-// triangle.  Empty slots (-1) form a suffix of each cell's list (the host
-// build fills slots in order), so the scan stops at the first.
-__device__ inline bool sphere_vs_cell(const TriMeshView& tm, const float p[3], float rad, int k,
-                                      float& best_pen, float best_pt[3], float best_n[3]) {
-  const int base = tri_cell(tm, p[0], p[1]);
-  bool any = false;
-  for (int c = 0; c < k; ++c) {
-    const int t = tm.cell_tris[base + c];
-    if (t < 0) break;
-    float pt[3], n[3];
-    const float pen = sphere_vs_tri(tm, p, rad, t, pt, n);
-    if (!any || pen > best_pen) {
-      any = true;
-      best_pen = pen;
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        best_pt[q] = pt[q];
-        best_n[q] = n[q];
-      }
-    }
-  }
-  return any;
+// The same against triangle t of the mesh.
+__device__ inline float sphere_vs_tri(const TriMeshView& tm, const float p[3], float rad, int t,
+                                      float pt[3], float n[3]) {
+  float v0[3], v1[3], v2[3];
+  load_vert(tm, tm.tris[3 * t], v0);
+  load_vert(tm, tm.tris[3 * t + 1], v1);
+  load_vert(tm, tm.tris[3 * t + 2], v2);
+  return sphere_vs_tri_verts(p, rad, v0, v1, v2, pt, n);
 }
 
 }  // namespace sbt

@@ -47,13 +47,14 @@ SIGNATURES = {
     # pair_a, pair_b, pair_valid, pos, quat, params, fric, rest, sensor,
     # P, out a, b, point, normal, pen, valid, fric, rest, key, touch, stream
     "box_box_rows": [P] * 9 + [I] + [P] * 10 + [P],
+    # one host buffer of 8-byte slots (kernels/static_contacts.py:_PACK:
     # pos, quat, shape_type, shape_params, alive, layer, motion, sensor,
     # awake, fric, rest, heights, hf_origin, hf_cell_w, has_hf, hull verts,
     # hull n_verts, tri verts, tris, cell_tris, tri origin, tri cell_w, N,
     # HX, HY, flags (bit 0 = flat, bits 1-4 = present shape types, bit 5 =
     # trimesh), K, H, max hull verts, GX, GY, cell cap, candidates, out a,
-    # b, point, normal, pen, valid, fric, rest, key, stream
-    "static_contacts": [P] * 22 + [I] * 11 + [P] * 9 + [P],
+    # b, point, normal, pen, valid, fric, rest, key), stream
+    "static_contacts": [P, P],
     # static rows (dir, ang, r, k, target, fric, valid, y, l), pair rows
     # (dir, ang_a, ang_b, ra, rb, k, target, fric, valid, ab, y, l),
     # linvel, angvel, out (s_y, s_l, p_y, p_l, dlin_s, dang_s, block),
@@ -165,8 +166,10 @@ SIGNATURES = {
     # override_mask, post_mask; parent, depth, joint_slot, joint_finger,
     # grab_quats, n_half; rest_scale, inverse_bind; A, J, S, n_levels; out,
     # stream
-    # heights, origin, cell_w, xy, HX, HY, P, with_normals, out, stream
-    "terrain_heights": [P] * 4 + [I] * 4 + [P] + [P],
+    # one host buffer of 8-byte slots (kernels/terrain.py:_FIELD_PACK and
+    # _CALL_PACK: heights, origin, cell_w, HX, HY, xy, P, with_normals,
+    # out), stream
+    "terrain_heights": [P, P],
     # heights, origin, cell_w, leaf_origin, leaf_width, HX, HY, L, res,
     # 1 / res, out, stream
     "terrain_chunks": [P] * 5 + [I] * 4 + [F] + [P] + [P],

@@ -187,18 +187,19 @@ def capsule_box(pc, qc, rc, hc, pb, qb, he, with_gap: bool = False):
 
 def closest_point_triangle(p, v0, v1, v2):
     """Closest point on triangle (v0, v1, v2) to p (Ericson 5.1.5,
-    branch-free; narrowphase.py:870).  The static trimesh is slice 3's:
-    until then the character's three trimesh rows are empty and nothing on
-    the tick calls this."""
+    branch-free; narrowphase.py:870), rounded as the jitted reference
+    contracts it: each of va, vb, vc one fma (its first product fused), the
+    interior point two fmas, each edge point one.  KB's and KL's trimesh
+    rows call it."""
     ab, ac, ap = v1 - v0, v2 - v0, p - v0
     d1, d2 = quatm.dot3(ab, ap), quatm.dot3(ac, ap)
     bp = p - v1
     d3, d4 = quatm.dot3(ab, bp), quatm.dot3(ac, bp)
     cp = p - v2
     d5, d6 = quatm.dot3(ab, cp), quatm.dot3(ac, cp)
-    va = d3 * d6 - d5 * d4
-    vb = d5 * d2 - d1 * d6
-    vc = d1 * d4 - d3 * d2
+    va = fp.fma(d3, d6, -(d5 * d4))
+    vb = fp.fma(d5, d2, -(d1 * d6))
+    vc = fp.fma(d1, d4, -(d3 * d2))
     denom = va + vb + vc
 
     def safe(x):
@@ -206,7 +207,7 @@ def closest_point_triangle(p, v0, v1, v2):
 
     v = vb / safe(denom)
     w = vc / safe(denom)
-    res = v0 + ab * v[..., None] + ac * w[..., None]
+    res = fp.fma(ac, w[..., None], fp.fma(ab, v[..., None], v0))
 
     def pick(mask, value):
         return torch.where(mask[..., None], value, res)
@@ -215,11 +216,12 @@ def closest_point_triangle(p, v0, v1, v2):
     res = pick((d3 >= 0) & (d4 <= d3), v1)
     res = pick((d6 >= 0) & (d5 <= d6), v2)
     t_ab = torch.clamp(d1 / safe(d1 - d3), 0, 1)
-    res = pick((vc <= 0) & (d1 >= 0) & (d3 <= 0), v0 + t_ab[..., None] * ab)
+    res = pick((vc <= 0) & (d1 >= 0) & (d3 <= 0), fp.fma(t_ab[..., None], ab, v0))
     t_ac = torch.clamp(d2 / safe(d2 - d6), 0, 1)
-    res = pick((vb <= 0) & (d2 >= 0) & (d6 <= 0), v0 + t_ac[..., None] * ac)
+    res = pick((vb <= 0) & (d2 >= 0) & (d6 <= 0), fp.fma(t_ac[..., None], ac, v0))
     t_bc = torch.clamp((d4 - d3) / safe((d4 - d3) + (d5 - d6)), 0, 1)
-    res = pick((va <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0), v1 + t_bc[..., None] * (v2 - v1))
+    res = pick((va <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0),
+               fp.fma(t_bc[..., None], v2 - v1, v1))
     return res
 
 

@@ -1,5 +1,6 @@
 """Hard inputs for the two stable counting sorts (KP's cell table and KT's
-grouping), for KH's ray trace and for KL's character update.
+grouping), for KH's ray trace, for KL's character update and for KB's
+static contacts.
 
 For the sorts, these are the inputs where a bucket or a code's slice
 fills, so the order of ties decides who is dropped, and where nothing is
@@ -10,10 +11,15 @@ triangles.  For the character: scenes whose chosen update lands the stair
 walk at the first, a late and the last of its 9 depths and at none, takes
 the forward test column, and sticks to the floor at each of its 3
 offsets, with 3 gather centres (1.4 m cells) and 2 (4 m), and a trimesh
-step.  The CPU tests hold the twins against the reference on them at a
-small size; ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` hold the
-kernels against the twins on them.  Everything is numpy, made from a seed;
-slot order is shuffled so that index order is not space order.
+step.  For the static contacts: the tie rules (equal depths across
+candidate slots, against the heightfield, across samples; hull support
+ties), a cell list cut by the candidate count, empty cells, cell
+boundaries to the ulp, samples outside the grid and behind a far plane,
+ineligible bodies and the present shape types.  The CPU tests hold the
+twins against the reference on them at a small size;
+``tests/test_torch_gpu.py`` and ``chip_smoke.py`` hold the kernels against
+the twins on them.  Everything is numpy, made from a seed; slot order is
+shuffled so that index order is not space order.
 """
 
 from __future__ import annotations
@@ -486,3 +492,319 @@ def observe_branches(update):
         _, flat = scan(*three[0])
         info["stick"] = int(torch.argmax(flat.to(torch.int32))) if bool(flat.any()) else None
     return result, info
+
+
+# ---------------------------------------------------------------------------
+# KB: static-contact scenes.
+# ---------------------------------------------------------------------------
+
+STATIC_CASES = ("equal_depths", "full_cell", "empty_cell", "cell_boundary", "outside_grid",
+                "behind_plane", "ineligible", "mixed_present", "present_subset", "ring_ties")
+STATIC_KS = (1, 4, 8)
+_HULL_ROWS, _HULL_VERTS = 4, 32
+
+
+@dataclasses.dataclass
+class StaticScene:
+    """Bodies (numpy BodyState fields, the port's BODY_FIELDS), the static
+    world as ``convert.static_world_from_numpy`` takes it (the heightfield,
+    the trimesh with its grid built here, the hull library), the present
+    shape types and the trimesh candidates a sample reads."""
+    bodies: dict
+    world: dict
+    present: tuple = (True, True, True, True)
+    max_tri_candidates: int = 16
+
+
+def _tri_grid(verts, tris, origin, cell_w, gx, gy, cap):
+    """``trimesh_grid``'s fill rule over a chosen grid: each triangle in
+    every cell its xy bounding box covers (cell indices truncated, then
+    clamped), in triangle order, the first ``cap`` of a cell kept, so that
+    a cell's empty slots (-1) form a suffix."""
+    ox, oy, cw = np.float32(origin[0]), np.float32(origin[1]), np.float32(cell_w)
+    cell_tris = np.full((gx, gy, cap), -1, np.int32)
+    count = np.zeros((gx, gy), np.int64)
+    for t, tri in enumerate(tris):
+        p = verts[tri]
+        lo = ((p[:, :2].min(axis=0) - (ox, oy)) / cw).astype(np.int32)
+        hi = ((p[:, :2].max(axis=0) - (ox, oy)) / cw).astype(np.int32)
+        for ci in range(max(lo[0], 0), min(hi[0], gx - 1) + 1):
+            for cj in range(max(lo[1], 0), min(hi[1], gy - 1) + 1):
+                if count[ci, cj] < cap:
+                    cell_tris[ci, cj, count[ci, cj]] = t
+                count[ci, cj] += 1
+    return cell_tris
+
+
+def _static_world(tri=None, grid=None, ground_z=0.0, heightfield=None, hulls=()):
+    """The ``static_world_from_numpy`` arrays: a flat ground at ``ground_z``
+    (None: no heightfield) or ``heightfield`` (heights, origin, cell width);
+    the trimesh (verts, tris) over ``grid`` (origin, cell width, GX, GY,
+    cap); a hull library of ``_HULL_ROWS`` rows, ``hulls``' vertex lists
+    padded with their first vertex (KB reads no face plane)."""
+    if heightfield is not None:
+        h, origin, cw = heightfield
+        w = dict(heights=np.asarray(h, np.float32), origin=np.asarray(origin, np.float32),
+                 cell_w=np.float32(cw), is_flat=False, has_heightfield=np.bool_(True))
+    else:
+        z = 0.0 if ground_z is None else ground_z
+        w = dict(heights=np.full((8, 8), z, np.float32),
+                 origin=np.array([-500.0, -500.0], np.float32),
+                 cell_w=np.float32(1000.0 / 7), is_flat=True,
+                 has_heightfield=np.bool_(ground_z is not None))
+    w["water_z"] = np.float32(-1e10)
+    if tri is not None:
+        verts, tris = (np.ascontiguousarray(x, dt) for x, dt in zip(tri, (np.float32, np.int32)))
+        origin, cw, gx, gy, cap = grid
+        w["trimesh"] = dict(verts=verts, tris=tris, tri_mats=np.zeros(len(tris), np.int32),
+                            tri_owner=np.full(len(tris), -1, np.int32),
+                            cell_tris=_tri_grid(verts, tris, origin, cw, gx, gy, cap),
+                            origin=np.asarray(origin, np.float32), cell_w=np.float32(cw),
+                            n_tris=np.int32(len(tris)))
+    hv = np.zeros((_HULL_ROWS, _HULL_VERTS, 3), np.float32)
+    nv = np.zeros(_HULL_ROWS, np.int32)
+    for h, cloud in enumerate(hulls):
+        cloud = np.asarray(cloud, np.float32)
+        hv[h] = cloud[0]
+        hv[h, :len(cloud)] = cloud
+        nv[h] = len(cloud)
+    w["hulls"] = dict(verts=hv, n_verts=nv,
+                      planes=np.zeros((_HULL_ROWS, _HULL_VERTS, 4), np.float32),
+                      n_faces=np.zeros(_HULL_ROWS, np.int32))
+    return w
+
+
+def _static_bodies(rows, capacity=32, seed=0):
+    """BodyState fields of ``rows``, each a dict with st, prm, pos and
+    optionally quat, motion (default dynamic), layer (moving), awake,
+    sensor, alive; friction and restitution seeded; the slots past them
+    dead."""
+    from substrata_tpu_torch.physics import state
+    rng = np.random.default_rng(seed)
+    a = {k: v.numpy().copy() for k, v in vars(state.zero_body_state(capacity, device="cpu")).items()}
+    for i, r in enumerate(rows):
+        a["pos"][i] = r["pos"]
+        a["quat"][i] = r.get("quat", (0.0, 0.0, 0.0, 1.0))
+        a["shape_type"][i] = r["st"]
+        a["shape_params"][i] = list(r["prm"]) + [0.0] * (4 - len(r["prm"]))
+        a["motion_type"][i] = r.get("motion", 2)
+        a["layer"][i] = r.get("layer", 1)
+        a["awake"][i] = r.get("awake", True)
+        a["is_sensor"][i] = r.get("sensor", False)
+        a["alive"][i] = r.get("alive", True)
+        a["friction"][i] = rng.uniform(0.2, 0.9)
+        a["restitution"][i] = rng.uniform(0.0, 0.5)
+        a["bound_radius"][i] = 1.0
+    return {k: np.ascontiguousarray(v) for k, v in a.items()}
+
+
+def _sphere(x, y, z, r, **kw):
+    return dict(st=0, prm=[r], pos=(x, y, z), **kw)
+
+
+def _box(x, y, z, he, **kw):
+    return dict(st=1, prm=list(he), pos=(x, y, z), **kw)
+
+
+def _flat_tri(x0, y0, x1, y1, z):
+    """A horizontal right triangle over [x0, x1] x [y0, y1] at height z,
+    wound so that its normal is +z."""
+    return [[x0, y0, z], [x1, y0, z], [x0, y1, z]]
+
+
+def _quat(axis, deg):
+    h = np.radians(deg) / 2
+    return tuple(np.append(np.asarray(axis, np.float64) * np.sin(h), np.cos(h)).astype(np.float32))
+
+
+def _tris_of(*triangles):
+    verts = np.asarray([v for t in triangles for v in t], np.float32)
+    return verts, np.arange(len(verts), dtype=np.int32).reshape(-1, 3)
+
+
+def static_scene(case: str, seed: int = 0) -> StaticScene:
+    """The inputs of one hard static-contact case:
+
+    - ``equal_depths``: two coplanar triangles sharing an edge with spheres
+      on it, above and below (equal depths: the lower candidate slot); two
+      mirrored triangles whose closest points are at exactly equal distance
+      from a sphere (the tie decides the point); a ground-level triangle
+      whose row ties the heightfield's (the heightfield row stays); a box
+      resting exactly on the ground (four samples tied at depth 0);
+    - ``full_cell``: 40 triangles in one cell of capacity 32, read 16 at a
+      time: the deepest at slots 20 and 36 (neither read);
+    - ``empty_cell``: a bumpy heightfield and a 4 x 4 grid whose cells hold
+      0 or a few triangles (capacity 6, all 6 read);
+    - ``cell_boundary``: 1.4 m cells from (-7, -7), a triangle per cell at
+      0 or 0.2 m in a checkerboard; spheres at the float32 cell boundaries
+      and one ulp either side, in x and in y (5 candidates read);
+    - ``outside_grid``: spheres past every edge of the grid, near and far
+      (the clamped cell), and beside a wall triangle on the grid's edge, in
+      front of it and behind it;
+    - ``behind_plane``: a ramp, with samples behind its plane beyond its
+      edges (the reference's sign rule: deep) and in front of it;
+    - ``ineligible``: asleep, sensor, static, kinematic, layer-2, layer-3
+      and dead boxes over triangles beside eligible ones;
+    - ``mixed_present``: boxes, capsules, spheres and hulls at seeded poses
+      over a seeded terrain of triangles and a bumpy heightfield;
+    - ``present_subset``: boxes and hulls only, with only those two shape
+      types present;
+    - ``ring_ties``: a cube, an octahedron, a hull whose list repeats a
+      vertex and a 32-vertex prism, upright and turned by 180 and 90
+      degrees, resting on a triangle floor: ring directions tie on two
+      vertices (the first wins), and samples tie at depth 0.
+    """
+    rng = np.random.default_rng(seed)
+    if case == "equal_depths":
+        cx, cy = -6.0, -6.0
+        verts, tris = _tris_of(
+            [[2, 2, 0.5], [4, 2, 0.5], [2, 4, 0.5]], [[4, 2, 0.5], [4, 4, 0.5], [2, 4, 0.5]],
+            [[cx + 1, cy - 1, 0.25], [cx + 1, cy + 1, 0.25], [cx + 3, cy, 0.25]],
+            [[cx - 1, cy + 1, 0.25], [cx - 1, cy - 1, 0.25], [cx - 3, cy, 0.25]],
+            _flat_tri(6, -6, 8, -4, 0.0))
+        rows = [_sphere(3.0, 3.0, 0.625, 0.25), _sphere(3.0, 3.0, 0.375, 0.25),
+                _sphere(3.5, 2.5, 0.6, 0.2), _sphere(cx, cy, 1.25, 0.25),
+                _sphere(cx, cy, 0.75, 0.25), _sphere(6.5, -5.5, 0.125, 0.25),
+                _box(7.0, -5.5, 0.0625, (0.25, 0.25, 0.0625)), _box(-7.0, 7.0, 0.5, (0.5, 0.5, 0.5)),
+                dict(st=2, prm=[0.25, 0.5], pos=(3.0, 3.0, 0.625), quat=_quat((1, 0, 0), 90))]
+        return StaticScene(_static_bodies(rows, seed=seed), _static_world(
+            (verts, tris), ((-8.0, -8.0), 4.0, 4, 4, 32)))
+    if case == "full_cell":
+        tri = []
+        for j in range(40):
+            x, y = rng.uniform(0.5, 2.5, 2)
+            z = 0.6 if j in (20, 36) else 0.05 + 0.005 * j
+            tri.append(_flat_tri(x, y, x + 1.2, y + 1.2, z))
+        verts, tris = _tris_of(*tri)
+        rows = [_box(x, y, 0.3, (0.3, 0.25, 0.2), quat=_quat(rng.normal(size=3), 20))
+                for x, y in rng.uniform(1.0, 3.0, (10, 2))]
+        rows += [_sphere(x, y, 0.35, 0.2) for x, y in rng.uniform(1.0, 3.0, (6, 2))]
+        return StaticScene(_static_bodies(rows, seed=seed), _static_world(
+            (verts, tris), ((0.0, 0.0), 4.0, 2, 2, 32)), max_tri_candidates=16)
+    if case == "empty_cell":
+        tri = []
+        for ci, cj, n in ((0, 0, 3), (1, 2, 1), (2, 1, 6), (3, 3, 2)):
+            for _ in range(n):
+                x, y = -4.0 + 2 * ci + rng.uniform(0.1, 1.0), -4.0 + 2 * cj + rng.uniform(0.1, 1.0)
+                tri.append(_flat_tri(x, y, x + 0.8, y + 0.8, rng.uniform(0.0, 0.3)))
+        verts, tris = _tris_of(*tri)
+        h = rng.uniform(-0.1, 0.15, (9, 9)).astype(np.float32)
+        rows = []
+        for ci in range(4):
+            for cj in range(4):
+                x, y = -4.0 + 2 * ci + 0.9, -4.0 + 2 * cj + 0.9
+                rows.append(_box(x, y, 0.25, (0.3, 0.3, 0.2), quat=_quat(rng.normal(size=3), 15)))
+                rows.append(_sphere(x + 0.3, y - 0.4, 0.3, 0.25))
+        return StaticScene(_static_bodies(rows, seed=seed), _static_world(
+            (verts, tris), ((-4.0, -4.0), 2.0, 4, 4, 6), heightfield=(h, (-4.0, -4.0), 1.0)))
+    if case == "cell_boundary":
+        ox, cw = np.float32(-7.0), np.float32(1.4)
+        tri = []
+        for ci in range(10):
+            for cj in range(10):
+                x0, y0 = ox + ci * cw + np.float32(0.02), ox + cj * cw + np.float32(0.02)
+                z = 0.2 if (ci + cj) % 2 else 0.0
+                tri.append([[x0, y0, z], [x0 + 1.36, y0, z], [x0, y0 + 1.36, z]])
+                tri.append([[x0 + 1.36, y0, z], [x0 + 1.36, y0 + 1.36, z], [x0, y0 + 1.36, z]])
+        verts, tris = _tris_of(*tri)
+        rows = []
+        for k in (1, 3, 5, 8):
+            edge = np.float32(np.float32(k * cw) + ox)
+            for x in (np.nextafter(edge, np.float32(-np.inf)), edge,
+                      np.nextafter(edge, np.float32(np.inf))):
+                mid = np.float32(ox + (k - 0.5) * cw)
+                rows.append(_sphere(float(x), float(mid), 0.45, 0.3))
+                rows.append(_sphere(float(mid), float(x), 0.45, 0.3))
+        return StaticScene(_static_bodies(rows, seed=seed), _static_world(
+            (verts, tris), ((float(ox), float(ox)), float(cw), 10, 10, 8), ground_z=None),
+            max_tri_candidates=5)
+    if case == "outside_grid":
+        verts, tris = _tris_of(
+            [[0.0, 0.5, 0.0], [0.0, 1.5, 0.0], [0.0, 1.0, 1.0]],
+            [[0.0, 2.5, 0.0], [0.0, 3.0, 1.0], [0.0, 3.5, 0.0]],
+            _flat_tri(0.0, 4.0, 2.0, 6.0, 0.1), _flat_tri(6.0, 6.0, 8.0, 8.0, 0.1),
+            _flat_tri(6.0, 0.0, 8.0, 2.0, 0.1))
+        rows = [_sphere(-0.2, 1.0, 0.4, 0.3), _sphere(-0.2, 3.0, 0.4, 0.3),
+                _sphere(-1e-3, 5.0, 0.3, 0.25), _sphere(-50.0, 5.0, 0.3, 0.25),
+                _sphere(1.0, -0.05, 0.3, 0.25), _sphere(9.0, 7.0, 0.3, 0.25),
+                _sphere(7.0, 100.0, 0.3, 0.25), _sphere(8.05, 1.0, 0.3, 0.25),
+                _sphere(-3e3, -3e3, 0.3, 0.25),
+                _box(-0.15, 1.0, 0.5, (0.1, 0.3, 0.3), quat=_quat((0, 0, 1), 10))]
+        return StaticScene(_static_bodies(rows, seed=seed), _static_world(
+            (verts, tris), ((0.0, 0.0), 2.0, 4, 4, 8), ground_z=-0.5))
+    if case == "behind_plane":
+        verts, tris = _tris_of([[0.0, 0.0, 0.0], [4.0, 0.0, 2.0], [0.0, 4.0, 0.0]],
+                               [[4.0, 0.0, 2.0], [4.0, 4.0, 2.0], [0.0, 4.0, 0.0]])
+        rows = [_sphere(x, y, z, 0.2) for x, y, z in (
+            (5.0, 2.0, 1.0), (4.5, 1.0, 0.5), (6.0, 3.0, 0.2), (2.0, 2.0, 0.5), (2.0, 2.0, 1.3),
+            (3.0, 3.0, 1.6), (1.0, 1.0, 0.9), (7.5, 2.0, -2.0))]
+        rows += [_box(x, 2.0, z, (0.3, 0.3, 0.3), quat=_quat(rng.normal(size=3), 30))
+                 for x, z in ((4.8, 1.5), (2.0, 1.0), (3.0, 1.2))]
+        return StaticScene(_static_bodies(rows, seed=seed), _static_world(
+            (verts, tris), ((0.0, 0.0), 8.0, 1, 1, 8), ground_z=0.0), max_tri_candidates=2)
+    if case == "ineligible":
+        verts, tris = _tris_of(*[_flat_tri(x, y, x + 2.0, y + 2.0, 0.1)
+                                 for x in (0.0, 2.0, 4.0) for y in (0.0, 2.0)])
+        flags = (dict(awake=False), dict(sensor=True), dict(motion=0), dict(motion=1),
+                 dict(layer=2), dict(layer=3), dict(alive=False), dict(layer=0), {})
+        rows = []
+        for j, fl in enumerate(flags):
+            rows.append(_box(0.5 + 0.6 * j, 0.8, 0.25, (0.25, 0.2, 0.2),
+                             quat=_quat(rng.normal(size=3), 25), **fl))
+            rows.append(_sphere(0.5 + 0.6 * j, 2.8, 0.3, 0.25, **fl))
+        return StaticScene(_static_bodies(rows, seed=seed), _static_world(
+            (verts, tris), ((0.0, 0.0), 2.0, 3, 2, 8), ground_z=0.0))
+    if case in ("mixed_present", "present_subset", "ring_ties"):
+        cube = [[sx, sy, sz] for sx in (-0.5, 0.5) for sy in (-0.5, 0.5) for sz in (-0.5, 0.5)]
+        octa = [[0.6, 0, 0], [-0.6, 0, 0], [0, 0.6, 0], [0, -0.6, 0], [0, 0, 0.6], [0, 0, -0.6]]
+        repeat = cube[:4] + [cube[0]] + cube[4:]
+        ang = np.arange(16) * (2 * np.pi / 16)
+        prism = [[0.4 * np.cos(a), 0.4 * np.sin(a), z] for z in (-0.3, 0.3) for a in ang]
+        hulls = (cube, octa, repeat, prism)
+    if case in ("mixed_present", "present_subset"):
+        n = 12
+        xs = np.linspace(-6.0, 6.0, n + 1, dtype=np.float32)
+        gz = rng.uniform(-0.05, 0.35, (n + 1, n + 1)).astype(np.float32)
+        gv = np.array([[x, y, gz[i, j]] for i, x in enumerate(xs) for j, y in enumerate(xs)],
+                      np.float32)
+        q = np.arange(n * n)
+        v00 = (q // n) * (n + 1) + q % n
+        tris = np.concatenate([np.stack([v00, v00 + n + 1, v00 + n + 2], 1),
+                               np.stack([v00, v00 + n + 2, v00 + 1], 1)]).astype(np.int32)
+        types = (1, 3) if case == "present_subset" else (0, 1, 2, 3)
+        rows = []
+        for j in range(28):
+            st = types[j % len(types)]
+            prm = {0: [rng.uniform(0.2, 0.4)], 1: list(rng.uniform(0.15, 0.4, 3)),
+                   2: [rng.uniform(0.1, 0.25), rng.uniform(0.1, 0.3)],
+                   3: [j % 4, 0.5, 0.5, 0.5]}[st]
+            rows.append(dict(st=st, prm=prm, pos=(*rng.uniform(-5.5, 5.5, 2),
+                                                  rng.uniform(0.0, 0.9)),
+                             quat=_quat(rng.normal(size=3), rng.uniform(0, 180)),
+                             awake=j % 9 != 4))
+        h = rng.uniform(-0.2, 0.2, (7, 7)).astype(np.float32)
+        present = (False, True, False, True) if case == "present_subset" else (True,) * 4
+        return StaticScene(_static_bodies(rows, seed=seed), _static_world(
+            (gv, tris), ((-6.0, -6.0), 1.5, 8, 8, 32), heightfield=(h, (-6.0, -6.0), 2.0),
+            hulls=hulls), present=present)
+    if case != "ring_ties":
+        raise ValueError(f"unknown static case {case!r}")
+    verts, tris = _tris_of(_flat_tri(-6, -6, 6, 6, 0.0), [[6, -6, 0.0], [6, 6, 0.0], [-6, 6, 0.0]])
+    half = (0.5, 0.6, 0.5, 0.3)
+    turns = ((0.0, 0.0, 0.0, 1.0), (1.0, 0.0, 0.0, 0.0), (0.0, 1.0, 0.0, 0.0),
+             (0.0, 0.0, 1.0, 0.0), _quat((0, 0, 1), 90), _quat((1, 0, 0), 90))
+    rows = [dict(st=3, prm=[h, 0.5, 0.5, 0.5], pos=(-4.5 + 1.6 * t, -4.5 + 2.4 * h, half[h]),
+                 quat=turns[t]) for h in range(4) for t in range(6)]
+    return StaticScene(_static_bodies(rows, seed=seed), _static_world(
+        (verts, tris), ((-6.0, -6.0), 3.0, 4, 4, 8), ground_z=None, hulls=hulls),
+        present=(False, False, False, True))
+
+
+def static_inputs(scene: StaticScene, k: int, device):
+    """The port's ``static_contacts`` arguments for ``scene`` with K = ``k``
+    on ``device``."""
+    from substrata_tpu_torch import convert
+    body = convert.body_state_from_numpy(scene.bodies, device=device)
+    sw = convert.static_world_from_numpy(scene.world, device=device)
+    return (body, sw.heightfield, sw.has_heightfield, k, scene.present, sw.hulls, sw.trimesh,
+            scene.max_tri_candidates)

@@ -21,10 +21,14 @@ A trimesh of at most one triangle (the empty placeholder) is skipped, as
 the reference skips it at trace time (:986-990).
 
 ``static_contacts`` launches ``csrc/static_contacts.cu`` for CUDA tensors
-and runs ``static_contacts_plain`` for CPU tensors.
+and runs ``static_contacts_plain`` for CPU tensors.  Its plan holds the
+static world's tensors, checked once; a call checks the body fields and
+passes one packed argument.
 """
 
 from __future__ import annotations
+
+import struct
 
 import torch
 
@@ -196,56 +200,88 @@ def static_contacts_plain(body: BodyState, hf: Heightfield, has_heightfield,
             key_slot + 1)
 
 
+# The call's own tensors, in the launcher's order: the bodies' fields.
+_BODY_NAMES = ("pos", "quat", "shape_type", "shape_params", "alive", "layer", "motion_type",
+               "is_sensor", "awake", "friction", "restitution")
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+_BODY_DTYPES = (_F32, _F32, _I32, _F32, _BOOL, _I32, _I32, _BOOL, _BOOL, _F32, _F32)
+_STATIC_NAMES = ("heights", "origin", "cell_w", "has_heightfield", "hull_verts",
+                 "hull_n_verts", "tri_verts", "tris", "cell_tris", "tri_origin", "tri_cell_w")
+# The launcher's argument buffer: 11 body pointers, 11 static-world
+# pointers, 11 sizes, 9 output pointers (csrc/static_contacts.cu).
+_PACK = struct.Struct("=42q")
+# The output rows as views of one buffer: the 4-byte fields, then valid.
+_ROW_BYTES = (4, 4, 12, 12, 4, 4, 4, 4, 1)
+_MAX_PLANS = 8
+_plans: dict = {}
+
+
+class _Plan:
+    """What one static world and configuration fix for every call: the
+    static world's tensors (checked once, held so that their ids stay
+    theirs and their pointers valid), the launcher's constant pointers and
+    sizes, and the shapes of the call's body fields."""
+
+    def __init__(self, static, hf, hulls, trimesh, n, k, present, max_tri_candidates):
+        dev = static[0].device
+        hx, hy = hf.heights.shape
+        gx, gy, tcap = trimesh.cell_tris.shape
+        build.check_all(dev, static, _STATIC_NAMES, (
+            _F32, _F32, _F32, _BOOL, _F32, _I32, _F32, _I32, _I32, _F32, _F32), (
+            (hx, hy), (2,), (), (), (hulls.capacity, hulls.max_verts, 3), (hulls.capacity,),
+            (trimesh.verts.shape[0], 3), (trimesh.tris.shape[0], 3), (gx, gy, tcap), (2,), ()))
+        use_tm = trimesh.tris.shape[0] > 1
+        present_mask = sum(1 << i for i, on in enumerate(present) if on)
+        flags = (1 if hf.is_flat else 0) | (present_mask << 1) | ((1 << 5) if use_tm else 0)
+        self.static = static
+        self.device = dev
+        self.k = min(k, 8)
+        self.rows = n * self.k
+        self.body_shapes = ((n, 3), (n, 4), (n,), (n, 4), (n,), (n,), (n,), (n,), (n,), (n,),
+                            (n,))
+        self.ptrs = tuple(t.data_ptr() for t in static)
+        self.sizes = (n, hx, hy, flags, self.k, hulls.capacity, hulls.max_verts, gx, gy, tcap,
+                      min(tcap, max_tri_candidates))
+        self.split = [b * self.rows for b in _ROW_BYTES]
+
+
+def _plan(body, hf, has_heightfield, k, present, hulls, trimesh, max_tri_candidates):
+    static = (hf.heights, hf.origin, hf.cell_w, has_heightfield, hulls.verts, hulls.n_verts,
+              trimesh.verts, trimesh.tris, trimesh.cell_tris, trimesh.origin, trimesh.cell_w)
+    key = (tuple(map(id, static)), hf.is_flat, body.pos.shape[0], k, tuple(present),
+           max_tri_candidates)
+    plan = _plans.get(key)
+    if plan is None:
+        if len(_plans) >= _MAX_PLANS:
+            _plans.pop(next(iter(_plans)))
+        plan = _plans[key] = _Plan(static, hf, hulls, trimesh, body.pos.shape[0], k, present,
+                                   max_tri_candidates)
+    return plan
+
+
 def static_contacts(body: BodyState, hf: Heightfield, has_heightfield, k: int,
                     present, hulls: HullLibrary, trimesh: TriMesh,
                     max_tri_candidates: int = 16):
     """KB: ``static_contacts_plain`` for CPU tensors,
-    ``csrc/static_contacts.cu`` (one thread per body) for CUDA tensors."""
+    ``csrc/static_contacts.cu`` (a warp per eligible body over a trimesh, a
+    thread per body otherwise) for CUDA tensors.  The outputs are views of
+    one buffer."""
     global launches
     if body.device.type == "cpu":
         return static_contacts_plain(body, hf, has_heightfield, k, present, hulls, trimesh,
                                      max_tri_candidates)
-    dev = body.device
-    n = body.capacity
-    f32, i32, bl = torch.float32, torch.int32, torch.bool
-    for t, name, dt, shp in (
-            (body.pos, "pos", f32, (n, 3)), (body.quat, "quat", f32, (n, 4)),
-            (body.shape_type, "shape_type", i32, (n,)),
-            (body.shape_params, "shape_params", f32, (n, 4)),
-            (body.alive, "alive", bl, (n,)), (body.layer, "layer", i32, (n,)),
-            (body.motion_type, "motion_type", i32, (n,)),
-            (body.is_sensor, "is_sensor", bl, (n,)), (body.awake, "awake", bl, (n,)),
-            (body.friction, "friction", f32, (n,)),
-            (body.restitution, "restitution", f32, (n,)),
-            (hf.heights, "heights", f32, tuple(hf.heights.shape)),
-            (hf.origin, "origin", f32, (2,)), (hf.cell_w, "cell_w", f32, ()),
-            (has_heightfield, "has_heightfield", bl, ()),
-            (hulls.verts, "hull_verts", f32, (hulls.capacity, hulls.max_verts, 3)),
-            (hulls.n_verts, "hull_n_verts", i32, (hulls.capacity,)),
-            (trimesh.verts, "tri_verts", f32, (trimesh.verts.shape[0], 3)),
-            (trimesh.tris, "tris", i32, (trimesh.tris.shape[0], 3)),
-            (trimesh.cell_tris, "cell_tris", i32, tuple(trimesh.cell_tris.shape)),
-            (trimesh.origin, "tri_origin", f32, (2,)), (trimesh.cell_w, "tri_cell_w", f32, ())):
-        build.check(t, name, dt, shp, dev)
-    hx, hy = hf.heights.shape
-    gx, gy, tcap = trimesh.cell_tris.shape
-    use_tm = trimesh.tris.shape[0] > 1
-    kk = min(k, 8)
-    r = n * kk
-    out = (torch.empty(r, dtype=i32, device=dev), torch.empty(r, dtype=i32, device=dev),
-           torch.empty((r, 3), dtype=f32, device=dev),
-           torch.empty((r, 3), dtype=f32, device=dev),
-           torch.empty(r, dtype=f32, device=dev), torch.empty(r, dtype=bl, device=dev),
-           torch.empty(r, dtype=f32, device=dev), torch.empty(r, dtype=f32, device=dev),
-           torch.empty(r, dtype=i32, device=dev))
-    present_mask = sum(1 << i for i, on in enumerate(present) if on)
-    flags = (1 if hf.is_flat else 0) | (present_mask << 1) | ((1 << 5) if use_tm else 0)
-    build.launch("static_contacts", body.pos, body.quat, body.shape_type,
-                 body.shape_params, body.alive, body.layer, body.motion_type,
-                 body.is_sensor, body.awake, body.friction, body.restitution,
-                 hf.heights, hf.origin, hf.cell_w, has_heightfield, hulls.verts, hulls.n_verts,
-                 trimesh.verts, trimesh.tris, trimesh.cell_tris, trimesh.origin, trimesh.cell_w,
-                 n, hx, hy, flags, kk, hulls.capacity, hulls.max_verts, gx, gy, tcap,
-                 min(tcap, max_tri_candidates), *out)
+    plan = _plan(body, hf, has_heightfield, k, present, hulls, trimesh, max_tri_candidates)
+    dyn = (body.pos, body.quat, body.shape_type, body.shape_params, body.alive, body.layer,
+           body.motion_type, body.is_sensor, body.awake, body.friction, body.restitution)
+    build.check_all(plan.device, dyn, _BODY_NAMES, _BODY_DTYPES, plan.body_shapes)
+    r = plan.rows
+    buf = torch.empty(49 * r, dtype=torch.uint8, device=plan.device)
+    a, b, point, normal, pen, fr, re, key, valid = buf.split(plan.split)
+    out = (a.view(_I32), b.view(_I32), point.view(_F32).view(r, 3),
+           normal.view(_F32).view(r, 3), pen.view(_F32), valid.view(_BOOL), fr.view(_F32),
+           re.view(_F32), key.view(_I32))
+    build.launch_packed("static_contacts", _PACK.pack(*[t.data_ptr() for t in dyn], *plan.ptrs,
+                                                      *plan.sizes,
+                                                      *[t.data_ptr() for t in out]))
     launches += 1
     return out

@@ -27,6 +27,8 @@ with masks, the kernel in ``uint32_t``.
 
 from __future__ import annotations
 
+import struct
+
 import numpy as np
 import torch
 
@@ -217,18 +219,79 @@ def _check_field(heights, origin, cell_w, dev):
         raise ValueError(f"heights: expected [HX >= 2, HY >= 2], got {tuple(heights.shape)}")
 
 
+# The heights launcher's argument buffer (csrc/terrain.cu:terrain_heights):
+# the field's part, fixed by its plan (heights, origin, cell_w, HX, HY), then
+# the call's (xy, P, with_normals, out).
+_FIELD_PACK = struct.Struct("=5q")
+_CALL_PACK = struct.Struct("=4q")
+_F32 = torch.float32
+_MAX_FIELD_PLANS = 4
+# Outputs are made _OUT_BATCH at a time per call shape (at most
+# _MAX_OUT_SHAPES shapes a field): one torch.empty costs a heights call
+# about as much host time as its launch.
+_OUT_BATCH = 8
+_MAX_OUT_SHAPES = 4
+_field_plans: dict = {}
+_last_plan = [None]   # the last call's plan: a field queried again skips the lookup
+
+
+class _FieldPlan:
+    """A heightfield as the heights call takes it: its three tensors,
+    checked once and held (so that their ids stay theirs and their pointers
+    valid), their pointers and the grid's size packed for the launcher, and
+    the outputs made ahead.
+
+    Each output is a fresh region of a block of ``_OUT_BATCH`` made by one
+    ``torch.empty``: no two calls share memory, and a block lives while any
+    of its outputs does."""
+
+    def __init__(self, heights, origin, cell_w, dev):
+        _check_field(heights, origin, cell_w, dev)
+        self.field = (heights, origin, cell_w)
+        self.device = dev
+        self.packed = _FIELD_PACK.pack(heights.data_ptr(), origin.data_ptr(), cell_w.data_ptr(),
+                                       *heights.shape)
+        self.ahead = {}
+
+    def output(self, p: int, k: int):
+        """A new [p, k] float32 output on the field's device."""
+        ahead = self.ahead.get((p, k))
+        if not ahead:
+            if ahead is None and len(self.ahead) >= _MAX_OUT_SHAPES:
+                self.ahead.pop(next(iter(self.ahead)))
+            ahead = self.ahead[(p, k)] = list(torch.empty(
+                (_OUT_BATCH, p, k), dtype=_F32, device=self.device).unbind(0))
+        return ahead.pop()
+
+
+def _field_plan(heights, origin, cell_w, dev):
+    key = (id(heights), id(origin), id(cell_w))
+    plan = _field_plans.get(key)
+    if plan is None:
+        if len(_field_plans) >= _MAX_FIELD_PLANS:
+            _field_plans.pop(next(iter(_field_plans)))
+        plan = _field_plans[key] = _FieldPlan(heights, origin, cell_w, dev)
+    return plan
+
+
 def terrain_heights(heights, origin, cell_w, xy, with_normals: bool = False):
     """KW (a): heights [P, 1], or [P, 4] (h, normal) with ``with_normals``,
-    at the points ``xy`` [P, 2]."""
-    if xy.device.type == "cpu":
+    at the points ``xy`` [P, 2].  The field's checks and pointers come from
+    its plan; a call tests ``xy``, takes an output and makes one packed
+    launch."""
+    if xy.is_cpu:
         return terrain_heights_plain(heights, origin, cell_w, xy, with_normals)
-    dev = xy.device
+    plan = _last_plan[0]
+    if plan is None or not (plan.field[0] is heights and plan.field[1] is origin
+                            and plan.field[2] is cell_w):
+        plan = _last_plan[0] = _field_plan(heights, origin, cell_w, xy.device)
+    if not (xy.dtype is _F32 and xy.dim() == 2 and xy.shape[1] == 2 and xy.is_contiguous()
+            and xy.device == plan.device):
+        build.check(xy, "xy", _F32, (xy.shape[0] if xy.dim() else 0, 2), plan.device)
     p = xy.shape[0]
-    _check_field(heights, origin, cell_w, dev)
-    build.check(xy, "xy", torch.float32, (p, 2), dev)
-    out = torch.empty((p, 4 if with_normals else 1), dtype=torch.float32, device=dev)
-    build.launch("terrain_heights", heights, origin, cell_w, xy, heights.shape[0],
-                 heights.shape[1], p, int(with_normals), out)
+    out = plan.output(p, 4 if with_normals else 1)
+    build.launch_packed("terrain_heights", plan.packed + _CALL_PACK.pack(
+        xy.data_ptr(), p, 1 if with_normals else 0, out.data_ptr()))
     launches["terrain_heights"] += 1
     return out
 

@@ -7,7 +7,8 @@ only, so it also runs on a machine without JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-Tolerances are chip_smoke.py's: 1e-5 for KA/KB rows, 1e-4 for KC
+Tolerances are chip_smoke.py's: 1e-5 for KA/KB rows (KB also on
+kernels/hard_cases.py's static-contact scenes), 1e-4 for KC
 velocities after warm start + 7 iterations, 1e-6 for KD and KE, 1e-5 for
 KF and KG, 1e-6 for KH (hit and body exact) and KI, 1e-5 of each output's
 scale for KJ, 1e-5 for KK's rows (masks, keys and touching exact), 1e-6 of
@@ -665,6 +666,110 @@ def test_mesh_kernels_match_plain():
     torch.cuda.synchronize()
     assert torch.equal(pk[15:], pp[15:]) and torch.equal(pk[4:6], pp[4:6])
     assert float((pk - pp).abs().max()) <= 1e-6 * max(1.0, float(pp.abs().max()))
+
+
+def _kb_compare(args, what):
+    """KB's kernel against its twin: ids, valid and keys exact; points,
+    normals and depths within 1e-5 on the valid rows, friction and
+    restitution within 1e-5."""
+    rk, rp = kb.static_contacts(*args), kb.static_contacts_plain(*args)
+    torch.cuda.synchronize()
+    for i in (0, 1, 5, 8):
+        assert rk[i].dtype == rp[i].dtype and torch.equal(rk[i], rp[i]), (what, i)
+    for i in (2, 3, 4):
+        d = (rk[i] - rp[i]).abs()[rp[5]]
+        assert d.numel() == 0 or float(d.max()) <= 1e-5, (what, i)
+    for i in (6, 7):
+        assert float((rk[i] - rp[i]).abs().max()) <= 1e-5, (what, i)
+    return rp
+
+
+@pytest.mark.parametrize("case", hard_cases.STATIC_CASES)
+def test_static_contacts_kernel_hard_cases(case):
+    """KB on kernels/hard_cases.py's static-contact scenes (equal depths,
+    a full cell cut to 16 candidates, empty cells, cell boundaries and one
+    ulp either side, samples outside the grid and behind a far plane,
+    ineligible bodies, mixed shapes and present flags, hull ring ties) at
+    K = 1, 4 and 8; a CPU tensor among CUDA ones raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = hard_cases.static_scene(case)
+    for k in hard_cases.STATIC_KS:
+        args = hard_cases.static_inputs(scene, k, "cuda")
+        rp = _kb_compare(args, (case, k))
+        assert int(rp[5].sum()) > 0, (case, k)
+    body = args[0]
+    with pytest.raises(ValueError):
+        kb.static_contacts(body.replace(awake=body.awake.cpu()), *args[1:])
+
+
+def test_static_contacts_plan_follows_new_world():
+    """KB's plan: a static world replaced by a new one of the same shapes
+    (the trimesh raised, the ground lowered) gives the new world's rows; a
+    wrong dtype, device or shape still raises; the plan cache stays
+    bounded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = hard_cases.static_scene("mixed_present")
+    args = hard_cases.static_inputs(scene, 4, "cuda")
+    first = _kb_compare(args, "first world")
+    tm, hf = args[6], args[1]
+    raised = tm.replace(verts=tm.verts + torch.tensor([0.0, 0.0, 0.2], device="cuda"))
+    lowered = hf.replace(heights=hf.heights - 0.3)
+    second = _kb_compare((*args[:1], lowered, *args[2:6], raised, args[7]), "new world")
+    assert not torch.equal(first[4], second[4])
+    body = args[0]
+    for bad, exc in ((body.replace(pos=body.pos.double()), TypeError),
+                     (body.replace(quat=body.quat[:-1]), ValueError),
+                     (body.replace(alive=body.alive.cpu()), ValueError)):
+        with pytest.raises(exc):
+            kb.static_contacts(bad, *args[1:])
+    with pytest.raises(ValueError):
+        kb.static_contacts(body, *args[1:6], raised.replace(tris=raised.tris.cpu()), args[7])
+    with pytest.raises(TypeError):
+        kb.static_contacts(body, lowered.replace(heights=lowered.heights.double()), *args[2:])
+    for j in range(3 * kb._MAX_PLANS):
+        kb.static_contacts(body, hf.replace(heights=hf.heights + 0.01 * j), *args[2:])
+    assert len(kb._plans) <= kb._MAX_PLANS
+
+
+def test_terrain_heights_plan_follows_new_field(terrain_field):
+    """KW's field plan: a field replaced by new tensors of the same shape,
+    or its heights written in place, gives the new heights; outputs made
+    ahead are never shared; a wrong dtype, device or shape of the field or
+    the points still raises; the plan cache stays bounded."""
+    from substrata_tpu_torch.kernels import terrain as kt
+    hf = terrain_field
+    xy = torch.as_tensor(np.random.default_rng(3).uniform(-530, 530, (2048, 2))
+                         .astype(np.float32), device="cuda")
+    scale = float(hf.heights.abs().max()) + 3.0
+    f1 = (hf.heights.clone(), hf.origin.clone(), hf.cell_w.clone())
+    f2 = (hf.heights * 0.5 + 3.0, hf.origin + 1.5, hf.cell_w * 1.25)
+    for f in (f1, f2, f1):
+        for normals in (False, True):
+            got = kt.terrain_heights(*f, xy, normals)
+            want = kt.terrain_heights_plain(*f, xy, normals)
+            assert float((got - want).abs().max()) <= 1e-6 * scale, normals
+    f1[0].mul_(-1.0)
+    got, want = kt.terrain_heights(*f1, xy), kt.terrain_heights_plain(*f1, xy)
+    assert float((got - want).abs().max()) <= 1e-6 * scale
+    # Outputs made ahead never share memory: each call's result stays its
+    # own after the calls that follow it.
+    kept = [(kt.terrain_heights(*f1, xy + j), xy + j) for j in range(2 * kt._OUT_BATCH + 1)]
+    assert len({out.data_ptr() for out, _ in kept}) == len(kept)
+    for out, pts in kept:
+        assert float((out - kt.terrain_heights_plain(*f1, pts)).abs().max()) <= 1e-6 * scale
+    for bad, exc in ((xy.double(), TypeError), (xy[:, :1], ValueError),
+                     (xy.t().contiguous().t(), ValueError)):
+        with pytest.raises(exc):
+            kt.terrain_heights(*f1, bad)
+    for f, exc in (((f1[0].double(), *f1[1:]), TypeError), ((f1[0].cpu(), *f1[1:]), ValueError),
+                   ((f1[0], f1[1][:1], f1[2]), ValueError)):
+        with pytest.raises(exc):
+            kt.terrain_heights(*f, xy)
+    for j in range(3 * kt._MAX_FIELD_PLANS):
+        kt.terrain_heights(f1[0] + j, *f1[1:], xy)
+    assert len(kt._field_plans) <= kt._MAX_FIELD_PLANS
 
 
 def test_mesh_world_on_card_matches_cpu():
