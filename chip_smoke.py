@@ -11,7 +11,11 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    integration) against its plain PyTorch twin on the same inputs, with
    the tolerance stated beside it, and both timed (CUDA events around 20
    back-to-back calls, median of 5 rounds; KB also with its device µs per
-   launch and its wrapper's host µs per call);
+   launch and its wrapper's host µs per call); KC also at every pass of
+   a solve (the warm pre-apply and the 7 iterations) equal to its twin to
+   the bit, there and on kernels/hard_cases.py's solve scenes, with its
+   two launches' device µs, one call's host µs and the whole solve's
+   (KQ's setup and the planned passes);
 4. small worlds: the five-box stack rests at its analytic heights on the
    card, and a 200-box world steps on the card as the CPU path does
    (the CPU path is the one the tests hold against the JAX reference);
@@ -99,8 +103,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    grid 160, timed); each timed entry with the wrapper's host µs per call
    (perf_counter over 200 calls, and the profiler's CPU time); KQ's setup
    and refresh on the bench world (pair-blocked rows) and on the serving
-   and mesh worlds (the compacted layout), within 1e-6 of each output's
-   scale with masks, slots and the refreshed cache exact; KR on bench.py's
+   and mesh worlds (the compacted layout) and on kernels/hard_cases.py's
+   solve scenes, within 1e-6 of each output's scale with masks, slots and
+   the refreshed cache exact, and KC at every pass from KQ's rows of each
+   world, exact; KR on bench.py's
    two scripts and
    on a corpus of one script per builtin and per operator and a
    let/struct/user-function program, 4,096 instances each, in one launch,
@@ -417,6 +423,8 @@ def kernel_phase(w):
     # KC: warm-start pre-apply + 7 iterations from the same setup.
     # Tolerance 1e-4 absolute on linvel/angvel: both round the pair
     # payloads at the same bf16 points; f32 sums may differ in order.
+    # Then every pass (the warm pre-apply and each iteration) equal to the
+    # bit, on the bench world and on kernels/hard_cases.py's solve scenes.
     wm = narrowphase.blocked_manifold_width(cfg, n)
     pair_cts, _, _ = narrowphase.pair_contacts(body, pc.pair_a, pc.pair_b,
                                                pc.pair_valid, cfg, blocked_wm=wm)
@@ -433,17 +441,92 @@ def kernel_phase(w):
     st0 = setup.state0
     one = kc.solve_iteration(setup.rows, st0, body.linvel, body.angvel, 0.5)
     rows = int(setup.rows.s_valid.sum()) + int(setup.rows.p_valid.sum())
+
+    def one_pass():
+        return kc.solve_iteration(setup.rows, st0, body.linvel, body.angvel, 0.5)
+
+    def prepare():
+        return solver.prepare_solve(body, static_cts, pair_cts, DT, w.params, cfg,
+                                    w.solver_cache, wm=wm, table=pc.inc_table, sign=pc.inc_sign)
+
+    def whole_solve():
+        # The main path's solve: KQ's setup, then the warm pass and every
+        # iteration through one plan.
+        return solver.iterate(prepare(), body.linvel, body.angvel, cfg.solver_iters)
+
+    # Timed while the rows still hold KQ's buffers (a planned solve takes
+    # them), as the main path's rows do.
+    rows_us = device_us(one_pass, "solve_rows_kernel")
+    bodies_us = device_us(one_pass, "solve_bodies_kernel")
+    one_ms, one_host = median_ms(one_pass), host_cost(one_pass)
+    passes = _kc_passes(setup, body.linvel, body.angvel, cfg.solver_iters, "bench")
     results["solve_iteration"] = dict(
-        max_abs_err=err, tol=1e-4, static_rows=int(setup.rows.s_valid.sum()),
+        max_abs_err=err, tol=1e-4, passes_exact=passes, static_rows=int(setup.rows.s_valid.sum()),
         pair_rows=int(setup.rows.p_valid.sum()),
         **bound(nbytes(setup.rows, st0, body.linvel, body.angvel, one),
                 FLOPS["solve_iteration"] * rows
                 + FLOPS["solve_bodies"] * n * setup.rows.tbl.shape[1]),
-        ms=median_ms(lambda: kc.solve_iteration(setup.rows, st0, body.linvel,
-                                                body.angvel, 0.5)),
+        ms=one_ms,
+        device_us_per_launch=dict(solve_rows=rows_us, solve_bodies=bodies_us),
+        device_us_per_iteration=(None if rows_us is None or bodies_us is None
+                                 else rows_us + bodies_us),
+        **one_host,
+        setup_and_solve=dict(passes=cfg.solver_iters + 1, ms=median_ms(whole_solve),
+                             kc_device_us=device_us_call(whole_solve, "solve_"),
+                             **host_cost(whole_solve),
+                             setup_host_us=host_cost(prepare)["host_us"]),
+        hard=kc_hard_cases(body.device, cfg.solver_iters),
         plain_ms=median_ms(lambda: kc.solve_iteration_plain(setup.rows, st0, body.linvel,
-                                                            body.angvel, 0.5)))
+                                                            body.angvel, 0.5)),
+        library_ms=None)
     return results
+
+
+def _kc_passes(setup, linvel, angvel, iters, what):
+    """KC against its twin at every pass of one solve, the warm pre-apply
+    first, each side chained from its own state, both from the same rows:
+    linvel, angvel, s_y, s_l, p_y and p_l equal to the bit.  Then the
+    whole solve's plan (``kc.solve``, the main path's) equal to the
+    chain's end.  Returns the number of passes held."""
+    from substrata_tpu_torch.kernels import solve as kc
+    rows, st_k, st_p = setup.rows, setup.state0, setup.state0
+    lk = lp = linvel
+    ak = ap = angvel
+    sched = ([(0.0, True)] if setup.warm else []) + [(b, False) for b in kc.betas(iters)]
+    for i, (beta, warm) in enumerate(sched):
+        st_k, lk, ak = kc.solve_iteration(rows, st_k, lk, ak, beta, warm)
+        st_p, lp, ap = kc.solve_iteration_plain(rows, st_p, lp, ap, beta, warm)
+        for x, y, name in ((lk, lp, "linvel"), (ak, ap, "angvel"), (st_k.s_y, st_p.s_y, "s_y"),
+                           (st_k.s_l, st_p.s_l, "s_l"), (st_k.p_y, st_p.p_y, "p_y"),
+                           (st_k.p_l, st_p.p_l, "p_l")):
+            check(torch.equal(x, y), f"KC {what}: pass {i} ({'warm' if warm else 'iteration'})"
+                                     f" {name} differs by {max_err(x, y)}")
+    st_f, lf, af = kc.solve(rows, setup.state0, linvel, angvel, iters, setup.warm)
+    for x, y, name in ((lf, lk, "linvel"), (af, ak, "angvel"), (st_f.s_l, st_k.s_l, "s_l"),
+                       (st_f.p_l, st_k.p_l, "p_l"), (st_f.s_y, st_k.s_y, "s_y"),
+                       (st_f.p_y, st_k.p_y, "p_y")):
+        check(torch.equal(x, y), f"KC {what}: the planned solve's {name} differs from the chain")
+    return len(sched)
+
+
+def kc_hard_cases(device, iters):
+    """KC at every pass on kernels/hard_cases.py's solve scenes, from KQ's
+    setup of each (exact, as ``_kc_passes``)."""
+    from substrata_tpu_torch.kernels import hard_cases
+    from substrata_tpu_torch.kernels import solve_setup as kq
+    from substrata_tpu_torch.kernels import solve as kc
+    from substrata_tpu_torch.physics import solver
+    from substrata_tpu_torch.physics.state import default_sim_params
+    params = default_sim_params(device=device)
+    out = {}
+    for case in hard_cases.SOLVE_CASES:
+        body, st, pr, table, sign, cache, wm = hard_cases.solve_inputs(
+            hard_cases.solve_scene(case), device)
+        rows, y_s, y_p, lookup = kq.solve_setup(body, st, pr, table, sign, params, DT, cache, wm)
+        setup = solver.SolveSetup(rows, kc.SolveState(y_s, y_s, y_p, y_p), True, table, sign,
+                                  lookup)
+        out[case] = _kc_passes(setup, body.linvel, body.angvel, iters, case)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -656,6 +739,8 @@ def audio_kernel_phase(w, device="cuda", blocks=30, plain_reps=5):
         max_abs_err=err, tol=1e-5,
         **bound(nbytes(gargs, gk), b * (3 * src.capacity + 40)),
         ms=median_ms(lambda: ka.audio_downmix_reverb(*gargs)),
+        device_us=device_us_call(lambda: ka.audio_downmix_reverb(*gargs), "audio_downmix"),
+        **host_cost(lambda: ka.audio_downmix_reverb(*gargs)),
         plain_ms=median_ms(lambda: ka.audio_downmix_reverb_plain(*gargs), reps=plain_reps))
 
     # The whole mix_block: kernel route, then the plain route, same inputs.
@@ -2071,6 +2156,8 @@ def _rows_compare(rk, rp, what):
     worst = 0.0
     for f in dataclasses.fields(rk):
         a, b = getattr(rk, f.name), getattr(rp, f.name)
+        if not isinstance(a, torch.Tensor):
+            continue
         if not a.dtype.is_floating_point:
             check(torch.equal(a, b), f"KQ {what}: {f.name} differs")
             continue
@@ -2126,6 +2213,9 @@ def _kq_compare(w, what, timed=False):
         check(e <= 1e-6, f"KQ {what}: {name} err {e} of its scale > 1e-6")
         err = max(err, e)
     check(torch.equal(hk, hp) and torch.equal(vk, vp), f"KQ {what}: cache slots differ")
+    kc_passes = _kc_passes(solver.SolveSetup(rk, kc.SolveState(ysk, ysk, ypk, ypk), True, table,
+                                             sign, (hk, vk)),
+                           body.linvel, body.angvel, w.config.solver_iters, what)
     setup = solver.SolveSetup(rp, kc.SolveState(ysp, ysp, ypp, ypp), True, table, sign,
                               (hp, vp))
     st, _, _ = solver.iterate(setup, body.linvel, body.angvel, w.config.solver_iters)
@@ -2135,7 +2225,7 @@ def _kq_compare(w, what, timed=False):
           f"KQ {what}: refreshed cache differs")
     res = dict(max_abs_err=err, tol=1e-6, static_rows=int(rp.s_valid.sum()),
                pair_rows=int(rp.p_valid.sum()), wm=wm,
-               cache_rows_written=int(vp.sum()))
+               cache_rows_written=int(vp.sum()), kc_passes_exact=kc_passes)
     if timed:
         rows = static_cts.capacity + pair_cts.capacity
         # What the setup reads: the body fields, the contact fields it takes
@@ -2159,8 +2249,13 @@ def _kq_compare(w, what, timed=False):
             ms=median_ms(lambda: kq.solve_setup(*args, p, DT, cache, wm)),
             plain_ms=median_ms(lambda: kq.solve_setup_plain(
                 *args, p.baumgarte, p.restitution_threshold, dt_t, cache, wm), reps=3),
-            device_us=device_us(lambda: kq.solve_setup(*args, p, DT, cache, wm),
-                                "solve_setup_kernel"))
+            device_us=device_us_call(lambda: kq.solve_setup(*args, p, DT, cache, wm), "setup_"),
+            device_us_per_launch=dict(
+                setup_bodies=device_us(lambda: kq.solve_setup(*args, p, DT, cache, wm),
+                                       "setup_bodies_kernel"),
+                setup_rows=device_us(lambda: kq.solve_setup(*args, p, DT, cache, wm),
+                                     "setup_rows_kernel")),
+            **host_cost(lambda: kq.solve_setup(*args, p, DT, cache, wm)))
         written = int(vp.sum())
         res["refresh"] = dict(
             **bound(nbytes(cache, ck, hp, vp) + written * 20, 0),
@@ -2168,6 +2263,45 @@ def _kq_compare(w, what, timed=False):
             plain_ms=median_ms(lambda: kq.cache_refresh_plain(*rargs), reps=3),
             device_us=device_us(lambda: kq.cache_refresh(*rargs), "refresh_"))
     return res
+
+
+def kq_hard_cases(device):
+    """KQ against its twin on kernels/hard_cases.py's solve scenes: the
+    rows and warm impulses within 1e-6 of each output's scale, masks, slots
+    and table entries exact, then the refreshed cache exact."""
+    from substrata_tpu_torch.kernels import hard_cases
+    from substrata_tpu_torch.kernels import solve_setup as kq
+    from substrata_tpu_torch.physics.state import default_sim_params
+    p = default_sim_params(device=device)
+    dt_t = torch.full((), DT, dtype=torch.float32, device=device)
+    worst, out = 0.0, {}
+    for case in hard_cases.SOLVE_CASES:
+        body, st, pr, table, sign, cache, wm = hard_cases.solve_inputs(
+            hard_cases.solve_scene(case), device)
+        args = (body, st, pr, table, sign)
+        rk, ysk, ypk, (hk, vk) = kq.solve_setup(*args, p, DT, cache, wm)
+        rp, ysp, ypp, (hp, vp) = kq.solve_setup_plain(*args, p.baumgarte,
+                                                      p.restitution_threshold, dt_t, cache, wm)
+        err = _rows_compare(rk, rp, case)
+        for a, b, name in ((ysk, ysp, "y_s"), (ypk, ypp, "y_p")):
+            e = max_err(a, b) / max(1.0, float(b.abs().max()))
+            check(e <= 1e-6, f"KQ {case}: {name} err {e} of its scale > 1e-6")
+            err = max(err, e)
+        check(torch.equal(hk, hp) and torch.equal(vk, vp), f"KQ {case}: cache slots differ")
+        lam_s = torch.rand(ysp.shape, generator=torch.Generator().manual_seed(3)).to(device)
+        lam_p = torch.rand(ypp.shape, generator=torch.Generator().manual_seed(4)).to(device)
+        rargs = (cache, hp, vp, st, pr, lam_s, rp.s_valid, lam_p, rp.p_valid)
+        ck, cp = kq.cache_refresh(*rargs), kq.cache_refresh_plain(*rargs)
+        check(torch.equal(ck.view(torch.int32), cp.view(torch.int32)),
+              f"KQ {case}: refreshed cache differs")
+        a_all = torch.cat([st.a, pr.a])
+        key_all = torch.cat([st.key, pr.key])
+        kk = cache[hp.long()][:, 0:2].contiguous().view(torch.int32)
+        out[case] = dict(max_abs_err=err, static_rows=int(rp.s_valid.sum()),
+                         pair_rows=int(rp.p_valid.sum()), wm=wm,
+                         cache_hits=int((vp & (kk[:, 0] == a_all) & (kk[:, 1] == key_all)).sum()))
+        worst = max(worst, err)
+    return worst, out
 
 
 def _lattice(rng, n, k_lo, k_hi):
@@ -2302,9 +2436,12 @@ def kpqr_phase(device="cuda", n_bodies=10_000, cfg=None, corpus_n=4096, plain_re
         mesh_tick(mw, mplayer, t * DT, sources)
     kq_mesh = _kq_compare(mw, "mesh")
     del mw, mplayer
-    err = max(kq_bench["max_abs_err"], kq_serving["max_abs_err"], kq_mesh["max_abs_err"])
+    hard_err, kq_hard = kq_hard_cases(device)
+    err = max(kq_bench["max_abs_err"], kq_serving["max_abs_err"], kq_mesh["max_abs_err"],
+              hard_err)
     results["solve_setup"] = dict(max_abs_err=err, tol=1e-6, bench=kq_bench,
-                                  serving=kq_serving, mesh=kq_mesh, **kq_bench["setup"])
+                                  serving=kq_serving, mesh=kq_mesh, hard=kq_hard,
+                                  **kq_bench["setup"])
     results["cache_refresh"] = dict(max_abs_err=0.0, tol=0.0, **kq_bench["refresh"])
 
     # KR: bench.py's two scripts at its shape (512 instances), then the

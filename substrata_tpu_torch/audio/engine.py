@@ -231,9 +231,9 @@ class AudioEngine:
         axes = self._dev(np.eye(3, dtype=np.float32))
         self.listener = self.listener.replace(
             pos=self._dev(np.asarray(pos, np.float32)),
-            right=quatm.rotate_vec(r, axes[0]),
-            forward=quatm.rotate_vec(r, axes[1]),
-            up=quatm.rotate_vec(r, axes[2]),
+            right=quatm.rotate_vec_eager(r, axes[0]),
+            forward=quatm.rotate_vec_eager(r, axes[1]),
+            up=quatm.rotate_vec_eager(r, axes[2]),
             vel=self._dev(np.asarray(vel, np.float32)) if vel is not None
             else self.listener.vel)
 

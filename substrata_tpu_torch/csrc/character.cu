@@ -585,9 +585,9 @@ __global__ void __launch_bounds__(kThreads) character_kernel(
   float vel[3] = {ch_vel[0], ch_vel[1], ch_vel[2]};
   float foot[3] = {ch_pos[0], ch_pos[1], ch_pos[2]};
   const float frac_sub = fminf(fmaxf((*water_z - foot[2]) / kEye, 0.0f), 1.0f);
-  float foot_next[3];
+  float foot_next[3];  // one fma, as the jitted reference contracts it
 #pragma unroll
-  for (int k = 0; k < 3; ++k) foot_next[k] = foot[k] + (vel[k] + move[k]) * dt;
+  for (int k = 0; k < 3; ++k) foot_next[k] = __fmaf_rn(vel[k] + move[k], dt, foot[k]);
 
   // ---- The candidate rows, gathered once (character.py:108-144).
   {
@@ -725,7 +725,7 @@ __global__ void __launch_bounds__(kThreads) character_kernel(
   const float old_foot[3] = {foot[0], foot[1], foot[2]};
   const float dv_pre[3] = {vel[0], vel[1], vel[2]};
 #pragma unroll
-  for (int k = 0; k < 3; ++k) foot[k] = foot[k] + vel[k] * dt;
+  for (int k = 0; k < 3; ++k) foot[k] = __fmaf_rn(vel[k], dt, foot[k]);
   for (int it = 0; it < 3; ++it) {
     cur = probe_stored(c, foot, cyl_h);
     const bool any_ok = cur.deep_key != empty_key();

@@ -158,33 +158,9 @@ __device__ inline void sphere_capsule(const float ps[3], float rs, const float p
 }
 
 // The capsule-box search as the jitted reference rounds it
-// (closed_forms.py:_cross_fma, _rotate_fma, _axis_fma, box_sdf): each
-// cross product component a1 b2 - a2 b1 is fma(a1, b2, -(a2 b1)), the
-// rotation's w uv + uuv one fma, the segment point fma(z, t, pc), and the
-// distance's norm the fma chain under sqrt.
-__device__ __forceinline__ void cross_fma(const float a[3], const float b[3], float o[3]) {
-  o[0] = __fmaf_rn(a[1], b[2], -(a[2] * b[1]));
-  o[1] = __fmaf_rn(a[2], b[0], -(a[0] * b[2]));
-  o[2] = __fmaf_rn(a[0], b[1], -(a[1] * b[0]));
-}
-
-__device__ __forceinline__ void rotate_fma(const float q[4], const float v[3], float o[3]) {
-  const float u[3] = {q[0], q[1], q[2]};
-  float uv[3], uuv[3];
-  cross_fma(u, v, uv);
-  cross_fma(u, uv, uuv);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) o[k] = v[k] + 2.0f * __fmaf_rn(q[3], uv[k], uuv[k]);
-}
-
-__device__ __forceinline__ void capsule_axis_fma(const float q[4], float h, float z[3]) {
-  const float ez[3] = {0.0f, 0.0f, 1.0f};
-  rotate_fma(q, ez, z);
-  z[0] = z[0] * h;
-  z[1] = z[1] * h;
-  z[2] = z[2] * h;
-}
-
+// (closed_forms.py:capsule_box, box_sdf): the rotations are rotate_vec (the
+// jitted form), the segment point fma(z, t, pc), and the distance's norm the
+// fma chain under sqrt.
 __device__ __forceinline__ float box_sdf(const float p[3], const float he[3]) {
   float q[3], qp[3];
 #pragma unroll
@@ -202,7 +178,7 @@ __device__ __forceinline__ float seg_box_dist(const float pc[3], const float z[3
   const float rel[3] = {__fmaf_rn(z[0], t, pc[0]) - pb[0], __fmaf_rn(z[1], t, pc[1]) - pb[1],
                         __fmaf_rn(z[2], t, pc[2]) - pb[2]};
   float p[3];
-  rotate_fma(qb_inv, rel, p);
+  rotate_vec(qb_inv, rel, p);
   return box_sdf(p, he);
 }
 
@@ -210,7 +186,7 @@ __device__ inline void capsule_box(const float pc[3], const float qc[4], float r
                                    const float pb[3], const float qb[4], const float he[3],
                                    Manifold& m) {
   float z[3];
-  capsule_axis_fma(qc, hc, z);
+  capsule_axis(qc, hc, z);
   const float qb_inv[4] = {-qb[0], -qb[1], -qb[2], qb[3]};
   float lo = -1.0f, hi = 1.0f;
   for (int it = 0; it < 14; ++it) {

@@ -2,8 +2,8 @@
 //
 // Every helper repeats, operation for operation and in the same order, the
 // plain PyTorch twin it stands beside (maths/quat.py, kernels/*.py).  The
-// library is built with -fmad=false, so no multiply-add is contracted and
-// each kernel rounds like its twin.
+// library is built with -fmad=false, so no multiply-add is contracted but
+// those written as __fmaf_rn, and each kernel rounds like its twin.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,14 +50,24 @@ __device__ __forceinline__ void cross3(const float a[3], const float b[3], float
   o[2] = a[0] * b[1] - a[1] * b[0];
 }
 
-// maths/quat.py:rotate_vec: v + 2 (w (u x v) + u x (u x v))
+// maths/quat.py:cross_fma: each component a1 b2 - a2 b1 as
+// fma(a1, b2, -(a2 b1)), as XLA contracts it.
+__device__ __forceinline__ void cross_fma(const float a[3], const float b[3], float o[3]) {
+  o[0] = __fmaf_rn(a[1], b[2], -(a[2] * b[1]));
+  o[1] = __fmaf_rn(a[2], b[0], -(a[0] * b[2]));
+  o[2] = __fmaf_rn(a[0], b[1], -(a[1] * b[0]));
+}
+
+// maths/quat.py:rotate_vec: v + 2 (w (u x v) + u x (u x v)), as every
+// jitted rotation of the reference rounds it: both cross products
+// cross_fma, w uv + uuv one fma.
 __device__ __forceinline__ void rotate_vec(const float q[4], const float v[3], float o[3]) {
   const float u[3] = {q[0], q[1], q[2]};
   float uv[3], uuv[3];
-  cross3(u, v, uv);
-  cross3(u, uv, uuv);
+  cross_fma(u, v, uv);
+  cross_fma(u, uv, uuv);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) o[k] = v[k] + 2.0f * (q[3] * uv[k] + uuv[k]);
+  for (int k = 0; k < 3; ++k) o[k] = v[k] + 2.0f * __fmaf_rn(q[3], uv[k], uuv[k]);
 }
 
 // physics/state.py:_bilinear: the heightfield patch's height as the jitted

@@ -55,14 +55,11 @@ SIGNATURES = {
     # trimesh), K, H, max hull verts, GX, GY, cell cap, candidates, out a,
     # b, point, normal, pen, valid, fric, rest, key), stream
     "static_contacts": [P, P],
-    # static rows (dir, ang, r, k, target, fric, valid, y, l), pair rows
-    # (dir, ang_a, ang_b, ra, rb, k, target, fric, valid, ab, y, l),
-    # linvel, angvel, out (s_y, s_l, p_y, p_l, dlin_s, dang_s, block),
-    # N, K, Q, WM, beta, warm, stream
-    "solve_rows": [P] * 9 + [P] * 12 + [P] * 2 + [P] * 7 + [I] * 4 + [F, I] + [P],
-    # tbl, w, im, block, dlin_s, dang_s, linvel, angvel, out linvel,
-    # angvel, N, CPB, stream
-    "solve_bodies": [P] * 8 + [P] * 2 + [I] * 2 + [P],
+    # one host buffer of 8-byte slots (kernels/solve.py:_PASS: the rows in
+    # the solve's row layout, the state in, linvel, angvel, the state out,
+    # dlin_s, dang_s, block, tbl, w, im, out linvel, angvel, N, K, Q, WM,
+    # CPB, warm, beta as a double), stream
+    "solve_pass": [P, P],
     # pool, buf_offset, buf_len, playhead, eff_delta, mix_factor, looping,
     # stream_mode, stream_write_head, active, out samples, new_playhead,
     # S, L, B, nw, n_rows, li_max, stream
@@ -117,17 +114,19 @@ SIGNATURES = {
     # cap, 1 / cell_size, cell_size, with_flags, out cells, scratch, table,
     # overflow, stream
     "cell_table": [P] * 6 + [I] * 3 + [F, F, I] + [P] * 4 + [P],
-    # body pos, quat, linvel, angvel, inv_mass, inv_inertia, awake, table,
-    # sign; static a, point, normal, pen, valid, fric, rest, key; pair a,
-    # b, point, normal, pen, valid, fric, rest, key; baumgarte,
-    # restitution_threshold, cache (or null); N, K, Q, wm, CPB, H; dt; out
-    # s_dir, s_ang, s_r, s_k, s_target, s_valid, p_dir, p_ang_a, p_ang_b,
-    # p_ra, p_rb, p_k, p_target, p_valid, p_ab, tbl, w, im, y_s, y_p, hash
-    # slot, valid; stream
-    "solve_setup": [P] * 29 + [I] * 6 + [F] + [P] * 22 + [P],
+    # one host buffer of 8-byte slots (kernels/solve_setup.py:_PACK: body
+    # pos, quat, linvel, angvel, inv_mass, inv_inertia, awake, table, sign;
+    # static a, point, normal, pen, valid, fric, rest, key; pair a, b,
+    # point, normal, pen, valid, fric, rest, key; baumgarte,
+    # restitution_threshold, cache (or 0); N, K, Q, wm, CPB, H; dt as a
+    # double; out s_dir, s_ang, s_r, s_k, s_target, s_valid, p_dir, p_ang_a,
+    # p_ang_b, p_ra, p_rb, p_k, p_target, p_valid, p_ab, tbl, w, im, y_s,
+    # y_p, hash slot, valid, body-term scratch), stream
+    "solve_setup": [P, P],
     # cache, slot, valid, static a, key, pair a, key, lam_s, s_valid, lam_p,
-    # p_valid, S, P, H, scratch last, out, stream
-    "cache_refresh": [P] * 11 + [I] * 3 + [P] * 2 + [P],
+    # p_valid, S, P, H, lam_s's row and component strides, lam_p's, scratch
+    # last, out, stream
+    "cache_refresh": [P] * 11 + [I] * 3 + [I] * 4 + [P] * 2 + [P],
     # code, segments, blocks, n_blocks, time, idx, n_inst, scratch [R, B],
     # B, out [B, 6], stream
     "winter_eval": [P] * 3 + [I] + [P] * 4 + [I] + [P] + [P],

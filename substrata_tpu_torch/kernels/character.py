@@ -282,7 +282,8 @@ def character_packed_plain(char: dict, body: BodyState, hf: Heightfield, has_hf,
     vel, foot = char["vel"], char["pos"]
     # Divisions by constants take a tensor divisor (see closed_forms.capsule_box).
     frac_sub = torch.clamp((water_z - foot[2]) / torch.full_like(water_z, EYE_HEIGHT), 0.0, 1.0)
-    foot_next = foot + (vel + move) * dt
+    # The jitted reference contracts both foot integrations into one fma.
+    foot_next = fp.fma(vel + move, dt, foot)
     c = gather_candidates(foot, foot_next, cyl_h, body, table, os_idx, cell_size, grid_dim,
                           exclude)
 
@@ -332,7 +333,7 @@ def character_packed_plain(char: dict, body: BodyState, hf: Heightfield, has_hf,
     was_supported = supported
     old_foot = foot
     desired_vel_pre = vel
-    foot = foot + vel * dt
+    foot = fp.fma(vel, dt, foot)
     for _ in range(3):
         n, pen, pt, _, cvel, ok = probe1(foot)
         deep = torch.where(ok, pen, -1e9)

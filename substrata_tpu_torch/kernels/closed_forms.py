@@ -107,28 +107,10 @@ def sphere_capsule(ps, rs, pc, qc, rc, hc):
 
 
 # The capsule-box search, as the jitted reference rounds it (found against
-# jax.jit of ``_CLOSED_FORM_KERNELS[6]`` / ``[9]`` and of their parts): each
-# cross product component a1 b2 - a2 b1 is fma(a1, b2, -(a2 b1)), the
-# rotation's w uv + uuv is fma(w, uv, uuv), the segment point pc + z t is
-# fma(z, t, pc), and the distance's norm (``box_sdf``) is the fma chain
-# under sqrt.
-
-def _cross_fma(a, b):
-    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
-    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
-    return torch.stack([fp.fma(ay, bz, -(az * by)), fp.fma(az, bx, -(ax * bz)),
-                        fp.fma(ax, by, -(ay * bx))], dim=-1)
-
-
-def _rotate_fma(q, v):
-    u, w = q[..., :3], q[..., 3:4]
-    uv = _cross_fma(u, v)
-    return v + 2.0 * fp.fma(w, uv, _cross_fma(u, uv))
-
-
-def _axis_fma(q, h):
-    return _rotate_fma(q, quatm.basis(q.shape[:-1], 2, q.device)) * h[..., None]
-
+# jax.jit of ``_CLOSED_FORM_KERNELS[6]`` / ``[9]`` and of their parts): the
+# rotation is ``quatm.rotate_vec`` (every jitted rotation contracts so), the
+# segment point pc + z t is fma(z, t, pc), and the distance's norm
+# (``box_sdf``) is the fma chain under sqrt.
 
 def box_sdf(p, he):
     """Signed distance from p (box frame) to the box surface."""
@@ -146,11 +128,11 @@ def capsule_box(pc, qc, rc, hc, pb, qb, he, with_gap: bool = False):
     segment parallel to a box face has a flat distance, and there the
     comparisons — so t* and the contact point along the face — are
     decided by rounding."""
-    z = _axis_fma(qc, hc)
+    z = _axis(qc, hc)
     qb_inv = quatm.conjugate(qb)
 
     def dist(t):
-        return box_sdf(_rotate_fma(qb_inv, fp.fma(z, t[..., None], pc) - pb), he)
+        return box_sdf(quatm.rotate_vec(qb_inv, fp.fma(z, t[..., None], pc) - pb), he)
 
     lo = torch.full(rc.shape, -1.0, dtype=rc.dtype, device=rc.device)
     hi = torch.full(rc.shape, 1.0, dtype=rc.dtype, device=rc.device)

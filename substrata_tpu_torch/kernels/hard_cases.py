@@ -1,6 +1,7 @@
 """Hard inputs for the two stable counting sorts (KP's cell table and KT's
-grouping), for KH's ray trace, for KL's character update and for KB's
-static contacts.
+grouping), for KH's ray trace, for KL's character update, for KB's
+static contacts, for the contact solve (KQ's setup and KC) and for the
+rotation every rotating kernel shares.
 
 For the sorts, these are the inputs where a bucket or a code's slice
 fills, so the order of ties decides who is dropped, and where nothing is
@@ -344,14 +345,10 @@ def ray_inputs(scene: RayScene, call: str, device):
 # KL: character scenes.
 # ---------------------------------------------------------------------------
 
-# The ridge profile of ``land_last``'s heightfield: (x index, height), the
-# walked part kept (x index < 33).
-_RIDGES = ((2, 0.039344701915979385), (3, 0.011084635742008686), (14, 0.14859193563461304),
-           (17, 0.053556617349386215), (20, 0.03770779073238373), (27, 0.0446929968893528),
-           (30, 0.03628566116094589), (31, 0.04275369271636009), (36, 0.1971970796585083),
-           (37, 0.15770938992500305), (43, 0.12775085866451263), (47, 0.1161520928144455),
-           (48, 0.10643057525157928), (50, 0.19506436586380005), (62, 0.004727865103632212),
-           (63, 0.00447685644030571))
+# The ridge profile of ``land_last``'s heightfield: (x index, height).
+_RIDGES = ((1, 0.09873830527067184), (9, 0.10410208255052567), (10, 0.17199507355690002),
+           (12, 0.0863935574889183), (13, 0.050855617970228195), (15, 0.18383747339248657),
+           (24, 0.10678695142269135), (26, 0.033743951469659805))
 
 
 @dataclasses.dataclass
@@ -808,3 +805,178 @@ def static_inputs(scene: StaticScene, k: int, device):
     sw = convert.static_world_from_numpy(scene.world, device=device)
     return (body, sw.heightfield, sw.has_heightfield, k, scene.present, sw.hulls, sw.trimesh,
             scene.max_tri_candidates)
+
+
+# ---------------------------------------------------------------------------
+# KQ and KC: contact-solve scenes.
+# ---------------------------------------------------------------------------
+
+SOLVE_CASES = ("cpb_limit", "asleep", "invalid_rows", "gather_safe", "static_only",
+               "pairs_only", "wm1", "wm4", "cache")
+SOLVE_N, SOLVE_K, SOLVE_Q, SOLVE_CPB = 64, 4, 48, 8
+
+
+@dataclasses.dataclass
+class SolveScene:
+    """One solve's inputs (numpy): the bodies (BodyState fields), the static
+    rows [N K] and pair rows [Q wm] (Contacts fields), the manifold width,
+    the incidence table's entry occupancy, and the [H, 5] warm-start cache
+    (rows keyed as the solve keys them)."""
+    bodies: dict
+    static: dict
+    pair: dict
+    wm: int
+    occupied: np.ndarray
+    cache: np.ndarray
+
+
+def _solve_rows(rng, a, b, count, pos, pts_up):
+    """``count`` contact rows of bodies ``a`` (against ``b``): points near
+    the bodies, unit normals (upward for static rows), seeded depths."""
+    base = pos[np.maximum(a, 0)]
+    point = (base + rng.uniform(-0.5, 0.5, (count, 3))).astype(np.float32)
+    nrm = rng.normal(size=(count, 3))
+    if pts_up:
+        nrm[:, 2] = np.abs(nrm[:, 2]) + 2.0
+    nrm = (nrm / np.linalg.norm(nrm, axis=1, keepdims=True)).astype(np.float32)
+    return dict(a=a.astype(np.int32), b=b.astype(np.int32), point=point, normal=nrm,
+                penetration=rng.uniform(-0.03, 0.12, count).astype(np.float32),
+                valid=rng.random(count) < 0.85,
+                friction=rng.uniform(0.2, 0.9, count).astype(np.float32),
+                restitution=rng.uniform(0.0, 0.4, count).astype(np.float32))
+
+
+def solve_scene(case: str, seed: int = 0) -> SolveScene:
+    """The inputs of one hard solve case, N = 64 body slots (48 alive,
+    dynamic, tumbling), K = 4 static rows a body, Q = 48 pair entries,
+    CPB = 8 (every case shares these shapes, so the reference compiles
+    each layout once):
+
+    - ``cpb_limit``: one body in 9 entries (one past the table's CPB),
+      another in exactly 8;
+    - ``asleep``: every other body asleep (inverse mass and inertia 0 in
+      the solve);
+    - ``invalid_rows``: rows 1 and 2 of every body's K, and 1 and 3 of
+      every entry's wm, invalid;
+    - ``gather_safe``: a quarter of the entries with a or b at -1 (empty,
+      invalid, read at slot 0);
+    - ``static_only``, ``pairs_only``: no valid pair rows, no valid static
+      rows;
+    - ``wm1``, ``wm4``: manifold widths 1 (the compacted layout) and 4;
+    - ``cache``: a 64-slot cache for ~370 rows: hits, misses, and slots
+      that several rows hash to (the last writer's identity kept, the
+      others miss).
+    Elsewhere the cache (1,024 slots) holds half the valid rows' impulses.
+    """
+    from substrata_tpu_torch.kernels.solve_setup import cache_hash
+    if case not in SOLVE_CASES:
+        raise ValueError(f"unknown solve case {case!r}")
+    rng = np.random.default_rng(seed + SOLVE_CASES.index(case))
+    from substrata_tpu_torch.physics import state
+    n, k, q, cpb = SOLVE_N, SOLVE_K, SOLVE_Q, SOLVE_CPB
+    wm = 1 if case == "wm1" else 4
+    a = {f: v.numpy().copy() for f, v in vars(state.zero_body_state(n, device="cpu")).items()}
+    alive = np.arange(n) < 48
+    a["pos"][:48] = rng.uniform((-4, -4, 0.2), (4, 4, 3), (48, 3))
+    quat = rng.normal(size=(48, 4))
+    a["quat"][:48] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    a["linvel"][:48] = rng.normal(0, 1.5, (48, 3))
+    a["angvel"][:48] = rng.normal(0, 2.0, (48, 3))
+    a["inv_mass"][:48] = rng.uniform(0.2, 2.0, 48)
+    a["inv_inertia"][:48] = rng.uniform(0.3, 5.0, (48, 3))
+    a["alive"][:] = alive
+    a["awake"][:] = alive & ((np.arange(n) % 2 == 0) if case == "asleep" else True)
+    a["motion_type"][:48] = 2
+    a["shape_type"][:48] = 1
+    a["shape_params"][:48, :3] = 0.4
+    a["bound_radius"][:48] = 0.7
+    pos = a["pos"]
+
+    sa = np.repeat(np.where(alive, np.arange(n), -1), k)
+    st = _solve_rows(rng, sa, np.full(n * k, -1), n * k, pos, True)
+    st["valid"] &= sa >= 0
+    st["key"] = np.tile(np.arange(1, k + 1), n).astype(np.int32)
+
+    ea = rng.integers(0, 48, q)
+    eb = (ea + rng.integers(1, 48, q)) % 48
+    if case == "cpb_limit":
+        ea[:9], eb[:9] = 0, np.arange(1, 10)
+        ea[9:17], eb[9:17] = 10, np.arange(11, 19)
+    if case == "gather_safe":
+        ea[: q // 8] = -1
+        eb[q // 8: q // 4] = -1
+    if case == "static_only":
+        ea[:] = -1
+        eb[:] = -1
+    pa, pb = np.repeat(ea, wm), np.repeat(eb, wm)
+    pr = _solve_rows(rng, pa, pb, q * wm, pos, False)
+    pr["valid"] &= (pa >= 0) & (pb >= 0)
+    slot = np.tile(np.arange(wm), q)
+    pr["key"] = np.where(pa >= 0, np.maximum(pb, 0) * 4 + slot + 9, 0).astype(np.int32)
+    if case == "invalid_rows":
+        st["valid"] &= ~np.isin(np.tile(np.arange(k), n), (1, 2))
+        pr["valid"] &= ~np.isin(slot, (1, 3))
+    if case == "pairs_only":
+        st["valid"][:] = False
+    occupied = (ea >= 0) if wm > 1 else (pr["valid"] & (ea >= 0))
+
+    size = 64 if case == "cache" else 1024
+    cache = np.zeros((size, 5), np.float32)
+    cache[:, :2].view(np.int32)[:, 0] = -1
+    rows_a = np.concatenate([st["a"], pr["a"]])
+    rows_key = np.concatenate([st["key"], pr["key"]])
+    rows_ok = np.concatenate([st["valid"], pr["valid"]]) & (rows_a >= 0)
+    h = cache_hash(torch.as_tensor(np.maximum(rows_a, 0)), torch.as_tensor(rows_key),
+                   size).numpy()
+    keep = rows_ok & (rng.random(rows_ok.shape[0]) < (0.9 if case == "cache" else 0.5))
+    for r in np.flatnonzero(keep):
+        cache[h[r], :2].view(np.int32)[:] = (rows_a[r], rows_key[r])
+        cache[h[r], 2:] = (rng.uniform(0, 0.3), *rng.uniform(-0.1, 0.1, 2))
+    return SolveScene(a, st, pr, wm, occupied, cache)
+
+
+def solve_inputs(scene: SolveScene, device):
+    """The port's solve arguments for ``scene`` on ``device``: (body,
+    static Contacts, pair Contacts, table, sign, cache data, wm); the table
+    from KT's twin on the CPU."""
+    from substrata_tpu_torch import convert
+    from substrata_tpu_torch.physics.narrowphase import CONTACT_FIELDS, Contacts
+    body = convert.body_state_from_numpy(scene.bodies, device=device)
+    st, pr = (Contacts(*(torch.as_tensor(np.ascontiguousarray(c[f]), device=device)
+                         for f in CONTACT_FIELDS)) for c in (scene.static, scene.pair))
+    wm = scene.wm
+    e_a = torch.as_tensor(scene.pair["a"][::wm].copy())
+    e_b = torch.as_tensor(scene.pair["b"][::wm].copy())
+    table, sign, _ = layout.incidence_plain(e_a, e_b, torch.as_tensor(scene.occupied),
+                                            SOLVE_N, SOLVE_CPB)
+    return (body, st, pr, table.to(device), sign.to(device),
+            torch.as_tensor(scene.cache, device=device), wm)
+
+
+# ---------------------------------------------------------------------------
+# Rotations (maths/quat.py:rotate_vec, csrc/common.cuh:rotate_vec).
+# ---------------------------------------------------------------------------
+
+def rotation_corpus(seed: int = 0, n: int = 4096):
+    """(q [M, 4], v [M, 3]) float32: random unit quaternions on random
+    vectors, near-identity turns (1e-6 to 1e-2 rad), 180-degree turns (w =
+    0, about random and about the coordinate axes), and the axis-aligned
+    vectors (+-e_k, and e_k scaled) under every kind of turn."""
+    rng = np.random.default_rng(seed)
+
+    def unit(x):
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+    q_rand = unit(rng.normal(size=(n, 4)))
+    axis = unit(rng.normal(size=(n, 3)))
+    half = np.exp(rng.uniform(np.log(1e-6), np.log(1e-2), n)) / 2
+    q_near = np.concatenate([axis * np.sin(half)[:, None], np.cos(half)[:, None]], 1)
+    q_half = np.concatenate([np.concatenate([unit(rng.normal(size=(n - 3, 3))), np.eye(3)]),
+                             np.zeros((n, 1))], 1)
+    qs = np.concatenate([q_rand, q_near, q_half])
+    vs = rng.normal(0, 3, qs.shape[:1] + (3,))
+    basis = np.concatenate([np.eye(3), -np.eye(3), 7.5 * np.eye(3)])
+    pick = rng.integers(0, qs.shape[0], 3 * n)
+    q_ax = qs[pick]
+    v_ax = basis[rng.integers(0, basis.shape[0], 3 * n)]
+    return (np.concatenate([qs, q_ax]).astype(np.float32),
+            np.concatenate([vs, v_ax]).astype(np.float32))

@@ -14,8 +14,10 @@ is memory: ``apply_forces`` reads ~100 bytes and writes 25 bytes per body,
 every intermediate in registers.
 
 Rounding: divisions and square roots use libdevice's correctly rounded
-forms and the launch turns floating-point fusion off, so the kernels
-round like their plain twins (``*_plain`` below), which CPU tensors take.
+forms, the damping's exp is rounded once from float64 (``fp.exp``: the
+card's and the CPU's float32 exps part in the last bit), and the launch
+turns floating-point fusion off, so the kernels round like their plain
+twins (``*_plain`` below), which CPU tensors take, on either device.
 ``triton`` is imported only inside the launching functions, and caches
 what it compiles under ``_build/triton`` unless ``TRITON_CACHE_DIR`` says
 otherwise.
@@ -26,6 +28,7 @@ import os
 import torch
 
 from substrata_tpu_torch.kernels import build
+from substrata_tpu_torch.maths import fp
 from substrata_tpu_torch.maths import quat as quatm
 from substrata_tpu_torch.maths import transform as tmath
 from substrata_tpu_torch.physics.state import (
@@ -82,8 +85,8 @@ def apply_forces_plain(body: BodyState, dt: float, params: SimParams):
     ang_dd = torch.where(torch.abs(ang_dd) > torch.abs(angvel), -angvel, ang_dd)
     angvel = angvel + ang_dd
 
-    lin_damp = torch.exp(-body.linear_damping * dt)[:, None]
-    ang_damp = torch.exp(-body.angular_damping * dt)[:, None]
+    lin_damp = fp.exp(-body.linear_damping * dt)[:, None]
+    ang_damp = fp.exp(-body.angular_damping * dt)[:, None]
     linvel = torch.where(dyn[:, None], linvel * lin_damp, linvel)
     angvel = torch.where(dyn[:, None], angvel * ang_damp, angvel)
     return linvel, angvel, in_water
@@ -236,8 +239,9 @@ def _triton_kernels():
         wz = wz + az_
 
         # Damping (:84-88).
-        lin_damp = libdevice.exp(-ld * dt)
-        ang_damp = libdevice.exp(-ad * dt)
+        # Rounded once from float64, as fp.exp takes it on either device.
+        lin_damp = libdevice.exp((-ld * dt).to(tl.float64)).to(tl.float32)
+        ang_damp = libdevice.exp((-ad * dt).to(tl.float64)).to(tl.float32)
         lx = tl.where(dyn, lx * lin_damp, lx)
         ly = tl.where(dyn, ly * lin_damp, ly)
         lz = tl.where(dyn, lz * lin_damp, lz)

@@ -9,13 +9,16 @@ Baumgarte target from the pre-solve relative velocity, and the warm-start
 probe of the [H, 5] hash cache with the friction-cone clamp) and the
 refresh scatter after them (:449-471).
 
-``solve_setup`` runs ``solve_setup_plain`` for CPU tensors and one launch
-of ``csrc/solve_setup.cu`` for CUDA tensors: one thread per body (its
-mass terms, its table row and its K static rows) and one per pair entry
-(both bodies' terms again, then its wm rows).  ``cache_refresh`` keeps the
-last writer of each colliding cache slot, as a sequential scatter does:
-on the card, an atomicMax of the row index per slot, then only the
-winning row writes (three short kernels in one call).
+``solve_setup`` runs ``solve_setup_plain`` for CPU tensors and, for CUDA
+tensors, one packed call of ``csrc/solve_setup.cu`` that makes two
+launches: a thread per body computes its mass terms and table row once,
+then a thread per contact row builds the row from its bodies' terms.  The
+rows come out in the solve's component-major row layout
+(``solve.row_layout``), views of one allocation that also holds KC's
+buffers.  ``cache_refresh`` keeps the last writer of each colliding cache
+slot, as a sequential scatter does: on the card, an atomicMax of the row
+index per slot, then only the winning row writes (three short kernels in
+one call).
 
 The pair velocities go through bf16 where the reference rounds them
 (:289); the targets divide by the traced ``dt`` (a 0-d tensor here, a
@@ -24,10 +27,12 @@ float32 in the kernel), never by its reciprocal.
 
 from __future__ import annotations
 
+import struct
+
 import torch
 
 from substrata_tpu_torch.kernels import build
-from substrata_tpu_torch.kernels.solve import ContactRows
+from substrata_tpu_torch.kernels.solve import _KQ_FIELDS, ContactRows, SolveWork
 from substrata_tpu_torch.maths import quat as quatm
 from substrata_tpu_torch.maths import transform as tmath
 
@@ -175,10 +180,23 @@ def solve_setup_plain(body, static_cts, pair_cts, table, sign, baumgarte, restit
     return rows, y_s, y_p, (h.to(torch.int32), valid_all)
 
 
+_BODY_NAMES = ("pos", "quat", "linvel", "angvel", "inv_mass", "inv_inertia", "awake", "table",
+               "sign")
+_CONTACT_FIELDS = ("a", "b", "point", "normal", "penetration", "valid", "friction",
+                   "restitution", "key")
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+# The launcher's argument buffer: 29 input pointers, 6 sizes, dt as a
+# double, 23 output and scratch pointers (csrc/solve_setup.cu:solve_setup).
+_PACK = struct.Struct("=35qd23q")
+
+
 def solve_setup(body, static_cts, pair_cts, table, sign, params, dt, cache_data, wm: int):
-    """KQ's first launch: (rows, y_s, y_p, lookup) as ``solve_setup_plain``
-    returns them.  ``dt`` is a Python number, passed to the kernel as a
-    float32 argument (a device tensor would need a sync to read); the CPU
+    """KQ's setup: (rows, y_s, y_p, lookup) as ``solve_setup_plain`` returns
+    them.  On the card: one allocation (``solve.SolveWork``, kept as
+    ``rows.work``) holds the rows in the solve's row layout, the warm
+    impulses, the lookup, KQ's per-body scratch and KC's buffers; one
+    packed launcher call makes the two launches.  ``dt`` is a Python number, passed to the
+    kernel as a float32 (a device tensor would need a sync to read); the CPU
     twin also takes a 0-d tensor."""
     if body.device.type == "cpu":
         dt_t = dt if isinstance(dt, torch.Tensor) else torch.full((), float(dt))
@@ -192,56 +210,45 @@ def solve_setup(body, static_cts, pair_cts, table, sign, params, dt, cache_data,
     Q = pair_cts.capacity // wm
     cpb = table.shape[1]
     S, P = n * K, Q * wm
-    f32, i32, b8 = torch.float32, torch.int32, torch.bool
-    checks = [(body.pos, "pos", f32, (n, 3)), (body.quat, "quat", f32, (n, 4)),
-              (body.linvel, "linvel", f32, (n, 3)), (body.angvel, "angvel", f32, (n, 3)),
-              (body.inv_mass, "inv_mass", f32, (n,)), (body.inv_inertia, "inv_inertia", f32,
-                                                       (n, 3)),
-              (body.awake, "awake", b8, (n,)), (table, "table", i32, (n, cpb)),
-              (sign, "sign", f32, (n, cpb)),
-              (params.baumgarte, "baumgarte", f32, ()),
-              (params.restitution_threshold, "restitution_threshold", f32, ())]
+    ins = (body.pos, body.quat, body.linvel, body.angvel, body.inv_mass, body.inv_inertia,
+           body.awake, table, sign)
+    names = _BODY_NAMES
+    dtypes = (_F32,) * 6 + (_BOOL, _I32, _F32)
+    shapes = ((n, 3), (n, 4), (n, 3), (n, 3), (n,), (n, 3), (n,), (n, cpb), (n, cpb))
     for c, cap, tag in ((static_cts, S, "static"), (pair_cts, P, "pair")):
-        checks += [(c.a, f"{tag}.a", i32, (cap,)), (c.b, f"{tag}.b", i32, (cap,)),
-                   (c.point, f"{tag}.point", f32, (cap, 3)),
-                   (c.normal, f"{tag}.normal", f32, (cap, 3)),
-                   (c.penetration, f"{tag}.penetration", f32, (cap,)),
-                   (c.valid, f"{tag}.valid", b8, (cap,)),
-                   (c.friction, f"{tag}.friction", f32, (cap,)),
-                   (c.restitution, f"{tag}.restitution", f32, (cap,)),
-                   (c.key, f"{tag}.key", i32, (cap,))]
-    if cache_data is not None:
-        checks.append((cache_data, "cache", f32, (cache_data.shape[0], 5)))
-    for t, name, dtype, shp in checks:
-        build.check(t, name, dtype, shp, dev)
-    e = lambda *shape, dtype=f32: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
-    rows = ContactRows(
-        s_dir=e(n, K, 3, 3), s_ang=e(n, K, 3, 3), s_r=e(n, K, 3), s_k=e(n, K, 3),
-        s_target=e(n, K), s_fric=static_cts.friction.reshape(n, K), s_valid=e(n, K),
-        p_dir=e(Q, wm, 3, 3), p_ang_a=e(Q, wm, 3, 3), p_ang_b=e(Q, wm, 3, 3),
-        p_ra=e(Q, wm, 3), p_rb=e(Q, wm, 3), p_k=e(Q, wm, 3), p_target=e(Q, wm),
-        p_fric=pair_cts.friction.reshape(Q, wm), p_valid=e(Q, wm),
-        p_ab=e(2 * Q, dtype=i32), tbl=e(n, cpb, dtype=i32), w=e(n, cpb, 3), im=e(n))
-    y_s, y_p = e(n, K, 3), e(Q, wm, 3)
+        fields = _CONTACT_FIELDS if tag == "pair" else _CONTACT_FIELDS[:1] + _CONTACT_FIELDS[2:]
+        ins += tuple(getattr(c, f) for f in fields)
+        names += tuple(f"{tag}.{f}" for f in fields)
+        dtypes += tuple(_F32 if f in ("point", "normal", "penetration", "friction",
+                                      "restitution") else _BOOL if f == "valid" else _I32
+                        for f in fields)
+        shapes += tuple((cap, 3) if f in ("point", "normal") else (cap,) for f in fields)
+    ins += (params.baumgarte, params.restitution_threshold)
+    names += ("baumgarte", "restitution_threshold")
+    dtypes += (_F32, _F32)
+    shapes += ((), ())
     warm = cache_data is not None
-    h = e(S + P, dtype=i32) if warm else None
-    valid_all = e(S + P, dtype=b8) if warm else None
-    build.launch("solve_setup",
-                 body.pos, body.quat, body.linvel, body.angvel, body.inv_mass,
-                 body.inv_inertia, body.awake, table, sign,
-                 static_cts.a, static_cts.point, static_cts.normal, static_cts.penetration,
-                 static_cts.valid, static_cts.friction, static_cts.restitution, static_cts.key,
-                 pair_cts.a, pair_cts.b, pair_cts.point, pair_cts.normal,
-                 pair_cts.penetration, pair_cts.valid, pair_cts.friction,
-                 pair_cts.restitution, pair_cts.key,
-                 params.baumgarte, params.restitution_threshold, cache_data,
-                 n, K, Q, wm, cpb, cache_data.shape[0] if warm else 0, float(dt),
-                 rows.s_dir, rows.s_ang, rows.s_r, rows.s_k, rows.s_target, rows.s_valid,
-                 rows.p_dir, rows.p_ang_a, rows.p_ang_b, rows.p_ra, rows.p_rb, rows.p_k,
-                 rows.p_target, rows.p_valid, rows.p_ab, rows.tbl, rows.w, rows.im,
-                 y_s, y_p, h, valid_all)
+    if warm:
+        ins += (cache_data,)
+        names += ("cache",)
+        dtypes += (_F32,)
+        shapes += ((cache_data.shape[0], 5),)
+    build.check_all(dev, ins, names, dtypes, shapes)
+    h_size = cache_data.shape[0] if warm else 0
+    work = SolveWork((n, K, Q, wm, cpb), dev)
+    v = work.row_views()
+    rows = ContactRows(**{f: v[f] for f in _KQ_FIELDS}, s_fric=static_cts.friction.reshape(n, K),
+                       p_fric=pair_cts.friction.reshape(Q, wm), work=work)
+    p = work.ptr
+    build.launch_packed("solve_setup", _PACK.pack(
+        *(t.data_ptr() for t in ins[:28]), cache_data.data_ptr() if warm else 0,
+        n, K, Q, wm, cpb, h_size, float(dt),
+        p("sblk", 0), p("sblk", 1), p("svec", 0), p("svec", 1), p("sscal", 0), p("sscal", 1),
+        p("pblk", 0), p("pblk", 1), p("pblk", 2), p("pvec", 0), p("pvec", 1), p("pvec", 2),
+        p("pscal", 0), p("pscal", 1), p("p_ab"), p("tbl"), p("w"), p("im"), p("svec", 2),
+        p("pvec", 3), p("h"), p("valid_all"), p("terms")))
     launches["solve_setup"] += 1
-    return rows, y_s, y_p, ((h, valid_all) if warm else None)
+    return rows, v["y_s"], v["y_p"], ((v["h"], v["valid_all"]) if warm else None)
 
 
 def cache_refresh_plain(cache_data, h, valid_all, static_cts, pair_cts, lam_s, s_valid,
@@ -269,10 +276,22 @@ def cache_refresh_plain(cache_data, h, valid_all, static_cts, pair_cts, lam_s, s
     return data[:size]
 
 
+def _lam_strides(lam, n_rows, name):
+    """(row, component) element strides of an impulse tensor [.., 3]: a
+    row-major one (3, 1) or the solve's component-major state (1, n_rows)."""
+    st = lam.stride()
+    rs, cs = st[-2], st[-1]
+    if (rs, cs) not in ((3, 1), (1, n_rows)) or st[0] != lam.shape[1] * rs:
+        raise ValueError(f"{name}: strides {st}, expected a row-major or component-major "
+                         f"[.., 3] tensor")
+    return rs, cs
+
+
 def cache_refresh(cache_data, h, valid_all, static_cts, pair_cts, lam_s, s_valid, lam_p,
                   p_valid):
     """KQ's refresh: ``cache_refresh_plain`` for CPU tensors, one call of
-    ``csrc/solve_setup.cu:cache_refresh`` for CUDA tensors."""
+    ``csrc/solve_setup.cu:cache_refresh`` for CUDA tensors (the impulses
+    row-major or in the solve's component-major layout)."""
     if cache_data.device.type == "cpu":
         return cache_refresh_plain(cache_data, h, valid_all, static_cts, pair_cts, lam_s,
                                    s_valid, lam_p, p_valid)
@@ -281,21 +300,22 @@ def cache_refresh(cache_data, h, valid_all, static_cts, pair_cts, lam_s, s_valid
     n, K = s_valid.shape
     Q, wm = p_valid.shape
     S, P = n * K, Q * wm
-    f32, i32 = torch.float32, torch.int32
-    for t, name, dtype, shp in ((cache_data, "cache", f32, (size, 5)), (h, "h", i32, (S + P,)),
-                                (valid_all, "valid", torch.bool, (S + P,)),
-                                (static_cts.a, "static.a", i32, (S,)),
-                                (static_cts.key, "static.key", i32, (S,)),
-                                (pair_cts.a, "pair.a", i32, (P,)),
-                                (pair_cts.key, "pair.key", i32, (P,)),
-                                (lam_s, "lam_s", f32, (n, K, 3)), (s_valid, "s_valid", f32, (n, K)),
-                                (lam_p, "lam_p", f32, (Q, wm, 3)),
-                                (p_valid, "p_valid", f32, (Q, wm))):
-        build.check(t, name, dtype, shp, dev)
+    build.check_all(
+        dev, (cache_data, h, valid_all, static_cts.a, static_cts.key, pair_cts.a, pair_cts.key,
+              s_valid, p_valid),
+        ("cache", "h", "valid", "static.a", "static.key", "pair.a", "pair.key", "s_valid",
+         "p_valid"),
+        (_F32, _I32, _BOOL, _I32, _I32, _I32, _I32, _F32, _F32),
+        ((size, 5), (S + P,), (S + P,), (S,), (S,), (P,), (P,), (n, K), (Q, wm)))
+    for lam, name, shape in ((lam_s, "lam_s", (n, K, 3)), (lam_p, "lam_p", (Q, wm, 3))):
+        if lam.dtype is not _F32 or lam.device != dev or lam.shape != shape:
+            build.check(lam.contiguous(), name, _F32, shape, dev)
+    s_rs, s_cs = _lam_strides(lam_s, S, "lam_s")
+    p_rs, p_cs = _lam_strides(lam_p, P, "lam_p")
     out = torch.empty_like(cache_data)
-    last = torch.empty((size,), dtype=i32, device=dev)
+    last = torch.empty((size,), dtype=_I32, device=dev)
     build.launch("cache_refresh", cache_data, h, valid_all, static_cts.a, static_cts.key,
-                 pair_cts.a, pair_cts.key, lam_s, s_valid, lam_p, p_valid, S, P, size, last,
-                 out)
+                 pair_cts.a, pair_cts.key, lam_s, s_valid, lam_p, p_valid, S, P, size,
+                 s_rs, s_cs, p_rs, p_cs, last, out)
     launches["cache_refresh"] += 1
     return out

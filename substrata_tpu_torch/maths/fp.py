@@ -40,6 +40,12 @@ def sqrt(x):
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
+def exp(x):
+    """Correctly rounded float32 exp (through float64), as the kernels
+    take it (the CPU's and the card's float32 exps part in the last bit)."""
+    return torch.exp(x.to(torch.float64)).to(torch.float32)
+
+
 def dot3(a, b):
     """fma(a2, b2, fma(a1, b1, a0 b0)) over the trailing axis: a sum of
     products as XLA reduces it."""

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from substrata_tpu_torch.maths import fp
+
 
 def identity(batch_shape=(), dtype=torch.float32, device=None):
     q = torch.zeros(tuple(batch_shape) + (4,), dtype=dtype, device=device)
@@ -57,18 +59,42 @@ def conjugate(q):
 
 
 def normalize(q, eps=1e-12):
+    """q over its norm; the root correctly rounded (``fp.sqrt``), as the
+    card's sqrtf gives it."""
     n2 = (q[..., 0] * q[..., 0] + q[..., 1] * q[..., 1]
           + q[..., 2] * q[..., 2] + q[..., 3] * q[..., 3])
-    return q / torch.sqrt(torch.clamp(n2, min=eps))[..., None]
+    return q / fp.sqrt(torch.clamp(n2, min=eps))[..., None]
+
+
+def cross_fma(a, b):
+    """``cross`` as XLA contracts it: each component a1 b2 - a2 b1 is
+    fma(a1, b2, -(a2 b1))."""
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([fp.fma(ay, bz, -(az * by)), fp.fma(az, bx, -(ax * bz)),
+                        fp.fma(ax, by, -(ay * bx))], dim=-1)
 
 
 def rotate_vec(q, v):
-    """Rotate vector(s) v [..., 3] by quaternion(s) q [..., 4]."""
+    """Rotate vector(s) v [..., 3] by quaternion(s) q [..., 4]:
+    v + 2 (w (u x v) + u x (u x v)), rounded as every jitted program of the
+    reference rounds it: both cross products ``cross_fma``, and w uv + uuv
+    one fma."""
     u = q[..., :3]
     w = q[..., 3:4]
-    uv = cross(u, v)
-    uuv = cross(u, uv)
-    return v + 2.0 * (w * uv + uuv)
+    uv = cross_fma(u, v)
+    return v + 2.0 * fp.fma(w, uv, cross_fma(u, uv))
+
+
+def rotate_vec_eager(q, v):
+    """``rotate_vec`` as the reference rounds it outside ``jax.jit``: op by
+    op, so w uv + uuv rounds twice, but ``jnp.cross`` is itself a jitted
+    function and contracts its components (the listener's axes,
+    audio/engine.py:set_head_transform)."""
+    u = q[..., :3]
+    w = q[..., 3:4]
+    uv = cross_fma(u, v)
+    return v + 2.0 * (w * uv + cross_fma(u, uv))
 
 
 def inverse_rotate_vec(q, v):

@@ -4,7 +4,7 @@ Counterpart of ``substrata_tpu/physics/solver.py``.  The per-step setup
 (effective masses, targets, warm-start lookup) and the cache refresh go
 through kernel KQ (``kernels/solve_setup.py``), every iteration and the
 warm-start pre-apply through kernel KC (``kernels/solve.py``, two
-launches each on the card); the incidence table (K5) is kernel KT
+launches a pass on the card, the whole solve checked and packed once); the incidence table (K5) is kernel KT
 (``kernels/layout.py``) and the position solve (K7) kernel KU
 (``kernels/positions.py``).
 
@@ -21,7 +21,8 @@ import dataclasses
 import torch
 
 from substrata_tpu_torch.kernels import layout, positions
-from substrata_tpu_torch.kernels.solve import ContactRows, SolveState, solve_iteration
+from substrata_tpu_torch.kernels import solve as kc
+from substrata_tpu_torch.kernels.solve import ContactRows, SolveState
 from substrata_tpu_torch.kernels.solve_setup import cache_refresh, solve_setup
 from substrata_tpu_torch.physics.narrowphase import Contacts
 from substrata_tpu_torch.physics.state import (BodyState, SimConfig, SimParams,
@@ -99,15 +100,19 @@ def prepare_solve(body: BodyState, static_cts: Contacts, pair_cts: Contacts,
                       lookup)
 
 
-def iterate(setup: SolveSetup, linvel, angvel, iters: int, step=solve_iteration):
+def iterate(setup: SolveSetup, linvel, angvel, iters: int, step=None):
     """Warm-start pre-apply, then ``iters`` FISTA iterations with
     beta_k = k/(k+3), 0 on the last so the final velocities match the
-    feasible impulses.  ``step`` is kernel KC (or its plain twin)."""
+    feasible impulses.  By default the whole solve is kernel KC's
+    ``solve`` (one plan a solve on the card); ``step`` runs it pass by
+    pass instead (``solve_iteration``, KC checked at every call, or its
+    plain twin)."""
+    if step is None:
+        return kc.solve(setup.rows, setup.state0, linvel, angvel, iters, setup.warm)
     st = setup.state0
     if setup.warm:
         st, linvel, angvel = step(setup.rows, st, linvel, angvel, 0.0, True)
-    for k in range(iters):
-        beta = k / (k + 3.0) if k < iters - 1 else 0.0
+    for beta in kc.betas(iters):
         st, linvel, angvel = step(setup.rows, st, linvel, angvel, beta)
     return st, linvel, angvel
 

@@ -431,14 +431,15 @@ def _hard_scene_arrays(scene):
     return {k: np.ascontiguousarray(v) for k, v in a.items()}, sw
 
 
-@pytest.mark.parametrize("case", ["land_first", "land_last", "land_late", "land_none",
-                                  "forward_column", "stick_0", "stick_1", "stick_2", "cell_4m"])
-def test_hard_character_cases_match_reference(case):
-    """The twin of KL against character_update at every update of each
-    hard scene, both from the twin's state (the chain the kernel is held
-    to on the card; a ridge or a ledge turns the chains' last-bit
-    differences into different paths): within 1e-5, flags and the touched
-    list exact; and the twin takes the scene's branch at its update."""
+HARD_CHARACTER_CASES = ["land_first", "land_last", "land_late", "land_none", "forward_column",
+                        "stick_0", "stick_1", "stick_2", "cell_4m"]
+
+
+def _hard_character_compare(case, chained):
+    """The twin of KL against character_update at every update of the
+    hard scene ``case``: the reference from the twin's state, or (with
+    ``chained``) from its own; within 1e-5, flags and the touched list
+    exact; and the twin takes the scene's branch at its update."""
     from substrata_tpu_torch.kernels import hard_cases
     scene = hard_cases.character_scene(case)
     a, sw = _hard_scene_arrays(scene)
@@ -453,10 +454,11 @@ def test_hard_character_cases_match_reference(case):
     tc = convert.character_from_numpy({f: np.asarray(getattr(j0, f))
                                        for f in tchar.CHARACTER_FIELDS}, device="cpu")
     tc = tc.replace(gravity_enabled=torch.ones((), dtype=torch.bool))
+    jc = None
     move = np.asarray(scene.move, np.float32)
     for i in range(scene.updates):
-        jin = j0.replace(**{f: jnp.asarray(getattr(tc, f).numpy())
-                            for f in tchar.CHARACTER_FIELDS})
+        jin = jc if chained and jc is not None else j0.replace(
+            **{f: jnp.asarray(getattr(tc, f).numpy()) for f in tchar.CHARACTER_FIELDS})
         jc, jcam, jj, jt = jchar.character_update(jin, jbody, sw, jnp.asarray(move), False, False,
                                                   False, DT, params, jcfg, -1)
         (tc, tcam, tj, tt), seen = hard_cases.observe_branches(
@@ -473,3 +475,21 @@ def test_hard_character_cases_match_reference(case):
         np.testing.assert_array_equal(tt.numpy(), np.asarray(jt), err_msg=msg)
         if i == scene.at and scene.branch is not None:
             assert seen.get(scene.branch[0], "absent") == scene.branch[1], (msg, seen)
+
+
+@pytest.mark.parametrize("case", HARD_CHARACTER_CASES)
+def test_hard_character_cases_match_reference(case):
+    """The twin of KL against character_update at every update of each
+    hard scene, both from the twin's state (the chain the kernel is held
+    to on the card; a ridge or a ledge turns the chains' last-bit
+    differences into different paths): within 1e-5, flags and the touched
+    list exact; and the twin takes the scene's branch at its update."""
+    _hard_character_compare(case, chained=False)
+
+
+@pytest.mark.parametrize("case", HARD_CHARACTER_CASES)
+def test_hard_character_cases_chain_like_reference(case):
+    """Each side chained from its own state through every update of each
+    hard scene (the foot's integration rounds as the jitted reference
+    contracts it, one fma), with the per-update test's bounds and branch."""
+    _hard_character_compare(case, chained=True)

@@ -9,7 +9,9 @@ only, so it also runs on a machine without JAX:
 
 Tolerances are chip_smoke.py's: 1e-5 for KA/KB rows (KB also on
 kernels/hard_cases.py's static-contact scenes), 1e-4 for KC
-velocities after warm start + 7 iterations, 1e-6 for KD and KE, 1e-5 for
+velocities after warm start + 7 iterations and every one of those passes
+exact (also on the hard solve scenes, and the planned whole solve equal to
+the passes), 1e-6 for KD and KE, 1e-5 for
 KF and KG, 1e-6 for KH (hit and body exact) and KI, 1e-5 of each output's
 scale for KJ, 1e-5 for KK's rows (masks, keys and touching exact), 1e-6 of
 scale for KL (flags and the touched list exact), KM and KN exact, 1e-5
@@ -123,6 +125,119 @@ def test_solve_iterations_kernel_matches_plain(world):
     assert float((lk - lp).abs().max()) <= 1e-4
     assert float((ak - ap).abs().max()) <= 1e-4
     assert float((stk.p_l - stp.p_l).abs().max()) <= 1e-4 * max(float(stp.p_l.abs().max()), 1.0)
+
+
+def _kc_passes(setup, linvel, angvel, iters, what):
+    """KC against its twin at every pass of one solve (the warm pre-apply,
+    then each iteration), each side chained from its own state, both from
+    the same rows: linvel, angvel, s_y, s_l, p_y and p_l equal to the bit;
+    then the planned whole solve equal to the chain's end."""
+    st_k = st_p = setup.state0
+    lk = lp = linvel
+    ak = ap = angvel
+    sched = ([(0.0, True)] if setup.warm else []) + [(b, False) for b in kc.betas(iters)]
+    for i, (beta, warm) in enumerate(sched):
+        st_k, lk, ak = kc.solve_iteration(setup.rows, st_k, lk, ak, beta, warm)
+        st_p, lp, ap = kc.solve_iteration_plain(setup.rows, st_p, lp, ap, beta, warm)
+        for x, y, name in ((lk, lp, "linvel"), (ak, ap, "angvel"), (st_k.s_y, st_p.s_y, "s_y"),
+                           (st_k.s_l, st_p.s_l, "s_l"), (st_k.p_y, st_p.p_y, "p_y"),
+                           (st_k.p_l, st_p.p_l, "p_l")):
+            assert torch.equal(x, y), (what, i, name)
+    st_f, lf, af = kc.solve(setup.rows, setup.state0, linvel, angvel, iters, setup.warm)
+    for x, y, name in ((lf, lk, "linvel"), (af, ak, "angvel"), (st_f.s_l, st_k.s_l, "s_l"),
+                       (st_f.p_l, st_k.p_l, "p_l"), (st_f.s_y, st_k.s_y, "s_y"),
+                       (st_f.p_y, st_k.p_y, "p_y")):
+        assert torch.equal(x, y), (what, "plan", name)
+    return len(sched)
+
+
+def test_solve_every_pass_matches_plain(world):
+    """KC at the warm pass and at each of the 7 iterations, from KQ's rows
+    of the test world: every output equal to the twin's to the bit."""
+    s, pc, cfg = world.state, world.pair_cache, world.config
+    wm = narrowphase.blocked_manifold_width(cfg, s.capacity)
+    pair_cts, _, _ = narrowphase.pair_contacts(s, pc.pair_a, pc.pair_b, pc.pair_valid,
+                                               cfg, blocked_wm=wm)
+    static_cts = narrowphase.static_contacts(s, world.static_world, cfg)
+    setup = solver.prepare_solve(s, static_cts, pair_cts, DT, world.params, cfg,
+                                 world.solver_cache, wm=wm, table=pc.inc_table,
+                                 sign=pc.inc_sign)
+    assert _kc_passes(setup, s.linvel, s.angvel, 7, "world") == 8
+
+
+@pytest.mark.parametrize("case", hard_cases.SOLVE_CASES)
+def test_solve_hard_cases_kernels_match_plain(world, case):
+    """KQ on kernels/hard_cases.py's solve scenes within 1e-6 of each
+    output's scale (masks, slots and table entries exact) and its refresh
+    exact; KC exact at every pass from KQ's rows."""
+    from substrata_tpu_torch.kernels import solve_setup as kq
+    from substrata_tpu_torch.physics.state import default_sim_params
+    p = default_sim_params(device="cuda")
+    body, st, pr, table, sign, cache, wm = hard_cases.solve_inputs(
+        hard_cases.solve_scene(case), "cuda")
+    args = (body, st, pr, table, sign)
+    rk, ysk, ypk, (hk, vk) = kq.solve_setup(*args, p, DT, cache, wm)
+    rp, ysp, ypp, (hp, vp) = kq.solve_setup_plain(
+        *args, p.baumgarte, p.restitution_threshold, torch.full((), DT, device="cuda"), cache, wm)
+    for f in ("s_dir", "s_ang", "s_r", "s_k", "s_target", "p_dir", "p_ang_a", "p_ang_b",
+              "p_ra", "p_rb", "p_k", "p_target", "w", "im"):
+        a, b = getattr(rk, f), getattr(rp, f)
+        assert float((a - b).abs().max()) <= 1e-6 * max(1.0, float(b.abs().max())), (case, f)
+    for f in ("s_valid", "p_valid", "p_ab", "tbl"):
+        assert torch.equal(getattr(rk, f), getattr(rp, f)), (case, f)
+    assert torch.equal(hk, hp) and torch.equal(vk, vp), case
+    for a, b in ((ysk, ysp), (ypk, ypp)):
+        assert float((a - b).abs().max()) <= 1e-6 * max(1.0, float(b.abs().max())), case
+    setup = solver.SolveSetup(rk, kc.SolveState(ysk, ysk, ypk, ypk), True, table, sign, (hk, vk))
+    assert _kc_passes(setup, body.linvel, body.angvel, 7, case) == 8
+    lam_s, lam_p = torch.rand_like(ysp), torch.rand_like(ypp)
+    rargs = (cache, hp, vp, st, pr, lam_s, rp.s_valid, lam_p, rp.p_valid)
+    ck, cp = kq.cache_refresh(*rargs), kq.cache_refresh_plain(*rargs)
+    assert torch.equal(ck.view(torch.int32), cp.view(torch.int32)), case
+
+
+def test_solve_plan_follows_its_inputs(world):
+    """The planned solve on a second world of the same shape gives that
+    world's answer (no plan or buffer outlives its solve), the first
+    solve's outputs stay as they were, and a wrong dtype, device or shape
+    still raises."""
+    from substrata_tpu_torch.kernels import solve_setup as kq
+    from substrata_tpu_torch.physics.state import default_sim_params
+    p = default_sim_params(device="cuda")
+    outs = []
+    for case in ("wm4", "asleep"):
+        body, st, pr, table, sign, cache, wm = hard_cases.solve_inputs(
+            hard_cases.solve_scene(case), "cuda")
+        rk, ys, yp, _ = kq.solve_setup(body, st, pr, table, sign, p, DT, cache, wm)
+        s0 = kc.SolveState(ys, ys, yp, yp)
+        got = kc.solve(rk, s0, body.linvel, body.angvel, 7, True)
+        want = _plain_solve(rk, s0, body.linvel, body.angvel)
+        outs.append((got, [x.clone() for x in (got[1], got[2], got[0].p_l)], want))
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]), case
+    (first, kept, _), _ = outs
+    for x, y in zip((first[1], first[2], first[0].p_l), kept):
+        assert torch.equal(x, y)
+    body, st, pr, table, sign, cache, wm = hard_cases.solve_inputs(
+        hard_cases.solve_scene("wm4"), "cuda")
+    rk, ys, yp, _ = kq.solve_setup(body, st, pr, table, sign, p, DT, cache, wm)
+    s0 = kc.SolveState(ys, ys, yp, yp)
+    with pytest.raises(TypeError):
+        kc.solve(rk, s0, body.linvel.double(), body.angvel, 7, True)
+    with pytest.raises(ValueError):
+        kc.solve(rk, s0, body.linvel, body.angvel.cpu(), 7, True)
+    with pytest.raises(ValueError):
+        kc.solve(rk, s0, body.linvel[:-1], body.angvel, 7, True)
+    bad = kc.ContactRows(**{**{f: getattr(rk, f) for f in kc._KQ_FIELDS},
+                            "s_fric": rk.s_fric, "p_fric": rk.p_fric[:-1]})
+    with pytest.raises(ValueError):
+        kc.solve(bad, s0, body.linvel, body.angvel, 7, True)
+
+
+def _plain_solve(rows, st0, linvel, angvel):
+    st, lin, ang = kc.solve_iteration_plain(rows, st0, linvel, angvel, 0.0, True)
+    for beta in kc.betas(7):
+        st, lin, ang = kc.solve_iteration_plain(rows, st, lin, ang, beta)
+    return st, lin, ang
 
 
 def test_integrate_kernels_match_plain(world):
@@ -776,7 +891,8 @@ def test_mesh_world_on_card_matches_cpu():
     """40 client frames of a 1,200-object mesh world on the card and on the
     CPU path: the hulls within 1e-5 over frames 0-8, before the first
     trimesh kick (chip_smoke.py:small_mesh_phase says why not after), the
-    character within 1e-5 and the hit masks equal over all 40."""
+    character within 1e-5 and the hit masks equal over all 40; and the
+    hulls and the character equal to the bit over all 40."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     runs = {}
@@ -792,6 +908,10 @@ def test_mesh_world_on_card_matches_cpu():
             assert float((a[0] - b[0]).abs().max()) <= 1e-5, t
         assert float((a[1] - b[1]).abs().max()) <= 1e-5, t
         assert np.array_equal(a[2], b[2]), t
+    # Since KD's exp and quat.normalize's root round alike on both devices,
+    # the two paths are equal to the bit, the kicked hulls included.
+    for t, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), t
 
 
 def test_cell_table_kernel_matches_plain(world):

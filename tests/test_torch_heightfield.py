@@ -5,8 +5,9 @@ and KL read them) repeat the reference's contractions: three fmas for the
 bilinear height, one for each gradient, the normal's length as the norm's
 fma chain, the cell width divided as a tensor; a radius sample's contact
 point is fma(-n, r, p).  Heights and normals (at random points, on the
-cell corners and one ulp past them) and one ``static_contacts`` pass are
-held bit-equal to the jitted reference on a rough field.
+cell corners and one ulp past them) and one ``static_contacts`` pass, of
+unrotated and of tilted bodies, are held bit-equal to the jitted reference
+on a rough field.
 """
 
 import jax
@@ -61,17 +62,19 @@ def test_heights_and_normals_bit_equal(seed):
     np.testing.assert_array_equal(tn, jn)
 
 
-def _bodies(seed, n=256):
-    """Spheres, boxes and capsules on the rough field, unrotated: a
-    rotated sample point is a few ulp from the reference's (the rotation's
-    own contractions, ROADMAP.md's known divergences), and this pass holds
-    the heightfield's rounding alone."""
+def _bodies(seed, n=256, rotated=False):
+    """Spheres, boxes and capsules on the rough field, unrotated (the
+    heightfield's rounding alone) or tilted at random (the rotation's
+    contractions too)."""
     from torch_port_helpers import box_world_arrays
     rng = np.random.default_rng(seed)
     a = box_world_arrays(n, n, seed, z0=0.4, dz=0.0, speed=0.3)
     a["pos"][:, :2] = rng.uniform(-38.0, 36.0, (n, 2)).astype(np.float32)
     a["pos"][:, 2] = rng.uniform(-0.5, 0.8, n).astype(np.float32)
     a["quat"] = np.tile(np.array([0, 0, 0, 1], np.float32), (n, 1))
+    if rotated:
+        q = rng.normal(size=(n, 4))
+        a["quat"] = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
     a["shape_type"] = (np.arange(n) % 3).astype(np.int32)
     prm = np.zeros((n, 4), np.float32)
     prm[:, 0] = rng.uniform(0.2, 0.5, n)
@@ -80,6 +83,31 @@ def _bodies(seed, n=256):
     a["shape_params"] = prm
     a["bound_radius"] = np.linalg.norm(prm[:, :3], axis=1).astype(np.float32) + prm[:, 0]
     return a
+
+
+def _static_contacts_bit_equal(k, arrays):
+    jhf, _ = _rough()
+    jw = jstate.default_static_world().replace(heightfield=jhf)
+    tw = convert.static_world_from_numpy(static_world_np(jw), device="cpu")
+    kw = dict(capacity=arrays["pos"].shape[0], static_contacts_per_body=k,
+              present_shape_types=(True, True, True, False))
+    jc = _jstatic_contacts(jax_body(arrays), jw, jnp.zeros((64, 8, 3)),
+                           config=jstate.SimConfig(**kw))
+    tc = tnp_phase.static_contacts(convert.body_state_from_numpy(arrays, device="cpu"), tw,
+                                   tstate.SimConfig(**kw))
+    assert int(tc.valid.sum()) > 100
+    for f in ("a", "b", "key", "valid", "point", "normal", "penetration", "friction",
+              "restitution"):
+        np.testing.assert_array_equal(getattr(tc, f).numpy(), np.asarray(getattr(jc, f)),
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("k", [4, 8])
+def test_static_contacts_of_tilted_bodies_bit_equal(k):
+    """Tilted spheres, boxes and capsules: their sample points rotate as
+    the jitted reference rotates them (maths/quat.py:rotate_vec), so the
+    whole pass is bit-equal too."""
+    _static_contacts_bit_equal(k, _bodies(11 + k, rotated=True))
 
 
 @pytest.mark.parametrize("k", [4, 8])

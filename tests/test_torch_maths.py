@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from substrata_tpu.maths import quat as jq
 from substrata_tpu.maths import transform as jt
@@ -94,3 +95,23 @@ def test_mat_vec_and_cross_are_written_out_in_order():
     assert torch.equal(mv, ref)
     np.testing.assert_allclose(tq.cross(vt, vt.flip(0)).numpy(),
                                np.cross(v, v[::-1]), atol=1e-5)
+
+
+def test_rotation_corpus_bit_equal_to_the_jitted_reference():
+    """kernels/hard_cases.py's rotation corpus: ``rotate_vec`` and
+    ``inverse_rotate_vec`` equal to the jitted reference's to the bit (its
+    cross products and w uv + uuv contracted into fmas), and
+    ``rotate_vec_eager`` equal to the reference run op by op."""
+    from substrata_tpu_torch.kernels import hard_cases
+    q, v = hard_cases.rotation_corpus()
+    tqv, tvv = torch.as_tensor(q), torch.as_tensor(v)
+    np.testing.assert_array_equal(tq.rotate_vec(tqv, tvv).numpy(),
+                                  np.asarray(jax.jit(jq.rotate_vec)(q, v)))
+    np.testing.assert_array_equal(tq.inverse_rotate_vec(tqv, tvv).numpy(),
+                                  np.asarray(jax.jit(jq.inverse_rotate_vec)(q, v)))
+    np.testing.assert_array_equal(tq.rotate_vec_eager(tqv, tvv).numpy(),
+                                  np.asarray(jq.rotate_vec(jnp.asarray(q), jnp.asarray(v))))
+    # The contraction matters on this corpus: the plain form parts from it.
+    plain = tvv + 2.0 * (tqv[:, 3:] * tq.cross(tqv[:, :3], tvv)
+                         + tq.cross(tqv[:, :3], tq.cross(tqv[:, :3], tvv)))
+    assert (plain.numpy() != tq.rotate_vec(tqv, tvv).numpy()).any(axis=1).mean() > 0.2

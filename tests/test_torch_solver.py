@@ -181,3 +181,133 @@ def test_targets_divide_by_traced_dt(scene):
         want = np.asarray(bias(jnp.asarray(pen), s["jp"].baumgarte, jnp.float32(DT)))
         np.testing.assert_array_equal(got.numpy(), want.reshape(got.shape))
         assert (pen * (np.float32(1) / np.float32(DT)) != pen / np.float32(DT)).sum() > 100
+
+
+def _hard_solve(case):
+    """kernels/hard_cases.py's solve scene on both solvers: (reference
+    result, port result, scene, the port's inputs)."""
+    from substrata_tpu_torch.kernels import hard_cases
+    scene = hard_cases.solve_scene(case)
+    body, st, pr, table, sign, cache, wm = hard_cases.solve_inputs(scene, "cpu")
+    kw = dict(capacity=hard_cases.SOLVE_N, max_pairs=4 * hard_cases.SOLVE_N,
+              static_contacts_per_body=hard_cases.SOLVE_K,
+              contacts_per_body=hard_cases.SOLVE_CPB, solver_iters=7)
+    jcfg, tcfg = jstate.SimConfig(**kw), tstate.SimConfig(**kw)
+    jp = jstate.default_sim_params()
+    jc = [jnp_phase.Contacts(**{f: jnp.asarray(np.ascontiguousarray(c[f]))
+                                for f in tnp_phase.CONTACT_FIELDS})
+          for c in (scene.static, scene.pair)]
+    jres = _solve_contacts(jax_body(scene.bodies), jc[0], jc[1], jnp.float32(DT), jp,
+                           config=jcfg, cache=jsolver.SolverCache(data=jnp.asarray(scene.cache)),
+                           wm=wm, table=jnp.asarray(table.numpy()), sign=jnp.asarray(sign.numpy()))
+    tres = tsolver.solve_contacts(body, st, pr, DT, convert.sim_params_from_numpy(
+        params_np(jp), device="cpu"), tcfg, tsolver.SolverCache(data=cache), wm=wm,
+        table=table, sign=sign)
+    return jres, tres, scene, (st, pr)
+
+
+@pytest.mark.parametrize("case", ["cpb_limit", "asleep", "invalid_rows", "gather_safe",
+                                  "static_only", "pairs_only", "wm1", "wm4", "cache"])
+def test_solve_hard_cases_match_reference(case):
+    """The solve's twins (KQ's and KC's) against the reference on
+    kernels/hard_cases.py's solve scenes: the velocities and both lambda_n
+    within 1e-3 of their scale (the scenes' random normals and tumbling
+    bodies give pair payloads whose f32 values part in the last bit, the
+    reference contracting its cross and dot products, and then and there a
+    payload's bf16 rounding can go the other way: one bf16 ulp, 2^-8 of that
+    payload; ``pairs_only`` meets one such, 1.3e-4 of the angular
+    velocities' scale), the refreshed cache's keys equal and its impulses as
+    close on the slots one row writes."""
+    jres, tres, scene, (st, pr) = _hard_solve(case)
+    for i in (0, 1, 2, 5):
+        _close(tres[i].numpy(), jres[i], rel=1e-3)
+    jd, td = np.asarray(jres[6].data), tres[6].data.numpy()
+    a = np.concatenate([scene.static["a"], scene.pair["a"]])
+    key = np.concatenate([scene.static["key"], scene.pair["key"]])
+    valid = np.concatenate([scene.static["valid"], scene.pair["valid"]]) & (a >= 0)
+    h = solve_setup.cache_hash(torch.as_tensor(np.maximum(a, 0)), torch.as_tensor(key),
+                               jd.shape[0]).numpy()[valid]
+    slots, n_writes = np.unique(h, return_counts=True)
+    single = slots[n_writes == 1]
+    np.testing.assert_array_equal(td[single, :2].view(np.int32), jd[single, :2].view(np.int32))
+    _close(td[single, 2:], jd[single, 2:], rel=1e-3)
+    if case == "cache":
+        # Hits, misses, and slots that several valid rows share.
+        stored = scene.cache[h, :2].view(np.int32)
+        hit = (stored[:, 0] == a[valid]) & (stored[:, 1] == key[valid])
+        assert hit.sum() > 20 and (~hit).sum() > 20 and (n_writes > 1).sum() > 10
+    if case == "static_only":
+        assert not bool(pr.valid.any()) and bool(st.valid.any())
+
+
+def test_row_layout_views_are_the_kernels_addresses():
+    """Every view KQ hands out (the rows, the warm impulses, the lookup)
+    and every state and velocity KC returns lies at the address the
+    kernels write it to (csrc/solve_setup.cu, csrc/solve_contacts.cu):
+    component-major blocks and vectors, the slot-major table and weights."""
+    from substrata_tpu_torch.kernels import solve as kc
+    n, k, q, wm, cpb = 37, 4, 29, 4, 8
+    S, P = n * k, q * wm
+    w = kc.SolveWork((n, k, q, wm, cpb), torch.device("cpu"))
+    v = w.row_views()
+    rng = np.random.default_rng(0)
+    for _ in range(100):
+        i, kk, e, lane = rng.integers(n), rng.integers(k), rng.integers(q), rng.integers(wm)
+        d, c, slot = rng.integers(3), rng.integers(3), rng.integers(cpb)
+        r, pr = i * k + kk, e * wm + lane
+        want = {("s_dir", (i, kk, d, c)): w.ptr("sblk", 0) + 4 * ((d * 3 + c) * S + r),
+                ("s_ang", (i, kk, d, c)): w.ptr("sblk", 1) + 4 * ((d * 3 + c) * S + r),
+                ("p_dir", (e, lane, d, c)): w.ptr("pblk", 0) + 4 * ((d * 3 + c) * P + pr),
+                ("p_ang_a", (e, lane, d, c)): w.ptr("pblk", 1) + 4 * ((d * 3 + c) * P + pr),
+                ("p_ang_b", (e, lane, d, c)): w.ptr("pblk", 2) + 4 * ((d * 3 + c) * P + pr),
+                ("s_r", (i, kk, c)): w.ptr("svec", 0) + 4 * (c * S + r),
+                ("s_k", (i, kk, c)): w.ptr("svec", 1) + 4 * (c * S + r),
+                ("y_s", (i, kk, c)): w.ptr("svec", 2) + 4 * (c * S + r),
+                ("p_ra", (e, lane, c)): w.ptr("pvec", 0) + 4 * (c * P + pr),
+                ("p_rb", (e, lane, c)): w.ptr("pvec", 1) + 4 * (c * P + pr),
+                ("p_k", (e, lane, c)): w.ptr("pvec", 2) + 4 * (c * P + pr),
+                ("y_p", (e, lane, c)): w.ptr("pvec", 3) + 4 * (c * P + pr),
+                ("s_target", (i, kk)): w.ptr("sscal", 0) + 4 * r,
+                ("s_valid", (i, kk)): w.ptr("sscal", 1) + 4 * r,
+                ("p_target", (e, lane)): w.ptr("pscal", 0) + 4 * pr,
+                ("p_valid", (e, lane)): w.ptr("pscal", 1) + 4 * pr,
+                ("tbl", (i, slot)): w.ptr("tbl") + 4 * (slot * n + i),
+                ("w", (i, slot, c)): w.ptr("w") + 4 * ((slot * 3 + c) * n + i),
+                ("im", (i,)): w.ptr("im") + 4 * i, ("p_ab", (e,)): w.ptr("p_ab") + 4 * e,
+                ("h", (pr,)): w.ptr("h") + 4 * pr, ("valid_all", (pr,)): w.ptr("valid_all") + pr}
+        for (name, idx), addr in want.items():
+            assert v[name][idx].data_ptr() == addr, name
+        for j in (0, 1):
+            st = w.state(j)
+            assert st.s_y[i, kk, c].data_ptr() == w.ptr("sstate", 2 * j) + 4 * (c * S + r)
+            assert st.s_l[i, kk, c].data_ptr() == w.ptr("sstate", 2 * j + 1) + 4 * (c * S + r)
+            assert st.p_y[e, lane, c].data_ptr() == w.ptr("pstate", 2 * j) + 4 * (c * P + pr)
+            assert st.p_l[e, lane, c].data_ptr() == w.ptr("pstate", 2 * j + 1) + 4 * (c * P + pr)
+            lin, ang = w.velocity(j)
+            assert lin[i, c].data_ptr() == w.ptr("vel", 2 * j) + 4 * (i * 3 + c)
+            assert ang[i, c].data_ptr() == w.ptr("vel", 2 * j + 1) + 4 * (i * 3 + c)
+    assert w.ptr("terms") % 16 == 0
+
+
+def test_twin_on_the_row_layout_is_the_twin(scene):
+    """The twin solving from rows in the kernels' component-major layout
+    gives the row-major rows' answer to the bit, every pass."""
+    from substrata_tpu_torch.kernels import solve as kc
+    s = scene
+    table, sign, _ = s["inc"]
+    setup = tsolver.prepare_solve(s["tb"], s["tstatic"], s["tpair"], DT, s["tp"], s["tcfg"],
+                                  s["twarm"], wm=WM, table=torch.tensor(np.asarray(table)),
+                                  sign=torch.tensor(np.asarray(sign)))
+    dims = kc._dims(setup.rows)
+    rows = kc.ContactRows(**kc._to_layout(setup.rows, kc.row_layout(*dims), torch.device("cpu")))
+    st0 = kc.SolveState(**kc._to_layout(setup.state0, kc._state_specs(*dims[:4]),
+                                        torch.device("cpu")))
+    assert rows.s_dir.stride() != setup.rows.s_dir.stride()
+    a = (st0, s["tb"].linvel, s["tb"].angvel)
+    b = (setup.state0, s["tb"].linvel, s["tb"].angvel)
+    for i, beta in enumerate([None] + kc.betas(7)):
+        a = kc.solve_iteration_plain(rows, *a, beta or 0.0, beta is None)
+        b = kc.solve_iteration_plain(setup.rows, *b, beta or 0.0, beta is None)
+        for x, y in zip((a[1], a[2], a[0].s_y, a[0].s_l, a[0].p_y, a[0].p_l),
+                        (b[1], b[2], b[0].s_y, b[0].s_l, b[0].p_y, b[0].p_l)):
+            assert torch.equal(x, y), i
