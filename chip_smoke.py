@@ -29,6 +29,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    blocks: KE fetch, KF spatialise and KG downmix + reverb each against its
    plain twin on the same inputs, with the tolerance stated beside it, all
    timed as in phase 3, and the whole mix_block, kernel route vs plain;
+   KG also on kernels/hard_cases.py's downmix scenes (1 to 1,024 sources,
+   1 to 1,024 frames, the ring wrapping, a delay of D - 1, no room), and
+   to the bit where kernel and twin run the same operations (see kg_bits),
+   with the three torch.sum calls of its sums timed beside it;
 7. physics + audio: bench.py's window 2 on the port, 180 physics_audio_tick
    calls (think, sources follow bodies, mix one tick) with phase 5's kick;
    the output is finite, within [-1, 1], not silent and not mono, the
@@ -121,7 +125,12 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    (strike wake, sleep pass) on the bench, serving and mesh worlds; each
    against its twin: KU within 1e-6 of the positions' scale, everything
    else exact (pairs, margins, counters, buckets, compacted rows, tables,
-   flags, timers).
+   flags, timers); KS also to the bit at rebuilds of the mesh world and of
+   the full tick's world after 30 full ticks, on kernels/hard_cases.py's
+   pair scenes at their own pairs_per_body and at 1 and 16, and on the
+   cell table's hard inputs made into bodies (10,239 over 16,384 buckets;
+   65,536 over grid 160), with its launches' device µs apart and its host
+   µs a call.
    Then torch.profiler over think rebuild ticks and serving ticks: no
    aten sort, argsort, cumsum, cummax or searchsorted runs inside a
    ``physics_step`` range;
@@ -262,6 +271,16 @@ def max_err(x, y, mask=None):
 def check(ok, msg):
     if not ok:
         raise AssertionError(msg)
+
+
+def same_bits(a, b):
+    """Equal dtypes, shapes and values, a NaN equal to a NaN."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(torch.where(na, 0.0, a), torch.where(nb, 0.0, b))
 
 
 def _tensors(obj):
@@ -655,11 +674,35 @@ class plain_mix:
             setattr(m, n, fn)
 
 
+def kg_bits(gargs, what):
+    """KG against its twin to the bit where both run the same operations:
+    the write index and the ring positions no frame writes; out without a
+    room; with the wet mix and the feedback at 0, out and every line."""
+    from substrata_tpu_torch.kernels import audio_mix as ka
+    gk, gp = ka.audio_downmix_reverb(*gargs), ka.audio_downmix_reverb_plain(*gargs)
+    if len(gargs) == 4:
+        check(torch.equal(gk[0], gp[0]), f"KG {what}: out differs from its twin's bits")
+        return dict(bit_equal_out=True)
+    check(torch.equal(gk[2], gp[2]), f"KG {what}: write index differs")
+    d, b = gk[1].shape[1], gargs[0].shape[1]
+    kept = torch.ones(d, dtype=torch.bool, device=gk[1].device)
+    kept[torch.remainder(gargs[5] + torch.arange(b, device=kept.device), d).long()] = False
+    check(torch.equal(gk[1][:, kept], gargs[4][:, kept]), f"KG {what}: the carried ring differs")
+    zero = torch.zeros((), device=kept.device)
+    z = tuple(gargs[:7]) + (zero, zero)
+    zk, zp = ka.audio_downmix_reverb(*z), ka.audio_downmix_reverb_plain(*z)
+    check(torch.equal(zk[0], zp[0]) and torch.equal(zk[1], zp[1]),
+          f"KG {what}: the sums differ from the twin's bits (wet and feedback 0)")
+    return dict(bit_equal_sums=True, bit_equal_out=torch.equal(gk[0], gp[0]),
+                bit_equal_lines=torch.equal(gk[1], gp[1]))
+
+
 def audio_kernel_phase(w, device="cuda", blocks=30, plain_reps=5):
     from substrata_tpu_torch.audio import mix
     from substrata_tpu_torch.audio.hrtf import hrir_bank_tensor
     from substrata_tpu_torch.benchworld import TICK_FRAMES, bench_audio
     from substrata_tpu_torch.kernels import audio_mix as ka
+    from substrata_tpu_torch.kernels import hard_cases
 
     b = TICK_FRAMES
     src, pool, lis, room = bench_audio(device)
@@ -727,7 +770,11 @@ def audio_kernel_phase(w, device="cuda", blocks=30, plain_reps=5):
         fir_conv1d_ms=median_ms(fir), fir_conv1d_max_abs_err=fir_err)
 
     # KG.  Tolerance 1e-5 absolute on out and the delay lines: the column
-    # sums run in source order in both.
+    # sums run in source order in both.  Equal to the bit where both run
+    # the same operations (kg_bits): the write index, the carried ring,
+    # out without a room, and out and lines with the wet mix and feedback
+    # at 0 (the room's fmas then add an exact 0, so the three source-order
+    # sums themselves are held to the bit).
     gargs = (fp[0], fp[1], fp[2], lis.master_volume, room.delay_lines, room.write_idx,
              room.delays, room.feedback, room.wet)
     gk = ka.audio_downmix_reverb(*gargs)
@@ -735,13 +782,30 @@ def audio_kernel_phase(w, device="cuda", blocks=30, plain_reps=5):
     err = max(max_err(gk[0], gp[0]), max_err(gk[1], gp[1]))
     check(err <= 1e-5, f"KG audio_downmix_reverb: max abs err {err} > 1e-5")
     check(torch.equal(gk[2], gp[2]), "KG: write index differs")
+    kg_bits(gargs, "bench scene")
+    hard = {}
+    for case in hard_cases.DOWNMIX_CASES:
+        hargs = hard_cases.downmix_inputs(hard_cases.downmix_scene(case), device)
+        hk, hp = ka.audio_downmix_reverb(*hargs), ka.audio_downmix_reverb_plain(*hargs)
+        e = max(max_err(x, y) for x, y in zip(hk[:2], hp[:2]) if y is not None)
+        check(e <= 1e-5, f"KG {case}: max abs err {e} > 1e-5")
+        hard[case] = dict(max_abs_err=e, **kg_bits(hargs, case))
+        err = max(err, e)
+    sums = (fp[0], fp[1], fp[2])
     results["audio_downmix_reverb"] = dict(
-        max_abs_err=err, tol=1e-5,
+        max_abs_err=err, tol=1e-5, bit_equal=dict(out=torch.equal(gk[0], gp[0]),
+                                                  lines=torch.equal(gk[1], gp[1])),
         **bound(nbytes(gargs, gk), b * (3 * src.capacity + 40)),
         ms=median_ms(lambda: ka.audio_downmix_reverb(*gargs)),
         device_us=device_us_call(lambda: ka.audio_downmix_reverb(*gargs), "audio_downmix"),
         **host_cost(lambda: ka.audio_downmix_reverb(*gargs)),
-        plain_ms=median_ms(lambda: ka.audio_downmix_reverb_plain(*gargs), reps=plain_reps))
+        plain_ms=median_ms(lambda: ka.audio_downmix_reverb_plain(*gargs), reps=plain_reps),
+        # The three sums alone as torch.sum(dim=0) (no FDN, no clip): a
+        # yardstick, not the same function, so library_ms stays null.
+        sums_library_ms=median_ms(lambda: [torch.sum(x, dim=0) for x in sums]),
+        sums_library_device_us=device_us_call(lambda: [torch.sum(x, dim=0) for x in sums],
+                                              "reduce"),
+        hard_cases=hard)
 
     # The whole mix_block: kernel route, then the plain route, same inputs.
     def run():
@@ -2529,17 +2593,66 @@ def _forced(w):
     return w.state.replace(linvel=lin, angvel=ang)
 
 
+def _ks_check(body, cfg, has_os, what):
+    """KS against its twin at a rebuild and with one margin: every output
+    equal to the bit.  Returns the twin's rebuild outputs."""
+    from substrata_tpu_torch.kernels import pairs as ks
+    names = ("pair_a", "pair_b", "pair_valid", "num_pairs", "overflow", "steps_left", "margins")
+    want = ks.pairs_rebuild_plain(body, DT, cfg, has_os)
+    for a, b, name in zip(ks.pairs_rebuild(body, DT, cfg, has_os), want, names):
+        check(same_bits(a, b), f"KS {what}: {name} differs")
+    for a, b, name in zip(ks.find_pairs(body, cfg, 0.08, has_os),
+                          ks.find_pairs_plain(body, cfg, 0.08, has_os), names):
+        check(same_bits(a, b), f"KS {what}, one margin: {name} differs")
+    return want
+
+
+def ks_hard_cases(device):
+    """KS against its twin, every output to the bit, on kernels/
+    hard_cases.py's pair scenes (each at its own pairs_per_body and at 1
+    and 16) and on the cell table's hard inputs made into bodies (10,239
+    bodies over 16,384 buckets with the oversize pass; 65,536 over grid
+    160, radii up to 1.4 m with it and scaled to the bench's boxes
+    without)."""
+    from substrata_tpu_torch import convert
+    from substrata_tpu_torch.kernels import hard_cases
+    from substrata_tpu_torch.physics.state import SimConfig
+    out = {}
+    for case in hard_cases.PAIR_CASES:
+        scene = hard_cases.pair_scene(case)
+        for ppb in (scene.cfg["pairs_per_body"], 1, 16):
+            sc = dataclasses.replace(scene, cfg=dict(scene.cfg, pairs_per_body=ppb))
+            body, cfg, has_os = hard_cases.pair_inputs(sc, device)
+            want = _ks_check(body, cfg, has_os, f"{case} (ppb {ppb})")
+            out[f"{case}_ppb{ppb}"] = dict(num_pairs=int(want[3]), overflow=int(want[4]),
+                                           steps_left=int(want[5]))
+    cells = [(c, 10_239, 128, True, None) for c in hard_cases.CELL_CASES] + [
+        ("lattice", 65_536, 160, True, None), ("lattice", 65_536, 160, False, 0.6928)]
+    for case, n, grid, has_os, max_bound in cells:
+        fields = hard_cases.pair_world(hard_cases.cell_bodies(case, n, grid, 6, seed=1), seed=2,
+                                       max_bound=max_bound)
+        cfg = SimConfig(capacity=n, max_pairs=49_152 if n > 16_384 else 16_384, grid_dim=grid,
+                        cell_size=1.4, cell_capacity=6, pairs_per_body=10,
+                        pair_rebuild_interval=6)
+        body = convert.body_state_from_numpy(fields, device=device)
+        tag = f"cells_{case}_{n}" + ("_oversize" if has_os else "")
+        want = _ks_check(body, cfg, has_os, tag)
+        out[tag] = dict(num_pairs=int(want[3]), overflow=int(want[4]), steps_left=int(want[5]))
+    return out
+
+
 def _ks_compare(w, what, timed=False, plain_reps=5):
     """KS at a rebuild against its twin: pairs, counters, the reuse window
     and the margins exact."""
     from substrata_tpu_torch.kernels import pairs as ks
     body, cfg = _forced(w), w.config
     has_os = bool(w._oversize_slots)
+    _ks_check(body, cfg, has_os, what)
     got = ks.pairs_rebuild(body, DT, cfg, has_os)
     want = ks.pairs_rebuild_plain(body, DT, cfg, has_os)
     names = ("pair_a", "pair_b", "pair_valid", "num_pairs", "overflow", "steps_left", "margins")
     for a, b, name in zip(got, want, names):
-        check(a.dtype == b.dtype and torch.equal(a, b), f"KS {what}: {name} differs")
+        check(same_bits(a, b), f"KS {what}: {name} differs")
     n_os = int((body.alive & (2.0 * body.bound_radius > cfg.cell_size)).sum())
     res = dict(max_abs_err=0.0, tol=0.0, num_pairs=int(want[3]), overflow=int(want[4]),
                steps_left=int(want[5]), oversize_bodies=n_os, has_oversize=has_os)
@@ -2550,10 +2663,38 @@ def _ks_compare(w, what, timed=False, plain_reps=5):
         alive = int(body.alive.sum())
         ops = (alive * 14 * cfg.cell_capacity * FLOPS["pair_candidate"]
                + (min(n_os, 64) * body.capacity * FLOPS["pair_candidate"] if has_os else 0))
-        res.update(_timed(lambda: ks.pairs_rebuild(body, DT, cfg, has_os),
-                          lambda: ks.pairs_rebuild_plain(body, DT, cfg, has_os), "pairs_",
-                          nbytes(fields, got[:6]), ops, plain_reps))
+        def run():
+            return ks.pairs_rebuild(body, DT, cfg, has_os)
+        res.update(_timed(run, lambda: ks.pairs_rebuild_plain(body, DT, cfg, has_os), "pairs_",
+                          nbytes(fields, got[:6]), ops, plain_reps),
+                   device_us_per_launch=launch_split(run, "pairs_"), **host_cost(run))
     return res
+
+
+def launch_split(fn, prefix="", reps=REPS, tries=3):
+    """{kernel: [launches a call, device µs a call]} of the device work
+    whose names hold ``prefix`` (memsets included), over ``reps`` calls of
+    ``fn`` under torch.profiler; profiled again (up to ``tries`` times)
+    where a run records none."""
+    out = {}
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and prefix in e.name:
+                name = e.name.replace("(anonymous namespace)::", "").replace("void ", "")
+                name = name.split("(")[0].split("<")[0].split("::")[-1].strip()
+                c = out.setdefault(name, [0.0, 0.0])
+                c[0] += 1.0 / reps
+                c[1] += e.time_range.elapsed_us() / reps
+        if out:
+            break
+    return out
 
 
 def _kt_compare(w, what, timed=False, plain_reps=5):
@@ -2790,14 +2931,16 @@ def _sort_free(run, ticks):
 
 def layout_phase(device="cuda", n_bodies=10_000, cfg=None, plain_reps=5, mesh_objects=12_000,
                  mesh_dynamic=512, ticks=6):
-    from substrata_tpu_torch.benchworld import (bench_world, mesh_tick, mesh_world,
-                                                serving_tick, serving_world)
+    from substrata_tpu_torch.benchworld import (bench_audio, bench_fulltick, bench_world,
+                                                full_tick, mesh_tick, mesh_world, serving_tick,
+                                                serving_world)
     from substrata_tpu_torch.kernels import pairs as ks
     results = {}
     w = bench_world(device, n_bodies=n_bodies, cfg=cfg)
     for _ in range(30):
         w.think(DT)
     results["find_pairs"] = _ks_compare(w, "bench", timed=True, plain_reps=plain_reps)
+    results["find_pairs"]["hard_cases"] = ks_hard_cases(device)
     kuv_bench = _kuv_compare(w, "bench", timed=True, plain_reps=plain_reps)
     # The step launches no sort, argsort, cumsum, cummax or searchsorted:
     # think's rebuild ticks (pairs invalidated before each), then serving
@@ -2838,7 +2981,20 @@ def layout_phase(device="cuda", n_bodies=10_000, cfg=None, plain_reps=5, mesh_ob
         mesh_tick(mw, mplayer, t * DT, sources)
     kt_mesh = _kt_compare(mw, "mesh")
     kuv_mesh = _kuv_compare(mw, "mesh")
+    results["find_pairs"]["mesh"] = _ks_compare(mw, "mesh")
     del mw, mplayer
+
+    # KS at a rebuild of the full tick's world (phase 9's: vehicles, the
+    # character, particles, the scripts, the mix) after 30 full ticks.
+    fw = bench_world(device, n_bodies=n_bodies, cfg=cfg)
+    veh, vin, ps, char, scripts = bench_fulltick(fw, device)
+    src, pool, lis, room = bench_audio(device)
+    idx = torch.arange(src.capacity, device=device)
+    for t in range(30):
+        veh, ps, src, _, room, char = full_tick(fw, veh, vin, ps, src, pool, lis, room, idx,
+                                                char, t * DT, scripts)
+    results["find_pairs"]["fulltick"] = _ks_compare(fw, "full tick")
+    del fw, veh, vin, ps, char, scripts, src, pool
 
     kt = dict(serving=kt_serving, mesh=kt_mesh)
     for name in ("group", "touching", "compact", "incidence"):

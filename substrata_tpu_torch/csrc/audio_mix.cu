@@ -25,14 +25,24 @@
 //   the block reduces the peak level.
 //   Bound: the FIR, 2 x 64 fmas per (source, frame): 52 MFLOP at the bench
 //   shapes, ~0.8 us at 67 TFLOP/s float32.
-// KG audio_downmix_reverb: one thread per frame sums its column of the
-//   [S, B] left, right and send arrays in source order (no atomics, so the
-//   result is deterministic), then runs the 4-line FDN for that frame.
-//   Every line delay is >= the block, but the longest (8191 samples) reads
-//   what frame b + 1 writes, so the lines are read from one buffer and
-//   written to another: with a room the grid covers the whole ring, and a
-//   position that no frame writes is copied.  The write index stays on
-//   the card.  Bound: memory, ~2.5 MB read at the bench shapes, ~0.8 us.
+// KG audio_downmix_reverb: the left, right and send sums of each frame over
+//   its column of the [S, B] blocks, each folded in source order (the
+//   twin's _index_sum: no tree, no atomics, so the result is the twin's to
+//   the bit), then the 4-line FDN for that frame.  A block takes a tile of
+//   kFrames = 16 frames: its 256 threads stage the tile's [S, 16] slices of
+//   the three blocks in shared memory, 256 sources at a time, with
+//   coalesced loads (a half-warp reads a row's 64 contiguous bytes; every
+//   load of a chunk is in flight before any is folded), and 48 threads (one
+//   per frame and sum) fold the chunk from shared memory.  16 frames give
+//   50 blocks at B = 800 (the tick) and 16 at B = 256 (the client's render
+//   blocks), where one thread per frame gave 7 and 2; a wider tile would
+//   halve the blocks, a narrower one split the 32-byte sectors.  Then 16
+//   threads run the FDN of the tile's frames.  Every line delay is >= the
+//   block, but the longest (8191 samples) reads what frame b + 1 writes, so
+//   the lines are read from one buffer and written to another: blocks past
+//   the tiles copy the ring positions no frame writes.  The write index
+//   stays on the card.  Bound: memory, ~2.7 MB read at the bench shapes,
+//   ~0.8 us; the folds are S dependent adds a frame (~0.6 us at S = 256).
 #include "common.cuh"
 
 namespace {
@@ -176,39 +186,92 @@ __global__ void __launch_bounds__(kSpatialThreads) audio_spatialise_kernel(
 
 __device__ __forceinline__ float clip1(float x) { return fminf(fmaxf(x, -1.0f), 1.0f); }
 
-__device__ __forceinline__ float column_sum(const float* __restrict__ a, int S, int B, int f) {
-  float acc = a[f];
-  for (int s = 1; s < S; ++s) acc = acc + a[s * B + f];
-  return acc;
-}
+constexpr int kFrames = 16;          // frames a downmix tile
+constexpr int kChunk = 256;          // sources staged at a time
+constexpr int kMixThreads = 256;
+constexpr int kCopyPer = 8;          // ring positions a copying thread
 
-__global__ void audio_downmix_kernel(
+// The downmix's dynamic shared memory: the staged [3, kChunk, kFrames]
+// slices (each padded by half a bank row, so the two sums a warp folds
+// read different banks), then the tile's three sums.
+constexpr int kStageStride = kChunk * kFrames + kFrames;
+constexpr int kMixSmem = (3 * kStageStride + 3 * kFrames) * sizeof(float);
+
+__global__ void __launch_bounds__(kMixThreads) audio_downmix_kernel(
     const float* __restrict__ wl, const float* __restrict__ wr, const float* __restrict__ ws,
     const float* __restrict__ master_volume, const float* __restrict__ lines_in,
     const int* __restrict__ write_idx, const int* __restrict__ delays,
     const float* __restrict__ feedback, const float* __restrict__ wet, float* __restrict__ out,
     float* __restrict__ lines_out, int* __restrict__ write_idx_out, int S, int B, int D,
-    int has_room) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const float mv = *master_volume;
-  if (!has_room) {
-    if (t >= B) return;
-    out[2 * t] = clip1(column_sum(wl, S, B, t) * mv);
-    out[2 * t + 1] = clip1(column_sum(wr, S, B, t) * mv);
-    return;
-  }
-  if (t >= D) return;
-  const int w = *write_idx;
-  if (t == 0) write_idx_out[0] = (w + B) % D;
-  const int f = ((t - w) % D + D) % D;  // the frame that writes ring position t
-  if (f >= B) {
+    int has_room, int n_tiles) {
+  extern __shared__ float smem[];
+  float* stage = smem;                              // [3][kStageStride]
+  float* sums = smem + 3 * kStageStride;            // [3][kFrames]
+  const int tid = threadIdx.x;
+  if (static_cast<int>(blockIdx.x) >= n_tiles) {
+    // The ring positions no frame of this block writes, carried over.
+    const int w = *write_idx;
+    const int base = (blockIdx.x - n_tiles) * kMixThreads * kCopyPer;
 #pragma unroll
-    for (int l = 0; l < 4; ++l) lines_out[l * D + t] = lines_in[l * D + t];
+    for (int k = 0; k < kCopyPer; ++k) {
+      const int idx = base + k * kMixThreads + tid;
+      if (idx >= 4 * D) break;
+      const int t = idx % D;
+      if (((t - w) % D + D) % D >= B) lines_out[idx] = lines_in[idx];
+    }
     return;
   }
-  const float left = column_sum(wl, S, B, f);
-  const float right = column_sum(wr, S, B, f);
-  const float send = column_sum(ws, S, B, f);
+  const int f0 = blockIdx.x * kFrames;
+  const int n_sums = has_room ? 3 : 2;
+  const float* src[3] = {wl, wr, ws};
+  // Folding thread tid < n_sums * kFrames: sum x = tid / kFrames of frame
+  // f0 + tid % kFrames.
+  const int fx = tid / kFrames, ff = tid % kFrames;
+  const bool folds = tid < n_sums * kFrames && f0 + ff < B;
+  float acc = 0.0f;
+  for (int s0 = 0; s0 < S; s0 += kChunk) {
+    const int cs = min(kChunk, S - s0);
+    // Thread tid stages frame f0 + tid % kFrames of rows tid / kFrames,
+    // + 16, ... of each sum: 3 x kChunk / 16 loads, all in flight before the
+    // barrier.
+    const int frame = f0 + ff;
+#pragma unroll
+    for (int x = 0; x < 3; ++x) {
+      if (x < n_sums) {
+        const float* a = src[x];
+#pragma unroll 16
+        for (int s = tid / kFrames; s < cs; s += kMixThreads / kFrames)
+          stage[x * kStageStride + s * kFrames + ff] =
+              frame < B ? a[static_cast<size_t>(s0 + s) * B + frame] : 0.0f;
+      }
+    }
+    __syncthreads();
+    if (folds) {
+      const float* col = stage + fx * kStageStride + ff;
+      int s = 0;
+      if (s0 == 0) {
+        acc = col[0];
+        s = 1;
+      }
+#pragma unroll 16
+      for (; s < cs; ++s) acc = acc + col[s * kFrames];
+    }
+    __syncthreads();
+  }
+  if (folds) sums[fx * kFrames + ff] = acc;
+  __syncthreads();
+  if (tid >= kFrames || f0 + tid >= B) return;
+  const int f = f0 + tid;
+  const float mv = *master_volume;
+  const float left = sums[tid], right = sums[kFrames + tid];
+  if (!has_room) {
+    out[2 * f] = clip1(left * mv);
+    out[2 * f + 1] = clip1(right * mv);
+    return;
+  }
+  const int w = *write_idx;
+  if (f == 0) write_idx_out[0] = (w + B) % D;
+  const float send = sums[2 * kFrames + tid];
   float taps[4];
 #pragma unroll
   for (int l = 0; l < 4; ++l) {
@@ -223,6 +286,7 @@ __global__ void audio_downmix_kernel(
       ((0.5f * taps[0] + 0.5f * taps[1]) + -0.5f * taps[2]) + -0.5f * taps[3],
       ((0.5f * taps[0] + -0.5f * taps[1]) + -0.5f * taps[2]) + 0.5f * taps[3]};
   const float in_gain[4] = {1.0f, 0.8f, 0.6f, 0.5f};
+  const int t = (w + f) % D;                      // the ring position frame f writes
 #pragma unroll
   for (int l = 0; l < 4; ++l) lines_out[l * D + t] = __fmaf_rn(send, in_gain[l], m[l] * fb);
   const float wv = *wet;
@@ -267,20 +331,28 @@ extern "C" int audio_spatialise(const float* samples, const float* lp_state, con
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int audio_downmix_reverb(const float* wl, const float* wr, const float* ws,
-                                    const float* master_volume, const float* lines_in,
-                                    const int* write_idx, const int* delays,
-                                    const float* feedback, const float* wet, float* out,
-                                    float* lines_out, int* write_idx_out, int S, int B, int D,
-                                    int has_room, void* stream) {
-  if (S < 1 || (has_room && B > D)) return static_cast<int>(cudaErrorInvalidValue);
-  const int n = has_room ? D : B;
-  if (n > 0) {
-    const int threads = 128;
-    audio_downmix_kernel<<<(n + threads - 1) / threads, threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        wl, wr, ws, master_volume, lines_in, write_idx, delays, feedback, wet, out, lines_out,
-        write_idx_out, S, B, D, has_room);
+// The wrapper's arguments in one host buffer of 8-byte slots
+// (kernels/audio_mix.py:_DOWNMIX_PACK): wl, wr, ws, master_volume, lines,
+// write_idx, delays, feedback, wet (0 without a room), out, lines_out,
+// write_idx_out, S, B, D, has_room.
+extern "C" int audio_downmix_reverb(const long long* a, void* stream) {
+  auto p = [a](int k) { return reinterpret_cast<const float*>(a[k]); };
+  const int S = static_cast<int>(a[12]), B = static_cast<int>(a[13]), D = static_cast<int>(a[14]);
+  const int has_room = static_cast<int>(a[15]);
+  if (S < 1 || B < 1 || (has_room && B > D)) return static_cast<int>(cudaErrorInvalidValue);
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        audio_downmix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMixSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
   }
+  const int n_tiles = (B + kFrames - 1) / kFrames;
+  const int n_copy = has_room ? (4 * D + kMixThreads * kCopyPer - 1) / (kMixThreads * kCopyPer) : 0;
+  audio_downmix_kernel<<<n_tiles + n_copy, kMixThreads, kMixSmem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      p(0), p(1), p(2), p(3), p(4), reinterpret_cast<const int*>(a[5]),
+      reinterpret_cast<const int*>(a[6]), p(7), p(8), reinterpret_cast<float*>(a[9]),
+      reinterpret_cast<float*>(a[10]), reinterpret_cast<int*>(a[11]), S, B, D, has_room, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }

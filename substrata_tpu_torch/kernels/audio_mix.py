@@ -21,6 +21,8 @@ index order), so on the card a kernel and its twin agree to rounding.
 
 from __future__ import annotations
 
+import struct
+
 import numpy as np
 import torch
 
@@ -260,35 +262,68 @@ def audio_downmix_reverb_plain(wl, wr, ws, master_volume, delay_lines=None, writ
     return torch.clamp(out, -1.0, 1.0), lines, widx
 
 
+_DOWNMIX_PACK = struct.Struct("=16q")     # csrc/audio_mix.cu:audio_downmix_reverb
+_MAX_PLANS = 8
+_downmix_plans: dict = {}
+
+
+class _DownmixPlan:
+    """KG's checks and sizes for one (S, B, D, room, device): the input
+    shapes, and the layout of the one float32 buffer a call's outputs come
+    from (out [B, 2], the new lines [4, D], the write index as an int32)."""
+
+    def __init__(self, s, b, d, room, device):
+        if room and b > d:
+            raise ValueError(f"delay lines of {d} samples: need at least {b}")
+        self.device = device
+        self.names = ("wl", "wr", "master_volume") + (
+            ("ws", "delay_lines", "write_idx", "delays", "feedback", "wet") if room else ())
+        self.dtypes = (f32, f32, f32) + ((f32, f32, i32, i32, f32, f32) if room else ())
+        self.shapes = ((s, b), (s, b), ()) + (((s, b), (4, d), (), (4,), (), ()) if room else ())
+        self.size = 2 * b + (4 * d + 1 if room else 0)
+        self.sizes = (s, b, d, int(room))
+
+
+def _downmix_plan(s, b, d, room, device):
+    key = (s, b, d, room, device)
+    plan = _downmix_plans.get(key)
+    if plan is None:
+        if len(_downmix_plans) >= _MAX_PLANS:
+            _downmix_plans.pop(next(iter(_downmix_plans)))
+        plan = _downmix_plans[key] = _DownmixPlan(s, b, d, room, device)
+    return plan
+
+
 def audio_downmix_reverb(wl, wr, ws, master_volume, delay_lines=None, write_idx=None,
                          delays=None, feedback=None, wet=None):
     """KG: ``audio_downmix_reverb_plain`` for CPU tensors,
-    ``csrc/audio_mix.cu`` for CUDA tensors.  The room's tensors stay on the
-    card: the write index is read and advanced there."""
+    ``csrc/audio_mix.cu`` for CUDA tensors: checked once per (S, B, D) and
+    launched from one packed argument buffer; the outputs are views of one
+    new buffer.  The room's tensors stay on the card: the write index is
+    read and advanced there."""
     if wl.device.type == "cpu":
         return audio_downmix_reverb_plain(wl, wr, ws, master_volume, delay_lines,
                                           write_idx, delays, feedback, wet)
-    dev = wl.device
-    s, b = wl.shape
-    args = [(wl, "wl", f32, (s, b)), (wr, "wr", f32, (s, b)),
-            (master_volume, "master_volume", f32, ())]
     room = ws is not None
-    d = delay_lines.shape[1] if room else 0
+    s, b = wl.shape
+    if room and (delay_lines.dim() != 2 or delay_lines.shape[0] != 4):
+        raise ValueError(f"delay lines {tuple(delay_lines.shape)}: need 4 lines")
+    plan = _downmix_plan(s, b, delay_lines.shape[1] if room else 0, room, wl.device)
+    ins = (wl, wr, master_volume) + (
+        (ws, delay_lines, write_idx, delays, feedback, wet) if room else ())
+    build.check_all(plan.device, ins, plan.names, plan.dtypes, plan.shapes)
+    buf = torch.empty((plan.size,), dtype=f32, device=plan.device)
+    out = buf[:2 * b].view(b, 2)
+    lines = widx = None
+    room_ptrs = [0] * 6
     if room:
-        if delay_lines.shape[0] != 4 or b > d:
-            raise ValueError(f"delay lines {tuple(delay_lines.shape)}: need 4 lines "
-                             f"of at least {b} samples")
-        args += [(ws, "ws", f32, (s, b)), (delay_lines, "delay_lines", f32, (4, d)),
-                 (write_idx, "write_idx", i32, ()), (delays, "delays", i32, (4,)),
-                 (feedback, "feedback", f32, ()), (wet, "wet", f32, ())]
-    for a in args:
-        build.check(*a, dev)
-    out = torch.empty((b, 2), dtype=f32, device=dev)
-    lines = torch.empty_like(delay_lines) if room else None
-    widx = torch.empty((), dtype=i32, device=dev) if room else None
-    build.launch("audio_downmix_reverb", wl, wr, ws, master_volume,
-                 delay_lines if room else None, write_idx if room else None,
-                 delays if room else None, feedback if room else None,
-                 wet if room else None, out, lines, widx, s, b, d, int(room))
+        d = plan.sizes[2]
+        lines = buf[2 * b:2 * b + 4 * d].view(4, d)
+        widx = buf[2 * b + 4 * d:].view(i32).reshape(())
+        room_ptrs = [t.data_ptr() for t in ins[3:]]
+    ptrs = (wl.data_ptr(), wr.data_ptr(), room_ptrs[0], master_volume.data_ptr(), *room_ptrs[1:],
+            out.data_ptr(), 0 if lines is None else lines.data_ptr(),
+            0 if widx is None else widx.data_ptr())
+    build.launch_packed("audio_downmix_reverb", _DOWNMIX_PACK.pack(*ptrs, *plan.sizes))
     launches["audio_downmix_reverb"] += 1
     return out, lines, widx

@@ -68,9 +68,10 @@ SIGNATURES = {
     # prev_gl, prev_gr, gl, gr, ramp, gain, send_gain, out wl, wr, ws,
     # lp_out, new_hist, level, S, B, T, use_hrtf, stream
     "audio_spatialise": [P] * 15 + [P] * 6 + [I] * 4 + [P],
+    # one host buffer of 8-byte slots (kernels/audio_mix.py:_DOWNMIX_PACK:
     # wl, wr, ws, master_volume, lines, write_idx, delays, feedback, wet,
-    # out, lines_out, write_idx_out, S, B, D, has_room, stream
-    "audio_downmix_reverb": [P] * 9 + [P] * 3 + [I] * 4 + [P],
+    # out, lines_out, write_idx_out, S, B, D, has_room), stream
+    "audio_downmix_reverb": [P, P],
     # one host buffer of 8-byte slots (kernels/ray_trace.py:_launch:
     # origins, dirs, max_ts, exclude, pos, quat, bound_radius, shape_type,
     # shape_params, alive, layer, table, os_idx, heights, hf_origin,
@@ -154,12 +155,13 @@ SIGNATURES = {
     # dt; N, wm, K, CPB; flag scratch, out awake, timer, linvel, angvel,
     # newly_awake, newly_asleep, steps_left; stream
     "sleep_pass": [P] * 12 + [I] + [P] * 8 + [F] + [I] * 4 + [P] * 8 + [P],
-    # pos, linvel, alive, awake, collidable, motion_type, bound_radius,
-    # shape_type, shape_params; its row stride, N; KP's table, cells,
-    # overflow; buckets, cell cap, ppb, max_pairs, has_oversize, rebuild;
-    # margin, dt, margin cap; interval; cell_size; out margins, scratch,
-    # pair a, b, valid, num_pairs, overflow, steps_left; stream
-    "find_pairs": [P] * 9 + [I] * 2 + [P] * 3 + [I] * 6 + [F] * 3 + [I] + [F] + [P] * 8 + [P],
+    # one host buffer of 8-byte slots (kernels/pairs.py:_PACK: pos, linvel,
+    # alive, awake, collidable, motion_type, bound_radius, shape_type,
+    # shape_params; KP's table, cells, overflow; scratch; out margins, pair
+    # a, b, valid, num_pairs, overflow, steps_left; the shape_params row
+    # stride, N, buckets, cell cap, ppb, max_pairs, has_oversize, rebuild,
+    # interval; the margin, dt, margin cap and cell_size as doubles), stream
+    "find_pairs": [P, P],
     # bank rot, trans, n_frames, looping, f_cap; clip_a, clip_b, frame_a,
     # frame_b, blend, grab_l, grab_r, root, override_rot, post_rot,
     # override_mask, post_mask; parent, depth, joint_slot, joint_finger,

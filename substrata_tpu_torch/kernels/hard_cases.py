@@ -980,3 +980,266 @@ def rotation_corpus(seed: int = 0, n: int = 4096):
     v_ax = basis[rng.integers(0, basis.shape[0], 3 * n)]
     return (np.concatenate([qs, q_ax]).astype(np.float32),
             np.concatenate([vs, v_ax]).astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# KS: pair-finder scenes.
+# ---------------------------------------------------------------------------
+
+PAIR_CASES = ("score_ties", "hash_collision", "row_overflow", "max_pairs_overflow",
+              "oversize_1", "oversize_65", "static_asleep", "none_alive", "nan_velocity",
+              "all_still", "ppb_1", "ppb_16")
+PAIR_N = 256
+_PAIR_CFG = dict(capacity=PAIR_N, max_pairs=2048, grid_dim=16, cell_size=1.4, cell_capacity=6,
+                 pairs_per_body=10, pair_rebuild_interval=6)
+
+
+@dataclasses.dataclass
+class PairScene:
+    """One pair finder's inputs (numpy): the bodies (BodyState fields), the
+    SimConfig's keyword arguments and the oversize pass's flag."""
+    bodies: dict
+    cfg: dict
+    has_oversize: bool
+
+
+def _shape_bound(st, prm):
+    """A bound radius for shape ``st`` with params ``prm`` (sphere r, box
+    half-extents, capsule r + half height, hull 0.5)."""
+    if st == 0:
+        return float(prm[0])
+    if st == 1:
+        return float(np.float32(np.linalg.norm(np.asarray(prm[:3], np.float64))))
+    if st == 2:
+        return float(prm[0] + prm[1])
+    return 0.5
+
+
+def _random_shape(rng, scale=1.0):
+    st = int(rng.integers(0, 4))
+    prm = np.zeros(4, np.float32)
+    if st == 0:
+        prm[0] = rng.uniform(0.25, 0.55) * scale
+    elif st == 1:
+        prm[:3] = rng.uniform(0.15, 0.35, 3) * scale
+    elif st == 2:
+        prm[0], prm[1] = rng.uniform(0.15, 0.3) * scale, rng.uniform(0.1, 0.3) * scale
+    return st, prm
+
+
+def _pair_bodies(pos, shapes, rng, alive=None, motion=None, layer=None, awake=None,
+                speed=2.0, capacity=None):
+    """BodyState fields (numpy) of bodies at ``pos`` [M, 3] with ``shapes``
+    [(type, params)]: dynamic, moving, awake, random velocities up to
+    ``speed`` unless given; slots past M (to ``capacity``) dead; the slot
+    order shuffled."""
+    from substrata_tpu_torch.physics import state
+    m = pos.shape[0]
+    n = capacity or m
+    a = {k: v.numpy().copy() for k, v in vars(state.zero_body_state(n, device="cpu")).items()}
+    perm = rng.permutation(n)[:m]
+    for k, (st, prm) in enumerate(shapes):
+        a["shape_type"][perm[k]] = st
+        a["shape_params"][perm[k]] = prm
+        a["bound_radius"][perm[k]] = _shape_bound(st, prm)
+    a["pos"][perm] = pos
+    a["linvel"][perm] = rng.uniform(-speed, speed, (m, 3))
+    a["alive"][perm] = True if alive is None else alive
+    a["motion_type"][perm] = 2 if motion is None else motion
+    a["layer"][perm] = 1 if layer is None else layer
+    a["awake"][perm] = True if awake is None else awake
+    return {k: np.ascontiguousarray(v) for k, v in a.items()}
+
+
+def _lattice2d(side, spacing, z, offset=0.25, jitter=0.0, rng=None):
+    k = np.arange(side * side)
+    pos = np.stack([k % side * spacing + offset, k // side * spacing + offset,
+                    np.full(k.shape, z)], axis=1).astype(np.float32)
+    if jitter:
+        pos[:, :2] += rng.uniform(-jitter, jitter, (len(k), 2)).astype(np.float32)
+    return pos
+
+
+def _pile(rng, m, extent, z_layers=2, scale=1.0):
+    pos = np.stack([rng.uniform(0, extent, m), rng.uniform(0, extent, m),
+                    rng.uniform(0.3, 0.3 + 1.4 * z_layers, m)], axis=1).astype(np.float32)
+    return pos, [_random_shape(rng, scale) for _ in range(m)]
+
+
+def pair_scene(case: str, seed: int = 0) -> PairScene:
+    """The inputs of one hard pair-finder case, 256 body slots, 1.4 m
+    cells, 6 a bucket:
+
+    - ``score_ties``: a 16 x 16 lattice of equal spheres at exactly 1 m
+      spacing, one speed for all (so every margin is the same): equal
+      scores, and pairs_per_body 3 cuts between two equal diagonals, so
+      the column order decides;
+    - ``hash_collision``: 4 buckets (grid 2), so the 14 stencil cells of a
+      body list one neighbour several times;
+    - ``row_overflow``: spheres at 0.7 m whose 4 forward neighbours all
+      touch, pairs_per_body 2: tight candidates dropped;
+    - ``max_pairs_overflow``: a jittered lattice of mixed shapes with 64
+      pair slots: the compaction truncates;
+    - ``oversize_1``, ``oversize_65``: 1 and 65 bodies wider than a cell
+      among small ones (the oversize pass lists 64);
+    - ``static_asleep``: static, kinematic, asleep, awake and
+      non-collidable bodies mixed (static-static pairs dropped);
+    - ``none_alive``: no body alive;
+    - ``nan_velocity``: a pile with one NaN velocity (the rebuild's
+      window and that body's margin NaN);
+    - ``all_still``: a pile at rest (the rebuild's window at its cap);
+    - ``ppb_1``, ``ppb_16``: a dense pile at pairs_per_body 1 and 16.
+    """
+    rng = np.random.default_rng(seed)
+    cfg = dict(_PAIR_CFG)
+    has_os = False
+    n = PAIR_N
+    if case == "score_ties":
+        pos = _lattice2d(16, 1.0, 0.75)
+        b = _pair_bodies(pos, [(0, np.array([0.7, 0, 0, 0], np.float32))] * len(pos), rng)
+        b["linvel"][:] = np.array([0.5, 0.0, 0.0], np.float32)
+        cfg["pairs_per_body"] = 3
+    elif case == "hash_collision":
+        pos, shp = _pile(rng, 16, 3.6, z_layers=1)
+        b = _pair_bodies(pos, shp, rng, capacity=n)
+        cfg["grid_dim"] = 2
+    elif case == "row_overflow":
+        pos = _lattice2d(16, 0.7, 0.5)
+        b = _pair_bodies(pos, [(0, np.array([0.5, 0, 0, 0], np.float32))] * len(pos), rng)
+        cfg["pairs_per_body"] = 2
+    elif case == "max_pairs_overflow":
+        pos = _lattice2d(16, 0.8, 0.5, jitter=0.1, rng=rng)
+        b = _pair_bodies(pos, [_random_shape(rng) for _ in pos], rng)
+        cfg["max_pairs"] = 64
+    elif case in ("oversize_1", "oversize_65"):
+        big = 1 if case == "oversize_1" else 65
+        pos, shp = _pile(rng, n - big, 16.0)
+        bpos = np.stack([rng.uniform(0, 16, big), rng.uniform(0, 16, big),
+                         rng.uniform(0.5, 2.5, big)], axis=1).astype(np.float32)
+        bshp = [(0, np.array([rng.uniform(0.8, 1.6), 0, 0, 0], np.float32)) for _ in range(big)]
+        b = _pair_bodies(np.concatenate([pos, bpos]), shp + bshp, rng)
+        has_os = True
+    elif case == "static_asleep":
+        pos, shp = _pile(rng, 200, 10.0)
+        motion = rng.integers(0, 3, 200)
+        layer = np.where(motion == 0, 0, 1)
+        layer = np.where(rng.random(200) < 0.1, layer + 2, layer)
+        awake = (motion != 0) & (rng.random(200) < 0.5)
+        b = _pair_bodies(pos, shp, rng, motion=motion, layer=layer, awake=awake, capacity=n)
+    elif case == "none_alive":
+        pos, shp = _pile(rng, n, 12.0)
+        b = _pair_bodies(pos, shp, rng, alive=False)
+    elif case in ("nan_velocity", "all_still"):
+        pos, shp = _pile(rng, 220, 10.0)
+        b = _pair_bodies(pos, shp, rng, capacity=n, speed=0.0 if case == "all_still" else 3.0)
+        if case == "nan_velocity":
+            moving = np.flatnonzero(b["alive"])
+            b["linvel"][moving[len(moving) // 2], 1] = np.nan
+    elif case in ("ppb_1", "ppb_16"):
+        pos, shp = _pile(rng, n, 7.0, z_layers=2)
+        b = _pair_bodies(pos, shp, rng)
+        cfg["pairs_per_body"] = 1 if case == "ppb_1" else 16
+    else:
+        raise ValueError(f"unknown pair case {case!r}")
+    return PairScene(bodies=b, cfg=cfg, has_oversize=has_os)
+
+
+def pair_world(fields, cell_size: float = 1.4, seed: int = 0, max_bound: float | None = None):
+    """BodyState fields (numpy) from ``cell_bodies``'s fields: the same
+    positions and flags, the bound radii (scaled from [0, cell_size] to [0,
+    ``max_bound``] where given: 0.6928 is the bench's 0.4 m box); spheres of
+    that radius (boxes and capsules inside it for a third each), random
+    velocities; a non-collidable body on a non-colliding layer."""
+    from substrata_tpu_torch.physics import state
+    rng = np.random.default_rng(seed)
+    n = fields["pos"].shape[0]
+    a = {k: v.numpy().copy() for k, v in vars(state.zero_body_state(n, device="cpu")).items()}
+    for k in ("pos", "alive", "awake", "motion_type"):
+        a[k][:] = fields[k]
+    r = fields["bound_radius"]
+    if max_bound is not None:
+        r = (r * np.float32(max_bound / cell_size)).astype(np.float32)
+    a["bound_radius"][:] = r
+    st = rng.integers(0, 3, n).astype(np.int32)
+    a["shape_type"][:] = st
+    a["shape_params"][:, 0] = np.where(st == 2, 0.5 * r, np.where(st == 1, 0.5 * r, r))
+    a["shape_params"][:, 1] = np.where(st == 0, 0.0, 0.5 * r)
+    a["shape_params"][:, 2] = np.where(st == 1, 0.5 * r, 0.0)
+    a["layer"][:] = np.where(fields["collidable"], np.where(fields["motion_type"] == 0, 0, 1),
+                             3).astype(np.int32)
+    a["linvel"][:] = rng.uniform(-2.0, 2.0, (n, 3))
+    return {k: np.ascontiguousarray(v) for k, v in a.items()}
+
+
+def pair_inputs(scene: PairScene, device):
+    """(BodyState, SimConfig, has_oversize) of ``scene`` on ``device``."""
+    from substrata_tpu_torch import convert
+    from substrata_tpu_torch.physics.state import SimConfig
+    return (convert.body_state_from_numpy(scene.bodies, device=device), SimConfig(**scene.cfg),
+            scene.has_oversize)
+
+
+# ---------------------------------------------------------------------------
+# KG: downmix scenes.
+# ---------------------------------------------------------------------------
+
+DOWNMIX_CASES = ("s1_b800", "s33_b256", "s64_b800", "s256_b800", "s256_b256", "s1024_b1024",
+                 "s256_b1", "wrap", "delay_d_minus_1", "no_room")
+DOWNMIX_D = 8192
+
+
+@dataclasses.dataclass
+class DownmixScene:
+    """KG's inputs (numpy): the [S, B] left, right and send blocks, the
+    master volume, and the room (4 delay lines of D, the write index, the
+    line delays, feedback and wet), or None without one."""
+    wl: np.ndarray
+    wr: np.ndarray
+    ws: np.ndarray
+    master_volume: float
+    room: dict | None
+
+
+def downmix_scene(case: str, seed: int = 0) -> DownmixScene:
+    """``s{S}_b{B}``: S sources, B frames (S = 64 is one shard of four of
+    256; 1,024 sources past a block's 256), the ring's write index at
+    random, the delays the room's own; ``wrap``: the write index at D - 1,
+    so the ring wraps at the block's second frame; ``delay_d_minus_1``: a
+    line delayed D - 1 (it reads what the next frame writes); ``no_room``:
+    256 sources, 800 frames, no room.  Samples are spread over +-0.05 with
+    a few loud ones, so a frame's sum reaches past the clip."""
+    rng = np.random.default_rng(seed)
+    if case.startswith("s"):
+        s, b = (int(x[1:]) for x in case.split("_"))
+    else:
+        s, b = 256, 800
+    def block():
+        x = rng.normal(0.0, 0.02, (s, b)).astype(np.float32)
+        loud = rng.random((s, b)) < 0.01
+        return np.where(loud, rng.uniform(-1, 1, (s, b)), x).astype(np.float32)
+    wl, wr, ws = block(), block(), block()
+    room = dict(delay_lines=rng.normal(0.0, 0.1, (4, DOWNMIX_D)).astype(np.float32),
+                write_idx=np.int32(rng.integers(0, DOWNMIX_D)),
+                delays=np.array([1931, 2729, 4519, 8191], np.int32),
+                feedback=np.float32(0.72), wet=np.float32(0.35))
+    if case == "wrap":
+        room["write_idx"] = np.int32(DOWNMIX_D - 1)
+    elif case == "delay_d_minus_1":
+        room["delays"] = np.array([1931, DOWNMIX_D - 1, 1024, 8000], np.int32)
+    elif case == "no_room":
+        room = None
+    elif not case.startswith("s"):
+        raise ValueError(f"unknown downmix case {case!r}")
+    return DownmixScene(wl=wl, wr=wr, ws=ws, master_volume=0.8, room=room)
+
+
+def downmix_inputs(scene: DownmixScene, device):
+    """``audio_downmix_reverb``'s arguments for ``scene`` on ``device``."""
+    def t(x):
+        return torch.as_tensor(np.asarray(x), device=device)
+    mv = torch.tensor(scene.master_volume, dtype=torch.float32, device=device)
+    if scene.room is None:
+        return (t(scene.wl), t(scene.wr), None, mv)
+    r = scene.room
+    return (t(scene.wl), t(scene.wr), t(scene.ws), mv, t(r["delay_lines"]), t(r["write_idx"]),
+            t(r["delays"]), t(r["feedback"]), t(r["wet"]))

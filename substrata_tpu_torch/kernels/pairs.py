@@ -16,13 +16,16 @@ speed is XLA's norm (an fma chain and a correctly rounded square root) and
 ``0.08 + speed * window * dt`` contracts into one fma.  Nothing here reads
 a value back to the host.
 
-``find_pairs`` runs ``find_pairs_plain`` for CPU tensors and the launches
-of ``csrc/pairs.cu`` (after KP's) for CUDA ones.
+``find_pairs`` runs ``find_pairs_plain`` for CPU tensors and, for CUDA
+ones, KP's cell table and the six launches of ``csrc/pairs.cu`` from one
+packed argument buffer: a world shape's plan (``_Plan``) is checked and
+sized once, and a call's outputs and scratch are one new allocation.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import struct
+
 import torch
 
 from substrata_tpu_torch.kernels import build, cell_table
@@ -35,7 +38,8 @@ MAX_OVERSIZE = 64
 MAX_PPB = 16            # csrc/pairs.cu:kMaxPpb
 _TBL_IDX_MASK = 0xFFFF
 PAIR_EMPTY = 0xFFFFFFFF
-_CTRL_SLOTS = 5         # csrc/pairs.cu:kCtrlSlots
+MAX_CAP = 18            # csrc/pairs.cu: 14 * cap <= kListCap
+_CTRL_SLOTS = 8         # csrc/pairs.cu:kCtrlSlots
 
 
 def _half_offsets(device):
@@ -80,9 +84,11 @@ def rebuild_margins_plain(body, dt, config):
     margin_cap = 0.6 * config.cell_size
     step = torch.clamp(vmax * dt, min=1e-6)
     # A true division, as the reference's (torch's scalar / tensor would
-    # multiply by the reciprocal).
-    window = torch.clamp(torch.floor(torch.full_like(step, margin_cap) / step),
-                         1, interval).to(torch.int32)
+    # multiply by the reciprocal).  A NaN speed leaves a NaN window, which
+    # XLA and the card convert to 0 (the CPU's own conversion gives INT_MIN).
+    window = torch.nan_to_num(
+        torch.clamp(torch.floor(torch.full_like(step, margin_cap) / step), 1, interval),
+        nan=0.0).to(torch.int32)
     margin = fp.fma(speed * window.to(torch.float32), dt, 0.08)
     return margin, window
 
@@ -201,51 +207,99 @@ def find_pairs_plain(body, config, margin=0.08, has_oversize: bool = True):
 
 
 def scratch_ints(n: int, ppb: int, max_pairs: int, has_oversize: bool) -> int:
-    """int32 words of KS's scratch (csrc/pairs.cu:find_pairs' layout)."""
+    """int32 words of KS's scratch (csrc/pairs.cu:find_pairs' layout): ctrl,
+    the oversize list, hist, offs and speed [N], the prep blocks' maxima and
+    counts, the oversize words, the slot-major keys, buf, lidx and tmp
+    [max_pairs], (8-byte aligned) the two look-backs' states, the slot
+    bits (bytes)."""
     n_sel = ppb * n
     n_rows = n_sel + (MAX_OVERSIZE * n if has_oversize else 0)
-    n_tiles = (n_rows + 1023) // 1024
-    return (_CTRL_SLOTS + MAX_OVERSIZE + 3 * n + n_tiles + n_sel + 3 * max_pairs
-            + (n_sel + 3) // 4)
+    n_blocks = -(-n // 256)
+    words = (_CTRL_SLOTS + MAX_OVERSIZE + 3 * n + 2 * n_blocks + -(-n // 32) + n_sel
+             + 3 * max_pairs)
+    words += words & 1
+    return words + 2 * (-(-n_rows // 1024) + -(-n // 1024)) + -(-n_sel // 4)
 
 
-def _launch(body, config, has_oversize, rebuild, const_margin, dt, margin_in=None):
-    global launches
-    dev = body.device
-    n = body.capacity
-    ppb = config.pairs_per_body
-    mp = config.max_pairs
-    if not 1 <= ppb <= MAX_PPB or n > (1 << 16):
-        raise ValueError(f"KS takes pairs_per_body in [1, {MAX_PPB}] and at most 65,536 "
-                         f"bodies (got {ppb}, {n})")
-    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+_NAMES = ("pos", "linvel", "alive", "awake", "collidable", "motion_type", "bound_radius",
+          "shape_type", "shape_params")
+_DTYPES = (torch.float32, torch.float32, torch.bool, torch.bool, torch.bool, torch.int32,
+           torch.float32, torch.int32, torch.float32)
+# The launcher's argument buffer: 20 pointers, 9 sizes, 4 floats as
+# doubles (csrc/pairs.cu:find_pairs).
+_PACK = struct.Struct("=29q4d")
+_MAX_PLANS = 8
+_plans: dict = {}
+
+
+class _Plan:
+    """What one world shape and configuration fix for every call: the
+    bodies' shapes, the launcher's sizes and the layout of the one int32
+    buffer that holds a call's outputs and scratch (pair_a, pair_b, the
+    three counters, the margins, pair_valid, then the scratch at an even
+    word)."""
+
+    def __init__(self, n, sp, config, has_oversize, device):
+        ppb, mp, cap = config.pairs_per_body, config.max_pairs, config.cell_capacity
+        if not 1 <= ppb <= MAX_PPB or n > (1 << 16):
+            raise ValueError(f"KS takes pairs_per_body in [1, {MAX_PPB}] and at most 65,536 "
+                             f"bodies (got {ppb}, {n})")
+        if not 1 <= cap <= MAX_CAP:
+            raise ValueError(f"KS takes cell_capacity in [1, {MAX_CAP}] (got {cap})")
+        self.device = device
+        self.shapes = ((n, 3), (n, 3), (n,), (n,), (n,), (n,), (n,), (n,), tuple(sp.shape))
+        self.n, self.mp = n, mp
+        self.o_margin = 2 * mp + 4
+        self.o_pv = self.o_margin + n
+        self.o_scratch = self.o_pv + -(-mp // 4)
+        self.o_scratch += self.o_scratch & 1
+        self.words = self.o_scratch + scratch_ints(n, ppb, mp, has_oversize)
+        self.kp = dict(num_buckets=config.grid_dim * config.grid_dim, cap=cap,
+                       rcp_cell=fp.recip(config.cell_size), cell_size=config.cell_size,
+                       with_flags=True)
+        self.sizes = (sp.stride(0), n, config.grid_dim * config.grid_dim, cap, ppb, mp,
+                      int(bool(has_oversize)))
+        self.interval = config.pair_rebuild_interval
+        self.margin_cap = 0.6 * config.cell_size
+        self.cell_size = float(config.cell_size)
+
+
+def _plan(body, config, has_oversize):
     sp = body.shape_params
-    for t, name, dtp, shp in ((body.pos, "pos", f32, (n, 3)),
-                              (body.linvel, "linvel", f32, (n, 3)),
-                              (body.alive, "alive", b8, (n,)), (body.awake, "awake", b8, (n,)),
-                              (body.collidable, "collidable", b8, (n,)),
-                              (body.motion_type, "motion_type", i32, (n,)),
-                              (body.bound_radius, "bound_radius", f32, (n,)),
-                              (body.shape_type, "shape_type", i32, (n,)),
-                              (sp, "shape_params", f32, tuple(sp.shape))):
-        build.check(t, name, dtp, shp, dev)
-    table, cells, cell_over = _cell_table(body, config)
-    ints = torch.empty((2 * mp + 4 + scratch_ints(n, ppb, mp, has_oversize),), dtype=i32,
-                       device=dev)
+    key = (config, bool(has_oversize), body.device, body.capacity, tuple(sp.shape),
+           sp.stride(0))
+    plan = _plans.get(key)
+    if plan is None:
+        if len(_plans) >= _MAX_PLANS:
+            _plans.pop(next(iter(_plans)))
+        plan = _plans[key] = _Plan(body.capacity, sp, config, has_oversize, body.device)
+    return plan
+
+
+def _launch(body, config, has_oversize, rebuild, const_margin, dt):
+    """KP's cell table, then KS's six launches from one packed argument
+    buffer; the outputs are views of one new int32 buffer."""
+    global launches
+    plan = _plan(body, config, has_oversize)
+    coll = body.collidable
+    dyn = (body.pos, body.linvel, body.alive, body.awake, coll, body.motion_type,
+           body.bound_radius, body.shape_type, body.shape_params)
+    build.check_all(plan.device, dyn, _NAMES, _DTYPES, plan.shapes)
+    table, cells, cell_over = cell_table.cell_table(
+        body.pos, body.alive, coll, body.awake, body.motion_type, body.bound_radius, **plan.kp)
+    mp, n = plan.mp, plan.n
+    ints = torch.empty((plan.words,), dtype=torch.int32, device=plan.device)
+    base = ints.data_ptr()
     pa, pb = ints[:mp], ints[mp:2 * mp]
-    num_pairs, overflow, steps_left = (ints[2 * mp + k:2 * mp + k + 1].reshape(())
-                                       for k in range(3))
-    scratch = ints[2 * mp + 4:]
-    pv = torch.empty((mp,), dtype=b8, device=dev)
-    margin = torch.empty((n,), dtype=f32, device=dev)
-    build.launch("find_pairs", body.pos, body.linvel, body.alive, body.awake, body.collidable,
-                 body.motion_type, body.bound_radius, body.shape_type, sp, sp.stride(0), n,
-                 table, cells, cell_over, config.grid_dim * config.grid_dim,
-                 config.cell_capacity, ppb, mp, int(bool(has_oversize)), int(rebuild),
-                 float(const_margin), float(np.float32(dt)),
-                 float(np.float32(0.6 * config.cell_size)), config.pair_rebuild_interval,
-                 float(config.cell_size), margin, scratch, pa, pb, pv, num_pairs, overflow,
-                 steps_left)
+    num_pairs, overflow, steps_left = (ints[2 * mp + k] for k in range(3))
+    margin = ints[plan.o_margin:plan.o_pv].view(torch.float32)
+    pv = ints[plan.o_pv:plan.o_scratch].view(torch.bool)[:mp]
+    build.launch_packed("find_pairs", _PACK.pack(
+        *[t.data_ptr() for t in dyn], table.data_ptr(), cells.data_ptr(), cell_over.data_ptr(),
+        base + 4 * plan.o_scratch, base + 4 * plan.o_margin, base, base + 4 * mp,
+        base + 4 * plan.o_pv, base + 8 * mp, base + 8 * mp + 4, base + 8 * mp + 8,
+        *plan.sizes, int(rebuild), plan.interval, float(const_margin), float(dt),
+        plan.margin_cap, plan.cell_size))
     launches += 1
     return pa, pb, pv, num_pairs, overflow, steps_left, margin
 

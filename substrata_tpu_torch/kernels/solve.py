@@ -350,11 +350,13 @@ def _dims(rows: ContactRows):
 
 def _row_ptrs(rows: ContactRows, dims, device):
     """The rows' pointers for the launcher, (static 7, pair 10, table 3),
-    and the work buffer that holds them or None.  Rows that are still the
-    views KQ made (``rows.work``) are known to be in the layout: only
-    their friction fields, views of the contacts, are checked.  Any other
-    rows are checked field by field and copied into the layout where they
-    are not in it."""
+    the work buffer that holds them or None, and the tensors behind the
+    pointers (the caller holds them until its launches are queued, so
+    their memory is not handed out before).  Rows that are still the views
+    KQ made (``rows.work``) are known to be in the layout: only their
+    friction fields, views of the contacts, are checked.  Any other rows
+    are checked field by field and copied into the layout where they are
+    not in it."""
     n, k, q, wm, cpb = dims
     work = rows.work
     if work is not None and work.dims == dims and work.buf.device == device \
@@ -366,26 +368,26 @@ def _row_ptrs(rows: ContactRows, dims, device):
                  rows.s_fric.data_ptr(), p("sscal", 1)),
                 (p("pblk", 0), p("pblk", 1), p("pblk", 2), p("pvec", 0), p("pvec", 1),
                  p("pvec", 2), p("pscal", 0), rows.p_fric.data_ptr(), p("pscal", 1), p("p_ab")),
-                (p("tbl"), p("w"), p("im"))), work
+                (p("tbl"), p("w"), p("im"))), work, rows
     r = _to_layout(rows, row_layout(*dims), device)
     return (tuple(r[f].data_ptr() for f in ("s_dir", "s_ang", "s_r", "s_k", "s_target",
                                             "s_fric", "s_valid")),
             tuple(r[f].data_ptr() for f in ("p_dir", "p_ang_a", "p_ang_b", "p_ra", "p_rb",
                                             "p_k", "p_target", "p_fric", "p_valid", "p_ab")),
-            tuple(r[f].data_ptr() for f in ("tbl", "w", "im"))), None
+            tuple(r[f].data_ptr() for f in ("tbl", "w", "im"))), None, r
 
 
 def _state_ptrs(st: SolveState, dims, device, work):
     """(s_y, s_l, p_y, p_l) pointers of a state: KQ's warm impulses as KQ
     made them, or any state checked (and copied into the layout if it is
-    not in it)."""
+    not in it); and the tensors behind them, held as ``_row_ptrs``'s."""
     if work is not None and work.views is not None:
         v = work.views
         if st.s_y is v["y_s"] and st.s_l is v["y_s"] and st.p_y is v["y_p"] \
                 and st.p_l is v["y_p"]:
-            return (work.ptr("svec", 2),) * 2 + (work.ptr("pvec", 3),) * 2
+            return (work.ptr("svec", 2),) * 2 + (work.ptr("pvec", 3),) * 2, st
     s = _to_layout(st, _state_specs(*dims[:4]), device)
-    return tuple(s[f].data_ptr() for f in _STATE_FIELDS)
+    return tuple(s[f].data_ptr() for f in _STATE_FIELDS), s
 
 
 def _check_velocities(linvel, angvel, n, device):
@@ -404,8 +406,9 @@ def solve_iteration(rows: ContactRows, st: SolveState, linvel, angvel,
         return solve_iteration_plain(rows, st, linvel, angvel, beta, warm)
     dev = linvel.device
     n, k, q, wm, cpb = dims = _dims(rows)
-    (sp, pp, tp), work = _row_ptrs(rows, dims, dev)
-    st_in = _state_ptrs(st, dims, dev, work)
+    # rows_held and st_held live to the end of the call, past the launch.
+    (sp, pp, tp), work, rows_held = _row_ptrs(rows, dims, dev)
+    st_in, st_held = _state_ptrs(st, dims, dev, work)
     _check_velocities(linvel, angvel, n, dev)
     # One buffer: the new state (component-major), the static sums, the
     # velocities out, the entries' blocks; views only for what is returned.
@@ -444,8 +447,8 @@ class _Plan:
                  warm: bool):
         dev = linvel.device
         dims = _dims(rows)
-        (sp, pp, tp), work = _row_ptrs(rows, dims, dev)
-        st = _state_ptrs(st0, dims, dev, work)
+        (sp, pp, tp), work, rows_held = _row_ptrs(rows, dims, dev)
+        st, st_held = _state_ptrs(st0, dims, dev, work)
         _check_velocities(linvel, angvel, dims[0], dev)
         # A solve's outputs live in its work buffers: hand them to one solve
         # only, so no later solve writes what an earlier one returned.
@@ -453,6 +456,7 @@ class _Plan:
         if work is None:
             work = SolveWork(dims, dev)
         self.keep = (rows, st0, work, linvel, angvel)
+        self.held = (rows_held, st_held)
         self.work = work
         p = work.ptr
         tail = (p("sums", 0), p("sums", 1), p("block"), *tp)

@@ -19,7 +19,10 @@ for KO's rows (masks, keys and touching exact), KP exact, 1e-6 of each
 output's scale for KQ's setup (masks, slots and table entries exact) and
 its refreshed cache exact, KR within 1e-6 of scale (the bench rotations
 exact), KS, KT and KV exact (pairs, margins, counters, buckets, compacted
-rows, tables, flags, timers), KU within 1e-6 of the positions' scale,
+rows, tables, flags, timers; KS also on kernels/hard_cases.py's pair
+scenes and the cell table's hard inputs made into bodies, and its plan
+per shape), KG's downmix also on hard_cases.py's downmix scenes, to the
+bit where kernel and twin run the same operations, KU within 1e-6 of the positions' scale,
 KW within 1e-6 of scale (its twin's fp.fma rounds twice where the kernel's
 __fmaf_rn rounds once: they part only at an exact tie; the triangles
 exact), KX, KY and KZ exact, and a small terrain frame on the card within
@@ -31,6 +34,8 @@ card by default; the pipelined readback ring on the card; KAD (the halo
 exchange) and KAE (the shard axis's keep, counts and clipped sum) exact,
 and the sharded paths on the card within 1e-4 m (the mix 5e-5) of the CPU
 path.  Each kernel repeats its twin's operations in the same order."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1063,6 +1068,16 @@ def _forced(w):
     return w.state.replace(linvel=lin, angvel=ang)
 
 
+def _same(a, b):
+    """Equal dtypes and values, a NaN equal to a NaN (a NaN speed's margin)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(torch.where(na, 0.0, a), torch.where(nb, 0.0, b))
+
+
 def _ks_check(body, cfg, has_oversize):
     """KS against its twin, at a rebuild (margins from the speeds) and with
     one margin: every output exact.  Returns the twin's rebuild outputs."""
@@ -1070,10 +1085,10 @@ def _ks_check(body, cfg, has_oversize):
     got = ks.pairs_rebuild(body, DT, cfg, has_oversize)
     want = ks.pairs_rebuild_plain(body, DT, cfg, has_oversize)
     for a, b in zip(got, want):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+        assert _same(a, b)
     for a, b in zip(ks.find_pairs(body, cfg, 0.08, has_oversize),
                     ks.find_pairs_plain(body, cfg, 0.08, has_oversize)):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+        assert _same(a, b)
     return want
 
 
@@ -1119,6 +1134,156 @@ def test_pair_finder_edge_cases(case):
         assert int(num) > mp and int(ov) > 0 and bool(pv.all())
     if case == "max_pairs_65536":
         assert 500 < int(pv.sum()) <= int(num) < mp
+
+
+PAIR_PPB = (None, 1, 16)
+
+
+@pytest.mark.parametrize("ppb", PAIR_PPB)
+@pytest.mark.parametrize("case", hard_cases.PAIR_CASES)
+def test_pair_finder_hard_cases(case, ppb):
+    """KS against its twin, every output exact at a rebuild and with one
+    margin, on kernels/hard_cases.py's pair scenes (equal scores, a
+    neighbour listed twice, rows and max_pairs overflowing, 1 and 65
+    oversize bodies, static and asleep bodies, none alive, a NaN velocity,
+    a world at rest), each at its own pairs_per_body and at 1 and 16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = hard_cases.pair_scene(case)
+    if ppb is not None:
+        scene = dataclasses.replace(scene, cfg=dict(scene.cfg, pairs_per_body=ppb))
+    body, cfg, has_os = hard_cases.pair_inputs(scene, "cuda")
+    want = _ks_check(body, cfg, has_os)
+    if case == "nan_velocity":
+        assert int(want[5]) == -1                 # the NaN window converts to 0
+    if case == "oversize_65":
+        assert int(want[4]) >= 1
+
+
+PAIR_CELL_CASES = [(case, 10_239, 128, True, None) for case in hard_cases.CELL_CASES] + [
+    ("lattice", 65_536, 160, True, None), ("lattice", 65_536, 160, False, 0.6928)]
+
+
+@pytest.mark.parametrize("case,n,grid,has_os,max_bound", PAIR_CELL_CASES)
+def test_pair_finder_cell_cases(case, n, grid, has_os, max_bound):
+    """KS against its twin, every output exact, on the cell table's hard
+    inputs made into bodies (kernels/hard_cases.py:pair_world): every body
+    in one cell, every bucket at cap + 1, none alive, a heap past the
+    bucket lists, at 10,239 bodies over 16,384 buckets, and the capacity
+    tier's 65,536 bodies over grid 160 (radii up to 1.4 m, half of them
+    oversize; and scaled to the bench's boxes without the oversize pass)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from substrata_tpu_torch import convert
+    fields = hard_cases.pair_world(hard_cases.cell_bodies(case, n, grid, 6, seed=1), seed=2,
+                                   max_bound=max_bound)
+    cfg = SimConfig(capacity=n, max_pairs=49_152 if n > 16_384 else 16_384, grid_dim=grid,
+                    cell_size=1.4, cell_capacity=6, pairs_per_body=10, pair_rebuild_interval=6)
+    _ks_check(convert.body_state_from_numpy(fields, device="cuda"), cfg, has_os)
+
+
+def test_pair_finder_plan_follows_new_world():
+    """KS's plan is per shape, not per world: a second world of the same
+    shape gives its own answer, each call's outputs are buffers of their
+    own, and a bad argument still raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from substrata_tpu_torch.kernels import pairs as ks
+    b1, cfg, _ = hard_cases.pair_inputs(hard_cases.pair_scene("ppb_16"), "cuda")
+    b2, _, _ = hard_cases.pair_inputs(hard_cases.pair_scene("ppb_16", seed=5), "cuda")
+    out1 = ks.pairs_rebuild(b1, DT, cfg, False)
+    keep = [t.clone() for t in out1]
+    out2 = ks.pairs_rebuild(b2, DT, cfg, False)
+    for got, want in zip(out2, ks.pairs_rebuild_plain(b2, DT, cfg, False)):
+        assert torch.equal(got, want)
+    for got, want in zip(out1, keep):
+        assert torch.equal(got, want)              # not written by the later call
+    assert not torch.equal(out1[0], out2[0])
+    n = b1.capacity
+    for bad, exc in ((b1.replace(pos=b1.pos.double()), TypeError),
+                     (b1.replace(linvel=b1.linvel[:-1]), ValueError),
+                     (b1.replace(awake=b1.awake.cpu()), ValueError),
+                     (b1.replace(shape_params=torch.empty((n, 8), device="cuda")[:, :4]),
+                      ValueError)):
+        with pytest.raises(exc):
+            ks.pairs_rebuild(bad, DT, cfg, False)
+    with pytest.raises(ValueError):
+        ks.find_pairs(b1, SimConfig(**dict(hard_cases.pair_scene("ppb_16").cfg,
+                                           pairs_per_body=17)))
+
+
+def test_pair_finder_full_tick_and_mesh_rebuilds(fulltick):
+    """KS at a rebuild of the full tick's world (vehicles, the character,
+    its own oversize flag) and of a 1,200-object mesh world after 40
+    frames: every output exact."""
+    w = fulltick[0]
+    _ks_check(_forced(w), w.config, bool(w._oversize_slots))
+    mw, mp, msrc = _mesh("cuda")
+    for t in range(40):
+        benchworld.mesh_tick(mw, mp, t * DT, msrc)
+    _ks_check(_forced(mw), mw.config, bool(mw._oversize_slots))
+
+
+@pytest.mark.parametrize("case", hard_cases.DOWNMIX_CASES)
+def test_downmix_hard_cases(case):
+    """KG against its twin on kernels/hard_cases.py's downmix scenes: the
+    write index exact, out and the lines within 1e-5; equal to the bit
+    where both do the same operations: out without a room, the ring
+    positions no frame writes, and, with the wet mix and the feedback at 0
+    (so the room's fmas add an exact 0), out and every line, which holds
+    each frame's three source-order sums to the bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = hard_cases.downmix_scene(case)
+    gargs = hard_cases.downmix_inputs(scene, "cuda")
+    gk = kaudio.audio_downmix_reverb(*gargs)
+    gp = kaudio.audio_downmix_reverb_plain(*gargs)
+    assert float((gk[0] - gp[0]).abs().max()) <= 1e-5
+    if scene.room is None:
+        assert gk[1] is None and torch.equal(gk[0], gp[0])
+        return
+    assert float((gk[1] - gp[1]).abs().max()) <= 1e-5 and torch.equal(gk[2], gp[2])
+    d = gk[1].shape[1]
+    b = gargs[0].shape[1]
+    written = torch.remainder(gargs[5] + torch.arange(b, device="cuda"), d)
+    kept = torch.ones(d, dtype=torch.bool, device="cuda")
+    kept[written.long()] = False
+    assert torch.equal(gk[1][:, kept], gargs[4][:, kept])
+    zero = torch.zeros((), device="cuda")
+    z = gargs[:7] + (zero, zero)
+    zk, zp = kaudio.audio_downmix_reverb(*z), kaudio.audio_downmix_reverb_plain(*z)
+    assert torch.equal(zk[0], zp[0]) and torch.equal(zk[1], zp[1]) and torch.equal(zk[2], zp[2])
+
+
+def test_downmix_plan_follows_its_inputs(audio):
+    """KG's plan is per (S, B, D): two blocks of one shape give their own
+    answers, outputs are buffers of their own, and a bad argument raises."""
+    src, pool, lis, room, st = audio
+    s, b = src.capacity, TICK_FRAMES
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    blocks = [torch.rand((3, s, b), generator=gen, device="cuda") - 0.5 for _ in range(2)]
+    outs = []
+    for x in blocks:
+        args = (x[0], x[1], x[2], lis.master_volume, room.delay_lines, room.write_idx,
+                room.delays, room.feedback, room.wet)
+        outs.append((kaudio.audio_downmix_reverb(*args), args))
+    for got, args in outs:
+        want = kaudio.audio_downmix_reverb_plain(*args)
+        assert float((got[0] - want[0]).abs().max()) <= 1e-5
+        assert float((got[1] - want[1]).abs().max()) <= 1e-5 and torch.equal(got[2], want[2])
+    x = blocks[0]
+    for bad, exc in (((x[0].double(), x[1], x[2]), TypeError),
+                     ((x[0], x[1][:, :-1], x[2]), ValueError),
+                     ((x[0], x[1], x[2].cpu()), ValueError),
+                     ((x[0], x[1], x[2].t().contiguous().t()), ValueError)):
+        with pytest.raises(exc):
+            kaudio.audio_downmix_reverb(*bad, lis.master_volume, room.delay_lines,
+                                        room.write_idx, room.delays, room.feedback, room.wet)
+    with pytest.raises(ValueError):
+        kaudio.audio_downmix_reverb(x[0], x[1], x[2], lis.master_volume,
+                                    room.delay_lines[:, :b - 1], room.write_idx, room.delays,
+                                    room.feedback, room.wet)
 
 
 def _kt_check(w):

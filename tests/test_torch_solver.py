@@ -311,3 +311,25 @@ def test_twin_on_the_row_layout_is_the_twin(scene):
         for x, y in zip((a[1], a[2], a[0].s_y, a[0].s_l, a[0].p_y, a[0].p_l),
                         (b[1], b[2], b[0].s_y, b[0].s_l, b[0].p_y, b[0].p_l)):
             assert torch.equal(x, y), i
+
+
+def test_copied_rows_outlive_their_pointers(scene):
+    """Rows and a state not in KC's layout are copied into it before a
+    launch; the copies come back with their pointers, for the caller to
+    hold until the launch is queued (freed earlier, their memory could be
+    handed to the pass's own outputs and read back as rows)."""
+    from substrata_tpu_torch.kernels import solve as kc
+    s = scene
+    table, sign, _ = s["inc"]
+    setup = tsolver.prepare_solve(s["tb"], s["tstatic"], s["tpair"], DT, s["tp"], s["tcfg"],
+                                  s["twarm"], wm=WM, table=torch.tensor(np.asarray(table)),
+                                  sign=torch.tensor(np.asarray(sign)))
+    dims = kc._dims(setup.rows)
+    cpu = torch.device("cpu")
+    (sp, pp, tp), work, held = kc._row_ptrs(setup.rows, dims, cpu)
+    assert work is None
+    owned = {t.data_ptr() for t in held.values()}
+    assert set(sp + pp + tp) <= owned | {setup.rows.s_fric.data_ptr(),
+                                         setup.rows.p_fric.data_ptr()}
+    ptrs, st_held = kc._state_ptrs(setup.state0, dims, cpu, work)
+    assert set(ptrs) <= {t.data_ptr() for t in st_held.values()}
