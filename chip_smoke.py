@@ -29,6 +29,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    blocks: KE fetch, KF spatialise and KG downmix + reverb each against its
    plain twin on the same inputs, with the tolerance stated beside it, all
    timed as in phase 3, and the whole mix_block, kernel route vs plain;
+   KF also at 256 frames (the client's render block) and on
+   kernels/hard_cases.py's spatialise scenes (1 to 1,024 frames, one tap,
+   alpha 1 and 1e-4, no send, no HRTF), every output equal to its twin's
+   to the bit, with its device µs per launch and host µs per call;
    KG also on kernels/hard_cases.py's downmix scenes (1 to 1,024 sources,
    1 to 1,024 frames, the ring wrapping, a delay of D - 1, no room), and
    to the bit where kernel and twin run the same operations (see kg_bits),
@@ -67,9 +71,12 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    its first, eighth and ninth depth and at none, the forward column,
    stick-to-floor at each offset, 4 m cells, a trimesh step; the twin's
    branch checked), KM (the tick input) with 128 writes and 64 regions on
-   10,240 bodies, KN (digest and transform block) on a real step's events,
-   each against its plain twin with the tolerance stated beside it, timed
-   as in phase 3 (KL also with its wrapper's host µs per call);
+   10,240 bodies, KN (digest and transform block) on a real step's events
+   with and without the block and on kernels/hard_cases.py's digest scenes
+   (no entry set, every class full, one over, all set, word and tile
+   edges, ragged N and P, 65,536 pair slots), to the bit, each against its
+   plain twin with the tolerance stated beside it, timed as in phase 3 (KL
+   and KN also with their wrappers' host µs per call);
 11. the serving tick: benchworld.serving_world (the bench world and one
    PlayerPhysics at eye height), 180 think_with_player ticks of the
    walking player with phase 5's kick and one teleport (5 m up) every 30
@@ -301,6 +308,19 @@ def nbytes(*objs):
     for t in _tensors(objs):
         seen[(t.data_ptr(), t.numel(), t.dtype)] = t.numel() * t.element_size()
     return sum(seen.values())
+
+
+def kn_bytes(ev, scalars, digest, body=None, block=None):
+    """The bytes KN must move: its four masks and five scalars read, the
+    (a, b) of the first 128 touching pairs gathered (not the whole pair
+    arrays), the digest written; with the block, the five body fields read
+    and the block written."""
+    from substrata_tpu_torch.kernels.serving_io import EVT
+    ins = [ev.newly_awake, ev.newly_asleep, ev.entered_water, ev.contact_touching,
+           ev.num_pairs, ev.broadphase_overflow, *scalars]
+    if block is not None:
+        ins += [body.pos, body.quat, body.linvel, body.angvel, body.underwater]
+    return nbytes(ins, digest, block) + 8 * min(int(ev.contact_touching.sum()), EVT)
 
 
 def bound(bytes_moved, flops):
@@ -697,6 +717,16 @@ def kg_bits(gargs, what):
                 bit_equal_lines=torch.equal(gk[1], gp[1]))
 
 
+def kf_bits(fk, fp, what):
+    """KF against its twin to the bit on every output (wl, wr, ws, lp_out,
+    new_hist, level): the kernel repeats the twin's operations in order."""
+    names = ("wl", "wr", "ws", "lp_out", "new_hist", "level")
+    for name, x, y in zip(names, fk, fp):
+        check(x is None if y is None else same_bits(x, y),
+              f"KF {what}: {name} differs from its twin's bits")
+    return dict(bit_equal=[n for n, y in zip(names, fp) if y is not None])
+
+
 def audio_kernel_phase(w, device="cuda", blocks=30, plain_reps=5):
     from substrata_tpu_torch.audio import mix
     from substrata_tpu_torch.audio.hrtf import hrir_bank_tensor
@@ -743,6 +773,7 @@ def audio_kernel_phase(w, device="cuda", blocks=30, plain_reps=5):
     fp = ka.audio_spatialise_plain(*sargs)
     err = max(max_err(x, y) for x, y in zip(fk, fp))
     check(err <= 1e-5, f"KF audio_spatialise: max abs err {err} > 1e-5")
+    kf_bits(fk, fp, "bench scene")
     rows = bank.reshape(-1, 2 * bank.shape[-1])[torch.unique(st.dir_idx).long()]
     taps = bank.shape[-1]
     n_spatial = int(src.spatial.sum())
@@ -761,13 +792,50 @@ def audio_kernel_phase(w, device="cuda", blocks=30, plain_reps=5):
     conv = fir()[0].reshape(src.capacity, 2, b)
     fir_err = max(max_err(conv[:, 0], ref[0]), max_err(conv[:, 1], ref[1]))
     check(fir_err <= 1e-5, f"conv1d FIR vs the plain FIR: {fir_err} > 1e-5")
+    # KF at the client's render block (256 frames) from the same sources,
+    # and on kernels/hard_cases.py's spatialise scenes; every output equal
+    # to the bit too.
+    b2 = mix.BLOCK
+    st2 = mix.prepare(src, lis, b2, b2 / mix.ENGINE_RATE, True)
+    sp2, _ = ka.audio_fetch_plain(pool, src.buf_offset, src.buf_len, src.playhead, st2.eff_delta,
+                                  src.mix_factor, src.looping, src.stream_mode,
+                                  src.stream_write_head, st2.active, b2, mix.window_rows(b2))
+    sargs2 = (sp2, src.lp_state, st2.alpha, st2.use_lp, src.spatial, src.hrir_hist, bank,
+              st2.dir_idx, src.prev_gain_l, src.prev_gain_r, st2.gl, st2.gr,
+              mix.gain_ramp(b2, device), st2.gain, st2.send_gain, True)
+    fk2, fp2 = ka.audio_spatialise(*sargs2), ka.audio_spatialise_plain(*sargs2)
+    err2 = max(max_err(x, y) for x, y in zip(fk2, fp2))
+    check(err2 <= 1e-5, f"KF audio_spatialise at {b2} frames: max abs err {err2} > 1e-5")
+    kf_bits(fk2, fp2, f"{b2} frames")
+    hard = {}
+    for case in hard_cases.SPATIALISE_CASES:
+        hargs = hard_cases.spatialise_inputs(hard_cases.spatialise_scene(case), device)
+        hk, hp = ka.audio_spatialise(*hargs), ka.audio_spatialise_plain(*hargs)
+        e = max(max_err(x, y) for x, y in zip(hk, hp) if y is not None)
+        check(e <= 1e-5, f"KF {case}: max abs err {e} > 1e-5")
+        hard[case] = dict(max_abs_err=e, **kf_bits(hk, hp, case))
+        err = max(err, e)
+
+    def kf():
+        return ka.audio_spatialise(*sargs)
+
+    def kf2():
+        return ka.audio_spatialise(*sargs2)
     results["audio_spatialise"] = dict(
-        max_abs_err=err, tol=1e-5, hrir_rows=int(rows.shape[0]),
+        max_abs_err=err, tol=1e-5, bit_equal=True, hrir_rows=int(rows.shape[0]),
+        use_lp=int(st.use_lp.sum()),
         **bound(nbytes(sargs[:6], sargs[7:15], rows, fk),
                 b * (n_spatial * 4 * taps + src.capacity * 12)),
-        ms=median_ms(lambda: ka.audio_spatialise(*sargs)),
+        ms=median_ms(kf), device_us_per_launch=device_us(kf, "audio_spatialise"),
+        **host_cost(kf),
         plain_ms=median_ms(lambda: ka.audio_spatialise_plain(*sargs), reps=plain_reps),
-        fir_conv1d_ms=median_ms(fir), fir_conv1d_max_abs_err=fir_err)
+        fir_conv1d_ms=median_ms(fir), fir_conv1d_max_abs_err=fir_err,
+        b256=dict(max_abs_err=err2, bit_equal=True,
+                  **bound(nbytes(sargs2[:6], sargs2[7:15], rows, fk2),
+                          b2 * (n_spatial * 4 * taps + src.capacity * 12)),
+                  ms=median_ms(kf2), device_us_per_launch=device_us(kf2, "audio_spatialise"),
+                  **host_cost(kf2)),
+        hard_cases=hard)
 
     # KG.  Tolerance 1e-5 absolute on out and the delay lines: the column
     # sums run in source order in both.  Equal to the bit where both run
@@ -1378,6 +1446,7 @@ def serving_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, plain_reps=5)
     from substrata_tpu_torch.benchworld import serving_tick, serving_world, walk_input
     from substrata_tpu_torch.kernels import character as kl
     from substrata_tpu_torch.kernels import closed_forms as kk
+    from substrata_tpu_torch.kernels import hard_cases
     from substrata_tpu_torch.kernels import serving_io as km
     from substrata_tpu_torch.physics import broadphase, narrowphase, shapes
     from substrata_tpu_torch.physics import character as tchar
@@ -1492,25 +1561,44 @@ def serving_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, plain_reps=5)
         device_us_per_launch=device_us(lambda: km.apply_tick_in(body, tin), "apply_tick_in"),
         plain_ms=median_ms(lambda: km.apply_tick_in_plain(body, tin), reps=plain_reps))
 
-    # KN on the last serving step's events.
+    # KN on the last serving step's events, with the transform block (the
+    # serving tick) and without it (think), then on kernels/hard_cases.py's
+    # digest scenes: the digest and the block equal to the bit.
     ev, dg, sl = w.last_events, w.last_diags, w.pair_cache.steps_left
     dk, bk = km.digest_tblock(ev, dg.num_contacts, dg.num_awake, sl, body)
     dp, bp = km.digest_tblock_plain(ev, dg.num_contacts, dg.num_awake, sl, body)
     check(torch.equal(dk, dp), "KN: digest differs")
-    check(torch.equal(bk, bp), "KN: transform block differs")
-    kn_in = [ev.newly_awake, ev.newly_asleep, ev.entered_water, ev.contact_touching,
-             ev.contact_pair_a, ev.contact_pair_b, body.pos, body.quat, body.linvel,
-             body.angvel, body.underwater]
+    check(same_bits(bk, bp), "KN: transform block differs")
+    dn, bn = km.digest_tblock(ev, dg.num_contacts, dg.num_awake, sl, body, with_block=False)
+    check(torch.equal(dn, dp) and bn is None, "KN: digest without the block differs")
+    hard = {}
+    for case in hard_cases.DIGEST_CASES:
+        hargs = hard_cases.digest_inputs(hard_cases.digest_scene(case), device)
+        hp = km.digest_tblock_plain(*hargs)
+        for with_block in (True, False):
+            hk = km.digest_tblock(*hargs, with_block=with_block)
+            check(torch.equal(hk[0], hp[0]), f"KN {case}: digest differs")
+            check(same_bits(hk[1], hp[1]) if with_block else hk[1] is None,
+                  f"KN {case}: transform block differs")
+        hard[case] = dict(bodies=int(hargs[4].capacity),
+                          pairs=int(hargs[0].contact_touching.shape[0]),
+                          counts=hp[0][192:196].tolist(), bit_equal=True)
+    def kn(with_block=True):
+        return km.digest_tblock(ev, dg.num_contacts, dg.num_awake, sl, body,
+                                with_block=with_block)
     results["digest_tblock"] = dict(
-        max_abs_err=0.0, tol=0.0, bodies=nb, pairs=int(ev.contact_touching.shape[0]),
-        touching=int(ev.contact_touching.sum()), newly_awake=int(ev.newly_awake.sum()),
-        **bound(nbytes(kn_in, dp, bp), 0),
-        ms=median_ms(lambda: km.digest_tblock(ev, dg.num_contacts, dg.num_awake, sl, body)),
-        device_us_per_launch=device_us(
-            lambda: km.digest_tblock(ev, dg.num_contacts, dg.num_awake, sl, body),
-            "digest_tblock"),
+        max_abs_err=0.0, tol=0.0, bit_equal=True, bodies=nb,
+        pairs=int(ev.contact_touching.shape[0]), touching=int(ev.contact_touching.sum()),
+        newly_awake=int(ev.newly_awake.sum()),
+        **bound(kn_bytes(ev, (dg.num_contacts, dg.num_awake, sl), dp, body, bp), 0),
+        ms=median_ms(kn), device_us_per_launch=device_us(kn, "digest_tblock"), **host_cost(kn),
         plain_ms=median_ms(lambda: km.digest_tblock_plain(ev, dg.num_contacts, dg.num_awake,
-                                                          sl, body), reps=plain_reps))
+                                                          sl, body), reps=plain_reps),
+        without_block=dict(**bound(kn_bytes(ev, (dg.num_contacts, dg.num_awake, sl), dp), 0),
+                           ms=median_ms(lambda: kn(False)),
+                           device_us_per_launch=device_us(lambda: kn(False), "digest_tblock"),
+                           **host_cost(lambda: kn(False))),
+        hard_cases=hard)
     return results
 
 

@@ -17,14 +17,25 @@
 //   active layer of rate <= 1.25) it reads ~1 KB of pool per source and
 //   writes 0.8 MB of samples: ~0.6 us at 3.35 TB/s.  Neighbouring threads
 //   read neighbouring pool samples, so the loads coalesce.
-// KF audio_spatialise: one block per source.  The source's HRIR history and
-//   block go to shared memory; one thread runs the one-pole low-pass over
-//   the frames in order (the recurrence is serial: ~B dependent fmas, the
-//   kernel's latency floor); then every thread takes frames of the 64-tap
-//   FIR per ear from shared memory, the gain ramp and the reverb send, and
-//   the block reduces the peak level.
+// KF audio_spatialise: one block per source.  Every global load is issued
+//   first, together (the block's samples, four a thread; the history; the
+//   HRIR pair; the ramp; the source's scalars).  The window [history |
+//   block] goes to shared memory with frame 0 at a fixed 16-byte boundary,
+//   and beside it alpha x[b], the low-pass's inputs.  One thread runs the
+//   one-pole low-pass over the frames in order (the recurrence is serial):
+//   it loads its inputs 16 at a time a batch ahead of their fmas and, with
+//   the low-pass on, writes y 4 at a time into the window, which it never
+//   reads, so its chain is B dependent fmas (~2 us at B = 800), not a
+//   shared-memory round trip a frame.  A source without the low-pass runs
+//   its FIR beside the chain.  Each thread takes a run of 4 consecutive
+//   frames of the 64-tap FIR per ear: one 16-byte load brings the 4 window
+//   values entering at the next 4 taps, for all 4 frames of the run (a
+//   warp's such loads are 512 contiguous bytes), two more the 4 taps'
+//   coefficients, and the run's 8 chains hide the fma latency; the gain
+//   ramps and the reverb send follow (16-byte stores where the rows
+//   allow), and the level's max is a warp shuffle and one word a warp.
 //   Bound: the FIR, 2 x 64 fmas per (source, frame): 52 MFLOP at the bench
-//   shapes, ~0.8 us at 67 TFLOP/s float32.
+//   shapes, ~0.8 us at 67 TFLOP/s float32; the bytes, ~3.4 MB, ~1.0 us.
 // KG audio_downmix_reverb: the left, right and send sums of each frame over
 //   its column of the [S, B] blocks, each folded in source order (the
 //   twin's _index_sum: no tree, no atomics, so the result is the twin's to
@@ -113,75 +124,214 @@ __global__ void audio_fetch_kernel(
   samples[s * B + b] = acc * (active[s] ? 1.0f : 0.0f);
 }
 
-__global__ void __launch_bounds__(kSpatialThreads) audio_spatialise_kernel(
-    const float* __restrict__ samples, const float* __restrict__ lp_state,
-    const float* __restrict__ alpha, const uint8_t* __restrict__ use_lp,
-    const uint8_t* __restrict__ spatial, const float* __restrict__ hist,
-    const float* __restrict__ bank, const int* __restrict__ dir_idx,
-    const float* __restrict__ prev_gl, const float* __restrict__ prev_gr,
-    const float* __restrict__ gl, const float* __restrict__ gr, const float* __restrict__ ramp,
-    const float* __restrict__ gain, const float* __restrict__ send_gain,
-    float* __restrict__ wl, float* __restrict__ wr, float* __restrict__ ws,
-    float* __restrict__ lp_out, float* __restrict__ new_hist, float* __restrict__ level,
-    int B, int T, int use_hrtf) {
-  __shared__ float xs[kMaxBlock + kMaxTaps - 1];  // [history | block]
-  __shared__ float hs[2 * kMaxTaps];
-  __shared__ float red[kSpatialThreads];
-  const int s = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int H = T - 1;
-  for (int i = tid; i < H; i += blockDim.x) xs[i] = hist[s * H + i];
-  for (int b = tid; b < B; b += blockDim.x) xs[H + b] = samples[s * B + b];
-  if (use_hrtf) {
-    const float* h = bank + static_cast<long long>(dir_idx[s]) * 2 * T;
-    for (int k = tid; k < 2 * T; k += blockDim.x) hs[k] = h[k];
-  }
-  __syncthreads();
-  if (tid == 0) {
-    // y[n] = (1 - a) y[n-1] + a x[n]; the last y is kept either way.
-    const float al = alpha[s];
-    const float a = 1.0f - al;
-    const bool lp = use_lp[s] != 0;
-    float y = lp_state[s];
-    for (int b = 0; b < B; ++b) {
-      y = __fmaf_rn(a, y, al * xs[H + b]);
-      if (lp) xs[H + b] = y;
+// KF's arguments, passed to the kernel by value.
+struct SpatialiseArgs {
+  const float *samples, *lp_state, *alpha;
+  const uint8_t *use_lp, *spatial;
+  const float *hist, *bank;
+  const int* dir_idx;
+  const float *prev_gl, *prev_gr, *gl, *gr, *ramp, *gain, *send_gain;
+  float *wl, *wr, *ws, *lp_out, *new_hist, *level;
+  int B, T, use_hrtf, vec4;
+};
+
+constexpr int kRun = 4;                            // consecutive frames a thread's FIR takes
+constexpr int kChainBatch = 16;                    // low-pass inputs loaded ahead of their fmas
+constexpr int kChainThread = kSpatialThreads - 1;  // its FIR run starts at frame 1,020
+constexpr int kFrameLoads = kMaxBlock / kSpatialThreads;
+static_assert(kRun * kSpatialThreads >= kMaxBlock, "a FIR run for every frame");
+
+// The one-pole low-pass y = fma(1 - alpha, y, alpha x[b]), frame by frame,
+// by one thread.  Its inputs alpha x[b] are loaded 16 at a time, a batch
+// ahead of their fmas, and with kStore the ys go 4 at a time into the
+// window (16-byte aligned), which the chain never reads, so the dependent
+// chain is the fmas alone.  Returns the last y.
+template <bool kStore>
+__device__ __forceinline__ float lowpass_chain(const float* bx, float* ys, int B, float y,
+                                               float c) {
+  const float4* in = reinterpret_cast<const float4*>(bx);
+  float4* out = reinterpret_cast<float4*>(ys);
+  float4 cur[kChainBatch / 4], nxt[kChainBatch / 4];
+#pragma unroll
+  for (int q = 0; q < kChainBatch / 4; ++q) cur[q] = in[q];
+  int b = 0;
+#pragma unroll 2
+  for (; b + kChainBatch <= B; b += kChainBatch) {
+#pragma unroll
+    for (int q = 0; q < kChainBatch / 4; ++q) nxt[q] = in[(b + kChainBatch) / 4 + q];
+#pragma unroll
+    for (int q = 0; q < kChainBatch / 4; ++q) {
+      float4 v;
+      v.x = y = __fmaf_rn(c, y, cur[q].x);
+      v.y = y = __fmaf_rn(c, y, cur[q].y);
+      v.z = y = __fmaf_rn(c, y, cur[q].z);
+      v.w = y = __fmaf_rn(c, y, cur[q].w);
+      if (kStore) out[b / 4 + q] = v;
     }
-    lp_out[s] = y;
+#pragma unroll
+    for (int q = 0; q < kChainBatch / 4; ++q) cur[q] = nxt[q];
   }
-  __syncthreads();
-  const bool sp = spatial[s] != 0;
-  const float pgl = prev_gl[s], pgr = prev_gr[s];
-  const float dgl = gl[s] - pgl, dgr = gr[s] - pgr;
-  const float sg = send_gain != nullptr ? send_gain[s] : 0.0f;
-  float peak = 0.0f;
-  for (int b = tid; b < B; b += blockDim.x) {
-    const float x = xs[H + b];
-    peak = fmaxf(peak, fabsf(x));
-    float sl = x, sr = x;
-    if (use_hrtf && sp) {
-      sl = xs[H + b] * hs[0];
-      sr = xs[H + b] * hs[T];
-      for (int k = 1; k < T; ++k) {
-        const float xv = xs[H + b - k];
-        sl = __fmaf_rn(xv, hs[k], sl);
-        sr = __fmaf_rn(xv, hs[T + k], sr);
+#pragma unroll
+  for (int q = 0; q < kChainBatch / 4; ++q) {
+    const float v[4] = {cur[q].x, cur[q].y, cur[q].z, cur[q].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (b + 4 * q + e < B) {
+        y = __fmaf_rn(c, y, v[e]);
+        if (kStore) ys[b + 4 * q + e] = y;
       }
     }
-    const float r = ramp[b];
-    wl[s * B + b] = __fmaf_rn(dgl, r, pgl) * sl;
-    wr[s * B + b] = __fmaf_rn(dgr, r, pgr) * sr;
-    if (ws != nullptr) ws[s * B + b] = x * sg;
   }
-  for (int i = tid; i < H; i += blockDim.x)
-    new_hist[s * H + i] = use_hrtf ? xs[B + i] : xs[i];
-  red[tid] = peak;
+  return y;
+}
+
+// Taps kc .. kc + n - 1 (n <= 4, kc a multiple of 4) of a FIR run whose
+// frame r sits at run[r] (16-byte aligned): the 4 window values entering
+// at taps kc + 1 .. kc + 4 come in one load, the 4 taps' coefficients in
+// two, then the fmas run; w holds the run's window at tap kc and leaves
+// holding it at tap kc + n.
+__device__ __forceinline__ void fir_taps(const float* run, const float4* h4, int kc, int n,
+                                         float w[kRun], float sl[kRun], float sr[kRun]) {
+  const float4 e = *reinterpret_cast<const float4*>(run - kc - 4);
+  const float4 ha = h4[kc / 2], hb = h4[kc / 2 + 1];
+  const float enter[4] = {e.w, e.z, e.y, e.x};
+  const float hl[4] = {ha.x, ha.z, hb.x, hb.z};
+  const float hr[4] = {ha.y, ha.w, hb.y, hb.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (q < n) {
+#pragma unroll
+      for (int r = 0; r < kRun; ++r) {
+        sl[r] = __fmaf_rn(w[r], hl[q], sl[r]);
+        sr[r] = __fmaf_rn(w[r], hr[q], sr[r]);
+      }
+#pragma unroll
+      for (int r = kRun - 1; r > 0; --r) w[r] = w[r - 1];
+      w[0] = enter[q];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kSpatialThreads) audio_spatialise_kernel(
+    const SpatialiseArgs a) {
+  // The window [history | block]: frame 0 at the fixed, 16-byte aligned
+  // word kMaxTaps of `win`, the history just before it.
+  __shared__ __align__(16) float win[kMaxTaps + kMaxBlock];
+  __shared__ __align__(16) float bx[kMaxBlock + kChainBatch];  // alpha x[b]
+  __shared__ __align__(16) float2 hs[kMaxTaps];                // tap k: (left, right)
+  __shared__ float s_peak[kSpatialThreads / 32];
+  const int s = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int B = a.B, T = a.T, H = T - 1;
+  float* const block = win + kMaxTaps;   // frame b at block[b]
+  float* const xs = block - H;           // window index i at xs[i]
+  // Every global load first, all in flight together.
+  const float al = a.alpha[s];
+  const bool lp = a.use_lp[s] != 0, sp = a.spatial[s] != 0;
+  const float pgl = a.prev_gl[s], pgr = a.prev_gr[s];
+  const float dgl = a.gl[s] - pgl, dgr = a.gr[s] - pgr;
+  const float sg = a.send_gain != nullptr ? a.send_gain[s] : 0.0f;
+  const int dir = a.use_hrtf ? a.dir_idx[s] : 0;
+  float xin[kFrameLoads];
+#pragma unroll
+  for (int m = 0; m < kFrameLoads; ++m) {
+    const int b = tid + kSpatialThreads * m;
+    xin[m] = b < B ? a.samples[s * B + b] : 0.0f;
+  }
+  const float hv = tid < H ? a.hist[s * H + tid] : 0.0f;
+  const int b0 = kRun * tid;
+  float rp[kRun];
+#pragma unroll
+  for (int r = 0; r < kRun; ++r) rp[r] = a.ramp[min(b0 + r, B - 1)];
+  if (a.use_hrtf && tid < T) {
+    const float* h = a.bank + static_cast<long long>(dir) * 2 * T;
+    hs[tid] = make_float2(h[tid], h[T + tid]);
+  }
+  if (tid < H) xs[tid] = hv;
+#pragma unroll
+  for (int m = 0; m < kFrameLoads; ++m) {
+    const int b = tid + kSpatialThreads * m;
+    if (b < B) {
+      block[b] = xin[m];
+      bx[b] = al * xin[m];
+    }
+  }
   __syncthreads();
-  for (int w = blockDim.x / 2; w > 0; w >>= 1) {
-    if (tid < w) red[tid] = fmaxf(red[tid], red[tid + w]);
-    __syncthreads();
+  // The last thread runs the chain.  Without the low-pass the block's
+  // signal is its input, so the FIR below runs beside the chain; with it,
+  // the FIR waits for the filtered block.
+  if (tid == kChainThread) {
+    const float y0 = a.lp_state[s], c = 1.0f - al;
+    a.lp_out[s] = lp ? lowpass_chain<true>(bx, block, B, y0, c)
+                     : lowpass_chain<false>(bx, block, B, y0, c);
   }
-  if (tid == 0) level[s] = red[0] * gain[s];
+  if (lp) __syncthreads();
+
+  // The 64-tap FIR per ear over a run of kRun consecutive frames: each
+  // window value loaded serves every frame of the run, and the run's
+  // 2 x kRun chains are independent.  Each output keeps its twin's tap
+  // order: tap 0's multiply (an fma onto -0, which rounds as the product,
+  // zeros' signs included), then the fmas from k = 1.
+  float peak = 0.0f;
+  if (b0 < B) {
+    const float* run = block + b0;
+    const float4 xv = *reinterpret_cast<const float4*>(run);
+    const float x[kRun] = {xv.x, xv.y, xv.z, xv.w};
+    float sl[kRun], sr[kRun];
+    if (a.use_hrtf && sp) {
+      float w[kRun];
+#pragma unroll
+      for (int r = 0; r < kRun; ++r) {
+        w[r] = x[r];
+        sl[r] = -0.0f;
+        sr[r] = -0.0f;
+      }
+      const float4* h4 = reinterpret_cast<const float4*>(hs);
+      int kc = 0;
+      for (; kc + 4 <= T; kc += 4) fir_taps(run, h4, kc, 4, w, sl, sr);
+      if (kc < T) fir_taps(run, h4, kc, T - kc, w, sl, sr);
+    } else {
+#pragma unroll
+      for (int r = 0; r < kRun; ++r) sl[r] = sr[r] = x[r];
+    }
+    float ol[kRun], orr[kRun], os[kRun];
+#pragma unroll
+    for (int r = 0; r < kRun; ++r) {
+      ol[r] = __fmaf_rn(dgl, rp[r], pgl) * sl[r];
+      orr[r] = __fmaf_rn(dgr, rp[r], pgr) * sr[r];
+      os[r] = x[r] * sg;
+      if (b0 + r < B) peak = fmaxf(peak, fabsf(x[r]));
+    }
+    const long long o = static_cast<long long>(s) * B + b0;
+    if (a.vec4) {
+      *reinterpret_cast<float4*>(a.wl + o) = make_float4(ol[0], ol[1], ol[2], ol[3]);
+      *reinterpret_cast<float4*>(a.wr + o) = make_float4(orr[0], orr[1], orr[2], orr[3]);
+      if (a.ws != nullptr)
+        *reinterpret_cast<float4*>(a.ws + o) = make_float4(os[0], os[1], os[2], os[3]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < kRun; ++r) {
+        if (b0 + r < B) {
+          a.wl[o + r] = ol[r];
+          a.wr[o + r] = orr[r];
+          if (a.ws != nullptr) a.ws[o + r] = os[r];
+        }
+      }
+    }
+  }
+  if (tid < H) a.new_hist[s * H + tid] = a.use_hrtf ? xs[B + tid] : hv;
+  // The level: a warp max by shuffles, one word a warp, one thread's max.
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) peak = fmaxf(peak, __shfl_xor_sync(0xffffffffu, peak, o));
+  if ((tid & 31) == 0) s_peak[tid >> 5] = peak;
+  const float g = a.gain[s];
+  __syncthreads();
+  if (tid == 0) {
+    float m = s_peak[0];
+#pragma unroll
+    for (int w = 1; w < kSpatialThreads / 32; ++w) m = fmaxf(m, s_peak[w]);
+    a.level[s] = m * g;
+  }
 }
 
 __device__ __forceinline__ float clip1(float x) { return fminf(fmaxf(x, -1.0f), 1.0f); }
@@ -322,11 +472,16 @@ extern "C" int audio_spatialise(const float* samples, const float* lp_state, con
                                 const float* send_gain, float* wl, float* wr, float* ws,
                                 float* lp_out, float* new_hist, float* level, int S, int B,
                                 int T, int use_hrtf, void* stream) {
-  if (B > kMaxBlock || T > kMaxTaps || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || B > kMaxBlock || T > kMaxTaps || T < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(wl) | reinterpret_cast<uintptr_t>(wr) |
+                          reinterpret_cast<uintptr_t>(ws);
+  const SpatialiseArgs a{samples, lp_state, alpha, use_lp, spatial, hist, bank, dir_idx,
+                         prev_gl, prev_gr, gl, gr, ramp, gain, send_gain,
+                         wl, wr, ws, lp_out, new_hist, level,
+                         B, T, use_hrtf, (B % kRun == 0) && (bases % 16 == 0)};
   if (S > 0) {
-    audio_spatialise_kernel<<<S, kSpatialThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        samples, lp_state, alpha, use_lp, spatial, hist, bank, dir_idx, prev_gl, prev_gr, gl,
-        gr, ramp, gain, send_gain, wl, wr, ws, lp_out, new_hist, level, B, T, use_hrtf);
+    audio_spatialise_kernel<<<S, kSpatialThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

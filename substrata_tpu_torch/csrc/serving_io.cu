@@ -13,14 +13,25 @@
 // body against 10,240 x 70 = 0.7 MB.
 //
 // KN (digest_tblock) replaces _digest_core (:258-275) and _tblock_core
-// (:202-206); plain twin: serving_io.py:digest_tblock_plain.  Blocks 0-3
-// each compact one event mask in order (newly awake, newly asleep, entered
-// water, touching pairs): a warp ballot and popc give each set element its
-// rank within the warp, the block adds the warps' counts in order, and the
-// first 64 (128) ranks are written; the block also writes its count.  The
-// remaining blocks write the [N, 14] transform block (unless `block` is null)
-// and bit-pack the three body masks, one thread per body.  What bounds it on the card: bytes (the
-// masks in, 56 bytes a body out).
+// (:202-206); plain twin: serving_io.py:digest_tblock_plain.  One launch, a
+// grid of tiles of 256 slots over max(N, P): each block takes its tile of
+// all four event masks (newly awake, newly asleep, entered water over N;
+// touching over P).  A warp's ballot over 32 consecutive slots is their bit
+// word: the body masks' words go straight to the digest's tail, the
+// touching mask's to the plan's scratch, and each block writes its tile's
+// four counts there too.  The same blocks stage their 256 transform rows
+// in shared memory from coalesced reads of each field and write the
+// [N, 14] block as one contiguous run.  The last block to finish (a fence,
+// then an atomic ticket it resets for the next launch, so no call needs a
+// memset) selects in order, one warp a class (select_class): a warp scan
+// of the tile counts gives each tile's first rank, the set bits of the
+// tiles holding ranks below 64 (128) are placed in parallel, and the
+// touching pairs' (a, b) are gathered with every load in flight at once.
+// No thread walks a mask serially: the selection reads the 4 x T tile
+// counts and only the words that hold the first ranks.  What bounds it on
+// the card: bytes (the masks and pair ids in, 56 bytes a body out with the
+// block); its latency floor is one wave of tiles, then the last block's
+// selection.
 #include "common.cuh"
 
 namespace {
@@ -94,109 +105,230 @@ __global__ void apply_tick_in_kernel(
   o_sleep[i] = hit ? 0.0f : st;
 }
 
-// The ordered compaction of one mask by one block: the indices of its first
-// `size` set entries (or, for the touching pairs, their (a, b)), -1 padded,
-// and the total count.
-__device__ void compact_block(const bool* __restrict__ mask, int len, int size,
-                              const int* __restrict__ pa, const int* __restrict__ pb,
-                              int* __restrict__ out, int* __restrict__ count) {
-  __shared__ int s_warp[kThreads / 32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// KN's arguments (kernels/serving_io.py:_DIGEST_PACK, one 8-byte slot each).
+struct DigestArgs {
+  const bool *up, *down, *wet, *touch;
+  const int *pa, *pb, *num_pairs, *overflow, *num_contacts, *num_awake, *steps_left;
+  const float *pos, *quat, *linvel, *angvel;
+  const bool* underwater;
+  int* out;
+  float* block;   // null: no transform block
+  int* scratch;   // [ticket | tile counts 4 x T | touching words], the plan's
+  int n, p;
+};
+
+constexpr int kWarps = kThreads / 32;   // a tile: kThreads slots, kWarps words
+constexpr int kRow = 14;                // the transform block's floats a body
+constexpr unsigned kFull = 0xffffffffu;
+
+// The last block's ordered selection of one class, by one warp.  The
+// class's total is a warp sum over its tile counts.  Then chunks of 32
+// tiles, lane = tile: a warp scan of the counts gives each tile's first
+// rank; a tile is active if it holds a set entry and its first rank is
+// below `size` (64, or 128 touching pairs).  Each active lane loads its
+// tile's 8 words together.  Where some tile holds more ranks to place than
+// 8 x the active tiles, the warp walks the active tiles in order: for each
+// word (broadcast by a shuffle), lane j takes bit j, its rank the tile's
+// first rank plus the set bits below it, so 32 slots are placed at once;
+// otherwise each active lane places its own tile's bits.  The chunks stop
+// once `size` ranks are placed.  Touching ranks keep their slot in shared
+// memory, and the warp gathers their (a, b) with all the loads in flight
+// at once; then the -1 padding and the count.
+__device__ void select_class(const DigestArgs& a, int c, int tiles, int wn, int lane,
+                             int* s_sel) {
+  const int size = c == 3 ? kEvt : kEvk;
+  const int* cnt = a.scratch + 1 + c * tiles;
+  const int* words = c == 3 ? a.scratch + 1 + 4 * tiles : a.out + kHead + c * wn;
+  const int n_words = c == 3 ? (a.p + 31) / 32 : wn;
+  int* slots = c == 3 ? a.out + 200 : a.out + c * kEvk;
+  const unsigned below = (1u << lane) - 1u;
+  int total = 0;
+  for (int t = lane; t < tiles; t += 32) total += __ldcg(cnt + t);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) total += __shfl_xor_sync(kFull, total, o);
   int base = 0;
-  for (int start = 0; start < len; start += blockDim.x) {
-    const int j = start + tid;
-    const bool f = j < len && mask[j];
-    const unsigned ballot = __ballot_sync(0xffffffffu, f);
-    if (lane == 0) s_warp[warp] = __popc(ballot);
-    __syncthreads();
-    int before = 0, total = 0;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
-      before += w < warp ? s_warp[w] : 0;
-      total += s_warp[w];
+  for (int c0 = 0; c0 < tiles && base < size; c0 += 32) {
+    const int t = c0 + lane;
+    const int ct = t < tiles ? __ldcg(cnt + t) : 0;
+    int incl = ct;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
     }
-    const int rank = base + before + __popc(ballot & ((1u << lane) - 1u));
-    if (f && rank < size) {
-      if (pa != nullptr) {
-        out[2 * rank] = pa[j];
-        out[2 * rank + 1] = pb[j];
-      } else {
-        out[rank] = j;
+    const int first = base + incl - ct;
+    const bool active = ct > 0 && first < size;
+    unsigned wv[kWarps];
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) {
+      const int w = t * kWarps + k;
+      wv[k] = active && w < n_words ? static_cast<unsigned>(__ldcg(words + w)) : 0u;
+    }
+    const unsigned act = __ballot_sync(kFull, active);
+    int most = active ? min(ct, size - first) : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) most = max(most, __shfl_xor_sync(kFull, most, o));
+    if (most <= kWarps * __popc(act)) {
+      // Sparse tiles: each active lane places its own tile's set bits.
+      if (active) {
+        int rank = first;
+#pragma unroll
+        for (int k = 0; k < kWarps; ++k) {
+          for (unsigned bits = wv[k]; bits != 0u && rank < size; bits &= bits - 1u, ++rank) {
+            const int slot = 32 * (t * kWarps + k) + __ffs(bits) - 1;
+            if (c == 3) {
+              s_sel[rank] = slot;
+            } else {
+              slots[rank] = slot;
+            }
+          }
+        }
+      }
+    } else {
+      // Dense tiles: the warp places a word's 32 bits at once, tile by tile.
+      for (unsigned left = act; left != 0u; left &= left - 1u) {
+        const int tt = __ffs(left) - 1;
+        int r = __shfl_sync(kFull, first, tt);
+#pragma unroll
+        for (int k = 0; k < kWarps; ++k) {
+          const unsigned word = __shfl_sync(kFull, wv[k], tt);
+          const int rank = r + __popc(word & below);
+          if (((word >> lane) & 1u) != 0u && rank < size) {
+            const int slot = 32 * ((c0 + tt) * kWarps + k) + lane;
+            if (c == 3) {
+              s_sel[rank] = slot;
+            } else {
+              slots[rank] = slot;
+            }
+          }
+          r += __popc(word);
+        }
       }
     }
-    base += total;
-    __syncthreads();
+    base += __shfl_sync(kFull, incl, 31);
   }
-  for (int s = tid; s < size; s += blockDim.x) {
-    if (s >= base) {
-      if (pa != nullptr) {
-        out[2 * s] = -1;
-        out[2 * s + 1] = -1;
-      } else {
-        out[s] = -1;
-      }
+  const int placed = min(total, size);
+  if (c == 3) {
+    __syncwarp();
+    int va[kEvt / 32], vb[kEvt / 32];
+#pragma unroll
+    for (int q = 0; q < kEvt / 32; ++q) {
+      const int r = lane + 32 * q;
+      const int slot = r < placed ? s_sel[r] : 0;
+      va[q] = r < placed ? a.pa[slot] : -1;
+      vb[q] = r < placed ? a.pb[slot] : -1;
     }
+#pragma unroll
+    for (int q = 0; q < kEvt / 32; ++q) {
+      slots[2 * (lane + 32 * q)] = va[q];
+      slots[2 * (lane + 32 * q) + 1] = vb[q];
+    }
+  } else {
+    for (int r = placed + lane; r < size; r += 32) slots[r] = -1;
   }
-  if (tid == 0) *count = base;
+  if (lane == 0) a.out[192 + c] = total;
 }
 
-__global__ void digest_tblock_kernel(
-    const bool* __restrict__ up, const bool* __restrict__ down, const bool* __restrict__ wet,
-    const bool* __restrict__ touch, const int* __restrict__ pa, const int* __restrict__ pb,
-    const int* __restrict__ num_pairs, const int* __restrict__ overflow,
-    const int* __restrict__ num_contacts, const int* __restrict__ num_awake,
-    const int* __restrict__ steps_left, const float* __restrict__ pos,
-    const float* __restrict__ quat, const float* __restrict__ linvel,
-    const float* __restrict__ angvel, const bool* __restrict__ underwater, int n, int p,
-    int* __restrict__ out, float* __restrict__ block) {
-  const int b = blockIdx.x;
-  if (b == 0) {
-    compact_block(up, n, kEvk, nullptr, nullptr, out, out + 192);
-    if (threadIdx.x == 0) {
-      out[196] = *num_pairs;
-      out[197] = *overflow;
-      out[198] = *num_contacts;
-      out[199] = *num_awake;
-      out[kHead - 1] = *steps_left;
-    }
-    return;
-  }
-  if (b == 1) {
-    compact_block(down, n, kEvk, nullptr, nullptr, out + kEvk, out + 193);
-    return;
-  }
-  if (b == 2) {
-    compact_block(wet, n, kEvk, nullptr, nullptr, out + 2 * kEvk, out + 194);
-    return;
-  }
-  if (b == 3) {
-    compact_block(touch, p, kEvt, pa, pb, out + 200, out + 195);
-    return;
-  }
-  const int i = (b - 4) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (block != nullptr) {
-    float* row = block + 14 * i;
+__global__ void __launch_bounds__(kThreads) digest_tblock_kernel(const DigestArgs a) {
+  __shared__ int s_cnt[4][kWarps];
+  __shared__ float s_rows[kThreads * kRow];
+  __shared__ int s_last;
+  __shared__ int s_sel[kEvt];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles = gridDim.x, n = a.n, p = a.p;
+  const int wn = (n + 31) / 32;
+  const int j = blockIdx.x * kThreads + tid;
+  const int word = blockIdx.x * kWarps + warp;
+  const int row0 = blockIdx.x * kThreads;
+  const int rows = a.block != nullptr ? min(kThreads, n - row0) : 0;
+  // Every global load first, all in flight together: the four masks'
+  // flags and the tile's transform fields (coalesced reads of each).
+  const bool in_n = j < n, in_p = j < p;
+  const bool f_up = in_n && a.up[j], f_down = in_n && a.down[j];
+  const bool f_wet = in_n && a.wet[j], f_touch = in_p && a.touch[j];
+  float pv[3], lv[3], av[3], qv[4];
+  bool uw = false;
+  if (rows > 0) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      row[k] = pos[3 * i + k];
-      row[7 + k] = linvel[3 * i + k];
-      row[10 + k] = angvel[3 * i + k];
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) row[3 + k] = quat[4 * i + k];
-    row[13] = underwater[i] ? 1.0f : 0.0f;
-  }
-  const int words = (n + 31) / 32;
-  if (i < words) {
-    const bool* masks[3] = {up, down, wet};
     for (int m = 0; m < 3; ++m) {
-      unsigned bits = 0u;
-      for (int j = 0; j < 32; ++j) {
-        const int s = 32 * i + j;
-        if (s < n && masks[m][s]) bits |= 1u << j;
-      }
-      out[kHead + m * words + i] = static_cast<int>(bits);
+      const int k = tid + kThreads * m;
+      const bool ok = k < 3 * rows;
+      pv[m] = ok ? a.pos[3 * row0 + k] : 0.0f;
+      lv[m] = ok ? a.linvel[3 * row0 + k] : 0.0f;
+      av[m] = ok ? a.angvel[3 * row0 + k] : 0.0f;
     }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int k = tid + kThreads * m;
+      qv[m] = k < 4 * rows ? a.quat[4 * row0 + k] : 0.0f;
+    }
+    uw = tid < rows && a.underwater[row0 + tid];
+  }
+  // Each warp's ballot over its 32 slots is that slot range's bit word.
+  const unsigned b_up = __ballot_sync(kFull, f_up);
+  const unsigned b_down = __ballot_sync(kFull, f_down);
+  const unsigned b_wet = __ballot_sync(kFull, f_wet);
+  const unsigned b_touch = __ballot_sync(kFull, f_touch);
+  if (lane == 0) {
+    if (word < wn) {
+      a.out[kHead + word] = static_cast<int>(b_up);
+      a.out[kHead + wn + word] = static_cast<int>(b_down);
+      a.out[kHead + 2 * wn + word] = static_cast<int>(b_wet);
+    }
+    if (word < (p + 31) / 32) a.scratch[1 + 4 * tiles + word] = static_cast<int>(b_touch);
+    s_cnt[0][warp] = __popc(b_up);
+    s_cnt[1][warp] = __popc(b_down);
+    s_cnt[2][warp] = __popc(b_wet);
+    s_cnt[3][warp] = __popc(b_touch);
+  }
+  // The tile's transform rows, staged in shared memory and written out as
+  // one contiguous run of floats.
+  if (rows > 0) {
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const int k = tid + kThreads * m;
+      if (k < 3 * rows) {
+        const int r = k / 3, c = k - 3 * r;
+        s_rows[kRow * r + c] = pv[m];
+        s_rows[kRow * r + 7 + c] = lv[m];
+        s_rows[kRow * r + 10 + c] = av[m];
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int k = tid + kThreads * m;
+      if (k < 4 * rows) s_rows[kRow * (k >> 2) + 3 + (k & 3)] = qv[m];
+    }
+    if (tid < rows) s_rows[kRow * tid + 13] = uw ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+  if (rows > 0) {
+    float* dst = a.block + static_cast<long long>(kRow) * row0;
+    for (int k = tid; k < kRow * rows; k += kThreads) dst[k] = s_rows[k];
+  }
+  if (tid < 4) {
+    int c = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) c += s_cnt[tid][w];
+    a.scratch[1 + tid * tiles + blockIdx.x] = c;
+  }
+  // The last block to finish selects; it resets the ticket for the next
+  // launch, so no call needs a memset.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(a.scratch, 1) == tiles - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (warp < 4) {
+    select_class(a, warp, tiles, wn, lane, s_sel);
+  } else if (tid == 4 * 32) {
+    a.out[196] = *a.num_pairs;
+    a.out[197] = *a.overflow;
+    a.out[198] = *a.num_contacts;
+    a.out[199] = *a.num_awake;
+    a.out[kHead - 1] = *a.steps_left;
+    a.scratch[0] = 0;
   }
 }
 
@@ -217,16 +349,38 @@ extern "C" int apply_tick_in(const float* pos, const float* quat, const float* l
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int digest_tblock(const bool* up, const bool* down, const bool* wet,
-                             const bool* touch, const int* pa, const int* pb,
-                             const int* num_pairs, const int* overflow, const int* num_contacts,
-                             const int* num_awake, const int* steps_left, const float* pos,
-                             const float* quat, const float* linvel, const float* angvel,
-                             const bool* underwater, int n, int p, int* out, float* block,
-                             void* stream) {
-  const int blocks = 4 + (n + kThreads - 1) / kThreads;
-  digest_tblock_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      up, down, wet, touch, pa, pb, num_pairs, overflow, num_contacts, num_awake, steps_left,
-      pos, quat, linvel, angvel, underwater, n, p, out, block);
+// The wrapper's arguments in one host buffer of 8-byte slots
+// (kernels/serving_io.py:_DIGEST_PACK): newly_awake, newly_asleep,
+// entered_water, touching, pair_a, pair_b, num_pairs, overflow,
+// num_contacts, num_awake, steps_left, pos, quat, linvel, angvel,
+// underwater, out digest, block (0: none), scratch, N, P.
+extern "C" int digest_tblock(const long long* v, void* stream) {
+  auto ptr = [v](int k) { return reinterpret_cast<void*>(v[k]); };
+  DigestArgs a;
+  a.up = static_cast<const bool*>(ptr(0));
+  a.down = static_cast<const bool*>(ptr(1));
+  a.wet = static_cast<const bool*>(ptr(2));
+  a.touch = static_cast<const bool*>(ptr(3));
+  a.pa = static_cast<const int*>(ptr(4));
+  a.pb = static_cast<const int*>(ptr(5));
+  a.num_pairs = static_cast<const int*>(ptr(6));
+  a.overflow = static_cast<const int*>(ptr(7));
+  a.num_contacts = static_cast<const int*>(ptr(8));
+  a.num_awake = static_cast<const int*>(ptr(9));
+  a.steps_left = static_cast<const int*>(ptr(10));
+  a.pos = static_cast<const float*>(ptr(11));
+  a.quat = static_cast<const float*>(ptr(12));
+  a.linvel = static_cast<const float*>(ptr(13));
+  a.angvel = static_cast<const float*>(ptr(14));
+  a.underwater = static_cast<const bool*>(ptr(15));
+  a.out = static_cast<int*>(ptr(16));
+  a.block = static_cast<float*>(ptr(17));
+  a.scratch = static_cast<int*>(ptr(18));
+  a.n = static_cast<int>(v[19]);
+  a.p = static_cast<int>(v[20]);
+  if (a.n < 0 || a.p < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int len = a.n > a.p ? a.n : a.p;
+  const int tiles = len > 0 ? (len + kThreads - 1) / kThreads : 1;
+  digest_tblock_kernel<<<tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -107,10 +107,11 @@ SIGNATURES = {
     # bound_radius, tick_in, N, out pos, quat, linvel, angvel, awake,
     # sleep_timer, stream
     "apply_tick_in": [P] * 10 + [I] + [P] * 6 + [P],
+    # one host buffer of 8-byte slots (kernels/serving_io.py:_DIGEST_PACK:
     # newly_awake, newly_asleep, entered_water, touching, pair_a, pair_b,
     # num_pairs, overflow, num_contacts, num_awake, steps_left, pos, quat,
-    # linvel, angvel, underwater, N, P, out digest, block, stream
-    "digest_tblock": [P] * 16 + [I] * 2 + [P] * 2 + [P],
+    # linvel, angvel, underwater, out digest, block, scratch, N, P), stream
+    "digest_tblock": [P, P],
     # pos, alive, collidable, awake, motion_type, bound_radius, N, buckets,
     # cap, 1 / cell_size, cell_size, with_flags, out cells, scratch, table,
     # overflow, stream
@@ -337,6 +338,20 @@ def launch_packed(name: str, args: bytes):
     buffer (``struct.pack`` of pointers and sizes, a wrapper keeping a
     world's constant ones): one ctypes argument instead of dozens."""
     raise_if(kernel(name)(args, stream()), name)
+
+
+MAX_PLANS = 8   # shapes a wrapper keeps a plan for
+
+
+def plan(cache: dict, key, make):
+    """The plan ``cache`` holds for ``key``, made by ``make()`` on first use;
+    past ``MAX_PLANS`` entries the oldest goes."""
+    found = cache.get(key)
+    if found is None:
+        if len(cache) >= MAX_PLANS:
+            cache.pop(next(iter(cache)))
+        found = cache[key] = make()
+    return found
 
 
 def check_all(device, tensors, names, dtypes, shapes):

@@ -1,7 +1,8 @@
 """Hard inputs for the two stable counting sorts (KP's cell table and KT's
 grouping), for KH's ray trace, for KL's character update, for KB's
-static contacts, for the contact solve (KQ's setup and KC) and for the
-rotation every rotating kernel shares.
+static contacts, for the contact solve (KQ's setup and KC), for the
+rotation every rotating kernel shares, for the pair finder (KS), the
+downmix (KG), the event digest (KN) and the spatialiser (KF).
 
 For the sorts, these are the inputs where a bucket or a code's slice
 fills, so the order of ties decides who is dropped, and where nothing is
@@ -16,7 +17,11 @@ step.  For the static contacts: the tie rules (equal depths across
 candidate slots, against the heightfield, across samples; hull support
 ties), a cell list cut by the candidate count, empty cells, cell
 boundaries to the ulp, samples outside the grid and behind a far plane,
-ineligible bodies and the present shape types.  The CPU tests hold the
+ineligible bodies and the present shape types.  For the digest: masks
+with nothing set, exactly full, one over, all set, set only at word and
+tile edges, ragged lengths and 65,536 pair slots.  For the spatialiser:
+1 to 1,024 frames, one tap, alpha 1 and near 0, no send, no HRTF, the
+low-pass and the pan path mixed among the sources.  The CPU tests hold the
 twins against the reference on them at a small size;
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` hold the kernels against
 the twins on them.  Everything is numpy, made from a seed; slot order is
@@ -1243,3 +1248,172 @@ def downmix_inputs(scene: DownmixScene, device):
     r = scene.room
     return (t(scene.wl), t(scene.wr), t(scene.ws), mv, t(r["delay_lines"]), t(r["write_idx"]),
             t(r["delays"]), t(r["feedback"]), t(r["wet"]))
+
+
+# ---------------------------------------------------------------------------
+# KN: digest scenes.
+# ---------------------------------------------------------------------------
+
+DIGEST_CASES = ("none_set", "exactly_full", "one_over", "all_set", "edges", "ragged_n",
+                "p65536")
+
+
+@dataclasses.dataclass
+class DigestScene:
+    """KN's inputs (numpy): the bodies (BodyState fields; the transform
+    block reads pos, quat, linvel, angvel and underwater), the step's
+    events (the StepEvents fields) and the scalars num_contacts, num_awake
+    and the pair cache's steps_left."""
+    bodies: dict
+    events: dict
+    scalars: tuple
+
+
+def digest_scene(case: str, seed: int = 0) -> DigestScene:
+    """The inputs of one hard digest case, N = 2,048 bodies and P = 4,096
+    pair slots unless named:
+
+    - ``none_set``: no entry set in any mask;
+    - ``exactly_full``: 64 set in each body mask, 128 touching, at random
+      slots: every class fills its digest slots and none overflows;
+    - ``one_over``: 65 and 129, the overflow that sends the host to the
+      bit words;
+    - ``all_set``: every entry set;
+    - ``edges``: set entries only at word and tile edges (slots 31, 32,
+      255, 256, 1023, 1024 and the last);
+    - ``ragged_n``: N = 1,013 and P = 2,001 (neither a multiple of 32), 30%
+      of each mask set;
+    - ``p65536``: the bench's N = 10,240 with P = 65,536 pair slots, 1% of
+      each body mask and 5% of the pairs set.
+
+    Pair ids are random in [-1, N); body poses and velocities are random,
+    half the bodies underwater."""
+    rng = np.random.default_rng(seed)
+    n, p = {"ragged_n": (1013, 2001), "p65536": (10_240, 65_536)}.get(case, (2048, 4096))
+
+    def chosen(length, k):
+        m = np.zeros(length, bool)
+        m[rng.choice(length, k, replace=False)] = True
+        return m
+
+    def edge_mask(length):
+        m = np.zeros(length, bool)
+        m[[s for s in (31, 32, 255, 256, 1023, 1024) if s < length] + [length - 1]] = True
+        return m
+
+    def mask(length, size):
+        if case == "none_set":
+            return np.zeros(length, bool)
+        if case == "exactly_full":
+            return chosen(length, size)
+        if case == "one_over":
+            return chosen(length, size + 1)
+        if case == "all_set":
+            return np.ones(length, bool)
+        if case == "edges":
+            return edge_mask(length)
+        if case == "ragged_n":
+            return rng.random(length) < 0.3
+        if case == "p65536":
+            return rng.random(length) < (0.05 if size == 128 else 0.01)
+        raise ValueError(f"unknown digest case {case!r}")
+
+    events = dict(newly_awake=mask(n, 64), newly_asleep=mask(n, 64),
+                  entered_water=mask(n, 64), contact_touching=mask(p, 128),
+                  contact_pair_a=rng.integers(-1, n, p).astype(np.int32),
+                  contact_pair_b=rng.integers(-1, n, p).astype(np.int32),
+                  num_pairs=np.int32(rng.integers(0, p)),
+                  broadphase_overflow=np.int32(rng.integers(0, 5)))
+    from substrata_tpu_torch.physics import state
+    a = {k: v.numpy().copy() for k, v in vars(state.zero_body_state(n, device="cpu")).items()}
+    a["pos"][:] = rng.uniform(-50, 50, (n, 3))
+    q = rng.normal(size=(n, 4))
+    a["quat"][:] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    a["linvel"][:] = rng.normal(0.0, 2.0, (n, 3))
+    a["angvel"][:] = rng.normal(0.0, 2.0, (n, 3))
+    a["underwater"][:] = rng.random(n) < 0.5
+    bodies = {k: np.ascontiguousarray(v) for k, v in a.items()}
+    scalars = tuple(np.int32(v) for v in (rng.integers(0, 4 * p), rng.integers(0, n),
+                                          rng.integers(0, 6)))
+    return DigestScene(bodies=bodies, events=events, scalars=scalars)
+
+
+def digest_inputs(scene: DigestScene, device):
+    """``digest_tblock``'s arguments for ``scene`` on ``device``: (events,
+    num_contacts, num_awake, steps_left, state)."""
+    from substrata_tpu_torch import convert
+    from substrata_tpu_torch.physics.step import StepEvents
+    ev = StepEvents(**{k: torch.as_tensor(np.asarray(v), device=device)
+                       for k, v in scene.events.items()})
+    scal = [torch.as_tensor(v, device=device) for v in scene.scalars]
+    return (ev, *scal, convert.body_state_from_numpy(scene.bodies, device=device))
+
+
+# ---------------------------------------------------------------------------
+# KF: spatialise scenes.
+# ---------------------------------------------------------------------------
+
+SPATIALISE_CASES = ("b1", "b255", "b256", "b800", "b1024", "t1", "alpha_one", "alpha_tiny",
+                    "no_send", "no_hrtf")
+SPATIALISE_S = 48
+SPATIALISE_BANK = (5, 3)     # azimuth x elevation rows of the scenes' HRIR bank
+
+
+@dataclasses.dataclass
+class SpatialiseScene:
+    """KF's inputs (numpy): ``arrays`` by ``audio_spatialise``'s argument
+    names (``send_gain`` None without a send), and ``use_hrtf``."""
+    arrays: dict
+    use_hrtf: bool
+
+
+def spatialise_scene(case: str, seed: int = 0) -> SpatialiseScene:
+    """48 sources, B = 800 frames and T = 64 taps unless named: ``b{B}``
+    (1, 255, 256, 800, 1,024 frames: one frame, a block that is not a
+    multiple of the FIR's 4-frame runs, the client's render block, the
+    tick, the kernel's largest), ``t1`` (one tap, no history; B = 256),
+    ``alpha_one`` (alpha = 1: the low-pass passes its input through),
+    ``alpha_tiny`` (alpha = 1e-4: it barely moves from its state),
+    ``no_send`` and ``no_hrtf``.  In every case about half the sources
+    use the low-pass, a quarter are not spatial (the pan path), alpha is
+    one of the mix's three values elsewhere, and samples are spread over
+    +-0.3 with a few loud ones."""
+    rng = np.random.default_rng(seed)
+    s = SPATIALISE_S
+    b = int(case[1:]) if case.startswith("b") else (256 if case == "t1" else 800)
+    t = 1 if case == "t1" else 64
+    if case not in SPATIALISE_CASES:
+        raise ValueError(f"unknown spatialise case {case!r}")
+    x = rng.normal(0.0, 0.1, (s, b))
+    loud = rng.random((s, b)) < 0.01
+    samples = np.where(loud, rng.uniform(-1, 1, (s, b)), x).astype(np.float32)
+    if case == "alpha_one":
+        alpha = np.ones(s, np.float32)
+    elif case == "alpha_tiny":
+        alpha = np.full(s, 1e-4, np.float32)
+    else:
+        alpha = rng.choice(np.array([0.1024, 0.3491, 1.0], np.float32), s)
+    na, ne = SPATIALISE_BANK
+    bank = rng.normal(0.0, 0.2, (na, ne, 2, t)).astype(np.float32)
+    f32 = np.float32
+    arrays = dict(
+        samples=samples, lp_state=rng.normal(0.0, 0.1, s).astype(f32), alpha=alpha,
+        use_lp=rng.random(s) < 0.5, spatial=rng.random(s) < 0.75,
+        hrir_hist=rng.normal(0.0, 0.1, (s, t - 1)).astype(f32), bank=bank,
+        dir_idx=rng.integers(0, na * ne, s).astype(np.int32),
+        prev_gl=rng.uniform(0, 1, s).astype(f32), prev_gr=rng.uniform(0, 1, s).astype(f32),
+        gl=rng.uniform(0, 1, s).astype(f32), gr=rng.uniform(0, 1, s).astype(f32),
+        ramp=np.linspace(0.0, 1.0, b, dtype=f32), gain=rng.uniform(0, 1, s).astype(f32),
+        send_gain=None if case == "no_send" else rng.uniform(0, 1, s).astype(f32))
+    return SpatialiseScene(arrays=arrays, use_hrtf=case != "no_hrtf")
+
+
+SPATIALISE_ARGS = ("samples", "lp_state", "alpha", "use_lp", "spatial", "hrir_hist", "bank",
+                   "dir_idx", "prev_gl", "prev_gr", "gl", "gr", "ramp", "gain", "send_gain")
+
+
+def spatialise_inputs(scene: SpatialiseScene, device):
+    """``audio_spatialise``'s arguments for ``scene`` on ``device``."""
+    a = scene.arrays
+    return tuple(None if a[k] is None else torch.as_tensor(a[k], device=device)
+                 for k in SPATIALISE_ARGS) + (scene.use_hrtf,)

@@ -27,10 +27,15 @@ and the [N, 14] float32 transform block (pos | quat | linvel | angvel |
 underwater) that ``sync_transforms`` reads.
 
 Each wrapper runs its plain twin for CPU tensors and launches
-``csrc/serving_io.cu`` for CUDA tensors.
+``csrc/serving_io.cu`` for CUDA tensors.  KN is one launch over tiles of
+256 slots; its last block selects the first slots from the tiles' counts
+and bit words, which a plan per (N, P, device) keeps in a scratch buffer
+with the launch's ticket (zeroed once: the kernel resets it).
 """
 
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 import torch
@@ -197,12 +202,42 @@ def digest_tblock_plain(events, num_contacts, num_awake, steps_left, state, with
     return digest, transform_block(state) if with_block else None
 
 
+_DIGEST_PACK = struct.Struct("=21q")    # csrc/serving_io.cu:digest_tblock
+DIGEST_TILE = 256                         # slots a block of KN takes
+_digest_plans: dict = {}
+
+
+class _DigestPlan:
+    """KN's checks and scratch for one (N, P, device): the inputs' dtypes
+    and shapes, and an int32 buffer [ticket | the tiles' four counts |
+    the touching mask's bit words] that every launch of this shape uses,
+    so those launches run in stream order (the port launches on one
+    stream)."""
+
+    NAMES = ("newly_awake", "newly_asleep", "entered_water", "contact_touching",
+             "contact_pair_a", "contact_pair_b", "num_pairs", "broadphase_overflow",
+             "num_contacts", "num_awake", "steps_left", "pos", "quat", "linvel", "angvel",
+             "underwater")
+
+    def __init__(self, n, p, device):
+        f32, i32, bl = torch.float32, torch.int32, torch.bool
+        self.device = device
+        self.dtypes = (bl,) * 4 + (i32,) * 7 + (f32,) * 4 + (bl,)
+        self.shapes = ((n,),) * 3 + ((p,),) * 3 + ((),) * 5 + ((n, 3), (n, 4), (n, 3), (n, 3),
+                                                                 (n,))
+        self.tiles = max(1, -(-max(n, p) // DIGEST_TILE))
+        self.scratch = torch.zeros(1 + 4 * self.tiles + (p + 31) // 32, dtype=torch.int32,
+                                   device=device)
+        self.sizes = (n, p)
+
+
 def digest_tblock(events, num_contacts, num_awake, steps_left, state, out=None,
                   with_block=True):
     """KN: ``digest_tblock_plain`` for CPU tensors, ``csrc/serving_io.cu``
-    (four compaction blocks and a grid for the bit words and the block, one
-    launch) for CUDA tensors.  ``out``, when given, is the int32 tensor the
-    digest goes to (a view into the tick's readback buffer).  Without
+    (one launch over tiles of the masks and the block, checked once per
+    (N, P) and launched from one packed argument) for CUDA tensors.
+    ``out``, when given, is the int32 tensor the digest goes to (a view
+    into the tick's readback buffer).  Without
     ``with_block`` the transform block is not written (``think``: the
     reference packs it only when ``sync_transforms`` asks)."""
     if state.pos.device.type == "cpu":
@@ -212,32 +247,21 @@ def digest_tblock(events, num_contacts, num_awake, steps_left, state, out=None,
             out.copy_(digest)
             digest = out
         return digest, block
-    dev = state.pos.device
     n, p = state.capacity, events.contact_touching.shape[0]
-    f32, i32, bl = torch.float32, torch.int32, torch.bool
-    for t, name, dt, shp in (
-            (events.newly_awake, "newly_awake", bl, (n,)),
-            (events.newly_asleep, "newly_asleep", bl, (n,)),
-            (events.entered_water, "entered_water", bl, (n,)),
-            (events.contact_touching, "contact_touching", bl, (p,)),
-            (events.contact_pair_a, "contact_pair_a", i32, (p,)),
-            (events.contact_pair_b, "contact_pair_b", i32, (p,)),
-            (events.num_pairs, "num_pairs", i32, ()),
-            (events.broadphase_overflow, "broadphase_overflow", i32, ()),
-            (num_contacts, "num_contacts", i32, ()), (num_awake, "num_awake", i32, ()),
-            (steps_left, "steps_left", i32, ()),
-            (state.pos, "pos", f32, (n, 3)), (state.quat, "quat", f32, (n, 4)),
-            (state.linvel, "linvel", f32, (n, 3)), (state.angvel, "angvel", f32, (n, 3)),
-            (state.underwater, "underwater", bl, (n,))):
-        build.check(t, name, dt, shp, dev)
+    dev = state.pos.device
+    plan = build.plan(_digest_plans, (n, p, dev), lambda: _DigestPlan(n, p, dev))
+    ins = (events.newly_awake, events.newly_asleep, events.entered_water,
+           events.contact_touching, events.contact_pair_a, events.contact_pair_b,
+           events.num_pairs, events.broadphase_overflow, num_contacts, num_awake, steps_left,
+           state.pos, state.quat, state.linvel, state.angvel, state.underwater)
+    build.check_all(plan.device, ins, plan.NAMES, plan.dtypes, plan.shapes)
     if out is None:
-        out = torch.empty(digest_len(n), dtype=i32, device=dev)
-    build.check(out, "out", i32, (digest_len(n),), dev)
-    block = torch.empty((n, 14), dtype=f32, device=dev) if with_block else None
-    build.launch("digest_tblock", events.newly_awake, events.newly_asleep,
-                 events.entered_water, events.contact_touching, events.contact_pair_a,
-                 events.contact_pair_b, events.num_pairs, events.broadphase_overflow,
-                 num_contacts, num_awake, steps_left, state.pos, state.quat, state.linvel,
-                 state.angvel, state.underwater, n, p, out, block)
+        out = torch.empty(digest_len(n), dtype=torch.int32, device=plan.device)
+    else:
+        build.check(out, "out", torch.int32, (digest_len(n),), plan.device)
+    block = torch.empty((n, 14), dtype=torch.float32, device=plan.device) if with_block else None
+    build.launch_packed("digest_tblock", _DIGEST_PACK.pack(
+        *(t.data_ptr() for t in ins), out.data_ptr(), 0 if block is None else block.data_ptr(),
+        plan.scratch.data_ptr(), *plan.sizes))
     launches["digest_tblock"] += 1
     return out, block

@@ -29,7 +29,8 @@ exact), KX, KY and KZ exact, and a small terrain frame on the card within
 1e-4 m (particles, the character) and 1e-5 of scale (joints) of the CPU
 path; KAA exact (HRTF on and off; the pan's cos and sin within 1e-6 of
 the gains' scale, an HRIR bin only where its pre-round value lies within
-1e-5 of a half-integer), KAB exact; KAC exact (words); ClientApp on the
+1e-5 of a half-integer), KAB exact; KAC exact (words); KN and KF to the bit on
+kernels/hard_cases.py's digest and spatialise scenes; ClientApp on the
 card by default; the pipelined readback ring on the card; KAD (the halo
 exchange) and KAE (the shard axis's keep, counts and clipped sum) exact,
 and the sharded paths on the card within 1e-4 m (the mix 5e-5) of the CPU
@@ -637,6 +638,53 @@ def test_serving_io_kernels_match_plain():
     dn, bn = km.digest_tblock(ev, dg.num_contacts, dg.num_awake, w.pair_cache.steps_left,
                               w.state, with_block=False)
     assert torch.equal(dn, dp) and bn is None
+
+
+def _same_bits(a, b):
+    if a is None or b is None:
+        return a is None and b is None
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                       b.view(torch.int32) if b.is_floating_point() else b)
+
+
+@pytest.mark.parametrize("case", hard_cases.DIGEST_CASES)
+def test_digest_hard_cases(case):
+    """KN against its twin on kernels/hard_cases.py's digest scenes, the
+    digest and the transform block to the bit, with and without the block
+    and into a given buffer; three launches in a row on one plan (the
+    ticket the last block resets) give the same digest."""
+    from substrata_tpu_torch.kernels import serving_io as km
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = hard_cases.digest_inputs(hard_cases.digest_scene(case), "cuda")
+    dp, bp = km.digest_tblock_plain(*args)
+    for _ in range(3):
+        dk, bk = km.digest_tblock(*args)
+        assert torch.equal(dk, dp) and _same_bits(bk, bp)
+    out = torch.full_like(dp, 7)
+    dn, bn = km.digest_tblock(*args, out=out, with_block=False)
+    assert dn is out and bn is None and torch.equal(out, dp)
+
+
+@pytest.mark.parametrize("case", hard_cases.SPATIALISE_CASES)
+def test_spatialise_hard_cases(case):
+    """KF against its twin on kernels/hard_cases.py's spatialise scenes:
+    every output (wl, wr, ws, lp_out, new_hist, level) within 1e-5 and
+    equal to the bit (the kernel repeats the twin's operations in order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = hard_cases.spatialise_inputs(hard_cases.spatialise_scene(case), "cuda")
+    fk = kaudio.audio_spatialise(*args)
+    fp = kaudio.audio_spatialise_plain(*args)
+    for name, x, y in zip(("wl", "wr", "ws", "lp_out", "new_hist", "level"), fk, fp):
+        if y is None:
+            assert x is None, name
+            continue
+        if x.numel():
+            assert float((x - y).abs().max()) <= 1e-5, name
+        assert _same_bits(x, y), name
 
 
 def _push_world(device):
