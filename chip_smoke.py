@@ -1120,23 +1120,84 @@ def fulltick_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, warm=30, pla
     jargs = (veh, vin, c_pos, c_quat, c_lin, c_ang, c_mass, c_iw, wt.reshape(nv, 4),
              wn.reshape(nv, 4, 3), whit.reshape(nv, 4) & (veh.body_slot >= 0)[:, None],
              w.params.water_z, DT)
-    jk, jp = kj.vehicle_forces(*jargs), kj.vehicle_forces_plain(*jargs)
-    err, rel = 0.0, 0.0
-    for i, (x, y) in enumerate(zip(jk, jp)):
-        if y.dtype in (torch.bool, torch.int32):
-            check(torch.equal(x, y), f"KJ: output {i} differs")
-            continue
-        e = max_err(x, y)
-        err, rel = max(err, e), max(rel, e / max(1.0, float(y.abs().max())))
-    check(rel <= 1e-5, f"KJ: max err {rel} of the output's scale > 1e-5")
+    err, rel, jk, jp = _kj_compare(jargs, "full tick")
     kj_in = [getattr(veh, f) for f in kj.KERNEL_FIELDS] + list(vars(vin).values())
     results["vehicle_forces"] = dict(
         max_abs_err=err, max_err_of_scale=rel, tol=1e-5, vehicles=nv,
         contacts=int(jp[7].sum()),
         **bound(nbytes(kj_in, jargs[2:12], jk), FLOPS["vehicle_forces"] * nv),
         ms=median_ms(lambda: kj.vehicle_forces(*jargs)),
-        plain_ms=median_ms(lambda: kj.vehicle_forces_plain(*jargs), reps=plain_reps))
+        plain_ms=median_ms(lambda: kj.vehicle_forces_plain(*jargs), reps=plain_reps),
+        **split_cost(lambda: kj.vehicle_forces(*jargs)), hard_cases=kj_hard_cases(device))
     return results
+
+
+def split_cost(fn):
+    """A call's device work by launch (``launch_split``: device µs a call
+    and a launch, launches a call) and its host cost (``host_cost``)."""
+    split = launch_split(fn)
+    dev = sum(v[1] for v in split.values())
+    n = sum(v[0] for v in split.values())
+    return dict(device_us_per_call=dev, launches_per_call=n,
+                device_us_per_launch=dev / n if n else None, split=split, **host_cost(fn))
+
+
+def _kj_compare(args, what):
+    """KJ against its twin: each float output within 1e-5 of its largest
+    magnitude (at least 1), gear and contact exact.  Returns (max abs
+    error, max error of scale, the kernel's outputs, the twin's)."""
+    from substrata_tpu_torch.kernels import vehicles as kj
+    jk, jp = kj.vehicle_forces(*args), kj.vehicle_forces_plain(*args)
+    err, rel = 0.0, 0.0
+    for i, (x, y) in enumerate(zip(jk, jp)):
+        if y.dtype in (torch.bool, torch.int32):
+            check(torch.equal(x, y), f"KJ {what}: output {i} differs")
+            continue
+        e = max_err(x, y)
+        err, rel = max(err, e), max(rel, e / max(1.0, float(y.abs().max())))
+    check(rel <= 1e-5, f"KJ {what}: max err {rel} of the output's scale > 1e-5")
+    return err, rel, jk, jp
+
+
+def kj_world_args(vm, w):
+    """KJ's arguments as ``VehicleManager.update`` builds them for world
+    ``w``'s vehicles now: their queued inputs, chassis rows and wheel-ray
+    hits."""
+    from substrata_tpu_torch.physics import queries
+    from substrata_tpu_torch.physics.vehicles.manager import (VehicleInputs,
+                                                              chassis_and_wheel_rays)
+    veh = vm.veh
+    v = veh.vtype.shape[0]
+    axes = np.zeros((3, v), np.float32)
+    flags = np.zeros((2, v), bool)
+    for i, inp in vm._inputs.items():
+        axes[:, i] = inp.forward, inp.right, inp.up
+        flags[:, i] = bool(inp.brake), bool(inp.handbrake)
+    inputs = VehicleInputs(*(torch.as_tensor(x, device=w.device) for x in (*axes, *flags)))
+    chassis, (origins, dirs, max_ts, exclude) = chassis_and_wheel_rays(veh, w.state)
+    hits = queries.trace_rays(origins, dirs, max_ts, w.state, w.static_world, w.config,
+                              n_steps=4, exclude=exclude)
+    return (veh, inputs, *chassis, hits.t.reshape(v, 4), hits.normal.reshape(v, 4, 3),
+            hits.hit.reshape(v, 4) & (veh.body_slot >= 0)[:, None], w.params.water_z, DT)
+
+
+def kj_hard_cases(device="cuda"):
+    """KJ against its twin on kernels/hard_cases.py's vehicle scenes (each
+    type active and inactive, airborne, 2 and 4 wheels, the shift, reverse
+    and brake edges, the unflip window, the waterline, slow chassis, the
+    righting controller, 1 and 33 vehicles); 33 vehicles timed."""
+    from substrata_tpu_torch.kernels import hard_cases
+    from substrata_tpu_torch.kernels import vehicles as kj
+    out = {}
+    for case in hard_cases.VEHICLE_CASES:
+        args = hard_cases.vehicle_inputs(hard_cases.vehicle_scene(case), device)
+        err, rel = _kj_compare(args, case)[:2]
+        out[case] = dict(vehicles=int(args[0].vtype.shape[0]), max_abs_err=err,
+                         max_err_of_scale=rel)
+        if case == "v33":
+            out[case].update(ms=median_ms(lambda a=args: kj.vehicle_forces(*a)),
+                             **split_cost(lambda a=args: kj.vehicle_forces(*a)))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2852,9 +2913,71 @@ def _kt_compare(w, what, timed=False, plain_reps=5):
                                 lambda: kt.compact_plain(contacts, m), "layout_compact",
                                 nbytes(contacts, ck, cov_k), 0, plain_reps)
         ia = (cp[0], cp[1], occ, n, cpb)
-        res["incidence"] = _timed(lambda: kt.incidence(*ia), lambda: kt.incidence_plain(*ia),
-                                  "layout_inc", nbytes(cp[0], cp[1], occ, ik), 0, plain_reps)
+        res["incidence"] = dict(
+            **_timed(lambda: kt.incidence(*ia), lambda: kt.incidence_plain(*ia), "layout_inc",
+                     nbytes(cp[0], cp[1], occ, ik), 0, plain_reps),
+            **split_cost(lambda: kt.incidence(*ia)), hard=kt_incidence_cases(body.device))
     return res
+
+
+CAPACITY_ROWS = 16_383    # the most compacted rows a 65,536-body world's key allows
+
+
+def incidence_capacity_inputs(device):
+    """The incidence table's inputs at 65,536 bodies over grid 160
+    (hard_cases.py's lattice made into bodies, as bench_pairs_mix.py builds
+    them): the first 16,383 of KS's pairs as the entries, the rest empty,
+    cpb 8 as in the bench world."""
+    from substrata_tpu_torch import convert
+    from substrata_tpu_torch.kernels import hard_cases
+    from substrata_tpu_torch.kernels import pairs as ks
+    from substrata_tpu_torch.physics.state import SimConfig
+    fields = hard_cases.pair_world(hard_cases.cell_bodies("lattice", 65_536, 160, 6, seed=1),
+                                   seed=1, max_bound=0.6928)
+    cfg = SimConfig(capacity=65_536, max_pairs=49_152, grid_dim=160, cell_size=1.4,
+                    cell_capacity=6, pairs_per_body=10, pair_rebuild_interval=6)
+    body = convert.body_state_from_numpy(fields, device=device)
+    pa, pb, pv = ks.pairs_rebuild(body, DT, cfg, False)[:3]
+    idx = torch.nonzero(pv).flatten()[:CAPACITY_ROWS]
+    ea = torch.full((CAPACITY_ROWS,), -1, dtype=torch.int32, device=device)
+    eb = ea.clone()
+    ea[:idx.shape[0]], eb[:idx.shape[0]] = pa[idx], pb[idx]
+    return ea, eb, ea >= 0, 65_536, 8
+
+
+def kt_incidence_cases(device):
+    """KT's incidence table against its twin, to the bit, on
+    kernels/hard_cases.py's incidence scenes (three calls on one plan, a
+    table held from the first not written by the next), and at 65,536
+    bodies (``incidence_capacity_inputs``): timed, with its launches and
+    host cost."""
+    from substrata_tpu_torch.kernels import hard_cases
+    from substrata_tpu_torch.kernels import layout as kt
+
+    def compare(ia, what):
+        ip = kt.incidence_plain(ia[0].contiguous(), ia[1].contiguous(), *ia[2:])
+        first = kt.incidence(*ia)
+        held = [t.clone() for t in first]
+        for _ in range(2):
+            ik = kt.incidence(*ia)
+            check(all(same_bits(x, y) for x, y in zip(ik, ip)),
+                  f"KT incidence {what}: differs from its twin's")
+        check(all(same_bits(x, y) for x, y in zip(first, held)),
+              f"KT incidence {what}: a held table was written by a later call")
+        return ip
+    out = {}
+    for case in hard_cases.INCIDENCE_CASES:
+        ia = hard_cases.incidence_inputs(hard_cases.incidence_scene(case), device)
+        ip = compare(ia, case)
+        out[case] = dict(bodies=ia[3], entries=int(ia[0].shape[0]), stride=ia[0].stride(0),
+                         cpb=ia[4], bodies_full=int((ip[2] == ia[4]).sum()), bit_equal=True)
+    ia = incidence_capacity_inputs(device)
+    ip = compare(ia, "65,536 bodies")
+    out["capacity"] = dict(bodies=ia[3], entries=CAPACITY_ROWS, occupied=int(ia[2].sum()),
+                           cpb=ia[4], bit_equal=True, ms=median_ms(lambda: kt.incidence(*ia)),
+                           **bound(nbytes(ia[:3], ip), 0),
+                           **split_cost(lambda: kt.incidence(*ia)))
+    return out
 
 
 KT_HARD = (("over_cap_clamped", 16_384, 16_384), ("all_invalid", 16_384, 16_384),
@@ -3735,8 +3858,8 @@ def client_phase(device="cuda", sync=torch.cuda.synchronize, frames=CLIENT_FRAME
             if f == sc.drive_from:
                 car0 = np.array(car.pos, np.float64)
             # Phase 18 on this world: KAA on its sources after 30 frames,
-            # KAB on its vehicles while car 0 is driven (frame 120).  The
-            # comparisons' own launches are taken out of the counts.
+            # KAB and KJ on its vehicles while car 0 is driven (frame 120).
+            # The comparisons' own launches are taken out of the counts.
             if f in (30, 120):
                 c0 = kernels.launch_counts()
                 eng = app.audio
@@ -3748,6 +3871,11 @@ def client_phase(device="cuda", sync=torch.cuda.synchronize, frames=CLIENT_FRAME
                 else:
                     compares.update({f"client_{k}": v for k, v in _kab_compare(
                         app.vehicles.veh, pw.state, "client world, car 0 driven").items()})
+                    jargs = kj_world_args(app.vehicles, pw)
+                    err, rel, _, jp = _kj_compare(jargs, "client world, car 0 driven")
+                    compares["client_vehicle_forces"] = dict(
+                        max_abs_err=err, max_err_of_scale=rel, tol=1e-5,
+                        vehicles=int(jargs[0].vtype.shape[0]), contacts=int(jp[7].sum()))
                 for k, v in kernels.launch_counts().items():
                     extra[k] = extra.get(k, 0) + v - c0[k]
         counts = {k: v - extra.get(k, 0) for k, v in kernels.launch_counts().items()}

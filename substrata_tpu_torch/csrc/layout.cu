@@ -26,12 +26,15 @@
 // tiles before it and scans its own rows, so touching rows land first and
 // speculative rows after them, each class in row order, into
 // max_active_contacts rows; the rows past the valid ones get the twin's
-// fills.  Incidence: each (entry, side) key appends itself to its body's
-// list (atomicAdd, any order); one thread per body then picks the cpb
-// lowest keys of its list (ascending (entry, side), the twin's sorted
-// order, which decides the order of the sums in KC and KU).  A body whose
-// list overflowed its 64 slots scans all keys in order instead, so the kept
-// set is always the cpb lowest.
+// fills.  Incidence, two launches and no memset: each (entry, side) key
+// appends itself to its body's list (atomicAdd, any order; the counters
+// live in the wrapper's plan and are 0 between calls); then a warp takes 4
+// bodies, ranks the keys of each body's list across its lanes and keeps
+// the cpb lowest (ascending (entry, side), the twin's sorted order, which
+// decides the order of the sums in KC and KU), and sets the counters back
+// to 0.  A body
+// whose list overflowed its 64 slots walks all keys in order, 32 at a time,
+// so the kept set is always the cpb lowest.
 //
 // What bounds it: latency.  At the serving world's shapes (16,384 pairs,
 // ~100k contact rows, 36,864 compacted rows) each pass moves a few MB.  No
@@ -360,47 +363,100 @@ __global__ void layout_inc_append_kernel(const int* __restrict__ ea, const int* 
   if (at < kIncList) list[body * kIncList + at] = k;
 }
 
-__global__ void layout_inc_select_kernel(const int* __restrict__ ea, const int* __restrict__ eb,
-                                         int st, const bool* __restrict__ occ, int c, int n,
-                                         int cpb,
-                                         const int* __restrict__ cnt, const int* __restrict__ list,
-                                         int* __restrict__ table, float* __restrict__ sign,
-                                         float* __restrict__ counts) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int total = cnt[i];
-  const int kept = min(total, cpb);
-  int* trow = table + static_cast<size_t>(i) * cpb;
-  float* srow = sign + static_cast<size_t>(i) * cpb;
-  if (total <= kIncList) {
-    // Selection of the cpb lowest keys of the list, in ascending order.
-    const int* l = list + static_cast<size_t>(i) * kIncList;
-    int prev = -1;
-    for (int r = 0; r < kept; ++r) {
-      int best = 0x7fffffff;
-      for (int q = 0; q < total; ++q) {
-        const int k = l[q];
-        if (k > prev && k < best) best = k;
-      }
-      trow[r] = best >> 1;
-      srow[r] = (best & 1) ? 1.0f : -1.0f;
-      prev = best;
+constexpr int kIncWarps = 8;              // warps a select block
+constexpr int kIncBodies = 4;             // bodies a warp
+
+// A warp takes 4 bodies.  Lanes 0-3 read their counts in one load and set
+// them back to 0 for the next call; the warp loads the first 32 keys of
+// each body that has keys as one 128-byte row, all rows issued before any
+// use, and writes the empty slots of the 4 bodies' rows (-1, 0) in
+// coalesced stores.  Then each body with keys is ranked across the warp:
+// a key's rank is the number of smaller keys in the row, counted by
+// shuffles (the keys are distinct: each (entry, side) belongs to one
+// body), and a key ranked below cpb goes to its slot.  A warp a body spent
+// ~80 instructions on each body, empty or not; 4 bodies share them.  A
+// body past its 64 list slots walks the 2c keys 32 at a time instead: a
+// ballot of the keys that are its own, ranked by the bits below each lane,
+// until cpb are placed: the first cpb in key order.
+__global__ void __launch_bounds__(kIncWarps * 32) layout_inc_select_kernel(
+    const int* __restrict__ ea, const int* __restrict__ eb, int st, const bool* __restrict__ occ,
+    int c, int n, int cpb, int* __restrict__ cnt, const int* __restrict__ list,
+    int* __restrict__ table, float* __restrict__ sign, float* __restrict__ counts) {
+  const int lane = threadIdx.x & 31;
+  const int i0 = (blockIdx.x * kIncWarps + (threadIdx.x >> 5)) * kIncBodies;
+  if (i0 >= n) return;
+  const int nb = min(kIncBodies, n - i0);
+  int tot = 0;
+  if (lane < nb) {
+    tot = cnt[i0 + lane];
+    cnt[i0 + lane] = 0;
+  }
+  const unsigned has_keys = __ballot_sync(0xffffffffu, tot > 0);
+  int first[kIncBodies];
+#pragma unroll
+  for (int j = 0; j < kIncBodies; ++j)
+    first[j] = ((has_keys >> j) & 1u) ? list[static_cast<size_t>(i0 + j) * kIncList + lane]
+                                      : 0x7fffffff;
+  const int kept = min(tot, cpb);
+  const int len = nb * cpb;
+  int* tchunk = table + static_cast<size_t>(i0) * cpb;
+  float* schunk = sign + static_cast<size_t>(i0) * cpb;
+  for (int f0 = 0; f0 < len; f0 += 32) {
+    const int f = f0 + lane;
+    const int j = min(f / cpb, 31);
+    const int kj = __shfl_sync(0xffffffffu, kept, j);
+    if (f < len && f - j * cpb >= kj) {
+      tchunk[f] = -1;
+      schunk[f] = 0.0f;
     }
-  } else {
-    // The list overflowed: the first cpb keys of this body, in key order.
-    int r = 0;
-    for (int k = 0; k < 2 * c && r < cpb; ++k)
-      if (key_body(ea, eb, st, occ, k, n) == i) {
-        trow[r] = k >> 1;
-        srow[r] = (k & 1) ? 1.0f : -1.0f;
-        ++r;
+  }
+  if (lane < nb) counts[i0 + lane] = static_cast<float>(kept);
+#pragma unroll
+  for (int j = 0; j < kIncBodies; ++j) {
+    if (!((has_keys >> j) & 1u)) continue;
+    const int i = i0 + j;
+    const int total = __shfl_sync(0xffffffffu, tot, j);
+    int* trow = table + static_cast<size_t>(i) * cpb;
+    float* srow = sign + static_cast<size_t>(i) * cpb;
+    if (total <= kIncList) {
+      const int k0 = lane < total ? first[j] : 0x7fffffff;
+      int k1 = 0x7fffffff;
+      if (32 + lane < total) k1 = list[static_cast<size_t>(i) * kIncList + 32 + lane];
+      int r0 = 0, r1 = 0;
+      const int lo = min(total, 32), hi = total - 32;
+      for (int q = 0; q < lo; ++q) {
+        const int y = __shfl_sync(0xffffffffu, k0, q);
+        r0 += y < k0;
+        r1 += y < k1;
       }
+      for (int q = 0; q < hi; ++q) {
+        const int y = __shfl_sync(0xffffffffu, k1, q);
+        r0 += y < k0;
+        r1 += y < k1;
+      }
+      if (lane < total && r0 < cpb) {
+        trow[r0] = k0 >> 1;
+        srow[r0] = (k0 & 1) ? 1.0f : -1.0f;
+      }
+      if (32 + lane < total && r1 < cpb) {
+        trow[r1] = k1 >> 1;
+        srow[r1] = (k1 & 1) ? 1.0f : -1.0f;
+      }
+    } else {
+      int r = 0;
+      for (int base = 0; base < 2 * c && r < cpb; base += 32) {
+        const int k = base + lane;
+        const bool mine = k < 2 * c && key_body(ea, eb, st, occ, k, n) == i;
+        const unsigned bits = __ballot_sync(0xffffffffu, mine);
+        const int rank = r + __popc(bits & ((1u << lane) - 1u));
+        if (mine && rank < cpb) {
+          trow[rank] = k >> 1;
+          srow[rank] = (k & 1) ? 1.0f : -1.0f;
+        }
+        r += __popc(bits);
+      }
+    }
   }
-  for (int r = kept; r < cpb; ++r) {
-    trow[r] = -1;
-    srow[r] = 0.0f;
-  }
-  counts[i] = static_cast<float>(kept);
 }
 
 }  // namespace
@@ -465,23 +521,36 @@ extern "C" int layout_compact(const int* a, const int* b, const float* point, co
   return static_cast<int>(cudaGetLastError());
 }
 
-// ea, eb: entry ids at stride st; scratch: n counters, then n * 64 list
-// slots.
-extern "C" int layout_incidence(const int* ea, const int* eb, int st, const bool* occ, int c,
-                                int n, int cpb, int* scratch, int* table, float* sign,
-                                float* counts,
-                                void* stream) {
+// The wrapper's arguments in one host buffer of 8-byte slots
+// (kernels/layout.py:_INC_PACK): entry a, b (at stride st), occupancy,
+// scratch (n counters, 0 between calls, then n * 64 list slots: the plan's),
+// out table, sign, counts, st, C, N, CPB.  Two launches: the append pass
+// counts each body's keys into its list, the select pass (a warp per 4
+// bodies) places them and sets the counters back to 0.
+extern "C" int layout_incidence(const long long* v, void* stream) {
+  auto ptr = [v](int k) { return reinterpret_cast<void*>(v[k]); };
+  const int* ea = static_cast<const int*>(ptr(0));
+  const int* eb = static_cast<const int*>(ptr(1));
+  const bool* occ = static_cast<const bool*>(ptr(2));
+  int* scratch = static_cast<int*>(ptr(3));
+  int* table = static_cast<int*>(ptr(4));
+  float* sign = static_cast<float*>(ptr(5));
+  float* counts = static_cast<float*>(ptr(6));
+  const int st = static_cast<int>(v[7]), c = static_cast<int>(v[8]), n = static_cast<int>(v[9]),
+            cpb = static_cast<int>(v[10]);
+  if (st < 1 || c < 0 || n < 0 || cpb < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(scratch, 0, static_cast<size_t>(n) * sizeof(int), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = 256;
   if (c > 0) {
     layout_inc_append_kernel<<<(2 * c + threads - 1) / threads, threads, 0, s>>>(
         ea, eb, st, occ, c, n, scratch, scratch + n);
-    err = cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  layout_inc_select_kernel<<<(n + threads - 1) / threads, threads, 0, s>>>(
-      ea, eb, st, occ, c, n, cpb, scratch, scratch + n, table, sign, counts);
+  if (n > 0) {
+    const int per_block = kIncWarps * kIncBodies;
+    layout_inc_select_kernel<<<(n + per_block - 1) / per_block, kIncWarps * 32, 0, s>>>(
+        ea, eb, st, occ, c, n, cpb, scratch, scratch + n, table, sign, counts);
+  }
   return static_cast<int>(cudaGetLastError());
 }

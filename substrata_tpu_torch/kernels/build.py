@@ -81,11 +81,11 @@ SIGNATURES = {
     # = trimesh), H, max hull faces, GX, GY, cell cap, 1 / cell_size as a
     # double, out t, normal, body, hit, material), stream
     "ray_trace": [P, P],
-    # 33 vehicle rows (kernels/vehicles.py:KERNEL_FIELDS), 5 inputs,
-    # body_pos, body_quat, body_lin, body_ang, mass, iw, hit_t, hit_n,
-    # hit_ok, water_z, V, dt, out dv, dw, steering, sus_len, omega, rot,
-    # unflip, contact, gear, shift_timer, rpm, stream
-    "vehicle_forces": [P] * 33 + [P] * 5 + [P] * 10 + [I, F] + [P] * 11 + [P],
+    # one host buffer of 8-byte slots (kernels/vehicles.py:_PACK: the 33
+    # vehicle rows of KERNEL_FIELDS, 5 inputs, body_pos, body_quat,
+    # body_lin, body_ang, mass, iw, hit_t, hit_n, hit_ok, water_z, the
+    # output buffer, V, dt as a double), stream
+    "vehicle_forces": [P, P],
     # ba, bb, bvalid, pos, quat, params, fric, rest, sensor, cap, code, wm,
     # blocked, out a, b, point, normal, pen, valid, fric, rest, key, touch,
     # stream
@@ -141,9 +141,10 @@ SIGNATURES = {
     # 9 contact fields, C, max_active, tile scratch, 9 outputs, overflow,
     # stream
     "layout_compact": [P] * 9 + [I] * 2 + [P] + [P] * 9 + [P] + [P],
-    # entry a, b, their stride, occupancy, C, N, CPB, scratch, out table,
-    # sign, counts, stream
-    "layout_incidence": [P, P, I, P, I, I, I, P, P, P, P, P],
+    # one host buffer of 8-byte slots (kernels/layout.py:_INC_PACK: entry
+    # a, b, occupancy, scratch, out table, sign, counts, stride, C, N, CPB),
+    # stream
+    "layout_incidence": [P, P],
     # pos0, inv_mass, awake, static valid, normal, pen, pair a, b, valid,
     # normal, pen, table, sign, slop; beta; N, K, Q, WM, CPB, iters; impulse
     # and position scratch, out, stream

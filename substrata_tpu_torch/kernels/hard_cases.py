@@ -2,7 +2,8 @@
 grouping), for KH's ray trace, for KL's character update, for KB's
 static contacts, for the contact solve (KQ's setup and KC), for the
 rotation every rotating kernel shares, for the pair finder (KS), the
-downmix (KG), the event digest (KN) and the spatialiser (KF).
+downmix (KG), the event digest (KN), the spatialiser (KF), the vehicle
+forces (KJ) and KT's incidence table.
 
 For the sorts, these are the inputs where a bucket or a code's slice
 fills, so the order of ties decides who is dropped, and where nothing is
@@ -21,7 +22,14 @@ ineligible bodies and the present shape types.  For the digest: masks
 with nothing set, exactly full, one over, all set, set only at word and
 tile edges, ragged lengths and 65,536 pair slots.  For the spatialiser:
 1 to 1,024 frames, one tap, alpha 1 and near 0, no send, no HRTF, the
-low-pass and the pan path mixed among the sources.  The CPU tests hold the
+low-pass and the pan path mixed among the sources.  For the vehicles:
+each type active and inactive, airborne wheels, 2 and 4 wheels, the
+shift, reverse, brake and coasting edges, the unflip window, the
+propeller at the waterline to the ulp, near-still chassis, the righting
+controller, 1 and 33 vehicles.  For the incidence table: nothing
+occupied, static b's, a body's list exactly full and one over, one body in
+every entry, self-pairs, cpb 1, 8 and 16, ragged N, a pair-blocked stride
+and the largest packed key.  The CPU tests hold the
 twins against the reference on them at a small size;
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` hold the kernels against
 the twins on them.  Everything is numpy, made from a seed; slot order is
@@ -1417,3 +1425,328 @@ def spatialise_inputs(scene: SpatialiseScene, device):
     a = scene.arrays
     return tuple(None if a[k] is None else torch.as_tensor(a[k], device=device)
                  for k in SPATIALISE_ARGS) + (scene.use_hrtf,)
+
+
+# ---------------------------------------------------------------------------
+# KJ: vehicle scenes.
+# ---------------------------------------------------------------------------
+
+VEHICLE_CASES = ("types", "airborne", "wheels_2_4", "shift_edges", "input_edges", "unflip",
+                 "prop_waterline", "slow", "righting", "v1", "v33")
+VEHICLE_WATER_Z = 0.5
+_CAR_WHEELS = ((-0.8, 1.2, -0.2), (0.8, 1.2, -0.2), (-0.8, -1.2, -0.2), (0.8, -1.2, -0.2))
+_BIKE_WHEELS = ((0.0, 0.9, -0.4), (0.0, -0.9, -0.4))
+
+
+@dataclasses.dataclass
+class VehicleScene:
+    """KJ's inputs (numpy): ``veh`` (the VehicleArrays fields by name),
+    ``inp`` (the VehicleInputs fields), ``chassis`` (pos, quat, lin, ang,
+    mass, iw: the chassis rows the force models read), ``hits`` (hit_t [V,
+    4], hit_n [V, 4, 3], hit_ok [V, 4]), the water level and dt."""
+    veh: dict
+    inp: dict
+    chassis: tuple
+    hits: tuple
+    water_z: float
+    dt: float
+
+
+def _quat_axis(axis, angle):
+    axis = np.asarray(axis, np.float64)
+    axis = axis / np.linalg.norm(axis)
+    return np.concatenate([axis * np.sin(angle / 2), [np.cos(angle / 2)]]).astype(np.float32)
+
+
+def _rpm_speeds(ratio, rad, target):
+    """Two chassis speeds (float32) whose engine rpm, as KJ rounds it
+    (|speed| / rad * |ratio * 3.42| * rpm per rad/s), lies on ``target``
+    or just below it and just above it."""
+    f = np.float32
+    r = f(f(ratio) * f(3.42))
+    rpm_k = f(60.0 / (2.0 * np.pi))
+
+    def rpm(s):
+        return f(f(f(abs(s) / f(rad)) * abs(r)) * rpm_k)
+    s = f(target / (abs(r) * rpm_k) * rad)
+    while rpm(s) > target:
+        s = np.nextafter(s, f(0))
+    while rpm(np.nextafter(s, f(np.inf))) <= target:
+        s = np.nextafter(s, f(np.inf))
+    return s, np.nextafter(s, f(np.inf))
+
+
+def vehicle_scene(case: str, seed: int = 0) -> VehicleScene:
+    """The inputs of one hard vehicle case, V = 8 unless named:
+
+    - ``types``: each vehicle type active and inactive, random state;
+    - ``airborne``: every wheel's ray missed (hit_ok False, t at the ray's
+      length);
+    - ``wheels_2_4``: cars and bikes with 2 and with 4 wheels;
+    - ``shift_edges``: upright cars and bikes rolling at the speeds whose
+      rpm is on (or just below) and just above the shift-up and
+      shift-down rpm, shift timers at 0 and at the smallest normal float;
+    - ``input_edges``: forward input at +-0.01 and one float past each,
+      chassis speed 0.5 and one float below (the reverse, brake-from-input
+      and coasting edges);
+    - ``unflip``: hovercars entering the unflip window (cos_theta < -0.9),
+      just outside it, leaving it (> 0.2), lifting inside it, its timer
+      running out, and an inactive one in it;
+    - ``prop_waterline``: boats whose propeller is at the water level and
+      one float above and below it, with and without thrust;
+    - ``slow``: every type at chassis speeds of 0 up to 1e-3 (the drags'
+      v_mag gate);
+    - ``righting``: cars and bikes with the righting controller on, upright
+      (the controller's zero-angle branch), tilted and on their roof;
+    - ``v1`` and ``v33``: one car; 33 vehicles of the four types, some
+      inactive (vehicles across a block boundary).
+
+    Bodies, hits and inputs are random (seeded) where the case names none."""
+    if case not in VEHICLE_CASES:
+        raise ValueError(f"unknown vehicle case {case!r}")
+    from substrata_tpu_torch.physics.vehicles import manager
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    nv = {"v1": 1, "v33": 33}.get(case, 8)
+    veh = {k: v.numpy().copy() for k, v in
+           vars(manager.zero_vehicles(nv, device="cpu")).items()}
+    vtypes = np.arange(nv) % 4
+    if case in ("shift_edges", "righting", "wheels_2_4"):
+        vtypes = np.arange(nv) % 2
+    elif case == "unflip":
+        vtypes = np.full(nv, 3)
+    elif case == "prop_waterline":
+        vtypes = np.full(nv, 2)
+    elif case == "v1":
+        vtypes = np.zeros(nv, np.int64)
+    veh["vtype"][:] = vtypes
+    veh["body_slot"][:] = np.arange(nv)
+    veh["active"][:] = True
+    for i, vt in enumerate(vtypes):
+        if vt == 0:
+            veh["wheel_attach"][i] = _CAR_WHEELS
+            veh["n_wheels"][i] = 4
+        elif vt == 1:
+            veh["wheel_attach"][i, :2] = _BIKE_WHEELS
+            veh["n_wheels"][i], veh["wheel_radius"][i] = 2, 0.3
+            veh["engine_torque"][i], veh["engine_max_rpm"][i] = 390.0, 10000.0
+        veh["propellor_os"][i] = (0.0, -2.0, -0.25)
+        veh["areas"][i] = (1.5, 4.0, 8.0)
+    veh["steering"][:] = rng.uniform(-0.3, 0.3, nv)
+    veh["prev_sus_len"][:] = rng.uniform(0.1, 0.5, (nv, 4))
+    veh["wheel_omega"][:] = rng.normal(0.0, 5.0, (nv, 4))
+    veh["wheel_rot"][:] = rng.uniform(0.0, 6.0, (nv, 4))
+    veh["gear"][:] = rng.integers(0, 5, nv)
+    veh["shift_timer"][:] = np.where(rng.random(nv) < 0.5, 0.0, rng.uniform(0.0, 0.4, nv))
+    if nv > 4:
+        veh["y_fwd_quat"][4] = _quat_axis((0, 0, 1), np.pi / 2)
+    inp = dict(forward=rng.uniform(-1, 1, nv).astype(f32),
+               right=rng.uniform(-1, 1, nv).astype(f32), up=rng.uniform(0, 1, nv).astype(f32),
+               brake=rng.random(nv) < 0.2, handbrake=rng.random(nv) < 0.2)
+    pos = np.stack([np.arange(nv) * 5.0 - 20.0, np.full(nv, 18.0), np.full(nv, 0.8)],
+                   axis=1).astype(f32)
+    tilt = rng.normal(0.0, 0.15, (nv, 3))
+    quat = np.concatenate([tilt * 0.5, np.ones((nv, 1))], axis=1)
+    quat = (quat / np.linalg.norm(quat, axis=1, keepdims=True)).astype(f32)
+    lin = rng.normal(0.0, 3.0, (nv, 3)).astype(f32)
+    ang = rng.normal(0.0, 0.5, (nv, 3)).astype(f32)
+    mass = rng.uniform(200.0, 1500.0, nv).astype(f32)
+    off = rng.normal(0.0, 0.02, (nv, 3, 3))
+    iw = (np.eye(3)[None] * rng.uniform(0.5, 2.0, (nv, 1, 1)) + off + off.transpose(0, 2, 1))
+    iw = (iw / mass[:, None, None]).astype(f32)
+    ray_len = veh["sus_max"] + veh["wheel_radius"]
+    hit_t = rng.uniform(0.3, 0.95, (nv, 4)).astype(f32)
+    hn = rng.normal(0.0, 0.1, (nv, 4, 3)) + np.array([0.0, 0.0, 1.0])
+    hit_n = (hn / np.linalg.norm(hn, axis=2, keepdims=True)).astype(f32)
+    hit_ok = rng.random((nv, 4)) < 0.85
+    up = _quat_axis((1, 0, 0), 0.0)
+
+    if case == "types":
+        veh["active"][nv // 2:] = False
+    elif case == "airborne":
+        hit_ok[:] = False
+        hit_t[:] = ray_len[:, None]
+    elif case == "wheels_2_4":
+        for i in range(nv):
+            veh["n_wheels"][i] = 2 if (i // 2) % 2 == 0 else 4
+            veh["wheel_attach"][i] = _CAR_WHEELS
+            if vtypes[i] == 1:
+                veh["wheel_attach"][i, :2] = _BIKE_WHEELS
+    elif case == "shift_edges":
+        quat[:] = up
+        lin[:] = 0.0
+        ang[:] = 0.0
+        inp["forward"][:] = 0.6
+        veh["shift_timer"][:] = 0.0
+        # The smallest normal float: a subnormal would read as 0 where the
+        # reference's compiler flushes subnormals.
+        veh["shift_timer"][[2, 5]] = np.finfo(f32).tiny
+        for i in range(nv):
+            bike = vtypes[i] == 1
+            gears = manager.BIKE_GEAR_RATIOS if bike else manager.GEAR_RATIOS
+            g = 1 + (i // 2) % 2
+            veh["gear"][i] = g
+            target = (manager.BIKE_SHIFT_UP_RPM if bike else manager.SHIFT_UP_RPM) \
+                if i < 4 else (manager.BIKE_SHIFT_DOWN_RPM if bike else manager.SHIFT_DOWN_RPM)
+            lo, hi = _rpm_speeds(gears[g], veh["wheel_radius"][i], target)
+            lin[i, 1] = lo if (i % 4) < 2 else hi
+    elif case == "input_edges":
+        quat[:] = up
+        lin[:] = 0.0
+        ang[:] = 0.0
+        m01 = f32(-0.01)
+        fwd = [m01, np.nextafter(m01, f32(-1)), -m01, np.nextafter(-m01, f32(1)),
+               np.nextafter(-m01, f32(0)), m01, np.nextafter(m01, f32(-1)), f32(0.0)]
+        half = f32(0.5)
+        speed = [half, half, half, half, half, np.nextafter(half, f32(0)),
+                 np.nextafter(half, f32(0)), half]
+        inp["forward"][:] = fwd
+        inp["brake"][:] = False
+        lin[:, 1] = speed
+        veh["shift_timer"][:] = 0.0
+    elif case == "unflip":
+        cos_t = [-0.95, -0.85, 0.3, 0.1, 0.1, -0.95, 0.25, 0.15]
+        unflip = [0.0, 0.0, 0.5, 0.5, 0.01, 0.0, 0.5, 0.5]
+        for i in range(nv):
+            quat[i] = _quat_axis((1, 0.2 * i, 0), np.arccos(cos_t[i]))
+        veh["unflip_time"][:] = unflip
+        veh["active"][7] = False
+    elif case == "prop_waterline":
+        quat[:] = up
+        z = f32(VEHICLE_WATER_Z) - f32(-0.25)
+        zs = [z, np.nextafter(z, f32(1)), np.nextafter(z, f32(0))]
+        pos[:, 2] = [zs[i % 3] for i in range(nv)]
+        inp["forward"][:] = [1.0, 1.0, 1.0, 0.0, 0.0, 0.0, -0.5, 0.5]
+        lin[:, 2] = 0.0
+    elif case == "slow":
+        lin[:] = [[0, 0, 0], [0, 5e-4, 0], [1e-3, 0, 0], [0, 0, 1e-3],
+                  [3e-4, 3e-4, 3e-4], [0, 1e-3 * 1.0001, 0], [-6e-4, 0, 6e-4], [0, 0, 0]]
+        ang[:] = 0.0
+        pos[:, 2] = 0.3
+    elif case == "righting":
+        veh["righting_active"][:] = True
+        veh["righting_active"][7] = False
+        angles = [0.0, 0.0, 0.6, 1.2, np.pi, np.pi - 0.1, 2.0, 0.8]
+        for i in range(nv):
+            quat[i] = _quat_axis((0.3 * i, 1.0, 0.1), angles[i])
+        quat[0] = quat[1] = up
+        ang[[0, 1]] = 0.0
+    elif case == "v33":
+        veh["active"][rng.random(nv) < 0.25] = False
+        veh["righting_active"][rng.random(nv) < 0.3] = True
+        veh["unflip_time"][vtypes == 3] = rng.choice([0.0, 0.5], int((vtypes == 3).sum()))
+    return VehicleScene(veh=veh, inp=inp, chassis=(pos, quat, lin, ang, mass, iw),
+                        hits=(hit_t, hit_n, hit_ok), water_z=VEHICLE_WATER_Z,
+                        dt=1.0 / 60.0)
+
+
+def vehicle_inputs(scene: VehicleScene, device):
+    """``vehicle_forces``' arguments for ``scene`` on ``device``: (veh,
+    inp, body_pos, body_quat, body_lin, body_ang, mass, iw, hit_t, hit_n,
+    hit_ok, water_z, dt)."""
+    from substrata_tpu_torch import convert
+    veh = convert.vehicles_from_numpy(scene.veh, device=device)
+    inp = convert.vehicle_inputs_from_numpy(scene.inp, device=device)
+    rows = [torch.as_tensor(np.ascontiguousarray(x), device=device)
+            for x in scene.chassis + scene.hits]
+    water = torch.tensor(np.float32(scene.water_z), device=device)
+    return (veh, inp, *rows, water, scene.dt)
+
+
+# ---------------------------------------------------------------------------
+# KT: incidence scenes.
+# ---------------------------------------------------------------------------
+
+INCIDENCE_CASES = ("none_occupied", "all_static", "list_64", "list_65", "one_body_everywhere",
+                   "self_pair", "cpb1", "cpb16", "ragged_n", "blocked_st4", "key_bits")
+
+
+@dataclasses.dataclass
+class IncidenceScene:
+    """KT's incidence inputs (numpy): the entries' a and b as rows of
+    ``st`` (an entry's first row read; ``st`` > 1 is the pair-blocked
+    layout, wm rows a pair), the occupancy, the body count and cpb."""
+    rows_a: np.ndarray
+    rows_b: np.ndarray
+    occ: np.ndarray
+    n: int
+    cpb: int
+    st: int
+
+
+def incidence_scene(case: str, seed: int = 0) -> IncidenceScene:
+    """The inputs of one hard incidence case, N = 512 bodies, C = 4,096
+    entries, cpb 8, stride 1 and 90% of the entries occupied unless named:
+
+    - ``none_occupied``: no entry occupied;
+    - ``all_static``: every b static (-1);
+    - ``list_64`` and ``list_65``: body 5 in exactly 64 and in 65 keys (its
+      list full; one past it, the ordered walk), as a and as b;
+    - ``one_body_everywhere``: body 3 is the a of every entry (N = 64, C =
+      512), every entry occupied;
+    - ``self_pair``: bodies that are both a and b of one entry;
+    - ``cpb1`` and ``cpb16``: cpb 1 and 16 over crowded bodies (N = 256);
+    - ``ragged_n``: N = 1,013 and C = 3,001;
+    - ``blocked_st4``: a pair-blocked layout of stride 4 (N = 300), body 7
+      in 100 entries;
+    - ``key_bits``: N = 65,535 and C = 32,767, the largest packed key
+      (16 + 15 + 1 = 32 bits)."""
+    if case not in INCIDENCE_CASES:
+        raise ValueError(f"unknown incidence case {case!r}")
+    rng = np.random.default_rng(seed)
+    n, c, cpb, st = 512, 4096, 8, 1
+    if case == "one_body_everywhere":
+        n, c = 64, 512
+    elif case in ("cpb1", "cpb16"):
+        n, cpb = 256, int(case[3:])
+    elif case == "ragged_n":
+        n, c = 1013, 3001
+    elif case == "blocked_st4":
+        n, st = 300, 4
+    elif case == "key_bits":
+        n, c = 65_535, 32_767
+    a = rng.integers(0, n, c).astype(np.int32)
+    b = rng.integers(-1, n, c).astype(np.int32)
+    occ = rng.random(c) < 0.9
+    if case == "none_occupied":
+        occ[:] = False
+    elif case == "all_static":
+        b[:] = -1
+    elif case in ("list_64", "list_65"):
+        a[a == 5] = 6
+        b[b == 5] = 6
+        k = int(case[5:])
+        idx = rng.choice(c, k, replace=False)
+        occ[idx] = True
+        a[idx[:40]] = 5
+        b[idx[40:]] = 5
+        a[idx[40:]] = np.where(a[idx[40:]] == 5, 6, a[idx[40:]])
+    elif case == "one_body_everywhere":
+        a[:] = 3
+        b[b == 3] = -1
+        occ[:] = True
+    elif case == "self_pair":
+        idx = rng.choice(c, 40, replace=False)
+        b[idx] = a[idx]
+        occ[idx[:30]] = True
+    elif case == "blocked_st4":
+        a[rng.choice(c, 100, replace=False)] = 7
+        b[rng.choice(c, 20, replace=False)] = 9
+    occ &= a >= 0
+    rows_a = np.repeat(a, st)
+    rows_b = np.repeat(b, st)
+    if st > 1:
+        # The rows past an entry's first are other contact rows: not read.
+        rows_a[np.arange(rows_a.size) % st != 0] = -2
+        rows_b[np.arange(rows_b.size) % st != 0] = -2
+    return IncidenceScene(rows_a=rows_a, rows_b=rows_b, occ=occ, n=n, cpb=cpb, st=st)
+
+
+def incidence_inputs(scene: IncidenceScene, device):
+    """``layout.incidence``'s arguments for ``scene`` on ``device``:
+    (entry_a, entry_b, entry_occ, n_bodies, cpb), a and b strided views
+    when ``st`` > 1."""
+    st = scene.st
+    ta = torch.as_tensor(scene.rows_a, device=device).reshape(-1, st)[:, 0]
+    tb = torch.as_tensor(scene.rows_b, device=device).reshape(-1, st)[:, 0]
+    return ta, tb, torch.as_tensor(scene.occ, device=device), scene.n, scene.cpb

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 
 import torch
 
@@ -31,6 +32,8 @@ NUM_CODES = 16
 SAME_TYPE_CODES = (0, 5, 10, 15)
 MIXED_FRACTION = 4
 INC_LIST = 64          # csrc/layout.cu:kIncList
+_INC_PACK = struct.Struct("=11q")    # csrc/layout.cu:layout_incidence
+_inc_plans = {}
 
 
 def bucket_cap(code: int, max_pairs: int, p: int) -> int:
@@ -282,10 +285,10 @@ def incidence(entry_a, entry_b, entry_occ, n_bodies: int, cpb: int):
     """KT's incidence table.  Returns (table [N, CPB] i32 (-1 empty), sign
     [N, CPB] f32 (+1 body is entry a, -1 entry b), counts [N] f32): each
     body's entries in ascending (entry, side) order, the first ``cpb``
-    kept."""
+    kept.  On the card: two launches from one packed argument, the
+    outputs one allocation of their own."""
     if entry_a.device.type == "cpu":
         return incidence_plain(entry_a, entry_b, entry_occ, n_bodies, cpb)
-    global launches
     dev = entry_a.device
     c = entry_a.shape[0]
     _check_key_bits(n_bodies, c)
@@ -297,12 +300,24 @@ def incidence(entry_a, entry_b, entry_occ, n_bodies: int, cpb: int):
             raise ValueError(f"{name}: expected int32 [{c}] at stride {st} on {dev}")
     build.check(entry_occ, "entry_occ", torch.bool, (c,), dev)
     n = n_bodies
-    ints = torch.empty((n * cpb + n * (1 + INC_LIST),), dtype=torch.int32, device=dev)
-    table = ints[:n * cpb].view(n, cpb)
-    scratch = ints[n * cpb:]
-    floats = torch.empty((n * cpb + n,), dtype=torch.float32, device=dev)
+    # The plan is the scratch of one (N, C, CPB, device, stream): N per-body
+    # counters, zeroed here and set back to 0 by every select pass, then N *
+    # 64 list slots.  Keyed by stream, so two streams never share counters.
+    key = (n, c, cpb, dev, build.stream())
+    scratch = build.plan(_inc_plans, key, lambda: torch.zeros(
+        n * (1 + INC_LIST), dtype=torch.int32, device=dev))
+    out = torch.empty((2 * n * cpb + n,), dtype=torch.int32, device=dev)
+    table = out[:n * cpb].view(n, cpb)
+    floats = out[n * cpb:].view(torch.float32)
     sign, counts = floats[:n * cpb].view(n, cpb), floats[n * cpb:]
-    build.launch("layout_incidence", entry_a, entry_b, st, entry_occ, c, n, cpb, scratch, table,
-                 sign, counts)
+    try:
+        build.launch_packed("layout_incidence", _INC_PACK.pack(
+            entry_a.data_ptr(), entry_b.data_ptr(), entry_occ.data_ptr(), scratch.data_ptr(),
+            table.data_ptr(), sign.data_ptr(), counts.data_ptr(), st, c, n, cpb))
+    except RuntimeError:
+        # A launch that failed after the append pass leaves counters set:
+        # the next call gets a zeroed plan.
+        _inc_plans.pop(key, None)
+        raise
     launches["layout_incidence"] += 1
     return table, sign, counts

@@ -9,13 +9,16 @@ the boat's thrust, rudder and water drag, the hovercar's hover, control
 torques, keep-upright controller, unflip window and air drag, the
 righting controller, and the wheel spin state.
 
-``vehicle_forces`` launches ``csrc/vehicles.cu`` (one thread per vehicle)
-for CUDA tensors and runs ``vehicle_forces_plain`` (the same model batched
+``vehicle_forces`` launches ``csrc/vehicles.cu`` (a block of four warps
+per vehicle: the wheels on four lanes, the controllers on warps of their
+own) for CUDA tensors and runs ``vehicle_forces_plain`` (the same model batched
 over vehicles) for CPU tensors.  The drivetrain tables are the module
 constants below; the kernel holds the same numbers.
 """
 
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 import torch
@@ -346,41 +349,65 @@ KERNEL_FIELDS = (
     "unflip_time", "righting_active", "gear", "shift_timer")
 _INT_FIELDS = ("vtype", "n_wheels", "gear")
 _BOOL_FIELDS = ("active", "righting_active")
+_ROW_SHAPES = {"y_fwd_quat": (4,), "wheel_attach": (MAX_WHEELS, 3), "propellor_os": (3,),
+               "areas": (3,), "prev_sus_len": (MAX_WHEELS,), "wheel_omega": (MAX_WHEELS,),
+               "wheel_rot": (MAX_WHEELS,)}
+_INPUTS = ("forward", "right", "up", "brake", "handbrake")
+# csrc/vehicles.cu:vehicle_forces: 48 input pointers, the output buffer, V, dt.
+_PACK = struct.Struct("=50qd")
+# The output buffer, in units of V floats (csrc/vehicles.cu:Out): dv, dw,
+# steering, sus_len, omega, rot, unflip, shift_timer, rpm; gear (int32) and
+# contact (bool [V, 4]) in the last two.
+_OUT_SPLIT = (3, 3, 1, 4, 4, 4, 1, 1, 1, 1, 1)
+_OUT_FLOATS = sum(_OUT_SPLIT)
+_plans = {}
+
+
+class _Plan:
+    """KJ's checks for one (V, device): the 48 inputs' names, dtypes and
+    shapes in the kernel's order (csrc/vehicles.cu:In)."""
+
+    NAMES = KERNEL_FIELDS + _INPUTS + ("body_pos", "body_quat", "body_lin", "body_ang", "mass",
+                                       "iw", "hit_t", "hit_n", "hit_ok", "water_z")
+
+    def __init__(self, nv, device):
+        f32, i32, bl = torch.float32, torch.int32, torch.bool
+        self.device = device
+        self.dtypes = tuple(i32 if f in _INT_FIELDS else bl if f in _BOOL_FIELDS else f32
+                            for f in KERNEL_FIELDS) + (f32,) * 3 + (bl,) * 2 \
+            + (f32,) * 8 + (bl, f32)
+        self.shapes = tuple((nv,) + _ROW_SHAPES.get(f, ()) for f in KERNEL_FIELDS) \
+            + ((nv,),) * 5 + ((nv, 3), (nv, 4), (nv, 3), (nv, 3), (nv,), (nv, 3, 3),
+                              (nv, MAX_WHEELS), (nv, MAX_WHEELS, 3), (nv, MAX_WHEELS), ())
+
+
+def _views(out, nv):
+    """The 11 outputs as views of the kernel's one buffer."""
+    v, w = nv, MAX_WHEELS
+    dv, dw, steering, sus_len, omega, rot, unflip, shift_timer, rpm, gear, contact = out.split(
+        [k * v for k in _OUT_SPLIT])
+    return (dv.view(v, 3), dw.view(v, 3), steering, sus_len.view(v, w), omega.view(v, w),
+            rot.view(v, w), unflip, contact.view(torch.bool).view(v, w),
+            gear.view(torch.int32), shift_timer, rpm)
 
 
 def vehicle_forces(veh, inp, body_pos, body_quat, body_lin, body_ang, mass, iw,
                    hit_t, hit_n, hit_ok, water_z, dt):
     """KJ: ``vehicle_forces_plain`` for CPU tensors, ``csrc/vehicles.cu``
-    for CUDA tensors."""
+    for CUDA tensors (checked against the plan of its (V, device), launched
+    from one packed argument, its outputs views of one buffer)."""
     global launches
     if body_pos.device.type == "cpu":
         return vehicle_forces_plain(veh, inp, body_pos, body_quat, body_lin, body_ang, mass,
                                     iw, hit_t, hit_n, hit_ok, water_z, dt)
     dev = body_pos.device
     nv = veh.vtype.shape[0]
-    f32, i32, bl = torch.float32, torch.int32, torch.bool
-    fields = [getattr(veh, f) for f in KERNEL_FIELDS]
-    for name, t in zip(KERNEL_FIELDS, fields):
-        dtype = i32 if name in _INT_FIELDS else bl if name in _BOOL_FIELDS else f32
-        build.check(t, name, dtype, (nv,) + tuple(t.shape[1:]), dev)
-    inputs = (inp.forward, inp.right, inp.up, inp.brake, inp.handbrake)
-    for name, t in zip(("forward", "right", "up", "brake", "handbrake"), inputs):
-        build.check(t, name, bl if name in ("brake", "handbrake") else f32, (nv,), dev)
-    for t, name, shp in ((body_pos, "body_pos", (nv, 3)), (body_quat, "body_quat", (nv, 4)),
-                         (body_lin, "body_lin", (nv, 3)), (body_ang, "body_ang", (nv, 3)),
-                         (mass, "mass", (nv,)), (iw, "iw", (nv, 3, 3)),
-                         (hit_t, "hit_t", (nv, MAX_WHEELS)),
-                         (hit_n, "hit_n", (nv, MAX_WHEELS, 3)), (water_z, "water_z", ())):
-        build.check(t, name, f32, shp, dev)
-    build.check(hit_ok, "hit_ok", bl, (nv, MAX_WHEELS), dev)
-    e = dict(device=dev)
-    out = (torch.empty((nv, 3), dtype=f32, **e), torch.empty((nv, 3), dtype=f32, **e),
-           torch.empty(nv, dtype=f32, **e), torch.empty((nv, MAX_WHEELS), dtype=f32, **e),
-           torch.empty((nv, MAX_WHEELS), dtype=f32, **e),
-           torch.empty((nv, MAX_WHEELS), dtype=f32, **e), torch.empty(nv, dtype=f32, **e),
-           torch.empty((nv, MAX_WHEELS), dtype=bl, **e), torch.empty(nv, dtype=i32, **e),
-           torch.empty(nv, dtype=f32, **e), torch.empty(nv, dtype=f32, **e))
-    build.launch("vehicle_forces", *fields, *inputs, body_pos, body_quat, body_lin, body_ang,
-                 mass, iw, hit_t, hit_n, hit_ok, water_z, nv, float(_F32(dt)), *out)
+    plan = build.plan(_plans, (nv, dev), lambda: _Plan(nv, dev))
+    ins = ([getattr(veh, f) for f in KERNEL_FIELDS] + [getattr(inp, f) for f in _INPUTS]
+           + [body_pos, body_quat, body_lin, body_ang, mass, iw, hit_t, hit_n, hit_ok, water_z])
+    build.check_all(plan.device, ins, plan.NAMES, plan.dtypes, plan.shapes)
+    out = torch.empty(_OUT_FLOATS * nv, dtype=torch.float32, device=dev)
+    build.launch_packed("vehicle_forces", _PACK.pack(*(t.data_ptr() for t in ins),
+                                                     out.data_ptr(), nv, float(_F32(dt))))
     launches += 1
-    return out
+    return _views(out, nv)

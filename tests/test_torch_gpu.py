@@ -30,7 +30,9 @@ exact), KX, KY and KZ exact, and a small terrain frame on the card within
 path; KAA exact (HRTF on and off; the pan's cos and sin within 1e-6 of
 the gains' scale, an HRIR bin only where its pre-round value lies within
 1e-5 of a half-integer), KAB exact; KAC exact (words); KN and KF to the bit on
-kernels/hard_cases.py's digest and spatialise scenes; ClientApp on the
+kernels/hard_cases.py's digest and spatialise scenes, KJ (1e-5 of scale,
+gear and contact exact) and KT's incidence table (to the bit, a held table
+not overwritten) on its vehicle and incidence scenes; ClientApp on the
 card by default; the pipelined readback ring on the card; KAD (the halo
 exchange) and KAE (the shard axis's keep, counts and clipped sum) exact,
 and the sharded paths on the card within 1e-4 m (the mix 5e-5) of the CPU
@@ -685,6 +687,49 @@ def test_spatialise_hard_cases(case):
         if x.numel():
             assert float((x - y).abs().max()) <= 1e-5, name
         assert _same_bits(x, y), name
+
+
+@pytest.mark.parametrize("case", hard_cases.VEHICLE_CASES)
+def test_vehicle_hard_cases(case):
+    """KJ against its twin on kernels/hard_cases.py's vehicle scenes: every
+    float output within 1e-5 of its scale, gear and contact exact; a second
+    call on the same inputs gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = hard_cases.vehicle_inputs(hard_cases.vehicle_scene(case), "cuda")
+    jk = kveh.vehicle_forces(*args)
+    jp = kveh.vehicle_forces_plain(*args)
+    for x, y in zip(jk, jp):
+        assert x.shape == y.shape and x.dtype == y.dtype
+        if y.dtype in (torch.bool, torch.int32):
+            assert torch.equal(x, y)
+        else:
+            assert float((x - y).abs().max()) <= 1e-5 * max(1.0, float(y.abs().max()))
+    again = kveh.vehicle_forces(*args)
+    assert all(_same_bits(x, y) for x, y in zip(again, jk))
+
+
+@pytest.mark.parametrize("case", hard_cases.INCIDENCE_CASES)
+def test_incidence_hard_cases(case):
+    """KT's incidence table against its twin on kernels/hard_cases.py's
+    incidence scenes, table, sign and counts to the bit; three calls in a
+    row on one plan (the counters each select pass sets back to 0) agree,
+    and a table held from the first call is not written by the next ones."""
+    from substrata_tpu_torch.kernels import layout as kt
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a, b, occ, n, cpb = hard_cases.incidence_inputs(hard_cases.incidence_scene(case), "cuda")
+    ip = kt.incidence_plain(a.contiguous(), b.contiguous(), occ, n, cpb)
+    first = kt.incidence(a, b, occ, n, cpb)
+    held = [t.clone() for t in first]
+    for _ in range(2):
+        ik = kt.incidence(a, b, occ, n, cpb)
+        assert all(_same_bits(x, y) for x, y in zip(ik, ip))
+    other = kt.incidence(a, b, occ & (torch.arange(a.shape[0], device="cuda") % 2 == 0), n,
+                         cpb)
+    assert all(_same_bits(x, y) for x, y in zip(first, held))
+    assert all(_same_bits(x, y) for x, y in zip(first, ip))
+    assert other[0].data_ptr() != first[0].data_ptr()
 
 
 def _push_world(device):
