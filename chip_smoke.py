@@ -63,8 +63,11 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    200-box, 16-source, 256-particle, 4-vehicle full tick with the
    character and the scripts on the card matches the CPU path;
 10. the character and serving-tick kernels: KK (sphere/box/capsule
-   contacts) on 4,096 seeded random pairs of each of its eight combo codes
-   and on the serving world's real buckets, KL (the character update) on
+   contacts) on 4,096 seeded random pairs of each of its eight combo codes,
+   on the serving world's real buckets in one launch (the step's call:
+   device µs, host µs and the bound) and on kernels/hard_cases.py's
+   closed-form scenes (one launch each; the pair scenes also through
+   pair_contacts on the card against the CPU path), KL (the character update) on
    the serving world at t = 0, 1, 2 s of the walk and on a step and a
    ledge that take its stair and stick branches, and at every update of
    kernels/hard_cases.py's character scenes (the stair walk's landing at
@@ -81,7 +84,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    PlayerPhysics at eye height), 180 think_with_player ticks of the
    walking player with phase 5's kick and one teleport (5 m up) every 30
    ticks; the invariants of phase 5, the character finite and on the
-   ground (see char_ok), KK, KL, KM and KN launched every tick, six more
+   ground (see char_ok), KK (one launch a step for every closed-form
+   bucket: as many as KT's grouping), KL, KM and KN launched every tick, six more
    ticks make one synchronizing call each and (where the profiler sees
    the card) one host->device and one device->host copy each, and a
    200-box serving world whose player pushes a small box (capsule-box
@@ -149,7 +153,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 17. 180 benchworld.terrain_tick frames of BASELINE config 4 (see
    terrain_phase) and a small terrain world against the CPU path;
 18. KAA (the audio mix's per-source setup and epilogue) on bench.py's
-   256-source scene after 30 blocks, HRTF on (timed) and off, and KAB (the
+   256-source scene after 30 blocks, HRTF on (timed, with the setup's
+   host µs) and off, the setup also on kernels/hard_cases.py's audio-setup
+   scenes with HRTF on and off, and KAB (the
    vehicles' pre-ray setup and delta scatter) on the full tick's 8
    vehicles after 30 ticks and with one vehicle's body gone, each against
    its twin: exact on masks, bins (but a bin whose pre-round value lies
@@ -1388,6 +1394,59 @@ def _kk_compare(args):
     return max(max_err(rk[i], rp[i], rp[5]) for i in (2, 3, 4)), rk, rp
 
 
+def _kk_step_compare(buckets, wms, blocked, rows, what):
+    """KK's one launch over a step's buckets against its twin bucket by
+    bucket: points, normals and depths within 1e-5 on the valid rows,
+    masks, ids, keys and touching exact.  Returns (err, [(args, rows)])."""
+    from substrata_tpu_torch.kernels import closed_forms as kk
+    got = kk.closed_form_buckets(buckets, wms, blocked, *rows)
+    err, calls = 0.0, []
+    for (code, ba, bb, bv), wm, rk in zip(buckets, wms, got):
+        args = (code, wm, blocked, *rows, ba, bb, bv)
+        rp = kk.closed_form_rows_plain(*args)
+        for i, name in ((0, "a"), (1, "b"), (5, "valid"), (6, "friction"), (7, "restitution"),
+                        (8, "key"), (9, "touching")):
+            check(torch.equal(rk[i], rp[i]), f"KK {what} code {code}: {name} differs")
+        err = max(err, *(max_err(rk[i], rp[i], rp[5]) for i in (2, 3, 4)))
+        calls.append((args, rk))
+    check(err <= 1e-5, f"KK {what}: max abs err {err} > 1e-5")
+    return err, calls
+
+
+def kk_hard_cases(device):
+    """KK on every ``hard_cases.CLOSED_FORM_CASES`` scene, one launch each,
+    against its twin; the pair scenes also through ``pair_contacts`` on
+    ``device`` against the CPU path (the same Contacts: float fields within
+    1e-5 on the valid rows, ids, masks, keys and touching exact)."""
+    from substrata_tpu_torch.kernels import hard_cases
+    from substrata_tpu_torch.physics import narrowphase
+    out = {}
+    for case in hard_cases.CLOSED_FORM_CASES:
+        scene = hard_cases.closed_form_scene(case)
+        a = hard_cases.closed_form_inputs(scene, device)
+        err, calls = _kk_step_compare(*a[:3], a[3:], f"hard case {case}")
+        r = dict(max_abs_err=err, buckets=[(c[0], int(c[-1].shape[0]), int(c[-1].sum()))
+                                           for c, _ in calls])
+        if scene.pairs is not None:
+            cargs, kw = hard_cases.closed_form_pair_inputs(scene, device)
+            pargs, _ = hard_cases.closed_form_pair_inputs(scene, "cpu")
+            (ck, tk, ok), (cp, tp, op) = (narrowphase.pair_contacts(*cargs, **kw),
+                                          narrowphase.pair_contacts(*pargs, **kw))
+            check(torch.equal(tk.cpu(), tp) and int(ok) == int(op),
+                  f"KK hard case {case}: pair_contacts' touching or overflow differs")
+            for f in narrowphase.CONTACT_FIELDS:
+                x, y = getattr(ck, f).cpu(), getattr(cp, f)
+                if x.is_floating_point():
+                    e = max_err(x, y, cp.valid)
+                    check(e <= 1e-5, f"KK hard case {case}: pair_contacts' {f} {e} > 1e-5")
+                    r["max_abs_err"] = max(r["max_abs_err"], e)
+                else:
+                    check(torch.equal(x, y), f"KK hard case {case}: pair_contacts' {f} differs")
+            r["pair_contacts_rows"] = int(ck.a.shape[0])
+        out[case] = r
+    return out
+
+
 def _kk_bytes(calls):
     """The bytes KK must move over ``calls`` [(args, rows)]: each bucket's
     slot arrays and its output rows, and the body fields (pose, shape,
@@ -1544,30 +1603,31 @@ def serving_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, plain_reps=5)
         serving_tick(w, p, t * DT)
     body, pc, cfg = w.state, w.pair_cache, w.config
     bucket_list = narrowphase.buckets(body, pc.pair_a, pc.pair_b, pc.pair_valid, cfg)[0]
-    kk_calls, valid_slots, kk_ops, real_err = [], {}, 0, 0.0
-    for code, _, bba, bbb, bvalid in bucket_list:
-        if code not in kk.CODES:
-            continue
-        args = (code, narrowphase._MANIFOLD_WIDTH[code], False, body.pos, body.quat,
-                body.shape_params, body.friction, body.restitution, body.is_sensor, bba, bbb,
-                bvalid)
-        err, rk, _ = _kk_compare(args)
-        real_err = max(real_err, err)
-        kk_calls.append((args, rk))
-        valid_slots[code] = int(bvalid.sum())
-        kk_ops += valid_slots[code] * (FLOPS["capsule_box"] if code in (6, 9)
-                                       else FLOPS["point_contact"])
-    kk_args = [a for a, _ in kk_calls]
+    # The step's closed-form buckets in one launch, as pair_contacts runs
+    # them (the compacted layout, each code's width).
+    kk_buckets = [(code, bba, bbb, bvalid) for code, _, bba, bbb, bvalid in bucket_list
+                  if code in kk.CODES]
+    wms = tuple(narrowphase._MANIFOLD_WIDTH[c] for c, *_ in kk_buckets)
+    rows = (body.pos, body.quat, body.shape_params, body.friction, body.restitution,
+            body.is_sensor)
+    real_err, kk_calls = _kk_step_compare(kk_buckets, wms, False, rows, "serving world")
+    valid_slots = {c: int(bv.sum()) for c, _, _, bv in kk_buckets}
+    kk_ops = sum(n * (FLOPS["capsule_box"] if c in (6, 9) else FLOPS["point_contact"])
+                 for c, n in valid_slots.items())
+
+    def kk_step():
+        return kk.closed_form_buckets(kk_buckets, wms, False, *rows)
+    hard = kk_hard_cases(device)
     results["closed_form_rows"] = dict(
-        max_abs_err=max(random_err, real_err), tol=1e-5, random_pairs_per_code=n,
-        bucket_slots={c: int(a[9].shape[0]) for c, a in zip(valid_slots, kk_args)},
+        max_abs_err=max(random_err, real_err, *(r["max_abs_err"] for r in hard.values())),
+        tol=1e-5, random_pairs_per_code=n, launches_per_step=1,
+        bucket_slots={c: int(ba.shape[0]) for c, ba, _, _ in kk_buckets},
         valid_slots=valid_slots, random_pairs_bound_ms=random_bounds,
-        **bound(_kk_bytes(kk_calls), kk_ops),
-        ms=median_ms(lambda: [kk.closed_form_rows(*a) for a in kk_args]),
-        device_us_per_launch=device_us(lambda: [kk.closed_form_rows(*a) for a in kk_args],
-                                       "closed_form_rows"),
-        plain_ms=median_ms(lambda: [kk.closed_form_rows_plain(*a) for a in kk_args],
-                           reps=plain_reps))
+        **bound(_kk_bytes(kk_calls), kk_ops), ms=median_ms(kk_step),
+        device_us_per_launch=device_us(kk_step, "closed_form"), **host_cost(kk_step),
+        plain_ms=median_ms(lambda: [kk.closed_form_rows_plain(*a) for a, _ in kk_calls],
+                           reps=plain_reps),
+        hard_cases=hard)
 
     # KL on a 0.35 m step (the stair branch) and off a 0.4 m ledge (the
     # stick branch), three chained updates each.
@@ -3632,14 +3692,14 @@ def _kaa_args(src, lis, block, use_hrtf):
             kaa.dop_alpha(block), block / kaa.ENGINE_RATE, use_hrtf)
 
 
-def _hrir_edges(src, lis):
+def _hrir_edges(pos, l_pos, right, forward, up):
     """Sources whose HRIR bin hangs on atan2's last bit: a pre-round
     azimuth or elevation value within HRIR_EDGE of a half-integer."""
     import math
     from substrata_tpu_torch.audio.hrtf import N_AZ, N_EL
     from substrata_tpu_torch.maths.fp import dot3, fma, recip, sqrt
-    to = src.pos - lis.pos[None]
-    x, y, z = (dot3(to, v[None]) for v in (lis.right, lis.forward, lis.up))
+    to = pos - l_pos[None]
+    x, y, z = (dot3(to, v[None]) for v in (right, forward, up))
     az = torch.atan2(x, y)
     el = torch.atan2(z, torch.clamp(sqrt(fma(x, x, y * y)), min=1e-6))
     pa = az * recip(2 * math.pi) * N_AZ
@@ -3648,6 +3708,50 @@ def _hrir_edges(src, lis):
     def near(p):
         return (p - torch.floor(p) - 0.5).abs() <= HRIR_EDGE
     return near(pa) | near(pe)
+
+
+def _kaa_setup_check(args, what):
+    """KAA's setup against its twin on ``args``: exact on masks, bins (but
+    the edge sources) and arithmetic, the pan's cos and sin (HRTF off)
+    within 1e-6 of the gains' scale.  Returns (err, edge sources, bins
+    moved, the twin's views)."""
+    from substrata_tpu_torch.kernels import audio_setup as kaa
+    s, nl = args[6].shape
+    use_hrtf = args[20]
+    bk, bp = kaa.audio_setup(*args), kaa.audio_setup_plain(*args)
+    vk, vp = kaa.setup_views(bk, s, nl), kaa.setup_views(bp, s, nl)
+    for name in ("active", "use_lp", "eff_delta", "dop_smooth", "mute", "gain", "alpha",
+                 "send_gain"):
+        _exact(vk[name], vp[name], f"KAA setup {what}: {name}")
+    edges = _hrir_edges(args[4], *args[13:14], *args[15:18]) if use_hrtf \
+        else torch.zeros_like(args[0])
+    live = ~edges
+    _exact(vk["dir_idx"][live], vp["dir_idx"][live], f"KAA setup {what}: dir_idx")
+    moved = int((vk["dir_idx"] != vp["dir_idx"]).sum())
+    if use_hrtf:
+        _exact(vk["gl"], vp["gl"], f"KAA setup {what}: gl")
+        _exact(vk["gr"], vp["gr"], f"KAA setup {what}: gr")
+        err = 0.0
+    else:
+        err = max(_scaled_err(vk["gl"], vp["gl"]), _scaled_err(vk["gr"], vp["gr"]))
+        check(err <= 1e-6, f"KAA setup {what}: gains {err} of scale > 1e-6")
+    return err, int(edges.sum()), moved, vp
+
+
+def kaa_hard_cases(device):
+    """KAA's setup on every ``hard_cases.AUDIO_SETUP_CASES`` scene, HRTF on
+    and off, against its twin (``_kaa_setup_check``)."""
+    from substrata_tpu_torch.kernels import hard_cases
+    out = {}
+    for case in hard_cases.AUDIO_SETUP_CASES:
+        scene = hard_cases.audio_setup_scene(case)
+        for hrtf in (True, False):
+            err, edges, moved, _ = _kaa_setup_check(
+                hard_cases.audio_setup_inputs(scene, device, hrtf), f"hard case {case}")
+            out[f"{case}_{'hrtf' if hrtf else 'pan'}"] = dict(
+                max_abs_err=err, sources=int(scene.sources["pos"].shape[0]),
+                hrir_edge_sources=edges, hrir_bins_moved=moved)
+    return out
 
 
 def _kaa_compare(src, pool, lis, block, use_hrtf, what, timed=False, plain_reps=5):
@@ -3659,22 +3763,7 @@ def _kaa_compare(src, pool, lis, block, use_hrtf, what, timed=False, plain_reps=
     from substrata_tpu_torch.kernels import audio_setup as kaa
     s, nl = src.delta.shape
     args = _kaa_args(src, lis, block, use_hrtf)
-    bk, bp = kaa.audio_setup(*args), kaa.audio_setup_plain(*args)
-    vk, vp = kaa.setup_views(bk, s, nl), kaa.setup_views(bp, s, nl)
-    for name in ("active", "use_lp", "eff_delta", "dop_smooth", "mute", "gain", "alpha",
-                 "send_gain"):
-        _exact(vk[name], vp[name], f"KAA setup {what}: {name}")
-    edges = _hrir_edges(src, lis) if use_hrtf else torch.zeros_like(src.alive)
-    live = ~edges
-    _exact(vk["dir_idx"][live], vp["dir_idx"][live], f"KAA setup {what}: dir_idx")
-    moved = int((vk["dir_idx"] != vp["dir_idx"]).sum())
-    if use_hrtf:
-        _exact(vk["gl"], vp["gl"], f"KAA setup {what}: gl")
-        _exact(vk["gr"], vp["gr"], f"KAA setup {what}: gr")
-        err = 0.0
-    else:
-        err = max(_scaled_err(vk["gl"], vp["gl"]), _scaled_err(vk["gr"], vp["gr"]))
-        check(err <= 1e-6, f"KAA setup {what}: gains {err} of scale > 1e-6")
+    err, edges, moved, vp = _kaa_setup_check(args, what)
     # The epilogue's inputs from this block's fetch and spatialise.
     samples, heads = mix.fetch(pool, src, vp["eff_delta"], vp["active"], block)
     level = ka.audio_spatialise(
@@ -3689,14 +3778,17 @@ def _kaa_compare(src, pool, lis, block, use_hrtf, what, timed=False, plain_reps=
     for name in ("smoothed_level", "finished", "alive"):
         _exact(ek[name], ep[name], f"KAA epilogue {what}: {name}")
     res = {"audio_setup": dict(max_abs_err=err, tol="exact; gains 1e-6 of scale without HRTF",
-                               sources=s, alive=int(src.alive.sum()), hrir_edge_sources=int(
-                                   edges.sum()), hrir_bins_moved=moved, use_hrtf=use_hrtf),
+                               sources=s, alive=int(src.alive.sum()), hrir_edge_sources=edges,
+                               hrir_bins_moved=moved, use_hrtf=use_hrtf),
            "audio_epilogue": dict(max_abs_err=0.0, tol="exact", sources=s)}
     if timed:
         res["audio_setup"].update(
-            **bound(nbytes(args[:18], bk), FLOPS["audio_setup"] * s),
+            # What the setup writes of its buffer: (L + 8) S words and 2 S
+            # flag bytes (the flag block's other 2 S bytes stay unwritten).
+            **bound(nbytes(args[:18]) + 4 * (nl + 8) * s + 2 * s, FLOPS["audio_setup"] * s),
             ms=median_ms(lambda: kaa.audio_setup(*args)),
             device_us=device_us(lambda: kaa.audio_setup(*args), "audio_setup_kernel"),
+            **host_cost(lambda: kaa.audio_setup(*args)),
             plain_ms=median_ms(lambda: kaa.audio_setup_plain(*args), reps=plain_reps))
         # The epilogue reads layer 0 of the heads and buffer lengths only.
         res["audio_epilogue"].update(
@@ -3773,8 +3865,11 @@ def setup_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, blocks=30, warm
         src, _, room = mix.mix_block(src, pool, lis, room=room, use_hrtf=True, block=b)
     res = _kaa_compare(src, pool, lis, b, True, "bench HRTF", timed=True, plain_reps=plain_reps)
     off = _kaa_compare(src, pool, lis, b, False, "bench pan")
+    hard = kaa_hard_cases(device)
     res["audio_setup"]["max_abs_err"] = max(res["audio_setup"]["max_abs_err"],
-                                            off["audio_setup"]["max_abs_err"])
+                                            off["audio_setup"]["max_abs_err"],
+                                            *(r["max_abs_err"] for r in hard.values()))
+    res["audio_setup"]["hard_cases"] = hard
     res["audio_setup_pan"] = off["audio_setup"]
     veh, vin, ps, char, scripts = bench_fulltick(w, device)
     src, pool, lis, room = bench_audio(device)
@@ -4971,6 +5066,10 @@ def main():
     kres.update(sres)
 
     sv_res = serving_phase()
+    # KK runs a step's closed-form buckets in one launch: as many launches
+    # as KT's grouping, one a step (180 in phase 11, not three a step).
+    kk_n, steps = sv_res["launches"]["closed_form_rows"], sv_res["launches"]["layout_group"]
+    check(kk_n == steps, f"KK: {kk_n} launches for {steps} serving steps")
     sv_res.update(small_serving_phase())
     log(f"# serving tick: {json.dumps(sv_res)} | {smi}")
     log(f"# ms per serving tick (median, ticks 31-{TICKS}, 10,000 boxes + the walking player): "

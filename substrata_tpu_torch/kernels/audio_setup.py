@@ -27,6 +27,7 @@ the reference's in the last bit.
 from __future__ import annotations
 
 import math
+import struct
 
 import numpy as np
 import torch
@@ -141,11 +142,29 @@ def audio_setup_plain(alive, paused, finished, spatial, pos, vel, delta, doppler
     return buf
 
 
+SETUP_NAMES = ("alive", "paused", "finished", "spatial", "pos", "vel", "delta",
+               "doppler_factor", "mute_factor", "mute_target", "mute_rate", "volume",
+               "num_occlusions", "l_pos", "l_vel", "l_right", "l_forward", "l_up")
+# csrc/audio_setup.cu:audio_setup: the 18 input pointers, dop_alpha and
+# dt_block as doubles, S, L, use_hrtf, out.
+_PACK = struct.Struct("=18q2d4q")
+_plans = {}
+
+
+def _setup_plan(s: int, nl: int, device):
+    """The setup's checks for one (S, L, device): its 18 inputs' dtypes and
+    shapes in the kernel's order."""
+    return (device, (torch.bool,) * 4 + (f32,) * 14,
+            ((s,),) * 4 + ((s, 3), (s, 3), (s, nl)) + ((s,),) * 6 + ((3,),) * 5)
+
+
 def audio_setup(alive, paused, finished, spatial, pos, vel, delta, doppler_factor, mute_factor,
                 mute_target, mute_rate, volume, num_occlusions, l_pos, l_vel, l_right,
                 l_forward, l_up, dop_alpha: float, dt_block: float, use_hrtf: bool):
     """KAA's setup: ``audio_setup_plain`` for CPU tensors,
-    ``csrc/audio_setup.cu`` for CUDA tensors.  Returns the setup buffer."""
+    ``csrc/audio_setup.cu`` for CUDA tensors (checked against the plan of
+    its (S, L, device), launched from one packed argument).  Returns the
+    setup buffer."""
     args = (alive, paused, finished, spatial, pos, vel, delta, doppler_factor, mute_factor,
             mute_target, mute_rate, volume, num_occlusions, l_pos, l_vel, l_right, l_forward,
             l_up)
@@ -153,15 +172,12 @@ def audio_setup(alive, paused, finished, spatial, pos, vel, delta, doppler_facto
         return audio_setup_plain(*args, dop_alpha, dt_block, use_hrtf)
     dev = pos.device
     s, nl = delta.shape
-    names = ("alive", "paused", "finished", "spatial", "pos", "vel", "delta", "doppler_factor",
-             "mute_factor", "mute_target", "mute_rate", "volume", "num_occlusions", "l_pos",
-             "l_vel", "l_right", "l_forward", "l_up")
-    shapes = [(s,)] * 4 + [(s, 3), (s, 3), (s, nl)] + [(s,)] * 6 + [(3,)] * 5
-    for k, (t, name, shp) in enumerate(zip(args, names, shapes)):
-        build.check(t, name, torch.bool if k < 4 else f32, shp, dev)
+    device, dtypes, shapes = build.plan(_plans, (s, nl, dev), lambda: _setup_plan(s, nl, dev))
+    build.check_all(device, args, SETUP_NAMES, dtypes, shapes)
     buf = torch.empty(((nl + SETUP_WORDS) * s,), dtype=f32, device=dev)
-    build.launch("audio_setup", *args, float(np.float32(dop_alpha)),
-                 float(np.float32(dt_block)), s, nl, int(bool(use_hrtf)), buf)
+    build.launch_packed("audio_setup", _PACK.pack(
+        *(t.data_ptr() for t in args), float(np.float32(dop_alpha)),
+        float(np.float32(dt_block)), s, nl, int(bool(use_hrtf)), buf.data_ptr()))
     launches["audio_setup"] += 1
     return buf
 

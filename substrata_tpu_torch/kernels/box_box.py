@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from substrata_tpu_torch.kernels import build
+from substrata_tpu_torch.kernels import build, contact_rows
 from substrata_tpu_torch.maths import quat as quatm
 
 CONTACT_MARGIN = 0.04  # speculative contact distance, metres
@@ -281,14 +281,16 @@ def box_box_rows_plain(pos, quat, shape_params, friction, restitution,
 
 
 def box_box_rows(pos, quat, shape_params, friction, restitution, is_sensor,
-                 pair_a, pair_b, pair_valid):
+                 pair_a, pair_b, pair_valid, out=None):
     """KA: ``box_box_rows_plain`` for CPU tensors, ``csrc/box_box.cu``
-    (one thread per pair slot) for CUDA tensors."""
+    (one thread per pair slot) for CUDA tensors.  ``out``: the 10 outputs'
+    tensors to write (a bucket's views of a mixed world's contact rows),
+    or None for new ones."""
     global launches
     if pos.device.type == "cpu":
-        return box_box_rows_plain(pos, quat, shape_params, friction,
-                                  restitution, is_sensor, pair_a, pair_b,
-                                  pair_valid)
+        return contact_rows.copied(box_box_rows_plain(pos, quat, shape_params, friction,
+                                                      restitution, is_sensor, pair_a, pair_b,
+                                                      pair_valid), out)
     dev = pos.device
     n = pos.shape[0]
     p = pair_a.shape[0]
@@ -301,13 +303,7 @@ def box_box_rows(pos, quat, shape_params, friction, restitution, is_sensor,
             (is_sensor, "is_sensor", bl, (n,)), (pair_a, "pair_a", i32, (p,)),
             (pair_b, "pair_b", i32, (p,)), (pair_valid, "pair_valid", bl, (p,))):
         build.check(t, name, dt, shp, dev)
-    r = p * WM
-    out = (torch.empty(r, dtype=i32, device=dev), torch.empty(r, dtype=i32, device=dev),
-           torch.empty((r, 3), dtype=f32, device=dev),
-           torch.empty((r, 3), dtype=f32, device=dev),
-           torch.empty(r, dtype=f32, device=dev), torch.empty(r, dtype=bl, device=dev),
-           torch.empty(r, dtype=f32, device=dev), torch.empty(r, dtype=f32, device=dev),
-           torch.empty(r, dtype=i32, device=dev), torch.empty(p, dtype=bl, device=dev))
+    out = contact_rows.outputs(out, p * WM, p, dev)
     build.launch("box_box_rows", pair_a, pair_b, pair_valid, pos, quat,
                  shape_params, friction, restitution, is_sensor, p, *out)
     launches += 1

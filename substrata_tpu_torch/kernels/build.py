@@ -86,10 +86,11 @@ SIGNATURES = {
     # body_lin, body_ang, mass, iw, hit_t, hit_n, hit_ok, water_z, the
     # output buffer, V, dt as a double), stream
     "vehicle_forces": [P, P],
-    # ba, bb, bvalid, pos, quat, params, fric, rest, sensor, cap, code, wm,
-    # blocked, out a, b, point, normal, pen, valid, fric, rest, key, touch,
-    # stream
-    "closed_form_rows": [P] * 9 + [I] * 4 + [P] * 10 + [P],
+    # one host buffer (kernels/closed_forms.py:_PACK: 8-byte slots ba, bb,
+    # bvalid, pos, quat, params, fric, rest, sensor, out a, b, point,
+    # normal, pen, valid, fric, rest, key, touch, blocked, buckets, blocks;
+    # then the bucket table), stream
+    "closed_form_buckets": [P, P],
     # ba, bb, bvalid, pos, quat, params, fric, rest, sensor, hull verts,
     # n_verts, planes, n_faces, cap, code, wm, blocked, H, max verts, max
     # faces, out a, b, point, normal, pen, valid, fric, rest, key, touch,
@@ -182,11 +183,12 @@ SIGNATURES = {
     # 13 particle fields (pos ... alive), rows, cursor, n, cap, stream
     "spawn_rows": [P] * 13 + [P] + [I] * 3 + [P],
     "pose_avatars": [P] * 4 + [I] + [P] * 12 + [P] * 5 + [I] + [P] * 2 + [I] * 4 + [P] + [P],
-    # alive, paused, finished, spatial, pos, vel, delta, doppler_factor,
+    # one host buffer of 8-byte slots (kernels/audio_setup.py:_PACK: alive,
+    # paused, finished, spatial, pos, vel, delta, doppler_factor,
     # mute_factor, mute_target, mute_rate, volume, num_occlusions; listener
-    # pos, vel, right, forward, up; dop_alpha, dt_block; S, L, use_hrtf;
-    # out, stream
-    "audio_setup": [P] * 13 + [P] * 5 + [F] * 2 + [I] * 3 + [P] + [P],
+    # pos, vel, right, forward, up; dop_alpha, dt_block as doubles; S, L,
+    # use_hrtf; out), stream
+    "audio_setup": [P, P],
     # finished, looping, stream_mode, active, new_heads, buf_len, level,
     # smoothed_level, alive, remove_on_finish; S, L; out, stream
     "audio_epilogue": [P] * 10 + [I] * 2 + [P] + [P],

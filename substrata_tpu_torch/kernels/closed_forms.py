@@ -18,19 +18,26 @@ operand A.  Products are written out component by component, in the order
 ``csrc/closed_forms.cuh`` computes them, so the kernel and this twin
 round alike.
 
-``closed_form_rows`` launches ``csrc/closed_forms.cu`` for CUDA tensors
-and runs ``closed_form_rows_plain`` for CPU tensors.
+``closed_form_buckets`` runs every closed-form bucket of a step in one
+launch of ``csrc/closed_forms.cu`` for CUDA tensors (its bucket table a
+plan per layout, its rows written into the caller's contact rows or a
+``contact_rows.contact_buffer`` of their own) and
+``closed_form_rows_plain`` per bucket for CPU tensors;
+``closed_form_rows`` is its one-bucket call.
 """
 
 from __future__ import annotations
 
+import struct
+from itertools import accumulate
+
 import numpy as np
 import torch
 
-from substrata_tpu_torch.kernels import build
-from substrata_tpu_torch.kernels.box_box import (CONTACT_MARGIN, _norm3,
-                                                 combine_friction, combine_restitution,
-                                                 prune_speculative, segment_closest)
+from substrata_tpu_torch.kernels import build, contact_rows
+from substrata_tpu_torch.kernels.box_box import (CONTACT_MARGIN, _norm3, combine_friction,
+                                                 combine_restitution, prune_speculative,
+                                                 segment_closest)
 from substrata_tpu_torch.maths import fp
 from substrata_tpu_torch.maths import quat as quatm
 
@@ -38,6 +45,17 @@ _THIRD = float(np.float32(1.0) / np.float32(3.0))
 CODES = (0, 1, 2, 4, 6, 8, 9, 10)   # the closed-form combo codes (5 is KA)
 
 launches = 0
+MAX_BUCKETS = len(CODES)  # a bucket a code; csrc/closed_forms.cu:kMaxBuckets
+_BLOCK = 128             # csrc/closed_forms.cu:kThreads: slots a block
+# csrc/closed_forms.cu:closed_form_buckets: 9 input and 10 output pointers,
+# blocked, the number of buckets and of blocks; then the bucket table: each
+# bucket's first block (unused entries start past every block), then each
+# bucket's record (Bucket: the offsets of its slots, rows and touching
+# flags, its code, width, first block and slots).
+_PACK = struct.Struct("=22q")
+_BUCKET = struct.Struct("=3q4i")
+_NO_BLOCK = 0x7FFFFFFF
+_plans = {}
 
 
 def safe_normalize(v, eps=1e-12):
@@ -274,36 +292,113 @@ def bucket_rows_plain(wm: int, blocked: bool, manifold, friction, restitution, i
             (b32[:, None] * 4 + slot[None, :] + 9).reshape(cap * wm), touching)
 
 
+class _Plan:
+    """One layout of buckets: the bucket table (``host_table``: a row a
+    bucket of code, width, first block, slots, and the offsets of its
+    slots in the first bucket's ba, bb and bvalid, of its rows and of its
+    touching flags in the outputs; ``table``: the launch's packed copy) and
+    the grid."""
+
+    def __init__(self, codes, caps, wms, offs, rows_at, touch_at):
+        first = list(accumulate((-(-c // _BLOCK) for c in caps), initial=0))
+        self.blocks = first[-1]
+        self.host_table = [[code, wm, b0, cap, off, r0, t0] for code, wm, b0, cap, off, r0, t0
+                           in zip(codes, wms, first, caps, offs, rows_at, touch_at)]
+        pad = MAX_BUCKETS - len(codes)
+        self.table = (struct.pack(f"={MAX_BUCKETS}i", *first[:-1], *[_NO_BLOCK] * pad)
+                      + b"".join(_BUCKET.pack(off, r0, t0, code, wm, b0, cap)
+                                 for code, wm, b0, cap, off, r0, t0 in self.host_table)
+                      + bytes(_BUCKET.size * pad))
+
+
+def slot_offsets(buckets):
+    """Each bucket's slot offset from the first bucket's.  The kernel reads
+    every bucket's slots from the first bucket's ba, bb and bvalid, so each
+    bucket's three must lie at one offset from the first's (views of one
+    array each, as KT's grouping and ``hard_cases.closed_form_inputs`` lay
+    them out); ValueError where they do not."""
+    pa, pb, pv = (buckets[0][i].data_ptr() for i in (1, 2, 3))
+    offs = []
+    for code, ba, bb, bv in buckets:
+        d = bv.data_ptr() - pv
+        if ba.data_ptr() - pa != 4 * d or bb.data_ptr() - pb != 4 * d:
+            raise ValueError(f"bucket of code {code}: its ba, bb and bvalid are not views of "
+                             "the first bucket's arrays at one offset")
+        offs.append(d)
+    return tuple(offs)
+
+
+def closed_form_buckets(buckets, wms, blocked: bool, pos, quat, shape_params, friction,
+                        restitution, is_sensor, out=None):
+    """KK over a step's closed-form buckets [(code, ba, bb, bvalid)], of
+    ``wms[k]`` rows a slot in bucket k.
+
+    ``out`` is (fields, touching, rows_at, touch_at): ``contact_rows.
+    contact_buffer``'s views and each bucket's first row and slot in them;
+    where it is None, the rows go to a buffer of their own, the buckets one
+    after another.  ``closed_form_rows_plain`` per bucket for CPU tensors;
+    for CUDA tensors one launch of ``csrc/closed_forms.cu`` from one packed
+    argument, its bucket table the plan of this layout (codes, slots,
+    widths, ``slot_offsets``, placement, device).  Returns each bucket's 10
+    outputs (a, b, point, normal, pen, valid, friction, restitution, key,
+    touching) as views of the buffer, or nothing where ``out`` is given."""
+    global launches
+    nb = len(buckets)
+    if not 1 <= nb <= MAX_BUCKETS:
+        raise ValueError(f"{nb} buckets: 1..{MAX_BUCKETS} in one launch")
+    if len(wms) != nb:
+        raise ValueError(f"{len(wms)} widths for {nb} buckets")
+    for (code, *_), w in zip(buckets, wms):
+        if code not in CODES:
+            raise ValueError(f"combo code {code} has no closed form")
+        if not 1 <= w <= 4:
+            raise ValueError(f"manifold width {w} outside 1..4")
+    dev = pos.device
+    caps = tuple(b[1].shape[0] for b in buckets)
+    own = out is None
+    if own:
+        rows_at = tuple(accumulate((c * w for c, w in zip(caps, wms)), initial=0))
+        touch_at = tuple(accumulate(caps, initial=0))
+        fields, touch = contact_rows.contact_buffer(rows_at[-1], touch_at[-1], dev)
+        rows_at, touch_at = rows_at[:-1], touch_at[:-1]
+    else:
+        fields, touch, rows_at, touch_at = out
+        rows_at, touch_at = tuple(rows_at), tuple(touch_at)
+        r, t = fields[0].shape[0], touch.shape[0]
+        contact_rows.outputs(tuple(fields) + (touch,), r, t, dev)
+        if any(r0 + c * w > r or t0 + c > t
+               for r0, t0, c, w in zip(rows_at, touch_at, caps, wms)):
+            raise ValueError(f"out: {r} rows and {t} flags, too few for the buckets")
+    views = [contact_rows.bucket_views(fields, touch, r0, c * w, t0, c)
+             for r0, t0, c, w in zip(rows_at, touch_at, caps, wms)]
+    rows = (pos, quat, shape_params, friction, restitution, is_sensor)
+    if dev.type == "cpu":
+        for (code, ba, bb, bv), w, v in zip(buckets, wms, views):
+            contact_rows.copied(closed_form_rows_plain(code, w, blocked, *rows, ba, bb, bv), v)
+        return views if own else None
+    n = pos.shape[0]
+    f32, i32, bl = torch.float32, torch.int32, torch.bool
+    build.check_all(dev, rows, ("pos", "quat", "shape_params", "friction", "restitution",
+                                "is_sensor"), (f32, f32, f32, f32, f32, bl),
+                    ((n, 3), (n, 4), (n, 4), (n,), (n,), (n,)))
+    for (code, ba, bb, bv), cap in zip(buckets, caps):
+        build.check_all(dev, (ba, bb, bv), ("ba", "bb", "bvalid"), (i32, i32, bl),
+                        ((cap,), (cap,), (cap,)))
+    offs = slot_offsets(buckets)
+    codes, wms = tuple(b[0] for b in buckets), tuple(wms)
+    plan = build.plan(_plans, (codes, caps, wms, offs, rows_at, touch_at, dev),
+                      lambda: _Plan(codes, caps, wms, offs, rows_at, touch_at))
+    build.launch_packed("closed_form_buckets", _PACK.pack(
+        *(buckets[0][i].data_ptr() for i in (1, 2, 3)), *(x.data_ptr() for x in rows),
+        *(f.data_ptr() for f in fields), touch.data_ptr(), 1 if blocked else 0, nb,
+        plan.blocks) + plan.table)
+    launches += 1
+    return views if own else None
+
+
 def closed_form_rows(code: int, wm: int, blocked: bool, pos, quat, shape_params, friction,
                      restitution, is_sensor, ba, bb, bvalid):
-    """KK: ``closed_form_rows_plain`` for CPU tensors, ``csrc/closed_forms.cu``
-    (one thread per bucket slot, the combo code a launch argument) for CUDA
-    tensors."""
-    global launches
-    if code not in CODES:
-        raise ValueError(f"combo code {code} has no closed form")
-    if not 1 <= wm <= 4:
-        raise ValueError(f"manifold width {wm} outside 1..4")
-    if pos.device.type == "cpu":
-        return closed_form_rows_plain(code, wm, blocked, pos, quat, shape_params, friction,
-                                      restitution, is_sensor, ba, bb, bvalid)
-    dev = pos.device
-    n, cap = pos.shape[0], ba.shape[0]
-    f32, i32, bl = torch.float32, torch.int32, torch.bool
-    for t, name, dt, shp in (
-            (pos, "pos", f32, (n, 3)), (quat, "quat", f32, (n, 4)),
-            (shape_params, "shape_params", f32, (n, 4)), (friction, "friction", f32, (n,)),
-            (restitution, "restitution", f32, (n,)), (is_sensor, "is_sensor", bl, (n,)),
-            (ba, "ba", i32, (cap,)), (bb, "bb", i32, (cap,)), (bvalid, "bvalid", bl, (cap,))):
-        build.check(t, name, dt, shp, dev)
-    r = cap * wm
-    out = (torch.empty(r, dtype=i32, device=dev), torch.empty(r, dtype=i32, device=dev),
-           torch.empty((r, 3), dtype=f32, device=dev),
-           torch.empty((r, 3), dtype=f32, device=dev),
-           torch.empty(r, dtype=f32, device=dev), torch.empty(r, dtype=bl, device=dev),
-           torch.empty(r, dtype=f32, device=dev), torch.empty(r, dtype=f32, device=dev),
-           torch.empty(r, dtype=i32, device=dev), torch.empty(cap, dtype=bl, device=dev))
-    build.launch("closed_form_rows", ba, bb, bvalid, pos, quat, shape_params, friction,
-                 restitution, is_sensor, cap, code, wm, 1 if blocked else 0, *out)
-    launches += 1
-    return out
+    """KK on one bucket: ``closed_form_buckets`` with one bucket (its
+    outputs views of one buffer)."""
+    return closed_form_buckets([(code, ba, bb, bvalid)], (wm,), blocked, pos, quat,
+                               shape_params, friction, restitution, is_sensor)[0]

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from substrata_tpu_torch.kernels import build
+from substrata_tpu_torch.kernels import build, contact_rows
 from substrata_tpu_torch.kernels.box_box import CONTACT_MARGIN
 from substrata_tpu_torch.kernels.closed_forms import bucket_rows_plain, safe_normalize
 from substrata_tpu_torch.maths import quat as quatm
@@ -211,18 +211,20 @@ def convex_rows_plain(code: int, wm: int, blocked: bool, pos, quat, shape_params
 
 
 def convex_rows(code: int, wm: int, blocked: bool, pos, quat, shape_params, friction,
-                restitution, is_sensor, ba, bb, bvalid, hulls: HullLibrary):
+                restitution, is_sensor, ba, bb, bvalid, hulls: HullLibrary, out=None):
     """KO: ``convex_rows_plain`` for CPU tensors, ``csrc/convex.cu`` (one
     warp per bucket slot, the combo code a launch argument) for CUDA
-    tensors."""
+    tensors.  ``out``: the 10 outputs' tensors to write (the bucket's views
+    of a mixed world's contact rows), or None for new ones."""
     global launches
     if code not in CODES:
         raise ValueError(f"combo code {code} has no hull side")
     if not 1 <= wm <= 4:
         raise ValueError(f"manifold width {wm} outside 1..4")
     if pos.device.type == "cpu":
-        return convex_rows_plain(code, wm, blocked, pos, quat, shape_params, friction,
+        rows = convex_rows_plain(code, wm, blocked, pos, quat, shape_params, friction,
                                  restitution, is_sensor, ba, bb, bvalid, hulls)
+        return contact_rows.copied(rows, out)
     if hulls.max_verts > 32 or hulls.max_faces > 32:
         raise ValueError("convex_rows: the kernel holds at most 32 hull vertices and faces")
     dev = pos.device
@@ -238,13 +240,7 @@ def convex_rows(code: int, wm: int, blocked: bool, pos, quat, shape_params, fric
             (hulls.planes, "hull_planes", f32, (h, hulls.max_faces, 4)),
             (hulls.n_faces, "hull_n_faces", i32, (h,))):
         build.check(t, name, dt, shp, dev)
-    r = cap * wm
-    out = (torch.empty(r, dtype=i32, device=dev), torch.empty(r, dtype=i32, device=dev),
-           torch.empty((r, 3), dtype=f32, device=dev),
-           torch.empty((r, 3), dtype=f32, device=dev),
-           torch.empty(r, dtype=f32, device=dev), torch.empty(r, dtype=bl, device=dev),
-           torch.empty(r, dtype=f32, device=dev), torch.empty(r, dtype=f32, device=dev),
-           torch.empty(r, dtype=i32, device=dev), torch.empty(cap, dtype=bl, device=dev))
+    out = contact_rows.outputs(out, cap * wm, cap, dev)
     build.launch("convex_rows", ba, bb, bvalid, pos, quat, shape_params, friction, restitution,
                  is_sensor, hulls.verts, hulls.n_verts, hulls.planes, hulls.n_faces, cap, code,
                  wm, 1 if blocked else 0, h, hulls.max_verts, hulls.max_faces, *out)

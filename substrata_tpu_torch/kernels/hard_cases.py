@@ -3,7 +3,8 @@ grouping), for KH's ray trace, for KL's character update, for KB's
 static contacts, for the contact solve (KQ's setup and KC), for the
 rotation every rotating kernel shares, for the pair finder (KS), the
 downmix (KG), the event digest (KN), the spatialiser (KF), the vehicle
-forces (KJ) and KT's incidence table.
+forces (KJ), KT's incidence table, the closed forms (KK) and the mix's
+per-source setup (KAA).
 
 For the sorts, these are the inputs where a bucket or a code's slice
 fills, so the order of ties decides who is dropped, and where nothing is
@@ -29,7 +30,14 @@ propeller at the waterline to the ulp, near-still chassis, the righting
 controller, 1 and 33 vehicles.  For the incidence table: nothing
 occupied, static b's, a body's list exactly full and one over, one body in
 every entry, self-pairs, cpb 1, 8 and 16, ragged N, a pair-blocked stride
-and the largest packed key.  The CPU tests hold the
+and the largest packed key.  For the closed forms: every code, empty
+buckets, a bucket's first and last slot, a warp of one pair, of 4, 5 and
+32 distinct pairs, capsules parallel to a box face, sensors, both
+layouts at every width, a single-combo world's stale ids and ragged
+bucket sizes.  For the audio setup: 1 to 1,024 sources, 1 and 3 layers,
+sources at the listener, behind it and straight above it, the azimuth
+wrap, inactive sources, the Doppler clamps, occlusion and a mute rate of
+0.  The CPU tests hold the
 twins against the reference on them at a small size;
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` hold the kernels against
 the twins on them.  Everything is numpy, made from a seed; slot order is
@@ -1750,3 +1758,418 @@ def incidence_inputs(scene: IncidenceScene, device):
     ta = torch.as_tensor(scene.rows_a, device=device).reshape(-1, st)[:, 0]
     tb = torch.as_tensor(scene.rows_b, device=device).reshape(-1, st)[:, 0]
     return ta, tb, torch.as_tensor(scene.occ, device=device), scene.n, scene.cpb
+
+
+# ---------------------------------------------------------------------------
+# KK: closed-form scenes.
+# ---------------------------------------------------------------------------
+
+CLOSED_FORM_CASES = ("every_code", "all_empty", "first_last", "warp_copies", "warp_distinct",
+                     "distinct_4", "distinct_5", "parallel_face", "sensors", "blocked_wm1",
+                     "blocked_wm2", "blocked_wm4", "single_combo", "ragged", "grouped_mixed",
+                     "grouped_blocked")
+_CF_CODES = (0, 1, 2, 4, 6, 8, 9, 10)
+_CF_WIDTH = {0: 1, 1: 1, 2: 1, 4: 1, 6: 2, 8: 1, 9: 2, 10: 1}   # narrowphase._MANIFOLD_WIDTH
+
+
+@dataclasses.dataclass
+class ClosedFormScene:
+    """KK's inputs (numpy): the bodies (BodyState fields) and either
+    ``buckets`` [(code, ba, bb, bvalid)] with their widths ``wm`` and the
+    layout (``blocked``), or a pair list ``pairs`` (pair_a, pair_b,
+    pair_valid) with the SimConfig's keyword arguments ``cfg`` and
+    ``blocked_wm``, grouped as ``narrowphase.pair_contacts`` groups it."""
+    bodies: dict
+    buckets: list | None = None
+    wm: tuple | None = None
+    blocked: bool = False
+    pairs: tuple | None = None
+    cfg: dict | None = None
+    blocked_wm: int = 0
+
+
+def _cf_shape(rng, st, n):
+    prm = np.zeros((n, 4), np.float32)
+    if st == 0:
+        prm[:, 0] = rng.uniform(0.2, 0.6, n)
+    elif st == 1:
+        prm[:, :3] = rng.uniform(0.2, 0.7, (n, 3))
+    else:
+        prm[:, 0] = rng.uniform(0.15, 0.4, n)
+        prm[:, 1] = rng.uniform(0.2, 0.6, n)
+    return prm
+
+
+def _cf_side(rng, st, n, spread=0.6):
+    """``n`` bodies of shape type ``st`` at random poses within ``spread``
+    of the origin: (pos, quat, type, params)."""
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return (rng.uniform(-spread, spread, (n, 3)).astype(np.float32), q.astype(np.float32),
+            np.full(n, st, np.int32), _cf_shape(rng, st, n))
+
+
+def _cf_bodies(rng, sides, sensor_frac=0.0):
+    """BodyState fields (numpy) of the bodies in ``sides`` (a list of
+    (pos, quat, type, params)), in that order: dynamic, alive, random
+    materials; ``sensor_frac`` of them sensors."""
+    from substrata_tpu_torch.physics import state
+    pos, quat, st, prm = (np.concatenate(x) for x in zip(*sides))
+    n = pos.shape[0]
+    a = {k: v.numpy().copy() for k, v in vars(state.zero_body_state(n, device="cpu")).items()}
+    a["pos"][:], a["quat"][:], a["shape_type"][:], a["shape_params"][:] = pos, quat, st, prm
+    a["bound_radius"][:] = [_shape_bound(t, p) for t, p in zip(st, prm)]
+    a["friction"][:] = rng.uniform(0.0, 1.0, n)
+    a["restitution"][:] = rng.uniform(0.0, 1.0, n)
+    a["is_sensor"][:] = rng.random(n) < sensor_frac
+    a["alive"][:] = True
+    a["awake"][:] = True
+    a["motion_type"][:] = 2
+    a["layer"][:] = 1
+    return {k: np.ascontiguousarray(v) for k, v in a.items()}
+
+
+def _cf_random_buckets(rng, spec, occupied=0.9, sensor_frac=0.05):
+    """Bodies and buckets of distinct random pairs: ``spec`` [(code,
+    slots)], side a's bodies then side b's for each bucket."""
+    sides, buckets, base = [], [], 0
+    for code, n in spec:
+        sides += [_cf_side(rng, code // 4, n), _cf_side(rng, code % 4, n)]
+        ba = np.arange(base, base + n, dtype=np.int32)
+        buckets.append((code, ba, ba + n, rng.random(n) < occupied))
+        base += 2 * n
+    return _cf_bodies(rng, sides, sensor_frac), buckets
+
+
+def _warp_pairs(rng, slots, distinct, n_pairs):
+    """A bucket's (pair index) [slots] in which each warp of 32 slots holds
+    ``distinct`` of the ``n_pairs`` pairs, on lanes in shuffled order."""
+    idx = np.empty(slots, np.int64)
+    for w in range(0, slots, 32):
+        lanes = min(32, slots - w)
+        pick = rng.choice(n_pairs, distinct, replace=False)
+        row = np.concatenate([pick, rng.choice(pick, lanes - distinct)]) if lanes > distinct \
+            else pick[:lanes]
+        idx[w:w + lanes] = rng.permutation(row)
+    return idx
+
+
+def _parallel_face_sides(rng, n, code):
+    """Capsules lying along x over a box's top face (a box of identity
+    pose, the capsule's axis rotated from z to x), a little above, at or
+    a little into the face: the distance is flat along the segment, so
+    the search's comparisons are decided by rounding.  Box side first for
+    code 6, capsule side first for code 9."""
+    he = np.stack([rng.uniform(0.6, 1.2, n), rng.uniform(0.3, 0.6, n),
+                   rng.uniform(0.2, 0.5, n)], axis=1).astype(np.float32)
+    box_prm = np.zeros((n, 4), np.float32)
+    box_prm[:, :3] = he
+    cap_prm = np.zeros((n, 4), np.float32)
+    cap_prm[:, 0] = rng.uniform(0.15, 0.3, n)
+    cap_prm[:, 1] = rng.uniform(0.1, 0.5, n)
+    s = np.float32(np.sqrt(0.5))
+    cap_q = np.tile(np.array([0.0, s, 0.0, s], np.float32), (n, 1))
+    box_q = np.tile(np.array([0.0, 0.0, 0.0, 1.0], np.float32), (n, 1))
+    gap = rng.choice(np.array([-0.01, 0.0, 0.004, 0.02], np.float32), n)
+    cap_pos = np.stack([rng.uniform(-0.3, 0.3, n), rng.uniform(-0.2, 0.2, n),
+                        he[:, 2] + cap_prm[:, 0] + gap], axis=1).astype(np.float32)
+    box_pos = np.zeros((n, 3), np.float32)
+    box = (box_pos, box_q, np.full(n, 1, np.int32), box_prm)
+    cap = (cap_pos, cap_q, np.full(n, 2, np.int32), cap_prm)
+    return [box, cap] if code == 6 else [cap, box]
+
+
+def closed_form_scene(case: str, seed: int = 0) -> ClosedFormScene:
+    """The inputs of one hard closed-form case.  Pairs are drawn within
+    touching range (about half in contact), 90% of the slots occupied and
+    5% of the bodies sensors unless named; the compacted layout (each
+    code's own width) unless named:
+
+    - ``every_code``: one bucket of 200 slots for each closed-form code;
+    - ``all_empty``: codes 6, 9 and 10 (256, 256 and 1,024 slots), no slot
+      occupied, every slot holding the bodies of one pair (as KT's grouping
+      pads a bucket);
+    - ``first_last``: codes 1, 6, 9 and 10, 300 slots each, only the first
+      and the last slot occupied, the others holding the first's pair;
+    - ``warp_copies``: code 9, 160 slots: the first warp 32 copies of one
+      pair, the second 32 copies of another with half of them occupied,
+      the rest distinct;
+    - ``warp_distinct``: code 6, 256 distinct pairs;
+    - ``distinct_4``, ``distinct_5``: codes 6 and 9, 256 slots, each warp
+      exactly 4 (5) distinct pairs on shuffled lanes;
+    - ``parallel_face``: codes 6 and 9, capsules parallel to a box's top
+      face, 256 distinct pairs then 64 slots of one warp's 3 pairs;
+    - ``sensors``: codes 1, 6 and 9, a sensor on side a, on side b, on
+      both and on neither;
+    - ``blocked_wm1``, ``blocked_wm2``, ``blocked_wm4``: every code, 96
+      slots each, the pair-blocked layout at width 1, 2 and 4 (empty slots
+      a = -1);
+    - ``single_combo``: a capsule world through ``pair_contacts`` (one
+      combo: the pair list in place), the invalid entries holding stale
+      ids and -1;
+    - ``ragged``: codes 0, 2, 4, 6, 8 and 9 at 1, 31, 33, 127, 129 and
+      1,000 slots;
+    - ``grouped_mixed``, ``grouped_blocked``: a pile of spheres, boxes and
+      capsules through ``pair_contacts``'s grouping, compacted and at
+      blocked width 4.
+    """
+    if case not in CLOSED_FORM_CASES:
+        raise ValueError(f"unknown closed-form case {case!r}")
+    rng = np.random.default_rng(seed)
+    if case in ("single_combo", "grouped_mixed", "grouped_blocked"):
+        return _cf_pair_scene(rng, case)
+    wm_all, blocked = None, False
+    if case == "every_code":
+        bodies, buckets = _cf_random_buckets(rng, [(c, 200) for c in _CF_CODES])
+    elif case == "all_empty":
+        sides = [_cf_side(rng, 1, 1), _cf_side(rng, 2, 1)]
+        bodies = _cf_bodies(rng, sides)
+        buckets = [(c, np.zeros(n, np.int32), np.ones(n, np.int32), np.zeros(n, bool))
+                   for c, n in ((6, 256), (9, 256), (10, 1024))]
+    elif case == "first_last":
+        bodies, buckets = _cf_random_buckets(rng, [(c, 300) for c in (1, 6, 9, 10)])
+        for _, ba, bb, bv in buckets:
+            ba[1:-1], bb[1:-1] = ba[0], bb[0]
+            bv[:] = False
+            bv[0] = bv[-1] = True
+    elif case in ("warp_copies", "warp_distinct", "distinct_4", "distinct_5"):
+        codes = {"warp_copies": (9,), "warp_distinct": (6,)}.get(case, (6, 9))
+        slots = 160 if case == "warp_copies" else 256
+        bodies, buckets = _cf_random_buckets(rng, [(c, slots) for c in codes])
+        for _, ba, bb, bv in buckets:
+            if case == "warp_copies":
+                idx = np.arange(slots)
+                idx[:32], idx[32:64] = 5, 40
+                bv[:32] = True
+                bv[32:64] = np.arange(32) % 2 == 0
+            elif case.startswith("distinct"):
+                idx = _warp_pairs(rng, slots, int(case[-1]), slots)
+            else:
+                continue
+            ba[:], bb[:] = ba[idx], bb[idx]
+    elif case == "parallel_face":
+        sides, buckets, base = [], [], 0
+        for code in (6, 9):
+            n = 256
+            sides += _parallel_face_sides(rng, n, code)
+            idx = np.concatenate([np.arange(n), rng.choice(3, 64)])
+            ba = (base + idx).astype(np.int32)
+            buckets.append((code, ba, ba + n, rng.random(n + 64) < 0.9))
+            base += 2 * n
+        bodies = _cf_bodies(rng, sides)
+    elif case == "sensors":
+        bodies, buckets = _cf_random_buckets(rng, [(c, 128) for c in (1, 6, 9)], sensor_frac=0)
+        for _, ba, bb, _ in buckets:
+            kind = np.arange(ba.shape[0]) % 4
+            bodies["is_sensor"][ba[kind == 1]] = True
+            bodies["is_sensor"][bb[kind == 2]] = True
+            bodies["is_sensor"][ba[kind == 3]] = True
+            bodies["is_sensor"][bb[kind == 3]] = True
+    elif case.startswith("blocked_wm"):
+        bodies, buckets = _cf_random_buckets(rng, [(c, 96) for c in _CF_CODES], occupied=0.7)
+        wm_all, blocked = int(case[-1]), True
+    elif case == "ragged":
+        bodies, buckets = _cf_random_buckets(
+            rng, list(zip((0, 2, 4, 6, 8, 9), (1, 31, 33, 127, 129, 1000))))
+    wm = tuple(wm_all or _CF_WIDTH[c] for c, *_ in buckets)
+    return ClosedFormScene(bodies=bodies, buckets=buckets, wm=wm, blocked=blocked)
+
+
+def _cf_pair_scene(rng, case):
+    """The ``pair_contacts`` scenes: a pile of 96 bodies on a jittered
+    lattice, 0.8 m apart (capsules only for ``single_combo``), and every
+    pair within 1.2 m, shuffled; ``single_combo`` adds invalid entries with
+    stale ids and -1."""
+    n = 96
+    types = (2,) if case == "single_combo" else (0, 1, 2)
+    k = np.arange(n)
+    pos = np.stack([k % 6 * 0.8, k // 6 % 4 * 0.8, 0.5 + k // 24 * 0.8], axis=1)
+    pos = (pos + rng.uniform(-0.15, 0.15, (n, 3))).astype(np.float32)
+    sides = []
+    for i in range(n):
+        st = int(rng.choice(types))
+        side = _cf_side(rng, st, 1)
+        sides.append((pos[i:i + 1], side[1], side[2], side[3] * np.float32(0.8)))
+    bodies = _cf_bodies(rng, sides, sensor_frac=0.05)
+    ia, ib = np.triu_indices(n, 1)
+    near = np.linalg.norm(pos[ia] - pos[ib], axis=1) < 1.2
+    order = rng.permutation(int(near.sum()))
+    pa, pb = ia[near][order].astype(np.int32), ib[near][order].astype(np.int32)
+    swap = rng.random(pa.shape[0]) < 0.5
+    pa, pb = np.where(swap, pb, pa), np.where(swap, pa, pb)
+    pv = np.ones(pa.shape[0], bool)
+    if case == "single_combo":
+        m = 40
+        stale_a = rng.integers(-1, n, m).astype(np.int32)
+        stale_b = rng.integers(-1, n, m).astype(np.int32)
+        at = np.sort(rng.choice(pa.shape[0] + m, m, replace=False))
+        keep = np.setdiff1d(np.arange(pa.shape[0] + m), at)
+        a2 = np.empty(pa.shape[0] + m, np.int32)
+        b2 = np.empty_like(a2)
+        v2 = np.zeros(a2.shape[0], bool)
+        a2[keep], b2[keep], v2[keep] = pa, pb, True
+        a2[at], b2[at] = stale_a, stale_b
+        pa, pb, pv = a2, b2, v2
+        present = (False, False, True, False)
+    else:
+        present = (True, True, True, False)
+    p = 512 if case != "single_combo" else pa.shape[0]
+    if pa.shape[0] < p:
+        pad = p - pa.shape[0]
+        pa = np.concatenate([pa, np.full(pad, -1, np.int32)])
+        pb = np.concatenate([pb, np.full(pad, -1, np.int32)])
+        pv = np.concatenate([pv, np.zeros(pad, bool)])
+    cfg = dict(capacity=n, max_pairs=p, grid_dim=16, cell_size=2.0, pairs_per_body=8,
+               present_shape_types=present)
+    return ClosedFormScene(bodies=bodies, pairs=(pa, pb, pv), cfg=cfg,
+                           blocked_wm=4 if case == "grouped_blocked" else 0)
+
+
+def closed_form_inputs(scene: ClosedFormScene, device):
+    """``closed_forms.closed_form_buckets``'s arguments for ``scene`` on
+    ``device``: (buckets [(code, ba, bb, bvalid)], wm, blocked, pos, quat,
+    shape_params, friction, restitution, is_sensor).  A scene's own buckets
+    are views of one array each for ba, bb and bvalid, in bucket order (as
+    KT's grouping lays them out); a pair scene's are ``narrowphase.
+    buckets``' closed-form buckets on ``device``."""
+    from substrata_tpu_torch import convert
+    from substrata_tpu_torch.physics import narrowphase
+    from substrata_tpu_torch.physics.state import SimConfig
+    body = convert.body_state_from_numpy(scene.bodies, device=device)
+    rows = (body.pos, body.quat, body.shape_params, body.friction, body.restitution,
+            body.is_sensor)
+    if scene.pairs is not None:
+        cfg = SimConfig(**scene.cfg)
+        pa, pb, pv = (torch.as_tensor(x, device=device) for x in scene.pairs)
+        groups = narrowphase.buckets(body, pa, pb, pv, cfg)[0]
+        buckets = [(c, ba, bb, bv) for c, _, ba, bb, bv in groups if c in _CF_CODES]
+        wm = tuple(scene.blocked_wm or _CF_WIDTH[c] for c, *_ in buckets)
+        return (buckets, wm, bool(scene.blocked_wm)) + rows
+    sizes = [b[1].shape[0] for b in scene.buckets]
+    ba, bb, bv = (torch.as_tensor(np.concatenate([b[i] for b in scene.buckets]), device=device)
+                  for i in (1, 2, 3))
+    buckets = [(c, *(t.split(sizes)[k] for t in (ba, bb, bv)))
+               for k, (c, *_) in enumerate(scene.buckets)]
+    return (buckets, scene.wm, scene.blocked) + rows
+
+
+def closed_form_pair_inputs(scene: ClosedFormScene, device):
+    """``narrowphase.pair_contacts``'s arguments for a pair scene on
+    ``device``: (BodyState, pair_a, pair_b, pair_valid, SimConfig) and
+    ``blocked_wm`` as a keyword."""
+    from substrata_tpu_torch import convert
+    from substrata_tpu_torch.physics.state import SimConfig
+    pa, pb, pv = (torch.as_tensor(x, device=device) for x in scene.pairs)
+    return ((convert.body_state_from_numpy(scene.bodies, device=device), pa, pb, pv,
+             SimConfig(**scene.cfg)), dict(blocked_wm=scene.blocked_wm))
+
+
+# ---------------------------------------------------------------------------
+# KAA: audio setup scenes.
+# ---------------------------------------------------------------------------
+
+AUDIO_SETUP_CASES = ("s1", "s31", "s32", "s33", "s512", "s1024", "l1", "at_listener",
+                     "behind_above", "azimuth_wrap", "inactive", "doppler_clamp", "occluded",
+                     "mute_rate_0")
+AUDIO_SETUP_BLOCK = 256     # the client's render block
+AUDIO_SETUP_FIELDS = ("alive", "paused", "finished", "spatial", "pos", "vel", "delta",
+                      "doppler_factor", "mute_factor", "mute_target", "mute_rate", "volume",
+                      "num_occlusions")
+LISTENER_AXES = ("pos", "vel", "right", "forward", "up")
+
+
+@dataclasses.dataclass
+class AudioSetupScene:
+    """KAA's setup inputs (numpy): the source fields it reads
+    (AUDIO_SETUP_FIELDS), the listener's axes (LISTENER_AXES) and the
+    block's frame count."""
+    sources: dict
+    listener: dict
+    block: int
+
+
+def audio_setup_scene(case: str, seed: int = 0) -> AudioSetupScene:
+    """``s{S}``: S sources (1, 31, 32, 33, 512, 1,024: one, either side of
+    a warp, the client's 512 and past it) of every kind at random: 95%
+    alive, 5% paused, 5% finished, 10% not spatial, 30% occluded once or
+    twice, 3 layers, moving up to 20 m/s within 30 m of a listener turned
+    0.4 rad and moving; 64 sources unless named:
+
+    - ``l1``: one layer;
+    - ``at_listener``: half the sources exactly at the listener (distance
+      0: the direction and the bin from zeros);
+    - ``behind_above``: sources behind the listener and straight above
+      and below it (azimuth from two zeros, elevation at its clamps);
+    - ``azimuth_wrap``: an axis-aligned listener, sources behind it with x
+      = +-0, +-1e-3 and +-1e-30 (atan2 at +-pi: bin 8 from either side)
+      and on each bin's centre;
+    - ``inactive``: every source dead, paused or finished in turn;
+    - ``doppler_clamp``: sources approaching and receding near and past
+      the speed of sound (the factor clamped at 2 and 0.5, the divisor at
+      1);
+    - ``occluded``: every source occluded 1-3 times, then none;
+    - ``mute_rate_0``: no fade moves (rate 0).
+    """
+    if case not in AUDIO_SETUP_CASES:
+        raise ValueError(f"unknown audio setup case {case!r}")
+    rng = np.random.default_rng(seed)
+    s = int(case[1:]) if case[0] == "s" else 64
+    nl = 1 if case == "l1" else 3
+    f32 = np.float32
+    src = dict(alive=rng.random(s) < 0.95, paused=rng.random(s) < 0.05,
+               finished=rng.random(s) < 0.05, spatial=rng.random(s) < 0.9,
+               pos=rng.uniform(-30, 30, (s, 3)), vel=rng.uniform(-20, 20, (s, 3)),
+               delta=rng.uniform(0.5, 2.4, (s, nl)), doppler_factor=rng.uniform(0.6, 1.8, s),
+               mute_factor=rng.uniform(0, 1, s), mute_target=rng.uniform(0, 1, s),
+               mute_rate=rng.uniform(0, 10, s), volume=rng.uniform(0.5, 1.0, s),
+               num_occlusions=(rng.random(s) < 0.3) * rng.integers(1, 3, s))
+    ang = 0.4
+    lis = dict(pos=np.array([0.5, -0.3, 0.2]), vel=np.array([2.0, -1.0, 0.5]),
+               right=np.array([np.cos(ang), -np.sin(ang), 0.0]),
+               forward=np.array([np.sin(ang), np.cos(ang), 0.0]), up=np.array([0.0, 0.0, 1.0]))
+    half = np.arange(s) % 2 == 0
+    if case == "at_listener":
+        src["pos"][half] = lis["pos"]
+    elif case in ("behind_above", "azimuth_wrap"):
+        lis = dict(pos=np.zeros(3), vel=np.zeros(3), right=np.array([1.0, 0.0, 0.0]),
+                   forward=np.array([0.0, 1.0, 0.0]), up=np.array([0.0, 0.0, 1.0]))
+        if case == "behind_above":
+            k = np.arange(s) % 4
+            src["pos"][:, 1] = -np.abs(src["pos"][:, 1]) - 0.5
+            src["pos"][k == 1, :2] = 0.0
+            src["pos"][k == 2, :2] = 0.0
+            src["pos"][k == 2, 2] = -np.abs(src["pos"][k == 2, 2])
+        else:
+            xs = np.array([0.0, -0.0, 1e-3, -1e-3, 1e-30, -1e-30])
+            src["pos"][:, 0] = np.resize(xs, s)
+            src["pos"][:, 1] = -rng.uniform(1, 30, s)
+            centre = np.arange(s) >= s // 2
+            az = (np.arange(s) % 16) * (2 * np.pi / 16) - np.pi
+            r = rng.uniform(1, 30, s)
+            src["pos"][centre, 0] = (r * np.sin(az))[centre]
+            src["pos"][centre, 1] = (r * np.cos(az))[centre]
+    elif case == "inactive":
+        k = np.arange(s) % 4
+        src["alive"][:], src["paused"][:], src["finished"][:] = k != 1, k == 2, k == 3
+    elif case == "doppler_clamp":
+        to = src["pos"] - lis["pos"]
+        dirn = to / np.linalg.norm(to, axis=1, keepdims=True)
+        speed = np.resize(np.array([-200.0, 400.0, -343.0, -343.5, -1000.0, 342.0]), s)
+        src["vel"][:] = dirn * speed[:, None]
+        src["spatial"][:] = True
+    elif case == "occluded":
+        src["num_occlusions"][:] = np.where(half, rng.integers(1, 4, s), 0)
+    elif case == "mute_rate_0":
+        src["mute_rate"][:] = 0.0
+    src = {k: np.ascontiguousarray(v if v.dtype == bool else v.astype(f32))
+           for k, v in src.items()}
+    return AudioSetupScene(sources=src, listener={k: v.astype(f32) for k, v in lis.items()},
+                           block=AUDIO_SETUP_BLOCK)
+
+
+def audio_setup_inputs(scene: AudioSetupScene, device, use_hrtf: bool):
+    """``audio_setup.audio_setup``'s arguments for ``scene`` on ``device``."""
+    from substrata_tpu_torch.kernels import audio_setup as kaa
+    src = [torch.as_tensor(scene.sources[k], device=device) for k in AUDIO_SETUP_FIELDS]
+    lis = [torch.as_tensor(scene.listener[k], device=device) for k in LISTENER_AXES]
+    return (*src, *lis, kaa.dop_alpha(scene.block), scene.block / kaa.ENGINE_RATE, use_hrtf)

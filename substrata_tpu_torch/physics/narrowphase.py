@@ -17,11 +17,13 @@ toward body A; positive ``penetration`` = overlapping.
 from __future__ import annotations
 
 import dataclasses
+from itertools import accumulate
 
 import torch
 
 from substrata_tpu_torch.kernels import box_box as _ka
 from substrata_tpu_torch.kernels import closed_forms as _kk
+from substrata_tpu_torch.kernels import contact_rows as _rows
 from substrata_tpu_torch.kernels import convex as _ko
 from substrata_tpu_torch.kernels import layout as _kt
 from substrata_tpu_torch.kernels import static_contacts as _kb
@@ -87,20 +89,25 @@ def blocked_manifold_width(config: SimConfig, capacity: int) -> int:
     return wm
 
 
-def _bucket_rows(code: int, wm: int, blocked: bool, body: BodyState, ba, bb, bvalid, hulls):
+def _bucket_rows(code: int, wm: int, blocked: bool, body: BodyState, ba, bb, bvalid, hulls,
+                 out=None):
     """One bucket's rows through KA (box-box), KK (the closed forms) or KO
-    (the hull codes)."""
+    (the hull codes), into ``out`` (its 10 outputs' views) where given."""
     if code == _BOX_BOX:
         rows = _ka.box_box_rows(body.pos, body.quat, body.shape_params, body.friction,
-                                body.restitution, body.is_sensor, ba, bb, bvalid)
+                                body.restitution, body.is_sensor, ba, bb, bvalid, out=out)
         if not blocked:
             # Compacted layout keeps raw ids on empty slots.
-            rows = (ba.repeat_interleave(_ka.WM),) + tuple(rows[1:])
+            if out is None:
+                return (ba.repeat_interleave(_ka.WM),) + tuple(rows[1:])
+            rows[0].view(-1, _ka.WM).copy_(ba[:, None].expand(-1, _ka.WM))
         return rows
     if code in _ko.CODES:
         return _ko.convex_rows(code, wm, blocked, body.pos, body.quat, body.shape_params,
                                body.friction, body.restitution, body.is_sensor, ba, bb, bvalid,
-                               hulls)
+                               hulls, out=out)
+    if out is not None:
+        raise ValueError("closed-form buckets go through _kk.closed_form_buckets")
     return _kk.closed_form_rows(code, wm, blocked, body.pos, body.quat, body.shape_params,
                                 body.friction, body.restitution, body.is_sensor, ba, bb,
                                 bvalid)
@@ -158,18 +165,36 @@ def pair_contacts(body: BodyState, pair_a, pair_b, pair_valid,
     if hulls is None:
         hulls = empty_hull_library(capacity=1, device=dev)
     bucket_list, overflow, slot_of_pair = buckets(body, pair_a, pair_b, pair_valid, config)
-    batches, srcs, touches = [], [], []
-    for code, src, ba, bb, bvalid in bucket_list:
-        rows = _bucket_rows(code, blocked_wm or _MANIFOLD_WIDTH[code], bool(blocked_wm), body,
-                            ba, bb, bvalid, hulls)
-        batches.append(rows[:9])
-        srcs.append(src)
-        touches.append(rows[9])
+    blocked = bool(blocked_wm)
+    wms = tuple(blocked_wm or _MANIFOLD_WIDTH[b[0]] for b in bucket_list)
     if len(active) == 1:
-        return Contacts(*batches[0]), touches[0] & pair_valid, overflow
-    contacts = Contacts(*(torch.cat([bt[i] for bt in batches]) for i in range(9)))
+        code, _, ba, bb, bvalid = bucket_list[0]
+        rows = _bucket_rows(code, wms[0], blocked, body, ba, bb, bvalid, hulls)
+        return Contacts(*rows[:9]), rows[9] & pair_valid, overflow
+    # One allocation of the mixed world's rows, each bucket's (KA's, KK's
+    # and KO's) at its offset in code order; KK runs every closed-form
+    # bucket in one launch.
+    caps = [b[2].shape[0] for b in bucket_list]
+    rows_at = list(accumulate((c * w for c, w in zip(caps, wms)), initial=0))
+    touch_at = list(accumulate(caps, initial=0))
+    fields, touch = _rows.contact_buffer(rows_at.pop(), touch_at.pop(), dev)
+    closed = []
+    for (code, _, ba, bb, bvalid), wm, r0, t0, cap in zip(bucket_list, wms, rows_at, touch_at,
+                                                          caps):
+        if code in _kk.CODES:
+            closed.append(((code, ba, bb, bvalid), wm, r0, t0))
+            continue
+        _bucket_rows(code, wm, blocked, body, ba, bb, bvalid, hulls,
+                     out=_rows.bucket_views(fields, touch, r0, cap * wm, t0, cap))
+    if closed:
+        kk_buckets, kk_wms, kk_rows, kk_touch = zip(*closed)
+        _kk.closed_form_buckets(list(kk_buckets), kk_wms, blocked, body.pos, body.quat,
+                                body.shape_params, body.friction, body.restitution,
+                                body.is_sensor, out=(fields, touch, kk_rows, kk_touch))
     # Per-pair touching for contact events: each bucket's flags to its pairs.
-    return contacts, _kt.touching(srcs, touches, p, slot_of_pair), overflow
+    touches = [touch[t0:t0 + cap] for t0, cap in zip(touch_at, caps)]
+    return (Contacts(*fields), _kt.touching([b[1] for b in bucket_list], touches, p, slot_of_pair),
+            overflow)
 
 
 def static_contacts(body: BodyState, world: StaticWorld, config: SimConfig) -> Contacts:

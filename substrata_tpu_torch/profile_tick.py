@@ -108,7 +108,7 @@ PORT_KERNELS = ("box_box_rows_kernel", "static_contacts_kernel", "solve_rows_ker
                 "solve_bodies_kernel", "apply_forces_kernel", "integrate_kernel",
                 "audio_fetch_kernel", "audio_spatialise_kernel", "audio_downmix_kernel",
                 "ray_trace_kernel", "particles_kernel", "vehicle_forces_kernel",
-                "closed_form_rows_kernel", "character_kernel", "apply_tick_in_kernel",
+                "closed_form_buckets_kernel", "character_kernel", "apply_tick_in_kernel",
                 "digest_tblock_kernel", "convex_rows_kernel", "cell_clear_kernel",
                 "cell_hash_kernel", "cell_rank_kernel", "solve_setup_kernel", "refresh_copy_kernel",
                 "refresh_claim_kernel", "refresh_write_kernel", "winter_kernel", "pairs_",

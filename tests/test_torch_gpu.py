@@ -13,7 +13,9 @@ velocities after warm start + 7 iterations and every one of those passes
 exact (also on the hard solve scenes, and the planned whole solve equal to
 the passes), 1e-6 for KD and KE, 1e-5 for
 KF and KG, 1e-6 for KH (hit and body exact) and KI, 1e-5 of each output's
-scale for KJ, 1e-5 for KK's rows (masks, keys and touching exact), 1e-6 of
+scale for KJ, 1e-5 for KK's rows (masks, keys and touching exact; also
+on kernels/hard_cases.py's closed-form scenes, one launch a scene, the
+joined layout to the same bits), 1e-6 of
 scale for KL (flags and the touched list exact), KM and KN exact, 1e-5
 for KO's rows (masks, keys and touching exact), KP exact, 1e-6 of each
 output's scale for KQ's setup (masks, slots and table entries exact) and
@@ -29,7 +31,8 @@ exact), KX, KY and KZ exact, and a small terrain frame on the card within
 1e-4 m (particles, the character) and 1e-5 of scale (joints) of the CPU
 path; KAA exact (HRTF on and off; the pan's cos and sin within 1e-6 of
 the gains' scale, an HRIR bin only where its pre-round value lies within
-1e-5 of a half-integer), KAB exact; KAC exact (words); KN and KF to the bit on
+1e-5 of a half-integer; also on hard_cases.py's audio-setup scenes), KAB
+exact; KAC exact (words); KN and KF to the bit on
 kernels/hard_cases.py's digest and spatialise scenes, KJ (1e-5 of scale,
 gear and contact exact) and KT's incidence table (to the bit, a held table
 not overwritten) on its vehicle and incidence scenes; ClientApp on the
@@ -730,6 +733,92 @@ def test_incidence_hard_cases(case):
     assert all(_same_bits(x, y) for x, y in zip(first, held))
     assert all(_same_bits(x, y) for x, y in zip(first, ip))
     assert other[0].data_ptr() != first[0].data_ptr()
+
+
+@pytest.mark.parametrize("case", hard_cases.CLOSED_FORM_CASES)
+def test_closed_form_hard_cases(case):
+    """KK against its twin on kernels/hard_cases.py's closed-form scenes,
+    one launch over each scene's buckets: points, normals and depths within
+    1e-5 on the valid rows, ids, masks, keys and touching exact; the same
+    bits again from a copy of the buckets' arrays, and buckets copied apart
+    refused; the pair scenes also
+    through ``pair_contacts`` on the card against the CPU path."""
+    from substrata_tpu_torch.kernels import closed_forms as kk
+    from substrata_tpu_torch.physics import narrowphase
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = hard_cases.closed_form_scene(case)
+    buckets, wms, blocked, *rows = hard_cases.closed_form_inputs(scene, "cuda")
+    got = kk.closed_form_buckets(buckets, wms, blocked, *rows)
+    for (code, ba, bb, bv), wm, rk in zip(buckets, wms, got):
+        rp = kk.closed_form_rows_plain(code, wm, blocked, *rows, ba, bb, bv)
+        for i in (0, 1, 5, 6, 7, 8, 9):
+            assert torch.equal(rk[i], rp[i]), (case, code, i)
+        for i in (2, 3, 4):
+            if bool(rp[5].any()):
+                assert float((rk[i] - rp[i]).abs()[rp[5]].max()) <= 1e-5, (case, code, i)
+    sizes = [b[1].shape[0] for b in buckets]
+    copies = (torch.cat([b[i] for b in buckets]).split(sizes) for i in (1, 2, 3))
+    again = kk.closed_form_buckets([(b[0], *x) for b, *x in zip(buckets, *copies)], wms,
+                                   blocked, *rows)
+    assert all(_same_bits(x, y) for g, a in zip(got, again) for x, y in zip(g, a)), case
+    if len(buckets) > 1:
+        with pytest.raises(ValueError):
+            kk.closed_form_buckets([(c, ba.clone(), bb.clone(), bv.clone())
+                                    for c, ba, bb, bv in buckets], wms, blocked, *rows)
+    if scene.pairs is not None:
+        cargs, kw = hard_cases.closed_form_pair_inputs(scene, "cuda")
+        pargs, _ = hard_cases.closed_form_pair_inputs(scene, "cpu")
+        ck, tk, ok = narrowphase.pair_contacts(*cargs, **kw)
+        cp, tp, op = narrowphase.pair_contacts(*pargs, **kw)
+        assert torch.equal(tk.cpu(), tp) and int(ok) == int(op)
+        for f in narrowphase.CONTACT_FIELDS:
+            x, y = getattr(ck, f).cpu(), getattr(cp, f)
+            if x.is_floating_point():
+                assert float((x - y).abs()[cp.valid].max()) <= 1e-5, (case, f)
+            else:
+                assert torch.equal(x, y), (case, f)
+
+
+@pytest.mark.parametrize("case", hard_cases.AUDIO_SETUP_CASES)
+def test_audio_setup_hard_cases(case):
+    """KAA's setup against its twin on kernels/hard_cases.py's audio-setup
+    scenes, HRTF on and off: every field exact but the pan's cos and sin
+    (1e-6 of the gains' scale) and an HRIR bin whose pre-round value lies
+    within 1e-5 of a half-integer; the bytes the setup writes the same
+    again on a second call."""
+    import math
+    from substrata_tpu_torch.kernels import audio_setup as kaa
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = hard_cases.audio_setup_scene(case)
+    s, nl = scene.sources["delta"].shape
+    for use_hrtf in (True, False):
+        args = hard_cases.audio_setup_inputs(scene, "cuda", use_hrtf)
+        bk = kaa.audio_setup(*args)
+        k = kaa.setup_views(bk, s, nl)
+        p = kaa.setup_views(kaa.audio_setup_plain(*args), s, nl)
+        for name in ("active", "use_lp", "eff_delta", "dop_smooth", "mute", "gain", "alpha",
+                     "send_gain"):
+            assert torch.equal(k[name], p[name]), (case, name)
+        if use_hrtf:
+            assert torch.equal(k["gl"], p["gl"]) and torch.equal(k["gr"], p["gr"])
+            pos, lp, right, fwd, up = args[4], args[13], args[15], args[16], args[17]
+            to = pos - lp[None]
+            x, y, z = (fp.dot3(to, v[None]) for v in (right, fwd, up))
+            pa = torch.atan2(x, y) * fp.recip(2 * math.pi) * 16
+            pe = (torch.atan2(z, torch.clamp(fp.sqrt(fp.fma(x, x, y * y)), min=1e-6))
+                  + math.pi / 4) * fp.recip(math.pi / 2) * 2
+            edge = ((pa - pa.floor() - 0.5).abs() <= 1e-5) | \
+                ((pe - pe.floor() - 0.5).abs() <= 1e-5)
+            assert torch.equal(k["dir_idx"][~edge], p["dir_idx"][~edge]), case
+        else:
+            for name in ("gl", "gr"):
+                assert float((k[name] - p[name]).abs().max()) <= 1e-6 * max(
+                    1.0, float(p[name].abs().max())), (case, name)
+        written = 4 * (nl + 8) * s + 2 * s
+        again = kaa.audio_setup(*args)
+        assert torch.equal(bk.view(torch.uint8)[:written], again.view(torch.uint8)[:written])
 
 
 def _push_world(device):
