@@ -11,7 +11,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    integration) against its plain PyTorch twin on the same inputs, with
    the tolerance stated beside it, and both timed (CUDA events around 20
    back-to-back calls, median of 5 rounds; KB also with its device µs per
-   launch and its wrapper's host µs per call); KC also at every pass of
+   launch and its wrapper's host µs per call; KA to the bit, also on
+   kernels/hard_cases.py's box-box scenes, with its device µs per launch
+   and host µs per call); KC also at every pass of
    a solve (the warm pre-apply and the 7 iterations) equal to its twin to
    the bit, there and on kernels/hard_cases.py's solve scenes, with its
    two launches' device µs, one call's host µs and the whole solve's
@@ -132,11 +134,11 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    touching, compaction and incidence table on the serving world (timed)
    and the mesh world, the grouping also on hard_cases.py's pair lists (a
    mixed code over its bucket and a clamped slice; every pair invalid) at
-   16,384, 49,152 (timed) and 12,345 pairs; KU (position solve) and KV
-   (strike wake, sleep pass) on the bench, serving and mesh worlds; each
-   against its twin: KU within 1e-6 of the positions' scale, everything
-   else exact (pairs, margins, counters, buckets, compacted rows, tables,
-   flags, timers); KS also to the bit at rebuilds of the mesh world and of
+   16,384, 49,152 (timed) and 12,345 pairs; KU (position solve, two
+   launches a step) and KV (strike wake, sleep pass) on the bench, serving
+   and mesh worlds, KU also on hard_cases.py's position scenes; each
+   against its twin, exact (positions, pairs, margins, counters, buckets,
+   compacted rows, tables, flags, timers); KS also to the bit at rebuilds of the mesh world and of
    the full tick's world after 30 full ticks, on kernels/hard_cases.py's
    pair scenes at their own pairs_per_body and at 1 and 16, and on the
    cell table's hard inputs made into bodies (10,239 over 16,384 buckets;
@@ -389,36 +391,31 @@ def kernel_phase(w):
         plain_ms=median_ms(lambda: kd.integrate_positions_plain(body, lin_p, ang_p, DT)))
     body = body.replace(linvel=lin_p, angvel=ang_p)
 
-    # KA: box-box rows for the cached pair list.  Tolerance 1e-5 on points,
-    # normals, penetrations; masks equal, except for pairs whose plain
-    # decision quantities lie within 1e-5 of a threshold (reported).
+    # KA: box-box rows for the cached pair list and kernels/hard_cases.py's
+    # box-box scenes, every output to the bit: the kernel repeats the twin's
+    # operations in its order (pairs whose decisions lie within 1e-5 of a
+    # threshold are counted, not excused).
     args = (body.pos, body.quat, body.shape_params, body.friction, body.restitution,
             body.is_sensor, pc.pair_a, pc.pair_b, pc.pair_valid)
     rk = ka.box_box_rows(*args)
     rp = ka.box_box_rows_plain(*args)
-    for i, name in ((0, "a"), (1, "b"), (8, "key")):
-        check(torch.equal(rk[i], rp[i]), f"KA: {name} differs")
+    for i, name in enumerate(ka.contact_rows.NAMES):
+        check(same_bits(rk[i], rp[i]), f"KA: {name} differs from its twin's")
     a = torch.clamp(pc.pair_a, min=0).long()
     b = torch.clamp(pc.pair_b, min=0).long()
     gap = ka.box_box(body.pos[a], body.quat[a], body.shape_params[a, :3],
                      body.pos[b], body.quat[b], body.shape_params[b, :3],
                      with_gap=True)[4]
     near = (gap < 1e-5) & pc.pair_valid
-    near_rows = near.repeat_interleave(ka.WM)
-    far_rows = ~near_rows
-    check(torch.equal(rk[5][far_rows], rp[5][far_rows]), "KA: valid mask differs")
-    check(torch.equal(rk[9][~near], rp[9][~near]), "KA: touching differs")
-    both = far_rows & rp[5]
-    err = max(max_err(rk[2], rp[2], both), max_err(rk[3], rp[3], both),
-              max_err(rk[4], rp[4], both))
-    check(err <= 1e-5, f"KA: max abs err {err} > 1e-5")
-    check(torch.equal(rk[6], rp[6]) and torch.equal(rk[7], rp[7]), "KA: fric/rest differ")
+    err = max(max_err(rk[2], rp[2]), max_err(rk[3], rp[3]), max_err(rk[4], rp[4]))
+    hard = ka_hard_cases(body.device)
     results["box_box_rows"] = dict(
-        max_abs_err=err, tol=1e-5, valid_pairs=int(pc.pair_valid.sum()),
-        **bound(nbytes(args, rk), FLOPS["box_box_rows"] * int(pc.pair_valid.sum())),
+        max_abs_err=err, tol=0.0, valid_pairs=int(pc.pair_valid.sum()),
+        **bound(ka_bytes(args, rk), FLOPS["box_box_rows"] * int(pc.pair_valid.sum())),
         valid_rows=int(rp[5].sum()), near_threshold_pairs=int(near.sum()),
         ms=median_ms(lambda: ka.box_box_rows(*args)),
-        plain_ms=median_ms(lambda: ka.box_box_rows_plain(*args)))
+        plain_ms=median_ms(lambda: ka.box_box_rows_plain(*args)),
+        **split_cost(lambda: ka.box_box_rows(*args)), hard_cases=hard)
 
     # KB: ground contacts.  Rows are compared per body by sample key (the
     # top-K order of equal depths is the kernel's own tie rule, checked in
@@ -1136,6 +1133,51 @@ def fulltick_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, warm=30, pla
         plain_ms=median_ms(lambda: kj.vehicle_forces_plain(*jargs), reps=plain_reps),
         **split_cost(lambda: kj.vehicle_forces(*jargs)), hard_cases=kj_hard_cases(device))
     return results
+
+
+def ka_bytes(args, out):
+    """The bytes KA must move: each slot's ids and flag, once each body it
+    reads (position, rotation, three half extents, friction, restitution
+    and sensor flag: 49 bytes), and its outputs."""
+    pos, quat, params, friction, restitution, sensor, pair_a, pair_b, valid = args[:9]
+    bodies = torch.unique(torch.cat([torch.clamp(pair_a, min=0), torch.clamp(pair_b, min=0)]))
+    per_slot = pair_a.element_size() + pair_b.element_size() + valid.element_size()
+    per_body = (3 * pos.element_size() + 4 * quat.element_size() + 3 * params.element_size()
+                + friction.element_size() + restitution.element_size() + sensor.element_size())
+    return per_slot * pair_a.shape[0] + per_body * int(bodies.numel()) + nbytes(out)
+
+
+def ka_hard_cases(device):
+    """KA on every kernels/hard_cases.py box-box scene, each output to the
+    bit against its twin: {case: slots, valid rows, touching slots}."""
+    from substrata_tpu_torch.kernels import box_box as ka
+    from substrata_tpu_torch.kernels import hard_cases
+    out = {}
+    for case in hard_cases.BOX_BOX_CASES:
+        args = hard_cases.box_box_inputs(hard_cases.box_box_scene(case), device)
+        rk, rp = ka.box_box_rows(*args), ka.box_box_rows_plain(*args)
+        for i, name in enumerate(ka.contact_rows.NAMES):
+            check(same_bits(rk[i], rp[i]), f"KA {case}: {name} differs from its twin's")
+        out[case] = dict(slots=int(args[6].shape[0]), valid_rows=int(rp[5].sum()),
+                         touching=int(rp[9].sum()))
+    return out
+
+
+def ku_hard_cases(device):
+    """KU on every kernels/hard_cases.py position scene, to the bit against
+    its twin: {case: bodies, iterations, largest push}."""
+    from substrata_tpu_torch.kernels import hard_cases
+    from substrata_tpu_torch.kernels import positions as ku
+    out = {}
+    for case in hard_cases.POSITION_CASES:
+        args, kw = hard_cases.position_inputs(hard_cases.position_scene(case), device)
+        pk = ku.solve_positions(*args, **kw)
+        pp = ku.solve_positions_plain(*args, kw["iters"], kw["beta"], kw["wm"])
+        check(same_bits(pk, pp), f"KU {case}: positions differ from its twin's "
+                                 f"({max_err(pk, pp)})")
+        out[case] = dict(bodies=int(pk.shape[0]), iters=kw["iters"], wm=kw["wm"],
+                         moved_max=float((pp - args[0]).abs().max()))
+    return out
 
 
 def split_cost(fn):
@@ -3088,9 +3130,7 @@ def kt_hard_cases(device, plain_reps):
 
 def _kuv_compare(w, what, timed=False, plain_reps=5):
     """KU and KV against their twins on one world's step inputs: the
-    positions within 1e-6 of the largest push the twin gives (below an ulp
-    of the positions, so exact in practice); flags, timers, velocities and
-    steps_left exact."""
+    positions, flags, timers, velocities and steps_left to the bit."""
     from substrata_tpu_torch.kernels import positions as ku
     from substrata_tpu_torch.kernels import sleep as kv
     from substrata_tpu_torch.physics import integrate, solver
@@ -3105,7 +3145,8 @@ def _kuv_compare(w, what, timed=False, plain_reps=5):
     pk = ku.solve_positions(*uargs, iters=2, beta=0.25, wm=wm)
     pp = ku.solve_positions_plain(*uargs, 2, 0.25, wm)
     err, moved = max_err(pk, pp), float((pp - pos).abs().max())
-    check(err <= 1e-6 * moved, f"KU {what}: err {err} > 1e-6 x the largest push {moved}")
+    check(same_bits(pk, pp), f"KU {what}: positions differ from the twin's ({err}; the "
+                             f"largest push {moved})")
     sargs = (st.awake, body.linvel, st.alive, st.motion_type, pc.pair_a, pc.pair_b,
              pc.pair_valid)
     sk, sp = kv.strike_wake(*sargs), kv.strike_wake_plain(*sargs)
@@ -3131,7 +3172,7 @@ def _kuv_compare(w, what, timed=False, plain_reps=5):
     for f in dataclasses.fields(vp2):
         a, b = getattr(vk2, f.name), getattr(vp2, f.name)
         check(a.dtype == b.dtype and torch.equal(a, b), f"KV {what}: {f.name} (drowsy) differs")
-    res = dict(max_abs_err=err, tol=1e-6 * moved, moved_max=moved,
+    res = dict(max_abs_err=err, tol=0.0, moved_max=moved,
                struck=int((sp2 & ~drowsy).sum()), newly_awake=int(vp2.newly_awake.sum()),
                newly_asleep=int(vp2.newly_asleep.sum()),
                steps_left=(int(pc.steps_left), int(vp2.steps_left)), wm=wm)
@@ -3144,6 +3185,16 @@ def _kuv_compare(w, what, timed=False, plain_reps=5):
                                   "positions_", nbytes(u_in, pk),
                                   2 * FLOPS["position_row"] * (rows_s + rows_p)
                                   + 2 * FLOPS["position_slot"] * n * cpb, plain_reps)
+        # One launch an iteration: 2 a step (4 before the entry pass was
+        # folded into the body pass).
+        split = launch_split(lambda: ku.solve_positions(*uargs, iters=2, beta=0.25, wm=wm),
+                             "positions_")
+        n_launch = round(sum(v[0] for v in split.values()))
+        check(n_launch == 2, f"KU: {n_launch} launches a call, not 2 ({split})")
+        res["positions"].update(launches_per_call=n_launch, launch_split=split,
+                                **host_cost(lambda: ku.solve_positions(*uargs, iters=2,
+                                                                       beta=0.25, wm=wm)))
+        res["positions"]["hard_cases"] = ku_hard_cases(body.device)
         res["strike"] = _timed(lambda: kv.strike_wake(*sargs),
                                lambda: kv.strike_wake_plain(*sargs), "sleep_strike",
                                nbytes(sargs, sk), 6 * pc.pair_a.shape[0], plain_reps)

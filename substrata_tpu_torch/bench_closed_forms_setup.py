@@ -41,47 +41,32 @@ device µs per call and per launch (``chip_smoke.split_cost``), the host's
 cost per call (``chip_smoke.host_cost``) and the bound
 (``chip_smoke.bound``).  Then phases 9 (180 full ticks), 11 (180 serving
 ticks), 13 (180 mesh frames) and 19 (180 client frames) unless
-``--no-ticks``; ``--ticks-only`` runs those phases alone.  Run parent,
-change, change, parent in one call:
+``--no-ticks`` (``--phases`` picks some of them); ``--ticks-only`` runs
+those phases alone.  Run parent, change, change, parent in one call:
 
     python3 substrata_tpu_torch/bench_closed_forms_setup.py [--root DIR] [--tag NAME]
         [--against TAG] [--no-ticks | --ticks-only]
+        [--phases full_tick,serving,mesh,client]
 
-The helpers come from this checkout, the port from ``--root``.  Prints one
-JSON line, with the card's name and power limit, and writes it to
-chiprun_out/bench_closed_forms_setup_<tag>.json.
+The helpers come from this checkout (``bench_driver.py``), the port from
+``--root``.  Prints one JSON line, with the card's name and power limit,
+and writes it to chiprun_out/bench_closed_forms_setup_<tag>.json.
 """
 
 from __future__ import annotations
 
-import argparse
-import importlib.util
 import json
-import os
 import sys
 import tempfile
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-REPO = os.path.dirname(HERE)
-OUT_DIR = os.path.join(REPO, "chiprun_out")
-DT = 1.0 / 60.0
+import bench_driver as bd
+
 KK_OUTPUTS = ("a", "b", "point", "normal", "pen", "valid", "friction", "restitution", "key",
               "touching")
 KK_FLOATS = (2, 3, 4)
 BODY_ROWS = ("pos", "quat", "shape_params", "friction", "restitution", "is_sensor")
-
-
-def _load(name, path):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def _bits(t):
-    import torch
-    return t.view(torch.int32) if t.is_floating_point() else t
+TICK_PHASES = ("full_tick", "serving", "mesh", "client")
+DT = bd.DT
 
 
 def _joined(buckets):
@@ -103,43 +88,26 @@ def _written(buf, s, nl):
 
 
 def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=REPO)
-    ap.add_argument("--tag", default="this")
-    ap.add_argument("--against", default=None)
-    ap.add_argument("--no-ticks", action="store_true")
-    ap.add_argument("--ticks-only", action="store_true")
-    args = ap.parse_args()
-    root = os.path.abspath(args.root)
+    args, cs = bd.start("bench_closed_forms_setup", against=True, ticks=TICK_PHASES)
     import torch
-    if not torch.cuda.is_available():
-        print("bench_closed_forms_setup: no CUDA device", file=sys.stderr)
-        return 2
-    cs = _load("chip_smoke_helpers", os.path.join(REPO, "chip_smoke.py"))
-    sys.path.insert(0, root)
     from substrata_tpu_torch import benchworld
     from substrata_tpu_torch.kernels import audio_setup as kaa
     from substrata_tpu_torch.kernels import build
     from substrata_tpu_torch.kernels import closed_forms as kk
     from substrata_tpu_torch.physics import narrowphase
-    if not kk.__file__.startswith(root + os.sep):
-        raise RuntimeError(f"imported {kk.__file__}, not the port under {root}")
-    hc = _load("hard_cases_here", os.path.join(HERE, "kernels", "hard_cases.py"))
+    bd.check_root(kk, args.root)
     build.build()
     build.library()
     torch.backends.cuda.matmul.allow_tf32 = False
     one_call = hasattr(kk, "closed_form_buckets")
-    out = dict(tag=args.tag, root=root, nvidia_smi=cs.nvidia_smi_line(),
-               device=torch.cuda.get_device_name(0), kk_one_call=one_call)
+    out = dict(bd.header(args, cs), kk_one_call=one_call)
     if not args.ticks_only:
-        _kernel_cases(args, cs, hc, out, one_call, torch, benchworld, kaa, kk, narrowphase)
+        _kernel_cases(args, cs, bd.hard_cases(), out, one_call, torch, benchworld, kaa, kk,
+                      narrowphase)
     if not args.no_ticks:
-        _ticks(cs, out)
-    line = json.dumps(out)
-    print(line, flush=True)
-    with open(os.path.join(OUT_DIR, f"bench_closed_forms_setup_{args.tag}.json"), "w") as fh:
-        fh.write(line + "\n")
-    return 0
+        bd.ticks(cs, out, args.phases.split(","),
+                 {"kk": "closed_form_rows", "kaa": "audio_setup"})
+    return bd.finish("bench_closed_forms_setup", out, args.tag)
 
 
 def _kernel_cases(args, cs, hc, out, one_call, torch, benchworld, kaa, kk, narrowphase):
@@ -310,24 +278,16 @@ def _kernel_cases(args, cs, hc, out, one_call, torch, benchworld, kaa, kk, narro
             out["kaa_hard_cases"][key] = kaa_entry(
                 f"hard_{key}", hc.audio_setup_inputs(scene, "cuda", hrtf), False)
 
-    os.makedirs(OUT_DIR, exist_ok=True)
-    torch.save(saved, os.path.join(OUT_DIR, f"kk_kaa_{args.tag}.pt"))
+    bd.save_cases(saved, "kk_kaa", args.tag)
     if args.against:
-        ref = torch.load(os.path.join(OUT_DIR, f"kk_kaa_{args.against}.pt"))
+        ref = bd.load_cases("kk_kaa", args.against)
         diffs = {}
         for key, s in ref.items():
             if key.startswith("kk_"):
                 buckets = _joined(s["buckets"])
                 got = kk_step(buckets, s["wms"], s["blocked"], [t.cuda() for t in s["rows"]])
-                d = []
-                for (code, *_), g, w in zip(buckets, got, s["out"]):
-                    for oname, x, y in zip(KK_OUTPUTS, g, w):
-                        ne = (_bits(x).cpu() != _bits(y))
-                        if ne.dim() > 1:
-                            ne = ne.any(dim=1)
-                        if bool(ne.any()):
-                            d.append(dict(code=code, output=oname, rows=int(ne.sum()),
-                                          first_rows=ne.nonzero()[:8, 0].tolist()))
+                d = [x for (code, *_), g, w in zip(buckets, got, s["out"])
+                     for x in bd.row_diffs(KK_OUTPUTS, g, w, code=code)]
             else:
                 a = [x.cuda() if isinstance(x, torch.Tensor) else x for x in s["args"]]
                 ns, nl = a[6].shape
@@ -338,28 +298,6 @@ def _kernel_cases(args, cs, hc, out, one_call, torch, benchworld, kaa, kk, narro
                 diffs[key] = d
         out["against"] = dict(tag=args.against, cases=len(ref), differing=diffs)
         cs.log(f"# against {args.against}: {json.dumps(out['against'])}")
-
-
-
-def _ticks(cs, out):
-    """Phases 9, 11, 13 and 19: ms a tick and KK's and KAA's launches."""
-    ft = cs.full_tick_phase()
-    out["full_tick"] = dict(ms_median=ft["ms_per_tick_median"], ms_p90=ft["ms_per_tick_p90"],
-                            kk_launches=ft["launches"]["closed_form_rows"],
-                            kaa_launches=ft["launches"]["audio_setup"])
-    sv = cs.serving_phase()
-    out["serving"] = dict(ms_median=sv["ms_per_serving_tick_median"],
-                          ms_p90=sv["ms_per_serving_tick_p90"],
-                          kk_launches=sv["launches"]["closed_form_rows"])
-    me = cs.mesh_phase()
-    out["mesh"] = dict(ms_median=me["ms_per_mesh_tick_median"],
-                       ms_p90=me["ms_per_mesh_tick_p90"],
-                       kk_launches=me["launches"]["closed_form_rows"])
-    cl = cs.client_phase()
-    out["client"] = dict(ms_median=cl["ms_per_client_frame_median"],
-                         ms_p90=cl["ms_per_client_frame_p90"],
-                         kk_launches=cl["launches"]["closed_form_rows"],
-                         kaa_launches=cl["launches"]["audio_setup"])
 
 
 if __name__ == "__main__":

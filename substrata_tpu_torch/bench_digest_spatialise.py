@@ -37,39 +37,19 @@ chiprun_out/bench_digest_spatialise_<tag>.json.
 
 from __future__ import annotations
 
-import argparse
-import importlib.util
 import json
-import os
 import sys
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-REPO = os.path.dirname(HERE)
-DT = 1.0 / 60.0
+import bench_driver as bd
 
-
-def _load(name, path):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod
-    spec.loader.exec_module(mod)
-    return mod
+DT = bd.DT
 
 
 def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=REPO)
-    ap.add_argument("--tag", default="this")
-    ap.add_argument("--no-ticks", action="store_true")
-    args = ap.parse_args()
-    root = os.path.abspath(args.root)
+    args, cs = bd.start("bench_digest_spatialise", flags=("--no-ticks",))
+    root = args.root
     import numpy as np
     import torch
-    if not torch.cuda.is_available():
-        print("bench_digest_spatialise: no CUDA device", file=sys.stderr)
-        return 2
-    cs = _load("chip_smoke_helpers", os.path.join(REPO, "chip_smoke.py"))
-    sys.path.insert(0, root)
     from substrata_tpu_torch import benchworld, convert
     from substrata_tpu_torch.audio import mix
     from substrata_tpu_torch.audio.hrtf import hrir_bank_tensor
@@ -79,9 +59,8 @@ def main():
     from substrata_tpu_torch.kernels import serving_io as km
     from substrata_tpu_torch.physics.state import SimConfig
     from substrata_tpu_torch.physics.step import StepEvents
-    if not km.__file__.startswith(root + os.sep):
-        raise RuntimeError(f"imported {km.__file__}, not the port under {root}")
-    hc = _load("hard_cases_here", os.path.join(HERE, "kernels", "hard_cases.py"))
+    bd.check_root(km, root)
+    hc = bd.hard_cases()
     build.build()
     build.library()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -184,13 +163,7 @@ def main():
                              ms_p90=cl["ms_per_client_frame_p90"],
                              digest_launches=cl["launches"]["digest_tblock"],
                              spatialise_launches=cl["launches"]["audio_spatialise"])
-    line = json.dumps(out)
-    print(line, flush=True)
-    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", f"bench_digest_spatialise_{args.tag}.json"),
-              "w") as fh:
-        fh.write(line + "\n")
-    return 0
+    return bd.finish("bench_digest_spatialise", out, args.tag)
 
 
 if __name__ == "__main__":

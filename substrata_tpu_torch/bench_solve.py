@@ -35,44 +35,23 @@ chiprun_out/bench_solve_<tag>.json.
 
 from __future__ import annotations
 
-import argparse
-import importlib.util
-import json
-import os
 import sys
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-REPO = os.path.dirname(HERE)
-DT = 1.0 / 60.0
+import bench_driver as bd
 
-
-def _load(name, path):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+DT = bd.DT
 
 
 def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=REPO)
-    ap.add_argument("--tag", default="this")
-    ap.add_argument("--no-ticks", action="store_true")
-    args = ap.parse_args()
-    root = os.path.abspath(args.root)
+    args, cs = bd.start("bench_solve", flags=("--no-ticks",))
+    root = args.root
     import torch
-    if not torch.cuda.is_available():
-        print("bench_solve: no CUDA device", file=sys.stderr)
-        return 2
-    cs = _load("chip_smoke_helpers", os.path.join(REPO, "chip_smoke.py"))
-    sys.path.insert(0, root)
     from substrata_tpu_torch import benchworld
     from substrata_tpu_torch.kernels import build
     from substrata_tpu_torch.kernels import solve as kc
     from substrata_tpu_torch.kernels import solve_setup as kq
     from substrata_tpu_torch.physics import solver
-    if not kc.__file__.startswith(root + os.sep):
-        raise RuntimeError(f"imported {kc.__file__}, not the port under {root}")
+    bd.check_root(kc, root)
     build.build()
     build.library()
     out = dict(tag=args.tag, root=root, nvidia_smi=cs.nvidia_smi_line(),
@@ -145,12 +124,7 @@ def main():
         sv = cs.serving_phase()
         out["ms_per_serving_tick"] = sv["ms_per_serving_tick_median"]
         out["ms_per_serving_tick_p90"] = sv["ms_per_serving_tick_p90"]
-    line = json.dumps(out)
-    print(line, flush=True)
-    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", f"bench_solve_{args.tag}.json"), "w") as fh:
-        fh.write(line + "\n")
-    return 0
+    return bd.finish("bench_solve", out, args.tag)
 
 
 if __name__ == "__main__":

@@ -23,22 +23,11 @@ and writes it to chiprun_out/bench_sorts_<tag>.json.
 
 from __future__ import annotations
 
-import argparse
-import importlib.util
-import json
-import os
 import sys
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-REPO = os.path.dirname(HERE)
-DT = 1.0 / 60.0
+import bench_driver as bd
 
-
-def _load(name, path):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+DT = bd.DT
 
 
 def _timed(cs, run, prefix):
@@ -47,27 +36,18 @@ def _timed(cs, run, prefix):
 
 
 def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=REPO)
-    ap.add_argument("--tag", default="this")
-    args = ap.parse_args()
-    root = os.path.abspath(args.root)
+    args, cs = bd.start("bench_sorts")
+    root = args.root
     import numpy as np
     import torch
-    if not torch.cuda.is_available():
-        print("bench_sorts: no CUDA device", file=sys.stderr)
-        return 2
-    cs = _load("chip_smoke_helpers", os.path.join(REPO, "chip_smoke.py"))
-    sys.path.insert(0, root)
     from substrata_tpu_torch import benchworld
     from substrata_tpu_torch.kernels import build
     from substrata_tpu_torch.kernels import cell_table as kp
     from substrata_tpu_torch.kernels import layout as kt
     from substrata_tpu_torch.maths import fp
     from substrata_tpu_torch.physics import narrowphase
-    if not kp.__file__.startswith(root + os.sep):
-        raise RuntimeError(f"imported {kp.__file__}, not the port under {root}")
-    hc = _load("hard_cases_here", os.path.join(HERE, "kernels", "hard_cases.py"))
+    bd.check_root(kp, root)
+    hc = bd.hard_cases()
     build.build()
     build.library()
     out = dict(tag=args.tag, root=root, nvidia_smi=cs.nvidia_smi_line(),
@@ -119,12 +99,7 @@ def main():
     out["ms_per_think"] = cs.main_path_phase()["ms_per_think_median"]
     out["ms_per_full_tick"] = cs.full_tick_phase()["ms_per_tick_median"]
     out["ms_per_serving_tick"] = cs.serving_phase()["ms_per_serving_tick_median"]
-    line = json.dumps(out)
-    print(line, flush=True)
-    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", f"bench_sorts_{args.tag}.json"), "w") as fh:
-        fh.write(line + "\n")
-    return 0
+    return bd.finish("bench_sorts", out, args.tag)
 
 
 if __name__ == "__main__":

@@ -27,46 +27,25 @@ chiprun_out/bench_static_<tag>.json.
 
 from __future__ import annotations
 
-import argparse
-import importlib.util
-import json
-import os
 import sys
 
 import numpy as np
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-REPO = os.path.dirname(HERE)
-DT = 1.0 / 60.0
+import bench_driver as bd
 
-
-def _load(name, path):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+DT = bd.DT
 
 
 def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=REPO)
-    ap.add_argument("--tag", default="this")
-    ap.add_argument("--no-frames", action="store_true")
-    args = ap.parse_args()
-    root = os.path.abspath(args.root)
+    args, cs = bd.start("bench_static", flags=("--no-frames",))
+    root = args.root
     import torch
-    if not torch.cuda.is_available():
-        print("bench_static: no CUDA device", file=sys.stderr)
-        return 2
-    cs = _load("chip_smoke_helpers", os.path.join(REPO, "chip_smoke.py"))
-    sys.path.insert(0, root)
     from substrata_tpu_torch import benchworld
     from substrata_tpu_torch.kernels import build
     from substrata_tpu_torch.kernels import static_contacts as kb
     from substrata_tpu_torch.kernels import terrain as kt
     from substrata_tpu_torch.physics.terrain import TerrainSystem
-    if not kb.__file__.startswith(root + os.sep):
-        raise RuntimeError(f"imported {kb.__file__}, not the port under {root}")
+    bd.check_root(kb, root)
     build.build()
     build.library()
     out = dict(tag=args.tag, root=root, nvidia_smi=cs.nvidia_smi_line(),
@@ -122,12 +101,7 @@ def main():
         me = cs.mesh_phase()
         out["ms_per_mesh_frame"] = me["ms_per_mesh_tick_median"]
         out["ms_per_mesh_frame_p90"] = me["ms_per_mesh_tick_p90"]
-    line = json.dumps(out)
-    print(line, flush=True)
-    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", f"bench_static_{args.tag}.json"), "w") as fh:
-        fh.write(line + "\n")
-    return 0
+    return bd.finish("bench_static", out, args.tag)
 
 
 if __name__ == "__main__":

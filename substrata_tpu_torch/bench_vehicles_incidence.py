@@ -48,27 +48,16 @@ chiprun_out/bench_vehicles_incidence_<tag>.json.
 
 from __future__ import annotations
 
-import argparse
-import importlib.util
 import json
-import os
 import sys
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-REPO = os.path.dirname(HERE)
-OUT_DIR = os.path.join(REPO, "chiprun_out")
-DT = 1.0 / 60.0
+import bench_driver as bd
+
+OUT_DIR = bd.OUT_DIR
+DT = bd.DT
 KJ_OUTPUTS = ("dv", "dw", "steering", "sus_len", "omega", "rot", "unflip", "contact", "gear",
               "shift_timer", "rpm")
 KT_OUTPUTS = ("table", "sign", "counts")
-
-
-def _load(name, path):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _bits(t):
@@ -103,28 +92,17 @@ def _column(t, st, device):
 
 
 def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=REPO)
-    ap.add_argument("--tag", default="this")
-    ap.add_argument("--against", default=None)
-    ap.add_argument("--no-ticks", action="store_true")
-    args = ap.parse_args()
-    root = os.path.abspath(args.root)
+    args, cs = bd.start("bench_vehicles_incidence", against=True, flags=("--no-ticks",))
+    root = args.root
     import torch
-    if not torch.cuda.is_available():
-        print("bench_vehicles_incidence: no CUDA device", file=sys.stderr)
-        return 2
-    cs = _load("chip_smoke_helpers", os.path.join(REPO, "chip_smoke.py"))
-    sys.path.insert(0, root)
     from substrata_tpu_torch import benchworld
     from substrata_tpu_torch.kernels import build
     from substrata_tpu_torch.kernels import layout as kt
     from substrata_tpu_torch.kernels import ray_trace as kh
     from substrata_tpu_torch.kernels import vehicles as kj
     from substrata_tpu_torch.physics.vehicles.manager import VehicleArrays, VehicleInputs
-    if not kj.__file__.startswith(root + os.sep):
-        raise RuntimeError(f"imported {kj.__file__}, not the port under {root}")
-    hc = _load("hard_cases_here", os.path.join(HERE, "kernels", "hard_cases.py"))
+    bd.check_root(kj, root)
+    hc = bd.hard_cases()
     build.build()
     build.library()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -220,10 +198,9 @@ def main():
                                                                      "cuda"), False)
                             for case in hc.INCIDENCE_CASES}
 
-    os.makedirs(OUT_DIR, exist_ok=True)
-    torch.save(saved, os.path.join(OUT_DIR, f"kj_kt_{args.tag}.pt"))
+    bd.save_cases(saved, "kj_kt", args.tag)
     if args.against:
-        ref = torch.load(os.path.join(OUT_DIR, f"kj_kt_{args.against}.pt"))
+        ref = bd.load_cases("kj_kt", args.against)
         diffs = {}
         for key, s in ref.items():
             if key.startswith("kj_"):
@@ -256,11 +233,7 @@ def main():
                              ms_p90=cl["ms_per_client_frame_p90"],
                              vehicle_launches=cl["launches"]["vehicle_forces"],
                              incidence_launches=cl["launches"]["layout_incidence"])
-    line = json.dumps(out)
-    print(line, flush=True)
-    with open(os.path.join(OUT_DIR, f"bench_vehicles_incidence_{args.tag}.json"), "w") as fh:
-        fh.write(line + "\n")
-    return 0
+    return bd.finish("bench_vehicles_incidence", out, args.tag)
 
 
 if __name__ == "__main__":

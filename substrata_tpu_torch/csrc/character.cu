@@ -226,7 +226,7 @@ __device__ void candidate_row(const Ctx& c, int j, const float center[3], float 
   const float av[3] = {c.c_av[3 * j], c.c_av[3 * j + 1], c.c_av[3 * j + 2]};
   const float rel[3] = {pt[0] - pb[0], pt[1] - pb[1], pt[2] - pb[2]};
   float w[3];
-  sbt::cross3(av, rel, w);
+  sbt::cross_fma(av, rel, w);   // character.py:185's jnp.cross, contracted
 #pragma unroll
   for (int q = 0; q < 3; ++q) vel[q] = c.c_lv[3 * j + q] + w[q];
 }

@@ -44,6 +44,22 @@ __device__ __forceinline__ void safe_normalize(const float v[3], float o[3]) {
   }
 }
 
+// closed_forms.py:safe_normalize_fma: safe_normalize with |v|^2 a
+// dot3_fma (the trimesh rows of KB and KL).
+__device__ __forceinline__ void safe_normalize_fma(const float v[3], float o[3]) {
+  const float n2 = dot3_fma(v, v);
+  if (n2 > 1e-12f) {
+    const float inv = 1.0f / sqrtf(fmaxf(n2, 1e-12f));
+    o[0] = v[0] * inv;
+    o[1] = v[1] * inv;
+    o[2] = v[2] * inv;
+  } else {
+    o[0] = 0.0f;
+    o[1] = 0.0f;
+    o[2] = 1.0f;
+  }
+}
+
 __device__ __forceinline__ void one_point(Manifold& m, const float point[3], float pen,
                                           const float n[3], bool ok) {
 #pragma unroll

@@ -58,6 +58,18 @@ __device__ __forceinline__ void cross_fma(const float a[3], const float b[3], fl
   o[2] = __fmaf_rn(a[0], b[1], -(a[1] * b[0]));
 }
 
+// maths/quat.py:dot3_fma: a sum of three products as XLA reduces it,
+// fma(a2, b2, fma(a1, b1, a0 b0)).
+__device__ __forceinline__ float dot3_fma(const float a[3], const float b[3]) {
+  return __fmaf_rn(a[2], b[2], __fmaf_rn(a[1], b[1], a[0] * b[0]));
+}
+
+// maths/transform.py:mat_vec_fma: out[k] = dot3_fma(m[k], v).
+__device__ __forceinline__ void mv_fma(const float m[3][3], const float v[3], float out[3]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) out[k] = dot3_fma(m[k], v);
+}
+
 // maths/quat.py:rotate_vec: v + 2 (w (u x v) + u x (u x v)), as every
 // jitted rotation of the reference rounds it: both cross products
 // cross_fma, w uv + uuv one fma.

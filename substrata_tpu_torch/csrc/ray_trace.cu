@@ -243,11 +243,11 @@ __device__ __forceinline__ float ray_triangle_t(const float o[3], const float d[
     e2[k] = v2[k] - v0[k];
     s[k] = o[k] - v0[k];
   }
-  sbt::cross3(d, e2, p);
+  sbt::cross_fma(d, e2, p);
   const float det = sbt::dot3(e1, p);
   const float inv_det = 1.0f / (fabsf(det) > 1e-12f ? det : 1e-12f);
   const float u = sbt::dot3(s, p) * inv_det;
-  sbt::cross3(s, e1, q);
+  sbt::cross_fma(s, e1, q);
   const float v = sbt::dot3(d, q) * inv_det;
   const float t = sbt::dot3(e2, q) * inv_det;
   const bool ok = fabsf(det) > 1e-12f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= 0.0f;
@@ -263,8 +263,8 @@ __device__ void ray_triangle_n(const float d[3], const float v0[3], const float 
     e1[k] = v1[k] - v0[k];
     e2[k] = v2[k] - v0[k];
   }
-  sbt::cross3(e1, e2, n);
-  const float nn = fmaxf(sqrtf(sbt::dot3(n, n)), 1e-12f);
+  sbt::cross_fma(e1, e2, n);
+  const float nn = fmaxf(sqrtf(sbt::dot3_fma(n, n)), 1e-12f);
 #pragma unroll
   for (int k = 0; k < 3; ++k) n[k] = n[k] / nn;
   if (sbt::dot3(n, d) > 0.0f) {

@@ -54,14 +54,15 @@ struct RowOut {
   float y[3], l[3], d[3];
 };
 
-// kernels/solve.py:_project for one row; dir [9] = (n, t1, t2).
+// kernels/solve.py:_project for one row; dir [9] = (n, t1, t2); the dot
+// products are dot3_fma, as the jitted reference reduces them.
 __device__ __forceinline__ void project(const float v[3], const float dir[9], const float k[3],
                                         float target, float fric, const float y[3],
                                         const float l_old[3], float beta, RowOut& o) {
-  const float vn = v[0] * dir[0] + v[1] * dir[1] + v[2] * dir[2];
+  const float vn = sbt::dot3_fma(v, dir);
   const float ln = fmaxf(y[0] + (target - vn) / k[0], 0.0f);
-  const float vt1 = v[0] * dir[3] + v[1] * dir[4] + v[2] * dir[5];
-  const float vt2 = v[0] * dir[6] + v[1] * dir[7] + v[2] * dir[8];
+  const float vt1 = sbt::dot3_fma(v, dir + 3);
+  const float vt2 = sbt::dot3_fma(v, dir + 6);
   const float mf = fric * ln;
   const float lt1 = fminf(fmaxf(y[1] - vt1 / k[1], -mf), mf);
   const float lt2 = fminf(fmaxf(y[2] - vt2 / k[2], -mf), mf);
@@ -70,16 +71,18 @@ __device__ __forceinline__ void project(const float v[3], const float dir[9], co
   o.l[2] = lt2;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    o.y[c] = o.l[c] + beta * (o.l[c] - l_old[c]);
+    o.y[c] = __fmaf_rn(beta, o.l[c] - l_old[c], o.l[c]);   // l + beta (l - l0), contracted
     o.d[c] = o.y[c] - y[c];
   }
 }
 
-// d0 m[0..2] + d1 m[3..5] + d2 m[6..8], times the row's validity.
+// d0 m[0..2] + d1 m[3..5] + d2 m[6..8] as the jitted reference contracts
+// it, fma(d2, m2, fma(d0, m0, d1 m1)), times the row's validity.
 __device__ __forceinline__ void dir_sum(const float d[3], const float m[9], float valid,
                                         float out[3]) {
 #pragma unroll
-  for (int c = 0; c < 3; ++c) out[c] = (d[0] * m[c] + d[1] * m[3 + c] + d[2] * m[6 + c]) * valid;
+  for (int c = 0; c < 3; ++c)
+    out[c] = __fmaf_rn(d[2], m[6 + c], __fmaf_rn(d[0], m[c], d[1] * m[3 + c])) * valid;
 }
 
 // The 9 components of row r of a component-major [9, R] block.
@@ -134,7 +137,7 @@ __device__ __forceinline__ void static_rows(const PassArgs& A) {
       const float lv[3] = {A.linvel[n * 3], A.linvel[n * 3 + 1], A.linvel[n * 3 + 2]};
       const float av[3] = {A.angvel[n * 3], A.angvel[n * 3 + 1], A.angvel[n * 3 + 2]};
       float cr[3], v[3];
-      sbt::cross3(av, rr, cr);
+      sbt::cross_fma(av, rr, cr);
 #pragma unroll
       for (int c = 0; c < 3; ++c) v[c] = lv[c] + cr[c];
       project(v, dir, k, A.s_target[r], A.s_fric[r], y, l, A.beta, o);
@@ -196,8 +199,8 @@ __device__ __forceinline__ void pair_rows(const PassArgs& A) {
         rb[c] = A.p_rb[c * P + r];
       }
       float ca[3], cb[3], v[3];
-      sbt::cross3(wa + 3, ra, ca);
-      sbt::cross3(wb + 3, rb, cb);
+      sbt::cross_fma(wa + 3, ra, ca);
+      sbt::cross_fma(wb + 3, rb, cb);
 #pragma unroll
       for (int c = 0; c < 3; ++c) v[c] = (wa[c] + ca[c]) - (wb[c] + cb[c]);
       project(v, dir, k, A.p_target[r], A.p_fric[r], y, l, A.beta, o);
@@ -254,7 +257,7 @@ __global__ void __launch_bounds__(kThreads) solve_bodies_kernel(
   const float m = im[n];
 #pragma unroll
   for (int x = 0; x < 3; ++x) {
-    o_lin[n * 3 + x] = linvel[n * 3 + x] + m * (ol[x] + dlin_s[n * 3 + x]);
+    o_lin[n * 3 + x] = __fmaf_rn(m, ol[x] + dlin_s[n * 3 + x], linvel[n * 3 + x]);
     o_ang[n * 3 + x] = angvel[n * 3 + x] + oa[x] + ob[x] + dang_s[n * 3 + x];
   }
 }

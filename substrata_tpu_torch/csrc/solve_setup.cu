@@ -33,7 +33,9 @@
 // the winning row writes.  Deterministic; bound: bytes.
 //
 // Every expression repeats the twin's operations in its order; the library
-// is built with -fmad=false, so nothing is contracted.
+// is built with -fmad=false, so nothing is contracted but what the twin
+// contracts as the jitted reference does: the cross products (cross_fma),
+// the dot products and norms (dot3_fma) and Iw (r x d) (mv_fma).
 #include "common.cuh"
 
 #include <math_constants.h>
@@ -112,8 +114,8 @@ __device__ __forceinline__ void tangent_basis(const float n[3], float dirs[3][3]
   const float cf = fabsf(n[0]) < 0.9f ? 1.0f : 0.0f;
   const float ax[3] = {cf, 1.0f - cf, 0.0f};
   float t1[3];
-  sbt::cross3(ax, n, t1);
-  const float len = fmaxf(sqrtf(sbt::dot3(t1, t1)), 1e-9f);
+  sbt::cross_fma(ax, n, t1);
+  const float len = fmaxf(sqrtf(sbt::dot3_fma(t1, t1)), 1e-9f);
 #pragma unroll
   for (int k = 0; k < 3; ++k) t1[k] = t1[k] / len;
 #pragma unroll
@@ -121,7 +123,7 @@ __device__ __forceinline__ void tangent_basis(const float n[3], float dirs[3][3]
     dirs[0][k] = n[k];
     dirs[1][k] = t1[k];
   }
-  sbt::cross3(n, t1, dirs[2]);
+  sbt::cross_fma(n, t1, dirs[2]);
 }
 
 __device__ __forceinline__ float vn_target(float pen, float rest, float vn0, float baum,
@@ -197,24 +199,24 @@ __device__ void static_row(const RowsArgs& A, int row, int S) {
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     float rx[3], term[3];
-    sbt::cross3(r, dirs[d], rx);
-    sbt::mv(t.iw, rx, term);
+    sbt::cross_fma(r, dirs[d], rx);
+    sbt::mv_fma(t.iw, rx, term);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       A.sdir[(d * 3 + c) * S + row] = dirs[d][c];
       A.sang[(d * 3 + c) * S + row] = term[c];
     }
-    A.sk[d * S + row] = fmaxf(t.im * t.c + sbt::dot3(rx, term) * t.c, 1e-9f);
+    A.sk[d * S + row] = fmaxf(t.im * t.c + sbt::dot3_fma(rx, term) * t.c, 1e-9f);
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) A.sr[c * S + row] = r[c];
   const float lv[3] = {A.lin[i * 3], A.lin[i * 3 + 1], A.lin[i * 3 + 2]};
   const float av[3] = {A.ang[i * 3], A.ang[i * 3 + 1], A.ang[i * 3 + 2]};
   float wr[3], v0[3];
-  sbt::cross3(av, r, wr);
+  sbt::cross_fma(av, r, wr);
 #pragma unroll
   for (int c = 0; c < 3; ++c) v0[c] = lv[c] + wr[c];
-  A.starget[row] = vn_target(A.s_pen[row], A.s_rest[row], sbt::dot3(v0, n), baum, thr, A.dt);
+  A.starget[row] = vn_target(A.s_pen[row], A.s_rest[row], sbt::dot3_fma(v0, n), baum, thr, A.dt);
   const bool valid = A.s_valid[row];
   const float vf = valid ? 1.0f : 0.0f;
   A.svalid[row] = vf;
@@ -255,17 +257,18 @@ __device__ void pair_row(const RowsArgs& A, int row, int S, int P) {
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     float rax[3], rbx[3], ta[3], tb[3];
-    sbt::cross3(ra, dirs[d], rax);
-    sbt::cross3(rb, dirs[d], rbx);
-    sbt::mv(TA.iw, rax, ta);
-    sbt::mv(TB.iw, rbx, tb);
+    sbt::cross_fma(ra, dirs[d], rax);
+    sbt::cross_fma(rb, dirs[d], rbx);
+    sbt::mv_fma(TA.iw, rax, ta);
+    sbt::mv_fma(TB.iw, rbx, tb);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       A.pdir[(d * 3 + c) * P + row] = dirs[d][c];
       A.pang_a[(d * 3 + c) * P + row] = ta[c];
       A.pang_b[(d * 3 + c) * P + row] = tb[c];
     }
-    A.pk[d * P + row] = fmaxf(kab + sbt::dot3(rax, ta) * TA.c + sbt::dot3(rbx, tb) * TB.c, 1e-9f);
+    A.pk[d * P + row] =
+        fmaxf(kab + sbt::dot3_fma(rax, ta) * TA.c + sbt::dot3_fma(rbx, tb) * TB.c, 1e-9f);
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -273,11 +276,11 @@ __device__ void pair_row(const RowsArgs& A, int row, int S, int P) {
     A.prb[c * P + row] = rb[c];
   }
   float xa[3], xb[3], v0[3];
-  sbt::cross3(wa + 3, ra, xa);
-  sbt::cross3(wb + 3, rb, xb);
+  sbt::cross_fma(wa + 3, ra, xa);
+  sbt::cross_fma(wb + 3, rb, xb);
 #pragma unroll
   for (int c = 0; c < 3; ++c) v0[c] = (wa[c] + xa[c]) - (wb[c] + xb[c]);
-  A.ptarget[row] = vn_target(A.p_pen[row], A.p_rest[row], sbt::dot3(v0, n), baum, thr, A.dt);
+  A.ptarget[row] = vn_target(A.p_pen[row], A.p_rest[row], sbt::dot3_fma(v0, n), baum, thr, A.dt);
   const bool valid = A.p_valid[row];
   const float vf = valid ? 1.0f : 0.0f;
   A.pvalid[row] = vf;

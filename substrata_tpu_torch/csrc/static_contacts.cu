@@ -151,24 +151,27 @@ __device__ __forceinline__ void load_body(const Args& a, int i, Body& b) {
     sbt::rotate_vec(qc, down, b.down_l);
     const float ax[3] = {fabsf(b.down_l[0]) < 0.9f ? 1.0f : 0.0f,
                          fabsf(b.down_l[0]) < 0.9f ? 0.0f : 1.0f, 0.0f};
-    sbt::cross3(ax, b.down_l, b.u1);
-    const float un = fmaxf(sbt::norm3f(b.u1), 1e-9f);
+    sbt::cross_fma(ax, b.down_l, b.u1);
+    const float un = fmaxf(sqrtf(sbt::dot3_fma(b.u1, b.u1)), 1e-9f);
     b.u1[0] = b.u1[0] / un;
     b.u1[1] = b.u1[1] / un;
     b.u1[2] = b.u1[2] / un;
-    sbt::cross3(b.down_l, b.u1, b.u2);
+    sbt::cross_fma(b.down_l, b.u1, b.u2);
   }
 }
 
-// Ring direction s of a hull.
+// Ring direction s of a hull; u1 cos + u2 sin one fma, as the jitted
+// reference contracts it.
 __device__ __forceinline__ void ring_dir(const Body& b, int s, float dir[3]) {
 #pragma unroll
   for (int k = 0; k < 3; ++k)
-    dir[k] = b.down_l[k] * 0.866f + (b.u1[k] * kRingCos[s] + b.u2[k] * kRingSin[s]) * 0.5f;
+    dir[k] = b.down_l[k] * 0.866f +
+             __fmaf_rn(b.u1[k], kRingCos[s], b.u2[k] * kRingSin[s]) * 0.5f;
 }
 
+// The einsum's score, a dot3_fma chain.
 __device__ __forceinline__ float support_score(const float* hv, int v, const float dir[3]) {
-  return hv[3 * v] * dir[0] + hv[3 * v + 1] * dir[1] + hv[3 * v + 2] * dir[2];
+  return __fmaf_rn(hv[3 * v + 2], dir[2], __fmaf_rn(hv[3 * v + 1], dir[1], hv[3 * v] * dir[0]));
 }
 
 // The local point of sample s of a box, capsule or sphere (zeros).

@@ -94,7 +94,9 @@ __device__ __forceinline__ void load_vert(const TriMeshView& tm, int v, float o[
 // A sphere (centre p, radius rad) against the triangle (v0, v1, v2):
 // returns the depth (rad - signed distance) and gives the closest point and
 // the contact normal (the offset's direction outside the face, else the face
-// normal).
+// normal).  The distance, the face normal and the side round as both callers'
+// references (narrowphase.py:944-976, character.py:204-227) contract them:
+// cross_fma and dot3_fma.
 __device__ inline float sphere_vs_tri_verts(const float p[3], float rad, const float v0[3],
                                             const float v1[3], const float v2[3], float pt[3],
                                             float n[3]) {
@@ -107,10 +109,10 @@ __device__ inline float sphere_vs_tri_verts(const float p[3], float rad, const f
     e2[q] = v2[q] - v0[q];
     rel[q] = p[q] - v0[q];
   }
-  const float dist = norm3f(delta);
-  cross3(e1, e2, cr);
-  safe_normalize(cr, tn);
-  const float side = dot3(rel, tn);
+  const float dist = sqrtf(dot3_fma(delta, delta));
+  cross_fma(e1, e2, cr);
+  safe_normalize_fma(cr, tn);
+  const float side = dot3_fma(rel, tn);
   const float sdist = side >= 0.0f ? dist : -dist;
   const bool out = dist > 1e-6f && side >= 0.0f;
   const float dd = fmaxf(dist, 1e-6f);

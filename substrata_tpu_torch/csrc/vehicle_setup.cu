@@ -87,7 +87,7 @@ __global__ void vehicle_setup_kernel(
   float rx[3], ry[3], up_os[3], up_w[3];
   sbt::rotate_vec(yq, ex, rx);
   sbt::rotate_vec(yq, ey, ry);
-  sbt::cross3(rx, ry, up_os);
+  sbt::cross_fma(rx, ry, up_os);   // manager.py:621's jnp.cross, contracted
   sbt::rotate_vec(q, up_os, up_w);
   const float ray_len = sus_max[v] + wheel_radius[v];
 #pragma unroll

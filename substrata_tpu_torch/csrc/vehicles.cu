@@ -33,7 +33,9 @@
 // fold component k of dv and dw in the order the reference adds them: the
 // wheels ((0 + w0) + w1) + w2) + w3, the lean, the boat's zero term and the
 // boat, the drag, the hovercar, the righting.  The library is built with
-// -fmad=false, so every path's operations round as written, whichever lane
+// -fmad=false, so every path's operations round as written (the cross and
+// dot products, norms and Iw products as the jitted reference contracts
+// them: cross_fma, dot3_fma, mv_fma), whichever lane
 // runs them, and the fold's order fixes the sums' rounding.  Each output is
 // written once, by the lane that owns it.
 #include <cstring>
@@ -135,7 +137,7 @@ __device__ void righting(const Chassis& c, const float yq[4], float out[3]) {
     for (int k = 0; k < 4; ++k) cur[k] = -cur[k];
   }
   const float v3[3] = {cur[0], cur[1], cur[2]};
-  const float sin_half = sqrtf(sbt::dot3(v3, v3));
+  const float sin_half = sqrtf(sbt::dot3_fma(v3, v3));
   const float angle = 2.0f * atan2f(sin_half, cur[3]);
   const float safe = fmaxf(sin_half, 1e-12f);
   float torque[3];
@@ -144,7 +146,7 @@ __device__ void righting(const Chassis& c, const float yq[4], float out[3]) {
     const float axis = sin_half < 1e-8f ? ex[k] : cur[k] / safe;
     torque[k] = (axis * angle * 3.0f - c.ang[k]) * c.mass * 1.5f;
   }
-  sbt::mv(c.iw, torque, out);
+  sbt::mv_fma(c.iw, torque, out);
 #pragma unroll
   for (int k = 0; k < 3; ++k) out[k] = out[k] * c.dt;
 }
@@ -154,8 +156,8 @@ __device__ void force_at(const Chassis& c, const float f[3], const float point[3
                          float dw[3]) {
   const float r[3] = {point[0] - c.pos[0], point[1] - c.pos[1], point[2] - c.pos[2]};
   float tau[3];
-  sbt::cross3(r, f, tau);
-  sbt::mv(c.iw, tau, dw);
+  sbt::cross_fma(r, f, tau);
+  sbt::mv_fma(c.iw, tau, dw);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     dv[k] = f[k] * c.dt_m;
@@ -217,7 +219,7 @@ __device__ void wheels(const VehicleArgs& a, int v, int lane, const Chassis& c, 
   const float steer = new_steering(a, v, is_wheeled && active, right_in);
 
   // Drivetrain state shared by the wheels.
-  const float speed_fwd = sbt::dot3(c.lin, fwd_w);
+  const float speed_fwd = sbt::dot3_fma(c.lin, fwd_w);
   const float omega_avg = fabsf(speed_fwd) / rad;
   const bool in_reverse = fwd_in < -0.01f && speed_fwd < 0.5f;
   const bool brake_from_input = fwd_in < -0.01f && speed_fwd >= 0.5f;
@@ -286,19 +288,19 @@ __device__ void wheels(const VehicleArgs& a, int v, int lane, const Chassis& c, 
   float wf[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) wf[k] = is_front ? fwd_w[k] * ca - right_w[k] * sa : fwd_w[k];
-  const float dn = sbt::dot3(wf, n);
+  const float dn = sbt::dot3_fma(wf, n);
   float wfl[3], wlat[3], vc[3], v_cp[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) wfl[k] = wf[k] - n[k] * dn;
-  const float wn = fmaxf(sqrtf(sbt::dot3(wfl, wfl)), 1e-6f);
+  const float wn = fmaxf(sqrtf(sbt::dot3_fma(wfl, wfl)), 1e-6f);
 #pragma unroll
   for (int k = 0; k < 3; ++k) wfl[k] = wfl[k] / wn;
-  sbt::cross3(n, wfl, wlat);
-  sbt::cross3(c.ang, rel, vc);
+  sbt::cross_fma(n, wfl, wlat);
+  sbt::cross_fma(c.ang, rel, vc);
 #pragma unroll
   for (int k = 0; k < 3; ++k) v_cp[k] = c.lin[k] + vc[k];
-  const float v_long = sbt::dot3(v_cp, wfl);
-  const float v_lat = sbt::dot3(v_cp, wlat);
+  const float v_long = sbt::dot3_fma(v_cp, wfl);
+  const float v_lat = sbt::dot3_fma(v_cp, wlat);
 
   const bool driven = is_bike ? w == 1 : w < 2;
   const float f_drive = (driven && hit && driving) ? t_wheel / rad : 0.0f;
@@ -360,21 +362,21 @@ __device__ void lean_and_boat(const VehicleArgs& a, int v, const Chassis& c, int
   const bool is_wheeled = vt == kCar || vt == kBike;
   const bool is_bike = vt == kBike;
   const float steer = new_steering(a, v, is_wheeled && active, right_in);
-  const float speed_fwd = sbt::dot3(c.lin, fwd_w);
+  const float speed_fwd = sbt::dot3_fma(c.lin, fwd_w);
   {
     const float wheelbase = fmaxf(fabsf(attach_y0 - attach_y1), 0.5f);
     const float yaw_rate = speed_fwd * tanf(steer) / wheelbase;
     const float lean_target = fminf(fmaxf(atan2f(speed_fwd * yaw_rate, 9.81f), -0.9f), 0.9f);
     const float ez[3] = {0.0f, 0.0f, 1.0f};
     float zu[3];
-    sbt::cross3(ez, up_w, zu);
-    const float lean_cur = atan2f(sbt::dot3(zu, fwd_w), up_w[2]);
-    const float lean_rate = sbt::dot3(c.ang, fwd_w);
+    sbt::cross_fma(ez, up_w, zu);
+    const float lean_cur = atan2f(sbt::dot3_fma(zu, fwd_w), up_w[2]);
+    const float lean_rate = sbt::dot3_fma(c.ang, fwd_w);
     const float s = (lean_target - lean_cur) * lean_spring - lean_rate * lean_damping;
     float tau[3], t[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) tau[k] = fwd_w[k] * s * mass * 0.1f;
-    sbt::mv(c.iw, tau, t);
+    sbt::mv_fma(c.iw, tau, t);
     const bool on = is_bike && active;
 #pragma unroll
     for (int k = 0; k < 3; ++k) terms[kLean][k] = on ? t[k] * dt : 0.0f;
@@ -388,9 +390,9 @@ __device__ void lean_and_boat(const VehicleArgs& a, int v, const Chassis& c, int
     const float lat = right_in * thrust_lat;
 #pragma unroll
     for (int k = 0; k < 3; ++k) td[k] = fwd_w[k] - up_w[k] * 0.2f - right_w[k] * lat;
-    const float tn = fmaxf(sqrtf(sbt::dot3(td, td)), 1e-6f);
+    const float tn = fmaxf(sqrtf(sbt::dot3_fma(td, td)), 1e-6f);
     const float thrust = thrust_force * fwd_in;
-    const float rudder = -right_in * sbt::dot3(c.lin, fwd_w) * rudder_factor;
+    const float rudder = -right_in * sbt::dot3_fma(c.lin, fwd_w) * rudder_factor;
     float ft[3], fr[3], dv_b[3], dw_b[3], ra[3], rb[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -423,18 +425,18 @@ __device__ void hover_and_drag(const VehicleArgs& a, int v, const Chassis& c, in
   const float unflip = in<float>(a, kUnflip)[v];
   const float up_in = in<float>(a, kInUp)[v];
   const float dt = c.dt, mass = c.mass;
-  const float v_mag = sqrtf(sbt::dot3(c.lin, c.lin));
+  const float v_mag = sqrtf(sbt::dot3_fma(c.lin, c.lin));
   const float vd = fmaxf(v_mag, 1e-6f);
   const float nv[3] = {c.lin[0] / vd, c.lin[1] / vd, c.lin[2] / vd};
-  const float pf = fabsf(sbt::dot3(nv, fwd_w)), ps = fabsf(sbt::dot3(nv, right_w)),
-              pu = fabsf(sbt::dot3(nv, up_w));
+  const float pf = fabsf(sbt::dot3_fma(nv, fwd_w)), ps = fabsf(sbt::dot3_fma(nv, right_w)),
+              pu = fabsf(sbt::dot3_fma(nv, up_w));
   {
     const float proj = pf * areas[0] * 0.1f + ps * areas[1] * 0.5f + pu * areas[2] * 0.75f;
     const float f_d = 510.0f * v_mag * v_mag * proj;
     float drag[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) drag[k] = -nv[k] * f_d * c.dt_m;
-    if (sqrtf(sbt::dot3(drag, drag)) > v_mag) {
+    if (sqrtf(sbt::dot3_fma(drag, drag)) > v_mag) {
 #pragma unroll
       for (int k = 0; k < 3; ++k) drag[k] = -c.lin[k];
     }
@@ -456,7 +458,7 @@ __device__ void hover_and_drag(const VehicleArgs& a, int v, const Chassis& c, in
     dv_h[k] = (hf + fwd_w[k] * fwd_f + up_w[k] * -fz) * c.dt_m;
     tau[k] = right_w[k] * pitch + up_w[k] * yaw + fwd_w[k] * roll;
   }
-  sbt::mv(c.iw, tau, dw_h);
+  sbt::mv_fma(c.iw, tau, dw_h);
   const float nu = unflip > 0.0f ? (cos_theta > 0.2f ? -1.0f : unflip - dt)
                                  : (cos_theta < -0.9f ? 1.0f : unflip);
   const bool lift = unflip > 0.0f && cos_theta <= 0.2f;
@@ -514,7 +516,7 @@ __global__ void __launch_bounds__(kWarps * 32) vehicle_forces_kernel(const Vehic
     float fwd_os[3], right_os[3], up_os[3], fwd_w[3], right_w[3], up_w[3];
     sbt::rotate_vec(inv_yq, ey, fwd_os);
     sbt::rotate_vec(inv_yq, ex, right_os);
-    sbt::cross3(right_os, fwd_os, up_os);
+    sbt::cross_fma(right_os, fwd_os, up_os);
     sbt::rotate_vec(c.q, fwd_os, fwd_w);
     sbt::rotate_vec(c.q, right_os, right_w);
     sbt::rotate_vec(c.q, up_os, up_w);

@@ -7,13 +7,16 @@ the speculative one-point prune (:739-742), friction/restitution combine
 and the pair-blocked emission (:763-774): ``WM = 4`` rows per pair slot,
 ``a = -1`` on an empty slot, ``key = b*4 + slot + 9``.
 
-``box_box_rows`` launches ``csrc/box_box.cu`` for CUDA tensors and runs
-``box_box_rows_plain`` for CPU tensors.  The plain twin is written out
+``box_box_rows`` launches ``csrc/box_box.cu`` (four lanes a pair slot, one
+packed argument) for CUDA tensors and runs ``box_box_rows_plain`` for CPU
+tensors.  The plain twin is written out
 component by component in the order the kernel computes, so the two agree
 to rounding.
 """
 
 from __future__ import annotations
+
+import struct
 
 import torch
 
@@ -280,31 +283,47 @@ def box_box_rows_plain(pos, quat, shape_params, friction, restitution,
             (b32[:, None] * 4 + slot[None, :] + 9).reshape(p * WM), touching)
 
 
+# csrc/box_box.cu:BoxBoxArgs: 9 input pointers, 10 output pointers, the
+# slot count.
+_PACK = struct.Struct("=19qq")
+_NAMES = ("pos", "quat", "shape_params", "friction", "restitution", "is_sensor", "pair_a",
+          "pair_b", "pair_valid")
+_plans = {}
+
+
+class _Plan:
+    """KA's checks for one (bodies, slots, device): the 9 inputs' dtypes
+    and shapes."""
+
+    def __init__(self, n, p, device):
+        f32, i32, bl = torch.float32, torch.int32, torch.bool
+        self.device = device
+        self.dtypes = (f32, f32, f32, f32, f32, bl, i32, i32, bl)
+        self.shapes = ((n, 3), (n, 4), (n, 4), (n,), (n,), (n,), (p,), (p,), (p,))
+
+
 def box_box_rows(pos, quat, shape_params, friction, restitution, is_sensor,
                  pair_a, pair_b, pair_valid, out=None):
     """KA: ``box_box_rows_plain`` for CPU tensors, ``csrc/box_box.cu``
-    (one thread per pair slot) for CUDA tensors.  ``out``: the 10 outputs'
-    tensors to write (a bucket's views of a mixed world's contact rows),
-    or None for new ones."""
+    (four lanes a pair slot) for CUDA tensors, checked against the plan of
+    its shape and launched from one packed argument.  ``out``: the 10
+    outputs' tensors to write (a bucket's views of a mixed world's contact
+    rows), or None for new ones."""
     global launches
     if pos.device.type == "cpu":
         return contact_rows.copied(box_box_rows_plain(pos, quat, shape_params, friction,
                                                       restitution, is_sensor, pair_a, pair_b,
                                                       pair_valid), out)
     dev = pos.device
-    n = pos.shape[0]
-    p = pair_a.shape[0]
-    f32, i32, bl = torch.float32, torch.int32, torch.bool
-    for t, name, dt, shp in (
-            (pos, "pos", f32, (n, 3)), (quat, "quat", f32, (n, 4)),
-            (shape_params, "shape_params", f32, (n, 4)),
-            (friction, "friction", f32, (n,)),
-            (restitution, "restitution", f32, (n,)),
-            (is_sensor, "is_sensor", bl, (n,)), (pair_a, "pair_a", i32, (p,)),
-            (pair_b, "pair_b", i32, (p,)), (pair_valid, "pair_valid", bl, (p,))):
-        build.check(t, name, dt, shp, dev)
+    n, p = pos.shape[0], pair_a.shape[0]
+    plan = build.plan(_plans, (n, p, dev), lambda: _Plan(n, p, dev))
+    ins = (pos, quat, shape_params, friction, restitution, is_sensor, pair_a, pair_b,
+           pair_valid)
+    build.check_all(plan.device, ins, _NAMES, plan.dtypes, plan.shapes)
     out = contact_rows.outputs(out, p * WM, p, dev)
-    build.launch("box_box_rows", pair_a, pair_b, pair_valid, pos, quat,
-                 shape_params, friction, restitution, is_sensor, p, *out)
+    build.launch_packed("box_box_rows", _PACK.pack(
+        *(t.data_ptr() for t in (pair_a, pair_b, pair_valid, pos, quat, shape_params, friction,
+                                 restitution, is_sensor)),
+        *(t.data_ptr() for t in out), p))
     launches += 1
     return out

@@ -44,9 +44,10 @@ F = ctypes.c_float
 
 # name -> argtypes (all return int = cudaError_t).
 SIGNATURES = {
-    # pair_a, pair_b, pair_valid, pos, quat, params, fric, rest, sensor,
-    # P, out a, b, point, normal, pen, valid, fric, rest, key, touch, stream
-    "box_box_rows": [P] * 9 + [I] + [P] * 10 + [P],
+    # one host buffer of 8-byte slots (kernels/box_box.py:_PACK: pair_a,
+    # pair_b, pair_valid, pos, quat, params, fric, rest, sensor, out a, b,
+    # point, normal, pen, valid, fric, rest, key, touch, P), stream
+    "box_box_rows": [P, P],
     # one host buffer of 8-byte slots (kernels/static_contacts.py:_PACK:
     # pos, quat, shape_type, shape_params, alive, layer, motion, sensor,
     # awake, fric, rest, heights, hf_origin, hf_cell_w, has_hf, hull verts,
@@ -146,10 +147,11 @@ SIGNATURES = {
     # a, b, occupancy, scratch, out table, sign, counts, stride, C, N, CPB),
     # stream
     "layout_incidence": [P, P],
-    # pos0, inv_mass, awake, static valid, normal, pen, pair a, b, valid,
-    # normal, pen, table, sign, slop; beta; N, K, Q, WM, CPB, iters; impulse
-    # and position scratch, out, stream
-    "solve_positions": [P] * 14 + [F] + [I] * 6 + [P] * 3 + [P],
+    # one host buffer of 8-byte slots (kernels/positions.py:_PACK: pos0,
+    # inv_mass, awake, static valid, normal, pen, pair a, b, valid, normal,
+    # pen, table, sign, slop; position scratch, out; N, K, Q, WM, CPB, iters;
+    # beta as a double), stream
+    "solve_positions": [P, P],
     # awake, linvel, alive, motion_type, pair a, b, valid, N, P, out, stream
     "strike_wake": [P] * 7 + [I] * 2 + [P] + [P],
     # awake, prev_awake, sleep_timer, alive, motion_type, linvel, angvel,

@@ -133,6 +133,12 @@ def gather_candidates(foot_a, foot_b, cyl_h, body: BodyState, table, os_idx,
                       angvel=body.angvel[ci])
 
 
+def contact_velocity(lv, av, pt, pb):
+    """A body's velocity at contact point ``pt`` (character.py:185):
+    lv + av x (pt - pb), the cross contracted as jitted."""
+    return lv + quatm.cross_fma(av, pt - pb)
+
+
 def _contacts(center, half_h, c: Candidates, rows):
     """The probe contact of candidate rows ``rows`` against capsule centres
     ``center`` [M, 3] (character.py:163-186, each row's own shape only).
@@ -175,7 +181,7 @@ def _contacts(center, half_h, c: Candidates, rows):
     pen = torch.gather(pens, 1, k[:, None])[:, 0]
     ok = torch.gather(val, 1, k[:, None])[:, 0]
     pt = torch.gather(pts, 1, k[:, None, None].expand(m, 1, 3))[:, 0]
-    cvel = c.linvel[rows] + quatm.cross(c.angvel[rows], pt - pb)
+    cvel = contact_velocity(c.linvel[rows], c.angvel[rows], pt, pb)
     return nrm, pen, pt, cvel, ok
 
 

@@ -1003,6 +1003,43 @@ def rotation_corpus(seed: int = 0, n: int = 4096):
             np.concatenate([vs, v_ax]).astype(np.float32))
 
 
+CROSS_CORPUS = ("near_parallel", "cancelling", "tangent_edge", "random")
+
+
+def cross_corpus(kind: str, seed: int = 0, n: int = 4096):
+    """(a [n, 3], b [n, 3]) float32 on which a plain cross or dot product
+    and the one XLA contracts part: ``near_parallel`` (b a scaled copy of a
+    turned by 1e-9 to 1 of |a|, scales from 1e-3 to 1e3), ``cancelling``
+    (b a rounded multiple of a, so every component of a x b cancels to a
+    few ulps), ``tangent_edge`` (unit a with |a_x| within 1e-6 of 0.9 and
+    near the coordinate axes, the tangent basis's switch; b random) and
+    ``random``."""
+    rng = np.random.default_rng(seed + CROSS_CORPUS.index(kind))
+
+    def unit(x):
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+    scale = np.exp(rng.uniform(np.log(1e-3), np.log(1e3), (n, 1)))
+    a = rng.normal(size=(n, 3)) * scale
+    if kind == "near_parallel":
+        turn = np.exp(rng.uniform(np.log(1e-9), 0.0, (n, 1)))
+        b = a * rng.uniform(0.5, 2.0, (n, 1)) + unit(rng.normal(size=(n, 3))) * turn * np.abs(a)
+    elif kind == "cancelling":
+        a = a.astype(np.float32)
+        b = a * rng.uniform(0.1, 10.0, (n, 1)).astype(np.float32)
+    elif kind == "tangent_edge":
+        m = n // 2
+        x = 0.9 + rng.uniform(-1e-6, 1e-6, m) * rng.choice([1.0, 0.0], m)
+        yz = unit(rng.normal(size=(m, 2))) * np.sqrt(1.0 - x * x)[:, None]
+        edge = np.concatenate([x[:, None], yz], 1) * rng.choice([-1.0, 1.0], (m, 1))
+        axes = np.eye(3)[rng.integers(0, 3, n - m)] * rng.choice([-1.0, 1.0], (n - m, 1))
+        near = unit(axes + rng.normal(size=(n - m, 3)) * np.exp(rng.uniform(-16, -2, (n - m, 1))))
+        a = np.concatenate([edge, near])
+        b = rng.normal(size=(n, 3)) * scale
+    else:
+        b = rng.normal(size=(n, 3)) * scale
+    return np.asarray(a, np.float32), np.asarray(b, np.float32)
+
+
 # ---------------------------------------------------------------------------
 # KS: pair-finder scenes.
 # ---------------------------------------------------------------------------
@@ -2173,3 +2210,314 @@ def audio_setup_inputs(scene: AudioSetupScene, device, use_hrtf: bool):
     src = [torch.as_tensor(scene.sources[k], device=device) for k in AUDIO_SETUP_FIELDS]
     lis = [torch.as_tensor(scene.listener[k], device=device) for k in LISTENER_AXES]
     return (*src, *lis, kaa.dop_alpha(scene.block), scene.block / kaa.ENGINE_RATE, use_hrtf)
+
+
+# ---------------------------------------------------------------------------
+# KA: box-box pair slots.
+# ---------------------------------------------------------------------------
+
+BOX_BOX_CASES = ("resting_stacks", "crossed_edges", "bias_ties", "margin_ties", "separated",
+                 "invalid_sensor", "warp_repeat", "ragged", "full")
+BOX_BOX_FULL = 16384     # the bench world's max_pairs
+
+
+@dataclasses.dataclass
+class BoxBoxScene:
+    """Bodies (pos, quat, shape_params, friction, restitution, is_sensor)
+    and the pair slots (pair_a, pair_b, pair_valid) of KA's call."""
+    bodies: dict
+    pair_a: np.ndarray
+    pair_b: np.ndarray
+    pair_valid: np.ndarray
+
+
+def _unit_quats(rng, n):
+    q = rng.normal(size=(n, 4))
+    return q / np.linalg.norm(q, axis=1, keepdims=True)
+
+
+def _axis_quats(axis, angle):
+    angle = np.asarray(angle, np.float64)
+    return np.concatenate([np.asarray(axis, np.float64) * np.sin(angle / 2)[..., None],
+                           np.cos(angle / 2)[..., None]], -1)
+
+
+def _box_pairs(rng, kind, m):
+    """(pa, qa, hea, pb, qb, heb) float64 for m pairs of one kind."""
+    he = rng.uniform(0.2, 0.6, (2, m, 3))
+    pa = rng.uniform(-20, 20, (m, 3))
+    qa = np.tile([0.0, 0.0, 0.0, 1.0], (m, 1))
+    qb, pb = qa.copy(), pa.copy()
+    if kind == "stack":       # exactly axis-aligned, b on a within +-5 cm
+        pb[:, 2] += he[0, :, 2] + he[1, :, 2] + rng.uniform(-0.05, 0.05, m)
+        pb[:, :2] += rng.uniform(-0.4, 0.4, (m, 2))
+    elif kind == "crossed":   # a turned 45 degrees about x, b about y
+        qa = _axis_quats([1, 0, 0], np.pi / 4 + rng.uniform(-0.05, 0.05, m))
+        qb = _axis_quats([0, 1, 0], np.pi / 4 + rng.uniform(-0.05, 0.05, m))
+        pb[:, 2] += (np.hypot(he[0, :, 1], he[0, :, 2]) + np.hypot(he[1, :, 0], he[1, :, 2])
+                     + rng.uniform(-0.06, 0.03, m))
+        pb[:, :2] += rng.uniform(-0.05, 0.05, (m, 2))
+    else:                     # random turns at touching range, or apart
+        qa, qb = _unit_quats(rng, m), _unit_quats(rng, m)
+        d = rng.normal(size=(m, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        reach = np.linalg.norm(he[0], axis=1) + np.linalg.norm(he[1], axis=1)
+        far = rng.uniform(1.05, 2.0, m) if kind == "separated" else rng.uniform(0.45, 0.9, m)
+        pb += d * (reach * far)[:, None]
+    return pa, qa, he[0], pb, qb, he[1]
+
+
+def _nearest_ties(rng, kind, m, pool=8, steps=48):
+    """m random pairs set at a decision's threshold: each of m * pool
+    random pairs at touching range slides along its offset until the
+    decision changes sign between two scales, then the scale is bisected
+    (float64, ``steps`` halvings) down to float32 rounding.  ``bias``: the
+    face/edge choice (best_edge against best_face * 0.98 + 0.001); ``margin``:
+    the separation against the 4 cm margin."""
+    pa, qa, hea, pb, qb, heb = _box_pairs(rng, "random", m * pool)
+    off = pb - pa
+    f32 = np.float32
+
+    def decision(scale):
+        t = [torch.as_tensor(np.asarray(x, f32))
+             for x in (pa, qa, hea, pa + off * scale[:, None], qb, heb)]
+        fa, fb, e = _seps(t)
+        if kind == "bias":
+            return (e - (torch.maximum(fa, fb) * 0.98 + 0.001)).double().numpy()
+        return (torch.maximum(torch.maximum(fa, fb), e) - 0.04).double().numpy()
+    lo, hi = np.full(len(pa), 0.3), np.full(len(pa), 1.6)
+    f_lo, f_hi = decision(lo), decision(hi)
+    keep = np.flatnonzero(np.sign(f_lo) != np.sign(f_hi))[:m]
+    lo, hi, f_lo = lo[keep], hi[keep], f_lo[keep]
+    pa, qa, hea, off, qb, heb = (x[keep] for x in (pa, qa, hea, off, qb, heb))
+    for _ in range(steps):
+        mid = 0.5 * (lo + hi)
+        f_mid = decision(mid)
+        left = np.sign(f_mid) == np.sign(f_lo)
+        lo, f_lo = np.where(left, mid, lo), np.where(left, f_mid, f_lo)
+        hi = np.where(left, hi, mid)
+    return pa, qa, hea, pa + off * lo[:, None], qb, heb
+
+
+def _seps(t):
+    """(best_face_a, best_face_b, best_edge) of ``box_box.box_box``'s SAT,
+    in its operations and order (written out here: the bench scripts run
+    these scenes through a parent checkout's twin as well)."""
+    from substrata_tpu_torch.kernels import box_box as ka
+    from substrata_tpu_torch.maths import quat as quatm
+    pa, qa, hea, pb, qb, heb = t
+    ra, rb = quatm.to_matrix(qa), quatm.to_matrix(qb)
+    c = (ra[..., 0, :, None] * rb[..., 0, None, :] + ra[..., 1, :, None] * rb[..., 1, None, :]
+         + ra[..., 2, :, None] * rb[..., 2, None, :])
+    absc = torch.abs(c) + 1e-5
+    tt = ka._mtv(ra, pb - pa)
+    sep_a = torch.abs(tt) - (hea + ka._mv(absc, heb))
+    sep_b = torch.abs(ka._mtv(c, tt)) - (heb + ka._mtv(absc, hea))
+    seps = []
+    for i in range(3):
+        for j in range(3):
+            i1, i2, j1, j2 = (i + 1) % 3, (i + 2) % 3, (j + 1) % 3, (j + 2) % 3
+            zero = torch.zeros_like(tt[..., 0])
+            comps = [zero, zero, zero]
+            comps[i1], comps[i2] = -c[..., i2, j], c[..., i1, j]
+            axis = torch.stack(comps, -1)
+            alen = ka._norm3(axis)
+            den = torch.clamp(alen, min=1e-9)
+            d = (torch.abs(quatm.dot3(tt, axis / den[..., None]))
+                 - (hea[..., i1] * absc[..., i2, j] + hea[..., i2] * absc[..., i1, j]
+                    + (heb[..., j1] * absc[..., i, j2] + heb[..., j2] * absc[..., i, j1]))
+                 / den)
+            seps.append(torch.where(alen > 1e-6, d, -1e9))
+    return sep_a.max(-1).values, sep_b.max(-1).values, torch.stack(seps, -1).max(-1).values
+
+
+def box_box_scene(case: str, seed: int = 0) -> BoxBoxScene:
+    """KA's inputs for one case; bodies 2i and 2i + 1 make pair i unless
+    the case says otherwise:
+
+    - ``resting_stacks``: axis-aligned boxes on boxes (the rotation
+      products' exact zeros, the edge axes of zero length);
+    - ``crossed_edges``: boxes turned 45 degrees about x and y, edge on edge;
+    - ``bias_ties``, ``margin_ties``: random pairs slid along their offset
+      until their face/edge choice (the 0.98 bias) or separation (the 4 cm
+      margin) sits at its threshold, to float32 rounding;
+    - ``separated``: pairs apart by 5-100% of their reach;
+    - ``invalid_sensor``: a third of the slots invalid (a = -1 and stale
+      ids), a tenth of the bodies sensors;
+    - ``warp_repeat``: one touching pair in all 64 slots;
+    - ``ragged``: 1,001 slots (not a multiple of 4 or 32), the last 37
+      empty;
+    - ``full``: all 16,384 slots of the bench world's max_pairs, every kind
+      mixed.
+    """
+    if case not in BOX_BOX_CASES:
+        raise ValueError(f"unknown box-box case {case!r}")
+    rng = np.random.default_rng(seed + 100 + BOX_BOX_CASES.index(case))
+    kinds = {"resting_stacks": ("stack",), "crossed_edges": ("crossed",),
+             "separated": ("separated",), "invalid_sensor": ("stack", "random", "crossed"),
+             "warp_repeat": ("random",), "ragged": ("stack", "random", "crossed", "separated"),
+             "full": ("stack", "random", "crossed", "separated")}
+    m = {"full": BOX_BOX_FULL, "ragged": 1001 - 37, "warp_repeat": 1}.get(case, 256)
+    if case in ("bias_ties", "margin_ties"):
+        parts = [_nearest_ties(rng, case[:-5] if case == "bias_ties" else "margin", m)]
+    else:
+        ks = kinds[case]
+        sizes = [m // len(ks) + (i < m % len(ks)) for i in range(len(ks))]
+        parts = [_box_pairs(rng, k, s) for k, s in zip(ks, sizes)]
+    pa, qa, hea, pb, qb, heb = (np.concatenate(x) for x in zip(*parts))
+    if case == "warp_repeat":      # nudge the one pair into contact
+        qa, qb = _axis_quats([1, 0, 0], [0.3]), _axis_quats([0, 1, 0], [0.2])
+        pb = pa + np.array([[0.1, 0.05, 0.0]])
+        pb[:, 2] += hea[:, 2] + heb[:, 2] - 0.02
+    m = pa.shape[0]
+    n = 2 * m
+    f32 = np.float32
+    bodies = dict(pos=np.empty((n, 3), f32), quat=np.empty((n, 4), f32),
+                  shape_params=np.zeros((n, 4), f32),
+                  friction=rng.uniform(0.0, 1.0, n).astype(f32),
+                  restitution=rng.uniform(0.0, 1.0, n).astype(f32),
+                  is_sensor=rng.random(n) < {"invalid_sensor": 0.1, "warp_repeat": 0.0}.get(
+                      case, 0.02))
+    bodies["pos"][0::2], bodies["pos"][1::2] = pa, pb
+    bodies["quat"][0::2], bodies["quat"][1::2] = qa, qb
+    bodies["shape_params"][0::2, :3], bodies["shape_params"][1::2, :3] = hea, heb
+    slots = {"warp_repeat": 64, "ragged": 1001}.get(case, m)
+    pair_a = np.full(slots, -1, np.int32)
+    pair_b = np.full(slots, -1, np.int32)
+    if case == "warp_repeat":
+        pair_a[:], pair_b[:] = 0, 1
+    else:
+        pair_a[:m], pair_b[:m] = np.arange(0, n, 2), np.arange(1, n, 2)
+    pair_valid = pair_a >= 0
+    if case == "invalid_sensor":
+        off = rng.random(slots) < 1 / 3
+        pair_valid &= ~off
+        pair_a[off & (rng.random(slots) < 0.5)] = -1      # the rest keep stale ids
+    return BoxBoxScene({k: np.ascontiguousarray(v) for k, v in bodies.items()},
+                       pair_a, pair_b, pair_valid)
+
+
+def box_box_inputs(scene: BoxBoxScene, device):
+    """``box_box.box_box_rows``' arguments for ``scene`` on ``device``."""
+    b = scene.bodies
+    return tuple(torch.as_tensor(x, device=device) for x in (
+        b["pos"], b["quat"], b["shape_params"], b["friction"], b["restitution"],
+        b["is_sensor"], scene.pair_a, scene.pair_b, scene.pair_valid))
+
+
+# ---------------------------------------------------------------------------
+# KU: position-solve scenes.
+# ---------------------------------------------------------------------------
+
+POSITION_CASES = ("cpb_limit", "asleep", "invalid_rows", "padded_entries", "static_only",
+                  "pairs_only", "wm1", "wm4", "k8", "iters1", "iters3", "cpb40")
+POSITION_N, POSITION_Q = 64, 96
+
+
+@dataclasses.dataclass
+class PositionScene:
+    """KU's inputs: positions, inverse masses and awake flags [N]; the
+    static rows (valid, normal, penetration) [N K]; the pair rows (a, b,
+    valid, normal, penetration) [Q wm]; the entries' occupancy for the
+    incidence table; the call's shapes, iterations, beta and slop."""
+    pos: np.ndarray
+    inv_mass: np.ndarray
+    awake: np.ndarray
+    static: dict
+    pair: dict
+    occupied: np.ndarray
+    k: int
+    wm: int
+    cpb: int
+    iters: int
+    beta: float
+    slop: float
+
+
+def position_scene(case: str, seed: int = 0) -> PositionScene:
+    """64 bodies (48 alive and dynamic), 96 entries; K = 4 static rows a
+    body, wm = 2 rows an entry, CPB = 8 table slots, 2 iterations unless
+    the case says otherwise; penetrations from -2 to 8 cm about a 1 cm
+    slop:
+
+    - ``cpb_limit``: one body in 9 entries (one past CPB), another in 8;
+    - ``asleep``: every other body asleep (immovable);
+    - ``invalid_rows``: static rows 1 and 2 and every entry's row 1
+      invalid;
+    - ``padded_entries``: an eighth of the entries with a = -1 (not in the
+      table), another eighth with b = -1 (body 0's mass read, as the
+      reference gathers it);
+    - ``static_only``: every entry padded (an empty table);
+    - ``pairs_only``: no valid static row;
+    - ``wm1``, ``wm4``: manifold widths 1 (the compacted layout: invalid
+      rows are not tabled) and 4;
+    - ``k8``: K = 8;
+    - ``iters1``, ``iters3``: one and three iterations;
+    - ``cpb40``: CPB = 40, one body in all 40 (lanes take two rounds).
+    """
+    if case not in POSITION_CASES:
+        raise ValueError(f"unknown position case {case!r}")
+    rng = np.random.default_rng(seed + 300 + POSITION_CASES.index(case))
+    n, q = POSITION_N, POSITION_Q
+    k = 8 if case == "k8" else 4
+    wm = {"wm1": 1, "wm4": 4}.get(case, 2)
+    cpb = 40 if case == "cpb40" else 8
+    iters = {"iters1": 1, "iters3": 3}.get(case, 2)
+    f32 = np.float32
+    alive = np.arange(n) < 48
+    pos = rng.uniform((-4, -4, 0.2), (4, 4, 3), (n, 3))
+    inv_mass = np.where(alive, rng.uniform(0.2, 2.0, n), 0.0)
+    awake = alive & ((np.arange(n) % 2 == 0) if case == "asleep" else True)
+
+    def unit(m):
+        v = rng.normal(size=(m, 3))
+        return v / np.linalg.norm(v, axis=1, keepdims=True)
+    s_valid = np.repeat(alive, k) & (rng.random(n * k) < 0.8)
+    if case == "invalid_rows":
+        s_valid &= ~np.isin(np.tile(np.arange(k), n), (1, 2))
+    if case == "pairs_only":
+        s_valid[:] = False
+    static = dict(valid=s_valid, normal=unit(n * k), penetration=rng.uniform(-0.02, 0.08, n * k))
+
+    ea = rng.integers(0, 48, q)
+    eb = (ea + rng.integers(1, 48, q)) % 48
+    if case == "cpb_limit":
+        ea[:9], eb[:9] = 0, np.arange(1, 10)
+        ea[9:17], eb[9:17] = 10, np.arange(11, 19)
+    if case == "cpb40":
+        ea[:40], eb[:40] = 3, np.arange(4, 44)
+    if case == "padded_entries":
+        ea[: q // 8] = -1
+        eb[q // 8: q // 4] = -1
+    if case == "static_only":
+        ea[:] = -1
+        eb[:] = -1
+    pa, pb = np.repeat(ea, wm), np.repeat(eb, wm)
+    p_valid = (pa >= 0) & (rng.random(q * wm) < 0.85)
+    if case == "invalid_rows":
+        p_valid &= np.tile(np.arange(wm), q) != 1
+    pair = dict(a=pa, b=pb, valid=p_valid, normal=unit(q * wm),
+                penetration=rng.uniform(-0.02, 0.08, q * wm))
+    occupied = (ea >= 0) if wm > 1 else (p_valid & (ea >= 0))
+    cast = (lambda d: {f: np.ascontiguousarray(v.astype(np.int32) if f in ("a", "b") else
+                                               v if v.dtype == bool else v.astype(f32))
+                       for f, v in d.items()})
+    return PositionScene(pos.astype(f32), inv_mass.astype(f32), awake, cast(static), cast(pair),
+                         occupied, k, wm, cpb, iters, 0.25, 0.01)
+
+
+def position_inputs(scene: PositionScene, device):
+    """(args, kwargs) of ``positions.solve_positions`` for ``scene`` on
+    ``device``; the table from KT's twin on the CPU."""
+    t = (lambda x: torch.as_tensor(np.ascontiguousarray(x), device=device))
+    wm = scene.wm
+    table, sign, _ = layout.incidence_plain(
+        torch.as_tensor(scene.pair["a"][::wm].copy()),
+        torch.as_tensor(scene.pair["b"][::wm].copy()), torch.as_tensor(scene.occupied),
+        scene.pos.shape[0], scene.cpb)
+    st, pr = scene.static, scene.pair
+    args = (t(scene.pos), t(scene.inv_mass), t(scene.awake),
+            (t(st["valid"]), t(st["normal"]), t(st["penetration"])),
+            (t(pr["a"]), t(pr["b"]), t(pr["valid"]), t(pr["normal"]), t(pr["penetration"])),
+            table.to(device), sign.to(device), torch.tensor(scene.slop, device=device))
+    return args, dict(iters=scene.iters, beta=scene.beta, wm=wm)

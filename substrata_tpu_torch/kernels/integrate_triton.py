@@ -14,7 +14,9 @@ is memory: ``apply_forces`` reads ~100 bytes and writes 25 bytes per body,
 every intermediate in registers.
 
 Rounding: divisions and square roots use libdevice's correctly rounded
-forms, the damping's exp is rounded once from float64 (``fp.exp``: the
+forms, the two speeds' squares and the buoyancy impulse's add are fmas
+(``tl.fma``; the twin's ``quat.dot3_fma`` and ``fp.fma``), as the jitted
+reference contracts them, the damping's exp is rounded once from float64 (``fp.exp``: the
 card's and the CPU's float32 exps part in the last bit), and the launch
 turns floating-point fusion off, so the kernels round like their plain
 twins (``*_plain`` below), which CPU tensors take, on either device.
@@ -63,7 +65,8 @@ def apply_forces_plain(body: BodyState, dt: float, params: SimParams):
     cob = torch.stack([zero, zero, cob_z], dim=-1)
     inwf = in_water.to(torch.float32)
     neg_g = -params.gravity
-    linvel = linvel + neg_g[None, :] * (WATER_DENSITY * v_sub * body.inv_mass * dt * inwf)[:, None]
+    linvel = fp.fma(neg_g[None, :], (WATER_DENSITY * v_sub * body.inv_mass * dt * inwf)[:, None],
+                    linvel)
     f_buoy = neg_g[None, :] * (WATER_DENSITY * v_sub * inwf)[:, None]
     tau = quatm.cross(cob, f_buoy)
     iw = tmath.world_inv_inertia(body.quat, body.inv_inertia)
@@ -71,14 +74,14 @@ def apply_forces_plain(body: BodyState, dt: float, params: SimParams):
 
     drag_coeff = torch.where(body.use_zero_linear_drag, 0.0, WATER_LINEAR_DRAG)
     v_cob = linvel + quatm.cross(angvel, cob)
-    speed = torch.sqrt(quatm.dot3(v_cob, v_cob))[:, None]
+    speed = fp.sqrt(quatm.dot3_fma(v_cob, v_cob))[:, None]
     area = torch.clamp(v_sub, min=0.0) ** (2.0 / 3.0)
     drag_dv = -0.5 * WATER_DENSITY * speed * v_cob * (
         drag_coeff * area * body.inv_mass * dt * inwf)[:, None]
     drag_dv = torch.where(torch.abs(drag_dv) > torch.abs(v_cob), -v_cob, drag_dv)
     linvel = linvel + drag_dv
 
-    wspeed = torch.sqrt(quatm.dot3(angvel, angvel))[:, None]
+    wspeed = fp.sqrt(quatm.dot3_fma(angvel, angvel))[:, None]
     ang_dd = -0.5 * WATER_DENSITY * wspeed * angvel * (
         WATER_ANGULAR_DRAG * area[:, None] * r[:, None] ** 2 * body.inv_inertia
         * dt * inwf[:, None])
@@ -165,9 +168,10 @@ def _triton_kernels():
         cz = 0.5 * (top_sub + bottom) - pz
         inwf = in_water.to(tl.float32)
         s = 1020.0 * v_sub * im * dt * inwf
-        lx = lx + (-gx) * s
-        ly = ly + (-gy) * s
-        lz = lz + (-gz) * s
+        # The impulse's add contracted, as the jitted reference does.
+        lx = tl.fma(-gx, s, lx)
+        ly = tl.fma(-gy, s, ly)
+        lz = tl.fma(-gz, s, lz)
         fb = 1020.0 * v_sub * inwf
         fx = (-gx) * fb
         fy = (-gy) * fb
@@ -212,7 +216,7 @@ def _triton_kernels():
         vx = lx + (wy * cz - wz * 0.0)
         vy = ly + (wz * 0.0 - wx * cz)
         vz = lz + (wx * 0.0 - wy * 0.0)
-        speed = libdevice.sqrt_rn(vx * vx + vy * vy + vz * vz)
+        speed = libdevice.sqrt_rn(tl.fma(vz, vz, tl.fma(vy, vy, vx * vx)))
         area = libdevice.pow(tl.maximum(v_sub, 0.0), 2.0 / 3.0)
         ds = dc * area * im * dt * inwf
         dx = -510.0 * speed * vx * ds
@@ -226,7 +230,7 @@ def _triton_kernels():
         lz = lz + dz
 
         # Quadratic angular drag (:77-82).
-        wspeed = libdevice.sqrt_rn(wx * wx + wy * wy + wz * wz)
+        wspeed = libdevice.sqrt_rn(tl.fma(wz, wz, tl.fma(wy, wy, wx * wx)))
         base = 3.0 * area * (r * r)
         ax_ = -510.0 * wspeed * wx * (base * d0 * dt * inwf)
         ay_ = -510.0 * wspeed * wy * (base * d1 * dt * inwf)

@@ -7,13 +7,17 @@ iteration pushes every penetrating static row and pair entry apart by
 by its static pushes plus its entries' impulses gathered through the
 incidence table.
 
-``solve_positions`` runs ``solve_positions_plain`` for CPU tensors and the
-launches of ``csrc/positions.cu`` (two an iteration) for CUDA ones.  The
+``solve_positions`` runs ``solve_positions_plain`` for CPU tensors and,
+for CUDA ones, ``csrc/positions.cu``: one launch an iteration, each body
+computing its own entries' impulses (a group of lanes a body, a slot a
+lane), from one packed argument checked against a plan of its shape.  The
 twin's sums run in an explicit order (the first term, then each next one
 added), which the kernel repeats.
 """
 
 from __future__ import annotations
+
+import struct
 
 import torch
 
@@ -80,6 +84,30 @@ def solve_positions_plain(pos, inv_mass, awake, static_rows, pair_rows, table, s
     return pos
 
 
+# csrc/positions.cu:PositionsArgs: 14 input pointers, the scratch and the output;
+# N, K, Q, WM, CPB, iters; beta.
+_PACK = struct.Struct("=16q6qd")
+MAX_WM = 8          # csrc/positions.cu:kMaxRows
+_plans = {}
+_NAMES = ("pos", "inv_mass", "awake", "static valid", "static normal", "static penetration",
+          "pair a", "pair b", "pair valid", "pair normal", "pair penetration", "table", "sign",
+          "contact_slop")
+
+
+class _Plan:
+    """KU's checks for one (N, K, Q, WM, CPB, device): the 14 inputs'
+    dtypes and shapes in the kernel's order."""
+
+    def __init__(self, n, k, q, wm, cpb, device):
+        f32, i32, bl = torch.float32, torch.int32, torch.bool
+        if not 1 <= wm <= MAX_WM:
+            raise ValueError(f"solve_positions: wm = {wm}, the kernel takes 1 to {MAX_WM}")
+        self.device = device
+        self.dtypes = (f32, f32, bl, bl, f32, f32, i32, i32, bl, f32, f32, i32, f32, f32)
+        self.shapes = ((n, 3), (n,), (n,), (n * k,), (n * k, 3), (n * k,), (q * wm,), (q * wm,),
+                       (q * wm,), (q * wm, 3), (q * wm,), (n, cpb), (n, cpb), ())
+
+
 def solve_positions(pos, inv_mass, awake, static_rows, pair_rows, table, sign, slop,
                     iters: int = 2, beta: float = 0.25, wm: int = 1):
     """KU: the corrected positions [N, 3] (a new tensor)."""
@@ -89,32 +117,21 @@ def solve_positions(pos, inv_mass, awake, static_rows, pair_rows, table, sign, s
     global launches
     dev = pos.device
     n = pos.shape[0]
-    s_valid, s_normal, s_pen = static_rows
-    p_a, p_b, p_valid, p_normal, p_pen = pair_rows
-    K = s_valid.shape[0] // n
-    Q = p_a.shape[0] // wm
+    k = static_rows[0].shape[0] // max(n, 1)
+    q = pair_rows[0].shape[0] // wm
     cpb = table.shape[1]
-    f32, i32 = torch.float32, torch.int32
-    for t, name, dt, shp in ((pos, "pos", f32, (n, 3)), (inv_mass, "inv_mass", f32, (n,)),
-                             (awake, "awake", torch.bool, (n,)),
-                             (s_valid, "static valid", torch.bool, (n * K,)),
-                             (s_normal, "static normal", f32, (n * K, 3)),
-                             (s_pen, "static penetration", f32, (n * K,)),
-                             (p_a, "pair a", i32, (Q * wm,)), (p_b, "pair b", i32, (Q * wm,)),
-                             (p_valid, "pair valid", torch.bool, (Q * wm,)),
-                             (p_normal, "pair normal", f32, (Q * wm, 3)),
-                             (p_pen, "pair penetration", f32, (Q * wm,)),
-                             (table, "table", i32, (n, cpb)), (sign, "sign", f32, (n, cpb)),
-                             (slop, "contact_slop", f32, ())):
-        build.check(t, name, dt, shp, dev)
+    plan = build.plan(_plans, (n, k, q, wm, cpb, dev), lambda: _Plan(n, k, q, wm, cpb, dev))
+    ins = (pos, inv_mass, awake) + tuple(static_rows) + tuple(pair_rows) + (table, sign, slop)
+    build.check_all(plan.device, ins, _NAMES, plan.dtypes, plan.shapes)
     if iters == 0:
         return pos.clone()
-    buf = torch.empty((2 * n * 3 + max(Q, 1) * 3,), dtype=f32, device=dev)
-    out = buf[:n * 3].view(n, 3)
-    ping = buf[n * 3:2 * n * 3]
-    imp = buf[2 * n * 3:]
-    build.launch("solve_positions", pos, inv_mass, awake, s_valid, s_normal, s_pen, p_a, p_b,
-                 p_valid, p_normal, p_pen, table, sign, slop, float(beta), n, K, Q, wm, cpb,
-                 iters, imp, ping, out)
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    # A scratch only where an iteration lands outside ``out``, held until
+    # the launch is queued: freed earlier, another thread's allocation on
+    # this stream could take its memory before the kernel writes it.
+    scratch = torch.empty((n, 3), dtype=torch.float32, device=dev) if iters > 1 else None
+    build.launch_packed("solve_positions", _PACK.pack(
+        *(t.data_ptr() for t in ins), 0 if scratch is None else scratch.data_ptr(),
+        out.data_ptr(), n, k, q, wm, cpb, iters, float(beta)))
     launches += 1
     return out

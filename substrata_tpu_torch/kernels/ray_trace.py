@@ -169,19 +169,20 @@ def _ray_shapes(o, d, st, prm, pos, q, hulls: HullLibrary):
 
 def _ray_triangle(o, d, v0, v1, v2):
     """queries.py:_ray_triangle (Moller-Trumbore) -> (t, BIG on a miss;
-    unit normal facing the ray)."""
+    unit normal facing the ray).  Rounded as the jitted reference: its
+    ``jnp.cross`` and ``jnp.linalg.norm`` contracted, its ``jnp.dot`` not."""
     e1, e2 = v1 - v0, v2 - v0
-    p = quatm.cross(d, e2)
+    p = quatm.cross_fma(d, e2)
     det = quatm.dot3(e1, p)
     inv_det = 1.0 / torch.where(torch.abs(det) > 1e-12, det, 1e-12)
     s = o - v0
     u = quatm.dot3(s, p) * inv_det
-    qv = quatm.cross(s, e1)
+    qv = quatm.cross_fma(s, e1)
     v = quatm.dot3(d, qv) * inv_det
     t = quatm.dot3(e2, qv) * inv_det
     ok = (torch.abs(det) > 1e-12) & (u >= 0) & (v >= 0) & (u + v <= 1) & (t >= 0)
-    n = quatm.cross(e1, e2)
-    n = n / torch.clamp(torch.sqrt(quatm.dot3(n, n)), min=1e-12)[..., None]
+    n = quatm.cross_fma(e1, e2)
+    n = n / torch.clamp(fp.sqrt(quatm.dot3_fma(n, n)), min=1e-12)[..., None]
     n = torch.where((quatm.dot3(n, d) > 0)[..., None], -n, n)
     return torch.where(ok, t, BIG), n
 

@@ -44,6 +44,7 @@ import struct
 import torch
 
 from substrata_tpu_torch.kernels import build
+from substrata_tpu_torch.maths import fp
 from substrata_tpu_torch.maths import quat as quatm
 
 launches = 0
@@ -272,22 +273,29 @@ def _bf16(x):
 
 
 def _dir_sum(d, dirs):
-    """d[..., 0] dirs[..., 0, :] + d[..., 1] dirs[..., 1, :] + d[..., 2] dirs[..., 2, :]."""
-    return (d[..., 0:1] * dirs[..., 0, :] + d[..., 1:2] * dirs[..., 1, :]
-            + d[..., 2:3] * dirs[..., 2, :])
+    """d[..., 0] dirs[..., 0, :] + d[..., 1] dirs[..., 1, :] + d[..., 2] dirs[..., 2, :],
+    as the jitted reference contracts the sum: fma(d2, m2, fma(d0, m0, d1 m1))."""
+    return fp.fma(d[..., 2:3], dirs[..., 2, :],
+                  fp.fma(d[..., 0:1], dirs[..., 0, :], d[..., 1:2] * dirs[..., 1, :]))
 
 
 def _project(v, dirs, k, target, fric, y, l_old, beta):
     """FISTA projected update of rows [..., 3] from relative velocity v."""
-    vn = quatm.dot3(v, dirs[..., 0, :])
+    vn = quatm.dot3_fma(v, dirs[..., 0, :])
     ln = torch.clamp(y[..., 0] + (target - vn) / k[..., 0], min=0.0)
-    vt1 = quatm.dot3(v, dirs[..., 1, :])
-    vt2 = quatm.dot3(v, dirs[..., 2, :])
+    vt1 = quatm.dot3_fma(v, dirs[..., 1, :])
+    vt2 = quatm.dot3_fma(v, dirs[..., 2, :])
     mf = fric * ln
     lt1 = torch.minimum(torch.maximum(y[..., 1] - vt1 / k[..., 1], -mf), mf)
     lt2 = torch.minimum(torch.maximum(y[..., 2] - vt2 / k[..., 2], -mf), mf)
     l_new = torch.stack([ln, lt1, lt2], dim=-1)
-    return l_new + beta * (l_new - l_old), l_new
+    return fp.fma(beta, l_new - l_old, l_new), l_new    # l + beta (l - l0), contracted
+
+
+def _velocity_update(linvel, im, dlin):
+    """linvel + im dlin, contracted as the jitted solve contracts it:
+    fma(im, dlin, linvel) in every component."""
+    return fp.fma(im[:, None], dlin, linvel)
 
 
 def _seq_sum(x, dim):
@@ -307,13 +315,13 @@ def solve_iteration_plain(rows: ContactRows, st: SolveState, linvel, angvel,
     if warm:
         ds, dp, new = st.s_y, st.p_y, st
     else:
-        v_s = linvel[:, None, :] + quatm.cross(angvel[:, None, :], rows.s_r)
+        v_s = linvel[:, None, :] + quatm.cross_fma(angvel[:, None, :], rows.s_r)
         s_y, s_l = _project(v_s, rows.s_dir, rows.s_k, rows.s_target,
                             rows.s_fric, st.s_y, st.s_l, beta)
         vv = _bf16(torch.cat([linvel, angvel], dim=1))[rows.p_ab.long()]
         wa, wb = vv[:q, None, :], vv[q:, None, :]
-        v_a = wa[..., :3] + quatm.cross(wa[..., 3:], rows.p_ra)
-        v_b = wb[..., :3] + quatm.cross(wb[..., 3:], rows.p_rb)
+        v_a = wa[..., :3] + quatm.cross_fma(wa[..., 3:], rows.p_ra)
+        v_b = wb[..., :3] + quatm.cross_fma(wb[..., 3:], rows.p_rb)
         p_y, p_l = _project(v_a - v_b, rows.p_dir, rows.p_k, rows.p_target,
                             rows.p_fric, st.p_y, st.p_l, beta)
         ds, dp = s_y - st.s_y, p_y - st.p_y
@@ -330,7 +338,7 @@ def solve_iteration_plain(rows: ContactRows, st: SolveState, linvel, angvel,
     out_l = _seq_sum(g[..., 0:3] * w[..., 0:1], 1)
     out_a = _seq_sum(g[..., 3:6] * w[..., 1:2], 1)
     out_b = _seq_sum(g[..., 6:9] * w[..., 2:3], 1)
-    linvel = linvel + rows.im[:, None] * (out_l + dlin_s)
+    linvel = _velocity_update(linvel, rows.im, out_l + dlin_s)
     angvel = angvel + out_a + out_b + dang_s
     return new, linvel, angvel
 

@@ -33,6 +33,7 @@ import torch
 
 from substrata_tpu_torch.kernels import build
 from substrata_tpu_torch.kernels.solve import _KQ_FIELDS, ContactRows, SolveWork
+from substrata_tpu_torch.maths import fp
 from substrata_tpu_torch.maths import quat as quatm
 from substrata_tpu_torch.maths import transform as tmath
 
@@ -50,18 +51,19 @@ def cache_hash(a, k, size: int):
 
 
 def tangent_basis(n):
-    """Orthonormal (t1, t2) perpendicular to n [..., 3]."""
+    """Orthonormal (t1, t2) perpendicular to n [..., 3], rounded as the
+    jitted reference contracts ``jnp.cross`` and ``jnp.linalg.norm``."""
     c = (torch.abs(n[..., 0:1]) < 0.9).to(n.dtype)    # x axis, else y axis
     ax = torch.cat([c, 1.0 - c, torch.zeros_like(c)], dim=-1)
-    t1 = quatm.cross(ax, n)
-    t1 = t1 / torch.clamp(torch.sqrt(quatm.dot3(t1, t1)), min=1e-9)[..., None]
-    return t1, quatm.cross(n, t1)
+    t1 = quatm.cross_fma(ax, n)
+    t1 = t1 / torch.clamp(fp.sqrt(quatm.dot3_fma(t1, t1)), min=1e-9)[..., None]
+    return t1, quatm.cross_fma(n, t1)
 
 
 def _mat_vec_rows(iw, v):
-    """iw [M, 3, 3] applied to v [M, ..., 3]."""
+    """iw [M, 3, 3] applied to v [M, ..., 3], as the reference's einsum."""
     shape = (iw.shape[0],) + (1,) * (v.dim() - 2) + (3, 3)
-    return tmath.mat_vec(iw.reshape(shape), v)
+    return tmath.mat_vec_fma(iw.reshape(shape), v)
 
 
 def _clamp_warm(w, fric, validf):
@@ -103,10 +105,10 @@ def solve_setup_plain(body, static_cts, pair_cts, table, sign, baumgarte, restit
     t1_s, t2_s = tangent_basis(nrm_s)
     r_s = static_cts.point.reshape(n, K, 3) - body.pos[:, None, :]
     d_s = torch.stack([nrm_s, t1_s, t2_s], dim=2)             # [N, K, 3, 3]
-    rx_s = quatm.cross(r_s[:, :, None, :], d_s)
+    rx_s = quatm.cross_fma(r_s[:, :, None, :], d_s)
     term_s = _mat_vec_rows(iw, rx_s)                          # Iw (r x d)
     k_s = torch.clamp((inv_mass * c_body)[:, None, None]
-                      + quatm.dot3(rx_s, term_s) * c_body[:, None, None], min=1e-9)
+                      + quatm.dot3_fma(rx_s, term_s) * c_body[:, None, None], min=1e-9)
 
     # Pair class: [Q entries, wm rows].
     bview = torch.cat([body.pos, inv_mass[:, None], c_body[:, None],
@@ -118,21 +120,21 @@ def solve_setup_plain(body, static_cts, pair_cts, table, sign, baumgarte, restit
     nrm_p = pair_cts.normal.reshape(Q, wm, 3)
     t1_p, t2_p = tangent_basis(nrm_p)
     d_p = torch.stack([nrm_p, t1_p, t2_p], dim=2)             # [Q, wm, 3, 3]
-    ra_x = quatm.cross(r_a[:, :, None, :], d_p)
-    rb_x = quatm.cross(r_b[:, :, None, :], d_p)
+    ra_x = quatm.cross_fma(r_a[:, :, None, :], d_p)
+    rb_x = quatm.cross_fma(r_b[:, :, None, :], d_p)
     term_a = _mat_vec_rows(va[:, 5:14].reshape(Q, 3, 3), ra_x)
     term_b = _mat_vec_rows(vb[:, 5:14].reshape(Q, 3, 3), rb_x)
     c_a, c_b = va[:, 4], vb[:, 4]
     k_p = torch.clamp((va[:, 3] * c_a + vb[:, 3] * c_b)[:, None, None]
-                      + quatm.dot3(ra_x, term_a) * c_a[:, None, None]
-                      + quatm.dot3(rb_x, term_b) * c_b[:, None, None], min=1e-9)
+                      + quatm.dot3_fma(ra_x, term_a) * c_a[:, None, None]
+                      + quatm.dot3_fma(rb_x, term_b) * c_b[:, None, None], min=1e-9)
 
     # Targets from the pre-solve relative velocities (pairs via bf16).
-    v0_s = body.linvel[:, None, :] + quatm.cross(body.angvel[:, None, :], r_s)
+    v0_s = body.linvel[:, None, :] + quatm.cross_fma(body.angvel[:, None, :], r_s)
     vv = torch.cat([body.linvel, body.angvel], dim=1).to(torch.bfloat16).to(torch.float32)
     wa, wb = vv[a_eg][:, None, :], vv[b_eg][:, None, :]
-    v0_p = ((wa[..., :3] + quatm.cross(wa[..., 3:], r_a))
-            - (wb[..., :3] + quatm.cross(wb[..., 3:], r_b)))
+    v0_p = ((wa[..., :3] + quatm.cross_fma(wa[..., 3:], r_a))
+            - (wb[..., :3] + quatm.cross_fma(wb[..., 3:], r_b)))
 
     def vn_target(pen, rest, vn0):
         rt = torch.where(vn0 < -restitution_threshold, -rest * vn0, -torch.inf)
@@ -142,9 +144,9 @@ def solve_setup_plain(body, static_cts, pair_cts, table, sign, baumgarte, restit
                            pen / dt)
         return torch.maximum(bias, rt)
 
-    target_s = vn_target(pen_s, rest_s, quatm.dot3(v0_s, nrm_s))
+    target_s = vn_target(pen_s, rest_s, quatm.dot3_fma(v0_s, nrm_s))
     target_p = vn_target(pair_cts.penetration.reshape(Q, wm),
-                         pair_cts.restitution.reshape(Q, wm), quatm.dot3(v0_p, nrm_p))
+                         pair_cts.restitution.reshape(Q, wm), quatm.dot3_fma(v0_p, nrm_p))
 
     signv = sign * (table >= 0)
     rows = ContactRows(

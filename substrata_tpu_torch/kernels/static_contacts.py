@@ -33,8 +33,8 @@ import struct
 import torch
 
 from substrata_tpu_torch.kernels import build
-from substrata_tpu_torch.kernels.box_box import CONTACT_MARGIN, _norm3, combine_friction
-from substrata_tpu_torch.kernels.closed_forms import closest_point_triangle, safe_normalize
+from substrata_tpu_torch.kernels.box_box import CONTACT_MARGIN, combine_friction
+from substrata_tpu_torch.kernels.closed_forms import closest_point_triangle, safe_normalize_fma
 from substrata_tpu_torch.maths import fp
 from substrata_tpu_torch.maths import quat as quatm
 from substrata_tpu_torch.physics.state import (BodyState, Heightfield, HullLibrary, ShapeType,
@@ -56,20 +56,22 @@ RING_SIN = [float.fromhex(x) for x in (
 def hull_sample_local(quat, hverts):
     """A hull's 8 local sample points (narrowphase.py:833-852): the vertex
     of ``hverts`` [N, V, 3] furthest along world-down in the local frame
-    and a 30° ring of 8 directions around it, the first on ties."""
+    and a 30° ring of 8 directions around it, the first on ties.  The
+    frame's cross products and norm, the ring's u1 cos + u2 sin and the
+    scores round as the jitted reference contracts them."""
     n, dev = quat.shape[0], quat.device
     down = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     down[:, 2] = -1.0
     down_l = quatm.inverse_rotate_vec(quat, down)
     ax = torch.where((torch.abs(down_l[:, 0:1]) < 0.9), quatm.basis((n,), 0, dev),
                      quatm.basis((n,), 1, dev))
-    u1 = quatm.cross(ax, down_l)
-    u1 = u1 / torch.clamp(_norm3(u1), min=1e-9)[:, None]
-    u2 = quatm.cross(down_l, u1)
+    u1 = quatm.cross_fma(ax, down_l)
+    u1 = u1 / torch.clamp(fp.sqrt(quatm.dot3_fma(u1, u1)), min=1e-9)[:, None]
+    u2 = quatm.cross_fma(down_l, u1)
     c = torch.tensor(RING_COS, dtype=torch.float32, device=dev)[None, :, None]
     s = torch.tensor(RING_SIN, dtype=torch.float32, device=dev)[None, :, None]
-    dirs = down_l[:, None, :] * 0.866 + (u1[:, None, :] * c + u2[:, None, :] * s) * 0.5
-    scores = quatm.dot3(hverts[:, None, :, :], dirs[:, :, None, :])        # [N, 8, V]
+    dirs = down_l[:, None, :] * 0.866 + fp.fma(u1[:, None, :], c, u2[:, None, :] * s) * 0.5
+    scores = quatm.dot3_fma(hverts[:, None, :, :], dirs[:, :, None, :])    # [N, 8, V]
     sel = torch.argmax(scores, dim=-1)
     return torch.gather(hverts, 1, sel[..., None].expand(n, 8, 3))
 
@@ -135,9 +137,9 @@ def trimesh_sphere_rows(tm: TriMesh, pts, rad, k: int):
     p = pts[:, None, :].expand(v0.shape)
     cp = closest_point_triangle(p, v0, v1, v2)
     delta = p - cp
-    dist = _norm3(delta)
-    tri_n = safe_normalize(quatm.cross(v1 - v0, v2 - v0))
-    side = quatm.dot3(p - v0, tri_n)
+    dist = fp.sqrt(quatm.dot3_fma(delta, delta))
+    tri_n = safe_normalize_fma(quatm.cross_fma(v1 - v0, v2 - v0))
+    side = quatm.dot3_fma(p - v0, tri_n)
     sdist = torch.where(side >= 0, dist, -dist)
     pen = torch.where(cand_ok, rad[:, None] - sdist, -1e9)
     cn = torch.where(((dist > 1e-6) & (side >= 0))[..., None],

@@ -55,16 +55,22 @@ def setup_views(buf: torch.Tensor, v: int) -> dict:
     return out
 
 
+def up_axis_os(y_fwd_quat):
+    """Each vehicle's up axis in its body's frame (manager.py:621-622): the
+    cross of its right and forward axes, contracted as jitted."""
+    inv_yq = quatm.conjugate(y_fwd_quat)
+    lead, dev = y_fwd_quat.shape[:-1], y_fwd_quat.device
+    return quatm.cross_fma(quatm.rotate_vec(inv_yq, quatm.basis(lead, 0, dev)),
+                           quatm.rotate_vec(inv_yq, quatm.basis(lead, 1, dev)))
+
+
 def vehicle_setup_plain(body_slot, y_fwd_quat, wheel_attach, wheel_radius, sus_max, pos, quat,
                         linvel, angvel, inv_mass, inv_inertia):
     v = body_slot.shape[0]
     dev = pos.device
     slots = torch.clamp(body_slot, min=0).long()
     p, q = pos[slots], quat[slots]
-    inv_yq = quatm.conjugate(y_fwd_quat)
-    up_os = quatm.cross(quatm.rotate_vec(inv_yq, quatm.basis((v,), 0, dev)),
-                        quatm.rotate_vec(inv_yq, quatm.basis((v,), 1, dev)))
-    up_w = quatm.rotate_vec(q, up_os)
+    up_w = quatm.rotate_vec(q, up_axis_os(y_fwd_quat))
     attach_w = p[:, None, :] + quatm.rotate_vec(q[:, None, :], wheel_attach)
     buf = torch.empty((WORDS * v,), dtype=f32, device=dev)
     o = setup_views(buf, v)

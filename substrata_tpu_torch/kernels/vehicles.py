@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from substrata_tpu_torch.kernels import build
+from substrata_tpu_torch.maths import fp
 from substrata_tpu_torch.maths import quat as quatm
 from substrata_tpu_torch.maths import transform as tmath
 
@@ -89,7 +90,8 @@ def _interp3(x, xp, f0, f1, f2):
 
 
 def _norm(v):
-    return torch.sqrt(quatm.dot3(v, v))
+    """``jnp.linalg.norm`` as the jitted reference rounds it."""
+    return fp.sqrt(quatm.dot3_fma(v, v))
 
 
 def righting_torque_dv(quat, angvel, mass, iw, y_fwd_quat, dt, gain_vel=3.0,
@@ -104,7 +106,7 @@ def righting_torque_dv(quat, angvel, mass, iw, y_fwd_quat, dt, gain_vel=3.0,
     desired = quatm.mul(quatm.from_axis_angle(quatm.basis(lead, 2, dev), yaw), y_fwd_quat)
     axis, angle = quatm.to_axis_angle(quatm.mul(desired, quatm.conjugate(quat)))
     torque = (axis * angle[..., None] * gain_vel - angvel) * mass[..., None] * gain_torque
-    return tmath.mat_vec(iw, torque) * dt
+    return tmath.mat_vec_fma(iw, torque) * dt
 
 
 def vehicle_forces_plain(veh, inp, body_pos, body_quat, body_lin, body_ang, mass, iw,
@@ -124,7 +126,7 @@ def vehicle_forces_plain(veh, inp, body_pos, body_quat, body_lin, body_ang, mass
     rows = body_pos.shape[:1]
     fwd_os = quatm.rotate_vec(inv_yq, quatm.basis(rows, 1, dev))
     right_os = quatm.rotate_vec(inv_yq, quatm.basis(rows, 0, dev))
-    up_os = quatm.cross(right_os, fwd_os)
+    up_os = quatm.cross_fma(right_os, fwd_os)
     fwd_w = quatm.rotate_vec(body_quat, fwd_os)
     right_w = quatm.rotate_vec(body_quat, right_os)
     up_w = quatm.rotate_vec(body_quat, up_os)
@@ -132,8 +134,8 @@ def vehicle_forces_plain(veh, inp, body_pos, body_quat, body_lin, body_ang, mass
 
     def force_at(force, point):
         """(dv, dw) of one force at a world point."""
-        tau = quatm.cross(point - body_pos, force)
-        return force * col(dt_m), tmath.mat_vec(iw, tau) * dt
+        tau = quatm.cross_fma(point - body_pos, force)
+        return force * col(dt_m), tmath.mat_vec_fma(iw, tau) * dt
 
     is_wheeled = (vt == VEHICLE_CAR) | (vt == VEHICLE_BIKE)
     is_bike = vt == VEHICLE_BIKE
@@ -167,17 +169,17 @@ def vehicle_forces_plain(veh, inp, body_pos, body_quat, body_lin, body_ang, mass
     ca, sa = torch.cos(new_steering), torch.sin(new_steering)
     steered = fwd_w * col(ca) - right_w * col(sa)
     wheel_fwd = torch.where(is_front[..., None], steered[:, None, :], fwd_w[:, None, :])
-    wfl = wheel_fwd - hit_n * quatm.dot3(wheel_fwd, hit_n)[..., None]
+    wfl = wheel_fwd - hit_n * quatm.dot3_fma(wheel_fwd, hit_n)[..., None]
     wfl = wfl / torch.clamp(_norm(wfl), min=1e-6)[..., None]
-    wlat = quatm.cross(hit_n, wfl)
-    v_cp = body_lin[:, None, :] + quatm.cross(body_ang[:, None, :].expand(-1, MAX_WHEELS, 3),
+    wlat = quatm.cross_fma(hit_n, wfl)
+    v_cp = body_lin[:, None, :] + quatm.cross_fma(body_ang[:, None, :].expand(-1, MAX_WHEELS, 3),
                                               contact_pt - body_pos[:, None, :])
-    v_long = quatm.dot3(v_cp, wfl)
-    v_lat = quatm.dot3(v_cp, wlat)
+    v_long = quatm.dot3_fma(v_cp, wfl)
+    v_lat = quatm.dot3_fma(v_cp, wlat)
 
     # Drivetrain.
     driven = torch.where(col(is_bike), widx == 1, widx < 2)
-    speed_fwd = quatm.dot3(body_lin, fwd_w)
+    speed_fwd = quatm.dot3_fma(body_lin, fwd_w)
     omega_avg = torch.abs(speed_fwd) / veh.wheel_radius
     in_reverse = (inp.forward < -0.01) & (speed_fwd < 0.5)
     brake_from_input = (inp.forward < -0.01) & (speed_fwd >= 0.5)
@@ -257,12 +259,12 @@ def vehicle_forces_plain(veh, inp, body_pos, body_quat, body_lin, body_ang, mass
     yaw_rate = speed_fwd * torch.tan(new_steering) / wheelbase
     lean_target = torch.clamp(torch.atan2(speed_fwd * yaw_rate, torch.full_like(yaw_rate, 9.81)),
                               -0.9, 0.9)
-    lean_cur = torch.atan2(quatm.dot3(quatm.cross(quatm.basis(rows, 2, dev), up_w), fwd_w),
-                           up_w[:, 2])
-    lean_rate = quatm.dot3(body_ang, fwd_w)
+    z_up = quatm.cross_fma(quatm.basis(rows, 2, dev), up_w)
+    lean_cur = torch.atan2(quatm.dot3_fma(z_up, fwd_w), up_w[:, 2])
+    lean_rate = quatm.dot3_fma(body_ang, fwd_w)
     lean_tau = (fwd_w * col((lean_target - lean_cur) * veh.lean_spring
                             - lean_rate * veh.lean_damping) * col(mass) * 0.1)
-    dw = dw + torch.where(col(is_bike & active), tmath.mat_vec(iw, lean_tau) * dt, 0.0)
+    dw = dw + torch.where(col(is_bike & active), tmath.mat_vec_fma(iw, lean_tau) * dt, 0.0)
 
     # Boat: thrust and rudder at the propeller while it is under water.
     prop_w = body_pos + quatm.rotate_vec(body_quat, veh.propellor_os)
@@ -270,7 +272,7 @@ def vehicle_forces_plain(veh, inp, body_pos, body_quat, body_lin, body_ang, mass
     thrust_dir = fwd_w - up_w * 0.2 - right_w * col(inp.right * veh.thrust_lateral)
     thrust_dir = thrust_dir / torch.clamp(_norm(thrust_dir), min=1e-6)[:, None]
     dv_b, dw_b = force_at(thrust_dir * col(veh.thrust_force * inp.forward), prop_w)
-    fwd_vel = quatm.dot3(body_lin, fwd_w)
+    fwd_vel = quatm.dot3_fma(body_lin, fwd_w)
     a, b = force_at(right_w * col(-inp.right * fwd_vel * veh.rudder_factor), prop_w)
     dv_b2, dw_b2 = dv_b + a, dw_b + b
     boat_on = (vt == VEHICLE_BOAT) & active & prop_submerged
@@ -282,9 +284,9 @@ def vehicle_forces_plain(veh, inp, body_pos, body_quat, body_lin, body_ang, mass
     v_mag = _norm(body_lin)
     nv = body_lin / torch.clamp(v_mag, min=1e-6)[:, None]
     submerged = body_pos[:, 2] < water_z + 1.0
-    proj = (torch.abs(quatm.dot3(nv, fwd_w)) * veh.areas[:, 0] * 0.1
-            + torch.abs(quatm.dot3(nv, right_w)) * veh.areas[:, 1] * 0.5
-            + torch.abs(quatm.dot3(nv, up_w)) * veh.areas[:, 2] * 0.75)
+    proj = (torch.abs(quatm.dot3_fma(nv, fwd_w)) * veh.areas[:, 0] * 0.1
+            + torch.abs(quatm.dot3_fma(nv, right_w)) * veh.areas[:, 1] * 0.5
+            + torch.abs(quatm.dot3_fma(nv, up_w)) * veh.areas[:, 2] * 0.75)
     f_d_mag = 0.5 * 1020.0 * v_mag * v_mag * proj
     drag_dv = -nv * col(f_d_mag) * col(dt_m)
     drag_dv = torch.where(col(_norm(drag_dv) > v_mag), -body_lin, drag_dv)
@@ -301,7 +303,7 @@ def vehicle_forces_plain(veh, inp, body_pos, body_quat, body_lin, body_ang, mass
     yaw_tau = up_w * col(mass * -3.0 * inp.right)
     roll_tau = fwd_w * col(mass * 2.0 * inp.right)
     dv_h = (hover_f + fwd_f + extra_up) * col(dt_m)
-    dw_h = tmath.mat_vec(iw, pitch_tau + yaw_tau + roll_tau) * dt
+    dw_h = tmath.mat_vec_fma(iw, pitch_tau + yaw_tau + roll_tau) * dt
     dw_h = dw_h + righting_torque_dv(body_quat, body_ang, mass, iw, veh.y_fwd_quat, dt)
     unflip = veh.unflip_time
     new_unflip = torch.where(unflip > 0, torch.where(cos_theta > 0.2, -1.0, unflip - dt),
@@ -309,9 +311,9 @@ def vehicle_forces_plain(veh, inp, body_pos, body_quat, body_lin, body_ang, mass
     lift = torch.zeros_like(dv_h)
     lift[:, 2] = 9.81 * dt
     dv_h = dv_h + torch.where(col((unflip > 0) & (cos_theta <= 0.2)), lift, 0.0)
-    proj_a = (torch.abs(quatm.dot3(nv, fwd_w)) * 2.0 * 0.2
-              + torch.abs(quatm.dot3(nv, right_w)) * 4.0 * 0.5
-              + torch.abs(quatm.dot3(nv, up_w)) * 8.0 * 0.75)
+    proj_a = (torch.abs(quatm.dot3_fma(nv, fwd_w)) * 2.0 * 0.2
+              + torch.abs(quatm.dot3_fma(nv, right_w)) * 4.0 * 0.5
+              + torch.abs(quatm.dot3_fma(nv, up_w)) * 8.0 * 0.75)
     f_ad = -nv * col(0.5 * 1.293 * v_mag * v_mag * proj_a)
     dv_h = dv_h + torch.where(col(v_mag > 1e-3), f_ad * col(dt_m), 0.0)
     hover_on = (vt == VEHICLE_HOVER) & active

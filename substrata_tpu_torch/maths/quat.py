@@ -75,6 +75,13 @@ def cross_fma(a, b):
                         fp.fma(ax, by, -(ay * bx))], dim=-1)
 
 
+def dot3_fma(a, b):
+    """``dot3`` as XLA reduces ``jnp.sum(a * b, -1)``, ``jnp.linalg.norm``'s
+    square and a 3-wide einsum: fma(a2, b2, fma(a1, b1, a0 b0)).  A
+    ``jnp.dot`` of two vectors is not contracted: ``dot3`` rounds as it."""
+    return fp.dot3(a, b)
+
+
 def rotate_vec(q, v):
     """Rotate vector(s) v [..., 3] by quaternion(s) q [..., 4]:
     v + 2 (w (u x v) + u x (u x v)), rounded as every jitted program of the
@@ -111,7 +118,7 @@ def to_axis_angle(q):
     """(axis [..., 3], angle [...]) of a unit quaternion, angle in [0, pi];
     the axis is (1, 0, 0) where the rotation is the identity."""
     q = torch.where(q[..., 3:4] < 0, -q, q)
-    sin_half = torch.sqrt(dot3(q[..., :3], q[..., :3]))
+    sin_half = fp.sqrt(dot3_fma(q[..., :3], q[..., :3]))   # jnp.linalg.norm, as jitted
     angle = 2.0 * torch.atan2(sin_half, q[..., 3])
     safe = torch.clamp(sin_half, min=1e-12)[..., None]
     axis = torch.where(sin_half[..., None] < 1e-8, basis(q.shape[:-1], 0, q.device),

@@ -46,6 +46,12 @@ def mat_vec(m, v):
                         + m[..., i, 2] * v[..., 2] for i in range(3)], dim=-1)
 
 
+def mat_vec_fma(m, v):
+    """``mat_vec`` as XLA contracts a 3-wide einsum: each entry
+    ``quat.dot3_fma`` of a row of m and v."""
+    return torch.stack([quatm.dot3_fma(m[..., i, :], v) for i in range(3)], dim=-1)
+
+
 def box_inertia(half_extents, mass):
     """Diagonal local inertia of a solid box; he: [..., 3]."""
     hx, hy, hz = half_extents[..., 0], half_extents[..., 1], half_extents[..., 2]
