@@ -94,7 +94,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    contacts), with transform writes and a teleport, on the card matches
    the CPU path over 40 ticks;
 12. the hull and trimesh kernels: KO (convex SAT contacts) on 4,096 seeded
-   random pairs of each hull code and on the mesh world's real buckets,
+   random pairs of each hull code, on kernels/hard_cases.py's hull-contact
+   scenes and on the mesh world's real buckets (one launch a step, with
+   its host µs per call),
    KB with hull samples and the static trimesh, KH on the client's
    occlusion rays and 2,048 seeded rays into the field, KL at t = 0, 1,
    2 s of the walk on the mesh world and on a trimesh step, each against
@@ -148,7 +150,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    aten sort, argsort, cumsum, cummax or searchsorted runs inside a
    ``physics_step`` range;
 16. the terrain, spawn and pose kernels: KW, KX, KY and KZ against their
-   twins (see terrain_kernel_phase); KW's heights-only call timed beside
+   twins (see terrain_kernel_phase; KZ also on kernels/hard_cases.py's
+   pose scenes); KW's heights-only call timed beside
    grid_sample's bilinear heights at the same 65,536 points (ms, device µs
    and host µs of each, and KW's ms over grid_sample's), heights and
    normals apart, and the clamp's one point (ms, device and host µs);
@@ -1935,15 +1938,54 @@ def hull_library(device):
     return w.static_world.hulls
 
 
+KO_OUTPUTS = ("a", "b", "point", "normal", "penetration", "valid", "friction", "restitution",
+              "key", "touching")
+
+
+def _ko_rows_compare(rk, rp, what):
+    """KO's 10 outputs against its twin's, every bit (the kernel repeats the
+    twin's operations in its order).  Returns the largest error on the
+    valid rows' points, normals and depths (0)."""
+    for name, x, y in zip(KO_OUTPUTS, rk, rp):
+        check(same_bits(x, y), f"KO {what}: {name} differs from its twin's")
+    return max(max_err(rk[i], rp[i], rp[5]) for i in (2, 3, 4))
+
+
 def _ko_compare(args):
-    """KO against its twin: masks, ids, keys and touching exact; the error
-    on the valid rows' points, normals and depths."""
+    """KO on one bucket (``convex_rows``' arguments) against its twin."""
     from substrata_tpu_torch.kernels import convex as ko
     rk, rp = ko.convex_rows(*args), ko.convex_rows_plain(*args)
-    for i, name in ((0, "a"), (1, "b"), (5, "valid"), (6, "friction"), (7, "restitution"),
-                    (8, "key"), (9, "touching")):
-        check(torch.equal(rk[i], rp[i]), f"KO code {args[0]}: {name} differs")
-    return max(max_err(rk[i], rp[i], rp[5]) for i in (2, 3, 4)), rk
+    return _ko_rows_compare(rk, rp, f"code {args[0]}"), rk
+
+
+def _ko_step_compare(buckets, wms, blocked, rows, hulls, what):
+    """KO's one launch over a step's hull buckets against its twin, bucket
+    by bucket.  Returns (the largest error, [(``convex_rows``' arguments,
+    the bucket's rows)])."""
+    from substrata_tpu_torch.kernels import convex as ko
+    got = ko.convex_buckets(buckets, wms, blocked, *rows, hulls)
+    err, calls = 0.0, []
+    for (code, ba, bb, bv), wm, rk in zip(buckets, wms, got):
+        args = (code, wm, blocked, *rows, ba, bb, bv, hulls)
+        rp = ko.convex_rows_plain(*args)
+        err = max(err, _ko_rows_compare(rk, rp, f"{what} code {code}"))
+        calls.append((args, rk))
+    return err, calls
+
+
+def ko_hard_cases(device):
+    """KO against its twin on kernels/hard_cases.py's hull-contact scenes,
+    one launch a scene: {case: buckets [code, slots, occupied], touching}."""
+    from substrata_tpu_torch.kernels import hard_cases
+    out = {}
+    for case in hard_cases.CONVEX_CASES:
+        buckets, wms, blocked, *rows, lib = hard_cases.convex_inputs(
+            hard_cases.convex_scene(case), device)
+        err, calls = _ko_step_compare(buckets, wms, blocked, tuple(rows), lib, case)
+        out[case] = dict(buckets=[[int(b[0]), int(b[1].shape[0]), int(b[3].sum())]
+                                  for b in buckets],
+                         touching=int(sum(int(rk[9].sum()) for _, rk in calls)), max_abs_err=err)
+    return out
 
 
 def _side_sizes(stype, prm, hulls):
@@ -2157,9 +2199,9 @@ def mesh_kernel_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None, 
         for wm, blocked in ((4, True), (narrowphase._MANIFOLD_WIDTH[code], False)):
             args = (code, wm, blocked, pos, quat, prm, fr, re, sens, ba, ba + n, bv, hulls)
             err, rk = _ko_compare(args)
-            check(err <= 1e-5, f"KO code {code}: max abs err {err} > 1e-5")
             random_err = max(random_err, err)
         random_bounds[code] = _ko_work([(args, rk)], hulls)["bound_ms"]
+    ko_hard = ko_hard_cases(device)
 
     # The mesh world: KL at t = 0, 1, 2 s of the walk, then KO on its real
     # buckets, KB, KH on the occlusion rays and on 2,048 seeded rays.
@@ -2173,27 +2215,23 @@ def mesh_kernel_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None, 
         mesh_tick(w, p, t * DT, src)
     body, pc, cfg, sw = w.state, w.pair_cache, w.config, w.static_world
     bucket_list = narrowphase.buckets(body, pc.pair_a, pc.pair_b, pc.pair_valid, cfg)[0]
-    calls, real_err, valid_slots = [], 0.0, {}
-    for code, _, bba, bbb, bvalid in bucket_list:
-        if code not in ko.CODES:
-            continue
-        args = (code, narrowphase._MANIFOLD_WIDTH[code], False, body.pos, body.quat,
-                body.shape_params, body.friction, body.restitution, body.is_sensor, bba, bbb,
-                bvalid, sw.hulls)
-        err, rk = _ko_compare(args)
-        real_err = max(real_err, err)
-        calls.append((args, rk))
-        valid_slots[code] = int(bvalid.sum())
-    ko_args = [a for a, _ in calls]
-    results["convex_rows"] = dict(
-        max_abs_err=max(random_err, real_err), tol=1e-5, random_pairs_per_code=n,
-        random_pairs_bound_ms=random_bounds, valid_slots=valid_slots,
-        bucket_slots={a[0]: int(a[9].shape[0]) for a in ko_args},
-        **_ko_work(calls, sw.hulls),
-        ms=median_ms(lambda: [ko.convex_rows(*a) for a in ko_args]),
-        device_us_per_launch=device_us(lambda: [ko.convex_rows(*a) for a in ko_args],
-                                       "convex_rows"),
-        plain_ms=median_ms(lambda: [ko.convex_rows_plain(*a) for a in ko_args],
+    buckets = [(c, ba_, bb_, bv_) for c, _, ba_, bb_, bv_ in bucket_list if c in ko.CODES]
+    wm0 = narrowphase.blocked_manifold_width(cfg, body.capacity)
+    wms = tuple(wm0 or narrowphase._MANIFOLD_WIDTH[c] for c, *_ in buckets)
+    rows = (body.pos, body.quat, body.shape_params, body.friction, body.restitution,
+            body.is_sensor)
+    real_err, calls = _ko_step_compare(buckets, wms, bool(wm0), rows, sw.hulls, "mesh world")
+
+    def ko_run():
+        return ko.convex_buckets(buckets, wms, bool(wm0), *rows, sw.hulls)
+    results["convex_buckets"] = dict(
+        max_abs_err=max(random_err, real_err), tol=0.0, random_pairs_per_code=n,
+        random_pairs_bound_ms=random_bounds, launches_per_step=1,
+        valid_slots={b[0]: int(b[3].sum()) for b in buckets},
+        bucket_slots={b[0]: int(b[1].shape[0]) for b in buckets}, hard_cases=ko_hard,
+        **_ko_work(calls, sw.hulls), ms=median_ms(ko_run),
+        device_us_per_launch=device_us(ko_run, "convex_buckets"), **host_cost(ko_run),
+        plain_ms=median_ms(lambda: [ko.convex_rows_plain(*a) for a, _ in calls],
                            reps=plain_reps))
 
     # KB with hull samples and the trimesh.  Masks, ids and keys exact;
@@ -2263,6 +2301,27 @@ def mesh_kernel_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None, 
 # Phase 13: the mesh world's client frames.
 # ---------------------------------------------------------------------------
 
+KICK_SPEED = 20.0     # m/s: past this a body has been thrown (the trimesh sign rule)
+
+
+def thrown_now(st, idx=None):
+    """The bodies (or bodies ``idx``) thrown by the reference's trimesh sign
+    rule at this state: above 50 m, below -0.5 m or faster than KICK_SPEED.
+    On the device, with no sync.  A phase ors it over every tick the world
+    steps (load, warm and measured ticks alike): the rule throws a body
+    sideways as well as up or down, and a thrown body may overflow to NaN
+    long after (tests/test_torch_thrown_hull.py, on both packages)."""
+    pos, vel = (st.pos, st.linvel) if idx is None else (st.pos[idx], st.linvel[idx])
+    return (pos[:, 2] > 50.0) | (pos[:, 2] < -0.5) | (torch.linalg.vector_norm(vel, dim=1)
+                                                     > KICK_SPEED)
+
+
+def _first_frame(thrown_by):
+    """The first measured frame at which a body counted as thrown, or None."""
+    hit = torch.stack(thrown_by).any(dim=1)
+    return int(hit.nonzero()[0]) if bool(hit.any()) else None
+
+
 def mesh_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None,
                sync=torch.cuda.synchronize):
     """180 client frames (``mesh_tick``) of the mesh world.  Checks:
@@ -2270,7 +2329,7 @@ def mesh_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None,
     synchronising calls and (where the profiler sees the card) one
     host->device and two device->host copies a frame, the character's
     state finite, and every hull whose state is not finite at the end was
-    thrown (above 50 m or below -0.5 m) in an earlier frame.  The
+    thrown (``thrown_now``) at a frame the world stepped.  The
     reference's trimesh rule (ROADMAP.md queue 3) throws hulls that rest on
     or beside static cubes, up or down, some of them ever faster, and can
     drag the character below the ground: the hulls' heights, the thrown
@@ -2287,6 +2346,8 @@ def mesh_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None,
     sync()
     kernels.reset_launch_counts()
     times, hits, heights = [], [], []
+    thrown = torch.zeros(src.shape[0], dtype=torch.bool, device=src.device)
+    thrown_by = []
     for t in range(TICKS):
         sync()
         t1 = time.perf_counter()
@@ -2295,6 +2356,8 @@ def mesh_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None,
         times.append((time.perf_counter() - t1) * 1e3)
         hits.append(int(hit.sum()))
         heights.append(w.state.pos[src, 2].clone())
+        thrown |= thrown_now(w.state, src)
+        thrown_by.append(thrown.clone())
     counts = kernels.launch_counts()
     for name in MESH_KERNELS:
         check(counts[name] >= TICKS, f"kernel {name}: {counts[name]} launches in {TICKS} frames")
@@ -2303,6 +2366,7 @@ def mesh_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None,
     def tick():
         mesh_tick(w, p, state["t"] * DT, src)
         state["t"] += 1
+        thrown.logical_or_(thrown_now(w.state, src))
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -2321,7 +2385,6 @@ def mesh_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None,
     st = w.state
     alive = st.alive
     zs = torch.stack(heights)                                   # [frames, hulls]
-    thrown = ((zs > 50.0) | (zs < -0.5)).any(dim=0)
     finite = (torch.isfinite(st.pos[src]).all(dim=1) & torch.isfinite(st.quat[src]).all(dim=1)
               & torch.isfinite(st.linvel[src]).all(dim=1))
     check(bool((finite | thrown).all()),
@@ -2351,8 +2414,7 @@ def mesh_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None,
         hull_z_max=float(z.nanquantile(1.0)),
         hulls_below_minus_0_5=int((z < -0.5).sum()), hulls_above_50=int((z > 50).sum()),
         hulls_thrown=int(thrown.sum()), hulls_not_finite=int((~finite).sum()),
-        first_frame_thrown=int(((zs > 50.0) | (zs < -0.5)).any(dim=1).nonzero()[0])
-        if bool(thrown.any()) else None,
+        first_frame_thrown=_first_frame(thrown_by),
         unthrown_hull_z_range=[float(ok_z.min()), float(ok_z.max())],
         occlusion_hits_per_frame_median=float(np.median(hits)),
         character_foot=[float(x) for x in p.state.pos], player_on_ground=p.on_ground)
@@ -3400,6 +3462,7 @@ def _fk_library(local, rig, root):
 def terrain_kernel_phase(device="cuda", res=None, n_points=65_536, n_avatars=64, plain_reps=5):
     from substrata_tpu_torch import benchworld as bw
     from substrata_tpu_torch.anim import pose as apose
+    from substrata_tpu_torch.kernels import hard_cases
     from substrata_tpu_torch.kernels import pose as kz
     from substrata_tpu_torch.kernels import spawn as ky
     from substrata_tpu_torch.kernels import terrain as kt
@@ -3558,11 +3621,18 @@ def terrain_kernel_phase(device="cuda", res=None, n_points=65_536, n_avatars=64,
     for what, arr in moments.items():
         p = apose.pose_params_from_arrays(arr, device=device)
         _exact(kz.pose(bank, rig, p), kz.pose_plain(bank, rig, p), f"KZ {what}")
+    # KZ on kernels/hard_cases.py's pose scenes: {case: [avatars, joints]}.
+    kz_hard = {}
+    for case in hard_cases.POSE_CASES:
+        hb, hr, hp = hard_cases.pose_inputs(hard_cases.pose_scene(case), device)
+        _exact(kz.pose(hb, hr, hp), kz.pose_plain(hb, hr, hp), f"KZ {case}")
+        kz_hard[case] = [hp.count, int(hr.parent.shape[0])]
     p = apose.pose_params_from_arrays(moments["walk_frame_60"], device=device)
     local = kz.pose_plain(bank, rig, p)[0]     # any [A, J, 4, 4] of the right shape
     a, nj = p.count, rig.parent.shape[0]
     out["pose_avatars"] = dict(
         max_abs_err=0.0, tol=0.0, avatars=a, joints=nj, moments=list(moments),
+        hard_cases=kz_hard,
         **bound(a * nj * 4 * 28 + a * 500 + nj * 100 + 3 * a * nj * 64, a * nj * 600),
         ms=median_ms(lambda: kz.pose(bank, rig, p)),
         plain_ms=median_ms(lambda: kz.pose_plain(bank, rig, p), reps=plain_reps),
@@ -3941,7 +4011,6 @@ def setup_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, blocks=30, warm
 
 CLIENT_FRAMES = TICKS
 CLIENT_KERNELS = ("audio_setup", "audio_epilogue", "vehicle_setup", "vehicle_scatter")
-KICK_SPEED = 20.0     # m/s: past this a body has been thrown (the trimesh sign rule)
 
 
 def _winter_alike(app, t):
@@ -3962,8 +4031,8 @@ def client_phase(device="cuda", sync=torch.cuda.synchronize, frames=CLIENT_FRAME
     """``frames`` benchworld.client_tick frames of the client world (see
     ``benchworld.client_world``): the player walks, enters car 0 at frame
     90 and drives it.  Checks: every body of the world finite except
-    dynamic bodies thrown (above 50 m or below -0.5 m at some frame: the
-    trimesh sign rule, reported as phase 13 reports it), no unthrown
+    dynamic bodies thrown (``thrown_now`` at some frame: the trimesh sign
+    rule, reported as phase 13 reports it), no unthrown
     dynamic body below z = -0.5, the character finite while walking, car 0
     moved while driven, the audio finite, within [-1, 1], not silent and
     not mono, KAA's two entry points launched 3 times a frame and KAB's
@@ -3986,7 +4055,8 @@ def client_phase(device="cuda", sync=torch.cuda.synchronize, frames=CLIENT_FRAME
         car = app.objects[sc.car_uids[0]]
         sync()
         kernels.reset_launch_counts()
-        times, phases, outs, zs = [], [], [], []
+        times, phases, outs, thrown_by = [], [], [], []
+        thrown = torch.zeros(pw.state.capacity, dtype=torch.bool, device=pw.state.pos.device)
         car0 = None
         compares, extra = {}, {}
         for f in range(frames):
@@ -3997,7 +4067,8 @@ def client_phase(device="cuda", sync=torch.cuda.synchronize, frames=CLIENT_FRAME
             times.append((time.perf_counter() - t1) * 1e3)
             phases.append(dict(app.phase_ms))
             outs.append(out)
-            zs.append(pw.state.pos[:, 2].clone())
+            thrown |= thrown_now(pw.state)
+            thrown_by.append(thrown.clone())
             if f < sc.drive_from:
                 check(np.isfinite(app.player.get_eye_position()).all(),
                       f"frame {f}: the character is not finite")
@@ -4042,9 +4113,8 @@ def client_phase(device="cuda", sync=torch.cuda.synchronize, frames=CLIENT_FRAME
         ok, n_scripted = _winter_alike(app, float(np.float32((frames - 1) * DT)))
         check(ok, "the Winter results differ from KR's twin at the last frame")
         st = pw.state
-        z_all = torch.stack(zs)
         dyn = st.alive & (st.motion_type == 2)
-        thrown = ((z_all > 50.0) | (z_all < -0.5)).any(dim=0) & dyn
+        thrown &= dyn
         finite = (torch.isfinite(st.pos).all(dim=1) & torch.isfinite(st.quat).all(dim=1)
                   & torch.isfinite(st.linvel).all(dim=1))
         check(bool((finite | thrown | ~st.alive).all()), "a body that was never thrown has a "
@@ -4086,8 +4156,7 @@ def client_phase(device="cuda", sync=torch.cuda.synchronize, frames=CLIENT_FRAME
             audio_rms=rms, audio_lr_max=lr, pairs=int(d.num_pairs), contacts=int(d.num_contacts),
             awake=int(d.num_awake), dynamic_thrown=int(thrown.sum()),
             dynamic_not_finite=int((dyn & ~finite).sum()),
-            first_frame_thrown=int(((z_all > 50.0) | (z_all < -0.5))[:, dyn].any(dim=1)
-                                   .nonzero()[0]) if bool(thrown.any()) else None,
+            first_frame_thrown=_first_frame([t & dyn for t in thrown_by]),
             dynamic_z_median=float(zd.nanmedian()),
             player_eye=[float(x) for x in app.player.get_eye_position()],
             setup_compares=compares)
@@ -4378,9 +4447,9 @@ def networked_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None,
     ticks, ``prewarm_tiers``, the sender's stream thread, ``warm`` ticks,
     then ``ticks`` measured (host clock around each timer_event, as the
     bench times them).  Checks: every object replicated and loaded, every
-    body finite unless thrown (above 50 m or below -0.5 m at some measured
-    tick: the trimesh sign rule, as phases 13 and 19), no unthrown dynamic
-    body below -0.5 m, the digest and transform rings 3 deep (consumed 3
+    body finite unless thrown (``thrown_now`` at any tick from the first
+    load tick on: the trimesh sign rule, as phases 13 and 19), no unthrown
+    dynamic body below -0.5 m, the digest and transform rings 3 deep (consumed 3
     ticks late), the step's kernels launched every tick.  Reports ticks/s,
     ms p50/p90/max, phase_ms, syncs and copies per tick, the ring's waits
     and the card's busy ms and idle share over a profiled window."""
@@ -4393,8 +4462,17 @@ def networked_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None,
                             tls_context=tls_ctx)
     try:
         app, pw = sc.app, sc.app.physics_world
-        for _ in range(NET_LOAD_TICKS):
+        thrown = None
+
+        def tick():
+            nonlocal thrown
             bw.networked_tick(sc)
+            now = thrown_now(pw.state)
+            if thrown is not None:   # the world's capacity may grow a tier
+                now[:thrown.shape[0]] |= thrown[:now.shape[0]]
+            thrown = now
+        for _ in range(NET_LOAD_TICKS):
+            tick()
         check(len(app.objects) == n_objects, f"{len(app.objects)} of {n_objects} objects "
               "loaded after the load ticks")
         load_s = time.perf_counter() - t0
@@ -4404,23 +4482,22 @@ def networked_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None,
         prewarm_s = time.perf_counter() - t1
         bw.start_sender_stream(sc)
         for _ in range(warm):
-            bw.networked_tick(sc)
+            tick()
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         waits0 = pw._digest_pipeline.waits + pw._sync_pipeline.waits
-        times, phases, zs = [], [], []
+        times, phases = [], []
         t1 = time.perf_counter()
         for _ in range(ticks):
             a = time.perf_counter()
-            bw.networked_tick(sc)
+            tick()
             times.append((time.perf_counter() - a) * 1e3)
             phases.append(dict(app.phase_ms))
-            zs.append(pw.state.pos[:, 2].clone())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         counts = kernels.launch_counts()
         waits = pw._digest_pipeline.waits + pw._sync_pipeline.waits - waits0
-        for name in ("apply_tick_in", "digest_tblock", "character_update", "convex_rows",
+        for name in ("apply_tick_in", "digest_tblock", "character_update", "convex_buckets",
                      "static_contacts", "cell_table", "solve_setup", "sleep_pass"):
             check(counts[name] >= ticks, f"kernel {name}: {counts[name]} launches in {ticks} "
                   "networked ticks")
@@ -4430,9 +4507,8 @@ def networked_phase(device="cuda", n_objects=12_000, n_dynamic=512, cfg=None,
         check(sc.viewer.world_state.num_objects() == n_objects and len(app.objects) == n_objects,
               "not every object replicated")
         st = pw.state
-        z_all = torch.stack(zs)
         dyn = st.alive & (st.motion_type == 2)
-        thrown = ((z_all > 50.0) | (z_all < -0.5)).any(dim=0) & dyn
+        thrown = thrown & dyn
         finite = (torch.isfinite(st.pos).all(dim=1) & torch.isfinite(st.quat).all(dim=1)
                   & torch.isfinite(st.linvel).all(dim=1))
         check(bool((finite | thrown | ~st.alive).all()), "a body that was never thrown has a "
@@ -4584,7 +4660,8 @@ def shard_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, warm=30, plain_
     phases); KAE's keep on the slabs' stepped shards, its world count on
     4 kicked worlds' awake counts, its clipped sum on the 4 shards'
     blocks of bench.py's 256 sources.  Each timed as phase 3 times its
-    kernels; no single PyTorch call computes any of them (library_ms
+    kernels; the world count beside torch.sum of its stacked counts
+    (library_ms); no single PyTorch call computes the others (library_ms
     null)."""
     from substrata_tpu_torch.benchworld import bench_audio, bench_world
     from substrata_tpu_torch.kernels import halo, shard_reduce as kae
@@ -4633,7 +4710,9 @@ def shard_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, warm=30, plain_
     check(torch.equal(kae.world_count(counts), kae.world_count_plain(counts)),
           "KAE world count: differs from the twin")
     res["shard_world_count"] = dict(
-        max_abs_err=0.0, library_ms=None, total=int(kae.world_count(counts)),
+        max_abs_err=0.0, library_ms=median_ms(lambda: torch.sum(torch.stack(counts))),
+        library_call="torch.sum of the stacked counts (torch.stack, then one torch.sum)",
+        total=int(kae.world_count(counts)),
         **_timed(lambda: kae.world_count(counts), lambda: kae.world_count_plain(counts),
                  "world_count", 4 * len(counts) + 4, len(counts), plain_reps))
     src, pool, lis, _room = bench_audio(device)
@@ -4868,10 +4947,10 @@ SERVING_KERNELS = ("closed_form_rows", "character_update", "apply_tick_in",
                    "digest_tblock") + LAYOUT_KERNELS
 # Launched on every client frame (phase 19): think over hulls, boxes and the
 # trimesh, the transform writes, the digest.
-CLIENT_STEP_KERNELS = ("convex_rows", "static_contacts", "cell_table", "solve_setup",
+CLIENT_STEP_KERNELS = ("convex_buckets", "static_contacts", "cell_table", "solve_setup",
                        "cache_refresh", "solve_positions", "strike_wake", "sleep_pass",
                        "apply_tick_in", "digest_tblock")
-MESH_KERNELS = ("convex_rows", "static_contacts", "ray_trace", "character_update",
+MESH_KERNELS = ("convex_buckets", "static_contacts", "ray_trace", "character_update",
                 "apply_tick_in", "digest_tblock", "cell_table", "solve_setup",
                 "cache_refresh") + LAYOUT_KERNELS
 # Float32 operations per item, counted from the kernels' sources (rounded
@@ -4935,7 +5014,7 @@ KERNELS = [
      "substrata_tpu/physics/world.py:305"),
     ("digest_tblock", "cuda", "substrata_tpu_torch/csrc/serving_io.cu",
      "substrata_tpu/physics/world.py:258"),
-    ("convex_rows", "cuda", "substrata_tpu_torch/csrc/convex.cu",
+    ("convex_buckets", "cuda", "substrata_tpu_torch/csrc/convex.cu",
      "substrata_tpu/physics/narrowphase.py:404"),
     ("cell_table", "cuda", "substrata_tpu_torch/csrc/cell_table.cu",
      "substrata_tpu/physics/broadphase.py:70"),
@@ -4994,7 +5073,7 @@ KERNELS = [
 # unless named here (phase 5's thinks, 11's serving ticks, 13's mesh
 # frames, 17's terrain frames, 19's client frames).
 LAUNCHES_FROM = {"closed_form_rows": "serving", "character_update": "serving",
-                 "apply_tick_in": "serving", "digest_tblock": "serving", "convex_rows": "mesh",
+                 "apply_tick_in": "serving", "digest_tblock": "serving", "convex_buckets": "mesh",
                  "find_pairs": "think", "solve_positions": "think", "strike_wake": "think",
                  "sleep_pass": "think", "layout_group": "serving", "layout_touching": "serving",
                  "layout_compact": "serving", "layout_incidence": "serving",
@@ -5131,7 +5210,7 @@ def main():
     mk_res = mesh_kernel_phase()
     for name, r in mk_res.items():
         log(f"# kernel {name}: {json.dumps(r)} | {smi}")
-    kres["convex_rows"] = mk_res["convex_rows"]
+    kres["convex_buckets"] = mk_res["convex_buckets"]
     # KB's line carries the bench world's shape (phase 3); its error is the
     # largest of the bench world's, the mesh world's and the hard cases'.
     kb_mesh = mk_res["static_contacts_mesh"]
@@ -5140,6 +5219,9 @@ def main():
         *(r["max_abs_err"] for r in kb_mesh["hard_cases"].values()))
 
     me_res = mesh_phase()
+    check(me_res["launches"]["convex_buckets"] == TICKS, "KO: "
+          f"{me_res['launches']['convex_buckets']} launches in {TICKS} mesh frames, expected "
+          "one a step")
     me_res.update(small_mesh_phase())
     log(f"# mesh world: {json.dumps(me_res)} | {smi}")
     log(f"# ms per mesh-world client frame (median, ticks 31-{TICKS}, 12,000 objects: 512 hulls "

@@ -31,7 +31,9 @@ PHASES = {"think": ("main_path_phase", "ms_per_think_median", "ms_per_think_p90"
           "mesh": ("mesh_phase", "ms_per_mesh_tick_median", "ms_per_mesh_tick_p90"),
           "client": ("client_phase", "ms_per_client_frame_median",
                      "ms_per_client_frame_p90"),
-          "networked": ("networked_phase", "ms_per_tick_p50", "ms_per_tick_p90")}
+          "networked": ("networked_phase", "ms_per_tick_p50", "ms_per_tick_p90"),
+          "terrain": ("terrain_phase", "ms_per_terrain_tick_median",
+                      "ms_per_terrain_tick_p90")}
 
 
 def load(name, path):

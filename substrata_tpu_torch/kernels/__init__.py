@@ -67,7 +67,7 @@ def launch_counts() -> dict:
         "closed_form_rows": closed_forms.launches,
         "character_update": character.launches,
         **serving_io.launches,
-        "convex_rows": convex.launches,
+        "convex_buckets": convex.launches,
         "cell_table": cell_table.launches,
         **solve_setup.launches,
         "winter_eval": winter.launches,

@@ -92,11 +92,12 @@ SIGNATURES = {
     # normal, pen, valid, fric, rest, key, touch, blocked, buckets, blocks;
     # then the bucket table), stream
     "closed_form_buckets": [P, P],
-    # ba, bb, bvalid, pos, quat, params, fric, rest, sensor, hull verts,
-    # n_verts, planes, n_faces, cap, code, wm, blocked, H, max verts, max
-    # faces, out a, b, point, normal, pen, valid, fric, rest, key, touch,
-    # stream
-    "convex_rows": [P] * 13 + [I] * 7 + [P] * 10 + [P],
+    # one host buffer (kernels/convex.py:_PACK: 8-byte slots ba, bb, bvalid,
+    # pos, quat, params, fric, rest, sensor, hull verts, n_verts, planes,
+    # n_faces, out a, b, point, normal, pen, valid, fric, rest, key, touch,
+    # blocked, buckets, blocks, H, max verts, max faces; then the bucket
+    # table), stream
+    "convex_buckets": [P, P],
     # one host buffer of 8-byte slots (kernels/character.py:_launch: 9
     # character fields, pos, quat, linvel, angvel, shape_type, params,
     # bound_radius, alive, layer, sensor, table, os_idx, heights, hf_origin,
@@ -167,11 +168,6 @@ SIGNATURES = {
     # stride, N, buckets, cell cap, ppb, max_pairs, has_oversize, rebuild,
     # interval; the margin, dt, margin cap and cell_size as doubles), stream
     "find_pairs": [P, P],
-    # bank rot, trans, n_frames, looping, f_cap; clip_a, clip_b, frame_a,
-    # frame_b, blend, grab_l, grab_r, root, override_rot, post_rot,
-    # override_mask, post_mask; parent, depth, joint_slot, joint_finger,
-    # grab_quats, n_half; rest_scale, inverse_bind; A, J, S, n_levels; out,
-    # stream
     # one host buffer of 8-byte slots (kernels/terrain.py:_FIELD_PACK and
     # _CALL_PACK: heights, origin, cell_w, HX, HY, xy, P, with_normals,
     # out), stream
@@ -184,7 +180,13 @@ SIGNATURES = {
     "terrain_scatter": [P] * 4 + [I] * 4 + [U] * 2 + [F] * 2 + [P] + [P],
     # 13 particle fields (pos ... alive), rows, cursor, n, cap, stream
     "spawn_rows": [P] * 13 + [P] + [I] * 3 + [P],
-    "pose_avatars": [P] * 4 + [I] + [P] * 12 + [P] * 5 + [I] + [P] * 2 + [I] * 4 + [P] + [P],
+    # one host buffer of 8-byte slots (kernels/pose.py:_PACK: bank rot,
+    # trans, n_frames, looping; clip_a, clip_b, frame_a, frame_b, blend,
+    # grab_l, grab_r, root, override_rot, post_rot, override_mask,
+    # post_mask; parent, depth, joint_slot, joint_finger, grab_quats,
+    # rest_scale, inverse_bind; out; f_cap, n_half, A, J, S, n_levels),
+    # stream
+    "pose_avatars": [P, P],
     # one host buffer of 8-byte slots (kernels/audio_setup.py:_PACK: alive,
     # paused, finished, spatial, pos, vel, delta, doppler_factor,
     # mute_factor, mute_target, mute_rate, volume, num_occlusions; listener

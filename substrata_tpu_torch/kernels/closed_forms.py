@@ -29,7 +29,6 @@ plan per layout, its rows written into the caller's contact rows or a
 from __future__ import annotations
 
 import struct
-from itertools import accumulate
 
 import numpy as np
 import torch
@@ -48,13 +47,11 @@ launches = 0
 MAX_BUCKETS = len(CODES)  # a bucket a code; csrc/closed_forms.cu:kMaxBuckets
 _BLOCK = 128             # csrc/closed_forms.cu:kThreads: slots a block
 # csrc/closed_forms.cu:closed_form_buckets: 9 input and 10 output pointers,
-# blocked, the number of buckets and of blocks; then the bucket table: each
-# bucket's first block (unused entries start past every block), then each
-# bucket's record (Bucket: the offsets of its slots, rows and touching
-# flags, its code, width, first block and slots).
+# blocked, the number of buckets and of blocks; then the bucket table
+# (contact_rows.BucketPlan).
 _PACK = struct.Struct("=22q")
-_BUCKET = struct.Struct("=3q4i")
-_NO_BLOCK = 0x7FFFFFFF
+_BUCKET = contact_rows.BUCKET
+_NO_BLOCK = contact_rows.NO_BLOCK
 _plans = {}
 
 
@@ -300,25 +297,6 @@ def bucket_rows_plain(wm: int, blocked: bool, manifold, friction, restitution, i
             (b32[:, None] * 4 + slot[None, :] + 9).reshape(cap * wm), touching)
 
 
-class _Plan:
-    """One layout of buckets: the bucket table (``host_table``: a row a
-    bucket of code, width, first block, slots, and the offsets of its
-    slots in the first bucket's ba, bb and bvalid, of its rows and of its
-    touching flags in the outputs; ``table``: the launch's packed copy) and
-    the grid."""
-
-    def __init__(self, codes, caps, wms, offs, rows_at, touch_at):
-        first = list(accumulate((-(-c // _BLOCK) for c in caps), initial=0))
-        self.blocks = first[-1]
-        self.host_table = [[code, wm, b0, cap, off, r0, t0] for code, wm, b0, cap, off, r0, t0
-                           in zip(codes, wms, first, caps, offs, rows_at, touch_at)]
-        pad = MAX_BUCKETS - len(codes)
-        self.table = (struct.pack(f"={MAX_BUCKETS}i", *first[:-1], *[_NO_BLOCK] * pad)
-                      + b"".join(_BUCKET.pack(off, r0, t0, code, wm, b0, cap)
-                                 for code, wm, b0, cap, off, r0, t0 in self.host_table)
-                      + bytes(_BUCKET.size * pad))
-
-
 def slot_offsets(buckets):
     """Each bucket's slot offset from the first bucket's.  The kernel reads
     every bucket's slots from the first bucket's ba, bb and bvalid, so each
@@ -364,21 +342,9 @@ def closed_form_buckets(buckets, wms, blocked: bool, pos, quat, shape_params, fr
     dev = pos.device
     caps = tuple(b[1].shape[0] for b in buckets)
     own = out is None
-    if own:
-        rows_at = tuple(accumulate((c * w for c, w in zip(caps, wms)), initial=0))
-        touch_at = tuple(accumulate(caps, initial=0))
-        fields, touch = contact_rows.contact_buffer(rows_at[-1], touch_at[-1], dev)
-        rows_at, touch_at = rows_at[:-1], touch_at[:-1]
-    else:
-        fields, touch, rows_at, touch_at = out
-        rows_at, touch_at = tuple(rows_at), tuple(touch_at)
-        r, t = fields[0].shape[0], touch.shape[0]
-        contact_rows.outputs(tuple(fields) + (touch,), r, t, dev)
-        if any(r0 + c * w > r or t0 + c > t
-               for r0, t0, c, w in zip(rows_at, touch_at, caps, wms)):
-            raise ValueError(f"out: {r} rows and {t} flags, too few for the buckets")
-    views = [contact_rows.bucket_views(fields, touch, r0, c * w, t0, c)
-             for r0, t0, c, w in zip(rows_at, touch_at, caps, wms)]
+    fields, touch, rows_at, touch_at = contact_rows.placed(out, caps, wms, dev)
+    views = (contact_rows.placed_views(fields, touch, rows_at, touch_at, caps, wms)
+             if own or dev.type == "cpu" else None)
     rows = (pos, quat, shape_params, friction, restitution, is_sensor)
     if dev.type == "cpu":
         for (code, ba, bb, bv), w, v in zip(buckets, wms, views):
@@ -395,7 +361,8 @@ def closed_form_buckets(buckets, wms, blocked: bool, pos, quat, shape_params, fr
     offs = slot_offsets(buckets)
     codes, wms = tuple(b[0] for b in buckets), tuple(wms)
     plan = build.plan(_plans, (codes, caps, wms, offs, rows_at, touch_at, dev),
-                      lambda: _Plan(codes, caps, wms, offs, rows_at, touch_at))
+                      lambda: contact_rows.BucketPlan(codes, caps, wms, offs, rows_at, touch_at,
+                                                      MAX_BUCKETS, lambda c: -(-c // _BLOCK)))
     build.launch_packed("closed_form_buckets", _PACK.pack(
         *(buckets[0][i].data_ptr() for i in (1, 2, 3)), *(x.data_ptr() for x in rows),
         *(f.data_ptr() for f in fields), touch.data_ptr(), 1 if blocked else 0, nb,

@@ -6,10 +6,15 @@ key) and a touching flag a pair slot.  ``contact_buffer`` lays a mixed
 world's rows out in one allocation and ``bucket_views`` cuts one bucket's
 10 outputs from it; ``outputs`` checks such views (or makes new tensors)
 for a kernel that writes them, and ``copied`` writes a twin's rows into
-them.
+them.  ``placed`` and ``BucketPlan`` are what KK's and KO's one launch
+over a step's buckets share: where each bucket's rows go, and the bucket
+table packed into the launch's parameters.
 """
 
 from __future__ import annotations
+
+import struct
+from itertools import accumulate
 
 import torch
 
@@ -62,3 +67,58 @@ def copied(rows, out):
     for dst, src in zip(out, rows):
         dst.copy_(src)
     return out
+
+
+# A bucket's record in a launch's bucket table (csrc/closed_forms.cu and
+# csrc/convex.cu:Bucket): the offsets of its slots, rows and touching flags,
+# its code, width, first block and slots.
+BUCKET = struct.Struct("=3q4i")
+NO_BLOCK = 0x7FFFFFFF   # a table entry past every block
+
+
+class BucketPlan:
+    """One layout of a bucketed rows kernel's buckets: the bucket table
+    (``host_table``: a row a bucket of code, width, first block, slots, and
+    the offsets of its slots in the first bucket's ba, bb and bvalid, of
+    its rows and of its touching flags in the outputs; ``table``: the
+    launch's packed copy, each bucket's first block, then each bucket's
+    record, both padded to ``max_buckets``) and the grid, ``blocks_of(slots)``
+    blocks a bucket, aligned to buckets."""
+
+    def __init__(self, codes, caps, wms, offs, rows_at, touch_at, max_buckets, blocks_of):
+        first = list(accumulate((blocks_of(c) for c in caps), initial=0))
+        self.blocks = first[-1]
+        self.host_table = [[code, wm, b0, cap, off, r0, t0] for code, wm, b0, cap, off, r0, t0
+                           in zip(codes, wms, first, caps, offs, rows_at, touch_at)]
+        pad = max_buckets - len(codes)
+        self.table = (struct.pack(f"={max_buckets}i", *first[:-1], *[NO_BLOCK] * pad)
+                      + b"".join(BUCKET.pack(off, r0, t0, code, wm, b0, cap)
+                                 for code, wm, b0, cap, off, r0, t0 in self.host_table)
+                      + bytes(BUCKET.size * pad))
+
+
+def placed(out, caps, wms, device):
+    """Where a call over buckets of ``caps`` slots and ``wms`` rows a slot
+    writes: (fields, touching, rows_at, touch_at).  ``out`` is that tuple,
+    checked here; where it is None, a ``contact_buffer`` of the call's own
+    holds the buckets one after another."""
+    if out is None:
+        rows_at = tuple(accumulate((c * w for c, w in zip(caps, wms)), initial=0))
+        touch_at = tuple(accumulate(caps, initial=0))
+        fields, touch = contact_buffer(rows_at[-1], touch_at[-1], device)
+        rows_at, touch_at = rows_at[:-1], touch_at[:-1]
+    else:
+        fields, touch, rows_at, touch_at = out
+        rows_at, touch_at = tuple(rows_at), tuple(touch_at)
+        r, t = fields[0].shape[0], touch.shape[0]
+        outputs(tuple(fields) + (touch,), r, t, device)
+        if any(r0 + c * w > r or t0 + c > t
+               for r0, t0, c, w in zip(rows_at, touch_at, caps, wms)):
+            raise ValueError(f"out: {r} rows and {t} flags, too few for the buckets")
+    return fields, touch, rows_at, touch_at
+
+
+def placed_views(fields, touch, rows_at, touch_at, caps, wms):
+    """Each bucket's 10 outputs as views of ``placed``'s fields."""
+    return [bucket_views(fields, touch, r0, c * w, t0, c)
+            for r0, t0, c, w in zip(rows_at, touch_at, caps, wms)]

@@ -25,17 +25,24 @@ one-hot products (``oh @ pl``) select one row exactly; the port indexes
 the row.
 
 Products are written out component by component, in the order
-``csrc/convex.cu`` computes them.  ``convex_rows`` launches the kernel for
-CUDA tensors and runs ``convex_rows_plain`` for CPU tensors.
+``csrc/convex.cu`` computes them.  ``convex_buckets`` runs every hull
+bucket of a step in one launch of the kernel for CUDA tensors (its bucket
+table a plan per layout, its rows written into the caller's contact rows
+or a ``contact_rows.contact_buffer`` of their own) and
+``convex_rows_plain`` per bucket for CPU tensors; ``convex_rows`` is its
+one-bucket call.
 """
 
 from __future__ import annotations
+
+import struct
 
 import torch
 
 from substrata_tpu_torch.kernels import build, contact_rows
 from substrata_tpu_torch.kernels.box_box import CONTACT_MARGIN
-from substrata_tpu_torch.kernels.closed_forms import bucket_rows_plain, safe_normalize
+from substrata_tpu_torch.kernels.closed_forms import (bucket_rows_plain, safe_normalize,
+                                                      slot_offsets)
 from substrata_tpu_torch.maths import quat as quatm
 from substrata_tpu_torch.physics.state import HullLibrary, ShapeType
 
@@ -44,6 +51,21 @@ NEG = -3e38
 POS = 3e38
 
 launches = 0
+MAX_BUCKETS = len(CODES)  # a bucket a code; csrc/convex.cu:kMaxBuckets
+_TILE = 32                # csrc/convex.cu:kTile: slots a tile (one ballot word)
+_TILE_BLOCKS = 8          # csrc/convex.cu:kBlocksPerTile: blocks of 4 warps a tile
+# csrc/convex.cu:convex_buckets: 13 input and 10 output pointers, blocked,
+# the number of buckets and of blocks, the library's capacity, max verts
+# and max faces; then the bucket table (contact_rows.BucketPlan).
+_PACK = struct.Struct("=29q")
+_BUCKET = contact_rows.BUCKET
+_NO_BLOCK = contact_rows.NO_BLOCK
+_plans = {}
+
+
+def _tile_blocks(slots):
+    """A bucket's blocks: ``_TILE_BLOCKS`` a tile of ``_TILE`` slots."""
+    return -(-slots // _TILE) * _TILE_BLOCKS
 
 _CORNERS = [[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)]
 _NORMALS = [[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]]
@@ -210,39 +232,81 @@ def convex_rows_plain(code: int, wm: int, blocked: bool, pos, quat, shape_params
                              bvalid)
 
 
+def convex_buckets(buckets, wms, blocked: bool, pos, quat, shape_params, friction,
+                   restitution, is_sensor, hulls: HullLibrary, out=None):
+    """KO over a step's hull buckets [(code, ba, bb, bvalid)], of ``wms[k]``
+    rows a slot in bucket k.
+
+    ``out`` is (fields, touching, rows_at, touch_at) as
+    ``contact_rows.placed`` takes it (any 9 fields and flags of the rows'
+    shapes); where it is None, the rows go to a buffer of their own, the
+    buckets one after another.
+    ``convex_rows_plain`` per bucket for CPU tensors; for CUDA tensors one
+    launch of ``csrc/convex.cu`` from one packed argument, its bucket table
+    the plan of this layout (codes, slots, widths,
+    ``closed_forms.slot_offsets``, placement, device).  Returns each
+    bucket's 10 outputs (a, b, point, normal, pen, valid, friction,
+    restitution, key, touching) as views of the buffer, or nothing where
+    ``out`` is given."""
+    global launches
+    nb = len(buckets)
+    if not 1 <= nb <= MAX_BUCKETS:
+        raise ValueError(f"{nb} buckets: 1..{MAX_BUCKETS} in one launch")
+    if len(wms) != nb:
+        raise ValueError(f"{len(wms)} widths for {nb} buckets")
+    for (code, *_), w in zip(buckets, wms):
+        if code not in CODES:
+            raise ValueError(f"combo code {code} has no hull side")
+        if not 1 <= w <= 4:
+            raise ValueError(f"manifold width {w} outside 1..4")
+    dev = pos.device
+    caps = tuple(b[1].shape[0] for b in buckets)
+    own = out is None
+    fields, touch, rows_at, touch_at = contact_rows.placed(out, caps, wms, dev)
+    views = (contact_rows.placed_views(fields, touch, rows_at, touch_at, caps, wms)
+             if own or dev.type == "cpu" else None)
+    rows = (pos, quat, shape_params, friction, restitution, is_sensor)
+    if dev.type == "cpu":
+        for (code, ba, bb, bv), w, v in zip(buckets, wms, views):
+            contact_rows.copied(convex_rows_plain(code, w, blocked, *rows, ba, bb, bv, hulls),
+                                v)
+        return views if own else None
+    if hulls.max_verts > 32 or hulls.max_faces > 32:
+        raise ValueError("convex_buckets: the kernel holds at most 32 hull vertices and faces")
+    n, h = pos.shape[0], hulls.capacity
+    f32, i32, bl = torch.float32, torch.int32, torch.bool
+    build.check_all(dev, rows + (hulls.verts, hulls.n_verts, hulls.planes, hulls.n_faces),
+                    ("pos", "quat", "shape_params", "friction", "restitution", "is_sensor",
+                     "hull_verts", "hull_n_verts", "hull_planes", "hull_n_faces"),
+                    (f32, f32, f32, f32, f32, bl, f32, i32, f32, i32),
+                    ((n, 3), (n, 4), (n, 4), (n,), (n,), (n,), (h, hulls.max_verts, 3), (h,),
+                     (h, hulls.max_faces, 4), (h,)))
+    for (code, ba, bb, bv), cap in zip(buckets, caps):
+        build.check_all(dev, (ba, bb, bv), ("ba", "bb", "bvalid"), (i32, i32, bl),
+                        ((cap,), (cap,), (cap,)))
+    offs = slot_offsets(buckets)
+    codes, wms = tuple(b[0] for b in buckets), tuple(wms)
+    plan = build.plan(_plans, (codes, caps, wms, offs, rows_at, touch_at, dev),
+                      lambda: contact_rows.BucketPlan(codes, caps, wms, offs, rows_at, touch_at,
+                                                      MAX_BUCKETS, _tile_blocks))
+    build.launch_packed("convex_buckets", _PACK.pack(
+        *(buckets[0][i].data_ptr() for i in (1, 2, 3)), *(x.data_ptr() for x in rows),
+        hulls.verts.data_ptr(), hulls.n_verts.data_ptr(), hulls.planes.data_ptr(),
+        hulls.n_faces.data_ptr(), *(f.data_ptr() for f in fields), touch.data_ptr(),
+        1 if blocked else 0, nb, plan.blocks, h, hulls.max_verts, hulls.max_faces)
+        + plan.table)
+    launches += 1
+    return views if own else None
+
+
 def convex_rows(code: int, wm: int, blocked: bool, pos, quat, shape_params, friction,
                 restitution, is_sensor, ba, bb, bvalid, hulls: HullLibrary, out=None):
-    """KO: ``convex_rows_plain`` for CPU tensors, ``csrc/convex.cu`` (one
-    warp per bucket slot, the combo code a launch argument) for CUDA
-    tensors.  ``out``: the 10 outputs' tensors to write (the bucket's views
-    of a mixed world's contact rows), or None for new ones."""
-    global launches
-    if code not in CODES:
-        raise ValueError(f"combo code {code} has no hull side")
-    if not 1 <= wm <= 4:
-        raise ValueError(f"manifold width {wm} outside 1..4")
-    if pos.device.type == "cpu":
-        rows = convex_rows_plain(code, wm, blocked, pos, quat, shape_params, friction,
-                                 restitution, is_sensor, ba, bb, bvalid, hulls)
-        return contact_rows.copied(rows, out)
-    if hulls.max_verts > 32 or hulls.max_faces > 32:
-        raise ValueError("convex_rows: the kernel holds at most 32 hull vertices and faces")
-    dev = pos.device
-    n, cap, h = pos.shape[0], ba.shape[0], hulls.capacity
-    f32, i32, bl = torch.float32, torch.int32, torch.bool
-    for t, name, dt, shp in (
-            (pos, "pos", f32, (n, 3)), (quat, "quat", f32, (n, 4)),
-            (shape_params, "shape_params", f32, (n, 4)), (friction, "friction", f32, (n,)),
-            (restitution, "restitution", f32, (n,)), (is_sensor, "is_sensor", bl, (n,)),
-            (ba, "ba", i32, (cap,)), (bb, "bb", i32, (cap,)), (bvalid, "bvalid", bl, (cap,)),
-            (hulls.verts, "hull_verts", f32, (h, hulls.max_verts, 3)),
-            (hulls.n_verts, "hull_n_verts", i32, (h,)),
-            (hulls.planes, "hull_planes", f32, (h, hulls.max_faces, 4)),
-            (hulls.n_faces, "hull_n_faces", i32, (h,))):
-        build.check(t, name, dt, shp, dev)
-    out = contact_rows.outputs(out, cap * wm, cap, dev)
-    build.launch("convex_rows", ba, bb, bvalid, pos, quat, shape_params, friction, restitution,
-                 is_sensor, hulls.verts, hulls.n_verts, hulls.planes, hulls.n_faces, cap, code,
-                 wm, 1 if blocked else 0, h, hulls.max_verts, hulls.max_faces, *out)
-    launches += 1
+    """KO on one bucket: ``convex_buckets`` with one bucket.  ``out``: the
+    10 outputs' tensors to write, or None for views of a buffer of its
+    own."""
+    bucket = [(code, ba, bb, bvalid)]
+    rows = (pos, quat, shape_params, friction, restitution, is_sensor)
+    if out is None:
+        return convex_buckets(bucket, (wm,), blocked, *rows, hulls)[0]
+    convex_buckets(bucket, (wm,), blocked, *rows, hulls, out=(out[:9], out[9], (0,), (0,)))
     return out

@@ -3,8 +3,8 @@ grouping), for KH's ray trace, for KL's character update, for KB's
 static contacts, for the contact solve (KQ's setup and KC), for the
 rotation every rotating kernel shares, for the pair finder (KS), the
 downmix (KG), the event digest (KN), the spatialiser (KF), the vehicle
-forces (KJ), KT's incidence table, the closed forms (KK) and the mix's
-per-source setup (KAA).
+forces (KJ), KT's incidence table, the closed forms (KK), the mix's
+per-source setup (KAA), the hull contacts (KO) and the pose (KZ).
 
 For the sorts, these are the inputs where a bucket or a code's slice
 fills, so the order of ties decides who is dropped, and where nothing is
@@ -37,7 +37,12 @@ layouts at every width, a single-combo world's stale ids and ragged
 bucket sizes.  For the audio setup: 1 to 1,024 sources, 1 and 3 layers,
 sources at the listener, behind it and straight above it, the azimuth
 wrap, inactive sources, the Doppler clamps, occlusion and a mute rate of
-0.  The CPU tests hold the
+0.  For the hull contacts: every hull code, a mesh step's sparse buckets,
+empty and full buckets, ragged slot counts, cube faces at one depth, the
+0.98 bias and the margin to float32 rounding, separated pairs, sensors,
+a 32-vertex hull and the pair-blocked layout.  For the pose: 1, 63, 64,
+65 and 256 joints, clips at their first and last frames, every override,
+post rotation and grab, and padded avatars.  The CPU tests hold the
 twins against the reference on them at a small size;
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` hold the kernels against
 the twins on them.  Everything is numpy, made from a seed; slot order is
@@ -2521,3 +2526,450 @@ def position_inputs(scene: PositionScene, device):
             (t(pr["a"]), t(pr["b"]), t(pr["valid"]), t(pr["normal"]), t(pr["penetration"])),
             table.to(device), sign.to(device), torch.tensor(scene.slop, device=device))
     return args, dict(iters=scene.iters, beta=scene.beta, wm=wm)
+
+
+# ---------------------------------------------------------------------------
+# KO: hull-contact scenes.
+# ---------------------------------------------------------------------------
+
+CONVEX_CASES = ("every_code", "mesh_step", "all_empty", "all_full", "ragged", "cube_ties",
+                "bias_ties", "margin_ties", "separated", "sensors", "hull_32", "blocked_wm4")
+_CONVEX_CODES = (3, 7, 11, 12, 13, 14, 15)
+_CONVEX_WIDTH = {3: 1, 7: 4, 11: 2, 12: 1, 13: 4, 14: 2, 15: 4}   # narrowphase._MANIFOLD_WIDTH
+_CUBE = np.array([[x, y, z] for x in (-.5, .5) for y in (-.5, .5) for z in (-.5, .5)],
+                 np.float32)
+
+
+def _prism(sides=16, radius=0.5, half_height=0.3):
+    """A ``sides``-gon prism: 2 * sides vertices (32: the kernel's most),
+    sides + 2 faces."""
+    a = np.linspace(0.0, 2.0 * np.pi, sides + 1)[:-1]
+    ring = np.stack([np.cos(a) * radius, np.sin(a) * radius], 1)
+    return np.concatenate([np.concatenate([ring, np.full((sides, 1), z)], 1)
+                           for z in (-half_height, half_height)]).astype(np.float32)
+
+
+def convex_hulls():
+    """The scenes' hull library, in slot order: a unit cube, an octahedron,
+    a 60-point cloud (seed 9), a tetrahedron and the 32-vertex prism."""
+    octa = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]],
+                    np.float32) * 0.6
+    tet = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], np.float32) * 0.8
+    cloud = (np.random.default_rng(9).normal(size=(60, 3)) * 0.4).astype(np.float32)
+    return [_CUBE, octa, cloud, tet, _prism()]
+
+
+@dataclasses.dataclass
+class ConvexScene:
+    """KO's inputs (numpy): the bodies (BodyState fields), the hull library
+    (``convex_library(convex_hulls())``) and the buckets [(code, ba, bb,
+    bvalid)] with their widths and layout."""
+    bodies: dict
+    library: dict
+    buckets: list
+    wm: tuple
+    blocked: bool = False
+
+
+def convex_library(hull_verts):
+    """The library arrays (verts [64, 32, 3], n_verts, planes [64, 32, 4],
+    n_faces) of ``hull_verts`` interned by a world, in order."""
+    from substrata_tpu_torch import PhysicsWorld
+    from substrata_tpu_torch.physics import shapes
+    from substrata_tpu_torch.physics.state import SimConfig
+    w = PhysicsWorld(SimConfig(capacity=8, max_pairs=32, grid_dim=8), device="cpu")
+    for v in hull_verts:
+        w._intern_hull(shapes.make_convex_hull(v))
+    return {k: v.copy() for k, v in w._hull_host.items()}
+
+
+def _cx_params(rng, st, n, hulls=(0, 1, 2, 3), scale=1.0):
+    """Shape params of ``n`` bodies of shape type ``st`` (a hull's: its
+    library slot, drawn from ``hulls``)."""
+    if st == 3:
+        prm = np.zeros((n, 4), np.float32)
+        prm[:, 0] = rng.choice(np.asarray(hulls), n)
+        return prm
+    return _cf_shape(rng, st, n) * np.float32(scale)
+
+
+def _cx_side(rng, st, n, spread=0.7, hulls=(0, 1, 2, 3)):
+    return (rng.uniform(-spread, spread, (n, 3)).astype(np.float32),
+            _unit_quats(rng, n).astype(np.float32), np.full(n, st, np.int32),
+            _cx_params(rng, st, n, hulls))
+
+
+def _cx_buckets(rng, spec, occupied=0.9, sensor_frac=0.02, spread=0.7, hulls=(0, 1, 2, 3)):
+    """Bodies and buckets of distinct random pairs: ``spec`` [(code, slots)],
+    side a's bodies then side b's for each bucket; the empty slots keep
+    their pair's bodies (as KT's grouping leaves stale ids)."""
+    sides, buckets, base = [], [], 0
+    for code, n in spec:
+        sides += [_cx_side(rng, code // 4, n, spread, hulls),
+                  _cx_side(rng, code % 4, n, spread, hulls)]
+        ba = np.arange(base, base + n, dtype=np.int32)
+        buckets.append((code, ba, ba + n, rng.random(n) < occupied))
+        base += 2 * n
+    return _cf_bodies(rng, sides, sensor_frac), buckets
+
+
+def _cx_seps(code, side_a, side_b, library):
+    """(best face of A, best face of B, best auxiliary axis) of KO's twin's
+    SAT on one code's pairs, in its operations and order (written out here
+    from ``convex_rep`` and ``_face_seps``: the bench scripts run these
+    scenes through a parent checkout's twin as well)."""
+    from substrata_tpu_torch import convert
+    from substrata_tpu_torch.kernels import convex as ko
+    from substrata_tpu_torch.kernels.closed_forms import safe_normalize
+    from substrata_tpu_torch.maths import quat as quatm
+    lib = convert.hull_library_from_numpy(library, device="cpu")
+    t = [torch.as_tensor(np.ascontiguousarray(x))
+         for x in (side_a[0], side_a[1], side_a[3], side_b[0], side_b[1], side_b[3])]
+    pa, qa, pra, pb, qb, prb = t
+    wa, ma, ra, pla, pma = ko.convex_rep(code // 4, pa, qa, pra, lib)
+    wb, mb, rb, plb, pmb = ko.convex_rep(code % 4, pb, qb, prb, lib)
+    sep_a = ko._face_seps(pla, pma, wb, mb, rb)
+    sep_b = ko._face_seps(plb, pmb, wa, ma, ra)
+    diff = wa[:, :, None, :] - wb[:, None, :, :]
+    d2 = torch.where(ma[:, :, None] & mb[:, None, :], quatm.dot3(diff, diff), ko.POS)
+    flat = torch.argmin(d2.reshape(d2.shape[0], -1), dim=1)
+    ia, ib = flat // wb.shape[1], flat % wb.shape[1]
+    rows = torch.arange(wa.shape[0])
+    aux = torch.stack([safe_normalize(wb[rows, ib] - wa[rows, ia]), safe_normalize(pb - pa)], 1)
+    pa_dot = torch.where(ma[:, None, :], quatm.dot3(wa[:, None, :, :], aux[:, :, None, :]),
+                         ko.NEG)
+    pb_dot = torch.where(mb[:, None, :], quatm.dot3(wb[:, None, :, :], aux[:, :, None, :]),
+                         ko.POS)
+    sep_aux = (pb_dot.min(dim=2).values - rb[:, None]) - (pa_dot.max(dim=2).values + ra[:, None])
+    return sep_a.max(dim=1).values, sep_b.max(dim=1).values, sep_aux.max(dim=1).values
+
+
+def _cx_ties(rng, code, kind, m, library, pool=8, steps=48):
+    """m pairs of ``code`` set at a SAT decision's threshold, as
+    ``_nearest_ties`` sets KA's: each of m * pool random pairs slides along
+    its offset until the decision changes sign, then the scale is bisected
+    to float32 rounding.  ``bias``: the auxiliary axis against the better
+    face (best_x against best_face * 0.98 + 0.001) or, where no pair of the
+    pool changes that, face B against face A; ``margin``: the separation
+    against the 4 cm margin."""
+    a = _cx_side(rng, code // 4, m * pool, 0.0)
+    b = _cx_side(rng, code % 4, m * pool, 0.9)
+    off = b[0] - a[0]
+
+    def decision(scale, which):
+        sb = (a[0] + off * scale[:, None].astype(np.float32),) + b[1:]
+        fa, fb, x = _cx_seps(code, a, sb, library)
+        if which == "margin":
+            d = torch.maximum(torch.maximum(fa, fb), x) - 0.04
+        elif which == "aux":
+            d = x - (torch.maximum(fa, fb) * 0.98 + 0.001)
+        else:
+            d = fb - (fa * 0.98 + 0.001)
+        return d.double().numpy()
+    lo, hi = np.full(m * pool, 0.2), np.full(m * pool, 1.8)
+    for which in (("aux", "faces") if kind == "bias" else ("margin",)):
+        f_lo, f_hi = decision(lo, which), decision(hi, which)
+        keep = np.flatnonzero(np.sign(f_lo) != np.sign(f_hi))[:m]
+        if len(keep):
+            break
+    lo, hi, f_lo = lo[keep], hi[keep], f_lo[keep]
+    a = tuple(x[keep] for x in a)
+    b = tuple(x[keep] for x in b)
+    off = off[keep]
+    for _ in range(steps):
+        mid = 0.5 * (lo + hi)
+        f_mid = decision(mid, which)
+        left = np.sign(f_mid) == np.sign(f_lo)
+        lo, f_lo = np.where(left, mid, lo), np.where(left, f_mid, f_lo)
+        hi = np.where(left, hi, mid)
+    return a, (a[0] + off * lo[:, None].astype(np.float32),) + b[1:]
+
+
+def convex_scene(case: str, seed: int = 0) -> ConvexScene:
+    """The inputs of one hard hull-contact case; pairs within touching range
+    (about half in contact), 90% of the slots occupied and 2% of the
+    bodies sensors unless named, hulls from ``convex_hulls()`` 0-3, the
+    compacted layout (each code's own width) unless named:
+
+    - ``every_code``: one bucket of 160 slots for each hull code;
+    - ``mesh_step``: a mesh world's step, codes 11, 14 and 15 at 512, 512
+      and 2,048 slots, 3% occupied;
+    - ``all_empty``: codes 7 and 15 at 256 and 1,024 slots, none occupied;
+    - ``all_full``: codes 13 and 15 at 256 and 512 slots, every slot
+      occupied;
+    - ``ragged``: codes 3, 11, 12, 14 and 15 at 1, 31, 33, 97 and 130
+      slots (not multiples of 4 or 32);
+    - ``cube_ties``: cube hulls on cube hulls and boxes, face to face and
+      axis-aligned, a few mm in (four incident vertices at one depth);
+    - ``bias_ties``, ``margin_ties``: codes 7, 14 and 15, pairs slid along
+      their offset until the axis choice (the 0.98 bias) or the separation
+      (the 4 cm margin) sits at its threshold, to float32 rounding;
+    - ``separated``: every code, pairs 2.5-4 m apart;
+    - ``sensors``: codes 13 and 15, a sensor on side a, on side b, on both
+      and on neither;
+    - ``hull_32``: the 32-vertex prism against hulls, boxes, spheres and
+      capsules (codes 15, 13, 3, 11);
+    - ``blocked_wm4``: every code at 96 slots, the pair-blocked layout at
+      width 4 (empty slots a = -1).
+    """
+    if case not in CONVEX_CASES:
+        raise ValueError(f"unknown convex case {case!r}")
+    rng = np.random.default_rng(seed + 400 + CONVEX_CASES.index(case))
+    library = convex_library(convex_hulls())
+    blocked, wm_all = False, None
+    if case == "every_code":
+        bodies, buckets = _cx_buckets(rng, [(c, 160) for c in _CONVEX_CODES])
+    elif case == "mesh_step":
+        bodies, buckets = _cx_buckets(rng, [(11, 512), (14, 512), (15, 2048)], occupied=0.03)
+    elif case == "all_empty":
+        bodies, buckets = _cx_buckets(rng, [(7, 256), (15, 1024)], occupied=0.0)
+    elif case == "all_full":
+        bodies, buckets = _cx_buckets(rng, [(13, 256), (15, 512)], occupied=1.0)
+    elif case == "ragged":
+        bodies, buckets = _cx_buckets(rng, list(zip((3, 11, 12, 14, 15), (1, 31, 33, 97, 130))))
+    elif case == "cube_ties":
+        sides, buckets, base = [], [], 0
+        for code in (15, 13, 7):
+            n = 128
+            pa = np.zeros((n, 3), np.float32)
+            pb = np.zeros((n, 3), np.float32)
+            pb[:, :2] = rng.uniform(-0.3, 0.3, (n, 2))
+            prm_a = _cx_params(rng, code // 4, n, hulls=(0,))
+            prm_b = _cx_params(rng, code % 4, n, hulls=(0,))
+            ha = 0.5 if code // 4 == 3 else prm_a[:, 2]
+            hb = 0.5 if code % 4 == 3 else prm_b[:, 2]
+            pb[:, 2] = ha + hb - rng.choice(np.array([0.0, 0.002, 0.005, 0.01], np.float32), n)
+            ident = np.tile(np.array([0.0, 0.0, 0.0, 1.0], np.float32), (n, 1))
+            sides += [(pa, ident, np.full(n, code // 4, np.int32), prm_a),
+                      (pb, ident.copy(), np.full(n, code % 4, np.int32), prm_b)]
+            ba = np.arange(base, base + n, dtype=np.int32)
+            buckets.append((code, ba, ba + n, np.ones(n, bool)))
+            base += 2 * n
+        bodies = _cf_bodies(rng, sides)
+    elif case in ("bias_ties", "margin_ties"):
+        sides, buckets, base = [], [], 0
+        for code in (7, 14, 15):
+            n = 64
+            sa, sb = _cx_ties(rng, code, case[:-5] if case == "bias_ties" else "margin", n,
+                              library)
+            n = sa[0].shape[0]
+            sides += [sa, sb]
+            ba = np.arange(base, base + n, dtype=np.int32)
+            buckets.append((code, ba, ba + n, np.ones(n, bool)))
+            base += 2 * n
+        bodies = _cf_bodies(rng, sides)
+    elif case == "separated":
+        bodies, buckets = _cx_buckets(rng, [(c, 64) for c in _CONVEX_CODES])
+        for _, ba, bb, _ in buckets:
+            d = rng.normal(size=(len(ba), 3))
+            d /= np.linalg.norm(d, axis=1, keepdims=True)
+            bodies["pos"][bb] = bodies["pos"][ba] + (d * rng.uniform(2.5, 4.0, (len(ba), 1))
+                                                     ).astype(np.float32)
+    elif case == "sensors":
+        bodies, buckets = _cx_buckets(rng, [(13, 128), (15, 128)], sensor_frac=0.0)
+        for _, ba, bb, _ in buckets:
+            kind = np.arange(ba.shape[0]) % 4
+            bodies["is_sensor"][ba[kind == 1]] = True
+            bodies["is_sensor"][bb[kind == 2]] = True
+            bodies["is_sensor"][ba[kind == 3]] = True
+            bodies["is_sensor"][bb[kind == 3]] = True
+    elif case == "hull_32":
+        sides, buckets, base = [], [], 0
+        for code in (15, 13, 3, 11):
+            n = 96
+            prism_first = code // 4 == 3
+            a = _cx_side(rng, code // 4, n, 0.0, hulls=(4,) if prism_first else (0, 1, 2, 3))
+            b = _cx_side(rng, code % 4, n, 0.8, hulls=(0, 1, 2, 3) if prism_first else (4,))
+            sides += [a, b]
+            ba = np.arange(base, base + n, dtype=np.int32)
+            buckets.append((code, ba, ba + n, rng.random(n) < 0.9))
+            base += 2 * n
+        bodies = _cf_bodies(rng, sides)
+    else:   # blocked_wm4
+        bodies, buckets = _cx_buckets(rng, [(c, 96) for c in _CONVEX_CODES], occupied=0.7)
+        blocked, wm_all = True, 4
+    wm = tuple(wm_all or _CONVEX_WIDTH[c] for c, *_ in buckets)
+    return ConvexScene(bodies=bodies, library=library, buckets=buckets, wm=wm, blocked=blocked)
+
+
+def convex_inputs(scene: ConvexScene, device):
+    """``convex.convex_buckets``' arguments for ``scene`` on ``device``:
+    (buckets [(code, ba, bb, bvalid)], wm, blocked, pos, quat, shape_params,
+    friction, restitution, is_sensor, hulls); the buckets' ba, bb and
+    bvalid views of one array each, in bucket order (as KT's grouping lays
+    them out)."""
+    from substrata_tpu_torch import convert
+    body = convert.body_state_from_numpy(scene.bodies, device=device)
+    sizes = [b[1].shape[0] for b in scene.buckets]
+    ba, bb, bv = (torch.as_tensor(np.concatenate([b[i] for b in scene.buckets]), device=device)
+                  for i in (1, 2, 3))
+    buckets = [(c, *(t.split(sizes)[k] for t in (ba, bb, bv)))
+               for k, (c, *_) in enumerate(scene.buckets)]
+    return (buckets, scene.wm, scene.blocked, body.pos, body.quat, body.shape_params,
+            body.friction, body.restitution, body.is_sensor,
+            convert.hull_library_from_numpy(scene.library, device=device))
+
+
+# ---------------------------------------------------------------------------
+# KZ: pose scenes.
+# ---------------------------------------------------------------------------
+
+POSE_CASES = ("j1", "j63", "j64", "j65", "j256", "clip_edges", "every_option", "padded")
+
+
+@dataclasses.dataclass
+class PoseScene:
+    """KZ's inputs (numpy): a skeleton (names, parents, rest translation,
+    rotation and scale, topologically ordered), its clips [(name, rot [F,
+    J, 4], trans [F, J, 3], looping)] and the avatars' pose arrays
+    (``anim.pose.zero_pose_arrays``' keys)."""
+    names: list
+    parents: np.ndarray
+    rest_trans: np.ndarray
+    rest_rot: np.ndarray
+    rest_scale: np.ndarray
+    clips: list
+    arrays: dict
+
+
+def _pose_skeleton(rng, nj):
+    """The default humanoid's first ``nj`` joints (its 64 hold every slot
+    and finger), or the humanoid and ``nj - 64`` more joints hung from
+    random earlier ones.  A lone joint is named outside the procedural
+    slots: the reference writes every missing slot's row onto joint 0 in
+    one scatter, whose order XLA leaves open where a slot's row is joint
+    0's own."""
+    from substrata_tpu_torch.anim import build_default_humanoid
+    sk = build_default_humanoid()
+    names = list(sk.names[:nj]) if nj > 1 else ["Root"]
+    parents = sk.parents[:nj].copy()
+    trans, rot, scale = sk.rest_trans[:nj].copy(), sk.rest_rot[:nj].copy(), \
+        sk.rest_scale[:nj].copy()
+    extra = nj - len(names)
+    if extra > 0:
+        names += [f"Extra{k}" for k in range(extra)]
+        parents = np.concatenate([parents, [rng.integers(0, len(sk.names) + k)
+                                            for k in range(extra)]]).astype(np.int32)
+        trans = np.concatenate([trans, rng.uniform(-0.2, 0.2, (extra, 3))])
+        rot = np.concatenate([rot, _unit_quats(rng, extra)])
+        scale = np.concatenate([scale, rng.uniform(0.8, 1.2, (extra, 3))])
+    f32 = np.float32
+    return names, parents.astype(np.int32), trans.astype(f32), rot.astype(f32), scale.astype(f32)
+
+
+def _pose_clips(rng, nj):
+    """Six clips of random unit rotations and translations: looping and
+    clamped, 1 to 96 frames."""
+    out = []
+    for k, (frames, loop) in enumerate(((24, True), (96, True), (1, True), (40, False),
+                                        (1, False), (57, False))):
+        rot = _unit_quats(rng, frames * nj).reshape(frames, nj, 4).astype(np.float32)
+        trans = rng.uniform(-0.3, 0.3, (frames, nj, 3)).astype(np.float32)
+        out.append((f"clip{k}", rot, trans, loop))
+    return out
+
+
+def pose_scene(case: str, seed: int = 0) -> PoseScene:
+    """The inputs of one hard pose case (8 avatars with every option at
+    random, as ``tests/test_torch_anim.py:random_pose_arrays`` draws them,
+    unless named):
+
+    - ``j1``, ``j63``, ``j64``, ``j65``, ``j256``: skeletons of 1, 63, 64,
+      65 and 256 joints (the humanoid cut or extended; 65 and 256 take the
+      block's 1,024 threads in 2 and 4 groups of joints; the lone joint
+      named outside the slots);
+    - ``clip_edges``: the humanoid, every clip at frames -1, -0.5, 0, its
+      last frame, half a frame past it, its count and one past, looping and
+      clamped, every option off;
+    - ``every_option``: the humanoid, each slot's override alone, each
+      slot's post rotation alone, both on a slot, grabs at 0, 5e-4, 1e-3
+      (not above the threshold), 1.5e-3 and 1 on either hand;
+    - ``padded``: 37 avatars with every option, padded to 64 with neutral
+      rows (``pose_all``'s padding).
+    """
+    from substrata_tpu_torch.anim import pose as apose
+    if case not in POSE_CASES:
+        raise ValueError(f"unknown pose case {case!r}")
+    rng = np.random.default_rng(seed + 500 + POSE_CASES.index(case))
+    nj = int(case[1:]) if case.startswith("j") else 64
+    skel = _pose_skeleton(rng, nj)
+    clips = _pose_clips(rng, nj)
+    nc, s = len(clips), apose.NUM_SLOTS
+
+    def random_arrays(a):
+        arr = apose.zero_pose_arrays(a)
+        arr["clip_a"][:] = rng.integers(0, nc, a)
+        arr["clip_b"][:] = rng.integers(0, nc, a)
+        arr["frame_a"][:] = rng.uniform(-5.0, 120.0, a)
+        arr["frame_b"][:] = rng.uniform(-5.0, 120.0, a)
+        arr["blend"][:] = rng.uniform(0.0, 1.0, a)
+        for k in ("override_rot", "post_rot"):
+            arr[k][:] = _unit_quats(rng, a * s).reshape(a, s, 4)
+        arr["override_mask"][:] = rng.random((a, s)) < 0.4
+        arr["post_mask"][:] = rng.random((a, s)) < 0.5
+        for k in ("grab_l", "grab_r"):
+            g = rng.uniform(0.0, 1.0, a)
+            g[::5], g[1::7] = 0.0, 5e-4
+            arr[k][:] = g
+        q = _unit_quats(rng, a)
+        for i in range(a):
+            arr["root"][i, :3, :3] = _quat_rot3(q[i])
+            arr["root"][i, :3, 3] = rng.uniform(-50, 50, 3)
+        return arr
+
+    if case == "clip_edges":
+        rows = []
+        for c, (_, rot, _, loop) in enumerate(clips):
+            f = rot.shape[0]
+            for frame in (-1.0, -0.5, 0.0, f - 1.0, f - 0.5, float(f), f + 1.0):
+                rows.append((c, frame))
+        arr = apose.zero_pose_arrays(len(rows))
+        arr["clip_a"][:] = [c for c, _ in rows]
+        arr["frame_a"][:] = [f for _, f in rows]
+        arr["clip_b"][:] = arr["clip_a"][::-1]
+        arr["frame_b"][:] = arr["frame_a"][::-1]
+        arr["blend"][:] = rng.choice(np.array([0.0, 0.5, 1.0], np.float32), len(rows))
+    elif case == "every_option":
+        grabs = np.array([0.0, 5e-4, 1e-3, 1.5e-3, 1.0], np.float32)
+        a = 3 * s + 2 * len(grabs)
+        arr = random_arrays(a)
+        arr["override_mask"][:] = False
+        arr["post_mask"][:] = False
+        arr["grab_l"][:] = arr["grab_r"][:] = 0.0
+        for k in range(s):
+            arr["override_mask"][k, k] = True
+            arr["post_mask"][s + k, k] = True
+            arr["override_mask"][2 * s + k, k] = arr["post_mask"][2 * s + k, k] = True
+        for k, g in enumerate(grabs):
+            arr["grab_l"][3 * s + k] = g
+            arr["grab_r"][3 * s + len(grabs) + k] = g
+    elif case == "padded":
+        part = random_arrays(37)
+        arr = apose.zero_pose_arrays(64)
+        for k in arr:
+            arr[k][:37] = part[k]
+    else:
+        arr = random_arrays(8)
+    return PoseScene(*skel, clips=clips, arrays=arr)
+
+
+def _quat_rot3(q):
+    x, y, z, w = q
+    return np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                     [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                     [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]],
+                    np.float32)
+
+
+def pose_inputs(scene: PoseScene, device):
+    """``kernels.pose.pose``'s arguments for ``scene`` on ``device``: (bank,
+    rig, params), built as the port's ``PoseKernel`` builds them."""
+    from substrata_tpu_torch.anim import pose as apose
+    from substrata_tpu_torch.anim.clips import AnimationClip, ClipBank
+    from substrata_tpu_torch.anim.skeleton import Skeleton
+    skel = Skeleton(list(scene.names), scene.parents, scene.rest_trans, scene.rest_rot,
+                    scene.rest_scale)
+    bank = ClipBank(skel, [AnimationClip(n, r, t, loop) for n, r, t, loop in scene.clips],
+                    device=device)
+    return (bank, apose.build_rig(skel, device=device),
+            apose.pose_params_from_arrays(scene.arrays, device=device))

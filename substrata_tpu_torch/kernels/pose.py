@@ -9,7 +9,8 @@ rotations at the slots; level-order forward kinematics; the root; skin =
 FK @ inverse bind.
 
 ``pose`` runs ``pose_plain`` for CPU tensors and the launch of
-``csrc/pose.cu`` for CUDA ones.  The twin spells every 4-term dot as
+``csrc/pose.cu`` for CUDA ones (a block an avatar: the sampling a thread a
+joint, the matrix products 16 lanes a joint).  The twin spells every 4-term dot as
 ((a0 b0 + a1 b1) + a2 b2) + a3 b3, one rounding per operation, which the
 kernel repeats (built with -fmad=false): the two are bit-equal on the
 card.  XLA picks its own summation order and contracts some products, so
@@ -21,6 +22,7 @@ it within 1e-5 of each matrix's scale).  The inputs' packed layout
 from __future__ import annotations
 
 import dataclasses
+import struct
 
 import numpy as np
 import torch
@@ -31,7 +33,15 @@ from substrata_tpu_torch.maths import fp
 NUM_SLOTS = 18           # anim.pose.PROC_SLOTS
 GRAB_EPS = 1e-3
 
+MAX_JOINTS = 256         # csrc/pose.cu:kMaxJoints
+MAX_CLIPS = 256          # csrc/pose.cu:kMaxClips: the bank's clip table in shared memory
+
 launches = 0
+# csrc/pose.cu:PoseArgs: 23 input pointers (the bank, the packed parameters in
+# PARAM_LAYOUT's order, the rig), the output; f_cap, n_half, A, J, S,
+# n_levels and the bank's clip count.
+_PACK = struct.Struct("=31q")
+_plans = {}
 
 # Field order, dtype and per-avatar shape of the packed inputs; every field
 # starts on a 4-byte boundary (the masks come last).
@@ -162,37 +172,49 @@ def pose_plain(bank, rig: Rig, p):
     return out
 
 
+class _Plan:
+    """KZ's checks for one (A, J, bank rows, clips, grab rows, device): the
+    23 inputs' names, dtypes and shapes in the kernel's order
+    (``csrc/pose.cu:PoseArgs``)."""
+
+    NAMES = ("bank rot", "bank trans", "n_frames", "looping") \
+        + tuple(name for name, _, _ in PARAM_LAYOUT) \
+        + ("parent", "depth", "joint_slot", "joint_finger", "grab_quats", "rest_scale",
+           "inverse_bind")
+
+    def __init__(self, a, nj, rows, c, g, device):
+        f32, i32, b8 = torch.float32, torch.int32, torch.bool
+        self.device = device
+        self.dtypes = (f32, f32, f32, b8) + tuple(TORCH_DTYPE[dt] for _, dt, _ in PARAM_LAYOUT) \
+            + (i32, i32, i32, i32, f32, f32, f32)
+        self.shapes = ((rows, nj * 4), (rows, nj * 3), (c,), (c,)) \
+            + tuple((a,) + shp for _, _, shp in PARAM_LAYOUT) \
+            + ((nj,), (nj,), (nj,), (nj,), (g, 4), (nj, 3), (nj, 4, 4))
+
+
 def pose(bank, rig: Rig, p):
     """KZ: every avatar's pose in one launch -> [3, A, J, 4, 4]; the twin
-    for CPU tensors."""
+    for CPU tensors.  On the card the inputs are checked against the plan
+    of their shapes and the launch takes one packed argument."""
     global launches
     if p.clip_a.device.type == "cpu":
         return pose_plain(bank, rig, p)
     dev = p.clip_a.device
     a, nj = p.count, rig.parent.shape[0]
-    rows, c = bank.rot.shape[0], bank.n_frames.shape[0]
-    if nj > 256:
-        raise ValueError(f"KZ takes at most 256 joints a skeleton, got {nj}")
-    f32, i32, b8 = torch.float32, torch.int32, torch.bool
-    checks = [(bank.rot, "bank rot", f32, (rows, nj * 4)),
-              (bank.trans, "bank trans", f32, (rows, nj * 3)),
-              (bank.n_frames, "n_frames", f32, (c,)), (bank.looping, "looping", b8, (c,)),
-              (rig.parent, "parent", i32, (nj,)), (rig.depth, "depth", i32, (nj,)),
-              (rig.joint_slot, "joint_slot", i32, (nj,)),
-              (rig.joint_finger, "joint_finger", i32, (nj,)),
-              (rig.grab_quats, "grab_quats", f32, (rig.grab_quats.shape[0], 4)),
-              (rig.rest_scale, "rest_scale", f32, (nj, 3)),
-              (rig.inverse_bind, "inverse_bind", f32, (nj, 4, 4))]
-    for name, dt, shp in PARAM_LAYOUT:
-        checks.append((getattr(p, name), name, TORCH_DTYPE[dt], (a,) + shp))
-    for t, name, dt, shp in checks:
-        build.check(t, name, dt, shp, dev)
-    out = torch.empty((3, a, nj, 4, 4), dtype=f32, device=dev)
-    build.launch("pose_avatars", bank.rot, bank.trans, bank.n_frames, bank.looping,
-                 bank.f_cap, p.clip_a, p.clip_b, p.frame_a, p.frame_b, p.blend, p.grab_l,
-                 p.grab_r, p.root, p.override_rot, p.post_rot, p.override_mask, p.post_mask,
-                 rig.parent, rig.depth, rig.joint_slot, rig.joint_finger, rig.grab_quats,
-                 rig.grab_quats.shape[0] // 2, rig.rest_scale, rig.inverse_bind, a, nj,
-                 NUM_SLOTS, rig.n_levels, out)
+    if nj > MAX_JOINTS:
+        raise ValueError(f"KZ takes at most {MAX_JOINTS} joints a skeleton, got {nj}")
+    rows, c, g = bank.rot.shape[0], bank.n_frames.shape[0], rig.grab_quats.shape[0]
+    if not 1 <= c <= MAX_CLIPS:
+        raise ValueError(f"KZ takes 1..{MAX_CLIPS} clips a bank, got {c}")
+    plan = build.plan(_plans, (a, nj, rows, c, g, dev), lambda: _Plan(a, nj, rows, c, g, dev))
+    ins = ((bank.rot, bank.trans, bank.n_frames, bank.looping)
+           + tuple(getattr(p, name) for name, _, _ in PARAM_LAYOUT)
+           + (rig.parent, rig.depth, rig.joint_slot, rig.joint_finger, rig.grab_quats,
+              rig.rest_scale, rig.inverse_bind))
+    build.check_all(plan.device, ins, plan.NAMES, plan.dtypes, plan.shapes)
+    out = torch.empty((3, a, nj, 4, 4), dtype=torch.float32, device=dev)
+    build.launch_packed("pose_avatars", _PACK.pack(
+        *(t.data_ptr() for t in ins), out.data_ptr(), bank.f_cap, g // 2, a, nj, NUM_SLOTS,
+        rig.n_levels, c))
     launches += 1
     return out

@@ -92,7 +92,8 @@ def blocked_manifold_width(config: SimConfig, capacity: int) -> int:
 def _bucket_rows(code: int, wm: int, blocked: bool, body: BodyState, ba, bb, bvalid, hulls,
                  out=None):
     """One bucket's rows through KA (box-box), KK (the closed forms) or KO
-    (the hull codes), into ``out`` (its 10 outputs' views) where given."""
+    (the hull codes); KA's into ``out`` (its 10 outputs' views) where
+    given."""
     if code == _BOX_BOX:
         rows = _ka.box_box_rows(body.pos, body.quat, body.shape_params, body.friction,
                                 body.restitution, body.is_sensor, ba, bb, bvalid, out=out)
@@ -103,9 +104,11 @@ def _bucket_rows(code: int, wm: int, blocked: bool, body: BodyState, ba, bb, bva
             rows[0].view(-1, _ka.WM).copy_(ba[:, None].expand(-1, _ka.WM))
         return rows
     if code in _ko.CODES:
+        if out is not None:
+            raise ValueError("hull buckets go through _ko.convex_buckets")
         return _ko.convex_rows(code, wm, blocked, body.pos, body.quat, body.shape_params,
                                body.friction, body.restitution, body.is_sensor, ba, bb, bvalid,
-                               hulls, out=out)
+                               hulls)
     if out is not None:
         raise ValueError("closed-form buckets go through _kk.closed_form_buckets")
     return _kk.closed_form_rows(code, wm, blocked, body.pos, body.quat, body.shape_params,
@@ -173,24 +176,29 @@ def pair_contacts(body: BodyState, pair_a, pair_b, pair_valid,
         return Contacts(*rows[:9]), rows[9] & pair_valid, overflow
     # One allocation of the mixed world's rows, each bucket's (KA's, KK's
     # and KO's) at its offset in code order; KK runs every closed-form
-    # bucket in one launch.
+    # bucket in one launch, KO every hull bucket in another.
     caps = [b[2].shape[0] for b in bucket_list]
     rows_at = list(accumulate((c * w for c, w in zip(caps, wms)), initial=0))
     touch_at = list(accumulate(caps, initial=0))
     fields, touch = _rows.contact_buffer(rows_at.pop(), touch_at.pop(), dev)
-    closed = []
+    closed, hull = [], []
     for (code, _, ba, bb, bvalid), wm, r0, t0, cap in zip(bucket_list, wms, rows_at, touch_at,
                                                           caps):
-        if code in _kk.CODES:
-            closed.append(((code, ba, bb, bvalid), wm, r0, t0))
+        if code in _kk.CODES or code in _ko.CODES:
+            (closed if code in _kk.CODES else hull).append(((code, ba, bb, bvalid), wm, r0, t0))
             continue
         _bucket_rows(code, wm, blocked, body, ba, bb, bvalid, hulls,
                      out=_rows.bucket_views(fields, touch, r0, cap * wm, t0, cap))
+    rows = (body.pos, body.quat, body.shape_params, body.friction, body.restitution,
+            body.is_sensor)
     if closed:
         kk_buckets, kk_wms, kk_rows, kk_touch = zip(*closed)
-        _kk.closed_form_buckets(list(kk_buckets), kk_wms, blocked, body.pos, body.quat,
-                                body.shape_params, body.friction, body.restitution,
-                                body.is_sensor, out=(fields, touch, kk_rows, kk_touch))
+        _kk.closed_form_buckets(list(kk_buckets), kk_wms, blocked, *rows,
+                                out=(fields, touch, kk_rows, kk_touch))
+    if hull:
+        ko_buckets, ko_wms, ko_rows, ko_touch = zip(*hull)
+        _ko.convex_buckets(list(ko_buckets), ko_wms, blocked, *rows, hulls,
+                           out=(fields, touch, ko_rows, ko_touch))
     # Per-pair touching for contact events: each bucket's flags to its pairs.
     touches = [touch[t0:t0 + cap] for t0, cap in zip(touch_at, caps)]
     return (Contacts(*fields), _kt.touching([b[1] for b in bucket_list], touches, p, slot_of_pair),

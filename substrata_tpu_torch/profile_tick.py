@@ -109,7 +109,7 @@ PORT_KERNELS = ("box_box_rows_kernel", "static_contacts_kernel", "solve_rows_ker
                 "audio_fetch_kernel", "audio_spatialise_kernel", "audio_downmix_kernel",
                 "ray_trace_kernel", "particles_kernel", "vehicle_forces_kernel",
                 "closed_form_buckets_kernel", "character_kernel", "apply_tick_in_kernel",
-                "digest_tblock_kernel", "convex_rows_kernel", "cell_clear_kernel",
+                "digest_tblock_kernel", "convex_buckets_kernel", "cell_clear_kernel",
                 "cell_hash_kernel", "cell_rank_kernel", "solve_setup_kernel", "refresh_copy_kernel",
                 "refresh_claim_kernel", "refresh_write_kernel", "winter_kernel", "pairs_",
                 "layout_", "positions_", "sleep_", "heights_kernel", "chunks_kernel",
@@ -125,7 +125,7 @@ FULL_STAGES = [(broadphase, "build_cell_table"), (benchworld, "vehicles_update")
                (benchworld, "mix_block")]
 SERVING_STAGES = [(serving_io, "apply_tick_in"), (world_mod, "player_update_packed"),
                   (world_mod, "physics_step")] + STEP_STAGES[1:] + [(serving_io, "digest_tblock")]
-MESH_STAGES = SERVING_STAGES + [(convex, "convex_rows"), (benchworld.queries, "trace_rays")]
+MESH_STAGES = SERVING_STAGES + [(convex, "convex_buckets"), (benchworld.queries, "trace_rays")]
 TERRAIN_STAGES = [(world_mod.PhysicsWorld, "think_with_player"),
                   (terrain_mod.TerrainSystem, "eval_terrain_height"),
                   (benchworld, "move_avatars"), (AvatarGraphicsManager, "update_avatar"),

@@ -16,8 +16,9 @@ KF and KG, 1e-6 for KH (hit and body exact) and KI, 1e-5 of each output's
 scale for KJ, 1e-5 for KK's rows (masks, keys and touching exact; also
 on kernels/hard_cases.py's closed-form scenes, one launch a scene, the
 joined layout to the same bits), 1e-6 of
-scale for KL (flags and the touched list exact), KM and KN exact, 1e-5
-for KO's rows (masks, keys and touching exact), KP exact, 1e-6 of each
+scale for KL (flags and the touched list exact), KM and KN exact, KO
+exact (also on kernels/hard_cases.py's hull-contact scenes, one launch a
+scene, each bucket the same bits as its own call), KP exact, 1e-6 of each
 output's scale for KQ's setup (masks, slots and table entries exact) and
 its refreshed cache exact, KR within 1e-6 of scale (the bench rotations
 exact), KS, KT and KV exact (pairs, margins, counters, buckets, compacted
@@ -27,8 +28,8 @@ per shape), KG's downmix also on hard_cases.py's downmix scenes, to the
 bit where kernel and twin run the same operations, KU exact,
 KW within 1e-6 of scale (its twin's fp.fma rounds twice where the kernel's
 __fmaf_rn rounds once: they part only at an exact tie; the triangles
-exact), KX, KY and KZ exact, and a small terrain frame on the card within
-1e-4 m (particles, the character) and 1e-5 of scale (joints) of the CPU
+exact), KX, KY and KZ exact (KZ also on kernels/hard_cases.py's pose
+scenes), and a small terrain frame on the card within 1e-4 m (particles, the character) and 1e-5 of scale (joints) of the CPU
 path; KAA exact (HRTF on and off; the pan's cos and sin within 1e-6 of
 the gains' scale, an HRIR bin only where its pre-round value lies within
 1e-5 of a half-integer; also on hard_cases.py's audio-setup scenes), KAB
@@ -880,8 +881,8 @@ def _random_hull_rows(gen, code, n):
 
 
 def test_convex_kernel_matches_plain():
-    """KO on 4,096 random pairs of each hull code, in both layouts: masks,
-    keys and touching exact, rows within 1e-5 on valid rows."""
+    """KO on 4,096 random pairs of each hull code, in both layouts: every
+    output equal to the twin's to the bit."""
     from substrata_tpu_torch.kernels import convex as ko
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -901,11 +902,44 @@ def test_convex_kernel_matches_plain():
             args = (code, wm, blocked, pos, quat, prm, fr, re, sens, ba, ba + n, bv, hulls)
             rk, rp = ko.convex_rows(*args), ko.convex_rows_plain(*args)
             torch.cuda.synchronize()
-            for i in (0, 1, 5, 6, 7, 8, 9):
-                assert torch.equal(rk[i], rp[i]), (code, wm, i)
-            for i in (2, 3, 4):
-                assert float((rk[i] - rp[i]).abs()[rp[5]].max()) <= 1e-5, (code, wm, i)
+            for i in range(10):
+                assert _same_bits(rk[i], rp[i]), (code, wm, i)
         assert int(rp[9].sum()) > n // 3
+
+
+@pytest.mark.parametrize("case", hard_cases.CONVEX_CASES)
+def test_convex_hard_cases(case):
+    """KO against its twin on kernels/hard_cases.py's hull-contact scenes,
+    one launch over each scene's buckets, every output to the bit; each
+    bucket's rows the same bits as its own call (``convex_rows``), and
+    buckets copied apart refused."""
+    from substrata_tpu_torch.kernels import convex as ko
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    buckets, wms, blocked, *rows, lib = hard_cases.convex_inputs(
+        hard_cases.convex_scene(case), "cuda")
+    got = ko.convex_buckets(buckets, wms, blocked, *rows, lib)
+    for (code, ba, bb, bv), wm, rk in zip(buckets, wms, got):
+        args = (code, wm, blocked, *rows, ba, bb, bv, lib)
+        rp = ko.convex_rows_plain(*args)
+        for i in range(10):
+            assert _same_bits(rk[i], rp[i]), (case, code, i)
+        assert all(_same_bits(x, y) for x, y in zip(rk, ko.convex_rows(*args))), (case, code)
+    if len(buckets) > 1:
+        with pytest.raises(ValueError):
+            ko.convex_buckets([(c, ba.clone(), bb.clone(), bv.clone())
+                               for c, ba, bb, bv in buckets], wms, blocked, *rows, lib)
+
+
+@pytest.mark.parametrize("case", hard_cases.POSE_CASES)
+def test_pose_hard_cases(case):
+    """KZ against its twin on kernels/hard_cases.py's pose scenes (1 to 256
+    joints, clip edges, every option, padded avatars), to the bit."""
+    from substrata_tpu_torch.kernels import pose as kz
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    bank, rig, p = hard_cases.pose_inputs(hard_cases.pose_scene(case), "cuda")
+    assert _same_bits(kz.pose(bank, rig, p), kz.pose_plain(bank, rig, p)), case
 
 
 def _mesh(device):
