@@ -138,7 +138,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    mixed code over its bucket and a clamped slice; every pair invalid) at
    16,384, 49,152 (timed) and 12,345 pairs; KU (position solve, two
    launches a step) and KV (strike wake, sleep pass) on the bench, serving
-   and mesh worlds, KU also on hard_cases.py's position scenes; each
+   and mesh worlds, KU also on hard_cases.py's position scenes, KV's sleep
+   pass also on its sleep scenes and at 65,536 bodies with KS's pairs, one
+   device operation a call (its launch split and host µs); each
    against its twin, exact (positions, pairs, margins, counters, buckets,
    compacted rows, tables, flags, timers); KS also to the bit at rebuilds of the mesh world and of
    the full tick's world after 30 full ticks, on kernels/hard_cases.py's
@@ -187,8 +189,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 22. KAD (the halo exchange) and KAE (the shard axis's keep and counts, the
    worlds' awake count, the stereo blocks' clipped sum) against their
    twins on the bench world after 30 ticks in 4 x-slabs over [-52, 52] m
-   and in 2 x 2 tiles, and on bench.py's 256 sources in 4 shards, every
-   byte exact (see shard_kernel_phase);
+   and in 2 x 2 tiles (KAD one launch a phase, each timed with its host
+   µs, and on kernels/hard_cases.py's halo scenes), and on bench.py's 256
+   sources in 4 shards, every byte exact (see shard_kernel_phase);
 23. the sharded paths (K20) at full width on the card: 4 kicked bench
    worlds stepped at once, each bit-equal to its own cold step; the 256
    sources mixed in 4 shards against the CPU port; the bench world in 4
@@ -3266,7 +3269,92 @@ def _kuv_compare(w, what, timed=False, plain_reps=5):
         res["sleep"] = _timed(lambda: kv.sleep_pass(*vargs), lambda: kv.sleep_pass_plain(*vargs),
                               "sleep_", nbytes(v_in, v_out), FLOPS["sleep_body"] * n,
                               plain_reps)
+        # One device operation a call: the pass (its flag memset and the
+        # steps_left tail went into it, through the last block's ticket).
+        cost = split_cost(lambda: kv.sleep_pass(*vargs))
+        one_device_op(lambda: kv.sleep_pass(*vargs), lambda: kv.launches["sleep_pass"],
+                      cost["split"], "sleep_pass_kernel", "KV sleep pass")
+        res["sleep"].update(cost, hard_cases=kv_hard_cases(body.device),
+                            capacity=kv_capacity_case(body.device))
     return res
+
+
+def one_device_op(fn, count, split, kernel, what):
+    """Check that a call of ``fn`` is one device operation: its wrapper's
+    launch count ``count()`` goes up by one, and the device work the
+    profiler recorded for it (``launch_split``; the profiler drops events
+    at times, so a run may record fewer than it made) is that one kernel
+    and nothing else, no memset or second kernel."""
+    before = count()
+    fn()
+    check(count() == before + 1, f"{what}: {count() - before} launches a call, not 1")
+    check(set(split) <= {kernel} and all(v[0] <= 1.0 + 1e-6 for v in split.values()),
+          f"{what}: device work {split} beside its one kernel")
+
+
+def kv_hard_cases(device):
+    """KV's sleep pass against its twin, every output to the bit, on
+    kernels/hard_cases.py's sleep scenes, three calls on one plan each (the
+    last block resets the plan's ticket for the next call)."""
+    from substrata_tpu_torch.kernels import hard_cases
+    from substrata_tpu_torch.kernels import sleep as kv
+    out = {}
+    for case in hard_cases.SLEEP_CASES:
+        args = hard_cases.sleep_inputs(hard_cases.sleep_scene(case), device)
+        want = kv.sleep_pass_plain(*args)
+        for _ in range(3):
+            got = kv.sleep_pass(*args)
+            for f in dataclasses.fields(want):
+                check(same_bits(getattr(got, f.name), getattr(want, f.name)),
+                      f"KV sleep {case}: {f.name} differs from the twin's")
+        out[case] = dict(bodies=int(args[0].capacity), cpb=int(args[7].shape[1]), wm=args[9],
+                         newly_awake=int(want.newly_awake.sum()),
+                         newly_asleep=int(want.newly_asleep.sum()),
+                         steps_left=int(want.steps_left), bit_equal=True)
+    return out
+
+
+def kv_capacity_inputs(device, hard_cases=None):
+    """The sleep pass at 65,536 bodies over grid 160: hard_cases.py's
+    ``n65536`` bodies, with the first 16,383 of KS's pairs
+    (``incidence_capacity_inputs``) as wm = 1 entries and KT's table of
+    them.  ``hard_cases``: the module to take the scene from (the port's
+    own by default)."""
+    from substrata_tpu_torch.kernels import layout as kt
+    if hard_cases is None:
+        from substrata_tpu_torch.kernels import hard_cases
+    args = list(hard_cases.sleep_inputs(hard_cases.sleep_scene("n65536"), device))
+    ea, eb, occ, n, cpb = incidence_capacity_inputs(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(65)
+    valid = occ & (torch.rand(ea.shape, generator=gen, device=device) < 0.8)
+    pen = torch.rand(ea.shape, generator=gen, device=device) * 0.17 - 0.05
+    lam = torch.rand((ea.shape[0], 1, 3), generator=gen, device=device) * 2e-4
+    table, sign, _ = kt.incidence(ea, eb, valid, n, cpb)
+    args[5] = (ea, eb, valid, pen)
+    args[6], args[7], args[8], args[9] = lam[..., 0], table, sign, 1
+    return tuple(args)
+
+
+def kv_capacity_case(device, plain_reps=3):
+    """The sleep pass at 65,536 bodies (``kv_capacity_inputs``) against its
+    twin to the bit, timed, with its launches and host cost."""
+    from substrata_tpu_torch.kernels import sleep as kv
+    args = kv_capacity_inputs(device)
+    got, want = kv.sleep_pass(*args), kv.sleep_pass_plain(*args)
+    for f in dataclasses.fields(want):
+        check(same_bits(getattr(got, f.name), getattr(want, f.name)),
+              f"KV sleep at 65,536 bodies: {f.name} differs from the twin's")
+    b = args[0]
+    v_in = [b.awake, args[1], b.sleep_timer, b.alive, b.motion_type, args[2], args[3], args[4],
+            args[5], args[6], args[7], args[8], args[12]]
+    return dict(bodies=int(b.capacity), entries=int(args[5][0].shape[0]),
+                newly_awake=int(want.newly_awake.sum()), bit_equal=True,
+                **_timed(lambda: kv.sleep_pass(*args), lambda: kv.sleep_pass_plain(*args),
+                         "sleep_", nbytes(v_in, [getattr(got, f.name)
+                                                 for f in dataclasses.fields(got)]),
+                         FLOPS["sleep_body"] * b.capacity, plain_reps),
+                **split_cost(lambda: kv.sleep_pass(*args)))
 
 
 STEP_FORBIDDEN = ("aten::sort", "aten::argsort", "aten::cumsum", "aten::cummax",
@@ -4693,6 +4781,14 @@ def shard_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, warm=30, plain_
         tile_overflow=int(ovx.sum() + ovy.sum()),
         **_timed(lambda: halo.exchange(*args), lambda: halo.exchange_plain(*args), "halo",
                  halo.bytes_moved(part, SLABS, SLAB_HALO), 4 * part.capacity, plain_reps))
+    # One launch a phase; the tiles' phases timed apart; every hard case.
+    cost = split_cost(lambda: halo.exchange(*args))
+    one_device_op(lambda: halo.exchange(*args), lambda: halo.launches, cost["split"],
+                  "halo_kernel", "KAD")
+    res["halo_exchange"].update(
+        cost, tile_x=split_cost(lambda: halo.exchange(tiles, 4, TILE_HALO, 0, 2, 2, tlo, thi)),
+        tile_y=split_cost(lambda: halo.exchange(gx, 4, TILE_HALO, 1, 1, 2, tlo, thi)),
+        hard_cases=kad_hard_cases(device))
     cfg_h = spatial._halo_config(w.config, SLAB_CAP + 2 * SLAB_HALO)
     stepped = [physics_step(_world_at(_rows_of(got, SLABS), d), w.static_world, DT, w.params,
                             cfg_h)[0] for d in range(SLABS)]
@@ -4729,6 +4825,26 @@ def shard_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, warm=30, plain_
                  (len(blocks) + 1) * blocks[0].numel() * 4, len(blocks) * blocks[0].numel(),
                  plain_reps))
     return res
+
+
+def kad_hard_cases(device):
+    """KAD against its twin, every byte of each phase's combined state and
+    the overflow counts, on kernels/hard_cases.py's halo scenes (the tiles'
+    y phase on the kernel's x phase)."""
+    from substrata_tpu_torch.kernels import hard_cases, halo
+    out = {}
+    for case in hard_cases.HALO_CASES:
+        state, s, h, phases = hard_cases.halo_inputs(hard_cases.halo_scene(case), device)
+        ovs = []
+        for axis, stride, n_axis, lo, hi in phases:
+            got, ov = halo.exchange(state, s, h, axis, stride, n_axis, lo, hi)
+            want, ov_p = halo.exchange_plain(state, s, h, axis, stride, n_axis, lo, hi)
+            check(_states_equal(got, want) and torch.equal(ov, ov_p),
+                  f"KAD {case}: the combined state differs from the twin's")
+            ovs.append(ov.sum(1).tolist())
+            state = got
+        out[case] = dict(shards=s, halo=h, phases=len(phases), overflow=ovs, bit_equal=True)
+    return out
 
 
 def _rows_of(state, n_shards):

@@ -155,12 +155,12 @@ SIGNATURES = {
     "solve_positions": [P, P],
     # awake, linvel, alive, motion_type, pair a, b, valid, N, P, out, stream
     "strike_wake": [P] * 7 + [I] * 2 + [P] + [P],
-    # awake, prev_awake, sleep_timer, alive, motion_type, linvel, angvel,
-    # contact a, b, valid, pen, lambda; lambda stride; static valid, pen,
-    # table, sign, sleep_lin_vel, sleep_ang_vel, sleep_time, steps_left;
-    # dt; N, wm, K, CPB; flag scratch, out awake, timer, linvel, angvel,
-    # newly_awake, newly_asleep, steps_left; stream
-    "sleep_pass": [P] * 12 + [I] + [P] * 8 + [F] + [I] * 4 + [P] * 8 + [P],
+    # one host buffer of 8-byte slots (kernels/sleep.py:_PACK: awake,
+    # prev_awake, sleep_timer, alive, motion_type, linvel, angvel, contact a,
+    # b, valid, pen, lambda, static valid, pen, table, sign, sleep_lin_vel,
+    # sleep_ang_vel, sleep_time, steps_left, scratch, out; lambda's row
+    # stride, N, wm, K, CPB, log2 of the lanes a body; dt as a double), stream
+    "sleep_pass": [P, P],
     # one host buffer of 8-byte slots (kernels/pairs.py:_PACK: pos, linvel,
     # alive, awake, collidable, motion_type, bound_radius, shape_type,
     # shape_params; KP's table, cells, overflow; scratch; out margins, pair
@@ -203,11 +203,12 @@ SIGNATURES = {
     "vehicle_scatter": [P] * 3 + [I] * 2 + [P] * 4 + [P],
     # blocks [nb, 16, 3], out words [nb, 2], nb, stream
     "bc1_encode": [P, P, I] + [P],
-    # host arrays of src and dst field pointers and bytes per row, n
-    # fields, pos, alive, alive and awake field indices, host arrays of the
-    # low and high thresholds, S, rows_in, H, axis, stride, n_axis, out
-    # overflow [S, 2], stream
-    "halo_exchange": [P] * 3 + [I] + [P] * 2 + [I] * 2 + [P] * 2 + [I] * 6 + [P] + [P],
+    # one host buffer of 8-byte slots (kernels/halo.py:_HEAD and _Plan: the
+    # output buffer, overflow; the plan's device table (output offsets, bytes
+    # a row, thresholds); n fields, pos, alive and awake field indices, S,
+    # rows_in, H, axis, stride, n_axis, P, copy blocks; the fields' source
+    # pointers), stream
+    "halo_exchange": [P, P],
     # host arrays of the shards' src field pointers (shard-major), dst
     # pointers and bytes per row, n fields, S, L, alive and awake field
     # indices, overflow, its length, out counts [2], stream

@@ -27,12 +27,13 @@ from __future__ import annotations
 
 import ctypes
 import math
+import struct
 
 import numpy as np
 import torch
 
 from substrata_tpu_torch.kernels import build
-from substrata_tpu_torch.physics.state import BODY_FIELDS, BodyState
+from substrata_tpu_torch.physics.state import BODY_FIELDS, BodyState, zero_body_state
 
 launches = 0
 
@@ -111,11 +112,123 @@ def row_bytes(t: torch.Tensor) -> int:
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and 4-byte aligned (the kernels copy rows that are
-    whole 32-bit words as words)."""
+    """``t`` contiguous and 4-byte aligned (KAE copies rows that are whole
+    32-bit words as words)."""
     if not t.is_contiguous() or t.data_ptr() % 4:
         return t.clone(memory_format=torch.contiguous_format)
     return t
+
+
+# csrc/halo.cu:halo_exchange's packed argument: the output buffer and the
+# overflow counts, then a plan's record, then the source pointers.
+_HEAD = struct.Struct("=2q")
+MAX_FIELDS = 24            # csrc/halo.cu:kMaxFields
+MAX_ROWS_IN = 393_216      # csrc/halo.cu:kMaxWords words of 32 rows
+_CHUNK = 256               # csrc/halo.cu:kMaxChunk: ghost places a block
+_THREADS = 512             # a block's threads
+_GROUPS = (torch.float32, torch.int32, torch.bool)
+_plans = {}
+_specs = []
+
+
+def _field_specs():
+    """(dtype, trailing shape) of each BodyState field, BODY_FIELDS order."""
+    if not _specs:
+        z = zero_body_state(1, device="cpu")
+        _specs.extend((getattr(z, f).dtype, tuple(getattr(z, f).shape[1:]))
+                      for f in BODY_FIELDS)
+    return _specs
+
+
+def _sm_count(device) -> int:
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return 132
+
+
+class _Plan:
+    """KAD's record for one (S, rows_in, H, axis, stride, n_axis,
+    thresholds, device): the fields' dtypes and shapes, the output buffer's
+    layout (the float32 fields, then the int32 and the bool ones, each at
+    a 16-byte offset, then room for the overflow counts), the ghost blocks
+    a shard P (each takes both directions; S P blocks cover half the
+    card's SMs), the own-row copy's blocks (one an SM at most), a table in device
+    memory of what the kernel reads a field (uploaded once), and the
+    launch's record packed once."""
+
+    def __init__(self, s, rows_in, halo, axis, stride, n_axis, lo, hi, device):
+        specs = _field_specs()
+        if rows_in > MAX_ROWS_IN or len(specs) > MAX_FIELDS or not 0 <= axis < 3:
+            raise ValueError(f"halo exchange: rows_in {rows_in} (at most {MAX_ROWS_IN}), "
+                             f"{len(specs)} fields (at most {MAX_FIELDS}), axis {axis}")
+        n_in, n_out = s * rows_in, s * (rows_in + 2 * halo)
+        self.device = device
+        self.dtypes = tuple(d for d, _ in specs)
+        self.shapes = tuple((n_in,) + tr for _, tr in specs)
+        offsets, off, self.groups = [0] * len(specs), 0, []
+        for dt in _GROUPS:
+            esz = dt.itemsize
+            start, sizes, items = off, [], []
+            for k, (d, tr) in enumerate(specs):
+                if d is dt:
+                    n = n_out * math.prod(tr)
+                    offsets[k] = off
+                    items.append((k, len(sizes), (n_out,) + tr))
+                    sizes.append(n)
+                    off += n * esz
+                    if off % 16:
+                        sizes.append((16 - off % 16) // esz)
+                        off += 16 - off % 16
+            self.groups.append((start, off, dt, sizes, items))
+        if sum(len(g[4]) for g in self.groups) != len(specs):
+            raise TypeError("halo exchange: a BodyState field outside float32, int32, bool")
+        self.overflow_at, self.nbytes = off, off + 8 * s
+        sms = _sm_count(device)
+        parts = max(-(-halo // _CHUNK), min(-(-sms // (2 * s)), max(1, halo // 32)), 1)
+        bytes_ = [d.itemsize * math.prod(tr) for d, tr in specs]
+        copy_blocks = max(1, min(sms, -(-n_in * sum(bytes_) // (16 * _THREADS))))
+        # What the kernel reads from device memory: each field's output
+        # offset and bytes a row, then each axis position's thresholds as
+        # one word (the low one's float32 bits, the high one's << 32); and
+        # the ghost blocks' item map: both directions' C = ceil(H / P)
+        # places, field-major, a unit a 32-bit word where a row is whole
+        # words (a float32 or int32 field is 4-byte aligned), else a byte,
+        # packed as place | unit << 8 | field << 12 | direction << 17 |
+        # byte << 18.
+        thr = (np.asarray(lo, np.float32).view(np.uint32).astype(np.uint64)
+               | (np.asarray(hi, np.float32).view(np.uint32).astype(np.uint64) << np.uint64(32)))
+        self.table_host = np.concatenate([np.asarray(offsets + bytes_, np.int64),
+                                          thr.view(np.int64)])
+        self.table = torch.as_tensor(self.table_host, device=device)
+        chunk = -(-halo // parts)
+        items = []
+        for e in (0, 1):
+            for k, b in enumerate(bytes_):
+                byte = b % 4 != 0
+                units = b if byte else b // 4
+                if units > 16:
+                    raise ValueError(f"halo exchange: {BODY_FIELDS[k]} has {units} units a row "
+                                     "(at most 16)")
+                pl, w = np.divmod(np.arange(chunk * units), units)
+                items.append(pl | w << 8 | k << 12 | e << 17 | int(byte) << 18)
+        self.map_host = np.concatenate(items).astype(np.int32)
+        self.map = torch.as_tensor(self.map_host, device=device)
+        nf = len(specs)
+        self.record = struct.pack("=15q", self.table.data_ptr(), nf, BODY_FIELDS.index("pos"),
+                                  ALIVE_F, AWAKE_F, s, rows_in, halo, axis, stride, n_axis, parts,
+                                  copy_blocks, self.map.data_ptr(), self.map_host.size)
+        self.srcs = struct.Struct(f"={nf}q")
+        self.parts, self.copy_blocks = parts, copy_blocks
+
+    def outputs(self, buf):
+        """The 23 output fields as views of ``buf``, and its overflow counts."""
+        outs = [None] * len(self.dtypes)
+        for start, end, dt, sizes, items in self.groups:
+            parts = torch.split(buf[start:end].view(dt), sizes)
+            for k, j, shape in items:
+                outs[k] = parts[j] if len(shape) == 1 else parts[j].view(shape)
+        ov = buf[self.overflow_at:].view(torch.int32).view(-1, 2)
+        return outs, ov
 
 
 def exchange(src: BodyState, n_shards: int, halo: int, axis: int, stride: int, n_axis: int,
@@ -123,7 +236,9 @@ def exchange(src: BodyState, n_shards: int, halo: int, axis: int, stride: int, n
     """KAD: one exchange phase over all shards, one launch.  ``src`` holds
     S contiguous blocks of rows_in rows; returns (combined [S * (rows_in +
     2H)], overflow int32 [S, 2]), the counts written into ``overflow`` when
-    the caller passes one."""
+    the caller passes one.  On the card the combined fields are views of
+    one allocation, checked against and launched from a plan of their
+    shape (only the pointers are packed a call)."""
     global launches
     total = src.capacity
     if total % n_shards:
@@ -138,26 +253,27 @@ def exchange(src: BodyState, n_shards: int, halo: int, axis: int, stride: int, n
         overflow.copy_(ov)
         return combined, overflow
     dev = src.device
-    ins = [aligned(getattr(src, f)) for f in BODY_FIELDS]
-    for f, t in zip(BODY_FIELDS, ins):
-        if t.device != dev or t.shape[0] != total:
-            raise ValueError(f"{f}: shape {tuple(t.shape)} on {t.device}, expected "
-                             f"[{total}, ...] on {dev}")
-    rows_out = rows_in + 2 * halo
-    outs = [torch.empty((n_shards * rows_out,) + tuple(t.shape[1:]), dtype=t.dtype, device=dev)
-            for t in ins]
-    if overflow is None:
-        overflow = torch.empty((n_shards, 2), dtype=torch.int32, device=dev)
-    build.check(overflow, "overflow", torch.int32, (n_shards, 2), dev)
     lo = np.ascontiguousarray(lo_thr, np.float32)
     hi = np.ascontiguousarray(hi_thr, np.float32)
     if lo.shape != (n_axis,) or hi.shape != (n_axis,):
         raise ValueError(f"thresholds: expected [{n_axis}] each")
-    build.launch("halo_exchange", _host_ptrs(ins), _host_ptrs(outs),
-                 (ctypes.c_int * len(ins))(*[row_bytes(t) for t in ins]), len(ins),
-                 ins[0], ins[ALIVE_F], ALIVE_F, AWAKE_F,
-                 lo.ctypes.data_as(ctypes.c_void_p), hi.ctypes.data_as(ctypes.c_void_p),
-                 n_shards, rows_in, halo, axis, stride, n_axis, overflow)
+    key = (n_shards, rows_in, halo, axis, stride, n_axis, lo.tobytes(), hi.tobytes(), dev)
+    plan = build.plan(_plans, key, lambda: _Plan(n_shards, rows_in, halo, axis, stride,
+                                                 n_axis, lo, hi, dev))
+    ins = [getattr(src, f) for f in BODY_FIELDS]
+    try:
+        build.check_all(plan.device, ins, BODY_FIELDS, plan.dtypes, plan.shapes)
+    except (TypeError, ValueError):
+        ins = [t.contiguous() for t in ins]
+        build.check_all(plan.device, ins, BODY_FIELDS, plan.dtypes, plan.shapes)
+    buf = torch.empty(plan.nbytes, dtype=torch.uint8, device=dev)
+    outs, ov = plan.outputs(buf)
+    if overflow is None:
+        overflow = ov
+    else:
+        build.check(overflow, "overflow", torch.int32, (n_shards, 2), dev)
+    build.launch_packed("halo_exchange", _HEAD.pack(buf.data_ptr(), overflow.data_ptr())
+                        + plan.record + plan.srcs.pack(*(t.data_ptr() for t in ins)))
     launches += 1
     return BodyState(**dict(zip(BODY_FIELDS, outs))), overflow
 

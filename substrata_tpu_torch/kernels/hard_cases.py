@@ -4,7 +4,8 @@ static contacts, for the contact solve (KQ's setup and KC), for the
 rotation every rotating kernel shares, for the pair finder (KS), the
 downmix (KG), the event digest (KN), the spatialiser (KF), the vehicle
 forces (KJ), KT's incidence table, the closed forms (KK), the mix's
-per-source setup (KAA), the hull contacts (KO) and the pose (KZ).
+per-source setup (KAA), the hull contacts (KO), the pose (KZ), the halo
+exchange (KAD) and the sleep pass (KV).
 
 For the sorts, these are the inputs where a bucket or a code's slice
 fills, so the order of ties decides who is dropped, and where nothing is
@@ -42,7 +43,14 @@ empty and full buckets, ragged slot counts, cube faces at one depth, the
 0.98 bias and the margin to float32 rounding, separated pairs, sensors,
 a 32-vertex hull and the pair-blocked layout.  For the pose: 1, 63, 64,
 65 and 256 joints, clips at their first and last frames, every override,
-post rotation and grab, and padded avatars.  The CPU tests hold the
+post rotation and grab, and padded avatars.  For the halo exchange: no
+row masked, exactly H, H - 1 and H + 1, every row, H = rows_in, rows on a
+threshold and one ulp either side, dead and NaN rows there, a ragged row
+count, 1, 2 and 8 slabs and both phases of 2 x 2 tiles.  For the sleep
+pass: 1, 8, 16 and 40 slots a body, 1, 2 and 4 rows an entry, full
+tables, entries with no valid row, static counterparts, NaN speeds and
+impulses, a fast, a NaN and both fast wakes, kinematic bodies, all
+asleep, and 1, 33 and 65,536 bodies.  The CPU tests hold the
 twins against the reference on them at a small size;
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` hold the kernels against
 the twins on them.  Everything is numpy, made from a seed; slot order is
@@ -2973,3 +2981,318 @@ def pose_inputs(scene: PoseScene, device):
                     device=device)
     return (bank, apose.build_rig(skel, device=device),
             apose.pose_params_from_arrays(scene.arrays, device=device))
+
+
+# ---------------------------------------------------------------------------
+# KAD: halo-exchange scenes.
+# ---------------------------------------------------------------------------
+
+HALO_CASES = ("none_masked", "exactly_h", "h_minus_1", "h_plus_1", "all_masked", "h_is_rows",
+              "on_thresholds", "dead_nan_edge", "ragged_rows", "s1", "s2", "s8", "tiles")
+
+
+@dataclasses.dataclass
+class HaloScene:
+    """KAD's inputs: a partitioned state's 23 BodyState fields [S rows_in]
+    (numpy), the mesh's shape ((S,) x-slabs, or (px, py) tiles, tile index
+    x-major), rows a shard, H, the halo width and each axis's extent."""
+    fields: dict
+    shape: tuple
+    rows_in: int
+    halo: int
+    halo_width: float
+    extent: tuple      # (x_min, x_max), or (x_min, x_max, y_min, y_max) for tiles
+
+
+def _halo_fields(rng, n):
+    """Every BodyState field at random (the exchange moves bytes, so each
+    field's own values show a misplaced row), alive 90%."""
+    f32 = np.float32
+    q = rng.normal(size=(n, 4))
+    return dict(
+        pos=rng.uniform(-1.0, 1.0, (n, 3)).astype(f32),
+        quat=(q / np.linalg.norm(q, axis=1, keepdims=True)).astype(f32),
+        linvel=rng.normal(size=(n, 3)).astype(f32), angvel=rng.normal(size=(n, 3)).astype(f32),
+        inv_mass=rng.uniform(0.1, 2.0, n).astype(f32),
+        inv_inertia=rng.uniform(0.1, 3.0, (n, 3)).astype(f32),
+        friction=rng.uniform(0.0, 1.0, n).astype(f32),
+        restitution=rng.uniform(0.0, 1.0, n).astype(f32),
+        motion_type=rng.integers(0, 3, n).astype(np.int32),
+        layer=rng.integers(0, 4, n).astype(np.int32), is_sensor=rng.random(n) < 0.2,
+        shape_type=rng.integers(0, 4, n).astype(np.int32),
+        shape_params=rng.uniform(0.1, 1.0, (n, 4)).astype(f32), alive=rng.random(n) < 0.9,
+        awake=rng.random(n) < 0.7, sleep_timer=rng.uniform(0.0, 0.6, n).astype(f32),
+        gravity_factor=rng.uniform(0.5, 1.5, n).astype(f32),
+        linear_damping=rng.uniform(0.0, 0.5, n).astype(f32),
+        angular_damping=rng.uniform(0.0, 0.5, n).astype(f32),
+        use_zero_linear_drag=rng.random(n) < 0.3, underwater=rng.random(n) < 0.3,
+        bound_radius=rng.uniform(0.1, 1.0, n).astype(f32),
+        volume=rng.uniform(0.01, 1.0, n).astype(f32))
+
+
+def _place_counts(rng, x, lo_e, hi_e, lo_t, hi_t, n_high, n_low):
+    """x of one shard's rows: ``n_high`` random rows in (hi_t, hi_e),
+    ``n_low`` in (lo_e, lo_t), the rest strictly between the thresholds."""
+    f32 = np.float32
+    rows = rng.permutation(x.shape[0])
+    hi_rows, lo_rows, mid = rows[:n_high], rows[n_high:n_high + n_low], rows[n_high + n_low:]
+    x[hi_rows] = rng.uniform(np.nextafter(hi_t, f32(1e9)), hi_e, n_high)
+    x[lo_rows] = rng.uniform(lo_e, np.nextafter(lo_t, f32(-1e9)), n_low)
+    x[mid] = rng.uniform(np.nextafter(lo_t, f32(1e9)), np.nextafter(hi_t, f32(-1e9)), mid.size)
+    return hi_rows, lo_rows
+
+
+def halo_scene(case: str, seed: int = 0) -> HaloScene:
+    """4 x-slabs over [-8, 8] m of 256 rows each, H = 96, 1 m wide, every
+    field at random, 10% of the rows dead, unless the case says otherwise:
+
+    - ``none_masked``: every row strictly between its shard's thresholds;
+    - ``exactly_h``, ``h_minus_1``, ``h_plus_1``: H, H - 1 and H + 1 alive
+      rows past each threshold of every shard (overflow 1 at H + 1);
+    - ``all_masked``: a 4.5 m halo over 4 m slabs, so every alive row is
+      in both masks;
+    - ``h_is_rows``: H = rows_in;
+    - ``on_thresholds``: rows on each threshold and one ulp either side
+      (strict comparisons: the ones on it stay home);
+    - ``dead_nan_edge``: dead rows past the thresholds and alive rows whose
+      coordinate (or only another field) is NaN, at the thresholds' rows;
+    - ``ragged_rows``: 1,061 rows a shard (not a multiple of 32 or 1,024),
+      H = 300;
+    - ``s1``, ``s2``, ``s8``: 1, 2 and 8 slabs of 4 m (an axis of one shard
+      receives zeros on both sides);
+    - ``tiles``: 2 x 2 tiles over [-8, 8]^2, 1.5 m, both phases.
+    """
+    from substrata_tpu_torch.kernels.halo import thresholds
+    if case not in HALO_CASES:
+        raise ValueError(f"unknown halo case {case!r}")
+    rng = np.random.default_rng(seed + 700 + HALO_CASES.index(case))
+    f32 = np.float32
+    s = {"s1": 1, "s2": 2, "s8": 8}.get(case, 4)
+    rows_in = 1_061 if case == "ragged_rows" else 256
+    halo = {"ragged_rows": 300, "h_is_rows": rows_in}.get(case, 96)
+    hw = {"all_masked": 4.5, "tiles": 1.5}.get(case, 1.0)
+    x_min, x_max = -2.0 * s, 2.0 * s
+    n = s * rows_in
+    fields = _halo_fields(rng, n)
+    if case == "tiles":
+        ext = (-8.0, 8.0, -8.0, 8.0)
+        tx, ty = np.divmod(np.arange(n) // rows_in, 2)
+        fields["pos"][:, 0] = (-8.0 + 8.0 * tx + rng.uniform(0.0, 8.0, n)).astype(f32)
+        fields["pos"][:, 1] = (-8.0 + 8.0 * ty + rng.uniform(0.0, 8.0, n)).astype(f32)
+        return HaloScene(fields, (2, 2), rows_in, halo, hw, ext)
+    w = (x_max - x_min) / s
+    lo_t, hi_t = thresholds(x_min, x_max, s, hw)
+    x = fields["pos"][:, 0]
+    for d in range(s):
+        blk = slice(d * rows_in, (d + 1) * rows_in)
+        xd = x[blk]
+        lo_e, hi_e = f32(x_min + d * w), f32(x_min + (d + 1) * w)
+        xd[:] = rng.uniform(lo_e, hi_e, rows_in)
+        count = {"none_masked": 0, "exactly_h": halo, "h_minus_1": halo - 1,
+                 "h_plus_1": halo + 1}.get(case)
+        if count is not None:
+            _place_counts(rng, xd, lo_e, hi_e, lo_t[d], hi_t[d], count, count)
+            if count:
+                fields["alive"][blk] = True
+        if case in ("on_thresholds", "dead_nan_edge"):
+            rows = rng.permutation(rows_in)[:12]
+            for j, t in enumerate((lo_t[d], hi_t[d])):
+                for k, v in enumerate((np.nextafter(t, f32(-1e9)), t, np.nextafter(t, f32(1e9)))):
+                    xd[rows[6 * j + 2 * k:6 * j + 2 * k + 2]] = v
+            if case == "dead_nan_edge":
+                alive = fields["alive"][blk]
+                alive[rows[:6]] = False                         # dead, past a threshold
+                alive[rows[6:]] = True
+                xd[rows[6:8]] = np.nan                          # alive, coordinate NaN
+                fields["linvel"][blk][rows[8:10], 1] = np.nan   # alive, NaN elsewhere
+                fields["sleep_timer"][blk][rows[10]] = np.nan
+    return HaloScene(fields, (s,), rows_in, halo, hw, (x_min, x_max))
+
+
+def halo_inputs(scene: HaloScene, device):
+    """(state on ``device``, S, H, phases): each phase is the (axis, stride,
+    n_axis, low thresholds, high thresholds) of one ``halo.exchange`` call;
+    the tiles' y phase takes the x phase's combined state."""
+    from substrata_tpu_torch import convert
+    from substrata_tpu_torch.kernels.halo import thresholds
+    body = convert.body_state_from_numpy(scene.fields, device=device)
+    if len(scene.shape) == 1:
+        s = scene.shape[0]
+        return body, s, scene.halo, [(0, 1, s) + thresholds(*scene.extent, s,
+                                                             scene.halo_width)]
+    px, py = scene.shape
+    x_lo, x_hi, y_lo, y_hi = scene.extent
+    return body, px * py, scene.halo, [
+        (0, py, px) + thresholds(x_lo, x_hi, px, scene.halo_width),
+        (1, 1, py) + thresholds(y_lo, y_hi, py, scene.halo_width)]
+
+
+# ---------------------------------------------------------------------------
+# KV: sleep-pass scenes.
+# ---------------------------------------------------------------------------
+
+SLEEP_CASES = ("cpb1", "cpb8", "cpb16", "cpb40", "wm1", "wm2", "wm4", "slots_full",
+               "invalid_entries", "static_counterpart", "nan_velocities", "nan_lambda",
+               "fast_wake", "nan_fast_wake", "fast_and_nan", "kinematic", "all_asleep", "n1",
+               "n33", "n65536")
+
+
+@dataclasses.dataclass
+class SleepScene:
+    """The sleep pass's inputs (numpy): the bodies' awake, previous awake,
+    timer, alive and motion type [N], velocities [N, 3]; the static rows
+    (valid, penetration) [N K]; the pair rows (a, b, valid, penetration)
+    [Q wm] and impulses [Q, wm]; the entries' occupancy; CPB, steps_left."""
+    awake: np.ndarray
+    prev_awake: np.ndarray
+    timer: np.ndarray
+    alive: np.ndarray
+    motion: np.ndarray
+    linvel: np.ndarray
+    angvel: np.ndarray
+    static: dict
+    pair: dict
+    lam: np.ndarray
+    occupied: np.ndarray
+    cpb: int
+    steps_left: int
+
+
+def sleep_scene(case: str, seed: int = 0) -> SleepScene:
+    """64 bodies (58 alive: 48 dynamic, 5 kinematic, 5 static), 96 entries
+    of wm = 2 rows, K = 4 static rows a body, CPB = 8, speeds about the
+    0.03 m/s threshold and up to 2 m/s, impulses about 1e-4, penetrations
+    about 0.1, 60% awake, timers about the 0.5 s limit, steps_left 3,
+    unless the case says otherwise:
+
+    - ``cpb1``, ``cpb8``, ``cpb16``, ``cpb40``: CPB 1, 8, 16 and 40 (one body in
+      all 40: lanes take two rounds);
+    - ``wm1``, ``wm2``, ``wm4``: rows an entry (wm 1: invalid rows not tabled);
+    - ``slots_full``: each body in exactly CPB entries;
+    - ``invalid_entries``: a third of the entries with every row invalid;
+    - ``static_counterpart``: a quarter of the entries with b = -1;
+    - ``nan_velocities``, ``nan_lambda``: NaN speeds on some bodies, NaN
+      impulses and penetrations on some valid rows;
+    - ``fast_wake``: body 0 asleep at 2 m/s, touching body 1 awake at 3
+      m/s: woken fast (steps_left 0); ``nan_fast_wake``: body 2 so, at a NaN
+      speed (steps_left kept); ``fast_and_nan``: both (NaN wins);
+    - ``kinematic``: half the bodies kinematic, speeds about the 1e-5 rule;
+    - ``all_asleep``: every body asleep, nothing fast;
+    - ``n1``, ``n33``: 1 and 33 bodies;
+    - ``n65536``: 65,536 bodies and 16,383 entries (the 32-bit incidence
+      key's most at that capacity).
+    """
+    if case not in SLEEP_CASES:
+        raise ValueError(f"unknown sleep case {case!r}")
+    rng = np.random.default_rng(seed + 800 + SLEEP_CASES.index(case))
+    f32 = np.float32
+    n = {"n1": 1, "n33": 33, "n65536": 65_536}.get(case, 64)
+    q = {"n1": 2, "n33": 48, "n65536": 16_383, "slots_full": 4 * 64}.get(case, 96)
+    cpb = {"cpb1": 1, "cpb16": 16, "cpb40": 40}.get(case, 8)
+    wm = {"wm1": 1, "wm4": 4}.get(case, 2)
+    k = 4
+    alive = rng.random(n) < 0.9
+    motion = np.full(n, 2, np.int32)
+    kinds = rng.random(n)
+    motion[kinds < (0.5 if case == "kinematic" else 0.08)] = 1
+    motion[kinds > 0.92] = 0
+    awake = rng.random(n) < (0.0 if case == "all_asleep" else 0.6)
+    prev_awake = np.where(rng.random(n) < 0.85, awake, ~awake)
+    if case == "all_asleep":
+        prev_awake[:] = False
+    timer = rng.uniform(0.3, 0.6, n).astype(f32)
+
+    def speeds(m, scale):
+        v = rng.normal(size=(m, 3))
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        return (v * scale[:, None]).astype(f32)
+    slow = rng.random(n) < 0.6
+    lscale = np.where(slow, rng.uniform(0.0, 0.04, n), rng.uniform(0.05, 2.0, n))
+    ascale = np.where(slow, rng.uniform(0.0, 0.04, n), rng.uniform(0.05, 2.0, n))
+    if case == "kinematic":
+        lscale = np.where(motion == 1, rng.uniform(0.0, 2e-5, n), lscale)
+        ascale = np.where(motion == 1, rng.uniform(0.0, 2e-5, n), ascale)
+    if case == "all_asleep":
+        lscale, ascale = lscale * 0.01, ascale * 0.01
+    linvel, angvel = speeds(n, lscale), speeds(n, ascale)
+
+    if case == "slots_full":
+        base = np.arange(n)
+        ea = np.concatenate([base] * 4)
+        eb = np.concatenate([(base + d) % n for d in (1, 2, 3, 4)])
+    else:
+        ea = rng.integers(0, n, q)
+        eb = (ea + rng.integers(1, max(n, 2), q)) % n if n > 1 else np.full(q, -1)
+    if case == "cpb40":
+        ea[:41], eb[:41] = 3, np.arange(4, 45)
+    if case == "static_counterpart":
+        eb[rng.random(q) < 0.25] = -1
+    if n > 1 and case not in ("slots_full", "n65536"):
+        ea[-q // 8:] = -1                   # padded entries, not in the table
+    rows = q * wm
+    pa, pb = np.repeat(ea, wm), np.repeat(eb, wm)
+    p_valid = (pa >= 0) & (rng.random(rows) < 0.8)
+    if case == "invalid_entries":
+        p_valid &= np.repeat(rng.random(q) < 0.67, wm)
+    lam = rng.uniform(0.0, 2e-4, rows).astype(f32)
+    pen = rng.uniform(-0.05, 0.12, rows).astype(f32)
+    if case == "nan_lambda":
+        lam[rng.random(rows) < 0.1] = np.nan
+        pen[rng.random(rows) < 0.1] = np.nan
+    if case == "nan_velocities":
+        linvel[rng.random(n) < 0.1, 0] = np.nan
+        angvel[rng.random(n) < 0.1, 2] = np.nan
+    steps = 3
+    if case in ("fast_wake", "nan_fast_wake", "fast_and_nan"):
+        # Every other newly awake body is slow, so the case decides.
+        linvel = np.where(np.linalg.norm(linvel, axis=1, keepdims=True) > 0.9, linvel * 0.4,
+                          linvel).astype(f32)
+        woken = {"fast_wake": (0,), "nan_fast_wake": (2,), "fast_and_nan": (0, 2)}[case]
+        for b in (0, 2):
+            alive[b], motion[b], awake[b], prev_awake[b] = True, 2, False, False
+            linvel[b] = (2.0, 0.0, 0.0)
+        if 2 in woken:
+            linvel[2] = (np.nan, 0.0, 0.0)
+        for b, partner in ((0, 1), (2, 3)):
+            alive[partner], awake[partner] = True, True
+            linvel[partner] = (3.0, 0.0, 0.0)
+            if b in woken:
+                ea[b], eb[b] = b, partner
+                p_valid[b * wm:(b + 1) * wm] = True
+        pa, pb = np.repeat(ea, wm), np.repeat(eb, wm)
+    s_valid = np.repeat(alive, k) & (rng.random(n * k) < 0.3)
+    s_pen = rng.uniform(-0.05, 0.12, n * k).astype(f32)
+    occupied = (ea >= 0) if wm > 1 else (p_valid & (ea >= 0))
+    i32 = np.int32
+    return SleepScene(awake, prev_awake, timer, alive, motion, linvel, angvel,
+                      dict(valid=s_valid, penetration=s_pen),
+                      dict(a=pa.astype(i32), b=pb.astype(i32), valid=p_valid, penetration=pen),
+                      lam.reshape(q, wm), occupied, cpb, steps)
+
+
+def sleep_inputs(scene: SleepScene, device):
+    """The arguments of ``sleep.sleep_pass`` for ``scene`` on ``device``:
+    (body, prev_awake, linvel, angvel, static rows, pair rows, lambda_p,
+    table, sign, wm, dt, params, steps_left); lambda_p a strided view (a
+    column of [Q, wm, 3]), as the solver hands it; the table from KT's
+    twin on the CPU."""
+    from substrata_tpu_torch.physics import state as st
+    t = (lambda x: torch.as_tensor(np.ascontiguousarray(x), device=device))
+    n = scene.awake.shape[0]
+    q, wm = scene.lam.shape
+    body = st.zero_body_state(n, device=device).replace(
+        awake=t(scene.awake), sleep_timer=t(scene.timer), alive=t(scene.alive),
+        motion_type=t(scene.motion))
+    table, sign, _ = layout.incidence_plain(
+        torch.as_tensor(scene.pair["a"][::wm].copy()),
+        torch.as_tensor(scene.pair["b"][::wm].copy()), torch.as_tensor(scene.occupied), n,
+        scene.cpb)
+    lam3 = torch.zeros((q, wm, 3), dtype=torch.float32, device=device)
+    lam3[..., 0] = t(scene.lam)
+    pr = scene.pair
+    return (body, t(scene.prev_awake), t(scene.linvel), t(scene.angvel),
+            (t(scene.static["valid"]), t(scene.static["penetration"])),
+            (t(pr["a"]), t(pr["b"]), t(pr["valid"]), t(pr["penetration"])), lam3[..., 0],
+            table.to(device), sign.to(device), wm, 1.0 / 60.0,
+            st.default_sim_params(device=device),
+            torch.tensor(scene.steps_left, dtype=torch.int32, device=device))

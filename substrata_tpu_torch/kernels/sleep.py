@@ -9,13 +9,16 @@ and the velocity zeroing) and ``step.py:216-224`` (a fast wake forces the
 next step to rebuild its pairs).
 
 ``strike_wake`` and ``sleep_pass`` run their ``*_plain`` twins for CPU
-tensors and the launches of ``csrc/sleep.cu`` for CUDA ones.  Squared
+tensors and the launches of ``csrc/sleep.cu`` for CUDA ones: the sleep
+pass one launch a call, a lane per incidence slot (up to 32 a body, fewer
+where the bodies alone near fill the card: ``MAX_THREADS``).  Squared
 speeds sum as (x² + y²) + z² in both.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import struct
 
 import torch
 
@@ -151,9 +154,52 @@ def sleep_pass_plain(body, prev_awake, linvel, angvel, static_rows, pair_rows, l
                     torch.where(fast_wake, 0, steps_left).to(torch.int32))
 
 
+# csrc/sleep.cu:SleepArgs: 20 inputs, the ticket and the output buffer;
+# lambda's row stride, N, wm, K, CPB, log2 of the lanes a body; dt.
+_PACK = struct.Struct("=22q6qd")
+MAX_WM = 8          # csrc/sleep.cu:kMaxWm
+# Lanes a body: CPB's (up to 32, a power of two) while N x lanes stays within
+# this many threads, fewer past it.  A lane a slot takes a body's slots off
+# one thread's serial walk; where the bodies alone come near filling the
+# card, more lanes only add loads (PERF.md, K8: bench_halo_sleep.py's lane
+# sweep, 8 lanes the fastest at 10,240 bodies, 1 at 65,536).
+MAX_THREADS = 100_000
+_plans = {}
+_NAMES = ("awake", "prev_awake", "sleep_timer", "alive", "motion_type", "linvel", "angvel",
+          "contact a", "contact b", "contact valid", "contact penetration", "static valid",
+          "static penetration", "table", "sign", "sleep_lin_vel", "sleep_ang_vel", "sleep_time",
+          "steps_left")
+
+
+class _Plan:
+    """The sleep pass's checks and ticket for one (N, rows, wm, K, CPB,
+    device, stream): the inputs' dtypes and shapes in the kernel's order,
+    the lanes a body (see ``MAX_THREADS``), and a 64-bit word (the blocks
+    done and those with a fast or a NaN wake) that every launch leaves zero
+    for the next; keyed by stream, so launches that share it run in stream
+    order."""
+
+    def __init__(self, n, rows, wm, k, cpb, device):
+        f32, i32, b8 = torch.float32, torch.int32, torch.bool
+        if not 1 <= wm <= MAX_WM:
+            raise ValueError(f"sleep_pass: wm = {wm}, the kernel takes 1 to {MAX_WM}")
+        if n < 1:
+            raise ValueError("sleep_pass: no bodies")
+        self.device = device
+        self.dtypes = (b8, b8, f32, b8, i32, f32, f32, i32, i32, b8, f32, b8, f32, i32, f32,
+                       f32, f32, f32, i32)
+        self.shapes = ((n,), (n,), (n,), (n,), (n,), (n, 3), (n, 3), (rows,), (rows,), (rows,),
+                       (rows,), (n * k,), (n * k,), (n, cpb), (n, cpb), (), (), (), ())
+        self.g_shift = min((min(max(cpb, 1), 32) - 1).bit_length(),
+                           max(MAX_THREADS // n, 1).bit_length() - 1)
+        self.ticket = torch.zeros(1, dtype=torch.int64, device=device)
+
+
 def sleep_pass(body, prev_awake, linvel, angvel, static_rows, pair_rows, lambda_p, table,
                sign, wm: int, dt, params, steps_left) -> SleepOut:
-    """KV (b): the post-solve sleep pass and its tail, for the step."""
+    """KV (b): the post-solve sleep pass and its tail, for the step.  On the
+    card one launch from one packed argument, checked against a plan of
+    its shape; the outputs are views of one allocation."""
     if linvel.device.type == "cpu":
         return sleep_pass_plain(body, prev_awake, linvel, angvel, static_rows, pair_rows,
                                 lambda_p, table, sign, wm, dt, params, steps_left)
@@ -165,41 +211,34 @@ def sleep_pass(body, prev_awake, linvel, angvel, static_rows, pair_rows, lambda_
     rows = c_a.shape[0]
     q = rows // wm
     cpb = table.shape[1]
-    f32, i32, b8 = torch.float32, torch.int32, torch.bool
     # lambda_p is [Q, wm], usually a strided view of the solver's impulses.
     lam, ls = lambda_p, lambda_p.stride(1)
-    if tuple(lam.shape) != (q, wm) or lam.stride(0) != wm * ls or lam.dtype != f32 \
+    if tuple(lam.shape) != (q, wm) or lam.stride(0) != wm * ls or lam.dtype != torch.float32 \
             or lam.device != dev:
         raise ValueError(f"lambda_p: expected float32 [{q}, {wm}] at strides (wm * s, s) "
                          f"on {dev}")
-    for t, name, dt_, shp in ((body.awake, "awake", b8, (n,)),
-                              (prev_awake, "prev_awake", b8, (n,)),
-                              (body.sleep_timer, "sleep_timer", f32, (n,)),
-                              (body.alive, "alive", b8, (n,)),
-                              (body.motion_type, "motion_type", i32, (n,)),
-                              (linvel, "linvel", f32, (n, 3)), (angvel, "angvel", f32, (n, 3)),
-                              (c_a, "contact a", i32, (rows,)), (c_b, "contact b", i32, (rows,)),
-                              (c_valid, "contact valid", b8, (rows,)),
-                              (c_pen, "contact penetration", f32, (rows,)),
-                              (s_valid, "static valid", b8, (n * K,)),
-                              (s_pen, "static penetration", f32, (n * K,)),
-                              (table, "table", i32, (n, cpb)), (sign, "sign", f32, (n, cpb)),
-                              (params.sleep_lin_vel, "sleep_lin_vel", f32, ()),
-                              (params.sleep_ang_vel, "sleep_ang_vel", f32, ()),
-                              (params.sleep_time, "sleep_time", f32, ()),
-                              (steps_left, "steps_left", i32, ())):
-        build.check(t, name, dt_, shp, dev)
-    flags_out = torch.empty((3 * n,), dtype=b8, device=dev)
-    o_awake, newly_awake, newly_asleep = (flags_out[k * n:(k + 1) * n] for k in range(3))
-    floats = torch.empty((7 * n,), dtype=f32, device=dev)
-    o_timer = floats[:n]
-    o_lin, o_ang = floats[n:4 * n].view(n, 3), floats[4 * n:].view(n, 3)
-    ints = torch.empty((3,), dtype=i32, device=dev)
-    scratch, steps_out = ints[:2], ints[2:].reshape(())
-    build.launch("sleep_pass", body.awake, prev_awake, body.sleep_timer, body.alive,
-                 body.motion_type, linvel, angvel, c_a, c_b, c_valid, c_pen, lam, ls, s_valid, s_pen,
-                 table, sign, params.sleep_lin_vel, params.sleep_ang_vel, params.sleep_time,
-                 steps_left, float(dt), n, wm, K, cpb, scratch, o_awake, o_timer, o_lin, o_ang,
-                 newly_awake, newly_asleep, steps_out)
+    key = (n, rows, wm, K, cpb, dev, build.stream())
+    plan = build.plan(_plans, key, lambda: _Plan(n, rows, wm, K, cpb, dev))
+    ins = (body.awake, prev_awake, body.sleep_timer, body.alive, body.motion_type, linvel,
+           angvel, c_a, c_b, c_valid, c_pen, s_valid, s_pen, table, sign, params.sleep_lin_vel,
+           params.sleep_ang_vel, params.sleep_time, steps_left)
+    build.check_all(plan.device, ins, _NAMES, plan.dtypes, plan.shapes)
+    # One buffer (csrc/sleep.cu:SleepArgs.out): timer, linvel, angvel (f32),
+    # steps_left (i32), then the awake, newly_awake and newly_asleep flags.
+    ints = torch.empty((7 * n + 1 + (3 * n + 3) // 4,), dtype=torch.int32, device=dev)
+    timer, lin_o, ang_o = ints[:7 * n].view(torch.float32).split([n, 3 * n, 3 * n])
+    flags = ints[7 * n + 1:].view(torch.bool)
+    flags = flags.split([n, n, n, flags.shape[0] - 3 * n])
+    try:
+        build.launch_packed("sleep_pass", _PACK.pack(
+            *(t.data_ptr() for t in ins[:11]), lam.data_ptr(),
+            *(t.data_ptr() for t in ins[11:]), plan.ticket.data_ptr(), ints.data_ptr(), ls, n,
+            wm, K, cpb, plan.g_shift, float(dt)))
+    except RuntimeError:
+        # A launch that failed may leave the ticket set: the next call
+        # gets a zeroed plan.
+        _plans.pop(key, None)
+        raise
     launches["sleep_pass"] += 1
-    return SleepOut(o_awake, o_timer, o_lin, o_ang, newly_awake, newly_asleep, steps_out)
+    return SleepOut(flags[0], timer, lin_o.view(n, 3), ang_o.view(n, 3), flags[1], flags[2],
+                    ints[7 * n])

@@ -41,7 +41,10 @@ card by default; the pipelined readback ring on the card; KAD (the halo
 exchange) and KAE (the shard axis's keep, counts and clipped sum) exact,
 and the sharded paths on the card within 1e-4 m (the mix 5e-5) of the CPU
 path; KA and KU to the bit on kernels/hard_cases.py's box-box and
-position scenes.  Each kernel repeats its twin's operations in the same order."""
+position scenes; KAD (every byte, the overflow counts, one launch a phase)
+and KV's sleep pass (every output, three calls on one plan) to the bit on
+its halo and sleep scenes.  Each kernel repeats its twin's operations in
+the same order."""
 
 import dataclasses
 
@@ -2047,3 +2050,53 @@ def test_position_hard_cases(case):
     pk = ku.solve_positions(*args, **kw)
     pp = ku.solve_positions_plain(*args, kw["iters"], kw["beta"], kw["wm"])
     assert _same_bits(pk, pp), (case, float((pk - pp).abs().max()))
+
+
+def _state_bytes_equal(a, b):
+    from substrata_tpu_torch.physics.state import BODY_FIELDS
+    for f in BODY_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype and x.shape == y.shape, f
+        assert torch.equal(x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8)), f
+
+
+@pytest.mark.parametrize("case", hard_cases.HALO_CASES)
+def test_halo_hard_cases(case):
+    """KAD (ballot ranks, field-major ghost copies over several blocks a
+    direction) against its twin on kernels/hard_cases.py's halo scenes:
+    every byte of each phase's combined state (NaN payloads included) and
+    the overflow counts, one launch a phase; the tiles' y phase on the
+    kernel's x phase."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from substrata_tpu_torch.kernels import halo
+    state, s, h, phases = hard_cases.halo_inputs(hard_cases.halo_scene(case), "cuda")
+    for axis, stride, n_axis, lo, hi in phases:
+        before = halo.launches
+        got, ov = halo.exchange(state, s, h, axis, stride, n_axis, lo, hi)
+        assert halo.launches == before + 1
+        want, ov_p = halo.exchange_plain(state, s, h, axis, stride, n_axis, lo, hi)
+        _state_bytes_equal(got, want)
+        assert torch.equal(ov, ov_p), (case, ov.tolist(), ov_p.tolist())
+        state = got
+
+
+@pytest.mark.parametrize("case", hard_cases.SLEEP_CASES)
+def test_sleep_hard_cases(case):
+    """KV's sleep pass (a lane per incidence slot, one launch, the ticket's
+    scratch reset by the last block) against its twin on kernels/
+    hard_cases.py's sleep scenes, every output to the bit, three calls in a
+    row on one plan with a fast wake's scene between them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from substrata_tpu_torch.kernels import sleep as kv
+    args = hard_cases.sleep_inputs(hard_cases.sleep_scene(case), "cuda")
+    fast = hard_cases.sleep_inputs(hard_cases.sleep_scene("fast_wake"), "cuda")
+    want = kv.sleep_pass_plain(*args)
+    for _ in range(3):
+        before = kv.launches["sleep_pass"]
+        got = kv.sleep_pass(*args)
+        assert kv.launches["sleep_pass"] == before + 1
+        for f in dataclasses.fields(want):
+            assert _same_bits(getattr(got, f.name), getattr(want, f.name)), (case, f.name)
+        assert int(kv.sleep_pass(*fast).steps_left) == 0
