@@ -136,7 +136,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    touching, compaction and incidence table on the serving world (timed)
    and the mesh world, the grouping also on hard_cases.py's pair lists (a
    mixed code over its bucket and a clamped slice; every pair invalid) at
-   16,384, 49,152 (timed) and 12,345 pairs; KU (position solve, two
+   16,384, 49,152 (timed) and 12,345 pairs, the compaction (one
+   cooperative launch, one device operation a call, its launch split and
+   host µs) also on hard_cases.py's compaction scenes (the 65,536-body
+   tier's 196,608 rows timed), every field to the bit; KU (position solve, two
    launches a step) and KV (strike wake, sleep pass) on the bench, serving
    and mesh worlds, KU also on hard_cases.py's position scenes, KV's sleep
    pass also on its sleep scenes and at 65,536 bodies with KS's pairs, one
@@ -159,10 +162,14 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    normals apart, and the clamp's one point (ms, device and host µs);
 17. 180 benchworld.terrain_tick frames of BASELINE config 4 (see
    terrain_phase) and a small terrain world against the CPU path;
-18. KAA (the audio mix's per-source setup and epilogue) on bench.py's
-   256-source scene after 30 blocks, HRTF on (timed, with the setup's
-   host µs) and off, the setup also on kernels/hard_cases.py's audio-setup
-   scenes with HRTF on and off, and KAB (the
+18. KAA (the audio mix's per-source setup) on bench.py's 256-source
+   scene after 30 blocks, HRTF on (timed, with the setup's host µs) and
+   off, then KF with the epilogue folded in (the finished flags, the
+   level meter, the alive mask) on that block against
+   audio_spatialise_plain + audio_epilogue_plain (KF's outputs within
+   1e-5, all and the epilogue's fields equal to the bit; timed), the
+   setup also on kernels/hard_cases.py's audio-setup scenes with HRTF on
+   and off and KF's epilogue on its epilogue scenes, and KAB (the
    vehicles' pre-ray setup and delta scatter) on the full tick's 8
    vehicles after 30 ticks and with one vehicle's body gone, each against
    its twin: exact on masks, bins (but a bin whose pre-round value lies
@@ -304,6 +311,16 @@ def same_bits(a, b):
     return torch.equal(na, nb) and torch.equal(torch.where(na, 0.0, a), torch.where(nb, 0.0, b))
 
 
+def same_words(a, b):
+    """Equal dtypes, shapes and words: floats compared as their bits, so
+    -0.0 differs from 0.0 and a NaN's payload counts."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
 def _tensors(obj):
     if isinstance(obj, torch.Tensor):
         yield obj
@@ -322,6 +339,18 @@ def nbytes(*objs):
     for t in _tensors(objs):
         seen[(t.data_ptr(), t.numel(), t.dtype)] = t.numel() * t.element_size()
     return sum(seen.values())
+
+
+def compact_bytes(rows, m):
+    """The bytes KT's compaction must move on this call's data: valid and
+    penetration read for every row, the other fields of the rows that land
+    (the first min(valid rows, m) in the output's order) read, and the m
+    output rows of every field and the overflow written."""
+    c = rows[0].shape[0]
+    row = [t.element_size() * (t.numel() // c if c else 1) for t in rows]
+    classes = row[4] + row[5]                  # penetration, valid
+    landing = min(int(rows[5].sum()), m)
+    return classes * c + (sum(row) - classes) * landing + sum(row) * m + 4
 
 
 def kn_bytes(ev, scalars, digest, body=None, block=None):
@@ -687,7 +716,7 @@ class plain_mix:
     KE-KG's."""
 
     NAMES = {"audio_mix": ("audio_fetch", "audio_spatialise", "audio_downmix_reverb"),
-             "audio_setup": ("audio_setup", "audio_epilogue")}
+             "audio_setup": ("audio_setup",)}
 
     def __enter__(self):
         import importlib
@@ -728,12 +757,33 @@ def kg_bits(gargs, what):
 
 def kf_bits(fk, fp, what):
     """KF against its twin to the bit on every output (wl, wr, ws, lp_out,
-    new_hist, level): the kernel repeats the twin's operations in order."""
+    new_hist, level) and the folded epilogue's three fields: the kernel
+    repeats the twin's operations in order (a NaN where the twin's is)."""
+    from substrata_tpu_torch.kernels import audio_mix as ka
     names = ("wl", "wr", "ws", "lp_out", "new_hist", "level")
     for name, x, y in zip(names, fk, fp):
         check(x is None if y is None else same_bits(x, y),
               f"KF {what}: {name} differs from its twin's bits")
-    return dict(bit_equal=[n for n, y in zip(names, fp) if y is not None])
+    s = fp[5].shape[0]
+    ek, ep = ka.epilogue_views(fk[6], s), ka.epilogue_views(fp[6], s)
+    for name in EPILOGUE_OUT:
+        check(same_bits(ek[name], ep[name]), f"KF {what}: the epilogue's {name} differs "
+              "from its twin's bits")
+    return dict(bit_equal=[n for n, y in zip(names, fp) if y is not None] + list(EPILOGUE_OUT))
+
+
+EPILOGUE_OUT = ("smoothed_level", "finished", "alive")
+
+
+def kf_bytes(sargs, rows, fk):
+    """The bytes KF must move: its [S] and [S, B] inputs and the bank rows
+    the sources use (``rows``), its outputs but the epilogue's buffer;
+    the epilogue's eight [S] inputs and layer 0 of the heads and lengths
+    read, its smoothed level (4 B) and two flags (1 B each) a source
+    written."""
+    epi = sargs[16]
+    s = sargs[0].shape[0]
+    return nbytes(sargs[:6], sargs[7:15], rows, fk[:6], epi[:4], epi[6:]) + 8 * s + 6 * s
 
 
 def audio_kernel_phase(w, device="cuda", blocks=30, plain_reps=5):
@@ -762,6 +812,7 @@ def audio_kernel_phase(w, device="cuda", blocks=30, plain_reps=5):
     sp, hp = ka.audio_fetch_plain(*fargs)
     err = max(max_err(sk, sp), max_err(hk, hp))
     check(err <= 1e-6, f"KE audio_fetch: max abs err {err} > 1e-6")
+    s = src.capacity
     used = (src.buf_len > 0)
     span = torch.floor(st.eff_delta * (b - 1)) + 2.0        # pool samples a layer reads
     pool_bytes = int((span * used).sum()) * 4
@@ -771,16 +822,19 @@ def audio_kernel_phase(w, device="cuda", blocks=30, plain_reps=5):
         ms=median_ms(lambda: ka.audio_fetch(*fargs)),
         plain_ms=median_ms(lambda: ka.audio_fetch_plain(*fargs), reps=plain_reps))
 
-    # KF.  Tolerance 1e-5 absolute: the same operations in the same order
-    # (the low-pass frame by frame, the FIR tap by tap).
+    # KF, with the mix's epilogue folded in as mix_block calls it.
+    # Tolerance 1e-5 absolute: the same operations in the same order (the
+    # low-pass frame by frame, the FIR tap by tap); and equal to the bit.
     bank = hrir_bank_tensor(device)
     ramp = mix.gain_ramp(b, device)
+    epi = (src.finished, src.looping, src.stream_mode, st.active, hp, src.buf_len,
+           src.smoothed_level, src.alive, src.remove_on_finish)
     sargs = (sp, src.lp_state, st.alpha, st.use_lp, src.spatial, src.hrir_hist, bank,
              st.dir_idx, src.prev_gain_l, src.prev_gain_r, st.gl, st.gr, ramp, st.gain,
-             st.send_gain, True)
+             st.send_gain, True, epi)
     fk = ka.audio_spatialise(*sargs)
     fp = ka.audio_spatialise_plain(*sargs)
-    err = max(max_err(x, y) for x, y in zip(fk, fp))
+    err = max(max_err(x, y) for x, y in zip(fk[:6], fp[:6]))
     check(err <= 1e-5, f"KF audio_spatialise: max abs err {err} > 1e-5")
     kf_bits(fk, fp, "bench scene")
     rows = bank.reshape(-1, 2 * bank.shape[-1])[torch.unique(st.dir_idx).long()]
@@ -797,7 +851,8 @@ def audio_kernel_phase(w, device="cuda", blocks=30, plain_reps=5):
     one = torch.ones_like(st.gl)
     ref = ka.audio_spatialise_plain(sp, src.lp_state, st.alpha, torch.zeros_like(st.use_lp),
                                     torch.ones_like(src.spatial), src.hrir_hist, bank,
-                                    st.dir_idx, one, one, one, one, ramp, st.gain, None, True)
+                                    st.dir_idx, one, one, one, one, ramp, st.gain, None, True,
+                                    epi)
     conv = fir()[0].reshape(src.capacity, 2, b)
     fir_err = max(max_err(conv[:, 0], ref[0]), max_err(conv[:, 1], ref[1]))
     check(fir_err <= 1e-5, f"conv1d FIR vs the plain FIR: {fir_err} > 1e-5")
@@ -806,21 +861,23 @@ def audio_kernel_phase(w, device="cuda", blocks=30, plain_reps=5):
     # to the bit too.
     b2 = mix.BLOCK
     st2 = mix.prepare(src, lis, b2, b2 / mix.ENGINE_RATE, True)
-    sp2, _ = ka.audio_fetch_plain(pool, src.buf_offset, src.buf_len, src.playhead, st2.eff_delta,
-                                  src.mix_factor, src.looping, src.stream_mode,
-                                  src.stream_write_head, st2.active, b2, mix.window_rows(b2))
+    sp2, hp2 = ka.audio_fetch_plain(pool, src.buf_offset, src.buf_len, src.playhead,
+                                    st2.eff_delta, src.mix_factor, src.looping, src.stream_mode,
+                                    src.stream_write_head, st2.active, b2, mix.window_rows(b2))
+    epi2 = (src.finished, src.looping, src.stream_mode, st2.active, hp2, src.buf_len,
+            src.smoothed_level, src.alive, src.remove_on_finish)
     sargs2 = (sp2, src.lp_state, st2.alpha, st2.use_lp, src.spatial, src.hrir_hist, bank,
               st2.dir_idx, src.prev_gain_l, src.prev_gain_r, st2.gl, st2.gr,
-              mix.gain_ramp(b2, device), st2.gain, st2.send_gain, True)
+              mix.gain_ramp(b2, device), st2.gain, st2.send_gain, True, epi2)
     fk2, fp2 = ka.audio_spatialise(*sargs2), ka.audio_spatialise_plain(*sargs2)
-    err2 = max(max_err(x, y) for x, y in zip(fk2, fp2))
+    err2 = max(max_err(x, y) for x, y in zip(fk2[:6], fp2[:6]))
     check(err2 <= 1e-5, f"KF audio_spatialise at {b2} frames: max abs err {err2} > 1e-5")
     kf_bits(fk2, fp2, f"{b2} frames")
     hard = {}
     for case in hard_cases.SPATIALISE_CASES:
         hargs = hard_cases.spatialise_inputs(hard_cases.spatialise_scene(case), device)
         hk, hp = ka.audio_spatialise(*hargs), ka.audio_spatialise_plain(*hargs)
-        e = max(max_err(x, y) for x, y in zip(hk, hp) if y is not None)
+        e = max(max_err(x, y) for x, y in zip(hk[:6], hp[:6]) if y is not None)
         check(e <= 1e-5, f"KF {case}: max abs err {e} > 1e-5")
         hard[case] = dict(max_abs_err=e, **kf_bits(hk, hp, case))
         err = max(err, e)
@@ -833,15 +890,15 @@ def audio_kernel_phase(w, device="cuda", blocks=30, plain_reps=5):
     results["audio_spatialise"] = dict(
         max_abs_err=err, tol=1e-5, bit_equal=True, hrir_rows=int(rows.shape[0]),
         use_lp=int(st.use_lp.sum()),
-        **bound(nbytes(sargs[:6], sargs[7:15], rows, fk),
-                b * (n_spatial * 4 * taps + src.capacity * 12)),
+        **bound(kf_bytes(sargs, rows, fk), b * (n_spatial * 4 * taps + s * 12)
+                + FLOPS["epilogue"] * s),
         ms=median_ms(kf), device_us_per_launch=device_us(kf, "audio_spatialise"),
         **host_cost(kf),
         plain_ms=median_ms(lambda: ka.audio_spatialise_plain(*sargs), reps=plain_reps),
         fir_conv1d_ms=median_ms(fir), fir_conv1d_max_abs_err=fir_err,
         b256=dict(max_abs_err=err2, bit_equal=True,
-                  **bound(nbytes(sargs2[:6], sargs2[7:15], rows, fk2),
-                          b2 * (n_spatial * 4 * taps + src.capacity * 12)),
+                  **bound(kf_bytes(sargs2, rows, fk2), b2 * (n_spatial * 4 * taps + s * 12)
+                          + FLOPS["epilogue"] * s),
                   ms=median_ms(kf2), device_us_per_launch=device_us(kf2, "audio_spatialise"),
                   **host_cost(kf2)),
         hard_cases=hard)
@@ -3045,7 +3102,7 @@ def _kt_compare(w, what, timed=False, plain_reps=5):
     ck, cov_k = kt.compact(contacts, m)
     cp, cov_p = kt.compact_plain(contacts, m)
     for x, y, name in zip(ck, cp, narrowphase.CONTACT_FIELDS):
-        check(torch.equal(x, y), f"KT {what}: compacted {name} differs")
+        check(same_words(x, y), f"KT {what}: compacted {name} differs")
     check(int(cov_k) == int(cov_p), f"KT {what}: contact overflow differs")
     occ = cp[5] & (cp[0] >= 0)
     cpb = cfg.contacts_per_body
@@ -3078,7 +3135,14 @@ def _kt_compare(w, what, timed=False, plain_reps=5):
                                  nbytes(slot, touches, tk), 0, plain_reps)
         res["compact"] = _timed(lambda: kt.compact(contacts, m),
                                 lambda: kt.compact_plain(contacts, m), "layout_compact",
-                                nbytes(contacts, ck, cov_k), 0, plain_reps)
+                                compact_bytes(contacts, m), 0, plain_reps)
+        # One device operation a call: the cooperative launch (the parent's
+        # count and write kernels went into it, across its grid barrier).
+        cost = split_cost(lambda: kt.compact(contacts, m))
+        one_device_op(lambda: kt.compact(contacts, m), lambda: kt.launches["layout_compact"],
+                      cost["split"], "layout_compact_kernel", "KT compaction")
+        res["compact"].update(cost, library_ms=None,
+                              hard=kt_compact_cases(body.device, plain_reps))
         ia = (cp[0], cp[1], occ, n, cpb)
         res["incidence"] = dict(
             **_timed(lambda: kt.incidence(*ia), lambda: kt.incidence_plain(*ia), "layout_inc",
@@ -3190,6 +3254,35 @@ def kt_hard_cases(device, plain_reps):
                      library_ms=median_ms(lambda c=codes: torch.argsort(c, stable=True)),
                      **host_cost(lambda g=gargs: kt.group(*g)))
         out[f"{case}_{p}"] = r
+    return out
+
+
+def kt_compact_cases(device, plain_reps):
+    """KT's compaction against its twin on kernels/hard_cases.py's
+    compaction scenes, every field to the bit and the overflow, two calls
+    on one plan each; the 65,536-body tier's 196,608 rows into 16,383
+    timed."""
+    from substrata_tpu_torch.kernels import hard_cases
+    from substrata_tpu_torch.kernels import layout as kt
+    out = {}
+    for case in hard_cases.COMPACT_CASES:
+        scene = hard_cases.compact_scene(case)
+        rows, m = hard_cases.compact_inputs(scene, device)
+        want, ov_p = kt.compact_plain(rows, m)
+        for _ in range(2):
+            got, ov = kt.compact(rows, m)
+            for x, y, name in zip(got, want, hard_cases.COMPACT_FIELDS):
+                check(same_words(x, y), f"KT compaction, hard case {case}: {name} differs")
+            check(int(ov) == int(ov_p), f"KT compaction, hard case {case}: overflow "
+                  f"{int(ov)} != {int(ov_p)}")
+        n_touch, n_valid = scene.counts
+        r = dict(rows=int(rows[0].shape[0]), max_active=m, touching=n_touch, valid=n_valid,
+                 overflow=int(ov_p))
+        if case == "capacity":
+            r.update(**_timed(lambda: kt.compact(rows, m), lambda: kt.compact_plain(rows, m),
+                              "layout_compact", compact_bytes(rows, m), 0, plain_reps),
+                     **split_cost(lambda: kt.compact(rows, m)))
+        out[case] = r
     return out
 
 
@@ -3963,33 +4056,69 @@ def kaa_hard_cases(device):
     return out
 
 
+def kf_epilogue_cases(device):
+    """KF with the epilogue folded in against ``audio_spatialise_plain`` +
+    ``audio_epilogue_plain`` on kernels/hard_cases.py's epilogue scenes:
+    KF's outputs, the finished and alive flags and the smoothed level
+    exact (``same_bits``: a NaN level or smoothed level where the twin's
+    is one; the card's fma gives the canonical NaN, the twin's float64
+    path another)."""
+    from substrata_tpu_torch.kernels import audio_mix as ka
+    from substrata_tpu_torch.kernels import hard_cases
+    out = {}
+    for case in hard_cases.EPILOGUE_CASES:
+        sargs, epi = hard_cases.epilogue_inputs(hard_cases.epilogue_scene(case), device)
+        fk = ka.audio_spatialise(*sargs, epilogue=epi)
+        fp = ka.audio_spatialise_plain(*sargs, epilogue=epi)
+        for x, y, name in zip(fk[:5], fp[:5], ("wl", "wr", "ws", "lp_out", "new_hist")):
+            check(same_words(x, y), f"KF epilogue case {case}: {name} differs")
+        check(same_bits(fk[5], fp[5]), f"KF epilogue case {case}: level differs")
+        s = fk[5].shape[0]
+        ek, ep = ka.epilogue_views(fk[6], s), ka.epilogue_views(fp[6], s)
+        for name in ("finished", "alive"):
+            _exact(ek[name], ep[name], f"KF epilogue case {case}: {name}")
+        check(same_bits(ek["smoothed_level"], ep["smoothed_level"]),
+              f"KF epilogue case {case}: smoothed_level differs")
+        out[case] = dict(sources=s, layers=int(epi[4].shape[1]),
+                         finished=int(ep["finished"].sum()), alive=int(ep["alive"].sum()),
+                         nan_levels=int(torch.isnan(fp[5]).sum()))
+    return out
+
+
 def _kaa_compare(src, pool, lis, block, use_hrtf, what, timed=False, plain_reps=5):
-    """KAA's setup and epilogue against their twins on one source state.
-    Exact on masks, bins (but the edge sources, counted) and arithmetic;
-    the pan's cos and sin (HRTF off) within 1e-6 of the gains' scale."""
+    """KAA's setup against its twin on one source state, then KF with the
+    epilogue folded in (the finished flags, the level meter, the alive
+    mask) on that block's fetch against ``audio_spatialise_plain`` and
+    ``audio_epilogue_plain``.  Exact on masks, bins (but the edge sources,
+    counted) and arithmetic; the pan's cos and sin (HRTF off) within 1e-6
+    of the gains' scale; KF's outputs within 1e-5 (phase 6's tolerance)
+    and, as the epilogue's fields, equal to the twins' bits (``kf_bits``)."""
     from substrata_tpu_torch.audio import mix
     from substrata_tpu_torch.kernels import audio_mix as ka
     from substrata_tpu_torch.kernels import audio_setup as kaa
     s, nl = src.delta.shape
     args = _kaa_args(src, lis, block, use_hrtf)
     err, edges, moved, vp = _kaa_setup_check(args, what)
-    # The epilogue's inputs from this block's fetch and spatialise.
     samples, heads = mix.fetch(pool, src, vp["eff_delta"], vp["active"], block)
-    level = ka.audio_spatialise(
-        samples, src.lp_state, vp["alpha"], vp["use_lp"], src.spatial, src.hrir_hist,
-        mix.hrir_bank_tensor(src.device) if use_hrtf else None,
-        vp["dir_idx"] if use_hrtf else None, src.prev_gain_l, src.prev_gain_r, vp["gl"],
-        vp["gr"], mix.gain_ramp(block, src.device), vp["gain"], None, use_hrtf)[5]
-    eargs = (src.finished, src.looping, src.stream_mode, vp["active"], heads, src.buf_len,
-             level, src.smoothed_level, src.alive, src.remove_on_finish)
-    ek, ep = kaa.audio_epilogue(*eargs), kaa.audio_epilogue_plain(*eargs)
-    ek, ep = kaa.epilogue_views(ek, s), kaa.epilogue_views(ep, s)
-    for name in ("smoothed_level", "finished", "alive"):
-        _exact(ek[name], ep[name], f"KAA epilogue {what}: {name}")
+    sargs = (samples, src.lp_state, vp["alpha"], vp["use_lp"], src.spatial, src.hrir_hist,
+             mix.hrir_bank_tensor(src.device) if use_hrtf else None,
+             vp["dir_idx"] if use_hrtf else None, src.prev_gain_l, src.prev_gain_r, vp["gl"],
+             vp["gr"], mix.gain_ramp(block, src.device), vp["gain"], vp["send_gain"], use_hrtf,
+             (src.finished, src.looping, src.stream_mode, vp["active"], heads, src.buf_len,
+              src.smoothed_level, src.alive, src.remove_on_finish))
+    epi = sargs[16]
+    fk = ka.audio_spatialise(*sargs)
+    fp = ka.audio_spatialise_plain(*sargs)
+    kf_err = max(max_err(x, y) for x, y in zip(fk[:6], fp[:6]) if y is not None)
+    check(kf_err <= 1e-5, f"KF with the epilogue, {what}: max abs err {kf_err} > 1e-5")
+    bits = kf_bits(fk, fp, f"with the epilogue, {what}")
+    ep = ka.epilogue_views(fp[6], s)
     res = {"audio_setup": dict(max_abs_err=err, tol="exact; gains 1e-6 of scale without HRTF",
                                sources=s, alive=int(src.alive.sum()), hrir_edge_sources=edges,
                                hrir_bins_moved=moved, use_hrtf=use_hrtf),
-           "audio_epilogue": dict(max_abs_err=0.0, tol="exact", sources=s)}
+           "spatialise_epilogue": dict(max_abs_err=kf_err, tol="1e-5 and equal to the bit",
+                                       **bits, sources=s, finished=int(ep["finished"].sum()),
+                                       alive=int(ep["alive"].sum()))}
     if timed:
         res["audio_setup"].update(
             # What the setup writes of its buffer: (L + 8) S words and 2 S
@@ -3999,13 +4128,28 @@ def _kaa_compare(src, pool, lis, block, use_hrtf, what, timed=False, plain_reps=
             device_us=device_us(lambda: kaa.audio_setup(*args), "audio_setup_kernel"),
             **host_cost(lambda: kaa.audio_setup(*args)),
             plain_ms=median_ms(lambda: kaa.audio_setup_plain(*args), reps=plain_reps))
-        # The epilogue reads layer 0 of the heads and buffer lengths only.
-        res["audio_epilogue"].update(
-            **bound(nbytes(eargs[:4], eargs[6:], ek["smoothed_level"]) + 8 * s + 4 * s,
-                    FLOPS["audio_epilogue"] * s),
-            ms=median_ms(lambda: kaa.audio_epilogue(*eargs)),
-            device_us=device_us(lambda: kaa.audio_epilogue(*eargs), "audio_epilogue_kernel"),
-            plain_ms=median_ms(lambda: kaa.audio_epilogue_plain(*eargs), reps=plain_reps))
+        # KF as mix_block calls it (what the fold adds to KF is measured
+        # against the parent's KF by bench_compact_epilogue.py --root).  The
+        # epilogue's own bound: the eight [S] fields and layer 0 of the
+        # heads and lengths it reads, the level it reads from KF, its 6 S
+        # bytes written.
+        def kf():
+            return ka.audio_spatialise(*sargs)
+        kf_res = res["spatialise_epilogue"]
+        # KF's bound as phase 6 counts it (the bank rows the sources use),
+        # plus the epilogue's bytes and operations.
+        taps = src.hrir_hist.shape[1] + 1
+        rows = (sargs[6].reshape(-1, 2 * taps)[torch.unique(sargs[7]).long()] if use_hrtf
+                else None)
+        n_fir = int(src.spatial.sum()) if use_hrtf else 0
+        kf_res.update(
+            **bound(kf_bytes(sargs, rows, fk),
+                    block * (n_fir * 4 * taps + s * 12) + FLOPS["epilogue"] * s),
+            epilogue_bound_ms=bound(nbytes(epi[:4], epi[6:], fk[5]) + 8 * s + 6 * s,
+                                    FLOPS["epilogue"] * s)["bound_ms"],
+            ms=median_ms(kf), device_us=device_us(kf, "audio_spatialise_kernel"),
+            plain_ms=median_ms(lambda: ka.audio_spatialise_plain(*sargs), reps=plain_reps),
+            host=host_cost(kf))
     return res
 
 
@@ -4080,6 +4224,8 @@ def setup_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, blocks=30, warm
                                             *(r["max_abs_err"] for r in hard.values()))
     res["audio_setup"]["hard_cases"] = hard
     res["audio_setup_pan"] = off["audio_setup"]
+    res["spatialise_epilogue"]["pan"] = off["spatialise_epilogue"]
+    res["spatialise_epilogue"]["hard_cases"] = kf_epilogue_cases(device)
     veh, vin, ps, char, scripts = bench_fulltick(w, device)
     src, pool, lis, room = bench_audio(device)
     for t in range(warm):
@@ -4098,7 +4244,7 @@ def setup_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, blocks=30, warm
 # ---------------------------------------------------------------------------
 
 CLIENT_FRAMES = TICKS
-CLIENT_KERNELS = ("audio_setup", "audio_epilogue", "vehicle_setup", "vehicle_scatter")
+CLIENT_KERNELS = ("audio_setup", "vehicle_setup", "vehicle_scatter")
 
 
 def _winter_alike(app, t):
@@ -4185,7 +4331,7 @@ def client_phase(device="cuda", sync=torch.cuda.synchronize, frames=CLIENT_FRAME
                     extra[k] = extra.get(k, 0) + v - c0[k]
         counts = {k: v - extra.get(k, 0) for k, v in kernels.launch_counts().items()}
         driven = frames - sc.drive_from
-        for name, want in (("audio_setup", 3 * frames), ("audio_epilogue", 3 * frames),
+        for name, want in (("audio_setup", 3 * frames),
                            ("audio_fetch", 3 * frames), ("audio_spatialise", 3 * frames),
                            ("audio_downmix_reverb", 3 * frames), ("vehicle_setup", frames),
                            ("vehicle_scatter", frames), ("vehicle_forces", frames),
@@ -5094,10 +5240,11 @@ FLOPS = {"box_box_rows": 1000, "static_contacts": 600, "solve_iteration": 60,
          # oversize row; KU per contact row and per table slot, each of its
          # two iterations; KV per body (speeds, its table slots' tests).
          "pair_candidate": 20, "position_row": 12, "position_slot": 6, "sleep_body": 100,
-         # KAA per source (distance, Doppler, gains, pan, the HRIR bins'
-         # two atan2; the epilogue's compare and fma), KAB per vehicle (the
-         # matrix, inertia, five rotations) and per body written.
-         "audio_setup": 150, "audio_epilogue": 6, "vehicle_setup": 330, "vehicle_scatter": 6}
+          # KAA per source (distance, Doppler, gains, pan, the HRIR bins'
+         # two atan2), KAB per vehicle (the matrix, inertia, five
+         # rotations) and per body written; KF's folded epilogue per source
+         # (the compare, the fma).
+         "audio_setup": 150, "vehicle_setup": 330, "vehicle_scatter": 6, "epilogue": 6}
 
 KERNELS = [
     ("box_box_rows", "cuda", "substrata_tpu_torch/csrc/box_box.cu",
@@ -5168,8 +5315,6 @@ KERNELS = [
      "substrata_tpu/anim/pose.py:182"),
     ("audio_setup", "cuda", "substrata_tpu_torch/csrc/audio_setup.cu",
      "substrata_tpu/audio/mix.py:294"),
-    ("audio_epilogue", "cuda", "substrata_tpu_torch/csrc/audio_setup.cu",
-     "substrata_tpu/audio/mix.py:434"),
     ("vehicle_setup", "cuda", "substrata_tpu_torch/csrc/vehicle_setup.cu",
      "substrata_tpu/physics/vehicles/manager.py:609"),
     ("vehicle_scatter", "cuda", "substrata_tpu_torch/csrc/vehicle_setup.cu",
@@ -5195,8 +5340,7 @@ LAUNCHES_FROM = {"closed_form_rows": "serving", "character_update": "serving",
                  "layout_compact": "serving", "layout_incidence": "serving",
                  "terrain_heights": "terrain", "terrain_chunks": "terrain",
                  "terrain_scatter": "terrain", "spawn_rows": "terrain",
-                 "pose_avatars": "terrain", "audio_setup": "client",
-                 "audio_epilogue": "client", "vehicle_setup": "client",
+                 "pose_avatars": "terrain", "audio_setup": "client", "vehicle_setup": "client",
                  "vehicle_scatter": "client", "bc1_encode": "server",
                  "halo_exchange": "sharded", "shard_keep_count": "sharded",
                  "shard_world_count": "sharded", "shard_sum_clip": "sharded"}

@@ -5,13 +5,13 @@ Counterpart of ``substrata_tpu/audio/mix.py``: for every active source pull
 pitch, streaming ring buffers), resample, spatialise and downmix to stereo,
 with the same state, the same fields and the same return tuple.
 
-``mix_block`` runs five launches: KAA's setup (``kernels/audio_setup.py``:
-Doppler, fades, distance and occlusion gains, pan, HRIR direction, one
-thread per source, every field in one buffer), then KE fetches and
-resamples, KF low-passes, convolves with the HRIRs and ramps the gains, KG
-sums the sources and runs the reverb (``kernels/audio_mix.py``), and KAA's
-epilogue (the finished flags, the level meter, the alive mask).  Nothing
-in it copies from the device to the host.  The reference's one-hot/triangular MXU contraction of the fetch is
+``mix_block`` runs four launches: KAA's setup (``kernels/audio_setup.py``:
+Doppler, fades, distance and occlusion gains, pan, HRIR direction, every
+field in one buffer), then KE fetches and resamples, KF low-passes,
+convolves with the HRIRs, ramps the gains and writes the epilogue (the
+finished flags, the level meter, the alive mask), and KG sums the sources
+and runs the reverb (``kernels/audio_mix.py``).  Nothing in it copies from
+the device to the host.  The reference's one-hot/triangular MXU contraction of the fetch is
 TPU layout only; the port gathers and lerps directly, with the same
 float32 index arithmetic.
 """
@@ -275,11 +275,16 @@ def mix_block(src: SourceState, pool: torch.Tensor, listener: Listener,
     st = prepare(src, listener, block, dt_block, use_hrtf)
     samples, new_heads = fetch(pool, src, st.eff_delta, st.active, block)
 
-    wl, wr, ws, lp_out, new_hist, level = kern.audio_spatialise(
+    # Non-looping sources finish when layer 0 passes the end; the level
+    # meter and the alive mask follow (KF writes them beside the level).
+    wl, wr, ws, lp_out, new_hist, _, ep = kern.audio_spatialise(
         samples, src.lp_state, st.alpha, st.use_lp, src.spatial, src.hrir_hist,
         hrir_bank_tensor(dev) if use_hrtf else None, st.dir_idx,
         src.prev_gain_l, src.prev_gain_r, st.gl, st.gr, gain_ramp(block, dev),
-        st.gain, st.send_gain if room is not None else None, use_hrtf)
+        st.gain, st.send_gain if room is not None else None, use_hrtf,
+        epilogue=(src.finished, src.looping, src.stream_mode, st.active, new_heads,
+                  src.buf_len, src.smoothed_level, src.alive, src.remove_on_finish))
+    ep = kern.epilogue_views(ep, src.capacity)
     if room is not None:
         out, lines, widx = kern.audio_downmix_reverb(
             wl, wr, ws, listener.master_volume, room.delay_lines, room.write_idx,
@@ -287,11 +292,6 @@ def mix_block(src: SourceState, pool: torch.Tensor, listener: Listener,
     else:
         out, _, _ = kern.audio_downmix_reverb(wl, wr, None, listener.master_volume)
 
-    # Non-looping sources finish when layer 0 passes the end; the level
-    # meter and the alive mask follow (KAA's epilogue).
-    ep = kset.epilogue_views(kset.audio_epilogue(
-        src.finished, src.looping, src.stream_mode, st.active, new_heads, src.buf_len, level,
-        src.smoothed_level, src.alive, src.remove_on_finish), src.capacity)
     new_src = src.replace(
         playhead=new_heads, finished=ep["finished"], mute_factor=st.mute,
         doppler_factor=st.dop_smooth, lp_state=lp_out,

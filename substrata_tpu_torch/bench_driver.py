@@ -132,6 +132,8 @@ def to_cuda(x):
         return x.cuda()
     if isinstance(x, (tuple, list)):
         return type(x)(to_cuda(y) for y in x)
+    if isinstance(x, dict):
+        return {k: to_cuda(y) for k, y in x.items()}
     return x
 
 
@@ -142,6 +144,17 @@ def clone(x):
     if isinstance(x, tuple):
         return tuple(clone(y) for y in x)
     return x
+
+
+def kf_args(ka, sargs, epilogue):
+    """KF's arguments for the port's ``audio_mix`` module ``ka``: ``sargs``
+    with the mix's epilogue tuple last where KF carries the epilogue
+    (its ``audio_spatialise`` takes ``epilogue``), ``sargs`` alone on a
+    port from before that."""
+    import inspect
+    if "epilogue" in inspect.signature(ka.audio_spatialise).parameters:
+        return tuple(sargs) + (tuple(epilogue),)
+    return tuple(sargs)
 
 
 def captured(mod, name, run):

@@ -140,13 +140,15 @@ def main():
             s_, _, room_ = mix.mix_block(s_, pool, lis, room=room_, use_hrtf=True, block=b)
         st = mix.prepare(s_, lis, b, b / mix.ENGINE_RATE, True)
         nw = mix.window_rows(b)
-        sp, _ = ka.audio_fetch_plain(pool, s_.buf_offset, s_.buf_len, s_.playhead,
-                                     st.eff_delta, s_.mix_factor, s_.looping, s_.stream_mode,
-                                     s_.stream_write_head, st.active, b, nw)
-        fp = ka.audio_spatialise_plain(sp, s_.lp_state, st.alpha, st.use_lp, s_.spatial,
-                                       s_.hrir_hist, hrir_bank_tensor("cuda"), st.dir_idx,
-                                       s_.prev_gain_l, s_.prev_gain_r, st.gl, st.gr,
-                                       mix.gain_ramp(b, "cuda"), st.gain, st.send_gain, True)
+        sp, heads = ka.audio_fetch_plain(pool, s_.buf_offset, s_.buf_len, s_.playhead,
+                                         st.eff_delta, s_.mix_factor, s_.looping,
+                                         s_.stream_mode, s_.stream_write_head, st.active, b, nw)
+        fp = ka.audio_spatialise_plain(*bd.kf_args(
+            ka, (sp, s_.lp_state, st.alpha, st.use_lp, s_.spatial, s_.hrir_hist,
+                 hrir_bank_tensor("cuda"), st.dir_idx, s_.prev_gain_l, s_.prev_gain_r, st.gl,
+                 st.gr, mix.gain_ramp(b, "cuda"), st.gain, st.send_gain, True),
+            (s_.finished, s_.looping, s_.stream_mode, st.active, heads, s_.buf_len,
+             s_.smoothed_level, s_.alive, s_.remove_on_finish)))
         cases = {f"room_b{b}": (fp[0], fp[1], fp[2], lis.master_volume, room_.delay_lines,
                                 room_.write_idx, room_.delays, room_.feedback, room_.wet)}
         if b == benchworld.TICK_FRAMES:

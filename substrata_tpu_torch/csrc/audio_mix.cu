@@ -34,6 +34,12 @@
 //   coefficients, and the run's 8 chains hide the fma latency; the gain
 //   ramps and the reverb send follow (16-byte stores where the rows
 //   allow), and the level's max is a warp shuffle and one word a warp.
+//   Thread 0 also writes KAA's epilogue from the level it computes: the
+//   finished flag, the smoothed level and the alive mask (twin
+//   audio_mix.py:audio_epilogue_plain; the reference's mix.py:320-323,
+//   :434-444), its nine loads issued with the block's first ones.  The
+//   epilogue is ~6 flops a source, far below a launch's floor, so it has
+//   no launch of its own.
 //   Bound: the FIR, 2 x 64 fmas per (source, frame): 52 MFLOP at the bench
 //   shapes, ~0.8 us at 67 TFLOP/s float32; the bytes, ~3.4 MB, ~1.0 us.
 // KG audio_downmix_reverb: the left, right and send sums of each frame over
@@ -133,6 +139,15 @@ struct SpatialiseArgs {
   const float *prev_gl, *prev_gr, *gl, *gr, *ramp, *gain, *send_gain;
   float *wl, *wr, *ws, *lp_out, *new_hist, *level;
   int B, T, use_hrtf, vec4;
+  // The folded epilogue: layer 0 of new_heads and buf_len at stride L,
+  // the [S] fields, and its [2 S]-word buffer.
+  const uint8_t *finished, *looping, *stream_mode, *active;
+  const float* new_heads;
+  const int* buf_len;
+  const float* smoothed_level;
+  const uint8_t *alive, *remove_on_finish;
+  float* ep_out;
+  int L;
 };
 
 constexpr int kRun = 4;                            // consecutive frames a thread's FIR takes
@@ -232,6 +247,24 @@ __global__ void __launch_bounds__(kSpatialThreads) audio_spatialise_kernel(
   const float dgl = a.gl[s] - pgl, dgr = a.gr[s] - pgr;
   const float sg = a.send_gain != nullptr ? a.send_gain[s] : 0.0f;
   const int dir = a.use_hrtf ? a.dir_idx[s] : 0;
+  // The epilogue's inputs, for thread 0, which writes the level: loads
+  // only, no use before the level's reduction, so nothing here waits on
+  // them (a compare right after a load would stall warp 0 before it
+  // issues its samples' loads).
+  uint8_t e_fin = 0, e_loop = 0, e_strm = 0, e_act = 0, e_alive = 0, e_rm = 0;
+  float e_head = 0.0f, e_smooth = 0.0f;
+  int e_len = 0;
+  if (tid == 0) {
+    e_fin = a.finished[s];
+    e_loop = a.looping[s];
+    e_strm = a.stream_mode[s];
+    e_act = a.active[s];
+    e_head = a.new_heads[static_cast<long long>(s) * a.L];
+    e_len = a.buf_len[static_cast<long long>(s) * a.L];
+    e_smooth = a.smoothed_level[s];
+    e_alive = a.alive[s];
+    e_rm = a.remove_on_finish[s];
+  }
   float xin[kFrameLoads];
 #pragma unroll
   for (int m = 0; m < kFrameLoads; ++m) {
@@ -330,7 +363,17 @@ __global__ void __launch_bounds__(kSpatialThreads) audio_spatialise_kernel(
     float m = s_peak[0];
 #pragma unroll
     for (int w = 1; w < kSpatialThreads / 32; ++w) m = fmaxf(m, s_peak[w]);
-    a.level[s] = m * g;
+    const float level = m * g;
+    a.level[s] = level;
+    // audio_mix.py:audio_epilogue_plain: a non-looping source finishes
+    // when layer 0 passes its end; the level meter; the alive mask.
+    const bool fin = e_fin != 0 || (e_loop == 0 && e_strm == 0 && e_act != 0 &&
+                                    e_head >= static_cast<float>(e_len) - 1.0f);
+    const int S = gridDim.x;
+    a.ep_out[s] = __fmaf_rn(level, 0.1f, e_smooth * 0.9f);
+    bool* flags = reinterpret_cast<bool*>(a.ep_out + S);
+    flags[s] = fin;
+    flags[S + s] = e_alive != 0 && !(fin && e_rm != 0);
   }
 }
 
@@ -471,15 +514,22 @@ extern "C" int audio_spatialise(const float* samples, const float* lp_state, con
                                 const float* gr, const float* ramp, const float* gain,
                                 const float* send_gain, float* wl, float* wr, float* ws,
                                 float* lp_out, float* new_hist, float* level, int S, int B,
-                                int T, int use_hrtf, void* stream) {
-  if (B < 1 || B > kMaxBlock || T > kMaxTaps || T < 1)
+                                int T, int use_hrtf, const uint8_t* finished,
+                                const uint8_t* looping, const uint8_t* stream_mode,
+                                const uint8_t* active, const float* new_heads,
+                                const int* buf_len, const float* smoothed_level,
+                                const uint8_t* alive, const uint8_t* remove_on_finish,
+                                float* ep_out, int L, void* stream) {
+  if (B < 1 || B > kMaxBlock || T > kMaxTaps || T < 1 || ep_out == nullptr || L < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t bases = reinterpret_cast<uintptr_t>(wl) | reinterpret_cast<uintptr_t>(wr) |
                           reinterpret_cast<uintptr_t>(ws);
   const SpatialiseArgs a{samples, lp_state, alpha, use_lp, spatial, hist, bank, dir_idx,
                          prev_gl, prev_gr, gl, gr, ramp, gain, send_gain,
                          wl, wr, ws, lp_out, new_hist, level,
-                         B, T, use_hrtf, (B % kRun == 0) && (bases % 16 == 0)};
+                         B, T, use_hrtf, (B % kRun == 0) && (bases % 16 == 0),
+                         finished, looping, stream_mode, active, new_heads, buf_len,
+                         smoothed_level, alive, remove_on_finish, ep_out, L};
   if (S > 0) {
     audio_spatialise_kernel<<<S, kSpatialThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   }

@@ -1,29 +1,28 @@
 // KAA: the audio mix's per-source setup (four warps a block of 32 sources,
-// each warp one part of every source's setup) and its epilogue (one thread
-// a source).
+// each warp one part of every source's setup).
 //
 // Replaces the per-source part of substrata_tpu/audio/mix.py:mix_block
 // (:290-348 Doppler, fades, distance and occlusion gains, pan, low-pass
 // cutoff; :376-392 the HRIR direction through audio/hrtf.py:
-// quantize_direction :157; :433-444 the finished flag, the level meter and
-// the alive mask).  Plain twins: substrata_tpu_torch/kernels/audio_setup.py:
-// audio_setup_plain and audio_epilogue_plain.
+// quantize_direction :157).  Plain twin: substrata_tpu_torch/kernels/
+// audio_setup.py:audio_setup_plain.  The mix's epilogue (:433-444, the
+// finished flag, the level meter and the alive mask; twin
+// audio_epilogue_plain) is written by KF's source blocks
+// (csrc/audio_mix.cu), which hold the level it reads.
 //
 // ``audio_setup`` reads the source state and the listener and writes every
 // quantity of the block into ONE float32 buffer of (L + 9) * S words, laid
 // out field by field so that each field is a contiguous view for KE and KF:
 // eff_delta [S, L], then [S] each of dop_smooth, mute, gain, gl, gr, alpha,
 // send_gain, dir_idx (int32 bits) and a flag word block whose bytes hold
-// active [0, S) and use_lp [S, 2S).  ``audio_epilogue`` runs after KG: the
-// smoothed level [S] and, in the next S words' bytes, finished [0, S) and
-// alive [S, 2S).
+// active [0, S) and use_lp [S, 2S).
 //
 // Rounding follows the jitted reference (found by comparing with it): the
 // distance is sqrt of the fma chain of the dot product, correctly rounded;
 // a division by a tensor divides; a division by a constant is a multiply by
 // its float32 reciprocal (the HRIR bins); the low-pass coefficients are the
-// three constants fc * 2 pi / 48000 divided once; the Doppler smoothing and
-// the level meter are one fma each.  -fmad=false keeps everything else
+// three constants fc * 2 pi / 48000 divided once; the Doppler smoothing is
+// one fma.  -fmad=false keeps everything else
 // separately rounded.  atan2f, cosf and sinf are CUDA's.
 //
 // What bounds it on the card: latency.  512 sources read ~130 B and write
@@ -44,7 +43,6 @@
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr int kNAz = 16, kNEl = 3;
 constexpr float kSpeedOfSound = 343.0f;
 constexpr float kDeltaMax = 2.5f;
@@ -238,24 +236,6 @@ __global__ void __launch_bounds__(kSetupThreads) audio_setup_kernel(const SetupA
   }
 }
 
-__global__ void audio_epilogue_kernel(
-    const bool* __restrict__ finished, const bool* __restrict__ looping,
-    const bool* __restrict__ stream_mode, const bool* __restrict__ active,
-    const float* __restrict__ new_heads, const int* __restrict__ buf_len,
-    const float* __restrict__ level, const float* __restrict__ smoothed_level,
-    const bool* __restrict__ alive, const bool* __restrict__ remove_on_finish, int S, int L,
-    float* __restrict__ out) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const bool fin = finished[s] ||
-                   (!looping[s] && !stream_mode[s] && active[s] &&
-                    new_heads[s * L] >= static_cast<float>(buf_len[s * L]) - 1.0f);
-  out[s] = __fmaf_rn(level[s], 0.1f, smoothed_level[s] * 0.9f);
-  bool* flags = reinterpret_cast<bool*>(out + S);
-  flags[s] = fin;
-  flags[S + s] = alive[s] && !(fin && remove_on_finish[s]);
-}
-
 }  // namespace
 
 // One host buffer of 8-byte slots (kernels/audio_setup.py:_PACK): the 18
@@ -295,18 +275,5 @@ extern "C" int audio_setup(const long long* w, void* stream) {
   if (g.S == 0) return 0;
   audio_setup_kernel<<<(g.S + kSetupSources - 1) / kSetupSources, kSetupThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(g);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int audio_epilogue(const bool* finished, const bool* looping, const bool* stream_mode,
-                              const bool* active, const float* new_heads, const int* buf_len,
-                              const float* level, const float* smoothed_level, const bool* alive,
-                              const bool* remove_on_finish, int S, int L, float* out,
-                              void* stream) {
-  if (S == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  audio_epilogue_kernel<<<(S + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      finished, looping, stream_mode, active, new_heads, buf_len, level, smoothed_level, alive,
-      remove_on_finish, S, L, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,26 +21,44 @@
 // overflow.  Touching: one thread per pair gathers its slot's flag from the
 // bucket kernels' outputs (KA/KK/KO), so no scatter needs a cleared buffer.
 //
-// Compaction, two launches over tiles of 1024 rows: count the touching and
-// the speculative rows of each tile; then each tile sums the counts of the
-// tiles before it and scans its own rows, so touching rows land first and
-// speculative rows after them, each class in row order, into
-// max_active_contacts rows; the rows past the valid ones get the twin's
-// fills.  Incidence, two launches and no memset: each (entry, side) key
-// appends itself to its body's list (atomicAdd, any order; the counters
-// live in the wrapper's plan and are 0 between calls); then a warp takes 4
+// Compaction, one cooperative launch (cudaLaunchCooperativeKernel, so
+// the runtime refuses a grid that cannot be resident at once, and
+// grid.sync() cannot wait on a block that never starts) of up to the
+// card's resident blocks, each taking a run of 32-row groups, a warp a
+// group at a time, lanes on consecutive rows: each row's valid and
+// penetration are read once, the group's touching and speculative rows
+// kept as two ballot words in shared memory and its penetrations in
+// registers; a block scan of the groups' popcounts gives each group's
+// place in its block, and the block's two counts go to the plan's
+// scratch.  After the grid barrier every block sums the counts of the
+// blocks before it and of all blocks, so a lane's destination is its
+// class's start (0, or the grid-wide n_touch) + the rows of its class in
+// earlier blocks and groups + the popcount of the lower lanes' bits.
+// Only rows that land (dst < max_active_contacts) read their payload;
+// each field is one coalesced pass (a group's rows of one class land in
+// one run), point and normal as the group's 96 words with lanes on
+// words; the rows past the valid ones get the twin's fills, spread over
+// every block.
+//
+// Incidence, two launches and no memset: each (entry, side) key appends
+// itself to its body's list (atomicAdd, any order; the counters live in
+// the wrapper's plan and are 0 between calls); then a warp takes 4
 // bodies, ranks the keys of each body's list across its lanes and keeps
 // the cpb lowest (ascending (entry, side), the twin's sorted order, which
 // decides the order of the sums in KC and KU), and sets the counters back
-// to 0.  A body
-// whose list overflowed its 64 slots walks all keys in order, 32 at a time,
-// so the kept set is always the cpb lowest.
+// to 0.  A body whose list overflowed its 64 slots walks all keys in
+// order, 32 at a time, so the kept set is always the cpb lowest.
 //
 // What bounds it: latency.  At the serving world's shapes (16,384 pairs,
 // ~100k contact rows, 36,864 compacted rows) each pass moves a few MB.  No
 // step runs in one block: the grouping's serial pieces are a tile's 16 warp
 // counts per code and 17 column sums of the tile table (P / 512 rows, 32 a
-// lane), the rest are single passes with one atomic per key.
+// lane), the compaction's a scan of a block's groups and a sum over the
+// blocks' counts, the rest are single passes with one atomic per key.
+#include <cooperative_groups.h>
+
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -49,8 +67,6 @@ constexpr int kCodes = 16;
 constexpr int kSortKeys = kCodes + 1;       // code 16: invalid pairs
 constexpr int kGroupTile = 512;              // grouping: pairs per block
 constexpr int kGroupWarps = kGroupTile / 32;
-constexpr int kTile = 1024;                 // compaction rows per block
-constexpr int kTileThreads = 256;
 constexpr int kIncList = 64;                // per-body key slots before the slow path
 constexpr int kMaxBuckets = 16;
 
@@ -229,111 +245,229 @@ __global__ void layout_touching_kernel(const int* __restrict__ slot_of_pair, Tou
 // Compaction
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void row_class(const bool* valid, const float* pen, int r, int c,
-                                          int& touch, int& spec) {
-  const bool v = r < c && valid[r];
-  touch = v && pen[r] > 0.0f;
-  spec = v && !touch;
+constexpr int kCompactThreads = 256;
+constexpr int kCompactWarps = kCompactThreads / 32;
+constexpr int kCompactGroups = kCompactThreads;   // 32-row groups a block at most
+// The most blocks a launch takes (a group of 32 rows a warp below it):
+// every block sums every block's count after the barrier, so the blocks'
+// reads grow as their square, and the cap (under three blocks an SM of
+// the H100's 132) keeps that square below what the card could hold.
+constexpr int kCompactMaxBlocks = 384;
+constexpr int kCompactHeld = 4;                   // a warp's groups whose pen stays in registers
+
+// The compaction's arguments (csrc/layout.cu:layout_compact).  ``blocks``
+// is the plan's scratch: each block's (touching << 32 | speculative)
+// count, written before the grid barrier in every launch.  ``out`` is the
+// wrapper's one buffer: a, b, key [m] i32, the overflow, point, normal
+// [m, 3], pen, friction, restitution [m] f32, then valid [m] bytes.
+struct CompactArgs {
+  const int *a, *b;
+  const float *point, *normal, *pen;
+  const bool* valid;
+  const float *fric, *rest;
+  const int* key;
+  long long* blocks;
+  int* out;
+  int c, m, gpb;
+};
+
+// The smallest normal float: the jitted reference's pen > 0 reads a
+// denormal as 0 (XLA's CPU compares with denormals-are-zero, as the TPU
+// does), so touching is pen >= this.
+constexpr float kSmallestNormal = 1.17549435e-38f;
+
+// One 32-row group's class words: bit l of *touch is row 32 k + l valid
+// with pen >= kSmallestNormal, of *spec valid otherwise (NaN, -0.0 and
+// the denormals included).
+__device__ __forceinline__ void group_class(bool v, float p, unsigned* touch, unsigned* spec) {
+  const bool t = v && p >= kSmallestNormal;
+  *touch = __ballot_sync(0xffffffffu, t);
+  *spec = __ballot_sync(0xffffffffu, v && !t);
 }
 
-__global__ void __launch_bounds__(kTileThreads)
-layout_compact_count_kernel(const bool* __restrict__ valid, const float* __restrict__ pen, int c,
-                            int2* __restrict__ tile_cnt) {
-  __shared__ int warp_tot[32];
-  int nt = 0, ns = 0;
-  const int base = blockIdx.x * kTile;
-  for (int r = base + threadIdx.x; r < min(base + kTile, c); r += kTileThreads) {
-    int t, s;
-    row_class(valid, pen, r, c, t, s);
-    nt += t;
-    ns += s;
+// Group j of the block (its first row r0): each landing lane's row to
+// its destination, every field one pass.  ``p`` is the lane's pen.
+__device__ __forceinline__ void place_group(const CompactArgs& g, int r0, unsigned touch,
+                                            unsigned spec, int t0, int s0, float p) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int dst = -1;
+  if ((touch >> lane) & 1u) dst = t0 + __popc(touch & below);
+  if ((spec >> lane) & 1u) dst = s0 + __popc(spec & below);
+  if (dst >= g.m) dst = -1;
+  const long long m = g.m;
+  const int r = r0 + lane;
+  // Every load first: the lane's row, then the group's point and normal
+  // words (word w is row w / 3's component w % 3).
+  int ia = 0, ib = 0, ik = 0;
+  float fr = 0.0f, re = 0.0f;
+  if (dst >= 0) {
+    ia = g.a[r];
+    ib = g.b[r];
+    ik = g.key[r];
+    fr = g.fric[r];
+    re = g.rest[r];
   }
-  nt = sbt::block_sum(nt, warp_tot);
-  ns = sbt::block_sum(ns, warp_tot);
-  if (threadIdx.x == 0) tile_cnt[blockIdx.x] = make_int2(nt, ns);
-}
-
-__global__ void __launch_bounds__(kTileThreads)
-layout_compact_write_kernel(const int* __restrict__ a, const int* __restrict__ b,
-                            const float* __restrict__ point, const float* __restrict__ normal,
-                            const float* __restrict__ pen, const bool* __restrict__ valid,
-                            const float* __restrict__ fric, const float* __restrict__ rest,
-                            const int* __restrict__ key, int c, int m,
-                            const int2* __restrict__ tile_cnt,
-                            int n_tiles, int* __restrict__ o_a, int* __restrict__ o_b,
-                            float* __restrict__ o_point, float* __restrict__ o_normal,
-                            float* __restrict__ o_pen, bool* __restrict__ o_valid,
-                            float* __restrict__ o_fric, float* __restrict__ o_rest,
-                            int* __restrict__ o_key, int* __restrict__ overflow) {
-  __shared__ int warp_tot[32];
-  __shared__ long long warp_tot64[32];
-  // Rows of the tiles before this one, and of all tiles.
-  int bt = 0, bs = 0, at = 0, as = 0;
-  for (int k = threadIdx.x; k < n_tiles; k += kTileThreads) {
-    const int2 v = tile_cnt[k];
-    at += v.x;
-    as += v.y;
-    if (k < blockIdx.x) {
-      bt += v.x;
-      bs += v.y;
+  int wd[3];
+  float pt[3], nm[3];
+  const long long w0 = 3LL * r0;
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const int w = 32 * q + lane;
+    wd[q] = __shfl_sync(0xffffffffu, dst, w / 3);
+    pt[q] = nm[q] = 0.0f;
+    if (wd[q] >= 0) {
+      pt[q] = g.point[w0 + w];
+      nm[q] = g.normal[w0 + w];
     }
   }
-  bt = sbt::block_sum(bt, warp_tot);
-  bs = sbt::block_sum(bs, warp_tot);
-  const int n_touch = sbt::block_sum(at, warp_tot);
-  const int n_valid = n_touch + sbt::block_sum(as, warp_tot);
-  constexpr int kPer = kTile / kTileThreads;
-  const int base = blockIdx.x * kTile + threadIdx.x * kPer;
-  int ct[kPer], cs[kPer];
-  long long mine = 0;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    row_class(valid, pen, base + k, c, ct[k], cs[k]);
-    mine += (static_cast<long long>(ct[k]) << 32) + cs[k];
-  }
-  long long tot64;
-  long long before = sbt::block_exclusive_scan(mine, warp_tot64, &tot64);
-  int rt = bt + static_cast<int>(before >> 32);
-  int rs = bs + static_cast<int>(before & 0xffffffffLL);
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int r = base + k;
-    int dst = -1;
-    if (ct[k]) dst = rt++;
-    if (cs[k]) dst = n_touch + rs++;
-    if (dst < 0 || dst >= m) continue;
-    const int ia = a[r];
+  int* o_a = g.out;
+  float* f = reinterpret_cast<float*>(o_a + 3 * m + 1);
+  if (dst >= 0) {
     const bool cv = ia >= 0;
     o_a[dst] = cv ? ia : 0;
-    o_b[dst] = cv ? b[r] : -1;
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      o_point[dst * 3 + q] = point[r * 3 + q];
-      o_normal[dst * 3 + q] = normal[r * 3 + q];
-    }
-    o_pen[dst] = pen[r];
-    o_valid[dst] = cv;
-    o_fric[dst] = fric[r];
-    o_rest[dst] = rest[r];
-    o_key[dst] = cv ? key[r] : 0;
+    o_a[m + dst] = cv ? ib : -1;
+    o_a[2 * m + dst] = cv ? ik : 0;
+    f[6 * m + dst] = p;
+    f[7 * m + dst] = fr;
+    f[8 * m + dst] = re;
+    reinterpret_cast<bool*>(f + 9 * m)[dst] = cv;
   }
-  // The twin's fills on the rows no valid contact reaches.
-  for (int d = blockIdx.x * kTileThreads + threadIdx.x; d < m; d += gridDim.x * kTileThreads) {
-    if (d < n_valid) continue;
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    if (wd[q] >= 0) {
+      const long long o = 3LL * wd[q] + (32 * q + lane) % 3;
+      f[o] = pt[q];
+      f[3 * m + o] = nm[q];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kCompactThreads) layout_compact_kernel(const CompactArgs g) {
+  __shared__ unsigned s_touch[kCompactGroups], s_spec[kCompactGroups];
+  __shared__ long long s_before[kCompactGroups];
+  __shared__ long long s_tot[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = g.c;
+  const int n_groups = (c + 31) >> 5;
+  const int first = blockIdx.x * g.gpb;
+  const int ng = max(min(g.gpb, n_groups - first), 0);
+
+  // 1. Each group's class words; the first kCompactHeld groups of a warp
+  // keep their lanes' pen in registers across the barrier.
+  bool hv[kCompactHeld];
+  float hp[kCompactHeld];
+#pragma unroll
+  for (int k = 0; k < kCompactHeld; ++k) {
+    const int r = (first + warp + k * kCompactWarps) * 32 + lane;
+    const bool in = warp + k * kCompactWarps < ng && r < c;
+    hv[k] = in && g.valid[r];
+    hp[k] = in ? g.pen[r] : 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < kCompactHeld; ++k) {
+    const int j = warp + k * kCompactWarps;
+    if (j < ng) {
+      unsigned t, s;
+      group_class(hv[k], hp[k], &t, &s);
+      if (lane == 0) {
+        s_touch[j] = t;
+        s_spec[j] = s;
+      }
+    }
+  }
+  for (int j = warp + kCompactHeld * kCompactWarps; j < ng; j += kCompactWarps) {
+    const int r = (first + j) * 32 + lane;
+    unsigned t, s;
+    group_class(r < c && g.valid[r], r < c ? g.pen[r] : 0.0f, &t, &s);
+    if (lane == 0) {
+      s_touch[j] = t;
+      s_spec[j] = s;
+    }
+  }
+  __syncthreads();
+  // A thread a group: the rows of each class in the block's earlier groups.
+  long long mine = 0;
+  if (threadIdx.x < ng)
+    mine = (static_cast<long long>(__popc(s_touch[threadIdx.x])) << 32) +
+           __popc(s_spec[threadIdx.x]);
+  long long block_tot;
+  const long long before_group = sbt::block_exclusive_scan(mine, s_tot, &block_tot);
+  if (threadIdx.x < ng) s_before[threadIdx.x] = before_group;
+  if (threadIdx.x == 0) g.blocks[blockIdx.x] = block_tot;
+
+  cooperative_groups::this_grid().sync();
+
+  // 2. The rows of each class in earlier blocks and in all of them (the
+  // counts pack touching << 32 | speculative, each below 2^31): warp 0
+  // sums the blocks' counts by shuffles, one barrier hands them on.
+  if (warp == 0) {
+    long long all = 0, before = 0;
+    for (int k = lane; k < static_cast<int>(gridDim.x); k += 32) {
+      const long long v = __ldcg(g.blocks + k);
+      all += v;
+      before += k < static_cast<int>(blockIdx.x) ? v : 0;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      all += __shfl_xor_sync(0xffffffffu, all, o);
+      before += __shfl_xor_sync(0xffffffffu, before, o);
+    }
+    if (lane == 0) {
+      s_tot[0] = all;
+      s_tot[1] = before;
+    }
+  }
+  __syncthreads();
+  const long long all = s_tot[0], before = s_tot[1];
+  const int n_touch = static_cast<int>(all >> 32);
+  const int n_valid = n_touch + static_cast<int>(all & 0xffffffffLL);
+  const int bt = static_cast<int>(before >> 32);
+  const int bs = n_touch + static_cast<int>(before & 0xffffffffLL);
+
+  // 3. The rows that land.  A group whose two classes both start at or
+  // past max_active has none.
+#pragma unroll
+  for (int k = 0; k < kCompactHeld; ++k) {
+    const int j = warp + k * kCompactWarps;
+    if (j < ng) {
+      const long long pre = s_before[j];
+      const int t0 = bt + static_cast<int>(pre >> 32);
+      const int s0 = bs + static_cast<int>(pre & 0xffffffffLL);
+      const unsigned t = s_touch[j], s = s_spec[j];
+      if ((t && t0 < g.m) || (s && s0 < g.m)) place_group(g, (first + j) * 32, t, s, t0, s0, hp[k]);
+    }
+  }
+  for (int j = warp + kCompactHeld * kCompactWarps; j < ng; j += kCompactWarps) {
+    const long long pre = s_before[j];
+    const int t0 = bt + static_cast<int>(pre >> 32);
+    const int s0 = bs + static_cast<int>(pre & 0xffffffffLL);
+    const unsigned t = s_touch[j], s = s_spec[j];
+    const int r = (first + j) * 32 + lane;
+    if ((t && t0 < g.m) || (s && s0 < g.m))
+      place_group(g, (first + j) * 32, t, s, t0, s0, ((t | s) >> lane) & 1u ? g.pen[r] : 0.0f);
+  }
+
+  // 4. The twin's fills on the rows no valid contact reaches, every block.
+  const long long m = g.m;
+  const long long stride = static_cast<long long>(gridDim.x) * kCompactThreads;
+  const long long tid = static_cast<long long>(blockIdx.x) * kCompactThreads + threadIdx.x;
+  int* o_a = g.out;
+  float* f = reinterpret_cast<float*>(o_a + 3 * m + 1);
+  for (long long d = n_valid + tid; d < m; d += stride) {
     o_a[d] = 0;
-    o_b[d] = -1;
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      o_point[d * 3 + q] = 0.0f;
-      o_normal[d * 3 + q] = 0.0f;
-    }
-    o_pen[d] = 0.0f;
-    o_valid[d] = false;
-    o_fric[d] = 0.0f;
-    o_rest[d] = 0.0f;
-    o_key[d] = 0;
+    o_a[m + d] = -1;
+    o_a[2 * m + d] = 0;
+    f[6 * m + d] = 0.0f;
+    f[7 * m + d] = 0.0f;
+    f[8 * m + d] = 0.0f;
+    reinterpret_cast<bool*>(f + 9 * m)[d] = false;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *overflow = max(n_touch - m, 0);
+  for (long long w = 3LL * n_valid + tid; w < 3 * m; w += stride) {
+    f[w] = 0.0f;
+    f[3 * m + w] = 0.0f;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) o_a[3 * m] = max(n_touch - g.m, 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -501,23 +635,60 @@ extern "C" int layout_touching(const int* slot_of_pair, const void* const* rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int layout_compact(const int* a, const int* b, const float* point, const float* normal,
-                              const float* pen, const bool* valid, const float* fric,
-                              const float* rest, const int* key, int c, int m, int* tile_cnt,
-                              int* o_a, int* o_b, float* o_point, float* o_normal, float* o_pen,
-                              bool* o_valid, float* o_fric, float* o_rest, int* o_key,
-                              int* overflow, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_tiles = max((c + kTile - 1) / kTile, 1);
-  int2* tc = reinterpret_cast<int2*>(tile_cnt);
-  layout_compact_count_kernel<<<n_tiles, kTileThreads, 0, s>>>(valid, pen, c, tc);
-  cudaError_t err = cudaGetLastError();
+// The wrapper's arguments in one host buffer of 8-byte slots
+// (kernels/layout.py:_COMPACT_PACK): the 9 contact fields, the plan's
+// block scratch (at least ceil(ceil(C / 32) / 8) words), the output
+// buffer, C and max_active.  One cooperative launch: a group of 32 rows
+// a warp, up to kCompactMaxBlocks blocks and the card's resident ones; a
+// C past 256 groups a block raises (cudaErrorInvalidValue).
+extern "C" int layout_compact(const long long* v, void* stream) {
+  CompactArgs g;
+  g.a = reinterpret_cast<const int*>(v[0]);
+  g.b = reinterpret_cast<const int*>(v[1]);
+  g.point = reinterpret_cast<const float*>(v[2]);
+  g.normal = reinterpret_cast<const float*>(v[3]);
+  g.pen = reinterpret_cast<const float*>(v[4]);
+  g.valid = reinterpret_cast<const bool*>(v[5]);
+  g.fric = reinterpret_cast<const float*>(v[6]);
+  g.rest = reinterpret_cast<const float*>(v[7]);
+  g.key = reinterpret_cast<const int*>(v[8]);
+  g.blocks = reinterpret_cast<long long*>(v[9]);
+  g.out = reinterpret_cast<int*>(v[10]);
+  const long long c = v[11], m = v[12];
+  if (c < 0 || c > 0x7fffffe0LL || m < 0 || 12 * m + 1 > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // The card's resident blocks of this kernel, once a device.
+  static int resident[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // Enough blocks to cover the fills of the m output rows as well.
-  const int fill_tiles = (m + kTileThreads - 1) / kTileThreads;
-  layout_compact_write_kernel<<<max(n_tiles, fill_tiles), kTileThreads, 0, s>>>(
-      a, b, point, normal, pen, valid, fric, rest, key, c, m, tc, n_tiles, o_a, o_b, o_point,
-      o_normal, o_pen, o_valid, o_fric, o_rest, o_key, overflow);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, layout_compact_kernel,
+                                                        kCompactThreads, 0);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    resident[dev] = std::max(per_sm * sms, 1);
+  }
+  const long long n_groups = (c + 31) / 32;
+  const int grid = static_cast<int>(std::min<long long>(
+      std::max<long long>((n_groups + kCompactWarps - 1) / kCompactWarps, 1),
+      std::min(kCompactMaxBlocks, resident[dev])));
+  const long long gpb = std::max<long long>((n_groups + grid - 1) / grid, 1);
+  if (gpb > kCompactGroups) return static_cast<int>(cudaErrorInvalidValue);
+  g.c = static_cast<int>(c);
+  g.m = static_cast<int>(m);
+  g.gpb = static_cast<int>(gpb);
+  void* args[] = {&g};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(layout_compact_kernel), dim3(grid),
+                                    dim3(kCompactThreads), args, 0,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

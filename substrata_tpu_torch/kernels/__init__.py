@@ -15,7 +15,7 @@ path went through the kernels.
   KC  solve.py              csrc/solve_contacts.cu   contact-solve iteration
   KD  integrate_triton.py   (Triton)                 forces, integration
   KE  audio_mix.py          csrc/audio_mix.cu        audio fetch + resample
-  KF  audio_mix.py          csrc/audio_mix.cu        low-pass, HRIR, gain ramps
+  KF  audio_mix.py          csrc/audio_mix.cu        low-pass, HRIR, gain ramps, epilogue
   KG  audio_mix.py          csrc/audio_mix.cu        downmix + reverb
   KH  ray_trace.py          csrc/ray_trace.cu        ray trace (bodies, hulls, heightfield,
                                                      trimesh)
@@ -38,7 +38,7 @@ path went through the kernels.
   KX  terrain.py            csrc/terrain.cu          vegetation scatter points
   KY  spawn.py              csrc/particles_spawn.cu  particle spawn scatter
   KZ  pose.py               csrc/pose.cu             skeletal pose of every avatar
-  KAA audio_setup.py        csrc/audio_setup.cu      the mix's per-source setup + epilogue
+  KAA audio_setup.py        csrc/audio_setup.cu      the mix's per-source setup
   KAB vehicle_setup.py      csrc/vehicle_setup.cu    vehicle pre-ray setup + delta scatter
   KAC bc1.py                csrc/bc1.cu              BC1 encoding of a texture's mip chain
   KAD halo.py               csrc/halo.cu             halo exchange of the sharded step

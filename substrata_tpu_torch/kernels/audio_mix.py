@@ -8,7 +8,10 @@ Replace the device program ``substrata_tpu/audio/mix.py:mix_block``
                             playheads (mix.py:201-272, :310-316);
   KF  audio_spatialise      one-pole low-pass, 64-tap HRIR FIR per ear (or
                             the pan path), per-source gain ramps, reverb
-                            send and level (mix.py:350-403, :412-414, :433);
+                            send and level (mix.py:350-403, :412-414, :433),
+                            and KAA's epilogue (the finished flag, the
+                            level meter, the alive mask, :320-323,
+                            :434-444);
   KG  audio_downmix_reverb  left/right/send sums over the sources in a fixed
                             order, the 4-line FDN, wet mix, master volume
                             and clip (mix.py:404-431).
@@ -147,11 +150,21 @@ def audio_fetch(pool, buf_offset, buf_len, playhead, eff_delta, mix_factor,
 
 def audio_spatialise_plain(samples, lp_state, alpha, use_lp, spatial, hrir_hist, bank,
                            dir_idx, prev_gl, prev_gr, gl, gr, ramp, gain, send_gain,
-                           use_hrtf: bool):
-    """Returns (wl, wr, ws, lp_out, new_hist, level): the per-source
-    left/right contributions ``gain ramp x signal`` [S, B], the reverb send
-    ``samples x send_gain`` [S, B] (None without ``send_gain``), the
-    low-pass memory, the HRIR history and the block's peak level."""
+                           use_hrtf: bool, epilogue):
+    """Returns (wl, wr, ws, lp_out, new_hist, level, epilogue buffer): the
+    per-source left/right contributions ``gain ramp x signal`` [S, B], the
+    reverb send ``samples x send_gain`` [S, B] (None without
+    ``send_gain``), the low-pass memory, the HRIR history, the block's
+    peak level, and ``audio_epilogue_plain``'s buffer from that level and
+    ``epilogue`` (``audio_spatialise``'s)."""
+    out = _spatialise_plain(samples, lp_state, alpha, use_lp, spatial, hrir_hist, bank,
+                            dir_idx, prev_gl, prev_gr, gl, gr, ramp, gain, send_gain, use_hrtf)
+    e = epilogue
+    return out + (audio_epilogue_plain(*e[:6], out[5], *e[6:]),)
+
+
+def _spatialise_plain(samples, lp_state, alpha, use_lp, spatial, hrir_hist, bank, dir_idx,
+                      prev_gl, prev_gr, gl, gr, ramp, gain, send_gain, use_hrtf):
     s, b = samples.shape
     # One-pole low-pass y[n] = (1 - a) y[n-1] + a x[n], frame by frame;
     # its last value is kept whether or not the source uses it.
@@ -187,47 +200,107 @@ def audio_spatialise_plain(samples, lp_state, alpha, use_lp, spatial, hrir_hist,
     return gl_t * sig_l, gr_t * sig_r, ws, lp_out, new_hist.contiguous(), level
 
 
+def epilogue_views(buf: torch.Tensor, s: int) -> dict:
+    """The epilogue buffer's fields: the smoothed level [S] (f32), then
+    finished and alive [S] as the next S words' bytes."""
+    flags = buf[s:2 * s].view(torch.uint8)
+    return {"smoothed_level": buf[:s], "finished": flags[:s].view(torch.bool),
+            "alive": flags[s:2 * s].view(torch.bool)}
+
+
+def audio_epilogue_plain(finished, looping, stream_mode, active, new_heads, buf_len, level,
+                         smoothed_level, alive, remove_on_finish):
+    """The twin of KF's folded epilogue (KAA's before): the finished
+    flags, the smoothed level meter and the alive mask in one buffer of
+    2 S words (``epilogue_views``)."""
+    s = finished.shape[0]
+    # Non-looping sources finish when layer 0 passes the end.
+    fin = finished | ((~looping) & (~stream_mode) & active
+                      & (new_heads[:, 0] >= buf_len[:, 0].to(f32) - 1.0))
+    buf = torch.empty((2 * s,), dtype=f32, device=finished.device)
+    v = epilogue_views(buf, s)
+    v["smoothed_level"].copy_(fma(level, 0.1, smoothed_level * 0.9))
+    v["finished"].copy_(fin)
+    v["alive"].copy_(alive & ~(fin & remove_on_finish))
+    return buf
+
+
+_SPATIALISE_NAMES = ("samples", "lp_state", "alpha", "use_lp", "spatial", "hrir_hist",
+                     "prev_gl", "prev_gr", "gl", "gr", "ramp", "gain")
+EPILOGUE_NAMES = ("finished", "looping", "stream_mode", "active", "new_heads", "buf_len",
+                  "smoothed_level", "alive", "remove_on_finish")
+_spatialise_plans: dict = {}
+
+
+class _SpatialisePlan:
+    """KF's checks and output layout for one (S, B, T, send, epilogue
+    layers, device): the names, dtypes and shapes of the checked inputs
+    (the bank and the directions apart: their shapes are the bank's), and
+    the split of the two buffers a call allocates: wl, wr (and ws) [S, B];
+    lp_out [S], new_hist [S, T - 1], level [S] and the epilogue's 2 S
+    words (``epilogue_views``)."""
+
+    def __init__(self, s, b, t, send, nl, device):
+        self.device = device
+        b8 = torch.bool
+        self.names = _SPATIALISE_NAMES + (("send_gain",) if send else ()) + EPILOGUE_NAMES
+        self.dtypes = (f32, f32, f32, b8, b8, f32, f32, f32, f32, f32, f32, f32) + (
+            (f32,) if send else ()) + (b8, b8, b8, b8, f32, i32, f32, b8, b8)
+        self.shapes = ((s, b), (s,), (s,), (s,), (s,), (s, t - 1), (s,), (s,), (s,), (s,),
+                       (b,), (s,)) + (((s,),) if send else ()) + (
+            ((s,),) * 4 + ((s, nl), (s, nl)) + ((s,),) * 3)
+        self.wide = [s * b] * (3 if send else 2)
+        self.narrow = [s, s * (t - 1), s, 2 * s]
+
+
 def audio_spatialise(samples, lp_state, alpha, use_lp, spatial, hrir_hist, bank, dir_idx,
-                     prev_gl, prev_gr, gl, gr, ramp, gain, send_gain, use_hrtf: bool):
+                     prev_gl, prev_gr, gl, gr, ramp, gain, send_gain, use_hrtf: bool,
+                     epilogue):
     """KF: ``audio_spatialise_plain`` for CPU tensors, one block per source
     of ``csrc/audio_mix.cu`` for CUDA tensors.  ``bank`` and ``dir_idx``
-    are read only with ``use_hrtf``; ``send_gain`` None skips the send."""
+    are read only with ``use_hrtf``; ``send_gain`` None skips the send.
+
+    ``epilogue``, the mix's (finished, looping, stream_mode, active,
+    new_heads [S, L], buf_len [S, L], smoothed_level, alive,
+    remove_on_finish), is KAA's epilogue folded in: KF's blocks write its
+    buffer (``epilogue_views``), the call's seventh output, from the level
+    they compute (``audio_epilogue_plain`` after the twin on the CPU)."""
     if samples.device.type == "cpu":
         return audio_spatialise_plain(samples, lp_state, alpha, use_lp, spatial, hrir_hist,
                                       bank, dir_idx, prev_gl, prev_gr, gl, gr, ramp, gain,
-                                      send_gain, use_hrtf)
+                                      send_gain, use_hrtf, epilogue)
     dev = samples.device
     s, b = samples.shape
-    hl = hrir_hist.shape[1]
-    t = hl + 1
+    t = hrir_hist.shape[1] + 1
     if b > MAX_BLOCK or t > MAX_TAPS:
         raise ValueError(f"KF takes up to {MAX_BLOCK} frames and {MAX_TAPS} taps "
                          f"(got {b}, {t})")
-    args = [(samples, "samples", f32, (s, b)), (lp_state, "lp_state", f32, (s,)),
-            (alpha, "alpha", f32, (s,)), (use_lp, "use_lp", torch.bool, (s,)),
-            (spatial, "spatial", torch.bool, (s,)), (hrir_hist, "hrir_hist", f32, (s, hl)),
-            (prev_gl, "prev_gl", f32, (s,)), (prev_gr, "prev_gr", f32, (s,)),
-            (gl, "gl", f32, (s,)), (gr, "gr", f32, (s,)), (ramp, "ramp", f32, (b,)),
-            (gain, "gain", f32, (s,))]
+    send = send_gain is not None
+    if len(epilogue) != len(EPILOGUE_NAMES):
+        raise ValueError(f"epilogue: {len(EPILOGUE_NAMES)} tensors ({', '.join(EPILOGUE_NAMES)})")
+    nl = epilogue[4].shape[-1]
+    plan = build.plan(_spatialise_plans, (s, b, t, send, nl, dev),
+                      lambda: _SpatialisePlan(s, b, t, send, nl, dev))
+    ins = (samples, lp_state, alpha, use_lp, spatial, hrir_hist, prev_gl, prev_gr, gl, gr,
+           ramp, gain) + ((send_gain,) if send else ()) + tuple(epilogue)
+    build.check_all(plan.device, ins, plan.names, plan.dtypes, plan.shapes)
     if use_hrtf:
-        args += [(bank, "bank", f32, tuple(bank.shape[:-2]) + (2, t)),
-                 (dir_idx, "dir_idx", i32, (s,))]
-    if send_gain is not None:
-        args.append((send_gain, "send_gain", f32, (s,)))
-    for a in args:
-        build.check(*a, dev)
-    wl = torch.empty((s, b), dtype=f32, device=dev)
-    wr = torch.empty((s, b), dtype=f32, device=dev)
-    ws = None if send_gain is None else torch.empty((s, b), dtype=f32, device=dev)
-    lp_out = torch.empty((s,), dtype=f32, device=dev)
-    new_hist = torch.empty((s, hl), dtype=f32, device=dev)
-    level = torch.empty((s,), dtype=f32, device=dev)
+        build.check(bank, "bank", f32, tuple(bank.shape[:-2]) + (2, t), dev)
+        build.check(dir_idx, "dir_idx", i32, (s,), dev)
+    wide = torch.empty((sum(plan.wide),), dtype=f32, device=dev).unsafe_split_with_sizes(
+        plan.wide)
+    wl, wr = wide[0].view(s, b), wide[1].view(s, b)
+    ws = wide[2].view(s, b) if send else None
+    narrow = torch.empty((sum(plan.narrow),), dtype=f32, device=dev).unsafe_split_with_sizes(
+        plan.narrow)
+    lp_out, new_hist, level, ep = narrow[0], narrow[1].view(s, t - 1), narrow[2], narrow[3]
     build.launch("audio_spatialise", samples, lp_state, alpha, use_lp, spatial, hrir_hist,
                  bank if use_hrtf else None, dir_idx if use_hrtf else None,
                  prev_gl, prev_gr, gl, gr, ramp, gain, send_gain,
-                 wl, wr, ws, lp_out, new_hist, level, s, b, t, int(bool(use_hrtf)))
+                 wl, wr, ws, lp_out, new_hist, level, s, b, t, int(bool(use_hrtf)),
+                 *epilogue, ep, nl)
     launches["audio_spatialise"] += 1
-    return wl, wr, ws, lp_out, new_hist, level
+    return wl, wr, ws, lp_out, new_hist, level, ep
 
 
 # ---------------------------------------------------------------------------

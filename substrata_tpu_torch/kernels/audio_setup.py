@@ -1,18 +1,20 @@
-"""KAA: the audio mix's per-source setup and epilogue, and their plain twins.
+"""KAA: the audio mix's per-source setup and its plain twin.
 
 Replace the per-source part of the device program
 ``substrata_tpu/audio/mix.py:mix_block`` (:276): the setup of :290-348
 (Doppler and its smoothing, the playback rate per layer, fades, distance
 and occlusion gains, pan, the low-pass cutoff) with the HRIR direction of
-:376-392, and the epilogue of :433-444 (the finished flag, the smoothed
-level, the alive mask), in two launches per block (``csrc/audio_setup.cu``).
+:376-392, in one launch per block (``csrc/audio_setup.cu``).  The
+epilogue of :433-444 (the finished flag, the smoothed level, the alive
+mask) went into KF's source blocks, which hold the level it reads
+(``audio_mix.audio_spatialise(..., epilogue=...)``, twin
+``audio_mix.audio_epilogue_plain``).
 
 ``audio_setup`` returns ONE float32 buffer of (L + 9) * S words; KE and
-KF read its fields as views (``setup_views``).  ``audio_epilogue`` returns
-one buffer of 2 * S words (``epilogue_views``).  Each wrapper runs its
-``*_plain`` twin for CPU tensors; for CUDA tensors it launches the kernel
-or raises.  The twins write the same buffers, so a kernel and its twin
-compare word for word.
+KF read its fields as views (``setup_views``).  It runs its twin for CPU
+tensors; for CUDA tensors it launches the kernel or raises.  The twin
+writes the same buffer, so the kernel and its twin compare word for
+word.
 
 Rounding (found by comparing with the jitted reference, not guessed): the
 distance is the correctly rounded square root of the dot product's fma
@@ -37,7 +39,7 @@ from substrata_tpu_torch.kernels import build
 from substrata_tpu_torch.maths import fp
 from substrata_tpu_torch.maths.fp import dot3, fma
 
-launches = {"audio_setup": 0, "audio_epilogue": 0}
+launches = {"audio_setup": 0}
 
 SPEED_OF_SOUND = 343.0
 DELTA_MAX = 2.5
@@ -71,12 +73,6 @@ def setup_views(buf: torch.Tensor, s: int, nl: int) -> dict:
     v["active"] = flags[:s].view(torch.bool)
     v["use_lp"] = flags[s:2 * s].view(torch.bool)
     return v
-
-
-def epilogue_views(buf: torch.Tensor, s: int) -> dict:
-    flags = buf[s:2 * s].view(torch.uint8)
-    return {"smoothed_level": buf[:s], "finished": flags[:s].view(torch.bool),
-            "alive": flags[s:2 * s].view(torch.bool)}
 
 
 def dop_alpha(block: int) -> float:
@@ -179,41 +175,4 @@ def audio_setup(alive, paused, finished, spatial, pos, vel, delta, doppler_facto
         *(t.data_ptr() for t in args), float(np.float32(dop_alpha)),
         float(np.float32(dt_block)), s, nl, int(bool(use_hrtf)), buf.data_ptr()))
     launches["audio_setup"] += 1
-    return buf
-
-
-def audio_epilogue_plain(finished, looping, stream_mode, active, new_heads, buf_len, level,
-                         smoothed_level, alive, remove_on_finish):
-    s = finished.shape[0]
-    # Non-looping sources finish when layer 0 passes the end.
-    fin = finished | ((~looping) & (~stream_mode) & active
-                      & (new_heads[:, 0] >= buf_len[:, 0].to(f32) - 1.0))
-    buf = torch.empty((2 * s,), dtype=f32, device=finished.device)
-    v = epilogue_views(buf, s)
-    v["smoothed_level"].copy_(fma(level, 0.1, smoothed_level * 0.9))
-    v["finished"].copy_(fin)
-    v["alive"].copy_(alive & ~(fin & remove_on_finish))
-    return buf
-
-
-def audio_epilogue(finished, looping, stream_mode, active, new_heads, buf_len, level,
-                   smoothed_level, alive, remove_on_finish):
-    """KAA's epilogue: ``audio_epilogue_plain`` for CPU tensors,
-    ``csrc/audio_setup.cu`` for CUDA tensors.  Returns the epilogue
-    buffer (``epilogue_views``)."""
-    args = (finished, looping, stream_mode, active, new_heads, buf_len, level, smoothed_level,
-            alive, remove_on_finish)
-    if finished.device.type == "cpu":
-        return audio_epilogue_plain(*args)
-    dev = finished.device
-    s, nl = new_heads.shape
-    for t, name, dtype, shp in zip(
-            args, ("finished", "looping", "stream_mode", "active", "new_heads", "buf_len",
-                   "level", "smoothed_level", "alive", "remove_on_finish"),
-            (torch.bool,) * 4 + (f32, i32, f32, f32, torch.bool, torch.bool),
-            [(s,)] * 4 + [(s, nl), (s, nl)] + [(s,)] * 4):
-        build.check(t, name, dtype, shp, dev)
-    buf = torch.empty((2 * s,), dtype=f32, device=dev)
-    build.launch("audio_epilogue", *args, s, nl, buf)
-    launches["audio_epilogue"] += 1
     return buf

@@ -67,8 +67,10 @@ SIGNATURES = {
     "audio_fetch": [P] * 10 + [P] * 2 + [I] * 5 + [F] + [P],
     # samples, lp_state, alpha, use_lp, spatial, hist, bank, dir_idx,
     # prev_gl, prev_gr, gl, gr, ramp, gain, send_gain, out wl, wr, ws,
-    # lp_out, new_hist, level, S, B, T, use_hrtf, stream
-    "audio_spatialise": [P] * 15 + [P] * 6 + [I] * 4 + [P],
+    # lp_out, new_hist, level, S, B, T, use_hrtf; the folded epilogue's
+    # finished, looping, stream_mode, active, new_heads, buf_len,
+    # smoothed_level, alive, remove_on_finish, out, L; stream
+    "audio_spatialise": [P] * 15 + [P] * 6 + [I] * 4 + [P] * 10 + [I] + [P],
     # one host buffer of 8-byte slots (kernels/audio_mix.py:_DOWNMIX_PACK:
     # wl, wr, ws, master_volume, lines, write_idx, delays, feedback, wet,
     # out, lines_out, write_idx_out, S, B, D, has_room), stream
@@ -141,9 +143,10 @@ SIGNATURES = {
     # slot_of_pair, host array of bucket flag pointers, host array of slot
     # offsets, n buckets, P, out, stream
     "layout_touching": [P] * 3 + [I] * 2 + [P] + [P],
-    # 9 contact fields, C, max_active, tile scratch, 9 outputs, overflow,
+    # one host buffer of 8-byte slots (kernels/layout.py:_COMPACT_PACK: 9
+    # contact fields, block scratch, out, C, max_active, most blocks),
     # stream
-    "layout_compact": [P] * 9 + [I] * 2 + [P] + [P] * 9 + [P] + [P],
+    "layout_compact": [P, P],
     # one host buffer of 8-byte slots (kernels/layout.py:_INC_PACK: entry
     # a, b, occupancy, scratch, out table, sign, counts, stride, C, N, CPB),
     # stream
@@ -193,9 +196,6 @@ SIGNATURES = {
     # pos, vel, right, forward, up; dop_alpha, dt_block as doubles; S, L,
     # use_hrtf; out), stream
     "audio_setup": [P, P],
-    # finished, looping, stream_mode, active, new_heads, buf_len, level,
-    # smoothed_level, alive, remove_on_finish; S, L; out, stream
-    "audio_epilogue": [P] * 10 + [I] * 2 + [P] + [P],
     # body_slot, y_fwd_quat, wheel_attach, wheel_radius, sus_max; body pos,
     # quat, linvel, angvel, inv_mass, inv_inertia; V; out, stream
     "vehicle_setup": [P] * 11 + [I] + [P] + [P],

@@ -5,7 +5,8 @@ rotation every rotating kernel shares, for the pair finder (KS), the
 downmix (KG), the event digest (KN), the spatialiser (KF), the vehicle
 forces (KJ), KT's incidence table, the closed forms (KK), the mix's
 per-source setup (KAA), the hull contacts (KO), the pose (KZ), the halo
-exchange (KAD) and the sleep pass (KV).
+exchange (KAD), the sleep pass (KV), KT's compaction and KF's folded
+epilogue.
 
 For the sorts, these are the inputs where a bucket or a code's slice
 fills, so the order of ties decides who is dropped, and where nothing is
@@ -50,7 +51,14 @@ count, 1, 2 and 8 slabs and both phases of 2 x 2 tiles.  For the sleep
 pass: 1, 8, 16 and 40 slots a body, 1, 2 and 4 rows an entry, full
 tables, entries with no valid row, static counterparts, NaN speeds and
 impulses, a fast, a NaN and both fast wakes, kinematic bodies, all
-asleep, and 1, 33 and 65,536 bodies.  The CPU tests hold the
+asleep, and 1, 33 and 65,536 bodies.  For KT's compaction: nothing
+valid, one class only, 1 to 1,025 rows about a group's and a block's
+edges, room for exactly the touching rows, one less, between them and the
+valid ones and past every row, valid rows with a = -1, penetrations of
+0.0, -0.0, NaN and the denormals, and the 65,536-body tier.  For KF's
+folded epilogue: heads at exactly a buffer's end and one ulp before it,
+looping, streaming, inactive and finished sources, removal on finish, NaN
+levels, 1 to 1,024 sources and 1 or 3 layers.  The CPU tests hold the
 twins against the reference on them at a small size;
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` hold the kernels against
 the twins on them.  Everything is numpy, made from a seed; slot order is
@@ -188,6 +196,109 @@ def group_pairs(case: str, shape_type, p: int, max_pairs: int, seed: int = 0):
     valid = np.arange(p) < p - invalid
     perm = rng.permutation(p)
     return (pairs[perm, 0].astype(np.int32), pairs[perm, 1].astype(np.int32), valid[perm])
+
+
+# ---------------------------------------------------------------------------
+# KT: compaction scenes.
+# ---------------------------------------------------------------------------
+
+COMPACT_CASES = ("none_valid", "all_touching", "all_speculative", "c1", "c1023", "c1025",
+                 "c257", "m_is_touching", "m_touching_less_1", "m_between", "m_past_c",
+                 "a_minus_1", "pen_edges", "capacity")
+COMPACT_C = 3000
+# The 65,536-body tier: 49,152 box-box pairs of 4 rows, and the most
+# compacted rows its 32-bit incidence key allows (SimConfig's auto value).
+COMPACT_CAPACITY = (4 * 49_152, 16_383)
+COMPACT_FIELDS = ("a", "b", "point", "normal", "penetration", "valid", "friction",
+                  "restitution", "key")
+
+
+@dataclasses.dataclass
+class CompactScene:
+    """KT's compaction inputs (numpy): the contact rows by
+    ``COMPACT_FIELDS`` (narrowphase.CONTACT_FIELDS' order) and
+    ``max_active``."""
+    rows: dict
+    max_active: int
+
+    @property
+    def counts(self):
+        """(touching, valid) rows, as the reference counts them."""
+        v = self.rows["valid"]
+        t = v & (self.rows["penetration"] >= np.finfo(np.float32).tiny)
+        return int(t.sum()), int(v.sum())
+
+
+def compact_scene(case: str, seed: int = 0) -> CompactScene:
+    """3,000 rows unless named, about 70% valid, about half of those
+    touching (penetration up to 0.05 m; the speculative ones at -0.04 m to
+    0), bodies 0-999 (b = -1 for static rows), keys spread over int32;
+    ``max_active`` half the rows unless named:
+
+    - ``none_valid``: every row invalid (all fills, no overflow);
+    - ``all_touching``, ``all_speculative``: every row valid of one class
+      (2,000 rows of room: the first overflows, the second drops 1,000);
+    - ``c{C}``: 1 row (room for 4), 1,023 and 1,025 rows (either side of
+      the parent kernel's 1,024-row tile), 257 rows (one past a block's 256
+      rows at one group a warp);
+    - ``m_is_touching``, ``m_touching_less_1``: room for exactly the
+      touching rows, and one less (overflow 1);
+    - ``m_between``: room between the touching and the valid rows;
+    - ``m_past_c``: room for more rows than there are;
+    - ``a_minus_1``: a tenth of the valid rows of each class with a = -1
+      (placed, written as empty slots with their floats copied);
+    - ``pen_edges``: every row valid, penetrations 0.0, -0.0, NaN, the
+      smallest positive and negative denormals, the largest denormal, the
+      smallest normal and 1e-3 in turn (only the last two touch: the
+      reference reads a denormal as 0);
+    - ``capacity``: the 65,536-body tier's 196,608 rows into 16,383.
+    """
+    if case not in COMPACT_CASES:
+        raise ValueError(f"unknown compact case {case!r}")
+    rng = np.random.default_rng(seed)
+    c = {"c1": 1, "c1023": 1023, "c1025": 1025, "c257": 257,
+         "capacity": COMPACT_CAPACITY[0]}.get(case, COMPACT_C)
+    valid = rng.random(c) < 0.7
+    pen = np.where(rng.random(c) < 0.5, rng.uniform(1e-4, 0.05, c),
+                   rng.uniform(-0.04, 0.0, c)).astype(np.float32)
+    if case == "none_valid":
+        valid[:] = False
+    elif case in ("all_touching", "all_speculative"):
+        valid[:] = True
+        pen = np.abs(pen) + np.float32(1e-4)
+        if case == "all_speculative":
+            pen = -pen
+    elif case == "pen_edges":
+        valid[:] = True
+        tiny = np.finfo(np.float32).tiny
+        edges = np.array([0.0, -0.0, np.nan, 1e-45, -1e-45, np.nextafter(tiny, 0), tiny, 1e-3],
+                         np.float32)
+        pen = np.resize(edges, c)
+    a = rng.integers(0, 1000, c).astype(np.int32)
+    b = np.where(rng.random(c) < 0.2, -1, rng.integers(0, 1000, c)).astype(np.int32)
+    if case == "a_minus_1":
+        a[valid & (rng.random(c) < 0.1)] = -1
+    rows = dict(a=a, b=b, point=rng.uniform(-50, 50, (c, 3)).astype(np.float32),
+                normal=rng.normal(0, 1, (c, 3)).astype(np.float32), penetration=pen,
+                valid=valid, friction=rng.uniform(0, 1, c).astype(np.float32),
+                restitution=rng.uniform(0, 1, c).astype(np.float32),
+                key=rng.integers(-2 ** 31, 2 ** 31 - 1, c).astype(np.int32))
+    scene = CompactScene(rows=rows, max_active=max(c // 2, 1))
+    n_touch, n_valid = scene.counts
+    scene.max_active = {"c1": 4, "none_valid": 1000, "all_touching": 2000,
+                        "all_speculative": 2000, "m_is_touching": n_touch,
+                        "m_touching_less_1": n_touch - 1,
+                        "m_between": (n_touch + n_valid) // 2, "m_past_c": c + 100,
+                        "a_minus_1": n_valid + 10, "pen_edges": c,
+                        "capacity": COMPACT_CAPACITY[1]}.get(case, scene.max_active)
+    return scene
+
+
+def compact_inputs(scene: CompactScene, device):
+    """``layout.compact``'s arguments (the rows tuple, max_active) on
+    ``device``."""
+    return (tuple(torch.as_tensor(scene.rows[k], device=device) for k in COMPACT_FIELDS),
+            scene.max_active)
 
 
 # ---------------------------------------------------------------------------
@@ -1428,9 +1539,11 @@ SPATIALISE_BANK = (5, 3)     # azimuth x elevation rows of the scenes' HRIR bank
 @dataclasses.dataclass
 class SpatialiseScene:
     """KF's inputs (numpy): ``arrays`` by ``audio_spatialise``'s argument
-    names (``send_gain`` None without a send), and ``use_hrtf``."""
+    names (``send_gain`` None without a send), ``use_hrtf``, and the
+    folded epilogue's inputs (``epilogue``, by ``EPILOGUE_FIELDS``)."""
     arrays: dict
     use_hrtf: bool
+    epilogue: dict
 
 
 def spatialise_scene(case: str, seed: int = 0) -> SpatialiseScene:
@@ -1443,7 +1556,8 @@ def spatialise_scene(case: str, seed: int = 0) -> SpatialiseScene:
     ``no_send`` and ``no_hrtf``.  In every case about half the sources
     use the low-pass, a quarter are not spatial (the pan path), alpha is
     one of the mix's three values elsewhere, and samples are spread over
-    +-0.3 with a few loud ones."""
+    +-0.3 with a few loud ones.  The epilogue's inputs come from a stream
+    of their own (``_epilogue_fields``), so KF's stay as they were."""
     rng = np.random.default_rng(seed)
     s = SPATIALISE_S
     b = int(case[1:]) if case.startswith("b") else (256 if case == "t1" else 800)
@@ -1471,7 +1585,8 @@ def spatialise_scene(case: str, seed: int = 0) -> SpatialiseScene:
         gl=rng.uniform(0, 1, s).astype(f32), gr=rng.uniform(0, 1, s).astype(f32),
         ramp=np.linspace(0.0, 1.0, b, dtype=f32), gain=rng.uniform(0, 1, s).astype(f32),
         send_gain=None if case == "no_send" else rng.uniform(0, 1, s).astype(f32))
-    return SpatialiseScene(arrays=arrays, use_hrtf=case != "no_hrtf")
+    return SpatialiseScene(arrays=arrays, use_hrtf=case != "no_hrtf",
+                           epilogue=_epilogue_fields(np.random.default_rng([seed, 1]), s, 3))
 
 
 SPATIALISE_ARGS = ("samples", "lp_state", "alpha", "use_lp", "spatial", "hrir_hist", "bank",
@@ -1479,10 +1594,12 @@ SPATIALISE_ARGS = ("samples", "lp_state", "alpha", "use_lp", "spatial", "hrir_hi
 
 
 def spatialise_inputs(scene: SpatialiseScene, device):
-    """``audio_spatialise``'s arguments for ``scene`` on ``device``."""
+    """``audio_spatialise``'s arguments for ``scene`` on ``device``, the
+    epilogue's tuple last."""
     a = scene.arrays
     return tuple(None if a[k] is None else torch.as_tensor(a[k], device=device)
-                 for k in SPATIALISE_ARGS) + (scene.use_hrtf,)
+                 for k in SPATIALISE_ARGS) + (scene.use_hrtf, tuple(
+                     torch.as_tensor(scene.epilogue[k], device=device) for k in EPILOGUE_FIELDS))
 
 
 # ---------------------------------------------------------------------------
@@ -2223,6 +2340,116 @@ def audio_setup_inputs(scene: AudioSetupScene, device, use_hrtf: bool):
     src = [torch.as_tensor(scene.sources[k], device=device) for k in AUDIO_SETUP_FIELDS]
     lis = [torch.as_tensor(scene.listener[k], device=device) for k in LISTENER_AXES]
     return (*src, *lis, kaa.dop_alpha(scene.block), scene.block / kaa.ENGINE_RATE, use_hrtf)
+
+
+# ---------------------------------------------------------------------------
+# KF's folded epilogue (KAA's before): finished, level meter, alive.
+# ---------------------------------------------------------------------------
+
+EPILOGUE_CASES = ("head_at_end", "looping", "stream_mode", "inactive", "already_finished",
+                  "remove_on_finish", "nan_level", "s1", "s31", "s33", "s1024", "l1")
+EPILOGUE_BLOCK = 256        # the client's render block
+EPILOGUE_FIELDS = ("finished", "looping", "stream_mode", "active", "new_heads", "buf_len",
+                   "smoothed_level", "alive", "remove_on_finish")
+
+
+@dataclasses.dataclass
+class EpilogueScene:
+    """KF's inputs (``spatialise``, as ``SpatialiseScene``'s arrays, HRTF
+    on, B = 256, T = 64) and the epilogue's (``epilogue``, by
+    ``EPILOGUE_FIELDS``; new_heads and buf_len [S, L])."""
+    spatialise: dict
+    epilogue: dict
+
+
+def _epilogue_fields(rng, s, nl):
+    """The epilogue's inputs for ``s`` sources of ``nl`` layers: 10%
+    finished, 30% looping, 10% streaming, 80% active, 90% alive, half
+    removed on finish, heads spread over [0, 1.1 buf_len)."""
+    buf_len = rng.integers(1000, 50_000, (s, nl)).astype(np.int32)
+    return dict(finished=rng.random(s) < 0.1, looping=rng.random(s) < 0.3,
+                stream_mode=rng.random(s) < 0.1, active=rng.random(s) < 0.8,
+                new_heads=(rng.uniform(0, 1.1, (s, nl)) * buf_len).astype(np.float32),
+                buf_len=buf_len, smoothed_level=rng.uniform(0, 1, s).astype(np.float32),
+                alive=rng.random(s) < 0.9, remove_on_finish=rng.random(s) < 0.5)
+
+
+def epilogue_scene(case: str, seed: int = 0) -> EpilogueScene:
+    """64 sources of 3 layers unless named (``s{S}``: 1, 31, 33, 1,024
+    sources, either side of a warp and past the client's 512; ``l1``: one
+    layer); 10% finished, 30% looping, 10% streaming, 80% active, 90%
+    alive, half removed on finish, heads spread over [0, 1.1 buf_len):
+
+    - ``head_at_end``: every source able to finish, half of the heads at
+      exactly buf_len - 1 (finishes) and half one ulp below (does not);
+    - ``looping``, ``stream_mode``, ``inactive``: every source so and
+      none finished yet, every head past its end (none finishes);
+    - ``already_finished``: every source finished, heads at 0;
+    - ``remove_on_finish``: every source alive and able to finish, half
+      past the end, half removed on finish (the four combinations);
+    - ``nan_level``: a quarter of the gains NaN, so their levels and
+      smoothed levels are NaN.
+    """
+    if case not in EPILOGUE_CASES:
+        raise ValueError(f"unknown epilogue case {case!r}")
+    rng = np.random.default_rng(seed)
+    s = int(case[1:]) if case[0] == "s" and case[1:].isdigit() else 64
+    nl = 1 if case == "l1" else 3
+    b, t = EPILOGUE_BLOCK, 64
+    f32 = np.float32
+    x = rng.normal(0.0, 0.1, (s, b))
+    loud = rng.random((s, b)) < 0.01
+    samples = np.where(loud, rng.uniform(-1, 1, (s, b)), x).astype(f32)
+    na, ne = SPATIALISE_BANK
+    gain = rng.uniform(0, 1, s).astype(f32)
+    if case == "nan_level":
+        gain[np.arange(s) % 4 == 1] = np.nan
+    spat = dict(
+        samples=samples, lp_state=rng.normal(0.0, 0.1, s).astype(f32),
+        alpha=rng.choice(np.array([0.1024, 0.3491, 1.0], f32), s),
+        use_lp=rng.random(s) < 0.5, spatial=rng.random(s) < 0.75,
+        hrir_hist=rng.normal(0.0, 0.1, (s, t - 1)).astype(f32),
+        bank=rng.normal(0.0, 0.2, (na, ne, 2, t)).astype(f32),
+        dir_idx=rng.integers(0, na * ne, s).astype(np.int32),
+        prev_gl=rng.uniform(0, 1, s).astype(f32), prev_gr=rng.uniform(0, 1, s).astype(f32),
+        gl=rng.uniform(0, 1, s).astype(f32), gr=rng.uniform(0, 1, s).astype(f32),
+        ramp=np.linspace(0.0, 1.0, b, dtype=f32), gain=gain,
+        send_gain=rng.uniform(0, 1, s).astype(f32))
+    ep = _epilogue_fields(rng, s, nl)
+    buf_len = ep["buf_len"]
+    half = np.arange(s) % 2 == 0
+    past = buf_len[:, 0].astype(f32) + f32(10.0)
+    able = ("head_at_end", "remove_on_finish")
+    if case in able:
+        ep["finished"][:], ep["looping"][:], ep["stream_mode"][:] = False, False, False
+        ep["active"][:] = True
+    if case == "head_at_end":
+        end = buf_len[:, 0].astype(f32) - f32(1.0)
+        ep["new_heads"][:, 0] = np.where(half, end, np.nextafter(end, f32(-np.inf)))
+    elif case in ("looping", "stream_mode", "inactive"):
+        ep["new_heads"][:, 0] = past
+        ep["finished"][:] = False
+        if case == "inactive":
+            ep["active"][:] = False
+        else:
+            ep[case][:] = True
+    elif case == "already_finished":
+        ep["finished"][:] = True
+        ep["new_heads"][:] = 0.0
+    elif case == "remove_on_finish":
+        ep["alive"][:] = True
+        ep["new_heads"][:, 0] = np.where(half, past, f32(0.0))
+        ep["remove_on_finish"][:] = np.arange(s) % 4 < 2
+    return EpilogueScene(spatialise=spat, epilogue=ep)
+
+
+def epilogue_inputs(scene: EpilogueScene, device):
+    """(``audio_spatialise``'s arguments, ``use_hrtf`` last; its
+    ``epilogue=`` tuple) on ``device``."""
+    a = scene.spatialise
+    sargs = tuple(torch.as_tensor(a[k], device=device) for k in SPATIALISE_ARGS) + (True,)
+    return sargs, tuple(torch.as_tensor(scene.epilogue[k], device=device)
+                        for k in EPILOGUE_FIELDS)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ NUM_CODES = 16
 SAME_TYPE_CODES = (0, 5, 10, 15)
 MIXED_FRACTION = 4
 INC_LIST = 64          # csrc/layout.cu:kIncList
+SMALLEST_NORMAL = float(torch.finfo(torch.float32).tiny)   # csrc/layout.cu:kSmallestNormal
 _INC_PACK = struct.Struct("=11q")    # csrc/layout.cu:layout_incidence
 _inc_plans = {}
 
@@ -182,7 +183,10 @@ def compact_plain(rows, max_active: int):
     returns (compacted tuple of ``max_active`` rows, overflow [] i32)."""
     a, b, point, normal, pen, valid, fric, rest, key = rows
     dev = a.device
-    touching = valid & (pen > 0.0)
+    # The jitted reference's ``pen > 0`` reads a denormal as 0 (XLA's CPU
+    # compares with denormals-are-zero, as the TPU does): touching means
+    # at least the smallest normal float.
+    touching = valid & (pen >= SMALLEST_NORMAL)
     spec = valid & ~touching
     n_touch = touching.sum()
     idx_t = torch.cumsum(touching.long(), 0) - 1
@@ -205,41 +209,64 @@ def compact_plain(rows, max_active: int):
         torch.clamp(n_touch - max_active, min=0).to(torch.int32)
 
 
+# csrc/layout.cu:layout_compact: the 9 contact fields, the plan's block
+# scratch, the output buffer, C, max_active.
+_COMPACT_PACK = struct.Struct("=13q")
+COMPACT_WARPS = 8           # csrc/layout.cu:kCompactWarps
+_COMPACT_NAMES = ("a", "b", "point", "normal", "penetration", "valid", "friction",
+                  "restitution", "key")
+_COMPACT_DTYPES = (torch.int32, torch.int32, torch.float32, torch.float32, torch.float32,
+                   torch.bool, torch.float32, torch.float32, torch.int32)
+_compact_plans = {}
+
+
+class _CompactPlan:
+    """The compaction's checks and scratch for one (C, max_active, device,
+    stream): the fields' shapes, one 64-bit count a block (each launch
+    writes its blocks' before the grid barrier reads them, so nothing is
+    reset; keyed by stream, so two streams never share it; one word for
+    each block the rows could need at a group of 32 a warp, of which the
+    kernel launches at most csrc/layout.cu:kCompactMaxBlocks) and the
+    split of the output buffer: a, b, key and the overflow as int32, point, normal,
+    penetration, friction and restitution as float32, then valid as
+    bytes."""
+
+    def __init__(self, c, m, device):
+        self.device = device
+        self.shapes = ((c,), (c,), (c, 3), (c, 3), (c,), (c,), (c,), (c,), (c,))
+        groups = -(-c // 32)
+        self.blocks = torch.empty((max(-(-groups // COMPACT_WARPS), 1),), dtype=torch.int64,
+                                  device=device)
+        tail = (m + 3) // 4
+        self.words = 12 * m + 1 + tail
+        self.split = [m, m, m, 1, 9 * m, tail]
+        self.floats = [3 * m, 3 * m, m, m, m]
+
+
 def compact(rows, max_active: int):
     """KT's compaction: valid contacts into ``max_active`` rows, touching
     (penetration > 0) first, then speculative, each in row order; empty
     rows a = 0, b = -1, key = 0, zeros.  Returns (tuple, overflow [] i32:
-    the touching rows that found no room)."""
+    the touching rows that found no room).  On the card one cooperative
+    launch from one packed argument, checked against a plan of its shape;
+    the outputs are views of one fresh allocation."""
     if rows[0].device.type == "cpu":
         return compact_plain(rows, max_active)
     global launches
-    a = rows[0]
-    dev = a.device
-    c = a.shape[0]
-    shapes = [(c,), (c,), (c, 3), (c, 3), (c,), (c,), (c,), (c,), (c,)]
-    dtypes = [torch.int32, torch.int32, torch.float32, torch.float32, torch.float32,
-              torch.bool, torch.float32, torch.float32, torch.int32]
-    names = ("a", "b", "point", "normal", "penetration", "valid", "friction", "restitution",
-             "key")
-    for t, name, dt, shp in zip(rows, names, dtypes, shapes):
-        build.check(t, name, dt, shp, dev)
-    m = max_active
-    n_tiles = max((c + 1023) // 1024, 1)
-    # The tile counts lead the buffer: the kernel reads them as int2.
-    ints = torch.empty((2 * n_tiles + 3 * m + 1,), dtype=torch.int32, device=dev)
-    tile_cnt, rest = ints[:2 * n_tiles], ints[2 * n_tiles:]
-    o_a, o_b, o_key = rest[:m], rest[m:2 * m], rest[2 * m:3 * m]
-    overflow = rest[3 * m:]
-    floats = torch.empty((9 * m,), dtype=torch.float32, device=dev)
-    o_point = floats[:3 * m].view(m, 3)
-    o_normal = floats[3 * m:6 * m].view(m, 3)
-    o_pen, o_fric, o_rest = floats[6 * m:7 * m], floats[7 * m:8 * m], floats[8 * m:]
-    o_valid = torch.empty((m,), dtype=torch.bool, device=dev)
-    build.launch("layout_compact", *rows, c, m, tile_cnt, o_a, o_b, o_point, o_normal, o_pen,
-                 o_valid, o_fric, o_rest, o_key, overflow)
+    dev = rows[0].device
+    c, m = rows[0].shape[0], max_active
+    plan = build.plan(_compact_plans, (c, m, dev, build.stream()),
+                      lambda: _CompactPlan(c, m, dev))
+    build.check_all(plan.device, rows, _COMPACT_NAMES, _COMPACT_DTYPES, plan.shapes)
+    buf = torch.empty((plan.words,), dtype=torch.int32, device=dev)
+    build.launch_packed("layout_compact", _COMPACT_PACK.pack(
+        *(t.data_ptr() for t in rows), plan.blocks.data_ptr(), buf.data_ptr(), c, m))
     launches["layout_compact"] += 1
-    return (o_a, o_b, o_point, o_normal, o_pen, o_valid, o_fric, o_rest, o_key), \
-        overflow.reshape(())
+    o_a, o_b, o_key, overflow, floats, flags = buf.unsafe_split_with_sizes(plan.split)
+    point, normal, pen, fric, rest = floats.view(torch.float32).unsafe_split_with_sizes(
+        plan.floats)
+    return (o_a, o_b, point.view(m, 3), normal.view(m, 3), pen, flags.view(torch.bool)[:m],
+            fric, rest, o_key), overflow.view(())
 
 
 # ---------------------------------------------------------------------------

@@ -114,7 +114,7 @@ PORT_KERNELS = ("box_box_rows_kernel", "static_contacts_kernel", "solve_rows_ker
                 "refresh_claim_kernel", "refresh_write_kernel", "winter_kernel", "pairs_",
                 "layout_", "positions_", "sleep_", "heights_kernel", "chunks_kernel",
                 "scatter_kernel", "spawn_kernel", "pose_kernel", "audio_setup_kernel",
-                "audio_epilogue_kernel", "vehicle_setup_kernel", "vehicle_deltas_kernel")
+                "vehicle_setup_kernel", "vehicle_deltas_kernel")
 AUDIO_STAGES = [(mix, "prepare"), (audio_mix, "audio_fetch"), (audio_mix, "audio_spatialise"),
                 (audio_mix, "audio_downmix_reverb")]
 FULL_STAGES = [(broadphase, "build_cell_table"), (benchworld, "vehicles_update"),
@@ -145,7 +145,7 @@ CLIENT_STAGES = [(client_app_mod.ClientApp, "_readback_active_objects"),
                  (kveh, "vehicle_forces"), (ObjectScriptsEvaluator, "evaluate"),
                  (AudioEngine, "render_block"), (kasetup, "audio_setup"),
                  (audio_mix, "audio_fetch"), (audio_mix, "audio_spatialise"),
-                 (audio_mix, "audio_downmix_reverb"), (kasetup, "audio_epilogue")]
+                 (audio_mix, "audio_downmix_reverb")]
 
 
 def _timed(fn, name, acc):

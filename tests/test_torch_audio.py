@@ -571,14 +571,15 @@ def _jepilogue(src, active, new_heads, level):
 @pytest.mark.parametrize("use_hrtf", [True, False])
 @pytest.mark.parametrize("block", [256, 800])
 def test_kaa_setup_and_epilogue_match_reference(use_hrtf, block):
-    """KAA's twin (``prepare``'s MixSetup and ``audio_epilogue``'s fields)
+    """KAA's twin (``prepare``'s MixSetup) and the epilogue's (``audio_mix.
+    audio_epilogue_plain``'s fields, which KF writes on the card)
     against the jitted reference's operations on the same seeded
     SourceState, 40 seeds of 16 sources with random Doppler factors and
     fades.  Exact on every field, but the pan's cos and sin (HRTF off)
     within 1e-6 of the gains' scale (the CPU libm's against XLA's); an
     HRIR bin may differ only where its pre-round value lies within 1e-5 of
     a half-integer (atan2's last bit), and none does on these inputs."""
-    from substrata_tpu_torch.kernels import audio_setup as kaa
+    from substrata_tpu_torch.kernels import audio_mix as kaudio
     jsetup = jax.jit(_jsetup, static_argnums=(2, 3, 4))
     jep = jax.jit(_jepilogue)
     moved = 0
@@ -615,7 +616,7 @@ def test_kaa_setup_and_epilogue_match_reference(use_hrtf, block):
         level = rng.uniform(0, 1, S).astype(np.float32)
         wep = jep(jsrc, jnp.asarray(np.asarray(want["active"])), jnp.asarray(heads),
                   jnp.asarray(level))
-        tep = kaa.epilogue_views(kaa.audio_epilogue(
+        tep = kaudio.epilogue_views(kaudio.audio_epilogue_plain(
             tsrc.finished, tsrc.looping, tsrc.stream_mode, st.active, torch.as_tensor(heads),
             tsrc.buf_len, torch.as_tensor(level), tsrc.smoothed_level, tsrc.alive,
             tsrc.remove_on_finish), S)

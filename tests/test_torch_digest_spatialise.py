@@ -126,7 +126,7 @@ def test_spatialise_scene_twin_matches_reference(case):
     scene = hard_cases.spatialise_scene(case)
     args = hard_cases.spatialise_inputs(scene, "cpu")
     got = kaudio.audio_spatialise(*args)
-    jargs = [None if a is None else jnp.asarray(a.numpy()) for a in args[:-1]]
+    jargs = [None if a is None else jnp.asarray(a.numpy()) for a in args[:-2]]
     want = _jref_stage(*jargs, use_hrtf=scene.use_hrtf)
     names = ("wl", "wr", "ws", "lp_out", "new_hist", "level")
     for name, g, w in zip(names, got, want):
@@ -152,6 +152,8 @@ def _meta(x):
         return torch.empty_like(x, device="meta")
     if x is None or isinstance(x, bool):
         return x
+    if isinstance(x, tuple):
+        return tuple(_meta(y) for y in x)
     return x.replace(**{f.name: _meta(getattr(x, f.name)) for f in dataclasses.fields(x)})
 
 
@@ -161,6 +163,7 @@ def recorded(monkeypatch):
     monkeypatch.setattr(build, "launch_packed", lambda name, args: calls.append((name, args)))
     monkeypatch.setattr(build, "launch", lambda name, *args: calls.append((name, args)))
     monkeypatch.setattr(km, "_digest_plans", {})
+    monkeypatch.setattr(kaudio, "_spatialise_plans", {})
     return calls
 
 
@@ -213,18 +216,20 @@ def test_digest_plan_packs_and_checks(recorded, case):
 @pytest.mark.parametrize("case", ["b255", "t1", "no_send", "no_hrtf"])
 def test_spatialise_launch_args_and_checks(recorded, case):
     """KF's CUDA branch: the launch's sizes and pointers (None for what the
-    call has not), the outputs' shapes, and a bad argument raises before a
-    launch."""
+    call has not), the folded epilogue's inputs, buffer and layers, the
+    outputs' shapes, and a bad argument raises before a launch."""
     scene = hard_cases.spatialise_scene(case)
     args = [_meta(x) for x in hard_cases.spatialise_inputs(scene, "cpu")]
     s, b = scene.arrays["samples"].shape
     t = scene.arrays["hrir_hist"].shape[1] + 1
-    wl, wr, ws, lp_out, new_hist, level = kaudio.audio_spatialise(*args)
+    wl, wr, ws, lp_out, new_hist, level, ep = kaudio.audio_spatialise(*args)
     name, v = recorded[-1]
-    assert name == "audio_spatialise" and len(v) == 25
-    assert v[21:] == (s, b, t, int(scene.use_hrtf))
-    assert [tuple(x.shape) for x in (wl, wr, lp_out, new_hist, level)] == [
-        (s, b), (s, b), (s,), (s, t - 1), (s,)]
+    assert name == "audio_spatialise" and len(v) == 36
+    assert v[21:25] == (s, b, t, int(scene.use_hrtf))
+    assert all(x is y for x, y in zip(v[25:34], args[-1]))
+    assert v[34] is ep and v[35] == scene.epilogue["new_heads"].shape[1]
+    assert [tuple(x.shape) for x in (wl, wr, lp_out, new_hist, level, ep)] == [
+        (s, b), (s, b), (s,), (s, t - 1), (s,), (2 * s,)]
     assert v[15] is wl and v[16] is wr and v[18] is lp_out and v[20] is level
     if scene.use_hrtf:
         assert v[6] is args[6] and v[7] is args[7]

@@ -43,8 +43,11 @@ and the sharded paths on the card within 1e-4 m (the mix 5e-5) of the CPU
 path; KA and KU to the bit on kernels/hard_cases.py's box-box and
 position scenes; KAD (every byte, the overflow counts, one launch a phase)
 and KV's sleep pass (every output, three calls on one plan) to the bit on
-its halo and sleep scenes.  Each kernel repeats its twin's operations in
-the same order."""
+its halo and sleep scenes; KT's compaction (every field and the overflow,
+three calls on one plan) and KF with the epilogue folded in (its outputs
+and the finished and alive flags; the levels NaN where the twin's are) to
+the bit on the compaction and epilogue scenes.  Each kernel repeats its
+twin's operations in the same order."""
 
 import dataclasses
 
@@ -300,13 +303,18 @@ def test_audio_kernels_match_plain(audio):
     assert float((sk - sp).abs().max()) <= 1e-6 and float((hk - hp).abs().max()) <= 1e-6
     assert float(sp.abs().max()) > 0.1
     for use_hrtf in (True, False):
+        epi = (src.finished, src.looping, src.stream_mode, st.active, hp, src.buf_len,
+               src.smoothed_level, src.alive, src.remove_on_finish)
         sargs = (sp, src.lp_state, st.alpha, st.use_lp, src.spatial, src.hrir_hist,
                  hrir_bank_tensor("cuda"), st.dir_idx, src.prev_gain_l, src.prev_gain_r,
-                 st.gl, st.gr, mix.gain_ramp(b, "cuda"), st.gain, st.send_gain, use_hrtf)
+                 st.gl, st.gr, mix.gain_ramp(b, "cuda"), st.gain, st.send_gain, use_hrtf, epi)
         fk = kaudio.audio_spatialise(*sargs)
         fp = kaudio.audio_spatialise_plain(*sargs)
-        for x, y in zip(fk, fp):
+        for x, y in zip(fk[:6], fp[:6]):
             assert float((x - y).abs().max()) <= 1e-5, use_hrtf
+        ek, ep = (kaudio.epilogue_views(f[6], src.capacity) for f in (fk, fp))
+        for name in ("smoothed_level", "finished", "alive"):
+            assert torch.equal(ek[name], ep[name]), (use_hrtf, name)
     gargs = (fp[0], fp[1], fp[2], lis.master_volume, room.delay_lines, room.write_idx,
              room.delays, room.feedback, room.wet)
     gk = kaudio.audio_downmix_reverb(*gargs)
@@ -680,7 +688,8 @@ def test_digest_hard_cases(case):
 def test_spatialise_hard_cases(case):
     """KF against its twin on kernels/hard_cases.py's spatialise scenes:
     every output (wl, wr, ws, lp_out, new_hist, level) within 1e-5 and
-    equal to the bit (the kernel repeats the twin's operations in order)."""
+    equal to the bit (the kernel repeats the twin's operations in order),
+    and the folded epilogue's three fields to the bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     args = hard_cases.spatialise_inputs(hard_cases.spatialise_scene(case), "cuda")
@@ -693,6 +702,10 @@ def test_spatialise_hard_cases(case):
         if x.numel():
             assert float((x - y).abs().max()) <= 1e-5, name
         assert _same_bits(x, y), name
+    s = fk[5].shape[0]
+    ek, ep = kaudio.epilogue_views(fk[6], s), kaudio.epilogue_views(fp[6], s)
+    for name in ("smoothed_level", "finished", "alive"):
+        assert _same_bits(ek[name], ep[name]), name
 
 
 @pytest.mark.parametrize("case", hard_cases.VEHICLE_CASES)
@@ -1791,7 +1804,8 @@ def _kaa_fields(buf, s, nl):
 
 @pytest.mark.parametrize("use_hrtf", [True, False])
 def test_audio_setup_kernels_match_plain(audio, use_hrtf):
-    """KAA's setup and epilogue on bench.py's 256 sources after 10 blocks."""
+    """KAA's setup, and the epilogue KF writes, on bench.py's 256 sources
+    after 10 blocks."""
     import math
     from substrata_tpu_torch.kernels import audio_setup as kaa
     src, pool, lis, room, _ = audio
@@ -1819,12 +1833,17 @@ def test_audio_setup_kernels_match_plain(audio, use_hrtf):
         for name in ("gl", "gr"):
             assert float((k[name] - p[name]).abs().max()) <= 1e-6 * max(
                 1.0, float(p[name].abs().max())), name
+    # The epilogue, folded into KF, against KF's twin and the epilogue's.
     samples, heads = mix.fetch(pool, src, p["eff_delta"], p["active"], b)
-    level = samples.abs().max(dim=1).values * p["gain"]
-    eargs = (src.finished, src.looping, src.stream_mode, p["active"], heads, src.buf_len,
-             level, src.smoothed_level, src.alive, src.remove_on_finish)
-    ek = kaa.epilogue_views(kaa.audio_epilogue(*eargs), s)
-    ep = kaa.epilogue_views(kaa.audio_epilogue_plain(*eargs), s)
+    sargs = (samples, src.lp_state, p["alpha"], p["use_lp"], src.spatial, src.hrir_hist,
+             hrir_bank_tensor("cuda") if use_hrtf else None, p["dir_idx"] if use_hrtf else None,
+             src.prev_gain_l, src.prev_gain_r, p["gl"], p["gr"], mix.gain_ramp(b, "cuda"),
+             p["gain"], p["send_gain"], use_hrtf)
+    epi = (src.finished, src.looping, src.stream_mode, p["active"], heads, src.buf_len,
+           src.smoothed_level, src.alive, src.remove_on_finish)
+    ek = kaudio.epilogue_views(kaudio.audio_spatialise(*sargs, epilogue=epi)[6], s)
+    level = kaudio.audio_spatialise_plain(*sargs, epi)[5]
+    ep = kaudio.epilogue_views(kaudio.audio_epilogue_plain(*epi[:6], level, *epi[6:]), s)
     for name in ("smoothed_level", "finished", "alive"):
         assert torch.equal(ek[name], ep[name]), name
 
@@ -2100,3 +2119,57 @@ def test_sleep_hard_cases(case):
         for f in dataclasses.fields(want):
             assert _same_bits(getattr(got, f.name), getattr(want, f.name)), (case, f.name)
         assert int(kv.sleep_pass(*fast).steps_left) == 0
+
+
+def _same_or_nan(a, b):
+    """Bit for bit where b is a number, NaN where b is NaN (a NaN's
+    payload is the arithmetic's: the card's fma gives the canonical one)."""
+    nan = torch.isnan(b)
+    return torch.equal(torch.isnan(a), nan) and _same_bits(a[~nan], b[~nan])
+
+
+@pytest.mark.parametrize("case", hard_cases.COMPACT_CASES)
+def test_compact_hard_cases(case):
+    """KT's compaction (one cooperative launch, no memset) against its twin
+    on kernels/hard_cases.py's compaction scenes: every field to the bit
+    and the overflow, three calls in a row on one plan, each output a
+    fresh buffer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from substrata_tpu_torch.kernels import layout
+    rows, m = hard_cases.compact_inputs(hard_cases.compact_scene(case), "cuda")
+    want, ov_p = layout.compact_plain(rows, m)
+    held = None
+    for _ in range(3):
+        before = layout.launches["layout_compact"]
+        got, ov = layout.compact(rows, m)
+        assert layout.launches["layout_compact"] == before + 1
+        for name, x, y in zip(hard_cases.COMPACT_FIELDS, got, want):
+            assert _same_bits(x, y), (case, name)
+        assert int(ov) == int(ov_p), case
+        if held is not None:
+            assert got[0].data_ptr() != held[0].data_ptr()
+            assert all(_same_bits(x, y) for x, y in zip(held, want))
+        held = got
+
+
+@pytest.mark.parametrize("case", hard_cases.EPILOGUE_CASES)
+def test_epilogue_hard_cases(case):
+    """KF with the epilogue folded in against ``audio_spatialise_plain``
+    and ``audio_epilogue_plain`` on kernels/hard_cases.py's epilogue
+    scenes: KF's outputs and the finished and alive flags to the bit, the
+    level and the smoothed level to the bit where they are numbers (NaN
+    where the twin's is)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sargs, epi = hard_cases.epilogue_inputs(hard_cases.epilogue_scene(case), "cuda")
+    got = kaudio.audio_spatialise(*sargs, epilogue=epi)
+    plain = kaudio.audio_spatialise_plain(*sargs, epi)
+    for name, x, y in zip(("wl", "wr", "ws", "lp_out", "new_hist"), got, plain):
+        assert _same_bits(x, y), (case, name)
+    assert _same_or_nan(got[5], plain[5]), case
+    s = got[5].shape[0]
+    ek = kaudio.epilogue_views(got[6], s)
+    ep = kaudio.epilogue_views(kaudio.audio_epilogue_plain(*epi[:6], plain[5], *epi[6:]), s)
+    assert torch.equal(ek["finished"], ep["finished"]) and torch.equal(ek["alive"], ep["alive"])
+    assert _same_or_nan(ek["smoothed_level"], ep["smoothed_level"]), case
