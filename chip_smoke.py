@@ -28,13 +28,18 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    synchronizing call each (the digest read);
 6. audio kernels: bench.py's 256-source scene (HRIR on, room on, 800-frame
    blocks) with the sources on the bench world's bodies, after 30 mixed
-   blocks: KE fetch, KF spatialise and KG downmix + reverb each against its
-   plain twin on the same inputs, with the tolerance stated beside it, all
-   timed as in phase 3, and the whole mix_block, kernel route vs plain;
-   KF also at 256 frames (the client's render block) and on
+   blocks: KF (which fetches its own frames) against the fetch's twin
+   chained into the spatialiser's, and KG downmix + reverb against its
+   plain twin, on the same inputs, with the tolerance stated beside it,
+   all timed as in phase 3, and the whole mix_block, kernel route vs
+   plain; KF also at 256 frames (the client's render block), on
    kernels/hard_cases.py's spatialise scenes (1 to 1,024 frames, one tap,
-   alpha 1 and 1e-4, no send, no HRTF), every output equal to its twin's
-   to the bit, with its device µs per launch and host µs per call;
+   alpha 1 and 1e-4, no send, no HRTF; fed through a fetch) and on its
+   fetch scenes (1 to 3 layers, a layer of length 0, looping, streaming,
+   heads before the start and past the end, rates 0 and DELTA_MAX, the
+   window row and the in-window position clamped, no source active, 16 to
+   1,024 frames, 1 to 512 sources), every output equal to its twins' to
+   the bit, with its device µs per launch and host µs per call;
    KG also on kernels/hard_cases.py's downmix scenes (1 to 1,024 sources,
    1 to 1,024 frames, the ring wrapping, a delay of D - 1, no room), and
    to the bit where kernel and twin run the same operations (see kg_bits),
@@ -42,7 +47,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 7. physics + audio: bench.py's window 2 on the port, 180 physics_audio_tick
    calls (think, sources follow bodies, mix one tick) with phase 5's kick;
    the output is finite, within [-1, 1], not silent and not mono, the
-   physics kernels and KE/KF/KG launched (the audio ones once per tick),
+   physics kernels and KF/KG launched (the audio ones once per tick),
    six more ticks make one synchronizing call each (the digest: the mix
    adds none), and a 200-box, 16-source coupled world steps on the card as
    the CPU path does;
@@ -76,7 +81,13 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    its first, eighth and ninth depth and at none, the forward column,
    stick-to-floor at each offset, 4 m cells, a trimesh step; the twin's
    branch checked), KM (the tick input) with 128 writes and 64 regions on
-   10,240 bodies, KN (digest and transform block) on a real step's events
+   10,240 bodies, on a serving tick's input (4 writes, one region, the rest
+   padded) and on kernels/hard_cases.py's tick-input scenes (no writes,
+   128, dropped slots, vel_ok mixed, bodies written into regions, regions
+   all, one or none padded, bodies a few ulps about a region's reach, NaN
+   and 1e9 m positions, static, kinematic and dead bodies, 1 to 65,536
+   bodies), every output word for word, with its host µs per call; KN
+   (digest and transform block) on a real step's events
    with and without the block and on kernels/hard_cases.py's digest scenes
    (no entry set, every class full, one over, all set, word and tile
    edges, ragged N and P, 65,536 pair slots), to the bit, each against its
@@ -166,7 +177,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    scene after 30 blocks, HRTF on (timed, with the setup's host µs) and
    off, then KF with the epilogue folded in (the finished flags, the
    level meter, the alive mask) on that block against
-   audio_spatialise_plain + audio_epilogue_plain (KF's outputs within
+   fetch_spatialise_plain (the fetch's, KF's and the epilogue's twins
+   chained; KF's outputs within
    1e-5, all and the epilogue's fields equal to the bit; timed), the
    setup also on kernels/hard_cases.py's audio-setup scenes with HRTF on
    and off and KF's epilogue on its epilogue scenes, and KAB (the
@@ -712,20 +724,21 @@ def main_path_phase(device="cuda", n_bodies=10_000, cfg=None, sync=torch.cuda.sy
 
 class plain_mix:
     """Within the block, mix_block runs the kernels' plain twins on CUDA
-    tensors (for the kernel-route vs plain-route timing): KAA's and
-    KE-KG's."""
+    tensors (for the kernel-route vs plain-route timing): KAA's, KF's (the
+    fetch's twin chained into the spatialiser's) and KG's."""
 
-    NAMES = {"audio_mix": ("audio_fetch", "audio_spatialise", "audio_downmix_reverb"),
-             "audio_setup": ("audio_setup",)}
+    NAMES = {"audio_mix": (("audio_spatialise", "fetch_spatialise_plain"),
+                           ("audio_downmix_reverb", "audio_downmix_reverb_plain")),
+             "audio_setup": (("audio_setup", "audio_setup_plain"),)}
 
     def __enter__(self):
         import importlib
         self.saved = []
         for mod, names in self.NAMES.items():
             m = importlib.import_module(f"substrata_tpu_torch.kernels.{mod}")
-            for n in names:
+            for n, plain in names:
                 self.saved.append((m, n, getattr(m, n)))
-                setattr(m, n, getattr(m, n + "_plain"))
+                setattr(m, n, getattr(m, plain))
 
     def __exit__(self, *exc):
         for m, n, fn in self.saved:
@@ -756,34 +769,56 @@ def kg_bits(gargs, what):
 
 
 def kf_bits(fk, fp, what):
-    """KF against its twin to the bit on every output (wl, wr, ws, lp_out,
-    new_hist, level) and the folded epilogue's three fields: the kernel
-    repeats the twin's operations in order (a NaN where the twin's is)."""
+    """KF against its twins chained (``fetch_spatialise_plain``) to the bit
+    on every output (wl, wr, ws, lp_out, new_hist, level, new_playhead)
+    and the folded epilogue's three fields: the kernel repeats the twins'
+    operations in order (a NaN where the twin's is)."""
     from substrata_tpu_torch.kernels import audio_mix as ka
     names = ("wl", "wr", "ws", "lp_out", "new_hist", "level")
     for name, x, y in zip(names, fk, fp):
         check(x is None if y is None else same_bits(x, y),
               f"KF {what}: {name} differs from its twin's bits")
+    check(same_words(fk[7], fp[7]), f"KF {what}: new_playhead differs from its twin's bits")
     s = fp[5].shape[0]
     ek, ep = ka.epilogue_views(fk[6], s), ka.epilogue_views(fp[6], s)
     for name in EPILOGUE_OUT:
         check(same_bits(ek[name], ep[name]), f"KF {what}: the epilogue's {name} differs "
               "from its twin's bits")
-    return dict(bit_equal=[n for n, y in zip(names, fp) if y is not None] + list(EPILOGUE_OUT))
+    return dict(bit_equal=[n for n, y in zip(names, fp) if y is not None]
+                + ["new_playhead"] + list(EPILOGUE_OUT))
 
 
 EPILOGUE_OUT = ("smoothed_level", "finished", "alive")
 
 
-def kf_bytes(sargs, rows, fk):
-    """The bytes KF must move: its [S] and [S, B] inputs and the bank rows
-    the sources use (``rows``), its outputs but the epilogue's buffer;
-    the epilogue's eight [S] inputs and layer 0 of the heads and lengths
-    read, its smoothed level (4 B) and two flags (1 B each) a source
-    written."""
-    epi = sargs[16]
-    s = sargs[0].shape[0]
-    return nbytes(sargs[:6], sargs[7:15], rows, fk[:6], epi[:4], epi[6:]) + 8 * s + 6 * s
+def fetch_work(fetch):
+    """The fetch's share of KF's work on this call's data: the pool bytes
+    its layers read (each used layer's span, ~ed x B + 2 samples) and its
+    operations (~30 a frame of a used layer)."""
+    eff_delta, buf_len, block = fetch[4], fetch[2], fetch[10]
+    used = buf_len > 0
+    span = torch.floor(eff_delta * (block - 1)) + 2.0
+    return int((span * used).sum()) * 4, 30 * block * int(used.sum())
+
+
+def kf_bytes(args, rows, fk):
+    """The bytes KF must move: the fetch's [S, L] and [S] inputs and the
+    pool samples its layers read (``fetch_work``), its own [S] and [S, B]
+    inputs and the bank rows the sources use (``rows``), the epilogue's
+    four [S] fields, its outputs but the epilogue's buffer, whose smoothed
+    level (4 B) and two flags (1 B each) a source are written."""
+    fetch, epi = args[0], args[16]
+    s = args[1].shape[0]
+    return (fetch_work(fetch)[0] + nbytes(fetch[1:10], args[1:6], args[7:15], rows, epi,
+                                          fk[:6], fk[7]) + 6 * s)
+
+
+def kf_ops(args, n_fir):
+    """KF's float32 operations: the fetch's (``fetch_work``), the FIR's
+    2 x 2 x taps a spatial frame, ~12 a frame for the low-pass, ramps and
+    send, and the epilogue's."""
+    s, b, taps = args[1].shape[0], args[12].shape[0], args[5].shape[1] + 1
+    return fetch_work(args[0])[1] + b * (n_fir * 4 * taps + s * 12) + FLOPS["epilogue"] * s
 
 
 def audio_kernel_phase(w, device="cuda", blocks=30, plain_reps=5):
@@ -802,48 +837,30 @@ def audio_kernel_phase(w, device="cuda", blocks=30, plain_reps=5):
     st = mix.prepare(src, lis, b, b / mix.ENGINE_RATE, True)
     results = {}
 
-    # KE.  Tolerance 1e-6 absolute: the same float32 operations in the
-    # same order; the lerp weights are exact, so only the interpolated
-    # products round.
-    nw = mix.window_rows(b)
-    fargs = (pool, src.buf_offset, src.buf_len, src.playhead, st.eff_delta, src.mix_factor,
-             src.looping, src.stream_mode, src.stream_write_head, st.active, b, nw)
-    sk, hk = ka.audio_fetch(*fargs)
-    sp, hp = ka.audio_fetch_plain(*fargs)
-    err = max(max_err(sk, sp), max_err(hk, hp))
-    check(err <= 1e-6, f"KE audio_fetch: max abs err {err} > 1e-6")
-    s = src.capacity
-    used = (src.buf_len > 0)
-    span = torch.floor(st.eff_delta * (b - 1)) + 2.0        # pool samples a layer reads
-    pool_bytes = int((span * used).sum()) * 4
-    results["audio_fetch"] = dict(
-        max_abs_err=err, tol=1e-6,
-        **bound(pool_bytes + nbytes(fargs[1:10], sk, hk), 30 * b * int(used.sum())),
-        ms=median_ms(lambda: ka.audio_fetch(*fargs)),
-        plain_ms=median_ms(lambda: ka.audio_fetch_plain(*fargs), reps=plain_reps))
-
-    # KF, with the mix's epilogue folded in as mix_block calls it.
-    # Tolerance 1e-5 absolute: the same operations in the same order (the
+    # KF, which fetches its own frames, with the mix's epilogue folded in,
+    # as mix_block calls it.  Tolerance 1e-5 absolute: the same operations
+    # in the same order (the fetch's index arithmetic and lerps, the
     # low-pass frame by frame, the FIR tap by tap); and equal to the bit.
     bank = hrir_bank_tensor(device)
     ramp = mix.gain_ramp(b, device)
-    epi = (src.finished, src.looping, src.stream_mode, st.active, hp, src.buf_len,
-           src.smoothed_level, src.alive, src.remove_on_finish)
-    sargs = (sp, src.lp_state, st.alpha, st.use_lp, src.spatial, src.hrir_hist, bank,
-             st.dir_idx, src.prev_gain_l, src.prev_gain_r, st.gl, st.gr, ramp, st.gain,
-             st.send_gain, True, epi)
-    fk = ka.audio_spatialise(*sargs)
-    fp = ka.audio_spatialise_plain(*sargs)
-    err = max(max_err(x, y) for x, y in zip(fk[:6], fp[:6]))
+    epi = (src.finished, src.smoothed_level, src.alive, src.remove_on_finish)
+    args = (mix.fetch_args(pool, src, st.eff_delta, st.active, b), src.lp_state, st.alpha,
+            st.use_lp, src.spatial, src.hrir_hist, bank, st.dir_idx, src.prev_gain_l,
+            src.prev_gain_r, st.gl, st.gr, ramp, st.gain, st.send_gain, True, epi)
+    fk = ka.audio_spatialise(*args)
+    fp = ka.fetch_spatialise_plain(*args)
+    err = max(max_err(x, y) for x, y in zip(fk[:6] + fk[7:], fp[:6] + fp[7:]))
     check(err <= 1e-5, f"KF audio_spatialise: max abs err {err} > 1e-5")
     kf_bits(fk, fp, "bench scene")
     rows = bank.reshape(-1, 2 * bank.shape[-1])[torch.unique(st.dir_idx).long()]
     taps = bank.shape[-1]
     n_spatial = int(src.spatial.sum())
-    # No one library call does all of KF (low-pass, FIR, ramps); the FIR,
-    # most of its work, is one grouped conv1d (cross-correlation, so the
-    # taps are flipped).  Timed for reference, and checked against the
+    s = src.capacity
+    # No one library call does all of KF (fetch, low-pass, FIR, ramps); the
+    # FIR, most of its work, is one grouped conv1d (cross-correlation, so
+    # the taps are flipped).  Timed for reference, and checked against the
     # plain twin's FIR on the same signal.
+    sp, hp = ka.audio_fetch_plain(*args[0])
     x_ext = torch.cat([src.hrir_hist, sp], dim=1)[None]                 # [1, S, B+T-1]
     h = bank.reshape(-1, 2, taps)[st.dir_idx.long()].flip(-1).reshape(-1, 1, taps)
     def fir():
@@ -852,53 +869,53 @@ def audio_kernel_phase(w, device="cuda", blocks=30, plain_reps=5):
     ref = ka.audio_spatialise_plain(sp, src.lp_state, st.alpha, torch.zeros_like(st.use_lp),
                                     torch.ones_like(src.spatial), src.hrir_hist, bank,
                                     st.dir_idx, one, one, one, one, ramp, st.gain, None, True,
-                                    epi)
+                                    (src.finished, src.looping, src.stream_mode, st.active, hp,
+                                     src.buf_len, src.smoothed_level, src.alive,
+                                     src.remove_on_finish))
     conv = fir()[0].reshape(src.capacity, 2, b)
     fir_err = max(max_err(conv[:, 0], ref[0]), max_err(conv[:, 1], ref[1]))
     check(fir_err <= 1e-5, f"conv1d FIR vs the plain FIR: {fir_err} > 1e-5")
     # KF at the client's render block (256 frames) from the same sources,
-    # and on kernels/hard_cases.py's spatialise scenes; every output equal
-    # to the bit too.
+    # and on kernels/hard_cases.py's spatialise scenes (fed through a
+    # fetch) and fetch scenes; every output equal to the bit too.
     b2 = mix.BLOCK
     st2 = mix.prepare(src, lis, b2, b2 / mix.ENGINE_RATE, True)
-    sp2, hp2 = ka.audio_fetch_plain(pool, src.buf_offset, src.buf_len, src.playhead,
-                                    st2.eff_delta, src.mix_factor, src.looping, src.stream_mode,
-                                    src.stream_write_head, st2.active, b2, mix.window_rows(b2))
-    epi2 = (src.finished, src.looping, src.stream_mode, st2.active, hp2, src.buf_len,
-            src.smoothed_level, src.alive, src.remove_on_finish)
-    sargs2 = (sp2, src.lp_state, st2.alpha, st2.use_lp, src.spatial, src.hrir_hist, bank,
-              st2.dir_idx, src.prev_gain_l, src.prev_gain_r, st2.gl, st2.gr,
-              mix.gain_ramp(b2, device), st2.gain, st2.send_gain, True, epi2)
-    fk2, fp2 = ka.audio_spatialise(*sargs2), ka.audio_spatialise_plain(*sargs2)
-    err2 = max(max_err(x, y) for x, y in zip(fk2[:6], fp2[:6]))
+    args2 = (mix.fetch_args(pool, src, st2.eff_delta, st2.active, b2), src.lp_state,
+             st2.alpha, st2.use_lp, src.spatial, src.hrir_hist, bank, st2.dir_idx,
+             src.prev_gain_l, src.prev_gain_r, st2.gl, st2.gr, mix.gain_ramp(b2, device),
+             st2.gain, st2.send_gain, True, epi)
+    fk2, fp2 = ka.audio_spatialise(*args2), ka.fetch_spatialise_plain(*args2)
+    err2 = max(max_err(x, y) for x, y in zip(fk2[:6] + fk2[7:], fp2[:6] + fp2[7:]))
     check(err2 <= 1e-5, f"KF audio_spatialise at {b2} frames: max abs err {err2} > 1e-5")
     kf_bits(fk2, fp2, f"{b2} frames")
     hard = {}
-    for case in hard_cases.SPATIALISE_CASES:
-        hargs = hard_cases.spatialise_inputs(hard_cases.spatialise_scene(case), device)
-        hk, hp = ka.audio_spatialise(*hargs), ka.audio_spatialise_plain(*hargs)
-        e = max(max_err(x, y) for x, y in zip(hk[:6], hp[:6]) if y is not None)
+    scenes = [(f"spatialise_{c}", hard_cases.spatialise_fed(c))
+              for c in hard_cases.SPATIALISE_CASES]
+    scenes += [(f"fetch_{c}", hard_cases.fetch_scene(c)) for c in hard_cases.FETCH_CASES]
+    for case, scene in scenes:
+        hargs = hard_cases.fetch_inputs(scene, device)
+        hk, hp = ka.audio_spatialise(*hargs), ka.fetch_spatialise_plain(*hargs)
+        e = max(max_err(x, y) for x, y in zip(hk[:6] + hk[7:], hp[:6] + hp[7:])
+                if y is not None)
         check(e <= 1e-5, f"KF {case}: max abs err {e} > 1e-5")
         hard[case] = dict(max_abs_err=e, **kf_bits(hk, hp, case))
         err = max(err, e)
 
     def kf():
-        return ka.audio_spatialise(*sargs)
+        return ka.audio_spatialise(*args)
 
     def kf2():
-        return ka.audio_spatialise(*sargs2)
+        return ka.audio_spatialise(*args2)
     results["audio_spatialise"] = dict(
         max_abs_err=err, tol=1e-5, bit_equal=True, hrir_rows=int(rows.shape[0]),
-        use_lp=int(st.use_lp.sum()),
-        **bound(kf_bytes(sargs, rows, fk), b * (n_spatial * 4 * taps + s * 12)
-                + FLOPS["epilogue"] * s),
+        use_lp=int(st.use_lp.sum()), layers_used=int((src.buf_len > 0).sum()),
+        **bound(kf_bytes(args, rows, fk), kf_ops(args, n_spatial)),
         ms=median_ms(kf), device_us_per_launch=device_us(kf, "audio_spatialise"),
         **host_cost(kf),
-        plain_ms=median_ms(lambda: ka.audio_spatialise_plain(*sargs), reps=plain_reps),
+        plain_ms=median_ms(lambda: ka.fetch_spatialise_plain(*args), reps=plain_reps),
         fir_conv1d_ms=median_ms(fir), fir_conv1d_max_abs_err=fir_err,
         b256=dict(max_abs_err=err2, bit_equal=True,
-                  **bound(kf_bytes(sargs2, rows, fk2), b2 * (n_spatial * 4 * taps + s * 12)
-                          + FLOPS["epilogue"] * s),
+                  **bound(kf_bytes(args2, rows, fk2), kf_ops(args2, n_spatial)),
                   ms=median_ms(kf2), device_us_per_launch=device_us(kf2, "audio_spatialise"),
                   **host_cost(kf2)),
         hard_cases=hard)
@@ -1764,7 +1781,10 @@ def serving_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, plain_reps=5)
         hard_cases=hard, **bound(moved, ops), **_kl_timing(args, kw),
         plain_ms=median_ms(lambda: kl.character_packed_plain(*args, **kw), reps=plain_reps))
 
-    # KM: 128 writes and 64 regions on the bench world's 10,240 bodies.
+    # KM: 128 writes and 64 regions on the bench world's 10,240 bodies;
+    # then a serving tick's input (4 writes, 1 real region, the rest
+    # padded), and kernels/hard_cases.py's tick-input scenes: every output
+    # word for word against the twin.
     rng = np.random.default_rng(2)
     nb = body.capacity
     buf = km.empty_tick_in(nb)
@@ -1773,19 +1793,39 @@ def serving_kernel_phase(device="cuda", n_bodies=10_000, cfg=None, plain_reps=5)
     buf[km.O_VOK:km.O_CTR] = rng.integers(0, 2, km.TIN_K)
     buf[km.O_CTR:km.O_RAD] = rng.uniform(-35, 35, 3 * km.TIN_R)
     buf[km.O_RAD:] = rng.uniform(0.2, 2.0, km.TIN_R)
-    tin = torch.as_tensor(buf, device=device)
-    got, ref = km.apply_tick_in(body, tin), km.apply_tick_in_plain(body, tin)
-    for f, x in zip(km.STATE_OUT, ref):
-        check(torch.equal(getattr(got, f), x), f"KM: {f} differs")
-    woke = int((got.awake & ~body.awake).sum())
-    results["apply_tick_in"] = dict(
-        max_abs_err=0.0, tol=0.0, bodies=nb, writes=km.TIN_K, regions=km.TIN_R,
-        newly_awake=woke,
-        **bound(nbytes([getattr(body, f) for f in km.STATE_IN], tin, ref),
-                nb * (km.TIN_R * FLOPS["region_test"] + km.TIN_K)),
-        ms=median_ms(lambda: km.apply_tick_in(body, tin)),
-        device_us_per_launch=device_us(lambda: km.apply_tick_in(body, tin), "apply_tick_in"),
-        plain_ms=median_ms(lambda: km.apply_tick_in_plain(body, tin), reps=plain_reps))
+    tick = km.empty_tick_in(nb)
+    tick[km.O_IDX:km.O_IDX + 4].view(np.int32)[:] = rng.permutation(nb)[:4]
+    tick[km.O_POS:km.O_POS + 12] = rng.normal(size=12)
+    tick[km.O_ROT:km.O_ROT + 16] = 0.5
+    tick[km.O_CTR:km.O_CTR + 3] = rng.uniform(-35, 35, 3)
+    tick[km.O_RAD] = 1.5
+
+    def km_case(st, tin_np, what, timed=False):
+        tin = torch.as_tensor(tin_np, device=device)
+        got, ref = km.apply_tick_in(st, tin), km.apply_tick_in_plain(st, tin)
+        for f, x in zip(km.STATE_OUT, ref):
+            check(same_words(getattr(got, f), x), f"KM {what}: {f} differs")
+        r = dict(bodies=st.capacity, writes=int(((tin_np[km.O_IDX:km.O_POS].view(np.int32)
+                                                  < st.capacity)).sum()),
+                 padded_regions=int((tin_np[km.O_RAD:] == np.float32(-1e9)).sum()),
+                 newly_awake=int((got.awake & ~st.awake).sum()), bit_equal=True)
+        if timed:
+            def run():
+                return km.apply_tick_in(st, tin)
+            r.update(**bound(nbytes([getattr(st, f) for f in km.STATE_IN], tin, ref),
+                             st.capacity * (km.TIN_R * FLOPS["region_test"] + km.TIN_K)),
+                     ms=median_ms(run), device_us_per_launch=device_us(run, "apply_tick_in"),
+                     **host_cost(run),
+                     plain_ms=median_ms(lambda: km.apply_tick_in_plain(st, tin),
+                                        reps=plain_reps))
+        return r
+    main = km_case(body, buf, "bench world", timed=True)
+    hard = {"serving_tick_input": km_case(body, tick, "serving tick input", timed=True)}
+    for case in hard_cases.TICK_IN_CASES:
+        st, _ = hard_cases.tick_in_inputs(hard_cases.tick_in_scene(case), device)
+        hard[case] = km_case(st, hard_cases.tick_in_scene(case).tin, case)
+    results["apply_tick_in"] = dict(max_abs_err=0.0, tol=0.0, regions=km.TIN_R, **main,
+                                    hard_cases=hard)
 
     # KN on the last serving step's events, with the transform block (the
     # serving tick) and without it (think), then on kernels/hard_cases.py's
@@ -4057,21 +4097,23 @@ def kaa_hard_cases(device):
 
 
 def kf_epilogue_cases(device):
-    """KF with the epilogue folded in against ``audio_spatialise_plain`` +
-    ``audio_epilogue_plain`` on kernels/hard_cases.py's epilogue scenes:
-    KF's outputs, the finished and alive flags and the smoothed level
-    exact (``same_bits``: a NaN level or smoothed level where the twin's
-    is one; the card's fma gives the canonical NaN, the twin's float64
-    path another)."""
+    """KF with the epilogue folded in against the twins chained
+    (``fetch_spatialise_plain``) on kernels/hard_cases.py's epilogue
+    scenes, fed through a fetch whose new heads are the cases'
+    (``epilogue_fed``): KF's outputs, the new playheads, the finished and
+    alive flags and the smoothed level exact (``same_bits``: a NaN level or
+    smoothed level where the twin's is one; the card's fma gives the
+    canonical NaN, the twin's float64 path another)."""
     from substrata_tpu_torch.kernels import audio_mix as ka
     from substrata_tpu_torch.kernels import hard_cases
     out = {}
     for case in hard_cases.EPILOGUE_CASES:
-        sargs, epi = hard_cases.epilogue_inputs(hard_cases.epilogue_scene(case), device)
-        fk = ka.audio_spatialise(*sargs, epilogue=epi)
-        fp = ka.audio_spatialise_plain(*sargs, epilogue=epi)
+        args = hard_cases.fetch_inputs(hard_cases.epilogue_fed(case), device)
+        fk = ka.audio_spatialise(*args)
+        fp = ka.fetch_spatialise_plain(*args)
         for x, y, name in zip(fk[:5], fp[:5], ("wl", "wr", "ws", "lp_out", "new_hist")):
             check(same_words(x, y), f"KF epilogue case {case}: {name} differs")
+        check(same_words(fk[7], fp[7]), f"KF epilogue case {case}: new_playhead differs")
         check(same_bits(fk[5], fp[5]), f"KF epilogue case {case}: level differs")
         s = fk[5].shape[0]
         ek, ep = ka.epilogue_views(fk[6], s), ka.epilogue_views(fp[6], s)
@@ -4079,7 +4121,7 @@ def kf_epilogue_cases(device):
             _exact(ek[name], ep[name], f"KF epilogue case {case}: {name}")
         check(same_bits(ek["smoothed_level"], ep["smoothed_level"]),
               f"KF epilogue case {case}: smoothed_level differs")
-        out[case] = dict(sources=s, layers=int(epi[4].shape[1]),
+        out[case] = dict(sources=s, layers=int(fp[7].shape[1]),
                          finished=int(ep["finished"].sum()), alive=int(ep["alive"].sum()),
                          nan_levels=int(torch.isnan(fp[5]).sum()))
     return out
@@ -4099,17 +4141,17 @@ def _kaa_compare(src, pool, lis, block, use_hrtf, what, timed=False, plain_reps=
     s, nl = src.delta.shape
     args = _kaa_args(src, lis, block, use_hrtf)
     err, edges, moved, vp = _kaa_setup_check(args, what)
-    samples, heads = mix.fetch(pool, src, vp["eff_delta"], vp["active"], block)
-    sargs = (samples, src.lp_state, vp["alpha"], vp["use_lp"], src.spatial, src.hrir_hist,
+    sargs = (mix.fetch_args(pool, src, vp["eff_delta"], vp["active"], block), src.lp_state,
+             vp["alpha"], vp["use_lp"], src.spatial, src.hrir_hist,
              mix.hrir_bank_tensor(src.device) if use_hrtf else None,
              vp["dir_idx"] if use_hrtf else None, src.prev_gain_l, src.prev_gain_r, vp["gl"],
              vp["gr"], mix.gain_ramp(block, src.device), vp["gain"], vp["send_gain"], use_hrtf,
-             (src.finished, src.looping, src.stream_mode, vp["active"], heads, src.buf_len,
-              src.smoothed_level, src.alive, src.remove_on_finish))
+             (src.finished, src.smoothed_level, src.alive, src.remove_on_finish))
     epi = sargs[16]
     fk = ka.audio_spatialise(*sargs)
-    fp = ka.audio_spatialise_plain(*sargs)
-    kf_err = max(max_err(x, y) for x, y in zip(fk[:6], fp[:6]) if y is not None)
+    fp = ka.fetch_spatialise_plain(*sargs)
+    kf_err = max(max_err(x, y) for x, y in zip(fk[:6] + fk[7:], fp[:6] + fp[7:])
+                 if y is not None)
     check(kf_err <= 1e-5, f"KF with the epilogue, {what}: max abs err {kf_err} > 1e-5")
     bits = kf_bits(fk, fp, f"with the epilogue, {what}")
     ep = ka.epilogue_views(fp[6], s)
@@ -4128,27 +4170,24 @@ def _kaa_compare(src, pool, lis, block, use_hrtf, what, timed=False, plain_reps=
             device_us=device_us(lambda: kaa.audio_setup(*args), "audio_setup_kernel"),
             **host_cost(lambda: kaa.audio_setup(*args)),
             plain_ms=median_ms(lambda: kaa.audio_setup_plain(*args), reps=plain_reps))
-        # KF as mix_block calls it (what the fold adds to KF is measured
-        # against the parent's KF by bench_compact_epilogue.py --root).  The
-        # epilogue's own bound: the eight [S] fields and layer 0 of the
-        # heads and lengths it reads, the level it reads from KF, its 6 S
-        # bytes written.
+        # KF as mix_block calls it (what the fetch's fold adds to KF is
+        # measured against the parent's KE + KF by bench_tickin_fetch.py
+        # --root).  The epilogue's own bound: its four [S] fields, the
+        # flags and layer-0 lengths it shares with the fetch, the level it
+        # reads from KF, its 6 S bytes written.
         def kf():
             return ka.audio_spatialise(*sargs)
         kf_res = res["spatialise_epilogue"]
-        # KF's bound as phase 6 counts it (the bank rows the sources use),
-        # plus the epilogue's bytes and operations.
         taps = src.hrir_hist.shape[1] + 1
         rows = (sargs[6].reshape(-1, 2 * taps)[torch.unique(sargs[7]).long()] if use_hrtf
                 else None)
         n_fir = int(src.spatial.sum()) if use_hrtf else 0
         kf_res.update(
-            **bound(kf_bytes(sargs, rows, fk),
-                    block * (n_fir * 4 * taps + s * 12) + FLOPS["epilogue"] * s),
-            epilogue_bound_ms=bound(nbytes(epi[:4], epi[6:], fk[5]) + 8 * s + 6 * s,
+            **bound(kf_bytes(sargs, rows, fk), kf_ops(sargs, n_fir)),
+            epilogue_bound_ms=bound(nbytes(epi, fk[5]) + 4 * s + 3 * s + 6 * s,
                                     FLOPS["epilogue"] * s)["bound_ms"],
             ms=median_ms(kf), device_us=device_us(kf, "audio_spatialise_kernel"),
-            plain_ms=median_ms(lambda: ka.audio_spatialise_plain(*sargs), reps=plain_reps),
+            plain_ms=median_ms(lambda: ka.fetch_spatialise_plain(*sargs), reps=plain_reps),
             host=host_cost(kf))
     return res
 
@@ -4270,7 +4309,7 @@ def client_phase(device="cuda", sync=torch.cuda.synchronize, frames=CLIENT_FRAME
     dynamic body below z = -0.5, the character finite while walking, car 0
     moved while driven, the audio finite, within [-1, 1], not silent and
     not mono, KAA's two entry points launched 3 times a frame and KAB's
-    two once a frame (one vehicle update a frame), KE-KG 3 times, KJ and
+    two once a frame (one vehicle update a frame), KF and KG 3 times, KJ and
     KR once, KH, KL and the step's kernels as their paths need, the Winter
     results equal to KR's twin at the last frame, every Lua counter
     finite.  Reports ms per frame (frames 31-``frames``), phase_ms, the
@@ -4331,8 +4370,7 @@ def client_phase(device="cuda", sync=torch.cuda.synchronize, frames=CLIENT_FRAME
                     extra[k] = extra.get(k, 0) + v - c0[k]
         counts = {k: v - extra.get(k, 0) for k, v in kernels.launch_counts().items()}
         driven = frames - sc.drive_from
-        for name, want in (("audio_setup", 3 * frames),
-                           ("audio_fetch", 3 * frames), ("audio_spatialise", 3 * frames),
+        for name, want in (("audio_setup", 3 * frames), ("audio_spatialise", 3 * frames),
                            ("audio_downmix_reverb", 3 * frames), ("vehicle_setup", frames),
                            ("vehicle_scatter", frames), ("vehicle_forces", frames),
                            ("winter_eval", frames)):
@@ -5200,7 +5238,7 @@ PHYSICS_KERNELS = ("box_box_rows", "static_contacts", "solve_iteration", "apply_
                    "integrate_positions", "cell_table", "solve_setup", "cache_refresh",
                    "find_pairs", "layout_incidence", "solve_positions", "strike_wake",
                    "sleep_pass")
-AUDIO_KERNELS = ("audio_fetch", "audio_spatialise", "audio_downmix_reverb")
+AUDIO_KERNELS = ("audio_spatialise", "audio_downmix_reverb")
 FULLTICK_KERNELS = ("ray_trace", "particles_update", "vehicle_forces")
 # Launched on every serving tick and every mesh frame (the compacted layout).
 LAYOUT_KERNELS = ("layout_group", "layout_touching", "layout_compact", "layout_incidence",
@@ -5257,8 +5295,6 @@ KERNELS = [
      "substrata_tpu/physics/integrate.py:38"),
     ("integrate_positions", "triton", "substrata_tpu_torch/kernels/integrate_triton.py",
      "substrata_tpu/physics/integrate.py:93"),
-    ("audio_fetch", "cuda", "substrata_tpu_torch/csrc/audio_mix.cu",
-     "substrata_tpu/audio/mix.py:201"),
     ("audio_spatialise", "cuda", "substrata_tpu_torch/csrc/audio_mix.cu",
      "substrata_tpu/audio/mix.py:350"),
     ("audio_downmix_reverb", "cuda", "substrata_tpu_torch/csrc/audio_mix.cu",

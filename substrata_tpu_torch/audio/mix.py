@@ -5,12 +5,13 @@ Counterpart of ``substrata_tpu/audio/mix.py``: for every active source pull
 pitch, streaming ring buffers), resample, spatialise and downmix to stereo,
 with the same state, the same fields and the same return tuple.
 
-``mix_block`` runs four launches: KAA's setup (``kernels/audio_setup.py``:
+``mix_block`` runs three launches: KAA's setup (``kernels/audio_setup.py``:
 Doppler, fades, distance and occlusion gains, pan, HRIR direction, every
-field in one buffer), then KE fetches and resamples, KF low-passes,
-convolves with the HRIRs, ramps the gains and writes the epilogue (the
-finished flags, the level meter, the alive mask), and KG sums the sources
-and runs the reverb (``kernels/audio_mix.py``).  Nothing in it copies from
+field in one buffer), then KF fetches and resamples each source's frames,
+low-passes, convolves with the HRIRs, ramps the gains and writes the new
+playheads and the epilogue (the finished flags, the level meter, the alive
+mask), and KG sums the sources and runs the reverb
+(``kernels/audio_mix.py``).  Nothing in it copies from
 the device to the host.  The reference's one-hot/triangular MXU contraction of the fetch is
 TPU layout only; the port gathers and lerps directly, with the same
 float32 index arithmetic.
@@ -249,12 +250,12 @@ def prepare(src: SourceState, listener: Listener, block: int, dt_block: float,
     return MixSetup(**v)
 
 
-def fetch(pool, src: SourceState, eff_delta, active, block: int):
-    """KE over the state: (samples [S, B] summed over the layers with their
-    mix factors and masked by ``active``, new playheads [S, L])."""
-    return kern.audio_fetch(pool, src.buf_offset, src.buf_len, src.playhead, eff_delta,
-                            src.mix_factor, src.looping, src.stream_mode,
-                            src.stream_write_head, active, block, window_rows(block))
+def fetch_args(pool, src: SourceState, eff_delta, active, block: int):
+    """The fetch's arguments over the state (``kernels.audio_mix.FETCH_NAMES``,
+    the block, the window rows), as KF and ``audio_fetch_plain`` take them."""
+    return (pool, src.buf_offset, src.buf_len, src.playhead, eff_delta, src.mix_factor,
+            src.looping, src.stream_mode, src.stream_write_head, active, block,
+            window_rows(block))
 
 
 def mix_block(src: SourceState, pool: torch.Tensor, listener: Listener,
@@ -273,17 +274,16 @@ def mix_block(src: SourceState, pool: torch.Tensor, listener: Listener,
         dt_block = block / ENGINE_RATE
     dev = src.device
     st = prepare(src, listener, block, dt_block, use_hrtf)
-    samples, new_heads = fetch(pool, src, st.eff_delta, st.active, block)
 
-    # Non-looping sources finish when layer 0 passes the end; the level
-    # meter and the alive mask follow (KF writes them beside the level).
-    wl, wr, ws, lp_out, new_hist, _, ep = kern.audio_spatialise(
-        samples, src.lp_state, st.alpha, st.use_lp, src.spatial, src.hrir_hist,
-        hrir_bank_tensor(dev) if use_hrtf else None, st.dir_idx,
-        src.prev_gain_l, src.prev_gain_r, st.gl, st.gr, gain_ramp(block, dev),
+    # The fetch, then the spatialiser; non-looping sources finish when
+    # layer 0 passes the end; the level meter and the alive mask follow
+    # (KF writes them beside the level).
+    wl, wr, ws, lp_out, new_hist, _, ep, new_heads = kern.audio_spatialise(
+        fetch_args(pool, src, st.eff_delta, st.active, block), src.lp_state, st.alpha,
+        st.use_lp, src.spatial, src.hrir_hist, hrir_bank_tensor(dev) if use_hrtf else None,
+        st.dir_idx, src.prev_gain_l, src.prev_gain_r, st.gl, st.gr, gain_ramp(block, dev),
         st.gain, st.send_gain if room is not None else None, use_hrtf,
-        epilogue=(src.finished, src.looping, src.stream_mode, st.active, new_heads,
-                  src.buf_len, src.smoothed_level, src.alive, src.remove_on_finish))
+        epilogue=(src.finished, src.smoothed_level, src.alive, src.remove_on_finish))
     ep = kern.epilogue_views(ep, src.capacity)
     if room is not None:
         out, lines, widx = kern.audio_downmix_reverb(

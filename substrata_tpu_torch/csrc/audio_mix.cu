@@ -1,28 +1,38 @@
-// KE, KF, KG: the spatial audio mix of one block, as three launches.
+// KF, KG: the spatial audio mix of one block, as two launches after KAA's
+// setup.
 //
 // Replace the device program substrata_tpu/audio/mix.py:mix_block (:276)
 // with _fetch_all (:201); plain twins in
-// substrata_tpu_torch/kernels/audio_mix.py (audio_fetch_plain,
-// audio_spatialise_plain, audio_downmix_reverb_plain).  Each kernel repeats
-// its twin's float32 operations in the same order; a multiply-add is fused
-// (__fmaf_rn) exactly where the twin calls maths/fp.py:fma, which is where
-// the reference's compiler fuses it, and nowhere else (-fmad=false).
+// substrata_tpu_torch/kernels/audio_mix.py (audio_fetch_plain chained into
+// audio_spatialise_plain: fetch_spatialise_plain; audio_downmix_reverb_plain).
+// Each kernel repeats its twin's float32 operations in the same order; a
+// multiply-add is fused (__fmaf_rn) exactly where the twin calls
+// maths/fp.py:fma, which is where the reference's compiler fuses it, and
+// nowhere else (-fmad=false).
 //
-// KE audio_fetch: one thread per (source, frame), looping over the L
-//   layers: the reference's index arithmetic (wrapped playhead, window row,
-//   16-sample chunk and offset), two pool loads and the lerp, the range
-//   mask, the layer's mix factor; a layer with buf_len 0 has gain 0 and is
-//   skipped.  Threads b < L also write layer b's new playhead.
-//   Bound: memory.  At the bench shapes (256 sources, 800 frames, one
-//   active layer of rate <= 1.25) it reads ~1 KB of pool per source and
-//   writes 0.8 MB of samples: ~0.6 us at 3.35 TB/s.  Neighbouring threads
-//   read neighbouring pool samples, so the loads coalesce.
-// KF audio_spatialise: one block per source.  Every global load is issued
-//   first, together (the block's samples, four a thread; the history; the
-//   HRIR pair; the ramp; the source's scalars).  The window [history |
-//   block] goes to shared memory with frame 0 at a fixed 16-byte boundary,
-//   and beside it alpha x[b], the low-pass's inputs.  One thread runs the
-//   one-pole low-pass over the frames in order (the recurrence is serial):
+// KF audio_spatialise: one block per source, which fetches its own frames
+//   (KE's work before, folded in: no [S, B] samples round trip through
+//   device memory, no launch of its own).  Each of the 256 threads takes
+//   frames b = tid + 256 m, m < 4, as the twin computes them: for each of
+//   the L layers the wrapped playhead, the window row, the 16-sample chunk
+//   and offset and the lerp weights, two pool loads (neighbouring frames
+//   read neighbouring samples; only the ~ed x B samples the block reads,
+//   not the reference's window of rows sized for DELTA_MAX), the range
+//   mask; the layers summed in index order with their mix factors; the
+//   active mask.  The [L] layers' scalars (the playhead's wrap, an fmodf,
+//   and the window row) are computed once per block by lanes l < L into
+//   shared memory behind one barrier (every thread computing them in
+//   registers was slower on the card).  Every pool load of a thread, for
+//   every frame and layer, is issued before the first lerp.  The kernel is
+//   held to 64 registers a thread, so four blocks fit an SM and the
+//   client's 512 sources run in one wave: the history, the HRIR pair and
+//   the low-pass's coefficient are loaded with the layers', and what only
+//   the FIR, the ramps and the epilogue read goes out behind the pool
+//   loads, so it holds no registers across them.  Lanes l < L write layer
+//   l's new playhead; thread 0 keeps layer 0's for the epilogue.  The
+//   window [history | block] goes to shared memory with frame 0 at a fixed
+//   16-byte boundary, and beside it alpha x[b], the low-pass's inputs.
+//   One thread runs the one-pole low-pass over the frames in order (the recurrence is serial):
 //   it loads its inputs 16 at a time a batch ahead of their fmas and, with
 //   the low-pass on, writes y 4 at a time into the window, which it never
 //   reads, so its chain is B dependent fmas (~2 us at B = 800), not a
@@ -37,7 +47,7 @@
 //   Thread 0 also writes KAA's epilogue from the level it computes: the
 //   finished flag, the smoothed level and the alive mask (twin
 //   audio_mix.py:audio_epilogue_plain; the reference's mix.py:320-323,
-//   :434-444), its nine loads issued with the block's first ones.  The
+//   :434-444), its loads issued with the block's first ones.  The
 //   epilogue is ~6 flops a source, far below a launch's floor, so it has
 //   no launch of its own.
 //   Bound: the FIR, 2 x 64 fmas per (source, frame): 52 MFLOP at the bench
@@ -60,6 +70,9 @@
 //   the tiles copy the ring positions no frame writes.  The write index
 //   stays on the card.  Bound: memory, ~2.7 MB read at the bench shapes,
 //   ~0.8 us; the folds are S dependent adds a frame (~0.6 us at S = 256).
+#include <cstddef>
+#include <cstring>
+
 #include "common.cuh"
 
 namespace {
@@ -75,80 +88,65 @@ __device__ __forceinline__ float float_mod(float x, float y) {
   return r;
 }
 
-__global__ void audio_fetch_kernel(
-    const float* __restrict__ pool, const int* __restrict__ buf_offset,
-    const int* __restrict__ buf_len, const float* __restrict__ playhead,
-    const float* __restrict__ eff_delta, const float* __restrict__ mix_factor,
-    const uint8_t* __restrict__ looping, const uint8_t* __restrict__ stream_mode,
-    const float* __restrict__ stream_write_head, const uint8_t* __restrict__ active,
-    float* __restrict__ samples, float* __restrict__ new_playhead, int L, int B, int nw,
-    int n_rows, float li_max) {
-  const int s = blockIdx.y;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool loop = looping[s] != 0, strm = stream_mode[s] != 0;
-  if (b < L) {
-    const int i = s * L + b;
-    const float lenf = fmaxf(static_cast<float>(buf_len[i]), 1.0f);
-    float nh = __fmaf_rn(eff_delta[i], static_cast<float>(B), playhead[i]);
-    if (loop && !strm) nh = float_mod(nh, lenf);
-    new_playhead[i] = nh;
-  }
-  if (b >= B) return;
-  const float bf = static_cast<float>(b);
-  float acc = 0.0f;
-  for (int l = 0; l < L; ++l) {
-    const int i = s * L + l;
-    const int blen = buf_len[i];
-    if (blen <= 0) continue;  // layer gain 0
-    const float lenf = fmaxf(static_cast<float>(blen), 1.0f);
-    const float p = playhead[i];
-    const float ed = eff_delta[i];
-    float ph = (loop || strm) ? float_mod(p, lenf) : p;
-    ph = fmaxf(ph, 0.0f);
-    const int ph_int = static_cast<int>(floorf(ph));
-    const float ph_frac = ph - static_cast<float>(ph_int);
-    const int start_i = buf_offset[i] + min(ph_int, max(blen - 1, 0));
-    const int row0 = min(max(start_i >> 7, 0), n_rows - nw);
-    float li = __fmaf_rn(ed, bf, ph_frac) + static_cast<float>(start_i - (row0 << 7));
-    li = fminf(fmaxf(li, 0.0f), li_max);
-    const int qi = static_cast<int>(floorf(li * 0.0625f));
-    const float u = li - 16.0f * static_cast<float>(qi);
-    const float k0 = floorf(u);
-    const float w0 = 1.0f - fabsf(u - k0);
-    const float w1 = 1.0f - fabsf(u - (k0 + 1.0f));
-    const long long idx = (static_cast<long long>(row0) << 7) + 16 * qi + static_cast<int>(k0);
-    float v = __fmaf_rn(pool[idx + 1], w1, pool[idx] * w0);
-    bool in_range;
-    if (strm) {
-      in_range = __fmaf_rn(ed, bf, p) < stream_write_head[s] - 1.0f;
-    } else {
-      in_range = loop || (__fmaf_rn(ed, bf, ph) < lenf - 1.0f);
-    }
-    v = v * (in_range ? 1.0f : 0.0f);
-    acc = (l == 0) ? v * mix_factor[i] : __fmaf_rn(v, mix_factor[i], acc);
-  }
-  samples[s * B + b] = acc * (active[s] ? 1.0f : 0.0f);
-}
-
-// KF's arguments, passed to the kernel by value.
+// KF's arguments (kernels/audio_mix.py:_SPATIALISE_PACK), passed to the
+// kernel by value.
 struct SpatialiseArgs {
-  const float *samples, *lp_state, *alpha;
+  // The fetch: the pool and the [S, L] layers' fields, the [S] flags.
+  const float* pool;
+  const int *buf_offset, *buf_len;
+  const float *playhead, *eff_delta, *mix_factor;
+  const uint8_t *looping, *stream_mode;
+  const float* stream_write_head;
+  const uint8_t* active;
+  // The spatialiser.
+  const float *lp_state, *alpha;
   const uint8_t *use_lp, *spatial;
   const float *hist, *bank;
   const int* dir_idx;
   const float *prev_gl, *prev_gr, *gl, *gr, *ramp, *gain, *send_gain;
-  float *wl, *wr, *ws, *lp_out, *new_hist, *level;
-  int B, T, use_hrtf, vec4;
-  // The folded epilogue: layer 0 of new_heads and buf_len at stride L,
-  // the [S] fields, and its [2 S]-word buffer.
-  const uint8_t *finished, *looping, *stream_mode, *active;
-  const float* new_heads;
-  const int* buf_len;
+  // The folded epilogue's own [S] fields.
+  const uint8_t* finished;
   const float* smoothed_level;
   const uint8_t *alive, *remove_on_finish;
-  float* ep_out;
-  int L;
+  float *wl, *wr, *ws, *lp_out, *new_hist, *level, *ep_out, *new_playhead;
+  int B, T, L, nw, n_rows, use_hrtf, vec4;
+  float li_max;
 };
+
+constexpr int kMaxLayers = 3;   // the mix's layers (audio/mix.py:NUM_MIX_LAYERS)
+
+// One (source, layer)'s fetch scalars: audio_mix.py:audio_fetch_plain's
+// wrapped playhead and window row, in its order of operations.
+struct LayerScalars {
+  float ed, frac, off, ph, p, lenf, gain;
+  int base;   // row0 << 7
+};
+
+__device__ __forceinline__ LayerScalars layer_scalars(const SpatialiseArgs& a, int i, bool wrap) {
+  LayerScalars c;
+  const int blen = a.buf_len[i];
+  c.lenf = fmaxf(static_cast<float>(blen), 1.0f);
+  c.p = a.playhead[i];
+  c.ed = a.eff_delta[i];
+  c.gain = a.mix_factor[i] * (blen > 0 ? 1.0f : 0.0f);
+  float ph = wrap ? float_mod(c.p, c.lenf) : c.p;
+  ph = fmaxf(ph, 0.0f);
+  c.ph = ph;
+  const int ph_int = static_cast<int>(floorf(ph));
+  c.frac = ph - static_cast<float>(ph_int);
+  const int start_i = a.buf_offset[i] + min(ph_int, max(blen - 1, 0));
+  const int row0 = min(max(start_i >> 7, 0), a.n_rows - a.nw);
+  c.base = row0 << 7;
+  c.off = static_cast<float>(start_i - c.base);
+  return c;
+}
+
+// A layer's playhead after the block (the reference's mix.py:268-270).
+__device__ __forceinline__ float next_head(const LayerScalars& c, float blockf, bool loop,
+                                           bool strm) {
+  const float nh = __fmaf_rn(c.ed, blockf, c.p);
+  return (loop && !strm) ? float_mod(nh, c.lenf) : nh;
+}
 
 constexpr int kRun = 4;                            // consecutive frames a thread's FIR takes
 constexpr int kChainBatch = 16;                    // low-pass inputs loaded ahead of their fmas
@@ -227,7 +225,76 @@ __device__ __forceinline__ void fir_taps(const float* run, const float4* h4, int
   }
 }
 
-__global__ void __launch_bounds__(kSpatialThreads) audio_spatialise_kernel(
+// The in-window index arithmetic of one (layer, frame): the window
+// position li, its 16-sample chunk qi and offset u, and u's floor k0.
+struct Tap {
+  float u, k0;
+  int idx;
+};
+
+__device__ __forceinline__ Tap fetch_tap(const LayerScalars& c, float bf, float li_max) {
+  float li = __fmaf_rn(c.ed, bf, c.frac) + c.off;
+  li = fminf(fmaxf(li, 0.0f), li_max);
+  const int qi = static_cast<int>(floorf(li * 0.0625f));
+  Tap t;
+  t.u = li - 16.0f * static_cast<float>(qi);
+  t.k0 = floorf(t.u);
+  t.idx = c.base + 16 * qi + static_cast<int>(t.k0);
+  return t;
+}
+
+// The fetch of a thread's frames b = tid + 256 m of source s, as
+// audio_mix.py:audio_fetch_plain computes them: for each layer the
+// in-window position, its 16-sample chunk and offset, the lerp weights and
+// the range mask; then the layers summed in index order with their gains,
+// and the active mask.  Every pool load of every frame and layer is issued
+// before the first lerp; the index arithmetic runs again for the lerp
+// rather than holding its weights across the loads (registers, not time).
+__device__ __forceinline__ void fetch_frames(const SpatialiseArgs& a, int tid,
+                                             const LayerScalars (&c)[kMaxLayers], bool loop,
+                                             bool strm, float swh, bool act,
+                                             float (&xin)[kFrameLoads]) {
+  const int L = a.L, B = a.B;
+  float v0[kMaxLayers][kFrameLoads], v1[kMaxLayers][kFrameLoads];
+#pragma unroll
+  for (int l = 0; l < kMaxLayers; ++l) {
+#pragma unroll
+    for (int m = 0; m < kFrameLoads; ++m) {
+      const int b = tid + kSpatialThreads * m;
+      if (l < L && b < B) {
+        const int idx = fetch_tap(c[l], static_cast<float>(b), a.li_max).idx;
+        v0[l][m] = a.pool[idx];
+        v1[l][m] = a.pool[idx + 1];
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kFrameLoads; ++m) {
+    const int b = tid + kSpatialThreads * m;
+    const float bf = static_cast<float>(b);
+    float acc = 0.0f;
+#pragma unroll
+    for (int l = 0; l < kMaxLayers; ++l) {
+      if (l < L && b < B) {
+        const Tap t = fetch_tap(c[l], bf, a.li_max);
+        const float w0 = 1.0f - fabsf(t.u - t.k0);
+        const float w1 = 1.0f - fabsf(t.u - (t.k0 + 1.0f));
+        const bool in = strm ? __fmaf_rn(c[l].ed, bf, c[l].p) < swh - 1.0f
+                             : (loop || __fmaf_rn(c[l].ed, bf, c[l].ph) < c[l].lenf - 1.0f);
+        float v = __fmaf_rn(v1[l][m], w1, v0[l][m] * w0);
+        v = v * (in ? 1.0f : 0.0f);
+        acc = l == 0 ? v * c[l].gain : __fmaf_rn(v, c[l].gain, acc);
+      }
+    }
+    xin[m] = b < B ? acc * (act ? 1.0f : 0.0f) : 0.0f;
+  }
+}
+
+// Blocks an SM the register cap leaves room for: 4 x 256 threads at 64
+// registers, one wave of the client's 512 sources on 132 SMs.
+constexpr int kSpatialBlocksPerSm = 4;
+
+__global__ void __launch_bounds__(kSpatialThreads, kSpatialBlocksPerSm) audio_spatialise_kernel(
     const SpatialiseArgs a) {
   // The window [history | block]: frame 0 at the fixed, 16-byte aligned
   // word kMaxTaps of `win`, the history just before it.
@@ -235,52 +302,64 @@ __global__ void __launch_bounds__(kSpatialThreads) audio_spatialise_kernel(
   __shared__ __align__(16) float bx[kMaxBlock + kChainBatch];  // alpha x[b]
   __shared__ __align__(16) float2 hs[kMaxTaps];                // tap k: (left, right)
   __shared__ float s_peak[kSpatialThreads / 32];
+  __shared__ LayerScalars s_layer[kMaxLayers];
   const int s = blockIdx.x;
   const int tid = threadIdx.x;
-  const int B = a.B, T = a.T, H = T - 1;
+  const int B = a.B, T = a.T, H = T - 1, L = a.L;
   float* const block = win + kMaxTaps;   // frame b at block[b]
   float* const xs = block - H;           // window index i at xs[i]
-  // Every global load first, all in flight together.
+  // The fetch's loads first, all in flight together: the source's flags
+  // and layers (whose pool loads wait on them), the low-pass's coefficient,
+  // the history and the HRIR pair.
+  const bool loop = a.looping[s] != 0, strm = a.stream_mode[s] != 0, act = a.active[s] != 0;
+  const float swh = a.stream_write_head[s];
+  float head0 = 0.0f;
+  if (tid < L) {
+    const LayerScalars own = layer_scalars(a, s * L + tid, loop || strm);
+    s_layer[tid] = own;
+    const float nh = next_head(own, static_cast<float>(B), loop, strm);
+    a.new_playhead[s * L + tid] = nh;
+    head0 = nh;
+  }
   const float al = a.alpha[s];
-  const bool lp = a.use_lp[s] != 0, sp = a.spatial[s] != 0;
-  const float pgl = a.prev_gl[s], pgr = a.prev_gr[s];
-  const float dgl = a.gl[s] - pgl, dgr = a.gr[s] - pgr;
-  const float sg = a.send_gain != nullptr ? a.send_gain[s] : 0.0f;
+  const bool lp = a.use_lp[s] != 0;
   const int dir = a.use_hrtf ? a.dir_idx[s] : 0;
-  // The epilogue's inputs, for thread 0, which writes the level: loads
-  // only, no use before the level's reduction, so nothing here waits on
-  // them (a compare right after a load would stall warp 0 before it
-  // issues its samples' loads).
-  uint8_t e_fin = 0, e_loop = 0, e_strm = 0, e_act = 0, e_alive = 0, e_rm = 0;
-  float e_head = 0.0f, e_smooth = 0.0f;
-  int e_len = 0;
-  if (tid == 0) {
-    e_fin = a.finished[s];
-    e_loop = a.looping[s];
-    e_strm = a.stream_mode[s];
-    e_act = a.active[s];
-    e_head = a.new_heads[static_cast<long long>(s) * a.L];
-    e_len = a.buf_len[static_cast<long long>(s) * a.L];
-    e_smooth = a.smoothed_level[s];
-    e_alive = a.alive[s];
-    e_rm = a.remove_on_finish[s];
-  }
-  float xin[kFrameLoads];
-#pragma unroll
-  for (int m = 0; m < kFrameLoads; ++m) {
-    const int b = tid + kSpatialThreads * m;
-    xin[m] = b < B ? a.samples[s * B + b] : 0.0f;
-  }
   const float hv = tid < H ? a.hist[s * H + tid] : 0.0f;
-  const int b0 = kRun * tid;
-  float rp[kRun];
-#pragma unroll
-  for (int r = 0; r < kRun; ++r) rp[r] = a.ramp[min(b0 + r, B - 1)];
   if (a.use_hrtf && tid < T) {
     const float* h = a.bank + static_cast<long long>(dir) * 2 * T;
     hs[tid] = make_float2(h[tid], h[T + tid]);
   }
   if (tid < H) xs[tid] = hv;
+  __syncthreads();
+  LayerScalars c[kMaxLayers];
+#pragma unroll
+  for (int l = 0; l < kMaxLayers; ++l) {
+    if (l < L) c[l] = s_layer[l];
+  }
+  float xin[kFrameLoads];
+  fetch_frames(a, tid, c, loop, strm, swh, act, xin);
+  // What only the FIR, the ramps and the epilogue read: loaded behind the
+  // pool loads, in flight through the barrier and the chain, so they hold
+  // no registers across the fetch.
+  const bool sp = a.spatial[s] != 0;
+  const float pgl = a.prev_gl[s], pgr = a.prev_gr[s];
+  const float dgl = a.gl[s] - pgl, dgr = a.gr[s] - pgr;
+  const float sg = a.send_gain != nullptr ? a.send_gain[s] : 0.0f;
+  const int b0 = kRun * tid;
+  float rp[kRun];
+#pragma unroll
+  for (int r = 0; r < kRun; ++r) rp[r] = a.ramp[min(b0 + r, B - 1)];
+  // The epilogue's own inputs, for thread 0, which writes the level.
+  uint8_t e_fin = 0, e_alive = 0, e_rm = 0;
+  float e_smooth = 0.0f;
+  int e_len = 0;
+  if (tid == 0) {
+    e_fin = a.finished[s];
+    e_len = a.buf_len[static_cast<long long>(s) * L];
+    e_smooth = a.smoothed_level[s];
+    e_alive = a.alive[s];
+    e_rm = a.remove_on_finish[s];
+  }
 #pragma unroll
   for (int m = 0; m < kFrameLoads; ++m) {
     const int b = tid + kSpatialThreads * m;
@@ -367,8 +446,8 @@ __global__ void __launch_bounds__(kSpatialThreads) audio_spatialise_kernel(
     a.level[s] = level;
     // audio_mix.py:audio_epilogue_plain: a non-looping source finishes
     // when layer 0 passes its end; the level meter; the alive mask.
-    const bool fin = e_fin != 0 || (e_loop == 0 && e_strm == 0 && e_act != 0 &&
-                                    e_head >= static_cast<float>(e_len) - 1.0f);
+    const bool fin = e_fin != 0 || (!loop && !strm && act &&
+                                    head0 >= static_cast<float>(e_len) - 1.0f);
     const int S = gridDim.x;
     a.ep_out[s] = __fmaf_rn(level, 0.1f, e_smooth * 0.9f);
     bool* flags = reinterpret_cast<bool*>(a.ep_out + S);
@@ -491,47 +570,38 @@ __global__ void __launch_bounds__(kMixThreads) audio_downmix_kernel(
 
 }  // namespace
 
-extern "C" int audio_fetch(const float* pool, const int* buf_offset, const int* buf_len,
-                           const float* playhead, const float* eff_delta,
-                           const float* mix_factor, const uint8_t* looping,
-                           const uint8_t* stream_mode, const float* stream_write_head,
-                           const uint8_t* active, float* samples, float* new_playhead, int S,
-                           int L, int B, int nw, int n_rows, float li_max, void* stream) {
-  if (S > 0 && B > 0) {
-    const int threads = 128;
-    const dim3 grid((B + threads - 1) / threads, S);
-    audio_fetch_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        pool, buf_offset, buf_len, playhead, eff_delta, mix_factor, looping, stream_mode,
-        stream_write_head, active, samples, new_playhead, L, B, nw, n_rows, li_max);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int audio_spatialise(const float* samples, const float* lp_state, const float* alpha,
-                                const uint8_t* use_lp, const uint8_t* spatial,
-                                const float* hist, const float* bank, const int* dir_idx,
-                                const float* prev_gl, const float* prev_gr, const float* gl,
-                                const float* gr, const float* ramp, const float* gain,
-                                const float* send_gain, float* wl, float* wr, float* ws,
-                                float* lp_out, float* new_hist, float* level, int S, int B,
-                                int T, int use_hrtf, const uint8_t* finished,
-                                const uint8_t* looping, const uint8_t* stream_mode,
-                                const uint8_t* active, const float* new_heads,
-                                const int* buf_len, const float* smoothed_level,
-                                const uint8_t* alive, const uint8_t* remove_on_finish,
-                                float* ep_out, int L, void* stream) {
-  if (B < 1 || B > kMaxBlock || T > kMaxTaps || T < 1 || ep_out == nullptr || L < 1)
+// The wrapper's arguments in one host buffer of 8-byte slots
+// (kernels/audio_mix.py:_SPATIALISE_PACK): the fetch's pool, buf_offset,
+// buf_len, playhead, eff_delta, mix_factor, looping, stream_mode,
+// stream_write_head, active; lp_state, alpha, use_lp, spatial, hist, bank,
+// dir_idx, prev_gl, prev_gr, gl, gr, ramp, gain, send_gain (0: no send);
+// the epilogue's finished, smoothed_level, alive, remove_on_finish; out
+// wl, wr, ws, lp_out, new_hist, level, the epilogue's buffer,
+// new_playhead; S, B, T, L, nw, n_rows, use_hrtf; li_max as a double.
+extern "C" int audio_spatialise(const long long* v, void* stream) {
+  SpatialiseArgs a;
+  constexpr int kPtrs = 36;
+  static_assert(offsetof(SpatialiseArgs, B) == kPtrs * sizeof(void*), "36 pointers first");
+  memcpy(&a, v, kPtrs * sizeof(void*));
+  const long long S = v[kPtrs];
+  a.B = static_cast<int>(v[kPtrs + 1]);
+  a.T = static_cast<int>(v[kPtrs + 2]);
+  a.L = static_cast<int>(v[kPtrs + 3]);
+  a.nw = static_cast<int>(v[kPtrs + 4]);
+  a.n_rows = static_cast<int>(v[kPtrs + 5]);
+  a.use_hrtf = static_cast<int>(v[kPtrs + 6]);
+  double li_max;
+  memcpy(&li_max, v + kPtrs + 7, sizeof(double));
+  a.li_max = static_cast<float>(li_max);
+  if (S < 0 || a.B < 1 || a.B > kMaxBlock || a.T > kMaxTaps || a.T < 1 || a.L < 1 ||
+      a.L > kMaxLayers || a.nw < 1 || a.n_rows < a.nw)
     return static_cast<int>(cudaErrorInvalidValue);
-  const uintptr_t bases = reinterpret_cast<uintptr_t>(wl) | reinterpret_cast<uintptr_t>(wr) |
-                          reinterpret_cast<uintptr_t>(ws);
-  const SpatialiseArgs a{samples, lp_state, alpha, use_lp, spatial, hist, bank, dir_idx,
-                         prev_gl, prev_gr, gl, gr, ramp, gain, send_gain,
-                         wl, wr, ws, lp_out, new_hist, level,
-                         B, T, use_hrtf, (B % kRun == 0) && (bases % 16 == 0),
-                         finished, looping, stream_mode, active, new_heads, buf_len,
-                         smoothed_level, alive, remove_on_finish, ep_out, L};
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(a.wl) | reinterpret_cast<uintptr_t>(a.wr) |
+                          reinterpret_cast<uintptr_t>(a.ws);
+  a.vec4 = (a.B % kRun == 0) && (bases % 16 == 0);
   if (S > 0) {
-    audio_spatialise_kernel<<<S, kSpatialThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+    audio_spatialise_kernel<<<static_cast<int>(S), kSpatialThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

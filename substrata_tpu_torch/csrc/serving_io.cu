@@ -3,14 +3,33 @@
 //
 // KM (apply_tick_in) replaces substrata_tpu/physics/world.py:
 // _apply_transforms_wake (:305-325); plain twin:
-// substrata_tpu_torch/kernels/serving_io.py:apply_tick_in_plain.  One thread
-// per body.  Each block first stages the tick input's 128 slot ids and 64
-// wake regions in shared memory; a thread then finds its body among the
-// written rows (the host writes each slot at most once), applies the write,
-// and tests the regions on the new position.  What bounds it on the card:
-// bytes — it reads and writes the body's pose, velocities, awake flag and
-// sleep timer (~70 bytes a body); the 64 region tests are ~600 operations a
-// body against 10,240 x 70 = 0.7 MB.
+// substrata_tpu_torch/kernels/serving_io.py:apply_tick_in_plain.  A block
+// takes a tile of 64 consecutive bodies, four lanes a body.  Every global
+// load is issued first, together: the 64 wake regions (their centres and
+// radii, 256 words, one a lane, into shared memory), the 128 slot ids (one
+// a lane), the tile's contiguous runs of pos, quat, linvel and angvel
+// (lane k of the block takes word k of each run), and each body's flags,
+// timer and bound radius.  The lanes holding the slot ids then map the
+// tile in O(1): an id that lands in the tile (a negative one counted from
+// the end, as the reference's scatter counts it) records its row in a
+// shared table by atomicMax, so where two rows name one slot the last row
+// wins, as a serial scan of the rows would have it.  Only a written body's
+// lanes then read its row's pose and velocities, from global memory (a
+// serving tick writes a few bodies; staging the whole 8.7 KB input in
+// every block cost more than it saved).  Each body's four lanes test 16
+// of the 64 wake regions each, on the new position, with the squared
+// distance rounded as the jitted reference contracts it
+// (fma(d2, d2, fma(d1, d1, d0 d0))); the hit is an OR over the regions, so
+// their order is immaterial: a lane tests them four at a time, with no
+// branch between the four, and a warp stops once every lane has hit (a
+// padded region, radius -1e9, hits every finite body within 1e9 m, so a
+// serving tick's padded input ends the loop at once; a NaN or a 1e9 m
+// position still tests every region).  The pose and velocities go out as
+// the tile's contiguous runs again, each word taken from its write row or
+// from the loaded state; the outputs are one buffer [pos 3N | quat 4N |
+// linvel 3N | angvel 3N | sleep_timer N | awake N bytes].  What bounds it
+// on the card: bytes (~112 bytes a body read and written); 64 region tests
+// are ~700 operations a body.
 //
 // KN (digest_tblock) replaces _digest_core (:258-275) and _tblock_core
 // (:202-206); plain twin: serving_io.py:digest_tblock_plain.  One launch, a
@@ -48,61 +67,127 @@ constexpr int kORad = kOCtr + 3 * kTinR;
 constexpr int kEvk = 64, kEvt = 128, kHead = 200 + 2 * kEvt + 1;
 constexpr int kDynamic = 2;
 constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void apply_tick_in_kernel(
-    const float* __restrict__ pos, const float* __restrict__ quat,
-    const float* __restrict__ linvel, const float* __restrict__ angvel,
-    const bool* __restrict__ awake, const float* __restrict__ sleep_timer,
-    const bool* __restrict__ alive, const int* __restrict__ motion_type,
-    const float* __restrict__ bound_radius, const float* __restrict__ tin, int n,
-    float* __restrict__ o_pos, float* __restrict__ o_quat, float* __restrict__ o_lv,
-    float* __restrict__ o_av, bool* __restrict__ o_awake, float* __restrict__ o_sleep) {
-  __shared__ int s_idx[kTinK];
-  __shared__ float s_ctr[3 * kTinR], s_rad[kTinR];
-  for (int j = threadIdx.x; j < kTinK; j += blockDim.x) s_idx[j] = __float_as_int(tin[kOIdx + j]);
-  for (int j = threadIdx.x; j < 3 * kTinR; j += blockDim.x) s_ctr[j] = tin[kOCtr + j];
-  for (int j = threadIdx.x; j < kTinR; j += blockDim.x) s_rad[j] = tin[kORad + j];
+// KM's arguments (kernels/serving_io.py:_TICK_PACK, one 8-byte slot each).
+struct TickArgs {
+  const float *pos, *quat, *linvel, *angvel;
+  const bool* awake;
+  const float* sleep_timer;
+  const bool* alive;
+  const int* motion_type;
+  const float *bound_radius, *tin;
+  float* out;
+  int n;
+};
+
+constexpr int kTickBodies = 64;                         // bodies a block
+constexpr int kTickLanes = 4;                           // lanes a body's region tests
+constexpr int kTickThreads = kTickBodies * kTickLanes;  // 256
+constexpr int kRegWords = kORad + kTinR - kOCtr;        // centres [64, 3], then radii
+constexpr int kTickRound = 4;                           // region tests between votes
+static_assert(kRegWords == kTickThreads, "a lane a word of the regions");
+static_assert(kTinK <= kTickThreads, "a lane a slot id");
+static_assert(4 * kTickBodies <= kTickThreads, "a lane a word of the tile's quat run");
+
+__global__ void __launch_bounds__(kTickThreads) apply_tick_in_kernel(const TickArgs a) {
+  __shared__ float s_reg[kRegWords];
+  __shared__ float s_pos[3 * kTickBodies];
+  __shared__ int s_row[kTickBodies];
+  const int tid = threadIdx.x;
+  const int n = a.n, b0 = blockIdx.x * kTickBodies;
+  const int rows = min(kTickBodies, n - b0);
+  const int b = tid / kTickLanes, q = tid % kTickLanes;
+  const bool body = b < rows;
+  // Every global load first, all in flight together.
+  const float rv = a.tin[kOCtr + tid];
+  const int id = tid < kTinK ? __float_as_int(a.tin[kOIdx + tid]) : 0;
+  const bool in3 = tid < 3 * rows, in4 = tid < 4 * rows;
+  const float vp = in3 ? a.pos[3 * b0 + tid] : 0.0f;
+  const float vl = in3 ? a.linvel[3 * b0 + tid] : 0.0f;
+  const float va = in3 ? a.angvel[3 * b0 + tid] : 0.0f;
+  const float vq = in4 ? a.quat[4 * b0 + tid] : 0.0f;
+  const int i = b0 + b;
+  const bool dyn = body && a.alive[i] && a.motion_type[i] == kDynamic;
+  const float br = body ? a.bound_radius[i] : 0.0f;
+  const bool aw0 = body && q == 0 && a.awake[i];
+  const float st0 = body && q == 0 ? a.sleep_timer[i] : 0.0f;
+  if (tid < kTickBodies) s_row[tid] = -1;
   __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int row = -1;
-  for (int j = 0; j < kTinK; ++j)
-    if (s_idx[j] == i) row = j;
-  float p[3], q[4], lv[3], av[3];
-  const bool vel_row = row >= 0 && tin[kOVok + row] > 0.0f;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    p[k] = row >= 0 ? tin[kOPos + 3 * row + k] : pos[3 * i + k];
-    lv[k] = vel_row ? tin[kOLv + 3 * row + k] : linvel[3 * i + k];
-    av[k] = vel_row ? tin[kOAv + 3 * row + k] : angvel[3 * i + k];
+  s_reg[tid] = rv;
+  // Lane j holds slot id j; a negative id counts from the end, as the
+  // reference's scatter takes it (-1 is slot N - 1).
+  if (tid < kTinK) {
+    const unsigned rel = static_cast<unsigned>(id < 0 ? id + n : id) - static_cast<unsigned>(b0);
+    if (rel < static_cast<unsigned>(rows)) atomicMax(&s_row[rel], tid);
   }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) q[k] = row >= 0 ? tin[kORot + 4 * row + k] : quat[4 * i + k];
-  const bool aw = row >= 0 ? true : awake[i];
-  const float st = row >= 0 ? 0.0f : sleep_timer[i];
-  // Region wake on the new position (a -1e9 pad radius squares to 1e18 and
-  // so meets every body, as in the reference).
-  const float br = bound_radius[i];
-  bool hit = false;
-  for (int r = 0; r < kTinR; ++r) {
-    const float d0 = p[0] - s_ctr[3 * r + 0];
-    const float d1 = p[1] - s_ctr[3 * r + 1];
-    const float d2 = p[2] - s_ctr[3 * r + 2];
-    const float dd = d0 * d0 + d1 * d1 + d2 * d2;
-    const float rr = (s_rad[r] + br) + 0.3f;
-    hit = hit || dd <= rr * rr;
+  __syncthreads();
+
+  // The tile's runs of pose and velocities, word k of each by lane k; a
+  // written body's words from its row (its loads together), the new
+  // position also into shared memory for the region tests.
+  if (in3) {
+    const int r = s_row[tid / 3], c = tid % 3;
+    float np = vp, nl = vl, na = va;
+    if (r >= 0) {
+      const float wp = a.tin[kOPos + 3 * r + c], vok = a.tin[kOVok + r];
+      const float wl = a.tin[kOLv + 3 * r + c], wa = a.tin[kOAv + 3 * r + c];
+      np = wp;
+      if (vok > 0.0f) {
+        nl = wl;
+        na = wa;
+      }
+    }
+    s_pos[tid] = np;
+    float* o = a.out;
+    const long long w = 3LL * b0 + tid;
+    o[w] = np;
+    o[7LL * n + w] = nl;
+    o[10LL * n + w] = na;
   }
-  hit = hit && alive[i] && motion_type[i] == kDynamic;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    o_pos[3 * i + k] = p[k];
-    o_lv[3 * i + k] = lv[k];
-    o_av[3 * i + k] = av[k];
+  if (in4) {
+    const int r = s_row[tid >> 2];
+    a.out[3LL * n + 4LL * b0 + tid] = r >= 0 ? a.tin[kORot + 4 * r + (tid & 3)] : vq;
   }
+  __syncthreads();
+
+  // The region wake on the new position: lane q of a body tests regions
+  // q, q + 4, ...; lanes with nothing to test count as hit, so they never
+  // hold their warp in the loop.
+  const int row = body ? s_row[b] : -1;
+  float p[3];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) o_quat[4 * i + k] = q[k];
-  o_awake[i] = aw || hit;
-  o_sleep[i] = hit ? 0.0f : st;
+  for (int k = 0; k < 3; ++k) p[k] = body ? s_pos[3 * b + k] : 0.0f;
+  const float* ctr = s_reg;
+  const float* rad = s_reg + 3 * kTinR;
+  bool hit = !dyn;
+#pragma unroll 1
+  for (int k = 0; k < kTinR / kTickLanes; k += kTickRound) {
+    if (!hit) {
+      // A round of independent tests (no branch or vote between them).
+#pragma unroll
+      for (int j = 0; j < kTickRound; ++j) {
+        const int r = q + kTickLanes * (k + j);
+        const float d0 = p[0] - ctr[3 * r + 0];
+        const float d1 = p[1] - ctr[3 * r + 1];
+        const float d2 = p[2] - ctr[3 * r + 2];
+        const float dd = __fmaf_rn(d2, d2, __fmaf_rn(d1, d1, d0 * d0));
+        const float rr = (rad[r] + br) + 0.3f;
+        hit |= dd <= rr * rr;
+      }
+    }
+    if (__all_sync(kFull, hit)) break;
+  }
+  // Every lane shuffles (no short circuit: a lane that skips a shuffle
+  // leaves its partner reading an undefined value).
+  const bool h1 = __shfl_xor_sync(kFull, hit, 1);
+  hit = hit || h1;
+  const bool h2 = __shfl_xor_sync(kFull, hit, 2);
+  hit = (hit || h2) && dyn;
+  if (body && q == 0) {
+    reinterpret_cast<bool*>(a.out + 14LL * n)[i] = row >= 0 || aw0 || hit;
+    a.out[13LL * n + i] = (hit || row >= 0) ? 0.0f : st0;
+  }
 }
 
 // KN's arguments (kernels/serving_io.py:_DIGEST_PACK, one 8-byte slot each).
@@ -119,7 +204,6 @@ struct DigestArgs {
 
 constexpr int kWarps = kThreads / 32;   // a tile: kThreads slots, kWarps words
 constexpr int kRow = 14;                // the transform block's floats a body
-constexpr unsigned kFull = 0xffffffffu;
 
 // The last block's ordered selection of one class, by one warp.  The
 // class's total is a warp sum over its tile counts.  Then chunks of 32
@@ -334,17 +418,27 @@ __global__ void __launch_bounds__(kThreads) digest_tblock_kernel(const DigestArg
 
 }  // namespace
 
-extern "C" int apply_tick_in(const float* pos, const float* quat, const float* linvel,
-                             const float* angvel, const bool* awake, const float* sleep_timer,
-                             const bool* alive, const int* motion_type,
-                             const float* bound_radius, const float* tin, int n, float* o_pos,
-                             float* o_quat, float* o_lv, float* o_av, bool* o_awake,
-                             float* o_sleep, void* stream) {
-  if (n > 0) {
-    apply_tick_in_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        pos, quat, linvel, angvel, awake, sleep_timer, alive, motion_type, bound_radius, tin, n,
-        o_pos, o_quat, o_lv, o_av, o_awake, o_sleep);
+// The wrapper's arguments in one host buffer of 8-byte slots
+// (kernels/serving_io.py:_TICK_PACK): pos, quat, linvel, angvel, awake,
+// sleep_timer, alive, motion_type, bound_radius, tick_in, out, N.
+extern "C" int apply_tick_in(const long long* v, void* stream) {
+  TickArgs a;
+  a.pos = reinterpret_cast<const float*>(v[0]);
+  a.quat = reinterpret_cast<const float*>(v[1]);
+  a.linvel = reinterpret_cast<const float*>(v[2]);
+  a.angvel = reinterpret_cast<const float*>(v[3]);
+  a.awake = reinterpret_cast<const bool*>(v[4]);
+  a.sleep_timer = reinterpret_cast<const float*>(v[5]);
+  a.alive = reinterpret_cast<const bool*>(v[6]);
+  a.motion_type = reinterpret_cast<const int*>(v[7]);
+  a.bound_radius = reinterpret_cast<const float*>(v[8]);
+  a.tin = reinterpret_cast<const float*>(v[9]);
+  a.out = reinterpret_cast<float*>(v[10]);
+  a.n = static_cast<int>(v[11]);
+  if (a.n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.n > 0) {
+    apply_tick_in_kernel<<<(a.n + kTickBodies - 1) / kTickBodies, kTickThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,8 +14,8 @@ path went through the kernels.
   KB  static_contacts.py    csrc/static_contacts.cu  heightfield + trimesh contacts
   KC  solve.py              csrc/solve_contacts.cu   contact-solve iteration
   KD  integrate_triton.py   (Triton)                 forces, integration
-  KE  audio_mix.py          csrc/audio_mix.cu        audio fetch + resample
-  KF  audio_mix.py          csrc/audio_mix.cu        low-pass, HRIR, gain ramps, epilogue
+  KF  audio_mix.py          csrc/audio_mix.cu        audio fetch + resample (KE's before),
+                                                     low-pass, HRIR, gain ramps, epilogue
   KG  audio_mix.py          csrc/audio_mix.cu        downmix + reverb
   KH  ray_trace.py          csrc/ray_trace.cu        ray trace (bodies, hulls, heightfield,
                                                      trimesh)

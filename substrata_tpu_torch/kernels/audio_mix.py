@@ -1,25 +1,30 @@
-"""The spatial audio mix kernels (KE, KF, KG) and their plain twins.
+"""The spatial audio mix kernels (KF, KG) and their plain twins.
 
 Replace the device program ``substrata_tpu/audio/mix.py:mix_block``
-(:276) with ``_fetch_all`` (:201), in three launches per block:
+(:276) with ``_fetch_all`` (:201), in two launches per block after KAA's
+setup:
 
-  KE  audio_fetch           windowed fetch + linear-interp resample of the
-                            [S, L] layers, range masks, layer mix, new
-                            playheads (mix.py:201-272, :310-316);
-  KF  audio_spatialise      one-pole low-pass, 64-tap HRIR FIR per ear (or
-                            the pan path), per-source gain ramps, reverb
-                            send and level (mix.py:350-403, :412-414, :433),
-                            and KAA's epilogue (the finished flag, the
-                            level meter, the alive mask, :320-323,
-                            :434-444);
+  KF  audio_spatialise      the windowed fetch + linear-interp resample of
+                            the [S, L] layers, range masks, layer mix and
+                            new playheads (mix.py:201-272, :310-316; twin
+                            ``audio_fetch_plain``, KE's kernel before it
+                            was folded in), then the one-pole low-pass,
+                            64-tap HRIR FIR per ear (or the pan path),
+                            per-source gain ramps, reverb send and level
+                            (mix.py:350-403, :412-414, :433; twin
+                            ``audio_spatialise_plain``), and KAA's epilogue
+                            (the finished flag, the level meter, the alive
+                            mask, :320-323, :434-444);
   KG  audio_downmix_reverb  left/right/send sums over the sources in a fixed
                             order, the 4-line FDN, wet mix, master volume
                             and clip (mix.py:404-431).
 
-Each wrapper runs its ``*_plain`` twin for CPU tensors; for CUDA tensors it
-launches ``csrc/audio_mix.cu`` or raises.  The twins repeat the kernels'
-operations in the same order (sums over sources, layers and taps run in
-index order), so on the card a kernel and its twin agree to rounding.
+Each wrapper runs its plain twin for CPU tensors (KF's is
+``fetch_spatialise_plain``: the fetch's twin chained into the
+spatialiser's); for CUDA tensors it launches ``csrc/audio_mix.cu`` or
+raises.  The twins repeat the kernels' operations in the same order (sums
+over sources, layers and taps run in index order), so on the card a kernel
+and its twin agree to rounding.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import torch
 from substrata_tpu_torch.kernels import build
 from substrata_tpu_torch.maths.fp import float_mod, fma
 
-launches = {"audio_fetch": 0, "audio_spatialise": 0, "audio_downmix_reverb": 0}
+launches = {"audio_spatialise": 0, "audio_downmix_reverb": 0}
 
 # Householder feedback matrix of the reverb FDN (orthogonal, fully mixing)
 # and the send gain into each line; csrc/audio_mix.cu carries the same.
@@ -55,7 +60,7 @@ def _index_sum(parts):
 
 
 # ---------------------------------------------------------------------------
-# KE: fetch
+# The fetch (KF's first part)
 # ---------------------------------------------------------------------------
 
 def _li_max(nw: int) -> float:
@@ -109,38 +114,6 @@ def audio_fetch_plain(pool, buf_offset, buf_len, playhead, eff_delta, mix_factor
     new_playhead = fma(eff_delta, block, playhead)
     new_playhead = torch.where((looping & ~stream_mode)[:, None],
                                float_mod(new_playhead, lenf), new_playhead)
-    return samples, new_playhead
-
-
-def audio_fetch(pool, buf_offset, buf_len, playhead, eff_delta, mix_factor,
-                looping, stream_mode, stream_write_head, active, block: int, nw: int):
-    """KE: ``audio_fetch_plain`` for CPU tensors, ``csrc/audio_mix.cu``
-    for CUDA tensors."""
-    if pool.device.type == "cpu":
-        return audio_fetch_plain(pool, buf_offset, buf_len, playhead, eff_delta,
-                                 mix_factor, looping, stream_mode, stream_write_head,
-                                 active, block, nw)
-    dev = pool.device
-    s, nl = playhead.shape
-    if pool.dim() != 1 or pool.shape[0] % 128 or pool.shape[0] < nw * 128:
-        raise ValueError(f"pool: {tuple(pool.shape)} is not a flat multiple of 128 "
-                         f"rows holding at least {nw} rows")
-    for t, name, dt, shp in (
-            (pool, "pool", f32, pool.shape), (buf_offset, "buf_offset", i32, (s, nl)),
-            (buf_len, "buf_len", i32, (s, nl)), (playhead, "playhead", f32, (s, nl)),
-            (eff_delta, "eff_delta", f32, (s, nl)), (mix_factor, "mix_factor", f32, (s, nl)),
-            (looping, "looping", torch.bool, (s,)),
-            (stream_mode, "stream_mode", torch.bool, (s,)),
-            (stream_write_head, "stream_write_head", f32, (s,)),
-            (active, "active", torch.bool, (s,))):
-        build.check(t, name, dt, shp, dev)
-    samples = torch.empty((s, block), dtype=f32, device=dev)
-    new_playhead = torch.empty((s, nl), dtype=f32, device=dev)
-    build.launch("audio_fetch", pool, buf_offset, buf_len, playhead, eff_delta,
-                 mix_factor, looping, stream_mode, stream_write_head, active,
-                 samples, new_playhead, s, nl, block, nw, pool.shape[0] // 128,
-                 _li_max(nw))
-    launches["audio_fetch"] += 1
     return samples, new_playhead
 
 
@@ -225,82 +198,123 @@ def audio_epilogue_plain(finished, looping, stream_mode, active, new_heads, buf_
     return buf
 
 
-_SPATIALISE_NAMES = ("samples", "lp_state", "alpha", "use_lp", "spatial", "hrir_hist",
-                     "prev_gl", "prev_gr", "gl", "gr", "ramp", "gain")
+FETCH_NAMES = ("pool", "buf_offset", "buf_len", "playhead", "eff_delta", "mix_factor",
+               "looping", "stream_mode", "stream_write_head", "active")
 EPILOGUE_NAMES = ("finished", "looping", "stream_mode", "active", "new_heads", "buf_len",
                   "smoothed_level", "alive", "remove_on_finish")
+# The epilogue's fields KF takes beside the fetch's (which give it the
+# looping, streaming and active flags, the lengths and the new heads).
+EPILOGUE_OWN = ("finished", "smoothed_level", "alive", "remove_on_finish")
+_SPATIALISE_NAMES = ("lp_state", "alpha", "use_lp", "spatial", "hrir_hist", "prev_gl",
+                     "prev_gr", "gl", "gr", "ramp", "gain")
+MAX_LAYERS = 3      # csrc/audio_mix.cu:kMaxLayers
+
+
+def fetch_spatialise_plain(fetch, lp_state, alpha, use_lp, spatial, hrir_hist, bank, dir_idx,
+                           prev_gl, prev_gr, gl, gr, ramp, gain, send_gain, use_hrtf: bool,
+                           epilogue):
+    """KF's twin: ``audio_fetch_plain(*fetch)`` chained into
+    ``audio_spatialise_plain`` (with the epilogue's ``EPILOGUE_OWN`` fields
+    and the fetch's flags, lengths and new heads).  Returns
+    ``audio_spatialise_plain``'s seven outputs and the new playheads."""
+    samples, heads = audio_fetch_plain(*fetch)
+    _, _, buf_len, _, _, _, looping, stream_mode, _, active = fetch[:10]
+    finished, smoothed_level, alive, remove_on_finish = epilogue
+    out = audio_spatialise_plain(samples, lp_state, alpha, use_lp, spatial, hrir_hist, bank,
+                                 dir_idx, prev_gl, prev_gr, gl, gr, ramp, gain, send_gain,
+                                 use_hrtf, (finished, looping, stream_mode, active, heads,
+                                            buf_len, smoothed_level, alive, remove_on_finish))
+    return out + (heads,)
+
+
+_SPATIALISE_PACK = struct.Struct("=43qd")   # csrc/audio_mix.cu:audio_spatialise
 _spatialise_plans: dict = {}
 
 
 class _SpatialisePlan:
-    """KF's checks and output layout for one (S, B, T, send, epilogue
-    layers, device): the names, dtypes and shapes of the checked inputs
+    """KF's checks and output layout for one (S, B, T, L, send, pool
+    length, device): the names, dtypes and shapes of the checked inputs
     (the bank and the directions apart: their shapes are the bank's), and
-    the split of the two buffers a call allocates: wl, wr (and ws) [S, B];
-    lp_out [S], new_hist [S, T - 1], level [S] and the epilogue's 2 S
-    words (``epilogue_views``)."""
+    the split of the one buffer a call allocates: wl, wr (and ws) [S, B];
+    lp_out [S], new_hist [S, T - 1], level [S], the epilogue's 2 S words
+    (``epilogue_views``) and new_playhead [S, L]."""
 
-    def __init__(self, s, b, t, send, nl, device):
+    def __init__(self, s, b, t, nl, send, n_pool, device):
         self.device = device
         b8 = torch.bool
-        self.names = _SPATIALISE_NAMES + (("send_gain",) if send else ()) + EPILOGUE_NAMES
-        self.dtypes = (f32, f32, f32, b8, b8, f32, f32, f32, f32, f32, f32, f32) + (
-            (f32,) if send else ()) + (b8, b8, b8, b8, f32, i32, f32, b8, b8)
-        self.shapes = ((s, b), (s,), (s,), (s,), (s,), (s, t - 1), (s,), (s,), (s,), (s,),
-                       (b,), (s,)) + (((s,),) if send else ()) + (
-            ((s,),) * 4 + ((s, nl), (s, nl)) + ((s,),) * 3)
-        self.wide = [s * b] * (3 if send else 2)
-        self.narrow = [s, s * (t - 1), s, 2 * s]
+        self.names = FETCH_NAMES + _SPATIALISE_NAMES + (("send_gain",) if send else ()) \
+            + EPILOGUE_OWN
+        self.dtypes = (f32, i32, i32, f32, f32, f32, b8, b8, f32, b8) + (
+            f32, f32, b8, b8, f32, f32, f32, f32, f32, f32, f32) + ((f32,) if send else ()) + (
+            b8, f32, b8, b8)
+        self.shapes = ((n_pool,),) + ((s, nl),) * 5 + ((s,),) * 4 + (
+            (s,), (s,), (s,), (s,), (s, t - 1), (s,), (s,), (s,), (s,), (b,), (s,)) + (
+            ((s,),) if send else ()) + ((s,),) * 4
+        self.sizes = [s * b] * (3 if send else 2) + [s, s * (t - 1), s, 2 * s, s * nl]
+        self.n_rows = n_pool // 128
 
 
-def audio_spatialise(samples, lp_state, alpha, use_lp, spatial, hrir_hist, bank, dir_idx,
+def audio_spatialise(fetch, lp_state, alpha, use_lp, spatial, hrir_hist, bank, dir_idx,
                      prev_gl, prev_gr, gl, gr, ramp, gain, send_gain, use_hrtf: bool,
                      epilogue):
-    """KF: ``audio_spatialise_plain`` for CPU tensors, one block per source
-    of ``csrc/audio_mix.cu`` for CUDA tensors.  ``bank`` and ``dir_idx``
-    are read only with ``use_hrtf``; ``send_gain`` None skips the send.
+    """KF: ``fetch_spatialise_plain`` for CPU tensors; for CUDA tensors one
+    block per source of ``csrc/audio_mix.cu``, which fetches its own
+    frames, from one packed argument checked once per shape.
 
-    ``epilogue``, the mix's (finished, looping, stream_mode, active,
-    new_heads [S, L], buf_len [S, L], smoothed_level, alive,
-    remove_on_finish), is KAA's epilogue folded in: KF's blocks write its
-    buffer (``epilogue_views``), the call's seventh output, from the level
-    they compute (``audio_epilogue_plain`` after the twin on the CPU)."""
-    if samples.device.type == "cpu":
-        return audio_spatialise_plain(samples, lp_state, alpha, use_lp, spatial, hrir_hist,
-                                      bank, dir_idx, prev_gl, prev_gr, gl, gr, ramp, gain,
-                                      send_gain, use_hrtf, epilogue)
-    dev = samples.device
-    s, b = samples.shape
+    ``fetch`` is ``audio_fetch_plain``'s arguments (``FETCH_NAMES``, then
+    the block and the window rows ``nw``); ``bank`` and ``dir_idx`` are
+    read only with ``use_hrtf``; ``send_gain`` None skips the send;
+    ``epilogue`` is the mix's (finished, smoothed_level, alive,
+    remove_on_finish), the rest of KAA's epilogue folded in.  Returns
+    (wl, wr, ws, lp_out, new_hist, level, the epilogue's buffer
+    (``epilogue_views``), new_playhead [S, L]), views of one new buffer."""
+    if lp_state.device.type == "cpu":
+        return fetch_spatialise_plain(fetch, lp_state, alpha, use_lp, spatial, hrir_hist, bank,
+                                      dir_idx, prev_gl, prev_gr, gl, gr, ramp, gain, send_gain,
+                                      use_hrtf, epilogue)
+    if len(fetch) != len(FETCH_NAMES) + 2:
+        raise ValueError(f"fetch: {len(FETCH_NAMES)} tensors ({', '.join(FETCH_NAMES)}), "
+                         "the block and nw")
+    if len(epilogue) != len(EPILOGUE_OWN):
+        raise ValueError(f"epilogue: {len(EPILOGUE_OWN)} tensors ({', '.join(EPILOGUE_OWN)})")
+    pool, block, nw = fetch[0], fetch[10], fetch[11]
+    dev = lp_state.device
+    s, nl = lp_state.shape[0], fetch[3].shape[-1]
+    b = ramp.shape[0]
     t = hrir_hist.shape[1] + 1
-    if b > MAX_BLOCK or t > MAX_TAPS:
-        raise ValueError(f"KF takes up to {MAX_BLOCK} frames and {MAX_TAPS} taps "
-                         f"(got {b}, {t})")
+    if b > MAX_BLOCK or t > MAX_TAPS or block != b or not 1 <= nl <= MAX_LAYERS:
+        raise ValueError(f"KF takes up to {MAX_BLOCK} frames, {MAX_TAPS} taps and "
+                         f"{MAX_LAYERS} layers, the ramp's length the block's "
+                         f"(got {b}, {t}, {nl}; block {block})")
+    if pool.dim() != 1 or pool.shape[0] % 128 or not 0 < nw * 128 <= pool.shape[0]:
+        raise ValueError(f"pool: {tuple(pool.shape)} is not a flat multiple of 128 "
+                         f"rows holding at least {nw} rows")
     send = send_gain is not None
-    if len(epilogue) != len(EPILOGUE_NAMES):
-        raise ValueError(f"epilogue: {len(EPILOGUE_NAMES)} tensors ({', '.join(EPILOGUE_NAMES)})")
-    nl = epilogue[4].shape[-1]
-    plan = build.plan(_spatialise_plans, (s, b, t, send, nl, dev),
-                      lambda: _SpatialisePlan(s, b, t, send, nl, dev))
-    ins = (samples, lp_state, alpha, use_lp, spatial, hrir_hist, prev_gl, prev_gr, gl, gr,
-           ramp, gain) + ((send_gain,) if send else ()) + tuple(epilogue)
+    plan = build.plan(_spatialise_plans, (s, b, t, nl, send, pool.shape[0], dev),
+                      lambda: _SpatialisePlan(s, b, t, nl, send, pool.shape[0], dev))
+    ins = tuple(fetch[:10]) + (lp_state, alpha, use_lp, spatial, hrir_hist, prev_gl, prev_gr,
+                               gl, gr, ramp, gain) + ((send_gain,) if send else ()) \
+        + tuple(epilogue)
     build.check_all(plan.device, ins, plan.names, plan.dtypes, plan.shapes)
     if use_hrtf:
         build.check(bank, "bank", f32, tuple(bank.shape[:-2]) + (2, t), dev)
         build.check(dir_idx, "dir_idx", i32, (s,), dev)
-    wide = torch.empty((sum(plan.wide),), dtype=f32, device=dev).unsafe_split_with_sizes(
-        plan.wide)
-    wl, wr = wide[0].view(s, b), wide[1].view(s, b)
-    ws = wide[2].view(s, b) if send else None
-    narrow = torch.empty((sum(plan.narrow),), dtype=f32, device=dev).unsafe_split_with_sizes(
-        plan.narrow)
-    lp_out, new_hist, level, ep = narrow[0], narrow[1].view(s, t - 1), narrow[2], narrow[3]
-    build.launch("audio_spatialise", samples, lp_state, alpha, use_lp, spatial, hrir_hist,
-                 bank if use_hrtf else None, dir_idx if use_hrtf else None,
-                 prev_gl, prev_gr, gl, gr, ramp, gain, send_gain,
-                 wl, wr, ws, lp_out, new_hist, level, s, b, t, int(bool(use_hrtf)),
-                 *epilogue, ep, nl)
+    out = torch.empty((sum(plan.sizes),), dtype=f32, device=dev).unsafe_split_with_sizes(
+        plan.sizes)
+    wl, wr = out[0].view(s, b), out[1].view(s, b)
+    ws = out[2].view(s, b) if send else None
+    lp_out, new_hist, level, ep, heads = out[-5], out[-4].view(s, t - 1), out[-3], out[-2], \
+        out[-1].view(s, nl)
+    ptrs = [x.data_ptr() for x in ins[:10]] + [x.data_ptr() for x in ins[10:15]] + [
+        bank.data_ptr() if use_hrtf else 0, dir_idx.data_ptr() if use_hrtf else 0] + [
+        x.data_ptr() for x in (prev_gl, prev_gr, gl, gr, ramp, gain)] + [
+        send_gain.data_ptr() if send else 0] + [x.data_ptr() for x in epilogue] + [
+        x.data_ptr() if x is not None else 0
+        for x in (wl, wr, ws, lp_out, new_hist, level, ep, heads)]
+    build.launch_packed("audio_spatialise", _SPATIALISE_PACK.pack(
+        *ptrs, s, b, t, nl, nw, plan.n_rows, int(bool(use_hrtf)), _li_max(nw)))
     launches["audio_spatialise"] += 1
-    return wl, wr, ws, lp_out, new_hist, level, ep
+    return wl, wr, ws, lp_out, new_hist, level, ep, heads
 
 
 # ---------------------------------------------------------------------------

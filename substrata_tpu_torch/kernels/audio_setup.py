@@ -10,8 +10,8 @@ mask) went into KF's source blocks, which hold the level it reads
 (``audio_mix.audio_spatialise(..., epilogue=...)``, twin
 ``audio_mix.audio_epilogue_plain``).
 
-``audio_setup`` returns ONE float32 buffer of (L + 9) * S words; KE and
-KF read its fields as views (``setup_views``).  It runs its twin for CPU
+``audio_setup`` returns ONE float32 buffer of (L + 9) * S words; KF
+reads its fields as views (``setup_views``).  It runs its twin for CPU
 tensors; for CUDA tensors it launches the kernel or raises.  The twin
 writes the same buffer, so the kernel and its twin compare word for
 word.

@@ -61,16 +61,15 @@ SIGNATURES = {
     # dlin_s, dang_s, block, tbl, w, im, out linvel, angvel, N, K, Q, WM,
     # CPB, warm, beta as a double), stream
     "solve_pass": [P, P],
-    # pool, buf_offset, buf_len, playhead, eff_delta, mix_factor, looping,
-    # stream_mode, stream_write_head, active, out samples, new_playhead,
-    # S, L, B, nw, n_rows, li_max, stream
-    "audio_fetch": [P] * 10 + [P] * 2 + [I] * 5 + [F] + [P],
-    # samples, lp_state, alpha, use_lp, spatial, hist, bank, dir_idx,
-    # prev_gl, prev_gr, gl, gr, ramp, gain, send_gain, out wl, wr, ws,
-    # lp_out, new_hist, level, S, B, T, use_hrtf; the folded epilogue's
-    # finished, looping, stream_mode, active, new_heads, buf_len,
-    # smoothed_level, alive, remove_on_finish, out, L; stream
-    "audio_spatialise": [P] * 15 + [P] * 6 + [I] * 4 + [P] * 10 + [I] + [P],
+    # one host buffer of 8-byte slots (kernels/audio_mix.py:_SPATIALISE_PACK:
+    # the fetch's pool, buf_offset, buf_len, playhead, eff_delta,
+    # mix_factor, looping, stream_mode, stream_write_head, active; lp_state,
+    # alpha, use_lp, spatial, hist, bank, dir_idx, prev_gl, prev_gr, gl, gr,
+    # ramp, gain, send_gain; the epilogue's finished, smoothed_level, alive,
+    # remove_on_finish; out wl, wr, ws, lp_out, new_hist, level, epilogue,
+    # new_playhead; S, B, T, L, nw, n_rows, use_hrtf; li_max as a double),
+    # stream
+    "audio_spatialise": [P, P],
     # one host buffer of 8-byte slots (kernels/audio_mix.py:_DOWNMIX_PACK:
     # wl, wr, ws, master_volume, lines, write_idx, delays, feedback, wet,
     # out, lines_out, write_idx_out, S, B, D, has_room), stream
@@ -108,10 +107,10 @@ SIGNATURES = {
     # GX, GY, cell cap (0 = no trimesh), 1 / cell_size as a double, out 9
     # character fields, packed), stream
     "character_update": [P, P],
+    # one host buffer of 8-byte slots (kernels/serving_io.py:_TICK_PACK:
     # pos, quat, linvel, angvel, awake, sleep_timer, alive, motion_type,
-    # bound_radius, tick_in, N, out pos, quat, linvel, angvel, awake,
-    # sleep_timer, stream
-    "apply_tick_in": [P] * 10 + [I] + [P] * 6 + [P],
+    # bound_radius, tick_in, out, N), stream
+    "apply_tick_in": [P, P],
     # one host buffer of 8-byte slots (kernels/serving_io.py:_DIGEST_PACK:
     # newly_awake, newly_asleep, entered_water, touching, pair_a, pair_b,
     # num_pairs, overflow, num_contacts, num_awake, steps_left, pos, quat,

@@ -3523,3 +3523,369 @@ def sleep_inputs(scene: SleepScene, device):
             table.to(device), sign.to(device), wm, 1.0 / 60.0,
             st.default_sim_params(device=device),
             torch.tensor(scene.steps_left, dtype=torch.int32, device=device))
+
+
+# ---------------------------------------------------------------------------
+# KM: tick input scenes.
+# ---------------------------------------------------------------------------
+
+TICK_IN_CASES = ("no_writes", "writes_128", "slot_n", "vel_mixed", "written_in_region",
+                 "all_padded", "one_padded", "all_real", "boundary", "nan_far",
+                 "motion_kinds", "n1", "n255", "n257", "n10240", "n65536")
+
+
+@dataclasses.dataclass
+class TickInScene:
+    """KM's inputs (numpy): the bodies (BodyState fields) and the tick
+    input (``serving_io``'s packed float32 buffer)."""
+    bodies: dict
+    tin: np.ndarray
+
+
+def _sphere_shell(rng, n, centre, radius):
+    """``n`` float32 points on a sphere, each coordinate then moved 0 to
+    3 ulps in or out at random."""
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    p = (np.asarray(centre, np.float64) + d * np.asarray(radius, np.float64)[:, None])
+    p = p.astype(np.float32)
+    for _ in range(3):
+        step = rng.integers(-1, 2, size=p.shape)
+        p = np.where(step > 0, np.nextafter(p, np.float32(np.inf)),
+                     np.where(step < 0, np.nextafter(p, np.float32(-np.inf)), p))
+    return p.astype(np.float32)
+
+
+def tick_in_scene(case: str, seed: int = 0) -> TickInScene:
+    """The inputs of one hard tick-input case, N = 2,048 bodies unless
+    named (``n{N}``: 1, 255, 257, 10,240 and 65,536 bodies, either side of
+    a 64-body tile and a 256-lane block, the bench world's and the
+    capacity tier's), 32 writes at random slots (velocities on half) and
+    64 real wake regions (radius 0.2-3 m) unless named:
+
+    - ``no_writes``: every slot = N (dropped);
+    - ``writes_128``: 128 writes, every row;
+    - ``slot_n``: rows naming N, N + 7, -1 and INT_MIN among the writes
+      (each dropped);
+    - ``vel_mixed``: 128 writes, vel_ok 1, 0, NaN and -1 in turn;
+    - ``written_in_region``: asleep dynamic bodies written into a region's
+      centre, and bodies written out of the region they sat in;
+    - ``all_padded``, ``one_padded``: every region padded (-1e9, as the
+      serving tick sends them), one of 64;
+    - ``all_real``: 64 real regions, no padding;
+    - ``boundary``: the bodies on spheres of radius (r + bound + 0.3)
+      about 8 regions, each coordinate a few ulps in or out, every body
+      asleep and dynamic: the squared distance's rounding decides the wake;
+    - ``nan_far``: NaN coordinates, bodies 1e9 m out and writes of both,
+      against 32 real and 32 padded regions;
+    - ``motion_kinds``: static, kinematic and dead bodies in regions, some
+      written.
+
+    Bodies are asleep 70% of the time, with random timers; 90% alive, 80%
+    of those dynamic; regions and bodies over +-30 m."""
+    if case not in TICK_IN_CASES:
+        raise ValueError(f"unknown tick-input case {case!r}")
+    from substrata_tpu_torch.kernels import serving_io as km
+    from substrata_tpu_torch.physics import state
+    rng = np.random.default_rng(seed)
+    n = int(case[1:]) if case[0] == "n" and case[1:].isdigit() else 2048
+    a = {k: v.numpy().copy() for k, v in vars(state.zero_body_state(n, device="cpu")).items()}
+    a["pos"][:] = rng.uniform(-30, 30, (n, 3))
+    q = rng.normal(size=(n, 4))
+    a["quat"][:] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    a["linvel"][:] = rng.normal(0.0, 2.0, (n, 3))
+    a["angvel"][:] = rng.normal(0.0, 2.0, (n, 3))
+    a["awake"][:] = rng.random(n) < 0.3
+    a["sleep_timer"][:] = rng.uniform(0, 1, n)
+    a["alive"][:] = rng.random(n) < 0.9
+    a["motion_type"][:] = np.where(rng.random(n) < 0.8, 2, rng.integers(0, 2, n))
+    a["bound_radius"][:] = rng.uniform(0.1, 1.0, n)
+    tin = km.empty_tick_in(n)
+    idx = tin[km.O_IDX:km.O_POS].view(np.int32)
+    pos = tin[km.O_POS:km.O_ROT].reshape(km.TIN_K, 3)
+    rot = tin[km.O_ROT:km.O_LV].reshape(km.TIN_K, 4)
+    vel = tin[km.O_LV:km.O_VOK]
+    vok = tin[km.O_VOK:km.O_CTR]
+    ctr = tin[km.O_CTR:km.O_RAD].reshape(km.TIN_R, 3)
+    rad = tin[km.O_RAD:]
+    k = 128 if case in ("writes_128", "vel_mixed") else min(32, n)
+    if case != "no_writes":
+        idx[:k] = rng.permutation(n)[:k]
+        pos[:k] = rng.uniform(-30, 30, (k, 3))
+        r = rng.normal(size=(k, 4)) if k else np.zeros((0, 4))
+        rot[:k] = r / np.linalg.norm(r, axis=1, keepdims=True) if k else r
+        vel[:6 * k] = rng.normal(0.0, 2.0, 6 * k)
+        vok[:k] = np.arange(k) % 2
+    ctr[:] = rng.uniform(-30, 30, (km.TIN_R, 3))
+    rad[:] = rng.uniform(0.2, 3.0, km.TIN_R)
+    if case == "slot_n":
+        idx[:4] = (n, n + 7, -1, np.iinfo(np.int32).min)
+    elif case == "vel_mixed":
+        vok[:k] = np.array([1.0, 0.0, np.nan, -1.0], np.float32)[np.arange(k) % 4]
+    elif case == "written_in_region":
+        inside = idx[:16]
+        a["awake"][inside] = False
+        a["motion_type"][inside] = 2
+        a["alive"][inside] = True
+        pos[:16] = ctr[:16]
+        out = idx[16:32]
+        a["pos"][out] = ctr[16:32]
+        pos[16:32] = ctr[16:32] + 500.0
+    elif case == "all_padded":
+        rad[:] = -1e9
+    elif case == "one_padded":
+        rad[37] = -1e9
+    elif case == "boundary":
+        rad[8:] = 0.5
+        ctr[8:] = rng.uniform(500, 600, (km.TIN_R - 8, 3))
+        a["awake"][:] = False
+        a["alive"][:] = True
+        a["motion_type"][:] = 2
+        which = rng.integers(0, 8, n)
+        br = a["bound_radius"]
+        reach = (rad[which] + br) + np.float32(0.3)
+        for j in range(8):
+            m = which == j
+            a["pos"][m] = _sphere_shell(rng, int(m.sum()), ctr[j], reach[m])
+        written = idx[:k]
+        pos[:k] = a["pos"][written]
+    elif case == "nan_far":
+        rad[32:] = -1e9
+        a["pos"][0::7, 0] = np.nan
+        a["pos"][1::7] = np.float32(1e9)
+        a["pos"][2::7, 2] = np.float32(-1e9)
+        pos[0] = (np.nan, 0.0, 0.0)
+        pos[1] = (1e9, 1e9, 1e9)
+    elif case == "motion_kinds":
+        a["motion_type"][:] = rng.integers(0, 3, n)
+        a["alive"][:] = rng.random(n) < 0.6
+        a["pos"][:64] = ctr[np.arange(64) % km.TIN_R]
+    bodies = {k_: np.ascontiguousarray(v) for k_, v in a.items()}
+    return TickInScene(bodies=bodies, tin=tin)
+
+
+def tick_in_inputs(scene: TickInScene, device):
+    """``apply_tick_in``'s arguments for ``scene`` on ``device``: (state,
+    tick input)."""
+    from substrata_tpu_torch import convert
+    return (convert.body_state_from_numpy(scene.bodies, device=device),
+            torch.as_tensor(scene.tin, device=device))
+
+
+# ---------------------------------------------------------------------------
+# KF's fetch: scenes, and the fetch that feeds KF's own scenes.
+# ---------------------------------------------------------------------------
+
+FETCH_CASES = ("l1", "l2", "l3", "len0_layer", "looping", "stream_head_in_block",
+               "negative_playhead", "past_end", "ed0", "ed_max", "row0_clamped", "li_max",
+               "inactive", "b16", "b256", "b800", "b1024", "s1", "s33", "s512")
+FETCH_POOL = 1 << 17
+FETCH_BUF = 20_000
+KF_ARGS = SPATIALISE_ARGS[1:]    # KF's arguments after the fetch
+
+
+@dataclasses.dataclass
+class FetchScene:
+    """KF's inputs with its fetch (numpy): ``fetch`` by ``FETCH_FIELDS``,
+    ``block``, ``kf`` by ``KF_ARGS``, ``use_hrtf`` and ``epilogue`` by
+    ``EPILOGUE_OWN`` (the port's ``audio_mix`` names them too; a parent
+    port run by the bench scripts may not)."""
+    fetch: dict
+    block: int
+    kf: dict
+    use_hrtf: bool
+    epilogue: dict
+
+
+def _kf_arrays(rng, s, b, t=64):
+    """KF's own inputs for ``s`` sources and ``b`` frames (as
+    ``spatialise_scene`` draws them, samples apart)."""
+    f32 = np.float32
+    na, ne = SPATIALISE_BANK
+    return dict(lp_state=rng.normal(0.0, 0.1, s).astype(f32),
+                alpha=rng.choice(np.array([0.1024, 0.3491, 1.0], f32), s),
+                use_lp=rng.random(s) < 0.5, spatial=rng.random(s) < 0.75,
+                hrir_hist=rng.normal(0.0, 0.1, (s, t - 1)).astype(f32),
+                bank=rng.normal(0.0, 0.2, (na, ne, 2, t)).astype(f32),
+                dir_idx=rng.integers(0, na * ne, s).astype(np.int32),
+                prev_gl=rng.uniform(0, 1, s).astype(f32), prev_gr=rng.uniform(0, 1, s).astype(f32),
+                gl=rng.uniform(0, 1, s).astype(f32), gr=rng.uniform(0, 1, s).astype(f32),
+                ramp=np.linspace(0.0, 1.0, b, dtype=f32), gain=rng.uniform(0, 1, s).astype(f32),
+                send_gain=rng.uniform(0, 1, s).astype(f32))
+
+
+def _epilogue_own(rng, s):
+    return dict(finished=rng.random(s) < 0.1, smoothed_level=rng.uniform(0, 1, s).astype(
+        np.float32), alive=rng.random(s) < 0.9, remove_on_finish=rng.random(s) < 0.5)
+
+
+def fetch_scene(case: str, seed: int = 0) -> FetchScene:
+    """64 sources of 3 layers and B = 256 frames unless named (``l{L}``:
+    1 to 3 layers; ``b{B}``: 16, 256, 800 and 1,024 frames; ``s{S}``: 1,
+    33 and 512 sources, B = 256, the client world's render block), over a
+    2^17-sample pool of two sines.  Layer 0 always plays, layers 1-2 of
+    a third of the sources too (mix sources), buffers of 4,000-20,000
+    samples, rates in [0.5, 2.4], playheads in [0, 3,000), a quarter
+    looping, an eighth streaming (write head 40-100 samples past the
+    playhead), 80% active:
+
+    - ``len0_layer``: layer 1 of every source with buf_len 0 and a
+      non-zero mix factor (its gain is 0);
+    - ``looping``: every source looping, playheads past their ends and
+      negative;
+    - ``stream_head_in_block``: every source streaming, the write head
+      inside the block;
+    - ``negative_playhead``, ``past_end``: playheads in [-600, 0) and
+      past buf_len - 1;
+    - ``ed0``, ``ed_max``: rates 0 and DELTA_MAX (2.5);
+    - ``row0_clamped``: buffers at the pool's end, so the window row
+      clamps at n_rows - nw;
+    - ``li_max``: rate DELTA_MAX from the pool's last rows, so the
+      in-window position clamps at li_max;
+    - ``inactive``: no source active."""
+    if case not in FETCH_CASES:
+        raise ValueError(f"unknown fetch case {case!r}")
+    from substrata_tpu_torch.audio import mix
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    s = int(case[1:]) if case[0] == "s" and case[1:].isdigit() else 64
+    b = int(case[1:]) if case[0] == "b" and case[1:].isdigit() else 256
+    nl = int(case[1:]) if case[0] == "l" and case[1:].isdigit() else 3
+    nw = mix.window_rows(b)
+    n_rows = FETCH_POOL // 128
+    i = np.arange(FETCH_POOL)
+    pool = (0.6 * np.sin(i * 0.03) + 0.3 * np.sin(i * 0.0071)).astype(f32)
+    buf_len = np.zeros((s, nl), np.int32)
+    buf_off = np.zeros((s, nl), np.int32)
+    head = np.zeros((s, nl), f32)
+    mixf = np.zeros((s, nl), f32)
+    mixf[:, 0] = 1.0
+    mixers = rng.random(s) < 1 / 3
+    for j in range(nl):
+        on = np.ones(s, bool) if j == 0 else mixers
+        buf_len[:, j] = np.where(on, rng.integers(4000, FETCH_BUF, s), 0)
+        buf_off[:, j] = rng.integers(0, FETCH_POOL - FETCH_BUF - 4000, s)
+        head[:, j] = rng.uniform(0, 3000, s)
+        if j:
+            mixf[:, j] = np.where(on, rng.uniform(0.2, 1.0, s), 0.0)
+    ed = rng.uniform(0.5, 2.4, (s, nl)).astype(f32)
+    looping = rng.random(s) < 0.25
+    stream = ~looping & (rng.random(s) < 1 / 6)
+    active = rng.random(s) < 0.8
+    swh = np.where(stream, head[:, 0] + rng.uniform(40, 100, s), 0.0).astype(f32)
+    if case == "len0_layer":
+        buf_len[:, 1] = 0
+        mixf[:, 1] = rng.uniform(0.2, 1.0, s)
+    elif case == "looping":
+        looping[:], stream[:] = True, False
+        head = np.where(rng.random((s, nl)) < 0.5, buf_len + rng.uniform(1, 500, (s, nl)),
+                        -rng.uniform(1, 500, (s, nl))).astype(f32)
+    elif case == "stream_head_in_block":
+        looping[:], stream[:] = False, True
+        swh = (head[:, 0] + rng.uniform(0, 1, s) * ed[:, 0] * b).astype(f32)
+    elif case == "negative_playhead":
+        head = rng.uniform(-600, 0, (s, nl)).astype(f32)
+    elif case == "past_end":
+        head = (buf_len + rng.uniform(-1, 300, (s, nl))).astype(f32)
+    elif case == "ed0":
+        ed[:] = 0.0
+    elif case == "ed_max":
+        ed[:] = mix.DELTA_MAX
+    elif case in ("row0_clamped", "li_max"):
+        top = (n_rows - nw) * 128
+        buf_off[:] = rng.integers(top - 300, top + (400 if case == "row0_clamped" else 900),
+                                  (s, nl))
+        head = np.where(looping[:, None], head, rng.uniform(0, 50, (s, nl))).astype(f32)
+        if case == "li_max":
+            ed[:] = mix.DELTA_MAX
+    elif case == "inactive":
+        active[:] = False
+    fetch = dict(pool=pool, buf_offset=buf_off, buf_len=buf_len, playhead=head, eff_delta=ed,
+                 mix_factor=mixf, looping=looping, stream_mode=stream, stream_write_head=swh,
+                 active=active)
+    return FetchScene(fetch=fetch, block=b, kf=_kf_arrays(rng, s, b), use_hrtf=True,
+                      epilogue=_epilogue_own(rng, s))
+
+
+def _fed(samples, ep, spat, use_hrtf, integer_heads):
+    """A FetchScene whose fetch feeds KF ``samples`` [S, B] and the
+    epilogue's fields ``ep`` (by EPILOGUE_FIELDS): layer 0 of each source
+    plays its own run of the pool, which holds that source's samples, at
+    rate 1 from the playhead head - B, so that the fetch's new head is the
+    case's (the heads' first column floored with ``integer_heads``: then
+    an in-range frame is the sample itself); layers past 0 read elsewhere
+    with mix factor 0.  The looping, streaming and active flags and the
+    lengths are the case's; a streaming source's write head lies past the
+    block."""
+    from substrata_tpu_torch.audio import mix
+    f32 = np.float32
+    s, b = samples.shape
+    nl = ep["new_heads"].shape[1]
+    rng = np.random.default_rng([s, b, nl])
+    h0 = ep["new_heads"][:, 0].astype(f32)
+    if integer_heads:
+        h0 = np.floor(h0)
+    p0 = (h0 - f32(b)).astype(f32)
+    stride = ((b + 1) // 128 + 2) * 128
+    base = 50_048 + np.arange(s) * stride
+    blen = ep["buf_len"].astype(np.int32)
+    wrap = ep["looping"] | ep["stream_mode"]
+    lenf = np.maximum(blen[:, 0].astype(f32), f32(1.0))
+    r = np.fmod(p0, lenf)
+    ph = np.where(wrap, np.where((r != 0) & ((r < 0) != (lenf < 0)), r + lenf, r), p0)
+    ph_int = np.floor(np.maximum(ph, f32(0.0))).astype(np.int64)
+    n_pool = -(-(int(base[-1]) + stride + (mix.window_rows(b) + 1) * 128) // 128) * 128
+    pool = np.zeros(n_pool, f32)
+    for k in range(s):
+        pool[base[k]:base[k] + b] = samples[k]
+    buf_off = np.zeros((s, nl), np.int32)
+    buf_off[:, 0] = base - np.minimum(ph_int, np.maximum(blen[:, 0] - 1, 0))
+    buf_off[:, 1:] = rng.integers(0, 50_000, (s, nl - 1))
+    head = rng.uniform(0, 3000, (s, nl)).astype(f32)
+    head[:, 0] = p0
+    ed = rng.uniform(0.5, 2.4, (s, nl)).astype(f32)
+    ed[:, 0] = 1.0
+    mixf = np.zeros((s, nl), f32)
+    mixf[:, 0] = 1.0
+    swh = np.where(ep["stream_mode"], p0 + f32(b + 10), f32(0.0)).astype(f32)
+    fetch = dict(pool=pool, buf_offset=buf_off, buf_len=blen, playhead=head, eff_delta=ed,
+                 mix_factor=mixf, looping=ep["looping"], stream_mode=ep["stream_mode"],
+                 stream_write_head=swh, active=ep["active"])
+    kf = {k: spat[k] for k in KF_ARGS}
+    return FetchScene(fetch=fetch, block=b, kf=kf, use_hrtf=use_hrtf,
+                      epilogue={k: ep[k] for k in EPILOGUE_OWN})
+
+
+def spatialise_fed(case: str, seed: int = 0) -> FetchScene:
+    """``spatialise_scene(case)`` as KF takes it now: its samples fed by a
+    fetch (``_fed``, integer heads) and its epilogue's own fields."""
+    sc = spatialise_scene(case, seed)
+    return _fed(sc.arrays["samples"], sc.epilogue, sc.arrays, sc.use_hrtf, True)
+
+
+def epilogue_fed(case: str, seed: int = 0) -> FetchScene:
+    """``epilogue_scene(case)`` as KF takes it now: its samples fed by a
+    fetch whose new layer-0 heads are the case's, to the bit (heads at
+    exactly buf_len - 1 and one ulp below stay so)."""
+    sc = epilogue_scene(case, seed)
+    return _fed(sc.spatialise["samples"], sc.epilogue, sc.spatialise, True, False)
+
+
+FETCH_FIELDS = ("pool", "buf_offset", "buf_len", "playhead", "eff_delta", "mix_factor",
+                "looping", "stream_mode", "stream_write_head", "active")
+EPILOGUE_OWN = ("finished", "smoothed_level", "alive", "remove_on_finish")
+
+
+def fetch_inputs(scene: FetchScene, device):
+    """``audio_spatialise``'s arguments for ``scene`` on ``device``: the
+    fetch tuple (``audio_fetch_plain``'s arguments: FETCH_FIELDS, the
+    block and nw), KF's arguments, ``use_hrtf``, the epilogue tuple
+    (EPILOGUE_OWN)."""
+    from substrata_tpu_torch.audio import mix
+
+    def t(x):
+        return None if x is None else torch.as_tensor(x, device=device)
+    fetch = tuple(t(scene.fetch[k]) for k in FETCH_FIELDS) + (
+        scene.block, mix.window_rows(scene.block))
+    return (fetch,) + tuple(t(scene.kf[k]) for k in KF_ARGS) + (
+        scene.use_hrtf, tuple(t(scene.epilogue[k]) for k in EPILOGUE_OWN))

@@ -27,7 +27,8 @@ and the [N, 14] float32 transform block (pos | quat | linvel | angvel |
 underwater) that ``sync_transforms`` reads.
 
 Each wrapper runs its plain twin for CPU tensors and launches
-``csrc/serving_io.cu`` for CUDA tensors.  KN is one launch over tiles of
+``csrc/serving_io.cu`` for CUDA tensors.  KM is one launch over tiles of
+64 bodies, its outputs views of one buffer.  KN is one launch over tiles of
 256 slots; its last block selects the first slots from the tiles' counts
 and bit words, which a plan per (N, P, device) keeps in a scratch buffer
 with the launch's ticket (zeroed once: the kernel resets it).
@@ -42,6 +43,7 @@ import torch
 
 from substrata_tpu_torch.kernels import build
 from substrata_tpu_torch.kernels.pairs import _compact as compact
+from substrata_tpu_torch.maths.fp import dot3
 
 TIN_K = 128          # transform-write rows per tick
 TIN_R = 64           # wake regions per tick
@@ -108,10 +110,13 @@ STATE_OUT = ("pos", "quat", "linvel", "angvel", "awake", "sleep_timer")
 
 
 def _scatter(x, idx, val):
-    """x[idx] = val with out-of-range rows dropped (a trash row)."""
+    """x[idx] = val as the reference's ``.at[idx].set(val, mode="drop")``:
+    a negative slot counts from the end (-1 is slot N - 1), and a slot
+    still outside [0, N) is dropped (a trash row)."""
     n = x.shape[0]
     buf = torch.cat([x, torch.zeros((1,) + tuple(x.shape[1:]), dtype=x.dtype,
                                     device=x.device)])
+    idx = torch.where(idx < 0, idx + n, idx)
     buf[torch.where((idx >= 0) & (idx < n), idx, n)] = val
     return buf[:n]
 
@@ -128,34 +133,62 @@ def apply_tick_in_plain(state, tin):
     angvel = _scatter(state.angvel, vidx, tin[O_AV:O_VOK].reshape(TIN_K, 3))
     awake = _scatter(state.awake, idx, True)
     sleep_timer = _scatter(state.sleep_timer, idx, 0.0)
+    # The squared distance as the jitted reference contracts its sum:
+    # fma(d2, d2, fma(d1, d1, d0 * d0)).
     d = pos[:, None, :] - tin[O_CTR:O_RAD].reshape(TIN_R, 3)[None]
-    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    d2 = dot3(d, d)
     r = tin[O_RAD:][None] + state.bound_radius[:, None] + 0.3
     hit = torch.any(d2 <= r * r, dim=1) & state.alive & state.dynamic
     return (pos, quat, linvel, angvel, awake | hit,
             torch.where(hit, 0.0, sleep_timer))
 
 
+_TICK_PACK = struct.Struct("=12q")     # csrc/serving_io.cu:apply_tick_in
+_tick_plans: dict = {}
+
+
+class _TickPlan:
+    """KM's checks and output layout for one (N, device): the inputs'
+    dtypes and shapes, and the one float32 buffer a call writes, [pos 3N |
+    quat 4N | linvel 3N | angvel 3N | sleep_timer N | awake N bytes]."""
+
+    def __init__(self, n, device):
+        f32, i32, bl = torch.float32, torch.int32, torch.bool
+        self.device = device
+        self.dtypes = (f32, f32, f32, f32, bl, f32, bl, i32, f32, f32)
+        self.shapes = ((n, 3), (n, 4), (n, 3), (n, 3), (n,), (n,), (n,), (n,), (n,),
+                       (TIN_TOTAL,))
+        self.size = 14 * n + (n + 3) // 4
+        self.n = n
+
+
+def tick_views(buf: torch.Tensor, n: int):
+    """KM's outputs as views of its buffer, in ``STATE_OUT``'s order (one
+    ``as_strided`` a field: a quarter of the host time of slicing, then
+    viewing)."""
+    a = buf.as_strided
+    return (a((n, 3), (3, 1), 0), a((n, 4), (4, 1), 3 * n), a((n, 3), (3, 1), 7 * n),
+            a((n, 3), (3, 1), 10 * n), buf.view(torch.bool).as_strided((n,), (1,), 56 * n),
+            a((n,), (1,), 13 * n))
+
+
 def apply_tick_in(state, tin):
     """KM: the tick input applied to the body state (a new BodyState).
-    ``apply_tick_in_plain`` for CPU tensors, ``csrc/serving_io.cu`` (one
-    thread per body) for CUDA tensors."""
+    ``apply_tick_in_plain`` for CPU tensors; for CUDA tensors one launch of
+    ``csrc/serving_io.cu`` from one packed argument, checked once per (N,
+    device), its six outputs views of one new buffer (the caller keeps the
+    old state)."""
     if state.pos.device.type == "cpu":
-        out = apply_tick_in_plain(state, tin)
-    else:
-        dev = state.pos.device
-        n = state.capacity
-        f32, i32, bl = torch.float32, torch.int32, torch.bool
-        spec = dict(pos=(f32, (n, 3)), quat=(f32, (n, 4)), linvel=(f32, (n, 3)),
-                    angvel=(f32, (n, 3)), awake=(bl, (n,)), sleep_timer=(f32, (n,)),
-                    alive=(bl, (n,)), motion_type=(i32, (n,)), bound_radius=(f32, (n,)))
-        for name in STATE_IN:
-            build.check(getattr(state, name), name, *spec[name], dev)
-        build.check(tin, "tick_in", f32, (TIN_TOTAL,), dev)
-        out = tuple(torch.empty_like(getattr(state, f)) for f in STATE_OUT)
-        build.launch("apply_tick_in", *(getattr(state, f) for f in STATE_IN), tin, n, *out)
-        launches["apply_tick_in"] += 1
-    return state.replace(**dict(zip(STATE_OUT, out)))
+        return state.replace(**dict(zip(STATE_OUT, apply_tick_in_plain(state, tin))))
+    n = state.capacity
+    plan = build.plan(_tick_plans, (n, state.pos.device), lambda: _TickPlan(n, state.pos.device))
+    ins = tuple(getattr(state, f) for f in STATE_IN) + (tin,)
+    build.check_all(plan.device, ins, STATE_IN + ("tick_in",), plan.dtypes, plan.shapes)
+    buf = torch.empty(plan.size, dtype=torch.float32, device=plan.device)
+    build.launch_packed("apply_tick_in",
+                        _TICK_PACK.pack(*(t.data_ptr() for t in ins), buf.data_ptr(), n))
+    launches["apply_tick_in"] += 1
+    return state.replace(**dict(zip(STATE_OUT, tick_views(buf, n))))
 
 
 # --- KN ---------------------------------------------------------------------

@@ -106,7 +106,7 @@ STAGES = STEP_STAGES + [(serving_io, "digest_tblock")]
 # KS-KV by prefix).
 PORT_KERNELS = ("box_box_rows_kernel", "static_contacts_kernel", "solve_rows_kernel",
                 "solve_bodies_kernel", "apply_forces_kernel", "integrate_kernel",
-                "audio_fetch_kernel", "audio_spatialise_kernel", "audio_downmix_kernel",
+                "audio_spatialise_kernel", "audio_downmix_kernel",
                 "ray_trace_kernel", "particles_kernel", "vehicle_forces_kernel",
                 "closed_form_buckets_kernel", "character_kernel", "apply_tick_in_kernel",
                 "digest_tblock_kernel", "convex_buckets_kernel", "cell_clear_kernel",
@@ -115,7 +115,7 @@ PORT_KERNELS = ("box_box_rows_kernel", "static_contacts_kernel", "solve_rows_ker
                 "layout_", "positions_", "sleep_", "heights_kernel", "chunks_kernel",
                 "scatter_kernel", "spawn_kernel", "pose_kernel", "audio_setup_kernel",
                 "vehicle_setup_kernel", "vehicle_deltas_kernel")
-AUDIO_STAGES = [(mix, "prepare"), (audio_mix, "audio_fetch"), (audio_mix, "audio_spatialise"),
+AUDIO_STAGES = [(mix, "prepare"), (audio_mix, "audio_spatialise"),
                 (audio_mix, "audio_downmix_reverb")]
 FULL_STAGES = [(broadphase, "build_cell_table"), (benchworld, "vehicles_update"),
                (queries, "trace_rays"), (kveh, "vehicle_forces"),
@@ -144,7 +144,7 @@ CLIENT_STAGES = [(client_app_mod.ClientApp, "_readback_active_objects"),
                  (kvsetup, "vehicle_setup"), (kvsetup, "vehicle_scatter"),
                  (kveh, "vehicle_forces"), (ObjectScriptsEvaluator, "evaluate"),
                  (AudioEngine, "render_block"), (kasetup, "audio_setup"),
-                 (audio_mix, "audio_fetch"), (audio_mix, "audio_spatialise"),
+                 (audio_mix, "audio_spatialise"),
                  (audio_mix, "audio_downmix_reverb")]
 
 

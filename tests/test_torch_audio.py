@@ -32,6 +32,7 @@ from substrata_tpu_torch.audio import engine as tengine
 from substrata_tpu_torch.audio import mix as tm
 from substrata_tpu_torch.audio.readers import read_sound_file, read_wav
 from substrata_tpu_torch.audio.resampler import AudioResampler, resample
+from substrata_tpu_torch.kernels import audio_mix as tkern
 
 torch.set_num_threads(2)
 
@@ -103,8 +104,9 @@ def as_np(state):
 
 @pytest.mark.parametrize("block", [256, 800])
 def test_fetch_matches_reference(block):
-    """The port's fetch (KE's twin) against _fetch_all plus the layer mix
-    of mix_block (mix.py:310-316), same eff_delta, Δ in [0.5, 2.5]."""
+    """The port's fetch (``audio_fetch_plain``, the twin of KF's fetch)
+    against _fetch_all plus the layer mix of mix_block (mix.py:310-316),
+    same eff_delta, Δ in [0.5, 2.5]."""
     a = sources_np(1)
     rng = np.random.default_rng(2)
     ed = rng.uniform(0.5, 2.5, (S, 3)).astype(np.float32)
@@ -120,8 +122,8 @@ def test_fetch_matches_reference(block):
 
     js, jh = ref(jax_sources(a), jnp.asarray(pool_np()), jnp.asarray(ed), jnp.asarray(active))
     tsrc = convert.sources_from_numpy(a, device="cpu")
-    ts, th = tm.fetch(torch.as_tensor(pool_np()), tsrc, torch.as_tensor(ed),
-                      torch.as_tensor(active), block)
+    ts, th = tkern.audio_fetch_plain(*tm.fetch_args(
+        torch.as_tensor(pool_np()), tsrc, torch.as_tensor(ed), torch.as_tensor(active), block))
     js, jh = np.asarray(js), np.asarray(jh)
     np.testing.assert_allclose(ts.numpy(), js, rtol=0, atol=1e-5)
     np.testing.assert_array_max_ulp(th.numpy(), jh, maxulp=1)

@@ -85,16 +85,23 @@ def _jepilogue(finished, looping, stream_mode, active, new_heads, buf_len, smoot
 
 @pytest.mark.parametrize("case", hard_cases.EPILOGUE_CASES)
 def test_epilogue_cases_twin_matches_reference(case):
+    # KF takes the case through a fetch whose new layer-0 heads are the
+    # case's (hard_cases.epilogue_fed); its CPU call is the twins chained.
     scene = hard_cases.epilogue_scene(case)
-    sargs, epi = hard_cases.epilogue_inputs(scene, "cpu")
-    out = kaudio.audio_spatialise(*sargs, epilogue=epi)
-    assert len(out) == 7
-    plain = kaudio.audio_spatialise_plain(*sargs, epi)
+    fed = hard_cases.epilogue_fed(case)
+    args = hard_cases.fetch_inputs(fed, "cpu")
+    out = kaudio.audio_spatialise(*args)
+    assert len(out) == 8
+    samples, heads = kaudio.audio_fetch_plain(*args[0])
+    f = args[0]
+    epi = (args[-1][0], f[6], f[7], f[9], heads, f[2]) + args[-1][1:]
+    plain = kaudio.audio_spatialise_plain(samples, *args[1:-1], epi)
     for x, y in zip(out[:6], plain[:6]):
         assert (x is None and y is None) or np.array_equal(_words(x.numpy()), _words(y.numpy()))
+    assert torch.equal(out[7], heads)
     level = plain[5]
     got = kaudio.epilogue_views(out[6], level.shape[0])
-    e = scene.epilogue
+    e = dict(scene.epilogue, new_heads=heads.numpy())
     fin, smooth, alive = _jepilogue(*(jnp.asarray(e[k]) for k in hard_cases.EPILOGUE_FIELDS),
                                     jnp.asarray(level.numpy()))
     np.testing.assert_array_equal(got["finished"].numpy(), np.asarray(fin))
@@ -251,32 +258,34 @@ def test_compact_plan_packs_and_checks(recorded, case):
 
 @pytest.mark.parametrize("case", ["s1", "s33", "l1", "nan_level"])
 def test_spatialise_epilogue_launch_args(recorded, case):
-    """KF with the epilogue folded in: its nine tensors, the epilogue
-    buffer and L follow the launch's 25 arguments; the buffer is [2 S]
-    words beside lp_out, new_hist and level; a bad epilogue raises before
-    a launch."""
-    scene = hard_cases.epilogue_scene(case)
-    sargs, epi = hard_cases.epilogue_inputs(scene, "cpu")
-    sargs, epi = _meta(sargs), _meta(epi)
-    s, nl = epi[4].shape
-    out = kaudio.audio_spatialise(*sargs, epilogue=epi)
-    assert len(out) == 7 and tuple(out[6].shape) == (2 * s,) and out[6].dtype == torch.float32
-    name, v = recorded[-1]
-    assert name == "audio_spatialise" and len(v) == 36
-    assert all(x is y for x, y in zip(v[25:34], epi)) and v[34] is out[6] and v[35] == nl
-    assert v[20] is out[5]
+    """KF with the epilogue folded in: the epilogue's four own tensors
+    follow the fetch's and KF's pointers in the packed launch, its buffer
+    is [2 S] words beside lp_out, new_hist and level (one buffer with the
+    new playheads); a bad epilogue raises before a launch."""
+    fed = hard_cases.epilogue_fed(case)
+    args = _meta(hard_cases.fetch_inputs(fed, "cpu"))
+    epi = args[-1]
+    s, nl = fed.fetch["playhead"].shape
+    out = kaudio.audio_spatialise(*args)
+    assert len(out) == 8 and tuple(out[6].shape) == (2 * s,) and out[6].dtype == torch.float32
+    name, packed = recorded[-1]
+    v = kaudio._SPATIALISE_PACK.unpack(packed)
+    assert name == "audio_spatialise" and v[39] == nl
+    assert list(v[24:28]) == [t.data_ptr() for t in epi] and v[34] == out[6].data_ptr()
+    assert v[33] == out[5].data_ptr() and tuple(out[7].shape) == (s, nl)
     assert out[6].untyped_storage()._cdata == out[5].untyped_storage()._cdata \
         == out[3].untyped_storage()._cdata
     n_calls = len(recorded)
-    for k, bad in ((0, epi[0].int()), (4, epi[4][:, :1] if nl > 1 else epi[4].double()),
-                   (5, epi[5].float()), (6, torch.empty((s + 1,), device="meta"))):
+    for k, bad in ((0, epi[0].int()), (1, epi[1].double()), (2, epi[2][:-1] if s > 1 else
+                                                             epi[2].float()),
+                   (3, torch.empty((s + 1,), dtype=torch.bool, device="meta"))):
         e = list(epi)
         e[k] = bad
         with pytest.raises((TypeError, ValueError)):
-            kaudio.audio_spatialise(*sargs, epilogue=tuple(e))
+            kaudio.audio_spatialise(*args[:-1], tuple(e))
     with pytest.raises(ValueError):
-        kaudio.audio_spatialise(*sargs, epilogue=epi[:8])
+        kaudio.audio_spatialise(*args[:-1], epi[:3])
     assert len(recorded) == n_calls
     # The epilogue is part of every call: there is no call without it.
     with pytest.raises(TypeError):
-        kaudio.audio_spatialise(*sargs)
+        kaudio.audio_spatialise(*args[:-1])

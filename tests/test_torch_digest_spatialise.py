@@ -125,7 +125,7 @@ _jref_stage = jax.jit(_ref_stage, static_argnames=("use_hrtf",))
 def test_spatialise_scene_twin_matches_reference(case):
     scene = hard_cases.spatialise_scene(case)
     args = hard_cases.spatialise_inputs(scene, "cpu")
-    got = kaudio.audio_spatialise(*args)
+    got = kaudio.audio_spatialise_plain(*args)
     jargs = [None if a is None else jnp.asarray(a.numpy()) for a in args[:-2]]
     want = _jref_stage(*jargs, use_hrtf=scene.use_hrtf)
     names = ("wl", "wr", "ws", "lp_out", "new_hist", "level")
@@ -150,7 +150,7 @@ def test_spatialise_scene_twin_matches_reference(case):
 def _meta(x):
     if isinstance(x, torch.Tensor):
         return torch.empty_like(x, device="meta")
-    if x is None or isinstance(x, bool):
+    if x is None or isinstance(x, (bool, int)):
         return x
     if isinstance(x, tuple):
         return tuple(_meta(y) for y in x)
@@ -215,33 +215,34 @@ def test_digest_plan_packs_and_checks(recorded, case):
 
 @pytest.mark.parametrize("case", ["b255", "t1", "no_send", "no_hrtf"])
 def test_spatialise_launch_args_and_checks(recorded, case):
-    """KF's CUDA branch: the launch's sizes and pointers (None for what the
-    call has not), the folded epilogue's inputs, buffer and layers, the
-    outputs' shapes, and a bad argument raises before a launch."""
+    """KF's CUDA branch on the scene fed through a fetch
+    (``hard_cases.spatialise_fed``): the launch's sizes and pointers (0
+    for what the call has not), the outputs' shapes, and a bad argument
+    raises before a launch."""
     scene = hard_cases.spatialise_scene(case)
-    args = [_meta(x) for x in hard_cases.spatialise_inputs(scene, "cpu")]
+    args = _meta(hard_cases.fetch_inputs(hard_cases.spatialise_fed(case), "cpu"))
     s, b = scene.arrays["samples"].shape
     t = scene.arrays["hrir_hist"].shape[1] + 1
-    wl, wr, ws, lp_out, new_hist, level, ep = kaudio.audio_spatialise(*args)
-    name, v = recorded[-1]
-    assert name == "audio_spatialise" and len(v) == 36
-    assert v[21:25] == (s, b, t, int(scene.use_hrtf))
-    assert all(x is y for x, y in zip(v[25:34], args[-1]))
-    assert v[34] is ep and v[35] == scene.epilogue["new_heads"].shape[1]
+    wl, wr, ws, lp_out, new_hist, level, ep, heads = kaudio.audio_spatialise(*args)
+    name, packed = recorded[-1]
+    v = kaudio._SPATIALISE_PACK.unpack(packed)
+    assert name == "audio_spatialise" and len(v) == 44
+    assert v[36:39] == (s, b, t) and v[42] == int(scene.use_hrtf)
     assert [tuple(x.shape) for x in (wl, wr, lp_out, new_hist, level, ep)] == [
         (s, b), (s, b), (s,), (s, t - 1), (s,), (2 * s,)]
-    assert v[15] is wl and v[16] is wr and v[18] is lp_out and v[20] is level
+    assert v[28] == wl.data_ptr() and v[29] == wr.data_ptr() and v[31] == lp_out.data_ptr()
+    assert v[33] == level.data_ptr()
     if scene.use_hrtf:
-        assert v[6] is args[6] and v[7] is args[7]
+        assert v[15] == args[6].data_ptr() and v[16] == args[7].data_ptr()
     else:
-        assert v[6] is None and v[7] is None
+        assert v[15] == 0 and v[16] == 0
     if case == "no_send":
-        assert ws is None and v[14] is None and v[17] is None
+        assert ws is None and v[23] == 0 and v[30] == 0
     else:
-        assert tuple(ws.shape) == (s, b) and v[17] is ws
-    for k, bad, exc in ((0, args[0].double(), TypeError), (1, args[1][:-1], ValueError),
+        assert tuple(ws.shape) == (s, b) and v[30] == ws.data_ptr()
+    for k, bad, exc in ((1, args[1].double(), TypeError), (2, args[2][:-1], ValueError),
                         (3, torch.empty(s, device="meta"), TypeError),
-                        (12, torch.empty(b + 1, device="meta"), ValueError),
+                        (13, torch.empty(b + 1, device="meta"), ValueError),
                         (5, torch.empty((s, t), device="meta"), ValueError)):
         a = list(args)
         a[k] = bad
@@ -253,8 +254,8 @@ def test_spatialise_launch_args_and_checks(recorded, case):
         with pytest.raises(ValueError):
             kaudio.audio_spatialise(*a)
     big = list(args)
-    big[0] = torch.empty((s, kaudio.MAX_BLOCK + 1), device="meta")
-    big[12] = torch.empty(kaudio.MAX_BLOCK + 1, device="meta")
+    big[0] = args[0][:10] + (kaudio.MAX_BLOCK + 16, args[0][11])
+    big[12] = torch.empty(kaudio.MAX_BLOCK + 16, device="meta")
     with pytest.raises(ValueError):
         kaudio.audio_spatialise(*big)
     assert len(recorded) == 1

@@ -292,29 +292,43 @@ def audio(world):
     return src, pool, lis, room, st
 
 
+def _kf_vs_chain(args, what):
+    """KF (``audio_spatialise``, fetch folded in) against
+    ``fetch_spatialise_plain`` on the same CUDA tensors: every output to
+    the bit (the level and the smoothed level NaN where the twin's is),
+    the epilogue's fields through ``epilogue_views``.  Returns both
+    outputs."""
+    fk = kaudio.audio_spatialise(*args)
+    fp = kaudio.fetch_spatialise_plain(*args)
+    names = ("wl", "wr", "ws", "lp_out", "new_hist")
+    for name, x, y in zip(names, fk, fp):
+        if y is not None and y.numel():
+            assert float((x - y).abs().max()) <= 1e-5, (what, name)
+        assert _same_bits(x, y), (what, name)
+    assert _same_or_nan(fk[5], fp[5]), (what, "level")
+    assert _same_bits(fk[7], fp[7]), (what, "new_playhead")
+    s = fk[5].shape[0]
+    ek, ep = kaudio.epilogue_views(fk[6], s), kaudio.epilogue_views(fp[6], s)
+    assert torch.equal(ek["finished"], ep["finished"]), what
+    assert torch.equal(ek["alive"], ep["alive"]), what
+    assert _same_or_nan(ek["smoothed_level"], ep["smoothed_level"]), what
+    return fk, fp
+
+
 def test_audio_kernels_match_plain(audio):
+    """KF, which fetches its own frames, against the fetch's twin chained
+    into the spatialiser's (``fetch_spatialise_plain``), HRTF on and off;
+    KG against its twin."""
     src, pool, lis, room, st = audio
     b = TICK_FRAMES
-    fargs = (pool, src.buf_offset, src.buf_len, src.playhead, st.eff_delta, src.mix_factor,
-             src.looping, src.stream_mode, src.stream_write_head, st.active, b,
-             mix.window_rows(b))
-    sk, hk = kaudio.audio_fetch(*fargs)
-    sp, hp = kaudio.audio_fetch_plain(*fargs)
-    assert float((sk - sp).abs().max()) <= 1e-6 and float((hk - hp).abs().max()) <= 1e-6
-    assert float(sp.abs().max()) > 0.1
     for use_hrtf in (True, False):
-        epi = (src.finished, src.looping, src.stream_mode, st.active, hp, src.buf_len,
-               src.smoothed_level, src.alive, src.remove_on_finish)
-        sargs = (sp, src.lp_state, st.alpha, st.use_lp, src.spatial, src.hrir_hist,
-                 hrir_bank_tensor("cuda"), st.dir_idx, src.prev_gain_l, src.prev_gain_r,
-                 st.gl, st.gr, mix.gain_ramp(b, "cuda"), st.gain, st.send_gain, use_hrtf, epi)
-        fk = kaudio.audio_spatialise(*sargs)
-        fp = kaudio.audio_spatialise_plain(*sargs)
-        for x, y in zip(fk[:6], fp[:6]):
-            assert float((x - y).abs().max()) <= 1e-5, use_hrtf
-        ek, ep = (kaudio.epilogue_views(f[6], src.capacity) for f in (fk, fp))
-        for name in ("smoothed_level", "finished", "alive"):
-            assert torch.equal(ek[name], ep[name]), (use_hrtf, name)
+        args = (mix.fetch_args(pool, src, st.eff_delta, st.active, b), src.lp_state, st.alpha,
+                st.use_lp, src.spatial, src.hrir_hist, hrir_bank_tensor("cuda"), st.dir_idx,
+                src.prev_gain_l, src.prev_gain_r, st.gl, st.gr, mix.gain_ramp(b, "cuda"),
+                st.gain, st.send_gain, use_hrtf,
+                (src.finished, src.smoothed_level, src.alive, src.remove_on_finish))
+        fk, fp = _kf_vs_chain(args, f"bench, HRTF {use_hrtf}")
+        assert float(fp[0].abs().max()) > 0.01
     gargs = (fp[0], fp[1], fp[2], lis.master_volume, room.delay_lines, room.write_idx,
              room.delays, room.feedback, room.wet)
     gk = kaudio.audio_downmix_reverb(*gargs)
@@ -686,26 +700,37 @@ def test_digest_hard_cases(case):
 
 @pytest.mark.parametrize("case", hard_cases.SPATIALISE_CASES)
 def test_spatialise_hard_cases(case):
-    """KF against its twin on kernels/hard_cases.py's spatialise scenes:
-    every output (wl, wr, ws, lp_out, new_hist, level) within 1e-5 and
-    equal to the bit (the kernel repeats the twin's operations in order),
+    """KF against its twins chained on kernels/hard_cases.py's spatialise
+    scenes, fed through a fetch (``spatialise_fed``): every output
+    (wl, wr, ws, lp_out, new_hist, level, new_playhead) within 1e-5 and
+    equal to the bit (the kernel repeats the twins' operations in order),
     and the folded epilogue's three fields to the bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    args = hard_cases.spatialise_inputs(hard_cases.spatialise_scene(case), "cuda")
-    fk = kaudio.audio_spatialise(*args)
-    fp = kaudio.audio_spatialise_plain(*args)
-    for name, x, y in zip(("wl", "wr", "ws", "lp_out", "new_hist", "level"), fk, fp):
-        if y is None:
-            assert x is None, name
-            continue
-        if x.numel():
-            assert float((x - y).abs().max()) <= 1e-5, name
-        assert _same_bits(x, y), name
-    s = fk[5].shape[0]
-    ek, ep = kaudio.epilogue_views(fk[6], s), kaudio.epilogue_views(fp[6], s)
-    for name in ("smoothed_level", "finished", "alive"):
-        assert _same_bits(ek[name], ep[name]), name
+    _kf_vs_chain(hard_cases.fetch_inputs(hard_cases.spatialise_fed(case), "cuda"), case)
+
+
+@pytest.mark.parametrize("case", hard_cases.FETCH_CASES)
+def test_fetch_hard_cases(case):
+    """KF with its fetch against the twins chained on kernels/hard_cases.py's
+    fetch scenes: every output to the bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _kf_vs_chain(hard_cases.fetch_inputs(hard_cases.fetch_scene(case), "cuda"), case)
+
+
+@pytest.mark.parametrize("case", hard_cases.TICK_IN_CASES)
+def test_tick_in_hard_cases(case):
+    """KM against its twin on kernels/hard_cases.py's tick-input scenes,
+    every output word for word."""
+    from substrata_tpu_torch.kernels import serving_io as km
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    st, tin = hard_cases.tick_in_inputs(hard_cases.tick_in_scene(case), "cuda")
+    got = km.apply_tick_in(st, tin)
+    want = km.apply_tick_in_plain(st, tin)
+    for f, y in zip(km.STATE_OUT, want):
+        assert _same_bits(getattr(got, f), y), (case, f)
 
 
 @pytest.mark.parametrize("case", hard_cases.VEHICLE_CASES)
@@ -1833,19 +1858,14 @@ def test_audio_setup_kernels_match_plain(audio, use_hrtf):
         for name in ("gl", "gr"):
             assert float((k[name] - p[name]).abs().max()) <= 1e-6 * max(
                 1.0, float(p[name].abs().max())), name
-    # The epilogue, folded into KF, against KF's twin and the epilogue's.
-    samples, heads = mix.fetch(pool, src, p["eff_delta"], p["active"], b)
-    sargs = (samples, src.lp_state, p["alpha"], p["use_lp"], src.spatial, src.hrir_hist,
-             hrir_bank_tensor("cuda") if use_hrtf else None, p["dir_idx"] if use_hrtf else None,
-             src.prev_gain_l, src.prev_gain_r, p["gl"], p["gr"], mix.gain_ramp(b, "cuda"),
-             p["gain"], p["send_gain"], use_hrtf)
-    epi = (src.finished, src.looping, src.stream_mode, p["active"], heads, src.buf_len,
-           src.smoothed_level, src.alive, src.remove_on_finish)
-    ek = kaudio.epilogue_views(kaudio.audio_spatialise(*sargs, epilogue=epi)[6], s)
-    level = kaudio.audio_spatialise_plain(*sargs, epi)[5]
-    ep = kaudio.epilogue_views(kaudio.audio_epilogue_plain(*epi[:6], level, *epi[6:]), s)
-    for name in ("smoothed_level", "finished", "alive"):
-        assert torch.equal(ek[name], ep[name]), name
+    # The epilogue, folded into KF, against the twins chained.
+    _kf_vs_chain((mix.fetch_args(pool, src, p["eff_delta"], p["active"], b), src.lp_state,
+                  p["alpha"], p["use_lp"], src.spatial, src.hrir_hist,
+                  hrir_bank_tensor("cuda") if use_hrtf else None,
+                  p["dir_idx"] if use_hrtf else None, src.prev_gain_l, src.prev_gain_r,
+                  p["gl"], p["gr"], mix.gain_ramp(b, "cuda"), p["gain"], p["send_gain"],
+                  use_hrtf, (src.finished, src.smoothed_level, src.alive,
+                             src.remove_on_finish)), f"setup, HRTF {use_hrtf}")
 
 
 def test_vehicle_setup_kernels_match_plain(fulltick):
@@ -2155,21 +2175,11 @@ def test_compact_hard_cases(case):
 
 @pytest.mark.parametrize("case", hard_cases.EPILOGUE_CASES)
 def test_epilogue_hard_cases(case):
-    """KF with the epilogue folded in against ``audio_spatialise_plain``
-    and ``audio_epilogue_plain`` on kernels/hard_cases.py's epilogue
-    scenes: KF's outputs and the finished and alive flags to the bit, the
-    level and the smoothed level to the bit where they are numbers (NaN
-    where the twin's is)."""
+    """KF with the epilogue folded in against the twins chained on
+    kernels/hard_cases.py's epilogue scenes, fed through a fetch whose new
+    heads are the cases' (``epilogue_fed``): KF's outputs and the finished
+    and alive flags to the bit, the level and the smoothed level to the
+    bit where they are numbers (NaN where the twin's is)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    sargs, epi = hard_cases.epilogue_inputs(hard_cases.epilogue_scene(case), "cuda")
-    got = kaudio.audio_spatialise(*sargs, epilogue=epi)
-    plain = kaudio.audio_spatialise_plain(*sargs, epi)
-    for name, x, y in zip(("wl", "wr", "ws", "lp_out", "new_hist"), got, plain):
-        assert _same_bits(x, y), (case, name)
-    assert _same_or_nan(got[5], plain[5]), case
-    s = got[5].shape[0]
-    ek = kaudio.epilogue_views(got[6], s)
-    ep = kaudio.epilogue_views(kaudio.audio_epilogue_plain(*epi[:6], plain[5], *epi[6:]), s)
-    assert torch.equal(ek["finished"], ep["finished"]) and torch.equal(ek["alive"], ep["alive"])
-    assert _same_or_nan(ek["smoothed_level"], ep["smoothed_level"]), case
+    _kf_vs_chain(hard_cases.fetch_inputs(hard_cases.epilogue_fed(case), "cuda"), case)

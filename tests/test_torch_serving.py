@@ -211,8 +211,8 @@ def _tick_in_case(seed, n=256):
 
 @pytest.mark.parametrize("padded", [True, False])
 def test_apply_tick_in_matches_reference(padded):
-    """KM's twin against ``_apply_transforms_wake`` on 100 writes and 5
-    regions: exact.  With padding (the reference's -1e9 radius) every
+    """KM's twin against ``_apply_transforms_wake``, eager and jitted, on
+    100 writes and 5 regions: exact.  With padding (the reference's -1e9 radius) every
     dynamic body wakes; with all 64 regions real only those near a region
     do."""
     a, buf = _tick_in_case(3)
@@ -232,6 +232,16 @@ def test_apply_tick_in_matches_reference(padded):
     got = km.apply_tick_in(convert.body_state_from_numpy(a, device="cpu"), torch.as_tensor(buf))
     for f in km.STATE_OUT:
         np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(ref, f)), f)
+    # And the jitted form, the one the reference runs (its region test's
+    # sum of squares contracted into fmas: tests/test_torch_tickin_fetch.py).
+    jit = jworld._scatter_transforms_wake(
+        jstate.BodyState(**{k: jnp.asarray(a[k]) for k in FIELDS}),
+        jax.lax.bitcast_convert_type(j[km.O_IDX:km.O_POS], jnp.int32),
+        j[km.O_POS:km.O_ROT].reshape(-1, 3), j[km.O_ROT:km.O_LV].reshape(-1, 4),
+        j[km.O_LV:km.O_AV].reshape(-1, 3), j[km.O_AV:km.O_VOK].reshape(-1, 3),
+        j[km.O_VOK:km.O_CTR] > 0, j[km.O_CTR:km.O_RAD].reshape(-1, 3), j[km.O_RAD:])
+    for f in km.STATE_OUT:
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(jit, f)), f)
     awake = got.awake.numpy()
     assert awake[:200].all() == padded and awake.any()
 
